@@ -1,9 +1,9 @@
 """KV-cached decoding plumbing (the port of the serving half of
 ``apex1_tpu/models/generate.py``): the cache layout, the cache-aware
 attention the models call, and the ``(apply_fn, make_cache)`` decoder
-pair the serving engine drives. ``generate`` comes with the GPT-2
-training slice, ``beam_search`` and the speculative loop with the
-decode slice (ROADMAP.md queue A items 1 and 4).
+pair the serving engine drives. ``generate`` comes with the flash
+slice, ``beam_search`` and the speculative loop with the decode slice
+(ROADMAP.md queue A items 1b and 4).
 """
 
 from __future__ import annotations
@@ -45,7 +45,7 @@ def cached_attention(q, k_new, v_new, cache, cache_index, *,
       update is.
 
     Flash prefill (S > 1 without ``chunk_decode``) needs the causal
-    flash kernel, which the training slice ports.
+    flash kernel, which the flash slice ports.
     Returns (attn (B, H, S, D), new_cache_entry)."""
     if isinstance(cache, PagedCache):
         return paged_update_attend(q, k_new, v_new, cache, cache_index,
@@ -55,8 +55,8 @@ def cached_attention(q, k_new, v_new, cache, cache_index, *,
     if S > 1 and not chunk_decode:
         raise NotImplementedError(
             "cached_attention flash prefill needs causal flash attention "
-            "(TPU kernel row 3), which the GPT-2 training slice ports "
-            "(ROADMAP.md queue A item 1); use chunk_decode=True")
+            "(TPU kernel row 3), which the flash slice ports "
+            "(ROADMAP.md queue A item 1b); use chunk_decode=True")
     idx = int(cache_index)
     s_max = cache["k"].shape[2]
     # dynamic_update_slice clamps the start so the window fits
@@ -83,6 +83,7 @@ def _decoder(model, num_kv_heads: int, head_dim: int):
     ``positions``/``cache``/``cache_index`` cached forward."""
     cfg = model.cfg
 
+    @torch.no_grad()
     def apply_fn(tokens, cache, cache_index, *, positions=None,
                  chunk_decode=False, return_hidden=False):
         return model(tokens, positions=positions, cache=cache,

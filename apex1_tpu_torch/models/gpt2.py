@@ -1,9 +1,11 @@
 """GPT-2 (the port of ``apex1_tpu/models/gpt2.py``): pre-LN transformer
 with learned positions, tanh-GELU MLP and a weight-tied LM head.
 
-The serving slice ports the CACHED forward (``cache=`` given): the
-chunk-decode and decode steps the paged engine drives. The uncached
-forward needs causal flash attention, which the training slice ports.
+Two forwards: the CACHED one (``cache=`` given), the chunk-decode and
+decode steps the paged engine drives; and the uncached one with
+``use_flash=False``, the materialized scores through the fused causal
+softmax, which training runs (`gpt2_loss_fn`). The flash path
+(``use_flash=True`` without a cache) is still to port.
 
 Policy-aware as in the JAX package: parameters are stored fp32,
 activations and matmuls run in ``policy.compute_dtype`` (cast on use),
@@ -25,6 +27,8 @@ import torch.nn.functional as F
 from apex1_tpu_torch.core.policy import PrecisionPolicy, get_policy
 from apex1_tpu_torch.ops._common import resolve_device
 from apex1_tpu_torch.ops.layer_norm import layer_norm
+from apex1_tpu_torch.ops.softmax import scaled_upper_triang_masked_softmax
+from apex1_tpu_torch.ops.xentropy import softmax_cross_entropy_loss
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +40,7 @@ class GPT2Config:
     hidden_size: int = 768
     mlp_ratio: int = 4
     dropout: float = 0.0
+    use_flash: bool = True
     policy: PrecisionPolicy = dataclasses.field(
         default_factory=lambda: get_policy("O0"))
 
@@ -57,21 +62,36 @@ class GPT2Config:
         return GPT2Config(**defaults)
 
 
+class _TiedHead(torch.autograd.Function):
+    """fp32 logits ``h2 @ w.T`` from compute-dtype (R, H) ``h2`` and
+    (V, H) ``w``. Forward: products of half values summed in fp32
+    (``preferred_element_type=f32``); CUDA asks the matmul for an fp32
+    output, the CPU upcasts, which gives the same numbers. Backward as
+    JAX's transpose rule: the fp32 cotangent against the upcast other
+    operand, summed in fp32, rounded to the compute dtype."""
+
+    @staticmethod
+    def forward(ctx, h2, w):
+        ctx.save_for_backward(h2, w)
+        if h2.is_cuda and h2.dtype != torch.float32:
+            return torch.mm(h2, w.t(), out_dtype=torch.float32)
+        return h2.float() @ w.float().t()
+
+    @staticmethod
+    def backward(ctx, g):
+        h2, w = ctx.saved_tensors
+        dh = (g @ w.float()).to(h2.dtype) if ctx.needs_input_grad[0] \
+            else None
+        dw = (g.t() @ h2.float()).to(w.dtype) if ctx.needs_input_grad[1] \
+            else None
+        return dh, dw
+
+
 def head_logits(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """fp32 logits ``h @ w.T`` for (B, S, H) ``h`` and (V, H) ``w`` in
-    the compute dtype: products of bf16 values summed in fp32, with no
-    rounding of the result to bf16 (``preferred_element_type=f32``).
-    CUDA asks the matmul for an fp32 output; the CPU upcasts, which
-    gives the same numbers."""
+    """fp32 logits over ``w``'s rows for (B, S, H) ``h`` and (V, H)
+    ``w`` in the compute dtype (no rounding of the result to half)."""
     B, S, H = h.shape
-    h2 = h.reshape(B * S, H)
-    if h.dtype == torch.float32:
-        out = h2 @ w.float().t()
-    elif h.is_cuda:
-        out = torch.mm(h2, w.t(), out_dtype=torch.float32)
-    else:
-        out = h2.float() @ w.float().t()
-    return out.reshape(B, S, -1)
+    return _TiedHead.apply(h.reshape(B * S, H), w).reshape(B, S, -1)
 
 
 def _linear(fan_in: int, fan_out: int, device) -> nn.Linear:
@@ -123,9 +143,20 @@ class Block(nn.Module):
         qkv = _dense(self.qkv, self._norm("ln1", x), dtype)
         q, k, v = (t.reshape(B, S, nh, hd).transpose(1, 2)
                    for t in qkv.split(h, dim=-1))
-        attn, new_cache = cached_attention(
-            q, k, v, cache, cache_index, sm_scale=1.0 / math.sqrt(hd),
-            chunk_decode=chunk_decode)
+        new_cache = None
+        if cache is not None:
+            attn, new_cache = cached_attention(
+                q, k, v, cache, cache_index, sm_scale=1.0 / math.sqrt(hd),
+                chunk_decode=chunk_decode)
+        else:
+            # fp32 scores of the compute-dtype q, k (the upcast products
+            # are exact in fp32, as preferred_element_type=f32 gives
+            # them), the fused causal softmax, probs back to the compute
+            # dtype for PV
+            scores = q.float() @ k.float().transpose(-1, -2)
+            probs = scaled_upper_triang_masked_softmax(
+                scores, scale=1.0 / math.sqrt(hd))
+            attn = probs.to(dtype) @ v
         attn = attn.transpose(1, 2).reshape(B, S, h)
         x = x + _dense(self.proj, attn, dtype)
         y = _dense(self.fc_in, self._norm("ln2", x), dtype)
@@ -134,11 +165,12 @@ class Block(nn.Module):
 
 
 class GPT2(nn.Module):
-    """GPT-2 with the cached forward. Parameters are fp32 on
-    ``device`` (CUDA unless the caller names another; asking for CUDA
-    without a card raises), zero-initialized apart from the LN scales:
-    load weights with `apex1_tpu_torch.interop.gpt2_params_from_jax`,
-    or make random ones from a seed with `init_params`."""
+    """GPT-2. Parameters are fp32 on ``device`` (CUDA unless the caller
+    names another; asking for CUDA without a card raises),
+    zero-initialized apart from the LN scales: load weights with
+    `apex1_tpu_torch.interop.gpt2_params_from_jax`, or make random ones
+    from a seed with `init_params`. They take gradients; serving runs
+    under ``torch.inference_mode``/``no_grad`` and pays for none."""
 
     def __init__(self, cfg: GPT2Config, *, device=None):
         super().__init__()
@@ -153,7 +185,6 @@ class GPT2(nn.Module):
                                for _ in range(cfg.num_layers))
         self.lnf_scale = nn.Parameter(torch.ones(cfg.hidden_size, **kw))
         self.lnf_bias = nn.Parameter(torch.zeros(cfg.hidden_size, **kw))
-        self.requires_grad_(False)
 
     @property
     def device(self) -> torch.device:
@@ -162,38 +193,48 @@ class GPT2(nn.Module):
     def forward(self, tokens, *, positions=None, cache=None,
                 cache_index=None, chunk_decode=False,
                 return_hidden=False):
-        """Cached forward: (B, S) tokens at ``cache_index`` (scalar or
-        per-row (B,)) -> ``(logits, new_cache)``, logits fp32 over
-        ``padded_vocab`` (or the final hidden states in the compute
-        dtype with ``return_hidden``). ``positions`` (B, S) gathers the
-        learned positions per row; positions outside the table read
+        """(B, S) tokens -> fp32 logits over ``padded_vocab`` (or the
+        final hidden states in the compute dtype with
+        ``return_hidden``).
+
+        Without ``cache``: the whole sequence, causal, returns the
+        logits alone (``use_flash=False``; the flash path is not ported
+        yet). With ``cache``/``cache_index`` (scalar or per-row (B,)):
+        returns ``(logits, new_cache)``. ``positions`` (B, S) gathers
+        the learned positions per row; positions outside the table read
         NaN, as the JAX package's fill mode does."""
         cfg = self.cfg
-        if cache is None:
+        if cache is None and cfg.use_flash:
             raise NotImplementedError(
-                "the uncached GPT-2 forward needs causal flash attention "
-                "(TPU kernel row 3), which the GPT-2 training slice ports "
-                "(ROADMAP.md queue A item 1)")
+                "the uncached GPT-2 forward with use_flash=True needs "
+                "causal flash attention (TPU kernels 3-5), which the flash "
+                "slice ports (ROADMAP.md queue A item 1b); use "
+                "GPT2Config(use_flash=False)")
         dtype = cfg.policy.compute_dtype
         B, S = tokens.shape
         dev = self.device
-        if positions is None:
-            start = torch.as_tensor(cache_index, dtype=torch.int64,
-                                    device=dev)
-            positions = (start + torch.arange(S, device=dev)).expand(B, S)
-        positions = torch.as_tensor(positions, device=dev).long()
-        inside = (positions >= 0) & (positions < cfg.max_seq_len)
-        pos_emb = self.wpe[positions.clamp(0, cfg.max_seq_len - 1)]
-        pos_emb = torch.where(inside[..., None], pos_emb, float("nan"))
+        if positions is None and cache is None:
+            pos_emb = self.wpe[:S][None]
+        else:
+            if positions is None:
+                start = torch.as_tensor(cache_index, dtype=torch.int64,
+                                        device=dev)
+                positions = (start + torch.arange(S, device=dev)).expand(
+                    B, S)
+            positions = torch.as_tensor(positions, device=dev).long()
+            inside = (positions >= 0) & (positions < cfg.max_seq_len)
+            pos_emb = self.wpe[positions.clamp(0, cfg.max_seq_len - 1)]
+            pos_emb = torch.where(inside[..., None], pos_emb, float("nan"))
         x = self.wte[tokens.long()].to(dtype) + pos_emb.to(dtype)
         new_cache = {}
         for i, blk in enumerate(self.h):
-            x, new_cache[f"layer{i}"] = blk(x, cache[f"layer{i}"],
-                                            cache_index, chunk_decode)
+            x, new_cache[f"layer{i}"] = blk(
+                x, None if cache is None else cache[f"layer{i}"],
+                cache_index, chunk_decode)
         x = layer_norm(x, self.lnf_scale, self.lnf_bias)
-        if return_hidden:
-            return x.to(dtype), new_cache
-        return head_logits(x.to(dtype), self.wte.to(dtype)), new_cache
+        out = (x.to(dtype) if return_hidden
+               else head_logits(x.to(dtype), self.wte.to(dtype)))
+        return out if cache is None else (out, new_cache)
 
 
 def init_params(cfg: GPT2Config, seed: int) -> dict:
@@ -225,3 +266,32 @@ def init_params(cfg: GPT2Config, seed: int) -> dict:
             "ln2_bias": np.zeros((H,), np.float32),
             "fc_in": dense(H, F_), "fc_out": dense(F_, H)}
     return params
+
+
+def gpt2_loss_fn(model: GPT2, *, fuse_head: bool = True):
+    """``loss_fn(params, tokens) -> scalar`` for `Amp.make_train_step`:
+    the mean next-token cross-entropy (fp32 in the kernel), with the
+    model run on ``params`` (``{name: tensor}`` keyed like
+    ``model.named_parameters()``, usually the amp step's compute-dtype
+    casts) through ``torch.func.functional_call``.
+
+    ``fuse_head=False``: the materialized fp32 logits through
+    `softmax_cross_entropy_loss` (the JAX package's parity gold).
+    ``fuse_head=True`` (the JAX default) needs the fused LM-head
+    cross-entropy kernels, not ported yet. The JAX loss's further
+    arguments are not ported either: packed batches (``segment_ids``
+    need the flash path) and dropout (the BERT slice's kernels)."""
+    if fuse_head:
+        raise NotImplementedError(
+            "fuse_head=True needs the fused LM-head cross-entropy "
+            "(TPU kernels 7-11), which the linear-xent slice ports "
+            "(ROADMAP.md queue A item 1c); use fuse_head=False")
+
+    def loss_fn(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+        logits = torch.func.functional_call(model, params, (tokens,))
+        losses = softmax_cross_entropy_loss(
+            logits[:, :-1].float(), tokens[:, 1:],
+            num_classes=model.cfg.vocab_size)
+        return losses.mean()
+
+    return loss_fn

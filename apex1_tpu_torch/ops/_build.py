@@ -36,6 +36,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 
 #: C entry points and their argument types (pointers and the stream
@@ -43,6 +44,15 @@ _F = ctypes.c_float
 SIGNATURES = {
     "apex1_layer_norm_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I,
                              _P],
+    "apex1_layer_norm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                             _I, _I, _I, _I, _I, _P],
+    "apex1_softmax_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _L, _L, _L,
+                          _L, _I, _P],
+    "apex1_softmax_bwd": [_P, _P, _P, _L, _I, _F, _I, _P],
+    "apex1_xent_fwd": [_P, _P, _P, _P, _I, _I, _L, _L, _I, _I, _F, _F, _I,
+                       _I, _I, _P],
+    "apex1_xent_bwd": [_P, _P, _P, _P, _P, _I, _I, _L, _L, _I, _I, _F, _F,
+                       _I, _I, _I, _P],
     "apex1_paged_attend": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _I, _F, _I, _I, _P],
     "apex1_fused_sample": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P],

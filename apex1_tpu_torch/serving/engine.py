@@ -306,10 +306,12 @@ class Engine:
 
     # ---- the engine loop ------------------------------------------------
 
+    @torch.inference_mode()
     def step(self) -> int:
         """One engine iteration: admit -> one decode step over every
         occupied slot. Returns the number of active slots that decoded
-        (0 = idle)."""
+        (0 = idle). Runs under inference mode: serving records no
+        autograd graph."""
         self._admit_all()
         n_active = self._n_active
         if n_active:
