@@ -1,20 +1,23 @@
-"""KV-cached decoding plumbing (the port of the serving half of
-``apex1_tpu/models/generate.py``): the cache layout, the cache-aware
-attention the models call, and the ``(apply_fn, make_cache)`` decoder
-pair the serving engine drives. ``generate`` comes with the flash
-slice, ``beam_search`` and the speculative loop with the decode slice
-(ROADMAP.md queue A items 1b and 4).
+"""KV-cached decoding (the port of ``apex1_tpu/models/generate.py``):
+the cache layout, the cache-aware attention the models call, the
+``(apply_fn, make_cache)`` decoder pair the serving engine drives, and
+`generate`, the prefill + decode loop over a dense cache. ``beam_search``
+and the speculative loop come with the decode slice (ROADMAP.md queue A
+item 4).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from apex1_tpu_torch.ops._common import resolve_device
+from apex1_tpu_torch.ops.attention import flash_attention
 from apex1_tpu_torch.ops.paged_decode import (PagedCache, cache_attend,
-                                              paged_update_attend)
+                                              paged_update_attend,
+                                              sample_token, split)
 
 
 def init_cache(num_layers: int, batch: int, num_kv_heads: int,
@@ -30,8 +33,8 @@ def init_cache(num_layers: int, batch: int, num_kv_heads: int,
 
 
 def cached_attention(q, k_new, v_new, cache, cache_index, *,
-                     sm_scale: Optional[float] = None,
-                     chunk_decode: bool = False):
+                     sm_scale: Optional[float] = None, segment_ids=None,
+                     valid_start=None, chunk_decode: bool = False):
     """Attention through the KV cache. ``q``/``k_new``/``v_new``:
     (B, H, S, D)/(B, Hkv, S, D) for the current tokens.
 
@@ -39,24 +42,25 @@ def cached_attention(q, k_new, v_new, cache, cache_index, *,
       and attends them (`paged_update_attend`; ``cache_index`` scalar or
       per-row).
     - A dense entry {"k","v": (B, Hkv, S_max, D)} takes a scalar
-      ``cache_index``: decode (S == 1) or ``chunk_decode`` (query j sees
-      positions <= index + j; an empty cache at 0 is chunked prefill).
-      The new entry is a fresh copy, as the JAX package's functional
-      update is.
+      ``cache_index``. Prefill (S > 1 without ``chunk_decode``) must
+      start from an empty cache at index 0: it runs causal flash
+      attention over the current tokens (``segment_ids`` keep the
+      left-pad of a ragged batch apart) and writes them into the cache.
+      Decode (S == 1) or ``chunk_decode`` (query j sees positions <=
+      index + j; an empty cache at 0 is chunked prefill) attend the
+      cache, from each row's ``valid_start`` on when given. The new
+      entry is a fresh copy, as the JAX package's functional update is.
 
-    Flash prefill (S > 1 without ``chunk_decode``) needs the causal
-    flash kernel, which the flash slice ports.
+    The additive ``bias`` of the JAX function comes with the T5 slice.
     Returns (attn (B, H, S, D), new_cache_entry)."""
     if isinstance(cache, PagedCache):
+        if segment_ids is not None or valid_start is not None:
+            raise ValueError("PagedCache attention does not support "
+                             "segment_ids/valid_start")
         return paged_update_attend(q, k_new, v_new, cache, cache_index,
                                    sm_scale=sm_scale,
                                    chunk_decode=chunk_decode)
     S = q.shape[2]
-    if S > 1 and not chunk_decode:
-        raise NotImplementedError(
-            "cached_attention flash prefill needs causal flash attention "
-            "(TPU kernel row 3), which the flash slice ports "
-            "(ROADMAP.md queue A item 1b); use chunk_decode=True")
     idx = int(cache_index)
     s_max = cache["k"].shape[2]
     # dynamic_update_slice clamps the start so the window fits
@@ -64,8 +68,20 @@ def cached_attention(q, k_new, v_new, cache, cache_index, *,
     k_all, v_all = cache["k"].clone(), cache["v"].clone()
     k_all[:, :, start:start + S] = k_new.to(k_all.dtype)
     v_all[:, :, start:start + S] = v_new.to(v_all.dtype)
-    attn = cache_attend(q, k_all, v_all, idx, sm_scale=sm_scale)
-    return attn, {"k": k_all, "v": v_all}
+    new_entry = {"k": k_all, "v": v_all}
+    if S > 1 and not chunk_decode:
+        if idx != 0:
+            raise ValueError(
+                f"cached_attention prefill (S={S} > 1) requires an empty "
+                f"cache at cache_index 0, got {idx}: it attends only over "
+                f"the new tokens, so a non-empty cache would be silently "
+                f"ignored")
+        attn = flash_attention(q, k_new, v_new, causal=True,
+                               sm_scale=sm_scale, segment_ids=segment_ids)
+        return attn, new_entry
+    attn = cache_attend(q, k_all, v_all, idx, sm_scale=sm_scale,
+                        valid_start=valid_start)
+    return attn, new_entry
 
 
 def last_real_logits(logits, lengths):
@@ -78,16 +94,131 @@ def last_real_logits(logits, lengths):
     return torch.gather(logits, 1, idx)[:, 0]
 
 
+def generate(apply_fn: Callable, prompt_tokens, *, max_new_tokens: int,
+             cache, temperature: float = 0.0, top_k: Optional[int] = None,
+             rng=None, eos_id: Optional[int] = None, pad_id: int = 0,
+             vocab_size: Optional[int] = None, prompt_lens=None,
+             cache_start: int = 0, return_cache: bool = False):
+    """Prefill + decode loop: (B, max_new_tokens) int32 generated ids;
+    rows that emit ``eos_id`` are padded with ``pad_id`` afterwards.
+
+    ``apply_fn(tokens, cache, cache_index, **kw) -> (logits, cache)`` is
+    a decoder's cached forward (`gpt2_decoder`); the parameters live in
+    the model it closes over (the JAX function takes them as its second
+    argument). ``cache`` must hold ``cache_start + prompt +
+    max_new_tokens`` positions. ``rng`` is threefry key data
+    ``(k1, k2)`` (default ``key(0)``, i.e. (0, 0)), split once per token
+    as ``jax.random.split`` does in JAX's default (partitionable)
+    stream, so temperature sampling draws JAX's tokens.
+
+    ``prompt_lens`` (B,): ``prompt_tokens`` are right-padded ragged
+    prompts. Rows are left-aligned once so every row's last real token
+    sits at the last column; the pad prefix gets segment -1 at the
+    flash prefill and is masked by a per-row ``valid_start`` at decode,
+    and each row's positions count from its own start.
+    ``cache_start > 0`` continues from a cache already holding that
+    many positions (its prefill runs the chunk-decode mode).
+    ``return_cache=True`` returns ``(tokens, cache)``; the final token's
+    K/V is not in it. Neither combines with ``prompt_lens``.
+
+    The JAX function's ``lax.scan`` is a Python loop here: each step is
+    one forward of the model."""
+    B, S0 = prompt_tokens.shape
+    key = (0, 0) if rng is None else rng
+    s_max = next(iter(cache.values()))["k"].shape[2]
+    if s_max < cache_start + S0 + max_new_tokens:
+        raise ValueError(
+            f"cache holds {s_max} positions but this call needs "
+            f"cache_start + prompt + max_new_tokens = "
+            f"{cache_start + S0 + max_new_tokens}")
+    if return_cache and prompt_lens is not None:
+        raise ValueError(
+            "return_cache and prompt_lens cannot be combined: the "
+            "returned cache's left-pad slots hold garbage K/V that a "
+            "cache_start continuation would attend; produce "
+            "continuation caches from dense (non-ragged) prompts")
+    kw = {}
+    lens = None
+    if cache_start:
+        if prompt_lens is not None:
+            raise ValueError(
+                "cache_start (prefix caching) and prompt_lens (ragged "
+                "batches) cannot be combined: left-aligned rows would "
+                "shear against the shared cached prefix")
+        kw = dict(chunk_decode=True)
+    elif prompt_lens is not None:
+        prompt_tokens, kw, pad = _ragged_align(prompt_tokens, prompt_lens)
+        lens = S0 - pad
+    sample = dict(temperature=temperature, top_k=top_k,
+                  vocab_size=vocab_size)
+    logits, cache = apply_fn(prompt_tokens, cache, cache_start, **kw)
+    key, sub = split(key)
+    tok = sample_token(logits[:, -1], sub, **sample)
+    done = (torch.zeros(B, dtype=torch.bool, device=tok.device)
+            if eos_id is None else tok == eos_id)
+    out = [tok]
+    idx = cache_start + S0
+    for _ in range(max_new_tokens - 1):
+        dkw = {}
+        if lens is not None:
+            # per-row positions continue each row's own count; the
+            # scalar cache index advances uniformly past S0
+            dkw = dict(positions=(lens + (idx - S0))[:, None],
+                       valid_start=S0 - lens)
+        logits, cache = apply_fn(tok[:, None], cache, idx, **dkw)
+        key, sub = split(key)
+        new = sample_token(logits[:, -1], sub, **sample)
+        new = torch.where(done, torch.full_like(new, pad_id), new)
+        if eos_id is not None:
+            done = done | (new == eos_id)
+        out.append(new)
+        tok = new
+        idx += 1
+    toks = torch.stack(out, dim=1)
+    return (toks, cache) if return_cache else toks
+
+
+def _ragged_align(prompt_tokens, prompt_lens):
+    """Left-align a right-padded ragged batch and build the prefill
+    masking kwargs (the contract is documented on `generate`). Returns
+    ``(aligned_tokens, prefill_kw, pad)``, ``pad`` (B,) each row's
+    left-pad width (its decode-time ``valid_start``)."""
+    B, S0 = prompt_tokens.shape
+    lv = np.asarray(torch.as_tensor(prompt_lens).cpu())
+    if (lv < 1).any() or (lv > S0).any():
+        raise ValueError(
+            f"prompt_lens must lie in [1, {S0}] (the padded prompt "
+            f"width), got {lv.tolist()}")
+    dev = prompt_tokens.device
+    lens = torch.as_tensor(lv, dtype=torch.int64, device=dev)
+    pad = S0 - lens
+    col = torch.arange(S0, device=dev)[None, :]
+    # row b shifts right by pad_b; the wrapped-in entries land in the
+    # pad region and are masked
+    aligned = torch.gather(prompt_tokens, 1, (col - pad[:, None]) % S0)
+    # pad slots get segment -1, the padding convention of
+    # `pack_documents` and the cross-entropy's label >= 0
+    kw = dict(positions=torch.clamp(col - pad[:, None], min=0),
+              segment_ids=torch.where(col >= pad[:, None], 1, -1).to(
+                  torch.int32),
+              valid_start=pad)
+    return aligned, kw, pad
+
+
 def _decoder(model, num_kv_heads: int, head_dim: int):
     """Shared (apply_fn, make_cache) builder over a model with the
-    ``positions``/``cache``/``cache_index`` cached forward."""
+    ``positions``/``cache``/``cache_index`` cached forward; the
+    keyword-only ``segment_ids``/``valid_start`` carry the ragged
+    batch masking that ``generate(prompt_lens=...)`` supplies."""
     cfg = model.cfg
 
     @torch.no_grad()
     def apply_fn(tokens, cache, cache_index, *, positions=None,
-                 chunk_decode=False, return_hidden=False):
-        return model(tokens, positions=positions, cache=cache,
-                     cache_index=cache_index, chunk_decode=chunk_decode,
+                 segment_ids=None, valid_start=None, chunk_decode=False,
+                 return_hidden=False):
+        return model(tokens, positions=positions, segment_ids=segment_ids,
+                     cache=cache, cache_index=cache_index,
+                     valid_start=valid_start, chunk_decode=chunk_decode,
                      return_hidden=return_hidden)
 
     def make_cache(batch: int, max_len: int, dtype=None):

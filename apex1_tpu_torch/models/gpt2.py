@@ -1,11 +1,13 @@
 """GPT-2 (the port of ``apex1_tpu/models/gpt2.py``): pre-LN transformer
 with learned positions, tanh-GELU MLP and a weight-tied LM head.
 
-Two forwards: the CACHED one (``cache=`` given), the chunk-decode and
-decode steps the paged engine drives; and the uncached one with
-``use_flash=False``, the materialized scores through the fused causal
-softmax, which training runs (`gpt2_loss_fn`). The flash path
-(``use_flash=True`` without a cache) is still to port.
+Two forwards: the CACHED one (``cache=`` given): the chunk-decode and
+decode steps the paged engine drives, and `generate`'s flash prefill
+and decode steps on a dense cache; and the uncached one, which
+training runs (`gpt2_loss_fn`): causal flash attention with
+``use_flash=True`` (the default; packed batches through
+``segment_ids``/``positions``), or the materialized scores through the
+fused causal softmax with ``use_flash=False``.
 
 Policy-aware as in the JAX package: parameters are stored fp32,
 activations and matmuls run in ``policy.compute_dtype`` (cast on use),
@@ -26,9 +28,11 @@ import torch.nn.functional as F
 
 from apex1_tpu_torch.core.policy import PrecisionPolicy, get_policy
 from apex1_tpu_torch.ops._common import resolve_device
+from apex1_tpu_torch.ops.attention import flash_attention
 from apex1_tpu_torch.ops.layer_norm import layer_norm
 from apex1_tpu_torch.ops.softmax import scaled_upper_triang_masked_softmax
-from apex1_tpu_torch.ops.xentropy import softmax_cross_entropy_loss
+from apex1_tpu_torch.ops.xentropy import (masked_next_token_mean,
+                                          softmax_cross_entropy_loss)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,7 +137,8 @@ class Block(nn.Module):
             gamma, beta = gamma.to(dt), beta.to(dt)
         return layer_norm(z, gamma, beta)
 
-    def forward(self, x, cache, cache_index, chunk_decode):
+    def forward(self, x, cache, cache_index, chunk_decode, *,
+                segment_ids=None, valid_start=None):
         from apex1_tpu_torch.models.generate import cached_attention
         cfg = self.cfg
         dtype = cfg.policy.compute_dtype
@@ -147,8 +152,15 @@ class Block(nn.Module):
         if cache is not None:
             attn, new_cache = cached_attention(
                 q, k, v, cache, cache_index, sm_scale=1.0 / math.sqrt(hd),
+                segment_ids=segment_ids, valid_start=valid_start,
                 chunk_decode=chunk_decode)
+        elif cfg.use_flash:
+            attn = flash_attention(q, k, v, causal=True,
+                                   segment_ids=segment_ids,
+                                   sm_scale=1.0 / math.sqrt(hd))
         else:
+            if segment_ids is not None:
+                raise ValueError("packed batches need use_flash=True")
             # fp32 scores of the compute-dtype q, k (the upcast products
             # are exact in fp32, as preferred_element_type=f32 gives
             # them), the fused causal softmax, probs back to the compute
@@ -190,26 +202,32 @@ class GPT2(nn.Module):
     def device(self) -> torch.device:
         return self.wte.device
 
-    def forward(self, tokens, *, positions=None, cache=None,
-                cache_index=None, chunk_decode=False,
-                return_hidden=False):
+    def forward(self, tokens, *, positions=None, segment_ids=None,
+                cache=None, cache_index=None, valid_start=None,
+                chunk_decode=False, return_hidden=False,
+                deterministic=True):
         """(B, S) tokens -> fp32 logits over ``padded_vocab`` (or the
         final hidden states in the compute dtype with
         ``return_hidden``).
 
         Without ``cache``: the whole sequence, causal, returns the
-        logits alone (``use_flash=False``; the flash path is not ported
-        yet). With ``cache``/``cache_index`` (scalar or per-row (B,)):
-        returns ``(logits, new_cache)``. ``positions`` (B, S) gathers
-        the learned positions per row; positions outside the table read
-        NaN, as the JAX package's fill mode does."""
+        logits alone. ``segment_ids`` (B, S) with ``positions`` (B, S)
+        run a packed batch (`runtime.pack_documents`): tokens attend
+        within their segment (``use_flash=True`` only). With
+        ``cache``/``cache_index`` (scalar or per-row (B,)): returns
+        ``(logits, new_cache)``; there ``segment_ids``/``valid_start``
+        carry the ragged left-padded prompt masking of
+        ``generate(prompt_lens=...)``. ``positions`` gathers the learned
+        positions per row; positions outside the table read NaN, as the
+        JAX package's fill mode does. ``deterministic=False`` with
+        ``cfg.dropout > 0`` (training dropout) raises: its kernels come
+        with the BERT slice."""
         cfg = self.cfg
-        if cache is None and cfg.use_flash:
+        if cfg.dropout > 0.0 and not deterministic and cache is None:
             raise NotImplementedError(
-                "the uncached GPT-2 forward with use_flash=True needs "
-                "causal flash attention (TPU kernels 3-5), which the flash "
-                "slice ports (ROADMAP.md queue A item 1b); use "
-                "GPT2Config(use_flash=False)")
+                "GPT-2 dropout (in-kernel attention dropout and the fused "
+                "bias-dropout-add, TPU kernels 14-15) comes with the BERT "
+                "slice (ROADMAP.md queue A item 3)")
         dtype = cfg.policy.compute_dtype
         B, S = tokens.shape
         dev = self.device
@@ -230,7 +248,8 @@ class GPT2(nn.Module):
         for i, blk in enumerate(self.h):
             x, new_cache[f"layer{i}"] = blk(
                 x, None if cache is None else cache[f"layer{i}"],
-                cache_index, chunk_decode)
+                cache_index, chunk_decode, segment_ids=segment_ids,
+                valid_start=valid_start)
         x = layer_norm(x, self.lnf_scale, self.lnf_bias)
         out = (x.to(dtype) if return_hidden
                else head_logits(x.to(dtype), self.wte.to(dtype)))
@@ -269,29 +288,42 @@ def init_params(cfg: GPT2Config, seed: int) -> dict:
 
 
 def gpt2_loss_fn(model: GPT2, *, fuse_head: bool = True):
-    """``loss_fn(params, tokens) -> scalar`` for `Amp.make_train_step`:
-    the mean next-token cross-entropy (fp32 in the kernel), with the
-    model run on ``params`` (``{name: tensor}`` keyed like
+    """``loss_fn(params, tokens, segment_ids=None, positions=None,
+    dropout_rng=None) -> scalar`` for `Amp.make_train_step`: the mean
+    next-token cross-entropy (fp32 in the kernel), with the model run
+    on ``params`` (``{name: tensor}`` keyed like
     ``model.named_parameters()``, usually the amp step's compute-dtype
-    casts) through ``torch.func.functional_call``.
+    casts) through ``torch.func.functional_call``. With ``segment_ids``
+    (a packed batch) the mean is over the targets inside a document
+    (`masked_next_token_mean`).
 
     ``fuse_head=False``: the materialized fp32 logits through
     `softmax_cross_entropy_loss` (the JAX package's parity gold).
     ``fuse_head=True`` (the JAX default) needs the fused LM-head
-    cross-entropy kernels, not ported yet. The JAX loss's further
-    arguments are not ported either: packed batches (``segment_ids``
-    need the flash path) and dropout (the BERT slice's kernels)."""
+    cross-entropy kernels, not ported yet. ``dropout_rng`` with
+    ``cfg.dropout == 0`` raises ValueError, as in JAX; with
+    ``cfg.dropout > 0`` it raises NotImplementedError (the BERT
+    slice's kernels)."""
     if fuse_head:
         raise NotImplementedError(
             "fuse_head=True needs the fused LM-head cross-entropy "
             "(TPU kernels 7-11), which the linear-xent slice ports "
             "(ROADMAP.md queue A item 1c); use fuse_head=False")
 
-    def loss_fn(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-        logits = torch.func.functional_call(model, params, (tokens,))
+    def loss_fn(params: dict, tokens: torch.Tensor, segment_ids=None,
+                positions=None, dropout_rng=None) -> torch.Tensor:
+        if dropout_rng is not None and model.cfg.dropout == 0.0:
+            raise ValueError("dropout_rng passed but cfg.dropout == 0: "
+                             "the key would be silently unused")
+        logits = torch.func.functional_call(
+            model, params, (tokens,),
+            dict(segment_ids=segment_ids, positions=positions,
+                 deterministic=dropout_rng is None))
         losses = softmax_cross_entropy_loss(
             logits[:, :-1].float(), tokens[:, 1:],
             num_classes=model.cfg.vocab_size)
+        if segment_ids is not None:
+            return masked_next_token_mean(losses, segment_ids)
         return losses.mean()
 
     return loss_fn

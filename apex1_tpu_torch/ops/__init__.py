@@ -3,6 +3,8 @@ version (see `ops._common` for the dispatch rule)."""
 
 from apex1_tpu_torch.ops._common import (NEG_INF, force_impl, get_impl,
                                          set_impl)
+from apex1_tpu_torch.ops.attention import (flash_attention, flash_dkv,
+                                           flash_dq, flash_fwd, fmha)
 from apex1_tpu_torch.ops.layer_norm import (FusedLayerNorm, FusedRMSNorm,
                                             layer_norm, layer_norm_bwd,
                                             layer_norm_fwd, rms_norm)
@@ -27,7 +29,10 @@ KERNEL_WRAPPERS = {"layer_norm_fwd": layer_norm_fwd,
                    "softmax_fwd": softmax_fwd,
                    "softmax_bwd": softmax_bwd,
                    "xent_fwd": xent_fwd,
-                   "xent_bwd": xent_bwd}
+                   "xent_bwd": xent_bwd,
+                   "flash_fwd": flash_fwd,
+                   "flash_dq": flash_dq,
+                   "flash_dkv": flash_dkv}
 
 
 def reset_launches() -> None:
@@ -40,6 +45,7 @@ def launch_counts() -> dict:
 
 
 __all__ = ["NEG_INF", "force_impl", "get_impl", "set_impl",
+           "flash_attention", "flash_dkv", "flash_dq", "flash_fwd", "fmha",
            "FusedLayerNorm", "FusedRMSNorm", "layer_norm", "layer_norm_bwd",
            "layer_norm_fwd", "rms_norm", "PagedCache", "cache_attend",
            "fused_sample", "gather_pages", "paged_attend",

@@ -56,6 +56,12 @@ SIGNATURES = {
     "apex1_paged_attend": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _I, _F, _I, _I, _P],
     "apex1_fused_sample": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P],
+    "apex1_flash_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _F, _I, _I, _I, _I, _I, _P],
+    "apex1_flash_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                       _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
+    "apex1_flash_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                        _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
 }
 
 _LOCK = threading.Lock()

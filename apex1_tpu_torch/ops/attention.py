@@ -1,0 +1,347 @@
+"""Flash attention (the port of ``apex1_tpu/ops/attention.py``).
+
+    s   = q·kᵀ·scale, invalid positions NEG_INF (finite)
+    out = softmax(s)·v, lse = logsumexp(s); a row with no valid key
+          gives out 0 and lse NEG_INF
+    backward from (q, k, v, out, lse): p = exp(s - lse) on valid
+          positions, δ = Σ_d dout·out, ds = p·(dO·vᵀ - δ + dlse)·scale,
+          dq = ds·k, dk = dsᵀ·q, dv = pᵀ·dO
+
+Shapes as in the JAX package: ``q`` (B, Hq, Sq, D), ``k``/``v``
+(B, Hkv, Sk, D) with ``Hq % Hkv == 0`` (GQA without a repeated K/V),
+``lse`` fp32 (B, Hq, Sq). A position is valid when it is inside Sq/Sk,
+causal ⇒ ``k + k_offset <= q + q_offset``, and with segments the query's
+and key's segment ids are equal.
+
+Three kernels in ``csrc/flash_attn.cu`` (TPU rows 3-5), each beside its
+plain PyTorch version with the same signature, which materializes the
+scores: :func:`flash_fwd`, :func:`flash_dq` and :func:`flash_dkv`. As
+in the kernels, the plain backward rounds p and dS to the operand type
+before their products; the plain forward keeps the probabilities in
+fp32 (the kernel rounds e = exp(s - m) against a running max, which a
+materialized softmax cannot reproduce), so in bf16/fp16 the forward
+agrees to about one rounding of the output.
+`flash_attention` and `fmha` are differentiable through one
+``torch.autograd.Function`` (the JAX package's ``_flash`` custom VJP)
+that saves ``(q, k, v, out, lse)``; the CPU and ``force_impl("torch")``
+go through the same Function with the plain versions. The additive
+``bias`` operand (its dbias kernel) and in-kernel dropout come with the
+BERT slice and raise here.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from apex1_tpu_torch.ops import _build
+from apex1_tpu_torch.ops._common import (DTYPE_CODES, NEG_INF, check_cuda,
+                                         use_kernel)
+
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_MAX_D = 128
+
+
+# ---- plain versions ------------------------------------------------------
+
+
+def _valid(B, Sq, Sk, qseg, kseg, causal, q_off, k_off, device):
+    """(B or 1, 1, Sq, Sk) bool: the positions a query may attend."""
+    row = torch.arange(Sq, device=device)[:, None]
+    col = torch.arange(Sk, device=device)[None, :]
+    mask = torch.ones(1, 1, Sq, Sk, dtype=torch.bool, device=device)
+    if causal:
+        mask = mask & ((col + k_off) <= (row + q_off))
+    if qseg is not None:
+        mask = mask & (qseg[:, None, :, None] == kseg[:, None, None, :])
+    return mask
+
+
+def _repeat_kv(x, group: int):
+    """(B, Hkv, S, D) -> (B, Hq, S, D), q head h reading kv head
+    h // group (``jnp.repeat`` along the head axis)."""
+    return x if group == 1 else x.repeat_interleave(group, dim=1)
+
+
+def _scores(q, k, qseg, kseg, scale, causal, q_off, k_off):
+    """fp32 masked scores (NEG_INF where invalid) and the mask."""
+    B, Hq, Sq, _ = q.shape
+    Sk = k.shape[2]
+    kk = _repeat_kv(k.float(), Hq // k.shape[1])
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * scale
+    mask = _valid(B, Sq, Sk, qseg, kseg, causal, q_off, k_off, q.device)
+    return torch.where(mask, s, NEG_INF), mask
+
+
+def _plain_fwd(q, k, v, qseg, kseg, scale, causal, q_off, k_off):
+    """The JAX package's ``_xla_attention`` (its empty-row rule too):
+    ``(out in q's dtype, lse fp32)``."""
+    sm, mask = _scores(q, k, qseg, kseg, scale, causal, q_off, k_off)
+    m = sm.amax(dim=-1, keepdim=True)
+    e = torch.where(mask, torch.exp(sm - m), 0.0)
+    l = e.sum(dim=-1, keepdim=True)
+    safe = torch.where(l > 0, l, 1.0)
+    vv = _repeat_kv(v.float(), q.shape[1] // v.shape[1])
+    out = torch.einsum("bhqk,bhkd->bhqd", e / safe, vv).to(q.dtype)
+    lse = torch.where(l > 0, m + torch.log(safe), NEG_INF)[..., 0]
+    return out, lse
+
+
+def _probs_and_ds(q, k, v, dout, lse, delta, dlse, qseg, kseg, scale,
+                  causal, q_off, k_off):
+    """p = exp(s - lse) on valid positions (0 elsewhere) and
+    ds = p·(dO·vᵀ - δ + dlse)·scale, both fp32 (B, Hq, Sq, Sk)."""
+    sm, mask = _scores(q, k, qseg, kseg, scale, causal, q_off, k_off)
+    p = torch.where(mask, torch.exp(sm - lse[..., None]), 0.0)
+    vv = _repeat_kv(v.float(), q.shape[1] // v.shape[1])
+    dp = torch.einsum("bhqd,bhkd->bhqk", dout.float(), vv)
+    dp = dp - delta[..., None]
+    if dlse is not None:
+        dp = dp + dlse[..., None]
+    return p, p * dp * scale
+
+
+def _rounded(x, dtype):
+    """fp32 ``x`` rounded to ``dtype`` and back: the backward kernels
+    (as the TPU's) feed p and dS to their products in the operand
+    type."""
+    return x.to(dtype).float()
+
+
+def _plain_dq(q, k, v, dout, lse, delta, dlse, qseg, kseg, scale, causal,
+              q_off, k_off):
+    _, ds = _probs_and_ds(q, k, v, dout, lse, delta, dlse, qseg, kseg,
+                          scale, causal, q_off, k_off)
+    kk = _repeat_kv(k.float(), q.shape[1] // k.shape[1])
+    return torch.einsum("bhqk,bhkd->bhqd", _rounded(ds, k.dtype),
+                        kk).to(q.dtype)
+
+
+def _plain_dkv(q, k, v, dout, lse, delta, dlse, qseg, kseg, scale, causal,
+               q_off, k_off):
+    p, ds = _probs_and_ds(q, k, v, dout, lse, delta, dlse, qseg, kseg,
+                          scale, causal, q_off, k_off)
+    dv = torch.einsum("bhqk,bhqd->bhkd", _rounded(p, dout.dtype),
+                      dout.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", _rounded(ds, q.dtype), q.float())
+    B, Hkv, Sk, D = k.shape
+    group = q.shape[1] // Hkv
+    if group > 1:
+        dk = dk.reshape(B, Hkv, group, Sk, D).sum(dim=2)
+        dv = dv.reshape(B, Hkv, group, Sk, D).sum(dim=2)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---- kernel wrappers -----------------------------------------------------
+
+
+def _kernel_operands(name, q, k, v, dout, *rest):
+    """Contiguous operands after the shared checks, and the ``vec`` flag
+    (16-byte loads: D fills the kernel's padded width 64 or 128 and the
+    tiles' operands are 16-byte aligned)."""
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{name}: q, k, v must share one of f32/bf16/f16, "
+                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if (q.dim() != 4 or k.shape != v.shape or k.shape[0] != q.shape[0]
+            or k.shape[3] != q.shape[3] or q.shape[1] % k.shape[1] != 0):
+        raise ValueError(f"{name}: q {tuple(q.shape)} and k/v "
+                         f"{tuple(k.shape)}/{tuple(v.shape)} do not fit")
+    if dout is not None and (dout.shape != q.shape or dout.dtype != q.dtype):
+        raise ValueError(f"{name}: dout must be like q")
+    D = q.shape[3]
+    if D > _MAX_D:
+        raise ValueError(f"{name}: head dim {D} > {_MAX_D} is not supported")
+    ops = [None if t is None else t.contiguous()
+           for t in (q, k, v, dout, *rest)]
+    check_cuda(name, *ops)
+    vec = D in (64, 128) and all(t.data_ptr() % 16 == 0
+                                 for t in ops[:4] if t is not None)
+    return ops, int(vec)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _dims(q, k):
+    B, Hq, Sq, D = q.shape
+    return B, Hq, k.shape[1], Sq, k.shape[2], D
+
+
+def flash_fwd(q, k, v, qseg, kseg, scale: float, causal: bool,
+              q_off: int = 0, k_off: int = 0):
+    """``(out, lse)``: out in q's dtype, lse fp32 (B, Hq, Sq). ``qseg``
+    (B, Sq) and ``kseg`` (B, Sk) int32, or both None. CUDA tensors
+    launch the kernel (``flash_fwd.launches``); CPU tensors take the
+    plain version."""
+    if not use_kernel(q):
+        return _plain_fwd(q, k, v, qseg, kseg, scale, causal, q_off, k_off)
+    (q, k, v, _, qseg, kseg), vec = _kernel_operands(
+        "flash_fwd", q, k, v, None, qseg, kseg)
+    B, Hq, Hkv, Sq, Sk, D = _dims(q, k)
+    out = torch.empty_like(q)
+    lse = torch.empty(B, Hq, Sq, dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _build.launch("apex1_flash_fwd", q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), _ptr(qseg), _ptr(kseg), out.data_ptr(),
+                  lse.data_ptr(), B, Hq, Hkv, Sq, Sk, D, float(scale),
+                  int(causal), int(q_off), int(k_off), vec,
+                  DTYPE_CODES[q.dtype], stream)
+    flash_fwd.launches += 1
+    return out, lse
+
+
+flash_fwd.launches = 0
+
+
+def flash_dq(q, k, v, dout, lse, delta, dlse, qseg, kseg, scale: float,
+             causal: bool, q_off: int = 0, k_off: int = 0):
+    """dq in q's dtype from the saved ``lse``, ``delta`` = Σ_d dout·out
+    and the lse cotangent ``dlse`` (fp32 (B, Hq, Sq), or None for 0);
+    ``dout`` in q's dtype. CUDA tensors launch the kernel
+    (``flash_dq.launches``); CPU tensors take the plain version."""
+    if not use_kernel(q):
+        return _plain_dq(q, k, v, dout, lse, delta, dlse, qseg, kseg, scale,
+                         causal, q_off, k_off)
+    (q, k, v, dout, lse, delta, dlse, qseg, kseg), vec = _kernel_operands(
+        "flash_dq", q, k, v, dout, lse, delta, dlse, qseg, kseg)
+    B, Hq, Hkv, Sq, Sk, D = _dims(q, k)
+    dq = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _build.launch("apex1_flash_dq", q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                  delta.data_ptr(), _ptr(dlse), _ptr(qseg), _ptr(kseg),
+                  dq.data_ptr(), B, Hq, Hkv, Sq, Sk, D, float(scale),
+                  int(causal), int(q_off), int(k_off), vec,
+                  DTYPE_CODES[q.dtype], stream)
+    flash_dq.launches += 1
+    return dq
+
+
+flash_dq.launches = 0
+
+
+def flash_dkv(q, k, v, dout, lse, delta, dlse, qseg, kseg, scale: float,
+              causal: bool, q_off: int = 0, k_off: int = 0):
+    """``(dk, dv)`` in k's dtype, each kv head summed over its GQA group
+    (fp32 accumulation, one rounding). Arguments as `flash_dq`. CUDA
+    tensors launch the kernel (``flash_dkv.launches``); CPU tensors take
+    the plain version."""
+    if not use_kernel(q):
+        return _plain_dkv(q, k, v, dout, lse, delta, dlse, qseg, kseg,
+                          scale, causal, q_off, k_off)
+    (q, k, v, dout, lse, delta, dlse, qseg, kseg), vec = _kernel_operands(
+        "flash_dkv", q, k, v, dout, lse, delta, dlse, qseg, kseg)
+    B, Hq, Hkv, Sq, Sk, D = _dims(q, k)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _build.launch("apex1_flash_dkv", q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                  delta.data_ptr(), _ptr(dlse), _ptr(qseg), _ptr(kseg),
+                  dk.data_ptr(), dv.data_ptr(), B, Hq, Hkv, Sq, Sk, D,
+                  float(scale), int(causal), int(q_off), int(k_off), vec,
+                  DTYPE_CODES[q.dtype], stream)
+    flash_dkv.launches += 1
+    return dk, dv
+
+
+flash_dkv.launches = 0
+
+
+class _Flash(torch.autograd.Function):
+    """The JAX package's ``_flash`` custom VJP: residuals
+    ``(q, k, v, out, lse)`` (and the segment ids); the backward takes
+    the ``out`` and ``lse`` cotangents."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, qseg, kseg, scale, causal, q_off, k_off):
+        out, lse = flash_fwd(q, k, v, qseg, kseg, scale, causal, q_off,
+                             k_off)
+        ctx.save_for_backward(q, k, v, out, lse, qseg, kseg)
+        ctx.args = (scale, causal, q_off, k_off)
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        q, k, v, out, lse, qseg, kseg = ctx.saved_tensors
+        dout = (torch.zeros_like(out) if dout is None
+                else dout.to(q.dtype))
+        # δ_i = Σ_d dout·out in fp32, outside the kernels as in JAX
+        delta = (dout.float() * out.float()).sum(dim=-1)
+        dlse = None if dlse is None else dlse.float()
+        dq = flash_dq(q, k, v, dout, lse, delta, dlse, qseg, kseg,
+                      *ctx.args)
+        dk, dv = flash_dkv(q, k, v, dout, lse, delta, dlse, qseg, kseg,
+                           *ctx.args)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def _norm_segments(segment_ids, Sq: int, Sk: int, device):
+    """``(q_seg, k_seg)`` int32 tensors on ``device``, or (None, None)."""
+    if segment_ids is None:
+        return None, None
+    if isinstance(segment_ids, (tuple, list)):
+        qseg, kseg = segment_ids
+    else:
+        if Sq != Sk:
+            raise ValueError("pass (q_seg, k_seg) when Sq != Sk")
+        qseg = kseg = segment_ids
+
+    def as_i32(s):
+        return torch.as_tensor(s, device=device).to(torch.int32).contiguous()
+
+    return as_i32(qseg), as_i32(kseg)
+
+
+def flash_attention(q, k, v, *, causal: bool = False, segment_ids=None,
+                    sm_scale: Optional[float] = None, q_offset=0,
+                    k_offset=0, block_q: Optional[int] = None,
+                    block_k: Optional[int] = None, return_lse: bool = False,
+                    bias=None, dropout_p: float = 0.0, dropout_seed=None):
+    """Flash attention over (B, H, S, D) operands; differentiable.
+
+    ``segment_ids``: (B, S) ints (self-attention) or a ``(q_seg, k_seg)``
+    pair; tokens attend only within equal ids (padding: -1).
+    ``q_offset``/``k_offset``: integer global-position offsets for the
+    causal mask. ``return_lse``: also return the fp32 logsumexp
+    (B, H, Sq), whose cotangent the backward takes. ``block_q`` and
+    ``block_k`` are the TPU kernels' tile sizes: accepted and ignored
+    (the Hopper kernels choose their own tiles). ``bias`` and
+    ``dropout_p > 0`` raise NotImplementedError: the BERT slice ports
+    them."""
+    del block_q, block_k
+    if bias is not None:
+        raise NotImplementedError(
+            "flash_attention's bias operand (and its dbias kernel, TPU row "
+            "6) comes with the BERT slice (ROADMAP.md queue A item 3)")
+    if dropout_p != 0.0 or dropout_seed is not None:
+        raise NotImplementedError(
+            "in-kernel attention dropout comes with the BERT slice "
+            "(ROADMAP.md queue A item 3)")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("expected (B, H, S, D) operands")
+    if q.shape[1] % k.shape[1] != 0:
+        raise ValueError(f"Hq={q.shape[1]} not a multiple of "
+                         f"Hkv={k.shape[1]}")
+    scale = (1.0 / math.sqrt(q.shape[-1]) if sm_scale is None
+             else float(sm_scale))
+    qseg, kseg = _norm_segments(segment_ids, q.shape[2], k.shape[2],
+                                q.device)
+    out, lse = _Flash.apply(q, k, v, qseg, kseg, scale, bool(causal),
+                            int(q_offset), int(k_offset))
+    return (out, lse) if return_lse else out
+
+
+def fmha(qkv, *, segment_ids=None, causal: bool = True,
+         sm_scale: Optional[float] = None, dropout_p: float = 0.0,
+         dropout_seed=None):
+    """``apex.contrib.fmha.FMHAFun``: packed (B, S, 3, H, D) QKV, varlen
+    through ``segment_ids``; returns (B, S, H, D)."""
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    out = flash_attention(q, k, v, causal=causal, segment_ids=segment_ids,
+                          sm_scale=sm_scale, dropout_p=dropout_p,
+                          dropout_seed=dropout_seed)
+    return out.transpose(1, 2)

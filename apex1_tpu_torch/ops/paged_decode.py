@@ -54,11 +54,14 @@ def _jnp_result_type(a: torch.dtype, b: torch.dtype) -> torch.dtype:
 
 
 def cache_attend(q, k_all, v_all, cache_index, *,
-                 sm_scale: Optional[float] = None):
+                 sm_scale: Optional[float] = None, valid_start=None):
     """Masked composite attention of (B, Hq, S, D) queries against a
     FULL cache (B, Hkv, S_max, D). ``cache_index`` is a scalar or a
-    per-row (B,) vector; query j sees cache slots <= index + j. GQA
-    groups the q heads onto the kv-head axis (no repeated cache)."""
+    per-row (B,) vector; query j sees cache slots <= index + j, and
+    with ``valid_start`` (B,) only slots >= each row's first real
+    position (the left-pad slots of a ragged batch). GQA groups the q
+    heads onto the kv-head axis (no repeated cache). The additive
+    ``bias`` of the JAX function comes with the T5 slice."""
     B, Hq, S, D = q.shape
     Hkv = k_all.shape[1]
     dev = q.device
@@ -77,6 +80,10 @@ def cache_attend(q, k_all, v_all, cache_index, *,
     else:
         horizon = idx.reshape(B, 1, 1, 1, 1) + s_ar
     keep = pos[None, None, None, None, :] <= horizon
+    if valid_start is not None:
+        start = torch.as_tensor(valid_start, dtype=torch.int64, device=dev)
+        keep = keep & (pos[None, None, None, None, :]
+                       >= start.reshape(B, 1, 1, 1, 1))
     scores = torch.where(keep, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     rt = _jnp_result_type(q.dtype, v_all.dtype)
@@ -153,6 +160,25 @@ def _row_keys(seeds, positions):
     positions = _u32(positions, seeds.device)
     return _threefry2x32(torch.zeros_like(seeds), seeds,
                          torch.zeros_like(positions), positions)
+
+
+def split(key, num: int = 2, *, partitionable: bool = True) -> list:
+    """``jax.random.split`` of the threefry key data ``key = (k1, k2)``:
+    ``num`` new keys, each a pair of Python ints (uint32 values).
+
+    - partitionable: key i is the threefry block of the counter (0, i);
+    - original: the counters iota(2·num) split in halves, x0 = [0, num)
+      and x1 = [num, 2·num); the block's two outputs concatenated and
+      read as (num, 2) rows."""
+    k1, k2 = (_u32(k) for k in key)
+    idx = torch.arange(num, dtype=torch.int64)
+    if partitionable:
+        y0, y1 = _threefry2x32(k1, k2, torch.zeros_like(idx), idx)
+        pairs = torch.stack([y0, y1], dim=1)
+    else:
+        y0, y1 = _threefry2x32(k1, k2, idx, idx + num)
+        pairs = torch.cat([y0, y1]).reshape(num, 2)
+    return [(int(a), int(b)) for a, b in pairs.tolist()]
 
 
 # ---- sampling -----------------------------------------------------------

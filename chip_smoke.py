@@ -12,7 +12,10 @@ Phases, each printed on its own line; a failure in any exits non-zero:
 2. kernels — hold each kernel against its plain PyTorch version on the
    card at the shapes its main path gives it (serving's and the
    training step's), with the stated tolerance; print errors, kernel /
-   plain / library-yardstick times and the bound.
+   plain / library-yardstick times and the bound. The flash kernels
+   (forward, dq, dk/dv) run at GPT-2's training shape and at GQA,
+   packed-segment, odd, offset, lse-cotangent, fp16 and f32 cases;
+   dq and dk/dv must give the same bits twice.
 3. engine — serve GPT-2 124M at full width (12 layers, hidden 768,
    vocab 50257 padded to 50304) at policy O2, weights made from a seed,
    through the paged continuous-batching engine: 16 requests (prompts
@@ -31,14 +34,31 @@ Phases, each printed on its own line; a failure in any exits non-zero:
    finite, the O2 loss must fall from step 1 to step 6, and every step
    must launch LayerNorm fwd and bwd 25 times, softmax fwd and bwd 12,
    cross-entropy fwd and bwd once.
-6. train-parity — depth 2, full width, 3 steps through the kernels and
-   through the plain versions: O0 losses within 1e-5 relative and grad
-   norms within 1e-4; O2_fp16 with the loss multiplied by inf at step
-   2 on both sides: step 2 skipped, the params it leaves equal to step
-   1's bit for bit, the scale halved, skipped_steps 1.
-7. the ``kernels`` JSON line (each kernel's launches: the serving and
-   training runs together), the card's name and power limit, and the
-   last line ``{"ok": true, "device": {...}}``.
+6. train-flash — the same with ``use_flash=True`` (causal flash
+   attention): every step must launch LayerNorm fwd and bwd 25 times,
+   flash fwd, dq and dk/dv 12, cross-entropy fwd and bwd once, softmax
+   never.
+7. train-packed — the flash model at O2 for 3 steps on 16 rows packed
+   by ``pack_documents`` (documents of 64-2048 tokens, positions
+   restarting per chunk): finite losses, the same launches.
+8. train-parity — depth 2, full width, 3 steps through the kernels and
+   through the plain versions, for ``use_flash=False`` and ``True``
+   (the flash path on a dense and a packed batch): O0 losses within
+   1e-5 relative and grad norms within 1e-4; O2_fp16 with the loss
+   multiplied by inf at step 2 on both sides: step 2 skipped, the
+   params it leaves equal to step 1's bit for bit, the scale halved,
+   skipped_steps 1.
+9. generate — GPT-2 124M at O2 through ``generate`` on a dense cache of
+   1024 slots: 8 ragged prompts of 32-512 tokens (``prompt_lens``),
+   64 new tokens, greedy and at temperature 0.7 from ``key(0)``; the
+   flash prefill must launch flash fwd 12 times a call.
+10. generate-parity — the same at O0, depth 2, through the kernels and
+   the plain versions: equal token streams, or a first differing token
+   whose top-2 score gap is below 1e-4 relative (a near-tie).
+11. the ``kernels`` JSON line (each kernel's launches over the main
+   paths: the engine, train, train-flash, train-packed and generate
+   runs), the card's name and power limit, and the last line
+   ``{"ok": true, "device": {...}}``.
 
 Kernel times are device times of CUDA-graph replays (no host launch
 overhead), or between CUDA events for kernels of a millisecond or more;
@@ -487,6 +507,144 @@ def check_xent(torch, ops, gen):
     return fwd, bwd
 
 
+#: the flash kernels' checks: (case, B, Hq, Hkv, Sq, Sk, dtype, causal,
+#: segments, q_off, k_off, dlse, main)
+FLASH_CASES = [
+    ("GPT-2 causal", TB, THEADS, THEADS, TS, TS, "bfloat16", True, False,
+     0, 0, False, True),
+    ("causal", 4, THEADS, THEADS, 512, 512, "float16", True, False, 0, 0,
+     False, False),
+    ("causal", 2, THEADS, THEADS, 256, 256, "float32", True, False, 0, 0,
+     False, False),
+    ("GQA 12/4", 4, THEADS, 4, 512, 512, "bfloat16", True, False, 0, 0,
+     False, False),
+    ("packed segments, -1 tail", 4, THEADS, THEADS, TS, TS, "bfloat16",
+     True, True, 0, 0, False, False),
+    ("non-causal 77x200", 4, THEADS, THEADS, 77, 200, "bfloat16", False,
+     False, 0, 0, False, False),
+    ("offsets q+64 k+192", 2, THEADS, THEADS, 512, 640, "bfloat16", True,
+     False, 64, 192, False, False),
+    ("return_lse, dlse", 4, THEADS, THEADS, 512, 512, "bfloat16", True,
+     False, 0, 0, True, False),
+]
+
+
+def doc_segments(B: int, S: int, seed: int):
+    """(B, S) int32 segment ids: documents of 64-400 tokens in a row,
+    then a padded tail of segment -1 (the shape `pack_documents`
+    gives)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    ids = np.full((B, S), -1, np.int32)
+    for b in range(B):
+        pos, sid = 0, 0
+        while True:
+            n = int(rng.integers(64, 401))
+            if pos + n > S - 50:
+                break
+            ids[b, pos:pos + n] = sid
+            pos, sid = pos + n, sid + 1
+    return ids
+
+
+def check_flash(torch, ops, gen):
+    """Kernels 3-5 (flash forward, dq, dk/dv) against their plain
+    versions: out and lse from the forward; dq and dk/dv from the same
+    (q, k, v, dout, lse, δ, dlse), each run twice for the same bits.
+    Bounds count the valid (q, k) pairs of this run's mask: 2 products
+    forward, 3 for dq, 4 for dk/dv, 2·D flops a pair each."""
+    import torch.nn.functional as F
+    from apex1_tpu_torch.ops.attention import (_valid, flash_dkv, flash_dq,
+                                               flash_fwd)
+    D = TH // THEADS
+    fwd, dq_rows, dkv_rows = [], [], []
+    for (case, B, Hq, Hkv, Sq, Sk, dts, causal, segs, q_off, k_off, with_dlse,
+         main) in FLASH_CASES:
+        dt = getattr(torch, dts)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+        q, k, v, do = rnd(B, Hq, Sq, D), rnd(B, Hkv, Sk, D), \
+            rnd(B, Hkv, Sk, D), rnd(B, Hq, Sq, D)
+        dlse = (torch.randn((B, Hq, Sq), generator=gen, device="cuda")
+                if with_dlse else None)
+        qseg = kseg = None
+        if segs:
+            qseg = kseg = torch.from_numpy(doc_segments(B, Sq, SEED)).cuda()
+        args = (qseg, kseg, 1.0 / math.sqrt(D), causal, q_off, k_off)
+        tol = TOLS[dts]
+
+        def run_f():
+            return flash_fwd(q, k, v, *args)
+
+        out, lse = run_f()
+        with ops.force_impl("torch"):
+            wout, wlse = run_f()
+        torch.cuda.synchronize()
+        empty = wlse <= -1e29
+        if not torch.equal(lse <= -1e29, empty):
+            raise RuntimeError(f"flash_fwd {case}: rows without keys differ")
+        e1 = max_errs(out, wout, *tol)
+        e2 = max_errs(torch.where(empty, 0.0, lse),
+                      torch.where(empty, 0.0, wlse), *TOLS["float32"])
+        delta = (do.float() * wout.float()).sum(-1)
+        bwd = (q, k, v, do, wlse, delta, dlse, *args)
+        dq = flash_dq(*bwd)
+        dk, dv = flash_dkv(*bwd)
+        with ops.force_impl("torch"):
+            wdq = flash_dq(*bwd)
+            wdk, wdv = flash_dkv(*bwd)
+        same_dq = torch.equal(flash_dq(*bwd), dq)
+        dk2, dv2 = flash_dkv(*bwd)
+        same_dkv = torch.equal(dk2, dk) and torch.equal(dv2, dv)
+        torch.cuda.synchronize()
+        timer = event_ms if main else graph_ms
+        ms_f = timer(run_f)
+        ms_q = timer(lambda: flash_dq(*bwd))
+        ms_kv = timer(lambda: flash_dkv(*bwd))
+        with ops.force_impl("torch"):
+            pl_f = event_ms(run_f, iters=3)
+            pl_q = event_ms(lambda: flash_dq(*bwd), iters=3)
+            pl_kv = event_ms(lambda: flash_dkv(*bwd), iters=3)
+        lib_f = lib_b = None
+        if main:
+            lib_f = event_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True))
+            qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+            o = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+            lib_b = event_ms(lambda: torch.autograd.grad(
+                o, (qr, kr, vr), do, retain_graph=True))
+            del qr, kr, vr, o
+        mask = _valid(B, Sq, Sk, qseg, kseg, causal, q_off, k_off, "cuda")
+        pairs = mask.sum().item() * Hq * (B if mask.shape[0] == 1 else 1)
+        eb = q.element_size()
+        nq, nkv = B * Hq * Sq * D * eb, B * Hkv * Sk * D * eb
+        stats = B * Hq * Sq * 4
+        peak = F32_OPS_PER_S if dt == torch.float32 else BF16_OPS_PER_S
+        label = f"{case} B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Sk={Sk} D={D} {dts}"
+        b_f = bound_ms(2 * nq + 2 * nkv + stats, 4 * D * pairs, peak)
+        b_q = bound_ms(3 * nq + 2 * nkv + 3 * stats, 6 * D * pairs, peak)
+        b_kv = bound_ms(2 * nq + 4 * nkv + 3 * stats, 8 * D * pairs, peak)
+        fwd.append(dict(case=label, abs=max(e1[0], e2[0]),
+                        worst=max(e1[1], e2[1]), tol=tol, ms=ms_f,
+                        plain_ms=pl_f, library_ms=lib_f, bound_ms=b_f[0],
+                        bound_by=b_f[1], main=main))
+        eq = max_errs(dq, wdq, *tol)
+        dq_rows.append(dict(case=label, abs=eq[0], worst=eq[1], tol=tol,
+                            ms=ms_q, plain_ms=pl_q, library_ms=lib_b,
+                            bound_ms=b_q[0], bound_by=b_q[1], main=main,
+                            same_bits=same_dq))
+        ekv = max_errs_all([(dk, wdk), (dv, wdv)], tol)
+        dkv_rows.append(dict(case=label, abs=ekv[0], worst=ekv[1], tol=tol,
+                             ms=ms_kv, plain_ms=pl_kv, library_ms=lib_b,
+                             bound_ms=b_kv[0], bound_by=b_kv[1], main=main,
+                             same_bits=same_dkv))
+        del out, wout, dq, wdq, dk, dv, wdk, wdv, dk2, dv2
+        torch.cuda.empty_cache()
+    return fwd, dq_rows, dkv_rows
+
+
 # ---- phases 3 and 4: the engine -----------------------------------------
 
 
@@ -601,72 +759,105 @@ def kernel_split(torch, prof, steps: int, wall: float, top: int = 12):
                     for k, ms, c in rows[:top]]}
 
 
-def profile_train(torch, steps: int = 2) -> dict:
+def profile_train(torch, use_flash: bool, steps: int = 3) -> dict:
     """``--profile``: where a GPT-2 124M O2 training step's time goes
-    (B x S tokens, the train phase's configuration): two warm-up steps,
-    then ``steps`` steps under torch.profiler."""
+    (B x S tokens, the train phases' configuration, ``use_flash`` as
+    given): two warm-up steps, then ``steps`` steps under
+    torch.profiler; with the step's peak memory. (With 2 profiled
+    steps, the third profiler session of a process once reported every
+    kernel at half its time; 3 steps read consistently in any order.)"""
     from torch.profiler import ProfilerActivity, profile
-    _, state, step, tokens = make_trainer(torch, "O2", 12, SEED)
+    _, state, step, batch = make_trainer(torch, "O2", 12, SEED,
+                                         use_flash=use_flash)
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(2):
-        state, _ = step(state, tokens)
+        state, _ = step(state, *batch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            state, _ = step(state, tokens)
+            state, _ = step(state, *batch)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / steps * 1e3
-    return kernel_split(torch, prof, steps, wall, top=25)
+    return {"use_flash": use_flash,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            **kernel_split(torch, prof, steps, wall, top=25)}
 
 
-# ---- phases 5 and 6: training --------------------------------------------
+# ---- phases 5 to 8: training ---------------------------------------------
 
 
-def train_launches(num_layers: int) -> dict:
+def train_launches(num_layers: int, use_flash: bool) -> dict:
     """Kernel launches per GPT-2 training step: two norms a block and
-    the final one, one causal softmax a block, one cross-entropy; each
-    forward and backward."""
+    the final one; one causal attention a block (the fused softmax, or
+    the flash forward, dq and dk/dv); one cross-entropy. Each forward
+    and backward."""
     n_norm = 2 * num_layers + 1
+    attn = (("flash_fwd", "flash_dq", "flash_dkv") if use_flash
+            else ("softmax_fwd", "softmax_bwd"))
     return {"layer_norm_fwd": n_norm, "layer_norm_bwd": n_norm,
-            "softmax_fwd": num_layers, "softmax_bwd": num_layers,
+            **{name: num_layers for name in attn},
             "xent_fwd": 1, "xent_bwd": 1}
 
 
-def make_trainer(torch, level: str, depth: int, seed: int, factor=False):
-    """GPT-2 124M at full width (``depth`` layers, use_flash=False),
-    weights from ``seed``, under ``Amp(fused_adam(1e-4,
-    weight_decay=0.01), opt_level=level)``, and the B x S token batch of
-    ``np.random.default_rng(0)``. With ``factor`` the step takes a third
-    argument that multiplies the loss (inf forces an overflow)."""
+def packed_batch(torch, vocab: int):
+    """(tokens, segment_ids, positions), each (B, S) on the card: the
+    first B rows `pack_documents` packs from documents of 64-2048
+    tokens drawn from ``np.random.default_rng(1)``, chunk positions
+    restarting at 0 (GPT-2's learned table)."""
+    import numpy as np
+    from apex1_tpu_torch.runtime import pack_documents
+    rng = np.random.default_rng(1)
+    docs = []
+    while sum(map(len, docs)) < 2 * TB * TS:
+        docs.append(rng.integers(0, vocab, int(rng.integers(64, 2049))))
+    packed = pack_documents(docs, TS, restart_chunk_positions=True)
+    return tuple(torch.from_numpy(a[:TB]).cuda() for a in packed)
+
+
+def make_trainer(torch, level: str, depth: int, seed: int, factor=False,
+                 use_flash=False, packed=False):
+    """GPT-2 124M at full width (``depth`` layers), weights from
+    ``seed``, under ``Amp(fused_adam(1e-4, weight_decay=0.01),
+    opt_level=level)``, and its batch: the B x S tokens of
+    ``np.random.default_rng(0)``, or with ``packed`` a `packed_batch`.
+    With ``factor`` the step takes a factor before the batch that
+    multiplies the loss (inf forces an overflow)."""
     import numpy as np
     from apex1_tpu_torch import (Amp, GPT2Config, fused_adam, get_policy,
                                  gpt2_loss_fn, gpt2_params_from_jax)
     from apex1_tpu_torch.models.gpt2 import init_params
-    cfg = GPT2Config.gpt2_125m(num_layers=depth, use_flash=False,
+    cfg = GPT2Config.gpt2_125m(num_layers=depth, use_flash=use_flash,
                                policy=get_policy(level))
     model = gpt2_params_from_jax(init_params(cfg, seed), cfg, "cuda")
     amp = Amp(fused_adam(1e-4, weight_decay=0.01), opt_level=level)
     state = amp.init(dict(model.named_parameters()))
     base = gpt2_loss_fn(model, fuse_head=False)
-    loss_fn = (lambda p, t, f: base(p, t) * f) if factor else base
-    tokens = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (TB, TS))).cuda()
-    return cfg, state, amp.make_train_step(loss_fn), tokens
+    loss_fn = (lambda p, f, *b: base(p, *b) * f) if factor else base
+    if packed:
+        batch = packed_batch(torch, cfg.vocab_size)
+    else:
+        batch = (torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (TB, TS))).cuda(),)
+    return cfg, state, amp.make_train_step(loss_fn), batch
 
 
-def train(torch, ops, level: str, steps: int = 6):
+def train(torch, ops, level: str, use_flash=False, packed=False,
+          steps: int = 6):
     """``steps`` training steps of GPT-2 124M at ``level``; per step the
     loss, loss scale, skipped count, host wall (ending in a
     synchronize) and the kernel launches it made; and the peak device
     memory."""
-    cfg, state, step, tokens = make_trainer(torch, level, 12, SEED)
+    cfg, state, step, batch = make_trainer(torch, level, 12, SEED,
+                                           use_flash=use_flash,
+                                           packed=packed)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rows, prev = [], ops.launch_counts()
     for i in range(steps):
         t0 = time.perf_counter()
-        state, m = step(state, tokens)
+        state, m = step(state, *batch)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
         now = ops.launch_counts()
@@ -681,32 +872,39 @@ def train(torch, ops, level: str, steps: int = 6):
     return cfg, rows, peak
 
 
-def train_parity(torch, ops, depth: int = 2, steps: int = 3):
+def train_parity(torch, ops, use_flash: bool, depth: int = 2,
+                 steps: int = 3):
     """GPT-2 at full width, ``depth`` layers, through the kernels and
     through the plain versions on the card: O0 losses and grad norms
-    per step; O2_fp16 with the loss multiplied by inf at step 2 on both
-    sides, with whether step 2 left every param bit for bit as step 1
-    left it."""
+    per step (on the dense batch, and with ``use_flash`` also on the
+    packed one); O2_fp16 with the loss multiplied by inf at step 2 on
+    both sides, with whether step 2 left every param bit for bit as
+    step 1 left it."""
     import contextlib
     out = {}
     for impl in ("kernel", "torch"):
         ctx = (ops.force_impl("torch") if impl == "torch"
                else contextlib.nullcontext())
+        ops.reset_launches()
         with ctx:
-            _, state, step, tokens = make_trainer(torch, "O0", depth,
-                                                  SEED + 1)
-            o0 = []
-            for _ in range(steps):
-                state, m = step(state, tokens)
-                o0.append((m["loss"].item(), m["grad_norm"].item()))
-            del state
-            _, state, step, tokens = make_trainer(torch, "O2_fp16", depth,
-                                                  SEED + 1, factor=True)
+            o0 = {}
+            for packed in ((False, True) if use_flash else (False,)):
+                _, state, step, batch = make_trainer(
+                    torch, "O0", depth, SEED + 1, use_flash=use_flash,
+                    packed=packed)
+                o0["packed" if packed else "dense"] = rows = []
+                for _ in range(steps):
+                    state, m = step(state, *batch)
+                    rows.append((m["loss"].item(), m["grad_norm"].item()))
+                del state
+            _, state, step, batch = make_trainer(
+                torch, "O2_fp16", depth, SEED + 1, factor=True,
+                use_flash=use_flash)
             fp16, params = [], []
             for i in range(steps):
                 f = torch.tensor(float("inf") if i == 1 else 1.0,
                                  device="cuda")
-                state, m = step(state, tokens, f)
+                state, m = step(state, f, *batch)
                 params.append(state.params)
                 fp16.append(dict(
                     finite=bool(m["grads_finite"].item()),
@@ -716,9 +914,162 @@ def train_parity(torch, ops, depth: int = 2, steps: int = 3):
             kept = all(torch.equal(params[1][k], params[0][k])
                        for k in params[0])
             del state, params
-        out[impl] = dict(o0=o0, fp16=fp16, step2_params_kept=kept)
+        out[impl] = dict(o0=o0, fp16=fp16, step2_params_kept=kept,
+                         launches={k: n for k, n in
+                                   ops.launch_counts().items() if n})
         torch.cuda.empty_cache()
     return out
+
+
+def run_train_phase(torch, ops, card, phase, use_flash, packed, levels,
+                    steps, launches):
+    """Train at each level; print every step and the summary line; add
+    this phase's launches to ``launches``. Returns (results, failure or
+    None)."""
+    per_step = train_launches(12, use_flash)
+    results = {}
+    for level in levels:
+        ops.reset_launches()
+        tcfg, rows, peak = train(torch, ops, level, use_flash=use_flash,
+                                 packed=packed, steps=steps)
+        for name, n in ops.launch_counts().items():
+            launches[name] = launches.get(name, 0) + n
+        walls = sorted(r["wall_ms"] for r in rows[1:])
+        med = walls[len(walls) // 2]
+        results[level] = dict(steps=rows, peak_gib=peak, step_wall_ms=med,
+                              tokens_per_s=TB * TS / med * 1e3)
+        for r in rows:
+            print(f"phase {phase}: {level} step {r['step']} loss "
+                  f"{r['loss']:.6f} grad_norm {r['grad_norm']:.4f} "
+                  f"loss_scale {r['loss_scale']:g} skipped_steps "
+                  f"{r['skipped']} wall {r['wall_ms']:.1f} ms launches "
+                  f"{r['launches']} [{card}]")
+        print(f"phase {phase}: GPT-2 124M {level} use_flash={use_flash} "
+              f"fuse_head=False {'packed ' if packed else ''}B={TB} "
+              f"S={TS} width {tcfg.hidden_size} layers {tcfg.num_layers} "
+              f"vocab {tcfg.vocab_size}/{tcfg.padded_vocab}; step wall "
+              f"{med:.2f} ms (median of steps 2-{len(rows)}), "
+              f"{TB * TS / med * 1e3:.0f} tokens/s, peak memory "
+              f"{peak:.2f} GiB [{card}]")
+        losses = [r["loss"] for r in rows]
+        if not all(math.isfinite(v) for v in losses):
+            return results, f"{phase} {level}: a loss is not finite: {losses}"
+        if level == "O2" and steps >= 6 and not losses[-1] < losses[0]:
+            return results, f"{phase} O2: the loss did not fall: {losses}"
+        for r in rows:
+            if r["launches"] != per_step:
+                return results, (f"{phase} {level} step {r['step']}: "
+                                 f"launches {r['launches']}, expected "
+                                 f"{per_step}")
+        torch.cuda.empty_cache()
+    return results, None
+
+
+def check_train_parity(par, card, label, use_flash):
+    """Print train-parity's results; the failure, or None. The kernel
+    side must have launched its attention path's kernels and not the
+    other path's; the plain side no kernel."""
+    k, p = par["kernel"], par["torch"]
+    attn, other = ((("flash_fwd", "flash_dq", "flash_dkv"),
+                    ("softmax_fwd", "softmax_bwd")) if use_flash else
+                   (("softmax_fwd", "softmax_bwd"),
+                    ("flash_fwd", "flash_dq", "flash_dkv")))
+    print(f"phase train-parity: {label} launches, kernels {k['launches']} "
+          f"plain {p['launches']} [{card}]")
+    if (p["launches"] or not all(k["launches"].get(n) for n in attn)
+            or any(n in k["launches"] for n in other)):
+        return (f"train-parity {label}: launches kernels {k['launches']} "
+                f"plain {p['launches']}")
+    for batch in k["o0"]:
+        print(f"phase train-parity: {label} O0 depth 2 {batch} batch "
+              f"(loss, grad_norm) per step kernels {k['o0'][batch]} plain "
+              f"{p['o0'][batch]} [{card}]")
+        for (kl, kg), (pl, pg) in zip(k["o0"][batch], p["o0"][batch]):
+            if (abs(kl - pl) > 1e-5 * abs(pl)
+                    or abs(kg - pg) > 1e-4 * abs(pg)):
+                return (f"train-parity {label} O0 {batch}: kernels "
+                        f"{k['o0'][batch]} vs plain {p['o0'][batch]}")
+    for side in ("kernel", "torch"):
+        f = par[side]["fp16"]
+        print(f"phase train-parity: {label} O2_fp16 inf at step 2, {side}: "
+              f"{f}, step-2 params kept bit for bit "
+              f"{par[side]['step2_params_kept']} [{card}]")
+        if ([r["finite"] for r in f] != [True, False, True]
+                or f[1]["skipped"] != 1 or f[-1]["skipped"] != 1
+                or f[1]["scale_after"] != f[1]["scale_used"] / 2
+                or not par[side]["step2_params_kept"]):
+            return (f"train-parity {label} O2_fp16 ({side}): the forced "
+                    f"overflow did not skip step 2 cleanly: {f}")
+    return None
+
+
+# ---- phases 9 and 10: generate ---------------------------------------------
+
+#: generate's workload: 8 prompts of 32-512 tokens right-padded to 512,
+#: 64 new tokens, a dense cache of 1024 slots
+GEN_ROWS, GEN_WIDTH, GEN_NEW, GEN_SLOTS = 8, 512, 64, 1024
+
+
+def make_generator(torch, depth: int, policy: str, seed: int):
+    """GPT-2 (full width, ``depth`` layers) from ``seed`` and its ragged
+    prompts (lengths 32-512 from ``np.random.default_rng(2)``); returns
+    ``run(temperature, record=None) -> (tokens (8, 64) numpy, wall s)``.
+    ``record`` collects each step's last-position logits."""
+    import numpy as np
+    from apex1_tpu_torch import (GPT2Config, get_policy, gpt2_decoder,
+                                 gpt2_params_from_jax)
+    from apex1_tpu_torch.models.generate import generate
+    from apex1_tpu_torch.models.gpt2 import init_params
+    cfg = GPT2Config.gpt2_125m(num_layers=depth, policy=get_policy(policy))
+    model = gpt2_params_from_jax(init_params(cfg, seed), cfg, "cuda")
+    apply_fn, make_cache = gpt2_decoder(model)
+    rng = np.random.default_rng(2)
+    lens = rng.integers(32, GEN_WIDTH + 1, GEN_ROWS)
+    toks = np.zeros((GEN_ROWS, GEN_WIDTH), np.int64)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(1, cfg.vocab_size, n)
+    prompts = torch.from_numpy(toks).cuda()
+    plens = torch.from_numpy(lens).cuda()
+
+    def run(temperature: float, record=None):
+        fn = apply_fn
+        if record is not None:
+            def fn(*a, **kw):
+                logits, cache = apply_fn(*a, **kw)
+                record.append(logits[:, -1].float())
+                return logits, cache
+        cache = make_cache(GEN_ROWS, GEN_SLOTS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = generate(fn, prompts, max_new_tokens=GEN_NEW, cache=cache,
+                       temperature=temperature, vocab_size=cfg.vocab_size,
+                       prompt_lens=plens)
+        torch.cuda.synchronize()
+        return out.cpu().numpy(), time.perf_counter() - t0
+
+    return run, cfg
+
+
+def top2_gap(torch, logits, row: int, step: int, temperature: float,
+             vocab: int) -> float:
+    """(top1 - top2) / |top1| of the scores the sampler took its argmax
+    over at ``step`` for ``row``: the logits (greedy), or logits /
+    temperature plus the step's gumbel noise (the key(0) chain split
+    once a step, as `generate` does)."""
+    from apex1_tpu_torch.ops.paged_decode import (_bits_to_gumbel,
+                                                  _uniform_bits, split)
+    B, V = logits.shape
+    sc = logits[row].double().clone()
+    sc[vocab:] = -1e30
+    if temperature:
+        key = (0, 0)
+        for _ in range(step + 1):
+            key, sub = split(key)
+        col = torch.arange(V, device=logits.device) + row * V
+        g = _bits_to_gumbel(_uniform_bits(sub[0], sub[1], col.cpu(), B * V))
+        sc = sc / temperature + g.to(sc.device).double()
+    top = torch.topk(sc, 2).values
+    return ((top[0] - top[1]) / top[0].abs()).item()
 
 
 def main() -> int:
@@ -754,7 +1105,8 @@ def main() -> int:
 
     if "--profile" in sys.argv[1:]:
         prof = {"decode": profile_decode(torch),
-                "train": profile_train(torch)}
+                "train": profile_train(torch, use_flash=False),
+                "train_flash": profile_train(torch, use_flash=True)}
         os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
         with open(os.path.join(HERE, "chiprun_out", "profile.json"),
                   "w") as f:
@@ -772,20 +1124,26 @@ def main() -> int:
     checks["softmax_fwd"], checks["softmax_bwd"] = check_softmax(
         torch, ops, cgen)
     checks["xent_fwd"], checks["xent_bwd"] = check_xent(torch, ops, cgen)
+    (checks["flash_fwd"], checks["flash_dq"],
+     checks["flash_dkv"]) = check_flash(torch, ops, cgen)
     torch.cuda.empty_cache()
     bad = []
     for name, rows in checks.items():
         for r in rows:
             # a tolerance (rtol, atol) bounds the worst element's error
-            # over its allowance by 1; sampled ids (tol None) must match
+            # over its allowance by 1; sampled ids (tol None) must match;
+            # the flash backward must repeat its bits
             ok = r["worst"] <= 1 if r["tol"] else r["abs"] == 0
+            ok = ok and r.get("same_bits", True)
             lib = ("-" if r["library_ms"] is None
                    else f"{r['library_ms']:.4f}")
             tol = (f"rtol={r['tol'][0]:g} atol={r['tol'][1]:g}*rms"
                    if r["tol"] else "ids exact")
+            bits = ("" if "same_bits" not in r
+                    else f" same bits twice {r['same_bits']}")
             print(f"phase kernels: {name} [{r['case']}] "
                   f"max_abs={r['abs']:.3g} worst/allowed={r['worst']:.3g} "
-                  f"{tol} ms={r['ms']:.4f} "
+                  f"{tol}{bits} ms={r['ms']:.4f} "
                   f"plain_ms={r['plain_ms']:.4f} library_ms={lib} "
                   f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
                   f"{'ok' if ok else 'MISMATCH'} [{card}]")
@@ -799,7 +1157,7 @@ def main() -> int:
     streams, eng, wall, step_ms, cfg = serve(torch, ENGINE_KW, depth=12,
                                              policy="O2", seed=SEED)
     launches = ops.launch_counts()
-    serve_launches = dict(launches)
+    main_launches = dict(launches)
     summ = eng.metrics.summary()
     n_fwd = (eng.metrics.get_counter("prefill_chunks")
              + eng.metrics.get_counter("decode_steps"))
@@ -832,6 +1190,7 @@ def main() -> int:
     for s in streams:
         if min(s) < 0 or max(s) >= cfg.vocab_size:
             return fail("engine: a token outside the vocabulary")
+    del eng
 
     # 4. parity: kernels against the plain versions, O0, depth 2
     kern, _, kwall, _, _ = serve(torch, ENGINE_KW, depth=2, policy="O0",
@@ -847,68 +1206,78 @@ def main() -> int:
         return fail(f"parity: {diff} token streams differ between the "
                     f"kernels and the plain versions")
 
-    # 5. train: GPT-2 124M, B x S tokens, O2 and O2_fp16, six steps each
-    ops.reset_launches()
-    per_step = train_launches(12)
+    # 5-7. train (use_flash=False), train-flash, train-packed: GPT-2
+    # 124M, B x S tokens
     train_out = {}
-    for level in ("O2", "O2_fp16"):
-        tcfg, rows, peak = train(torch, ops, level)
-        walls = sorted(r["wall_ms"] for r in rows[1:])
-        med = walls[len(walls) // 2]
-        train_out[level] = dict(steps=rows, peak_gib=peak,
-                                step_wall_ms=med, tokens_per_s=TB * TS /
-                                med * 1e3)
-        for r in rows:
-            print(f"phase train: {level} step {r['step']} loss "
-                  f"{r['loss']:.6f} grad_norm {r['grad_norm']:.4f} "
-                  f"loss_scale {r['loss_scale']:g} skipped_steps "
-                  f"{r['skipped']} wall {r['wall_ms']:.1f} ms launches "
-                  f"{r['launches']} [{card}]")
-        print(f"phase train: GPT-2 124M {level} use_flash=False "
-              f"fuse_head=False B={TB} S={TS} width {tcfg.hidden_size} "
-              f"layers {tcfg.num_layers} vocab "
-              f"{tcfg.vocab_size}/{tcfg.padded_vocab}; step wall "
-              f"{med:.2f} ms (median of steps 2-{len(rows)}), "
-              f"{TB * TS / med * 1e3:.0f} tokens/s, peak memory "
-              f"{peak:.2f} GiB [{card}]")
-        losses = [r["loss"] for r in rows]
-        if not all(math.isfinite(v) for v in losses):
-            return fail(f"train {level}: a loss is not finite: {losses}")
-        if level == "O2" and not losses[-1] < losses[0]:
-            return fail(f"train O2: the loss did not fall: {losses}")
-        for r in rows:
-            if r["launches"] != per_step:
-                return fail(f"train {level} step {r['step']}: launches "
-                            f"{r['launches']}, expected {per_step}")
-        torch.cuda.empty_cache()
-    train_total = ops.launch_counts()
+    for phase, use_flash, packed, levels, steps in (
+            ("train", False, False, ("O2", "O2_fp16"), 6),
+            ("train-flash", True, False, ("O2", "O2_fp16"), 6),
+            ("train-packed", True, True, ("O2",), 3)):
+        train_out[phase], err = run_train_phase(
+            torch, ops, card, phase, use_flash, packed, levels, steps,
+            main_launches)
+        if err:
+            return fail(err)
 
-    # 6. train-parity: kernels against the plain versions, depth 2
-    par = train_parity(torch, ops)
-    k, p = par["kernel"], par["torch"]
-    print(f"phase train-parity: O0 depth 2 (loss, grad_norm) per step "
-          f"kernels {k['o0']} plain {p['o0']} [{card}]")
-    for side in ("kernel", "torch"):
-        print(f"phase train-parity: O2_fp16 inf at step 2, {side}: "
-              f"{par[side]['fp16']}, step-2 params kept bit for bit "
-              f"{par[side]['step2_params_kept']} [{card}]")
-    for (kl, kg), (pl, pg) in zip(k["o0"], p["o0"]):
-        if abs(kl - pl) > 1e-5 * abs(pl) or abs(kg - pg) > 1e-4 * abs(pg):
-            return fail(f"train-parity O0: kernels {k['o0']} vs plain "
-                        f"{p['o0']}")
-    for side in ("kernel", "torch"):
-        f = par[side]["fp16"]
-        if ([r["finite"] for r in f] != [True, False, True]
-                or f[1]["skipped"] != 1 or f[-1]["skipped"] != 1
-                or f[1]["scale_after"] != f[1]["scale_used"] / 2
-                or not par[side]["step2_params_kept"]):
-            return fail(f"train-parity O2_fp16 ({side}): the forced "
-                        f"overflow did not skip step 2 cleanly: {f}")
+    # 8. train-parity: kernels against the plain versions, depth 2
+    par = {}
+    for use_flash in (False, True):
+        label = f"use_flash={use_flash}"
+        par[label] = train_parity(torch, ops, use_flash)
+        err = check_train_parity(par[label], card, label, use_flash)
+        if err:
+            return fail(err)
 
-    # 7. the kernels line, the card, the last line. launches: the
-    # serving run's plus the training run's (the two main paths)
-    launches = {name: serve_launches[name] + train_total[name]
-                for name in serve_launches}
+    # 9. generate: GPT-2 124M, O2, ragged prompts, dense cache
+    run, gcfg = make_generator(torch, 12, "O2", SEED)
+    gen_out = {}
+    for temp in (0.0, 0.7):
+        ops.reset_launches()
+        toks, gwall = run(temp)
+        counts = ops.launch_counts()
+        for name, n in counts.items():
+            main_launches[name] += n
+        n_gen = toks.size
+        gen_out[temp] = dict(wall_s=gwall, tokens_per_s=n_gen / gwall,
+                             launches=counts)
+        print(f"phase generate: GPT-2 124M O2 T={temp} {GEN_ROWS} prompts "
+              f"of 32-{GEN_WIDTH} tokens, {GEN_NEW} new tokens each, "
+              f"cache {GEN_SLOTS} slots; wall {gwall:.2f} s, "
+              f"{n_gen / gwall:.1f} tok/s, flash_fwd launches "
+              f"{counts['flash_fwd']} (prefill), launches "
+              f"{ {k: v for k, v in counts.items() if v} } [{card}]")
+        if counts["flash_fwd"] != gcfg.num_layers:
+            return fail(f"generate: the prefill launched flash_fwd "
+                        f"{counts['flash_fwd']} times, expected "
+                        f"{gcfg.num_layers}")
+        if toks.min() < 0 or toks.max() >= gcfg.vocab_size:
+            return fail("generate: a token outside the vocabulary")
+    del run
+    torch.cuda.empty_cache()
+
+    # 10. generate-parity: kernels against the plain versions, O0, depth 2
+    run, gcfg = make_generator(torch, 2, "O0", SEED + 1)
+    for temp in (0.0, 0.7):
+        rec_k, rec_p = [], []
+        kt, _ = run(temp, rec_k)
+        with ops.force_impl("torch"):
+            pt, _ = run(temp, rec_p)
+        rows = sorted({int(r) for r in (kt != pt).nonzero()[0]})
+        gaps = []
+        for r in rows:
+            t = int((kt[r] != pt[r]).nonzero()[0][0])
+            gaps.append((r, t, top2_gap(torch, rec_p[t], r, t, temp,
+                                        gcfg.vocab_size)))
+        print(f"phase generate-parity: O0 depth 2 T={temp}, streams "
+              f"differing {len(rows)} of {GEN_ROWS}; (row, step, top-2 "
+              f"gap relative) at the first differing token {gaps} [{card}]")
+        if any(g >= 1e-4 for _, _, g in gaps):
+            return fail(f"generate-parity T={temp}: streams differ where "
+                        f"the top-2 gap is not a near-tie: {gaps}")
+    del run
+
+    # 11. the kernels line, the card, the last line. launches: the main
+    # paths' runs (engine, train, train-flash, train-packed, generate)
     sources = {"layer_norm_fwd": ("apex1_tpu_torch/csrc/layer_norm.cu",
                                   "apex1_tpu/ops/layer_norm.py:110"),
                "paged_attend": ("apex1_tpu_torch/csrc/paged_attend.cu",
@@ -924,13 +1293,19 @@ def main() -> int:
                "xent_fwd": ("apex1_tpu_torch/csrc/xentropy.cu",
                             "apex1_tpu/ops/xentropy.py:88"),
                "xent_bwd": ("apex1_tpu_torch/csrc/xentropy.cu",
-                            "apex1_tpu/ops/xentropy.py:114")}
+                            "apex1_tpu/ops/xentropy.py:114"),
+               "flash_fwd": ("apex1_tpu_torch/csrc/flash_attn.cu",
+                             "apex1_tpu/ops/attention.py:584"),
+               "flash_dq": ("apex1_tpu_torch/csrc/flash_attn.cu",
+                            "apex1_tpu/ops/attention.py:689"),
+               "flash_dkv": ("apex1_tpu_torch/csrc/flash_attn.cu",
+                             "apex1_tpu/ops/attention.py:717")}
     kernels = []
     for name, rows in checks.items():
         main_row = next(r for r in rows if r["main"])
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name][0],
-            "replaces": sources[name][1], "launches": launches[name],
+            "replaces": sources[name][1], "launches": main_launches[name],
             "max_abs_err": max(r["abs"] for r in rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
@@ -942,7 +1317,8 @@ def main() -> int:
         json.dump({"card": card, "checks": checks, "kernels": kernels,
                    "engine": {"wall_s": wall, "tokens": n_tok,
                               "step_ms": step_ms, "summary": summ},
-                   "train": train_out, "train_parity": par},
+                   "train": train_out, "train_parity": par,
+                   "generate": gen_out},
                   f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -283,12 +283,27 @@ def test_amp_refuses_what_is_not_ported():
 
 
 def test_gpt2_refuses_flash_and_fused_head(tiny):
+    """``use_flash=True`` runs (the flash slice) and gives the
+    materialized path's logits; the fused head and training dropout
+    still raise, naming their slices."""
+    tokens = torch.from_numpy(tiny["tokens"])
     cfg = GPT2Config.tiny(policy=get_policy("O0"), vocab_size=250)
     model = gpt2_params_from_jax(_np_tree(tiny["jparams"]), cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="flash"):
-        model(torch.from_numpy(tiny["tokens"]))
+    logits = model(tokens)
+    assert logits.shape == (B, S, 256) and torch.isfinite(logits).all()
+    plain = _port_model(tiny, "O0")(tokens)
+    np.testing.assert_allclose(logits.detach().numpy(),
+                               plain.detach().numpy(), rtol=1e-5, atol=1e-5)
     with pytest.raises(NotImplementedError, match="linear-xent"):
         gpt2_loss_fn(model)
+    dcfg = GPT2Config.tiny(policy=get_policy("O0"), vocab_size=250,
+                           dropout=0.1)
+    dmodel = gpt2_params_from_jax(_np_tree(tiny["jparams"]), dcfg, "cpu")
+    with pytest.raises(NotImplementedError, match="BERT"):
+        dmodel(tokens, deterministic=False)
+    with pytest.raises(NotImplementedError, match="BERT"):
+        gpt2_loss_fn(dmodel, fuse_head=False)(
+            dict(dmodel.named_parameters()), tokens, dropout_rng=(0, 1))
 
 
 # ---- interop: the whole training state -----------------------------------

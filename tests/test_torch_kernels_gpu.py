@@ -14,7 +14,12 @@ Sampled token ids exactly (the kernel's gumbel noise equals torch.log's
 on the card). The training kernels (layer norm backward, softmax
 forward and backward, cross-entropy forward and backward) per element
 as paged attention, with fp16 at rtol 2^-10 (one fp16 ulp), atol 1e-2;
-the layer norm backward also gives the same bits on a second run.
+the layer norm backward also gives the same bits on a second run. The
+flash kernels (forward, dq, dk/dv) the same way: the plain backward
+rounds p and dS to the operand type where the kernels do; the forward
+kernel rounds exp(s - m) against a running max where the plain forward
+keeps fp32, about one rounding of the output; dq and dk/dv give the
+same bits on a second run (no atomics).
 """
 
 import numpy as np
@@ -228,3 +233,90 @@ def test_layer_norm_kernel_takes_half_gamma(cuda, dtype):
     got, want = _both(lambda: layer_norm(x, g, b))
     assert got.dtype == dt
     _close(got, want, dt)
+
+
+# ---- the flash slice's kernels --------------------------------------------
+
+#: name -> (B, Hq, Hkv, Sq, Sk, D, causal, segments, q_off, k_off, dlse)
+_FLASH = {
+    "causal": (2, 4, 4, 128, 128, 64, True, None, 0, 0, False),
+    "gqa": (2, 12, 4, 96, 96, 64, True, None, 0, 0, False),
+    "segments": (2, 4, 4, 160, 160, 64, True, "array", 0, 0, False),
+    "odd": (1, 4, 4, 77, 200, 64, False, None, 0, 0, False),
+    "offsets_lse": (1, 4, 2, 100, 130, 64, True, None, 7, 40, True),
+    "d32_pair": (2, 2, 1, 70, 90, 32, False, "pair", 0, 0, True),
+    "d128": (1, 2, 2, 96, 96, 128, True, None, 0, 0, False),
+}
+
+
+def _flash_inputs(name, dt, cuda):
+    B, Hq, Hkv, Sq, Sk, D, causal, seg, q_off, k_off, dl = _FLASH[name]
+    rng = np.random.default_rng(12)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape)).to(cuda, dt)
+
+    q, k, v, do = t(B, Hq, Sq, D), t(B, Hkv, Sk, D), t(B, Hkv, Sk, D), \
+        t(B, Hq, Sq, D)
+    dlse = (torch.from_numpy(rng.standard_normal((B, Hq, Sq))).float()
+            .to(cuda) if dl else None)
+    qseg = kseg = None
+    if seg is not None:
+        # documents in a row with a padded tail: -1 on q, -2 on k for the
+        # pair (those q rows see no key)
+        qseg = np.sort(rng.integers(0, 4, (B, Sq)), axis=1)
+        qseg[:, -9:] = -1
+        kseg = qseg if seg == "array" else np.sort(
+            rng.integers(0, 4, (B, Sk)), axis=1)
+        if seg == "pair":
+            kseg[:, -5:] = -2
+        qseg = torch.from_numpy(qseg).to(cuda, torch.int32)
+        kseg = torch.from_numpy(kseg).to(cuda, torch.int32)
+    args = (1.0 / np.sqrt(D), causal, q_off, k_off)
+    return q, k, v, do, dlse, qseg, kseg, args
+
+
+@pytest.mark.parametrize("name", list(_FLASH))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_flash_kernels_match_plain(cuda, dtype, name):
+    """Forward, dq and dk/dv each against its plain version on the same
+    inputs (the backward from the plain forward's out and lse); dq and
+    dk/dv give the same bits on a second run (no atomics)."""
+    from apex1_tpu_torch.ops.attention import flash_dkv, flash_dq, flash_fwd
+    dt = getattr(torch, dtype)
+    q, k, v, do, dlse, qseg, kseg, args = _flash_inputs(name, dt, cuda)
+    (out, lse), (wout, wlse) = _both(
+        lambda: flash_fwd(q, k, v, qseg, kseg, *args))
+    assert out.dtype == dt and lse.dtype == torch.float32
+    _close(out, wout, dt)
+    empty = wlse <= -1e29
+    assert torch.equal(lse <= -1e29, empty)
+    _close(torch.where(empty, 0.0, lse), torch.where(empty, 0.0, wlse),
+           torch.float32)
+    delta = (do.float() * wout.float()).sum(-1)
+    bwd = (q, k, v, do, wlse, delta, dlse, qseg, kseg, *args)
+    dq, wdq = _both(lambda: flash_dq(*bwd))
+    assert dq.dtype == dt
+    _close(dq, wdq, dt)
+    (dk, dv), (wdk, wdv) = _both(lambda: flash_dkv(*bwd))
+    assert dk.dtype == dt and dv.dtype == dt
+    _close(dk, wdk, dt)
+    _close(dv, wdv, dt)
+    assert torch.equal(flash_dq(*bwd), dq)
+    dk2, dv2 = flash_dkv(*bwd)
+    assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
+
+
+def test_flash_attention_autograd_launches_the_kernels(cuda):
+    from apex1_tpu_torch.ops import KERNEL_WRAPPERS
+    from apex1_tpu_torch.ops.attention import flash_attention
+    names = ("flash_fwd", "flash_dq", "flash_dkv")
+    before = {n: KERNEL_WRAPPERS[n].launches for n in names}
+    q = torch.randn(2, 4, 64, 64, device=cuda, dtype=torch.bfloat16,
+                    requires_grad=True)
+    flash_attention(q, q, q, causal=True).float().sum().backward()
+    assert {n: KERNEL_WRAPPERS[n].launches - before[n] for n in names} == \
+        {n: 1 for n in names}
+    with pytest.raises(ValueError, match="head dim"):
+        z = torch.zeros(1, 1, 8, 160, device=cuda)
+        flash_attention(z, z, z)
