@@ -1,0 +1,776 @@
+// Fused LM-head cross-entropy for Hopper (sm_90a): the forward statistics,
+// dx and dW of softmax(x·Wᵀ), without the (tokens x vocab) logits in device
+// memory.
+//
+// Replaces: apex1_tpu/ops/linear_xent.py::_fwd_kernel (launched by
+// _fused_fwd :384, shard_stats :286 and shard_stats_packed :316, modes 0, 1
+// and 2 here), ::_bwd_dx_kernel (shard_grads :345) and ::_bwd_dw_kernel
+// (shard_grads :357).
+//
+//   s = x·Wᵀ (products of the operand type, fp32 sums). W is one shard of
+//   V_l rows; its local column c is the global column g = c + off, and is
+//   valid when c < V_l and g < K (num_classes).
+//   forward:  over vocab tiles, online: m_new = max(m, max valid s),
+//             l = l·exp(m - m_new) + Σ valid exp(s - m_new),
+//             tgt += Σ_{g == label} s, sx += Σ valid s;
+//             mode 0: lse = m + log l,
+//                     loss = (1-ε)(lse - tgt) + ε(lse - sx/K), 0 at padding_idx
+//             mode 1: m, l, tgt, sx as four (T,) arrays; mode 2: one (T, 4)
+//                     array of the same four values
+//   backward: G = (valid ? exp(s - lse) : 0) - (1-ε)[g == label] - ε/K,
+//             0 where invalid, times dloss (0 at padding_idx), rounded to the
+//             operand type (as the TPU kernels round their grad tile);
+//             dx = G·W, dW = Gᵀ·x, fp32 sums, written in the operand type
+//
+// Bound on the H100: operations. At GPT-2's training shape (T = 16368,
+// V = 50304, H = 768, bf16) the forward is 2·T·V·H = 1.26 TFLOP against
+// about 100 MB of operands (4 000 flop/byte, far above the ~295 ridge); dx
+// and dW each recompute s and do a second product, 2.5 TFLOP each.
+//
+// Design. The TPU kernels walk the vocab (forward, dx) or token (dW) axis as
+// the innermost sequential grid axis with fp32 accumulators in VMEM. Here a
+// block of 256 threads owns a tile of "own" rows (tokens for the forward and
+// dx, W rows for dW) and loops over tiles of 32 "inner" rows itself:
+// - the own rows' operand (all H columns) is read once; in bf16/fp16 each
+//   warp keeps its share of it as A fragments in registers for the whole
+//   loop (warp = 16 own rows x 1/KSPLIT of H), so a score tile costs
+//   only the inner tile's B fragments from shared memory; the KSPLIT
+//   partial score tiles are summed where they are read;
+// - each inner tile (all H columns) is loaded once with cp.async into one
+//   of two buffers while the block computes on the other, and serves both
+//   products: the logit tile is recomputed, never stored;
+// - dx and dW are one kernel: the score tile of dW is Sᵀ = W·xᵀ, the same
+//   "own · innerᵀ" product with the roles of token and vocab swapped, and
+//   both accumulate own·H += G·inner;
+// - the accumulator (where a bt x 768 fp32 sum lives): 32 own rows x all of
+//   H (H <= 768) spread over the 8 warps' registers, each warp a 32 x 96
+//   strip (24 m16n8 tiles, 96 registers a thread), so no split of H and no
+//   second recompute of the logits;
+// - no atomics: each output row is summed by one block in a fixed order,
+//   so two runs give the same bits.
+// bf16/fp16 products run on the tensor cores as mma.sync m16n8k16 (fp32
+// accumulate) on fragments that ldmatrix reads from shared memory (WMMA's
+// loads through these pointers compiled to generic loads, no ldmatrix, at
+// half the speed); fp32 runs as plain FMA on the CUDA cores (no
+// TF32) from shared memory, one buffer. Ragged token and vocab edges and H
+// not a multiple of 16 are masked or zero-filled in shared memory; nothing
+// is padded in device memory. Not yet: wgmma, TMA, more than one block an
+// SM.
+
+#include "common.cuh"
+
+#include <type_traits>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kHMax = 768;  // the widest hidden size the tiles hold
+constexpr float kNegInf = -1e30f;  // finite, as the JAX package's NEG_INF
+
+__host__ __device__ constexpr size_t align128(size_t n) {
+  return (n + 127) / 128 * 128;
+}
+
+__host__ __device__ constexpr int round16(int n) { return (n + 15) / 16 * 16; }
+
+__host__ __device__ constexpr size_t max_sz(size_t a, size_t b) {
+  return a > b ? a : b;
+}
+
+// Tile geometry for operand type T; BWD: the dx/dW kernel.
+template <typename T, bool BWD>
+struct Geo {
+  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr int BO = (F32 || BWD) ? 32 : 64;  // own rows a block
+  static constexpr int BI = 32;  // inner rows a loop step
+  static constexpr int NBUF = F32 ? 1 : 2;  // inner tile buffers
+  static constexpr int FR = BO / 16;  // half: 16-row blocks of the own tile
+  static constexpr int KSPLIT = F32 ? 1 : kWarps / FR;  // half: H split
+  static constexpr int NK = kHMax / 16 / KSPLIT;  // half: A fragments a warp
+  static constexpr int PAD = 16 / int(sizeof(T));  // operand row padding
+  static constexpr int LDS = BI + 4;  // fp32 score tile stride
+  static constexpr int LDG = BI + PAD;  // G tile stride (operand type)
+  static constexpr int TPR = kThreads / BO;  // forward: threads a row
+  static constexpr int CPT = BI / TPR;  // forward: score columns a thread
+
+  static __host__ __device__ int ld(int hp) { return hp + PAD; }
+  static __host__ __device__ size_t o_bytes(int hp) {
+    return align128(size_t(BO) * ld(hp) * sizeof(T));
+  }
+  static __host__ __device__ size_t i_bytes(int hp) {
+    return align128(size_t(BI) * ld(hp) * sizeof(T));
+  }
+  // fp32: the own tile, then the inner tile; half: the inner tiles, which
+  // first stage the own tile on its way to the registers
+  static __host__ __device__ size_t ops_bytes(int hp) {
+    return F32 ? o_bytes(hp) + i_bytes(hp)
+               : max_sz(NBUF * i_bytes(hp), o_bytes(hp));
+  }
+  static constexpr size_t S_BYTES = align128(size_t(KSPLIT) * BO * LDS * 4);
+  static constexpr size_t G_BYTES =
+      BWD ? align128(size_t(BO) * LDG * sizeof(T)) : 0;
+  static constexpr size_t TOK_BYTES = align128(size_t(3) * BI * 4);
+  static __host__ __device__ size_t smem(int hp) {
+    return ops_bytes(hp) + S_BYTES + G_BYTES + TOK_BYTES;
+  }
+};
+
+struct LxArgs {
+  const void* x;       // (T, H)
+  const void* w;       // (V, H): the shard
+  const int* labels;   // (T,)
+  const float* lse;    // (T,), backward
+  const float* dloss;  // (T,), backward
+  float* out[4];       // forward outputs, by mode
+  void* grad;          // dx (T, H) or dW (V, H)
+  int T, V, H, K, off;
+  float smoothing;
+  int has_pad, pad;
+  int mode;  // forward: 0 loss+lse, 1 four stats, 2 packed
+  int vec;   // H*sizeof(T) % 16 == 0 and x, w 16-byte aligned
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// R rows of H values (row stride H) into an R x hp tile with row stride ld;
+// rows past `rows` and columns past H become zero. vec: 16-byte cp.async
+// copies, in flight until cp_async_wait_all; else plain loads.
+template <typename T, int R>
+__device__ __forceinline__ void load_rows(T* dst, int ld, const T* src,
+                                          int rows, int H, int hp, int vec) {
+  if (vec) {
+    // thread t copies 16-byte chunk t % SLOTS of rows t / SLOTS + k·RPP:
+    // no division, and the addresses step by a constant
+    constexpr int EPV = 16 / int(sizeof(T));
+    constexpr int SLOTS = (kHMax / EPV) <= 128 ? 128 : 256;
+    constexpr int RPP = kThreads / SLOTS;  // rows a pass
+    static_assert(kHMax / EPV <= SLOTS && R % RPP == 0, "loader geometry");
+    const int c = threadIdx.x % SLOTS, r0 = threadIdx.x / SLOTS;
+    if (c * EPV < hp) {
+      const bool col_in = c * EPV < H;
+      T* d = dst + r0 * ld + c * EPV;
+      const T* s = src + size_t(r0) * H + c * EPV;
+#pragma unroll 4
+      for (int r = r0; r < R; r += RPP) {
+        const bool in = col_in && r < rows;
+        cp_async16(d, in ? s : src, in ? 16 : 0);
+        d += RPP * ld;
+        s += size_t(RPP) * H;
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  } else {
+    for (int i = threadIdx.x; i < R * hp; i += kThreads) {
+      const int r = i / hp, c = i % hp;
+      dst[r * ld + c] =
+          (r < rows && c < H) ? src[size_t(r) * H + c] : from_f32<T>(0.f);
+    }
+  }
+}
+
+// bf16/fp16 tensor-core primitives (PTX): ldmatrix of four 8x8 tiles and
+// the m16n8k16 product with fp32 accumulation. A fragment: 4 registers of a
+// 16x16 row-major tile; B: 2 registers of a 16x8 tile; C: 4 floats, rows
+// lane/4 and lane/4 + 8, columns 2·(lane%4) + {0, 1}.
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+template <typename T>
+__device__ __forceinline__ void mma16816(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  if constexpr (std::is_same<T, __half>::value) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+}
+
+// the A fragment of the 16x16 tile at `tile` (row-major, row stride ld)
+template <typename T>
+__device__ __forceinline__ void load_a(unsigned (&r)[4], const T* tile,
+                                       int ld) {
+  const int lane = threadIdx.x % 32;
+  ldsm_x4(r, tile + ((lane % 8) + 8 * ((lane / 8) % 2)) * ld + 8 * (lane / 16));
+}
+
+// The block's own tile and the inner tiles it walks: fp32 keeps the own
+// tile in shared memory; bf16/fp16 keep each warp's A fragments (16 own
+// rows x the warp's 1/KSPLIT share of H) in registers.
+template <typename T, bool BWD>
+struct OwnTile {
+  using G = Geo<T, BWD>;
+  unsigned a[G::F32 ? 1 : G::NK][4];
+
+  // read the own tile (staged at `stage`, row stride ld) into registers
+  __device__ __forceinline__ void load(const T* stage, int ld, int hp) {
+    if constexpr (!G::F32) {
+      const int w = threadIdx.x / 32, fr = w % G::FR, ks = w / G::FR;
+#pragma unroll
+      for (int j = 0; j < G::NK; ++j) {
+        const int k16 = j * G::KSPLIT + ks;
+        if (k16 * 16 < hp)
+          load_a<T>(a[j], stage + fr * 16 * ld + k16 * 16, ld);
+      }
+    }
+  }
+
+  // the KSPLIT partial score tiles sS[ks][BO x BI] = own · sIᵀ (fp32),
+  // by the whole block; fp32 reads the own tile from sO
+  __device__ __forceinline__ void scores(const T* sO, const T* sI, int ld,
+                                         int hp, float* sS) const {
+    if constexpr (G::F32) {
+      // thread t: row t / 8, columns t % 8 + 8j; float4 steps along H
+      static_assert(G::BO == 32 && G::BI == 32, "fp32 score tile");
+      const int r = threadIdx.x / 8, c0 = threadIdx.x % 8;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int k = 0; k < hp; k += 4) {
+        const float4 av = *reinterpret_cast<const float4*>(sO + r * ld + k);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float4 b =
+              *reinterpret_cast<const float4*>(sI + (c0 + 8 * j) * ld + k);
+          acc[j] = fmaf(av.x, b.x, acc[j]);
+          acc[j] = fmaf(av.y, b.y, acc[j]);
+          acc[j] = fmaf(av.z, b.z, acc[j]);
+          acc[j] = fmaf(av.w, b.w, acc[j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sS[r * G::LDS + c0 + 8 * j] = acc[j];
+    } else {
+      // warp: its 16 own rows x all BI inner columns (BI / 8 n8 tiles),
+      // over its share of H; B(k, n) = inner[n][k] is ldmatrix's plain
+      // layout
+      constexpr int NT = G::BI / 8;
+      const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+      const int fr = w % G::FR, ks = w / G::FR;
+      const int q = lane / 8;
+      const T* b_base = sI + ((lane % 8) + 8 * (q / 2)) * ld + 8 * (q % 2);
+      float acc[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+      for (int j = 0; j < G::NK; ++j) {
+        const int k16 = j * G::KSPLIT + ks;
+        if (k16 * 16 < hp) {
+#pragma unroll
+          for (int p = 0; p < NT / 2; ++p) {
+            unsigned b[4];
+            ldsm_x4(b, b_base + 16 * p * ld + k16 * 16);
+            mma16816<T>(acc[2 * p], a[j], b[0], b[1]);
+            mma16816<T>(acc[2 * p + 1], a[j], b[2], b[3]);
+          }
+        }
+      }
+      float* part = sS + ks * (G::BO * G::LDS) +
+                    (fr * 16 + lane / 4) * G::LDS + 2 * (lane % 4);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        *reinterpret_cast<float2*>(part + 8 * n) =
+            make_float2(acc[n][0], acc[n][1]);
+        *reinterpret_cast<float2*>(part + 8 * G::LDS + 8 * n) =
+            make_float2(acc[n][2], acc[n][3]);
+      }
+    }
+  }
+};
+
+// element (r, c) of the score tile: the sum of the KSPLIT partials
+template <typename G>
+__device__ __forceinline__ float score_at(const float* sS, int r, int c) {
+  float s = sS[r * G::LDS + c];
+#pragma unroll
+  for (int ks = 1; ks < G::KSPLIT; ++ks)
+    s += sS[ks * (G::BO * G::LDS) + r * G::LDS + c];
+  return s;
+}
+
+template <int TPR>
+__device__ __forceinline__ float group_max(float v) {
+#pragma unroll
+  for (int o = TPR / 2; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+template <int TPR>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = TPR / 2; o > 0; o >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Shared-memory carve-up and the loop over inner tiles that both kernels
+// share: `body(sI, i0)` runs once a tile, after the tile has landed and its
+// partial scores are in sS.
+template <typename T, bool BWD>
+struct Walk {
+  using G = Geo<T, BWD>;
+  int hp, ld;
+  T* sO;    // fp32: the own tile
+  T* sI;    // the inner tile buffers (half: the own tile's staging first)
+  float* sS;
+  T* sG;
+  float* sTok;  // three BI-long arrays: lse, dl, labels (as int)
+
+  __device__ __forceinline__ Walk(unsigned char* smem, int H) {
+    hp = round16(H);
+    ld = G::ld(hp);
+    unsigned char* p = smem;
+    sO = reinterpret_cast<T*>(p);
+    if (G::F32) p += G::o_bytes(hp);
+    sI = reinterpret_cast<T*>(p);
+    p += G::ops_bytes(hp) - (G::F32 ? G::o_bytes(hp) : 0);
+    sS = reinterpret_cast<float*>(p);
+    p += G::S_BYTES;
+    sG = reinterpret_cast<T*>(p);
+    p += G::G_BYTES;
+    sTok = reinterpret_cast<float*>(p);
+  }
+
+  // the own tile: into sO (fp32) or, staged through sI, into registers
+  __device__ __forceinline__ void load_own(OwnTile<T, BWD>& own,
+                                          const T* src, int rows, int H,
+                                          int vec) {
+    load_rows<T, G::BO>(G::F32 ? sO : sI, ld, src, rows, H, hp, vec);
+    if (vec) cp_async_wait_all();
+    __syncthreads();
+    own.load(sI, ld, hp);
+    __syncthreads();  // the staging area becomes the inner tiles
+  }
+
+  template <typename Tokens, typename Body>
+  __device__ __forceinline__ void run(const OwnTile<T, BWD>& own,
+                                      const T* src, int n_inner, int H,
+                                      int vec, Tokens tokens, Body body) {
+    const int n_tiles = (n_inner + G::BI - 1) / G::BI;
+    const int tile_elems = G::BI * ld;
+    auto issue = [&](int it, int buf) {
+      const int i0 = it * G::BI;
+      load_rows<T, G::BI>(sI + buf * tile_elems, ld, src + size_t(i0) * H,
+                          min(G::BI, n_inner - i0), H, hp, vec);
+    };
+    const bool pipe = vec && G::NBUF == 2;
+    if (pipe) issue(0, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int buf = G::NBUF == 2 ? (it & 1) : 0;
+      if (pipe) {
+        cp_async_wait_all();
+      } else {
+        if (G::NBUF == 1) __syncthreads();  // the last tile is read
+        issue(it, buf);
+        if (vec) cp_async_wait_all();
+      }
+      tokens(it * G::BI);
+      __syncthreads();  // the tile has landed; the last step is done
+      if (pipe && it + 1 < n_tiles) issue(it + 1, buf ^ 1);
+      const T* tile = sI + buf * tile_elems;
+      own.scores(sO, tile, ld, hp, sS);
+      __syncthreads();
+      body(tile, it * G::BI);
+    }
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+    lxent_fwd_kernel(const LxArgs a) {
+  using G = Geo<T, false>;
+  constexpr int BO = G::BO, TPR = G::TPR, CPT = G::CPT;
+  extern __shared__ __align__(128) unsigned char smem[];
+  Walk<T, false> walk(smem, a.H);
+  OwnTile<T, false> own;
+
+  const int tid = threadIdx.x, row = tid / TPR, part = tid % TPR;
+  const int own0 = blockIdx.x * BO, grow = own0 + row;
+  walk.load_own(own, static_cast<const T*>(a.x) + size_t(own0) * a.H,
+                min(BO, a.T - own0), a.H, a.vec);
+  const int label = grow < a.T ? a.labels[grow] : -1;
+  // each thread folds its own columns online; the TPR threads of a row
+  // merge their statistics once, after the loop
+  float m = kNegInf, l = 0.f, tgt = 0.f, sx = 0.f;
+  walk.run(own, static_cast<const T*>(a.w), a.V, a.H, a.vec, [](int) {},
+           [&](const T*, int i0) {
+             float sv[CPT];
+             bool ok[CPT];
+             float mx = kNegInf, t_add = 0.f, x_add = 0.f;
+#pragma unroll
+             for (int j = 0; j < CPT; ++j) {
+               const int c = part + TPR * j, g = i0 + c + a.off;
+               ok[j] = i0 + c < a.V && g < a.K;
+               sv[j] = score_at<G>(walk.sS, row, c);
+               mx = fmaxf(mx, ok[j] ? sv[j] : kNegInf);
+               t_add += g == label ? sv[j] : 0.f;
+               x_add += ok[j] ? sv[j] : 0.f;
+             }
+             const float m_new = fmaxf(m, mx);
+             const float corr = expf(m - m_new);
+             float sum = 0.f;
+#pragma unroll
+             for (int j = 0; j < CPT; ++j)
+               sum += ok[j] ? expf(sv[j] - m_new) : 0.f;
+             l = l * corr + sum;
+             m = m_new;
+             tgt += t_add;
+             sx += x_add;
+           });
+  {
+    const float m_row = group_max<TPR>(m);
+    l = group_sum<TPR>(l * expf(m - m_row));
+    m = m_row;
+    tgt = group_sum<TPR>(tgt);
+    sx = group_sum<TPR>(sx);
+  }
+  if (grow >= a.T || part != 0) return;
+  if (a.mode == 0) {
+    const float lse = m + logf(l);
+    float loss = (1.f - a.smoothing) * (lse - tgt) +
+                 a.smoothing * (lse - sx / static_cast<float>(a.K));
+    if (a.has_pad && label == a.pad) loss = 0.f;
+    a.out[0][grow] = loss;
+    a.out[1][grow] = lse;
+  } else if (a.mode == 1) {
+    a.out[0][grow] = m;
+    a.out[1][grow] = l;
+    a.out[2][grow] = tgt;
+    a.out[3][grow] = sx;
+  } else {
+    *reinterpret_cast<float4*>(a.out[0] + size_t(grow) * 4) =
+        make_float4(m, l, tgt, sx);
+  }
+}
+
+// dx (DW false: own = token rows, inner = W rows) or dW (DW true: own = W
+// rows, inner = token rows): own·H += G·inner, G recomputed a tile at a time.
+template <typename T, bool DW>
+__global__ void __launch_bounds__(kThreads, 1)
+    lxent_bwd_kernel(const LxArgs a) {
+  using G = Geo<T, true>;
+  constexpr int BO = G::BO, BI = G::BI;
+  extern __shared__ __align__(128) unsigned char smem[];
+  Walk<T, true> walk(smem, a.H);
+  OwnTile<T, true> own;
+  float* sLse = walk.sTok;
+  float* sDl = sLse + BI;
+  int* sLab = reinterpret_cast<int*>(sDl + BI);
+
+  const int tid = threadIdx.x;
+  const int own0 = blockIdx.x * BO;
+  const int n_own = DW ? a.V : a.T, n_inner = DW ? a.T : a.V;
+  const float on = 1.f - a.smoothing;
+  const float eps_k = a.smoothing / static_cast<float>(a.K);
+  // the own rows' token statistics (dx), in registers of the G loop
+  constexpr int EPT = BO * BI / kThreads;  // G elements a thread
+  static_assert(kThreads % BI == 0, "a thread's G elements share a column");
+
+  // the token statistics of token t (0 past T; dloss 0 at padding_idx, as
+  // the TPU's _grad_tile masks it)
+  auto token = [&](int t, float& lse, float& dl, int& lab) {
+    const bool in = t < a.T;
+    lab = in ? a.labels[t] : -1;
+    lse = in ? a.lse[t] : 0.f;
+    dl = (in && !(a.has_pad && lab == a.pad)) ? a.dloss[t] : 0.f;
+  };
+
+  walk.load_own(own, static_cast<const T*>(DW ? a.w : a.x) +
+                         size_t(own0) * a.H,
+                min(BO, n_own - own0), a.H, a.vec);
+
+  // the accumulator: fp32, BO x hp, in registers. bf16/fp16: warp w the
+  // 32 x 96 strip of columns [96w, 96w + 96), 2 x 12 m16n8 tiles; fp32:
+  // thread (tx, ty) rows ty and ty + 16, columns 4·tx + 64j + {0..3}
+  constexpr int NT_H = kHMax / 8 / kWarps;  // half: n8 tiles a warp
+  constexpr int NJ_F = kHMax / 64;          // fp32: float4 column groups
+  constexpr int NJ = G::F32 ? NJ_F : NT_H;
+  float acc[2][NJ][4];
+  const int warp = tid / 32, lane = tid % 32;
+  const int tx = tid % 16, ty = tid / 16;  // fp32 layout
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+  // thread e-th G element: row r0 + e * (kThreads / BI), column c
+  const int gc = tid % BI, gr0 = tid / BI;
+  float own_lse[DW ? 1 : EPT], own_dl[DW ? 1 : EPT];
+  int own_lab[DW ? 1 : EPT];
+  if constexpr (!DW) {
+#pragma unroll
+    for (int e = 0; e < EPT; ++e)
+      token(own0 + gr0 + e * (kThreads / BI), own_lse[e], own_dl[e],
+            own_lab[e]);
+  }
+
+  // dW: the inner tile's token statistics, read one tile ahead so their
+  // global latency overlaps a step
+  float nx_lse = 0.f, nx_dl = 0.f;
+  int nx_lab = -1;
+  if (DW && tid < BI) token(tid, nx_lse, nx_dl, nx_lab);
+  walk.run(
+      own, static_cast<const T*>(DW ? a.x : a.w), n_inner, a.H, a.vec,
+      [&](int i0) {
+        if constexpr (DW) {
+          if (tid < BI) {
+            sLse[tid] = nx_lse;
+            sDl[tid] = nx_dl;
+            sLab[tid] = nx_lab;
+            token(i0 + BI + tid, nx_lse, nx_dl, nx_lab);
+          }
+        }
+      },
+      [&](const T* tile, int i0) {
+        float t_lse = 0.f, t_dl = 0.f;
+        int t_lab = -1;
+        if constexpr (DW) {
+          t_lse = sLse[gc];
+          t_dl = sDl[gc];
+          t_lab = sLab[gc];
+        }
+#pragma unroll
+        for (int e = 0; e < EPT; ++e) {
+          const int r = gr0 + e * (kThreads / BI), c = gc;
+          if constexpr (!DW) {
+            t_lse = own_lse[e];
+            t_dl = own_dl[e];
+            t_lab = own_lab[e];
+          }
+          const int vloc = DW ? own0 + r : i0 + c;  // shard-local W row
+          const int g = vloc + a.off;
+          const bool valid = vloc < a.V && g < a.K;
+          const float s = score_at<G>(walk.sS, r, c);
+          const float p = valid ? expf(s - t_lse) : 0.f;
+          float gv = p - on * (g == t_lab ? 1.f : 0.f) - eps_k;
+          gv = valid ? gv * t_dl : 0.f;
+          walk.sG[r * G::LDG + c] = from_f32<T>(gv);
+        }
+        __syncthreads();
+        const int ld = walk.ld, hp = walk.hp;
+        if constexpr (G::F32) {
+          for (int k = 0; k < BI; ++k) {
+            const float g0 = walk.sG[ty * G::LDG + k];
+            const float g1 = walk.sG[(ty + 16) * G::LDG + k];
+#pragma unroll
+            for (int j = 0; j < NJ_F; ++j) {
+              const int col = 4 * tx + 64 * j;
+              if (col < hp) {
+                const float4 b =
+                    *reinterpret_cast<const float4*>(tile + k * ld + col);
+                acc[0][j][0] = fmaf(g0, b.x, acc[0][j][0]);
+                acc[0][j][1] = fmaf(g0, b.y, acc[0][j][1]);
+                acc[0][j][2] = fmaf(g0, b.z, acc[0][j][2]);
+                acc[0][j][3] = fmaf(g0, b.w, acc[0][j][3]);
+                acc[1][j][0] = fmaf(g1, b.x, acc[1][j][0]);
+                acc[1][j][1] = fmaf(g1, b.y, acc[1][j][1]);
+                acc[1][j][2] = fmaf(g1, b.z, acc[1][j][2]);
+                acc[1][j][3] = fmaf(g1, b.w, acc[1][j][3]);
+              }
+            }
+          }
+        } else {
+          // B(k, n) = tile[k][n] (inner rows k): ldmatrix .trans
+          const int q = lane / 8;
+          const T* b_base =
+              tile + ((lane % 8) + 8 * (q % 2)) * ld + 8 * (q / 2);
+#pragma unroll
+          for (int k = 0; k < BI; k += 16) {
+            unsigned a0[4], a1[4];
+            load_a<T>(a0, walk.sG + k, G::LDG);
+            load_a<T>(a1, walk.sG + 16 * G::LDG + k, G::LDG);
+#pragma unroll
+            for (int p = 0; p < NT_H / 2; ++p) {
+              const int col = warp * NT_H * 8 + 16 * p;
+              if (col < hp) {
+                unsigned b[4];
+                ldsm_x4_t(b, b_base + k * ld + col);
+                mma16816<T>(acc[0][2 * p], a0, b[0], b[1]);
+                mma16816<T>(acc[0][2 * p + 1], a0, b[2], b[3]);
+                mma16816<T>(acc[1][2 * p], a1, b[0], b[1]);
+                mma16816<T>(acc[1][2 * p + 1], a1, b[2], b[3]);
+              }
+            }
+          }
+        }
+      });
+
+  T* out = static_cast<T*>(a.grad);
+  if constexpr (G::F32) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = own0 + ty + 16 * i;
+      if (r >= n_own) continue;
+#pragma unroll
+      for (int j = 0; j < NJ_F; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int col = 4 * tx + 64 * j + q;
+          if (col < a.H) out[size_t(r) * a.H + col] = acc[i][j][q];
+        }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < NT_H; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int r = own0 + 16 * i + lane / 4 + 8 * (q / 2);
+          const int col = warp * NT_H * 8 + 8 * j + 2 * (lane % 4) + q % 2;
+          if (r < n_own && col < a.H)
+            out[size_t(r) * a.H + col] = from_f32<T>(acc[i][j][q]);
+        }
+  }
+}
+
+enum Which { kFwd = 0, kDx = 1, kDw = 2 };
+
+template <typename T>
+static int launch(int which, const LxArgs& a, cudaStream_t st) {
+  static bool attr_set[3] = {false, false, false};
+  const int hp = round16(a.H);
+  void (*kern)(const LxArgs);
+  size_t smem, max_smem;
+  int rows;
+  if (which == kFwd) {
+    kern = lxent_fwd_kernel<T>;
+    smem = Geo<T, false>::smem(hp);
+    max_smem = Geo<T, false>::smem(kHMax);
+    rows = (a.T + Geo<T, false>::BO - 1) / Geo<T, false>::BO;
+  } else {
+    if (which == kDx)
+      kern = lxent_bwd_kernel<T, false>;
+    else
+      kern = lxent_bwd_kernel<T, true>;
+    smem = Geo<T, true>::smem(hp);
+    max_smem = Geo<T, true>::smem(kHMax);
+    const int n_own = which == kDx ? a.T : a.V;
+    rows = (n_own + Geo<T, true>::BO - 1) / Geo<T, true>::BO;
+  }
+  if (!attr_set[which]) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(max_smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr_set[which] = true;
+  }
+  kern<<<rows, kThreads, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+static int dispatch(int which, LxArgs& a, int dtype, void* stream) {
+  if (a.T <= 0 || a.V <= 0) return 0;
+  if (a.H <= 0 || a.H > kHMax || a.K <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = as_stream(stream);
+  switch (dtype) {
+    case kF32:
+      return launch<float>(which, a, st);
+    case kBF16:
+      return launch<__nv_bfloat16>(which, a, st);
+    case kF16:
+      return launch<__half>(which, a, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+LxArgs make_args(const void* x, const void* w, const void* labels, int T,
+                 int V, int H, int K, int off, float smoothing, int has_pad,
+                 int pad, int vec) {
+  LxArgs a{};
+  a.x = x;
+  a.w = w;
+  a.labels = static_cast<const int*>(labels);
+  a.T = T;
+  a.V = V;
+  a.H = H;
+  a.K = K;
+  a.off = off;
+  a.smoothing = smoothing;
+  a.has_pad = has_pad;
+  a.pad = pad;
+  a.vec = vec;
+  return a;
+}
+
+}  // namespace
+
+// x (T, H), w (V, H) contiguous in `dtype`, labels (T,) int32. mode 0: out0
+// loss, out1 lse (T,) fp32; mode 1: out0..3 m, l, tgt, sx (T,) fp32; mode 2:
+// out0 (T, 4) fp32. H <= 768.
+extern "C" int apex1_lxent_fwd(const void* x, const void* w,
+                               const void* labels, void* out0, void* out1,
+                               void* out2, void* out3, int T, int V, int H,
+                               int K, int off, float smoothing, int has_pad,
+                               int pad, int mode, int vec, int dtype,
+                               void* stream) {
+  LxArgs a = make_args(x, w, labels, T, V, H, K, off, smoothing, has_pad, pad,
+                       vec);
+  a.out[0] = static_cast<float*>(out0);
+  a.out[1] = static_cast<float*>(out1);
+  a.out[2] = static_cast<float*>(out2);
+  a.out[3] = static_cast<float*>(out3);
+  a.mode = mode;
+  return dispatch(kFwd, a, dtype, stream);
+}
+
+// lse, dloss (T,) fp32; dx (T, H) in x's dtype
+extern "C" int apex1_lxent_dx(const void* x, const void* w,
+                              const void* labels, const void* lse,
+                              const void* dloss, void* dx, int T, int V, int H,
+                              int K, int off, float smoothing, int has_pad,
+                              int pad, int vec, int dtype, void* stream) {
+  LxArgs a = make_args(x, w, labels, T, V, H, K, off, smoothing, has_pad, pad,
+                       vec);
+  a.lse = static_cast<const float*>(lse);
+  a.dloss = static_cast<const float*>(dloss);
+  a.grad = dx;
+  return dispatch(kDx, a, dtype, stream);
+}
+
+// dw (V, H) in w's dtype
+extern "C" int apex1_lxent_dw(const void* x, const void* w,
+                              const void* labels, const void* lse,
+                              const void* dloss, void* dw, int T, int V, int H,
+                              int K, int off, float smoothing, int has_pad,
+                              int pad, int vec, int dtype, void* stream) {
+  LxArgs a = make_args(x, w, labels, T, V, H, K, off, smoothing, has_pad, pad,
+                       vec);
+  a.lse = static_cast<const float*>(lse);
+  a.dloss = static_cast<const float*>(dloss);
+  a.grad = dw;
+  return dispatch(kDw, a, dtype, stream);
+}

@@ -7,7 +7,9 @@ and decode steps on a dense cache; and the uncached one, which
 training runs (`gpt2_loss_fn`): causal flash attention with
 ``use_flash=True`` (the default; packed batches through
 ``segment_ids``/``positions``), or the materialized scores through the
-fused causal softmax with ``use_flash=False``.
+fused causal softmax with ``use_flash=False``; its loss takes the final
+hidden states through the fused LM-head cross-entropy
+(``fuse_head=True``) or the logits (``fuse_head=False``).
 
 Policy-aware as in the JAX package: parameters are stored fp32,
 activations and matmuls run in ``policy.compute_dtype`` (cast on use),
@@ -30,6 +32,7 @@ from apex1_tpu_torch.core.policy import PrecisionPolicy, get_policy
 from apex1_tpu_torch.ops._common import resolve_device
 from apex1_tpu_torch.ops.attention import flash_attention
 from apex1_tpu_torch.ops.layer_norm import layer_norm
+from apex1_tpu_torch.ops.linear_xent import linear_cross_entropy
 from apex1_tpu_torch.ops.softmax import scaled_upper_triang_masked_softmax
 from apex1_tpu_torch.ops.xentropy import (masked_next_token_mean,
                                           softmax_cross_entropy_loss)
@@ -297,31 +300,34 @@ def gpt2_loss_fn(model: GPT2, *, fuse_head: bool = True):
     (a packed batch) the mean is over the targets inside a document
     (`masked_next_token_mean`).
 
+    ``fuse_head=True`` (the default, as in JAX): the final hidden states
+    and the tied embedding go through `linear_cross_entropy`, the head
+    product fused into the cross-entropy, so no (B, S, V) logits exist.
     ``fuse_head=False``: the materialized fp32 logits through
     `softmax_cross_entropy_loss` (the JAX package's parity gold).
-    ``fuse_head=True`` (the JAX default) needs the fused LM-head
-    cross-entropy kernels, not ported yet. ``dropout_rng`` with
-    ``cfg.dropout == 0`` raises ValueError, as in JAX; with
-    ``cfg.dropout > 0`` it raises NotImplementedError (the BERT
-    slice's kernels)."""
-    if fuse_head:
-        raise NotImplementedError(
-            "fuse_head=True needs the fused LM-head cross-entropy "
-            "(TPU kernels 7-11), which the linear-xent slice ports "
-            "(ROADMAP.md queue A item 1c); use fuse_head=False")
+    ``dropout_rng`` with ``cfg.dropout == 0`` raises ValueError, as in
+    JAX; with ``cfg.dropout > 0`` it raises NotImplementedError (the
+    BERT slice's kernels)."""
 
     def loss_fn(params: dict, tokens: torch.Tensor, segment_ids=None,
                 positions=None, dropout_rng=None) -> torch.Tensor:
         if dropout_rng is not None and model.cfg.dropout == 0.0:
             raise ValueError("dropout_rng passed but cfg.dropout == 0: "
                              "the key would be silently unused")
-        logits = torch.func.functional_call(
-            model, params, (tokens,),
-            dict(segment_ids=segment_ids, positions=positions,
-                 deterministic=dropout_rng is None))
-        losses = softmax_cross_entropy_loss(
-            logits[:, :-1].float(), tokens[:, 1:],
-            num_classes=model.cfg.vocab_size)
+        kw = dict(segment_ids=segment_ids, positions=positions,
+                  deterministic=dropout_rng is None)
+        if fuse_head:
+            h = torch.func.functional_call(
+                model, params, (tokens,), dict(return_hidden=True, **kw))
+            losses = linear_cross_entropy(
+                h[:, :-1], params["wte"].to(h.dtype), tokens[:, 1:],
+                num_classes=model.cfg.vocab_size)
+        else:
+            logits = torch.func.functional_call(model, params, (tokens,),
+                                                kw)
+            losses = softmax_cross_entropy_loss(
+                logits[:, :-1].float(), tokens[:, 1:],
+                num_classes=model.cfg.vocab_size)
         if segment_ids is not None:
             return masked_next_token_mean(losses, segment_ids)
         return losses.mean()

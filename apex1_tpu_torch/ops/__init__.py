@@ -5,9 +5,17 @@ from apex1_tpu_torch.ops._common import (NEG_INF, force_impl, get_impl,
                                          set_impl)
 from apex1_tpu_torch.ops.attention import (flash_attention, flash_dkv,
                                            flash_dq, flash_fwd, fmha)
+from apex1_tpu_torch.ops.chunked_loss import (chunked_dpo_loss,
+                                              chunked_kl_loss,
+                                              chunked_logprob,
+                                              chunked_orpo_loss)
 from apex1_tpu_torch.ops.layer_norm import (FusedLayerNorm, FusedRMSNorm,
                                             layer_norm, layer_norm_bwd,
                                             layer_norm_fwd, rms_norm)
+from apex1_tpu_torch.ops.linear_xent import (linear_cross_entropy,
+                                             lxent_dw, lxent_dx, lxent_fwd,
+                                             shard_grads, shard_stats,
+                                             shard_stats_packed)
 from apex1_tpu_torch.ops.paged_decode import (PagedCache, cache_attend,
                                               fused_sample, gather_pages,
                                               paged_attend,
@@ -32,7 +40,10 @@ KERNEL_WRAPPERS = {"layer_norm_fwd": layer_norm_fwd,
                    "xent_bwd": xent_bwd,
                    "flash_fwd": flash_fwd,
                    "flash_dq": flash_dq,
-                   "flash_dkv": flash_dkv}
+                   "flash_dkv": flash_dkv,
+                   "lxent_fwd": lxent_fwd,
+                   "lxent_dx": lxent_dx,
+                   "lxent_dw": lxent_dw}
 
 
 def reset_launches() -> None:
@@ -46,6 +57,10 @@ def launch_counts() -> dict:
 
 __all__ = ["NEG_INF", "force_impl", "get_impl", "set_impl",
            "flash_attention", "flash_dkv", "flash_dq", "flash_fwd", "fmha",
+           "chunked_dpo_loss", "chunked_kl_loss", "chunked_logprob",
+           "chunked_orpo_loss", "linear_cross_entropy", "lxent_dw",
+           "lxent_dx", "lxent_fwd", "shard_grads", "shard_stats",
+           "shard_stats_packed",
            "FusedLayerNorm", "FusedRMSNorm", "layer_norm", "layer_norm_bwd",
            "layer_norm_fwd", "rms_norm", "PagedCache", "cache_attend",
            "fused_sample", "gather_pages", "paged_attend",

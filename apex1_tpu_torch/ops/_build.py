@@ -62,6 +62,12 @@ SIGNATURES = {
                        _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
     "apex1_flash_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                         _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
+    "apex1_lxent_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                        _I, _I, _I, _I, _I, _P],
+    "apex1_lxent_dx": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                       _I, _I, _I, _P],
+    "apex1_lxent_dw": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                       _I, _I, _I, _P],
 }
 
 _LOCK = threading.Lock()

@@ -22,7 +22,6 @@ import contextlib
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 _IMPL = "auto"  # "auto" | "kernel" | "torch"
 
@@ -71,17 +70,6 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch path on the CPU")
     return dev
-
-
-def pad_to(x: torch.Tensor, axis: int, multiple: int, value=0.0):
-    """Pad ``axis`` up to a multiple; returns (padded, original_size)."""
-    size = x.shape[axis]
-    rem = (-size) % multiple
-    if rem == 0:
-        return x, size
-    axis = axis % x.ndim
-    pads = [0, 0] * (x.ndim - axis - 1) + [0, rem]
-    return F.pad(x, pads, value=value), size
 
 
 def check_cuda(name: str, *tensors: Optional[torch.Tensor]) -> None:

@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --profile  # build, then profile decode steps
-                                     # and training steps
+                                     # and training steps (flash off,
+                                     # flash on, flash and fused head)
 
 Phases, each printed on its own line; a failure in any exits non-zero:
 
@@ -15,7 +16,15 @@ Phases, each printed on its own line; a failure in any exits non-zero:
    plain / library-yardstick times and the bound. The flash kernels
    (forward, dq, dk/dv) run at GPT-2's training shape and at GQA,
    packed-segment, odd, offset, lse-cotangent, fp16 and f32 cases;
-   dq and dk/dv must give the same bits twice.
+   dq and dk/dv must give the same bits twice. The linear-xent kernels
+   (forward in its three modes, dx, dW) run at the GPT-2 head's shape
+   (16368 x 768 against 50304 x 768, 50257 classes) in bf16 and fp16,
+   a small f32 case, smoothing 0.1 with a padding_idx, a col_offset
+   shard with labels outside it, and the DPO path's ragged last vocab
+   chunk (1152 rows); dx and dW must give the same bits twice and the
+   packed statistics (mode 2) equal the four (mode 1) bit for bit. The
+   half-precision backward cases also print how far two plain versions
+   that differ only in the logits' summation precision lie apart.
 3. engine — serve GPT-2 124M at full width (12 layers, hidden 768,
    vocab 50257 padded to 50304) at policy O2, weights made from a seed,
    through the paged continuous-batching engine: 16 requests (prompts
@@ -30,7 +39,7 @@ Phases, each printed on its own line; a failure in any exits non-zero:
    scores through the fused causal softmax; ``fuse_head=False``: fp32
    logits through the fused cross-entropy) trained at B=16 x S=1024
    under ``Amp(fused_adam(1e-4, weight_decay=0.01))``, 6 steps at O2
-   and 6 at O2_fp16 (dynamic loss scale from 2^16). Every loss must be
+   and 3 at O2_fp16 (dynamic loss scale from 2^16). Every loss must be
    finite, the O2 loss must fall from step 1 to step 6, and every step
    must launch LayerNorm fwd and bwd 25 times, softmax fwd and bwd 12,
    cross-entropy fwd and bwd once.
@@ -41,23 +50,40 @@ Phases, each printed on its own line; a failure in any exits non-zero:
 7. train-packed — the flash model at O2 for 3 steps on 16 rows packed
    by ``pack_documents`` (documents of 64-2048 tokens, positions
    restarting per chunk): finite losses, the same launches.
+   train-fused-head and train-fused-packed — the flash model with
+   ``fuse_head=True`` (the JAX default: the head product fused into
+   the cross-entropy, no logits), 6 steps at O2 and 6 at O2_fp16, and
+   3 O2 steps on the packed batch: every step must launch LayerNorm fwd
+   and bwd 25 times, flash 12/12/12, the linear-xent forward, dx and dW
+   once, the materialized cross-entropy and softmax never; its step
+   wall, tokens/s and peak memory are printed next to the
+   ``fuse_head=False`` flash step's.
 8. train-parity — depth 2, full width, 3 steps through the kernels and
-   through the plain versions, for ``use_flash=False`` and ``True``
-   (the flash path on a dense and a packed batch): O0 losses within
-   1e-5 relative and grad norms within 1e-4; O2_fp16 with the loss
-   multiplied by inf at step 2 on both sides: step 2 skipped, the
-   params it leaves equal to step 1's bit for bit, the scale halved,
-   skipped_steps 1.
-9. generate — GPT-2 124M at O2 through ``generate`` on a dense cache of
+   through the plain versions, for ``use_flash=False``, ``True`` and
+   ``True`` with ``fuse_head=True`` (the materialized-head flash path
+   on a dense and a packed batch, the fused head on the dense one): O0
+   losses within 1e-5 relative and grad norms within 1e-4; O2_fp16
+   with the loss multiplied by inf at step 2 on both sides: step 2
+   skipped, the params it leaves equal to step 1's bit for bit, the
+   scale halved, skipped_steps 1. The step-1 O0 loss of the fused head
+   must equal the materialized head's on the same weights within 1e-5.
+9. dpo — GPT-2 124M at O2 through ``Amp(fused_adam)`` with
+   ``chunked_dpo_loss`` over 8 chosen and 8 rejected rows of 1024
+   tokens: the reference logps (``chunked_logprob`` under no_grad
+   through the initial compute-dtype params) make step 1's margin 0,
+   so its loss must be ln 2 within 1e-4; 3 steps, each launching the
+   linear-xent forward, dx and dW 7 times (vocab chunks) per sequence
+   batch.
+10. generate — GPT-2 124M at O2 through ``generate`` on a dense cache of
    1024 slots: 8 ragged prompts of 32-512 tokens (``prompt_lens``),
    64 new tokens, greedy and at temperature 0.7 from ``key(0)``; the
    flash prefill must launch flash fwd 12 times a call.
-10. generate-parity — the same at O0, depth 2, through the kernels and
+11. generate-parity — the same at O0, depth 2, through the kernels and
    the plain versions: equal token streams, or a first differing token
    whose top-2 score gap is below 1e-4 relative (a near-tie).
-11. the ``kernels`` JSON line (each kernel's launches over the main
-   paths: the engine, train, train-flash, train-packed and generate
-   runs), the card's name and power limit, and the last line
+12. the ``kernels`` JSON line (each kernel's launches over the main
+   paths: the engine, the train phases, dpo and generate runs), the
+   card's name and power limit, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Kernel times are device times of CUDA-graph replays (no host launch
@@ -146,6 +172,16 @@ def bound_ms(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
 #: as a share of a typical value, not of the largest one.
 TOLS = {"float32": (1e-5, 1e-4), "bfloat16": (2.0 ** -7, 3e-2),
         "float16": (2.0 ** -10, 1e-2)}
+
+
+#: the linear-xent backward's (rtol, atol): two ulps of the operand
+#: type. Kernel and plain version both round G to it before the
+#: product, but their fp32 logits differ in summation order, so a G
+#: element can round to the neighbouring value; where one G term
+#: dominates an output, that moves it by up to a second ulp.
+#: `lxent_witness` measures this on each half-precision case
+TOLS_G = {"float32": TOLS["float32"], "bfloat16": (2.0 ** -6, 3e-2),
+          "float16": (2.0 ** -9, 1e-2)}
 
 
 def max_errs(got, want, rtol: float, atol: float):
@@ -645,6 +681,212 @@ def check_flash(torch, ops, gen):
     return fwd, dq_rows, dkv_rows
 
 
+#: the linear-xent kernels' checks: (case, T, V_l, dtype, K, col_offset,
+#: smoothing, padding_idx, forward mode, main). T = 16 x 1023 is the
+#: GPT-2 step's head; 8 x 1023 one DPO sequence batch, whose last vocab
+#: chunk holds the table's last 50304 - 6 x 8192 = 1152 rows
+LXENT_CASES = [
+    ("GPT-2 head", TB * (TS - 1), TV_PAD, "bfloat16", TV, 0, 0.0, None, 0,
+     True),
+    ("GPT-2 head", TB * (TS - 1), TV_PAD, "float16", TV, 0, 0.0, None, 0,
+     False),
+    ("small", 1024, 8192, "float32", 8000, 0, 0.0, None, 0, False),
+    ("smoothing 0.1, padding_idx 0", 4096, TV_PAD, "bfloat16", TV, 0, 0.1,
+     0, 0, False),
+    ("shard 3 of 4, labels mostly outside it", 4096, TV_PAD // 4,
+     "bfloat16", TV, 2 * TV_PAD // 4, 0.0, None, 1, False),
+    ("DPO chunk 7 of 7, ragged", 8 * (TS - 1), TV_PAD - 6 * 8192,
+     "bfloat16", TV, 6 * 8192, 0.0, None, 2, False),
+]
+
+
+def lxent_grads_ref(torch, x, w, t, lse, dloss, off, K, eps, pad, acc,
+                    round_g):
+    """dx and dW of the linear-xent backward as the plain versions
+    compute them (vocab chunks, fp32 products), but with the logits and
+    G evaluated in ``acc`` (float32 or float64) and G rounded to the
+    operand type only with ``round_g``. Two of these that differ only in
+    ``acc`` differ only by the rounding of the logits' sums."""
+    from apex1_tpu_torch.ops.linear_xent import PLAIN_CHUNK
+    T, H = x.shape
+    dl = dloss.to(acc)[:, None]
+    if pad is not None:
+        dl = torch.where(t[:, None] == pad, 0.0, dl)
+    lse_a, xa, xf = lse.to(acc)[:, None], x.to(acc), x.float()
+    dx = torch.zeros(T, H, dtype=torch.float32, device=x.device)
+    dw = torch.empty(w.shape, dtype=torch.float32, device=x.device)
+    for c0 in range(0, w.shape[0], PLAIN_CHUNK):
+        wc = w[c0:c0 + PLAIN_CHUNK]
+        s = xa @ wc.to(acc).t()
+        gcol = off + c0 + torch.arange(s.shape[1], device=x.device)[None, :]
+        valid = gcol < K
+        g = (torch.where(valid, torch.exp(s - lse_a), 0.0)
+             - (1.0 - eps) * (gcol == t[:, None]).to(acc) - eps / K)
+        g = (torch.where(valid, g, 0.0) * dl).float()
+        if round_g:
+            g = g.to(x.dtype).float()
+        dx += g @ wc.float()
+        dw[c0:c0 + g.shape[1]] = g.t() @ xf
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
+def lxent_witness(torch, args, got, plain):
+    """Why the backward's tolerance is two ulps of the operand type and
+    not one: the worst error over the one-ulp allowance (`TOLS`) of
+    (dx, dW) between the kernel and the plain version (``kernel``),
+    between two plain versions that differ only in summing the logits in
+    fp32 or fp64 (``rounded``), and between the same two without G's
+    rounding to the operand type (``unrounded``). ``rounded`` near or
+    past 1 with ``unrounded`` well under it says that G's rounding turns
+    a last-bit difference in the logits into an ulp of the output.
+    ``args`` are `lxent_grads_ref`'s (x, W, labels, lse, dloss,
+    col_offset, K, smoothing, padding_idx)."""
+    tol = TOLS[str(args[0].dtype)[6:]]
+    out = {"kernel": [max_errs(g, p, *tol)[1] for g, p in zip(got, plain)]}
+    for label, rnd in (("rounded", True), ("unrounded", False)):
+        a = lxent_grads_ref(torch, *args, torch.float32, rnd)
+        b = lxent_grads_ref(torch, *args, torch.float64, rnd)
+        out[label] = [max_errs(u, v, *tol)[1] for u, v in zip(a, b)]
+        del a, b
+    return out
+
+
+def check_lxent(torch, ops, gen):
+    """Kernels 7-11 (the linear-xent forward in its three modes, dx, dW)
+    against their plain versions. The forward of a mode-1/2 case runs
+    both modes and must give the same bits packed; dx and dW each run
+    twice for the same bits; a half-precision case also reports
+    `lxent_witness`. Plain versions are timed at the main case and at
+    the mode-1/2 cases (kernels 8 and 9). The library yardstick (main
+    case) is the materialized pair: ``torch.mm(x, W.T,
+    out_dtype=float32)`` and ``F.cross_entropy``, and for the backward
+    that pair's backward (the cross-entropy's, then the two products in
+    the operand type). Bounds count the valid (token, column) pairs of
+    the case: 2·H flops a pair a product (forward 1, dx and dW 2
+    each)."""
+    import torch.nn.functional as F
+    from apex1_tpu_torch.ops.linear_xent import lxent_dw, lxent_dx, lxent_fwd
+    H = TH
+    fwd, dx_rows, dw_rows = [], [], []
+    for (case, T, Vl, dts, K, off, eps, pad, mode,
+         main) in LXENT_CASES:
+        dt = getattr(torch, dts)
+        x = (torch.randn(T, H, generator=gen, device="cuda") * 0.5).to(dt)
+        w = (torch.randn(Vl, H, generator=gen, device="cuda") * 0.5).to(dt)
+        t = torch.randint(0, K, (T,), generator=gen, device="cuda")
+        if pad is not None:
+            t[::7] = pad
+        n_valid = max(0, min(Vl, K - off))
+        label = (f"{case} T={T} V_l={Vl} H={H} K={K} off={off} eps={eps} "
+                 f"pad={pad} mode={mode} {dts}")
+        kw = dict(num_classes=K, col_offset=off)
+        fkw = dict(kw, smoothing=eps, padding_idx=pad)
+        tol32 = TOLS["float32"]
+
+        def run_f(m=mode):
+            return lxent_fwd(x, w, t, mode=m, **(fkw if m == 0 else kw))
+
+        got = run_f()
+        with ops.force_impl("torch"):
+            want = run_f(0 if mode == 0 else 1)
+        torch.cuda.synchronize()
+        packed_equal = True
+        if mode == 0:
+            e_f = max_errs_all(zip(got, want), tol32)
+            lse_w = want[1]
+        else:
+            other = run_f(3 - mode)
+            pk, four = (got, other) if mode == 2 else (other, got)
+            packed_equal = torch.equal(pk, torch.stack(four, dim=1))
+            e_f = max_errs_all(zip(four, want), tol32)
+            lse_w = want[0] + torch.log(want[1])
+        # every case's kernels take 0.5 ms or more: CUDA events suffice
+        ms_f = event_ms(run_f)
+        timed_plain = main or mode != 0
+        pl_f = pl_dx = pl_dw = None
+        if timed_plain:
+            with ops.force_impl("torch"):
+                pl_f = event_ms(run_f, iters=2)
+        dloss = (torch.full((T,), 1.0 / T, device="cuda") if main else
+                 torch.randn(T, generator=gen, device="cuda"))
+        bkw = dict(fkw) if mode == 0 else dict(kw)
+
+        def run_dx():
+            return lxent_dx(x, w, t, lse_w, dloss, **bkw)
+
+        def run_dw():
+            return lxent_dw(x, w, t, lse_w, dloss, **bkw)
+
+        gdx, gdw = run_dx(), run_dw()
+        same_dx = torch.equal(run_dx(), gdx)
+        same_dw = torch.equal(run_dw(), gdw)
+        with ops.force_impl("torch"):
+            wdx, wdw = run_dx(), run_dw()
+        torch.cuda.synchronize()
+        e_dx = max_errs(gdx, wdx, *TOLS_G[dts])
+        e_dw = max_errs(gdw, wdw, *TOLS_G[dts])
+        # the rows past num_classes must be exactly zero
+        if gdw[n_valid:].any() or wdw[n_valid:].any():
+            e_dw = (e_dw[0], math.inf)
+        witness = None
+        if dt != torch.float32:
+            witness = lxent_witness(
+                torch, (x, w, t, lse_w, dloss, off, K, eps, pad),
+                (gdx, gdw), (wdx, wdw))
+        ms_dx, ms_dw = event_ms(run_dx), event_ms(run_dw)
+        if timed_plain:
+            with ops.force_impl("torch"):
+                pl_dx = event_ms(run_dx, iters=2)
+                pl_dw = event_ms(run_dw, iters=2)
+        lib_f = lib_b = None
+        if main:
+            wk = w[:n_valid]
+            ign = -100 if pad is None else pad
+
+            def lib_logits():
+                return (torch.mm(x, wk.t(), out_dtype=torch.float32)
+                        if dt != torch.float32 else x @ wk.t())
+
+            lib_f = event_ms(lambda: F.cross_entropy(
+                lib_logits(), t, reduction="none", label_smoothing=eps,
+                ignore_index=ign))
+            lg = lib_logits().requires_grad_()
+            ce = F.cross_entropy(lg, t, reduction="none",
+                                 label_smoothing=eps, ignore_index=ign)
+
+            def lib_bwd():
+                g, = torch.autograd.grad(ce, lg, dloss, retain_graph=True)
+                gh = g.to(dt)
+                return gh @ wk, gh.t() @ x
+
+            lib_b = event_ms(lib_bwd)
+            del lg, ce
+        eb = x.element_size()
+        ops_f = 2 * T * n_valid * H
+        opnd = T * H * eb + Vl * H * eb + T * 4
+        peak = F32_OPS_PER_S if dt == torch.float32 else BF16_OPS_PER_S
+        b_f = bound_ms(opnd + T * 4 * (2 if mode == 0 else 4), ops_f, peak)
+        b_dx = bound_ms(opnd + 8 * T + T * H * eb, 2 * ops_f, peak)
+        b_dw = bound_ms(opnd + 8 * T + Vl * H * eb, 2 * ops_f, peak)
+        fwd.append(dict(case=label, abs=e_f[0], worst=e_f[1], tol=tol32,
+                        ms=ms_f, plain_ms=pl_f, library_ms=lib_f,
+                        bound_ms=b_f[0], bound_by=b_f[1], main=main,
+                        **({} if mode == 0 else
+                           {"packed_equal": packed_equal})))
+        for i, (rows, e, ms, pl, b, same) in enumerate((
+                (dx_rows, e_dx, ms_dx, pl_dx, b_dx, same_dx),
+                (dw_rows, e_dw, ms_dw, pl_dw, b_dw, same_dw))):
+            rows.append(dict(case=label, abs=e[0], worst=e[1],
+                             tol=TOLS_G[dts], ms=ms, plain_ms=pl,
+                             library_ms=lib_b, bound_ms=b[0], bound_by=b[1],
+                             main=main, same_bits=same,
+                             **({} if witness is None else {"one_ulp": {
+                                 k: v[i] for k, v in witness.items()}})))
+        del x, w, got, want, gdx, gdw, wdx, wdw
+        torch.cuda.empty_cache()
+    return fwd, dx_rows, dw_rows
+
+
 # ---- phases 3 and 4: the engine -----------------------------------------
 
 
@@ -759,16 +1001,18 @@ def kernel_split(torch, prof, steps: int, wall: float, top: int = 12):
                     for k, ms, c in rows[:top]]}
 
 
-def profile_train(torch, use_flash: bool, steps: int = 3) -> dict:
+def profile_train(torch, use_flash: bool, fuse_head: bool = False,
+                  steps: int = 3) -> dict:
     """``--profile``: where a GPT-2 124M O2 training step's time goes
-    (B x S tokens, the train phases' configuration, ``use_flash`` as
-    given): two warm-up steps, then ``steps`` steps under
-    torch.profiler; with the step's peak memory. (With 2 profiled
+    (B x S tokens, the train phases' configuration, ``use_flash`` and
+    ``fuse_head`` as given): two warm-up steps, then ``steps`` steps
+    under torch.profiler; with the step's peak memory. (With 2 profiled
     steps, the third profiler session of a process once reported every
     kernel at half its time; 3 steps read consistently in any order.)"""
     from torch.profiler import ProfilerActivity, profile
     _, state, step, batch = make_trainer(torch, "O2", 12, SEED,
-                                         use_flash=use_flash)
+                                         use_flash=use_flash,
+                                         fuse_head=fuse_head)
     torch.cuda.reset_peak_memory_stats()
     for _ in range(2):
         state, _ = step(state, *batch)
@@ -780,7 +1024,7 @@ def profile_train(torch, use_flash: bool, steps: int = 3) -> dict:
             state, _ = step(state, *batch)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / steps * 1e3
-    return {"use_flash": use_flash,
+    return {"use_flash": use_flash, "fuse_head": fuse_head,
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
             **kernel_split(torch, prof, steps, wall, top=25)}
 
@@ -788,17 +1032,25 @@ def profile_train(torch, use_flash: bool, steps: int = 3) -> dict:
 # ---- phases 5 to 8: training ---------------------------------------------
 
 
-def train_launches(num_layers: int, use_flash: bool) -> dict:
+#: the head's kernels: the fused LM-head cross-entropy, or the
+#: cross-entropy on materialized logits
+HEAD_KERNELS = {True: ("lxent_fwd", "lxent_dx", "lxent_dw"),
+                False: ("xent_fwd", "xent_bwd")}
+
+
+def train_launches(num_layers: int, use_flash: bool,
+                   fuse_head: bool = False) -> dict:
     """Kernel launches per GPT-2 training step: two norms a block and
     the final one; one causal attention a block (the fused softmax, or
-    the flash forward, dq and dk/dv); one cross-entropy. Each forward
-    and backward."""
+    the flash forward, dq and dk/dv); one head cross-entropy (the
+    materialized one's forward and backward, or the fused head's
+    forward, dx and dW)."""
     n_norm = 2 * num_layers + 1
     attn = (("flash_fwd", "flash_dq", "flash_dkv") if use_flash
             else ("softmax_fwd", "softmax_bwd"))
     return {"layer_norm_fwd": n_norm, "layer_norm_bwd": n_norm,
             **{name: num_layers for name in attn},
-            "xent_fwd": 1, "xent_bwd": 1}
+            **{name: 1 for name in HEAD_KERNELS[fuse_head]}}
 
 
 def packed_batch(torch, vocab: int):
@@ -817,11 +1069,12 @@ def packed_batch(torch, vocab: int):
 
 
 def make_trainer(torch, level: str, depth: int, seed: int, factor=False,
-                 use_flash=False, packed=False):
+                 use_flash=False, packed=False, fuse_head=False):
     """GPT-2 124M at full width (``depth`` layers), weights from
     ``seed``, under ``Amp(fused_adam(1e-4, weight_decay=0.01),
-    opt_level=level)``, and its batch: the B x S tokens of
-    ``np.random.default_rng(0)``, or with ``packed`` a `packed_batch`.
+    opt_level=level)``, its loss ``gpt2_loss_fn(fuse_head=...)``, and
+    its batch: the B x S tokens of ``np.random.default_rng(0)``, or
+    with ``packed`` a `packed_batch`.
     With ``factor`` the step takes a factor before the batch that
     multiplies the loss (inf forces an overflow)."""
     import numpy as np
@@ -833,7 +1086,7 @@ def make_trainer(torch, level: str, depth: int, seed: int, factor=False,
     model = gpt2_params_from_jax(init_params(cfg, seed), cfg, "cuda")
     amp = Amp(fused_adam(1e-4, weight_decay=0.01), opt_level=level)
     state = amp.init(dict(model.named_parameters()))
-    base = gpt2_loss_fn(model, fuse_head=False)
+    base = gpt2_loss_fn(model, fuse_head=fuse_head)
     loss_fn = (lambda p, f, *b: base(p, *b) * f) if factor else base
     if packed:
         batch = packed_batch(torch, cfg.vocab_size)
@@ -844,14 +1097,15 @@ def make_trainer(torch, level: str, depth: int, seed: int, factor=False,
 
 
 def train(torch, ops, level: str, use_flash=False, packed=False,
-          steps: int = 6):
+          steps: int = 6, fuse_head=False):
     """``steps`` training steps of GPT-2 124M at ``level``; per step the
     loss, loss scale, skipped count, host wall (ending in a
     synchronize) and the kernel launches it made; and the peak device
     memory."""
     cfg, state, step, batch = make_trainer(torch, level, 12, SEED,
                                            use_flash=use_flash,
-                                           packed=packed)
+                                           packed=packed,
+                                           fuse_head=fuse_head)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rows, prev = [], ops.launch_counts()
@@ -872,14 +1126,15 @@ def train(torch, ops, level: str, use_flash=False, packed=False,
     return cfg, rows, peak
 
 
-def train_parity(torch, ops, use_flash: bool, depth: int = 2,
-                 steps: int = 3):
+def train_parity(torch, ops, use_flash: bool, fuse_head: bool = False,
+                 depth: int = 2, steps: int = 3):
     """GPT-2 at full width, ``depth`` layers, through the kernels and
     through the plain versions on the card: O0 losses and grad norms
-    per step (on the dense batch, and with ``use_flash`` also on the
-    packed one); O2_fp16 with the loss multiplied by inf at step 2 on
-    both sides, with whether step 2 left every param bit for bit as
-    step 1 left it."""
+    per step (on the dense batch, and with ``use_flash`` and the
+    materialized head also on the packed one: the fused head sees the
+    same hidden states either way); O2_fp16 with the loss multiplied by
+    inf at step 2 on both sides, with whether step 2 left every param
+    bit for bit as step 1 left it."""
     import contextlib
     out = {}
     for impl in ("kernel", "torch"):
@@ -888,10 +1143,11 @@ def train_parity(torch, ops, use_flash: bool, depth: int = 2,
         ops.reset_launches()
         with ctx:
             o0 = {}
-            for packed in ((False, True) if use_flash else (False,)):
+            for packed in ((False, True) if use_flash and not fuse_head
+                           else (False,)):
                 _, state, step, batch = make_trainer(
                     torch, "O0", depth, SEED + 1, use_flash=use_flash,
-                    packed=packed)
+                    packed=packed, fuse_head=fuse_head)
                 o0["packed" if packed else "dense"] = rows = []
                 for _ in range(steps):
                     state, m = step(state, *batch)
@@ -899,7 +1155,7 @@ def train_parity(torch, ops, use_flash: bool, depth: int = 2,
                 del state
             _, state, step, batch = make_trainer(
                 torch, "O2_fp16", depth, SEED + 1, factor=True,
-                use_flash=use_flash)
+                use_flash=use_flash, fuse_head=fuse_head)
             fp16, params = [], []
             for i in range(steps):
                 f = torch.tensor(float("inf") if i == 1 else 1.0,
@@ -922,16 +1178,17 @@ def train_parity(torch, ops, use_flash: bool, depth: int = 2,
 
 
 def run_train_phase(torch, ops, card, phase, use_flash, packed, levels,
-                    steps, launches):
-    """Train at each level; print every step and the summary line; add
-    this phase's launches to ``launches``. Returns (results, failure or
-    None)."""
-    per_step = train_launches(12, use_flash)
+                    launches, fuse_head=False):
+    """Train ``steps`` steps at each (level, steps) of ``levels``; print
+    every step and the summary line; add this phase's launches to
+    ``launches``. Returns (results, failure or None)."""
+    per_step = train_launches(12, use_flash, fuse_head)
     results = {}
-    for level in levels:
+    for level, steps in levels:
         ops.reset_launches()
         tcfg, rows, peak = train(torch, ops, level, use_flash=use_flash,
-                                 packed=packed, steps=steps)
+                                 packed=packed, steps=steps,
+                                 fuse_head=fuse_head)
         for name, n in ops.launch_counts().items():
             launches[name] = launches.get(name, 0) + n
         walls = sorted(r["wall_ms"] for r in rows[1:])
@@ -945,7 +1202,7 @@ def run_train_phase(torch, ops, card, phase, use_flash, packed, levels,
                   f"{r['skipped']} wall {r['wall_ms']:.1f} ms launches "
                   f"{r['launches']} [{card}]")
         print(f"phase {phase}: GPT-2 124M {level} use_flash={use_flash} "
-              f"fuse_head=False {'packed ' if packed else ''}B={TB} "
+              f"fuse_head={fuse_head} {'packed ' if packed else ''}B={TB} "
               f"S={TS} width {tcfg.hidden_size} layers {tcfg.num_layers} "
               f"vocab {tcfg.vocab_size}/{tcfg.padded_vocab}; step wall "
               f"{med:.2f} ms (median of steps 2-{len(rows)}), "
@@ -965,15 +1222,17 @@ def run_train_phase(torch, ops, card, phase, use_flash, packed, levels,
     return results, None
 
 
-def check_train_parity(par, card, label, use_flash):
+def check_train_parity(par, card, label, use_flash, fuse_head=False):
     """Print train-parity's results; the failure, or None. The kernel
-    side must have launched its attention path's kernels and not the
-    other path's; the plain side no kernel."""
+    side must have launched its attention path's and head's kernels
+    and not the other paths'; the plain side no kernel."""
     k, p = par["kernel"], par["torch"]
     attn, other = ((("flash_fwd", "flash_dq", "flash_dkv"),
                     ("softmax_fwd", "softmax_bwd")) if use_flash else
                    (("softmax_fwd", "softmax_bwd"),
                     ("flash_fwd", "flash_dq", "flash_dkv")))
+    attn = attn + HEAD_KERNELS[fuse_head]
+    other = other + HEAD_KERNELS[not fuse_head]
     print(f"phase train-parity: {label} launches, kernels {k['launches']} "
           f"plain {p['launches']} [{card}]")
     if (p["launches"] or not all(k["launches"].get(n) for n in attn)
@@ -1001,6 +1260,133 @@ def check_train_parity(par, card, label, use_flash):
             return (f"train-parity {label} O2_fp16 ({side}): the forced "
                     f"overflow did not skip step 2 cleanly: {f}")
     return None
+
+
+# ---- the DPO step -----------------------------------------------------------
+
+#: DPO's batch: this many chosen and as many rejected rows of S tokens
+DPO_ROWS = 8
+
+
+def dpo_launches(num_layers: int, n_chunks: int) -> dict:
+    """Kernel launches per DPO step: one flash forward pass of the 16
+    rows (norms and attention, forward and backward), and per sequence
+    batch (chosen, rejected) the head's forward, dx and dW once a vocab
+    chunk."""
+    n_norm = 2 * num_layers + 1
+    return {"layer_norm_fwd": n_norm, "layer_norm_bwd": n_norm,
+            "flash_fwd": num_layers, "flash_dq": num_layers,
+            "flash_dkv": num_layers, "lxent_fwd": 2 * n_chunks,
+            "lxent_dx": 2 * n_chunks, "lxent_dw": 2 * n_chunks}
+
+
+def make_dpo(torch, seed: int):
+    """GPT-2 124M at full width, O2, weights from ``seed``, under
+    ``Amp(fused_adam(1e-4, weight_decay=0.01))``, with the chunked-DPO
+    loss (β 0.1, the default vocab chunk) over 8 chosen and 8 rejected
+    rows of S tokens from ``np.random.default_rng(3)``, run as one
+    16-row forward. The reference sequence logps come from
+    ``chunked_logprob`` under ``torch.no_grad`` through the initial
+    state's compute-dtype params (``Amp.model_params``): the same
+    function the step runs, so the first step's margin is 0 and its
+    loss ln 2. Returns (cfg, state, step, batch, the reference
+    logps' seconds)."""
+    import numpy as np
+    from apex1_tpu_torch import (Amp, GPT2Config, fused_adam, get_policy,
+                                 gpt2_params_from_jax)
+    from apex1_tpu_torch.models.gpt2 import init_params
+    from apex1_tpu_torch.ops.chunked_loss import (chunked_dpo_loss,
+                                                  chunked_logprob)
+    cfg = GPT2Config.gpt2_125m(policy=get_policy("O2"))
+    model = gpt2_params_from_jax(init_params(cfg, seed), cfg, "cuda")
+    amp = Amp(fused_adam(1e-4, weight_decay=0.01), opt_level="O2")
+    state = amp.init(dict(model.named_parameters()))
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2 * DPO_ROWS, TS))).cuda()
+
+    def heads(params, toks):
+        h = torch.func.functional_call(model, params, (toks,),
+                                       dict(return_hidden=True))
+        return (h[:DPO_ROWS, :-1], h[DPO_ROWS:, :-1],
+                params["wte"].to(h.dtype))
+
+    def loss_fn(params, toks, ref_c, ref_r):
+        hc, hr, w = heads(params, toks)
+        return chunked_dpo_loss(hc, hr, w, toks[:DPO_ROWS, 1:],
+                                toks[DPO_ROWS:, 1:], ref_c, ref_r, beta=0.1,
+                                num_classes=cfg.vocab_size)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        hc, hr, w = heads(amp.model_params(state), toks)
+        ref_c, ref_r = (chunked_logprob(
+            h, w, t, num_classes=cfg.vocab_size).sum(dim=-1)
+            for h, t in ((hc, toks[:DPO_ROWS, 1:]),
+                         (hr, toks[DPO_ROWS:, 1:])))
+        del hc, hr, w
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    return (cfg, state, amp.make_train_step(loss_fn), (toks, ref_c, ref_r),
+            ref_s)
+
+
+def run_dpo(torch, ops, card, launches, steps: int = 3):
+    """The DPO phase: the reference logps, then ``steps`` steps; print
+    each step and the summary; add the launches to ``launches``.
+    Returns (results, failure or None)."""
+    from apex1_tpu_torch.ops.chunked_loss import _auto_chunk
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    cfg, state, step, batch, ref_s = make_dpo(torch, SEED)
+    n_chunks = -(-cfg.padded_vocab // _auto_chunk(cfg.padded_vocab, None))
+    ref_launches = {k: n for k, n in ops.launch_counts().items() if n}
+    rows, prev = [], ops.launch_counts()
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, *batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        now = ops.launch_counts()
+        rows.append(dict(step=i + 1, wall_ms=wall, loss=m["loss"].item(),
+                         grad_norm=m["grad_norm"].item(),
+                         launches={k: now[k] - prev[k] for k in now
+                                   if now[k] != prev[k]}))
+        prev = now
+    for name, n in ops.launch_counts().items():
+        launches[name] = launches.get(name, 0) + n
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for r in rows:
+        print(f"phase dpo: step {r['step']} loss {r['loss']:.6f} grad_norm "
+              f"{r['grad_norm']:.4f} wall {r['wall_ms']:.1f} ms launches "
+              f"{r['launches']} [{card}]")
+    walls = sorted(r["wall_ms"] for r in rows[1:])
+    med = walls[len(walls) // 2]
+    print(f"phase dpo: GPT-2 124M O2 use_flash=True, {DPO_ROWS} chosen + "
+          f"{DPO_ROWS} rejected rows of {TS} tokens, {n_chunks} vocab "
+          f"chunks; reference logps {ref_s:.2f} s (launches "
+          f"{ref_launches}); step wall {med:.2f} ms (median of steps "
+          f"2-{steps}), peak memory {peak:.2f} GiB; step-1 loss "
+          f"{rows[0]['loss']:.6f} vs ln 2 {math.log(2):.6f} [{card}]")
+    results = dict(steps=rows, ref_s=ref_s, ref_launches=ref_launches,
+                   step_wall_ms=med, peak_gib=peak, n_chunks=n_chunks)
+    losses = [r["loss"] for r in rows]
+    if not all(math.isfinite(v) for v in losses):
+        return results, f"dpo: a loss is not finite: {losses}"
+    if abs(losses[0] - math.log(2)) > 1e-4:
+        return results, f"dpo: step-1 loss {losses[0]} is not ln 2"
+    want_ref = {"layer_norm_fwd": 2 * cfg.num_layers + 1,
+                "flash_fwd": cfg.num_layers, "lxent_fwd": 2 * n_chunks}
+    if ref_launches != want_ref:
+        return results, (f"dpo: reference launches {ref_launches}, "
+                         f"expected {want_ref}")
+    per_step = dpo_launches(cfg.num_layers, n_chunks)
+    for r in rows:
+        if r["launches"] != per_step:
+            return results, (f"dpo step {r['step']}: launches "
+                             f"{r['launches']}, expected {per_step}")
+    return results, None
 
 
 # ---- phases 9 and 10: generate ---------------------------------------------
@@ -1093,11 +1479,20 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__} CUDA "
           f"{torch.version.cuda}; python {sys.version.split()[0]}")
 
+    # wall seconds of each phase, build included
+    phase_s, last = {}, [time.perf_counter()]
+
+    def stamp(name):
+        now = time.perf_counter()
+        phase_s[name] = phase_s.get(name, 0.0) + now - last[0]
+        last[0] = now
+
     # 1. build
     t0 = time.perf_counter()
     _build.library()
     print(f"phase build: ok, {time.perf_counter() - t0:.1f} s wall "
           f"[{card}]")
+    stamp("build")
     for line in _build.build_log().splitlines():
         if ("Compiling entry" in line or "registers" in line
                 or "spill" in line):
@@ -1106,7 +1501,9 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         prof = {"decode": profile_decode(torch),
                 "train": profile_train(torch, use_flash=False),
-                "train_flash": profile_train(torch, use_flash=True)}
+                "train_flash": profile_train(torch, use_flash=True),
+                "train_fused_head": profile_train(torch, use_flash=True,
+                                                  fuse_head=True)}
         os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
         with open(os.path.join(HERE, "chiprun_out", "profile.json"),
                   "w") as f:
@@ -1117,40 +1514,54 @@ def main() -> int:
     # 2. kernels against their plain versions
     gen = torch.Generator().manual_seed(SEED)
     cgen = torch.Generator(device="cuda").manual_seed(SEED)
-    checks = {"layer_norm_fwd": check_layer_norm(torch, ops, gen),
-              "paged_attend": check_paged_attend(torch, ops, gen),
-              "fused_sample": check_fused_sample(torch, ops, gen),
-              "layer_norm_bwd": check_layer_norm_bwd(torch, ops, cgen)}
-    checks["softmax_fwd"], checks["softmax_bwd"] = check_softmax(
-        torch, ops, cgen)
-    checks["xent_fwd"], checks["xent_bwd"] = check_xent(torch, ops, cgen)
-    (checks["flash_fwd"], checks["flash_dq"],
-     checks["flash_dkv"]) = check_flash(torch, ops, cgen)
-    torch.cuda.empty_cache()
+    checks, check_s = {}, {}
+    for names, fn, g in (
+            (("layer_norm_fwd",), check_layer_norm, gen),
+            (("paged_attend",), check_paged_attend, gen),
+            (("fused_sample",), check_fused_sample, gen),
+            (("layer_norm_bwd",), check_layer_norm_bwd, cgen),
+            (("softmax_fwd", "softmax_bwd"), check_softmax, cgen),
+            (("xent_fwd", "xent_bwd"), check_xent, cgen),
+            (("flash_fwd", "flash_dq", "flash_dkv"), check_flash, cgen),
+            (("lxent_fwd", "lxent_dx", "lxent_dw"), check_lxent, cgen)):
+        t0 = time.perf_counter()
+        out = fn(torch, ops, g)
+        checks.update(zip(names, out if len(names) > 1 else (out,)))
+        check_s[fn.__name__] = round(time.perf_counter() - t0, 1)
+        torch.cuda.empty_cache()
+    print(f"phase kernels: seconds per check {check_s} [{card}]")
     bad = []
     for name, rows in checks.items():
         for r in rows:
             # a tolerance (rtol, atol) bounds the worst element's error
             # over its allowance by 1; sampled ids (tol None) must match;
-            # the flash backward must repeat its bits
+            # the flash and linear-xent backward must repeat their bits;
+            # the packed statistics must equal the four bit for bit
             ok = r["worst"] <= 1 if r["tol"] else r["abs"] == 0
             ok = ok and r.get("same_bits", True)
-            lib = ("-" if r["library_ms"] is None
-                   else f"{r['library_ms']:.4f}")
+            ok = ok and r.get("packed_equal", True)
+            lib, plain = ("-" if r[k] is None else f"{r[k]:.4f}"
+                          for k in ("library_ms", "plain_ms"))
             tol = (f"rtol={r['tol'][0]:g} atol={r['tol'][1]:g}*rms"
                    if r["tol"] else "ids exact")
             bits = ("" if "same_bits" not in r
                     else f" same bits twice {r['same_bits']}")
+            if "packed_equal" in r:
+                bits += f" packed == four {r['packed_equal']}"
+            if "one_ulp" in r:
+                bits += " worst/one-ulp allowance " + ", ".join(
+                    f"{k} {v:.3g}" for k, v in r["one_ulp"].items())
             print(f"phase kernels: {name} [{r['case']}] "
                   f"max_abs={r['abs']:.3g} worst/allowed={r['worst']:.3g} "
                   f"{tol}{bits} ms={r['ms']:.4f} "
-                  f"plain_ms={r['plain_ms']:.4f} library_ms={lib} "
+                  f"plain_ms={plain} library_ms={lib} "
                   f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
                   f"{'ok' if ok else 'MISMATCH'} [{card}]")
             if not ok:
                 bad.append(f"{name} {r['case']}")
     if bad:
         return fail(f"kernels disagree with their plain versions: {bad}")
+    stamp("kernels")
 
     # 3. the engine: GPT-2 124M, O2, through the kernels
     ops.reset_launches()
@@ -1192,6 +1603,8 @@ def main() -> int:
             return fail("engine: a token outside the vocabulary")
     del eng
 
+    stamp("engine")
+
     # 4. parity: kernels against the plain versions, O0, depth 2
     kern, _, kwall, _, _ = serve(torch, ENGINE_KW, depth=2, policy="O0",
                                  seed=SEED + 1)
@@ -1206,29 +1619,60 @@ def main() -> int:
         return fail(f"parity: {diff} token streams differ between the "
                     f"kernels and the plain versions")
 
-    # 5-7. train (use_flash=False), train-flash, train-packed: GPT-2
-    # 124M, B x S tokens
+    stamp("parity")
+
+    # 5-7. train (use_flash=False), train-flash, train-packed,
+    # train-fused-head, train-fused-packed: GPT-2 124M, B x S tokens
     train_out = {}
-    for phase, use_flash, packed, levels, steps in (
-            ("train", False, False, ("O2", "O2_fp16"), 6),
-            ("train-flash", True, False, ("O2", "O2_fp16"), 6),
-            ("train-packed", True, True, ("O2",), 3)):
+    for phase, use_flash, packed, levels, fuse in (
+            ("train", False, False, (("O2", 6), ("O2_fp16", 3)), False),
+            ("train-flash", True, False, (("O2", 6), ("O2_fp16", 3)), False),
+            ("train-packed", True, True, (("O2", 3),), False),
+            ("train-fused-head", True, False, (("O2", 6), ("O2_fp16", 6)),
+             True),
+            ("train-fused-packed", True, True, (("O2", 3),), True)):
         train_out[phase], err = run_train_phase(
-            torch, ops, card, phase, use_flash, packed, levels, steps,
-            main_launches)
+            torch, ops, card, phase, use_flash, packed, levels,
+            main_launches, fuse_head=fuse)
         if err:
             return fail(err)
+        stamp(phase)
+    for level in ("O2", "O2_fp16"):
+        f, m = train_out["train-fused-head"][level], \
+            train_out["train-flash"][level]
+        print(f"phase train-fused-head: {level} use_flash=True, "
+              f"fuse_head=True vs False: step wall {f['step_wall_ms']:.2f} "
+              f"vs {m['step_wall_ms']:.2f} ms, {f['tokens_per_s']:.0f} vs "
+              f"{m['tokens_per_s']:.0f} tokens/s, peak memory "
+              f"{f['peak_gib']:.2f} vs {m['peak_gib']:.2f} GiB [{card}]")
 
     # 8. train-parity: kernels against the plain versions, depth 2
     par = {}
-    for use_flash in (False, True):
-        label = f"use_flash={use_flash}"
-        par[label] = train_parity(torch, ops, use_flash)
-        err = check_train_parity(par[label], card, label, use_flash)
+    for use_flash, fuse in ((False, False), (True, False), (True, True)):
+        label = f"use_flash={use_flash} fuse_head={fuse}"
+        par[label] = train_parity(torch, ops, use_flash, fuse)
+        err = check_train_parity(par[label], card, label, use_flash, fuse)
         if err:
             return fail(err)
+    lf = par["use_flash=True fuse_head=True"]["kernel"]["o0"]["dense"][0][0]
+    lm = par["use_flash=True fuse_head=False"]["kernel"]["o0"]["dense"][0][0]
+    print(f"phase train-parity: O0 depth 2 step-1 loss on the same weights, "
+          f"fuse_head=True {lf:.7f} vs fuse_head=False {lm:.7f}, relative "
+          f"difference {abs(lf - lm) / abs(lm):.2e} [{card}]")
+    if abs(lf - lm) > 1e-5 * abs(lm):
+        return fail(f"train-parity: the fused head's loss {lf} is not the "
+                    f"materialized head's {lm}")
 
-    # 9. generate: GPT-2 124M, O2, ragged prompts, dense cache
+    stamp("train-parity")
+
+    # 9. dpo: GPT-2 124M, O2, a chunked-DPO step through the fused head
+    dpo_out, err = run_dpo(torch, ops, card, main_launches)
+    if err:
+        return fail(err)
+
+    stamp("dpo")
+
+    # 10. generate: GPT-2 124M, O2, ragged prompts, dense cache
     run, gcfg = make_generator(torch, 12, "O2", SEED)
     gen_out = {}
     for temp in (0.0, 0.7):
@@ -1255,7 +1699,9 @@ def main() -> int:
     del run
     torch.cuda.empty_cache()
 
-    # 10. generate-parity: kernels against the plain versions, O0, depth 2
+    stamp("generate")
+
+    # 11. generate-parity: kernels against the plain versions, O0, depth 2
     run, gcfg = make_generator(torch, 2, "O0", SEED + 1)
     for temp in (0.0, 0.7):
         rec_k, rec_p = [], []
@@ -1276,8 +1722,12 @@ def main() -> int:
                         f"the top-2 gap is not a near-tie: {gaps}")
     del run
 
-    # 11. the kernels line, the card, the last line. launches: the main
-    # paths' runs (engine, train, train-flash, train-packed, generate)
+    stamp("generate-parity")
+    print(f"phase times: { {k: round(v, 1) for k, v in phase_s.items()} } "
+          f"s wall [{card}]")
+
+    # 12. the kernels line, the card, the last line. launches: the main
+    # paths' runs (engine, the train phases, dpo, generate)
     sources = {"layer_norm_fwd": ("apex1_tpu_torch/csrc/layer_norm.cu",
                                   "apex1_tpu/ops/layer_norm.py:110"),
                "paged_attend": ("apex1_tpu_torch/csrc/paged_attend.cu",
@@ -1299,7 +1749,14 @@ def main() -> int:
                "flash_dq": ("apex1_tpu_torch/csrc/flash_attn.cu",
                             "apex1_tpu/ops/attention.py:689"),
                "flash_dkv": ("apex1_tpu_torch/csrc/flash_attn.cu",
-                             "apex1_tpu/ops/attention.py:717")}
+                             "apex1_tpu/ops/attention.py:717"),
+               "lxent_fwd": ("apex1_tpu_torch/csrc/linear_xent.cu",
+                             "apex1_tpu/ops/linear_xent.py:384, :286, "
+                             ":316"),
+               "lxent_dx": ("apex1_tpu_torch/csrc/linear_xent.cu",
+                            "apex1_tpu/ops/linear_xent.py:345"),
+               "lxent_dw": ("apex1_tpu_torch/csrc/linear_xent.cu",
+                            "apex1_tpu/ops/linear_xent.py:357")}
     kernels = []
     for name, rows in checks.items():
         main_row = next(r for r in rows if r["main"])
@@ -1318,7 +1775,8 @@ def main() -> int:
                    "engine": {"wall_s": wall, "tokens": n_tok,
                               "step_ms": step_ms, "summary": summ},
                    "train": train_out, "train_parity": par,
-                   "generate": gen_out},
+                   "dpo": dpo_out, "generate": gen_out,
+                   "phase_s": phase_s},
                   f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)

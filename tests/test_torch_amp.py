@@ -284,8 +284,9 @@ def test_amp_refuses_what_is_not_ported():
 
 def test_gpt2_refuses_flash_and_fused_head(tiny):
     """``use_flash=True`` runs (the flash slice) and gives the
-    materialized path's logits; the fused head and training dropout
-    still raise, naming their slices."""
+    materialized path's logits; the fused head (the linear-xent slice,
+    the default) runs and gives the materialized head's loss; training
+    dropout still raises, naming its slice."""
     tokens = torch.from_numpy(tiny["tokens"])
     cfg = GPT2Config.tiny(policy=get_policy("O0"), vocab_size=250)
     model = gpt2_params_from_jax(_np_tree(tiny["jparams"]), cfg, "cpu")
@@ -294,8 +295,10 @@ def test_gpt2_refuses_flash_and_fused_head(tiny):
     plain = _port_model(tiny, "O0")(tokens)
     np.testing.assert_allclose(logits.detach().numpy(),
                                plain.detach().numpy(), rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="linear-xent"):
-        gpt2_loss_fn(model)
+    params = dict(model.named_parameters())
+    fused = gpt2_loss_fn(model)(params, tokens)
+    materialized = gpt2_loss_fn(model, fuse_head=False)(params, tokens)
+    np.testing.assert_allclose(fused.item(), materialized.item(), rtol=1e-5)
     dcfg = GPT2Config.tiny(policy=get_policy("O0"), vocab_size=250,
                            dropout=0.1)
     dmodel = gpt2_params_from_jax(_np_tree(tiny["jparams"]), dcfg, "cpu")

@@ -19,7 +19,11 @@ flash kernels (forward, dq, dk/dv) the same way: the plain backward
 rounds p and dS to the operand type where the kernels do; the forward
 kernel rounds exp(s - m) against a running max where the plain forward
 keeps fp32, about one rounding of the output; dq and dk/dv give the
-same bits on a second run (no atomics).
+same bits on a second run (no atomics). The linear-xent kernels
+(forward modes 0-2, dx, dW) the same way, ragged T, V and H, a
+col_offset shard with smoothing and padding_idx: the plain versions
+round G to the operand type as the kernels do; mode 2 equals mode 1
+bit for bit and dx, dW give the same bits on a second run.
 """
 
 import numpy as np
@@ -320,3 +324,108 @@ def test_flash_attention_autograd_launches_the_kernels(cuda):
     with pytest.raises(ValueError, match="head dim"):
         z = torch.zeros(1, 1, 8, 160, device=cuda)
         flash_attention(z, z, z)
+
+
+# ---- the linear-xent slice's kernels --------------------------------------
+
+#: name -> (T, V_l, H, K, col_offset, smoothing, padding_idx)
+_LXENT = {
+    "ragged": (200, 333, 96, 320, 0, 0.0, None),
+    "shard_smooth_pad": (77, 130, 768, 317, 200, 0.1, 3),
+    "h40_scalar_loads": (64, 256, 40, 256, 0, 0.0, None),
+}
+
+
+def _lxent_inputs(name, dt, cuda):
+    T, V, H, K, off, eps, pad = _LXENT[name]
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.standard_normal((T, H)) * 0.5).to(cuda, dt)
+    w = torch.from_numpy(rng.standard_normal((V, H)) * 0.5).to(cuda, dt)
+    # half the labels inside the shard's columns, the rest anywhere
+    labels = rng.integers(0, K, T)
+    labels[::2] = rng.integers(off, min(off + V, K), T)[::2]
+    labels[::9] = 3
+    t = torch.from_numpy(labels).to(cuda, torch.int32)
+    dloss = torch.from_numpy(rng.standard_normal(T)).float().to(cuda)
+    kw = dict(num_classes=K, col_offset=off, smoothing=eps,
+              padding_idx=pad)
+    return x, w, t, dloss, kw
+
+
+@pytest.mark.parametrize("name", list(_LXENT))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_linear_xent_kernels_match_plain(cuda, dtype, name):
+    """The forward (modes 0 and 1; mode 2 bit for bit mode 1), dx and dW
+    each against its plain version on the same inputs (the backward
+    from the plain forward's lse); dx and dW give the same bits on a
+    second run (no atomics)."""
+    from apex1_tpu_torch.ops.linear_xent import lxent_dw, lxent_dx, lxent_fwd
+    dt = getattr(torch, dtype)
+    x, w, t, dloss, kw = _lxent_inputs(name, dt, cuda)
+    (loss, lse), (wloss, wlse) = _both(lambda: lxent_fwd(x, w, t, **kw))
+    _close(loss, wloss, torch.float32)
+    _close(lse, wlse, torch.float32)
+    stat_kw = dict(num_classes=kw["num_classes"],
+                   col_offset=kw["col_offset"])
+    stats, wstats = _both(lambda: lxent_fwd(x, w, t, mode=1, **stat_kw))
+    for g, wv in zip(stats, wstats):
+        _close(g, wv, torch.float32)
+    packed = lxent_fwd(x, w, t, mode=2, **stat_kw)
+    assert torch.equal(packed, torch.stack(stats, dim=1))
+    dx, wdx = _both(lambda: lxent_dx(x, w, t, wlse, dloss, **kw))
+    dw, wdw = _both(lambda: lxent_dw(x, w, t, wlse, dloss, **kw))
+    assert dx.dtype == dt and dx.shape == x.shape
+    assert dw.dtype == dt and dw.shape == w.shape
+    _close(dx, wdx, dt)
+    _close(dw, wdw, dt)
+    assert torch.equal(lxent_dx(x, w, t, wlse, dloss, **kw), dx)
+    assert torch.equal(lxent_dw(x, w, t, wlse, dloss, **kw), dw)
+
+
+def test_chunked_logprob_kernels_match_plain(cuda):
+    """`chunked_logprob` and its grads through the kernels against the
+    plain versions, in f32: 517 vocab rows in chunks of 128, so the last
+    chunk holds 5 rows (the kernels mask the rest); one forward, dx and
+    dW launch a chunk."""
+    from apex1_tpu_torch.ops import KERNEL_WRAPPERS
+    from apex1_tpu_torch.ops.chunked_loss import chunked_logprob
+    rng = np.random.default_rng(14)
+    x = torch.from_numpy(rng.standard_normal((2, 40, 96)) * 0.5).to(
+        cuda, torch.float32)
+    w = torch.from_numpy(rng.standard_normal((517, 96)) * 0.5).to(
+        cuda, torch.float32)
+    t = torch.from_numpy(rng.integers(0, 500, (2, 40))).to(cuda)
+    g = torch.from_numpy(rng.standard_normal((2, 40))).float().to(cuda)
+
+    def run():
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        lp = chunked_logprob(xr, wr, t, chunk_v=128, num_classes=500)
+        return (lp, *torch.autograd.grad(lp, (xr, wr), g))
+
+    names = ("lxent_fwd", "lxent_dx", "lxent_dw")
+    before = {n: KERNEL_WRAPPERS[n].launches for n in names}
+    got, want = _both(run)
+    assert {n: KERNEL_WRAPPERS[n].launches - before[n] for n in names} == \
+        {n: 5 for n in names}
+    for a, b in zip(got, want):
+        _close(a, b, torch.float32)
+    assert not got[2][500:].any()
+
+
+def test_linear_cross_entropy_autograd_launches_the_kernels(cuda):
+    from apex1_tpu_torch.ops import KERNEL_WRAPPERS
+    from apex1_tpu_torch.ops.linear_xent import linear_cross_entropy
+    names = ("lxent_fwd", "lxent_dx", "lxent_dw")
+    before = {n: KERNEL_WRAPPERS[n].launches for n in names}
+    x = torch.randn(3, 50, 64, device=cuda, dtype=torch.bfloat16,
+                    requires_grad=True)
+    w = torch.randn(300, 64, device=cuda, dtype=torch.bfloat16,
+                    requires_grad=True)
+    t = torch.randint(0, 290, (3, 50), device=cuda)
+    linear_cross_entropy(x, w, t, num_classes=290).sum().backward()
+    assert {n: KERNEL_WRAPPERS[n].launches - before[n] for n in names} == \
+        {n: 1 for n in names}
+    with pytest.raises(ValueError, match="hidden size"):
+        z = torch.zeros(8, 800, device=cuda)
+        linear_cross_entropy(z, torch.zeros(16, 800, device=cuda),
+                             torch.zeros(8, dtype=torch.int64, device=cuda))
