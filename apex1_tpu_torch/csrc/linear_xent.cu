@@ -55,11 +55,9 @@
 // TF32) from shared memory, one buffer. Ragged token and vocab edges and H
 // not a multiple of 16 are masked or zero-filled in shared memory; nothing
 // is padded in device memory. Not yet: wgmma, TMA, more than one block an
-// SM.
+// SM. Heads wider than 768 take the wide path at the end of this file.
 
-#include "common.cuh"
-
-#include <type_traits>
+#include "mma.cuh"
 
 namespace {
 
@@ -131,17 +129,6 @@ struct LxArgs {
   int vec;   // H*sizeof(T) % 16 == 0 and x, w 16-byte aligned
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // R rows of H values (row stride H) into an R x hp tile with row stride ld;
 // rows past `rows` and columns past H become zero. vec: 16-byte cp.async
 // copies, in flight until cp_async_wait_all; else plain loads.
@@ -176,51 +163,6 @@ __device__ __forceinline__ void load_rows(T* dst, int ld, const T* src,
           (r < rows && c < H) ? src[size_t(r) * H + c] : from_f32<T>(0.f);
     }
   }
-}
-
-// bf16/fp16 tensor-core primitives (PTX): ldmatrix of four 8x8 tiles and
-// the m16n8k16 product with fp32 accumulation. A fragment: 4 registers of a
-// 16x16 row-major tile; B: 2 registers of a 16x8 tile; C: 4 floats, rows
-// lane/4 and lane/4 + 8, columns 2·(lane%4) + {0, 1}.
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-template <typename T>
-__device__ __forceinline__ void mma16816(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  if constexpr (std::is_same<T, __half>::value) {
-    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
-        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  } else {
-    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-}
-
-// the A fragment of the 16x16 tile at `tile` (row-major, row stride ld)
-template <typename T>
-__device__ __forceinline__ void load_a(unsigned (&r)[4], const T* tile,
-                                       int ld) {
-  const int lane = threadIdx.x % 32;
-  ldsm_x4(r, tile + ((lane % 8) + 8 * ((lane / 8) % 2)) * ld + 8 * (lane / 16));
 }
 
 // The block's own tile and the inner tiles it walks: fp32 keeps the own
@@ -773,4 +715,368 @@ extern "C" int apex1_lxent_dw(const void* x, const void* w,
   a.dloss = static_cast<const float*>(dloss);
   a.grad = dw;
   return dispatch(kDw, a, dtype, stream);
+}
+
+// ---- the wide path (H > 768) ----------------------------------------------
+//
+// The resident tiles above hold at most 768 columns of H in registers; a
+// Llama head (H = 4096) cannot keep its own rows there (32 x 4096 fp32 is
+// 512 KB), nor in shared memory (227 KB a block). So a wider head runs as
+// tiled products with H streamed in K-steps (`Gemm`, mma.cuh), 128 x 128
+// output tiles:
+// - forward: one product kernel forms the score tiles x·Wᵀ over the whole
+//   shard and folds each tile's 128 columns into per-row partial statistics
+//   (m, l, tgt, sx) in its epilogue, written to a (T, V/128) buffer; a
+//   second kernel folds a row's partials in column order and writes mode
+//   0, 1 or 2 (one code path, so mode 2 is mode 1 bit for bit);
+// - backward, per vocab chunk of rows [c0, c0 + n): a product kernel forms
+//   the chunk's score tiles once and writes G_c (as above, rounded to the
+//   operand type) to a (T, n) buffer; then dx += G_c·W_c (an fp32 (T, H)
+//   sum in device memory, chunks added in order, the last chunk writing dx)
+//   and dW_c = G_cᵀ·x are two more products over it. The logits are formed
+//   once a chunk, not once for dx and once for dW as above.
+// Every output element is summed by one block in a fixed order: no atomics,
+// the same bits on every run. Not chosen: H split across blocks that each
+// recompute the full-H logits (H / slice times the score products), or a
+// cluster of CTAs summing partial score tiles through distributed shared
+// memory (fewer passes over x and W; a later step). ptxas (-Xptxas -v, sm_90a
+// on an H100): bf16/fp16 scores 133 registers, 176 with the G epilogue, dx
+// 168, dW 142; f32 143 / 234 / 168 / 167; no spills.
+
+namespace {
+
+constexpr int kWBM = 128, kWBN = 128;
+
+struct WideArgs {
+  const void* x;      // (T, H)
+  const void* w;      // (V, H): the shard, or the chunk's rows
+  const int* labels;  // (T,)
+  const float* lse;   // (T,), backward
+  const float* dloss;
+  float4* part;       // forward: (T, nblk) partial statistics
+  float* out[4];      // forward outputs, by mode
+  void* g;            // backward: the chunk's G, (T, V)
+  int T, V, H, K, off;  // off: global column of local row 0
+  float smoothing;
+  int has_pad, pad, mode, nblk, vec;
+};
+
+// The score tiles x·Wᵀ of a (T, V) product; GRAD false: per-row partial
+// statistics of each 128-column tile; GRAD true: the G tile.
+template <typename T, bool GRAD>
+__global__ void __launch_bounds__(256, 1) lxw_scores_kernel(const WideArgs a) {
+  using G = Gemm<T, kWBM, kWBN, 1, true, true>;
+  constexpr int LDS = kWBN + 4;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  int tm, tn;
+  swizzle(blockIdx.x, (a.T + kWBM - 1) / kWBM, (a.V + kWBN - 1) / kWBN, tm,
+          tn);
+  const int m0 = tm * kWBM, n0 = tn * kWBN;
+  const Operand<T> A{static_cast<const T*>(a.x), a.H};
+  const Operand<T> B[1] = {{static_cast<const T*>(a.w), a.H}};
+  G g;
+  g.run(reinterpret_cast<T*>(smem_raw), A, B, a.T, a.V, a.H, m0, n0, a.vec);
+  if constexpr (GRAD) {
+    const float on = 1.f - a.smoothing;
+    const float eps_k = a.smoothing / static_cast<float>(a.K);
+    T* out = static_cast<T*>(a.g);
+    const bool pair = a.V % 2 == 0;
+    g.for_each([&](int r, int c, const float (&v)[1][2]) {
+      const int row = m0 + r;
+      if (row >= a.T) return;
+      const int lab = a.labels[row];
+      const float lse = a.lse[row];
+      const float dl = (a.has_pad && lab == a.pad) ? 0.f : a.dloss[row];
+      float gv[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = n0 + c + h, gcol = col + a.off;
+        const bool valid = col < a.V && gcol < a.K;
+        const float p = valid ? expf(v[0][h] - lse) : 0.f;
+        const float e = p - on * (gcol == lab ? 1.f : 0.f) - eps_k;
+        gv[h] = valid ? e * dl : 0.f;
+      }
+      store_pair<T>(out + size_t(row) * a.V + n0, c, a.V - n0, gv[0], gv[1],
+                    pair);
+    });
+  } else {
+    float* sS = reinterpret_cast<float*>(smem_raw);
+    g.for_each([&](int r, int c, const float (&v)[1][2]) {
+      sS[r * LDS + c] = v[0][0];
+      sS[r * LDS + c + 1] = v[0][1];
+    });
+    __syncthreads();
+    // two threads a row, 64 columns each, then one shuffle
+    const int r = threadIdx.x / 2, part = threadIdx.x % 2;
+    const int row = m0 + r;
+    const int lab = row < a.T ? a.labels[row] : -1;
+    const float* srow = sS + r * LDS + 64 * part;
+    const int c0 = n0 + 64 * part;
+    float m = kNegInf;
+    for (int c = 0; c < 64; ++c) {
+      const int col = c0 + c;
+      if (col < a.V && col + a.off < a.K) m = fmaxf(m, srow[c]);
+    }
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    float l = 0.f, tgt = 0.f, sx = 0.f;
+    for (int c = 0; c < 64; ++c) {
+      const int col = c0 + c;
+      if (col >= a.V) break;
+      const float s = srow[c];
+      if (col + a.off < a.K) {
+        l += expf(s - m);
+        sx += s;
+      }
+      tgt += col + a.off == lab ? s : 0.f;
+    }
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    tgt += __shfl_xor_sync(0xffffffffu, tgt, 1);
+    sx += __shfl_xor_sync(0xffffffffu, sx, 1);
+    if (row < a.T && part == 0)
+      a.part[size_t(row) * a.nblk + tn] = make_float4(m, l, tgt, sx);
+  }
+}
+
+// fold each row's partials in column order; write mode 0, 1 or 2
+__global__ void lxw_merge_kernel(const WideArgs a) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= a.T) return;
+  float m = kNegInf, l = 0.f, tgt = 0.f, sx = 0.f;
+  const float4* p = a.part + size_t(row) * a.nblk;
+  for (int b = 0; b < a.nblk; ++b) {
+    const float4 q = p[b];
+    const float m_new = fmaxf(m, q.x);
+    l = l * expf(m - m_new) + q.y * expf(q.x - m_new);
+    m = m_new;
+    tgt += q.z;
+    sx += q.w;
+  }
+  if (a.mode == 0) {
+    const float lse = m + logf(l);
+    float loss = (1.f - a.smoothing) * (lse - tgt) +
+                 a.smoothing * (lse - sx / static_cast<float>(a.K));
+    if (a.has_pad && a.labels[row] == a.pad) loss = 0.f;
+    a.out[0][row] = loss;
+    a.out[1][row] = lse;
+  } else if (a.mode == 1) {
+    a.out[0][row] = m;
+    a.out[1][row] = l;
+    a.out[2][row] = tgt;
+    a.out[3][row] = sx;
+  } else {
+    *reinterpret_cast<float4*>(a.out[0] + size_t(row) * 4) =
+        make_float4(m, l, tgt, sx);
+  }
+}
+
+struct WideProdArgs {
+  const void* a;  // A operand (see the kernels)
+  const void* b;
+  float* acc;     // dx: the fp32 (T, H) running sum
+  void* out;
+  int M, N, K;
+  int first, last, vec;
+};
+
+// dx: (T, H) += G (T, n) · W_c (n, H); the last chunk writes dx
+template <typename T>
+__global__ void __launch_bounds__(256, 1) lxw_dx_kernel(const WideProdArgs a) {
+  using G = Gemm<T, kWBM, kWBN, 1, true, false>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  int tm, tn;
+  swizzle(blockIdx.x, (a.M + kWBM - 1) / kWBM, (a.N + kWBN - 1) / kWBN, tm,
+          tn);
+  const int m0 = tm * kWBM, n0 = tn * kWBN;
+  const Operand<T> A{static_cast<const T*>(a.a), a.K};
+  const Operand<T> B[1] = {{static_cast<const T*>(a.b), a.N}};
+  G g;
+  g.run(reinterpret_cast<T*>(smem_raw), A, B, a.M, a.N, a.K, m0, n0, a.vec);
+  T* out = static_cast<T*>(a.out);
+  const bool pair = a.N % 2 == 0;
+  g.for_each([&](int r, int c, const float (&v)[1][2]) {
+    const int row = m0 + r;
+    if (row >= a.M) return;
+    const size_t base = size_t(row) * a.N + n0;
+    float s0 = v[0][0], s1 = v[0][1];
+    const int n = a.N - n0;
+    if (!a.first) {
+      if (c < n) s0 += a.acc[base + c];
+      if (c + 1 < n) s1 += a.acc[base + c + 1];
+    }
+    if (a.last) {
+      store_pair<T>(out + base, c, n, s0, s1, pair);
+    } else {
+      store_pair<float>(a.acc + base, c, n, s0, s1, pair);
+    }
+  });
+}
+
+// dW_c (n, H) = G_cᵀ · x: A(m, k) = G[k][m] (the stored G is (T, n)),
+// B = x (T, H)
+template <typename T>
+__global__ void __launch_bounds__(256, 1) lxw_dw_kernel(const WideProdArgs a) {
+  using G = Gemm<T, kWBM, kWBN, 1, false, false>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  int tm, tn;
+  swizzle(blockIdx.x, (a.M + kWBM - 1) / kWBM, (a.N + kWBN - 1) / kWBN, tm,
+          tn);
+  const int m0 = tm * kWBM, n0 = tn * kWBN;
+  const Operand<T> A{static_cast<const T*>(a.a), a.M};
+  const Operand<T> B[1] = {{static_cast<const T*>(a.b), a.N}};
+  G g;
+  g.run(reinterpret_cast<T*>(smem_raw), A, B, a.M, a.N, a.K, m0, n0, a.vec);
+  T* out = static_cast<T*>(a.out);
+  const bool pair = a.N % 2 == 0;
+  g.for_each([&](int r, int c, const float (&v)[1][2]) {
+    const int row = m0 + r;
+    if (row >= a.M) return;
+    store_pair<T>(out + size_t(row) * a.N + n0, c, a.N - n0, v[0][0],
+                  v[0][1], pair);
+  });
+}
+
+template <typename Args>
+int launch_tiles(void (*kern)(const Args), size_t smem, int M, int N,
+                 const Args& a, cudaStream_t st) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int tiles = ((M + kWBM - 1) / kWBM) * ((N + kWBN - 1) / kWBN);
+  kern<<<tiles, 256, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int wide_scores(const WideArgs& a, bool grad, cudaStream_t st) {
+  using G = Gemm<T, kWBM, kWBN, 1, true, true>;
+  if (grad)
+    return launch_tiles(lxw_scores_kernel<T, true>, G::SMEM, a.T, a.V, a, st);
+  const size_t stage = size_t(kWBM) * (kWBN + 4) * sizeof(float);
+  int err = launch_tiles(lxw_scores_kernel<T, false>, max_sz(G::SMEM, stage),
+                         a.T, a.V, a, st);
+  if (err) return err;
+  lxw_merge_kernel<<<(a.T + 127) / 128, 128, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int wide_prod(const WideProdArgs& a, bool dw, cudaStream_t st) {
+  if (dw)
+    return launch_tiles(lxw_dw_kernel<T>,
+                        Gemm<T, kWBM, kWBN, 1, false, false>::SMEM, a.M, a.N,
+                        a, st);
+  return launch_tiles(lxw_dx_kernel<T>,
+                      Gemm<T, kWBM, kWBN, 1, true, false>::SMEM, a.M, a.N, a,
+                      st);
+}
+
+int wide_scores_dtype(const WideArgs& a, bool grad, int dtype, void* stream) {
+  if (a.T <= 0 || a.V <= 0) return 0;
+  if (a.H <= 0 || a.K <= 0 || (!grad && a.nblk != (a.V + kWBN - 1) / kWBN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = as_stream(stream);
+  switch (dtype) {
+    case kF32:
+      return wide_scores<float>(a, grad, st);
+    case kBF16:
+      return wide_scores<__nv_bfloat16>(a, grad, st);
+    case kF16:
+      return wide_scores<__half>(a, grad, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int wide_prod_dtype(const WideProdArgs& a, bool dw, int dtype, void* stream) {
+  if (a.M <= 0 || a.N <= 0 || a.K <= 0) return 0;
+  cudaStream_t st = as_stream(stream);
+  switch (dtype) {
+    case kF32:
+      return wide_prod<float>(a, dw, st);
+    case kBF16:
+      return wide_prod<__nv_bfloat16>(a, dw, st);
+    case kF16:
+      return wide_prod<__half>(a, dw, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+WideArgs wide_args(const void* x, const void* w, const void* labels, int T,
+                   int V, int H, int K, int off, float smoothing, int has_pad,
+                   int pad, int vec) {
+  WideArgs a{};
+  a.x = x;
+  a.w = w;
+  a.labels = static_cast<const int*>(labels);
+  a.T = T;
+  a.V = V;
+  a.H = H;
+  a.K = K;
+  a.off = off;
+  a.smoothing = smoothing;
+  a.has_pad = has_pad;
+  a.pad = pad;
+  a.vec = vec;
+  return a;
+}
+
+}  // namespace
+
+// The wide forward: x (T, H), w (V, H) as apex1_lxent_fwd, any H; part a
+// (T, nblk) float4 scratch, nblk = ceil(V / 128). vec: H is a multiple of
+// 16 bytes of elements and x, w are 16-byte aligned.
+extern "C" int apex1_lxent_wide_fwd(const void* x, const void* w,
+                                    const void* labels, void* part,
+                                    void* out0, void* out1, void* out2,
+                                    void* out3, int T, int V, int H, int K,
+                                    int off, float smoothing, int has_pad,
+                                    int pad, int mode, int nblk, int vec,
+                                    int dtype, void* stream) {
+  WideArgs a = wide_args(x, w, labels, T, V, H, K, off, smoothing, has_pad,
+                         pad, vec);
+  a.part = static_cast<float4*>(part);
+  a.out[0] = static_cast<float*>(out0);
+  a.out[1] = static_cast<float*>(out1);
+  a.out[2] = static_cast<float*>(out2);
+  a.out[3] = static_cast<float*>(out3);
+  a.mode = mode;
+  a.nblk = nblk;
+  return wide_scores_dtype(a, false, dtype, stream);
+}
+
+// G of one vocab chunk: w the chunk's n rows (V = n), off the global column
+// of its first row; g (T, n) in `dtype`
+extern "C" int apex1_lxent_wide_grad(const void* x, const void* w,
+                                     const void* labels, const void* lse,
+                                     const void* dloss, void* g, int T, int V,
+                                     int H, int K, int off, float smoothing,
+                                     int has_pad, int pad, int vec, int dtype,
+                                     void* stream) {
+  WideArgs a = wide_args(x, w, labels, T, V, H, K, off, smoothing, has_pad,
+                         pad, vec);
+  a.lse = static_cast<const float*>(lse);
+  a.dloss = static_cast<const float*>(dloss);
+  a.g = g;
+  return wide_scores_dtype(a, true, dtype, stream);
+}
+
+// dx += G (T, n) · W_c (n, H): acc the fp32 (T, H) sum (unread with first,
+// unwritten with last), dx (T, H) in `dtype`, written with last
+extern "C" int apex1_lxent_wide_dx(const void* g, const void* w, void* acc,
+                                   void* dx, int T, int n, int H, int first,
+                                   int last, int vec, int dtype,
+                                   void* stream) {
+  WideProdArgs a{g, w, static_cast<float*>(acc), dx, T, H, n, first, last,
+                 vec};
+  return wide_prod_dtype(a, false, dtype, stream);
+}
+
+// dW_c (n, H) = Gᵀ · x, G (T, n), x (T, H), in `dtype`
+extern "C" int apex1_lxent_wide_dw(const void* g, const void* x, void* dw,
+                                   int T, int n, int H, int vec, int dtype,
+                                   void* stream) {
+  WideProdArgs a{g, x, nullptr, dw, n, H, T, 0, 0, vec};
+  return wide_prod_dtype(a, true, dtype, stream);
 }

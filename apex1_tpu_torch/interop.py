@@ -10,13 +10,19 @@ numpy arrays: this module imports no JAX.
 
 - `gpt2_params_from_jax` / `gpt2_params_to_numpy`: a `GPT2` from a
   flax tree and back;
+- `llama_params_from_jax` / `llama_params_to_numpy`: the same for a
+  `Llama`, whose port names are the flax paths joined by dots
+  (``layer{i}/wq`` -> ``layer{i}.wq``) and whose projections keep the
+  flax (in, out) layout: a copy, no transpose;
 - `named_from_flax` / `flax_from_named`: one flax-layout tree (params,
-  grads, Adam moments) to the port's dict and back;
+  grads, Adam moments) of either model to the port's dict and back;
 - `amp_state_from_jax` / `amp_state_to_numpy`: the whole amp training
   state (params, fused-Adam m/v/step, loss-scale state).
 """
 
 from __future__ import annotations
+
+from collections.abc import Mapping
 
 import numpy as np
 import torch
@@ -24,6 +30,7 @@ import torch
 from apex1_tpu_torch.amp import AmpState
 from apex1_tpu_torch.core.loss_scale import LossScaleState
 from apex1_tpu_torch.models.gpt2 import GPT2, GPT2Config
+from apex1_tpu_torch.models.llama import Llama, LlamaConfig
 from apex1_tpu_torch.ops._common import resolve_device
 from apex1_tpu_torch.optim.fused_adam import FusedAdamState
 
@@ -33,8 +40,18 @@ _TOP = ("wte", "wpe", "lnf_scale", "lnf_bias")
 _LS_FIELDS = ("scale", "growth_count", "overflow_count", "hysteresis_left")
 
 
+def _is_llama(tree) -> bool:
+    return "tok_embeddings" in tree
+
+
 def named_from_flax(tree) -> dict:
-    """Flax-layout GPT-2 tree -> ``{port name: numpy array}``."""
+    """Flax-layout GPT-2 or Llama tree -> ``{port name: numpy array}``."""
+    if _is_llama(tree):
+        return {(f"{k}.{n}" if isinstance(v, Mapping) else k):
+                np.asarray(leaf)
+                for k, v in tree.items()
+                for n, leaf in (v.items() if isinstance(v, Mapping)
+                                else ((None, v),))}
     out = {k: np.asarray(tree[k]) for k in _TOP}
     i = 0
     while f"h{i}" in tree:
@@ -56,6 +73,15 @@ def flax_from_named(named: dict) -> dict:
             t = t.detach().float().cpu().numpy()
         return np.asarray(t)
 
+    if _is_llama(named):
+        out: dict = {}
+        for name, t in named.items():
+            if "." in name:
+                layer, leaf = name.split(".", 1)
+                out.setdefault(layer, {})[leaf] = np_(t)
+            else:
+                out[name] = np_(t)
+        return out
     out = {k: np_(named[k]) for k in _TOP}
     i = 0
     while f"h.{i}.qkv.weight" in named:
@@ -75,8 +101,16 @@ def _tensors(named: dict, device) -> dict:
 
 def gpt2_params_from_jax(params, cfg: GPT2Config, device=None) -> GPT2:
     """A `GPT2` on ``device`` (CUDA unless named) holding ``params``."""
-    model = GPT2(cfg, device=device)
-    src = named_from_flax(params)
+    return _load(GPT2(cfg, device=device), named_from_flax(params))
+
+
+def gpt2_params_to_numpy(model: GPT2) -> dict:
+    """The inverse of `gpt2_params_from_jax`: the flax-layout numpy
+    tree of ``model``'s parameters."""
+    return flax_from_named(dict(model.named_parameters()))
+
+
+def _load(model, src: dict):
     with torch.no_grad():
         for name, p in model.named_parameters():
             if tuple(src[name].shape) != tuple(p.shape):
@@ -86,8 +120,14 @@ def gpt2_params_from_jax(params, cfg: GPT2Config, device=None) -> GPT2:
     return model
 
 
-def gpt2_params_to_numpy(model: GPT2) -> dict:
-    """The inverse of `gpt2_params_from_jax`: the flax-layout numpy
+def llama_params_from_jax(params, cfg: LlamaConfig, device=None) -> Llama:
+    """A `Llama` on ``device`` (CUDA unless named) holding ``params``
+    (the JAX package's flax tree, numpy or JAX arrays)."""
+    return _load(Llama(cfg, device=device), named_from_flax(params))
+
+
+def llama_params_to_numpy(model: Llama) -> dict:
+    """The inverse of `llama_params_from_jax`: the flax-layout numpy
     tree of ``model``'s parameters."""
     return flax_from_named(dict(model.named_parameters()))
 
@@ -95,7 +135,8 @@ def gpt2_params_to_numpy(model: GPT2) -> dict:
 def amp_state_from_jax(state, device=None) -> AmpState:
     """The port's `AmpState` from a JAX ``apex1_tpu.amp.AmpState`` whose
     leaves are numpy arrays (``jax.tree_util.tree_map(np.asarray,
-    state)``), trained with ``fused_adam`` and one loss scaler: params
+    state)``), of a GPT-2 or a Llama, trained with ``fused_adam`` and one
+    loss scaler: params
     and the Adam moments in fp32, the counters as 0-d device tensors."""
     dev = resolve_device(device)
     opt, ls = state.opt_state, state.loss_scale

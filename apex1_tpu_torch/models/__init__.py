@@ -1,9 +1,13 @@
 from apex1_tpu_torch.models.generate import (cached_attention, generate,
                                              gpt2_decoder, init_cache,
-                                             last_real_logits)
+                                             last_real_logits, llama_decoder)
 from apex1_tpu_torch.models.gpt2 import (GPT2, GPT2Config, gpt2_loss_fn,
                                          init_params)
+from apex1_tpu_torch.models.llama import (Llama, LlamaBlock, LlamaConfig,
+                                          init_weights, is_moe_layer,
+                                          llama_loss_fn)
 
 __all__ = ["GPT2", "GPT2Config", "gpt2_loss_fn", "init_params",
            "cached_attention", "generate", "gpt2_decoder", "init_cache",
-           "last_real_logits"]
+           "last_real_logits", "llama_decoder", "Llama", "LlamaBlock",
+           "LlamaConfig", "init_weights", "is_moe_layer", "llama_loss_fn"]

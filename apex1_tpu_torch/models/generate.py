@@ -233,3 +233,10 @@ def gpt2_decoder(model):
     """(apply_fn, make_cache) for `models.gpt2.GPT2`."""
     cfg = model.cfg
     return _decoder(model, cfg.num_heads, cfg.hidden_size // cfg.num_heads)
+
+
+def llama_decoder(model):
+    """(apply_fn, make_cache) for `models.llama.Llama` (GQA: the cache
+    holds the KV heads)."""
+    cfg = model.cfg
+    return _decoder(model, cfg.num_kv_heads, cfg.head_dim)

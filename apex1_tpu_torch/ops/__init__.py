@@ -9,18 +9,22 @@ from apex1_tpu_torch.ops.chunked_loss import (chunked_dpo_loss,
                                               chunked_kl_loss,
                                               chunked_logprob,
                                               chunked_orpo_loss)
+from apex1_tpu_torch.ops.fused_dense import (check_glu_geometry, fused_glu,
+                                             glu_fwd)
 from apex1_tpu_torch.ops.layer_norm import (FusedLayerNorm, FusedRMSNorm,
                                             layer_norm, layer_norm_bwd,
                                             layer_norm_fwd, rms_norm)
 from apex1_tpu_torch.ops.linear_xent import (linear_cross_entropy,
                                              lxent_dw, lxent_dx, lxent_fwd,
-                                             shard_grads, shard_stats,
-                                             shard_stats_packed)
+                                             lxent_grads, shard_grads,
+                                             shard_stats, shard_stats_packed)
 from apex1_tpu_torch.ops.paged_decode import (PagedCache, cache_attend,
                                               fused_sample, gather_pages,
                                               paged_attend,
                                               paged_update_attend,
                                               sample_token, scatter_pages)
+from apex1_tpu_torch.ops.rope import (apply_rotary_pos_emb, rope_tables,
+                                      rotate)
 from apex1_tpu_torch.ops.softmax import (scaled_masked_softmax,
                                          scaled_upper_triang_masked_softmax,
                                          softmax_bwd, softmax_fwd)
@@ -43,7 +47,9 @@ KERNEL_WRAPPERS = {"layer_norm_fwd": layer_norm_fwd,
                    "flash_dkv": flash_dkv,
                    "lxent_fwd": lxent_fwd,
                    "lxent_dx": lxent_dx,
-                   "lxent_dw": lxent_dw}
+                   "lxent_dw": lxent_dw,
+                   "rope": rotate,
+                   "glu_fwd": glu_fwd}
 
 
 def reset_launches() -> None:
@@ -59,8 +65,10 @@ __all__ = ["NEG_INF", "force_impl", "get_impl", "set_impl",
            "flash_attention", "flash_dkv", "flash_dq", "flash_fwd", "fmha",
            "chunked_dpo_loss", "chunked_kl_loss", "chunked_logprob",
            "chunked_orpo_loss", "linear_cross_entropy", "lxent_dw",
-           "lxent_dx", "lxent_fwd", "shard_grads", "shard_stats",
-           "shard_stats_packed",
+           "lxent_dx", "lxent_fwd", "lxent_grads", "shard_grads",
+           "shard_stats", "shard_stats_packed", "check_glu_geometry",
+           "fused_glu", "glu_fwd", "apply_rotary_pos_emb", "rope_tables",
+           "rotate",
            "FusedLayerNorm", "FusedRMSNorm", "layer_norm", "layer_norm_bwd",
            "layer_norm_fwd", "rms_norm", "PagedCache", "cache_attend",
            "fused_sample", "gather_pages", "paged_attend",

@@ -68,6 +68,15 @@ SIGNATURES = {
                        _I, _I, _I, _P],
     "apex1_lxent_dw": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                        _I, _I, _I, _P],
+    "apex1_lxent_wide_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _F, _I, _I, _I, _I, _I, _I, _P],
+    "apex1_lxent_wide_grad": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                              _I, _I, _I, _I, _P],
+    "apex1_lxent_wide_dx": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "apex1_lxent_wide_dw": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "apex1_rope": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _F, _I, _I,
+                   _P],
+    "apex1_glu_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _LOCK = threading.Lock()

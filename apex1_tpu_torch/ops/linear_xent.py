@@ -23,8 +23,16 @@ with G = softmax - (1-ε)·onehot - ε/K on valid columns, times dloss,
 recomputed from (x, W, lse) and rounded to the operand type before
 its product, as the TPU kernels round it. The plain versions walk the
 vocab in chunks of `PLAIN_CHUNK` columns (never a (T, V) tile) in the
-order of ``_fwd_kernel``'s statistics. The kernels take H <= 768 (their
-resident tiles); wider heads raise.
+order of ``_fwd_kernel``'s statistics.
+
+Heads up to `MAX_H` = 768 columns run the kernels above, whose tiles
+keep all of H resident. Wider heads (Llama-3 8B: 4096) take the wide
+path of the same source: tiled products with H streamed, the forward's
+statistics folded from per-tile partials, and the backward a vocab
+chunk of `WIDE_CHUNK` rows at a time: G_c formed once into a (T, n)
+buffer, then dx += G_c·W_c (an fp32 sum over the chunks in order) and
+dW_c = G_cᵀ·x. `shard_grads` forms each chunk's G once for both
+products; `lxent_dx` and `lxent_dw` alone each form it.
 """
 
 from __future__ import annotations
@@ -38,10 +46,15 @@ from apex1_tpu_torch.ops._common import (DTYPE_CODES, NEG_INF, check_cuda,
                                          use_kernel)
 
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
-#: the widest hidden size the kernels' resident tiles hold
+#: the widest hidden size the kernels' resident tiles hold; wider heads
+#: take the wide path
 MAX_H = 768
 #: vocab columns a step of the plain versions
 PLAIN_CHUNK = 4096
+#: the wide path: vocab rows a backward chunk (its G buffer is (T, this))
+#: and the score tile's columns (one partial-statistics slot each)
+WIDE_CHUNK = 8192
+WIDE_BN = 128
 
 
 # ---- plain versions ------------------------------------------------------
@@ -149,10 +162,6 @@ def _operands(name, x2, w, labels, *rest):
     if x2.dim() != 2 or w.dim() != 2 or x2.shape[1] != w.shape[1]:
         raise ValueError(f"{name}: x {tuple(x2.shape)} and W "
                          f"{tuple(w.shape)} do not fit")
-    if x2.shape[1] > MAX_H:
-        raise ValueError(f"{name}: hidden size {x2.shape[1]} > {MAX_H}: the "
-                         f"kernels' resident tiles hold at most {MAX_H} "
-                         f"columns")
     if labels.numel() != x2.shape[0]:
         raise ValueError(f"{name}: {labels.numel()} labels for "
                          f"{x2.shape[0]} rows")
@@ -178,7 +187,8 @@ def lxent_fwd(x2: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, *,
     """The forward kernel for (T, H) ``x2``, a (V_l, H) W shard and (T,)
     labels: mode 0 (loss, lse), mode 1 (m, l, tgt, sumx), each (T,)
     fp32; mode 2 one (T, 4) fp32. CUDA tensors launch the kernel
-    (``lxent_fwd.launches``); CPU tensors take the plain version."""
+    (``lxent_fwd.launches``; past `MAX_H`, the wide path's two kernels
+    count once); CPU tensors take the plain version."""
     if mode not in (0, 1, 2):
         raise ValueError(f"lxent_fwd: mode must be 0, 1 or 2, got {mode}")
     if not use_kernel(x2):
@@ -193,11 +203,18 @@ def lxent_fwd(x2: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, *,
                 for _ in range(2 if mode == 0 else 4)]
     ptrs = [o.data_ptr() for o in outs] + [None] * (4 - len(outs))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _build.launch("apex1_lxent_fwd", x2.data_ptr(), w.data_ptr(),
-                  labels.data_ptr(), *ptrs,
-                  *_common_args(x2, w, col_offset, num_classes, smoothing,
-                                padding_idx), mode, vec,
-                  DTYPE_CODES[x2.dtype], stream)
+    args = _common_args(x2, w, col_offset, num_classes, smoothing,
+                        padding_idx)
+    if x2.shape[1] > MAX_H:
+        nblk = -(-w.shape[0] // WIDE_BN)
+        part = torch.empty(T, nblk, 4, dtype=torch.float32, device=dev)
+        _build.launch("apex1_lxent_wide_fwd", x2.data_ptr(), w.data_ptr(),
+                      labels.data_ptr(), part.data_ptr(), *ptrs, *args, mode,
+                      nblk, vec, DTYPE_CODES[x2.dtype], stream)
+    else:
+        _build.launch("apex1_lxent_fwd", x2.data_ptr(), w.data_ptr(),
+                      labels.data_ptr(), *ptrs, *args, mode, vec,
+                      DTYPE_CODES[x2.dtype], stream)
     lxent_fwd.launches += 1
     return outs[0] if mode == 2 else tuple(outs)
 
@@ -219,6 +236,47 @@ def _bwd(name, x2, w, labels, lse, dloss, col_offset, K, smoothing,
     return out
 
 
+def _wide_bwd(x2, w, labels, lse, dloss, col_offset, K, smoothing,
+              padding_idx, want_dx, want_dw):
+    """The wide path's backward: per vocab chunk, G_c into a (T, n)
+    buffer, then dx += G_c·W_c and/or dW_c = G_cᵀ·x. Returns (dx, dW),
+    None where not wanted."""
+    (x2, w, labels, lse, dloss), vec = _operands(
+        "lxent_dx" if want_dx else "lxent_dw", x2, w, labels, lse, dloss)
+    (T, H), V, dev = x2.shape, w.shape[0], x2.device
+    es, epv, code = x2.element_size(), 16 // x2.element_size(), \
+        DTYPE_CODES[x2.dtype]
+    chunk = min(WIDE_CHUNK, V)
+    n_chunks = -(-V // chunk)
+    g = torch.empty(T * chunk, dtype=x2.dtype, device=dev)
+    dx = torch.empty_like(x2) if want_dx else None
+    dw = torch.empty_like(w) if want_dw else None
+    acc = (torch.empty(T, H, dtype=torch.float32, device=dev)
+           if want_dx and n_chunks > 1 else None)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    common = _common_args(x2, w, col_offset, K, smoothing, padding_idx)
+    for i in range(n_chunks):
+        c0 = i * chunk
+        n = min(chunk, V - c0)
+        wc = w.data_ptr() + c0 * H * es
+        # (T, V, H, K, off, ...) of the chunk's rows
+        _build.launch("apex1_lxent_wide_grad", x2.data_ptr(), wc,
+                      labels.data_ptr(), lse.data_ptr(), dloss.data_ptr(),
+                      g.data_ptr(), T, n, H, common[3], common[4] + c0,
+                      *common[5:], vec, code, stream)
+        vec_g = int(vec and n % epv == 0)
+        if want_dx:
+            _build.launch("apex1_lxent_wide_dx", g.data_ptr(), wc,
+                          None if acc is None else acc.data_ptr(),
+                          dx.data_ptr(), T, n, H, int(i == 0),
+                          int(i == n_chunks - 1), vec_g, code, stream)
+        if want_dw:
+            _build.launch("apex1_lxent_wide_dw", g.data_ptr(),
+                          x2.data_ptr(), dw.data_ptr() + c0 * H * es, T, n, H,
+                          vec_g, code, stream)
+    return dx, dw
+
+
 def lxent_dx(x2, w, labels, lse, dloss, *, num_classes: int,
              col_offset: int = 0, smoothing: float = 0.0,
              padding_idx: Optional[int] = None) -> torch.Tensor:
@@ -228,8 +286,12 @@ def lxent_dx(x2, w, labels, lse, dloss, *, num_classes: int,
     if not use_kernel(x2):
         return _plain_dx(x2, w, labels, lse, dloss, col_offset, num_classes,
                          smoothing, padding_idx)
-    dx = _bwd("lxent_dx", x2, w, labels, lse, dloss, col_offset, num_classes,
-              smoothing, padding_idx, "x")
+    if x2.shape[-1] > MAX_H:
+        dx = _wide_bwd(x2, w, labels, lse, dloss, col_offset, num_classes,
+                       smoothing, padding_idx, True, False)[0]
+    else:
+        dx = _bwd("lxent_dx", x2, w, labels, lse, dloss, col_offset,
+                  num_classes, smoothing, padding_idx, "x")
     lxent_dx.launches += 1
     return dx
 
@@ -245,13 +307,35 @@ def lxent_dw(x2, w, labels, lse, dloss, *, num_classes: int,
     if not use_kernel(x2):
         return _plain_dw(x2, w, labels, lse, dloss, col_offset, num_classes,
                          smoothing, padding_idx)
-    dw = _bwd("lxent_dw", x2, w, labels, lse, dloss, col_offset, num_classes,
-              smoothing, padding_idx, "w")
+    if x2.shape[-1] > MAX_H:
+        dw = _wide_bwd(x2, w, labels, lse, dloss, col_offset, num_classes,
+                       smoothing, padding_idx, False, True)[1]
+    else:
+        dw = _bwd("lxent_dw", x2, w, labels, lse, dloss, col_offset,
+                  num_classes, smoothing, padding_idx, "w")
     lxent_dw.launches += 1
     return dw
 
 
 lxent_dw.launches = 0
+
+
+def lxent_grads(x2, w, labels, lse, dloss, *, num_classes: int,
+                col_offset: int = 0, smoothing: float = 0.0,
+                padding_idx: Optional[int] = None):
+    """(dx, dW) together. Past `MAX_H` on CUDA, each vocab chunk's G is
+    formed once for both products (one launch of `lxent_dx` and one of
+    `lxent_dw` counted); otherwise `lxent_dx` then `lxent_dw`."""
+    kw = dict(num_classes=num_classes, col_offset=col_offset,
+              smoothing=smoothing, padding_idx=padding_idx)
+    if not (use_kernel(x2) and x2.shape[-1] > MAX_H):
+        return (lxent_dx(x2, w, labels, lse, dloss, **kw),
+                lxent_dw(x2, w, labels, lse, dloss, **kw))
+    out = _wide_bwd(x2, w, labels, lse, dloss, col_offset, num_classes,
+                    smoothing, padding_idx, True, True)
+    lxent_dx.launches += 1
+    lxent_dw.launches += 1
+    return out
 
 
 # ---- the JAX package's entry points --------------------------------------
@@ -284,10 +368,9 @@ def shard_grads(x2, w_shard, t2, lse, dloss, *, col_offset=0,
     """Per-shard gradients given the GLOBAL lse: ``(dx_partial,
     dw_shard)`` (dx still to be summed over shards)."""
     k = w_shard.shape[0] if num_classes is None else num_classes
-    kw = dict(num_classes=k, col_offset=col_offset, smoothing=smoothing,
-              padding_idx=padding_idx)
-    return (lxent_dx(x2, w_shard, t2, lse, dloss, **kw),
-            lxent_dw(x2, w_shard, t2, lse, dloss, **kw))
+    return lxent_grads(x2, w_shard, t2, lse, dloss, num_classes=k,
+                       col_offset=col_offset, smoothing=smoothing,
+                       padding_idx=padding_idx)
 
 
 class _LinearXent(torch.autograd.Function):

@@ -1,0 +1,91 @@
+"""Activation checkpointing (the port of `checkpoint_policy` and
+`checkpoint_with_policy` in ``apex1_tpu/transformer/tensor_parallel/
+random.py``; reference ``tensor_parallel/random.py :: checkpoint``).
+
+A policy is named as in ``jax.checkpoint_policies``:
+
+- ``nothing_saveable``: full recompute, ``torch.utils.checkpoint``
+  (non-reentrant) around the function: its forward runs again in the
+  backward;
+- ``dots_saveable`` (alias ``checkpoint_dots``) and
+  ``dots_with_no_batch_dims_saveable`` (alias
+  ``checkpoint_dots_with_no_batch_dims``): selective recompute, the
+  matrix products' outputs saved (all of them, or those without a batch
+  dimension: ``mm``/``addmm`` but not ``bmm``), everything else
+  recomputed (``torch.utils.checkpoint.create_selective_checkpoint_
+  contexts``);
+- ``everything_saveable``: no recompute.
+
+The other names JAX knows (the name-based and offloading policies)
+raise NotImplementedError; an unknown name raises ValueError at once,
+so a typo fails where a config is made. The RNG tracker of the JAX
+module comes with the multi-GPU slice (ROADMAP.md queue A item 7).
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Callable
+
+import torch
+import torch.utils.checkpoint as ckpt
+
+#: every name of ``jax.checkpoint_policies``
+JAX_POLICIES = (
+    "checkpoint_dots", "checkpoint_dots_with_no_batch_dims",
+    "dots_saveable", "dots_with_no_batch_dims_saveable",
+    "everything_saveable", "nothing_saveable",
+    "offload_dot_with_no_batch_dims", "save_and_offload_only_these_names",
+    "save_any_names_but_these", "save_anything_except_these_names",
+    "save_from_both_policies", "save_only_these_names")
+
+_aten = torch.ops.aten
+_DOTS_NO_BATCH = (_aten.mm.default, _aten.addmm.default)
+_DOTS = _DOTS_NO_BATCH + (_aten.bmm.default, _aten.baddbmm.default)
+
+#: ported name -> the saved ops (None: save nothing; "all": no remat)
+_PORTED = {"nothing_saveable": None, "everything_saveable": "all",
+           "dots_saveable": _DOTS, "checkpoint_dots": _DOTS,
+           "dots_with_no_batch_dims_saveable": _DOTS_NO_BATCH,
+           "checkpoint_dots_with_no_batch_dims": _DOTS_NO_BATCH}
+
+
+def checkpoint_policy(name: str = "nothing_saveable"):
+    """The ops a policy keeps: None (``nothing_saveable``), "all"
+    (``everything_saveable``) or a tuple of aten ops. Raises at once on
+    an unknown name (ValueError) or one not ported (NotImplementedError).
+    """
+    if name not in JAX_POLICIES:
+        raise ValueError(f"unknown checkpoint policy {name!r}; valid "
+                         f"names: {list(JAX_POLICIES)}")
+    if name not in _PORTED:
+        raise NotImplementedError(
+            f"checkpoint policy {name!r} (name-based or offloading "
+            f"selection) is not ported: ROADMAP.md queue A item 12")
+    return _PORTED[name]
+
+
+def _context_fn(saved: tuple):
+    def policy(ctx, op, *args, **kwargs):
+        return (ckpt.CheckpointPolicy.MUST_SAVE if op in saved
+                else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return functools.partial(ckpt.create_selective_checkpoint_contexts,
+                             policy)
+
+
+def checkpoint_with_policy(fn: Callable, policy_name: str) -> Callable:
+    """``fn`` recomputed in the backward under the named policy."""
+    saved = checkpoint_policy(policy_name)
+    if saved == "all":
+        return fn
+    kw: dict = {"use_reentrant": False}
+    if saved is not None:
+        kw["context_fn"] = _context_fn(saved)
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        return ckpt.checkpoint(fn, *args, **kw, **kwargs)
+
+    return wrapped
+

@@ -3,8 +3,10 @@
 
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --profile  # build, then profile decode steps
-                                     # and training steps (flash off,
-                                     # flash on, flash and fused head)
+                                     # and training steps (GPT-2: flash
+                                     # off, flash on, flash and fused
+                                     # head; llama_block: fused_mlp off
+                                     # and on)
 
 Phases, each printed on its own line; a failure in any exits non-zero:
 
@@ -24,7 +26,18 @@ Phases, each printed on its own line; a failure in any exits non-zero:
    chunk (1152 rows); dx and dW must give the same bits twice and the
    packed statistics (mode 2) equal the four (mode 1) bit for bit. The
    half-precision backward cases also print how far two plain versions
-   that differ only in the logits' summation precision lie apart.
+   that differ only in the logits' summation precision lie apart. The
+   Llama slice's shapes: the RMS norm forward and backward at (8192,
+   4096); flash at GQA 32/8, head_dim 128, S = 4096, causal and packed;
+   paged attention at 32/8 heads, head_dim 128; the linear-xent wide
+   path (H > 768) at the Llama head (8190 x 4096 against 32000 x 4096)
+   in bf16 and fp16, a smoothed shard and a ragged f32 case, dx and dW
+   also together (one G a vocab chunk for both) with the same bits;
+   RoPE (kernel 12) at q (2, 4096, 32, 128) forward and backward, k,
+   per-row tables, interleaved, fp16, f32, head_dim 256 and a decode
+   step, equal bits required; the fused SwiGLU (kernel 13) at (8192,
+   4096) x (4096, 14336) bf16, fp16, GeGLU, a serving chunk, f32 and a
+   ragged case.
 3. engine — serve GPT-2 124M at full width (12 layers, hidden 768,
    vocab 50257 padded to 50304) at policy O2, weights made from a seed,
    through the paged continuous-batching engine: 16 requests (prompts
@@ -81,10 +94,33 @@ Phases, each printed on its own line; a failure in any exits non-zero:
 11. generate-parity — the same at O0, depth 2, through the kernels and
    the plain versions: equal token streams, or a first differing token
    whose top-2 score gap is below 1e-4 relative (a near-tie).
-12. the ``kernels`` JSON line (each kernel's launches over the main
-   paths: the engine, the train phases, dpo and generate runs), the
-   card's name and power limit, and the last line
-   ``{"ok": true, "device": {...}}``.
+12. train-llama — the JAX bench's ``llama_block`` (Llama-3 8B widths:
+   hidden 4096, ffn 14336, 32 query and 8 KV heads of 128, rope base
+   500000; 3 layers, vocab 32000; weights drawn on the card from a
+   seed) with remat (``nothing_saveable``) and the fused head, trained
+   at B=2 x S=4096 under ``Amp(fused_adam(1e-4, weight_decay=0.01))``:
+   6 O2 and 3 O2_fp16 steps, 3 O2 steps with ``fused_mlp=True``, and 3
+   O2 steps on a packed batch (per-document positions). Losses finite,
+   the O2 loss falling over 6 steps, and every step launching exactly
+   `llama_launches` (remat's recompute counted: RMS norm fwd 13 and bwd
+   7, rope 18, flash 6/3/3, the linear-xent 1/1/1, glu 6 or 0, the
+   materialized cross-entropy and softmax never).
+13. train-llama-parity — depth 2, full width, B=2 x S=1024, lr 1e-5,
+   kernels against plain versions as in train-parity, for (fused_mlp,
+   fuse_head) = (False, True), (True, True), (False, False); the fused
+   head's step-1 O0 loss equals the materialized head's within 1e-5.
+14. serve-llama — the 3-layer model at O2 with ``fused_mlp=True``
+   through the paged engine (the engine phase's workload at vocab
+   32000): all 16 requests done with 64 tokens inside the vocabulary,
+   exact launches of the RMS norm, rope, paged attention, glu and
+   sampling kernels; one greedy ``generate`` through ``llama_decoder``
+   (8 ragged prompts, 32 new tokens; flash fwd launched once a layer
+   in the prefill); serve-llama-parity: the engine at O0, depth 2,
+   kernels against plain versions, identical token streams.
+15. the ``kernels`` JSON line (each kernel's launches over the main
+   paths: the engine, the train phases, dpo, generate, train-llama,
+   serve-llama and its generate), the card's name and power limit, and
+   the last line ``{"ok": true, "device": {...}}``.
 
 Kernel times are device times of CUDA-graph replays (no host launch
 overhead), or between CUDA events for kernels of a millisecond or more;
@@ -113,6 +149,11 @@ SEED = 1234
 #: GPT-2 124M training shapes: B x S tokens, hidden, heads, vocab and
 #: padded vocab
 TB, TS, TH, THEADS, TV, TV_PAD = 16, 1024, 768, 12, 50257, 50304
+#: the Llama slice: the JAX bench's ``llama_block`` (Llama-3 8B widths,
+#: 3 layers, the bench's vocab 32000) at B x S tokens: hidden, ffn,
+#: query and KV heads, head_dim, vocab, layers
+LB, LS = 2, 4096
+LH, LFFN, LHEADS, LKV, LD, LV, LLAYERS = 4096, 14336, 32, 8, 128, 32000, 3
 
 
 def fail(msg: str) -> int:
@@ -174,14 +215,37 @@ TOLS = {"float32": (1e-5, 1e-4), "bfloat16": (2.0 ** -7, 3e-2),
         "float16": (2.0 ** -10, 1e-2)}
 
 
-#: the linear-xent backward's (rtol, atol): two ulps of the operand
-#: type. Kernel and plain version both round G to it before the
-#: product, but their fp32 logits differ in summation order, so a G
-#: element can round to the neighbouring value; where one G term
-#: dominates an output, that moves it by up to a second ulp.
-#: `lxent_witness` measures this on each half-precision case
-TOLS_G = {"float32": TOLS["float32"], "bfloat16": (2.0 ** -6, 3e-2),
-          "float16": (2.0 ** -9, 1e-2)}
+#: unit roundoff of the half operand types (half an ulp, relative), and
+#: half their smallest subnormal step (the absolute rounding error
+#: where a value lies below the normal range: fp16 below 6.1e-5)
+UNIT = {"bfloat16": 2.0 ** -8, "float16": 2.0 ** -11}
+ETA = {"bfloat16": 2.0 ** -134, "float16": 2.0 ** -25}
+
+
+def rounding_errs(got, want, absprod, u: float, sides: int, eta=0.0,
+                  abs_sum=0.0):
+    """The error bound of a sum of products whose operands are rounded
+    to the operand type: the flash forward rounds its probabilities P
+    (kernel only: ``sides`` 1), the linear-xent backward its G (kernel
+    and plain version, each from its own fp32 logits: ``sides`` 2).
+    Rounding moves each term by at most u of its size, so the outputs
+    before their own rounding lie within ``sides``·u·Σ|a||b| of each
+    other, where ``absprod`` is that sum of absolute products (the plain
+    function on |operands|); the two roundings of the output add at
+    most 2u·|want|, the normalization one u·|want| more, fp32 sums in
+    another order 1e-5·Σ|a||b|. A rounded operand below the normal
+    range is off by up to ``eta`` absolute, not u relative: that adds
+    ``sides``·eta·Σ|b| (``abs_sum``, the other operand's absolute sum)
+    and 3·eta for the output. Returns (max |got - want|, the worst
+    element's error over that bound): within it when the second is at
+    most 1. A flat rtol/atol rule cannot hold here: where terms cancel,
+    |want| is far below Σ|a||b| (an early causal row's few large
+    values; a vocab row's target term against the rest)."""
+    got, want, absprod = got.double(), want.double(), absprod.double()
+    diff = (got - want).abs()
+    allow = (u * (sides * absprod + 3 * want.abs()) + 1e-5 * absprod
+             + eta * (sides * abs_sum + 3) + 1e-30)
+    return diff.max().item(), (diff / allow).max().item()
 
 
 def max_errs(got, want, rtol: float, atol: float):
@@ -221,37 +285,55 @@ def event_ms(fn, iters: int = 10) -> float:
 
 
 def check_layer_norm(torch, ops, gen):
-    from apex1_tpu_torch.ops.layer_norm import layer_norm
-    H = 768
+    from apex1_tpu_torch.ops.layer_norm import layer_norm, rms_norm
+    F = torch.nn.functional
     results = []
     # serving (fp32 γ/β) at decode and prefill rows; training's B*S rows
-    # with half γ/β, the amp compute params
-    cases = [(8, torch.float32, False), (8, torch.bfloat16, False),
-             (16 * 64, torch.float32, False), (16 * 64, torch.bfloat16, False),
-             (TB * TS, torch.bfloat16, True), (TB * TS, torch.float16, True)]
-    for rows, dt, half_g in cases:
+    # with half γ/β, the amp compute params; the Llama step's RMS rows
+    # (B*S x 4096, fp32 γ)
+    cases = [(8, TH, torch.float32, False, False),
+             (8, TH, torch.bfloat16, False, False),
+             (16 * 64, TH, torch.float32, False, False),
+             (16 * 64, TH, torch.bfloat16, False, False),
+             (TB * TS, TH, torch.bfloat16, True, False),
+             (TB * TS, TH, torch.float16, True, False),
+             (LB * LS, LH, torch.bfloat16, False, True)]
+    for rows, H, dt, half_g, rms in cases:
         x = (torch.randn(rows, H, generator=gen) * 2 + 0.5).cuda().to(dt)
         g = (1 + 0.1 * torch.randn(H, generator=gen)).cuda()
         b = (0.1 * torch.randn(H, generator=gen)).cuda()
         if half_g:
             g, b = g.to(dt), b.to(dt)
-        got = layer_norm(x, g, b)
+        gl, bl = g.to(dt), b.to(dt)
+        if rms:
+            def run():
+                return rms_norm(x, g, eps=1e-5)
+
+            def lib_call():
+                return F.rms_norm(x, (H,), gl, 1e-5)
+        else:
+            def run():
+                return layer_norm(x, g, b)
+
+            def lib_call():
+                return F.layer_norm(x, (H,), gl, bl, 1e-5)
+        got = run()
         with ops.force_impl("torch"):
-            want = layer_norm(x, g, b)
+            want = run()
         torch.cuda.synchronize()
         tol = TOLS[str(dt)[6:]]
         abs_e, worst = max_errs(got, want, *tol)
-        ms = graph_ms(lambda: layer_norm(x, g, b))
+        ms = graph_ms(run)
         with ops.force_impl("torch"):
-            plain = graph_ms(lambda: layer_norm(x, g, b))
-        gl, bl = g.to(dt), b.to(dt)
-        lib = graph_ms(lambda: torch.nn.functional.layer_norm(
-            x, (H,), gl, bl, 1e-5))
+            plain = graph_ms(run)
+        lib = graph_ms(lib_call)
         eb = x.element_size()
-        bnd, by = bound_ms(2 * rows * H * eb + 2 * H * g.element_size()
+        n_par = 1 if rms else 2
+        bnd, by = bound_ms(2 * rows * H * eb + n_par * H * g.element_size()
                            + 2 * rows * 4, 8 * rows * H)
         results.append(dict(case=f"rows={rows} H={H} {str(dt)[6:]}"
-                            + (" half γ/β" if half_g else ""),
+                            + (" half γ/β" if half_g else "")
+                            + (" RMS, fp32 γ" if rms else ""),
                             abs=abs_e, worst=worst, tol=tol, ms=ms,
                             plain_ms=plain, library_ms=lib,
                             bound_ms=bnd, bound_by=by,
@@ -261,16 +343,19 @@ def check_layer_norm(torch, ops, gen):
 
 def check_paged_attend(torch, ops, gen):
     from apex1_tpu_torch.ops.paged_decode import paged_attend
-    N, D, P, T = 8, 64, 64, 17          # the engine's pages: 1087 / 64
+    N, P, T = 8, 64, 17          # the engine's pages: 1087 / 64
     n_pages = 1 + (8 + 32) * T
     results = []
-    cases = [(12, 12, 1, "float32"), (12, 12, 1, "bfloat16"),
-             (12, 12, 1, "int8"), (12, 12, 64, "float32"),
-             (12, 12, 64, "bfloat16"), (12, 12, 64, "int8"),
-             (12, 4, 1, "bfloat16")]
+    # GPT-2's heads (D = 64), and the Llama serving path's GQA 32/8 at
+    # D = 128 (decode steps and prefill chunks)
+    cases = [(12, 12, 1, "float32", 64), (12, 12, 1, "bfloat16", 64),
+             (12, 12, 1, "int8", 64), (12, 12, 64, "float32", 64),
+             (12, 12, 64, "bfloat16", 64), (12, 12, 64, "int8", 64),
+             (12, 4, 1, "bfloat16", 64), (LHEADS, LKV, 1, "bfloat16", LD),
+             (LHEADS, LKV, 64, "bfloat16", LD)]
     perm = torch.randperm(n_pages - 1, generator=gen)[:N * T] + 1
     bt = perm.reshape(N, T).to(torch.int32).cuda()
-    for hq, hkv, S, pdt in cases:
+    for hq, hkv, S, pdt, D in cases:
         lens = torch.randint(32, T * P - S - 1, (N,), generator=gen)
         raw = torch.randn(2, n_pages, hkv, P, D, generator=gen)
         q = torch.randn(N, hq, S, D, generator=gen)
@@ -316,7 +401,7 @@ def check_paged_attend(torch, ops, gen):
             case=f"N={N} Hq={hq} Hkv={hkv} S={S} D={D} P={P} {pdt} pages",
             abs=abs_e, worst=worst, tol=tol, ms=ms, plain_ms=plain,
             library_ms=None, bound_ms=bnd, bound_by=by,
-            main=(S == 1 and pdt == "bfloat16" and hq == hkv)))
+            main=(S == 1 and pdt == "bfloat16" and hq == hkv == THEADS)))
     return results
 
 
@@ -359,25 +444,29 @@ def check_fused_sample(torch, ops, gen):
 
 
 def check_layer_norm_bwd(torch, ops, gen):
-    """Kernel 2 at the training step's (B*S, 768) rows: half x and dy
-    with half γ (the amp compute params), and f32."""
+    """Kernel 2 at the GPT-2 training step's (B*S, 768) rows: half x and
+    dy with half γ (the amp compute params), and f32; and in RMS mode at
+    the Llama step's (B*S, 4096) rows (no β, no library call)."""
     from apex1_tpu_torch.ops.layer_norm import layer_norm_bwd, layer_norm_fwd
-    R, H = TB * TS, TH
     results = []
-    for dt in (torch.bfloat16, torch.float16, torch.float32):
+    for R, H, dt, rms in ((TB * TS, TH, torch.bfloat16, False),
+                          (TB * TS, TH, torch.float16, False),
+                          (TB * TS, TH, torch.float32, False),
+                          (LB * LS, LH, torch.bfloat16, True)):
         x = (torch.randn(R, H, generator=gen, device="cuda") * 2
              + 0.5).to(dt)
         dy = torch.randn(R, H, generator=gen, device="cuda").to(dt)
         g = (1 + 0.1 * torch.randn(H, generator=gen, device="cuda")).to(dt)
-        b = (0.1 * torch.randn(H, generator=gen, device="cuda")).to(dt)
-        _, mean, rstd = layer_norm_fwd(x, g, b, 1e-5, False)
+        b = None if rms else (0.1 * torch.randn(H, generator=gen,
+                                                device="cuda")).to(dt)
+        _, mean, rstd = layer_norm_fwd(x, g, b, 1e-5, rms)
 
         def run():
-            return layer_norm_bwd(dy, x, g, mean, rstd, False, True)
+            return layer_norm_bwd(dy, x, g, mean, rstd, rms, not rms)
 
-        got = run()
+        got = [t for t in run() if t is not None]
         with ops.force_impl("torch"):
-            want = run()
+            want = [t for t in run() if t is not None]
         torch.cuda.synchronize()
         tol = TOLS[str(dt)[6:]]
         abs_e, worst = max_errs_all(zip(got, want), tol)
@@ -385,14 +474,16 @@ def check_layer_norm_bwd(torch, ops, gen):
         with ops.force_impl("torch"):
             plain = graph_ms(run, iters=10)
         m2, r2 = mean[:, None], rstd[:, None]
-        lib = graph_ms(lambda: torch.ops.aten.native_layer_norm_backward(
-            dy, x, [H], m2, r2, g, b, [True, True, True]))
+        lib = None if rms else graph_ms(
+            lambda: torch.ops.aten.native_layer_norm_backward(
+                dy, x, [H], m2, r2, g, b, [True, True, True]))
         eb, gb = x.element_size(), g.element_size()
-        # x, dy read and dx written; γ read, dγ and dβ written; mean and
-        # rstd read; about 12 flops per element
-        bnd, by = bound_ms(3 * R * H * eb + 3 * H * gb + 2 * R * 4,
-                           12 * R * H)
-        results.append(dict(case=f"rows={R} H={H} {str(dt)[6:]} x, dy, γ",
+        # x, dy read and dx written; γ read, dγ (and dβ) written; mean
+        # and rstd read; about 12 flops per element
+        bnd, by = bound_ms(3 * R * H * eb + (2 if rms else 3) * H * gb
+                           + 2 * R * 4, 12 * R * H)
+        results.append(dict(case=f"rows={R} H={H} {str(dt)[6:]} x, dy, γ"
+                            + (" RMS" if rms else ""),
                             abs=abs_e, worst=worst, tol=tol, ms=ms,
                             plain_ms=plain, library_ms=lib, bound_ms=bnd,
                             bound_by=by, main=dt == torch.bfloat16))
@@ -544,7 +635,7 @@ def check_xent(torch, ops, gen):
 
 
 #: the flash kernels' checks: (case, B, Hq, Hkv, Sq, Sk, dtype, causal,
-#: segments, q_off, k_off, dlse, main)
+#: segments, q_off, k_off, dlse, main, head_dim)
 FLASH_CASES = [
     ("GPT-2 causal", TB, THEADS, THEADS, TS, TS, "bfloat16", True, False,
      0, 0, False, True),
@@ -562,6 +653,10 @@ FLASH_CASES = [
      False, 64, 192, False, False),
     ("return_lse, dlse", 4, THEADS, THEADS, 512, 512, "bfloat16", True,
      False, 0, 0, True, False),
+    ("Llama GQA 32/8 causal", LB, LHEADS, LKV, LS, LS, "bfloat16", True,
+     False, 0, 0, False, False, LD),
+    ("Llama GQA 32/8 packed segments", LB, LHEADS, LKV, LS, LS, "bfloat16",
+     True, True, 0, 0, False, False, LD),
 ]
 
 
@@ -592,10 +687,10 @@ def check_flash(torch, ops, gen):
     import torch.nn.functional as F
     from apex1_tpu_torch.ops.attention import (_valid, flash_dkv, flash_dq,
                                                flash_fwd)
-    D = TH // THEADS
     fwd, dq_rows, dkv_rows = [], [], []
     for (case, B, Hq, Hkv, Sq, Sk, dts, causal, segs, q_off, k_off, with_dlse,
-         main) in FLASH_CASES:
+         main, *d) in FLASH_CASES:
+        D = d[0] if d else TH // THEADS
         dt = getattr(torch, dts)
 
         def rnd(*shape):
@@ -611,8 +706,8 @@ def check_flash(torch, ops, gen):
         args = (qseg, kseg, 1.0 / math.sqrt(D), causal, q_off, k_off)
         tol = TOLS[dts]
 
-        def run_f():
-            return flash_fwd(q, k, v, *args)
+        def run_f(vv=None):
+            return flash_fwd(q, k, v if vv is None else vv, *args)
 
         out, lse = run_f()
         with ops.force_impl("torch"):
@@ -621,7 +716,13 @@ def check_flash(torch, ops, gen):
         empty = wlse <= -1e29
         if not torch.equal(lse <= -1e29, empty):
             raise RuntimeError(f"flash_fwd {case}: rows without keys differ")
-        e1 = max_errs(out, wout, *tol)
+        if dt == torch.float32:
+            e1 = max_errs(out, wout, *tol)
+        else:
+            with ops.force_impl("torch"):
+                absprod = run_f(v.abs())[0]
+            e1 = rounding_errs(out, wout, absprod, UNIT[dts], 1)
+            del absprod
         e2 = max_errs(torch.where(empty, 0.0, lse),
                       torch.where(empty, 0.0, wlse), *TOLS["float32"])
         delta = (do.float() * wout.float()).sum(-1)
@@ -665,7 +766,10 @@ def check_flash(torch, ops, gen):
         fwd.append(dict(case=label, abs=max(e1[0], e2[0]),
                         worst=max(e1[1], e2[1]), tol=tol, ms=ms_f,
                         plain_ms=pl_f, library_ms=lib_f, bound_ms=b_f[0],
-                        bound_by=b_f[1], main=main))
+                        bound_by=b_f[1], main=main,
+                        **({} if dt == torch.float32 else {
+                            "rule": f"out: rounding bound of P, u="
+                                    f"{UNIT[dts]:g}; lse: f32 rtol/atol"})))
         eq = max_errs(dq, wdq, *tol)
         dq_rows.append(dict(case=label, abs=eq[0], worst=eq[1], tol=tol,
                             ms=ms_q, plain_ms=pl_q, library_ms=lib_b,
@@ -682,9 +786,10 @@ def check_flash(torch, ops, gen):
 
 
 #: the linear-xent kernels' checks: (case, T, V_l, dtype, K, col_offset,
-#: smoothing, padding_idx, forward mode, main). T = 16 x 1023 is the
-#: GPT-2 step's head; 8 x 1023 one DPO sequence batch, whose last vocab
-#: chunk holds the table's last 50304 - 6 x 8192 = 1152 rows
+#: smoothing, padding_idx, forward mode, main[, H, plain and library
+#: timed]). T = 16 x 1023 is the GPT-2 step's head; 8 x 1023 one DPO
+#: sequence batch, whose last vocab chunk holds the table's last 50304 -
+#: 6 x 8192 = 1152 rows; 2 x 4095 the Llama step's head (the wide path)
 LXENT_CASES = [
     ("GPT-2 head", TB * (TS - 1), TV_PAD, "bfloat16", TV, 0, 0.0, None, 0,
      True),
@@ -697,22 +802,34 @@ LXENT_CASES = [
      "bfloat16", TV, 2 * TV_PAD // 4, 0.0, None, 1, False),
     ("DPO chunk 7 of 7, ragged", 8 * (TS - 1), TV_PAD - 6 * 8192,
      "bfloat16", TV, 6 * 8192, 0.0, None, 2, False),
+    ("Llama head", LB * (LS - 1), LV, "bfloat16", LV, 0, 0.0, None, 0,
+     False, LH, True),
+    ("Llama head", LB * (LS - 1), LV, "float16", LV, 0, 0.0, None, 0,
+     False, LH, False),
+    ("wide, eps 0.1, padding_idx 0, shard", 2000, 20000, "bfloat16", 31000,
+     10000, 0.1, 0, 0, False, 1024, False),
+    ("wide, ragged", 999, 9001, "float32", 9000, 0, 0.0, None, 1, False,
+     200 * 8 + 1, False),
 ]
 
 
 def lxent_grads_ref(torch, x, w, t, lse, dloss, off, K, eps, pad, acc,
-                    round_g):
+                    round_g, absolute=False):
     """dx and dW of the linear-xent backward as the plain versions
     compute them (vocab chunks, fp32 products), but with the logits and
     G evaluated in ``acc`` (float32 or float64) and G rounded to the
     operand type only with ``round_g``. Two of these that differ only in
-    ``acc`` differ only by the rounding of the logits' sums."""
+    ``acc`` differ only by the rounding of the logits' sums. With
+    ``absolute`` the products of |G|, |W| and |x| in fp32 (the sums of
+    absolute products `rounding_errs` takes)."""
     from apex1_tpu_torch.ops.linear_xent import PLAIN_CHUNK
     T, H = x.shape
     dl = dloss.to(acc)[:, None]
     if pad is not None:
         dl = torch.where(t[:, None] == pad, 0.0, dl)
     lse_a, xa, xf = lse.to(acc)[:, None], x.to(acc), x.float()
+    if absolute:
+        xf = xf.abs()
     dx = torch.zeros(T, H, dtype=torch.float32, device=x.device)
     dw = torch.empty(w.shape, dtype=torch.float32, device=x.device)
     for c0 in range(0, w.shape[0], PLAIN_CHUNK):
@@ -725,20 +842,25 @@ def lxent_grads_ref(torch, x, w, t, lse, dloss, off, K, eps, pad, acc,
         g = (torch.where(valid, g, 0.0) * dl).float()
         if round_g:
             g = g.to(x.dtype).float()
-        dx += g @ wc.float()
+        wf = wc.float()
+        if absolute:
+            g, wf = g.abs(), wf.abs()
+        dx += g @ wf
         dw[c0:c0 + g.shape[1]] = g.t() @ xf
+    if absolute:
+        return dx, dw
     return dx.to(x.dtype), dw.to(w.dtype)
 
 
 def lxent_witness(torch, args, got, plain):
-    """Why the backward's tolerance is two ulps of the operand type and
-    not one: the worst error over the one-ulp allowance (`TOLS`) of
-    (dx, dW) between the kernel and the plain version (``kernel``),
-    between two plain versions that differ only in summing the logits in
-    fp32 or fp64 (``rounded``), and between the same two without G's
-    rounding to the operand type (``unrounded``). ``rounded`` near or
-    past 1 with ``unrounded`` well under it says that G's rounding turns
-    a last-bit difference in the logits into an ulp of the output.
+    """Why no flat one-ulp rule holds the backward: the worst error over
+    the one-ulp allowance (`TOLS`) of (dx, dW) between the kernel and
+    the plain version (``kernel``), between two plain versions that
+    differ only in summing the logits in fp32 or fp64 (``rounded``),
+    and between the same two without G's rounding to the operand type
+    (``unrounded``). ``rounded`` near or past 1 says that G's rounding
+    turns a last-bit difference in the logits into an ulp of the output
+    (the pass rule is `rounding_errs`).
     ``args`` are `lxent_grads_ref`'s (x, W, labels, lse, dloss,
     col_offset, K, smoothing, padding_idx)."""
     tol = TOLS[str(args[0].dtype)[6:]]
@@ -765,14 +887,17 @@ def check_lxent(torch, ops, gen):
     the case: 2·H flops a pair a product (forward 1, dx and dW 2
     each)."""
     import torch.nn.functional as F
-    from apex1_tpu_torch.ops.linear_xent import lxent_dw, lxent_dx, lxent_fwd
-    H = TH
+    from apex1_tpu_torch.ops.linear_xent import (lxent_dw, lxent_dx, lxent_fwd,
+                                                 lxent_grads)
     fwd, dx_rows, dw_rows = [], [], []
-    for (case, T, Vl, dts, K, off, eps, pad, mode,
-         main) in LXENT_CASES:
+    for (case, T, Vl, dts, K, off, eps, pad, mode, main,
+         *wide) in LXENT_CASES:
+        H, timed_plain = wide if wide else (TH, main or mode != 0)
         dt = getattr(torch, dts)
+        # logits of the same spread at every H
         x = (torch.randn(T, H, generator=gen, device="cuda") * 0.5).to(dt)
-        w = (torch.randn(Vl, H, generator=gen, device="cuda") * 0.5).to(dt)
+        w = (torch.randn(Vl, H, generator=gen, device="cuda") * 0.5
+             * (TH / H) ** 0.5).to(dt)
         t = torch.randint(0, K, (T,), generator=gen, device="cuda")
         if pad is not None:
             t[::7] = pad
@@ -802,7 +927,6 @@ def check_lxent(torch, ops, gen):
             lse_w = want[0] + torch.log(want[1])
         # every case's kernels take 0.5 ms or more: CUDA events suffice
         ms_f = event_ms(run_f)
-        timed_plain = main or mode != 0
         pl_f = pl_dx = pl_dw = None
         if timed_plain:
             with ops.force_impl("torch"):
@@ -817,14 +941,33 @@ def check_lxent(torch, ops, gen):
         def run_dw():
             return lxent_dw(x, w, t, lse_w, dloss, **bkw)
 
+        def run_both():
+            return lxent_grads(x, w, t, lse_w, dloss, **bkw)
+
         gdx, gdw = run_dx(), run_dw()
-        same_dx = torch.equal(run_dx(), gdx)
-        same_dw = torch.equal(run_dw(), gdw)
+        # twice alone, and once together (one G for both products)
+        both = run_both()
+        same_dx = torch.equal(run_dx(), gdx) and torch.equal(both[0], gdx)
+        same_dw = torch.equal(run_dw(), gdw) and torch.equal(both[1], gdw)
+        del both
         with ops.force_impl("torch"):
             wdx, wdw = run_dx(), run_dw()
         torch.cuda.synchronize()
-        e_dx = max_errs(gdx, wdx, *TOLS_G[dts])
-        e_dw = max_errs(gdw, wdw, *TOLS_G[dts])
+        if dt == torch.float32:
+            e_dx, e_dw = (max_errs(g, p, *TOLS[dts])
+                          for g, p in ((gdx, wdx), (gdw, wdw)))
+        else:
+            absprod = lxent_grads_ref(torch, x, w, t, lse_w, dloss, off, K,
+                                      bkw.get("smoothing", 0.0),
+                                      bkw.get("padding_idx"), torch.float32,
+                                      False, absolute=True)
+            # G's other operand: W's rows for dx, x's for dW
+            e_dx, e_dw = (
+                rounding_errs(g, p, a, UNIT[dts], 2, ETA[dts],
+                              o.float().abs().sum(0))
+                for g, p, a, o in ((gdx, wdx, absprod[0], w),
+                                   (gdw, wdw, absprod[1], x)))
+            del absprod
         # the rows past num_classes must be exactly zero
         if gdw[n_valid:].any() or wdw[n_valid:].any():
             e_dw = (e_dw[0], math.inf)
@@ -834,12 +977,13 @@ def check_lxent(torch, ops, gen):
                 torch, (x, w, t, lse_w, dloss, off, K, eps, pad),
                 (gdx, gdw), (wdx, wdw))
         ms_dx, ms_dw = event_ms(run_dx), event_ms(run_dw)
+        ms_both = event_ms(run_both)
         if timed_plain:
             with ops.force_impl("torch"):
                 pl_dx = event_ms(run_dx, iters=2)
                 pl_dw = event_ms(run_dw, iters=2)
         lib_f = lib_b = None
-        if main:
+        if main or (wide and timed_plain):
             wk = w[:n_valid]
             ign = -100 if pad is None else pad
 
@@ -877,14 +1021,142 @@ def check_lxent(torch, ops, gen):
                 (dx_rows, e_dx, ms_dx, pl_dx, b_dx, same_dx),
                 (dw_rows, e_dw, ms_dw, pl_dw, b_dw, same_dw))):
             rows.append(dict(case=label, abs=e[0], worst=e[1],
-                             tol=TOLS_G[dts], ms=ms, plain_ms=pl,
+                             tol=TOLS[dts], ms=ms, plain_ms=pl,
                              library_ms=lib_b, bound_ms=b[0], bound_by=b[1],
-                             main=main, same_bits=same,
+                             main=main, same_bits=same, both_ms=ms_both,
+                             **({} if dt == torch.float32 else {
+                                 "rule": f"rounding bound of G, u="
+                                         f"{UNIT[dts]:g}"}),
                              **({} if witness is None else {"one_ulp": {
                                  k: v[i] for k, v in witness.items()}})))
         del x, w, got, want, gdx, gdw, wdx, wdw
         torch.cuda.empty_cache()
     return fwd, dx_rows, dw_rows
+
+
+#: the RoPE kernel's checks: (case, x shape (B, S, heads, D), dtype,
+#: tables, interleaved, sign (-1: the backward), main)
+ROPE_CASES = [
+    ("q", (LB, LS, LHEADS, LD), "bfloat16", "shared", False, 1.0, True),
+    ("q backward (-sin)", (LB, LS, LHEADS, LD), "bfloat16", "shared", False,
+     -1.0, False),
+    ("k, 8 KV heads", (LB, LS, LKV, LD), "bfloat16", "shared", False, 1.0,
+     False),
+    ("q per-row tables", (LB, LS, LHEADS, LD), "bfloat16", "per_row", False,
+     1.0, False),
+    ("q interleaved", (LB, LS, LHEADS, LD), "bfloat16", "shared", True, 1.0,
+     False),
+    ("q", (LB, LS, LHEADS, LD), "float16", "shared", False, 1.0, False),
+    ("small", (2, 256, LHEADS, LD), "float32", "shared", False, 1.0, False),
+    ("head_dim 256", (2, 1024, 8, 256), "bfloat16", "shared", False, 1.0,
+     False),
+    ("decode step, per-row", (8, 1, LHEADS, LD), "bfloat16", "per_row",
+     False, 1.0, False),
+]
+
+
+def check_rope(torch, ops, gen):
+    """Kernel 12 against its plain version: the same fp32 operations,
+    each rounded once in the same order, so the bits must be equal.
+    Bytes bound it: x read and the output written once, the tables read
+    once. No single PyTorch call computes it (no library time)."""
+    from apex1_tpu_torch.ops.rope import rope_tables, rotate
+    results = []
+    for case, shape, dts, tables, inter, sign, main in ROPE_CASES:
+        dt = getattr(torch, dts)
+        B, S, _, D = shape
+        x = torch.randn(shape, generator=gen, device="cuda").to(dt)
+        if tables == "per_row":
+            pos = torch.randint(0, 8192, (B * S,), generator=gen,
+                                device="cuda")
+            c, s = (t.reshape(B, S, -1) for t in
+                    rope_tables(pos, D, base=500000.0))
+        else:
+            c, s = rope_tables(torch.arange(S, device="cuda"), D,
+                               base=500000.0)
+
+        def run():
+            return rotate(x, c, s, interleaved=inter, seq_axis=1, sign=sign)
+
+        got = run()
+        with ops.force_impl("torch"):
+            want = run()
+        torch.cuda.synchronize()
+        tol = TOLS[dts]
+        abs_e, worst = max_errs(got, want, *tol)
+        ms = graph_ms(run, iters=20)
+        plain = None
+        if main:
+            with ops.force_impl("torch"):
+                plain = graph_ms(run, iters=5)
+        bnd, by = bound_ms(2 * x.numel() * x.element_size()
+                           + 2 * c.numel() * 4, 3 * x.numel())
+        results.append(dict(
+            case=f"{case} {tuple(shape)} {dts} {tables} tables"
+                 + (" interleaved" if inter else ""),
+            abs=abs_e, worst=worst, tol=tol, ms=ms, plain_ms=plain,
+            library_ms=None, bound_ms=bnd, bound_by=by, main=main,
+            equal_bits=bool(torch.equal(got, want))))
+        del x, got, want
+    return results
+
+
+#: the fused-glu kernel's checks: (case, T, H, F, dtype, activation, main)
+GLU_CASES = [
+    ("Llama MLP", LB * LS, LH, LFFN, "bfloat16", "silu", True),
+    ("Llama MLP", 2048, LH, LFFN, "float16", "silu", False),
+    ("GeGLU", 2048, LH, LFFN, "bfloat16", "gelu", False),
+    ("serving chunk, 8 x 64 rows", 8 * 64, LH, LFFN, "bfloat16", "silu",
+     False),
+    ("small", 512, 1024, 2048, "float32", "silu", False),
+    ("ragged", 1000, 200, 1000, "bfloat16", "silu", False),
+]
+
+
+def check_glu(torch, ops, gen):
+    """Kernel 13 against its plain version (fp32 products and epilogue,
+    one rounding). Operations bound it: 4·T·H·F flops. The library
+    yardstick (main case) is the unfused pair: two ``torch.mm`` in the
+    operand type and ``F.silu(g) * u``."""
+    F = torch.nn.functional
+    from apex1_tpu_torch.ops.fused_dense import glu_fwd
+    results = []
+    for case, T, H, Fo, dts, act, main in GLU_CASES:
+        dt = getattr(torch, dts)
+        x = torch.randn(T, H, generator=gen, device="cuda").to(dt)
+        wg = (torch.randn(H, Fo, generator=gen, device="cuda")
+              * H ** -0.5).to(dt)
+        wu = (torch.randn(H, Fo, generator=gen, device="cuda")
+              * H ** -0.5).to(dt)
+
+        def run():
+            return glu_fwd(x, wg, wu, act)
+
+        got = run()
+        with ops.force_impl("torch"):
+            want = run()
+        torch.cuda.synchronize()
+        tol = TOLS[dts]
+        abs_e, worst = max_errs(got, want, *tol)
+        flops = 4 * T * H * Fo
+        timer = event_ms if flops > 1e11 else graph_ms
+        ms = timer(run)
+        plain = lib = None
+        if main:
+            with ops.force_impl("torch"):
+                plain = event_ms(run, iters=2)
+            lib = event_ms(lambda: F.silu(torch.mm(x, wg)) * torch.mm(x, wu))
+        es = x.element_size()
+        bnd, by = bound_ms((T * H + 2 * H * Fo + T * Fo) * es, flops,
+                           F32_OPS_PER_S if dt == torch.float32
+                           else BF16_OPS_PER_S)
+        results.append(dict(case=f"{case} T={T} H={H} F={Fo} {dts} {act}",
+                            abs=abs_e, worst=worst, tol=tol, ms=ms,
+                            plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                            bound_by=by, main=main))
+        del x, wg, wu, got, want
+        torch.cuda.empty_cache()
+    return results
 
 
 # ---- phases 3 and 4: the engine -----------------------------------------
@@ -908,17 +1180,24 @@ def workload(vocab: int, seed: int):
     return reqs
 
 
-def serve(torch, cfg_kw, *, depth, policy, seed, device="cuda"):
-    """Build GPT-2 (full width, ``depth`` layers) from ``seed`` and serve
-    the workload on ``device``; returns (token streams, engine, wall s,
-    decode-only step wall ms, config)."""
+def serve(torch, cfg_kw, *, depth, policy, seed, device="cuda",
+          llama=False):
+    """Build GPT-2 (or with ``llama`` the llama_block model, with
+    ``fused_mlp``) at full width, ``depth`` layers, from ``seed`` and
+    serve the workload on ``device``; returns (token streams, engine,
+    wall s, decode-only step wall ms, config)."""
     from apex1_tpu_torch import (Engine, EngineConfig, GPT2Config,
                                  get_policy, gpt2_decoder,
-                                 gpt2_params_from_jax)
+                                 gpt2_params_from_jax, llama_decoder)
     from apex1_tpu_torch.models.gpt2 import init_params
-    cfg = GPT2Config.gpt2_125m(num_layers=depth, policy=get_policy(policy))
-    model = gpt2_params_from_jax(init_params(cfg, seed), cfg, device)
-    apply_fn, make_cache = gpt2_decoder(model)
+    if llama:
+        cfg, model = make_llama(policy, depth, seed, fused_mlp=True)
+        apply_fn, make_cache = llama_decoder(model)
+    else:
+        cfg = GPT2Config.gpt2_125m(num_layers=depth,
+                                   policy=get_policy(policy))
+        model = gpt2_params_from_jax(init_params(cfg, seed), cfg, device)
+        apply_fn, make_cache = gpt2_decoder(model)
     eng = Engine(apply_fn, make_cache, EngineConfig(**cfg_kw),
                  device=device)
     reqs = workload(cfg.vocab_size, seed)
@@ -1029,6 +1308,32 @@ def profile_train(torch, use_flash: bool, fuse_head: bool = False,
             **kernel_split(torch, prof, steps, wall, top=25)}
 
 
+def profile_llama(torch, fused_mlp: bool, steps: int = 3) -> dict:
+    """``--profile``: where a llama_block O2 training step's time goes
+    (train-llama's configuration, ``fused_mlp`` as given), as
+    `profile_train` measures it."""
+    from torch.profiler import ProfilerActivity, profile
+    _, state, step, batch = make_llama_trainer(torch, "O2", LLAYERS, SEED,
+                                               fused_mlp=fused_mlp)
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        state, _ = step(state, *batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, _ = step(state, *batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps * 1e3
+    out = {"fused_mlp": fused_mlp,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           **kernel_split(torch, prof, steps, wall, top=25)}
+    del state, step, batch, prof
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---- phases 5 to 8: training ---------------------------------------------
 
 
@@ -1106,6 +1411,13 @@ def train(torch, ops, level: str, use_flash=False, packed=False,
                                            use_flash=use_flash,
                                            packed=packed,
                                            fuse_head=fuse_head)
+    return (cfg, *run_steps(torch, ops, state, step, batch, steps))
+
+
+def run_steps(torch, ops, state, step, batch, steps: int):
+    """``steps`` steps from ``state``: per step the loss, grad norm,
+    loss scale, skipped count, host wall (ending in a synchronize) and
+    the kernel launches it made; and the peak device memory (GiB)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rows, prev = [], ops.launch_counts()
@@ -1123,19 +1435,29 @@ def train(torch, ops, level: str, use_flash=False, packed=False,
                                    if now[k] != prev[k]}))
         prev = now
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    return cfg, rows, peak
+    return rows, peak
 
 
 def train_parity(torch, ops, use_flash: bool, fuse_head: bool = False,
-                 depth: int = 2, steps: int = 3):
+                 depth: int = 2, steps: int = 3, make=None):
     """GPT-2 at full width, ``depth`` layers, through the kernels and
     through the plain versions on the card: O0 losses and grad norms
     per step (on the dense batch, and with ``use_flash`` and the
     materialized head also on the packed one: the fused head sees the
     same hidden states either way); O2_fp16 with the loss multiplied by
     inf at step 2 on both sides, with whether step 2 left every param
-    bit for bit as step 1 left it."""
+    bit for bit as step 1 left it. ``make(level, packed, factor) ->
+    (cfg, state, step, batch)`` builds another model's trainer (dense
+    batch only)."""
     import contextlib
+    if make is None:
+        def make(level, packed, factor):
+            return make_trainer(torch, level, depth, SEED + 1, factor=factor,
+                                use_flash=use_flash, packed=packed,
+                                fuse_head=fuse_head)
+        batches = (False, True) if use_flash and not fuse_head else (False,)
+    else:
+        batches = (False,)
     out = {}
     for impl in ("kernel", "torch"):
         ctx = (ops.force_impl("torch") if impl == "torch"
@@ -1143,19 +1465,14 @@ def train_parity(torch, ops, use_flash: bool, fuse_head: bool = False,
         ops.reset_launches()
         with ctx:
             o0 = {}
-            for packed in ((False, True) if use_flash and not fuse_head
-                           else (False,)):
-                _, state, step, batch = make_trainer(
-                    torch, "O0", depth, SEED + 1, use_flash=use_flash,
-                    packed=packed, fuse_head=fuse_head)
+            for packed in batches:
+                _, state, step, batch = make("O0", packed, False)
                 o0["packed" if packed else "dense"] = rows = []
                 for _ in range(steps):
                     state, m = step(state, *batch)
                     rows.append((m["loss"].item(), m["grad_norm"].item()))
                 del state
-            _, state, step, batch = make_trainer(
-                torch, "O2_fp16", depth, SEED + 1, factor=True,
-                use_flash=use_flash, fuse_head=fuse_head)
+            _, state, step, batch = make("O2_fp16", False, True)
             fp16, params = [], []
             for i in range(steps):
                 f = torch.tensor(float("inf") if i == 1 else 1.0,
@@ -1178,35 +1495,54 @@ def train_parity(torch, ops, use_flash: bool, fuse_head: bool = False,
 
 
 def run_train_phase(torch, ops, card, phase, use_flash, packed, levels,
-                    launches, fuse_head=False):
+                    launches, fuse_head=False, fused_mlp=None):
     """Train ``steps`` steps at each (level, steps) of ``levels``; print
     every step and the summary line; add this phase's launches to
-    ``launches``. Returns (results, failure or None)."""
-    per_step = train_launches(12, use_flash, fuse_head)
+    ``launches``. GPT-2 124M, or with ``fused_mlp`` True or False the
+    llama_block model (its fused head, the flash path). Returns
+    (results, failure or None)."""
+    if fused_mlp is None:
+        per_step, n_tok = train_launches(12, use_flash, fuse_head), TB * TS
+    else:
+        per_step, n_tok = llama_launches(LLAYERS, fused_mlp), LB * LS
     results = {}
     for level, steps in levels:
         ops.reset_launches()
-        tcfg, rows, peak = train(torch, ops, level, use_flash=use_flash,
-                                 packed=packed, steps=steps,
-                                 fuse_head=fuse_head)
+        if fused_mlp is None:
+            tcfg, rows, peak = train(torch, ops, level, use_flash=use_flash,
+                                     packed=packed, steps=steps,
+                                     fuse_head=fuse_head)
+            desc = (f"GPT-2 124M {level} use_flash={use_flash} fuse_head="
+                    f"{fuse_head} {'packed ' if packed else ''}B={TB} S={TS} "
+                    f"width {tcfg.hidden_size} layers {tcfg.num_layers} "
+                    f"vocab {tcfg.vocab_size}/{tcfg.padded_vocab}")
+        else:
+            tcfg, state, step, batch = make_llama_trainer(
+                torch, level, LLAYERS, SEED, fused_mlp=fused_mlp,
+                packed=packed)
+            rows, peak = run_steps(torch, ops, state, step, batch, steps)
+            del state, step, batch
+            desc = (f"llama_block {level} fused_mlp={fused_mlp} fuse_head="
+                    f"True remat {'packed ' if packed else ''}B={LB} S={LS} "
+                    f"hidden {tcfg.hidden_size} ffn {tcfg.ffn_size} heads "
+                    f"{tcfg.num_heads}/{tcfg.num_kv_heads} head_dim "
+                    f"{tcfg.head_dim} layers {tcfg.num_layers} vocab "
+                    f"{tcfg.vocab_size}")
         for name, n in ops.launch_counts().items():
             launches[name] = launches.get(name, 0) + n
         walls = sorted(r["wall_ms"] for r in rows[1:])
         med = walls[len(walls) // 2]
         results[level] = dict(steps=rows, peak_gib=peak, step_wall_ms=med,
-                              tokens_per_s=TB * TS / med * 1e3)
+                              tokens_per_s=n_tok / med * 1e3)
         for r in rows:
             print(f"phase {phase}: {level} step {r['step']} loss "
                   f"{r['loss']:.6f} grad_norm {r['grad_norm']:.4f} "
                   f"loss_scale {r['loss_scale']:g} skipped_steps "
                   f"{r['skipped']} wall {r['wall_ms']:.1f} ms launches "
                   f"{r['launches']} [{card}]")
-        print(f"phase {phase}: GPT-2 124M {level} use_flash={use_flash} "
-              f"fuse_head={fuse_head} {'packed ' if packed else ''}B={TB} "
-              f"S={TS} width {tcfg.hidden_size} layers {tcfg.num_layers} "
-              f"vocab {tcfg.vocab_size}/{tcfg.padded_vocab}; step wall "
+        print(f"phase {phase}: {desc}; step wall "
               f"{med:.2f} ms (median of steps 2-{len(rows)}), "
-              f"{TB * TS / med * 1e3:.0f} tokens/s, peak memory "
+              f"{n_tok / med * 1e3:.0f} tokens/s, peak memory "
               f"{peak:.2f} GiB [{card}]")
         losses = [r["loss"] for r in rows]
         if not all(math.isfinite(v) for v in losses):
@@ -1222,10 +1558,12 @@ def run_train_phase(torch, ops, card, phase, use_flash, packed, levels,
     return results, None
 
 
-def check_train_parity(par, card, label, use_flash, fuse_head=False):
+def check_train_parity(par, card, label, use_flash, fuse_head=False,
+                       kernels=None, phase="train-parity"):
     """Print train-parity's results; the failure, or None. The kernel
     side must have launched its attention path's and head's kernels
-    and not the other paths'; the plain side no kernel."""
+    and not the other paths'; the plain side no kernel. ``kernels``:
+    another model's (launched, not launched) kernel names."""
     k, p = par["kernel"], par["torch"]
     attn, other = ((("flash_fwd", "flash_dq", "flash_dkv"),
                     ("softmax_fwd", "softmax_bwd")) if use_flash else
@@ -1233,31 +1571,33 @@ def check_train_parity(par, card, label, use_flash, fuse_head=False):
                     ("flash_fwd", "flash_dq", "flash_dkv")))
     attn = attn + HEAD_KERNELS[fuse_head]
     other = other + HEAD_KERNELS[not fuse_head]
-    print(f"phase train-parity: {label} launches, kernels {k['launches']} "
+    if kernels is not None:
+        attn, other = kernels
+    print(f"phase {phase}: {label} launches, kernels {k['launches']} "
           f"plain {p['launches']} [{card}]")
     if (p["launches"] or not all(k["launches"].get(n) for n in attn)
             or any(n in k["launches"] for n in other)):
-        return (f"train-parity {label}: launches kernels {k['launches']} "
+        return (f"{phase} {label}: launches kernels {k['launches']} "
                 f"plain {p['launches']}")
     for batch in k["o0"]:
-        print(f"phase train-parity: {label} O0 depth 2 {batch} batch "
+        print(f"phase {phase}: {label} O0 depth 2 {batch} batch "
               f"(loss, grad_norm) per step kernels {k['o0'][batch]} plain "
               f"{p['o0'][batch]} [{card}]")
         for (kl, kg), (pl, pg) in zip(k["o0"][batch], p["o0"][batch]):
             if (abs(kl - pl) > 1e-5 * abs(pl)
                     or abs(kg - pg) > 1e-4 * abs(pg)):
-                return (f"train-parity {label} O0 {batch}: kernels "
+                return (f"{phase} {label} O0 {batch}: kernels "
                         f"{k['o0'][batch]} vs plain {p['o0'][batch]}")
     for side in ("kernel", "torch"):
         f = par[side]["fp16"]
-        print(f"phase train-parity: {label} O2_fp16 inf at step 2, {side}: "
+        print(f"phase {phase}: {label} O2_fp16 inf at step 2, {side}: "
               f"{f}, step-2 params kept bit for bit "
               f"{par[side]['step2_params_kept']} [{card}]")
         if ([r["finite"] for r in f] != [True, False, True]
                 or f[1]["skipped"] != 1 or f[-1]["skipped"] != 1
                 or f[1]["scale_after"] != f[1]["scale_used"] / 2
                 or not par[side]["step2_params_kept"]):
-            return (f"train-parity {label} O2_fp16 ({side}): the forced "
+            return (f"{phase} {label} O2_fp16 ({side}): the forced "
                     f"overflow did not skip step 2 cleanly: {f}")
     return None
 
@@ -1389,6 +1729,218 @@ def run_dpo(torch, ops, card, launches, steps: int = 3):
     return results, None
 
 
+# ---- the Llama slice: the JAX bench's llama_block ----------------------------
+
+#: serve-llama's engine: ENGINE_KW at the bench's vocab
+LLAMA_ENGINE_KW = dict(ENGINE_KW, vocab_size=LV)
+#: generate-llama: new tokens a prompt
+LLAMA_GEN_NEW = 32
+#: train-llama-parity: depth, sequence length (full width) and learning
+#: rate. At the bench's lr 1e-4 the depth-2 model memorizes its one
+#: batch in two steps (O0 loss 11.20 -> 2.25 -> 0.0095 on an H100):
+#: step 3's loss
+#: is then a difference of two logits about 1e3 times its size, and its
+#: 1e-5 comparison reads their rounding, not the kernels
+LPAR_DEPTH, LPAR_S, LPAR_LR = 2, 1024, 1e-5
+#: the kernels of every Llama training step, besides its head's and glu
+LLAMA_KERNELS = ("layer_norm_fwd", "layer_norm_bwd", "rope", "flash_fwd",
+                 "flash_dq", "flash_dkv")
+
+
+def make_llama(policy: str, depth: int, seed: int, fused_mlp=False):
+    """The llama_block model (Llama-3 8B widths, the bench's vocab 32000,
+    remat under ``nothing_saveable``), ``depth`` layers at ``policy``,
+    its weights drawn on the card from ``seed`` (`init_weights`:
+    normal(0.02), norm scales 1). Returns (cfg, model)."""
+    from apex1_tpu_torch import Llama, LlamaConfig, get_policy
+    from apex1_tpu_torch.models.llama import init_weights
+    cfg = LlamaConfig(vocab_size=LV, max_seq_len=LS, num_layers=depth,
+                      num_heads=LHEADS, num_kv_heads=LKV, hidden_size=LH,
+                      ffn_size=LFFN, remat=True, fused_mlp=fused_mlp,
+                      policy=get_policy(policy))
+    return cfg, init_weights(Llama(cfg, device="cuda"), seed)
+
+
+def llama_batch(torch, S: int, packed: bool):
+    """The B x S batch on the card: the tokens of
+    ``np.random.default_rng(0)``; or with ``packed`` (tokens,
+    segment_ids, positions), the first B rows `pack_documents` packs
+    from documents of 64-2048 tokens drawn from
+    ``np.random.default_rng(1)``, positions restarting per document."""
+    import numpy as np
+    from apex1_tpu_torch.runtime import pack_documents
+    if not packed:
+        return (torch.from_numpy(np.random.default_rng(0).integers(
+            0, LV, (LB, S))).cuda(),)
+    rng = np.random.default_rng(1)
+    docs = []
+    while sum(map(len, docs)) < 2 * LB * S:
+        docs.append(rng.integers(0, LV, int(rng.integers(64, 2049))))
+    return tuple(torch.from_numpy(a[:LB]).cuda()
+                 for a in pack_documents(docs, S))
+
+
+def make_llama_trainer(torch, level: str, depth: int, seed: int, *,
+                       fused_mlp=False, fuse_head=True, packed=False,
+                       factor=False, S: int = LS, lr: float = 1e-4):
+    """`make_llama` under ``Amp(fused_adam(lr, weight_decay=0.01),
+    opt_level=level)`` (the bench's optimizer at lr 1e-4), its loss
+    ``llama_loss_fn(fuse_head=...)`` and its `llama_batch`. With
+    ``factor`` the step takes a factor before the batch that multiplies
+    the loss (inf forces an overflow)."""
+    from apex1_tpu_torch import Amp, fused_adam, llama_loss_fn
+    cfg, model = make_llama(level, depth, seed, fused_mlp)
+    amp = Amp(fused_adam(lr, weight_decay=0.01), opt_level=level)
+    state = amp.init(dict(model.named_parameters()))
+    base = llama_loss_fn(model, fuse_head=fuse_head)
+    loss_fn = (lambda p, f, *b: base(p, *b) * f) if factor else base
+    return (cfg, state, amp.make_train_step(loss_fn),
+            llama_batch(torch, S, packed))
+
+
+def llama_launches(num_layers: int, fused_mlp: bool,
+                   fuse_head: bool = True) -> dict:
+    """Kernel launches per Llama training step under remat. Each block's
+    forward runs twice (the step's, and its recompute in the backward):
+    two RMS norms, q and k rotated, the flash forward and, with
+    ``fused_mlp``, the glu. The backward runs once a block: two norms,
+    q and k rotated by -θ, flash dq and dk/dv. The final norm and the
+    head run once."""
+    L = num_layers
+    out = {"layer_norm_fwd": 4 * L + 1, "layer_norm_bwd": 2 * L + 1,
+           "rope": 6 * L, "flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L,
+           **{name: 1 for name in HEAD_KERNELS[fuse_head]}}
+    if fused_mlp:
+        out["glu_fwd"] = 2 * L
+    return out
+
+
+def run_llama_parity(torch, ops, card):
+    """train-llama-parity: depth 2, full width, B x 1024 tokens, lr
+    1e-5, through the kernels and the plain versions (`train_parity`),
+    for (fused_mlp,
+    fuse_head) = (False, True), (True, True), (False, False); then the
+    fused head's step-1 O0 loss against the materialized head's on the
+    same weights. Returns (results, failure or None)."""
+    par = {}
+    for fused_mlp, fuse in ((False, True), (True, True), (False, False)):
+        label = f"fused_mlp={fused_mlp} fuse_head={fuse}"
+
+        def make(level, packed, factor, fused_mlp=fused_mlp, fuse=fuse):
+            return make_llama_trainer(torch, level, LPAR_DEPTH, SEED + 1,
+                                      fused_mlp=fused_mlp, fuse_head=fuse,
+                                      factor=factor, S=LPAR_S, lr=LPAR_LR)
+
+        par[label] = train_parity(torch, ops, True, fuse, make=make)
+        need = LLAMA_KERNELS + HEAD_KERNELS[fuse] + (
+            ("glu_fwd",) if fused_mlp else ())
+        other = (("softmax_fwd", "softmax_bwd") + HEAD_KERNELS[not fuse]
+                 + (() if fused_mlp else ("glu_fwd",)))
+        err = check_train_parity(par[label], card, label, True, fuse,
+                                 kernels=(need, other),
+                                 phase="train-llama-parity")
+        if err:
+            return par, err
+    lf = par["fused_mlp=False fuse_head=True"]["kernel"]["o0"]["dense"][0][0]
+    lm = par["fused_mlp=False fuse_head=False"]["kernel"]["o0"]["dense"][0][0]
+    print(f"phase train-llama-parity: O0 depth {LPAR_DEPTH} step-1 loss on "
+          f"the same weights, fuse_head=True {lf:.7f} vs fuse_head=False "
+          f"{lm:.7f}, relative difference {abs(lf - lm) / abs(lm):.2e} "
+          f"[{card}]")
+    if abs(lf - lm) > 1e-5 * abs(lm):
+        return par, (f"train-llama-parity: the fused head's loss {lf} is "
+                     f"not the materialized head's {lm}")
+    return par, None
+
+
+def run_serve_llama(torch, ops, card, launches):
+    """serve-llama: llama_block (3 layers, ``fused_mlp``) at O2 through
+    the paged engine (`LLAMA_ENGINE_KW`, the GPT-2 engine's workload),
+    then one greedy `generate` through `llama_decoder` (8 ragged
+    prompts, 32 new tokens); serve-llama-parity: the engine at O0, depth
+    2, through the kernels and the plain versions. Adds the main runs'
+    launches to ``launches``. Returns (results, failure or None)."""
+    ops.reset_launches()
+    streams, eng, wall, step_ms, cfg = serve(
+        torch, LLAMA_ENGINE_KW, depth=LLAYERS, policy="O2", seed=SEED,
+        llama=True)
+    got = ops.launch_counts()
+    for name, n in got.items():
+        launches[name] = launches.get(name, 0) + n
+    summ = eng.metrics.summary()
+    n_fwd = (eng.metrics.get_counter("prefill_chunks")
+             + eng.metrics.get_counter("decode_steps"))
+    L = cfg.num_layers
+    expect = {name: 0 for name in got}
+    expect.update({"layer_norm_fwd": n_fwd * (2 * L + 1),
+                   "rope": n_fwd * 2 * L, "paged_attend": n_fwd * L,
+                   "glu_fwd": n_fwd * L, "fused_sample": n_fwd})
+    n_tok = sum(len(s) for s in streams)
+    statuses = {r.status for r in eng.results.values()}
+    out = dict(wall_s=wall, tokens=n_tok, step_ms=step_ms, summary=summ)
+    print(f"phase serve-llama: llama_block O2 fused_mlp=True hidden "
+          f"{cfg.hidden_size} heads {cfg.num_heads}/{cfg.num_kv_heads} "
+          f"layers {L} vocab {cfg.vocab_size}; {len(streams)} requests, "
+          f"{n_tok} tokens generated, wall {wall:.2f} s, "
+          f"{n_tok / wall:.1f} tok/s, mean decode-step wall "
+          f"{sum(step_ms) / len(step_ms):.2f} ms over {len(step_ms)} steps, "
+          f"prefill chunks {eng.metrics.get_counter('prefill_chunks')}, "
+          f"decode steps {eng.metrics.get_counter('decode_steps')}, "
+          f"prefix hit rate {summ.get('prefix_hit_rate', 0):.3f}, "
+          f"ttft p50 {summ.get('ttft_p50_ms', 0):.1f} ms [{card}]")
+    print(f"phase serve-llama: launches {got} expected {expect} [{card}]")
+    if statuses != {"done"} or any(len(s) != 64 for s in streams):
+        return out, (f"serve-llama: statuses {statuses}, lengths "
+                     f"{sorted({len(s) for s in streams})}")
+    if got != expect:
+        return out, f"serve-llama: launches {got}, expected {expect}"
+    if any(min(s) < 0 or max(s) >= cfg.vocab_size for s in streams):
+        return out, "serve-llama: a token outside the vocabulary"
+    del eng
+    torch.cuda.empty_cache()
+
+    run, gcfg = make_generator(torch, LLAYERS, "O2", SEED, llama=True,
+                               new_tokens=LLAMA_GEN_NEW)
+    ops.reset_launches()
+    toks, gwall = run(0.0)
+    counts = ops.launch_counts()
+    for name, n in counts.items():
+        launches[name] += n
+    out["generate"] = dict(wall_s=gwall, tokens_per_s=toks.size / gwall,
+                           launches=counts)
+    print(f"phase serve-llama: generate via llama_decoder, O2 greedy, "
+          f"{GEN_ROWS} prompts of 32-{GEN_WIDTH} tokens, {LLAMA_GEN_NEW} "
+          f"new tokens each, cache {GEN_SLOTS} slots; wall {gwall:.2f} s, "
+          f"{toks.size / gwall:.1f} tok/s, launches "
+          f"{ {k: v for k, v in counts.items() if v} } [{card}]")
+    del run
+    torch.cuda.empty_cache()
+    if counts["flash_fwd"] != gcfg.num_layers:
+        return out, (f"serve-llama: the generate prefill launched flash_fwd "
+                     f"{counts['flash_fwd']} times, expected "
+                     f"{gcfg.num_layers}")
+    if toks.shape != (GEN_ROWS, LLAMA_GEN_NEW) or toks.min() < 0 \
+            or toks.max() >= gcfg.vocab_size:
+        return out, f"serve-llama: generate gave {toks.shape} or a token " \
+                    f"outside the vocabulary"
+
+    kern, _, kwall, _, _ = serve(torch, LLAMA_ENGINE_KW, depth=LPAR_DEPTH,
+                                 policy="O0", seed=SEED + 1, llama=True)
+    with ops.force_impl("torch"):
+        plain, _, pwall, _, _ = serve(torch, LLAMA_ENGINE_KW,
+                                      depth=LPAR_DEPTH, policy="O0",
+                                      seed=SEED + 1, llama=True)
+    diff = sum(a != b for a, b in zip(kern, plain))
+    out["parity"] = dict(kernel_wall_s=kwall, plain_wall_s=pwall, differ=diff)
+    print(f"phase serve-llama-parity: O0 depth {LPAR_DEPTH}, {len(kern)} "
+          f"requests, kernel wall {kwall:.2f} s, plain wall {pwall:.2f} s, "
+          f"streams differing {diff} [{card}]")
+    if diff:
+        return out, (f"serve-llama-parity: {diff} token streams differ "
+                     f"between the kernels and the plain versions")
+    return out, None
+
+
 # ---- phases 9 and 10: generate ---------------------------------------------
 
 #: generate's workload: 8 prompts of 32-512 tokens right-padded to 512,
@@ -1396,19 +1948,26 @@ def run_dpo(torch, ops, card, launches, steps: int = 3):
 GEN_ROWS, GEN_WIDTH, GEN_NEW, GEN_SLOTS = 8, 512, 64, 1024
 
 
-def make_generator(torch, depth: int, policy: str, seed: int):
-    """GPT-2 (full width, ``depth`` layers) from ``seed`` and its ragged
-    prompts (lengths 32-512 from ``np.random.default_rng(2)``); returns
-    ``run(temperature, record=None) -> (tokens (8, 64) numpy, wall s)``.
-    ``record`` collects each step's last-position logits."""
+def make_generator(torch, depth: int, policy: str, seed: int,
+                   llama: bool = False, new_tokens: int = GEN_NEW):
+    """GPT-2 (or with ``llama`` the llama_block model, ``fused_mlp``) at
+    full width, ``depth`` layers, from ``seed`` and its ragged prompts
+    (lengths 32-512 from ``np.random.default_rng(2)``); returns
+    ``run(temperature, record=None) -> (tokens (8, new_tokens) numpy,
+    wall s)``. ``record`` collects each step's last-position logits."""
     import numpy as np
     from apex1_tpu_torch import (GPT2Config, get_policy, gpt2_decoder,
-                                 gpt2_params_from_jax)
+                                 gpt2_params_from_jax, llama_decoder)
     from apex1_tpu_torch.models.generate import generate
     from apex1_tpu_torch.models.gpt2 import init_params
-    cfg = GPT2Config.gpt2_125m(num_layers=depth, policy=get_policy(policy))
-    model = gpt2_params_from_jax(init_params(cfg, seed), cfg, "cuda")
-    apply_fn, make_cache = gpt2_decoder(model)
+    if llama:
+        cfg, model = make_llama(policy, depth, seed, fused_mlp=True)
+        apply_fn, make_cache = llama_decoder(model)
+    else:
+        cfg = GPT2Config.gpt2_125m(num_layers=depth,
+                                   policy=get_policy(policy))
+        model = gpt2_params_from_jax(init_params(cfg, seed), cfg, "cuda")
+        apply_fn, make_cache = gpt2_decoder(model)
     rng = np.random.default_rng(2)
     lens = rng.integers(32, GEN_WIDTH + 1, GEN_ROWS)
     toks = np.zeros((GEN_ROWS, GEN_WIDTH), np.int64)
@@ -1427,7 +1986,7 @@ def make_generator(torch, depth: int, policy: str, seed: int):
         cache = make_cache(GEN_ROWS, GEN_SLOTS)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = generate(fn, prompts, max_new_tokens=GEN_NEW, cache=cache,
+        out = generate(fn, prompts, max_new_tokens=new_tokens, cache=cache,
                        temperature=temperature, vocab_size=cfg.vocab_size,
                        prompt_lens=plens)
         torch.cuda.synchronize()
@@ -1503,7 +2062,9 @@ def main() -> int:
                 "train": profile_train(torch, use_flash=False),
                 "train_flash": profile_train(torch, use_flash=True),
                 "train_fused_head": profile_train(torch, use_flash=True,
-                                                  fuse_head=True)}
+                                                  fuse_head=True),
+            "llama_block": profile_llama(torch, fused_mlp=False),
+            "llama_block_fused_mlp": profile_llama(torch, fused_mlp=True)}
         os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
         with open(os.path.join(HERE, "chiprun_out", "profile.json"),
                   "w") as f:
@@ -1523,7 +2084,9 @@ def main() -> int:
             (("softmax_fwd", "softmax_bwd"), check_softmax, cgen),
             (("xent_fwd", "xent_bwd"), check_xent, cgen),
             (("flash_fwd", "flash_dq", "flash_dkv"), check_flash, cgen),
-            (("lxent_fwd", "lxent_dx", "lxent_dw"), check_lxent, cgen)):
+            (("lxent_fwd", "lxent_dx", "lxent_dw"), check_lxent, cgen),
+            (("rope",), check_rope, cgen),
+            (("glu_fwd",), check_glu, cgen)):
         t0 = time.perf_counter()
         out = fn(torch, ops, g)
         checks.update(zip(names, out if len(names) > 1 else (out,)))
@@ -1540,14 +2103,20 @@ def main() -> int:
             ok = r["worst"] <= 1 if r["tol"] else r["abs"] == 0
             ok = ok and r.get("same_bits", True)
             ok = ok and r.get("packed_equal", True)
+            ok = ok and r.get("equal_bits", True)
             lib, plain = ("-" if r[k] is None else f"{r[k]:.4f}"
                           for k in ("library_ms", "plain_ms"))
-            tol = (f"rtol={r['tol'][0]:g} atol={r['tol'][1]:g}*rms"
+            tol = (r["rule"] if "rule" in r else
+                   f"rtol={r['tol'][0]:g} atol={r['tol'][1]:g}*rms"
                    if r["tol"] else "ids exact")
             bits = ("" if "same_bits" not in r
                     else f" same bits twice {r['same_bits']}")
             if "packed_equal" in r:
                 bits += f" packed == four {r['packed_equal']}"
+            if "equal_bits" in r:
+                bits += f" equal bits {r['equal_bits']}"
+            if "both_ms" in r:
+                bits += f" dx+dW together ms={r['both_ms']:.4f}"
             if "one_ulp" in r:
                 bits += " worst/one-ulp allowance " + ", ".join(
                     f"{k} {v:.3g}" for k, v in r["one_ulp"].items())
@@ -1723,11 +2292,47 @@ def main() -> int:
     del run
 
     stamp("generate-parity")
+
+    # 12. train-llama: llama_block at full width, B x S tokens, remat
+    llama_out = {}
+    for phase, fused_mlp, packed, levels in (
+            ("train-llama", False, False, (("O2", 6), ("O2_fp16", 3))),
+            ("train-llama-fused-mlp", True, False, (("O2", 3),)),
+            ("train-llama-packed", False, True, (("O2", 3),))):
+        llama_out[phase], err = run_train_phase(
+            torch, ops, card, phase, True, packed, levels, main_launches,
+            fuse_head=True, fused_mlp=fused_mlp)
+        if err:
+            return fail(err)
+    f, m = llama_out["train-llama-fused-mlp"]["O2"], \
+        llama_out["train-llama"]["O2"]
+    print(f"phase train-llama: O2 fused_mlp=True vs False: step wall "
+          f"{f['step_wall_ms']:.2f} vs {m['step_wall_ms']:.2f} ms, "
+          f"{f['tokens_per_s']:.0f} vs {m['tokens_per_s']:.0f} tokens/s, "
+          f"peak memory {f['peak_gib']:.2f} vs {m['peak_gib']:.2f} GiB "
+          f"[{card}]")
+
+    stamp("train-llama")
+
+    # 13. train-llama-parity: kernels against the plain versions, depth 2
+    llama_out["parity"], err = run_llama_parity(torch, ops, card)
+    if err:
+        return fail(err)
+
+    stamp("train-llama-parity")
+
+    # 14. serve-llama, generate through llama_decoder, serve-llama-parity
+    llama_out["serve"], err = run_serve_llama(torch, ops, card, main_launches)
+    if err:
+        return fail(err)
+
+    stamp("serve-llama")
     print(f"phase times: { {k: round(v, 1) for k, v in phase_s.items()} } "
           f"s wall [{card}]")
 
-    # 12. the kernels line, the card, the last line. launches: the main
-    # paths' runs (engine, the train phases, dpo, generate)
+    # 15. the kernels line, the card, the last line. launches: the main
+    # paths' runs (engine, the train phases, dpo, generate, train-llama,
+    # serve-llama and its generate)
     sources = {"layer_norm_fwd": ("apex1_tpu_torch/csrc/layer_norm.cu",
                                   "apex1_tpu/ops/layer_norm.py:110"),
                "paged_attend": ("apex1_tpu_torch/csrc/paged_attend.cu",
@@ -1756,7 +2361,11 @@ def main() -> int:
                "lxent_dx": ("apex1_tpu_torch/csrc/linear_xent.cu",
                             "apex1_tpu/ops/linear_xent.py:345"),
                "lxent_dw": ("apex1_tpu_torch/csrc/linear_xent.cu",
-                            "apex1_tpu/ops/linear_xent.py:357")}
+                            "apex1_tpu/ops/linear_xent.py:357"),
+               "rope": ("apex1_tpu_torch/csrc/rope.cu",
+                        "apex1_tpu/ops/rope.py:51"),
+               "glu_fwd": ("apex1_tpu_torch/csrc/glu.cu",
+                           "apex1_tpu/ops/fused_dense.py:201")}
     kernels = []
     for name, rows in checks.items():
         main_row = next(r for r in rows if r["main"])
@@ -1775,7 +2384,7 @@ def main() -> int:
                    "engine": {"wall_s": wall, "tokens": n_tok,
                               "step_ms": step_ms, "summary": summ},
                    "train": train_out, "train_parity": par,
-                   "dpo": dpo_out, "generate": gen_out,
+                   "dpo": dpo_out, "generate": gen_out, "llama": llama_out,
                    "phase_s": phase_s},
                   f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))

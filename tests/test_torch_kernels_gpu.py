@@ -23,7 +23,11 @@ same bits on a second run (no atomics). The linear-xent kernels
 (forward modes 0-2, dx, dW) the same way, ragged T, V and H, a
 col_offset shard with smoothing and padding_idx: the plain versions
 round G to the operand type as the kernels do; mode 2 equals mode 1
-bit for bit and dx, dW give the same bits on a second run.
+bit for bit and dx, dW give the same bits on a second run; past H =
+768 (the wide path) also in vocab chunks, dx and dW formed together
+equal to each alone. RoPE exactly (both sides round the same fp32
+operations once each). The fused GLU per element as the training
+kernels (fp32 products either way, in another order).
 """
 
 import numpy as np
@@ -333,6 +337,8 @@ _LXENT = {
     "ragged": (200, 333, 96, 320, 0, 0.0, None),
     "shard_smooth_pad": (77, 130, 768, 317, 200, 0.1, 3),
     "h40_scalar_loads": (64, 256, 40, 256, 0, 0.0, None),
+    "wide_ragged": (200, 333, 1000, 320, 0, 0.0, None),
+    "wide_shard_smooth_pad": (77, 530, 1032, 900, 200, 0.1, 3),
 }
 
 
@@ -340,7 +346,10 @@ def _lxent_inputs(name, dt, cuda):
     T, V, H, K, off, eps, pad = _LXENT[name]
     rng = np.random.default_rng(13)
     x = torch.from_numpy(rng.standard_normal((T, H)) * 0.5).to(cuda, dt)
-    w = torch.from_numpy(rng.standard_normal((V, H)) * 0.5).to(cuda, dt)
+    # past H = 768, W shrinks so that the logits keep the H = 96 case's
+    # spread (fp32 logits of a wider spread carry more rounding into G)
+    w = torch.from_numpy(rng.standard_normal((V, H)) * 0.5
+                         * ((96 / H) ** 0.5 if H > 768 else 1.0)).to(cuda, dt)
     # half the labels inside the shard's columns, the rest anywhere
     labels = rng.integers(0, K, T)
     labels[::2] = rng.integers(off, min(off + V, K), T)[::2]
@@ -354,12 +363,17 @@ def _lxent_inputs(name, dt, cuda):
 
 @pytest.mark.parametrize("name", list(_LXENT))
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
-def test_linear_xent_kernels_match_plain(cuda, dtype, name):
+def test_linear_xent_kernels_match_plain(cuda, dtype, name, monkeypatch):
     """The forward (modes 0 and 1; mode 2 bit for bit mode 1), dx and dW
     each against its plain version on the same inputs (the backward
     from the plain forward's lse); dx and dW give the same bits on a
-    second run (no atomics)."""
-    from apex1_tpu_torch.ops.linear_xent import lxent_dw, lxent_dx, lxent_fwd
+    second run (no atomics). The wide cases (H > 768) run the backward
+    in vocab chunks of 128 rows; dx and dW formed together (one G a
+    chunk) equal each formed alone."""
+    from apex1_tpu_torch.ops import linear_xent
+    from apex1_tpu_torch.ops.linear_xent import (lxent_dw, lxent_dx,
+                                                 lxent_fwd, lxent_grads)
+    monkeypatch.setattr(linear_xent, "WIDE_CHUNK", 128)
     dt = getattr(torch, dtype)
     x, w, t, dloss, kw = _lxent_inputs(name, dt, cuda)
     (loss, lse), (wloss, wlse) = _both(lambda: lxent_fwd(x, w, t, **kw))
@@ -380,6 +394,8 @@ def test_linear_xent_kernels_match_plain(cuda, dtype, name):
     _close(dw, wdw, dt)
     assert torch.equal(lxent_dx(x, w, t, wlse, dloss, **kw), dx)
     assert torch.equal(lxent_dw(x, w, t, wlse, dloss, **kw), dw)
+    both = lxent_grads(x, w, t, wlse, dloss, **kw)
+    assert torch.equal(both[0], dx) and torch.equal(both[1], dw)
 
 
 def test_chunked_logprob_kernels_match_plain(cuda):
@@ -425,7 +441,90 @@ def test_linear_cross_entropy_autograd_launches_the_kernels(cuda):
     linear_cross_entropy(x, w, t, num_classes=290).sum().backward()
     assert {n: KERNEL_WRAPPERS[n].launches - before[n] for n in names} == \
         {n: 1 for n in names}
-    with pytest.raises(ValueError, match="hidden size"):
-        z = torch.zeros(8, 800, device=cuda)
-        linear_cross_entropy(z, torch.zeros(16, 800, device=cuda),
-                             torch.zeros(8, dtype=torch.int64, device=cuda))
+    # a head wider than 768 takes the wide path: one launch each too
+    before = {n: KERNEL_WRAPPERS[n].launches for n in names}
+    z = torch.randn(8, 800, device=cuda, requires_grad=True)
+    wz = torch.randn(16, 800, device=cuda, requires_grad=True)
+    linear_cross_entropy(z, wz, torch.zeros(8, dtype=torch.int64,
+                                            device=cuda)).sum().backward()
+    assert {n: KERNEL_WRAPPERS[n].launches - before[n] for n in names} == \
+        {n: 1 for n in names}
+
+
+# ---- the Llama slice's kernels ---------------------------------------------
+
+#: name -> (x shape, per-row tables, interleaved)
+_ROPE = {
+    "q": ((2, 40, 4, 128), False, False),
+    "per_row_interleaved": ((2, 40, 4, 128), True, True),
+    "odd_half_scalar": ((3, 17, 2, 10), False, False),
+    "decode_step": ((5, 1, 8, 128), True, False),
+}
+
+
+@pytest.mark.parametrize("name", list(_ROPE))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_rope_kernel_bitwise_plain(cuda, dtype, name):
+    """The forward and the backward (the rotation by -θ, through
+    autograd) equal the plain version bit for bit; one launch each way."""
+    from apex1_tpu_torch.ops.rope import apply_rotary_pos_emb, rope_tables
+    from apex1_tpu_torch.ops.rope import rotate
+    shape, per_row, inter = _ROPE[name]
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(15)
+    B, S, _, D = shape
+    x = torch.from_numpy(rng.standard_normal(shape)).to(cuda, dt)
+    dy = torch.from_numpy(rng.standard_normal(shape)).to(cuda, dt)
+    pos = torch.from_numpy(rng.integers(0, 5000, B * S if per_row else S))
+    cos, sin = rope_tables(pos.to(cuda), D, base=500000.0)
+    if per_row:
+        cos, sin = cos.reshape(B, S, -1), sin.reshape(B, S, -1)
+
+    def run():
+        xr = x.clone().requires_grad_()
+        out = apply_rotary_pos_emb(xr, cos, sin, interleaved=inter)
+        return (out, *torch.autograd.grad(out, xr, dy))
+
+    before = rotate.launches
+    got, want = _both(run)
+    assert rotate.launches == before + 2
+    for a, b in zip(got, want):
+        assert a.dtype == dt
+        assert torch.equal(a, b)
+
+
+#: name -> (T, H, F, activation)
+_GLU = {
+    "swiglu": (256, 512, 384, "silu"),
+    "geglu": (256, 512, 384, "gelu"),
+    "ragged": (100, 200, 136, "silu"),
+    "odd_scalar_loads": (37, 65, 131, "gelu"),
+}
+
+
+@pytest.mark.parametrize("name", list(_GLU))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_glu_kernel_matches_plain(cuda, dtype, name):
+    """``glu_fwd`` against its plain version (fp32 products, the
+    epilogue in fp32, one rounding); `fused_glu`'s grads are the plain
+    recompute backward's on either side; one launch a forward."""
+    from apex1_tpu_torch.ops.fused_dense import fused_glu, glu_fwd
+    T, H, F, act = _GLU[name]
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(16)
+    x = torch.from_numpy(rng.standard_normal((T, H))).to(cuda, dt)
+    wg, wu = (torch.from_numpy(rng.standard_normal((H, F)) / np.sqrt(H))
+              .to(cuda, dt) for _ in range(2))
+    before = glu_fwd.launches
+    got, want = _both(lambda: glu_fwd(x, wg, wu, act))
+    assert glu_fwd.launches == before + 1
+    assert got.dtype == dt and got.shape == (T, F)
+    _close(got, want, dt)
+    dy = torch.from_numpy(rng.standard_normal((T, F))).to(cuda, dt)
+
+    def grads():
+        ins = [t.clone().requires_grad_() for t in (x, wg, wu)]
+        return torch.autograd.grad(fused_glu(*ins, activation=act), ins, dy)
+
+    for a, b in zip(*_both(grads)):
+        assert torch.equal(a, b)

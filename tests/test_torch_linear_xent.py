@@ -95,6 +95,20 @@ def test_padding_idx_num_classes_and_leading_dims_match_jax(impl):
         np.testing.assert_allclose(g, wv, err_msg=name, **FP32_TOL)
 
 
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+def test_wide_head_matches_jax(impl):
+    """H = 1024 > MAX_H: the head width the CUDA kernels' wide path
+    takes (the plain versions are the same at any H)."""
+    assert 1024 > lx.MAX_H
+    x, w, labels, ct = _inputs(4, t=16, h=1024, v=203)
+    kw = dict(smoothing=0.1, num_classes=200)
+    labels = np.minimum(labels, 199)
+    want = _jax_vjp(x, w, labels, ct, impl, **kw)
+    got = _port_vjp(x, w, labels, ct, **kw)
+    for g, wv, name in zip(got, want, ("loss", "dx", "dw")):
+        np.testing.assert_allclose(g, wv, err_msg=name, **FP32_TOL)
+
+
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
 def test_half_inputs_match_jax_kernels(dtype):
     x, w, labels, ct = _inputs(2, lead=(2, 12))
