@@ -14,8 +14,14 @@ numpy arrays: this module imports no JAX.
   `Llama`, whose port names are the flax paths joined by dots
   (``layer{i}/wq`` -> ``layer{i}.wq``) and whose projections keep the
   flax (in, out) layout: a copy, no transpose;
+- `bert_params_from_jax` / `bert_params_to_numpy`: the same for a
+  `BertPretrain` (a tree with ``bert``) or a `Bert`, whose port names
+  are the flax paths joined by dots with each Dense's ``kernel`` a
+  transposed ``weight`` (``bert/layer0/qkv/kernel`` ->
+  ``bert.layer0.qkv.weight``);
 - `named_from_flax` / `flax_from_named`: one flax-layout tree (params,
-  grads, Adam moments) of either model to the port's dict and back;
+  grads, Adam moments) of any of these models to the port's dict and
+  back;
 - `amp_state_from_jax` / `amp_state_to_numpy`: the whole amp training
   state (params, fused-Adam m/v/step, loss-scale state).
 """
@@ -29,6 +35,7 @@ import torch
 
 from apex1_tpu_torch.amp import AmpState
 from apex1_tpu_torch.core.loss_scale import LossScaleState
+from apex1_tpu_torch.models.bert import Bert, BertConfig, BertPretrain
 from apex1_tpu_torch.models.gpt2 import GPT2, GPT2Config
 from apex1_tpu_torch.models.llama import Llama, LlamaConfig
 from apex1_tpu_torch.ops._common import resolve_device
@@ -44,8 +51,43 @@ def _is_llama(tree) -> bool:
     return "tok_embeddings" in tree
 
 
+def _is_bert(tree) -> bool:
+    return any(k == "bert" or k.startswith("bert.") or k == "word_embeddings"
+               for k in tree)
+
+
+def _bert_named(tree, prefix="") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping) and "kernel" in v:
+            out[f"{prefix}{k}.weight"] = np.asarray(v["kernel"]).T
+            out[f"{prefix}{k}.bias"] = np.asarray(v["bias"])
+        elif isinstance(v, Mapping):
+            out.update(_bert_named(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def _bert_flax(named: dict, np_) -> dict:
+    out: dict = {}
+    for name, t in named.items():
+        *path, leaf = name.split(".")
+        node = out
+        for part in path:
+            node = node.setdefault(part, {})
+        if leaf == "weight":
+            node["kernel"] = np_(t).T.copy()
+        else:
+            node[leaf] = np_(t)
+    return out
+
+
 def named_from_flax(tree) -> dict:
-    """Flax-layout GPT-2 or Llama tree -> ``{port name: numpy array}``."""
+    """Flax-layout GPT-2, Llama or BERT tree -> ``{port name: numpy
+    array}``."""
+    if _is_bert(tree):
+        return _bert_named(tree)
     if _is_llama(tree):
         return {(f"{k}.{n}" if isinstance(v, Mapping) else k):
                 np.asarray(leaf)
@@ -73,6 +115,8 @@ def flax_from_named(named: dict) -> dict:
             t = t.detach().float().cpu().numpy()
         return np.asarray(t)
 
+    if _is_bert(named):
+        return _bert_flax(named, np_)
     if _is_llama(named):
         out: dict = {}
         for name, t in named.items():
@@ -132,12 +176,26 @@ def llama_params_to_numpy(model: Llama) -> dict:
     return flax_from_named(dict(model.named_parameters()))
 
 
+def bert_params_from_jax(params, cfg: BertConfig, device=None):
+    """A `BertPretrain` (``params`` holds ``bert``) or a `Bert` on
+    ``device`` (CUDA unless named) holding the JAX package's flax
+    ``params`` (numpy or JAX arrays)."""
+    cls = BertPretrain if "bert" in params else Bert
+    return _load(cls(cfg, device=device), named_from_flax(params))
+
+
+def bert_params_to_numpy(model) -> dict:
+    """The inverse of `bert_params_from_jax`: the flax-layout numpy tree
+    of ``model``'s parameters."""
+    return flax_from_named(dict(model.named_parameters()))
+
+
 def amp_state_from_jax(state, device=None) -> AmpState:
     """The port's `AmpState` from a JAX ``apex1_tpu.amp.AmpState`` whose
     leaves are numpy arrays (``jax.tree_util.tree_map(np.asarray,
-    state)``), of a GPT-2 or a Llama, trained with ``fused_adam`` and one
-    loss scaler: params
-    and the Adam moments in fp32, the counters as 0-d device tensors."""
+    state)``), of a GPT-2, a Llama or a BERT, trained with
+    ``fused_adam`` and one loss scaler: params and the Adam moments in
+    fp32, the counters as 0-d device tensors."""
     dev = resolve_device(device)
     opt, ls = state.opt_state, state.loss_scale
 

@@ -1,3 +1,5 @@
+from apex1_tpu_torch.models.bert import (Bert, BertConfig, BertLayer,
+                                         BertPretrain, bert_pretrain_loss_fn)
 from apex1_tpu_torch.models.generate import (cached_attention, generate,
                                              gpt2_decoder, init_cache,
                                              last_real_logits, llama_decoder)
@@ -7,7 +9,8 @@ from apex1_tpu_torch.models.llama import (Llama, LlamaBlock, LlamaConfig,
                                           init_weights, is_moe_layer,
                                           llama_loss_fn)
 
-__all__ = ["GPT2", "GPT2Config", "gpt2_loss_fn", "init_params",
+__all__ = ["Bert", "BertConfig", "BertLayer", "BertPretrain",
+           "bert_pretrain_loss_fn", "GPT2", "GPT2Config", "gpt2_loss_fn", "init_params",
            "cached_attention", "generate", "gpt2_decoder", "init_cache",
            "last_real_logits", "llama_decoder", "Llama", "LlamaBlock",
            "LlamaConfig", "init_weights", "is_moe_layer", "llama_loss_fn"]

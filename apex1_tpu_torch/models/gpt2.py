@@ -9,7 +9,11 @@ training runs (`gpt2_loss_fn`): causal flash attention with
 ``segment_ids``/``positions``), or the materialized scores through the
 fused causal softmax with ``use_flash=False``; its loss takes the final
 hidden states through the fused LM-head cross-entropy
-(``fuse_head=True``) or the logits (``fuse_head=False``).
+(``fuse_head=True``) or the logits (``fuse_head=False``). Training
+dropout (``cfg.dropout > 0`` with ``dropout_seeds``, flash only) drops
+attention probabilities in the flash kernels and runs both residual
+adds through `fused_bias_dropout_add` (TPU rows 14-15); the seeds are
+BERT's (`ops.stochastic.layer_seeds`, site salts 0, 1, 2 a block).
 
 Policy-aware as in the JAX package: parameters are stored fp32,
 activations and matmuls run in ``policy.compute_dtype`` (cast on use),
@@ -34,6 +38,8 @@ from apex1_tpu_torch.ops.attention import flash_attention
 from apex1_tpu_torch.ops.layer_norm import layer_norm
 from apex1_tpu_torch.ops.linear_xent import linear_cross_entropy
 from apex1_tpu_torch.ops.softmax import scaled_upper_triang_masked_softmax
+from apex1_tpu_torch.ops.stochastic import (fold_seed, fused_bias_dropout_add,
+                                            layer_seeds)
 from apex1_tpu_torch.ops.xentropy import (masked_next_token_mean,
                                           softmax_cross_entropy_loss)
 
@@ -141,10 +147,16 @@ class Block(nn.Module):
         return layer_norm(z, gamma, beta)
 
     def forward(self, x, cache, cache_index, chunk_decode, *,
-                segment_ids=None, valid_start=None):
+                segment_ids=None, valid_start=None, seed=None):
+        """``seed``: this block's int32 dropout seed in training with
+        ``cfg.dropout > 0`` (uncached), else None."""
         from apex1_tpu_torch.models.generate import cached_attention
         cfg = self.cfg
         dtype = cfg.policy.compute_dtype
+        active = seed is not None
+        if active and not cfg.use_flash:
+            raise ValueError("dropout > 0 needs use_flash=True (the "
+                             "composite path has no fused dropout)")
         h, nh = cfg.hidden_size, cfg.num_heads
         hd = h // nh
         B, S = x.shape[0], x.shape[1]
@@ -160,7 +172,10 @@ class Block(nn.Module):
         elif cfg.use_flash:
             attn = flash_attention(q, k, v, causal=True,
                                    segment_ids=segment_ids,
-                                   sm_scale=1.0 / math.sqrt(hd))
+                                   sm_scale=1.0 / math.sqrt(hd),
+                                   dropout_p=cfg.dropout if active else 0.0,
+                                   dropout_seed=(fold_seed(seed, 0)
+                                                 if active else None))
         else:
             if segment_ids is not None:
                 raise ValueError("packed batches need use_flash=True")
@@ -173,9 +188,18 @@ class Block(nn.Module):
                 scores, scale=1.0 / math.sqrt(hd))
             attn = probs.to(dtype) @ v
         attn = attn.transpose(1, 2).reshape(B, S, h)
-        x = x + _dense(self.proj, attn, dtype)
+        proj = _dense(self.proj, attn, dtype)
+        if active:
+            x = fused_bias_dropout_add(proj, x, p=cfg.dropout,
+                                       seed=fold_seed(seed, 1))
+        else:
+            x = x + proj
         y = _dense(self.fc_in, self._norm("ln2", x), dtype)
         y = _dense(self.fc_out, F.gelu(y, approximate="tanh"), dtype)
+        if active:
+            return (fused_bias_dropout_add(y, x, p=cfg.dropout,
+                                           seed=fold_seed(seed, 2)),
+                    new_cache)
         return x + y, new_cache
 
 
@@ -208,7 +232,7 @@ class GPT2(nn.Module):
     def forward(self, tokens, *, positions=None, segment_ids=None,
                 cache=None, cache_index=None, valid_start=None,
                 chunk_decode=False, return_hidden=False,
-                deterministic=True):
+                deterministic=True, dropout_seeds=None):
         """(B, S) tokens -> fp32 logits over ``padded_vocab`` (or the
         final hidden states in the compute dtype with
         ``return_hidden``).
@@ -223,14 +247,17 @@ class GPT2(nn.Module):
         ``generate(prompt_lens=...)``. ``positions`` gathers the learned
         positions per row; positions outside the table read NaN, as the
         JAX package's fill mode does. ``deterministic=False`` with
-        ``cfg.dropout > 0`` (training dropout) raises: its kernels come
-        with the BERT slice."""
+        ``cfg.dropout > 0`` (uncached) is training dropout: it needs
+        ``dropout_seeds``, per-layer seeds or one int base seed
+        (`ops.stochastic.layer_seeds`), where the JAX package draws from
+        its ``dropout`` rng."""
         cfg = self.cfg
+        seeds = [None] * cfg.num_layers
         if cfg.dropout > 0.0 and not deterministic and cache is None:
-            raise NotImplementedError(
-                "GPT-2 dropout (in-kernel attention dropout and the fused "
-                "bias-dropout-add, TPU kernels 14-15) comes with the BERT "
-                "slice (ROADMAP.md queue A item 3)")
+            if dropout_seeds is None:
+                raise ValueError("training dropout (deterministic=False, "
+                                 "cfg.dropout > 0) needs dropout_seeds")
+            seeds = layer_seeds(dropout_seeds, cfg.num_layers)
         dtype = cfg.policy.compute_dtype
         B, S = tokens.shape
         dev = self.device
@@ -252,7 +279,7 @@ class GPT2(nn.Module):
             x, new_cache[f"layer{i}"] = blk(
                 x, None if cache is None else cache[f"layer{i}"],
                 cache_index, chunk_decode, segment_ids=segment_ids,
-                valid_start=valid_start)
+                valid_start=valid_start, seed=seeds[i])
         x = layer_norm(x, self.lnf_scale, self.lnf_bias)
         out = (x.to(dtype) if return_hidden
                else head_logits(x.to(dtype), self.wte.to(dtype)))
@@ -305,9 +332,10 @@ def gpt2_loss_fn(model: GPT2, *, fuse_head: bool = True):
     product fused into the cross-entropy, so no (B, S, V) logits exist.
     ``fuse_head=False``: the materialized fp32 logits through
     `softmax_cross_entropy_loss` (the JAX package's parity gold).
-    ``dropout_rng`` with ``cfg.dropout == 0`` raises ValueError, as in
-    JAX; with ``cfg.dropout > 0`` it raises NotImplementedError (the
-    BERT slice's kernels)."""
+    ``dropout_rng`` (per-layer int32 seeds or one int base seed, see
+    `ops.stochastic.layer_seeds`; the JAX package's key) turns training
+    dropout on when ``cfg.dropout > 0``; with ``cfg.dropout == 0`` it
+    raises ValueError, as in JAX."""
 
     def loss_fn(params: dict, tokens: torch.Tensor, segment_ids=None,
                 positions=None, dropout_rng=None) -> torch.Tensor:
@@ -315,7 +343,8 @@ def gpt2_loss_fn(model: GPT2, *, fuse_head: bool = True):
             raise ValueError("dropout_rng passed but cfg.dropout == 0: "
                              "the key would be silently unused")
         kw = dict(segment_ids=segment_ids, positions=positions,
-                  deterministic=dropout_rng is None)
+                  deterministic=dropout_rng is None,
+                  dropout_seeds=dropout_rng)
         if fuse_head:
             h = torch.func.functional_call(
                 model, params, (tokens,), dict(return_hidden=True, **kw))

@@ -25,9 +25,14 @@ from apex1_tpu_torch.ops.paged_decode import (PagedCache, cache_attend,
                                               sample_token, scatter_pages)
 from apex1_tpu_torch.ops.rope import (apply_rotary_pos_emb, rope_tables,
                                       rotate)
-from apex1_tpu_torch.ops.softmax import (scaled_masked_softmax,
+from apex1_tpu_torch.ops.softmax import (FusedScaleMaskSoftmax,
+                                         scaled_masked_softmax,
                                          scaled_upper_triang_masked_softmax,
                                          softmax_bwd, softmax_fwd)
+from apex1_tpu_torch.ops.stochastic import (bda_bwd, bda_fwd, fold_seed,
+                                            fused_bias_dropout_add,
+                                            fused_dropout_add_layer_norm,
+                                            layer_seeds)
 from apex1_tpu_torch.ops.xentropy import (masked_next_token_mean,
                                           softmax_cross_entropy_loss,
                                           xent_bwd, xent_fwd)
@@ -49,7 +54,9 @@ KERNEL_WRAPPERS = {"layer_norm_fwd": layer_norm_fwd,
                    "lxent_dx": lxent_dx,
                    "lxent_dw": lxent_dw,
                    "rope": rotate,
-                   "glu_fwd": glu_fwd}
+                   "glu_fwd": glu_fwd,
+                   "bda_fwd": bda_fwd,
+                   "bda_bwd": bda_bwd}
 
 
 def reset_launches() -> None:
@@ -73,7 +80,10 @@ __all__ = ["NEG_INF", "force_impl", "get_impl", "set_impl",
            "layer_norm_fwd", "rms_norm", "PagedCache", "cache_attend",
            "fused_sample", "gather_pages", "paged_attend",
            "paged_update_attend", "sample_token", "scatter_pages",
-           "scaled_masked_softmax", "scaled_upper_triang_masked_softmax",
+           "FusedScaleMaskSoftmax", "scaled_masked_softmax",
+           "scaled_upper_triang_masked_softmax", "bda_bwd", "bda_fwd",
+           "fold_seed", "fused_bias_dropout_add",
+           "fused_dropout_add_layer_norm", "layer_seeds",
            "softmax_bwd", "softmax_fwd", "masked_next_token_mean",
            "softmax_cross_entropy_loss", "xent_bwd", "xent_fwd",
            "KERNEL_WRAPPERS", "reset_launches", "launch_counts"]

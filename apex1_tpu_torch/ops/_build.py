@@ -38,6 +38,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_U = ctypes.c_uint
 
 #: C entry points and their argument types (pointers and the stream
 #: as c_void_p, so ctypes never truncates them to 32 bits)
@@ -57,11 +58,13 @@ SIGNATURES = {
                            _I, _F, _I, _I, _P],
     "apex1_fused_sample": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P],
     "apex1_flash_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                        _F, _I, _I, _I, _I, _I, _P],
+                        _F, _I, _I, _I, _I, _I, _U, _U, _F, _I, _P],
     "apex1_flash_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                       _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
+                       _I, _I, _I, _F, _I, _I, _I, _I, _I, _U, _U, _F, _I,
+                       _P],
     "apex1_flash_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                        _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
+                        _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _U, _U, _F,
+                        _I, _P],
     "apex1_lxent_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                         _I, _I, _I, _I, _I, _P],
     "apex1_lxent_dx": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
@@ -77,6 +80,9 @@ SIGNATURES = {
     "apex1_rope": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _F, _I, _I,
                    _P],
     "apex1_glu_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "apex1_bda_fwd": [_P, _P, _P, _P, _L, _I, _U, _U, _F, _I, _I, _I, _P],
+    "apex1_bda_bwd": [_P, _P, _P, _P, _L, _I, _I, _I, _U, _U, _F, _I, _I,
+                      _P],
 }
 
 _LOCK = threading.Lock()

@@ -24,9 +24,16 @@ agrees to about one rounding of the output.
 `flash_attention` and `fmha` are differentiable through one
 ``torch.autograd.Function`` (the JAX package's ``_flash`` custom VJP)
 that saves ``(q, k, v, out, lse)``; the CPU and ``force_impl("torch")``
-go through the same Function with the plain versions. The additive
-``bias`` operand (its dbias kernel) and in-kernel dropout come with the
-BERT slice and raise here.
+go through the same Function with the plain versions.
+
+Attention-probability dropout (``dropout_p > 0`` with an int32
+``dropout_seed``) rides all three kernels: keep = `attn_keep_mask`'s
+hash at (seed, b·Hq + h, q row + q_offset, k col + k_offset), h the
+query head. The softmax statistics (l, lse) stay undropped; the P·V
+weights are keep·p/(1 - p), and the backward masks dP the same way, so
+the Function saves the seed and p, never a mask. The additive ``bias``
+operand (its dbias kernel, TPU row 6) waits for T5 training and
+raises here.
 """
 
 from __future__ import annotations
@@ -39,6 +46,8 @@ import torch
 from apex1_tpu_torch.ops import _build
 from apex1_tpu_torch.ops._common import (DTYPE_CODES, NEG_INF, check_cuda,
                                          use_kernel)
+from apex1_tpu_torch.ops.stochastic import (_seed_word, attn_keep_mask,
+                                            inv_keep, threshold_u32)
 
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 _MAX_D = 128
@@ -65,6 +74,16 @@ def _repeat_kv(x, group: int):
     return x if group == 1 else x.repeat_interleave(group, dim=1)
 
 
+def _keep(q, Sk, q_off, k_off, dropout_p, seed):
+    """(B, Hq, Sq, Sk) bool keep mask of the dropout, or None at p = 0."""
+    if dropout_p <= 0.0:
+        return None
+    B, Hq, Sq, _ = q.shape
+    rows = torch.arange(Sq, device=q.device)[:, None] + q_off
+    cols = torch.arange(Sk, device=q.device)[None, :] + k_off
+    return attn_keep_mask(seed, B, Hq, rows, cols, dropout_p)
+
+
 def _scores(q, k, qseg, kseg, scale, causal, q_off, k_off):
     """fp32 masked scores (NEG_INF where invalid) and the mask."""
     B, Hq, Sq, _ = q.shape
@@ -75,32 +94,46 @@ def _scores(q, k, qseg, kseg, scale, causal, q_off, k_off):
     return torch.where(mask, s, NEG_INF), mask
 
 
-def _plain_fwd(q, k, v, qseg, kseg, scale, causal, q_off, k_off):
-    """The JAX package's ``_xla_attention`` (its empty-row rule too):
-    ``(out in q's dtype, lse fp32)``."""
+def _plain_fwd(q, k, v, qseg, kseg, scale, causal, q_off, k_off,
+               dropout_p=0.0, seed=None):
+    """The JAX package's ``_xla_attention`` (its empty-row rule and its
+    dropout too: fp32 probabilities, dropped and rescaled after the
+    normalization): ``(out in q's dtype, lse fp32)``."""
     sm, mask = _scores(q, k, qseg, kseg, scale, causal, q_off, k_off)
     m = sm.amax(dim=-1, keepdim=True)
     e = torch.where(mask, torch.exp(sm - m), 0.0)
     l = e.sum(dim=-1, keepdim=True)
     safe = torch.where(l > 0, l, 1.0)
+    probs = e / safe
+    keep = _keep(q, k.shape[2], q_off, k_off, dropout_p, seed)
+    if keep is not None:
+        probs = torch.where(keep, probs * inv_keep(dropout_p), 0.0)
     vv = _repeat_kv(v.float(), q.shape[1] // v.shape[1])
-    out = torch.einsum("bhqk,bhkd->bhqd", e / safe, vv).to(q.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, vv).to(q.dtype)
     lse = torch.where(l > 0, m + torch.log(safe), NEG_INF)[..., 0]
     return out, lse
 
 
 def _probs_and_ds(q, k, v, dout, lse, delta, dlse, qseg, kseg, scale,
-                  causal, q_off, k_off):
-    """p = exp(s - lse) on valid positions (0 elsewhere) and
-    ds = p·(dO·vᵀ - δ + dlse)·scale, both fp32 (B, Hq, Sq, Sk)."""
+                  causal, q_off, k_off, dropout_p, seed):
+    """The P·V weights (p = exp(s - lse) on valid positions, 0
+    elsewhere; with dropout keep·p/(1 - p)) and
+    ds = p·(keep·dO·vᵀ/(1 - p) - δ + dlse)·scale, both fp32
+    (B, Hq, Sq, Sk)."""
     sm, mask = _scores(q, k, qseg, kseg, scale, causal, q_off, k_off)
     p = torch.where(mask, torch.exp(sm - lse[..., None]), 0.0)
     vv = _repeat_kv(v.float(), q.shape[1] // v.shape[1])
     dp = torch.einsum("bhqd,bhkd->bhqk", dout.float(), vv)
+    keep = _keep(q, k.shape[2], q_off, k_off, dropout_p, seed)
+    p_av = p
+    if keep is not None:
+        inv = inv_keep(dropout_p)
+        dp = torch.where(keep, dp * inv, 0.0)
+        p_av = torch.where(keep, p * inv, 0.0)
     dp = dp - delta[..., None]
     if dlse is not None:
         dp = dp + dlse[..., None]
-    return p, p * dp * scale
+    return p_av, p * dp * scale
 
 
 def _rounded(x, dtype):
@@ -111,18 +144,18 @@ def _rounded(x, dtype):
 
 
 def _plain_dq(q, k, v, dout, lse, delta, dlse, qseg, kseg, scale, causal,
-              q_off, k_off):
+              q_off, k_off, dropout_p=0.0, seed=None):
     _, ds = _probs_and_ds(q, k, v, dout, lse, delta, dlse, qseg, kseg,
-                          scale, causal, q_off, k_off)
+                          scale, causal, q_off, k_off, dropout_p, seed)
     kk = _repeat_kv(k.float(), q.shape[1] // k.shape[1])
     return torch.einsum("bhqk,bhkd->bhqd", _rounded(ds, k.dtype),
                         kk).to(q.dtype)
 
 
 def _plain_dkv(q, k, v, dout, lse, delta, dlse, qseg, kseg, scale, causal,
-               q_off, k_off):
+               q_off, k_off, dropout_p=0.0, seed=None):
     p, ds = _probs_and_ds(q, k, v, dout, lse, delta, dlse, qseg, kseg,
-                          scale, causal, q_off, k_off)
+                          scale, causal, q_off, k_off, dropout_p, seed)
     dv = torch.einsum("bhqk,bhqd->bhkd", _rounded(p, dout.dtype),
                       dout.float())
     dk = torch.einsum("bhqk,bhqd->bhkd", _rounded(ds, q.dtype), q.float())
@@ -170,14 +203,25 @@ def _dims(q, k):
     return B, Hq, k.shape[1], Sq, k.shape[2], D
 
 
+def _drop_args(dropout_p, seed):
+    """The kernels' (dropout, seed word, threshold, inv) arguments."""
+    if dropout_p <= 0.0:
+        return 0, 0, 0, 0.0
+    return (1, _seed_word(seed), threshold_u32(dropout_p),
+            inv_keep(dropout_p))
+
+
 def flash_fwd(q, k, v, qseg, kseg, scale: float, causal: bool,
-              q_off: int = 0, k_off: int = 0):
+              q_off: int = 0, k_off: int = 0, dropout_p: float = 0.0,
+              dropout_seed=None):
     """``(out, lse)``: out in q's dtype, lse fp32 (B, Hq, Sq). ``qseg``
-    (B, Sq) and ``kseg`` (B, Sk) int32, or both None. CUDA tensors
+    (B, Sq) and ``kseg`` (B, Sk) int32, or both None; ``dropout_p`` > 0
+    drops P·V weights with the int32 ``dropout_seed``. CUDA tensors
     launch the kernel (``flash_fwd.launches``); CPU tensors take the
     plain version."""
     if not use_kernel(q):
-        return _plain_fwd(q, k, v, qseg, kseg, scale, causal, q_off, k_off)
+        return _plain_fwd(q, k, v, qseg, kseg, scale, causal, q_off, k_off,
+                          dropout_p, dropout_seed)
     (q, k, v, _, qseg, kseg), vec = _kernel_operands(
         "flash_fwd", q, k, v, None, qseg, kseg)
     B, Hq, Hkv, Sq, Sk, D = _dims(q, k)
@@ -188,7 +232,8 @@ def flash_fwd(q, k, v, qseg, kseg, scale: float, causal: bool,
                   v.data_ptr(), _ptr(qseg), _ptr(kseg), out.data_ptr(),
                   lse.data_ptr(), B, Hq, Hkv, Sq, Sk, D, float(scale),
                   int(causal), int(q_off), int(k_off), vec,
-                  DTYPE_CODES[q.dtype], stream)
+                  *_drop_args(dropout_p, dropout_seed), DTYPE_CODES[q.dtype],
+                  stream)
     flash_fwd.launches += 1
     return out, lse
 
@@ -197,14 +242,16 @@ flash_fwd.launches = 0
 
 
 def flash_dq(q, k, v, dout, lse, delta, dlse, qseg, kseg, scale: float,
-             causal: bool, q_off: int = 0, k_off: int = 0):
+             causal: bool, q_off: int = 0, k_off: int = 0,
+             dropout_p: float = 0.0, dropout_seed=None):
     """dq in q's dtype from the saved ``lse``, ``delta`` = Σ_d dout·out
     and the lse cotangent ``dlse`` (fp32 (B, Hq, Sq), or None for 0);
-    ``dout`` in q's dtype. CUDA tensors launch the kernel
-    (``flash_dq.launches``); CPU tensors take the plain version."""
+    ``dout`` in q's dtype; the forward's dropout. CUDA tensors launch
+    the kernel (``flash_dq.launches``); CPU tensors take the plain
+    version."""
     if not use_kernel(q):
         return _plain_dq(q, k, v, dout, lse, delta, dlse, qseg, kseg, scale,
-                         causal, q_off, k_off)
+                         causal, q_off, k_off, dropout_p, dropout_seed)
     (q, k, v, dout, lse, delta, dlse, qseg, kseg), vec = _kernel_operands(
         "flash_dq", q, k, v, dout, lse, delta, dlse, qseg, kseg)
     B, Hq, Hkv, Sq, Sk, D = _dims(q, k)
@@ -215,7 +262,8 @@ def flash_dq(q, k, v, dout, lse, delta, dlse, qseg, kseg, scale: float,
                   delta.data_ptr(), _ptr(dlse), _ptr(qseg), _ptr(kseg),
                   dq.data_ptr(), B, Hq, Hkv, Sq, Sk, D, float(scale),
                   int(causal), int(q_off), int(k_off), vec,
-                  DTYPE_CODES[q.dtype], stream)
+                  *_drop_args(dropout_p, dropout_seed), DTYPE_CODES[q.dtype],
+                  stream)
     flash_dq.launches += 1
     return dq
 
@@ -224,14 +272,16 @@ flash_dq.launches = 0
 
 
 def flash_dkv(q, k, v, dout, lse, delta, dlse, qseg, kseg, scale: float,
-              causal: bool, q_off: int = 0, k_off: int = 0):
+              causal: bool, q_off: int = 0, k_off: int = 0,
+              dropout_p: float = 0.0, dropout_seed=None):
     """``(dk, dv)`` in k's dtype, each kv head summed over its GQA group
     (fp32 accumulation, one rounding). Arguments as `flash_dq`. CUDA
     tensors launch the kernel (``flash_dkv.launches``); CPU tensors take
     the plain version."""
     if not use_kernel(q):
         return _plain_dkv(q, k, v, dout, lse, delta, dlse, qseg, kseg,
-                          scale, causal, q_off, k_off)
+                          scale, causal, q_off, k_off, dropout_p,
+                          dropout_seed)
     (q, k, v, dout, lse, delta, dlse, qseg, kseg), vec = _kernel_operands(
         "flash_dkv", q, k, v, dout, lse, delta, dlse, qseg, kseg)
     B, Hq, Hkv, Sq, Sk, D = _dims(q, k)
@@ -242,7 +292,8 @@ def flash_dkv(q, k, v, dout, lse, delta, dlse, qseg, kseg, scale: float,
                   delta.data_ptr(), _ptr(dlse), _ptr(qseg), _ptr(kseg),
                   dk.data_ptr(), dv.data_ptr(), B, Hq, Hkv, Sq, Sk, D,
                   float(scale), int(causal), int(q_off), int(k_off), vec,
-                  DTYPE_CODES[q.dtype], stream)
+                  *_drop_args(dropout_p, dropout_seed), DTYPE_CODES[q.dtype],
+                  stream)
     flash_dkv.launches += 1
     return dk, dv
 
@@ -252,15 +303,17 @@ flash_dkv.launches = 0
 
 class _Flash(torch.autograd.Function):
     """The JAX package's ``_flash`` custom VJP: residuals
-    ``(q, k, v, out, lse)`` (and the segment ids); the backward takes
-    the ``out`` and ``lse`` cotangents."""
+    ``(q, k, v, out, lse)`` (and the segment ids), and the dropout's
+    seed and p, never its mask; the backward takes the ``out`` and
+    ``lse`` cotangents."""
 
     @staticmethod
-    def forward(ctx, q, k, v, qseg, kseg, scale, causal, q_off, k_off):
+    def forward(ctx, q, k, v, qseg, kseg, scale, causal, q_off, k_off,
+                dropout_p, seed):
         out, lse = flash_fwd(q, k, v, qseg, kseg, scale, causal, q_off,
-                             k_off)
+                             k_off, dropout_p, seed)
         ctx.save_for_backward(q, k, v, out, lse, qseg, kseg)
-        ctx.args = (scale, causal, q_off, k_off)
+        ctx.args = (scale, causal, q_off, k_off, dropout_p, seed)
         ctx.set_materialize_grads(False)
         return out, lse
 
@@ -276,7 +329,7 @@ class _Flash(torch.autograd.Function):
                       *ctx.args)
         dk, dv = flash_dkv(q, k, v, dout, lse, delta, dlse, qseg, kseg,
                            *ctx.args)
-        return dq, dk, dv, None, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None, None
 
 
 def _norm_segments(segment_ids, Sq: int, Sk: int, device):
@@ -309,18 +362,24 @@ def flash_attention(q, k, v, *, causal: bool = False, segment_ids=None,
     causal mask. ``return_lse``: also return the fp32 logsumexp
     (B, H, Sq), whose cotangent the backward takes. ``block_q`` and
     ``block_k`` are the TPU kernels' tile sizes: accepted and ignored
-    (the Hopper kernels choose their own tiles). ``bias`` and
-    ``dropout_p > 0`` raise NotImplementedError: the BERT slice ports
-    them."""
+    (the Hopper kernels choose their own tiles). ``dropout_p`` in
+    [0, 1): attention-probability dropout in the kernels, seeded by the
+    int32 ``dropout_seed`` (required when p > 0; two calls with one
+    seed draw one mask). ``bias`` raises NotImplementedError: it comes
+    with T5 training."""
     del block_q, block_k
     if bias is not None:
         raise NotImplementedError(
             "flash_attention's bias operand (and its dbias kernel, TPU row "
-            "6) comes with the BERT slice (ROADMAP.md queue A item 3)")
-    if dropout_p != 0.0 or dropout_seed is not None:
-        raise NotImplementedError(
-            "in-kernel attention dropout comes with the BERT slice "
+            "6) comes with T5 training, the rest of the BERT slice "
             "(ROADMAP.md queue A item 3)")
+    dropout_p = float(dropout_p)
+    if not 0.0 <= dropout_p < 1.0:
+        raise ValueError(f"dropout_p must be in [0, 1), got {dropout_p}")
+    if dropout_p > 0.0 and dropout_seed is None:
+        raise ValueError("dropout_p > 0 needs an explicit int32 "
+                         "dropout_seed (ops.stochastic.fold_seed at the "
+                         "call site)")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("expected (B, H, S, D) operands")
     if q.shape[1] % k.shape[1] != 0:
@@ -331,7 +390,8 @@ def flash_attention(q, k, v, *, causal: bool = False, segment_ids=None,
     qseg, kseg = _norm_segments(segment_ids, q.shape[2], k.shape[2],
                                 q.device)
     out, lse = _Flash.apply(q, k, v, qseg, kseg, scale, bool(causal),
-                            int(q_offset), int(k_offset))
+                            int(q_offset), int(k_offset), dropout_p,
+                            dropout_seed if dropout_p > 0.0 else None)
     return (out, lse) if return_lse else out
 
 
@@ -339,7 +399,8 @@ def fmha(qkv, *, segment_ids=None, causal: bool = True,
          sm_scale: Optional[float] = None, dropout_p: float = 0.0,
          dropout_seed=None):
     """``apex.contrib.fmha.FMHAFun``: packed (B, S, 3, H, D) QKV, varlen
-    through ``segment_ids``; returns (B, S, H, D)."""
+    through ``segment_ids``, the in-kernel probability dropout through
+    ``dropout_p``/``dropout_seed``; returns (B, S, H, D)."""
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
     out = flash_attention(q, k, v, causal=causal, segment_ids=segment_ids,
                           sm_scale=sm_scale, dropout_p=dropout_p,

@@ -8,7 +8,8 @@ Kernels ``csrc/softmax.cu`` (one warp per row, forward and backward),
 each beside its plain PyTorch version. ``scaled_masked_softmax`` and
 ``scaled_upper_triang_masked_softmax`` are differentiable through one
 ``torch.autograd.Function``. The output keeps ``x.dtype``; statistics
-are fp32. ``FusedScaleMaskSoftmax`` comes with the BERT slice.
+are fp32. ``FusedScaleMaskSoftmax`` is the reference's module-style
+adapter over the two.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 
 from apex1_tpu_torch.ops import _build
 from apex1_tpu_torch.ops._common import (DTYPE_CODES, NEG_INF, check_cuda,
-                                         use_kernel)
+                                         get_impl, use_kernel)
 
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
@@ -158,3 +159,33 @@ def scaled_upper_triang_masked_softmax(x: torch.Tensor, *,
                                        scale: float = 1.0) -> torch.Tensor:
     """``scaled_upper_triang_masked_softmax_cuda`` (causal)."""
     return _FusedSoftmax.apply(x, None, float(scale), True)
+
+
+class FusedScaleMaskSoftmax:
+    """API-parity adapter: the reference's ``apex/transformer/functional/
+    fused_softmax.py :: FusedScaleMaskSoftmax`` over the softmax kernels
+    (TPU rows 16-17). ``attn_mask_type``: "causal" or "padding", or an
+    enum whose ``.name`` is one of them; "causal" ignores ``mask``,
+    "padding" adds it (`scaled_masked_softmax`)."""
+
+    def __init__(self, attn_mask_type="padding",
+                 scale: Optional[float] = None,
+                 scaled_masked_softmax_fusion: bool = True):
+        if hasattr(attn_mask_type, "name"):  # AttnMaskType enum
+            attn_mask_type = attn_mask_type.name
+        self.attn_mask_type = attn_mask_type
+        self.scale = 1.0 if scale is None else scale
+        self.fusion = scaled_masked_softmax_fusion
+
+    def is_kernel_available(self, x: Optional[torch.Tensor] = None,
+                            *_) -> bool:
+        """True when the fused path launches the kernel: fusion on and
+        ``x`` a CUDA tensor (outside ``force_impl("torch")``)."""
+        return (self.fusion and x is not None and x.is_cuda
+                and get_impl() != "torch")
+
+    def __call__(self, x: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.attn_mask_type == "causal":
+            return scaled_upper_triang_masked_softmax(x, scale=self.scale)
+        return scaled_masked_softmax(x, mask, scale=self.scale)

@@ -6,7 +6,7 @@
                                      # and training steps (GPT-2: flash
                                      # off, flash on, flash and fused
                                      # head; llama_block: fused_mlp off
-                                     # and on)
+                                     # and on; bert_large)
 
 Phases, each printed on its own line; a failure in any exits non-zero:
 
@@ -37,7 +37,20 @@ Phases, each printed on its own line; a failure in any exits non-zero:
    per-row tables, interleaved, fp16, f32, head_dim 256 and a decode
    step, equal bits required; the fused SwiGLU (kernel 13) at (8192,
    4096) x (4096, 14336) bf16, fp16, GeGLU, a serving chunk, f32 and a
-   ragged case.
+   ragged case. The BERT slice's: the bias-dropout-add kernels (rows 14
+   and 15) at BERT-base's, BERT-large's and GPT-2's residual epilogues
+   and f32/fp16 cases with a bias, h = 1000 (scalar loads), ragged rows
+   and an fp32 residual, y and dx equal to the plain version bit for
+   bit, dbias at f32 tolerance with the same bits twice, and a mask
+   witness (x = 1, residual 0: y's zero pattern is the mask, equal to
+   the plain version's, keep rate within 3 sigma of 1 - p); flash with
+   dropout 0.1 at BERT's shape (8 x 12 heads x 512, D 64, non-causal,
+   padding segments; beside p = 0), GPT-2 causal, GQA 12/4 and offsets,
+   with a witness (v the identity: out's zero pattern is the mask); the
+   library call for flash is also timed at the Llama shape (GQA through
+   ``enable_gqa``) and at BERT's (the padding as a boolean mask, with
+   its own dropout); the fused MLM heads (H + 1 = 769 and 1025, labels
+   -1 outside the masked tokens) and the NSP cross-entropy (K = 2).
 3. engine — serve GPT-2 124M at full width (12 layers, hidden 768,
    vocab 50257 padded to 50304) at policy O2, weights made from a seed,
    through the paged continuous-batching engine: 16 requests (prompts
@@ -76,9 +89,13 @@ Phases, each printed on its own line; a failure in any exits non-zero:
    ``True`` with ``fuse_head=True`` (the materialized-head flash path
    on a dense and a packed batch, the fused head on the dense one): O0
    losses within 1e-5 relative and grad norms within 1e-4; O2_fp16
-   with the loss multiplied by inf at step 2 on both sides: step 2
-   skipped, the params it leaves equal to step 1's bit for bit, the
-   scale halved, skipped_steps 1. The step-1 O0 loss of the fused head
+   with the loss multiplied by inf at step 2 on both sides (at the step
+   after the first finite one, where the dynamic scale first overflows
+   by itself while it calibrates down from 2^16): that step skipped,
+   the params it leaves equal to the step before's bit for bit, the
+   scale halved, skipped_steps up by one, the next step finite (GPT-2
+   and Llama: steps 1-3 finite, skipped, finite; skipped_steps 1). The
+   step-1 O0 loss of the fused head
    must equal the materialized head's on the same weights within 1e-5.
 9. dpo — GPT-2 124M at O2 through ``Amp(fused_adam)`` with
    ``chunked_dpo_loss`` over 8 chosen and 8 rejected rows of 1024
@@ -117,10 +134,32 @@ Phases, each printed on its own line; a failure in any exits non-zero:
    (8 ragged prompts, 32 new tokens; flash fwd launched once a layer
    in the prefill); serve-llama-parity: the engine at O0, depth 2,
    kernels against plain versions, identical token streams.
-15. the ``kernels`` JSON line (each kernel's launches over the main
+15. train-bert — the JAX bench's BERT pretraining configurations
+   (``bench.py:220-258``) at full width and depth under
+   ``Amp(fused_adam(1e-4, weight_decay=0.01))`` at O2 with the fused
+   MLM head, on the bench's batch (``np.random.default_rng(0)`` tokens,
+   MLM labels -1 outside a 15 % draw, NSP labels): ``bert_dropout``
+   (BERT-base, 8 x 512, dropout 0.1 from an int base seed), ``bert``,
+   ``bert_large`` (24 layers, 1024 wide, 4 x 512) and ``bert_dropout``
+   on a padded batch (``attention_mask``), 6 steps each (the first
+   Adam steps at lr 1e-4 can raise the loss before it falls). Each
+   prints tokens/s beside the bench's A100 proxy, device ms a step (3
+   more steps under torch.profiler) and peak memory; losses finite, the
+   loss falling, and every step launching exactly `bert_launches` (LN
+   fwd and bwd 2L + 2, flash L/L/L, linear-xent 1/1/1, xent 1/1 for
+   NSP, bias-dropout-add 2L/2L with dropout, softmax never).
+   train-bert-parity — BERT-base width, depth 2, 8 x 512, dropout 0.1,
+   kernels against plain versions as in train-parity (lr 1e-5), with
+   the fused and the materialized MLM head, whose step-1 O0 losses
+   agree within 1e-5.
+16. train-gpt2-dropout — GPT-2 124M, flash, fused head, dropout 0.1,
+   B=16 x S=1024, 3 O2 steps: LN 25/25, flash 12/12/12, bias-dropout-
+   add 24/24, linear-xent 1/1/1 a step.
+17. the ``kernels`` JSON line (each kernel's launches over the main
    paths: the engine, the train phases, dpo, generate, train-llama,
-   serve-llama and its generate), the card's name and power limit, and
-   the last line ``{"ok": true, "device": {...}}``.
+   serve-llama and its generate, the BERT phases and
+   train-gpt2-dropout), the card's name and power limit, and the last
+   line ``{"ok": true, "device": {...}}``.
 
 Kernel times are device times of CUDA-graph replays (no host launch
 overhead), or between CUDA events for kernels of a millisecond or more;
@@ -558,6 +597,51 @@ def check_softmax(torch, ops, gen):
     return fwd, bwd
 
 
+def check_xent_nsp(torch, ops, gen):
+    """Kernels 18 and 19 at BERT's NSP head: (8, 2) fp32 logits, K = 2,
+    labels in {0, 1}, the mean's 1/8 as dloss. Returns the (forward,
+    backward) rows."""
+    import torch.nn.functional as F
+    from apex1_tpu_torch.ops.xentropy import xent_bwd, xent_fwd
+    B = 8
+    x = torch.randn((1, B, 2), generator=gen, device="cuda") * 2
+    t = torch.randint(0, 2, (B,), generator=gen, device="cuda")
+    dloss = torch.full((B,), 1.0 / B, device="cuda")
+    tol = TOLS["float32"]
+    case = f"BERT NSP rows={B} V=2 K=2"
+    rows = []
+    for name in ("fwd", "bwd"):
+        if name == "fwd":
+            def run():
+                return xent_fwd(x, t, 0.0, None, 2)
+        else:
+            lse = xent_fwd(x, t, 0.0, None, 2)[1]
+
+            def run():
+                return xent_bwd(x, t, lse, dloss, 0.0, None, 2)
+        got = run()
+        with ops.force_impl("torch"):
+            want = run()
+            plain = event_ms(run)
+        torch.cuda.synchronize()
+        pairs = zip(got, want) if name == "fwd" else ((got, want),)
+        abs_e, worst = max_errs_all(pairs, tol)
+        if name == "fwd":
+            lib = graph_ms(lambda: F.cross_entropy(x[0], t,
+                                                   reduction="none"))
+            bnd = bound_ms(B * 8 + B * 8 + B * 8, 6 * B * 2)
+        else:
+            xr = x[0].detach().requires_grad_()
+            loss = F.cross_entropy(xr, t, reduction="none")
+            lib = event_ms(lambda: torch.autograd.grad(
+                loss, xr, dloss, retain_graph=True))
+            bnd = bound_ms(B * 8 + B * 12 + B * 8, 5 * B * 2)
+        rows.append(dict(case=case, abs=abs_e, worst=worst, tol=tol,
+                         ms=graph_ms(run), plain_ms=plain, library_ms=lib,
+                         bound_ms=bnd[0], bound_by=bnd[1], main=False))
+    return rows
+
+
 def check_xent(torch, ops, gen):
     """Kernels 18 and 19 at the training step's logits[:, :-1] slice of
     (16, 1024, 50304) fp32 logits, 50257 real classes: smoothing 0 (the
@@ -574,6 +658,7 @@ def check_xent(torch, ops, gen):
     # the library call gets the real classes as one dense tensor, made
     # outside its timing
     xl = x.reshape(rows, TV_PAD)[:, :TV].contiguous()
+    nsp = check_xent_nsp(torch, ops, gen)
     fwd, bwd = [], []
     for smoothing, pad in ((0.0, None), (0.1, None), (0.0, 0)):
         lab = t if pad is None else t_pad
@@ -631,11 +716,117 @@ def check_xent(torch, ops, gen):
                         plain_ms=plain, library_ms=lib, bound_ms=bnd,
                         bound_by=by, main=main))
         del got, want, got_b, want_b
+    fwd.append(nsp[0])
+    bwd.append(nsp[1])
+    return fwd, bwd
+
+
+#: the bias-dropout-add kernels' checks: (case, rows, h, dtype, residual
+#: dtype or None for x's, bias, main). BERT-base's residual epilogue
+#: (B x S = 8 x 512 rows of 768, no bias) is the main case; BERT-large's
+#: (4 x 512 rows of 1024), GPT-2's (16 x 1024 rows of 768), a ragged
+#: row count, h = 1000 (scalar loads) and an fp32 residual
+BDA_CASES = [
+    ("BERT-base epilogue", 8 * 512, 768, "bfloat16", None, False, True),
+    ("BERT-large epilogue", 4 * 512, 1024, "bfloat16", None, False, False),
+    ("GPT-2 epilogue", TB * TS, TH, "bfloat16", None, False, False),
+    ("bias, ragged rows", 4096 + 37, 768, "float32", None, True, False),
+    ("bias, h 1000 scalar loads", 1000 + 3, 1000, "float16", None, True,
+     False),
+    ("bias, h 1024", 2048, 1024, "bfloat16", None, True, False),
+    ("fp32 residual, bias", 999, 768, "bfloat16", "float32", True, False),
+]
+#: the dropout rate and seed of the kernel checks
+DROP_P, DROP_SEED = 0.1, 4321
+
+
+def check_bda(torch, ops, gen):
+    """Kernels 14 and 15 (bias-dropout-add forward and backward) against
+    their plain versions: y and dx must equal them bit for bit (the
+    same fp32 operations, each rounded once); dbias (fp32 sums over the
+    rows in another order) within f32 tolerance; dx and dbias with the
+    same bits on a second run. The witness (x = 1, residual 0, no bias: y is 1/(1-p) or
+    0) must show the plain version's mask exactly and keep 1 - p of the
+    elements within 3 sigma. Bound: bytes (x, residual and y read or
+    written once; dy and dx), no library call computes the function."""
+    from apex1_tpu_torch.ops.stochastic import _row_keep, bda_bwd, bda_fwd
+    fwd, bwd = [], []
+    for case, rows, h, dts, rdts, with_bias, main in BDA_CASES:
+        dt = getattr(torch, dts)
+        rdt = dt if rdts is None else getattr(torch, rdts)
+        x = torch.randn(rows, h, generator=gen, device="cuda").to(dt)
+        r = torch.randn(rows, h, generator=gen, device="cuda").to(rdt)
+        dy = torch.randn(rows, h, generator=gen, device="cuda").to(dt)
+        b = (torch.randn(h, generator=gen, device="cuda") if with_bias
+             else None)
+
+        def run_f():
+            return bda_fwd(x, r, b, DROP_SEED, DROP_P)
+
+        def run_b():
+            return bda_bwd(dy, DROP_SEED, DROP_P, with_bias)
+
+        y = run_f()
+        dx, db = run_b()
+        with ops.force_impl("torch"):
+            wy = run_f()
+            wdx, wdb = run_b()
+        dx2, db2 = run_b()
+        same_bits = torch.equal(dx2, dx) and (db is None
+                                              or torch.equal(db2, db))
+        del dx2, db2
+        torch.cuda.synchronize()
+        label = (f"{case} rows={rows} h={h} {dts}"
+                 + (f" residual {rdts}" if rdts else "")
+                 + (" bias" if with_bias else ""))
+        witness = {}
+        if main:
+            ones = torch.ones_like(x)
+            wit = bda_fwd(ones, torch.zeros_like(x), None, DROP_SEED, DROP_P)
+            keep = _row_keep(DROP_SEED, rows, h, DROP_P, "cuda")
+            rate = keep.float().mean().item()
+            sigma = (DROP_P * (1 - DROP_P) / keep.numel()) ** 0.5
+            witness = dict(equal_bits=bool(
+                torch.equal(wit != 0, keep)
+                and abs(rate - (1 - DROP_P)) < 3 * sigma))
+            label += (f"; witness keep rate {rate:.5f} vs {1 - DROP_P} "
+                      f"(3 sigma {3 * sigma:.2g})")
+            del ones, wit, keep
+        ms_f, ms_b = graph_ms(run_f), graph_ms(run_b)
+        with ops.force_impl("torch"):
+            pl_f, pl_b = event_ms(run_f, iters=3), event_ms(run_b, iters=3)
+        eb = x.element_size()
+        n = rows * h
+        bnd_f = bound_ms(n * (2 * eb + r.element_size())
+                         + (4 * h if with_bias else 0), 0)
+        bnd_b = bound_ms(2 * n * eb + (4 * h if with_bias else 0), 0)
+        fwd.append(dict(case=label, abs=(y.float() - wy.float()).abs()
+                        .max().item(), worst=0.0, tol=None, ms=ms_f,
+                        plain_ms=pl_f, library_ms=None, bound_ms=bnd_f[0],
+                        bound_by=bnd_f[1], main=main,
+                        rule="equal to the plain version", **witness))
+        e_dx = (dx.float() - wdx.float()).abs().max().item()
+        if with_bias:
+            e_db = max_errs(db, wdb, *TOLS["float32"])
+            row = dict(abs=max(e_dx, e_db[0]),
+                       worst=e_db[1] if e_dx == 0 else math.inf,
+                       tol=TOLS["float32"],
+                       rule="dx equal to the plain version, dbias f32 "
+                            "rtol/atol")
+        else:
+            row = dict(abs=e_dx, worst=0.0, tol=None,
+                       rule="equal to the plain version")
+        bwd.append(dict(case=label, ms=ms_b, plain_ms=pl_b, library_ms=None,
+                        bound_ms=bnd_b[0], bound_by=bnd_b[1], main=main,
+                        same_bits=same_bits, **row))
+        del x, r, dy, y, dx, wy, wdx
     return fwd, bwd
 
 
 #: the flash kernels' checks: (case, B, Hq, Hkv, Sq, Sk, dtype, causal,
-#: segments, q_off, k_off, dlse, main, head_dim)
+#: segments (False, True: `doc_segments`, "padding": `padding_segments`),
+#: q_off, k_off, dlse, main[, head_dim][, options]); options: "p" the
+#: dropout rate, "lib" time the library call (else only the main case)
 FLASH_CASES = [
     ("GPT-2 causal", TB, THEADS, THEADS, TS, TS, "bfloat16", True, False,
      0, 0, False, True),
@@ -654,9 +845,19 @@ FLASH_CASES = [
     ("return_lse, dlse", 4, THEADS, THEADS, 512, 512, "bfloat16", True,
      False, 0, 0, True, False),
     ("Llama GQA 32/8 causal", LB, LHEADS, LKV, LS, LS, "bfloat16", True,
-     False, 0, 0, False, False, LD),
+     False, 0, 0, False, False, LD, dict(lib=True)),
     ("Llama GQA 32/8 packed segments", LB, LHEADS, LKV, LS, LS, "bfloat16",
      True, True, 0, 0, False, False, LD),
+    ("BERT padding, p=0", 8, THEADS, THEADS, 512, 512, "bfloat16", False,
+     "padding", 0, 0, False, False, dict(lib=True)),
+    ("BERT padding, dropout", 8, THEADS, THEADS, 512, 512, "bfloat16",
+     False, "padding", 0, 0, False, False, dict(p=DROP_P, lib=True)),
+    ("GPT-2 causal, dropout", TB, THEADS, THEADS, TS, TS, "bfloat16", True,
+     False, 0, 0, False, False, dict(p=DROP_P)),
+    ("GQA 12/4, dropout", 4, THEADS, 4, 512, 512, "float16", True, False, 0,
+     0, True, False, dict(p=DROP_P)),
+    ("offsets q+64 k+192, dropout", 2, THEADS, THEADS, 512, 640, "float32",
+     True, False, 64, 192, False, False, dict(p=DROP_P)),
 ]
 
 
@@ -678,19 +879,93 @@ def doc_segments(B: int, S: int, seed: int):
     return ids
 
 
+def padding_segments(B: int, S: int, seed: int):
+    """(B, S) int32 segment ids of a BERT padding mask: 1 for the real
+    tokens (a row holds 256-512 of them, from the seed), 0 for the
+    pads."""
+    import numpy as np
+    lens = np.random.default_rng(seed).integers(S // 2, S + 1, B)
+    return (np.arange(S)[None, :] < lens[:, None]).astype(np.int32)
+
+
+def flash_witness(torch, ops):
+    """The dropout mask made visible: Sk = D = 128 and v the identity,
+    so out[q, j] = keep·e/l·(1/(1-p)) and out's zero pattern is the
+    kernel's mask at (q, j); it must equal the plain version's and the
+    mask `attn_keep_mask` gives (offsets 64/192, GQA 4/2, bf16). dk/dv's
+    loop walks the query heads of a kv head's group: with dO one-hot on
+    query row 5, dv[key] is zero exactly where every head of the group
+    dropped that key. Returns (forward ok, dk/dv ok, keep rate, 3 sigma
+    of it)."""
+    from apex1_tpu_torch.ops.attention import _keep, flash_dkv, flash_fwd
+    B, Hq, Hkv, S, p = 2, 4, 2, 128, DROP_P
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    q = (0.1 * torch.randn(B, Hq, S, S, generator=g, device="cuda")).to(
+        torch.bfloat16)
+    k = (0.1 * torch.randn(B, Hkv, S, S, generator=g, device="cuda")).to(
+        torch.bfloat16)
+    v = torch.eye(S, device="cuda", dtype=torch.bfloat16).expand(
+        B, Hkv, S, S).contiguous()
+    args = (None, None, S ** -0.5, False, 64, 192, p, DROP_SEED)
+    out, lse = flash_fwd(q, k, v, *args)
+    with ops.force_impl("torch"):
+        wout, _ = flash_fwd(q, k, v, *args)
+    keep = _keep(q, S, 64, 192, p, DROP_SEED)
+    fwd_ok = torch.equal(out != 0, keep) and torch.equal(wout != 0, keep)
+    do = torch.zeros_like(q)
+    do[:, :, 5, :] = 1
+    delta = (do.float() * out.float()).sum(-1)
+    _, dv = flash_dkv(q, k, v, do, lse, delta, None, *args)
+    kept = keep[:, :, 5, :].reshape(B, Hkv, Hq // Hkv, S).any(dim=2)
+    rate = keep.float().mean().item()
+    sigma = (p * (1 - p) / keep.numel()) ** 0.5
+    ok_rate = abs(rate - (1 - p)) < 3 * sigma
+    return (fwd_ok and ok_rate, torch.equal(dv[..., 0] != 0, kept), rate,
+            3 * sigma)
+
+
+def sdpa_ms(torch, q, k, v, qseg, kseg, causal, p, do):
+    """The library yardstick: ``F.scaled_dot_product_attention`` on the
+    same operands (segments as a boolean mask, GQA through
+    ``enable_gqa``, dropout from its own generator), forward and whole
+    backward; (None, None, why) where this torch has no such call."""
+    import torch.nn.functional as F
+    kw = dict(dropout_p=p)
+    if qseg is not None:
+        kw["attn_mask"] = qseg[:, None, :, None] == kseg[:, None, None, :]
+    else:
+        kw["is_causal"] = causal
+    if q.shape[1] != k.shape[1]:
+        kw["enable_gqa"] = True
+    try:
+        f_ms = event_ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                               **kw))
+        qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+        o = F.scaled_dot_product_attention(qr, kr, vr, **kw)
+        b_ms = event_ms(lambda: torch.autograd.grad(
+            o, (qr, kr, vr), do, retain_graph=True))
+        return f_ms, b_ms, None
+    except (TypeError, RuntimeError) as e:
+        return None, None, f"{type(e).__name__}: {e}"[:160]
+
+
 def check_flash(torch, ops, gen):
     """Kernels 3-5 (flash forward, dq, dk/dv) against their plain
     versions: out and lse from the forward; dq and dk/dv from the same
-    (q, k, v, dout, lse, δ, dlse), each run twice for the same bits.
-    Bounds count the valid (q, k) pairs of this run's mask: 2 products
-    forward, 3 for dq, 4 for dk/dv, 2·D flops a pair each."""
-    import torch.nn.functional as F
+    (q, k, v, dout, lse, δ, dlse), each run twice for the same bits;
+    with dropout (p > 0) both sides draw the same hash mask, and the
+    first dropout case carries `flash_witness`. Bounds count the valid
+    (q, k) pairs of this run's mask: 2 products forward, 3 for dq, 4
+    for dk/dv, 2·D flops a pair each."""
     from apex1_tpu_torch.ops.attention import (_valid, flash_dkv, flash_dq,
                                                flash_fwd)
     fwd, dq_rows, dkv_rows = [], [], []
+    witness = None
     for (case, B, Hq, Hkv, Sq, Sk, dts, causal, segs, q_off, k_off, with_dlse,
-         main, *d) in FLASH_CASES:
-        D = d[0] if d else TH // THEADS
+         main, *extra) in FLASH_CASES:
+        opts = next((e for e in extra if isinstance(e, dict)), {})
+        D = next((e for e in extra if isinstance(e, int)), TH // THEADS)
+        p = opts.get("p", 0.0)
         dt = getattr(torch, dts)
 
         def rnd(*shape):
@@ -702,8 +977,11 @@ def check_flash(torch, ops, gen):
                 if with_dlse else None)
         qseg = kseg = None
         if segs:
-            qseg = kseg = torch.from_numpy(doc_segments(B, Sq, SEED)).cuda()
-        args = (qseg, kseg, 1.0 / math.sqrt(D), causal, q_off, k_off)
+            ids = (padding_segments if segs == "padding" else doc_segments)(
+                B, Sq, SEED)
+            qseg = kseg = torch.from_numpy(ids).cuda()
+        args = (qseg, kseg, 1.0 / math.sqrt(D), causal, q_off, k_off) + (
+            (p, DROP_SEED) if p else ())
         tol = TOLS[dts]
 
         def run_f(vv=None):
@@ -745,21 +1023,27 @@ def check_flash(torch, ops, gen):
             pl_q = event_ms(lambda: flash_dq(*bwd), iters=3)
             pl_kv = event_ms(lambda: flash_dkv(*bwd), iters=3)
         lib_f = lib_b = None
-        if main:
-            lib_f = event_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True))
-            qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
-            o = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
-            lib_b = event_ms(lambda: torch.autograd.grad(
-                o, (qr, kr, vr), do, retain_graph=True))
-            del qr, kr, vr, o
+        label = f"{case} B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Sk={Sk} D={D} {dts}"
+        if p:
+            label += f" p={p}"
+        if main or opts.get("lib"):
+            lib_f, lib_b, why = sdpa_ms(torch, q, k, v, qseg, kseg, causal,
+                                        p, do)
+            if why:
+                label += f"; library call unavailable ({why})"
+        wit = {}
+        if p and witness is None:
+            witness = flash_witness(torch, ops)
+            label += (f"; witness keep rate {witness[2]:.5f} vs {1 - p} "
+                      f"(3 sigma {witness[3]:.2g})")
+            wit = dict(fwd=dict(equal_bits=witness[0]),
+                       dkv=dict(equal_bits=witness[1]))
         mask = _valid(B, Sq, Sk, qseg, kseg, causal, q_off, k_off, "cuda")
         pairs = mask.sum().item() * Hq * (B if mask.shape[0] == 1 else 1)
         eb = q.element_size()
         nq, nkv = B * Hq * Sq * D * eb, B * Hkv * Sk * D * eb
         stats = B * Hq * Sq * 4
         peak = F32_OPS_PER_S if dt == torch.float32 else BF16_OPS_PER_S
-        label = f"{case} B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Sk={Sk} D={D} {dts}"
         b_f = bound_ms(2 * nq + 2 * nkv + stats, 4 * D * pairs, peak)
         b_q = bound_ms(3 * nq + 2 * nkv + 3 * stats, 6 * D * pairs, peak)
         b_kv = bound_ms(2 * nq + 4 * nkv + 3 * stats, 8 * D * pairs, peak)
@@ -767,6 +1051,7 @@ def check_flash(torch, ops, gen):
                         worst=max(e1[1], e2[1]), tol=tol, ms=ms_f,
                         plain_ms=pl_f, library_ms=lib_f, bound_ms=b_f[0],
                         bound_by=b_f[1], main=main,
+                        **wit.get("fwd", {}),
                         **({} if dt == torch.float32 else {
                             "rule": f"out: rounding bound of P, u="
                                     f"{UNIT[dts]:g}; lse: f32 rtol/atol"})))
@@ -779,7 +1064,7 @@ def check_flash(torch, ops, gen):
         dkv_rows.append(dict(case=label, abs=ekv[0], worst=ekv[1], tol=tol,
                              ms=ms_kv, plain_ms=pl_kv, library_ms=lib_b,
                              bound_ms=b_kv[0], bound_by=b_kv[1], main=main,
-                             same_bits=same_dkv))
+                             same_bits=same_dkv, **wit.get("dkv", {})))
         del out, wout, dq, wdq, dk, dv, wdk, wdv, dk2, dv2
         torch.cuda.empty_cache()
     return fwd, dq_rows, dkv_rows
@@ -810,6 +1095,12 @@ LXENT_CASES = [
      10000, 0.1, 0, 0, False, 1024, False),
     ("wide, ragged", 999, 9001, "float32", 9000, 0, 0.0, None, 1, False,
      200 * 8 + 1, False),
+    # BERT's fused MLM head: the ones column makes H + 1 (a 1538-byte
+    # bf16 row: scalar loads), labels -1 outside the masked tokens
+    ("BERT-base MLM head", 8 * 512, 30522, "bfloat16", 30522, 0, 0.0, -1,
+     0, False, 769, True),
+    ("BERT-large MLM head", 4 * 512, 30522, "bfloat16", 30522, 0, 0.0, -1,
+     0, False, 1025, True),
 ]
 
 
@@ -1280,6 +1571,21 @@ def kernel_split(torch, prof, steps: int, wall: float, top: int = 12):
                     for k, ms, c in rows[:top]]}
 
 
+def profiled_steps(torch, state, step, batch, steps: int = 3) -> dict:
+    """``steps`` more steps under torch.profiler: the step's host wall,
+    device kernel ms and busy share, and the largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, _ = step(state, *batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps * 1e3
+    return kernel_split(torch, prof, steps, wall, top=25)
+
+
 def profile_train(torch, use_flash: bool, fuse_head: bool = False,
                   steps: int = 3) -> dict:
     """``--profile``: where a GPT-2 124M O2 training step's time goes
@@ -1288,48 +1594,30 @@ def profile_train(torch, use_flash: bool, fuse_head: bool = False,
     under torch.profiler; with the step's peak memory. (With 2 profiled
     steps, the third profiler session of a process once reported every
     kernel at half its time; 3 steps read consistently in any order.)"""
-    from torch.profiler import ProfilerActivity, profile
     _, state, step, batch = make_trainer(torch, "O2", 12, SEED,
                                          use_flash=use_flash,
                                          fuse_head=fuse_head)
     torch.cuda.reset_peak_memory_stats()
     for _ in range(2):
         state, _ = step(state, *batch)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            state, _ = step(state, *batch)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / steps * 1e3
+    prof = profiled_steps(torch, state, step, batch, steps)
     return {"use_flash": use_flash, "fuse_head": fuse_head,
-            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-            **kernel_split(torch, prof, steps, wall, top=25)}
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30, **prof}
 
 
 def profile_llama(torch, fused_mlp: bool, steps: int = 3) -> dict:
     """``--profile``: where a llama_block O2 training step's time goes
     (train-llama's configuration, ``fused_mlp`` as given), as
     `profile_train` measures it."""
-    from torch.profiler import ProfilerActivity, profile
     _, state, step, batch = make_llama_trainer(torch, "O2", LLAYERS, SEED,
                                                fused_mlp=fused_mlp)
     torch.cuda.reset_peak_memory_stats()
     for _ in range(2):
         state, _ = step(state, *batch)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            state, _ = step(state, *batch)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / steps * 1e3
     out = {"fused_mlp": fused_mlp,
-           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-           **kernel_split(torch, prof, steps, wall, top=25)}
-    del state, step, batch, prof
+           **profiled_steps(torch, state, step, batch, steps),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del state, step, batch
     torch.cuda.empty_cache()
     return out
 
@@ -1344,17 +1632,20 @@ HEAD_KERNELS = {True: ("lxent_fwd", "lxent_dx", "lxent_dw"),
 
 
 def train_launches(num_layers: int, use_flash: bool,
-                   fuse_head: bool = False) -> dict:
+                   fuse_head: bool = False, dropout: bool = False) -> dict:
     """Kernel launches per GPT-2 training step: two norms a block and
     the final one; one causal attention a block (the fused softmax, or
     the flash forward, dq and dk/dv); one head cross-entropy (the
     materialized one's forward and backward, or the fused head's
-    forward, dx and dW)."""
+    forward, dx and dW); with dropout two bias-dropout-adds a block
+    (the residual adds)."""
     n_norm = 2 * num_layers + 1
     attn = (("flash_fwd", "flash_dq", "flash_dkv") if use_flash
             else ("softmax_fwd", "softmax_bwd"))
+    drop = ("bda_fwd", "bda_bwd") if dropout else ()
     return {"layer_norm_fwd": n_norm, "layer_norm_bwd": n_norm,
             **{name: num_layers for name in attn},
+            **{name: 2 * num_layers for name in drop},
             **{name: 1 for name in HEAD_KERNELS[fuse_head]}}
 
 
@@ -1374,12 +1665,15 @@ def packed_batch(torch, vocab: int):
 
 
 def make_trainer(torch, level: str, depth: int, seed: int, factor=False,
-                 use_flash=False, packed=False, fuse_head=False):
+                 use_flash=False, packed=False, fuse_head=False,
+                 dropout=0.0):
     """GPT-2 124M at full width (``depth`` layers), weights from
     ``seed``, under ``Amp(fused_adam(1e-4, weight_decay=0.01),
     opt_level=level)``, its loss ``gpt2_loss_fn(fuse_head=...)``, and
     its batch: the B x S tokens of ``np.random.default_rng(0)``, or
-    with ``packed`` a `packed_batch`.
+    with ``packed`` a `packed_batch`; with ``dropout`` the model's
+    dropout rate, the batch ending in an int base seed (``dropout_rng``,
+    the tokens not packed).
     With ``factor`` the step takes a factor before the batch that
     multiplies the loss (inf forces an overflow)."""
     import numpy as np
@@ -1387,7 +1681,7 @@ def make_trainer(torch, level: str, depth: int, seed: int, factor=False,
                                  gpt2_loss_fn, gpt2_params_from_jax)
     from apex1_tpu_torch.models.gpt2 import init_params
     cfg = GPT2Config.gpt2_125m(num_layers=depth, use_flash=use_flash,
-                               policy=get_policy(level))
+                               policy=get_policy(level), dropout=dropout)
     model = gpt2_params_from_jax(init_params(cfg, seed), cfg, "cuda")
     amp = Amp(fused_adam(1e-4, weight_decay=0.01), opt_level=level)
     state = amp.init(dict(model.named_parameters()))
@@ -1398,11 +1692,13 @@ def make_trainer(torch, level: str, depth: int, seed: int, factor=False,
     else:
         batch = (torch.from_numpy(np.random.default_rng(0).integers(
             0, cfg.vocab_size, (TB, TS))).cuda(),)
+    if dropout > 0.0:
+        batch = batch + (None, None, SEED)
     return cfg, state, amp.make_train_step(loss_fn), batch
 
 
 def train(torch, ops, level: str, use_flash=False, packed=False,
-          steps: int = 6, fuse_head=False):
+          steps: int = 6, fuse_head=False, dropout=0.0):
     """``steps`` training steps of GPT-2 124M at ``level``; per step the
     loss, loss scale, skipped count, host wall (ending in a
     synchronize) and the kernel launches it made; and the peak device
@@ -1410,14 +1706,17 @@ def train(torch, ops, level: str, use_flash=False, packed=False,
     cfg, state, step, batch = make_trainer(torch, level, 12, SEED,
                                            use_flash=use_flash,
                                            packed=packed,
-                                           fuse_head=fuse_head)
+                                           fuse_head=fuse_head,
+                                           dropout=dropout)
     return (cfg, *run_steps(torch, ops, state, step, batch, steps))
 
 
-def run_steps(torch, ops, state, step, batch, steps: int):
+def run_steps(torch, ops, state, step, batch, steps: int,
+              return_state: bool = False):
     """``steps`` steps from ``state``: per step the loss, grad norm,
     loss scale, skipped count, host wall (ending in a synchronize) and
-    the kernel launches it made; and the peak device memory (GiB)."""
+    the kernel launches it made; and the peak device memory (GiB); with
+    ``return_state`` also the state the steps leave."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rows, prev = [], ops.launch_counts()
@@ -1435,7 +1734,12 @@ def run_steps(torch, ops, state, step, batch, steps: int):
                                    if now[k] != prev[k]}))
         prev = now
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    return rows, peak
+    return (rows, peak, state) if return_state else (rows, peak)
+
+
+#: train-parity's O2_fp16 run: at most this many steps (the forced
+#: overflow waits for the dynamic scale's first finite step)
+FP16_MAX_STEPS = 6
 
 
 def train_parity(torch, ops, use_flash: bool, fuse_head: bool = False,
@@ -1445,10 +1749,13 @@ def train_parity(torch, ops, use_flash: bool, fuse_head: bool = False,
     per step (on the dense batch, and with ``use_flash`` and the
     materialized head also on the packed one: the fused head sees the
     same hidden states either way); O2_fp16 with the loss multiplied by
-    inf at step 2 on both sides, with whether step 2 left every param
-    bit for bit as step 1 left it. ``make(level, packed, factor) ->
-    (cfg, state, step, batch)`` builds another model's trainer (dense
-    batch only)."""
+    inf on both sides at the step after the first finite one (step 2,
+    unless the dynamic scale still overflows by itself while it
+    calibrates down from 2^16, as BERT's does at step 1), then one more
+    step, with whether the forced step left every param bit for bit as
+    the step before left it. ``make(level, packed, factor) -> (cfg,
+    state, step, batch)`` builds another model's trainer (dense batch
+    only)."""
     import contextlib
     if make is None:
         def make(level, packed, factor):
@@ -1473,9 +1780,11 @@ def train_parity(torch, ops, use_flash: bool, fuse_head: bool = False,
                     rows.append((m["loss"].item(), m["grad_norm"].item()))
                 del state
             _, state, step, batch = make("O2_fp16", False, True)
-            fp16, params = [], []
-            for i in range(steps):
-                f = torch.tensor(float("inf") if i == 1 else 1.0,
+            fp16, params, forced = [], [], None
+            while len(fp16) < FP16_MAX_STEPS and (
+                    forced is None or len(fp16) <= forced + 1):
+                i = len(fp16)
+                f = torch.tensor(float("inf") if i == forced else 1.0,
                                  device="cuda")
                 state, m = step(state, f, *batch)
                 params.append(state.params)
@@ -1484,10 +1793,14 @@ def train_parity(torch, ops, use_flash: bool, fuse_head: bool = False,
                     skipped=int(m["skipped_steps"].item()),
                     scale_used=m["loss_scale"].item(),
                     scale_after=state.loss_scale.scale.item()))
-            kept = all(torch.equal(params[1][k], params[0][k])
-                       for k in params[0])
+                if forced is None and fp16[-1]["finite"]:
+                    forced = i + 1
+            kept = forced is not None and forced < len(params) and all(
+                torch.equal(params[forced][k], params[forced - 1][k])
+                for k in params[0])
             del state, params
-        out[impl] = dict(o0=o0, fp16=fp16, step2_params_kept=kept,
+        out[impl] = dict(o0=o0, fp16=fp16, forced=forced,
+                         step2_params_kept=kept,
                          launches={k: n for k, n in
                                    ops.launch_counts().items() if n})
         torch.cuda.empty_cache()
@@ -1495,14 +1808,15 @@ def train_parity(torch, ops, use_flash: bool, fuse_head: bool = False,
 
 
 def run_train_phase(torch, ops, card, phase, use_flash, packed, levels,
-                    launches, fuse_head=False, fused_mlp=None):
+                    launches, fuse_head=False, fused_mlp=None, dropout=0.0):
     """Train ``steps`` steps at each (level, steps) of ``levels``; print
     every step and the summary line; add this phase's launches to
-    ``launches``. GPT-2 124M, or with ``fused_mlp`` True or False the
-    llama_block model (its fused head, the flash path). Returns
-    (results, failure or None)."""
+    ``launches``. GPT-2 124M (with ``dropout``, its training dropout),
+    or with ``fused_mlp`` True or False the llama_block model (its
+    fused head, the flash path). Returns (results, failure or None)."""
     if fused_mlp is None:
-        per_step, n_tok = train_launches(12, use_flash, fuse_head), TB * TS
+        per_step = train_launches(12, use_flash, fuse_head, dropout > 0)
+        n_tok = TB * TS
     else:
         per_step, n_tok = llama_launches(LLAYERS, fused_mlp), LB * LS
     results = {}
@@ -1511,9 +1825,10 @@ def run_train_phase(torch, ops, card, phase, use_flash, packed, levels,
         if fused_mlp is None:
             tcfg, rows, peak = train(torch, ops, level, use_flash=use_flash,
                                      packed=packed, steps=steps,
-                                     fuse_head=fuse_head)
+                                     fuse_head=fuse_head, dropout=dropout)
             desc = (f"GPT-2 124M {level} use_flash={use_flash} fuse_head="
-                    f"{fuse_head} {'packed ' if packed else ''}B={TB} S={TS} "
+                    f"{fuse_head} dropout {tcfg.dropout} "
+                    f"{'packed ' if packed else ''}B={TB} S={TS} "
                     f"width {tcfg.hidden_size} layers {tcfg.num_layers} "
                     f"vocab {tcfg.vocab_size}/{tcfg.padded_vocab}")
         else:
@@ -1589,16 +1904,21 @@ def check_train_parity(par, card, label, use_flash, fuse_head=False,
                 return (f"{phase} {label} O0 {batch}: kernels "
                         f"{k['o0'][batch]} vs plain {p['o0'][batch]}")
     for side in ("kernel", "torch"):
-        f = par[side]["fp16"]
-        print(f"phase {phase}: {label} O2_fp16 inf at step 2, {side}: "
-              f"{f}, step-2 params kept bit for bit "
-              f"{par[side]['step2_params_kept']} [{card}]")
-        if ([r["finite"] for r in f] != [True, False, True]
-                or f[1]["skipped"] != 1 or f[-1]["skipped"] != 1
-                or f[1]["scale_after"] != f[1]["scale_used"] / 2
+        f, k = par[side]["fp16"], par[side]["forced"]
+        print(f"phase {phase}: {label} O2_fp16 inf at step "
+              f"{None if k is None else k + 1}, {side}: {f}, its params "
+              f"kept bit for bit {par[side]['step2_params_kept']} [{card}]")
+        # the steps before the first finite one overflowed by themselves;
+        # the forced step must be skipped on its own and the next one
+        # finite
+        if (k is None or [r["finite"] for r in f]
+                != [False] * (k - 1) + [True, False, True]
+                or f[k]["skipped"] != f[k - 1]["skipped"] + 1
+                or f[-1]["skipped"] != f[k]["skipped"]
+                or f[k]["scale_after"] != f[k]["scale_used"] / 2
                 or not par[side]["step2_params_kept"]):
             return (f"{phase} {label} O2_fp16 ({side}): the forced "
-                    f"overflow did not skip step 2 cleanly: {f}")
+                    f"overflow did not skip its step cleanly: {f}")
     return None
 
 
@@ -2017,6 +2337,214 @@ def top2_gap(torch, logits, row: int, step: int, temperature: float,
     return ((top[0] - top[1]) / top[0].abs()).item()
 
 
+# ---- the BERT slice: the JAX bench's bert, bert_dropout, bert_large ---------
+
+#: the bench's BERT configurations (`bench.py:220-258`): BERT-base or
+#: BERT-large at full width and depth, O2, B x 512 tokens, dropout, and
+#: the A100 proxy BASELINE.md pins (tokens/s)
+BERT_RUNS = {
+    "bert": dict(large=False, B=8, dropout=0.0, proxy=173_000.0),
+    "bert_dropout": dict(large=False, B=8, dropout=0.1, proxy=173_000.0),
+    "bert_large": dict(large=True, B=4, dropout=0.0, proxy=57_500.0),
+}
+BERT_S = 512
+#: train-bert-parity: depth (full BERT-base width), batch rows, learning
+#: rate (Llama's parity showed a depth-2 model memorizing its one batch
+#: at 1e-4, after which 1e-5 loss comparisons read rounding)
+BPAR_DEPTH, BPAR_B, BPAR_LR = 2, 8, 1e-5
+
+
+def make_bert(level: str, large: bool, seed: int, dropout: float,
+              depth=None):
+    """BertPretrain at the bench's widths (BERT-base, or BERT-large with
+    ``large``), ``depth`` layers (the config's when None), at ``level``,
+    its weights drawn on the card from ``seed`` (`init_weights`).
+    Returns (cfg, model)."""
+    from apex1_tpu_torch import BertConfig, BertPretrain, get_policy
+    from apex1_tpu_torch.models.bert import init_weights
+    mk = BertConfig.bert_large if large else BertConfig.bert_base
+    kw = {} if depth is None else dict(num_layers=depth)
+    cfg = mk(policy=get_policy(level), dropout=dropout, **kw)
+    return cfg, init_weights(BertPretrain(cfg, device="cuda"), seed)
+
+
+def bert_batch(torch, vocab: int, B: int, dropout: float, padded: bool):
+    """The bench's batch (`bench.py:233-239`): B x 512 tokens of
+    ``np.random.default_rng(0)``, MLM labels -1 outside a 15 % draw,
+    NSP labels in {0, 1}; with ``dropout`` an int base seed as
+    ``dropout_rng``; with ``padded`` an ``attention_mask`` whose rows
+    hold 256-512 real tokens (``default_rng(2)``), pads unlabelled."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, vocab, (B, BERT_S))
+    mlm = np.where(rng.random((B, BERT_S)) < 0.15,
+                   rng.integers(0, vocab, (B, BERT_S)), -1)
+    nsp = rng.integers(0, 2, (B,))
+    batch = {}
+    if padded:
+        mask = padding_segments(B, BERT_S, 2)
+        mlm = np.where(mask == 1, mlm, -1)
+        batch["attention_mask"] = torch.from_numpy(mask)
+    batch.update(tokens=torch.from_numpy(tokens),
+                 mlm_labels=torch.from_numpy(mlm),
+                 nsp_labels=torch.from_numpy(nsp))
+    batch = {k: v.cuda() for k, v in batch.items()}
+    if dropout > 0.0:
+        batch["dropout_rng"] = SEED
+    return batch
+
+
+def make_bert_trainer(torch, level: str, large: bool, seed: int, *, B: int,
+                      dropout: float, depth=None, fuse_head=True,
+                      factor=False, padded=False, lr: float = 1e-4):
+    """`make_bert` under ``Amp(fused_adam(lr, weight_decay=0.01),
+    opt_level=level)`` (the bench's optimizer at lr 1e-4), its loss
+    ``bert_pretrain_loss_fn(fuse_head=...)`` and its `bert_batch`. With
+    ``factor`` the step takes a factor before the batch that multiplies
+    the loss (inf forces an overflow)."""
+    from apex1_tpu_torch import Amp, bert_pretrain_loss_fn, fused_adam
+    cfg, model = make_bert(level, large, seed, dropout, depth)
+    amp = Amp(fused_adam(lr, weight_decay=0.01), opt_level=level)
+    state = amp.init(dict(model.named_parameters()))
+    base = bert_pretrain_loss_fn(model, fuse_head=fuse_head)
+    loss_fn = (lambda p, f, b: base(p, b) * f) if factor else base
+    return (cfg, state, amp.make_train_step(loss_fn),
+            (bert_batch(torch, cfg.vocab_size, B, dropout, padded),))
+
+
+def bert_launches(num_layers: int, dropout: bool,
+                  fuse_head: bool = True) -> dict:
+    """Kernel launches per BERT pretraining step: the embedding norm,
+    two norms a layer and the MLM head's norm (2L + 2, forward and
+    backward); one non-causal flash attention a layer; with dropout two
+    bias-dropout-adds a layer (the two residual epilogues); the MLM
+    head (the fused head's forward, dx and dW, or the materialized
+    cross-entropy) and the NSP cross-entropy."""
+    L = num_layers
+    out = {"layer_norm_fwd": 2 * L + 2, "layer_norm_bwd": 2 * L + 2,
+           "flash_fwd": L, "flash_dq": L, "flash_dkv": L,
+           "xent_fwd": 1, "xent_bwd": 1}
+    for name in HEAD_KERNELS[fuse_head]:
+        out[name] = out.get(name, 0) + 1
+    if dropout:
+        out.update(bda_fwd=2 * L, bda_bwd=2 * L)
+    return out
+
+
+def run_bert_phase(torch, ops, card, phase: str, bench: str, levels,
+                   launches, padded: bool = False):
+    """Train the bench configuration ``bench`` (`BERT_RUNS`) for each
+    (level, steps) of ``levels``; print every step and the summary line
+    (tokens/s = B x S over the median step wall of steps 2..n beside
+    the A100 proxy, device ms a step from 3 more profiled steps, peak
+    memory); add the counted steps' launches to ``launches``. Returns
+    (results, failure or None)."""
+    run = BERT_RUNS[bench]
+    results = {}
+    for level, steps in levels:
+        ops.reset_launches()
+        cfg, state, step, batch = make_bert_trainer(
+            torch, level, run["large"], SEED, B=run["B"],
+            dropout=run["dropout"], padded=padded)
+        per_step = bert_launches(cfg.num_layers, run["dropout"] > 0)
+        rows, peak, state = run_steps(torch, ops, state, step, batch, steps,
+                                      return_state=True)
+        for name, n in ops.launch_counts().items():
+            launches[name] = launches.get(name, 0) + n
+        prof = profiled_steps(torch, state, step, batch)
+        del state, step, batch
+        n_tok = run["B"] * BERT_S
+        walls = sorted(r["wall_ms"] for r in rows[1:])
+        med = walls[len(walls) // 2]
+        results[level] = dict(steps=rows, peak_gib=peak, step_wall_ms=med,
+                              tokens_per_s=n_tok / med * 1e3,
+                              proxy_tokens_per_s=run["proxy"], profile=prof)
+        for r in rows:
+            print(f"phase {phase}: {level} step {r['step']} loss "
+                  f"{r['loss']:.6f} grad_norm {r['grad_norm']:.4f} "
+                  f"loss_scale {r['loss_scale']:g} skipped_steps "
+                  f"{r['skipped']} wall {r['wall_ms']:.1f} ms launches "
+                  f"{r['launches']} [{card}]")
+        print(f"phase {phase}: {bench} {level} dropout {cfg.dropout} "
+              f"{'padded ' if padded else ''}B={run['B']} S={BERT_S} width "
+              f"{cfg.hidden_size} layers {cfg.num_layers} heads "
+              f"{cfg.num_heads} ffn {cfg.intermediate_size} vocab "
+              f"{cfg.vocab_size}; step wall {med:.2f} ms (median of steps "
+              f"2-{len(rows)}), {n_tok / med * 1e3:.0f} tokens/s (A100 "
+              f"proxy {run['proxy']:.0f}, bench.py), device "
+              f"{prof['device_ms_per_step']:.2f} ms a step ("
+              f"{prof['device_busy']:.0%} busy over 3 profiled steps), "
+              f"peak memory {peak:.2f} GiB [{card}]")
+        losses = [r["loss"] for r in rows]
+        if not all(math.isfinite(v) for v in losses):
+            return results, f"{phase} {level}: a loss is not finite: {losses}"
+        if level == "O2" and not losses[-1] < losses[0]:
+            return results, f"{phase} O2: the loss did not fall: {losses}"
+        for r in rows:
+            if r["launches"] != per_step:
+                return results, (f"{phase} {level} step {r['step']}: "
+                                 f"launches {r['launches']}, expected "
+                                 f"{per_step}")
+        torch.cuda.empty_cache()
+    return results, None
+
+
+def run_bert_parity(torch, ops, card):
+    """train-bert-parity: BERT-base width, depth 2, B x 512 tokens,
+    dropout 0.1 with the same seeds, lr 1e-5, through the kernels and
+    the plain versions (`train_parity`: O0 losses and grad norms, the
+    O2_fp16 forced overflow), with the fused and the materialized MLM
+    head; then the fused head's step-1 O0 loss against the materialized
+    head's on the same weights. Returns (results, failure or None)."""
+    par = {}
+    for fuse in (True, False):
+        label = f"dropout 0.1 fuse_head={fuse}"
+
+        def make(level, packed, factor, fuse=fuse):
+            return make_bert_trainer(torch, level, False, SEED + 1,
+                                     B=BPAR_B, dropout=0.1, depth=BPAR_DEPTH,
+                                     fuse_head=fuse, factor=factor,
+                                     lr=BPAR_LR)
+
+        par[label] = train_parity(torch, ops, True, fuse, make=make)
+        need = ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd", "flash_dq",
+                "flash_dkv", "xent_fwd", "xent_bwd", "bda_fwd", "bda_bwd"
+                ) + HEAD_KERNELS[fuse]
+        other = ("softmax_fwd", "softmax_bwd") + (
+            () if fuse else HEAD_KERNELS[True])
+        err = check_train_parity(par[label], card, label, True, fuse,
+                                 kernels=(need, other),
+                                 phase="train-bert-parity")
+        if err:
+            return par, err
+    lf = par["dropout 0.1 fuse_head=True"]["kernel"]["o0"]["dense"][0][0]
+    lm = par["dropout 0.1 fuse_head=False"]["kernel"]["o0"]["dense"][0][0]
+    print(f"phase train-bert-parity: O0 depth {BPAR_DEPTH} step-1 loss on "
+          f"the same weights, fuse_head=True {lf:.7f} vs fuse_head=False "
+          f"{lm:.7f}, relative difference {abs(lf - lm) / abs(lm):.2e} "
+          f"[{card}]")
+    if abs(lf - lm) > 1e-5 * abs(lm):
+        return par, (f"train-bert-parity: the fused head's loss {lf} is "
+                     f"not the materialized head's {lm}")
+    return par, None
+
+
+def profile_bert(torch, bench: str = "bert_large", steps: int = 3) -> dict:
+    """``--profile``: where a BERT O2 training step's time goes (the
+    bench configuration ``bench``), as `profile_train` measures it."""
+    run = BERT_RUNS[bench]
+    _, state, step, batch = make_bert_trainer(
+        torch, "O2", run["large"], SEED, B=run["B"], dropout=run["dropout"])
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        state, _ = step(state, *batch)
+    out = {"bench": bench, **profiled_steps(torch, state, step, batch, steps),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2064,7 +2592,8 @@ def main() -> int:
                 "train_fused_head": profile_train(torch, use_flash=True,
                                                   fuse_head=True),
             "llama_block": profile_llama(torch, fused_mlp=False),
-            "llama_block_fused_mlp": profile_llama(torch, fused_mlp=True)}
+            "llama_block_fused_mlp": profile_llama(torch, fused_mlp=True),
+            "bert_large": profile_bert(torch, "bert_large")}
         os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
         with open(os.path.join(HERE, "chiprun_out", "profile.json"),
                   "w") as f:
@@ -2086,7 +2615,8 @@ def main() -> int:
             (("flash_fwd", "flash_dq", "flash_dkv"), check_flash, cgen),
             (("lxent_fwd", "lxent_dx", "lxent_dw"), check_lxent, cgen),
             (("rope",), check_rope, cgen),
-            (("glu_fwd",), check_glu, cgen)):
+            (("glu_fwd",), check_glu, cgen),
+            (("bda_fwd", "bda_bwd"), check_bda, cgen)):
         t0 = time.perf_counter()
         out = fn(torch, ops, g)
         checks.update(zip(names, out if len(names) > 1 else (out,)))
@@ -2327,12 +2857,39 @@ def main() -> int:
         return fail(err)
 
     stamp("serve-llama")
+
+    # 15. the BERT slice: the bench's bert_dropout, bert, bert_large, and
+    # bert_dropout on a padded batch; then its kernel-vs-plain parity
+    bert_out = {}
+    for phase, bench, levels, padded in (
+            ("train-bert-dropout", "bert_dropout", (("O2", 6),), False),
+            ("train-bert", "bert", (("O2", 6),), False),
+            ("train-bert-large", "bert_large", (("O2", 6),), False),
+            ("train-bert-padded", "bert_dropout", (("O2", 6),), True)):
+        bert_out[phase], err = run_bert_phase(
+            torch, ops, card, phase, bench, levels, main_launches,
+            padded=padded)
+        if err:
+            return fail(err)
+    stamp("train-bert")
+    bert_out["parity"], err = run_bert_parity(torch, ops, card)
+    if err:
+        return fail(err)
+    stamp("train-bert-parity")
+
+    # 16. train-gpt2-dropout: GPT-2 124M, flash, fused head, dropout 0.1
+    train_out["train-gpt2-dropout"], err = run_train_phase(
+        torch, ops, card, "train-gpt2-dropout", True, False, (("O2", 3),),
+        main_launches, fuse_head=True, dropout=0.1)
+    if err:
+        return fail(err)
+    stamp("train-gpt2-dropout")
     print(f"phase times: { {k: round(v, 1) for k, v in phase_s.items()} } "
           f"s wall [{card}]")
 
-    # 15. the kernels line, the card, the last line. launches: the main
+    # 17. the kernels line, the card, the last line. launches: the main
     # paths' runs (engine, the train phases, dpo, generate, train-llama,
-    # serve-llama and its generate)
+    # serve-llama and its generate, the BERT phases, train-gpt2-dropout)
     sources = {"layer_norm_fwd": ("apex1_tpu_torch/csrc/layer_norm.cu",
                                   "apex1_tpu/ops/layer_norm.py:110"),
                "paged_attend": ("apex1_tpu_torch/csrc/paged_attend.cu",
@@ -2365,7 +2922,11 @@ def main() -> int:
                "rope": ("apex1_tpu_torch/csrc/rope.cu",
                         "apex1_tpu/ops/rope.py:51"),
                "glu_fwd": ("apex1_tpu_torch/csrc/glu.cu",
-                           "apex1_tpu/ops/fused_dense.py:201")}
+                           "apex1_tpu/ops/fused_dense.py:201"),
+               "bda_fwd": ("apex1_tpu_torch/csrc/bias_dropout_add.cu",
+                           "apex1_tpu/ops/stochastic.py:210"),
+               "bda_bwd": ("apex1_tpu_torch/csrc/bias_dropout_add.cu",
+                           "apex1_tpu/ops/stochastic.py:234")}
     kernels = []
     for name, rows in checks.items():
         main_row = next(r for r in rows if r["main"])
@@ -2385,7 +2946,7 @@ def main() -> int:
                               "step_ms": step_ms, "summary": summ},
                    "train": train_out, "train_parity": par,
                    "dpo": dpo_out, "generate": gen_out, "llama": llama_out,
-                   "phase_s": phase_s},
+                   "bert": bert_out, "phase_s": phase_s},
                   f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -286,7 +286,8 @@ def test_gpt2_refuses_flash_and_fused_head(tiny):
     """``use_flash=True`` runs (the flash slice) and gives the
     materialized path's logits; the fused head (the linear-xent slice,
     the default) runs and gives the materialized head's loss; training
-    dropout still raises, naming its slice."""
+    dropout runs with seeds (tests/test_torch_gpt2_dropout.py holds it
+    against JAX) and raises without them."""
     tokens = torch.from_numpy(tiny["tokens"])
     cfg = GPT2Config.tiny(policy=get_policy("O0"), vocab_size=250)
     model = gpt2_params_from_jax(_np_tree(tiny["jparams"]), cfg, "cpu")
@@ -302,11 +303,14 @@ def test_gpt2_refuses_flash_and_fused_head(tiny):
     dcfg = GPT2Config.tiny(policy=get_policy("O0"), vocab_size=250,
                            dropout=0.1)
     dmodel = gpt2_params_from_jax(_np_tree(tiny["jparams"]), dcfg, "cpu")
-    with pytest.raises(NotImplementedError, match="BERT"):
+    with pytest.raises(ValueError, match="dropout_seeds"):
         dmodel(tokens, deterministic=False)
-    with pytest.raises(NotImplementedError, match="BERT"):
-        gpt2_loss_fn(dmodel, fuse_head=False)(
-            dict(dmodel.named_parameters()), tokens, dropout_rng=(0, 1))
+    dparams = dict(dmodel.named_parameters())
+    dropped = gpt2_loss_fn(dmodel, fuse_head=False)(dparams, tokens,
+                                                    dropout_rng=(0, 1))
+    assert torch.isfinite(dropped)
+    assert dropped.item() != gpt2_loss_fn(dmodel, fuse_head=False)(
+        dparams, tokens).item()
 
 
 # ---- interop: the whole training state -----------------------------------

@@ -168,8 +168,10 @@ def test_bias_and_dropout_raise_naming_the_bert_slice():
     q = torch.zeros(1, 2, 8, 16)
     with pytest.raises(NotImplementedError, match="BERT"):
         flash_attention(q, q, q, bias=torch.zeros(1, 2, 8, 8))
-    with pytest.raises(NotImplementedError, match="BERT"):
-        flash_attention(q, q, q, dropout_p=0.1, dropout_seed=3)
+    # dropout runs (tests/test_torch_attention_dropout.py); a missing
+    # seed raises as in the reference
+    with pytest.raises(ValueError, match="dropout_seed"):
+        flash_attention(q, q, q, dropout_p=0.1)
     with pytest.raises(ValueError, match="Hkv"):
         flash_attention(q, torch.zeros(1, 3, 8, 16), torch.zeros(1, 3, 8, 16))
     with pytest.raises(ValueError, match="q_seg, k_seg"):

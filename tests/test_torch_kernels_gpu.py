@@ -27,7 +27,12 @@ bit for bit and dx, dW give the same bits on a second run; past H =
 768 (the wide path) also in vocab chunks, dx and dW formed together
 equal to each alone. RoPE exactly (both sides round the same fp32
 operations once each). The fused GLU per element as the training
-kernels (fp32 products either way, in another order).
+kernels (fp32 products either way, in another order). The
+bias-dropout-add kernels: y and dx exactly (the same fp32 operations,
+each rounded once), dbias at f32 tolerance with the same bits on a
+second run; the flash kernels with dropout as without it; both with a
+mask witness whose zero pattern must equal the plain version's mask
+exactly.
 """
 
 import numpy as np
@@ -528,3 +533,135 @@ def test_glu_kernel_matches_plain(cuda, dtype, name):
 
     for a, b in zip(*_both(grads)):
         assert torch.equal(a, b)
+
+
+# ---- the BERT slice's kernels: dropout ------------------------------------
+
+#: name -> (rows, h, residual dtype or None for x's, bias)
+_BDA = {
+    "h768_bias": (333, 768, None, True),
+    "h1024": (300, 1024, None, False),
+    "h1000_scalar_loads": (129, 1000, None, True),
+    "f32_residual": (64, 768, "float32", True),
+}
+
+
+@pytest.mark.parametrize("name", list(_BDA))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_bda_kernels_match_plain(cuda, dtype, name):
+    """``bda_fwd`` and ``bda_bwd`` against their plain versions: y and
+    dx bit for bit (the same fp32 operations, each rounded once); dbias
+    (fp32 sums over rows in another order) at f32 tolerance, and the
+    same bits on a second run (no atomics)."""
+    from apex1_tpu_torch.ops.stochastic import bda_bwd, bda_fwd
+    rows, h, rdt, with_bias = _BDA[name]
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(17)
+
+    def t(shape, d=dt):
+        return torch.from_numpy(rng.standard_normal(shape)).to(cuda, d)
+
+    x, dy = t((rows, h)), t((rows, h))
+    r = t((rows, h), dt if rdt is None else getattr(torch, rdt))
+    b = t((h,), torch.float32) if with_bias else None
+    before = (bda_fwd.launches, bda_bwd.launches)
+    y, wy = _both(lambda: bda_fwd(x, r, b, 1234, 0.1))
+    assert y.dtype == dt and torch.equal(y, wy)
+    (dx, db), (wdx, wdb) = _both(lambda: bda_bwd(dy, 1234, 0.1, with_bias))
+    assert dx.dtype == dt and torch.equal(dx, wdx)
+    assert (bda_fwd.launches, bda_bwd.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    if with_bias:
+        _close(db, wdb, torch.float32)
+        assert torch.equal(bda_bwd(dy, 1234, 0.1, True)[1], db)
+    else:
+        assert db is None and wdb is None
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_bda_mask_witness(cuda, dtype):
+    """x = 1, residual 0, no bias: y is 1/(1-p) where kept and 0 where
+    dropped, so its zero pattern is the kernel's mask. It must equal
+    the plain version's mask exactly, and keep about 1 - p (3 sigma)."""
+    from apex1_tpu_torch.ops.stochastic import _row_keep, bda_fwd, inv_keep
+    dt = getattr(torch, dtype)
+    rows, h, p = 1000, 768, 0.1
+    x = torch.ones(rows, h, device=cuda, dtype=dt)
+    y = bda_fwd(x, torch.zeros_like(x), None, 99, p)
+    keep = _row_keep(99, rows, h, p, cuda)
+    assert torch.equal(y != 0, keep)
+    assert torch.equal(y[keep].float(),
+                       torch.full_like(y[keep].float(),
+                                       float(torch.tensor(inv_keep(p))
+                                             .to(dt))))
+    rate = keep.float().mean().item()
+    assert abs(rate - (1 - p)) < 3 * (p * (1 - p) / keep.numel()) ** 0.5
+
+
+@pytest.mark.parametrize("name", ["causal", "gqa", "segments",
+                                  "offsets_lse", "d128"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_flash_dropout_kernels_match_plain(cuda, dtype, name):
+    """The flash kernels with dropout 0.1 against their plain versions
+    (the same hash mask); dq and dk/dv give the same bits twice; p = 0.1
+    changes out, and lse stays the undropped one (f32 tolerance: the
+    kernel without dropout is another compiled function)."""
+    from apex1_tpu_torch.ops.attention import flash_dkv, flash_dq, flash_fwd
+    dt = getattr(torch, dtype)
+    q, k, v, do, dlse, qseg, kseg, args = _flash_inputs(name, dt, cuda)
+    drop = (0.1, 4321)
+    (out, lse), (wout, wlse) = _both(
+        lambda: flash_fwd(q, k, v, qseg, kseg, *args, *drop))
+    _close(out, wout, dt)
+    empty = wlse <= -1e29
+    _close(torch.where(empty, 0.0, lse), torch.where(empty, 0.0, wlse),
+           torch.float32)
+    out0, lse0 = flash_fwd(q, k, v, qseg, kseg, *args)
+    _close(lse0, lse, torch.float32)
+    assert not torch.equal(out0, out)
+    delta = (do.float() * wout.float()).sum(-1)
+    bwd = (q, k, v, do, wlse, delta, dlse, qseg, kseg, *args, *drop)
+    dq, wdq = _both(lambda: flash_dq(*bwd))
+    _close(dq, wdq, dt)
+    (dk, dv), (wdk, wdv) = _both(lambda: flash_dkv(*bwd))
+    _close(dk, wdk, dt)
+    _close(dv, wdv, dt)
+    assert torch.equal(flash_dq(*bwd), dq)
+    dk2, dv2 = flash_dkv(*bwd)
+    assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_dropout_mask_witness(cuda, dtype):
+    """Sk = D = 128 and v the identity: out[q, j] = keep·e/l·(1/(1-p)),
+    so out's zero pattern is the kernel's mask at (q, j). It must equal
+    the plain version's exactly (offsets and GQA on, the query head's
+    stream in dk/dv's loop too: dv = Pᵀ·dO is zero exactly where a key
+    was dropped for every query row of a one-row dO)."""
+    from apex1_tpu_torch.ops.attention import _keep, flash_dkv, flash_fwd
+    dt = getattr(torch, dtype)
+    B, Hq, Hkv, S, D, p = 2, 4, 2, 128, 128, 0.1
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q = (0.1 * torch.randn(B, Hq, S, D, generator=gen, device=cuda)).to(dt)
+    k = (0.1 * torch.randn(B, Hkv, S, D, generator=gen, device=cuda)).to(dt)
+    v = torch.eye(S, D, device=cuda, dtype=dt).expand(B, Hkv, S, D)
+    v = v.contiguous()
+    args = (None, None, 1.0 / D ** 0.5, False, 64, 192, p, 77)
+    out, lse = flash_fwd(q, k, v, *args)
+    with force_impl("torch"):
+        wout, _ = flash_fwd(q, k, v, *args)
+    keep = _keep(q, S, 64, 192, p, 77)
+    assert torch.equal(out != 0, keep)
+    assert torch.equal(wout != 0, keep)
+    rate = keep.float().mean().item()
+    assert abs(rate - (1 - p)) < 3 * (p * (1 - p) / keep.numel()) ** 0.5
+    # dk/dv: dO one-hot on query row 5 of every head: dv[b, hk, key, :]
+    # sums P_av[b, h, 5, key] over the group, zero where every head of
+    # the group dropped that key
+    do = torch.zeros_like(q)
+    do[:, :, 5, :] = 1
+    delta = (do.float() * out.float()).sum(-1)
+    _, dv = flash_dkv(q, k, v, do, lse, delta, None, *args)
+    g = Hq // Hkv
+    kept_any = keep[:, :, 5, :].reshape(B, Hkv, g, S).any(dim=2)
+    assert torch.equal(dv[..., 0] != 0, kept_any)
