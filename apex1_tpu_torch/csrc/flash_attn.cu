@@ -1,12 +1,13 @@
-// Flash attention forward, dq and dk/dv for Hopper (sm_90a).
+// Flash attention forward, dq, dk/dv and dbias for Hopper (sm_90a).
 //
 // Replaces: apex1_tpu/ops/attention.py::_fwd_kernel (launched by
-// _flash_fwd_impl), ::_bwd_dq_kernel and ::_bwd_dkv_kernel (both
-// launched by _flash_bwd_impl), the Pallas TPU kernels behind
-// flash_attention, with their in-kernel attention-probability dropout.
-// The bias operand (the dbias kernel) is not carried over here.
+// _flash_fwd_impl), ::_bwd_dq_kernel, ::_bwd_dkv_kernel and
+// ::_dbias_kernel (launched by _flash_bwd_impl), the Pallas TPU kernels
+// behind flash_attention, with their additive bias operand and their
+// in-kernel attention-probability dropout.
 //
-//   forward:  s = q·kᵀ·scale, invalid positions NEG_INF; online softmax
+//   forward:  s = q·kᵀ·scale (+ bias), invalid positions NEG_INF; online
+//             softmax
 //             over key tiles: m_new = max(m, max s), corr = exp(m - m_new),
 //             e = valid ? exp(s - m_new) : 0, l = l·corr + Σe,
 //             acc = acc·corr + e·v (e rounded to v's type);
@@ -15,6 +16,16 @@
 //             ds = p·(dp - δ + dlse)·scale, dq = ds·k (ds rounded to k's type)
 //   dk, dv:   dv = pᵀ·dO, dk = dsᵀ·q, summed over the q heads of the kv
 //             head's GQA group (p, ds rounded to dO's and q's type)
+//   dbias:    Σ over the (b, h) a bias entry broadcasts to of
+//             p·(dp - δ + dlse), fp32, with no trailing ·scale (that factor
+//             belongs to d(q·kᵀ), not to d(bias))
+//
+// The bias is fp32 (Bb, Hb, Sq, Sk), Bb in {1, B}, Hb in {1, Hq}, read
+// through broadcast strides (0 along a size-1 dimension) and added to the
+// scaled score of every kernel before the mask: s·scale and + bias are
+// rounded apart, in a pass of the whole block over the fp32 score tile
+// (coalesced rows). A null bias skips that pass. The causal tile skip
+// stays exact: a bias never makes a masked position valid.
 //
 // Valid means: row < Sq, col < Sk, causal ⇒ col + k_off <= row + q_off,
 // segments ⇒ qseg[row] == kseg[col]. A ragged Sq or Sk edge is masked
@@ -34,6 +45,12 @@
 // kernels live in flash_attn.cuh; this file holds the entry points and
 // the variants without dropout, flash_attn_dropout.cu the variants with
 // it (two translation units, which nvcc compiles in parallel).
+//
+// dbias's blocks each own one (bb, hb, q tile, key tile) of the output and
+// sweep the broadcast (b, h) onto it in a fixed order, summing in
+// registers: one write per output tile, no atomics, equal bits on every
+// launch (the reference's grid puts the sweep innermost with a VMEM
+// accumulator for the same reason).
 //
 // Bound on the H100: operations. At GPT-2's training shape (B=16, H=12,
 // S=1024, D=64, causal, bf16) the forward does 25.8 GFLOP against about
@@ -66,13 +83,17 @@ static int dispatch(int which, FlashArgs& a, int dropout, int dtype,
   if (a.B <= 0 || a.Hq <= 0 || a.Sq <= 0 || a.Sk <= 0) return 0;
   if (a.Hkv <= 0 || a.Hq % a.Hkv != 0 || a.D <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (a.bias != nullptr && (a.Bb <= 0 || a.Hb <= 0 || a.B % a.Bb != 0 ||
+                            a.Hq % a.Hb != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = as_stream(stream);
   return dropout ? flash_launch_dropout(which, a, dtype, st)
                  : launch_typed<false>(which, a, dtype, st);
 }
 
 static FlashArgs make_args(const void* q, const void* k, const void* v,
-                           const void* qseg, const void* kseg, int B, int Hq,
+                           const void* qseg, const void* kseg,
+                           const void* bias, int Bb, int Hb, int B, int Hq,
                            int Hkv, int Sq, int Sk, int D, float scale,
                            int causal, int q_off, int k_off, int vec,
                            unsigned seed, unsigned thr, float inv) {
@@ -82,6 +103,12 @@ static FlashArgs make_args(const void* q, const void* k, const void* v,
   a.v = v;
   a.qseg = static_cast<const int*>(qseg);
   a.kseg = static_cast<const int*>(kseg);
+  a.bias = static_cast<const float*>(bias);
+  a.Bb = Bb;
+  a.Hb = Hb;
+  const long long plane = static_cast<long long>(Sq) * Sk;
+  a.bias_sh = Hb == 1 ? 0 : plane;
+  a.bias_sb = Bb == 1 ? 0 : Hb * plane;
   a.B = B;
   a.Hq = Hq;
   a.Hkv = Hkv;
@@ -100,19 +127,23 @@ static FlashArgs make_args(const void* q, const void* k, const void* v,
 }
 
 // q, out: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D), contiguous in `dtype`;
-// qseg (B, Sq) and kseg (B, Sk) int32 or both null; lse (B, Hq, Sq) fp32.
+// qseg (B, Sq) and kseg (B, Sk) int32 or both null; bias fp32
+// (Bb, Hb, Sq, Sk) with Bb in {1, B}, Hb in {1, Hq}, or null; lse
+// (B, Hq, Sq) fp32.
 // vec: D is 64 or 128 and every operand is 16-byte aligned. dropout: 1
 // for p > 0, with the seed word, the threshold round(p·2^32) and
 // inv = 1 / (1 - p); 0 ignores them.
 extern "C" int apex1_flash_fwd(const void* q, const void* k, const void* v,
-                               const void* qseg, const void* kseg, void* out,
-                               void* lse, int B, int Hq, int Hkv, int Sq,
-                               int Sk, int D, float scale, int causal,
-                               int q_off, int k_off, int vec, int dropout,
-                               unsigned seed, unsigned thr, float inv,
-                               int dtype, void* stream) {
-  FlashArgs a = make_args(q, k, v, qseg, kseg, B, Hq, Hkv, Sq, Sk, D, scale,
-                          causal, q_off, k_off, vec, seed, thr, inv);
+                               const void* qseg, const void* kseg,
+                               const void* bias, void* out, void* lse, int B,
+                               int Hq, int Hkv, int Sq, int Sk, int D, int Bb,
+                               int Hb, float scale, int causal, int q_off,
+                               int k_off, int vec, int dropout, unsigned seed,
+                               unsigned thr, float inv, int dtype,
+                               void* stream) {
+  FlashArgs a = make_args(q, k, v, qseg, kseg, bias, Bb, Hb, B, Hq, Hkv, Sq,
+                          Sk, D, scale, causal, q_off, k_off, vec, seed, thr,
+                          inv);
   a.out = out;
   a.lse = static_cast<float*>(lse);
   return dispatch(kFwd, a, dropout, dtype, stream);
@@ -122,14 +153,16 @@ extern "C" int apex1_flash_fwd(const void* q, const void* k, const void* v,
 extern "C" int apex1_flash_dq(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse,
                               const void* delta, const void* dlse,
-                              const void* qseg, const void* kseg, void* dq,
-                              int B, int Hq, int Hkv, int Sq, int Sk, int D,
+                              const void* qseg, const void* kseg,
+                              const void* bias, void* dq, int B, int Hq,
+                              int Hkv, int Sq, int Sk, int D, int Bb, int Hb,
                               float scale, int causal, int q_off, int k_off,
                               int vec, int dropout, unsigned seed,
                               unsigned thr, float inv, int dtype,
                               void* stream) {
-  FlashArgs a = make_args(q, k, v, qseg, kseg, B, Hq, Hkv, Sq, Sk, D, scale,
-                          causal, q_off, k_off, vec, seed, thr, inv);
+  FlashArgs a = make_args(q, k, v, qseg, kseg, bias, Bb, Hb, B, Hq, Hkv, Sq,
+                          Sk, D, scale, causal, q_off, k_off, vec, seed, thr,
+                          inv);
   a.dout = dout;
   a.lse_in = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta);
@@ -142,14 +175,16 @@ extern "C" int apex1_flash_dq(const void* q, const void* k, const void* v,
 extern "C" int apex1_flash_dkv(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* delta, const void* dlse,
-                               const void* qseg, const void* kseg, void* dk,
-                               void* dv, int B, int Hq, int Hkv, int Sq,
-                               int Sk, int D, float scale, int causal,
-                               int q_off, int k_off, int vec, int dropout,
-                               unsigned seed, unsigned thr, float inv,
-                               int dtype, void* stream) {
-  FlashArgs a = make_args(q, k, v, qseg, kseg, B, Hq, Hkv, Sq, Sk, D, scale,
-                          causal, q_off, k_off, vec, seed, thr, inv);
+                               const void* qseg, const void* kseg,
+                               const void* bias, void* dk, void* dv, int B,
+                               int Hq, int Hkv, int Sq, int Sk, int D, int Bb,
+                               int Hb, float scale, int causal, int q_off,
+                               int k_off, int vec, int dropout, unsigned seed,
+                               unsigned thr, float inv, int dtype,
+                               void* stream) {
+  FlashArgs a = make_args(q, k, v, qseg, kseg, bias, Bb, Hb, B, Hq, Hkv, Sq,
+                          Sk, D, scale, causal, q_off, k_off, vec, seed, thr,
+                          inv);
   a.dout = dout;
   a.lse_in = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta);
@@ -157,4 +192,29 @@ extern "C" int apex1_flash_dkv(const void* q, const void* k, const void* v,
   a.dk = dk;
   a.dv = dv;
   return dispatch(kDkv, a, dropout, dtype, stream);
+}
+
+// dbias fp32 (Bb, Hb, Sq, Sk), written whole; the other operands as dq's,
+// bias required
+extern "C" int apex1_flash_dbias(const void* q, const void* k, const void* v,
+                                 const void* dout, const void* lse,
+                                 const void* delta, const void* dlse,
+                                 const void* qseg, const void* kseg,
+                                 const void* bias, void* dbias, int B,
+                                 int Hq, int Hkv, int Sq, int Sk, int D,
+                                 int Bb, int Hb, float scale, int causal,
+                                 int q_off, int k_off, int vec, int dropout,
+                                 unsigned seed, unsigned thr, float inv,
+                                 int dtype, void* stream) {
+  if (bias == nullptr || dbias == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  FlashArgs a = make_args(q, k, v, qseg, kseg, bias, Bb, Hb, B, Hq, Hkv, Sq,
+                          Sk, D, scale, causal, q_off, k_off, vec, seed, thr,
+                          inv);
+  a.dout = dout;
+  a.lse_in = static_cast<const float*>(lse);
+  a.delta = static_cast<const float*>(delta);
+  a.dlse = static_cast<const float*>(dlse);
+  a.dbias = static_cast<float*>(dbias);
+  return dispatch(kDbias, a, dropout, dtype, stream);
 }

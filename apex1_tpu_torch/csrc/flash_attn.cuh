@@ -1,7 +1,8 @@
 // Flash attention kernels for Hopper (sm_90a), shared by flash_attn.cu
 // (the kernels without dropout) and flash_attn_dropout.cu (with it): two
 // translation units, so nvcc compiles the two sets in parallel. See
-// flash_attn.cu for what they compute and how.
+// flash_attn.cu for what they compute and how: the forward, dq, dk/dv and
+// the additive bias's gradient (dbias).
 #pragma once
 
 #include "common.cuh"
@@ -38,6 +39,8 @@ struct Geom {
   static constexpr size_t DQ = 4 * OP + 2 * SF + ACC + ROW;
   // dk/dv: K V Q dO | S (P aliased) | dP (dS aliased) | dk dv | kseg
   static constexpr size_t DKV = 4 * OP + 2 * SF + 2 * ACC + ROW;
+  // dbias: Q dO K V | S (the dbias tile at the end) | dP | kseg
+  static constexpr size_t DB = 4 * OP + 2 * SF + ROW;
   static_assert(size_t(BT) * LDP * sizeof(T) <= SF, "P must fit in S");
 };
 
@@ -51,6 +54,11 @@ struct FlashArgs {
   const float* dlse;  // null: zero
   const int* qseg;    // null: no segments
   const int* kseg;
+  const float* bias;  // null: no bias; else fp32 (Bb, Hb, Sq, Sk)
+  long long bias_sb;  // the bias's batch stride, 0 when Bb == 1
+  long long bias_sh;  // its head stride, 0 when Hb == 1
+  int Bb, Hb;
+  float* dbias;       // fp32 (Bb, Hb, Sq, Sk)
   void* out;
   float* lse;
   void* dq;
@@ -202,6 +210,28 @@ __device__ __forceinline__ bool valid_at(const FlashArgs& a, int qrow,
          (a.qseg == nullptr || qs == ks);
 }
 
+// With a bias: s = s·scale + bias(b, h, row, col) over the block's fp32
+// score tile at (q0, k0), by the whole block, each bias row read
+// coalesced; positions past Sq or Sk keep their score (they are masked).
+// Multiply and add are rounded apart, as the plain version rounds them.
+template <int BT, int LDS>
+__device__ __forceinline__ void add_bias(const FlashArgs& a, float* sS,
+                                         int b, int h, int q0, int k0) {
+  const float* src = a.bias + b * a.bias_sb + h * a.bias_sh;
+  for (int i = threadIdx.x; i < BT * BT; i += kThreads) {
+    const int r = i / BT, c = i % BT;
+    if (q0 + r < a.Sq && k0 + c < a.Sk)
+      sS[r * LDS + c] =
+          __fadd_rn(__fmul_rn(sS[r * LDS + c], a.scale),
+                    src[static_cast<long long>(q0 + r) * a.Sk + k0 + c]);
+  }
+}
+
+// the full logit of a score tile entry: add_bias has scaled it already
+__device__ __forceinline__ float logit(const FlashArgs& a, float s) {
+  return a.bias != nullptr ? s : s * a.scale;
+}
+
 // number of key tiles a causal q tile starting at q0 reaches
 template <int BT>
 __device__ __forceinline__ int key_tiles(const FlashArgs& a, int q0) {
@@ -267,6 +297,10 @@ __global__ void __launch_bounds__(kThreads)
     tile_mm<T, BT, BT, DP, false, true>(sQ, G::LDT, sK, G::LDT, sS, G::LDS,
                                         false);
     __syncthreads();
+    if (a.bias != nullptr) {
+      add_bias<BT, G::LDS>(a, sS, b, h, q0, k0);
+      __syncthreads();
+    }
     float e[CPT];
     bool ok[CPT];
     float mx = kNegInf;
@@ -275,7 +309,7 @@ __global__ void __launch_bounds__(kThreads)
       const int c = part + TPR * j;
       ok[j] = valid_at(a, qrow, k0 + c, qs,
                        a.qseg == nullptr ? 0 : sKseg[c]);
-      e[j] = ok[j] ? sS[row * G::LDS + c] * a.scale : kNegInf;
+      e[j] = ok[j] ? logit(a, sS[row * G::LDS + c]) : kNegInf;
       mx = fmaxf(mx, e[j]);
     }
     const float m_new = fmaxf(m, group_max<TPR>(mx));
@@ -332,10 +366,12 @@ __device__ __forceinline__ RowStats row_stats(const FlashArgs& a, size_t bh,
   return r;
 }
 
-// p = valid ? exp(s·scale - lse) : 0 and ds = p·(dp - δ + dlse)·scale for
-// the thread's CPT columns of its row, from the fp32 S and dP tiles. With
-// DROP (row key rk): dp = keep ? dp·inv : 0, and p comes back as the P·V
-// weight keep ? p·inv : 0 (ds takes the undropped p)
+// p = valid ? exp(s·scale (+ bias) - lse) : 0 and
+// ds = p·(dp - δ + dlse)·ds_scale for the thread's CPT columns of its row,
+// from the fp32 S and dP tiles (ds_scale: the softmax scale for dq and
+// dk/dv, 1 for dbias, the gradient of the full logit). With DROP (row key
+// rk): dp = keep ? dp·inv : 0, and p comes back as the P·V weight
+// keep ? p·inv : 0 (ds takes the undropped p)
 template <typename G, bool DROP>
 __device__ __forceinline__ void probs_and_ds(const FlashArgs& a,
                                              const float* sS,
@@ -343,13 +379,14 @@ __device__ __forceinline__ void probs_and_ds(const FlashArgs& a,
                                              const int* sKseg, int row,
                                              int part, int qrow, int k0,
                                              const RowStats& st, uint32_t rk,
-                                             float* p, float* ds) {
+                                             float ds_scale, float* p,
+                                             float* ds) {
 #pragma unroll
   for (int j = 0; j < G::CPT; ++j) {
     const int c = part + G::TPR * j;
     const bool ok =
         valid_at(a, qrow, k0 + c, st.seg, a.qseg == nullptr ? 0 : sKseg[c]);
-    const float pv = ok ? expf(sS[row * G::LDS + c] * a.scale - st.lse) : 0.f;
+    const float pv = ok ? expf(logit(a, sS[row * G::LDS + c]) - st.lse) : 0.f;
     float dpv = sDP[row * G::LDS + c];
     p[j] = pv;
     if constexpr (DROP) {
@@ -357,7 +394,7 @@ __device__ __forceinline__ void probs_and_ds(const FlashArgs& a,
       dpv = keep ? __fmul_rn(dpv, a.inv) : 0.f;
       p[j] = keep ? __fmul_rn(pv, a.inv) : 0.f;
     }
-    ds[j] = pv * (dpv - st.delta + st.dlse) * a.scale;
+    ds[j] = pv * (dpv - st.delta + st.dlse) * ds_scale;
   }
 }
 
@@ -411,9 +448,13 @@ __global__ void __launch_bounds__(kThreads)
     tile_mm<T, BT, BT, DP, false, true>(sDO, G::LDT, sV, G::LDT, sDP,
                                         G::LDS, false);
     __syncthreads();
+    if (a.bias != nullptr) {
+      add_bias<BT, G::LDS>(a, sS, b, h, q0, k0);
+      __syncthreads();
+    }
     float p[CPT], ds[CPT];
-    probs_and_ds<G, DROP>(a, sS, sDP, sKseg, row, part, qrow, k0, st, rk, p,
-                          ds);
+    probs_and_ds<G, DROP>(a, sS, sDP, sKseg, row, part, qrow, k0, st, rk,
+                          a.scale, p, ds);
     __syncthreads();  // every score is read before dS overwrites it
 #pragma unroll
     for (int j = 0; j < CPT; ++j)
@@ -493,9 +534,13 @@ __global__ void __launch_bounds__(kThreads)
       tile_mm<T, BT, BT, DP, false, true>(sDO, G::LDT, sV, G::LDT, sDP,
                                           G::LDS, false);
       __syncthreads();
+      if (a.bias != nullptr) {
+        add_bias<BT, G::LDS>(a, sS, b, hk * group + g, q0, k0);
+        __syncthreads();
+      }
       float p[CPT], ds[CPT];
       probs_and_ds<G, DROP>(a, sS, sDP, sKseg, row, part, qrow, k0, st, rk,
-                            p, ds);
+                            a.scale, p, ds);
       __syncthreads();  // every score is read before P and dS overwrite
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
@@ -523,12 +568,90 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
+// dbias[bb, hb] = Σ over the (b, h) that broadcast onto (bb, hb) of
+// p·(dp - δ + dlse), fp32. One block per (bb, hb, q tile, key tile): it
+// sweeps the broadcast (b, h) in a fixed order (b = bb + (r / rh)·Bb,
+// h = hb + (r % rh)·Hb, r = 0, 1, ...), recomputing S and dP each time,
+// sums in registers and writes its output tile once: no atomics, no
+// partials in device memory, the same bits on every launch. A causal tile
+// wholly above the diagonal is written as zeros.
+template <typename T, int DP, bool DROP>
+__global__ void __launch_bounds__(kThreads)
+    flash_dbias_kernel(const FlashArgs a) {
+  using G = Geom<T, DP>;
+  constexpr int BT = G::BT, TPR = G::TPR, CPT = G::CPT;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* sQ = reinterpret_cast<T*>(smem);
+  T* sDO = reinterpret_cast<T*>(smem + G::OP);
+  T* sK = reinterpret_cast<T*>(smem + 2 * G::OP);
+  T* sV = reinterpret_cast<T*>(smem + 3 * G::OP);
+  float* sS = reinterpret_cast<float*>(smem + 4 * G::OP);
+  float* sDP = reinterpret_cast<float*>(smem + 4 * G::OP + G::SF);
+  int* sKseg = reinterpret_cast<int*>(smem + 4 * G::OP + 2 * G::SF);
+
+  const int tid = threadIdx.x, row = tid / TPR, part = tid % TPR;
+  const int nk = (a.Sk + BT - 1) / BT;
+  const int q0 = (blockIdx.x / nk) * BT, k0 = (blockIdx.x % nk) * BT;
+  const int hb = blockIdx.y, bb = blockIdx.z;
+  const int rb = a.B / a.Bb, rh = a.Hq / a.Hb;
+  const int qrow = q0 + row;
+  const int q_rows = min(BT, a.Sq - q0), k_rows = min(BT, a.Sk - k0);
+  float acc[CPT];
+#pragma unroll
+  for (int j = 0; j < CPT; ++j) acc[j] = 0.f;
+  const bool live =
+      !a.causal || static_cast<long long>(k0) + a.k_off <=
+                       static_cast<long long>(q0) + BT - 1 + a.q_off;
+  for (int r = 0; live && r < rb * rh; ++r) {
+    const int b = bb + (r / rh) * a.Bb, h = hb + (r % rh) * a.Hb;
+    const int hk = h / (a.Hq / a.Hkv);
+    const size_t bh = size_t(b) * a.Hq + h;
+    const size_t qoff = (bh * a.Sq + q0) * a.D;
+    const size_t kvoff = ((size_t(b) * a.Hkv + hk) * a.Sk + k0) * a.D;
+    __syncthreads();  // the last sweep step is done with every tile
+    load_tile<T, DP, BT>(sQ, G::LDT, static_cast<const T*>(a.q) + qoff,
+                         q_rows, a.D, a.vec);
+    load_tile<T, DP, BT>(sDO, G::LDT, static_cast<const T*>(a.dout) + qoff,
+                         q_rows, a.D, a.vec);
+    load_tile<T, DP, BT>(sK, G::LDT, static_cast<const T*>(a.k) + kvoff,
+                         k_rows, a.D, a.vec);
+    load_tile<T, DP, BT>(sV, G::LDT, static_cast<const T*>(a.v) + kvoff,
+                         k_rows, a.D, a.vec);
+    load_kseg<BT>(sKseg, a, b, k0);
+    __syncthreads();
+    tile_mm<T, BT, BT, DP, false, true>(sQ, G::LDT, sK, G::LDT, sS, G::LDS,
+                                        false);
+    tile_mm<T, BT, BT, DP, false, true>(sDO, G::LDT, sV, G::LDT, sDP,
+                                        G::LDS, false);
+    __syncthreads();
+    add_bias<BT, G::LDS>(a, sS, b, h, q0, k0);
+    __syncthreads();
+    const RowStats st = row_stats(a, bh, b, qrow);
+    const uint32_t rk = DROP ? drop_row_key(a, b, h, qrow) : 0u;
+    float p[CPT], ds[CPT];
+    probs_and_ds<G, DROP>(a, sS, sDP, sKseg, row, part, qrow, k0, st, rk,
+                          1.f, p, ds);
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) acc[j] += ds[j];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < CPT; ++j) sS[row * G::LDS + part + TPR * j] = acc[j];
+  __syncthreads();
+  float* dst = a.dbias + (size_t(bb) * a.Hb + hb) * a.Sq * a.Sk;
+  for (int i = tid; i < BT * BT; i += kThreads) {
+    const int r = i / BT, c = i % BT;
+    if (r < q_rows && c < k_rows)
+      dst[size_t(q0 + r) * a.Sk + k0 + c] = sS[r * G::LDS + c];
+  }
+}
+
+enum Which { kFwd = 0, kDq = 1, kDkv = 2, kDbias = 3 };
 
 template <typename T, int DP, bool DROP>
 static int launch(int which, const FlashArgs& a, cudaStream_t st) {
   using G = Geom<T, DP>;
-  static bool attr_set[3] = {false, false, false};
+  static bool attr_set[4] = {false, false, false, false};
   void (*kern)(const FlashArgs);
   size_t smem;
   unsigned tiles;
@@ -543,11 +666,16 @@ static int launch(int which, const FlashArgs& a, cudaStream_t st) {
     smem = G::DQ;
     tiles = (a.Sq + G::BT - 1) / G::BT;
     heads = a.Hq;
-  } else {
+  } else if (which == kDkv) {
     kern = flash_dkv_kernel<T, DP, DROP>;
     smem = G::DKV;
     tiles = (a.Sk + G::BT - 1) / G::BT;
     heads = a.Hkv;
+  } else {
+    kern = flash_dbias_kernel<T, DP, DROP>;
+    smem = G::DB;
+    tiles = ((a.Sq + G::BT - 1) / G::BT) * ((a.Sk + G::BT - 1) / G::BT);
+    heads = a.Hb;
   }
   if (!attr_set[which]) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -556,7 +684,8 @@ static int launch(int which, const FlashArgs& a, cudaStream_t st) {
     if (e != cudaSuccess) return static_cast<int>(e);
     attr_set[which] = true;
   }
-  kern<<<dim3(tiles, heads, a.B), kThreads, smem, st>>>(a);
+  kern<<<dim3(tiles, heads, which == kDbias ? a.Bb : a.B), kThreads, smem,
+         st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

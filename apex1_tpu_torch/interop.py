@@ -19,6 +19,12 @@ numpy arrays: this module imports no JAX.
   are the flax paths joined by dots with each Dense's ``kernel`` a
   transposed ``weight`` (``bert/layer0/qkv/kernel`` ->
   ``bert.layer0.qkv.weight``);
+- `t5_params_from_jax` / `t5_params_to_numpy`: the same for a `T5`,
+  whose port names are the flax paths joined by dots
+  (``encoder/layer0/self_attn/wq`` -> ``encoder.layer0.self_attn.wq``)
+  with the projections in the flax (in, out) layout: a copy;
+- `mha_params_from_jax`: a `SelfMultiheadAttn` or `EncdecMultiheadAttn`
+  from its flax params (the same names, the same (in, out) layout);
 - `named_from_flax` / `flax_from_named`: one flax-layout tree (params,
   grads, Adam moments) of any of these models to the port's dict and
   back;
@@ -34,10 +40,13 @@ import numpy as np
 import torch
 
 from apex1_tpu_torch.amp import AmpState
+from apex1_tpu_torch.contrib.multihead_attn import (EncdecMultiheadAttn,
+                                                    SelfMultiheadAttn)
 from apex1_tpu_torch.core.loss_scale import LossScaleState
 from apex1_tpu_torch.models.bert import Bert, BertConfig, BertPretrain
 from apex1_tpu_torch.models.gpt2 import GPT2, GPT2Config
 from apex1_tpu_torch.models.llama import Llama, LlamaConfig
+from apex1_tpu_torch.models.t5 import T5, T5Config
 from apex1_tpu_torch.ops._common import resolve_device
 from apex1_tpu_torch.optim.fused_adam import FusedAdamState
 
@@ -49,6 +58,33 @@ _LS_FIELDS = ("scale", "growth_count", "overflow_count", "hysteresis_left")
 
 def _is_llama(tree) -> bool:
     return "tok_embeddings" in tree
+
+
+def _is_t5(tree) -> bool:
+    return "shared_embedding" in tree
+
+
+def _dotted(tree, prefix="") -> dict:
+    """A nested flax tree as ``{"a.b.c": numpy array}``."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_dotted(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def _nested(named: dict, np_) -> dict:
+    """The inverse of `_dotted`."""
+    out: dict = {}
+    for name, t in named.items():
+        *path, leaf = name.split(".")
+        node = out
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = np_(t)
+    return out
 
 
 def _is_bert(tree) -> bool:
@@ -70,30 +106,24 @@ def _bert_named(tree, prefix="") -> dict:
 
 
 def _bert_flax(named: dict, np_) -> dict:
-    out: dict = {}
+    """The inverse of `_bert_named`: each ``weight`` back to a
+    transposed ``kernel``."""
+    flat = {}
     for name, t in named.items():
-        *path, leaf = name.split(".")
-        node = out
-        for part in path:
-            node = node.setdefault(part, {})
-        if leaf == "weight":
-            node["kernel"] = np_(t).T.copy()
+        if name.endswith(".weight"):
+            flat[name[:-len("weight")] + "kernel"] = np_(t).T.copy()
         else:
-            node[leaf] = np_(t)
-    return out
+            flat[name] = np_(t)
+    return _nested(flat, lambda a: a)
 
 
 def named_from_flax(tree) -> dict:
-    """Flax-layout GPT-2, Llama or BERT tree -> ``{port name: numpy
+    """Flax-layout GPT-2, Llama, BERT or T5 tree -> ``{port name: numpy
     array}``."""
+    if _is_t5(tree) or _is_llama(tree):
+        return _dotted(tree)
     if _is_bert(tree):
         return _bert_named(tree)
-    if _is_llama(tree):
-        return {(f"{k}.{n}" if isinstance(v, Mapping) else k):
-                np.asarray(leaf)
-                for k, v in tree.items()
-                for n, leaf in (v.items() if isinstance(v, Mapping)
-                                else ((None, v),))}
     out = {k: np.asarray(tree[k]) for k in _TOP}
     i = 0
     while f"h{i}" in tree:
@@ -115,17 +145,10 @@ def flax_from_named(named: dict) -> dict:
             t = t.detach().float().cpu().numpy()
         return np.asarray(t)
 
+    if _is_t5(named) or _is_llama(named):
+        return _nested(named, np_)
     if _is_bert(named):
         return _bert_flax(named, np_)
-    if _is_llama(named):
-        out: dict = {}
-        for name, t in named.items():
-            if "." in name:
-                layer, leaf = name.split(".", 1)
-                out.setdefault(layer, {})[leaf] = np_(t)
-            else:
-                out[name] = np_(t)
-        return out
     out = {k: np_(named[k]) for k in _TOP}
     i = 0
     while f"h.{i}.qkv.weight" in named:
@@ -190,10 +213,36 @@ def bert_params_to_numpy(model) -> dict:
     return flax_from_named(dict(model.named_parameters()))
 
 
+def t5_params_from_jax(params, cfg: T5Config, device=None) -> T5:
+    """A `T5` on ``device`` (CUDA unless named) holding the JAX package's
+    flax ``params`` (numpy or JAX arrays)."""
+    return _load(T5(cfg, device=device), named_from_flax(params))
+
+
+def t5_params_to_numpy(model: T5) -> dict:
+    """The inverse of `t5_params_from_jax`: the flax-layout numpy tree
+    of ``model``'s parameters."""
+    return flax_from_named(dict(model.named_parameters()))
+
+
+def mha_params_from_jax(params, module):
+    """``module`` (a `SelfMultiheadAttn` or `EncdecMultiheadAttn` built
+    with the flax module's options) holding the flax ``params``: the
+    same names and (in, out) layouts. Returns ``module``."""
+    if not isinstance(module, (SelfMultiheadAttn, EncdecMultiheadAttn)):
+        raise TypeError(f"expected a multihead attention module, got "
+                        f"{type(module).__name__}")
+    named = _dotted(params)
+    if set(named) != {n for n, _ in module.named_parameters()}:
+        raise ValueError(f"params {sorted(named)} do not fit the module's "
+                         f"{sorted(n for n, _ in module.named_parameters())}")
+    return _load(module, named)
+
+
 def amp_state_from_jax(state, device=None) -> AmpState:
     """The port's `AmpState` from a JAX ``apex1_tpu.amp.AmpState`` whose
     leaves are numpy arrays (``jax.tree_util.tree_map(np.asarray,
-    state)``), of a GPT-2, a Llama or a BERT, trained with
+    state)``), of a GPT-2, a Llama, a BERT or a T5, trained with
     ``fused_adam`` and one loss scaler: params and the Adam moments in
     fp32, the counters as 0-d device tensors."""
     dev = resolve_device(device)

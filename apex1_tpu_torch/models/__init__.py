@@ -8,9 +8,13 @@ from apex1_tpu_torch.models.gpt2 import (GPT2, GPT2Config, gpt2_loss_fn,
 from apex1_tpu_torch.models.llama import (Llama, LlamaBlock, LlamaConfig,
                                           init_weights, is_moe_layer,
                                           llama_loss_fn)
+from apex1_tpu_torch.models.t5 import (T5, RelPosBias, T5Config,
+                                       relative_position_bucket, t5_loss_fn)
 
 __all__ = ["Bert", "BertConfig", "BertLayer", "BertPretrain",
            "bert_pretrain_loss_fn", "GPT2", "GPT2Config", "gpt2_loss_fn", "init_params",
            "cached_attention", "generate", "gpt2_decoder", "init_cache",
            "last_real_logits", "llama_decoder", "Llama", "LlamaBlock",
-           "LlamaConfig", "init_weights", "is_moe_layer", "llama_loss_fn"]
+           "LlamaConfig", "init_weights", "is_moe_layer", "llama_loss_fn",
+           "T5", "RelPosBias", "T5Config", "relative_position_bucket",
+           "t5_loss_fn"]

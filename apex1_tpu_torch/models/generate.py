@@ -51,7 +51,8 @@ def cached_attention(q, k_new, v_new, cache, cache_index, *,
       cache, from each row's ``valid_start`` on when given. The new
       entry is a fresh copy, as the JAX package's functional update is.
 
-    The additive ``bias`` of the JAX function comes with the T5 slice.
+    The additive ``bias`` of the JAX function comes with T5's cached
+    decode (ROADMAP.md queue A item 9).
     Returns (attn (B, H, S, D), new_cache_entry)."""
     if isinstance(cache, PagedCache):
         if segment_ids is not None or valid_start is not None:

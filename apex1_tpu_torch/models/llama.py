@@ -42,7 +42,7 @@ from apex1_tpu_torch.ops.rope import apply_rotary_pos_emb, rope_tables
 from apex1_tpu_torch.ops.xentropy import (masked_next_token_mean,
                                           softmax_cross_entropy_loss)
 from apex1_tpu_torch.transformer.tensor_parallel.random import (
-    checkpoint_policy, checkpoint_with_policy)
+    checkpoint_module, checkpoint_policy)
 
 _MULTI_GPU = "ROADMAP.md queue A item 7 (multi-GPU)"
 
@@ -236,8 +236,8 @@ class Llama(nn.Module):
         new_cache = {}
         for i, blk in enumerate(self.blocks()):
             if cfg.remat and cache is None:
-                x = _remat_block(blk, cfg.remat_policy, x, cos, sin,
-                                 segment_ids)
+                x = checkpoint_module(blk, cfg.remat_policy, x, cos, sin,
+                                      segment_ids)[0]
                 continue
             x, new_cache[f"layer{i}"] = blk(
                 x, cos, sin, segment_ids,
@@ -250,22 +250,6 @@ class Llama(nn.Module):
         out = (x.to(dtype) if return_hidden
                else head_logits(x.to(dtype), self.output.to(dtype)))
         return out if cache is None else (out, new_cache)
-
-
-def _remat_block(blk: LlamaBlock, policy: str, x, cos, sin, segment_ids):
-    """The uncached block, recomputed in the backward under ``policy``.
-    Its weights enter the checkpointed function as inputs: under
-    ``torch.func.functional_call`` the module's attributes are swapped
-    back before the backward runs, so the recompute must not read
-    them."""
-    names = list(blk._parameters)
-
-    def run(x, cos, sin, segment_ids, *weights):
-        return torch.func.functional_call(
-            blk, dict(zip(names, weights)), (x, cos, sin, segment_ids))[0]
-
-    return checkpoint_with_policy(run, policy)(
-        x, cos, sin, segment_ids, *(getattr(blk, n) for n in names))
 
 
 @torch.no_grad()

@@ -3,8 +3,9 @@ version (see `ops._common` for the dispatch rule)."""
 
 from apex1_tpu_torch.ops._common import (NEG_INF, force_impl, get_impl,
                                          set_impl)
-from apex1_tpu_torch.ops.attention import (flash_attention, flash_dkv,
-                                           flash_dq, flash_fwd, fmha)
+from apex1_tpu_torch.ops.attention import (flash_attention, flash_dbias,
+                                           flash_dkv, flash_dq, flash_fwd,
+                                           fmha)
 from apex1_tpu_torch.ops.chunked_loss import (chunked_dpo_loss,
                                               chunked_kl_loss,
                                               chunked_logprob,
@@ -50,6 +51,7 @@ KERNEL_WRAPPERS = {"layer_norm_fwd": layer_norm_fwd,
                    "flash_fwd": flash_fwd,
                    "flash_dq": flash_dq,
                    "flash_dkv": flash_dkv,
+                   "flash_dbias": flash_dbias,
                    "lxent_fwd": lxent_fwd,
                    "lxent_dx": lxent_dx,
                    "lxent_dw": lxent_dw,
@@ -69,7 +71,8 @@ def launch_counts() -> dict:
 
 
 __all__ = ["NEG_INF", "force_impl", "get_impl", "set_impl",
-           "flash_attention", "flash_dkv", "flash_dq", "flash_fwd", "fmha",
+           "flash_attention", "flash_dbias", "flash_dkv", "flash_dq",
+           "flash_fwd", "fmha",
            "chunked_dpo_loss", "chunked_kl_loss", "chunked_logprob",
            "chunked_orpo_loss", "linear_cross_entropy", "lxent_dw",
            "lxent_dx", "lxent_fwd", "lxent_grads", "shard_grads",

@@ -57,14 +57,14 @@ SIGNATURES = {
     "apex1_paged_attend": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _I, _F, _I, _I, _P],
     "apex1_fused_sample": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P],
-    "apex1_flash_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                        _F, _I, _I, _I, _I, _I, _U, _U, _F, _I, _P],
-    "apex1_flash_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                       _I, _I, _I, _F, _I, _I, _I, _I, _I, _U, _U, _F, _I,
-                       _P],
-    "apex1_flash_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                        _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _U, _U, _F,
-                        _I, _P],
+    "apex1_flash_fwd": [_P] * 8 + [_I] * 8 + [_F, _I, _I, _I, _I, _I, _U,
+                                              _U, _F, _I, _P],
+    "apex1_flash_dq": [_P] * 11 + [_I] * 8 + [_F, _I, _I, _I, _I, _I, _U,
+                                              _U, _F, _I, _P],
+    "apex1_flash_dkv": [_P] * 12 + [_I] * 8 + [_F, _I, _I, _I, _I, _I, _U,
+                                               _U, _F, _I, _P],
+    "apex1_flash_dbias": [_P] * 11 + [_I] * 8 + [_F, _I, _I, _I, _I, _I,
+                                                 _U, _U, _F, _I, _P],
     "apex1_lxent_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                         _I, _I, _I, _I, _I, _P],
     "apex1_lxent_dx": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,

@@ -1,11 +1,12 @@
 """Flash attention (the port of ``apex1_tpu/ops/attention.py``).
 
-    s   = q·kᵀ·scale, invalid positions NEG_INF (finite)
+    s   = q·kᵀ·scale (+ bias), invalid positions NEG_INF (finite)
     out = softmax(s)·v, lse = logsumexp(s); a row with no valid key
           gives out 0 and lse NEG_INF
     backward from (q, k, v, out, lse): p = exp(s - lse) on valid
           positions, δ = Σ_d dout·out, ds = p·(dO·vᵀ - δ + dlse)·scale,
-          dq = ds·k, dk = dsᵀ·q, dv = pᵀ·dO
+          dq = ds·k, dk = dsᵀ·q, dv = pᵀ·dO, and with a bias
+          dbias = Σ over its broadcast dims of p·(dO·vᵀ - δ + dlse)
 
 Shapes as in the JAX package: ``q`` (B, Hq, Sq, D), ``k``/``v``
 (B, Hkv, Sk, D) with ``Hq % Hkv == 0`` (GQA without a repeated K/V),
@@ -13,27 +14,36 @@ Shapes as in the JAX package: ``q`` (B, Hq, Sq, D), ``k``/``v``
 causal ⇒ ``k + k_offset <= q + q_offset``, and with segments the query's
 and key's segment ids are equal.
 
-Three kernels in ``csrc/flash_attn.cu`` (TPU rows 3-5), each beside its
+Four kernels in ``csrc/flash_attn.cu`` (TPU rows 3-6), each beside its
 plain PyTorch version with the same signature, which materializes the
-scores: :func:`flash_fwd`, :func:`flash_dq` and :func:`flash_dkv`. As
+scores: :func:`flash_fwd`, :func:`flash_dq`, :func:`flash_dkv` and
+:func:`flash_dbias`. As
 in the kernels, the plain backward rounds p and dS to the operand type
 before their products; the plain forward keeps the probabilities in
 fp32 (the kernel rounds e = exp(s - m) against a running max, which a
 materialized softmax cannot reproduce), so in bf16/fp16 the forward
 agrees to about one rounding of the output.
 `flash_attention` and `fmha` are differentiable through one
-``torch.autograd.Function`` (the JAX package's ``_flash`` custom VJP)
-that saves ``(q, k, v, out, lse)``; the CPU and ``force_impl("torch")``
-go through the same Function with the plain versions.
+``torch.autograd.Function`` (the JAX package's ``_flash`` and
+``_flash_with_bias`` custom VJPs) that saves ``(q, k, v, out, lse)``
+and the bias; the CPU and ``force_impl("torch")`` go through the same
+Function with the plain versions.
 
 Attention-probability dropout (``dropout_p > 0`` with an int32
 ``dropout_seed``) rides all three kernels: keep = `attn_keep_mask`'s
 hash at (seed, b·Hq + h, q row + q_offset, k col + k_offset), h the
 query head. The softmax statistics (l, lse) stay undropped; the P·V
 weights are keep·p/(1 - p), and the backward masks dP the same way, so
-the Function saves the seed and p, never a mask. The additive ``bias``
-operand (its dbias kernel, TPU row 6) waits for T5 training and
-raises here.
+the Function saves the seed and p, never a mask.
+
+The additive ``bias`` (T5's relative-position table, `multihead_attn`'s
+masks) is (1|B, 1|Hq, Sq, Sk), broadcast over a size-1 batch or head
+dimension; every kernel reads it as fp32 (a wrapper casts another dtype
+once) and adds it to the scaled score before the mask, as the JAX
+package's ``_xla_attention``. Its gradient, ``flash_dbias`` (TPU row
+6), sums over the broadcast dimensions in fp32 and is cast back to the
+bias's dtype; the backward launches it only when the bias takes a
+gradient.
 """
 
 from __future__ import annotations
@@ -84,22 +94,25 @@ def _keep(q, Sk, q_off, k_off, dropout_p, seed):
     return attn_keep_mask(seed, B, Hq, rows, cols, dropout_p)
 
 
-def _scores(q, k, qseg, kseg, scale, causal, q_off, k_off):
-    """fp32 masked scores (NEG_INF where invalid) and the mask."""
+def _scores(q, k, qseg, kseg, scale, causal, q_off, k_off, bias=None):
+    """fp32 masked scores (NEG_INF where invalid) and the mask; a bias
+    is added to the scaled scores before the mask."""
     B, Hq, Sq, _ = q.shape
     Sk = k.shape[2]
     kk = _repeat_kv(k.float(), Hq // k.shape[1])
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * scale
+    if bias is not None:
+        s = s + bias.float()
     mask = _valid(B, Sq, Sk, qseg, kseg, causal, q_off, k_off, q.device)
     return torch.where(mask, s, NEG_INF), mask
 
 
 def _plain_fwd(q, k, v, qseg, kseg, scale, causal, q_off, k_off,
-               dropout_p=0.0, seed=None):
-    """The JAX package's ``_xla_attention`` (its empty-row rule and its
-    dropout too: fp32 probabilities, dropped and rescaled after the
-    normalization): ``(out in q's dtype, lse fp32)``."""
-    sm, mask = _scores(q, k, qseg, kseg, scale, causal, q_off, k_off)
+               dropout_p=0.0, seed=None, bias=None):
+    """The JAX package's ``_xla_attention`` (its empty-row rule, its
+    bias and its dropout too: fp32 probabilities, dropped and rescaled
+    after the normalization): ``(out in q's dtype, lse fp32)``."""
+    sm, mask = _scores(q, k, qseg, kseg, scale, causal, q_off, k_off, bias)
     m = sm.amax(dim=-1, keepdim=True)
     e = torch.where(mask, torch.exp(sm - m), 0.0)
     l = e.sum(dim=-1, keepdim=True)
@@ -115,12 +128,12 @@ def _plain_fwd(q, k, v, qseg, kseg, scale, causal, q_off, k_off,
 
 
 def _probs_and_ds(q, k, v, dout, lse, delta, dlse, qseg, kseg, scale,
-                  causal, q_off, k_off, dropout_p, seed):
+                  causal, q_off, k_off, dropout_p, seed, bias=None):
     """The P·V weights (p = exp(s - lse) on valid positions, 0
-    elsewhere; with dropout keep·p/(1 - p)) and
-    ds = p·(keep·dO·vᵀ/(1 - p) - δ + dlse)·scale, both fp32
-    (B, Hq, Sq, Sk)."""
-    sm, mask = _scores(q, k, qseg, kseg, scale, causal, q_off, k_off)
+    elsewhere; with dropout keep·p/(1 - p)) and the gradient of the full
+    logit p·(keep·dO·vᵀ/(1 - p) - δ + dlse) (ds before its ·scale),
+    both fp32 (B, Hq, Sq, Sk)."""
+    sm, mask = _scores(q, k, qseg, kseg, scale, causal, q_off, k_off, bias)
     p = torch.where(mask, torch.exp(sm - lse[..., None]), 0.0)
     vv = _repeat_kv(v.float(), q.shape[1] // v.shape[1])
     dp = torch.einsum("bhqd,bhkd->bhqk", dout.float(), vv)
@@ -133,7 +146,7 @@ def _probs_and_ds(q, k, v, dout, lse, delta, dlse, qseg, kseg, scale,
     dp = dp - delta[..., None]
     if dlse is not None:
         dp = dp + dlse[..., None]
-    return p_av, p * dp * scale
+    return p_av, p * dp
 
 
 def _rounded(x, dtype):
@@ -144,18 +157,21 @@ def _rounded(x, dtype):
 
 
 def _plain_dq(q, k, v, dout, lse, delta, dlse, qseg, kseg, scale, causal,
-              q_off, k_off, dropout_p=0.0, seed=None):
-    _, ds = _probs_and_ds(q, k, v, dout, lse, delta, dlse, qseg, kseg,
-                          scale, causal, q_off, k_off, dropout_p, seed)
+              q_off, k_off, dropout_p=0.0, seed=None, bias=None):
+    _, dsu = _probs_and_ds(q, k, v, dout, lse, delta, dlse, qseg, kseg,
+                           scale, causal, q_off, k_off, dropout_p, seed,
+                           bias)
     kk = _repeat_kv(k.float(), q.shape[1] // k.shape[1])
-    return torch.einsum("bhqk,bhkd->bhqd", _rounded(ds, k.dtype),
+    return torch.einsum("bhqk,bhkd->bhqd", _rounded(dsu * scale, k.dtype),
                         kk).to(q.dtype)
 
 
 def _plain_dkv(q, k, v, dout, lse, delta, dlse, qseg, kseg, scale, causal,
-               q_off, k_off, dropout_p=0.0, seed=None):
-    p, ds = _probs_and_ds(q, k, v, dout, lse, delta, dlse, qseg, kseg,
-                          scale, causal, q_off, k_off, dropout_p, seed)
+               q_off, k_off, dropout_p=0.0, seed=None, bias=None):
+    p, dsu = _probs_and_ds(q, k, v, dout, lse, delta, dlse, qseg, kseg,
+                           scale, causal, q_off, k_off, dropout_p, seed,
+                           bias)
+    ds = dsu * scale
     dv = torch.einsum("bhqk,bhqd->bhkd", _rounded(p, dout.dtype),
                       dout.float())
     dk = torch.einsum("bhqk,bhqd->bhkd", _rounded(ds, q.dtype), q.float())
@@ -167,7 +183,47 @@ def _plain_dkv(q, k, v, dout, lse, delta, dlse, qseg, kseg, scale, causal,
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _plain_dbias(q, k, v, dout, lse, delta, dlse, qseg, kseg, scale,
+                 causal, q_off, k_off, dropout_p, seed, bias):
+    """fp32 dbias like ``bias``: the full logit's gradient summed over
+    the dimensions the bias broadcasts along."""
+    _, dsu = _probs_and_ds(q, k, v, dout, lse, delta, dlse, qseg, kseg,
+                           scale, causal, q_off, k_off, dropout_p, seed,
+                           bias)
+    dims = tuple(d for d in (0, 1) if bias.shape[d] == 1 and
+                 dsu.shape[d] != 1)
+    return dsu.sum(dim=dims, keepdim=True) if dims else dsu
+
+
 # ---- kernel wrappers -----------------------------------------------------
+
+
+def _check_bias(bias, q, k) -> None:
+    """The JAX package's bias checks: (1|B, 1|Hq, Sq, Sk), else a
+    ValueError naming the bias."""
+    B, Hq, Sq = q.shape[0], q.shape[1], q.shape[2]
+    Sk = k.shape[2]
+    if bias.dim() != 4:
+        raise ValueError(f"bias must be (1|B, 1|H, Sq, Sk), got rank "
+                         f"{bias.dim()}")
+    if (bias.shape[0] not in (1, B) or bias.shape[1] not in (1, Hq)
+            or tuple(bias.shape[2:]) != (Sq, Sk)):
+        raise ValueError(f"bias shape {tuple(bias.shape)} must be "
+                         f"(1|{B}, 1|{Hq}, {Sq}, {Sk})")
+
+
+def _bias_operand(bias, q, k):
+    """The bias as the kernels read it: checked, fp32, contiguous (one
+    cast for another dtype); None stays None."""
+    if bias is None:
+        return None
+    _check_bias(bias, q, k)
+    return bias.to(torch.float32).contiguous()
+
+
+def _bias_dims(bias):
+    """The kernels' (Bb, Hb) arguments (1, 1 without a bias)."""
+    return (1, 1) if bias is None else (bias.shape[0], bias.shape[1])
 
 
 def _kernel_operands(name, q, k, v, dout, *rest):
@@ -213,27 +269,29 @@ def _drop_args(dropout_p, seed):
 
 def flash_fwd(q, k, v, qseg, kseg, scale: float, causal: bool,
               q_off: int = 0, k_off: int = 0, dropout_p: float = 0.0,
-              dropout_seed=None):
+              dropout_seed=None, *, bias=None):
     """``(out, lse)``: out in q's dtype, lse fp32 (B, Hq, Sq). ``qseg``
     (B, Sq) and ``kseg`` (B, Sk) int32, or both None; ``dropout_p`` > 0
-    drops P·V weights with the int32 ``dropout_seed``. CUDA tensors
+    drops P·V weights with the int32 ``dropout_seed``; ``bias``
+    (1|B, 1|Hq, Sq, Sk) is added to the scaled scores. CUDA tensors
     launch the kernel (``flash_fwd.launches``); CPU tensors take the
     plain version."""
+    bias = _bias_operand(bias, q, k)
     if not use_kernel(q):
         return _plain_fwd(q, k, v, qseg, kseg, scale, causal, q_off, k_off,
-                          dropout_p, dropout_seed)
-    (q, k, v, _, qseg, kseg), vec = _kernel_operands(
-        "flash_fwd", q, k, v, None, qseg, kseg)
+                          dropout_p, dropout_seed, bias)
+    (q, k, v, _, qseg, kseg, bias), vec = _kernel_operands(
+        "flash_fwd", q, k, v, None, qseg, kseg, bias)
     B, Hq, Hkv, Sq, Sk, D = _dims(q, k)
     out = torch.empty_like(q)
     lse = torch.empty(B, Hq, Sq, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _build.launch("apex1_flash_fwd", q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), _ptr(qseg), _ptr(kseg), out.data_ptr(),
-                  lse.data_ptr(), B, Hq, Hkv, Sq, Sk, D, float(scale),
-                  int(causal), int(q_off), int(k_off), vec,
-                  *_drop_args(dropout_p, dropout_seed), DTYPE_CODES[q.dtype],
-                  stream)
+                  v.data_ptr(), _ptr(qseg), _ptr(kseg), _ptr(bias),
+                  out.data_ptr(), lse.data_ptr(), B, Hq, Hkv, Sq, Sk, D,
+                  *_bias_dims(bias), float(scale), int(causal), int(q_off),
+                  int(k_off), vec, *_drop_args(dropout_p, dropout_seed),
+                  DTYPE_CODES[q.dtype], stream)
     flash_fwd.launches += 1
     return out, lse
 
@@ -241,29 +299,43 @@ def flash_fwd(q, k, v, qseg, kseg, scale: float, causal: bool,
 flash_fwd.launches = 0
 
 
+def _bwd_operands(name, q, k, v, dout, lse, delta, dlse, qseg, kseg, bias):
+    """The backward kernels' operands after the shared checks, the
+    leading pointers of their entry points (q through bias) and the
+    ``vec`` flag."""
+    ops, vec = _kernel_operands(name, q, k, v, dout, lse, delta, dlse,
+                                qseg, kseg, bias)
+    return ops, [_ptr(t) for t in ops], vec
+
+
+def _bwd_tail(q, k, bias, scale, causal, q_off, k_off, vec, dropout_p,
+              dropout_seed):
+    """The backward entry points' arguments after their output
+    pointers."""
+    return (*_dims(q, k), *_bias_dims(bias), float(scale), int(causal),
+            int(q_off), int(k_off), vec,
+            *_drop_args(dropout_p, dropout_seed), DTYPE_CODES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
 def flash_dq(q, k, v, dout, lse, delta, dlse, qseg, kseg, scale: float,
              causal: bool, q_off: int = 0, k_off: int = 0,
-             dropout_p: float = 0.0, dropout_seed=None):
+             dropout_p: float = 0.0, dropout_seed=None, *, bias=None):
     """dq in q's dtype from the saved ``lse``, ``delta`` = Σ_d dout·out
     and the lse cotangent ``dlse`` (fp32 (B, Hq, Sq), or None for 0);
-    ``dout`` in q's dtype; the forward's dropout. CUDA tensors launch
-    the kernel (``flash_dq.launches``); CPU tensors take the plain
-    version."""
+    ``dout`` in q's dtype; the forward's dropout and bias. CUDA tensors
+    launch the kernel (``flash_dq.launches``); CPU tensors take the
+    plain version."""
+    bias = _bias_operand(bias, q, k)
     if not use_kernel(q):
         return _plain_dq(q, k, v, dout, lse, delta, dlse, qseg, kseg, scale,
-                         causal, q_off, k_off, dropout_p, dropout_seed)
-    (q, k, v, dout, lse, delta, dlse, qseg, kseg), vec = _kernel_operands(
-        "flash_dq", q, k, v, dout, lse, delta, dlse, qseg, kseg)
-    B, Hq, Hkv, Sq, Sk, D = _dims(q, k)
-    dq = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    _build.launch("apex1_flash_dq", q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-                  delta.data_ptr(), _ptr(dlse), _ptr(qseg), _ptr(kseg),
-                  dq.data_ptr(), B, Hq, Hkv, Sq, Sk, D, float(scale),
-                  int(causal), int(q_off), int(k_off), vec,
-                  *_drop_args(dropout_p, dropout_seed), DTYPE_CODES[q.dtype],
-                  stream)
+                         causal, q_off, k_off, dropout_p, dropout_seed, bias)
+    ops, ptrs, vec = _bwd_operands("flash_dq", q, k, v, dout, lse, delta,
+                                   dlse, qseg, kseg, bias)
+    dq = torch.empty_like(ops[0])
+    _build.launch("apex1_flash_dq", *ptrs, dq.data_ptr(),
+                  *_bwd_tail(ops[0], ops[1], bias, scale, causal, q_off,
+                             k_off, vec, dropout_p, dropout_seed))
     flash_dq.launches += 1
     return dq
 
@@ -273,27 +345,22 @@ flash_dq.launches = 0
 
 def flash_dkv(q, k, v, dout, lse, delta, dlse, qseg, kseg, scale: float,
               causal: bool, q_off: int = 0, k_off: int = 0,
-              dropout_p: float = 0.0, dropout_seed=None):
+              dropout_p: float = 0.0, dropout_seed=None, *, bias=None):
     """``(dk, dv)`` in k's dtype, each kv head summed over its GQA group
     (fp32 accumulation, one rounding). Arguments as `flash_dq`. CUDA
     tensors launch the kernel (``flash_dkv.launches``); CPU tensors take
     the plain version."""
+    bias = _bias_operand(bias, q, k)
     if not use_kernel(q):
         return _plain_dkv(q, k, v, dout, lse, delta, dlse, qseg, kseg,
                           scale, causal, q_off, k_off, dropout_p,
-                          dropout_seed)
-    (q, k, v, dout, lse, delta, dlse, qseg, kseg), vec = _kernel_operands(
-        "flash_dkv", q, k, v, dout, lse, delta, dlse, qseg, kseg)
-    B, Hq, Hkv, Sq, Sk, D = _dims(q, k)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    _build.launch("apex1_flash_dkv", q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-                  delta.data_ptr(), _ptr(dlse), _ptr(qseg), _ptr(kseg),
-                  dk.data_ptr(), dv.data_ptr(), B, Hq, Hkv, Sq, Sk, D,
-                  float(scale), int(causal), int(q_off), int(k_off), vec,
-                  *_drop_args(dropout_p, dropout_seed), DTYPE_CODES[q.dtype],
-                  stream)
+                          dropout_seed, bias)
+    ops, ptrs, vec = _bwd_operands("flash_dkv", q, k, v, dout, lse, delta,
+                                   dlse, qseg, kseg, bias)
+    dk, dv = torch.empty_like(ops[1]), torch.empty_like(ops[2])
+    _build.launch("apex1_flash_dkv", *ptrs, dk.data_ptr(), dv.data_ptr(),
+                  *_bwd_tail(ops[0], ops[1], bias, scale, causal, q_off,
+                             k_off, vec, dropout_p, dropout_seed))
     flash_dkv.launches += 1
     return dk, dv
 
@@ -301,35 +368,66 @@ def flash_dkv(q, k, v, dout, lse, delta, dlse, qseg, kseg, scale: float,
 flash_dkv.launches = 0
 
 
+def flash_dbias(q, k, v, dout, lse, delta, dlse, qseg, kseg, scale: float,
+                causal: bool, q_off: int = 0, k_off: int = 0,
+                dropout_p: float = 0.0, dropout_seed=None, *, bias):
+    """The bias's gradient, fp32 in ``bias``'s shape (Bb, Hb, Sq, Sk):
+    p·(dO·vᵀ - δ + dlse) (with dropout, dO·vᵀ masked and rescaled as in
+    `flash_dq`) summed over the (b, h) each entry broadcasts to.
+    Arguments as `flash_dq`, ``bias`` required. CUDA tensors launch the
+    kernel (``flash_dbias.launches``; a fixed summation order and no
+    atomics: equal bits on every launch); CPU tensors take the plain
+    version."""
+    bias = _bias_operand(bias, q, k)
+    if not use_kernel(q):
+        return _plain_dbias(q, k, v, dout, lse, delta, dlse, qseg, kseg,
+                            scale, causal, q_off, k_off, dropout_p,
+                            dropout_seed, bias)
+    ops, ptrs, vec = _bwd_operands("flash_dbias", q, k, v, dout, lse, delta,
+                                   dlse, qseg, kseg, bias)
+    dbias = torch.empty_like(ops[-1])
+    _build.launch("apex1_flash_dbias", *ptrs, dbias.data_ptr(),
+                  *_bwd_tail(ops[0], ops[1], bias, scale, causal, q_off,
+                             k_off, vec, dropout_p, dropout_seed))
+    flash_dbias.launches += 1
+    return dbias
+
+
+flash_dbias.launches = 0
+
+
 class _Flash(torch.autograd.Function):
-    """The JAX package's ``_flash`` custom VJP: residuals
-    ``(q, k, v, out, lse)`` (and the segment ids), and the dropout's
-    seed and p, never its mask; the backward takes the ``out`` and
-    ``lse`` cotangents."""
+    """The JAX package's ``_flash`` and ``_flash_with_bias`` custom VJPs:
+    residuals ``(q, k, v, out, lse)``, the bias and the segment ids, and
+    the dropout's seed and p, never its mask; the backward takes the
+    ``out`` and ``lse`` cotangents, and launches dbias only when the
+    bias (fp32: the caller casts) takes a gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, qseg, kseg, scale, causal, q_off, k_off,
+    def forward(ctx, q, k, v, bias, qseg, kseg, scale, causal, q_off, k_off,
                 dropout_p, seed):
         out, lse = flash_fwd(q, k, v, qseg, kseg, scale, causal, q_off,
-                             k_off, dropout_p, seed)
-        ctx.save_for_backward(q, k, v, out, lse, qseg, kseg)
+                             k_off, dropout_p, seed, bias=bias)
+        ctx.save_for_backward(q, k, v, out, lse, bias, qseg, kseg)
         ctx.args = (scale, causal, q_off, k_off, dropout_p, seed)
         ctx.set_materialize_grads(False)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, dlse):
-        q, k, v, out, lse, qseg, kseg = ctx.saved_tensors
+        q, k, v, out, lse, bias, qseg, kseg = ctx.saved_tensors
         dout = (torch.zeros_like(out) if dout is None
                 else dout.to(q.dtype))
         # δ_i = Σ_d dout·out in fp32, outside the kernels as in JAX
         delta = (dout.float() * out.float()).sum(dim=-1)
         dlse = None if dlse is None else dlse.float()
-        dq = flash_dq(q, k, v, dout, lse, delta, dlse, qseg, kseg,
-                      *ctx.args)
-        dk, dv = flash_dkv(q, k, v, dout, lse, delta, dlse, qseg, kseg,
-                           *ctx.args)
-        return dq, dk, dv, None, None, None, None, None, None, None, None
+        res = (q, k, v, dout, lse, delta, dlse, qseg, kseg, *ctx.args)
+        dq = flash_dq(*res, bias=bias)
+        dk, dv = flash_dkv(*res, bias=bias)
+        dbias = (flash_dbias(*res, bias=bias) if ctx.needs_input_grad[3]
+                 else None)
+        return (dq, dk, dv, dbias, None, None, None, None, None, None, None,
+                None)
 
 
 def _norm_segments(segment_ids, Sq: int, Sk: int, device):
@@ -362,17 +460,14 @@ def flash_attention(q, k, v, *, causal: bool = False, segment_ids=None,
     causal mask. ``return_lse``: also return the fp32 logsumexp
     (B, H, Sq), whose cotangent the backward takes. ``block_q`` and
     ``block_k`` are the TPU kernels' tile sizes: accepted and ignored
-    (the Hopper kernels choose their own tiles). ``dropout_p`` in
-    [0, 1): attention-probability dropout in the kernels, seeded by the
-    int32 ``dropout_seed`` (required when p > 0; two calls with one
-    seed draw one mask). ``bias`` raises NotImplementedError: it comes
-    with T5 training."""
+    (the Hopper kernels choose their own tiles). ``bias``: an additive
+    logit bias (1|B, 1|H, Sq, Sk), T5's relative positions or an
+    additive mask, differentiable (its gradient through the dbias
+    kernel, summed over the broadcast dimensions in fp32 and cast to
+    the bias's dtype). ``dropout_p`` in [0, 1): attention-probability
+    dropout in the kernels, seeded by the int32 ``dropout_seed``
+    (required when p > 0; two calls with one seed draw one mask)."""
     del block_q, block_k
-    if bias is not None:
-        raise NotImplementedError(
-            "flash_attention's bias operand (and its dbias kernel, TPU row "
-            "6) comes with T5 training, the rest of the BERT slice "
-            "(ROADMAP.md queue A item 3)")
     dropout_p = float(dropout_p)
     if not 0.0 <= dropout_p < 1.0:
         raise ValueError(f"dropout_p must be in [0, 1), got {dropout_p}")
@@ -387,9 +482,12 @@ def flash_attention(q, k, v, *, causal: bool = False, segment_ids=None,
                          f"Hkv={k.shape[1]}")
     scale = (1.0 / math.sqrt(q.shape[-1]) if sm_scale is None
              else float(sm_scale))
+    # validated for both paths and cast to fp32 once; the gradient comes
+    # back in the bias's dtype through the cast
+    bias = _bias_operand(bias, q, k)
     qseg, kseg = _norm_segments(segment_ids, q.shape[2], k.shape[2],
                                 q.device)
-    out, lse = _Flash.apply(q, k, v, qseg, kseg, scale, bool(causal),
+    out, lse = _Flash.apply(q, k, v, bias, qseg, kseg, scale, bool(causal),
                             int(q_offset), int(k_offset), dropout_p,
                             dropout_seed if dropout_p > 0.0 else None)
     return (out, lse) if return_lse else out

@@ -61,7 +61,8 @@ def cache_attend(q, k_all, v_all, cache_index, *,
     with ``valid_start`` (B,) only slots >= each row's first real
     position (the left-pad slots of a ragged batch). GQA groups the q
     heads onto the kv-head axis (no repeated cache). The additive
-    ``bias`` of the JAX function comes with the T5 slice."""
+    ``bias`` of the JAX function comes with T5's cached decode (ROADMAP.md
+    queue A item 9)."""
     B, Hq, S, D = q.shape
     Hkv = k_all.shape[1]
     dev = q.device

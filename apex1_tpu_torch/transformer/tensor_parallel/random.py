@@ -16,6 +16,9 @@ A policy is named as in ``jax.checkpoint_policies``:
   contexts``);
 - ``everything_saveable``: no recompute.
 
+`checkpoint_module` runs a model block under a policy with its
+parameters as the checkpoint's inputs (Llama's and T5's remat).
+
 The other names JAX knows (the name-based and offloading policies)
 raise NotImplementedError; an unknown name raises ValueError at once,
 so a typo fails where a config is made. The RNG tracker of the JAX
@@ -88,4 +91,20 @@ def checkpoint_with_policy(fn: Callable, policy_name: str) -> Callable:
         return ckpt.checkpoint(fn, *args, **kw, **kwargs)
 
     return wrapped
+
+
+def checkpoint_module(module: torch.nn.Module, policy_name: str, *args):
+    """``module(*args)`` recomputed in the backward under the named
+    policy (a model block's remat). The module's parameters enter the
+    checkpointed function as inputs: under ``torch.func.functional_call``
+    its attributes are swapped back before the backward runs, so the
+    recompute must not read them."""
+    names, params = zip(*module.named_parameters())
+    n = len(args)
+
+    def run(*inputs):
+        return torch.func.functional_call(
+            module, dict(zip(names, inputs[n:])), inputs[:n])
+
+    return checkpoint_with_policy(run, policy_name)(*args, *params)
 

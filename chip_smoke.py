@@ -6,7 +6,7 @@
                                      # and training steps (GPT-2: flash
                                      # off, flash on, flash and fused
                                      # head; llama_block: fused_mlp off
-                                     # and on; bert_large)
+                                     # and on; bert_large; t5)
 
 Phases, each printed on its own line; a failure in any exits non-zero:
 
@@ -50,7 +50,17 @@ Phases, each printed on its own line; a failure in any exits non-zero:
    library call for flash is also timed at the Llama shape (GQA through
    ``enable_gqa``) and at BERT's (the padding as a boolean mask, with
    its own dropout); the fused MLM heads (H + 1 = 769 and 1025, labels
-   -1 outside the masked tokens) and the NSP cross-entropy (K = 2).
+   -1 outside the masked tokens) and the NSP cross-entropy (K = 2). The
+   T5 slice's: flash with an additive bias at T5's shape (8 x 16 heads
+   x 512, D 64, bf16; the (1, 16, 512, 512) fp32 relative-position
+   bias), non-causal as in the encoder and causal as in the decoder,
+   with padding segments and with dropout 0.1; a (B, 1, Sq, Sk)
+   key-padding mask of -10000 and NEG_INF; a (B, Hq) bias with GQA and
+   ragged shapes in fp16 and a shared (1, 1) bias in f32 with offsets;
+   each also checks kernel 6 (dbias, fp32, at f32 tolerance, the same
+   bits on a second launch); the library's SDPA with the bias as a
+   float ``attn_mask`` is timed beside it, its backward also with the
+   mask taking a gradient (dbias's yardstick).
 3. engine — serve GPT-2 124M at full width (12 layers, hidden 768,
    vocab 50257 padded to 50304) at policy O2, weights made from a seed,
    through the paged continuous-batching engine: 16 requests (prompts
@@ -155,11 +165,43 @@ Phases, each printed on its own line; a failure in any exits non-zero:
 16. train-gpt2-dropout — GPT-2 124M, flash, fused head, dropout 0.1,
    B=16 x S=1024, 3 O2 steps: LN 25/25, flash 12/12/12, bias-dropout-
    add 24/24, linear-xent 1/1/1 a step.
-17. the ``kernels`` JSON line (each kernel's launches over the main
+17. train-t5 — the JAX bench's ``t5`` (``bench.py:372-400``: T5-large
+   widths, d_model 1024, 16 heads of 64, d_ff 4096, vocab 32128, 32
+   buckets; 12 encoder and 12 decoder layers, remat; weights drawn on
+   the card from a seed) with the fused tied head under
+   ``Amp(fused_adam(1e-4, weight_decay=0.01))`` at O2 on the bench's
+   batch (8 x 512 encoder and decoder tokens of
+   ``np.random.default_rng(0)``), 6 steps: finite losses and every step
+   launching exactly `t5_launches` (RMS norm fwd 122 and bwd 62, flash
+   72/36/36 with remat's recompute, dbias 24: the 12 + 12
+   self-attentions, linear-xent 1/1/1); tokens/s = 8 x 1024 over the
+   step wall beside the bench's A100 proxy 48,000, device ms a step and
+   the busy share (3 profiled steps), the largest kernels, peak memory.
+18. train-t5-parity — T5-large width, 2 + 2 layers, the bench's batch,
+   lr 1e-5, kernels against plain versions as in train-parity, with the
+   fused and the materialized head (step-1 O0 losses within 1e-5), and
+   the two relative-position tables' O0 gradient norms within 1e-4
+   (their difference printed beside the cells' sums of absolute terms,
+   which cancel: each row of a layer's dbias sums to 0).
+19. mha — ``SelfMultiheadAttn(1024, 16, dropout=0.1,
+   include_norm_add=True)`` (fairseq transformer-big's width) and
+   ``EncdecMultiheadAttn`` at the same width, S = 512, B = 8, bf16,
+   with an additive key-padding mask, forward and backward against the
+   plain versions; launches LN 1/1, flash 1/1/1, dbias 0, bias-dropout-
+   add 1/1 each.
+20. train-llama-longctx — the bench's ``llama_longctx`` (hidden 2048,
+   GQA 32/4 of 64, ffn 5632, 16 layers, vocab 32000, remat, fused head)
+   at B=1 x S=16384, 3 O2 steps: finite losses, exact launches,
+   tokens/s beside the A100 proxy 11,100, peak memory.
+21. decode — the bench's ``decode`` (that model without remat) through
+   ``generate`` with ``llama_decoder``: 8 prompts of 128 tokens, 128 new
+   tokens greedy; tokens/s beside the A100 proxy 6,100, peak memory, 16
+   flash prefill launches a call.
+22. the ``kernels`` JSON line (each kernel's launches over the main
    paths: the engine, the train phases, dpo, generate, train-llama,
-   serve-llama and its generate, the BERT phases and
-   train-gpt2-dropout), the card's name and power limit, and the last
-   line ``{"ok": true, "device": {...}}``.
+   serve-llama and its generate, the BERT phases, train-gpt2-dropout,
+   train-t5, mha, train-llama-longctx and decode), the card's name and
+   power limit, and the last line ``{"ok": true, "device": {...}}``.
 
 Kernel times are device times of CUDA-graph replays (no host launch
 overhead), or between CUDA events for kernels of a millisecond or more;
@@ -193,6 +235,11 @@ TB, TS, TH, THEADS, TV, TV_PAD = 16, 1024, 768, 12, 50257, 50304
 #: query and KV heads, head_dim, vocab, layers
 LB, LS = 2, 4096
 LH, LFFN, LHEADS, LKV, LD, LV, LLAYERS = 4096, 14336, 32, 8, 128, 32000, 3
+#: the T5 slice: the JAX bench's ``t5`` (T5-large widths, 12 encoder and
+#: 12 decoder layers) at B x (S_enc + S_dec) tokens: batch, sequence,
+#: d_model, heads, head_dim, d_ff, vocab, layers a stack
+T5B, T5S = 8, 512
+T5E, T5HEADS, T5D, T5FF, T5V, T5LAYERS = 1024, 16, 64, 4096, 32128, 12
 
 
 def fail(msg: str) -> int:
@@ -826,7 +873,9 @@ def check_bda(torch, ops, gen):
 #: the flash kernels' checks: (case, B, Hq, Hkv, Sq, Sk, dtype, causal,
 #: segments (False, True: `doc_segments`, "padding": `padding_segments`),
 #: q_off, k_off, dlse, main[, head_dim][, options]); options: "p" the
-#: dropout rate, "lib" time the library call (else only the main case)
+#: dropout rate, "lib" time the library call (else only the main case),
+#: "bias" the additive bias (`flash_bias`; the case then checks dbias
+#: too), "dbias_main" dbias's main case
 FLASH_CASES = [
     ("GPT-2 causal", TB, THEADS, THEADS, TS, TS, "bfloat16", True, False,
      0, 0, False, True),
@@ -858,6 +907,23 @@ FLASH_CASES = [
      0, True, False, dict(p=DROP_P)),
     ("offsets q+64 k+192, dropout", 2, THEADS, THEADS, 512, 640, "float32",
      True, False, 64, 192, False, False, dict(p=DROP_P)),
+    ("T5 encoder, rel-pos bias", T5B, T5HEADS, T5HEADS, T5S, T5S, "bfloat16",
+     False, False, 0, 0, False, False,
+     dict(bias="table", lib=True, dbias_main=True)),
+    ("T5 decoder, rel-pos bias, causal", T5B, T5HEADS, T5HEADS, T5S, T5S,
+     "bfloat16", True, False, 0, 0, False, False,
+     dict(bias="table", lib=True)),
+    ("key-padding mask, -1e4 and NEG_INF", T5B, T5HEADS, T5HEADS, T5S, T5S,
+     "bfloat16", False, False, 0, 0, False, False,
+     dict(bias="mask", lib=True)),
+    ("T5 bias, padding segments", T5B, T5HEADS, T5HEADS, T5S, T5S,
+     "bfloat16", False, "padding", 0, 0, False, False, dict(bias="table")),
+    ("T5 bias, dropout", T5B, T5HEADS, T5HEADS, T5S, T5S, "bfloat16", False,
+     False, 0, 0, False, False, dict(bias="table", p=DROP_P, lib=True)),
+    ("bias (B, Hq), GQA 12/4, ragged, dlse", 2, THEADS, 4, 300, 333,
+     "float16", True, False, 0, 0, True, False, dict(bias="full")),
+    ("bias (1, 1), f32, offsets", 2, 4, 4, 200, 260, "float32", True, False,
+     16, 48, False, False, dict(bias="shared")),
 ]
 
 
@@ -949,17 +1015,79 @@ def sdpa_ms(torch, q, k, v, qseg, kseg, causal, p, do):
         return None, None, f"{type(e).__name__}: {e}"[:160]
 
 
+def flash_bias(torch, kind, B: int, Hq: int, Sq: int, Sk: int, gen):
+    """A flash check's additive bias (fp32) or None: "table" T5's
+    (1, Hq, Sq, Sk) relative-position bias, "full" (B, Hq, Sq, Sk),
+    "shared" (1, 1, Sq, Sk), each drawn N(0, 1); "mask" a (B, 1, Sq, Sk)
+    key-padding mask, 0 on a row's 256-512 real keys
+    (`padding_segments`), -10000 on the even pad columns and NEG_INF on
+    the odd ones."""
+    if kind is None:
+        return None
+    if kind == "mask":
+        real = torch.from_numpy(padding_segments(B, Sk, SEED + 7)).cuda()
+        col = torch.arange(Sk, device="cuda")
+        pad = torch.where(col % 2 == 0, -10000.0, -1e30)
+        m = torch.where(real.bool(), 0.0, pad[None, :])
+        return m[:, None, None, :].expand(B, 1, Sq, Sk).contiguous()
+    shape = {"table": (1, Hq, Sq, Sk), "full": (B, Hq, Sq, Sk),
+             "shared": (1, 1, Sq, Sk)}[kind]
+    return torch.randn(shape, generator=gen, device="cuda")
+
+
+def sdpa_bias_ms(torch, q, k, v, bias, qseg, kseg, causal, p, do):
+    """The library yardstick with a bias: ``F.scaled_dot_product_attention``
+    with the bias as a float ``attn_mask`` in q's dtype (the causal and
+    segment masks folded in as -inf, GQA through ``enable_gqa``, its own
+    dropout): forward, whole backward, and the backward with the mask
+    taking a gradient too. Returns (forward ms, backward ms, backward
+    with the mask's gradient ms, why any is None)."""
+    import torch.nn.functional as F
+    Sq, Sk = q.shape[2], k.shape[2]
+    m = bias.float()
+    if causal:
+        upper = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device).triu(1)
+        m = m.masked_fill(upper, float("-inf"))
+    if qseg is not None:
+        m = m.masked_fill(qseg[:, None, :, None] != kseg[:, None, None, :],
+                          float("-inf"))
+    m = m.to(q.dtype)
+    kw = dict(dropout_p=p)
+    if q.shape[1] != k.shape[1]:
+        kw["enable_gqa"] = True
+    out = [None, None, None]
+    why = []
+    try:
+        out[0] = event_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=m, **kw))
+        qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+        o = F.scaled_dot_product_attention(qr, kr, vr, attn_mask=m, **kw)
+        out[1] = event_ms(lambda: torch.autograd.grad(
+            o, (qr, kr, vr), do, retain_graph=True))
+        mr = m.detach().requires_grad_()
+        o = F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mr, **kw)
+        out[2] = event_ms(lambda: torch.autograd.grad(
+            o, (qr, kr, vr, mr), do, retain_graph=True))
+    except (TypeError, RuntimeError) as e:
+        why.append(f"{type(e).__name__}: {e}"[:160])
+    return (*out, "; ".join(why) or None)
+
+
 def check_flash(torch, ops, gen):
-    """Kernels 3-5 (flash forward, dq, dk/dv) against their plain
-    versions: out and lse from the forward; dq and dk/dv from the same
-    (q, k, v, dout, lse, δ, dlse), each run twice for the same bits;
-    with dropout (p > 0) both sides draw the same hash mask, and the
-    first dropout case carries `flash_witness`. Bounds count the valid
-    (q, k) pairs of this run's mask: 2 products forward, 3 for dq, 4
-    for dk/dv, 2·D flops a pair each."""
-    from apex1_tpu_torch.ops.attention import (_valid, flash_dkv, flash_dq,
+    """Kernels 3-6 (flash forward, dq, dk/dv and dbias) against their
+    plain versions: out and lse from the forward; dq and dk/dv from the
+    same (q, k, v, dout, lse, δ, dlse), each run twice for the same
+    bits; with dropout (p > 0) both sides draw the same hash mask, and
+    the first dropout case carries `flash_witness`; with a bias
+    (`flash_bias`) every kernel reads it and dbias (fp32, f32 tolerance)
+    is checked too, also for the same bits twice. Bounds count the
+    valid (q, k) pairs of this run's mask: 2 products forward, 3 for
+    dq, 4 for dk/dv, 2 for dbias, 2·D flops a pair each; a bias adds its
+    bytes to each, dbias's its output's too."""
+    from apex1_tpu_torch.ops.attention import (_valid, flash_dbias,
+                                               flash_dkv, flash_dq,
                                                flash_fwd)
-    fwd, dq_rows, dkv_rows = [], [], []
+    fwd, dq_rows, dkv_rows, db_rows = [], [], [], []
     witness = None
     for (case, B, Hq, Hkv, Sq, Sk, dts, causal, segs, q_off, k_off, with_dlse,
          main, *extra) in FLASH_CASES:
@@ -982,10 +1110,12 @@ def check_flash(torch, ops, gen):
             qseg = kseg = torch.from_numpy(ids).cuda()
         args = (qseg, kseg, 1.0 / math.sqrt(D), causal, q_off, k_off) + (
             (p, DROP_SEED) if p else ())
+        bias = flash_bias(torch, opts.get("bias"), B, Hq, Sq, Sk, gen)
+        kw = {} if bias is None else dict(bias=bias)
         tol = TOLS[dts]
 
         def run_f(vv=None):
-            return flash_fwd(q, k, v if vv is None else vv, *args)
+            return flash_fwd(q, k, v if vv is None else vv, *args, **kw)
 
         out, lse = run_f()
         with ops.force_impl("torch"):
@@ -1005,28 +1135,35 @@ def check_flash(torch, ops, gen):
                       torch.where(empty, 0.0, wlse), *TOLS["float32"])
         delta = (do.float() * wout.float()).sum(-1)
         bwd = (q, k, v, do, wlse, delta, dlse, *args)
-        dq = flash_dq(*bwd)
-        dk, dv = flash_dkv(*bwd)
+        dq = flash_dq(*bwd, **kw)
+        dk, dv = flash_dkv(*bwd, **kw)
         with ops.force_impl("torch"):
-            wdq = flash_dq(*bwd)
-            wdk, wdv = flash_dkv(*bwd)
-        same_dq = torch.equal(flash_dq(*bwd), dq)
-        dk2, dv2 = flash_dkv(*bwd)
+            wdq = flash_dq(*bwd, **kw)
+            wdk, wdv = flash_dkv(*bwd, **kw)
+        same_dq = torch.equal(flash_dq(*bwd, **kw), dq)
+        dk2, dv2 = flash_dkv(*bwd, **kw)
         same_dkv = torch.equal(dk2, dk) and torch.equal(dv2, dv)
         torch.cuda.synchronize()
         timer = event_ms if main else graph_ms
         ms_f = timer(run_f)
-        ms_q = timer(lambda: flash_dq(*bwd))
-        ms_kv = timer(lambda: flash_dkv(*bwd))
+        ms_q = timer(lambda: flash_dq(*bwd, **kw))
+        ms_kv = timer(lambda: flash_dkv(*bwd, **kw))
         with ops.force_impl("torch"):
             pl_f = event_ms(run_f, iters=3)
-            pl_q = event_ms(lambda: flash_dq(*bwd), iters=3)
-            pl_kv = event_ms(lambda: flash_dkv(*bwd), iters=3)
-        lib_f = lib_b = None
+            pl_q = event_ms(lambda: flash_dq(*bwd, **kw), iters=3)
+            pl_kv = event_ms(lambda: flash_dkv(*bwd, **kw), iters=3)
+        lib_f = lib_b = lib_db = None
         label = f"{case} B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Sk={Sk} D={D} {dts}"
         if p:
             label += f" p={p}"
-        if main or opts.get("lib"):
+        if bias is not None:
+            label += f" bias {tuple(bias.shape)}"
+        if (main or opts.get("lib")) and bias is not None:
+            lib_f, lib_b, lib_db, why = sdpa_bias_ms(
+                torch, q, k, v, bias, qseg, kseg, causal, p, do)
+            if why:
+                label += f"; library call unavailable ({why})"
+        elif main or opts.get("lib"):
             lib_f, lib_b, why = sdpa_ms(torch, q, k, v, qseg, kseg, causal,
                                         p, do)
             if why:
@@ -1043,10 +1180,32 @@ def check_flash(torch, ops, gen):
         eb = q.element_size()
         nq, nkv = B * Hq * Sq * D * eb, B * Hkv * Sk * D * eb
         stats = B * Hq * Sq * 4
+        nb = 0 if bias is None else bias.numel() * 4
         peak = F32_OPS_PER_S if dt == torch.float32 else BF16_OPS_PER_S
-        b_f = bound_ms(2 * nq + 2 * nkv + stats, 4 * D * pairs, peak)
-        b_q = bound_ms(3 * nq + 2 * nkv + 3 * stats, 6 * D * pairs, peak)
-        b_kv = bound_ms(2 * nq + 4 * nkv + 3 * stats, 8 * D * pairs, peak)
+        b_f = bound_ms(2 * nq + 2 * nkv + stats + nb, 4 * D * pairs, peak)
+        b_q = bound_ms(3 * nq + 2 * nkv + 3 * stats + nb, 6 * D * pairs,
+                       peak)
+        b_kv = bound_ms(2 * nq + 4 * nkv + 3 * stats + nb, 8 * D * pairs,
+                        peak)
+        if bias is not None:
+            db = flash_dbias(*bwd, **kw)
+            with ops.force_impl("torch"):
+                wdb = flash_dbias(*bwd, **kw)
+            same_db = torch.equal(flash_dbias(*bwd, **kw), db)
+            edb = max_errs(db, wdb, *TOLS["float32"])
+            dmain = opts.get("dbias_main", False)
+            ms_db = (event_ms if dmain else graph_ms)(
+                lambda: flash_dbias(*bwd, **kw))
+            with ops.force_impl("torch"):
+                pl_db = event_ms(lambda: flash_dbias(*bwd, **kw), iters=3)
+            b_db = bound_ms(2 * nq + 2 * nkv + 3 * stats + 2 * nb,
+                            4 * D * pairs, peak)
+            db_rows.append(dict(case=label, abs=edb[0], worst=edb[1],
+                                tol=TOLS["float32"], ms=ms_db,
+                                plain_ms=pl_db, library_ms=lib_db,
+                                bound_ms=b_db[0], bound_by=b_db[1],
+                                main=dmain, same_bits=same_db))
+            del db, wdb
         fwd.append(dict(case=label, abs=max(e1[0], e2[0]),
                         worst=max(e1[1], e2[1]), tol=tol, ms=ms_f,
                         plain_ms=pl_f, library_ms=lib_f, bound_ms=b_f[0],
@@ -1065,9 +1224,9 @@ def check_flash(torch, ops, gen):
                              ms=ms_kv, plain_ms=pl_kv, library_ms=lib_b,
                              bound_ms=b_kv[0], bound_by=b_kv[1], main=main,
                              same_bits=same_dkv, **wit.get("dkv", {})))
-        del out, wout, dq, wdq, dk, dv, wdk, wdv, dk2, dv2
+        del out, wout, dq, wdq, dk, dv, wdk, wdv, dk2, dv2, bias, kw
         torch.cuda.empty_cache()
-    return fwd, dq_rows, dkv_rows
+    return fwd, dq_rows, dkv_rows, db_rows
 
 
 #: the linear-xent kernels' checks: (case, T, V_l, dtype, K, col_offset,
@@ -2067,21 +2226,30 @@ LLAMA_KERNELS = ("layer_norm_fwd", "layer_norm_bwd", "rope", "flash_fwd",
                  "flash_dq", "flash_dkv")
 
 
-def make_llama(policy: str, depth: int, seed: int, fused_mlp=False):
-    """The llama_block model (Llama-3 8B widths, the bench's vocab 32000,
-    remat under ``nothing_saveable``), ``depth`` layers at ``policy``,
-    its weights drawn on the card from ``seed`` (`init_weights`:
+#: the llama_block widths (Llama-3 8B, the bench's vocab 32000), and the
+#: bench's llama_longctx / decode model (`bench.py:333-347`, `:403-463`):
+#: hidden 2048, 32 query and 4 KV heads of 64, ffn 5632, 16 layers
+LLAMA_BLOCK = dict(vocab_size=LV, hidden_size=LH, num_heads=LHEADS,
+                   num_kv_heads=LKV, ffn_size=LFFN)
+LLAMA_08B = dict(vocab_size=LV, hidden_size=2048, num_heads=32,
+                 num_kv_heads=4, ffn_size=5632)
+
+
+def make_llama(policy: str, depth: int, seed: int, fused_mlp=False,
+               widths=None, remat=True, max_seq_len: int = LS):
+    """The llama_block model (or the ``widths`` given), ``depth`` layers
+    at ``policy``, remat under ``nothing_saveable`` unless ``remat`` is
+    False, its weights drawn on the card from ``seed`` (`init_weights`:
     normal(0.02), norm scales 1). Returns (cfg, model)."""
     from apex1_tpu_torch import Llama, LlamaConfig, get_policy
     from apex1_tpu_torch.models.llama import init_weights
-    cfg = LlamaConfig(vocab_size=LV, max_seq_len=LS, num_layers=depth,
-                      num_heads=LHEADS, num_kv_heads=LKV, hidden_size=LH,
-                      ffn_size=LFFN, remat=True, fused_mlp=fused_mlp,
+    cfg = LlamaConfig(**(widths or LLAMA_BLOCK), max_seq_len=max_seq_len,
+                      num_layers=depth, remat=remat, fused_mlp=fused_mlp,
                       policy=get_policy(policy))
     return cfg, init_weights(Llama(cfg, device="cuda"), seed)
 
 
-def llama_batch(torch, S: int, packed: bool):
+def llama_batch(torch, S: int, packed: bool, B: int = LB):
     """The B x S batch on the card: the tokens of
     ``np.random.default_rng(0)``; or with ``packed`` (tokens,
     segment_ids, positions), the first B rows `pack_documents` packs
@@ -2091,31 +2259,33 @@ def llama_batch(torch, S: int, packed: bool):
     from apex1_tpu_torch.runtime import pack_documents
     if not packed:
         return (torch.from_numpy(np.random.default_rng(0).integers(
-            0, LV, (LB, S))).cuda(),)
+            0, LV, (B, S))).cuda(),)
     rng = np.random.default_rng(1)
     docs = []
-    while sum(map(len, docs)) < 2 * LB * S:
+    while sum(map(len, docs)) < 2 * B * S:
         docs.append(rng.integers(0, LV, int(rng.integers(64, 2049))))
-    return tuple(torch.from_numpy(a[:LB]).cuda()
+    return tuple(torch.from_numpy(a[:B]).cuda()
                  for a in pack_documents(docs, S))
 
 
 def make_llama_trainer(torch, level: str, depth: int, seed: int, *,
                        fused_mlp=False, fuse_head=True, packed=False,
-                       factor=False, S: int = LS, lr: float = 1e-4):
+                       factor=False, S: int = LS, lr: float = 1e-4,
+                       widths=None, B: int = LB):
     """`make_llama` under ``Amp(fused_adam(lr, weight_decay=0.01),
     opt_level=level)`` (the bench's optimizer at lr 1e-4), its loss
     ``llama_loss_fn(fuse_head=...)`` and its `llama_batch`. With
     ``factor`` the step takes a factor before the batch that multiplies
     the loss (inf forces an overflow)."""
     from apex1_tpu_torch import Amp, fused_adam, llama_loss_fn
-    cfg, model = make_llama(level, depth, seed, fused_mlp)
+    cfg, model = make_llama(level, depth, seed, fused_mlp, widths,
+                            max_seq_len=S)
     amp = Amp(fused_adam(lr, weight_decay=0.01), opt_level=level)
     state = amp.init(dict(model.named_parameters()))
     base = llama_loss_fn(model, fuse_head=fuse_head)
     loss_fn = (lambda p, f, *b: base(p, *b) * f) if factor else base
     return (cfg, state, amp.make_train_step(loss_fn),
-            llama_batch(torch, S, packed))
+            llama_batch(torch, S, packed, B))
 
 
 def llama_launches(num_layers: int, fused_mlp: bool,
@@ -2545,6 +2715,427 @@ def profile_bert(torch, bench: str = "bert_large", steps: int = 3) -> dict:
     return out
 
 
+# ---- the T5 slice: the JAX bench's t5, multihead attention ------------------
+
+#: train-t5-parity: depth of each stack (full T5-large width), learning
+#: rate (as train-llama-parity: at 1e-4 a depth-2 model memorizes its
+#: batch and the loss comparison reads rounding)
+T5PAR_DEPTH, T5PAR_LR = 2, 1e-5
+#: the bench's A100 proxy for ``t5`` (tokens/s, `bench.py:400`)
+T5_PROXY = 48_000.0
+
+
+def make_t5(level: str, depth: int, seed: int):
+    """The bench's ``t5`` model (`bench.py:381-384`: T5-large widths,
+    ``depth`` encoder and ``depth`` decoder layers, remat) at ``level``,
+    its weights drawn on the card from ``seed`` (`init_weights`).
+    Returns (cfg, model)."""
+    from apex1_tpu_torch import T5, T5Config, get_policy
+    from apex1_tpu_torch.models.t5 import init_weights
+    cfg = T5Config.t5_large(policy=get_policy(level),
+                            num_encoder_layers=depth,
+                            num_decoder_layers=depth, remat=True)
+    return cfg, init_weights(T5(cfg, device="cuda"), seed)
+
+
+def t5_batch(torch, vocab: int):
+    """The bench's batch (`bench.py:386-389`): B x S_enc encoder and
+    B x S_dec decoder tokens of ``np.random.default_rng(0)``."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    enc = rng.integers(0, vocab, (T5B, T5S))
+    dec = rng.integers(0, vocab, (T5B, T5S))
+    return (torch.from_numpy(enc).cuda(), torch.from_numpy(dec).cuda())
+
+
+def make_t5_trainer(torch, level: str, depth: int, seed: int, *,
+                    fuse_head=True, factor=False, lr: float = 1e-4):
+    """`make_t5` under ``Amp(fused_adam(lr, weight_decay=0.01),
+    opt_level=level)`` (the bench's optimizer at lr 1e-4), its loss
+    ``t5_loss_fn(fuse_head=...)`` and its `t5_batch`. With ``factor``
+    the step takes a factor before the batch that multiplies the loss
+    (inf forces an overflow)."""
+    from apex1_tpu_torch import Amp, fused_adam, t5_loss_fn
+    cfg, model = make_t5(level, depth, seed)
+    amp = Amp(fused_adam(lr, weight_decay=0.01), opt_level=level)
+    state = amp.init(dict(model.named_parameters()))
+    base = t5_loss_fn(model, fuse_head=fuse_head)
+    loss_fn = (lambda p, f, *b: base(p, *b) * f) if factor else base
+    return (cfg, state, amp.make_train_step(loss_fn),
+            t5_batch(torch, cfg.vocab_size))
+
+
+def t5_launches(n_enc: int, n_dec: int, fuse_head: bool = True) -> dict:
+    """Kernel launches per T5 training step under remat. Each block's
+    forward runs twice (the step's, and its recompute in the backward):
+    an encoder block two RMS norms and one flash forward, a decoder
+    block three norms and two (self and cross). The backward runs once a
+    block: its norms, flash dq and dk/dv per attention, and dbias for
+    the self-attention's relative-position bias (the cross-attention has
+    none). Each stack's final norm and the head run once."""
+    norms, attn = 2 * n_enc + 3 * n_dec, n_enc + 2 * n_dec
+    return {"layer_norm_fwd": 2 * norms + 2, "layer_norm_bwd": norms + 2,
+            "flash_fwd": 2 * attn, "flash_dq": attn, "flash_dkv": attn,
+            "flash_dbias": n_enc + n_dec,
+            **{name: 1 for name in HEAD_KERNELS[fuse_head]}}
+
+
+def run_t5_phase(torch, ops, card, launches, steps: int = 6):
+    """train-t5: the bench's ``t5`` at O2 for ``steps`` steps; prints
+    every step and the summary line (tokens/s = B·(S_enc + S_dec) over
+    the median step wall of steps 2..n beside the A100 proxy, device ms
+    a step and the busy share from 3 more profiled steps, the largest
+    kernels, peak memory); adds the counted steps' launches to
+    ``launches``. Returns (results, failure or None)."""
+    ops.reset_launches()
+    cfg, state, step, batch = make_t5_trainer(torch, "O2", T5LAYERS, SEED)
+    per_step = t5_launches(T5LAYERS, T5LAYERS)
+    rows, peak, state = run_steps(torch, ops, state, step, batch, steps,
+                                  return_state=True)
+    for name, n in ops.launch_counts().items():
+        launches[name] = launches.get(name, 0) + n
+    prof = profiled_steps(torch, state, step, batch)
+    del state, step, batch
+    n_tok = T5B * 2 * T5S
+    walls = sorted(r["wall_ms"] for r in rows[1:])
+    med = walls[len(walls) // 2]
+    out = dict(steps=rows, peak_gib=peak, step_wall_ms=med,
+               tokens_per_s=n_tok / med * 1e3, proxy_tokens_per_s=T5_PROXY,
+               profile=prof)
+    for r in rows:
+        print(f"phase train-t5: O2 step {r['step']} loss {r['loss']:.6f} "
+              f"grad_norm {r['grad_norm']:.4f} loss_scale "
+              f"{r['loss_scale']:g} skipped_steps {r['skipped']} wall "
+              f"{r['wall_ms']:.1f} ms launches {r['launches']} [{card}]")
+    print(f"phase train-t5: t5 O2 remat B={T5B} S_enc={T5S} S_dec={T5S} "
+          f"d_model {cfg.d_model} heads {cfg.num_heads}x{cfg.head_dim} d_ff "
+          f"{cfg.d_ff} layers {cfg.num_encoder_layers}+"
+          f"{cfg.num_decoder_layers} vocab {cfg.vocab_size}; step wall "
+          f"{med:.2f} ms (median of steps 2-{len(rows)}), "
+          f"{n_tok / med * 1e3:.0f} tokens/s (A100 proxy {T5_PROXY:.0f}, "
+          f"bench.py), device {prof['device_ms_per_step']:.2f} ms a step "
+          f"({prof['device_busy']:.0%} busy over 3 profiled steps), peak "
+          f"memory {peak:.2f} GiB [{card}]")
+    top = [(t["name"][:60], round(t["ms_per_step"], 3), t["calls"])
+           for t in prof["top"][:14]]
+    print(f"phase train-t5: largest kernels a step (name, ms, calls) {top} "
+          f"[{card}]")
+    losses = [r["loss"] for r in rows]
+    if not all(math.isfinite(v) for v in losses):
+        return out, f"train-t5: a loss is not finite: {losses}"
+    for r in rows:
+        if r["launches"] != per_step:
+            return out, (f"train-t5 step {r['step']}: launches "
+                         f"{r['launches']}, expected {per_step}")
+    torch.cuda.empty_cache()
+    return out, None
+
+
+def rel_pos_grads(torch, ops, card):
+    """The relative-position tables' O0 gradients at depth
+    `T5PAR_DEPTH` through the kernels and through the plain versions.
+    The check: each table's gradient norm within 1e-4 relative
+    (train-parity's grad-norm rule). Each row of a layer's dbias sums to
+    0 exactly (Σ_j p·(dp - δ) = δ - δ), so a table cell that covers most
+    of a row is a small difference of large fp32 sums, and the cells'
+    relative difference says little; dbias itself is held element by
+    element against its plain version in the kernels phase. Printed
+    beside the norms: the relative Frobenius difference, that difference
+    over the cells' sums of absolute terms A (A = one-hotᵀ·|dL/dbias|
+    from the plain run, itself already summed over the layers and the
+    batch), and the cancellation ‖g‖/‖A‖. Returns (results, failure or
+    None)."""
+    cfg, model = make_t5("O0", T5PAR_DEPTH, SEED + 1)
+    from apex1_tpu_torch import t5_loss_fn
+    params = dict(model.named_parameters())
+    stacks = (model.encoder, model.decoder)
+    names = ("encoder.rel_pos.rel_bias", "decoder.rel_pos.rel_bias")
+    batch = t5_batch(torch, cfg.vocab_size)
+    got, biases = {}, []
+    hooks = [st.rel_pos.register_forward_hook(
+        lambda m, i, out: biases.append(out)) for st in stacks]
+    for impl in ("kernel", "torch"):
+        biases.clear()
+        with ops.force_impl("auto" if impl == "kernel" else "torch"):
+            loss = t5_loss_fn(model)(params, *batch)
+            got[impl] = torch.autograd.grad(
+                loss, [params[n] for n in names] + biases)
+    for h in hooks:
+        h.remove()
+    out = {}
+    for i, (n, st) in enumerate(zip(names, stacks)):
+        gk, gp, db = got["kernel"][i], got["torch"][i], got["torch"][2 + i]
+        S = db.shape[-1]
+        A = st.rel_pos.one_hot(S, S).t() @ db[0].abs().permute(1, 2, 0) \
+            .reshape(S * S, -1)
+        dn = (gk - gp).norm().item()
+        out[n] = dict(norm_rel=abs(gk.norm() - gp.norm()).item()
+                      / gp.norm().item(),
+                      diff_rel=dn / gp.norm().item(),
+                      diff_over_abs_sums=dn / A.norm().item(),
+                      cancellation=(gp.norm() / A.norm()).item())
+    print(f"phase train-t5-parity: O0 depth {T5PAR_DEPTH} rel-pos table "
+          f"gradients, kernels vs plain {out} [{card}]")
+    del model, params, got, biases
+    torch.cuda.empty_cache()
+    bad = {n: v for n, v in out.items() if not v["norm_rel"] <= 1e-4}
+    return out, (f"train-t5-parity: rel-pos table gradients differ {bad}"
+                 if bad else None)
+
+
+def run_t5_parity(torch, ops, card):
+    """train-t5-parity: T5-large width, depth `T5PAR_DEPTH` a stack,
+    the bench's batch, lr 1e-5, through the kernels and the plain
+    versions (`train_parity`: O0 losses and grad norms, the O2_fp16
+    forced overflow) with the fused and the materialized head; the
+    fused head's step-1 O0 loss against the materialized head's on the
+    same weights; and `rel_pos_grads`. Returns (results, failure or
+    None)."""
+    par = {}
+    for fuse in (True, False):
+        label = f"fuse_head={fuse}"
+
+        def make(level, packed, factor, fuse=fuse):
+            return make_t5_trainer(torch, level, T5PAR_DEPTH, SEED + 1,
+                                   fuse_head=fuse, factor=factor,
+                                   lr=T5PAR_LR)
+
+        par[label] = train_parity(torch, ops, True, fuse, make=make)
+        need = ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd", "flash_dq",
+                "flash_dkv", "flash_dbias") + HEAD_KERNELS[fuse]
+        other = ("softmax_fwd", "softmax_bwd") + HEAD_KERNELS[not fuse]
+        err = check_train_parity(par[label], card, label, True, fuse,
+                                 kernels=(need, other),
+                                 phase="train-t5-parity")
+        if err:
+            return par, err
+    lf = par["fuse_head=True"]["kernel"]["o0"]["dense"][0][0]
+    lm = par["fuse_head=False"]["kernel"]["o0"]["dense"][0][0]
+    print(f"phase train-t5-parity: O0 depth {T5PAR_DEPTH} step-1 loss on "
+          f"the same weights, fuse_head=True {lf:.7f} vs fuse_head=False "
+          f"{lm:.7f}, relative difference {abs(lf - lm) / abs(lm):.2e} "
+          f"[{card}]")
+    if abs(lf - lm) > 1e-5 * abs(lm):
+        return par, (f"train-t5-parity: the fused head's loss {lf} is not "
+                     f"the materialized head's {lm}")
+    par["rel_pos"], err = rel_pos_grads(torch, ops, card)
+    return par, err
+
+
+#: mha: fairseq's transformer-big width (1024, 16 heads) at S x B
+MHA_E, MHA_H, MHA_S, MHA_B = 1024, 16, 512, 8
+
+
+def run_mha(torch, ops, card, launches):
+    """mha: `SelfMultiheadAttn(1024, 16, dropout=0.1,
+    include_norm_add=True)` and `EncdecMultiheadAttn` at the same width,
+    bf16 (S, B, E) inputs with a (B, 1, 1, S) additive key-padding mask
+    (-10000 and NEG_INF on the pads), forward and backward in training
+    (seed `SEED`) through the kernels and through the plain versions:
+    the output by the bf16 rule of the kernels phase, every gradient (the
+    inputs' and the parameters') within 1e-2 relative (Frobenius); the
+    kernels' launches exactly LN 1/1, flash 1/1/1, dbias 0 (the mask
+    takes no gradient), bias-dropout-add 1/1. Adds the launches to
+    ``launches``. Returns (results, failure or None)."""
+    from apex1_tpu_torch import EncdecMultiheadAttn, SelfMultiheadAttn
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    x, mem = rnd(MHA_S, MHA_B, MHA_E), rnd(MHA_S, MHA_B, MHA_E)
+    dout = rnd(MHA_S, MHA_B, MHA_E)
+    mask = flash_bias(torch, "mask", MHA_B, 1, 1, MHA_S, None)
+    want_launches = {"layer_norm_fwd": 1, "layer_norm_bwd": 1,
+                     "flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1,
+                     "bda_fwd": 1, "bda_bwd": 1}
+    results = {}
+    for name, mod, inputs in (
+            ("self", SelfMultiheadAttn(MHA_E, MHA_H, dropout=0.1,
+                                       include_norm_add=True,
+                                       device="cuda", seed=SEED), (x,)),
+            ("encdec", EncdecMultiheadAttn(MHA_E, MHA_H, dropout=0.1,
+                                           include_norm_add=True,
+                                           device="cuda", seed=SEED),
+             (x, mem))):
+        def run():
+            xs = [t.detach().requires_grad_() for t in inputs]
+            for p in mod.parameters():
+                p.grad = None
+            out = mod(*xs, attn_mask=mask, is_training=True,
+                      dropout_seed=SEED)
+            out.backward(dout)
+            return out.detach(), {**{f"d_input{i}": t.grad
+                                     for i, t in enumerate(xs)},
+                                  **{n: p.grad.clone() for n, p in
+                                     mod.named_parameters()}}
+
+        ops.reset_launches()
+        out, grads = run()
+        torch.cuda.synchronize()
+        got = {n: c for n, c in ops.launch_counts().items() if c}
+        for n, c in got.items():
+            launches[n] = launches.get(n, 0) + c
+        with ops.force_impl("torch"):
+            wout, wgrads = run()
+        eo = max_errs(out, wout, *TOLS["bfloat16"])
+        rel = {n: ((g.float() - wgrads[n].float()).norm()
+                   / wgrads[n].float().norm()).item()
+               for n, g in grads.items()}
+        ms = event_ms(run, iters=5)
+        with ops.force_impl("torch"):
+            pl_ms = event_ms(run, iters=3)
+        results[name] = dict(out_abs=eo[0], out_worst=eo[1],
+                             grad_rel=rel, launches=got, ms=ms,
+                             plain_ms=pl_ms)
+        print(f"phase mha: {type(mod).__name__}({MHA_E}, {MHA_H}, "
+              f"dropout=0.1, include_norm_add=True) S={MHA_S} B={MHA_B} "
+              f"bf16, key-padding mask; out max_abs={eo[0]:.3g} "
+              f"worst/allowed={eo[1]:.3g}; grads relative "
+              f"{ {n: float(f'{v:.3g}') for n, v in rel.items()} }; "
+              f"forward+backward {ms:.3f} ms (plain {pl_ms:.3f}); launches "
+              f"{got} [{card}]")
+        if got != want_launches:
+            return results, (f"mha {name}: launches {got}, expected "
+                             f"{want_launches}")
+        if eo[1] > 1 or any(not v <= 1e-2 for v in rel.values()):
+            return results, (f"mha {name}: kernels disagree with the plain "
+                             f"versions: out {eo}, grads {rel}")
+        del mod, out, grads, wout, wgrads
+        torch.cuda.empty_cache()
+    return results, None
+
+
+# ---- the bench's llama_longctx and decode -----------------------------------
+
+#: llama_longctx (`bench.py:333-347`): B x S, layers, A100 proxy
+LCTX_B, LCTX_S, LCTX_LAYERS, LCTX_PROXY = 1, 16384, 16, 11_100.0
+#: decode (`bench.py:403-463`): rows, prompt, new tokens, timed calls,
+#: A100 proxy
+DEC_B, DEC_S0, DEC_N, DEC_ITERS, DEC_PROXY = 8, 128, 128, 3, 6_100.0
+
+
+def run_longctx(torch, ops, card, launches, steps: int = 3):
+    """train-llama-longctx: the bench's ``llama_longctx`` (hidden 2048,
+    GQA 32/4 of 64, ffn 5632, 16 layers, vocab 32000, remat, fused head)
+    at B x S = 1 x 16384, ``steps`` O2 steps: finite losses, exact
+    launches (`llama_launches`), tokens/s beside the A100 proxy, peak
+    memory. Adds the launches to ``launches``. Returns (results,
+    failure or None)."""
+    ops.reset_launches()
+    cfg, state, step, batch = make_llama_trainer(
+        torch, "O2", LCTX_LAYERS, SEED, S=LCTX_S, B=LCTX_B,
+        widths=LLAMA_08B)
+    rows, peak = run_steps(torch, ops, state, step, batch, steps)
+    del state, step, batch
+    for name, n in ops.launch_counts().items():
+        launches[name] = launches.get(name, 0) + n
+    per_step = llama_launches(LCTX_LAYERS, False)
+    walls = sorted(r["wall_ms"] for r in rows[1:])
+    med = walls[len(walls) // 2]
+    n_tok = LCTX_B * LCTX_S
+    out = dict(steps=rows, peak_gib=peak, step_wall_ms=med,
+               tokens_per_s=n_tok / med * 1e3,
+               proxy_tokens_per_s=LCTX_PROXY)
+    for r in rows:
+        print(f"phase train-llama-longctx: O2 step {r['step']} loss "
+              f"{r['loss']:.6f} grad_norm {r['grad_norm']:.4f} wall "
+              f"{r['wall_ms']:.1f} ms launches {r['launches']} [{card}]")
+    print(f"phase train-llama-longctx: llama_longctx O2 remat fuse_head="
+          f"True B={LCTX_B} S={LCTX_S} hidden {cfg.hidden_size} heads "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} head_dim {cfg.head_dim} ffn "
+          f"{cfg.ffn_size} layers {cfg.num_layers} vocab {cfg.vocab_size}; "
+          f"step wall {med:.2f} ms (median of steps 2-{len(rows)}), "
+          f"{n_tok / med * 1e3:.0f} tokens/s (A100 proxy "
+          f"{LCTX_PROXY:.0f}, bench.py), peak memory {peak:.2f} GiB "
+          f"[{card}]")
+    losses = [r["loss"] for r in rows]
+    if not all(math.isfinite(v) for v in losses):
+        return out, f"train-llama-longctx: a loss is not finite: {losses}"
+    for r in rows:
+        if r["launches"] != per_step:
+            return out, (f"train-llama-longctx step {r['step']}: launches "
+                         f"{r['launches']}, expected {per_step}")
+    torch.cuda.empty_cache()
+    return out, None
+
+
+def run_decode(torch, ops, card, launches):
+    """decode: the bench's ``decode`` (the llama_longctx model without
+    remat, O2) through `generate` with `llama_decoder`: 8 prompts of 128
+    tokens of ``np.random.default_rng(0)``, 128 new tokens greedy, a
+    dense cache of 257 slots; one warm-up call, then `DEC_ITERS` timed
+    calls: tokens/s = B·N over the median call wall beside the A100
+    proxy, peak memory, the flash prefill (16 launches a call), tokens
+    inside the vocabulary. Adds the timed calls' launches to
+    ``launches``. Returns (results, failure or None)."""
+    import numpy as np
+    from apex1_tpu_torch import llama_decoder
+    from apex1_tpu_torch.models.generate import generate
+    cfg, model = make_llama("O2", LCTX_LAYERS, SEED, widths=LLAMA_08B,
+                            remat=False, max_seq_len=DEC_S0 + DEC_N + 8)
+    apply_fn, make_cache = llama_decoder(model)
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (DEC_B, DEC_S0))).cuda()
+
+    def run():
+        cache = make_cache(DEC_B, DEC_S0 + DEC_N + 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = generate(apply_fn, prompt, max_new_tokens=DEC_N, cache=cache,
+                        vocab_size=cfg.vocab_size)
+        torch.cuda.synchronize()
+        return toks, time.perf_counter() - t0
+
+    run()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    walls = []
+    for _ in range(DEC_ITERS):
+        toks, wall = run()
+        walls.append(wall)
+    counts = {n: c for n, c in ops.launch_counts().items() if c}
+    for n, c in counts.items():
+        launches[n] = launches.get(n, 0) + c
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    med = sorted(walls)[len(walls) // 2]
+    rate = DEC_B * DEC_N / med
+    out = dict(walls_s=walls, tokens_per_s=rate, proxy_tokens_per_s=DEC_PROXY,
+               peak_gib=peak, launches=counts)
+    print(f"phase decode: llama_longctx widths, {cfg.num_layers} layers, O2, "
+          f"no remat; {DEC_B} prompts of {DEC_S0} tokens, {DEC_N} new tokens "
+          f"greedy, dense cache {DEC_S0 + DEC_N + 1} slots; call walls "
+          f"{[round(w, 3) for w in walls]} s, {rate:.0f} tokens/s (A100 "
+          f"proxy {DEC_PROXY:.0f}, bench.py), peak memory {peak:.2f} GiB, "
+          f"launches over {DEC_ITERS} calls {counts} [{card}]")
+    del model, apply_fn
+    torch.cuda.empty_cache()
+    if counts.get("flash_fwd") != DEC_ITERS * cfg.num_layers:
+        return out, (f"decode: the prefill launched flash_fwd "
+                     f"{counts.get('flash_fwd')} times over {DEC_ITERS} "
+                     f"calls, expected {DEC_ITERS * cfg.num_layers}")
+    if toks.shape != (DEC_B, DEC_N) or toks.min() < 0 \
+            or toks.max() >= cfg.vocab_size:
+        return out, (f"decode: generate gave {tuple(toks.shape)} or a token "
+                     f"outside the vocabulary")
+    return out, None
+
+
+def profile_t5(torch, steps: int = 3) -> dict:
+    """``--profile``: where a ``t5`` O2 training step's time goes, as
+    `profile_train` measures it."""
+    _, state, step, batch = make_t5_trainer(torch, "O2", T5LAYERS, SEED)
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        state, _ = step(state, *batch)
+    out = {"bench": "t5", **profiled_steps(torch, state, step, batch, steps),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2593,7 +3184,8 @@ def main() -> int:
                                                   fuse_head=True),
             "llama_block": profile_llama(torch, fused_mlp=False),
             "llama_block_fused_mlp": profile_llama(torch, fused_mlp=True),
-            "bert_large": profile_bert(torch, "bert_large")}
+            "bert_large": profile_bert(torch, "bert_large"),
+            "t5": profile_t5(torch)}
         os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
         with open(os.path.join(HERE, "chiprun_out", "profile.json"),
                   "w") as f:
@@ -2612,7 +3204,8 @@ def main() -> int:
             (("layer_norm_bwd",), check_layer_norm_bwd, cgen),
             (("softmax_fwd", "softmax_bwd"), check_softmax, cgen),
             (("xent_fwd", "xent_bwd"), check_xent, cgen),
-            (("flash_fwd", "flash_dq", "flash_dkv"), check_flash, cgen),
+            (("flash_fwd", "flash_dq", "flash_dkv", "flash_dbias"),
+             check_flash, cgen),
             (("lxent_fwd", "lxent_dx", "lxent_dw"), check_lxent, cgen),
             (("rope",), check_rope, cgen),
             (("glu_fwd",), check_glu, cgen),
@@ -2884,12 +3477,39 @@ def main() -> int:
     if err:
         return fail(err)
     stamp("train-gpt2-dropout")
+
+    # 17-19. the T5 slice: train-t5 (the bench's t5), its kernel-vs-plain
+    # parity, and the multihead attention modules
+    t5_out = {}
+    t5_out["train"], err = run_t5_phase(torch, ops, card, main_launches)
+    if err:
+        return fail(err)
+    stamp("train-t5")
+    t5_out["parity"], err = run_t5_parity(torch, ops, card)
+    if err:
+        return fail(err)
+    stamp("train-t5-parity")
+    t5_out["mha"], err = run_mha(torch, ops, card, main_launches)
+    if err:
+        return fail(err)
+    stamp("mha")
+
+    # 20-21. the bench's llama_longctx and decode
+    llama_out["longctx"], err = run_longctx(torch, ops, card, main_launches)
+    if err:
+        return fail(err)
+    stamp("train-llama-longctx")
+    llama_out["decode"], err = run_decode(torch, ops, card, main_launches)
+    if err:
+        return fail(err)
+    stamp("decode")
     print(f"phase times: { {k: round(v, 1) for k, v in phase_s.items()} } "
           f"s wall [{card}]")
 
-    # 17. the kernels line, the card, the last line. launches: the main
+    # 22. the kernels line, the card, the last line. launches: the main
     # paths' runs (engine, the train phases, dpo, generate, train-llama,
-    # serve-llama and its generate, the BERT phases, train-gpt2-dropout)
+    # serve-llama and its generate, the BERT phases, train-gpt2-dropout,
+    # train-t5, mha, train-llama-longctx, decode)
     sources = {"layer_norm_fwd": ("apex1_tpu_torch/csrc/layer_norm.cu",
                                   "apex1_tpu/ops/layer_norm.py:110"),
                "paged_attend": ("apex1_tpu_torch/csrc/paged_attend.cu",
@@ -2912,6 +3532,8 @@ def main() -> int:
                             "apex1_tpu/ops/attention.py:689"),
                "flash_dkv": ("apex1_tpu_torch/csrc/flash_attn.cu",
                              "apex1_tpu/ops/attention.py:717"),
+               "flash_dbias": ("apex1_tpu_torch/csrc/flash_attn.cu",
+                               "apex1_tpu/ops/attention.py:780"),
                "lxent_fwd": ("apex1_tpu_torch/csrc/linear_xent.cu",
                              "apex1_tpu/ops/linear_xent.py:384, :286, "
                              ":316"),
@@ -2946,7 +3568,7 @@ def main() -> int:
                               "step_ms": step_ms, "summary": summ},
                    "train": train_out, "train_parity": par,
                    "dpo": dpo_out, "generate": gen_out, "llama": llama_out,
-                   "bert": bert_out, "phase_s": phase_s},
+                   "bert": bert_out, "t5": t5_out, "phase_s": phase_s},
                   f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -166,8 +166,10 @@ def test_fmha_packed_qkv_matches_jax(impl):
 
 def test_bias_and_dropout_raise_naming_the_bert_slice():
     q = torch.zeros(1, 2, 8, 16)
-    with pytest.raises(NotImplementedError, match="BERT"):
-        flash_attention(q, q, q, bias=torch.zeros(1, 2, 8, 8))
+    # the bias runs since the T5 slice (tests/test_torch_attention_bias.py);
+    # a bias of another shape raises as in the reference
+    with pytest.raises(ValueError, match="bias"):
+        flash_attention(q, q, q, bias=torch.zeros(1, 3, 8, 8))
     # dropout runs (tests/test_torch_attention_dropout.py); a missing
     # seed raises as in the reference
     with pytest.raises(ValueError, match="dropout_seed"):

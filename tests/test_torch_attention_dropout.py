@@ -176,8 +176,12 @@ def test_dropout_arguments_raise_as_the_reference_and_bias_still_raises():
         flash_attention(q, q, q, dropout_p=-0.1, dropout_seed=1)
     with pytest.raises(ValueError, match="dropout_seed"):
         flash_attention(q, q, q, dropout_p=0.1)
-    with pytest.raises(NotImplementedError, match="T5"):
-        flash_attention(q, q, q, bias=torch.zeros(1, 2, 8, 8))
+    # the bias runs with dropout since the T5 slice
+    # (tests/test_torch_attention_bias.py); a bias of rank 2 raises as in
+    # the reference
+    with pytest.raises(ValueError, match="bias"):
+        flash_attention(q, q, q, bias=torch.zeros(8, 8), dropout_p=0.1,
+                        dropout_seed=1)
     # p == 0 ignores a seed and is the dropout-free result
     assert torch.equal(flash_attention(q + 1, q, q, dropout_seed=3),
                        flash_attention(q + 1, q, q))

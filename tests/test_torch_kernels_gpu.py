@@ -32,7 +32,11 @@ bias-dropout-add kernels: y and dx exactly (the same fp32 operations,
 each rounded once), dbias at f32 tolerance with the same bits on a
 second run; the flash kernels with dropout as without it; both with a
 mask witness whose zero pattern must equal the plain version's mask
-exactly.
+exactly. The flash kernels with an additive bias (broadcast over batch,
+heads or both, NEG_INF entries, segments, offsets, dropout) as without
+it, and dbias (an fp32 sum over the broadcast (b, h)) at f32 tolerance
+with the same bits on a second launch; flash_attention launches dbias
+only for a bias that takes a gradient.
 """
 
 import numpy as np
@@ -665,3 +669,90 @@ def test_flash_dropout_mask_witness(cuda, dtype):
     g = Hq // Hkv
     kept_any = keep[:, :, 5, :].reshape(B, Hkv, g, S).any(dim=2)
     assert torch.equal(dv[..., 0] != 0, kept_any)
+
+
+# ---- the T5 slice: flash's bias operand and dbias ------------------------
+
+#: name -> (the `_FLASH` case, bias (Bb, Hb): "B"/"H" for the full
+#: dimension, dropout p)
+_FLASH_BIAS = {
+    "causal_heads": ("causal", (1, "H"), 0.0),
+    "gqa_full": ("gqa", ("B", "H"), 0.0),
+    "odd_batch": ("odd", ("B", 1), 0.0),
+    "segments_shared": ("segments", (1, 1), 0.0),
+    "offsets_lse_heads": ("offsets_lse", (1, "H"), 0.0),
+    "d128_heads": ("d128", (1, "H"), 0.0),
+    "causal_heads_dropout": ("causal", (1, "H"), 0.1),
+    "d32_pair_dropout": ("d32_pair", ("B", 1), 0.1),
+}
+
+
+def _bias_for(name, cuda):
+    case, (bb, hb), p = _FLASH_BIAS[name]
+    B, Hq, _, Sq, Sk = _FLASH[case][:5]
+    rng = np.random.default_rng(21)
+    shape = (B if bb == "B" else 1, Hq if hb == "H" else 1, Sq, Sk)
+    bias = rng.standard_normal(shape).astype(np.float32)
+    # an additive mask's entries: whole keys at NEG_INF, one at -10000
+    bias[..., :, 3] = -1e30
+    bias[..., :, 5] = -10000.0
+    return case, torch.from_numpy(bias).to(cuda), p
+
+
+@pytest.mark.parametrize("name", list(_FLASH_BIAS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_flash_bias_kernels_match_plain(cuda, dtype, name):
+    """Forward, dq, dk/dv with a bias and dbias each against its plain
+    version on the same inputs; dq, dk/dv and dbias give the same bits
+    on a second launch."""
+    from apex1_tpu_torch.ops.attention import (flash_dbias, flash_dkv,
+                                               flash_dq, flash_fwd)
+    dt = getattr(torch, dtype)
+    case, bias, p = _bias_for(name, cuda)
+    q, k, v, do, dlse, qseg, kseg, args = _flash_inputs(case, dt, cuda)
+    args = args + ((p, 99) if p else ())
+    (out, lse), (wout, wlse) = _both(
+        lambda: flash_fwd(q, k, v, qseg, kseg, *args, bias=bias))
+    _close(out, wout, dt)
+    empty = wlse <= -1e29
+    assert torch.equal(lse <= -1e29, empty)
+    _close(torch.where(empty, 0.0, lse), torch.where(empty, 0.0, wlse),
+           torch.float32)
+    delta = (do.float() * wout.float()).sum(-1)
+    bwd = (q, k, v, do, wlse, delta, dlse, qseg, kseg, *args)
+    dq, wdq = _both(lambda: flash_dq(*bwd, bias=bias))
+    _close(dq, wdq, dt)
+    (dk, dv), (wdk, wdv) = _both(lambda: flash_dkv(*bwd, bias=bias))
+    _close(dk, wdk, dt)
+    _close(dv, wdv, dt)
+    db, wdb = _both(lambda: flash_dbias(*bwd, bias=bias))
+    assert db.shape == bias.shape and db.dtype == torch.float32
+    _close(db, wdb, torch.float32)
+    assert torch.equal(flash_dbias(*bwd, bias=bias), db)
+    assert torch.equal(flash_dq(*bwd, bias=bias), dq)
+    dk2, dv2 = flash_dkv(*bwd, bias=bias)
+    assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
+
+
+def test_flash_attention_launches_dbias_only_for_a_trained_bias(cuda):
+    from apex1_tpu_torch.ops import KERNEL_WRAPPERS
+    from apex1_tpu_torch.ops.attention import flash_attention
+    names = ("flash_fwd", "flash_dq", "flash_dkv", "flash_dbias")
+
+    def run(bias):
+        before = {n: KERNEL_WRAPPERS[n].launches for n in names}
+        q = torch.randn(2, 4, 64, 64, device=cuda, dtype=torch.bfloat16,
+                        requires_grad=True)
+        flash_attention(q, q, q, causal=True, bias=bias).float().sum() \
+            .backward()
+        return {n: KERNEL_WRAPPERS[n].launches - before[n] for n in names}
+
+    mask = torch.zeros(2, 1, 64, 64, device=cuda)
+    assert run(mask) == dict(flash_fwd=1, flash_dq=1, flash_dkv=1,
+                             flash_dbias=0)
+    table = torch.randn(1, 4, 64, 64, device=cuda, dtype=torch.bfloat16,
+                        requires_grad=True)
+    assert run(table) == dict(flash_fwd=1, flash_dq=1, flash_dkv=1,
+                              flash_dbias=1)
+    assert table.grad.dtype == torch.bfloat16
+
