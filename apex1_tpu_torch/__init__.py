@@ -13,12 +13,14 @@ from apex1_tpu_torch.core.policy import PrecisionPolicy, get_policy
 from apex1_tpu_torch.interop import (bert_params_from_jax,
                                      gpt2_params_from_jax,
                                      llama_params_from_jax,
+                                     quant_params_from_jax,
                                      t5_params_from_jax)
 from apex1_tpu_torch.models import (GPT2, BertConfig, BertPretrain,
                                     GPT2Config, Llama, LlamaConfig, T5,
                                     T5Config, bert_pretrain_loss_fn,
                                     gpt2_decoder, gpt2_loss_fn,
-                                    llama_decoder, llama_loss_fn,
+                                    gpt2_quant_decoder, llama_decoder,
+                                    llama_loss_fn, llama_quant_decoder,
                                     t5_loss_fn)
 from apex1_tpu_torch.ops import force_impl
 from apex1_tpu_torch.optim import fused_adam
@@ -27,8 +29,10 @@ from apex1_tpu_torch.serving import Engine, EngineConfig
 __all__ = ["Amp", "AmpState", "PrecisionPolicy", "get_policy",
            "bert_params_from_jax", "BertConfig", "BertPretrain",
            "bert_pretrain_loss_fn", "gpt2_params_from_jax",
-           "llama_params_from_jax", "t5_params_from_jax", "GPT2",
+           "llama_params_from_jax", "quant_params_from_jax",
+           "t5_params_from_jax", "GPT2",
            "GPT2Config", "Llama", "LlamaConfig", "T5", "T5Config",
-           "gpt2_decoder", "gpt2_loss_fn", "llama_decoder", "llama_loss_fn",
+           "gpt2_decoder", "gpt2_loss_fn", "gpt2_quant_decoder",
+           "llama_decoder", "llama_loss_fn", "llama_quant_decoder",
            "t5_loss_fn", "EncdecMultiheadAttn", "SelfMultiheadAttn",
            "force_impl", "fused_adam", "Engine", "EngineConfig", "ops"]

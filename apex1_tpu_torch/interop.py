@@ -23,6 +23,8 @@ numpy arrays: this module imports no JAX.
   whose port names are the flax paths joined by dots
   (``encoder/layer0/self_attn/wq`` -> ``encoder.layer0.self_attn.wq``)
   with the projections in the flax (in, out) layout: a copy;
+- `quant_params_from_jax`: the JAX package's int8 decode tree
+  (``{"q", "s"}`` leaves) as the port's, for `models.quant_decode`;
 - `mha_params_from_jax`: a `SelfMultiheadAttn` or `EncdecMultiheadAttn`
   from its flax params (the same names, the same (in, out) layout);
 - `named_from_flax` / `flax_from_named`: one flax-layout tree (params,
@@ -197,6 +199,33 @@ def llama_params_to_numpy(model: Llama) -> dict:
     """The inverse of `llama_params_from_jax`: the flax-layout numpy
     tree of ``model``'s parameters."""
     return flax_from_named(dict(model.named_parameters()))
+
+
+def _leaf_tensor(a, device) -> torch.Tensor:
+    """One array as a tensor on ``device``; numpy's bfloat16 (ml_dtypes,
+    which torch does not read) crosses as its bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def quant_params_from_jax(qparams, device=None) -> dict:
+    """The JAX package's int8 decode tree (`quantize_llama_params` /
+    `quantize_gpt2_params` there: ``{"q": int8 (out, in), "s": fp32
+    (out,)}`` leaves, embeddings in the compute dtype, norms and biases
+    fp32; numpy or JAX arrays) as the port's, the same keys, tensors on
+    ``device`` (CUDA unless named); pass it to
+    `models.quant_decode.llama_quant_decoder(model, qparams)` (or the
+    GPT-2 one) to serve a tree quantized in JAX unchanged."""
+    dev = resolve_device(device)
+
+    def walk(tree):
+        return {k: (walk(v) if isinstance(v, Mapping)
+                    else _leaf_tensor(v, dev)) for k, v in tree.items()}
+
+    return walk(qparams)
 
 
 def bert_params_from_jax(params, cfg: BertConfig, device=None):

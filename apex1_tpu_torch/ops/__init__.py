@@ -15,6 +15,8 @@ from apex1_tpu_torch.ops.fused_dense import (check_glu_geometry, fused_glu,
 from apex1_tpu_torch.ops.layer_norm import (FusedLayerNorm, FusedRMSNorm,
                                             layer_norm, layer_norm_bwd,
                                             layer_norm_fwd, rms_norm)
+from apex1_tpu_torch.ops.lora_epilogue import (check_lora_geometry,
+                                               lora_delta)
 from apex1_tpu_torch.ops.linear_xent import (linear_cross_entropy,
                                              lxent_dw, lxent_dx, lxent_fwd,
                                              lxent_grads, shard_grads,
@@ -24,6 +26,7 @@ from apex1_tpu_torch.ops.paged_decode import (PagedCache, cache_attend,
                                               paged_attend,
                                               paged_update_attend,
                                               sample_token, scatter_pages)
+from apex1_tpu_torch.ops.quantized import int8_matmul, int8_mm, quantize_int8
 from apex1_tpu_torch.ops.rope import (apply_rotary_pos_emb, rope_tables,
                                       rotate)
 from apex1_tpu_torch.ops.softmax import (FusedScaleMaskSoftmax,
@@ -58,7 +61,9 @@ KERNEL_WRAPPERS = {"layer_norm_fwd": layer_norm_fwd,
                    "rope": rotate,
                    "glu_fwd": glu_fwd,
                    "bda_fwd": bda_fwd,
-                   "bda_bwd": bda_bwd}
+                   "bda_bwd": bda_bwd,
+                   "int8_mm": int8_mm,
+                   "lora_delta": lora_delta}
 
 
 def reset_launches() -> None:
@@ -77,7 +82,9 @@ __all__ = ["NEG_INF", "force_impl", "get_impl", "set_impl",
            "chunked_orpo_loss", "linear_cross_entropy", "lxent_dw",
            "lxent_dx", "lxent_fwd", "lxent_grads", "shard_grads",
            "shard_stats", "shard_stats_packed", "check_glu_geometry",
-           "fused_glu", "glu_fwd", "apply_rotary_pos_emb", "rope_tables",
+           "fused_glu", "glu_fwd", "check_lora_geometry", "lora_delta",
+           "int8_matmul", "int8_mm", "quantize_int8",
+           "apply_rotary_pos_emb", "rope_tables",
            "rotate",
            "FusedLayerNorm", "FusedRMSNorm", "layer_norm", "layer_norm_bwd",
            "layer_norm_fwd", "rms_norm", "PagedCache", "cache_attend",

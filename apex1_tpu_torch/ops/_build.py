@@ -83,6 +83,8 @@ SIGNATURES = {
     "apex1_bda_fwd": [_P, _P, _P, _P, _L, _I, _U, _U, _F, _I, _I, _I, _P],
     "apex1_bda_bwd": [_P, _P, _P, _P, _L, _I, _I, _I, _U, _U, _F, _I, _I,
                       _P],
+    "apex1_int8_mm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "apex1_lora_delta": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _LOCK = threading.Lock()

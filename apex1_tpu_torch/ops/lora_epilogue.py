@@ -1,0 +1,97 @@
+"""Multi-tenant LoRA logit delta through adapter pages (the port of
+``apex1_tpu/ops/lora_epilogue.py``).
+
+One deployed base model, many tenants: each tenant's low-rank LM-head
+adapter (A (H, r), B (r, V), the scale folded into B) lives as ``r``
+pages of a pool beside the KV pool (`serving.lora.LoraAdapterStore`),
+and each serving row names its pages through a rank-length block-table
+row. The delta is
+
+    delta[n] = Σ_j (h[n] · A_pages[bt[n, j]]) * B_pages[bt[n, j]]
+
+added to the base head's logits as an epilogue (`serving.engine`).
+Page 0 is the zero page, so a row with no adapter gets exactly 0.0.
+
+CUDA tensors launch ``csrc/lora_delta.cu`` (TPU row 23): a block owns a
+row, so a row's result depends on that row's operands alone and a
+mixed-tenant batch equals each row run alone, bit for bit. CPU tensors
+take the plain version, the JAX package's ``_lora_delta_ref``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from apex1_tpu_torch.ops import _build
+from apex1_tpu_torch.ops._common import DTYPE_CODES, check_cuda, use_kernel
+
+#: shared memory a block of the kernel may use (H100: 227 KB)
+_SMEM_LIMIT = 232448
+_H_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def check_lora_geometry(rank: int, hidden: int, vocab: int) -> int:
+    """Validate the LoRA epilogue's geometry loudly: ``rank >= 1`` and
+    the block's shared memory (the rank's coefficients and page ids)
+    within the card's limit; returns those bytes. The JAX package prices
+    its VMEM tile through ``vmem_model``; the port has no budget model
+    yet (ROADMAP.md queue A item 11), so this checks the one resource
+    the CUDA block's size depends on."""
+    if rank < 1:
+        raise ValueError(f"lora_epilogue: rank={rank} must be >= 1")
+    if hidden < 1 or vocab < 1:
+        raise ValueError(f"lora_epilogue: hidden={hidden} and vocab={vocab} "
+                         f"must be >= 1")
+    smem = 8 * rank
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"lora_epilogue: rank={rank} needs {smem} B of "
+                         f"shared memory > the block limit {_SMEM_LIMIT} B")
+    return smem
+
+
+def _lora_delta_ref(h, a_pages, b_pages, block_table):
+    """Gather the pages dense, then the two fp32 rank products."""
+    bt = block_table.long()
+    coef = torch.einsum("nh,nrh->nr", h.float(), a_pages[bt].float())
+    return torch.einsum("nr,nrv->nv", coef, b_pages[bt].float())
+
+
+def lora_delta(h: torch.Tensor, a_pages: torch.Tensor, b_pages: torch.Tensor,
+               block_table: torch.Tensor) -> torch.Tensor:
+    """Per-row paged LoRA logit delta: ``h`` (N, H) hidden rows,
+    ``a_pages`` (P, H) / ``b_pages`` (P, V) fp32 page pools,
+    ``block_table`` (N, R) int32 page ids. Returns (N, V) fp32. CUDA
+    tensors launch the kernel (``lora_delta.launches`` counts the
+    launches), CPU tensors take the plain version."""
+    N, H = h.shape
+    R = block_table.shape[1]
+    V = b_pages.shape[1]
+    check_lora_geometry(R, H, V)
+    if not use_kernel(h):
+        return _lora_delta_ref(h, a_pages, b_pages, block_table)
+    if h.dtype not in _H_DTYPES:
+        raise ValueError(f"lora_delta: unsupported hidden dtype {h.dtype}")
+    if a_pages.dtype != torch.float32 or b_pages.dtype != torch.float32:
+        raise ValueError(f"lora_delta: the page pools must be fp32, got "
+                         f"{a_pages.dtype}, {b_pages.dtype}")
+    if a_pages.shape[1] != H or a_pages.shape[0] != b_pages.shape[0] \
+            or block_table.shape[0] != N or block_table.dtype != torch.int32:
+        raise ValueError(f"lora_delta: h {tuple(h.shape)}, a_pages "
+                         f"{tuple(a_pages.shape)}, b_pages "
+                         f"{tuple(b_pages.shape)} and block_table "
+                         f"{tuple(block_table.shape)} {block_table.dtype} do "
+                         f"not fit")
+    h, bt = h.contiguous(), block_table.contiguous()
+    a_pages, b_pages = a_pages.contiguous(), b_pages.contiguous()
+    check_cuda("lora_delta", h, a_pages, b_pages, bt)
+    out = torch.empty(N, V, dtype=torch.float32, device=h.device)
+    vec4 = V % 4 == 0 and b_pages.data_ptr() % 16 == 0
+    stream = torch.cuda.current_stream(h.device).cuda_stream
+    _build.launch("apex1_lora_delta", h.data_ptr(), a_pages.data_ptr(),
+                  b_pages.data_ptr(), bt.data_ptr(), out.data_ptr(), N, H, V,
+                  R, int(vec4), DTYPE_CODES[h.dtype], stream)
+    lora_delta.launches += 1
+    return out
+
+
+lora_delta.launches = 0

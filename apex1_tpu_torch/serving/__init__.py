@@ -6,11 +6,13 @@ from apex1_tpu_torch.serving.engine import (Engine, EngineConfig,
 from apex1_tpu_torch.serving.kv_pool import (PageAllocator, PagedKVPool,
                                              PagedPrefix, PrefixPage,
                                              RadixIndex)
+from apex1_tpu_torch.serving.lora import LoraAdapterStore
 from apex1_tpu_torch.serving.metrics import RequestRecord, ServingMetrics
 from apex1_tpu_torch.serving.scheduler import (Backpressure, Request,
                                                Scheduler, new_request_id)
+from apex1_tpu_torch.serving.spec import ngram_propose
 
 __all__ = ["Engine", "EngineConfig", "RequestResult", "derive_request_seed",
-           "PageAllocator", "PagedKVPool", "PagedPrefix", "PrefixPage",
+           "LoraAdapterStore", "ngram_propose", "PageAllocator", "PagedKVPool", "PagedPrefix", "PrefixPage",
            "RadixIndex", "RequestRecord", "ServingMetrics", "Backpressure",
            "Request", "Scheduler", "new_request_id"]

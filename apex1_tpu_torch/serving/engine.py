@@ -19,6 +19,27 @@ the model runs the JAX package's KERNEL-PATH structure
   `fused_sample` over the (N, V) logits rows. Inactive rows compute
   masked garbage into the trash page (page 0).
 
+- **verify** (``num_draft = K > 0``) replaces decode: the host proposes
+  K draft tokens per slot (`spec.ngram_propose`, or ``draft_propose=``)
+  and ONE ``(N, K + 1)`` chunk-decode forward scores each slot's last
+  token plus its drafts at the row's own cache index; `fused_sample`
+  draws the target's counter-keyed token at every position, and a slot
+  emits its longest accepted prefix plus the correction token. Drafts
+  are hints: draft j is accepted only if it equals the token the engine
+  would have sampled there, so a spec engine emits the non-spec
+  engine's tokens. Rejected drafts' K/V land past the accepted point,
+  masked and later overwritten.
+
+MULTI-TENANT LORA (``lora_rank > 0``): adapter pages live in a
+`lora.LoraAdapterStore` beside the KV pool; each slot carries a
+rank-length page row and an on-flag. The forward returns the hidden
+states (``return_hidden=True``), the logits are the model's own head
+(`models.gpt2.head_logits` on ``lora_head``, the function the model
+calls, so an adapterless slot's logits are the model's bit for bit),
+and `ops.lora_epilogue.lora_delta` adds each row's delta where its flag
+is on — over the decode step's rows, the prefill's last real row and
+the verify step's N·(K+1) rows.
+
 On CUDA tensors those are the port's kernels; on the CPU their plain
 PyTorch versions. PyTorch runs eagerly, so the JAX engine's
 ``trace_counts`` (its compile-count hook) has no meaning here and is
@@ -40,13 +61,14 @@ are patched in place only at join/leave boundaries. With
 ``eos_id=None`` the engine never reads a step's tokens back before
 dispatching the next: per-step outputs collect in a device-side log,
 read once at retirement. With an ``eos_id`` each step's tokens are read
-back (one small blocking copy per step) to retire rows.
+back (one small blocking copy per step) to retire rows; speculative mode
+always reads back (drafting needs the history, accept counts gate
+retirement).
 
-Not ported yet (each raises `NotImplementedError` naming its ROADMAP.md
-item): speculative decode (``num_draft > 0``), multi-tenant LoRA
-(``lora_rank > 0``) and the dense pool (``paged=False``). Nor are the
-JAX engine's cancellation, deadlines, explicit ``prefix=`` share points
-or ``prefix_cache=False``: each comes with the slice that needs it.
+Not ported yet: the dense pool (``paged=False`` raises
+`NotImplementedError` naming ROADMAP.md queue A item 4), nor the JAX
+engine's cancellation, deadlines, ``pop_result``, explicit ``prefix=``
+share points or ``prefix_cache=False`` (the same item).
 """
 
 from __future__ import annotations
@@ -58,12 +80,16 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from apex1_tpu_torch.models.gpt2 import head_logits
 from apex1_tpu_torch.ops._common import resolve_device
+from apex1_tpu_torch.ops.lora_epilogue import lora_delta
 from apex1_tpu_torch.ops.paged_decode import PagedCache, fused_sample
 from apex1_tpu_torch.serving.kv_pool import PagedKVPool
+from apex1_tpu_torch.serving.lora import LoraAdapterStore
 from apex1_tpu_torch.serving.metrics import ServingMetrics
 from apex1_tpu_torch.serving.scheduler import (Backpressure, Request,
                                                Scheduler)
+from apex1_tpu_torch.serving.spec import ngram_propose
 from apex1_tpu_torch.utils.observability import MetricsLogger, annotate
 
 
@@ -106,12 +132,14 @@ class EngineConfig:
     max_queue: int = 64          # admission backpressure bound
     policy: str = "fifo"         # or "sjf" (see serving.scheduler)
     max_prefix_pages: int = 32   # LRU-by-last-hit prefix bound
-    num_draft: int = 0           # speculative decode (not ported yet)
+    num_draft: int = 0           # >0: speculative verify, K drafts
+    max_ngram: int = 3           # self-draft prompt-lookup n-gram cap
     cache_dtype: Optional[object] = None  # e.g. torch.int8; None = the
     #                                       decoder's compute dtype
     paged: bool = True           # the port serves the paged pool only
     page_size: Optional[int] = None  # None = max(8, ceil8(chunk))
-    lora_rank: int = 0           # multi-tenant LoRA (not ported yet)
+    lora_rank: int = 0           # >0: multi-tenant LoRA adapter pages
+    lora_max_adapters: int = 4   # adapter pages = 1 + max_adapters * rank
 
     def __post_init__(self):
         if self.prefill_chunk < 1:
@@ -121,6 +149,8 @@ class EngineConfig:
         if self.num_draft < 0:
             raise ValueError(
                 f"num_draft must be >= 0, got {self.num_draft}")
+        if self.max_ngram < 1:
+            raise ValueError(f"max_ngram must be >= 1, got {self.max_ngram}")
         if self.max_prefix_pages < 1:
             raise ValueError("max_prefix_pages must be >= 1")
         if self.page_size is not None and self.page_size < 1:
@@ -129,6 +159,10 @@ class EngineConfig:
         if self.lora_rank < 0:
             raise ValueError(
                 f"lora_rank must be >= 0, got {self.lora_rank}")
+        if self.lora_rank > 0 and self.lora_max_adapters < 1:
+            raise ValueError(
+                f"lora_max_adapters must be >= 1, "
+                f"got {self.lora_max_adapters}")
 
 
 @dataclasses.dataclass
@@ -153,6 +187,11 @@ class _Slot:
     in_batch: bool = False       # joined the decode batch
     eos_seen: bool = False
     produced: List[int] = dataclasses.field(default_factory=list)
+    # speculative bookkeeping: the request's known tokens (prompt +
+    # emitted, the self-draft corpus) and its accept-rate numerators
+    history: List[int] = dataclasses.field(default_factory=list)
+    drafted: int = 0
+    accepted: int = 0
 
 
 class Engine:
@@ -163,35 +202,48 @@ class Engine:
 
     Drive it with `submit` + `step`/`run`; finished requests appear in
     `results`. One `step()` = admit queued requests into free slots
-    (chunked prefill) -> one pooled decode step.
+    (chunked prefill) -> one pooled decode (or speculative verify) step.
+    ``draft_propose(history, k) -> k ints`` plugs a draft source into
+    speculative mode (default: n-gram prompt lookup). ``lora_head``,
+    required with ``lora_rank > 0``, is the model's own (vocab, hidden)
+    LM-head weight (``model.output`` for `Llama`); the decoder's
+    ``apply_fn`` must then take ``return_hidden=True``.
     """
 
     def __init__(self, apply_fn: Callable, make_cache: Callable,
                  config: Optional[EngineConfig] = None, *, device=None,
-                 metrics_logger: Optional[MetricsLogger] = None):
+                 metrics_logger: Optional[MetricsLogger] = None,
+                 draft_propose: Optional[Callable] = None,
+                 lora_head: Optional[torch.Tensor] = None):
         self.device = resolve_device(device)
         self.cfg = cfg = config or EngineConfig()
         if not cfg.paged:
             raise NotImplementedError(
                 "the port serves the paged pool only; the dense pool "
-                "(paged=False) is ROADMAP.md queue A item 4 (decode, "
-                "quant, LoRA, speculative, dense pool)")
-        if cfg.num_draft > 0:
-            raise NotImplementedError(
-                "speculative decode (num_draft > 0) is not ported yet: "
-                "ROADMAP.md queue A item 4 (decode, quant, LoRA, "
-                "speculative, dense pool)")
-        if cfg.lora_rank > 0:
-            raise NotImplementedError(
-                "multi-tenant LoRA (lora_rank > 0) needs the LoRA "
-                "epilogue kernel (TPU kernel row 23), not ported yet: "
-                "ROADMAP.md queue A item 4 (decode, quant, LoRA, "
-                "speculative, dense pool)")
+                "(paged=False) is ROADMAP.md queue A item 4 (what is left "
+                "of it: the dense pool, beam_search, speculative_generate, "
+                "counter_sample, and the engine's cancel, deadlines, "
+                "pop_result, prefix= and prefix_cache=False)")
         self._apply_fn = apply_fn
-        # the final prefill chunk is right-padded to the full width, so
-        # its write can run up to prefill_chunk - 1 positions past the
-        # last real token: the pool carries that slack past max_len
-        slack = cfg.prefill_chunk - 1
+        self._spec = cfg.num_draft > 0
+        self._lora = self._lora_head = None
+        if cfg.lora_rank > 0:
+            if lora_head is None:
+                raise ValueError(
+                    "lora_rank > 0 requires lora_head= (the model's "
+                    "(vocab, hidden) LM-head weight)")
+            V, H = lora_head.shape
+            self._lora = LoraAdapterStore(H, V, cfg.lora_rank,
+                                          cfg.lora_max_adapters,
+                                          device=self.device)
+            self._lora_head = lora_head
+        self._draft_propose = draft_propose or (
+            lambda hist, k: ngram_propose(hist, k,
+                                          max_ngram=cfg.max_ngram))
+        # the final prefill chunk is right-padded to the full width, and
+        # a verify writes num_draft + 1 entries at a row's index: the
+        # pool carries the wider write's overhang past max_len
+        slack = max(cfg.prefill_chunk, cfg.num_draft + 1) - 1
         page_size = cfg.page_size or max(8, -(-cfg.prefill_chunk // 8) * 8)
         self.kv = PagedKVPool(make_cache, cfg.max_slots,
                               cfg.max_len + slack, page_size=page_size,
@@ -221,11 +273,19 @@ class Engine:
         self._d_active = torch.zeros((n,), dtype=torch.bool, device=dev)
         self._d_seeds = torch.zeros((n,), dtype=i32, device=dev)
         self._d_pos = torch.zeros((n,), dtype=i32, device=dev)
+        if self._lora is not None:
+            # per-slot adapter page row + on-flag, patched at the same
+            # join/leave boundaries; all-zero rows name the zero page
+            self._d_lora_bt = torch.zeros((n, cfg.lora_rank), dtype=i32,
+                                          device=dev)
+            self._d_lora_on = torch.zeros((n,), dtype=torch.bool,
+                                          device=dev)
         self._n_active = 0
         # eos_id=None: retirement is length-based, so step tokens are
         # only READ at retirement — the log keeps each step's (N,)
-        # output (a device tensor until its first fetch memoizes it)
-        self._defer = cfg.eos_id is None
+        # output (a device tensor until its first fetch memoizes it).
+        # Speculative mode always reads back.
+        self._defer = cfg.eos_id is None and not self._spec
         self._tok_log: Dict[int, object] = {}
         self._step_no = 0
         self._probe_cache: Dict[int, bool] = {}
@@ -242,7 +302,23 @@ class Engine:
         return {layer: PagedCache(entry["k"], entry["v"], bt, L)
                 for layer, entry in self.kv.pages.items()}
 
-    # ---- the two steps ---------------------------------------------------
+    # ---- the forwards ---------------------------------------------------
+
+    def _forward(self, tokens, cache, idx, **kw):
+        """The model's (B, S, V) fp32 logits, and with LoRA on its
+        (B, S, H) final hidden states (the logits then the model's own
+        head on ``lora_head``), else None."""
+        if self._lora is None:
+            return self._apply_fn(tokens, cache, idx, **kw)[0], None
+        h, _ = self._apply_fn(tokens, cache, idx, return_hidden=True, **kw)
+        return head_logits(h, self._lora_head.to(h.dtype)), h
+
+    def _add_lora(self, logits, h, lbt, on):
+        """(R, V) logits plus the adapter delta of the (R, H) hidden rows
+        through their (R, rank) page rows, where ``on``; off rows keep
+        the model's logits bit for bit (no ``+ 0.0``)."""
+        delta = lora_delta(h, self._lora.a_pages, self._lora.b_pages, lbt)
+        return torch.where(on[:, None], logits + delta, logits)
 
     def _prefill(self, slot: int, tokens: np.ndarray, idx: int,
                  n_real: int, seed: int) -> torch.Tensor:
@@ -251,39 +327,110 @@ class Engine:
         (the request's output #0)."""
         C, dev = self.cfg.prefill_chunk, self.device
         positions = (idx + torch.arange(C, device=dev))[None]
-        logits, _ = self._apply_fn(
+        logits, h = self._forward(
             torch.from_numpy(tokens).to(dev),
             self._paged_cache(self._d_bt[slot:slot + 1]), idx,
             positions=positions, chunk_decode=True)
+        lg = logits[:, n_real - 1]
+        if self._lora is not None:
+            lg = self._add_lora(lg, h[:, n_real - 1],
+                                self._d_lora_bt[slot:slot + 1],
+                                self._d_lora_on[slot:slot + 1])
         seeds = torch.full((1,), seed, dtype=torch.int32, device=dev)
         pos0 = torch.zeros((1,), dtype=torch.int32, device=dev)
-        return fused_sample(logits[:, n_real - 1], seeds, pos0,
-                            **self._sample_kw)[0]
+        return fused_sample(lg, seeds, pos0, **self._sample_kw)[0]
 
     def _decode(self):
         """One batch-N decode step over every slot."""
-        logits, _ = self._apply_fn(
+        logits, h = self._forward(
             self._d_toks[:, None], self._paged_cache(self._d_bt),
             self._d_idxs, positions=self._d_idxs[:, None])
-        nxt = fused_sample(logits[:, -1], self._d_seeds, self._d_pos,
+        lg = logits[:, -1]
+        if self._lora is not None:
+            lg = self._add_lora(lg, h[:, -1], self._d_lora_bt,
+                                self._d_lora_on)
+        nxt = fused_sample(lg, self._d_seeds, self._d_pos,
                            **self._sample_kw)
         nxt = torch.where(self._d_active, nxt, self.cfg.pad_id)
         adv = self._d_active.to(torch.int32)
         return nxt, self._d_idxs + adv, self._d_pos + adv
 
+    def _verify(self, drafts: torch.Tensor):
+        """One (N, K + 1) verify forward over every slot: each row's
+        last token and its K drafts at the row's cache index. Returns
+        the target tokens (N, K + 1), the accepted draft counts (N,)
+        and the next tokens, indices and output positions."""
+        K, i32 = self.cfg.num_draft, torch.int32
+        active = self._d_active
+        ar = torch.arange(K + 1, dtype=i32, device=self.device)
+        chunks = torch.cat([self._d_toks[:, None], drafts], 1)
+        logits, h = self._forward(
+            chunks, self._paged_cache(self._d_bt), self._d_idxs,
+            positions=self._d_idxs[:, None] + ar, chunk_decode=True)
+        N, V = logits.shape[0], logits.shape[-1]
+        flat = logits.reshape(-1, V)
+        if self._lora is not None:
+            # the (N, K + 1) rows flattened into the delta's batch, each
+            # repeating its slot's page row
+            flat = self._add_lora(
+                flat, h.reshape(N * (K + 1), -1),
+                self._d_lora_bt.repeat_interleave(K + 1, dim=0),
+                self._d_lora_on.repeat_interleave(K + 1, dim=0))
+        posm = self._d_pos[:, None] + ar
+        seedm = self._d_seeds[:, None].expand(N, K + 1)
+        tgt = fused_sample(flat, seedm.reshape(-1), posm.reshape(-1),
+                           **self._sample_kw).reshape(N, K + 1)
+        acc = torch.cumprod((tgt[:, :K] == drafts).to(i32), dim=1).sum(1)
+        acc = torch.where(active, acc.to(i32), 0)
+        adv = torch.where(active, acc + 1, 0)
+        nxt = torch.where(active, tgt.gather(1, acc[:, None].long())[:, 0],
+                          self.cfg.pad_id)
+        return tgt, acc, nxt, self._d_idxs + adv, self._d_pos + adv
+
+    # ---- multi-tenant LoRA adapters -------------------------------------
+
+    def register_adapter(self, tenant: str, A, B, *, scale: float = 1.0):
+        """Install ``tenant``'s LM-head adapter (``A`` (H, r), ``B``
+        (r, V)); later ``submit(tenant=...)`` requests decode through
+        it."""
+        if self._lora is None:
+            raise RuntimeError(
+                "register_adapter requires EngineConfig(lora_rank > 0)")
+        return self._lora.register(tenant, A, B, scale=scale)
+
+    def unregister_adapter(self, tenant: str) -> None:
+        """Retire ``tenant``'s adapter. Running requests keep their
+        pinned pages until retirement; new submits with this tenant
+        decode adapterless."""
+        if self._lora is None:
+            raise RuntimeError(
+                "unregister_adapter requires EngineConfig(lora_rank > 0)")
+        self._lora.unregister(tenant)
+
+    def _lora_release(self, slot: int) -> None:
+        """Unpin a slot's adapter pages and zero its device row (the
+        freed row keeps computing, so it must stop naming live pages)."""
+        if self._lora is None:
+            return
+        self._lora.release(slot)
+        self._d_lora_bt[slot] = 0
+        self._d_lora_on[slot] = False
+
     # ---- submission -----------------------------------------------------
 
     def submit(self, tokens, max_new_tokens: int, *,
                req_id: Optional[int] = None,
-               qos: str = "best_effort",
+               qos: str = "best_effort", tenant: Optional[str] = None,
                seed: Optional[int] = None) -> int:
         """Enqueue a request. Raises `Backpressure` when the queue is
         full and holds no weaker-class victim to shed, and `ValueError`
         when the request can never fit (prompt +
-        max_new_tokens - 1 > max_len). ``seed`` pins the request's
-        sampling stream; None derives one from the request id."""
+        max_new_tokens - 1 > max_len). ``tenant`` names a registered
+        LoRA adapter (unknown or None: adapterless). ``seed`` pins the
+        request's sampling stream; None derives one from the request
+        id."""
         req = Request(tokens=tokens, max_new_tokens=max_new_tokens,
-                      req_id=req_id, qos=qos, seed=seed)
+                      req_id=req_id, qos=qos, tenant=tenant, seed=seed)
         if req.seed is None:
             req.seed = derive_request_seed(self.cfg.seed, req.req_id)
         if req.total_len > self.cfg.max_len:
@@ -314,7 +461,9 @@ class Engine:
         autograd graph."""
         self._admit_all()
         n_active = self._n_active
-        if n_active:
+        if n_active and self._spec:
+            self._spec_step()
+        elif n_active:
             self._decode_step()
         self.metrics.step_sample(n_active, self.cfg.max_slots,
                                  self.scheduler.depth)
@@ -339,12 +488,67 @@ class Engine:
             if toks is not None:
                 tok = int(toks[i])
                 slot.produced.append(tok)
+                slot.history.append(tok)
                 if tok == self.cfg.eos_id:
                     slot.eos_seen = True
                     self._retire(i, "done", "eos")
                     continue
             if slot.n_out >= slot.req.max_new_tokens:
                 self._retire(i, "done", "length")
+
+    def _spec_step(self):
+        """One draft -> verify round for every occupied slot: the host
+        proposes K tokens per slot from its history, one verify forward
+        scores all slots, and each slot emits its accepted prefix plus
+        the correction token (1..K+1 tokens, clamped to the request's
+        length). The accept counts gate retirement, so this step reads
+        the (small) verify outputs back."""
+        cfg = self.cfg
+        K = cfg.num_draft
+        drafts = np.zeros((cfg.max_slots, K), np.int32)
+        for i, st in enumerate(self._slots):
+            if st is not None and st.in_batch:
+                drafts[i] = np.asarray(
+                    self._draft_propose(st.history, K),
+                    np.int32).reshape(K)
+        with annotate("serving/verify_step"):
+            tgt, acc, nxt, self._d_idxs, self._d_pos = self._verify(
+                torch.from_numpy(drafts).to(self.device))
+        self.metrics.incr("verify_steps")
+        self._d_toks = nxt
+        tgt_np = tgt.cpu().numpy()
+        acc_np = acc.cpu().numpy()
+        self._step_no += 1
+        for i, st in enumerate(self._slots):
+            if st is None or not st.in_batch:
+                continue
+            a = int(acc_np[i])
+            remaining = st.req.max_new_tokens - st.n_out
+            emitted = [int(t) for t in tgt_np[i, :a + 1][:remaining]]
+            # the accept rate counts only the draft positions that could
+            # land inside the emission window
+            d_used = min(K, remaining)
+            a_used = min(a, d_used)
+            st.drafted += d_used
+            st.accepted += a_used
+            self.metrics.incr("spec_drafted", d_used)
+            self.metrics.incr("spec_accepted", a_used)
+            done_reason = None
+            n_emit = 0
+            for t in emitted:
+                st.produced.append(t)
+                st.history.append(t)
+                st.n_out += 1
+                n_emit += 1
+                if cfg.eos_id is not None and t == cfg.eos_id:
+                    st.eos_seen = True
+                    done_reason = "eos"
+                    break
+            self.metrics.event(st.req.req_id, "token", n=n_emit)
+            if done_reason is None and st.n_out >= st.req.max_new_tokens:
+                done_reason = "length"
+            if done_reason is not None:
+                self._retire(i, "done", done_reason)
 
     def run(self, max_steps: Optional[int] = None
             ) -> Dict[int, RequestResult]:
@@ -395,6 +599,13 @@ class Engine:
         # the freshly owned page row must be on the device before any
         # prefill chunk writes through it
         self._sync_bt(slot)
+        if self._lora is not None:
+            # pin the tenant's pages and patch the slot's row BEFORE the
+            # prefill chain: token 0 already samples through the delta
+            lrow, on = self._lora.acquire(req.tenant, slot)
+            self._d_lora_bt[slot] = torch.as_tensor(
+                lrow, dtype=torch.int32).to(self.device)
+            self._d_lora_on[slot] = bool(on)
         full = req.tokens
         # cap at len-1: a full-prompt hit must still leave >= 1 real
         # token to prefill (the logit the first token samples from)
@@ -428,14 +639,17 @@ class Engine:
             # the caller (re-raise)
             self.kv.free(slot)
             self._sync_bt(slot)
+            self._lora_release(slot)
             raise
         self.metrics.event(req.req_id, "first_token")
         idx = int(full.size)
-        st = _Slot(req=req, first_tok=tok0, start_step=self._step_no)
+        st = _Slot(req=req, first_tok=tok0, start_step=self._step_no,
+                   history=[int(t) for t in full])
         self._slots[slot] = st
-        if not self._defer:                  # eos_id is set: read it now
+        if not self._defer:             # eos_id or spec: read it now
             st.first_tok = int(tok0)
             st.produced.append(st.first_tok)
+            st.history.append(st.first_tok)
             if st.first_tok == self.cfg.eos_id:
                 st.eos_seen = True
                 self._retire(slot, "done", "eos")
@@ -519,14 +733,17 @@ class Engine:
         # garbage every step, and its old pages may be reallocated (or
         # live on as shared prefix pages) immediately
         self._sync_bt(slot_idx)
-        self._finish(slot.req.req_id, status, reason, produced)
+        self._lora_release(slot_idx)
+        spec = ({"n_drafted": slot.drafted, "n_accepted": slot.accepted}
+                if self._spec else {})
+        self._finish(slot.req.req_id, status, reason, produced, **spec)
 
     def _finish(self, req_id: int, status: str, reason: str,
-                produced: List[int]):
+                produced: List[int], **fields):
         if status == "evicted" and not reason.startswith("shed"):
             self.metrics.incr("evictions")
         self.metrics.event(req_id, status, reason=reason,
-                           n_generated=len(produced))
+                           n_generated=len(produced), **fields)
         self.results[req_id] = RequestResult(
             req_id=req_id, status=status,
             tokens=np.asarray(produced, np.int32), reason=reason)

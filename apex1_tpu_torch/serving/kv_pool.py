@@ -127,8 +127,8 @@ class PagedPrefix:
 
 class PageAllocator:
     """Refcounted free-list over a fixed page pool — the page-granular
-    alloc core of `PagedKVPool` (and, once ported, of the LoRA
-    adapter-page store). Page 0 is reserved
+    alloc core of `PagedKVPool` and of the LoRA adapter-page store
+    (`serving.lora`). Page 0 is reserved
     (the trash/zero page): it is never handed out, and unref of it is a
     no-op, so all-zero block-table rows are always safe."""
 

@@ -6,7 +6,9 @@
                                      # and training steps (GPT-2: flash
                                      # off, flash on, flash and fused
                                      # head; llama_block: fused_mlp off
-                                     # and on; bert_large; t5)
+                                     # and on; bert_large; t5) and the
+                                     # decode slice's token steps
+                                     # (decode-int8, serve-lora)
 
 Phases, each printed on its own line; a failure in any exits non-zero:
 
@@ -60,7 +62,15 @@ Phases, each printed on its own line; a failure in any exits non-zero:
    each also checks kernel 6 (dbias, fp32, at f32 tolerance, the same
    bits on a second launch); the library's SDPA with the bias as a
    float ``attn_mask`` is timed beside it, its backward also with the
-   mask taking a gradient (dbias's yardstick).
+   mask taking a gradient (dbias's yardstick). The decode slice's: the
+   int8 matmul (kernel 20) at the decode model's projections for 8
+   decode rows and 1024 prefill rows, the head and a ragged case, at the
+   fp32 rounding bound with the same bits twice (cuBLAS in bf16 over a
+   dequantized copy timed beside it); the LoRA delta (kernel 23) at 8
+   decode rows, 8 x 5 verify rows and a prefill row (rank 16, vocab
+   32000, three adapters and an adapterless row) and a ragged f32 case:
+   the fp32 rounding bound, page-0 rows exactly 0.0, the same bits twice
+   and every row equal to itself computed alone.
 3. engine — serve GPT-2 124M at full width (12 layers, hidden 768,
    vocab 50257 padded to 50304) at policy O2, weights made from a seed,
    through the paged continuous-batching engine: 16 requests (prompts
@@ -197,11 +207,35 @@ Phases, each printed on its own line; a failure in any exits non-zero:
    ``generate`` with ``llama_decoder``: 8 prompts of 128 tokens, 128 new
    tokens greedy; tokens/s beside the A100 proxy 6,100, peak memory, 16
    flash prefill launches a call.
-22. the ``kernels`` JSON line (each kernel's launches over the main
+22. decode-int8 — the bench's ``decode_int8`` (`bench.py:403-463`,
+   ``quant=True``): decode's model and workload through
+   ``llama_quant_decoder`` (every projection and the head int8 with
+   per-channel scales) and ``generate``; tokens/s beside the A100 proxy
+   12,200, peak memory, the int8 weight bytes; every forward launches
+   int8_mm 7 times a layer and once for the head, each call's prefill
+   flash 16 times.
+23. serve-lora — decode's model (16 layers, O2) through the paged
+   engine with ``lora_rank=16``: three tenants registered (A and B drawn
+   on the card), the engine phase's 16 requests sent to tenants 0, 1, 2
+   and none in turn; lora_delta launched once a decode step and prefill
+   chunk; every tenant's stream differs from the same request on a
+   ``lora_rank=0`` engine, every adapterless one equals it, and three
+   requests re-run alone give their streams bit for bit; then the same
+   load with ``num_draft=4`` (speculative verify: accept rate, tokens/s).
+24. decode-int8-parity — depth 2, weights exactly representable in
+   int8 and bf16 (q · 2^-9): the int8 decode equals the bf16
+   ``llama_decoder`` stream, and its kernels equal its plain versions
+   on the card, or differ first at a near-tie (top-2 gap < 1e-4).
+25. serve-lora-parity — depth 2, O0: the LoRA engine's kernels against
+   its plain versions on the card, ``num_draft=2`` against 0 with and
+   without LoRA: equal streams, or a first difference at a near-tie of
+   the reference's sampling scores.
+26. the ``kernels`` JSON line (each kernel's launches over the main
    paths: the engine, the train phases, dpo, generate, train-llama,
    serve-llama and its generate, the BERT phases, train-gpt2-dropout,
-   train-t5, mha, train-llama-longctx and decode), the card's name and
-   power limit, and the last line ``{"ok": true, "device": {...}}``.
+   train-t5, mha, train-llama-longctx, decode, decode-int8 and
+   serve-lora), the card's name and power limit, and the last line
+   ``{"ok": true, "device": {...}}``.
 
 Kernel times are device times of CUDA-graph replays (no host launch
 overhead), or between CUDA events for kernels of a millisecond or more;
@@ -213,6 +247,7 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -532,7 +567,11 @@ def check_fused_sample(torch, ops, gen):
 def check_layer_norm_bwd(torch, ops, gen):
     """Kernel 2 at the GPT-2 training step's (B*S, 768) rows: half x and
     dy with half γ (the amp compute params), and f32; and in RMS mode at
-    the Llama step's (B*S, 4096) rows (no β, no library call)."""
+    the Llama step's (B*S, 4096) rows (no β). Library: ATen's layer-norm
+    backward; for RMS, which has no backward of its own to call,
+    ``F.rms_norm``'s forward and backward under autograd (one call of
+    each, the forward's work included)."""
+    F = torch.nn.functional
     from apex1_tpu_torch.ops.layer_norm import layer_norm_bwd, layer_norm_fwd
     results = []
     for R, H, dt, rms in ((TB * TS, TH, torch.bfloat16, False),
@@ -560,9 +599,15 @@ def check_layer_norm_bwd(torch, ops, gen):
         with ops.force_impl("torch"):
             plain = graph_ms(run, iters=10)
         m2, r2 = mean[:, None], rstd[:, None]
-        lib = None if rms else graph_ms(
-            lambda: torch.ops.aten.native_layer_norm_backward(
-                dy, x, [H], m2, r2, g, b, [True, True, True]))
+        if rms:
+            xr = x.detach().requires_grad_()
+            gr = g.detach().requires_grad_()
+            lib = graph_ms(lambda: torch.autograd.grad(
+                F.rms_norm(xr, (H,), gr, 1e-5), (xr, gr), dy), iters=10)
+        else:
+            lib = graph_ms(
+                lambda: torch.ops.aten.native_layer_norm_backward(
+                    dy, x, [H], m2, r2, g, b, [True, True, True]))
         eb, gb = x.element_size(), g.element_size()
         # x, dy read and dx written; γ read, dγ (and dβ) written; mean
         # and rstd read; about 12 flops per element
@@ -1605,6 +1650,133 @@ def check_glu(torch, ops, gen):
                             plain_ms=plain, library_ms=lib, bound_ms=bnd,
                             bound_by=by, main=main))
         del x, wg, wu, got, want
+        torch.cuda.empty_cache()
+    return results
+
+
+#: the int8 kernel's checks (row 20): (case, T, N, K, main). The decode
+#: model's (`LLAMA_08B`) projections at decode's 8 rows and generate's
+#: 8 x 128 prefill rows, and a ragged case (K % 16 != 0: scalar loads)
+INT8_CASES = [
+    ("decode, w_gate/w_up", 8, 5632, 2048, True),
+    ("decode, the head", 8, LV, 2048, False),
+    ("decode, wk/wv", 8, 256, 2048, False),
+    ("decode, w_down", 8, 2048, 5632, False),
+    ("prefill, wk/wv", 1024, 256, 2048, False),
+    ("prefill, w_gate/w_up", 1024, 5632, 2048, False),
+    ("ragged", 5, 200, 72, False),
+]
+
+
+def check_int8_matmul(torch, ops, gen):
+    """Kernel 20 against its plain version (bf16 x against the int8
+    values, exact products, fp32 sums, the fp32 scale last): the same
+    function summed in another order, held to the fp32 rounding bound
+    (`rounding_errs`, no operand rounding); the same bits on a second
+    launch. Bound: the bytes N·K + 2·T·K + 4·T·N + 4·N, or 2·T·N·K
+    operations at the bf16 tensor-core rate. Library: ``torch.mm`` in
+    bf16 over a dequantized bf16 copy of the weight (cuBLAS at twice the
+    weight bytes), the dequantization not timed."""
+    from apex1_tpu_torch.ops.quantized import int8_mm, quantize_int8
+    results = []
+    for case, T, N, K, main in INT8_CASES:
+        x = torch.randn(T, K, generator=gen, device="cuda").to(torch.bfloat16)
+        wq, s = quantize_int8(torch.randn(N, K, generator=gen,
+                                          device="cuda") * 0.02)
+
+        def run():
+            return int8_mm(x, wq, s)
+
+        got = run()
+        again = run()
+        with ops.force_impl("torch"):
+            want = run()
+            absprod = int8_mm(x.abs(), wq.abs(), s)
+        torch.cuda.synchronize()
+        abs_e, worst = rounding_errs(got, want, absprod, 2.0 ** -24, 0)
+        flops = 2 * T * N * K
+        timer = event_ms if flops > 1e10 else graph_ms
+        ms = timer(run)
+        with ops.force_impl("torch"):
+            plain = event_ms(run, iters=3)
+        wb = (wq.float() * s[:, None]).to(torch.bfloat16)
+        lib = timer(lambda: torch.mm(x, wb.t()))
+        bnd, by = bound_ms(N * K + 2 * T * K + 4 * T * N + 4 * N, flops,
+                           BF16_OPS_PER_S)
+        results.append(dict(
+            case=f"{case} T={T} N={N} K={K}", abs=abs_e, worst=worst,
+            tol=TOLS["float32"], rule="fp32 rounding bound (u=2^-24)",
+            ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
+            bound_by=by, main=main, same_bits=bool(torch.equal(got, again))))
+        del x, wq, s, got, again, want, absprod, wb
+        torch.cuda.empty_cache()
+    return results
+
+
+#: the LoRA delta's checks (row 23): (case, slots, verify width K + 1,
+#: rank, hidden, vocab, hidden dtype, main). Slots take adapters 0, 1, 2
+#: in turn and the last slot none (page 0); a verify repeats each slot's
+#: page row over its K + 1 rows
+LORA_CASES = [
+    ("decode, 8 slots", 8, 1, 16, 2048, LV, "bfloat16", True),
+    ("verify, 8 slots x 5", 8, 5, 16, 2048, LV, "bfloat16", False),
+    ("prefill row", 1, 1, 16, 2048, LV, "bfloat16", False),
+    ("f32, ragged vocab", 3, 2, 3, 100, 1001, "float32", False),
+]
+
+
+def check_lora_delta(torch, ops, gen):
+    """Kernel 23 against its plain version (gather, then two fp32
+    einsums): the fp32 rounding bound; rows naming only page 0 exactly
+    0.0; the same bits on a second launch; each row equal, bit for bit,
+    to the same row computed in a batch of its own. Bound: the bytes of
+    h, of the distinct pages the rows name (each A and B row read once)
+    and of the output. No single PyTorch call computes it (library:
+    none)."""
+    from apex1_tpu_torch.ops.lora_epilogue import lora_delta
+    results = []
+    for case, slots, width, R, H, V, dts, main in LORA_CASES:
+        P = 1 + 4 * R
+        a = torch.randn(P, H, generator=gen, device="cuda") * H ** -0.5
+        b = torch.randn(P, V, generator=gen, device="cuda") * 0.25
+        a[0], b[0] = 0.0, 0.0
+        rows = torch.zeros(slots, R, dtype=torch.int32)
+        for n in range(max(slots - 1, 1)):
+            rows[n] = 1 + (n % 3) * R + torch.arange(R)
+        bt = rows.repeat_interleave(width, dim=0).cuda()
+        N = slots * width
+        h = torch.randn(N, H, generator=gen, device="cuda").to(
+            getattr(torch, dts))
+
+        def run():
+            return lora_delta(h, a, b, bt)
+
+        got = run()
+        again = run()
+        solo = torch.cat([lora_delta(h[n:n + 1], a, b, bt[n:n + 1])
+                          for n in range(N)])
+        with ops.force_impl("torch"):
+            want = run()
+            absprod = lora_delta(h.abs(), a.abs(), b.abs(), bt)
+        torch.cuda.synchronize()
+        abs_e, worst = rounding_errs(got, want, absprod, 2.0 ** -24, 0)
+        zero = (bt == 0).all(dim=1)
+        ms = graph_ms(run)
+        with ops.force_impl("torch"):
+            plain = graph_ms(run, iters=5)
+        pages = int(torch.unique(bt).numel())
+        bnd, by = bound_ms(h.numel() * h.element_size()
+                           + pages * (H + V) * 4 + N * V * 4 + bt.numel() * 4,
+                           2 * N * R * (H + V))
+        results.append(dict(
+            case=f"{case} N={N} R={R} H={H} V={V} {dts} h, {pages} pages",
+            abs=abs_e, worst=worst, tol=TOLS["float32"],
+            rule="fp32 rounding bound (u=2^-24)", ms=ms, plain_ms=plain,
+            library_ms=None, bound_ms=bnd, bound_by=by, main=main,
+            same_bits=bool(torch.equal(got, again)),
+            solo_bits=bool(torch.equal(got, solo)),
+            zero_rows=bool((got[zero] == 0).all())))
+        del a, b, h, got, again, solo, want, absprod
         torch.cuda.empty_cache()
     return results
 
@@ -3122,6 +3294,507 @@ def run_decode(torch, ops, card, launches):
     return out, None
 
 
+# ---- the decode slice: int8 weight-only decode, LoRA, speculative verify ---
+
+#: the bench's ``decode_int8`` (`bench.py:403-463`, ``quant=True``): the
+#: decode phase's model and workload through `llama_quant_decoder`
+DEC8_PROXY = 12_200.0
+#: int8_mm launches a forward of the Llama decoder: q, k, v, o, gate, up
+#: and down a layer, and the head
+INT8_PER_LAYER = 7
+
+
+def representable(torch, model, seed: int):
+    """Every projection and the head of a `Llama` replaced by q · 2^-9
+    with q drawn in [-127, 127] on the card and each output channel
+    reaching |q| = 127: int8 with per-channel scales and bf16 both hold
+    these weights exactly (2^-9 about the 2e-3 of
+    tests/test_quantized.py, a power of two so bf16 keeps it), so the
+    int8 and bf16 decoders compute with the same weights."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("_norm") or name in ("norm", "tok_embeddings"):
+                continue
+            q = torch.randint(-127, 128, p.shape, generator=gen,
+                              device="cuda")
+            if name == "output":       # (vocab, hidden): channels are rows
+                q[:, 0] = 127
+            else:                      # (in, out): channels are columns
+                q[0, :] = 127
+            p.copy_(q.float() * 2.0 ** -9)
+    return model
+
+
+def decode_model(torch, depth: int, exact: bool = False,
+                 policy: str = "O2"):
+    """The bench's decode model (`LLAMA_08B` widths, ``depth`` layers,
+    ``policy``, no remat), weights drawn on the card (`representable`
+    with ``exact``), and its prompt: 8 x 128 tokens of
+    ``np.random.default_rng(0)``."""
+    import numpy as np
+    cfg, model = make_llama(policy, depth, SEED, widths=LLAMA_08B,
+                            remat=False, max_seq_len=DEC_S0 + DEC_N + 8)
+    if exact:
+        representable(torch, model, SEED + 3)
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (DEC_B, DEC_S0))).cuda()
+    return cfg, model, prompt
+
+
+def decode_call(torch, apply_fn, make_cache, prompt, vocab: int,
+                record=None):
+    """One greedy `generate` of `DEC_N` tokens on a dense cache; returns
+    (tokens (B, DEC_N) numpy, wall s). ``record`` collects each step's
+    last-position logits."""
+    from apex1_tpu_torch.models.generate import generate
+    fn = apply_fn
+    if record is not None:
+        def fn(*a, **kw):
+            logits, cache = apply_fn(*a, **kw)
+            record.append(logits[:, -1].float())
+            return logits, cache
+    cache = make_cache(DEC_B, DEC_S0 + DEC_N + 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = generate(fn, prompt, max_new_tokens=DEC_N, cache=cache,
+                    vocab_size=vocab)
+    torch.cuda.synchronize()
+    return toks.cpu().numpy(), time.perf_counter() - t0
+
+
+def run_decode_int8(torch, ops, card, launches):
+    """decode-int8: the bench's ``decode_int8``: `run_decode`'s model
+    and workload (16 layers, O2, 8 prompts of 128 tokens, 128 new
+    tokens greedy) through `llama_quant_decoder` and `generate`; one
+    warm-up call, then `DEC_ITERS` timed calls. Prints tokens/s beside
+    the A100 proxy, peak memory and the int8 weight bytes; every forward
+    launches int8_mm 7 times a layer and once for the head, and each
+    call's prefill flash 16 times. Adds the timed calls' launches to
+    ``launches``. Returns (results, failure or None)."""
+    from apex1_tpu_torch import llama_quant_decoder
+    cfg, model, prompt = decode_model(torch, LCTX_LAYERS)
+    apply_fn, make_cache, qp = llama_quant_decoder(model)
+    del model
+    torch.cuda.empty_cache()
+    leaves = [qp["output"]] + [v for k, lp in qp.items()
+                               if k.startswith("layer")
+                               for v in lp.values() if isinstance(v, dict)]
+    w_bytes = sum(v["q"].numel() for v in leaves)
+    decode_call(torch, apply_fn, make_cache, prompt, cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    walls = []
+    for _ in range(DEC_ITERS):
+        toks, wall = decode_call(torch, apply_fn, make_cache, prompt,
+                                 cfg.vocab_size)
+        walls.append(wall)
+    counts = {n: c for n, c in ops.launch_counts().items() if c}
+    for n, c in counts.items():
+        launches[n] = launches.get(n, 0) + c
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    med = sorted(walls)[len(walls) // 2]
+    rate = DEC_B * DEC_N / med
+    L = cfg.num_layers
+    want = {"int8_mm": DEC_ITERS * DEC_N * (INT8_PER_LAYER * L + 1),
+            "flash_fwd": DEC_ITERS * L}
+    out = dict(walls_s=walls, tokens_per_s=rate,
+               proxy_tokens_per_s=DEC8_PROXY, peak_gib=peak,
+               int8_weight_bytes=w_bytes, launches=counts)
+    print(f"phase decode-int8: llama_longctx widths, {L} layers, O2, int8 "
+          f"weights ({w_bytes / 1e9:.3f} GB int8, {len(leaves)} matrices), "
+          f"{DEC_B} prompts of {DEC_S0} tokens, {DEC_N} new tokens greedy; "
+          f"call walls {[round(w, 3) for w in walls]} s, {rate:.0f} "
+          f"tokens/s (A100 proxy {DEC8_PROXY:.0f}, bench.py), peak memory "
+          f"{peak:.2f} GiB, launches over {DEC_ITERS} calls {counts} "
+          f"[{card}]")
+    del apply_fn, qp
+    torch.cuda.empty_cache()
+    for name, n in want.items():
+        if counts.get(name) != n:
+            return out, (f"decode-int8: {name} launched {counts.get(name)} "
+                         f"times over {DEC_ITERS} calls, expected {n}")
+    if toks.shape != (DEC_B, DEC_N) or toks.min() < 0 \
+            or toks.max() >= cfg.vocab_size:
+        return out, (f"decode-int8: generate gave {toks.shape} or a token "
+                     f"outside the vocabulary")
+    return out, None
+
+
+def first_flips(got, want, gap_at):
+    """(row, step, top-2 gap) at the first differing token of each
+    differing stream; ``gap_at(row, step)`` reads the reference's
+    sampling scores there."""
+    out = []
+    for r in range(len(want)):
+        g, w = list(got[r]), list(want[r])
+        if g == w:
+            continue
+        t = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b),
+                 min(len(g), len(w)))
+        out.append((r, t, gap_at(r, t)))
+    return out
+
+
+#: decode-int8-parity's pairs: (policy, run, reference). A first
+#: differing token is a near-tie when the reference's top-2 gap
+#: (relative) is below the largest difference of the two runs' logits at
+#: that step (relative to the top logit; both runs computed it from the
+#: same tokens), and that difference is at most `DEC8_MOVE`. The int8
+#: path rounds every activation to bf16 (its matmul's contract, at O0
+#: too), so a sum that lands on the other side of a bf16 rounding moves
+#: the next layer's inputs by an ulp, and the logits by about one bf16
+#: ulp (2^-7) of the top logit: the 1e-4 of the fp32 parity phases does
+#: not apply (measured on the H100: differences of 3e-3 to 1e-2)
+DEC8_PAR = (("O2", "int8", "bf16"), ("O0", "int8", "int8 plain"))
+DEC8_MOVE = 2.0 ** -6
+
+
+def run_decode_int8_parity(torch, ops, card):
+    """decode-int8-parity: depth 2 at decode-int8's widths, weights
+    exactly representable (`representable`), greedy. At O2 the int8
+    decode against the bf16 `llama_decoder` stream on the same weights;
+    at O0 the int8 decode through the kernels against the plain
+    versions on the card. Equal streams, or a first differing token at
+    a near-tie (`DEC8_PAR`). Returns (results, failure or None)."""
+    from apex1_tpu_torch import llama_decoder, llama_quant_decoder
+    out, fail_msg = {}, None
+    for policy, a, b in DEC8_PAR:
+        cfg, model, prompt = decode_model(torch, 2, exact=True,
+                                          policy=policy)
+        q_apply, q_make, _ = llama_quant_decoder(model)
+        f_apply, f_make = llama_decoder(model)
+        runs, recs = {}, {}
+        for label, fn, make, impl in (
+                ("int8", q_apply, q_make, "auto"),
+                ("int8 plain", q_apply, q_make, "torch"),
+                ("bf16", f_apply, f_make, "auto")):
+            if label not in (a, b):
+                continue
+            recs[label] = []
+            with ops.force_impl(impl):
+                runs[label] = decode_call(torch, fn, make, prompt,
+                                          cfg.vocab_size, recs[label])[0]
+        flips = first_flips(runs[a], runs[b], lambda r, t: top2_gap(
+            torch, recs[b][t], r, t, 0.0, cfg.vocab_size))
+        moved = [((recs[a][t][r] - recs[b][t][r]).abs().max()
+                  / recs[b][t][r].abs().max()).item() for r, t, _ in flips]
+        out[f"{a} vs {b}"] = dict(policy=policy, flips=flips,
+                                  logit_moved=moved)
+        print(f"phase decode-int8-parity: depth 2, {policy}, exactly "
+              f"representable weights, greedy, {a} vs {b}: streams "
+              f"differing {len(flips)} of {DEC_B}; (row, step, top-2 gap "
+              f"relative) at the first differing token {flips}, the "
+              f"logits' largest difference there relative to the top "
+              f"logit {moved} (a near-tie: gap below it, it at most "
+              f"{DEC8_MOVE:g}) [{card}]")
+        if fail_msg is None and any(
+                g >= m or m > DEC8_MOVE
+                for (_, _, g), m in zip(flips, moved)):
+            fail_msg = (f"decode-int8-parity {a} vs {b}: streams differ "
+                        f"where the top-2 gap is not a near-tie: {flips}, "
+                        f"logits moved {moved}")
+        del model, q_apply, f_apply, recs
+        torch.cuda.empty_cache()
+    return out, fail_msg
+
+
+#: serve-lora: the paged engine over the decode model at `LLAMA_08B`
+#: widths with three rank-16 tenants; request i of `workload` goes to
+#: tenant i % 4 (3: adapterless)
+LORA_RANK = 16
+TENANTS = ("tenant-0", "tenant-1", "tenant-2")
+LORA_ENGINE_KW = dict(LLAMA_ENGINE_KW, lora_rank=LORA_RANK,
+                      lora_max_adapters=4)
+#: serve-lora's requests re-run alone (two tenants and an adapterless one)
+LORA_SOLO = (4, 6, 7)
+
+
+def tenant_of(i: int):
+    return TENANTS[i % 4] if i % 4 < len(TENANTS) else None
+
+
+class sampling_record:
+    """Records, while active, the fp32 logits row each engine sampling
+    call draws from, keyed by (seed, output position): the last draw at
+    a key is the one a stream emitted."""
+
+    def __init__(self, store):
+        self.store = store
+
+    def __enter__(self):
+        import apex1_tpu_torch.serving.engine as em
+        self.em, self.real = em, em.fused_sample
+        store, real = self.store, self.real
+
+        def fn(logits, seeds, positions, **kw):
+            for r, key in enumerate(zip(seeds.tolist(), positions.tolist())):
+                store[key] = logits[r].float().clone()
+            return real(logits, seeds, positions, **kw)
+
+        em.fused_sample = fn
+        return self
+
+    def __exit__(self, *exc):
+        self.em.fused_sample = self.real
+
+
+def sample_gap(torch, row, seed: int, pos: int, temperature: float,
+               vocab: int) -> float:
+    """(top1 - top2) / |top1| of the scores the counter-keyed sampler
+    took its argmax over: the logits / temperature plus the gumbel noise
+    of ``fold_in(key(seed), pos)``."""
+    from apex1_tpu_torch.ops.paged_decode import (_bits_to_gumbel, _row_keys,
+                                                  _uniform_bits)
+    sc = row.double().cpu().clone()
+    sc[vocab:] = -1e30
+    if temperature:
+        k1, k2 = _row_keys(torch.tensor([seed]), torch.tensor([pos]))
+        col = torch.arange(sc.numel())[None]
+        g = _bits_to_gumbel(_uniform_bits(k1[:, None], k2[:, None], col,
+                                          sc.numel()))[0]
+        sc = sc / temperature + g.double()
+    top = torch.topk(sc, 2).values
+    return ((top[0] - top[1]) / top[0].abs()).item()
+
+
+def serve_lora(torch, model, cfg, *, lora=True, num_draft=0, only=None,
+               record=None):
+    """The workload (`workload`, 64 new tokens at T = 0.7) through the
+    paged engine over ``model``: with ``lora``, three tenants registered
+    (A ~ N(0, 1/H), B ~ N(0, 1/16) drawn on the card from a seed, scale
+    = rank) and request i sent as `tenant_of`; ``num_draft`` > 0 runs
+    speculative verify; ``only`` keeps those request indices. Returns
+    ({index: stream}, engine, wall s, decode-only step walls ms)."""
+    from apex1_tpu_torch import Engine, EngineConfig, llama_decoder
+    apply_fn, make_cache = llama_decoder(model)
+    kw = dict(LORA_ENGINE_KW if lora else LLAMA_ENGINE_KW,
+              num_draft=num_draft)
+    eng = Engine(apply_fn, make_cache, EngineConfig(**kw),
+                 device=model.device,
+                 lora_head=model.output if lora else None)
+    if lora:
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+        H, V = cfg.hidden_size, cfg.vocab_size
+        for name in TENANTS:
+            eng.register_adapter(
+                name, torch.randn(H, LORA_RANK, generator=gen,
+                                  device="cuda") * H ** -0.5,
+                torch.randn(LORA_RANK, V, generator=gen, device="cuda")
+                * 0.25, scale=float(LORA_RANK))
+    ids = {}
+    for i, r in enumerate(workload(cfg.vocab_size, SEED)):
+        if only is None or i in only:
+            ids[i] = eng.submit(r["tokens"], max_new_tokens=64,
+                                seed=r["seed"], tenant=tenant_of(i))
+    step_ms = []
+    with (contextlib.nullcontext() if record is None
+          else sampling_record(record)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while eng.scheduler.depth > 0 or any(s is not None
+                                             for s in eng.slot_view()):
+            chunks = eng.metrics.get_counter("prefill_chunks")
+            ts = time.perf_counter()
+            eng.step()
+            if eng.metrics.get_counter("prefill_chunks") == chunks:
+                step_ms.append((time.perf_counter() - ts) * 1e3)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    streams = {i: [int(t) for t in eng.results[r].tokens]
+               for i, r in ids.items()}
+    return streams, eng, wall, step_ms
+
+
+def run_serve_lora(torch, ops, card, launches):
+    """serve-lora: the decode model (`LLAMA_08B` widths, 16 layers, O2)
+    through the paged engine with ``lora_rank=16``: the 16 requests
+    mixing three tenants and adapterless ones; lora_delta launched once
+    per decode step and prefill chunk; every tenant's stream differs
+    from the same request's adapterless stream; `LORA_SOLO` re-run alone
+    give their streams bit for bit; every adapterless stream equals the
+    same request's on a ``lora_rank=0`` engine. Then the same load with
+    ``num_draft=4`` (accept rate, tokens/s). Adds the runs' launches to
+    ``launches``. Returns (results, failure or None)."""
+    cfg, model = make_llama("O2", LCTX_LAYERS, SEED, widths=LLAMA_08B,
+                            remat=False)
+    out, runs = {}, {}
+    ops.reset_launches()
+    for label, kw in (("mixed", {}), ("base", dict(lora=False)),
+                      *((f"solo {i}", dict(only={i})) for i in LORA_SOLO),
+                      ("spec", dict(num_draft=4))):
+        before = ops.launch_counts()
+        streams, eng, wall, step_ms = serve_lora(torch, model, cfg, **kw)
+        got = {k: v - before[k] for k, v in ops.launch_counts().items()
+               if v != before[k]}
+        m = eng.metrics
+        fwd = (m.get_counter("decode_steps") + m.get_counter("verify_steps")
+               + m.get_counter("prefill_chunks"))
+        n_tok = sum(len(v) for v in streams.values())
+        summ = m.summary()
+        runs[label] = streams
+        out[label] = dict(wall_s=wall, tokens=n_tok, launches=got,
+                          forwards=fwd, summary=summ,
+                          step_ms=sum(step_ms) / max(len(step_ms), 1))
+        print(f"phase serve-lora: {label}: llama_longctx widths, "
+              f"{cfg.num_layers} layers, O2, "
+              f"lora_rank={eng.cfg.lora_rank} num_draft={eng.cfg.num_draft};"
+              f" {len(streams)} requests, {n_tok} tokens, wall {wall:.2f} s,"
+              f" {n_tok / wall:.1f} tok/s, mean decode-step wall "
+              f"{out[label]['step_ms']:.2f} ms over {len(step_ms)} steps, "
+              f"prefill chunks {m.get_counter('prefill_chunks')}, decode "
+              f"steps {m.get_counter('decode_steps')}, verify steps "
+              f"{m.get_counter('verify_steps')}, accept rate "
+              f"{summ.get('accept_rate', 0):.3f}, launches {got} [{card}]")
+        bad = [i for i, v in streams.items() if len(v) != 64
+               or min(v) < 0 or max(v) >= cfg.vocab_size]
+        if {r.status for r in eng.results.values()} != {"done"} or bad:
+            return out, f"serve-lora {label}: requests {bad} not done right"
+        want = fwd if eng.cfg.lora_rank else 0
+        if got.get("lora_delta", 0) != want or got.get("fused_sample") != fwd:
+            return out, (f"serve-lora {label}: lora_delta launched "
+                         f"{got.get('lora_delta', 0)} and fused_sample "
+                         f"{got.get('fused_sample')} times over {fwd} "
+                         f"forwards")
+        del eng
+        torch.cuda.empty_cache()
+    for name, n in ops.launch_counts().items():
+        launches[name] = launches.get(name, 0) + n
+    mixed, base = runs["mixed"], runs["base"]
+    same_tenant = [i for i in mixed if tenant_of(i) and mixed[i] == base[i]]
+    diff_plain = [i for i in mixed if not tenant_of(i)
+                  and mixed[i] != base[i]]
+    diff_solo = [i for i in LORA_SOLO if runs[f"solo {i}"][i] != mixed[i]]
+    spec_equal = sum(runs["spec"][i] == mixed[i] for i in mixed)
+    out["checks"] = dict(tenant_equal_to_base=same_tenant,
+                         adapterless_differing=diff_plain,
+                         solo_differing=diff_solo,
+                         spec_streams_equal=spec_equal)
+    print(f"phase serve-lora: tenant streams equal to the adapterless "
+          f"stream {same_tenant} (must be none); adapterless streams "
+          f"differing from lora_rank=0 {diff_plain} (none); solo re-runs "
+          f"{list(LORA_SOLO)} differing {diff_solo} (none); num_draft=4 "
+          f"streams equal to num_draft=0 {spec_equal} of {len(mixed)} "
+          f"[{card}]")
+    del model
+    torch.cuda.empty_cache()
+    if same_tenant or diff_plain or diff_solo:
+        return out, f"serve-lora: {out['checks']}"
+    return out, None
+
+
+def run_serve_lora_parity(torch, ops, card):
+    """serve-lora-parity: depth 2, O0, the workload with three tenants:
+    the kernels against the plain versions on the card, and
+    ``num_draft=2`` against ``num_draft=0`` with and without LoRA. Equal
+    streams, or a first differing token where the reference run's
+    sampling scores have a top-2 gap below 1e-4 relative. Returns
+    (results, failure or None)."""
+    cfg, model = make_llama("O0", LPAR_DEPTH, SEED + 1, widths=LLAMA_08B,
+                            remat=False)
+    seeds = [r["seed"] for r in workload(cfg.vocab_size, SEED)]
+    runs, recs, out = {}, {}, {}
+    for label, impl, kw, rec in (
+            ("lora", "auto", {}, True),
+            ("lora plain", "torch", {}, True),
+            ("lora spec", "auto", dict(num_draft=2), False),
+            ("base", "auto", dict(lora=False), True),
+            ("base spec", "auto", dict(lora=False, num_draft=2), False)):
+        recs[label] = {} if rec else None
+        with ops.force_impl(impl):
+            streams, _, wall, _ = serve_lora(torch, model, cfg,
+                                             record=recs[label], **kw)
+        runs[label] = [streams[i] for i in sorted(streams)]
+        out[label] = dict(wall_s=wall)
+    temp = LLAMA_ENGINE_KW["temperature"]
+    for a, b in (("lora", "lora plain"), ("lora spec", "lora"),
+                 ("base spec", "base")):
+        ref = recs[b]
+
+        def gap_at(r, t):
+            row = ref.get((seeds[r], t))
+            return (float("inf") if row is None else
+                    sample_gap(torch, row, seeds[r], t, temp, cfg.vocab_size))
+
+        flips = first_flips(runs[a], runs[b], gap_at)
+        out[f"{a} vs {b}"] = flips
+        print(f"phase serve-lora-parity: O0 depth {LPAR_DEPTH}, "
+              f"{len(runs[a])} requests, {a} vs {b}: streams differing "
+              f"{len(flips)}; (request, token, top-2 gap relative) at the "
+              f"first differing token {flips} [{card}]")
+    if runs["lora"] == runs["base"]:
+        return out, "serve-lora-parity: the adapters changed no stream"
+    del model, recs
+    torch.cuda.empty_cache()
+    for name, flips in out.items():
+        if isinstance(flips, list) and any(g >= 1e-4 for _, _, g in flips):
+            return out, (f"serve-lora-parity {name}: streams differ where "
+                         f"the top-2 gap is not a near-tie: {flips}")
+    return out, None
+
+
+def profile_decode_int8(torch, steps: int = 16) -> dict:
+    """``--profile``: where a decode-int8 token step's time goes: the
+    prompt's prefill, then ``steps`` greedy decode steps of the 16-layer
+    int8 decoder under torch.profiler (device ms a step, busy share, the
+    largest kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    from apex1_tpu_torch import llama_quant_decoder
+    cfg, model, prompt = decode_model(torch, LCTX_LAYERS)
+    apply_fn, make_cache, _ = llama_quant_decoder(model)
+    del model
+    cache = make_cache(DEC_B, DEC_S0 + 8 + steps + 1)
+    logits, cache = apply_fn(prompt, cache, 0)
+    tok = logits[:, -1].argmax(-1).to(torch.int32)
+    idx = DEC_S0
+    for _ in range(4):                           # warm up
+        logits, cache = apply_fn(tok[:, None], cache, idx)
+        tok, idx = logits[:, -1].argmax(-1).to(torch.int32), idx + 1
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, cache = apply_fn(tok[:, None], cache, idx)
+            tok, idx = logits[:, -1].argmax(-1).to(torch.int32), idx + 1
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps * 1e3
+    out = kernel_split(torch, prof, steps, wall)
+    del apply_fn, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_serve_lora(torch, steps: int = 10) -> dict:
+    """``--profile``: where a serve-lora decode step's time goes: 8
+    requests (256-token prompts; tenants 0-2 and one adapterless in
+    turn) admitted, then ``steps`` decode steps of the 16-layer model at
+    O2 with ``lora_rank=16`` under torch.profiler."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    cfg, model = make_llama("O2", LCTX_LAYERS, SEED, widths=LLAMA_08B,
+                            remat=False)
+    streams, eng, _, _ = serve_lora(torch, model, cfg, only=set())
+    rng = np.random.default_rng(SEED)
+    for i in range(8):
+        eng.submit(rng.integers(1, cfg.vocab_size, 256).astype(np.int32),
+                   max_new_tokens=8 + steps + 4, seed=i, tenant=tenant_of(i))
+    for _ in range(4):
+        eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps * 1e3
+    out = {"active": eng.n_active, **kernel_split(torch, prof, steps, wall)}
+    del eng, model
+    torch.cuda.empty_cache()
+    return out
+
+
 def profile_t5(torch, steps: int = 3) -> dict:
     """``--profile``: where a ``t5`` O2 training step's time goes, as
     `profile_train` measures it."""
@@ -3185,7 +3858,9 @@ def main() -> int:
             "llama_block": profile_llama(torch, fused_mlp=False),
             "llama_block_fused_mlp": profile_llama(torch, fused_mlp=True),
             "bert_large": profile_bert(torch, "bert_large"),
-            "t5": profile_t5(torch)}
+            "t5": profile_t5(torch),
+            "decode_int8": profile_decode_int8(torch),
+            "serve_lora": profile_serve_lora(torch)}
         os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
         with open(os.path.join(HERE, "chiprun_out", "profile.json"),
                   "w") as f:
@@ -3209,7 +3884,9 @@ def main() -> int:
             (("lxent_fwd", "lxent_dx", "lxent_dw"), check_lxent, cgen),
             (("rope",), check_rope, cgen),
             (("glu_fwd",), check_glu, cgen),
-            (("bda_fwd", "bda_bwd"), check_bda, cgen)):
+            (("bda_fwd", "bda_bwd"), check_bda, cgen),
+            (("int8_mm",), check_int8_matmul, cgen),
+            (("lora_delta",), check_lora_delta, cgen)):
         t0 = time.perf_counter()
         out = fn(torch, ops, g)
         checks.update(zip(names, out if len(names) > 1 else (out,)))
@@ -3227,6 +3904,7 @@ def main() -> int:
             ok = ok and r.get("same_bits", True)
             ok = ok and r.get("packed_equal", True)
             ok = ok and r.get("equal_bits", True)
+            ok = ok and r.get("solo_bits", True) and r.get("zero_rows", True)
             lib, plain = ("-" if r[k] is None else f"{r[k]:.4f}"
                           for k in ("library_ms", "plain_ms"))
             tol = (r["rule"] if "rule" in r else
@@ -3238,6 +3916,9 @@ def main() -> int:
                 bits += f" packed == four {r['packed_equal']}"
             if "equal_bits" in r:
                 bits += f" equal bits {r['equal_bits']}"
+            if "solo_bits" in r:
+                bits += (f" rows equal solo {r['solo_bits']} page-0 rows "
+                         f"0.0 {r['zero_rows']}")
             if "both_ms" in r:
                 bits += f" dx+dW together ms={r['both_ms']:.4f}"
             if "one_ulp" in r:
@@ -3503,6 +4184,22 @@ def main() -> int:
     if err:
         return fail(err)
     stamp("decode")
+
+    # 23-26. the decode slice: the bench's decode_int8 and its parity,
+    # multi-tenant LoRA with speculative verify and its parity
+    dec_out = {}
+    for phase, fn in (("decode-int8", run_decode_int8),
+                      ("serve-lora", run_serve_lora)):
+        dec_out[phase], err = fn(torch, ops, card, main_launches)
+        if err:
+            return fail(err)
+        stamp(phase)
+    for phase, fn in (("decode-int8-parity", run_decode_int8_parity),
+                      ("serve-lora-parity", run_serve_lora_parity)):
+        dec_out[phase], err = fn(torch, ops, card)
+        if err:
+            return fail(err)
+        stamp(phase)
     print(f"phase times: { {k: round(v, 1) for k, v in phase_s.items()} } "
           f"s wall [{card}]")
 
@@ -3548,7 +4245,11 @@ def main() -> int:
                "bda_fwd": ("apex1_tpu_torch/csrc/bias_dropout_add.cu",
                            "apex1_tpu/ops/stochastic.py:210"),
                "bda_bwd": ("apex1_tpu_torch/csrc/bias_dropout_add.cu",
-                           "apex1_tpu/ops/stochastic.py:234")}
+                           "apex1_tpu/ops/stochastic.py:234"),
+               "int8_mm": ("apex1_tpu_torch/csrc/int8_matmul.cu",
+                           "apex1_tpu/ops/quantized.py:106"),
+               "lora_delta": ("apex1_tpu_torch/csrc/lora_delta.cu",
+                              "apex1_tpu/ops/lora_epilogue.py:126")}
     kernels = []
     for name, rows in checks.items():
         main_row = next(r for r in rows if r["main"])
@@ -3568,7 +4269,8 @@ def main() -> int:
                               "step_ms": step_ms, "summary": summ},
                    "train": train_out, "train_parity": par,
                    "dpo": dpo_out, "generate": gen_out, "llama": llama_out,
-                   "bert": bert_out, "t5": t5_out, "phase_s": phase_s},
+                   "bert": bert_out, "t5": t5_out, "decode": dec_out,
+                   "phase_s": phase_s},
                   f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -36,7 +36,13 @@ exactly. The flash kernels with an additive bias (broadcast over batch,
 heads or both, NEG_INF entries, segments, offsets, dropout) as without
 it, and dbias (an fp32 sum over the broadcast (b, h)) at f32 tolerance
 with the same bits on a second launch; flash_attention launches dbias
-only for a bias that takes a gradient.
+only for a bias that takes a gradient. The int8 matmul and the LoRA
+delta (exact products, or fp32 ones, summed in fp32 in another order
+than the plain version's) per element within 3u·|want| + 1e-5·Σ|a||b|
+(u = 2^-24, Σ|a||b| the plain function on the absolute operands), the
+same bits on a second launch; every shape the kernels take (ragged
+tiles, K % 16 != 0, an unaligned x); each LoRA row equal to itself
+computed alone and page-0 rows exactly 0.0.
 """
 
 import numpy as np
@@ -756,3 +762,104 @@ def test_flash_attention_launches_dbias_only_for_a_trained_bias(cuda):
                               flash_dbias=1)
     assert table.grad.dtype == torch.bfloat16
 
+
+
+#: int8_mm cases: (T, N, K) — the decode model's projections at decode's
+#: 8 rows and the prefill's 1024, the head, and odd shapes (ragged N and
+#: T, T between the kernel's 8- and 64-row tiles, K % 16 != 0)
+_INT8 = {"decode": (8, 5632, 2048), "head": (8, 32000, 2048),
+         "wk_wv": (8, 256, 2048), "w_down": (8, 2048, 5632),
+         "prefill": (1024, 256, 2048), "ragged": (5, 200, 72),
+         "one": (1, 1, 16), "t9": (9, 130, 48), "t33_k1000": (33, 64, 1000),
+         "k8": (3, 70, 8)}
+
+
+def _int8_bound(got, want, absprod):
+    """|got - want| <= 3u|want| + 1e-5 Σ|x||w|s: the same exact products
+    summed in fp32 in another order (u = 2^-24)."""
+    allow = 3 * 2.0 ** -24 * want.abs() + 1e-5 * absprod + 1e-30
+    return ((got - want).abs() / allow).max().item()
+
+
+@pytest.mark.parametrize("name", list(_INT8))
+def test_int8_mm_kernel_matches_plain(cuda, name):
+    from apex1_tpu_torch.ops.quantized import int8_mm, quantize_int8
+    T, N, K = _INT8[name]
+    g = torch.Generator(device=cuda).manual_seed(T * 7 + K)
+    x = torch.randn(T, K, generator=g, device=cuda).to(torch.bfloat16)
+    wq, s = quantize_int8(torch.randn(N, K, generator=g, device=cuda))
+    got, want = _both(lambda: int8_mm(x, wq, s))
+    with force_impl("torch"):
+        absprod = int8_mm(x.abs(), wq.abs(), s)
+    assert got.dtype == torch.float32 and got.shape == (T, N)
+    assert _int8_bound(got, want, absprod) <= 1
+    assert torch.equal(int8_mm(x, wq, s), got)
+
+
+def test_int8_mm_unaligned_and_leading_dims(cuda):
+    """An x that starts 2 bytes past a 16-byte boundary takes the scalar
+    loads; fp32 x is rounded to bf16 first; leading dims are kept and dx
+    is the fp32 product."""
+    from apex1_tpu_torch.ops.quantized import (int8_matmul, int8_mm,
+                                               quantize_int8)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    wq, s = quantize_int8(torch.randn(96, 128, generator=g, device=cuda))
+    buf = torch.randn(5 * 128 + 1, generator=g, device=cuda).to(
+        torch.bfloat16)
+    x = buf[1:].view(5, 128)
+    assert x.data_ptr() % 16 != 0
+    got, want = _both(lambda: int8_mm(x, wq, s))
+    with force_impl("torch"):
+        absprod = int8_mm(x.abs(), wq.abs(), s)
+    assert _int8_bound(got, want, absprod) <= 1
+    xf = torch.randn(2, 3, 128, generator=g, device=cuda,
+                     requires_grad=True)
+    y = int8_matmul(xf, wq, s)
+    assert y.shape == (2, 3, 96)
+    torch.testing.assert_close(y, int8_mm(xf.detach().to(torch.bfloat16)
+                                          .reshape(6, 128), wq, s)
+                               .reshape(2, 3, 96), rtol=0, atol=0)
+    dy = torch.randn(2, 3, 96, generator=g, device=cuda)
+    y.backward(dy)
+    torch.testing.assert_close(xf.grad, (dy * s) @ wq.float(), rtol=1e-6,
+                               atol=1e-6)
+
+
+#: lora_delta cases: (slots, rows a slot, rank, hidden, vocab, h dtype)
+_LORA = {"decode": (8, 1, 16, 2048, 32000, "bfloat16"),
+         "verify": (8, 5, 16, 2048, 32000, "bfloat16"),
+         "prefill": (1, 1, 16, 2048, 32000, "bfloat16"),
+         "f32_ragged": (3, 2, 3, 100, 1001, "float32"),
+         "f16_rank1": (4, 1, 1, 64, 130, "float16"),
+         "wide_rank": (2, 3, 64, 256, 4096, "bfloat16")}
+
+
+@pytest.mark.parametrize("name", list(_LORA))
+def test_lora_delta_kernel_matches_plain(cuda, name):
+    """fp32 rounding bound against the plain version; page-0 rows
+    exactly 0.0; the same bits twice; each row equal to itself computed
+    alone."""
+    from apex1_tpu_torch.ops.lora_epilogue import lora_delta
+    slots, width, R, H, V, dts = _LORA[name]
+    g = torch.Generator(device=cuda).manual_seed(R * 31 + V)
+    P = 1 + 3 * R
+    a = torch.randn(P, H, generator=g, device=cuda) * H ** -0.5
+    b = torch.randn(P, V, generator=g, device=cuda)
+    a[0], b[0] = 0.0, 0.0
+    rows = torch.zeros(slots, R, dtype=torch.int32)
+    for n in range(max(slots - 1, 1)):
+        rows[n] = 1 + (n % 3) * R + torch.arange(R)
+    bt = rows.repeat_interleave(width, dim=0).to(cuda)
+    h = torch.randn(slots * width, H, generator=g, device=cuda).to(
+        getattr(torch, dts))
+    got, want = _both(lambda: lora_delta(h, a, b, bt))
+    with force_impl("torch"):
+        absprod = lora_delta(h.abs(), a.abs(), b.abs(), bt)
+    assert got.dtype == torch.float32 and got.shape == (slots * width, V)
+    assert _int8_bound(got, want, absprod) <= 1
+    zero = (bt == 0).all(dim=1)
+    assert (got[zero] == 0).all()
+    assert torch.equal(lora_delta(h, a, b, bt), got)
+    for n in range(h.shape[0]):
+        assert torch.equal(lora_delta(h[n:n + 1], a, b, bt[n:n + 1])[0],
+                           got[n]), n
