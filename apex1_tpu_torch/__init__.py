@@ -9,6 +9,7 @@ CUDA tensor and runs its plain PyTorch version on a CPU tensor.
 from apex1_tpu_torch import ops
 from apex1_tpu_torch.amp import Amp, AmpState
 from apex1_tpu_torch.contrib import EncdecMultiheadAttn, SelfMultiheadAttn
+from apex1_tpu_torch.core.mesh import MeshConfig, make_mesh
 from apex1_tpu_torch.core.policy import PrecisionPolicy, get_policy
 from apex1_tpu_torch.interop import (bert_params_from_jax,
                                      gpt2_params_from_jax,
@@ -26,7 +27,8 @@ from apex1_tpu_torch.ops import force_impl
 from apex1_tpu_torch.optim import fused_adam
 from apex1_tpu_torch.serving import Engine, EngineConfig
 
-__all__ = ["Amp", "AmpState", "PrecisionPolicy", "get_policy",
+__all__ = ["Amp", "AmpState", "MeshConfig", "make_mesh", "PrecisionPolicy",
+           "get_policy",
            "bert_params_from_jax", "BertConfig", "BertPretrain",
            "bert_pretrain_loss_fn", "gpt2_params_from_jax",
            "llama_params_from_jax", "quant_params_from_jax",

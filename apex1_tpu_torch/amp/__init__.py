@@ -15,8 +15,14 @@ As in the JAX package, the step is a function of explicit state:
   optimizer state through `select_tree` (device-side, no host sync)
   and halve the scale.
 
-Ported for one loss and no gradient accumulation; ``accum_steps > 1``,
-``num_losses > 1`` and ``grad_psum_axes`` raise.
+Data parallelism (``grad_psum_axes``, JAX's shard_map DDP): the scaled
+gradients and the reported loss are averaged over the named groups
+(mesh axis names resolved through `parallel_state`'s mesh, or
+``ProcessGroup``s) before the unscale, and the finite flag is a MIN
+all-reduce over them, so every replica skips the same steps.
+
+Ported for one loss and no gradient accumulation; ``accum_steps > 1``
+and ``num_losses > 1`` raise.
 """
 
 from __future__ import annotations
@@ -54,10 +60,6 @@ class Amp:
                  opt_level="O1", max_grad_norm: float = None,
                  grad_psum_axes: tuple = (), num_losses: int = 1,
                  **policy_overrides):
-        if grad_psum_axes:
-            raise NotImplementedError(
-                "grad_psum_axes (data-parallel grad averaging) comes with "
-                "the multi-GPU slice: ROADMAP.md queue A item 7")
         if num_losses != 1:
             raise NotImplementedError(
                 "num_losses > 1 (one loss scaler per loss) is not ported "
@@ -67,6 +69,8 @@ class Amp:
                                                   **policy_overrides)
         self.scaler = make_loss_scale(self.policy.loss_scale)
         self.max_grad_norm = max_grad_norm
+        #: the groups the gradients are averaged over (data parallelism)
+        self.grad_psum_axes = tuple(grad_psum_axes)
 
     def init(self, params: dict) -> AmpState:
         """``params``: ``{name: tensor}``, e.g. a model's
@@ -102,8 +106,16 @@ class Amp:
                                           allow_unused=True)
             grads = {k: (torch.zeros_like(p) if g is None else g)
                      for (k, p), g in zip(params.items(), got)}
+            loss = loss.detach().float()
+            if self.grad_psum_axes:
+                from apex1_tpu_torch.parallel.ddp import mean_over
+                grads = mean_over(grads, self.grad_psum_axes)
+                # report the global mean
+                loss = mean_over({"loss": loss}, self.grad_psum_axes)["loss"]
             grads = scaler.unscale(grads, ls)
             finite = all_finite(grads)
+            if self.grad_psum_axes:
+                finite = _all_groups_finite(finite, self.grad_psum_axes)
             gnorm = global_norm(grads)
             if self.max_grad_norm is not None:
                 grads, _ = clip_grad_norm(grads, self.max_grad_norm)
@@ -115,7 +127,7 @@ class Amp:
             new_ls = scaler.adjust(ls, finite)
             new_state = AmpState(step=state.step + 1, params=new_params,
                                  opt_state=new_opt, loss_scale=new_ls)
-            metrics = {"loss": loss.detach().float(), "grad_norm": gnorm,
+            metrics = {"loss": loss, "grad_norm": gnorm,
                        "loss_scale": ls.scale, "grads_finite": finite,
                        "skipped_steps": new_ls.overflow_count}
             return new_state, metrics
@@ -129,3 +141,17 @@ class Amp:
     def model_params(self, state: AmpState) -> dict:
         """The compute-dtype view the model consumes."""
         return self.policy.cast_to_compute(state.params)
+
+
+def _all_groups_finite(finite: torch.Tensor, groups) -> torch.Tensor:
+    """``finite`` on every rank of ``groups`` (a MIN all-reduce of the
+    flag, JAX's ``pmin``)."""
+    import torch.distributed as dist
+
+    from apex1_tpu_torch.parallel.ddp import resolve_groups
+    from apex1_tpu_torch.transformer.tensor_parallel.mappings import (
+        all_reduce)
+    flag = finite.to(torch.int32)
+    for g in resolve_groups(groups):
+        flag = all_reduce(flag, g, dist.ReduceOp.MIN)
+    return flag.bool()

@@ -149,6 +149,30 @@ extern "C" int apex1_flash_fwd(const void* q, const void* k, const void* v,
   return dispatch(kFwd, a, dropout, dtype, stream);
 }
 
+// The forward's merge mode (the all-gather flash attention's ring step):
+// prev_out and out fp32 (B, Hq, Sq, D), prev_lse and lse fp32 (B, Hq, Sq);
+// the other operands as apex1_flash_fwd's, without bias or dropout. out
+// and lse may not alias prev_out and prev_lse.
+extern "C" int apex1_flash_fwd_merge(const void* q, const void* k,
+                                     const void* v, const void* qseg,
+                                     const void* kseg, const void* prev_out,
+                                     const void* prev_lse, void* out,
+                                     void* lse, int B, int Hq, int Hkv,
+                                     int Sq, int Sk, int D, float scale,
+                                     int causal, int q_off, int k_off,
+                                     int vec, int dtype, void* stream) {
+  if (prev_out == nullptr || prev_lse == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  FlashArgs a = make_args(q, k, v, qseg, kseg, nullptr, 1, 1, B, Hq, Hkv, Sq,
+                          Sk, D, scale, causal, q_off, k_off, vec, 0u, 0u,
+                          0.f);
+  a.prev_out = static_cast<const float*>(prev_out);
+  a.prev_lse = static_cast<const float*>(prev_lse);
+  a.out = out;
+  a.lse = static_cast<float*>(lse);
+  return dispatch(kFwd, a, 0, dtype, stream);
+}
+
 // dout, dq like q; lse, delta, dlse (B, Hq, Sq) fp32, dlse may be null
 extern "C" int apex1_flash_dq(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse,
@@ -171,12 +195,13 @@ extern "C" int apex1_flash_dq(const void* q, const void* k, const void* v,
   return dispatch(kDq, a, dropout, dtype, stream);
 }
 
-// dk, dv like k, in k's dtype
+// dk, dv like k, in k's dtype, or fp32 when dkv_f32 is 1
 extern "C" int apex1_flash_dkv(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* delta, const void* dlse,
                                const void* qseg, const void* kseg,
-                               const void* bias, void* dk, void* dv, int B,
+                               const void* bias, void* dk, void* dv,
+                               int dkv_f32, int B,
                                int Hq, int Hkv, int Sq, int Sk, int D, int Bb,
                                int Hb, float scale, int causal, int q_off,
                                int k_off, int vec, int dropout, unsigned seed,
@@ -191,6 +216,7 @@ extern "C" int apex1_flash_dkv(const void* q, const void* k, const void* v,
   a.dlse = static_cast<const float*>(dlse);
   a.dk = dk;
   a.dv = dv;
+  a.dkv_f32 = dkv_f32;
   return dispatch(kDkv, a, dropout, dtype, stream);
 }
 

@@ -64,6 +64,12 @@ struct FlashArgs {
   void* dq;
   void* dk;
   void* dv;
+  int dkv_f32;  // dk and dv are fp32, not the operand type
+  // the forward's merge mode (null: off): the carried fp32 (B, Hq, Sq, D)
+  // output and (B, Hq, Sq) lse this shard's result merges into; `out` is
+  // then fp32 too
+  const float* prev_out;
+  const float* prev_lse;
   int B, Hq, Hkv, Sq, Sk, D;
   float scale;
   int causal, q_off, k_off;
@@ -339,11 +345,31 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   if (qrow < a.Sq) {
     const float safe = l > 0.f ? l : 1.f;
-    T* o = static_cast<T*>(a.out) + (bh * a.Sq + qrow) * a.D;
-    for (int c = part; c < a.D; c += TPR)
-      o[c] = from_f32<T>(sAcc[row * G::LDA + c] / safe);
-    if (part == 0)
-      a.lse[bh * a.Sq + qrow] = l > 0.f ? m + logf(safe) : kNegInf;
+    const float lse_t = l > 0.f ? m + logf(safe) : kNegInf;
+    const size_t r = bh * a.Sq + qrow;
+    if (a.prev_lse != nullptr) {
+      // merge epilogue (the reference's _agf_kernel, op for op): this
+      // shard's output rounded to T as the plain forward returns it, then
+      // lse' = logaddexp(prev, lse_t) = max + log1p(exp(-|prev - lse_t|)),
+      // out' = prev_out·exp(prev - lse') + o_t·exp(lse_t - lse'), each
+      // product and the sum rounded apart
+      const float prev = a.prev_lse[r];
+      const float lse =
+          fmaxf(prev, lse_t) + log1pf(expf(-fabsf(prev - lse_t)));
+      const float wa = expf(prev - lse), wb = expf(lse_t - lse);
+      const float* po = a.prev_out + r * a.D;
+      float* o = static_cast<float*>(a.out) + r * a.D;
+      for (int c = part; c < a.D; c += TPR) {
+        const float ot = to_f32(from_f32<T>(sAcc[row * G::LDA + c] / safe));
+        o[c] = __fadd_rn(__fmul_rn(po[c], wa), __fmul_rn(ot, wb));
+      }
+      if (part == 0) a.lse[r] = lse;
+    } else {
+      T* o = static_cast<T*>(a.out) + r * a.D;
+      for (int c = part; c < a.D; c += TPR)
+        o[c] = from_f32<T>(sAcc[row * G::LDA + c] / safe);
+      if (part == 0) a.lse[r] = lse_t;
+    }
   }
 }
 
@@ -559,11 +585,20 @@ __global__ void __launch_bounds__(kThreads)
   const int krow = k0 + row;
   if (krow < a.Sk) {
     const size_t o = ((size_t(b) * a.Hkv + hk) * a.Sk + krow) * a.D;
-    T* dk = static_cast<T*>(a.dk) + o;
-    T* dv = static_cast<T*>(a.dv) + o;
-    for (int c = part; c < a.D; c += TPR) {
-      dk[c] = from_f32<T>(sDK[row * G::LDA + c]);
-      dv[c] = from_f32<T>(sDV[row * G::LDA + c]);
+    if (a.dkv_f32) {
+      float* dk = static_cast<float*>(a.dk) + o;
+      float* dv = static_cast<float*>(a.dv) + o;
+      for (int c = part; c < a.D; c += TPR) {
+        dk[c] = sDK[row * G::LDA + c];
+        dv[c] = sDV[row * G::LDA + c];
+      }
+    } else {
+      T* dk = static_cast<T*>(a.dk) + o;
+      T* dv = static_cast<T*>(a.dv) + o;
+      for (int c = part; c < a.D; c += TPR) {
+        dk[c] = from_f32<T>(sDK[row * G::LDA + c]);
+        dv[c] = from_f32<T>(sDV[row * G::LDA + c]);
+      }
     }
   }
 }

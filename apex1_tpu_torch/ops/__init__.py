@@ -5,7 +5,7 @@ from apex1_tpu_torch.ops._common import (NEG_INF, force_impl, get_impl,
                                          set_impl)
 from apex1_tpu_torch.ops.attention import (flash_attention, flash_dbias,
                                            flash_dkv, flash_dq, flash_fwd,
-                                           fmha)
+                                           flash_fwd_merge, fmha)
 from apex1_tpu_torch.ops.chunked_loss import (chunked_dpo_loss,
                                               chunked_kl_loss,
                                               chunked_logprob,
@@ -40,6 +40,9 @@ from apex1_tpu_torch.ops.stochastic import (bda_bwd, bda_fwd, fold_seed,
 from apex1_tpu_torch.ops.xentropy import (masked_next_token_mean,
                                           softmax_cross_entropy_loss,
                                           xent_bwd, xent_fwd)
+# last: it imports the tensor-parallel collectives, which import the
+# linear-xent kernels above
+from apex1_tpu_torch.ops.fused_collective import chunk_matmul  # noqa: E402
 
 #: every kernel wrapper, by kernel name; each keeps ``.launches``, the
 #: number of times it launched its kernel
@@ -63,7 +66,9 @@ KERNEL_WRAPPERS = {"layer_norm_fwd": layer_norm_fwd,
                    "bda_fwd": bda_fwd,
                    "bda_bwd": bda_bwd,
                    "int8_mm": int8_mm,
-                   "lora_delta": lora_delta}
+                   "lora_delta": lora_delta,
+                   "chunk_matmul": chunk_matmul,
+                   "flash_fwd_merge": flash_fwd_merge}
 
 
 def reset_launches() -> None:
@@ -77,7 +82,7 @@ def launch_counts() -> dict:
 
 __all__ = ["NEG_INF", "force_impl", "get_impl", "set_impl",
            "flash_attention", "flash_dbias", "flash_dkv", "flash_dq",
-           "flash_fwd", "fmha",
+           "flash_fwd", "flash_fwd_merge", "fmha", "chunk_matmul",
            "chunked_dpo_loss", "chunked_kl_loss", "chunked_logprob",
            "chunked_orpo_loss", "linear_cross_entropy", "lxent_dw",
            "lxent_dx", "lxent_fwd", "lxent_grads", "shard_grads",

@@ -61,7 +61,9 @@ SIGNATURES = {
                                               _U, _F, _I, _P],
     "apex1_flash_dq": [_P] * 11 + [_I] * 8 + [_F, _I, _I, _I, _I, _I, _U,
                                               _U, _F, _I, _P],
-    "apex1_flash_dkv": [_P] * 12 + [_I] * 8 + [_F, _I, _I, _I, _I, _I, _U,
+    "apex1_flash_fwd_merge": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _I, _I,
+                                                    _I, _P],
+    "apex1_flash_dkv": [_P] * 12 + [_I] * 9 + [_F, _I, _I, _I, _I, _I, _U,
                                                _U, _F, _I, _P],
     "apex1_flash_dbias": [_P] * 11 + [_I] * 8 + [_F, _I, _I, _I, _I, _I,
                                                  _U, _U, _F, _I, _P],
@@ -85,6 +87,7 @@ SIGNATURES = {
                       _P],
     "apex1_int8_mm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "apex1_lora_delta": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "apex1_chunk_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _LOCK = threading.Lock()

@@ -17,7 +17,9 @@ and key's segment ids are equal.
 Four kernels in ``csrc/flash_attn.cu`` (TPU rows 3-6), each beside its
 plain PyTorch version with the same signature, which materializes the
 scores: :func:`flash_fwd`, :func:`flash_dq`, :func:`flash_dkv` and
-:func:`flash_dbias`. As
+:func:`flash_dbias`; and the forward's merge mode, :func:`flash_fwd_merge`
+(TPU row 26, the all-gather flash attention's ring step: the shard's
+output merged into a carried fp32 (out, lse) in the epilogue). As
 in the kernels, the plain backward rounds p and dS to the operand type
 before their products; the plain forward keeps the probabilities in
 fp32 (the kernel rounds e = exp(s - m) against a running max, which a
@@ -167,7 +169,8 @@ def _plain_dq(q, k, v, dout, lse, delta, dlse, qseg, kseg, scale, causal,
 
 
 def _plain_dkv(q, k, v, dout, lse, delta, dlse, qseg, kseg, scale, causal,
-               q_off, k_off, dropout_p=0.0, seed=None, bias=None):
+               q_off, k_off, dropout_p=0.0, seed=None, bias=None,
+               out_dtype=None):
     p, dsu = _probs_and_ds(q, k, v, dout, lse, delta, dlse, qseg, kseg,
                            scale, causal, q_off, k_off, dropout_p, seed,
                            bias)
@@ -180,7 +183,7 @@ def _plain_dkv(q, k, v, dout, lse, delta, dlse, qseg, kseg, scale, causal,
     if group > 1:
         dk = dk.reshape(B, Hkv, group, Sk, D).sum(dim=2)
         dv = dv.reshape(B, Hkv, group, Sk, D).sum(dim=2)
-    return dk.to(k.dtype), dv.to(v.dtype)
+    return dk.to(out_dtype or k.dtype), dv.to(out_dtype or v.dtype)
 
 
 def _plain_dbias(q, k, v, dout, lse, delta, dlse, qseg, kseg, scale,
@@ -299,6 +302,66 @@ def flash_fwd(q, k, v, qseg, kseg, scale: float, causal: bool,
 flash_fwd.launches = 0
 
 
+def logaddexp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.logaddexp`` as JAX writes it: max + log1p(exp(-|a - b|)),
+    a + b where a - b is nan."""
+    delta = a - b
+    return torch.where(torch.isnan(delta), a + b,
+                       torch.maximum(a, b)
+                       + torch.log1p(torch.exp(-delta.abs())))
+
+
+def merge_partials(out_a, lse_a, out_b, lse_b):
+    """The exact combine of two normalized partial attentions (the JAX
+    package's ``ring_attention._merge``): lse = logaddexp(lse_a, lse_b),
+    out = out_a·exp(lse_a - lse) + out_b·exp(lse_b - lse), ``out_b``
+    widened to ``out_a``'s dtype."""
+    lse = logaddexp(lse_a, lse_b)
+    w_a = torch.exp(lse_a - lse)[..., None]
+    w_b = torch.exp(lse_b - lse)[..., None]
+    return out_a * w_a + out_b.to(out_a.dtype) * w_b, lse
+
+
+def flash_fwd_merge(q, k, v, qseg, kseg, scale: float, causal: bool,
+                    q_off: int, k_off: int, prev_out: torch.Tensor,
+                    prev_lse: torch.Tensor):
+    """One ring step of the all-gather flash attention: this shard's
+    flash forward merged into the carried ``(prev_out, prev_lse)`` (fp32
+    (B, Hq, Sq, D) and (B, Hq, Sq)); returns the merged ``(out, lse)``,
+    both fp32. The shard's output is rounded to q's dtype before the
+    merge, as `flash_fwd` returns it. No bias, no dropout. CUDA tensors
+    launch the forward kernel with its merge epilogue
+    (``flash_fwd_merge.launches``); CPU tensors take the plain version,
+    `flash_fwd`'s followed by `merge_partials`."""
+    if prev_out.shape != q.shape or prev_lse.shape != q.shape[:3]:
+        raise ValueError(f"flash_fwd_merge: the carried out "
+                         f"{tuple(prev_out.shape)} and lse "
+                         f"{tuple(prev_lse.shape)} must match q "
+                         f"{tuple(q.shape)}")
+    if not use_kernel(q):
+        out_t, lse_t = _plain_fwd(q, k, v, qseg, kseg, scale, causal, q_off,
+                                  k_off)
+        return merge_partials(prev_out.float(), prev_lse.float(), out_t,
+                              lse_t)
+    (q, k, v, _, qseg, kseg, prev_out, prev_lse), vec = _kernel_operands(
+        "flash_fwd_merge", q, k, v, None, qseg, kseg,
+        prev_out.float(), prev_lse.float())
+    B, Hq, Hkv, Sq, Sk, D = _dims(q, k)
+    out = torch.empty_like(prev_out)
+    lse = torch.empty_like(prev_lse)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _build.launch("apex1_flash_fwd_merge", q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), _ptr(qseg), _ptr(kseg), prev_out.data_ptr(),
+                  prev_lse.data_ptr(), out.data_ptr(), lse.data_ptr(), B, Hq,
+                  Hkv, Sq, Sk, D, float(scale), int(causal), int(q_off),
+                  int(k_off), vec, DTYPE_CODES[q.dtype], stream)
+    flash_fwd_merge.launches += 1
+    return out, lse
+
+
+flash_fwd_merge.launches = 0
+
+
 def _bwd_operands(name, q, k, v, dout, lse, delta, dlse, qseg, kseg, bias):
     """The backward kernels' operands after the shared checks, the
     leading pointers of their entry points (q through bias) and the
@@ -345,20 +408,29 @@ flash_dq.launches = 0
 
 def flash_dkv(q, k, v, dout, lse, delta, dlse, qseg, kseg, scale: float,
               causal: bool, q_off: int = 0, k_off: int = 0,
-              dropout_p: float = 0.0, dropout_seed=None, *, bias=None):
-    """``(dk, dv)`` in k's dtype, each kv head summed over its GQA group
-    (fp32 accumulation, one rounding). Arguments as `flash_dq`. CUDA
-    tensors launch the kernel (``flash_dkv.launches``); CPU tensors take
-    the plain version."""
+              dropout_p: float = 0.0, dropout_seed=None, *, bias=None,
+              out_dtype=None):
+    """``(dk, dv)`` in k's dtype, or ``out_dtype=torch.float32`` (the
+    ring backward's per-shard partials, which it sums over the ring
+    before one rounding), each kv head summed over its GQA group (fp32
+    accumulation, one rounding at the store). Arguments as `flash_dq`.
+    CUDA tensors launch the kernel (``flash_dkv.launches``); CPU tensors
+    take the plain version."""
+    if out_dtype not in (None, k.dtype, torch.float32):
+        raise ValueError(f"flash_dkv: out_dtype must be k's dtype or "
+                         f"float32, got {out_dtype}")
     bias = _bias_operand(bias, q, k)
     if not use_kernel(q):
         return _plain_dkv(q, k, v, dout, lse, delta, dlse, qseg, kseg,
                           scale, causal, q_off, k_off, dropout_p,
-                          dropout_seed, bias)
+                          dropout_seed, bias, out_dtype)
     ops, ptrs, vec = _bwd_operands("flash_dkv", q, k, v, dout, lse, delta,
                                    dlse, qseg, kseg, bias)
-    dk, dv = torch.empty_like(ops[1]), torch.empty_like(ops[2])
+    f32 = out_dtype == torch.float32
+    dk = torch.empty_like(ops[1], dtype=out_dtype or ops[1].dtype)
+    dv = torch.empty_like(ops[2], dtype=out_dtype or ops[2].dtype)
     _build.launch("apex1_flash_dkv", *ptrs, dk.data_ptr(), dv.data_ptr(),
+                  int(f32),
                   *_bwd_tail(ops[0], ops[1], bias, scale, causal, q_off,
                              k_off, vec, dropout_p, dropout_seed))
     flash_dkv.launches += 1

@@ -70,7 +70,19 @@ Phases, each printed on its own line; a failure in any exits non-zero:
    decode rows, 8 x 5 verify rows and a prefill row (rank 16, vocab
    32000, three adapters and an adapterless row) and a ragged f32 case:
    the fp32 rounding bound, page-0 rows exactly 0.0, the same bits twice
-   and every row equal to itself computed alone.
+   and every row equal to itself computed alone. The multi-GPU slice's:
+   the chunk product of the fused collective matmuls (kernels 24-25, and
+   27's product with its fp32 accumulator) at the SP boundary MLP's
+   world-1 products (8192 x 2048 @ 2048 x 8192 and 8192 x 8192 @ 8192 x
+   2048, bf16), a tp = 8 rank's chunks, an (S, mb, hid) operand, ragged,
+   fp16 and f32 shapes: the fp32 rounding bound, the same bits twice,
+   ``acc + kernel`` equal to the accumulator mode bit for bit (``torch.mm``
+   in the operand type timed beside it); the flash forward's merge
+   epilogue (kernel 26) at a cp = 8 rank's steps of `llama_longctx`
+   (1 x 32/4 heads x 2048 of 64, off and on the diagonal, segments),
+   the world-1 step (16384) and a ragged f32 case, with a carried (out,
+   lse): the flash rounding bound, the same bits twice, the port's
+   two-step form (flash_fwd, then the merge in PyTorch) timed beside it.
 3. engine — serve GPT-2 124M at full width (12 layers, hidden 768,
    vocab 50257 padded to 50304) at policy O2, weights made from a seed,
    through the paged continuous-batching engine: 16 requests (prompts
@@ -230,12 +242,32 @@ Phases, each printed on its own line; a failure in any exits non-zero:
    its plain versions on the card, ``num_draft=2`` against 0 with and
    without LoRA: equal streams, or a first difference at a near-tie of
    the reference's sampling scores.
-26. the ``kernels`` JSON line (each kernel's launches over the main
+26. the multi-GPU slice, on a one-rank NCCL process group (a file
+   rendezvous, `apex1_tpu_torch.parallel.init_distributed`): tp-sp —
+   the SP boundary MLP (x (8192, 2048) bf16, ffn 8192;
+   `tools/bench_fused_comm.py`'s A/B shapes) through
+   ``column_parallel_linear`` and ``row_parallel_linear`` with
+   sequence parallelism, monolithic, ``overlap=True``, ``fused=True``
+   and the serialized gather: host walls, the fused step's 4
+   chunk_matmul launches, every form's collectives, and each fused op
+   against its decomposed form (output and dx within the fp32 rounding
+   bound, dW bit for bit); cp — causal attention at `llama_longctx`'s
+   shape (1 x 32/4 x 16384 x 64) through ``ring_attention`` and
+   ``all_gather_flash_attention``, forward and backward: walls, exact
+   launches (the merge flash once a forward), the two forms within
+   flash's bf16 tolerance; vp-ce — ``vocab_parallel_linear_cross_
+   entropy`` at `llama_longctx`'s head (16384 x 2048 against 32000),
+   fused against decomposed bit for bit, 2 against 4 forward
+   all-reduces; ddp — GPT-2 124M (flash, fused head) at O2, 3 steps
+   with ``Amp(grad_psum_axes=("dp",))`` against the same steps without,
+   losses and params bit for bit; rdma — ``matmul_reduce_scatter_rdma``
+   raises its ring-size error at world 1.
+27. the ``kernels`` JSON line (each kernel's launches over the main
    paths: the engine, the train phases, dpo, generate, train-llama,
    serve-llama and its generate, the BERT phases, train-gpt2-dropout,
-   train-t5, mha, train-llama-longctx, decode, decode-int8 and
-   serve-lora), the card's name and power limit, and the last line
-   ``{"ok": true, "device": {...}}``.
+   train-t5, mha, train-llama-longctx, decode, decode-int8,
+   serve-lora, tp-sp, cp, vp-ce and ddp), the card's name and power
+   limit, and the last line ``{"ok": true, "device": {...}}``.
 
 Kernel times are device times of CUDA-graph replays (no host launch
 overhead), or between CUDA events for kernels of a millisecond or more;
@@ -1781,6 +1813,217 @@ def check_lora_delta(torch, ops, gen):
     return results
 
 
+#: the chunk product's checks (rows 24-25 and row 27's product): (case,
+#: leading dims of rows, K, N, dtype, main). The SP boundary MLP at world
+#: 1 (`tools/bench_fused_comm.py`'s S 8192, hidden 2048, ffn 8192), a
+#: tp = 8 rank's chunks, an (S, mb, hid) operand, ragged, fp16 and f32
+CHUNK_CASES = [
+    ("world-1 column product", (8192,), 2048, 8192, "bfloat16", True),
+    ("world-1 row product", (8192,), 8192, 2048, "bfloat16", False),
+    ("tp=8 column chunk", (1024,), 2048, 1024, "bfloat16", False),
+    ("tp=8 row chunk", (1024,), 1024, 2048, "bfloat16", False),
+    ("(S, mb, hid) operand", (512, 2), 2048, 1024, "bfloat16", False),
+    ("ragged", (1000,), 1000, 999, "bfloat16", False),
+    ("fp16", (1024,), 2048, 1024, "float16", False),
+    ("f32", (1024,), 1024, 1024, "float32", False),
+]
+
+
+def check_chunk_matmul(torch, ops, gen):
+    """Kernels 24-25 (and row 27's product) against the plain version,
+    ``torch.matmul`` of the operands widened to fp32: the same exact
+    products (fp32 rounded ones for f32) summed in another order, held
+    to the fp32 rounding bound (`rounding_errs`, no operand rounding);
+    the same bits on a second launch; with an fp32 accumulator (the
+    rdma ring's epilogue) equal to ``acc + chunk_matmul(rows, w)`` bit
+    for bit, its time printed as ``acc_ms``. Bound: the bytes M·K + K·N
+    in the operand type and 4·M·N out, or 2·M·N·K operations at the
+    operand type's peak. Library: ``torch.mm`` on the same operands,
+    which writes the operand type, not fp32."""
+    from apex1_tpu_torch.ops.fused_collective import chunk_matmul
+    results = []
+    for case, lead, K, N, dts, main in CHUNK_CASES:
+        dt = getattr(torch, dts)
+        rows = (torch.randn(*lead, K, generator=gen, device="cuda")
+                * K ** -0.5).to(dt)
+        w = torch.randn(K, N, generator=gen, device="cuda").to(dt)
+        acc = torch.randn(*lead, N, generator=gen, device="cuda")
+
+        def run():
+            return chunk_matmul(rows, w)
+
+        got = run()
+        again = run()
+        with_acc = chunk_matmul(rows, w, acc)
+        with ops.force_impl("torch"):
+            want = run()
+            absprod = chunk_matmul(rows.abs(), w.abs())
+        torch.cuda.synchronize()
+        abs_e, worst = rounding_errs(got, want, absprod, 2.0 ** -24, 0)
+        M = rows.numel() // K
+        flops = 2 * M * N * K
+        timer = event_ms if flops > 1e11 else graph_ms
+        ms = timer(run)
+        acc_ms = timer(lambda: chunk_matmul(rows, w, acc))
+        with ops.force_impl("torch"):
+            plain = event_ms(run, iters=3)
+        r2 = rows.reshape(M, K)
+        lib = timer(lambda: torch.mm(r2, w))
+        es = rows.element_size()
+        bnd, by = bound_ms((M * K + K * N) * es + 4 * M * N, flops,
+                           F32_OPS_PER_S if dt == torch.float32
+                           else BF16_OPS_PER_S)
+        results.append(dict(
+            case=f"{case} M={M} K={K} N={N} {dts} (library: torch.mm, "
+                 f"{dts} out)",
+            abs=abs_e, worst=worst, tol=TOLS["float32"],
+            rule="fp32 rounding bound (u=2^-24)", ms=ms, acc_ms=acc_ms,
+            plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by,
+            main=main, same_bits=bool(torch.equal(got, again)),
+            equal_bits=bool(torch.equal(with_acc, acc + got))))
+        del rows, w, acc, got, again, with_acc, want, absprod
+        torch.cuda.empty_cache()
+    return results
+
+
+#: the merge flash's checks (row 26): (case, B, Hq, Hkv, S shard, dtype,
+#: causal, segments, q_off, k_off, main). A cp = 8 rank's step at
+#: `llama_longctx`'s 16384 tokens (2048 a shard, heads 32/4 of 64) off
+#: and on the diagonal and with document segments, and the world-1 step
+#: of the cp phase (all 16384)
+MERGE_CASES = [
+    ("cp=8 step, off the diagonal", 1, 32, 4, 2048, "bfloat16", True, False,
+     3 * 2048, 1 * 2048, False),
+    ("cp=8 step, diagonal", 1, 32, 4, 2048, "bfloat16", True, False,
+     5 * 2048, 5 * 2048, False),
+    ("cp=8 step, segments", 1, 32, 4, 2048, "bfloat16", True, True,
+     2 * 2048, 2 * 2048, False),
+    ("world 1", 1, 32, 4, 16384, "bfloat16", True, False, 0, 0, True),
+    ("f32 ragged", 2, 4, 2, 200, "float32", True, False, 300, 100, False),
+]
+#: query rows a piece of the plain version (its scores are materialized)
+MERGE_PLAIN_ROWS = 2048
+
+
+def merge_plain(torch, ops, fn, q, qoff, prev_out, prev_lse, *rest):
+    """The plain version of ``fn`` (`flash_fwd_merge`) over query rows in
+    pieces of `MERGE_PLAIN_ROWS` (each with its own q offset): rows are
+    independent, and the whole (S, S) score matrix of the 16384-token
+    case does not fit the card."""
+    k, v, qseg, kseg, scale, causal, k_off = rest
+    outs, lses = [], []
+    with ops.force_impl("torch"):
+        for i in range(0, q.shape[2], MERGE_PLAIN_ROWS):
+            sl = slice(i, i + MERGE_PLAIN_ROWS)
+            o, l = fn(q[:, :, sl], k, v,
+                      None if qseg is None else qseg[:, sl], kseg, scale,
+                      causal, qoff + i, k_off, prev_out[:, :, sl],
+                      prev_lse[:, :, sl])
+            outs.append(o)
+            lses.append(l)
+    return torch.cat(outs, dim=2), torch.cat(lses, dim=2)
+
+
+def check_flash_merge(torch, ops, gen):
+    """Kernel 26 (the flash forward's merge epilogue) against its plain
+    version, `flash_fwd`'s followed by `merge_partials`, with a carried
+    (out, lse) (NEG_INF in the first rows: nothing carried yet): out
+    at the flash forward's rounding bound (its shard part rounds P and
+    the output to the operand type; `rounding_errs` with the plain
+    function on |v| and |prev_out|), lse at f32's; the same bits on a
+    second launch. Bound: the valid (q, k) pairs, 4·D flops each at the
+    operand type's peak, or the bytes of q, k, v, the carried fp32 (out,
+    lse) read and written. No single PyTorch call computes the merged
+    step: ``decomposed_ms`` times the port's two-step form, the
+    `flash_fwd` kernel and `merge_partials` in PyTorch."""
+    from apex1_tpu_torch.ops.attention import (_valid, flash_fwd,
+                                               flash_fwd_merge,
+                                               merge_partials)
+    results = []
+    for (case, B, Hq, Hkv, S, dts, causal, segs, q_off, k_off,
+         main) in MERGE_CASES:
+        dt = getattr(torch, dts)
+        D = 64
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+
+        q, k, v = rnd(B, Hq, S, D).to(dt), rnd(B, Hkv, S, D).to(dt), \
+            rnd(B, Hkv, S, D).to(dt)
+        po, plse = rnd(B, Hq, S, D) * 0.5, rnd(B, Hq, S) * 2 + 4
+        plse[..., :7] = -1e30
+        po[..., :7, :] = 0
+        qseg = kseg = None
+        if segs:
+            qseg = kseg = torch.from_numpy(doc_segments(B, S, SEED)).cuda()
+        scale = 1.0 / math.sqrt(D)
+
+        def run():
+            return flash_fwd_merge(q, k, v, qseg, kseg, scale, causal,
+                                   q_off, k_off, po, plse)
+
+        out, lse = run()
+        out2, lse2 = run()
+        torch.cuda.synchronize()
+        rest = (k, v, qseg, kseg, scale, causal, k_off)
+        t0 = time.perf_counter()
+        wout, wlse = merge_plain(torch, ops, flash_fwd_merge, q, q_off, po,
+                                 plse, *rest)
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t0) * 1e3
+        if dt == torch.float32:
+            e1 = max_errs(out, wout, *TOLS["float32"])
+        else:
+            absprod, _ = merge_plain(torch, ops, flash_fwd_merge, q, q_off,
+                                     po.abs(), plse, k, v.abs(), *rest[2:])
+            # the kernel rounds P (u·Σp|v|), and both sides round the
+            # shard's output to the operand type (2u·|o_t|), weighted
+            # by exp(lse_t - lse') <= 1: three sides
+            e1 = rounding_errs(out, wout, absprod, UNIT[dts], 3)
+            del absprod
+        e2 = max_errs(lse, wlse, *TOLS["float32"])
+        timer = event_ms if main else graph_ms
+        ms = timer(run)
+
+        def decomposed():
+            o_t, l_t = flash_fwd(q, k, v, qseg, kseg, scale, causal, q_off,
+                                 k_off)
+            return merge_partials(po, plse, o_t, l_t)
+
+        dec = timer(decomposed)
+        pairs = 0
+        for i in range(0, S, MERGE_PLAIN_ROWS):
+            m = _valid(B, min(MERGE_PLAIN_ROWS, S - i), S,
+                       None if qseg is None else qseg[:, i:i +
+                                                       MERGE_PLAIN_ROWS],
+                       kseg, causal, q_off + i, k_off, q.device)
+            pairs += int(m.expand(B, 1, -1, -1).sum().item())
+        es = q.element_size()
+        bnd, by = bound_ms((q.numel() + k.numel() + v.numel()) * es
+                           + 2 * 4 * (po.numel() + plse.numel()),
+                           4 * D * pairs * Hq,
+                           F32_OPS_PER_S if dt == torch.float32
+                           else BF16_OPS_PER_S)
+        results.append(dict(
+            case=f"{case} B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} {dts} "
+                 f"q_off={q_off} k_off={k_off}"
+                 + (" segments" if segs else "")
+                 + f" (decomposed flash_fwd + merge_partials "
+                   f"ms={dec:.4f})",
+            abs=max(e1[0], e2[0]), worst=max(e1[1], e2[1]),
+            tol=TOLS[dts], rule=("flash rounding bound (out), f32 (lse)"
+                                 if dt != torch.float32 else None),
+            ms=ms, decomposed_ms=dec, plain_ms=plain, library_ms=None,
+            bound_ms=bnd, bound_by=by, main=main,
+            same_bits=bool(torch.equal(out, out2)
+                           and torch.equal(lse, lse2))))
+        if results[-1]["rule"] is None:
+            del results[-1]["rule"]
+        del q, k, v, po, plse, out, lse, out2, lse2, wout, wlse
+        torch.cuda.empty_cache()
+    return results
+
+
 # ---- phases 3 and 4: the engine -----------------------------------------
 
 
@@ -1997,7 +2240,7 @@ def packed_batch(torch, vocab: int):
 
 def make_trainer(torch, level: str, depth: int, seed: int, factor=False,
                  use_flash=False, packed=False, fuse_head=False,
-                 dropout=0.0):
+                 dropout=0.0, grad_psum_axes=()):
     """GPT-2 124M at full width (``depth`` layers), weights from
     ``seed``, under ``Amp(fused_adam(1e-4, weight_decay=0.01),
     opt_level=level)``, its loss ``gpt2_loss_fn(fuse_head=...)``, and
@@ -2006,7 +2249,8 @@ def make_trainer(torch, level: str, depth: int, seed: int, factor=False,
     dropout rate, the batch ending in an int base seed (``dropout_rng``,
     the tokens not packed).
     With ``factor`` the step takes a factor before the batch that
-    multiplies the loss (inf forces an overflow)."""
+    multiplies the loss (inf forces an overflow); ``grad_psum_axes``
+    averages the gradients over those mesh axes (the ddp phase)."""
     import numpy as np
     from apex1_tpu_torch import (Amp, GPT2Config, fused_adam, get_policy,
                                  gpt2_loss_fn, gpt2_params_from_jax)
@@ -2014,7 +2258,8 @@ def make_trainer(torch, level: str, depth: int, seed: int, factor=False,
     cfg = GPT2Config.gpt2_125m(num_layers=depth, use_flash=use_flash,
                                policy=get_policy(level), dropout=dropout)
     model = gpt2_params_from_jax(init_params(cfg, seed), cfg, "cuda")
-    amp = Amp(fused_adam(1e-4, weight_decay=0.01), opt_level=level)
+    amp = Amp(fused_adam(1e-4, weight_decay=0.01), opt_level=level,
+              grad_psum_axes=grad_psum_axes)
     state = amp.init(dict(model.named_parameters()))
     base = gpt2_loss_fn(model, fuse_head=fuse_head)
     loss_fn = (lambda p, f, *b: base(p, *b) * f) if factor else base
@@ -3809,6 +4054,378 @@ def profile_t5(torch, steps: int = 3) -> dict:
     return out
 
 
+# ---- the multi-GPU slice: tensor, sequence and context parallelism ------
+
+#: the JAX package's A/B shapes (tools/bench_fused_comm.py:104-108): the
+#: SP boundary MLP (S x hidden, ffn) and context-parallel attention at
+#: `llama_longctx`'s shape (heads 32/4 of 64, 16384 tokens); the vocab-
+#: parallel head at `llama_longctx`'s (16384 tokens x 2048 against 32000)
+SP_S, SP_HID, SP_FFN = 8192, 2048, 8192
+CP_B, CP_HQ, CP_HKV, CP_S, CP_D = 1, 32, 4, 16384, 64
+VP_T, VP_H, VP_V = 16384, 2048, 32000
+#: timed repetitions of a phase's step (the median is printed)
+PAR_REPS = 3
+
+
+def start_nccl(torch):
+    """A one-rank NCCL process group (a file rendezvous in a temporary
+    directory: no port) and `parallel_state`'s mesh over it. Returns the
+    directory, for `stop_nccl`."""
+    import tempfile
+    from apex1_tpu_torch.parallel import init_distributed
+    from apex1_tpu_torch.transformer import parallel_state as ps
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    init_distributed("nccl", init_method=f"file://{tmp}/store", rank=0,
+                     world_size=1)
+    ps.initialize_model_parallel(1)
+    return tmp
+
+
+def stop_nccl(tmp: str) -> None:
+    import shutil
+    import torch.distributed as dist
+    from apex1_tpu_torch.transformer import parallel_state as ps
+    ps.destroy_model_parallel()
+    dist.destroy_process_group()
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def wall_ms(torch, fn, reps: int = PAR_REPS) -> float:
+    """Host wall ms of ``fn()`` ending in a synchronize: the median of
+    ``reps`` after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return sorted(walls)[len(walls) // 2]
+
+
+def counted(torch, ops, fn):
+    """``fn()``'s result, the kernel launches it made and its collective
+    calls (every count reset just before, read just after)."""
+    from apex1_tpu_torch.transformer.tensor_parallel import mappings
+    ops.reset_launches()
+    mappings.reset_collectives()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in ops.launch_counts().items() if v}, \
+        mappings.collective_counts()
+
+
+def vjp_f32(torch, fn, x, w, g):
+    """(fn(x, w), dx, dw) for the fp32 cotangent ``g``."""
+    xs, ws = x.detach().requires_grad_(), w.detach().requires_grad_()
+    y = fn(xs, ws)
+    dx, dw = torch.autograd.grad(y, (xs, ws), g)
+    return y.detach(), dx, dw
+
+
+def run_tp_sp(torch, ops, card, launches):
+    """tp-sp: the SP boundary MLP (x (S, hidden) bf16 through
+    `column_parallel_linear` then `row_parallel_linear`, both
+    ``sequence_parallel_enabled``) on the one-rank tensor-parallel group,
+    forward and backward: monolithic collectives, ``overlap=True``
+    (`mappings`' rings, cuBLAS products), ``fused=True`` (the rings with
+    the `chunk_matmul` kernel) and the serialized gather (forward only):
+    host wall of each; the fused step's launches (chunk_matmul 4: the two
+    forward products and the two dual products of the backward; dW stays
+    ``torch.matmul``) and every form's collectives. Then each fused op
+    against its decomposed form on the same operands and fp32
+    cotangent: output and dx within the fp32 rounding bound (kernel
+    against cuBLAS fp32), dW equal bit for bit (both ``torch.matmul``).
+    Adds the fused step's launches to ``launches``. Returns (results,
+    failure or None)."""
+    from apex1_tpu_torch.ops import fused_collective as fc
+    from apex1_tpu_torch.transformer import parallel_state as ps
+    from apex1_tpu_torch.transformer import tensor_parallel as tp
+    from apex1_tpu_torch.transformer.tensor_parallel.mappings import dot_f32
+    grp = ps.get_tensor_model_parallel_group()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    x = rnd(SP_S, SP_HID).to(bf)
+    w1 = rnd(SP_HID, SP_FFN, scale=SP_HID ** -0.5).to(bf)
+    w2 = rnd(SP_FFN, SP_HID, scale=SP_FFN ** -0.5).to(bf)
+    dy = rnd(SP_S, SP_HID).to(bf)
+    modes = {"monolithic": {}, "overlap": dict(overlap=True),
+             "fused": dict(fused=True)}
+
+    def step(mode, backward=True):
+        xs, a, b = (t.detach().requires_grad_(backward) for t in (x, w1, w2))
+        with torch.set_grad_enabled(backward):
+            if mode == "serial":
+                h = fc.fused_all_gather_matmul_serial(xs, a, grp).to(bf)
+                y = fc.fused_matmul_reduce_scatter(h, b, grp).to(bf)
+            else:
+                h = tp.column_parallel_linear(
+                    xs, a, sequence_parallel_enabled=True, group=grp,
+                    **modes[mode])
+                y = tp.row_parallel_linear(
+                    h, b, sequence_parallel_enabled=True, group=grp,
+                    **modes[mode])
+            if backward:
+                y.backward(dy)
+        return y
+
+    out = {"fwd_ms": {}, "step_ms": {}, "collectives": {}}
+    for mode in ("monolithic", "overlap", "fused", "serial"):
+        out["fwd_ms"][mode] = wall_ms(torch, lambda: step(mode, False))
+        if mode != "serial":
+            out["step_ms"][mode] = wall_ms(torch, lambda: step(mode))
+            _, n, coll = counted(torch, ops, lambda: step(mode))
+            out["collectives"][mode] = coll
+            if mode == "fused":
+                out["launches"] = n
+                for k, v in n.items():
+                    launches[k] = launches.get(k, 0) + v
+    flops = 2 * 2 * SP_S * SP_HID * SP_FFN
+    print(f"phase tp-sp: SP boundary MLP S={SP_S} hidden={SP_HID} "
+          f"ffn={SP_FFN} bf16, world 1 (NCCL), forward wall ms "
+          f"{ {k: round(v, 3) for k, v in out['fwd_ms'].items()} }, "
+          f"forward+backward wall ms "
+          f"{ {k: round(v, 3) for k, v in out['step_ms'].items()} } "
+          f"({flops * 3 / 1e12:.3f} TFLOP a step); fused step launches "
+          f"{out['launches']}; collectives a step "
+          f"{out['collectives']} [{card}]")
+    if out["launches"].get("chunk_matmul") != 4:
+        return out, (f"tp-sp: the fused step launched chunk_matmul "
+                     f"{out['launches'].get('chunk_matmul', 0)} times, "
+                     f"expected 4")
+    # each fused op against its decomposed form
+    g1 = rnd(SP_S, SP_FFN)
+    g2 = rnd(SP_S, SP_HID)
+    h = rnd(SP_S, SP_FFN).to(bf)
+    errs = {}
+    for name, fused, dec, xin, w, g in (
+            ("column", fc.fused_all_gather_matmul, tp.all_gather_matmul,
+             x, w1, g1),
+            ("row", fc.fused_matmul_reduce_scatter, tp.matmul_reduce_scatter,
+             h, w2, g2)):
+        got = vjp_f32(torch, lambda a, b: fused(a, b, grp), xin, w, g)
+        want = vjp_f32(torch, lambda a, b: dec(a, b, grp), xin, w, g)
+        with torch.no_grad():
+            ab_y = dot_f32(xin.abs(), w.abs())
+            ab_dx = dot_f32(g.abs(), w.abs().t())
+        e_y = rounding_errs(got[0], want[0], ab_y, 2.0 ** -24, 0)
+        e_dx = rounding_errs(got[1], want[1], ab_dx, 2.0 ** -24, 0)
+        errs[name] = dict(y=e_y, dx=e_dx,
+                          dw_equal=bool(torch.equal(got[2], want[2])))
+        del got, want, ab_y, ab_dx
+        torch.cuda.empty_cache()
+    out["fused_vs_overlap"] = errs
+    print(f"phase tp-sp: fused against decomposed, (max |diff|, worst / "
+          f"fp32 rounding bound) {errs} [{card}]")
+    for name, e in errs.items():
+        if e["y"][1] > 1 or e["dx"][1] > 1 or not e["dw_equal"]:
+            return out, f"tp-sp: the fused {name} op disagrees: {e}"
+    del x, w1, w2, dy, g1, g2, h
+    torch.cuda.empty_cache()
+    return out, None
+
+
+def run_cp(torch, ops, card, launches):
+    """cp: causal attention at `llama_longctx`'s shape (1 x 32/4 heads x
+    16384 x 64, bf16) on the one-rank context-parallel group, forward and
+    backward, through `ring_attention` (flash_fwd, then the merge in
+    PyTorch) and `all_gather_flash_attention` (the merge in the flash
+    kernel's epilogue): host walls, exact launches (the fused form's
+    merge flash once a forward, dq and dk/dv once a backward; the ring's
+    flash_fwd once), and the two forms' out, dq, dk, dv within flash's
+    bf16 tolerance (bitwise equality printed). Adds both forms'
+    launches to ``launches``."""
+    from apex1_tpu_torch.ops.fused_collective import \
+        all_gather_flash_attention
+    from apex1_tpu_torch.parallel.ring_attention import ring_attention
+    from apex1_tpu_torch.transformer import parallel_state as ps
+    grp = ps.get_context_parallel_group()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    bf = torch.bfloat16
+    q = torch.randn(CP_B, CP_HQ, CP_S, CP_D, generator=gen,
+                    device="cuda").to(bf)
+    k, v = (torch.randn(CP_B, CP_HKV, CP_S, CP_D, generator=gen,
+                        device="cuda").to(bf) for _ in range(2))
+    do = torch.randn(CP_B, CP_HQ, CP_S, CP_D, generator=gen,
+                     device="cuda").to(bf)
+    fns = {"ring": ring_attention, "all_gather_flash": \
+           all_gather_flash_attention}
+
+    def run(name, backward=True):
+        qs, ks, vs = (t.detach().requires_grad_(backward) for t in (q, k, v))
+        with torch.set_grad_enabled(backward):
+            o = fns[name](qs, ks, vs, grp, causal=True)
+            if backward:
+                o.backward(do)
+                return o.detach(), qs.grad, ks.grad, vs.grad
+        return (o,)
+
+    out = {"fwd_ms": {}, "step_ms": {}, "launches": {}}
+    res = {}
+    for name in fns:
+        out["fwd_ms"][name] = wall_ms(torch, lambda: run(name, False))
+        out["step_ms"][name] = wall_ms(torch, lambda: run(name))
+        res[name], n, _ = counted(torch, ops, lambda: run(name))
+        out["launches"][name] = n
+        for kk, vv in n.items():
+            launches[kk] = launches.get(kk, 0) + vv
+    errs = [max_errs(a, b, *TOLS["bfloat16"])
+            for a, b in zip(res["all_gather_flash"], res["ring"])]
+    out["errs"] = errs
+    out["bitwise"] = [bool(torch.equal(a, b))
+                      for a, b in zip(res["all_gather_flash"], res["ring"])]
+    print(f"phase cp: causal attention B={CP_B} Hq={CP_HQ} Hkv={CP_HKV} "
+          f"S={CP_S} D={CP_D} bf16, world 1 (NCCL); forward wall ms "
+          f"{ {k: round(v, 3) for k, v in out['fwd_ms'].items()} }, "
+          f"forward+backward wall ms "
+          f"{ {k: round(v, 3) for k, v in out['step_ms'].items()} }; "
+          f"launches {out['launches']}; all_gather_flash vs ring (out, "
+          f"dq, dk, dv) (max |diff|, worst/allowed) {errs} bitwise "
+          f"{out['bitwise']} [{card}]")
+    want = {"ring": dict(flash_fwd=1, flash_dq=1, flash_dkv=1),
+            "all_gather_flash": dict(flash_fwd_merge=1, flash_dq=1,
+                                     flash_dkv=1)}
+    if out["launches"] != want:
+        return out, f"cp: launches {out['launches']}, expected {want}"
+    if any(e[1] > 1 for e in errs):
+        return out, f"cp: the fused form disagrees with the ring: {errs}"
+    del q, k, v, do, res
+    torch.cuda.empty_cache()
+    return out, None
+
+
+def run_vp_ce(torch, ops, card, launches):
+    """vp-ce: `vocab_parallel_linear_cross_entropy` at `llama_longctx`'s
+    head (16384 tokens x 2048 against a 32000-row shard, bf16) on the
+    one-rank tensor-parallel group, ``fused=False`` (shard_stats, the
+    four-all-reduce merge) and ``fused=True`` (shard_stats_packed, two):
+    loss, dx and dW equal bit for bit, the forward's all-reduces 2
+    against 4, launches (lxent_fwd, dx and dW once each), host walls.
+    Adds the launches to ``launches``."""
+    from apex1_tpu_torch.transformer import parallel_state as ps
+    from apex1_tpu_torch.transformer.tensor_parallel import (
+        vocab_parallel_linear_cross_entropy)
+    grp = ps.get_tensor_model_parallel_group()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    x = torch.randn(VP_T, VP_H, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    w = (torch.randn(VP_V, VP_H, generator=gen, device="cuda")
+         * VP_H ** -0.5).to(torch.bfloat16)
+    labels = torch.randint(0, VP_V, (VP_T,), generator=gen, device="cuda")
+
+    def run(fused, backward=True):
+        xs, ws = x.detach().requires_grad_(), w.detach().requires_grad_()
+        loss = vocab_parallel_linear_cross_entropy(xs, ws, labels,
+                                                   group=grp, fused=fused)
+        if not backward:
+            return (loss,)
+        loss.mean().backward()
+        return loss.detach(), xs.grad, ws.grad
+
+    out = {"fwd_ms": {}, "step_ms": {}, "launches": {}, "collectives": {}}
+    res = {}
+    for fused in (False, True):
+        key = "fused" if fused else "decomposed"
+        _, _, fwd_coll = counted(torch, ops, lambda: run(fused, False))
+        out["collectives"][key] = fwd_coll
+        out["fwd_ms"][key] = wall_ms(torch, lambda: run(fused, False))
+        out["step_ms"][key] = wall_ms(torch, lambda: run(fused))
+        res[key], n, _ = counted(torch, ops, lambda: run(fused))
+        out["launches"][key] = n
+        for kk, vv in n.items():
+            launches[kk] = launches.get(kk, 0) + vv
+    out["bitwise"] = [bool(torch.equal(a, b))
+                      for a, b in zip(res["fused"], res["decomposed"])]
+    ar = {k: c["all_reduce"] for k, c in out["collectives"].items()}
+    print(f"phase vp-ce: T={VP_T} H={VP_H} V={VP_V} bf16, world 1 "
+          f"(NCCL); loss {res['fused'][0].float().mean().item():.6f}; "
+          f"forward wall ms "
+          f"{ {k: round(v, 3) for k, v in out['fwd_ms'].items()} }, "
+          f"forward+backward wall ms "
+          f"{ {k: round(v, 3) for k, v in out['step_ms'].items()} }; "
+          f"forward all-reduces {ar}; launches {out['launches']}; fused "
+          f"== decomposed bit for bit (loss, dx, dW) {out['bitwise']} "
+          f"[{card}]")
+    if not all(out["bitwise"]):
+        return out, "vp-ce: the fused form is not the decomposed form's bits"
+    if ar != {"decomposed": 4, "fused": 2}:
+        return out, f"vp-ce: forward all-reduces {ar}, expected 4 and 2"
+    one = dict(lxent_fwd=1, lxent_dx=1, lxent_dw=1)
+    if out["launches"] != {"decomposed": one, "fused": one}:
+        return out, f"vp-ce: launches {out['launches']}"
+    del x, w, labels, res
+    torch.cuda.empty_cache()
+    return out, None
+
+
+def run_ddp(torch, ops, card, launches, steps: int = 3):
+    """ddp: GPT-2 124M (flash, fused head) at O2 on the training batch
+    (B x S tokens), ``steps`` steps through ``Amp(fused_adam(1e-4,
+    weight_decay=0.01), grad_psum_axes=("dp",))`` on the one-rank
+    data-parallel group, against the same steps without it: losses and
+    parameters bit for bit (the mean over one rank is exact). Adds the
+    DDP run's launches to ``launches``."""
+    runs = {}
+    for name, axes in (("plain", ()), ("ddp", ("dp",))):
+        ops.reset_launches()
+        _, state, step, batch = make_trainer(
+            torch, "O2", 12, SEED, use_flash=True, fuse_head=True,
+            grad_psum_axes=axes)
+        rows, peak, state = run_steps(torch, ops, state, step, batch, steps,
+                                      return_state=True)
+        if name == "ddp":
+            for kk, vv in ops.launch_counts().items():
+                launches[kk] = launches.get(kk, 0) + vv
+        runs[name] = dict(rows=rows, peak=peak, params=state.params)
+        del state, step, batch
+        torch.cuda.empty_cache()
+    same_loss = [a["loss"] == b["loss"] for a, b in
+                 zip(runs["ddp"]["rows"], runs["plain"]["rows"])]
+    same_params = all(torch.equal(runs["ddp"]["params"][k], p)
+                      for k, p in runs["plain"]["params"].items())
+    walls = {k: [round(r["wall_ms"], 2) for r in v["rows"]]
+             for k, v in runs.items()}
+    print(f"phase ddp: GPT-2 124M O2 flash fused head B={TB} S={TS}, "
+          f"{steps} steps, grad_psum_axes=('dp',) on a one-rank NCCL dp "
+          f"group vs none: losses "
+          f"{[r['loss'] for r in runs['ddp']['rows']]} equal {same_loss}, "
+          f"params bit-identical {same_params}; step walls ms {walls} "
+          f"[{card}]")
+    out = dict(rows={k: v["rows"] for k, v in runs.items()},
+               same_loss=same_loss, same_params=same_params)
+    del runs
+    torch.cuda.empty_cache()
+    if not (all(same_loss) and same_params):
+        return out, "ddp: the data-parallel steps differ from the plain ones"
+    return out, None
+
+
+def run_rdma(torch, ops, card):
+    """rdma: `matmul_reduce_scatter_rdma` on the one-rank group raises
+    its ring-size ValueError (its ring needs two ranks; its product,
+    chunk_matmul's accumulator mode, is checked in the kernels phase)."""
+    from apex1_tpu_torch.ops.fused_collective import \
+        matmul_reduce_scatter_rdma
+    from apex1_tpu_torch.transformer import parallel_state as ps
+    x = torch.zeros(256, 128, device="cuda", dtype=torch.bfloat16)
+    w = torch.zeros(128, 128, device="cuda", dtype=torch.bfloat16)
+    try:
+        matmul_reduce_scatter_rdma(x, w, ps.get_tensor_model_parallel_group())
+    except ValueError as e:
+        msg = str(e)
+    else:
+        msg = "no error"
+    ok = msg.startswith("matmul_reduce_scatter_rdma needs a ring of >= 2")
+    print(f"phase rdma: world 1 raises: {msg!r} {'ok' if ok else 'WRONG'} "
+          f"[{card}]")
+    return {"message": msg}, None if ok else f"rdma: {msg}"
+
+
 def main() -> int:
     try:
         import torch
@@ -3886,7 +4503,9 @@ def main() -> int:
             (("glu_fwd",), check_glu, cgen),
             (("bda_fwd", "bda_bwd"), check_bda, cgen),
             (("int8_mm",), check_int8_matmul, cgen),
-            (("lora_delta",), check_lora_delta, cgen)):
+            (("lora_delta",), check_lora_delta, cgen),
+            (("chunk_matmul",), check_chunk_matmul, cgen),
+            (("flash_fwd_merge",), check_flash_merge, cgen)):
         t0 = time.perf_counter()
         out = fn(torch, ops, g)
         checks.update(zip(names, out if len(names) > 1 else (out,)))
@@ -3921,6 +4540,8 @@ def main() -> int:
                          f"0.0 {r['zero_rows']}")
             if "both_ms" in r:
                 bits += f" dx+dW together ms={r['both_ms']:.4f}"
+            if "acc_ms" in r:
+                bits += f" with acc ms={r['acc_ms']:.4f}"
             if "one_ulp" in r:
                 bits += " worst/one-ulp allowance " + ", ".join(
                     f"{k} {v:.3g}" for k, v in r["one_ulp"].items())
@@ -4200,13 +4821,33 @@ def main() -> int:
         if err:
             return fail(err)
         stamp(phase)
+
+    # 27-31. the multi-GPU slice on a one-rank NCCL group: tensor and
+    # sequence parallelism, context parallelism, the vocab-parallel head,
+    # data parallelism, and the rdma form's ring-size check
+    par_out = {}
+    nccl_dir = start_nccl(torch)
+    try:
+        for phase, fn in (("tp-sp", run_tp_sp), ("cp", run_cp),
+                          ("vp-ce", run_vp_ce), ("ddp", run_ddp)):
+            par_out[phase], err = fn(torch, ops, card, main_launches)
+            if err:
+                return fail(err)
+            stamp(phase)
+        par_out["rdma"], err = run_rdma(torch, ops, card)
+        if err:
+            return fail(err)
+        stamp("rdma")
+    finally:
+        stop_nccl(nccl_dir)
     print(f"phase times: { {k: round(v, 1) for k, v in phase_s.items()} } "
           f"s wall [{card}]")
 
-    # 22. the kernels line, the card, the last line. launches: the main
+    # 27. the kernels line, the card, the last line. launches: the main
     # paths' runs (engine, the train phases, dpo, generate, train-llama,
     # serve-llama and its generate, the BERT phases, train-gpt2-dropout,
-    # train-t5, mha, train-llama-longctx, decode)
+    # train-t5, mha, train-llama-longctx, decode, decode-int8, serve-lora,
+    # tp-sp, cp, vp-ce, ddp)
     sources = {"layer_norm_fwd": ("apex1_tpu_torch/csrc/layer_norm.cu",
                                   "apex1_tpu/ops/layer_norm.py:110"),
                "paged_attend": ("apex1_tpu_torch/csrc/paged_attend.cu",
@@ -4249,7 +4890,12 @@ def main() -> int:
                "int8_mm": ("apex1_tpu_torch/csrc/int8_matmul.cu",
                            "apex1_tpu/ops/quantized.py:106"),
                "lora_delta": ("apex1_tpu_torch/csrc/lora_delta.cu",
-                              "apex1_tpu/ops/lora_epilogue.py:126")}
+                              "apex1_tpu/ops/lora_epilogue.py:126"),
+               "chunk_matmul": ("apex1_tpu_torch/csrc/chunk_matmul.cu",
+                                "apex1_tpu/ops/fused_collective.py:158, "
+                                ":177, :883"),
+               "flash_fwd_merge": ("apex1_tpu_torch/csrc/flash_attn.cu",
+                                   "apex1_tpu/ops/fused_collective.py:496")}
     kernels = []
     for name, rows in checks.items():
         main_row = next(r for r in rows if r["main"])
@@ -4270,7 +4916,7 @@ def main() -> int:
                    "train": train_out, "train_parity": par,
                    "dpo": dpo_out, "generate": gen_out, "llama": llama_out,
                    "bert": bert_out, "t5": t5_out, "decode": dec_out,
-                   "phase_s": phase_s},
+                   "parallel": par_out, "phase_s": phase_s},
                   f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -274,8 +274,10 @@ def test_max_grad_norm_clips_like_jax(tiny):
 
 
 def test_amp_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        Amp(fused_adam(), grad_psum_axes=("dp",))
+    # grad_psum_axes is ported (tests/test_torch_ddp.py holds it
+    # against JAX's shard_map steps): accepted, not refused
+    assert Amp(fused_adam(), grad_psum_axes=("dp",)).grad_psum_axes == \
+        ("dp",)
     with pytest.raises(NotImplementedError, match="item 5"):
         Amp(fused_adam(), num_losses=2)
     with pytest.raises(NotImplementedError, match="item 5"):

@@ -863,3 +863,151 @@ def test_lora_delta_kernel_matches_plain(cuda, name):
     for n in range(h.shape[0]):
         assert torch.equal(lora_delta(h[n:n + 1], a, b, bt[n:n + 1])[0],
                            got[n]), n
+
+
+# ---- the multi-GPU slice's kernels --------------------------------------
+
+#: chunk_matmul cases: (leading dims of rows, K, N): the tensor-parallel
+#: rank's chunk, an (S, mb, hid) operand, ragged M, N and K, one element
+_CHUNK = {"aligned": ((256,), 96, 128), "tp_chunk": ((1024,), 2048, 1024),
+          "rank3": ((64, 3), 64, 72), "ragged": ((37,), 29, 50),
+          "one": ((1,), 1, 1)}
+
+
+@pytest.mark.parametrize("name", list(_CHUNK))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_chunk_matmul_kernel_matches_plain(cuda, dtype, name):
+    """The fp32 rounding bound against ``torch.matmul`` of the widened
+    operands; the same bits twice; with an accumulator, equal to
+    ``acc + chunk_matmul(rows, w)`` bit for bit."""
+    from apex1_tpu_torch.ops.fused_collective import chunk_matmul
+    lead, K, N = _CHUNK[name]
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(K * 31 + N)
+    rows = torch.randn(*lead, K, generator=g, device=cuda).to(dt)
+    w = torch.randn(K, N, generator=g, device=cuda).to(dt)
+    acc = torch.randn(*lead, N, generator=g, device=cuda)
+    got, want = _both(lambda: chunk_matmul(rows, w))
+    with force_impl("torch"):
+        absprod = chunk_matmul(rows.abs(), w.abs())
+    assert got.dtype == torch.float32 and got.shape == tuple(lead) + (N,)
+    assert _int8_bound(got, want, absprod) <= 1
+    assert torch.equal(chunk_matmul(rows, w), got)
+    assert torch.equal(chunk_matmul(rows, w, acc), acc + got)
+
+
+#: flash_fwd_merge cases: (B, Hq, Hkv, Sq, Sk, D, causal, segments,
+#: q_off, k_off): a ring step off the diagonal, on it, segments, GQA
+_MERGE = {"offdiag": (1, 4, 4, 128, 128, 64, True, False, 256, 0),
+          "diag": (1, 8, 2, 160, 160, 64, True, False, 160, 160),
+          "segments": (2, 4, 4, 96, 96, 64, False, True, 0, 0),
+          "d128_gqa": (1, 4, 1, 64, 100, 128, True, False, 100, 64)}
+
+
+@pytest.mark.parametrize("name", list(_MERGE))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_flash_fwd_merge_kernel_matches_plain(cuda, dtype, name):
+    """The merge epilogue against `flash_fwd`'s plain version followed by
+    `merge_partials`, with a carried (out, lse) (NEG_INF in some rows);
+    out at the operand type's tolerance (its shard part is rounded to
+    it), lse at f32's; the same bits twice."""
+    from apex1_tpu_torch.ops.attention import flash_fwd_merge
+    B, Hq, Hkv, Sq, Sk, D, causal, seg, q_off, k_off = _MERGE[name]
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(Sq + Sk)
+
+    def t(*shape):
+        return torch.randn(*shape, generator=g, device=cuda)
+
+    q, k, v = t(B, Hq, Sq, D).to(dt), t(B, Hkv, Sk, D).to(dt), \
+        t(B, Hkv, Sk, D).to(dt)
+    po, plse = t(B, Hq, Sq, D), t(B, Hq, Sq) * 3
+    plse[..., :5] = -1e30
+    qseg = kseg = None
+    if seg:
+        qseg = torch.sort(torch.randint(0, 3, (B, Sq), generator=g,
+                                        device=cuda), dim=1)[0].int()
+        kseg = qseg
+    args = (q, k, v, qseg, kseg, D ** -0.5, causal, q_off, k_off, po, plse)
+    (out, lse), (wout, wlse) = _both(lambda: flash_fwd_merge(*args))
+    assert out.dtype == lse.dtype == torch.float32
+    _close(out, wout, dt)
+    _close(lse, wlse, torch.float32)
+    out2, lse2 = flash_fwd_merge(*args)
+    assert torch.equal(out2, out) and torch.equal(lse2, lse)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_flash_dkv_fp32_output(cuda, dtype):
+    """dk/dv stored in fp32 (the ring backward's partials): the plain
+    version's at the operand type's tolerance, and rounded to the
+    operand type equal to the default output bit for bit."""
+    from apex1_tpu_torch.ops.attention import flash_dkv, flash_fwd
+    dt = getattr(torch, dtype)
+    q, k, v, do, dlse, qseg, kseg, args = _flash_inputs("gqa", dt, cuda)
+    with force_impl("torch"):
+        out, lse = flash_fwd(q, k, v, qseg, kseg, *args)
+    delta = (do.float() * out.float()).sum(-1)
+    bwd = (q, k, v, do, lse, delta, dlse, qseg, kseg, *args)
+    (dk, dv), (wdk, wdv) = _both(
+        lambda: flash_dkv(*bwd, out_dtype=torch.float32))
+    assert dk.dtype == dv.dtype == torch.float32
+    _close(dk, wdk, dt)
+    _close(dv, wdv, dt)
+    dk_t, dv_t = flash_dkv(*bwd)
+    assert torch.equal(dk.to(dt), dk_t) and torch.equal(dv.to(dt), dv_t)
+
+
+@pytest.fixture()
+def nccl_world(cuda, tmp_path):
+    """A one-rank NCCL process group and the mesh over it."""
+    import torch.distributed as dist
+    from apex1_tpu_torch.parallel import init_distributed
+    from apex1_tpu_torch.transformer import parallel_state as ps
+    init_distributed("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                     world_size=1)
+    try:
+        yield ps.initialize_model_parallel(1)
+    finally:
+        ps.destroy_model_parallel()
+        dist.destroy_process_group()
+
+
+def test_one_rank_nccl_fused_paths(nccl_world):
+    """`fused_all_gather_matmul` and `all_gather_flash_attention` on a
+    one-rank NCCL group: forward and backward through the kernels
+    (chunk_matmul twice, the merge flash once, dq and dk/dv once), equal
+    to their plain versions within the kernels' tolerances; the dW
+    re-gather goes through NCCL."""
+    from apex1_tpu_torch.ops import KERNEL_WRAPPERS
+    from apex1_tpu_torch.ops import fused_collective as fc
+    from apex1_tpu_torch.transformer import parallel_state as ps
+    from apex1_tpu_torch.transformer.tensor_parallel import mappings
+    group = ps.get_tensor_model_parallel_group()
+    g = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn(256, 128, generator=g, device="cuda").to(torch.bfloat16)
+    w = torch.randn(128, 192, generator=g, device="cuda").to(torch.bfloat16)
+    names = ("chunk_matmul", "flash_fwd_merge", "flash_dq", "flash_dkv")
+
+    def run():
+        before = {n: KERNEL_WRAPPERS[n].launches for n in names}
+        mappings.reset_collectives()
+        xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = fc.fused_all_gather_matmul(xs, ws, group)
+        y.backward(torch.ones_like(y))
+        q = x.view(1, 4, 64, 128)[..., :64].contiguous().requires_grad_()
+        o = fc.all_gather_flash_attention(q, q, q, group, causal=True)
+        o.float().sum().backward()
+        torch.cuda.synchronize()
+        counts = {n: KERNEL_WRAPPERS[n].launches - before[n] for n in names}
+        return (y, xs.grad, ws.grad, o, q.grad), counts, \
+            mappings.collective_counts()
+
+    got, counts, coll = run()
+    with force_impl("torch"):
+        want, _, _ = run()
+    assert counts == dict(chunk_matmul=2, flash_fwd_merge=1, flash_dq=1,
+                          flash_dkv=1)
+    assert coll["all_gather"] == 1
+    for a, b in zip(got, want):
+        _close(a, b, torch.bfloat16)
