@@ -23,9 +23,11 @@
 // The bias is fp32 (Bb, Hb, Sq, Sk), Bb in {1, B}, Hb in {1, Hq}, read
 // through broadcast strides (0 along a size-1 dimension) and added to the
 // scaled score of every kernel before the mask: s·scale and + bias are
-// rounded apart, in a pass of the whole block over the fp32 score tile
-// (coalesced rows). A null bias skips that pass. The causal tile skip
-// stays exact: a bias never makes a masked position valid.
+// rounded apart. The wgmma kernels stage the bias tile with their K/V or
+// Q/dO tile and add it in registers; dq and dbias in a pass of the whole
+// block over the fp32 score tile (coalesced rows). A null bias skips it.
+// The causal tile skip stays exact: a bias never makes a masked position
+// valid.
 //
 // Valid means: row < Sq, col < Sk, causal ⇒ col + k_off <= row + q_off,
 // segments ⇒ qseg[row] == kseg[col]. A ragged Sq or Sk edge is masked
@@ -39,10 +41,12 @@
 //   dq:       dp = keep ? dp·inv : 0 before ds = p·(dp - δ + dlse)·scale
 //   dk, dv:   dv takes keep ? p·inv : 0 (rounded to dO's type), ds as dq
 // Forward and backward evaluate the mask at the same positions, so no
-// mask is stored. Each thread owns one score row, so its row key is
-// formed once a tile and an element costs one mix32. p == 0 launches
+// mask is stored. A row's key is formed once (the wgmma forward: a
+// thread's two rows once a kernel; dk/dv: a q tile's 64 staged with it;
+// dq, dbias: once a tile), so an element costs one mix32. p == 0 launches
 // the kernels without the dropout code (template DROP), as before. The
-// kernels live in flash_attn.cuh; this file holds the entry points and
+// kernels live in flash_attn.cuh and flash_wg.cuh; this file holds the
+// entry points and
 // the variants without dropout, flash_attn_dropout.cu the variants with
 // it (two translation units, which nvcc compiles in parallel).
 //
@@ -57,24 +61,25 @@
 // 100 MB of operands, far above the card's ~295 flop/byte ridge.
 //
 // Design. The TPU kernels walk the key axis as the innermost, sequential
-// grid axis and carry (m, l, acc) in VMEM scratch. Here one block of 128
-// threads owns a whole output tile and loops over the other axis itself:
-// - forward and dq: one block per (b, h, 64-row q tile), looping over key
-//   tiles; a causal loop stops at the diagonal tile (the TPU's skip test
+// grid axis and carry (m, l, acc) in VMEM scratch. Here one block owns a
+// whole output tile and loops over the other axis itself:
+// - forward and dq: one block per (b, h, q tile), looping over key tiles;
+//   a causal loop stops at the diagonal tile (the TPU's skip test
 //   ki·bk + k_off <= qi·bq + bq - 1 + q_off);
-// - dk/dv: one block per (b, kv head, 64-row key tile), looping over the
-//   group's q heads and over the q tiles from the diagonal on; the group
-//   sum stays in the block's accumulators, as the TPU kernel keeps it in
+// - dk/dv: one block per (b, kv head, key tile), looping over the group's
+//   q heads and over the q tiles from the diagonal on; the group sum
+//   stays in the block's accumulators, as the TPU kernel keeps it in
 //   scratch. No atomics anywhere: two runs give the same bits.
-// Tiles are staged in shared memory. bf16/fp16 products run on the
-// tensor cores through WMMA 16x16x16 fragments with fp32 accumulation
-// (each of the four warps owns a 16-row strip of the output tile);
-// fp32 runs as plain FMA on the CUDA cores (no TF32) with 32-row tiles.
-// The score tile goes through shared memory in fp32 for the softmax and
-// masking, done by 128 / rows threads per row. The head dimension is
-// padded with zeros in shared memory to 64 or 128.
-// This first version favours being right: no cp.async/TMA pipelining, no
-// wgmma, no warp specialisation.
+// bf16/fp16 forward (with the merge epilogue) and dk/dv: wgmma on
+// register-resident fp32 accumulators, fed by a cp.async ring of
+// 128B-swizzled shared tiles (flash_wg.cuh, which says how). dq and dbias
+// in bf16/fp16: 128 threads staging every tile in shared memory, WMMA
+// 16x16x16 products with fp32 accumulation (each of the four warps owns a
+// 16-row strip), the fp32 score tile through shared memory for the
+// softmax and masking, done by 128 / rows threads per row. fp32, all four:
+// the same staging with plain FMA on the CUDA cores (no TF32) and 32-row
+// tiles. The head dimension is padded with zeros in shared memory to 64
+// or 128. Not yet: wgmma for dq and dbias, TMA, warp specialisation.
 
 #include "flash_attn.cuh"
 

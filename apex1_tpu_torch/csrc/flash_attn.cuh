@@ -683,22 +683,24 @@ __global__ void __launch_bounds__(kThreads)
 
 enum Which { kFwd = 0, kDq = 1, kDkv = 2, kDbias = 3 };
 
+#include "flash_wg.cuh"
+
+// bf16/fp16: the forward and dk/dv on wgmma (flash_wg.cuh), dq and dbias
+// here; fp32: all four here
 template <typename T, int DP, bool DROP>
 static int launch(int which, const FlashArgs& a, cudaStream_t st) {
   using G = Geom<T, DP>;
   static bool attr_set[4] = {false, false, false, false};
-  void (*kern)(const FlashArgs);
-  size_t smem;
-  unsigned tiles;
-  unsigned heads;
-  if (which == kFwd) {
+  void (*kern)(const FlashArgs) = nullptr;
+  size_t smem = 0;
+  unsigned tiles = 0;
+  unsigned heads = 0;
+  if constexpr (!std::is_same<T, float>::value) {
+    if (which == kFwd || which == kDkv)
+      return launch_wg<T, DP, DROP>(which, a, st);
+  } else if (which == kFwd) {
     kern = flash_fwd_kernel<T, DP, DROP>;
     smem = G::FWD;
-    tiles = (a.Sq + G::BT - 1) / G::BT;
-    heads = a.Hq;
-  } else if (which == kDq) {
-    kern = flash_dq_kernel<T, DP, DROP>;
-    smem = G::DQ;
     tiles = (a.Sq + G::BT - 1) / G::BT;
     heads = a.Hq;
   } else if (which == kDkv) {
@@ -706,7 +708,13 @@ static int launch(int which, const FlashArgs& a, cudaStream_t st) {
     smem = G::DKV;
     tiles = (a.Sk + G::BT - 1) / G::BT;
     heads = a.Hkv;
-  } else {
+  }
+  if (which == kDq) {
+    kern = flash_dq_kernel<T, DP, DROP>;
+    smem = G::DQ;
+    tiles = (a.Sq + G::BT - 1) / G::BT;
+    heads = a.Hq;
+  } else if (which == kDbias) {
     kern = flash_dbias_kernel<T, DP, DROP>;
     smem = G::DB;
     tiles = ((a.Sq + G::BT - 1) / G::BT) * ((a.Sk + G::BT - 1) / G::BT);

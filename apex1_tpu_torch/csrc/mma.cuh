@@ -1,7 +1,8 @@
 // Tensor-core building blocks shared by the port's product kernels
 // (linear_xent.cu, glu.cu): cp.async copies, ldmatrix, mma.sync m16n8k16
 // with fp32 accumulation, and a block-level tiled product (`Gemm`) whose
-// accumulators stay in registers for the caller's epilogue.
+// accumulators stay in registers for the caller's epilogue. wgmma.cuh
+// takes its cp.async copies and paired stores from here.
 #pragma once
 
 #include "common.cuh"

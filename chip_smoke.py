@@ -9,6 +9,18 @@
                                      # and on; bert_large; t5) and the
                                      # decode slice's token steps
                                      # (decode-int8, serve-lora)
+    python3 chip_smoke.py --compare TREE
+                                     # build, then time the flash
+                                     # kernels against those of TREE (a
+                                     # checkout of another commit) in
+                                     # turns on the same inputs
+    python3 chip_smoke.py --gate-sweep [kernels] [plain]
+                                     # build, then train bert_large at
+                                     # O2 for GATE_STEPS steps at each
+                                     # seed of GATE_SEEDS on each path
+                                     # (both by default) and print the
+                                     # loss-fell gate's smallest safe
+                                     # step count N
 
 Phases, each printed on its own line; a failure in any exits non-zero:
 
@@ -173,8 +185,10 @@ Phases, each printed on its own line; a failure in any exits non-zero:
    MLM labels -1 outside a 15 % draw, NSP labels): ``bert_dropout``
    (BERT-base, 8 x 512, dropout 0.1 from an int base seed), ``bert``,
    ``bert_large`` (24 layers, 1024 wide, 4 x 512) and ``bert_dropout``
-   on a padded batch (``attention_mask``), 6 steps each (the first
-   Adam steps at lr 1e-4 can raise the loss before it falls). Each
+   on a padded batch (``attention_mask``), 6 steps each, 8 for
+   ``bert_large`` (the first Adam steps at lr 1e-4 can raise the loss
+   before it falls; ``--gate-sweep`` finds 8 the smallest count from
+   which bert_large's gate holds at eight seeds on both paths). Each
    prints tokens/s beside the bench's A100 proxy, device ms a step (3
    more steps under torch.profiler) and peak memory; losses finite, the
    loss falling, and every step launching exactly `bert_launches` (LN
@@ -1150,6 +1164,37 @@ def sdpa_bias_ms(torch, q, k, v, bias, qseg, kseg, causal, p, do):
     return (*out, "; ".join(why) or None)
 
 
+def flash_case(torch, entry, gen):
+    """The operands of a `FLASH_CASES` entry drawn from ``gen``: (D,
+    options, dropout p, dtype, q, k, v, dout, dlse, qseg, kseg, the
+    kernels' positional arguments after q, k, v, the bias, its keyword
+    arguments)."""
+    (_, B, Hq, Hkv, Sq, Sk, dts, causal, segs, q_off, k_off, with_dlse,
+     _, *extra) = entry
+    opts = next((e for e in extra if isinstance(e, dict)), {})
+    D = next((e for e in extra if isinstance(e, int)), TH // THEADS)
+    p = opts.get("p", 0.0)
+    dt = getattr(torch, dts)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+    q, k, v, do = rnd(B, Hq, Sq, D), rnd(B, Hkv, Sk, D), \
+        rnd(B, Hkv, Sk, D), rnd(B, Hq, Sq, D)
+    dlse = (torch.randn((B, Hq, Sq), generator=gen, device="cuda")
+            if with_dlse else None)
+    qseg = kseg = None
+    if segs:
+        ids = (padding_segments if segs == "padding" else doc_segments)(
+            B, Sq, SEED)
+        qseg = kseg = torch.from_numpy(ids).cuda()
+    args = (qseg, kseg, 1.0 / math.sqrt(D), causal, q_off, k_off) + (
+        (p, DROP_SEED) if p else ())
+    bias = flash_bias(torch, opts.get("bias"), B, Hq, Sq, Sk, gen)
+    kw = {} if bias is None else dict(bias=bias)
+    return D, opts, p, dt, q, k, v, do, dlse, qseg, kseg, args, bias, kw
+
+
 def check_flash(torch, ops, gen):
     """Kernels 3-6 (flash forward, dq, dk/dv and dbias) against their
     plain versions: out and lse from the forward; dq and dk/dv from the
@@ -1166,29 +1211,11 @@ def check_flash(torch, ops, gen):
                                                flash_fwd)
     fwd, dq_rows, dkv_rows, db_rows = [], [], [], []
     witness = None
-    for (case, B, Hq, Hkv, Sq, Sk, dts, causal, segs, q_off, k_off, with_dlse,
-         main, *extra) in FLASH_CASES:
-        opts = next((e for e in extra if isinstance(e, dict)), {})
-        D = next((e for e in extra if isinstance(e, int)), TH // THEADS)
-        p = opts.get("p", 0.0)
-        dt = getattr(torch, dts)
-
-        def rnd(*shape):
-            return torch.randn(shape, generator=gen, device="cuda").to(dt)
-
-        q, k, v, do = rnd(B, Hq, Sq, D), rnd(B, Hkv, Sk, D), \
-            rnd(B, Hkv, Sk, D), rnd(B, Hq, Sq, D)
-        dlse = (torch.randn((B, Hq, Sq), generator=gen, device="cuda")
-                if with_dlse else None)
-        qseg = kseg = None
-        if segs:
-            ids = (padding_segments if segs == "padding" else doc_segments)(
-                B, Sq, SEED)
-            qseg = kseg = torch.from_numpy(ids).cuda()
-        args = (qseg, kseg, 1.0 / math.sqrt(D), causal, q_off, k_off) + (
-            (p, DROP_SEED) if p else ())
-        bias = flash_bias(torch, opts.get("bias"), B, Hq, Sq, Sk, gen)
-        kw = {} if bias is None else dict(bias=bias)
+    for entry in FLASH_CASES:
+        (case, B, Hq, Hkv, Sq, Sk, dts, causal, segs, q_off, k_off,
+         with_dlse, main, *extra) = entry
+        (D, opts, p, dt, q, k, v, do, dlse, qseg, kseg, args, bias,
+         kw) = flash_case(torch, entry, gen)
         tol = TOLS[dts]
 
         def run_f(vv=None):
@@ -1903,6 +1930,8 @@ MERGE_CASES = [
 ]
 #: query rows a piece of the plain version (its scores are materialized)
 MERGE_PLAIN_ROWS = 2048
+#: the merge cases' head dim (`llama_longctx`'s)
+MERGE_D = 64
 
 
 def merge_plain(torch, ops, fn, q, qoff, prev_out, prev_lse, *rest):
@@ -1924,6 +1953,27 @@ def merge_plain(torch, ops, fn, q, qoff, prev_out, prev_lse, *rest):
     return torch.cat(outs, dim=2), torch.cat(lses, dim=2)
 
 
+def merge_case(torch, entry, gen):
+    """The operands of a `MERGE_CASES` entry drawn from ``gen``: q, k, v,
+    the carried fp32 (out, lse) (NEG_INF in the first rows: nothing
+    carried yet), qseg, kseg and the softmax scale."""
+    (_, B, Hq, Hkv, S, dts, _, segs, _, _, _) = entry
+    dt, D = getattr(torch, dts), MERGE_D
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    q, k, v = rnd(B, Hq, S, D).to(dt), rnd(B, Hkv, S, D).to(dt), \
+        rnd(B, Hkv, S, D).to(dt)
+    po, plse = rnd(B, Hq, S, D) * 0.5, rnd(B, Hq, S) * 2 + 4
+    plse[..., :7] = -1e30
+    po[..., :7, :] = 0
+    qseg = kseg = None
+    if segs:
+        qseg = kseg = torch.from_numpy(doc_segments(B, S, SEED)).cuda()
+    return q, k, v, po, plse, qseg, kseg, 1.0 / math.sqrt(D)
+
+
 def check_flash_merge(torch, ops, gen):
     """Kernel 26 (the flash forward's merge epilogue) against its plain
     version, `flash_fwd`'s followed by `merge_partials`, with a carried
@@ -1940,23 +1990,10 @@ def check_flash_merge(torch, ops, gen):
                                                flash_fwd_merge,
                                                merge_partials)
     results = []
-    for (case, B, Hq, Hkv, S, dts, causal, segs, q_off, k_off,
-         main) in MERGE_CASES:
-        dt = getattr(torch, dts)
-        D = 64
-
-        def rnd(*shape):
-            return torch.randn(shape, generator=gen, device="cuda")
-
-        q, k, v = rnd(B, Hq, S, D).to(dt), rnd(B, Hkv, S, D).to(dt), \
-            rnd(B, Hkv, S, D).to(dt)
-        po, plse = rnd(B, Hq, S, D) * 0.5, rnd(B, Hq, S) * 2 + 4
-        plse[..., :7] = -1e30
-        po[..., :7, :] = 0
-        qseg = kseg = None
-        if segs:
-            qseg = kseg = torch.from_numpy(doc_segments(B, S, SEED)).cuda()
-        scale = 1.0 / math.sqrt(D)
+    for entry in MERGE_CASES:
+        (case, B, Hq, Hkv, S, dts, causal, segs, q_off, k_off, main) = entry
+        dt, D = getattr(torch, dts), MERGE_D
+        q, k, v, po, plse, qseg, kseg, scale = merge_case(torch, entry, gen)
 
         def run():
             return flash_fwd_merge(q, k, v, qseg, kseg, scale, causal,
@@ -2022,6 +2059,114 @@ def check_flash_merge(torch, ops, gen):
         del q, k, v, po, plse, out, lse, out2, lse2, wout, wlse
         torch.cuda.empty_cache()
     return results
+
+
+# ---- --compare: the flash kernels against another tree's ----------------
+
+#: the cases `--compare` times (`FLASH_CASES` and `MERGE_CASES` names)
+COMPARE_FLASH = ("GPT-2 causal", "Llama GQA 32/8 causal",
+                 "BERT padding, p=0", "T5 encoder, rel-pos bias")
+COMPARE_MERGE = ("world 1", "cp=8 step, off the diagonal",
+                 "cp=8 step, diagonal")
+
+
+def other_library(tree: str):
+    """The kernel library of the checkout at ``tree``, built by its own
+    `_build` in a subprocess and loaded with this tree's flash entry
+    points' signatures (unchanged between the two). Returns (library,
+    build seconds)."""
+    import ctypes
+    from apex1_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "from apex1_tpu_torch.ops import _build; print(_build.build())")
+    out = subprocess.run([sys.executable, "-c", code, tree], cwd=tree,
+                         capture_output=True, text=True, timeout=900)
+    if out.returncode != 0:
+        raise RuntimeError(f"building {tree} failed:\n{out.stdout[-3000:]}"
+                           f"{out.stderr[-3000:]}")
+    lib = ctypes.CDLL(out.stdout.strip().splitlines()[-1])
+    for name, argtypes in _build.SIGNATURES.items():
+        if name.startswith("apex1_flash"):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def kernels_of(lib):
+    """Route the wrappers' launches to ``lib`` (None: this tree's)."""
+    from apex1_tpu_torch.ops import _build
+    prev = _build._STATE["lib"]
+    if lib is not None:
+        _build._STATE["lib"] = lib
+    try:
+        yield
+    finally:
+        _build._STATE["lib"] = prev
+
+
+def ab_ms(fn, other):
+    """Device ms of ``fn`` through ``other``'s kernels and this tree's,
+    timed in turns (other, this, this, other; CUDA events around 10
+    calls each): (other's, this tree's), each the smaller of its two."""
+    times = {"other": [], "this": []}
+    for who in ("other", "this", "this", "other"):
+        with kernels_of(other if who == "other" else None):
+            times[who].append(event_ms(fn))
+    return min(times["other"]), min(times["this"])
+
+
+def compare_flash(torch, ops, card, tree: str) -> int:
+    """``--compare TREE``: the flash forward, dq and dk/dv at
+    `COMPARE_FLASH`'s cases and the merge forward at `COMPARE_MERGE`'s,
+    through TREE's kernels (a checkout of another commit, built here)
+    and this tree's, in turns on the same inputs (`ab_ms`); prints a
+    line per kernel and case and writes ``chiprun_out/compare.json``."""
+    from apex1_tpu_torch.ops.attention import (flash_dkv, flash_dq,
+                                               flash_fwd, flash_fwd_merge)
+    other, secs = other_library(tree)
+    print(f"phase compare: built {tree} in {secs:.1f} s [{card}]")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    for entry in FLASH_CASES:
+        if entry[0] not in COMPARE_FLASH:
+            continue
+        (D, _, _, _, q, k, v, do, dlse, _, _, args, bias,
+         kw) = flash_case(torch, entry, gen)
+        out, lse = flash_fwd(q, k, v, *args, **kw)
+        delta = (do.float() * out.float()).sum(-1)
+        bwd = (q, k, v, do, lse, delta, dlse, *args)
+        for name, fn in (
+                ("flash_fwd", lambda: flash_fwd(q, k, v, *args, **kw)),
+                ("flash_dq", lambda: flash_dq(*bwd, **kw)),
+                ("flash_dkv", lambda: flash_dkv(*bwd, **kw))):
+            was, now = ab_ms(fn, other)
+            rows.append(dict(kernel=name, case=entry[0], other_ms=was,
+                             ms=now, speedup=was / now))
+        del q, k, v, do, out, lse, delta, bwd, bias, kw
+        torch.cuda.empty_cache()
+    for entry in MERGE_CASES:
+        if entry[0] not in COMPARE_MERGE:
+            continue
+        q, k, v, po, plse, qseg, kseg, scale = merge_case(torch, entry, gen)
+        causal, q_off, k_off = entry[6], entry[8], entry[9]
+        was, now = ab_ms(lambda: flash_fwd_merge(
+            q, k, v, qseg, kseg, scale, causal, q_off, k_off, po, plse),
+            other)
+        rows.append(dict(kernel="flash_fwd_merge", case=entry[0],
+                         other_ms=was, ms=now, speedup=was / now))
+        del q, k, v, po, plse
+        torch.cuda.empty_cache()
+    for r in rows:
+        print(f"phase compare: {r['kernel']} [{r['case']}] {tree} "
+              f"ms={r['other_ms']:.4f} this tree ms={r['ms']:.4f} "
+              f"speedup {r['speedup']:.2f}x [{card}]")
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "compare.json"), "w") as f:
+        json.dump({"card": card, "other": tree, "rows": rows}, f, indent=1)
+    return 0
 
 
 # ---- phases 3 and 4: the engine -----------------------------------------
@@ -2935,6 +3080,13 @@ BERT_RUNS = {
     "bert_large": dict(large=True, B=4, dropout=0.0, proxy=57_500.0),
 }
 BERT_S = 512
+#: train-bert-large's O2 steps: the smallest count >= 6 at which the
+#: loss-fell gate (last loss below the first) holds at every seed of
+#: GATE_SEEDS for every count up to GATE_STEPS, on the kernels and on
+#: the plain path (``--gate-sweep``; PERF.md holds the sweep's table)
+BERT_LARGE_STEPS = 8
+GATE_SEEDS = tuple(range(1234, 1242))
+GATE_STEPS = 30
 #: train-bert-parity: depth (full BERT-base width), batch rows, learning
 #: rate (Llama's parity showed a depth-2 model memorizing its one batch
 #: at 1e-4, after which 1e-5 loss comparisons read rounding)
@@ -3074,6 +3226,58 @@ def run_bert_phase(torch, ops, card, phase: str, bench: str, levels,
                                  f"{per_step}")
         torch.cuda.empty_cache()
     return results, None
+
+
+def gate_sweep(torch, ops, card, paths) -> int:
+    """``--gate-sweep``: train `bert_large` at O2 for GATE_STEPS steps
+    at every seed of GATE_SEEDS through each of ``paths`` ("kernels",
+    and "plain": ``ops.force_impl("torch")``); print each run's losses,
+    the counts n at which its gate ``losses[n-1] < losses[0]`` fails,
+    and N: the smallest count >= 6 from which the gate holds in every
+    run up to GATE_STEPS. Non-zero when a kernel run fails the gate at
+    a count from BERT_LARGE_STEPS on."""
+    run = BERT_RUNS["bert_large"]
+    runs = {}
+    for path in paths:
+        for seed in GATE_SEEDS:
+            ctx = (ops.force_impl("torch") if path == "plain"
+                   else contextlib.nullcontext())
+            t0 = time.perf_counter()
+            with ctx:
+                _, state, step, batch = make_bert_trainer(
+                    torch, "O2", True, seed, B=run["B"],
+                    dropout=run["dropout"])
+                losses = []
+                for _ in range(GATE_STEPS):
+                    state, m = step(state, *batch)
+                    losses.append(m["loss"].item())
+            del state, step, batch
+            torch.cuda.empty_cache()
+            fails = [n for n in range(2, GATE_STEPS + 1)
+                     if not losses[n - 1] < losses[0]]
+            runs[(path, seed)] = losses
+            print(f"phase gate-sweep: bert_large O2 {path} seed {seed} "
+                  f"losses {[round(v, 6) for v in losses]} gate fails at "
+                  f"counts {fails} ({time.perf_counter() - t0:.1f} s) "
+                  f"[{card}]")
+
+    def smallest_n(keys):
+        n = GATE_STEPS + 1
+        while n - 1 >= 6 and all(runs[k][n - 2] < runs[k][0] for k in keys):
+            n -= 1
+        return n if n <= GATE_STEPS else None
+
+    per_path = {p: smallest_n([k for k in runs if k[0] == p]) for p in paths}
+    print(f"phase gate-sweep: N over all {len(runs)} runs "
+          f"{smallest_n(list(runs))}, per path {per_path}; "
+          f"train-bert-large runs {BERT_LARGE_STEPS} steps [{card}]")
+    bad = [k for k in runs if k[0] == "kernels"
+           and any(not runs[k][n - 1] < runs[k][0]
+                   for n in range(BERT_LARGE_STEPS, GATE_STEPS + 1))]
+    if bad:
+        return fail(f"gate-sweep: the kernels fail the gate at a count "
+                    f">= {BERT_LARGE_STEPS} at seeds {[k[1] for k in bad]}")
+    return 0
 
 
 def run_bert_parity(torch, ops, card):
@@ -4466,6 +4670,14 @@ def main() -> int:
                 or "spill" in line):
             print(f"  ptxas: {line.strip()}")
 
+    if "--compare" in sys.argv[1:]:
+        return compare_flash(torch, ops, card,
+                             sys.argv[sys.argv.index("--compare") + 1])
+
+    if "--gate-sweep" in sys.argv[1:]:
+        paths = [p for p in ("kernels", "plain") if p in sys.argv[1:]]
+        return gate_sweep(torch, ops, card, paths or ["kernels", "plain"])
+
     if "--profile" in sys.argv[1:]:
         prof = {"decode": profile_decode(torch),
                 "train": profile_train(torch, use_flash=False),
@@ -4759,7 +4971,8 @@ def main() -> int:
     for phase, bench, levels, padded in (
             ("train-bert-dropout", "bert_dropout", (("O2", 6),), False),
             ("train-bert", "bert", (("O2", 6),), False),
-            ("train-bert-large", "bert_large", (("O2", 6),), False),
+            ("train-bert-large", "bert_large", (("O2", BERT_LARGE_STEPS),),
+             False),
             ("train-bert-padded", "bert_dropout", (("O2", 6),), True)):
         bert_out[phase], err = run_bert_phase(
             torch, ops, card, phase, bench, levels, main_launches,
@@ -4864,11 +5077,11 @@ def main() -> int:
                             "apex1_tpu/ops/xentropy.py:88"),
                "xent_bwd": ("apex1_tpu_torch/csrc/xentropy.cu",
                             "apex1_tpu/ops/xentropy.py:114"),
-               "flash_fwd": ("apex1_tpu_torch/csrc/flash_attn.cu",
+               "flash_fwd": ("apex1_tpu_torch/csrc/flash_wg.cuh",
                              "apex1_tpu/ops/attention.py:584"),
                "flash_dq": ("apex1_tpu_torch/csrc/flash_attn.cu",
                             "apex1_tpu/ops/attention.py:689"),
-               "flash_dkv": ("apex1_tpu_torch/csrc/flash_attn.cu",
+               "flash_dkv": ("apex1_tpu_torch/csrc/flash_wg.cuh",
                              "apex1_tpu/ops/attention.py:717"),
                "flash_dbias": ("apex1_tpu_torch/csrc/flash_attn.cu",
                                "apex1_tpu/ops/attention.py:780"),
@@ -4894,7 +5107,7 @@ def main() -> int:
                "chunk_matmul": ("apex1_tpu_torch/csrc/chunk_matmul.cu",
                                 "apex1_tpu/ops/fused_collective.py:158, "
                                 ":177, :883"),
-               "flash_fwd_merge": ("apex1_tpu_torch/csrc/flash_attn.cu",
+               "flash_fwd_merge": ("apex1_tpu_torch/csrc/flash_wg.cuh",
                                    "apex1_tpu/ops/fused_collective.py:496")}
     kernels = []
     for name, rows in checks.items():

@@ -958,6 +958,158 @@ def test_flash_dkv_fp32_output(cuda, dtype):
     assert torch.equal(dk.to(dt), dk_t) and torch.equal(dv.to(dt), dv_t)
 
 
+# ---- the flash forward and dk/dv on wgmma: the tiles' edges -------------
+
+#: name -> (B, Hq, Hkv, Sq, Sk, D, causal, segments, q_off, k_off, dlse,
+#: bias (Bb, Hb) or None, dropout p): Sq and Sk one below and above
+#: multiples of 64 and 128 (the forward's 64-row blocks and 64-key
+#: tiles, dk/dv's 64-key blocks and 64-row q tiles), causal diagonals
+#: that cross a tile mid-way, GQA 4/1 at D 128, a -1 segment tail, a
+#: (B, Hq) bias and dropout with offsets
+_EDGES = {
+    "sq63_sk65": (2, 4, 4, 63, 65, 64, False, None, 0, 0, False, None, 0.0),
+    "sq65_sk127_causal": (1, 4, 2, 65, 127, 64, True, None, 62, 0, False,
+                          None, 0.0),
+    "sq129_sk63_d128": (1, 2, 2, 129, 63, 128, False, None, 0, 0, True,
+                        None, 0.0),
+    "sq127_sk129_d128_causal": (1, 4, 4, 127, 129, 128, True, None, 2, 0,
+                                False, None, 0.0),
+    "diagonal_mid_tile": (2, 4, 4, 192, 230, 64, True, None, 37, 5, False,
+                          None, 0.0),
+    "keys_ahead_empty_rows": (1, 4, 4, 150, 250, 64, True, None, 0, 100,
+                              True, None, 0.0),
+    "gqa41_d128": (2, 4, 1, 130, 130, 128, True, None, 0, 0, False, None,
+                   0.0),
+    "segments_tail": (2, 4, 4, 193, 193, 64, True, "array", 0, 0, False,
+                      None, 0.0),
+    "bias_b_hq": (2, 4, 2, 100, 129, 64, False, None, 0, 0, True, ("B", "H"),
+                  0.0),
+    "bias_d128_causal_offsets": (1, 4, 4, 96, 160, 128, True, None, 64, 0,
+                                 False, (1, "H"), 0.0),
+    "dropout_offsets": (1, 4, 2, 130, 130, 128, True, None, 71, 3, True,
+                        None, 0.1),
+    "dropout_bias_segments": (2, 4, 4, 129, 129, 64, False, "array", 0, 0,
+                              False, (1, 1), 0.1),
+}
+
+
+def _edge_inputs(name, dt, cuda):
+    """q, k, v, dout, dlse, qseg, kseg, the positional arguments after
+    the segments, the bias (fp32) or None."""
+    (B, Hq, Hkv, Sq, Sk, D, causal, seg, q_off, k_off, dl, bias,
+     p) = _EDGES[name]
+    rng = np.random.default_rng(Sq * 1000 + Sk)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape)).to(cuda, dt)
+
+    q, k, v, do = t(B, Hq, Sq, D), t(B, Hkv, Sk, D), t(B, Hkv, Sk, D), \
+        t(B, Hq, Sq, D)
+    dlse = (torch.from_numpy(rng.standard_normal((B, Hq, Sq))).float()
+            .to(cuda) if dl else None)
+    qseg = kseg = None
+    if seg:
+        ids = np.sort(rng.integers(0, 3, (B, Sq)), axis=1)
+        ids[:, -11:] = -1
+        qseg = kseg = torch.from_numpy(ids).to(cuda, torch.int32)
+    b = None
+    if bias is not None:
+        shape = (B if bias[0] == "B" else 1, Hq if bias[1] == "H" else 1,
+                 Sq, Sk)
+        b = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        b = b.to(cuda)
+    args = (1.0 / np.sqrt(D), causal, q_off, k_off) + (
+        (p, 1234) if p else ())
+    return q, k, v, do, dlse, qseg, kseg, args, b
+
+
+@pytest.mark.parametrize("name", list(_EDGES))
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_flash_wgmma_edges_match_plain(cuda, dtype, name):
+    """The wgmma forward and dk/dv (and dq beside them) against their
+    plain versions at the tiles' edges: out and lse, dk, dv at the
+    operand type's tolerance, rows without keys equal; dk/dv the same
+    bits on a second launch, and with fp32 output the plain version's
+    fp32 output, equal to the default output once rounded."""
+    from apex1_tpu_torch.ops.attention import flash_dkv, flash_dq, flash_fwd
+    dt = getattr(torch, dtype)
+    q, k, v, do, dlse, qseg, kseg, args, bias = _edge_inputs(name, dt, cuda)
+    kw = {} if bias is None else dict(bias=bias)
+    (out, lse), (wout, wlse) = _both(
+        lambda: flash_fwd(q, k, v, qseg, kseg, *args, **kw))
+    _close(out, wout, dt)
+    empty = wlse <= -1e29
+    assert torch.equal(lse <= -1e29, empty)
+    _close(torch.where(empty, 0.0, lse), torch.where(empty, 0.0, wlse),
+           torch.float32)
+    delta = (do.float() * wout.float()).sum(-1)
+    bwd = (q, k, v, do, wlse, delta, dlse, qseg, kseg, *args)
+    dq, wdq = _both(lambda: flash_dq(*bwd, **kw))
+    _close(dq, wdq, dt)
+    (dk, dv), (wdk, wdv) = _both(lambda: flash_dkv(*bwd, **kw))
+    _close(dk, wdk, dt)
+    _close(dv, wdv, dt)
+    dk2, dv2 = flash_dkv(*bwd, **kw)
+    assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
+    (fk, fv), (wfk, wfv) = _both(
+        lambda: flash_dkv(*bwd, **kw, out_dtype=torch.float32))
+    assert fk.dtype == fv.dtype == torch.float32
+    _close(fk, wfk, dt)
+    _close(fv, wfv, dt)
+    assert torch.equal(fk.to(dt), dk) and torch.equal(fv.to(dt), dv)
+
+
+@pytest.mark.parametrize("name", [n for n, c in _EDGES.items()
+                                  if c[11] is None and not c[12]])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_flash_wgmma_merge_edges(cuda, dtype, name):
+    """The merge epilogue at the same edges: against `flash_fwd`'s plain
+    version and `merge_partials`, the same bits twice, and with nothing
+    carried (lse NEG_INF) equal to the plain-mode kernel's output, widened,
+    bit for bit (one main loop)."""
+    from apex1_tpu_torch.ops.attention import flash_fwd, flash_fwd_merge
+    dt = getattr(torch, dtype)
+    q, k, v, _, _, qseg, kseg, args, _ = _edge_inputs(name, dt, cuda)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    po = torch.randn(q.shape, generator=g, device=cuda)
+    plse = torch.randn(q.shape[:3], generator=g, device=cuda) * 3
+    plse[..., :7] = -1e30
+    margs = (q, k, v, qseg, kseg, *args, po, plse)
+    (out, lse), (wout, wlse) = _both(lambda: flash_fwd_merge(*margs))
+    _close(out, wout, dt)
+    _close(lse, wlse, torch.float32)
+    out2, lse2 = flash_fwd_merge(*margs)
+    assert torch.equal(out2, out) and torch.equal(lse2, lse)
+    none = torch.full_like(plse, -1e30)
+    mout, mlse = flash_fwd_merge(q, k, v, qseg, kseg, *args,
+                                 torch.zeros_like(po), none)
+    fout, flse = flash_fwd(q, k, v, qseg, kseg, *args)
+    assert torch.equal(mout, fout.float())
+    assert torch.equal(mlse, flse)
+
+
+@pytest.mark.parametrize("offs", [(37, 5), (0, 100), (71, 3)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_flash_wgmma_dropout_witness_edges(cuda, dtype, offs):
+    """The dropout mask at offsets that put it mid-tile, Sq = 65: v the
+    identity (Sk = D = 128), so out's zero pattern is the kernel's mask;
+    it equals the plain version's and `_keep`'s exactly."""
+    from apex1_tpu_torch.ops.attention import _keep, flash_fwd
+    dt = getattr(torch, dtype)
+    B, Hq, Hkv, Sq, S, p = 2, 4, 2, 65, 128, 0.1
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q = (0.1 * torch.randn(B, Hq, Sq, S, generator=gen, device=cuda)).to(dt)
+    k = (0.1 * torch.randn(B, Hkv, S, S, generator=gen, device=cuda)).to(dt)
+    v = torch.eye(S, device=cuda, dtype=dt).expand(B, Hkv, S, S).contiguous()
+    args = (None, None, S ** -0.5, False, *offs, p, 2024)
+    out, _ = flash_fwd(q, k, v, *args)
+    with force_impl("torch"):
+        wout, _ = flash_fwd(q, k, v, *args)
+    keep = _keep(q, S, *offs, p, 2024)
+    assert torch.equal(out != 0, keep)
+    assert torch.equal(wout != 0, keep)
+
+
 @pytest.fixture()
 def nccl_world(cuda, tmp_path):
     """A one-rank NCCL process group and the mesh over it."""
