@@ -4,8 +4,9 @@
 //
 // Replaces: apex1_tpu/ops/linear_xent.py::_fwd_kernel (launched by
 // _fused_fwd :384, shard_stats :286 and shard_stats_packed :316, modes 0, 1
-// and 2 here), ::_bwd_dx_kernel (shard_grads :345) and ::_bwd_dw_kernel
-// (shard_grads :357).
+// and 2 here), and in fp32 ::_bwd_dx_kernel (shard_grads :345) and
+// ::_bwd_dw_kernel (shard_grads :357); the bf16/fp16 backward runs on wgmma
+// in linear_xent_bwd.cu.
 //
 //   s = x·Wᵀ (products of the operand type, fp32 sums). W is one shard of
 //   V_l rows; its local column c is the global column g = c + off, and is
@@ -48,7 +49,8 @@
 //   second recompute of the logits;
 // - no atomics: each output row is summed by one block in a fixed order,
 //   so two runs give the same bits.
-// bf16/fp16 products run on the tensor cores as mma.sync m16n8k16 (fp32
+// The backward kernel (dx and dW) is instantiated for fp32 only. bf16/fp16
+// products run on the tensor cores as mma.sync m16n8k16 (fp32
 // accumulate) on fragments that ldmatrix reads from shared memory (WMMA's
 // loads through these pointers compiled to generic loads, no ldmatrix, at
 // half the speed); fp32 runs as plain FMA on the CUDA cores (no
@@ -417,10 +419,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // dx (DW false: own = token rows, inner = W rows) or dW (DW true: own = W
 // rows, inner = token rows): own·H += G·inner, G recomputed a tile at a time.
+// fp32 only: the bf16/fp16 backward is linear_xent_bwd.cu's.
 template <typename T, bool DW>
 __global__ void __launch_bounds__(kThreads, 1)
     lxent_bwd_kernel(const LxArgs a) {
   using G = Geo<T, true>;
+  static_assert(G::F32, "the half backward runs on linear_xent_bwd.cu");
   constexpr int BO = G::BO, BI = G::BI;
   extern __shared__ __align__(128) unsigned char smem[];
   Walk<T, true> walk(smem, a.H);
@@ -451,15 +455,11 @@ __global__ void __launch_bounds__(kThreads, 1)
                          size_t(own0) * a.H,
                 min(BO, n_own - own0), a.H, a.vec);
 
-  // the accumulator: fp32, BO x hp, in registers. bf16/fp16: warp w the
-  // 32 x 96 strip of columns [96w, 96w + 96), 2 x 12 m16n8 tiles; fp32:
-  // thread (tx, ty) rows ty and ty + 16, columns 4·tx + 64j + {0..3}
-  constexpr int NT_H = kHMax / 8 / kWarps;  // half: n8 tiles a warp
-  constexpr int NJ_F = kHMax / 64;          // fp32: float4 column groups
-  constexpr int NJ = G::F32 ? NJ_F : NT_H;
+  // the accumulator: fp32, BO x hp, in registers: thread (tx, ty) rows ty
+  // and ty + 16, columns 4·tx + 64j + {0..3}
+  constexpr int NJ = kHMax / 64;  // float4 column groups
   float acc[2][NJ][4];
-  const int warp = tid / 32, lane = tid % 32;
-  const int tx = tid % 16, ty = tid / 16;  // fp32 layout
+  const int tx = tid % 16, ty = tid / 16;
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -521,79 +521,40 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         __syncthreads();
         const int ld = walk.ld, hp = walk.hp;
-        if constexpr (G::F32) {
-          for (int k = 0; k < BI; ++k) {
-            const float g0 = walk.sG[ty * G::LDG + k];
-            const float g1 = walk.sG[(ty + 16) * G::LDG + k];
+        for (int k = 0; k < BI; ++k) {
+          const float g0 = walk.sG[ty * G::LDG + k];
+          const float g1 = walk.sG[(ty + 16) * G::LDG + k];
 #pragma unroll
-            for (int j = 0; j < NJ_F; ++j) {
-              const int col = 4 * tx + 64 * j;
-              if (col < hp) {
-                const float4 b =
-                    *reinterpret_cast<const float4*>(tile + k * ld + col);
-                acc[0][j][0] = fmaf(g0, b.x, acc[0][j][0]);
-                acc[0][j][1] = fmaf(g0, b.y, acc[0][j][1]);
-                acc[0][j][2] = fmaf(g0, b.z, acc[0][j][2]);
-                acc[0][j][3] = fmaf(g0, b.w, acc[0][j][3]);
-                acc[1][j][0] = fmaf(g1, b.x, acc[1][j][0]);
-                acc[1][j][1] = fmaf(g1, b.y, acc[1][j][1]);
-                acc[1][j][2] = fmaf(g1, b.z, acc[1][j][2]);
-                acc[1][j][3] = fmaf(g1, b.w, acc[1][j][3]);
-              }
-            }
-          }
-        } else {
-          // B(k, n) = tile[k][n] (inner rows k): ldmatrix .trans
-          const int q = lane / 8;
-          const T* b_base =
-              tile + ((lane % 8) + 8 * (q % 2)) * ld + 8 * (q / 2);
-#pragma unroll
-          for (int k = 0; k < BI; k += 16) {
-            unsigned a0[4], a1[4];
-            load_a<T>(a0, walk.sG + k, G::LDG);
-            load_a<T>(a1, walk.sG + 16 * G::LDG + k, G::LDG);
-#pragma unroll
-            for (int p = 0; p < NT_H / 2; ++p) {
-              const int col = warp * NT_H * 8 + 16 * p;
-              if (col < hp) {
-                unsigned b[4];
-                ldsm_x4_t(b, b_base + k * ld + col);
-                mma16816<T>(acc[0][2 * p], a0, b[0], b[1]);
-                mma16816<T>(acc[0][2 * p + 1], a0, b[2], b[3]);
-                mma16816<T>(acc[1][2 * p], a1, b[0], b[1]);
-                mma16816<T>(acc[1][2 * p + 1], a1, b[2], b[3]);
-              }
+          for (int j = 0; j < NJ; ++j) {
+            const int col = 4 * tx + 64 * j;
+            if (col < hp) {
+              const float4 b =
+                  *reinterpret_cast<const float4*>(tile + k * ld + col);
+              acc[0][j][0] = fmaf(g0, b.x, acc[0][j][0]);
+              acc[0][j][1] = fmaf(g0, b.y, acc[0][j][1]);
+              acc[0][j][2] = fmaf(g0, b.z, acc[0][j][2]);
+              acc[0][j][3] = fmaf(g0, b.w, acc[0][j][3]);
+              acc[1][j][0] = fmaf(g1, b.x, acc[1][j][0]);
+              acc[1][j][1] = fmaf(g1, b.y, acc[1][j][1]);
+              acc[1][j][2] = fmaf(g1, b.z, acc[1][j][2]);
+              acc[1][j][3] = fmaf(g1, b.w, acc[1][j][3]);
             }
           }
         }
       });
 
   T* out = static_cast<T*>(a.grad);
-  if constexpr (G::F32) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = own0 + ty + 16 * i;
-      if (r >= n_own) continue;
+  for (int i = 0; i < 2; ++i) {
+    const int r = own0 + ty + 16 * i;
+    if (r >= n_own) continue;
 #pragma unroll
-      for (int j = 0; j < NJ_F; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int col = 4 * tx + 64 * j + q;
-          if (col < a.H) out[size_t(r) * a.H + col] = acc[i][j][q];
-        }
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < NT_H; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int r = own0 + 16 * i + lane / 4 + 8 * (q / 2);
-          const int col = warp * NT_H * 8 + 8 * j + 2 * (lane % 4) + q % 2;
-          if (r < n_own && col < a.H)
-            out[size_t(r) * a.H + col] = from_f32<T>(acc[i][j][q]);
-        }
+      for (int q = 0; q < 4; ++q) {
+        const int col = 4 * tx + 64 * j + q;
+        if (col < a.H) out[size_t(r) * a.H + col] = acc[i][j][q];
+      }
   }
 }
 
@@ -611,7 +572,7 @@ static int launch(int which, const LxArgs& a, cudaStream_t st) {
     smem = Geo<T, false>::smem(hp);
     max_smem = Geo<T, false>::smem(kHMax);
     rows = (a.T + Geo<T, false>::BO - 1) / Geo<T, false>::BO;
-  } else {
+  } else if constexpr (sizeof(T) == 4) {
     if (which == kDx)
       kern = lxent_bwd_kernel<T, false>;
     else
@@ -620,6 +581,8 @@ static int launch(int which, const LxArgs& a, cudaStream_t st) {
     max_smem = Geo<T, true>::smem(kHMax);
     const int n_own = which == kDx ? a.T : a.V;
     rows = (n_own + Geo<T, true>::BO - 1) / Geo<T, true>::BO;
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);  // linear_xent_bwd.cu
   }
   if (!attr_set[which]) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -689,7 +652,8 @@ extern "C" int apex1_lxent_fwd(const void* x, const void* w,
   return dispatch(kFwd, a, dtype, stream);
 }
 
-// lse, dloss (T,) fp32; dx (T, H) in x's dtype
+// fp32 only (bf16/fp16: linear_xent_bwd.cu). lse, dloss (T,) fp32; dx
+// (T, H) fp32
 extern "C" int apex1_lxent_dx(const void* x, const void* w,
                               const void* labels, const void* lse,
                               const void* dloss, void* dx, int T, int V, int H,
@@ -703,7 +667,7 @@ extern "C" int apex1_lxent_dx(const void* x, const void* w,
   return dispatch(kDx, a, dtype, stream);
 }
 
-// dw (V, H) in w's dtype
+// fp32 only; dw (V, H) fp32
 extern "C" int apex1_lxent_dw(const void* x, const void* w,
                               const void* labels, const void* lse,
                               const void* dloss, void* dw, int T, int V, int H,
@@ -729,19 +693,20 @@ extern "C" int apex1_lxent_dw(const void* x, const void* w,
 //   (m, l, tgt, sx) in its epilogue, written to a (T, V/128) buffer; a
 //   second kernel folds a row's partials in column order and writes mode
 //   0, 1 or 2 (one code path, so mode 2 is mode 1 bit for bit);
-// - backward, per vocab chunk of rows [c0, c0 + n): a product kernel forms
-//   the chunk's score tiles once and writes G_c (as above, rounded to the
-//   operand type) to a (T, n) buffer; then dx += G_c·W_c (an fp32 (T, H)
-//   sum in device memory, chunks added in order, the last chunk writing dx)
-//   and dW_c = G_cᵀ·x are two more products over it. The logits are formed
-//   once a chunk, not once for dx and once for dW as above.
+// - backward (fp32; bf16/fp16 take the same three products on wgmma in
+//   linear_xent_bwd.cu), per vocab chunk of rows [c0, c0 + n): a product
+//   kernel forms the chunk's score tiles once and writes G_c to a (T, n)
+//   buffer; then dx += G_c·W_c (an fp32 (T, H) sum in device memory,
+//   chunks added in order, the last chunk writing dx) and dW_c = G_cᵀ·x
+//   are two more products over it. The logits are formed once a chunk, not
+//   once for dx and once for dW as above.
 // Every output element is summed by one block in a fixed order: no atomics,
 // the same bits on every run. Not chosen: H split across blocks that each
 // recompute the full-H logits (H / slice times the score products), or a
 // cluster of CTAs summing partial score tiles through distributed shared
 // memory (fewer passes over x and W; a later step). ptxas (-Xptxas -v, sm_90a
-// on an H100): bf16/fp16 scores 133 registers, 176 with the G epilogue, dx
-// 168, dW 142; f32 143 / 234 / 168 / 167; no spills.
+// on an H100): bf16/fp16 forward scores 133 registers; f32 143, 234 with
+// the G epilogue, dx 168, dW 167; no spills.
 
 namespace {
 
@@ -950,8 +915,13 @@ int launch_tiles(void (*kern)(const Args), size_t smem, int M, int N,
 template <typename T>
 int wide_scores(const WideArgs& a, bool grad, cudaStream_t st) {
   using G = Gemm<T, kWBM, kWBN, 1, true, true>;
-  if (grad)
-    return launch_tiles(lxw_scores_kernel<T, true>, G::SMEM, a.T, a.V, a, st);
+  if (grad) {
+    // fp32 only: the half backward is linear_xent_bwd.cu's
+    if constexpr (sizeof(T) == 4)
+      return launch_tiles(lxw_scores_kernel<T, true>, G::SMEM, a.T, a.V, a,
+                          st);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const size_t stage = size_t(kWBM) * (kWBN + 4) * sizeof(float);
   int err = launch_tiles(lxw_scores_kernel<T, false>, max_sz(G::SMEM, stage),
                          a.T, a.V, a, st);
@@ -988,19 +958,11 @@ int wide_scores_dtype(const WideArgs& a, bool grad, int dtype, void* stream) {
   }
 }
 
+// fp32 only: the half backward is linear_xent_bwd.cu's
 int wide_prod_dtype(const WideProdArgs& a, bool dw, int dtype, void* stream) {
   if (a.M <= 0 || a.N <= 0 || a.K <= 0) return 0;
-  cudaStream_t st = as_stream(stream);
-  switch (dtype) {
-    case kF32:
-      return wide_prod<float>(a, dw, st);
-    case kBF16:
-      return wide_prod<__nv_bfloat16>(a, dw, st);
-    case kF16:
-      return wide_prod<__half>(a, dw, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (dtype != kF32) return static_cast<int>(cudaErrorInvalidValue);
+  return wide_prod<float>(a, dw, as_stream(stream));
 }
 
 WideArgs wide_args(const void* x, const void* w, const void* labels, int T,
@@ -1046,8 +1008,8 @@ extern "C" int apex1_lxent_wide_fwd(const void* x, const void* w,
   return wide_scores_dtype(a, false, dtype, stream);
 }
 
-// G of one vocab chunk: w the chunk's n rows (V = n), off the global column
-// of its first row; g (T, n) in `dtype`
+// fp32 only (bf16/fp16: linear_xent_bwd.cu). G of one vocab chunk: w the
+// chunk's n rows (V = n), off the global column of its first row; g (T, n)
 extern "C" int apex1_lxent_wide_grad(const void* x, const void* w,
                                      const void* labels, const void* lse,
                                      const void* dloss, void* g, int T, int V,
@@ -1063,7 +1025,7 @@ extern "C" int apex1_lxent_wide_grad(const void* x, const void* w,
 }
 
 // dx += G (T, n) · W_c (n, H): acc the fp32 (T, H) sum (unread with first,
-// unwritten with last), dx (T, H) in `dtype`, written with last
+// unwritten with last), dx (T, H) written with last; fp32 only
 extern "C" int apex1_lxent_wide_dx(const void* g, const void* w, void* acc,
                                    void* dx, int T, int n, int H, int first,
                                    int last, int vec, int dtype,
@@ -1073,7 +1035,7 @@ extern "C" int apex1_lxent_wide_dx(const void* g, const void* w, void* acc,
   return wide_prod_dtype(a, false, dtype, stream);
 }
 
-// dW_c (n, H) = Gᵀ · x, G (T, n), x (T, H), in `dtype`
+// dW_c (n, H) = Gᵀ · x, G (T, n), x (T, H); fp32 only
 extern "C" int apex1_lxent_wide_dw(const void* g, const void* x, void* dw,
                                    int T, int n, int H, int vec, int dtype,
                                    void* stream) {

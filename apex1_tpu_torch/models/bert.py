@@ -283,9 +283,13 @@ def bert_pretrain_loss_fn(model: BertPretrain, *, ignore_index: int = -1,
     ``fuse_head=True`` (the default): the tied MLM head through
     `linear_cross_entropy`, the decoder bias folded in as a ones column
     on the hidden states and the bias as one more weight column (width
-    H + 1), so the (B, S, V) logits never exist. ``False``: the
-    materialized fp32 logits through `softmax_cross_entropy_loss` (the
-    parity gold)."""
+    H + 1), so the (B, S, V) logits never exist. Both then take zero
+    columns up to a multiple of 8 (776 for BERT-base, 1032 for
+    BERT-large), so that a row is a whole number of 16-byte copies for
+    the kernels; the zeros add nothing to any product, and the
+    concatenation's backward drops their gradients. (The JAX package
+    keeps width H + 1.) ``False``: the materialized fp32 logits through
+    `softmax_cross_entropy_loss` (the parity gold)."""
 
     def loss_fn(params: dict, batch: dict) -> torch.Tensor:
         labels = batch["mlm_labels"]
@@ -297,10 +301,12 @@ def bert_pretrain_loss_fn(model: BertPretrain, *, ignore_index: int = -1,
             h, nsp_logits = torch.func.functional_call(
                 model, params, (batch["tokens"],),
                 dict(return_mlm_hidden=True, **kw))
-            w = torch.cat([params["bert.word_embeddings"].to(h.dtype),
-                           params["mlm_bias"].to(h.dtype)[:, None]], dim=1)
-            ones = torch.ones(h.shape[:-1] + (1,), dtype=h.dtype,
-                              device=h.device)
+            emb = params["bert.word_embeddings"].to(h.dtype)
+            pad = -(h.shape[-1] + 1) % 8
+            w = torch.cat([emb, params["mlm_bias"].to(h.dtype)[:, None],
+                           emb.new_zeros(emb.shape[0], pad)], dim=1)
+            ones = h.new_zeros(h.shape[:-1] + (1 + pad,))
+            ones[..., 0] = 1.0
             mlm_losses = linear_cross_entropy(torch.cat([h, ones], dim=-1),
                                               w, labels,
                                               padding_idx=ignore_index)

@@ -79,6 +79,9 @@ SIGNATURES = {
                               _I, _I, _I, _I, _P],
     "apex1_lxent_wide_dx": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "apex1_lxent_wide_dw": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "apex1_lxent_wg_grad": [_P] * 6 + [_I] * 5 + [_F] + [_I] * 5 + [_P],
+    "apex1_lxent_wg_dx": [_P] * 4 + [_I] * 8 + [_P],
+    "apex1_lxent_wg_dw": [_P] * 3 + [_I] * 6 + [_P],
     "apex1_rope": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _F, _I, _I,
                    _P],
     "apex1_glu_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

@@ -11,8 +11,7 @@ V_l)`` (the vocab-parallel form), `shard_stats` and
 `shard_stats_packed` give the per-row online-softmax partials (m, l,
 tgt, sumx) and `shard_grads` the gradients given the global lse.
 
-Three kernels in ``csrc/linear_xent.cu`` (TPU rows 7-11), each beside
-its plain PyTorch version:
+Three kernels (TPU rows 7-11), each beside its plain PyTorch version:
 
 - :func:`lxent_fwd` (``_fwd_kernel``): mode 0 gives (loss, lse), mode 1
   the four statistics, mode 2 the same four packed as (T, 4);
@@ -25,14 +24,21 @@ its product, as the TPU kernels round it. The plain versions walk the
 vocab in chunks of `PLAIN_CHUNK` columns (never a (T, V) tile) in the
 order of ``_fwd_kernel``'s statistics.
 
-Heads up to `MAX_H` = 768 columns run the kernels above, whose tiles
-keep all of H resident. Wider heads (Llama-3 8B: 4096) take the wide
-path of the same source: tiled products with H streamed, the forward's
-statistics folded from per-tile partials, and the backward a vocab
-chunk of `WIDE_CHUNK` rows at a time: G_c formed once into a (T, n)
-buffer, then dx += G_c·W_c (an fp32 sum over the chunks in order) and
-dW_c = G_cᵀ·x. `shard_grads` forms each chunk's G once for both
-products; `lxent_dx` and `lxent_dw` alone each form it.
+The forward (``csrc/linear_xent.cu``) runs heads up to `MAX_H` = 768
+columns on tiles that keep all of H resident; wider heads (Llama-3 8B:
+4096) take its wide path: tiled products with H streamed, the
+statistics folded from per-tile partials.
+
+The backward walks the vocab a chunk at a time (in bf16 and fp16 as
+many rows as keep G within `WIDE_G_BYTES`, `F32_CHUNK` rows in fp32):
+G_c formed once into a (T, n) buffer, then dx += G_c·W_c (an fp32 sum
+over the chunks in order) and dW_c = G_cᵀ·x. In bf16 and fp16 at every
+H the three products run on wgmma (``csrc/linear_xent_bwd.cu`` on
+``csrc/gemm_wg.cuh``; G's rows padded to a multiple of 8 values). In
+fp32, heads up to `MAX_H` run linear_xent.cu's resident-tile dx and dW
+kernels and wider ones its wide path's products. `shard_grads` forms
+each chunk's G once for both products; `lxent_dx` and `lxent_dw` alone
+each form it.
 """
 
 from __future__ import annotations
@@ -51,9 +57,16 @@ _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 MAX_H = 768
 #: vocab columns a step of the plain versions
 PLAIN_CHUNK = 4096
-#: the wide path: vocab rows a backward chunk (its G buffer is (T, this))
-#: and the score tile's columns (one partial-statistics slot each)
-WIDE_CHUNK = 8192
+#: the bf16/fp16 backward's G buffer, (T, chunk) values: a chunk holds
+#: as many vocab rows (a multiple of 128) as fit. Fewer chunks mean fewer
+#: passes over the fp32 dx sum and fewer grid tails; the whole vocab
+#: fits at the Llama and BERT heads, 16384 rows at GPT-2's 16368 tokens
+#: (chip_smoke.py --compare's chunk sweep, PERF.md §6)
+WIDE_G_BYTES = 512 << 20
+#: vocab rows an fp32 chunk (the wide path): its dx is summed over the
+#: chunks in order, so the chunk fixes its rounding
+F32_CHUNK = 8192
+#: the wide forward's score tile columns (one partial-statistics slot each)
 WIDE_BN = 128
 
 
@@ -236,19 +249,36 @@ def _bwd(name, x2, w, labels, lse, dloss, col_offset, K, smoothing,
     return out
 
 
-def _wide_bwd(x2, w, labels, lse, dloss, col_offset, K, smoothing,
-              padding_idx, want_dx, want_dw):
-    """The wide path's backward: per vocab chunk, G_c into a (T, n)
-    buffer, then dx += G_c·W_c and/or dW_c = G_cᵀ·x. Returns (dx, dW),
-    None where not wanted."""
+def wg_chunk(T: int, V: int, itemsize: int) -> int:
+    """Vocab rows a bf16/fp16 backward chunk: the most that keep the
+    (T, chunk) G within `WIDE_G_BYTES`, a multiple of 128, at least 128
+    and at most V."""
+    rows = WIDE_G_BYTES // max(1, T * itemsize) // 128 * 128
+    return min(V, max(128, rows))
+
+
+def _chunked(x2) -> bool:
+    """True when the backward of CUDA ``x2`` walks vocab chunks: bf16 and
+    fp16 at every H (the wgmma kernels), fp32 past `MAX_H`."""
+    return x2.dtype != torch.float32 or x2.shape[-1] > MAX_H
+
+
+def _chunked_bwd(x2, w, labels, lse, dloss, col_offset, K, smoothing,
+                 padding_idx, want_dx, want_dw):
+    """The chunked backward: per vocab chunk, G_c into a (T, n) buffer,
+    then dx += G_c·W_c and/or dW_c = G_cᵀ·x, on the wgmma kernels in
+    bf16/fp16 (G's row stride n rounded up to 8) and on the wide path's
+    in fp32. Returns (dx, dW), None where not wanted."""
     (x2, w, labels, lse, dloss), vec = _operands(
         "lxent_dx" if want_dx else "lxent_dw", x2, w, labels, lse, dloss)
     (T, H), V, dev = x2.shape, w.shape[0], x2.device
     es, epv, code = x2.element_size(), 16 // x2.element_size(), \
         DTYPE_CODES[x2.dtype]
-    chunk = min(WIDE_CHUNK, V)
+    wg = x2.dtype != torch.float32
+    chunk = wg_chunk(T, V, es) if wg else min(F32_CHUNK, V)
     n_chunks = -(-V // chunk)
-    g = torch.empty(T * chunk, dtype=x2.dtype, device=dev)
+    g = torch.empty(T * (-(-chunk // 8) * 8 if wg else chunk),
+                    dtype=x2.dtype, device=dev)
     dx = torch.empty_like(x2) if want_dx else None
     dw = torch.empty_like(w) if want_dw else None
     acc = (torch.empty(T, H, dtype=torch.float32, device=dev)
@@ -259,21 +289,37 @@ def _wide_bwd(x2, w, labels, lse, dloss, col_offset, K, smoothing,
         c0 = i * chunk
         n = min(chunk, V - c0)
         wc = w.data_ptr() + c0 * H * es
-        # (T, V, H, K, off, ...) of the chunk's rows
+        first, last = int(i == 0), int(i == n_chunks - 1)
+        acc_p = None if acc is None else acc.data_ptr()
+        dw_c = None if dw is None else dw.data_ptr() + c0 * H * es
+        if wg:
+            ldg = -(-n // 8) * 8
+            # (T, n, H, K, off, ...) of the chunk's rows
+            _build.launch("apex1_lxent_wg_grad", x2.data_ptr(), wc,
+                          labels.data_ptr(), lse.data_ptr(),
+                          dloss.data_ptr(), g.data_ptr(), T, n, H, common[3],
+                          common[4] + c0, *common[5:], ldg, vec, code, stream)
+            if want_dx:
+                _build.launch("apex1_lxent_wg_dx", g.data_ptr(), wc, acc_p,
+                              dx.data_ptr(), T, n, H, ldg, first, last, vec,
+                              code, stream)
+            if want_dw:
+                _build.launch("apex1_lxent_wg_dw", g.data_ptr(),
+                              x2.data_ptr(), dw_c, T, n, H, ldg, vec, code,
+                              stream)
+            continue
         _build.launch("apex1_lxent_wide_grad", x2.data_ptr(), wc,
                       labels.data_ptr(), lse.data_ptr(), dloss.data_ptr(),
                       g.data_ptr(), T, n, H, common[3], common[4] + c0,
                       *common[5:], vec, code, stream)
         vec_g = int(vec and n % epv == 0)
         if want_dx:
-            _build.launch("apex1_lxent_wide_dx", g.data_ptr(), wc,
-                          None if acc is None else acc.data_ptr(),
-                          dx.data_ptr(), T, n, H, int(i == 0),
-                          int(i == n_chunks - 1), vec_g, code, stream)
+            _build.launch("apex1_lxent_wide_dx", g.data_ptr(), wc, acc_p,
+                          dx.data_ptr(), T, n, H, first, last, vec_g, code,
+                          stream)
         if want_dw:
             _build.launch("apex1_lxent_wide_dw", g.data_ptr(),
-                          x2.data_ptr(), dw.data_ptr() + c0 * H * es, T, n, H,
-                          vec_g, code, stream)
+                          x2.data_ptr(), dw_c, T, n, H, vec_g, code, stream)
     return dx, dw
 
 
@@ -286,9 +332,9 @@ def lxent_dx(x2, w, labels, lse, dloss, *, num_classes: int,
     if not use_kernel(x2):
         return _plain_dx(x2, w, labels, lse, dloss, col_offset, num_classes,
                          smoothing, padding_idx)
-    if x2.shape[-1] > MAX_H:
-        dx = _wide_bwd(x2, w, labels, lse, dloss, col_offset, num_classes,
-                       smoothing, padding_idx, True, False)[0]
+    if _chunked(x2):
+        dx = _chunked_bwd(x2, w, labels, lse, dloss, col_offset,
+                          num_classes, smoothing, padding_idx, True, False)[0]
     else:
         dx = _bwd("lxent_dx", x2, w, labels, lse, dloss, col_offset,
                   num_classes, smoothing, padding_idx, "x")
@@ -307,9 +353,9 @@ def lxent_dw(x2, w, labels, lse, dloss, *, num_classes: int,
     if not use_kernel(x2):
         return _plain_dw(x2, w, labels, lse, dloss, col_offset, num_classes,
                          smoothing, padding_idx)
-    if x2.shape[-1] > MAX_H:
-        dw = _wide_bwd(x2, w, labels, lse, dloss, col_offset, num_classes,
-                       smoothing, padding_idx, False, True)[1]
+    if _chunked(x2):
+        dw = _chunked_bwd(x2, w, labels, lse, dloss, col_offset,
+                          num_classes, smoothing, padding_idx, False, True)[1]
     else:
         dw = _bwd("lxent_dw", x2, w, labels, lse, dloss, col_offset,
                   num_classes, smoothing, padding_idx, "w")
@@ -323,16 +369,17 @@ lxent_dw.launches = 0
 def lxent_grads(x2, w, labels, lse, dloss, *, num_classes: int,
                 col_offset: int = 0, smoothing: float = 0.0,
                 padding_idx: Optional[int] = None):
-    """(dx, dW) together. Past `MAX_H` on CUDA, each vocab chunk's G is
-    formed once for both products (one launch of `lxent_dx` and one of
-    `lxent_dw` counted); otherwise `lxent_dx` then `lxent_dw`."""
+    """(dx, dW) together. On CUDA in bf16/fp16, or in fp32 past `MAX_H`,
+    each vocab chunk's G is formed once for both products (one launch of
+    `lxent_dx` and one of `lxent_dw` counted); otherwise `lxent_dx` then
+    `lxent_dw`."""
     kw = dict(num_classes=num_classes, col_offset=col_offset,
               smoothing=smoothing, padding_idx=padding_idx)
-    if not (use_kernel(x2) and x2.shape[-1] > MAX_H):
+    if not (use_kernel(x2) and _chunked(x2)):
         return (lxent_dx(x2, w, labels, lse, dloss, **kw),
                 lxent_dw(x2, w, labels, lse, dloss, **kw))
-    out = _wide_bwd(x2, w, labels, lse, dloss, col_offset, num_classes,
-                    smoothing, padding_idx, True, True)
+    out = _chunked_bwd(x2, w, labels, lse, dloss, col_offset, num_classes,
+                       smoothing, padding_idx, True, True)
     lxent_dx.launches += 1
     lxent_dw.launches += 1
     return out

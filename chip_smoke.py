@@ -2,16 +2,20 @@
 """Drive the PyTorch/CUDA port (`apex1_tpu_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the root of a checkout
-    python3 chip_smoke.py --profile  # build, then profile decode steps
+    python3 chip_smoke.py --profile [NAME ...]
+                                     # build, then profile decode steps
                                      # and training steps (GPT-2: flash
                                      # off, flash on, flash and fused
                                      # head; llama_block: fused_mlp off
-                                     # and on; bert_large; t5) and the
-                                     # decode slice's token steps
-                                     # (decode-int8, serve-lora)
+                                     # and on; bert; bert_large; t5) and
+                                     # the decode slice's token steps
+                                     # (decode-int8, serve-lora), or
+                                     # only the NAMEs given (keys of the
+                                     # profile: llama_block, bert, ...)
     python3 chip_smoke.py --compare TREE
                                      # build, then time the flash
-                                     # kernels against those of TREE (a
+                                     # kernels and the linear-xent
+                                     # backward against those of TREE (a
                                      # checkout of another commit) in
                                      # turns on the same inputs
     python3 chip_smoke.py --gate-sweep [kernels] [plain]
@@ -37,8 +41,10 @@ Phases, each printed on its own line; a failure in any exits non-zero:
    (16368 x 768 against 50304 x 768, 50257 classes) in bf16 and fp16,
    a small f32 case, smoothing 0.1 with a padding_idx, a col_offset
    shard with labels outside it, and the DPO path's ragged last vocab
-   chunk (1152 rows); dx and dW must give the same bits twice and the
-   packed statistics (mode 2) equal the four (mode 1) bit for bit. The
+   chunk (1152 rows); dx and dW (bf16/fp16: three wgmma products a vocab
+   chunk) must give the same bits twice, equal to ``lxent_grads``'s
+   (one G a chunk for both), and the packed statistics (mode 2) equal
+   the four (mode 1) bit for bit. The
    half-precision backward cases also print how far two plain versions
    that differ only in the logits' summation precision lie apart. The
    Llama slice's shapes: the RMS norm forward and backward at (8192,
@@ -63,8 +69,10 @@ Phases, each printed on its own line; a failure in any exits non-zero:
    with a witness (v the identity: out's zero pattern is the mask); the
    library call for flash is also timed at the Llama shape (GQA through
    ``enable_gqa``) and at BERT's (the padding as a boolean mask, with
-   its own dropout); the fused MLM heads (H + 1 = 769 and 1025, labels
-   -1 outside the masked tokens) and the NSP cross-entropy (K = 2). The
+   its own dropout); the fused MLM heads (H + 1 = 769 and 1025 on the
+   plain-load branch, and zero-padded to 776 and 1032 as the models run
+   them; labels -1 outside the masked tokens) and the NSP cross-entropy
+   (K = 2). The
    T5 slice's: flash with an additive bias at T5's shape (8 x 16 heads
    x 512, D 64, bf16; the (1, 16, 512, 512) fp32 relative-position
    bias), non-causal as in the encoder and causal as in the decoder,
@@ -1359,11 +1367,17 @@ LXENT_CASES = [
     ("wide, ragged", 999, 9001, "float32", 9000, 0, 0.0, None, 1, False,
      200 * 8 + 1, False),
     # BERT's fused MLM head: the ones column makes H + 1 (a 1538-byte
-    # bf16 row: scalar loads), labels -1 outside the masked tokens
+    # bf16 row: scalar loads), labels -1 outside the masked tokens; the
+    # model pads it with zero columns to a multiple of 8 (776, 1032:
+    # 16-byte copies)
     ("BERT-base MLM head", 8 * 512, 30522, "bfloat16", 30522, 0, 0.0, -1,
      0, False, 769, True),
     ("BERT-large MLM head", 4 * 512, 30522, "bfloat16", 30522, 0, 0.0, -1,
      0, False, 1025, True),
+    ("BERT-base MLM head, padded", 8 * 512, 30522, "bfloat16", 30522, 0, 0.0,
+     -1, 0, False, 776, True),
+    ("BERT-large MLM head, padded", 4 * 512, 30522, "bfloat16", 30522, 0,
+     0.0, -1, 0, False, 1032, True),
 ]
 
 
@@ -2061,7 +2075,7 @@ def check_flash_merge(torch, ops, gen):
     return results
 
 
-# ---- --compare: the flash kernels against another tree's ----------------
+# ---- --compare: the flash and linear-xent kernels against another tree's --
 
 #: the cases `--compare` times (`FLASH_CASES` and `MERGE_CASES` names)
 COMPARE_FLASH = ("GPT-2 causal", "Llama GQA 32/8 causal",
@@ -2118,11 +2132,159 @@ def ab_ms(fn, other):
     return min(times["other"]), min(times["this"])
 
 
+def tree_linear_xent(tree: str):
+    """TREE's own ``ops/linear_xent.py``, loaded under another name and
+    bound to TREE's own ``_build`` (its entry points, signatures and
+    library state): TREE's wrappers may launch entry points this tree's
+    library lacks, or launch them in another sequence."""
+    import importlib.util
+
+    def load(name, rel):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(tree, "apex1_tpu_torch", "ops", rel))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    lx = load("tree_linear_xent", "linear_xent.py")
+    lx._build = load("tree_build", "_build.py")
+    return lx
+
+
+def ab2_ms(other_fn, this_fn):
+    """`ab_ms` for two functions: (other's ms, this tree's ms), timed in
+    turns other, this, this, other, each the smaller of its two."""
+    times = {"other": [], "this": []}
+    for who in ("other", "this", "this", "other"):
+        times[who].append(event_ms(other_fn if who == "other" else this_fn))
+    return min(times["other"]), min(times["this"])
+
+
+#: `--compare`'s linear-xent heads (bf16): (case, T, V, H, K, padding_idx)
+COMPARE_LXENT = (
+    ("GPT-2 head", TB * (TS - 1), TV_PAD, TH, TV, None),
+    ("Llama head", LB * (LS - 1), LV, LH, LV, None),
+    ("BERT-base MLM head", 8 * 512, 30522, 769, 30522, -1),
+    ("BERT-base MLM head, padded", 8 * 512, 30522, 776, 30522, -1),
+    ("BERT-large MLM head", 4 * 512, 30522, 1025, 30522, -1),
+    ("BERT-large MLM head, padded", 4 * 512, 30522, 1032, 30522, -1))
+#: `--compare`'s sweep of this tree's `lxent_grads` over the vocab rows
+#: of a chunk (`WIDE_G_BYTES` set to hold that many)
+COMPARE_CHUNKS = (4096, 8192, 16384, 32768)
+
+
+def lxent_products_ms(torch, x, w, t, lse, dloss, K, pad):
+    """This tree's three bf16/fp16 backward products timed apart over
+    every vocab chunk (`wg_chunk` rows), as `lxent_grads` launches them:
+    (G ms, dx ms, dW ms), each launched alone (the operands' values do
+    not change the work)."""
+    from apex1_tpu_torch.ops import _build
+    from apex1_tpu_torch.ops._common import DTYPE_CODES
+    from apex1_tpu_torch.ops.linear_xent import wg_chunk
+    (T, H), V = x.shape, w.shape[0]
+    chunk = wg_chunk(T, V, x.element_size())
+    ldg = -(-chunk // 8) * 8
+    g = torch.zeros(T * ldg, dtype=x.dtype, device="cuda")
+    acc = torch.zeros(T, H, dtype=torch.float32, device="cuda")
+    dx, dw = torch.empty_like(x), torch.empty_like(w)
+    t32 = t.to(torch.int32)
+    es, code = x.element_size(), DTYPE_CODES[x.dtype]
+    vec = int(H % 8 == 0)
+    stream = torch.cuda.current_stream().cuda_stream
+    chunks = [(c0, min(chunk, V - c0)) for c0 in range(0, V, chunk)]
+
+    def grad():
+        for c0, n in chunks:
+            _build.launch("apex1_lxent_wg_grad", x.data_ptr(),
+                          w.data_ptr() + c0 * H * es, t32.data_ptr(),
+                          lse.data_ptr(), dloss.data_ptr(), g.data_ptr(), T,
+                          n, H, K, c0, 0.0, int(pad is not None),
+                          -1 if pad is None else pad, -(-n // 8) * 8, vec,
+                          code, stream)
+
+    def dxp():
+        for i, (c0, n) in enumerate(chunks):
+            _build.launch("apex1_lxent_wg_dx", g.data_ptr(),
+                          w.data_ptr() + c0 * H * es, acc.data_ptr(),
+                          dx.data_ptr(), T, n, H, -(-n // 8) * 8,
+                          int(i == 0), int(i == len(chunks) - 1), vec, code,
+                          stream)
+
+    def dwp():
+        for c0, n in chunks:
+            _build.launch("apex1_lxent_wg_dw", g.data_ptr(), x.data_ptr(),
+                          dw.data_ptr() + c0 * H * es, T, n, H,
+                          -(-n // 8) * 8, vec, code, stream)
+
+    return event_ms(grad), event_ms(dxp), event_ms(dwp)
+
+
+def compare_lxent(torch, card, tree: str):
+    """``--compare``'s linear-xent rows (TPU rows 10, 11): ``lxent_dx``
+    alone, ``lxent_dw`` alone and ``lxent_grads`` at `COMPARE_LXENT`'s
+    heads in bf16, through TREE's own wrappers and library
+    (`tree_linear_xent`) and this tree's, in turns on the same inputs
+    (`ab2_ms`); then this tree's three products apart
+    (`lxent_products_ms`, with their TFLOP/s) and ``lxent_grads`` at
+    each `COMPARE_CHUNKS` chunk and at `wg_chunk`'s. Returns the rows."""
+    from apex1_tpu_torch.ops import linear_xent as lx
+    other = tree_linear_xent(tree)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    for case, T, V, H, K, pad in COMPARE_LXENT:
+        x = (torch.randn(T, H, generator=gen, device="cuda") * 0.5).to(
+            torch.bfloat16)
+        w = (torch.randn(V, H, generator=gen, device="cuda") * 0.5
+             * (TH / H) ** 0.5).to(torch.bfloat16)
+        t = torch.randint(0, K, (T,), generator=gen, device="cuda")
+        if pad is not None:
+            t[::7] = pad
+        kw = dict(num_classes=K, padding_idx=pad)
+        _, lse = lx.lxent_fwd(x, w, t, **kw)
+        dloss = torch.full((T,), 1.0 / T, device="cuda")
+        for name in ("lxent_dx", "lxent_dw", "lxent_grads"):
+            was, now = ab2_ms(
+                lambda: getattr(other, name)(x, w, t, lse, dloss, **kw),
+                lambda: getattr(lx, name)(x, w, t, lse, dloss, **kw))
+            rows.append(dict(kernel=name, case=f"{case} H={H}",
+                             other_ms=was, ms=now, speedup=was / now))
+        flop = 2.0 * T * K * H
+        parts = lxent_products_ms(torch, x, w, t, lse, dloss, K, pad)
+        chunk_ms = {}
+        prev = lx.WIDE_G_BYTES
+        try:
+            for c in COMPARE_CHUNKS:
+                lx.WIDE_G_BYTES = c * T * x.element_size()
+                chunk_ms[c] = event_ms(
+                    lambda: lx.lxent_grads(x, w, t, lse, dloss, **kw))
+        finally:
+            lx.WIDE_G_BYTES = prev
+        rows.append(dict(kernel="products", case=f"{case} H={H}",
+                         grad_ms=parts[0], dx_ms=parts[1], dw_ms=parts[2],
+                         tflops=[flop / m / 1e9 for m in parts],
+                         chunk=lx.wg_chunk(T, V, x.element_size()),
+                         grads_ms_by_chunk=chunk_ms))
+        del x, w, t, lse, dloss
+        torch.cuda.empty_cache()
+    for r in rows:
+        if r["kernel"] == "products":
+            print(f"phase compare: linear-xent products [{r['case']}] "
+                  f"G ms={r['grad_ms']:.4f} dx ms={r['dx_ms']:.4f} "
+                  f"dW ms={r['dw_ms']:.4f} TFLOP/s "
+                  f"{', '.join(f'{v:.1f}' for v in r['tflops'])} "
+                  f"(chunks of {r['chunk']} rows); lxent_grads ms by "
+                  f"chunk rows "
+                  f"{ {k: round(v, 4) for k, v in r['grads_ms_by_chunk'].items()} } "
+                  f"[{card}]")
+    return rows
+
+
 def compare_flash(torch, ops, card, tree: str) -> int:
     """``--compare TREE``: the flash forward, dq and dk/dv at
     `COMPARE_FLASH`'s cases and the merge forward at `COMPARE_MERGE`'s,
     through TREE's kernels (a checkout of another commit, built here)
-    and this tree's, in turns on the same inputs (`ab_ms`); prints a
+    and this tree's, in turns on the same inputs (`ab_ms`), then the
+    linear-xent backward (`compare_lxent`); prints a
     line per kernel and case and writes ``chiprun_out/compare.json``."""
     from apex1_tpu_torch.ops.attention import (flash_dkv, flash_dq,
                                                flash_fwd, flash_fwd_merge)
@@ -2159,7 +2321,8 @@ def compare_flash(torch, ops, card, tree: str) -> int:
                          other_ms=was, ms=now, speedup=was / now))
         del q, k, v, po, plse
         torch.cuda.empty_cache()
-    for r in rows:
+    rows += compare_lxent(torch, card, tree)
+    for r in (r for r in rows if r["kernel"] != "products"):
         print(f"phase compare: {r['kernel']} [{r['case']}] {tree} "
               f"ms={r['other_ms']:.4f} this tree ms={r['ms']:.4f} "
               f"speedup {r['speedup']:.2f}x [{card}]")
@@ -2284,8 +2447,12 @@ def kernel_split(torch, prof, steps: int, wall: float, top: int = 12):
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     device = sum(r[1] for r in rows)
+    # the fused LM head's kernels: the forward (lxent_fwd_kernel, and
+    # lxw_scores_kernel with lxw_merge_kernel past H 768) and the backward
+    # (lxent_wg_* in bf16/fp16; lxent_bwd_kernel, lxw_* in fp32)
+    lxent = sum(ms for k, ms, _ in rows if "lxent" in k or "lxw_" in k)
     return {"step_wall_ms": wall, "device_ms_per_step": device,
-            "device_busy": device / wall,
+            "device_busy": device / wall, "lxent_ms_per_step": lxent,
             "top": [{"name": k[:80], "ms_per_step": ms, "calls": c}
                     for k, ms, c in rows[:top]]}
 
@@ -4679,17 +4846,22 @@ def main() -> int:
         return gate_sweep(torch, ops, card, paths or ["kernels", "plain"])
 
     if "--profile" in sys.argv[1:]:
-        prof = {"decode": profile_decode(torch),
-                "train": profile_train(torch, use_flash=False),
-                "train_flash": profile_train(torch, use_flash=True),
-                "train_fused_head": profile_train(torch, use_flash=True,
-                                                  fuse_head=True),
-            "llama_block": profile_llama(torch, fused_mlp=False),
-            "llama_block_fused_mlp": profile_llama(torch, fused_mlp=True),
-            "bert_large": profile_bert(torch, "bert_large"),
-            "t5": profile_t5(torch),
-            "decode_int8": profile_decode_int8(torch),
-            "serve_lora": profile_serve_lora(torch)}
+        runs = {"decode": lambda: profile_decode(torch),
+                "train": lambda: profile_train(torch, use_flash=False),
+                "train_flash": lambda: profile_train(torch, use_flash=True),
+                "train_fused_head": lambda: profile_train(
+                    torch, use_flash=True, fuse_head=True),
+                "llama_block": lambda: profile_llama(torch, fused_mlp=False),
+                "llama_block_fused_mlp": lambda: profile_llama(
+                    torch, fused_mlp=True),
+                "bert": lambda: profile_bert(torch, "bert"),
+                "bert_large": lambda: profile_bert(torch, "bert_large"),
+                "t5": lambda: profile_t5(torch),
+                "decode_int8": lambda: profile_decode_int8(torch),
+                "serve_lora": lambda: profile_serve_lora(torch)}
+        # the names after --profile pick some of them; none: all
+        picked = [a for a in sys.argv[1:] if a in runs] or list(runs)
+        prof = {name: runs[name]() for name in picked}
         os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
         with open(os.path.join(HERE, "chiprun_out", "profile.json"),
                   "w") as f:
@@ -5088,9 +5260,9 @@ def main() -> int:
                "lxent_fwd": ("apex1_tpu_torch/csrc/linear_xent.cu",
                              "apex1_tpu/ops/linear_xent.py:384, :286, "
                              ":316"),
-               "lxent_dx": ("apex1_tpu_torch/csrc/linear_xent.cu",
+               "lxent_dx": ("apex1_tpu_torch/csrc/linear_xent_bwd.cu",
                             "apex1_tpu/ops/linear_xent.py:345"),
-               "lxent_dw": ("apex1_tpu_torch/csrc/linear_xent.cu",
+               "lxent_dw": ("apex1_tpu_torch/csrc/linear_xent_bwd.cu",
                             "apex1_tpu/ops/linear_xent.py:357"),
                "rope": ("apex1_tpu_torch/csrc/rope.cu",
                         "apex1_tpu/ops/rope.py:51"),

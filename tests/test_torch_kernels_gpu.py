@@ -23,9 +23,12 @@ same bits on a second run (no atomics). The linear-xent kernels
 (forward modes 0-2, dx, dW) the same way, ragged T, V and H, a
 col_offset shard with smoothing and padding_idx: the plain versions
 round G to the operand type as the kernels do; mode 2 equals mode 1
-bit for bit and dx, dW give the same bits on a second run; past H =
-768 (the wide path) also in vocab chunks, dx and dW formed together
-equal to each alone. RoPE exactly (both sides round the same fp32
+bit for bit and dx, dW give the same bits on a second run; the
+chunked backward (bf16 and fp16 at every H on the wgmma kernels, fp32
+past H = 768) in vocab chunks of 128 rows, dx and dW formed together
+equal to each alone, also at the wgmma tiles' edges (T and vocab rows
+off the tile, BERT's padded 776 and 1032 and its 769 on the plain-load
+branch, H 4096 at a small T). RoPE exactly (both sides round the same fp32
 operations once each). The fused GLU per element as the training
 kernels (fp32 products either way, in another order). The
 bias-dropout-add kernels: y and dx exactly (the same fp32 operations,
@@ -354,6 +357,19 @@ _LXENT = {
     "h40_scalar_loads": (64, 256, 40, 256, 0, 0.0, None),
     "wide_ragged": (200, 333, 1000, 320, 0, 0.0, None),
     "wide_shard_smooth_pad": (77, 530, 1032, 900, 200, 0.1, 3),
+    # the bf16/fp16 backward's wgmma tiles (128 rows x 128 or 256 columns,
+    # K steps of 64) at their edges: T and vocab rows off the tile, the
+    # last chunk ragged (333 = 128 + 128 + 77), BERT's padded MLM widths
+    # and its H + 1 on the plain-load branch, a Llama-wide head at a small
+    # T, two whole chunks, and a shard with smoothing and padding_idx
+    "wg_t130_v333": (130, 333, 96, 320, 0, 0.0, None),
+    "wg_t257_h256": (257, 333, 256, 333, 0, 0.0, None),
+    "wg_h776": (200, 300, 776, 300, 0, 0.0, None),
+    "wg_h1032": (130, 300, 1032, 290, 0, 0.0, None),
+    "wg_h769_plain_loads": (130, 333, 769, 333, 0, 0.0, None),
+    "wg_h4096_small_t": (64, 300, 4096, 300, 0, 0.0, None),
+    "wg_two_whole_chunks": (129, 256, 64, 256, 0, 0.0, None),
+    "wg_shard_h776_smooth_pad": (257, 333, 776, 900, 300, 0.1, 3),
 }
 
 
@@ -382,13 +398,14 @@ def test_linear_xent_kernels_match_plain(cuda, dtype, name, monkeypatch):
     """The forward (modes 0 and 1; mode 2 bit for bit mode 1), dx and dW
     each against its plain version on the same inputs (the backward
     from the plain forward's lse); dx and dW give the same bits on a
-    second run (no atomics). The wide cases (H > 768) run the backward
-    in vocab chunks of 128 rows; dx and dW formed together (one G a
-    chunk) equal each formed alone."""
+    second run (no atomics). The backward runs in vocab chunks of 128
+    rows (bf16 and fp16 at every H, fp32 past H = 768); dx and dW
+    formed together (one G a chunk) equal each formed alone."""
     from apex1_tpu_torch.ops import linear_xent
     from apex1_tpu_torch.ops.linear_xent import (lxent_dw, lxent_dx,
                                                  lxent_fwd, lxent_grads)
-    monkeypatch.setattr(linear_xent, "WIDE_CHUNK", 128)
+    monkeypatch.setattr(linear_xent, "WIDE_G_BYTES", 1)  # 128-row chunks
+    monkeypatch.setattr(linear_xent, "F32_CHUNK", 128)
     dt = getattr(torch, dtype)
     x, w, t, dloss, kw = _lxent_inputs(name, dt, cuda)
     (loss, lse), (wloss, wlse) = _both(lambda: lxent_fwd(x, w, t, **kw))
