@@ -24,8 +24,8 @@
 // through broadcast strides (0 along a size-1 dimension) and added to the
 // scaled score of every kernel before the mask: s·scale and + bias are
 // rounded apart. The wgmma kernels stage the bias tile with their K/V or
-// Q/dO tile and add it in registers; dq and dbias in a pass of the whole
-// block over the fp32 score tile (coalesced rows). A null bias skips it.
+// Q/dO tile and add it in registers; dbias (and fp32's kernels) in a pass
+// of the whole block over the fp32 score tile (coalesced rows). A null bias skips it.
 // The causal tile skip stays exact: a bias never makes a masked position
 // valid.
 //
@@ -41,9 +41,9 @@
 //   dq:       dp = keep ? dp·inv : 0 before ds = p·(dp - δ + dlse)·scale
 //   dk, dv:   dv takes keep ? p·inv : 0 (rounded to dO's type), ds as dq
 // Forward and backward evaluate the mask at the same positions, so no
-// mask is stored. A row's key is formed once (the wgmma forward: a
+// mask is stored. A row's key is formed once (the wgmma forward and dq: a
 // thread's two rows once a kernel; dk/dv: a q tile's 64 staged with it;
-// dq, dbias: once a tile), so an element costs one mix32. p == 0 launches
+// dbias: once a tile), so an element costs one mix32. p == 0 launches
 // the kernels without the dropout code (template DROP), as before. The
 // kernels live in flash_attn.cuh and flash_wg.cuh; this file holds the
 // entry points and
@@ -70,16 +70,16 @@
 //   q heads and over the q tiles from the diagonal on; the group sum
 //   stays in the block's accumulators, as the TPU kernel keeps it in
 //   scratch. No atomics anywhere: two runs give the same bits.
-// bf16/fp16 forward (with the merge epilogue) and dk/dv: wgmma on
+// bf16/fp16 forward (with the merge epilogue), dq and dk/dv: wgmma on
 // register-resident fp32 accumulators, fed by a cp.async ring of
-// 128B-swizzled shared tiles (flash_wg.cuh, which says how). dq and dbias
-// in bf16/fp16: 128 threads staging every tile in shared memory, WMMA
+// 128B-swizzled shared tiles (flash_wg.cuh, which says how). dbias in
+// bf16/fp16: 128 threads staging every tile in shared memory, WMMA
 // 16x16x16 products with fp32 accumulation (each of the four warps owns a
 // 16-row strip), the fp32 score tile through shared memory for the
 // softmax and masking, done by 128 / rows threads per row. fp32, all four:
 // the same staging with plain FMA on the CUDA cores (no TF32) and 32-row
 // tiles. The head dimension is padded with zeros in shared memory to 64
-// or 128. Not yet: wgmma for dq and dbias, TMA, warp specialisation.
+// or 128. Not yet: wgmma for dbias, TMA, warp specialisation.
 
 #include "flash_attn.cuh"
 

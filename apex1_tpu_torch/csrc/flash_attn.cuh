@@ -424,6 +424,7 @@ __device__ __forceinline__ void probs_and_ds(const FlashArgs& a,
   }
 }
 
+// fp32 only: bf16/fp16 dq is flash_dq_wg_kernel (flash_wg.cuh)
 template <typename T, int DP, bool DROP>
 __global__ void __launch_bounds__(kThreads)
     flash_dq_kernel(const FlashArgs a) {
@@ -685,7 +686,7 @@ enum Which { kFwd = 0, kDq = 1, kDkv = 2, kDbias = 3 };
 
 #include "flash_wg.cuh"
 
-// bf16/fp16: the forward and dk/dv on wgmma (flash_wg.cuh), dq and dbias
+// bf16/fp16: the forward, dq and dk/dv on wgmma (flash_wg.cuh), dbias
 // here; fp32: all four here
 template <typename T, int DP, bool DROP>
 static int launch(int which, const FlashArgs& a, cudaStream_t st) {
@@ -695,30 +696,28 @@ static int launch(int which, const FlashArgs& a, cudaStream_t st) {
   size_t smem = 0;
   unsigned tiles = 0;
   unsigned heads = 0;
-  if constexpr (!std::is_same<T, float>::value) {
-    if (which == kFwd || which == kDkv)
-      return launch_wg<T, DP, DROP>(which, a, st);
+  if (which == kDbias) {
+    kern = flash_dbias_kernel<T, DP, DROP>;
+    smem = G::DB;
+    tiles = ((a.Sq + G::BT - 1) / G::BT) * ((a.Sk + G::BT - 1) / G::BT);
+    heads = a.Hb;
+  } else if constexpr (!std::is_same<T, float>::value) {
+    return launch_wg<T, DP, DROP>(which, a, st);
   } else if (which == kFwd) {
     kern = flash_fwd_kernel<T, DP, DROP>;
     smem = G::FWD;
     tiles = (a.Sq + G::BT - 1) / G::BT;
     heads = a.Hq;
-  } else if (which == kDkv) {
-    kern = flash_dkv_kernel<T, DP, DROP>;
-    smem = G::DKV;
-    tiles = (a.Sk + G::BT - 1) / G::BT;
-    heads = a.Hkv;
-  }
-  if (which == kDq) {
+  } else if (which == kDq) {
     kern = flash_dq_kernel<T, DP, DROP>;
     smem = G::DQ;
     tiles = (a.Sq + G::BT - 1) / G::BT;
     heads = a.Hq;
-  } else if (which == kDbias) {
-    kern = flash_dbias_kernel<T, DP, DROP>;
-    smem = G::DB;
-    tiles = ((a.Sq + G::BT - 1) / G::BT) * ((a.Sk + G::BT - 1) / G::BT);
-    heads = a.Hb;
+  } else {
+    kern = flash_dkv_kernel<T, DP, DROP>;
+    smem = G::DKV;
+    tiles = (a.Sk + G::BT - 1) / G::BT;
+    heads = a.Hkv;
   }
   if (!attr_set[which]) {
     const cudaError_t e = cudaFuncSetAttribute(

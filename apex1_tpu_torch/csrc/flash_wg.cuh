@@ -1,7 +1,7 @@
-// The bf16/fp16 flash forward (with its merge epilogue) and dk/dv for
+// The bf16/fp16 flash forward (with its merge epilogue), dq and dk/dv for
 // Hopper: warpgroups of 128 threads running wgmma m64nNk16 on shared tiles
 // filled by a cp.async ring, with every fp32 accumulator (scores, output,
-// dK, dV) in registers for the whole loop. Included by flash_attn.cuh,
+// dQ, dK, dV) in registers for the whole loop. Included by flash_attn.cuh,
 // whose FlashArgs, masks and dropout hash they share; what they compute is
 // described in flash_attn.cu.
 //
@@ -22,6 +22,16 @@
 // dlse and dropout row keys (staged in shared memory with the Q/dO tile),
 // and accumulates dV += Pᵀ·dO and dK += dSᵀ·Q with Pᵀ and dSᵀ as the
 // register A operand.
+//
+// dq: the forward's geometry with dk/dv's arithmetic. A warpgroup owns 64
+// query rows of one (b, h), Q and dO staged once, and walks the key tiles
+// the rows reach with K, V, the key segments and the bias tile in the
+// ring. Per tile it computes S = Q·Kᵀ and dP = dO·Vᵀ (both operands
+// K-major), forms dS on the fragment from its two rows' lse, δ, dlse and
+// dropout row keys (kept in registers: the block's own rows), and
+// accumulates dQ += dS·K with dS as the register A operand and K, read
+// from the tile S used, as the MN-major B operand. Key tiles are summed in
+// order: no atomics, the same bits on every launch.
 //
 // Masks cost only where a tile crosses the diagonal, the Sq/Sk edge or a
 // segment boundary: there a masked logit becomes -inf, in selects without
@@ -55,6 +65,8 @@ struct WgGeom {
   static constexpr size_t F_BIAS = size_t(BM) * F_LDB * 4;
   static constexpr size_t FWD =
       1024 + F_Q + STAGES * F_STAGE + STAGES * F_SEG;
+  // dq: the forward's tiles and ring, with dO beside Q
+  static constexpr size_t DQ = FWD + F_Q;
   // dk/dv: BK keys a block, BQ query rows a tile
   static constexpr int BK = 64, BQ = 64;
   static constexpr int B_LDB = BK + 4;  // bias tile stride (floats)
@@ -65,7 +77,7 @@ struct WgGeom {
   static constexpr size_t B_BIAS = size_t(BQ) * B_LDB * 4;
   static constexpr size_t DKV =
       1024 + 2 * B_KV + STAGES * B_STAGE + STAGES * B_STATS;
-  static_assert(FWD + STAGES * F_BIAS <= 232448 &&
+  static_assert(DQ + STAGES * F_BIAS <= 232448 &&
                     DKV + STAGES * B_BIAS <= 232448,
                 "shared memory");
 };
@@ -99,6 +111,134 @@ __device__ __forceinline__ bool full_tile(const FlashArgs& a, int k0, int BN,
                            static_cast<long long>(r0) + a.q_off);
 }
 
+// The logits of a 64-row score fragment of the forward or dq (rows from
+// q0, this thread's two at qrow with segments qs; keys from k0): s·scale,
+// or s·scale + bias rounded apart (tb: the stage's bias tile, row stride
+// LDB; null without a bias). Masked positions become -inf, whose exp is
+// exactly 0 whatever the row max (a valid logit of NEG_INF, as an
+// additive mask gives, keeps the reference's exp(s - m)). Only a tile
+// that crosses the diagonal, the Sk edge or a segment boundary pays for
+// it, in selects without branches: per row, the last valid column
+// (causal and Sk), then the segment ids (seg: the stage's key segments).
+template <int LDB>
+__device__ __forceinline__ void row_logits(float (&s)[32], const FlashArgs& a,
+                                           const float* tb, const int* seg,
+                                           int row0, int quad, int q0, int k0,
+                                           const int (&qrow)[2],
+                                           const int (&qs)[2]) {
+  if (tb != nullptr) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int i = 4 * j + 2 * hh;
+        const float2 bv = *reinterpret_cast<const float2*>(
+            tb + (row0 + 8 * hh) * LDB + 8 * j + 2 * quad);
+        s[i] = __fadd_rn(__fmul_rn(s[i], a.scale), bv.x);
+        s[i + 1] = __fadd_rn(__fmul_rn(s[i + 1], a.scale), bv.y);
+      }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] *= a.scale;
+  }
+  if (!full_tile(a, k0, 64, q0)) {
+    int last[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      last[hh] = a.causal ? min(a.Sk - 1 - k0,
+                                qrow[hh] + a.q_off - a.k_off - k0)
+                          : a.Sk - 1 - k0;
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      s[i] = col(i, quad) <= last[(i / 2) % 2] ? s[i] : -INFINITY;
+    if (a.qseg != nullptr) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        s[i] = seg[col(i, quad)] == qs[(i / 2) % 2] ? s[i] : -INFINITY;
+    }
+  }
+}
+
+// The forward's and dq's key ring: per BN-key tile its K and V (swizzled,
+// K-major), its key segments and, with a bias, the block's BM x BN fp32
+// bias tile, STAGES of each from `base` on (past the block's Q, and dq's
+// dO). The block owns query rows q0.. of (b, h) and walks the nk key
+// tiles they reach; `start` issues the first STAGES - 1 and `next(ki)`
+// is the loop's one __syncthreads a tile, then refills the stage freed.
+template <typename T, int DP>
+struct KeyRing {
+  using G = WgGeom<DP>;
+  static constexpr int BM = G::BM, BN = G::BN, S = G::STAGES;
+  const FlashArgs& a;
+  unsigned char* base;
+  const T* kg;
+  const T* vg;
+  const float* bg;  // the block's bias rows; null without a bias
+  int b, q0, nk;
+  bool vec, bias_vec;
+
+  __device__ __forceinline__ KeyRing(const FlashArgs& args,
+                                     unsigned char* ring, int b_, int h,
+                                     int q0_)
+      : a(args), base(ring), b(b_), q0(q0_) {
+    const size_t kv0 =
+        (size_t(b) * a.Hkv + h / (a.Hq / a.Hkv)) * a.Sk * a.D;
+    kg = static_cast<const T*>(a.k) + kv0;
+    vg = static_cast<const T*>(a.v) + kv0;
+    bg = a.bias == nullptr ? nullptr
+                           : a.bias + b * a.bias_sb + h * a.bias_sh +
+                                 static_cast<long long>(q0) * a.Sk;
+    vec = a.vec != 0;
+    bias_vec = a.Sk % 4 == 0 && reinterpret_cast<uintptr_t>(a.bias) % 16 == 0;
+    nk = tiles_reached(a, q0, BM, BN);
+  }
+  __device__ __forceinline__ unsigned char* k(int st) const {
+    return base + st * G::F_STAGE;
+  }
+  __device__ __forceinline__ unsigned char* v(int st) const {
+    return k(st) + G::F_KV;
+  }
+  __device__ __forceinline__ int* seg(int st) const {
+    return reinterpret_cast<int*>(base + S * G::F_STAGE) + st * BN;
+  }
+  // the stage's bias tile (row stride F_LDB); null without a bias
+  __device__ __forceinline__ float* bias(int st) const {
+    return bg == nullptr ? nullptr
+                         : reinterpret_cast<float*>(base + S * G::F_STAGE +
+                                                    S * G::F_SEG) +
+                               st * BM * G::F_LDB;
+  }
+  // issue key tile ki's copies as one group (an empty one past the last)
+  __device__ __forceinline__ void load(int ki) const {
+    if (ki < nk) {
+      const int st = ki % S, k0 = ki * BN, rows = min(BN, a.Sk - k0);
+      wg::load_tile<T, BN, DP, G::NTHR>(k(st), kg + size_t(k0) * a.D, rows,
+                                        a.D, vec);
+      wg::load_tile<T, BN, DP, G::NTHR>(v(st), vg + size_t(k0) * a.D, rows,
+                                        a.D, vec);
+      if (a.kseg != nullptr)
+        for (int i = threadIdx.x; i < BN; i += G::NTHR)
+          seg(st)[i] = i < rows ? a.kseg[size_t(b) * a.Sk + k0 + i] : 0;
+      if (bg != nullptr)
+        wg::load_f32_tile<BM, BN, G::F_LDB, G::NTHR>(
+            bias(st), bg + k0, min(BM, a.Sq - q0), rows, a.Sk, bias_vec);
+    }
+    cp_async_commit();
+  }
+  __device__ __forceinline__ void start() const {
+#pragma unroll
+    for (int t = 0; t < S - 1; ++t) load(t);
+  }
+  // after it tile ki has landed and the block is done with tile ki - 1,
+  // whose stage now refills with tile ki + S - 1
+  __device__ __forceinline__ void next(int ki) const {
+    cp_async_wait_group<S - 2>();
+    wg::fence_async_smem();
+    __syncthreads();
+    load(ki + S - 1);
+  }
+};
+
 template <typename T, int DP, bool DROP, bool MERGE>
 __global__ void __launch_bounds__(WgGeom<DP>::NTHR)
     flash_fwd_wg_kernel(const FlashArgs a) {
@@ -108,29 +248,14 @@ __global__ void __launch_bounds__(WgGeom<DP>::NTHR)
   extern __shared__ __align__(1024) unsigned char wg_smem[];
   const uint32_t s0 = wg::smem_u32(wg_smem);
   unsigned char* sQ = wg_smem + (((s0 + 1023u) & ~1023u) - s0);
-  auto sK = [&](int st) { return sQ + G::F_Q + st * G::F_STAGE; };
-  auto sV = [&](int st) { return sK(st) + G::F_KV; };
-  int* sSeg = reinterpret_cast<int*>(sQ + G::F_Q + S * G::F_STAGE);
-  float* sBias = reinterpret_cast<float*>(sQ + G::F_Q + S * G::F_STAGE +
-                                          S * G::F_SEG);
 
   const int tid = threadIdx.x, lane = tid % 32;
   const int warp = tid / 32, quad = lane % 4;
   // the longest causal tiles first
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (a.Hq / a.Hkv);
   const size_t bh = size_t(b) * a.Hq + h;
-  const size_t kv0 = (size_t(b) * a.Hkv + hk) * a.Sk * a.D;
-  const T* kg = static_cast<const T*>(a.k) + kv0;
-  const T* vg = static_cast<const T*>(a.v) + kv0;
-  const bool vec = a.vec != 0;
-  const float* bg = a.bias == nullptr
-                        ? nullptr
-                        : a.bias + b * a.bias_sb + h * a.bias_sh +
-                              static_cast<long long>(q0) * a.Sk;
-  const bool bias_vec = a.Sk % 4 == 0 &&
-                        reinterpret_cast<uintptr_t>(a.bias) % 16 == 0;
+  const KeyRing<T, DP> ring(a, sQ + G::F_Q, b, h, q0);
 
   // this thread's two rows of the tile and their query rows
   const int row0 = warp * 16 + lane / 4;
@@ -145,34 +270,10 @@ __global__ void __launch_bounds__(WgGeom<DP>::NTHR)
     rk[hh] = DROP ? drop_row_key(a, b, h, qrow[hh]) : 0u;
   }
 
-  auto load_stage = [&](int ki) {
-    const int st = ki % S, k0 = ki * BN, rows = min(BN, a.Sk - k0);
-    wg::load_tile<T, BN, DP, NTHR>(sK(st), kg + size_t(k0) * a.D, rows, a.D,
-                                   vec);
-    wg::load_tile<T, BN, DP, NTHR>(sV(st), vg + size_t(k0) * a.D, rows, a.D,
-                                   vec);
-    if (a.kseg != nullptr)
-      for (int i = tid; i < BN; i += NTHR)
-        sSeg[st * BN + i] =
-            i < rows ? a.kseg[size_t(b) * a.Sk + k0 + i] : 0;
-    if (bg != nullptr)
-      wg::load_f32_tile<BM, BN, G::F_LDB, NTHR>(
-          sBias + st * BM * G::F_LDB, bg + k0, min(BM, a.Sq - q0), rows,
-          a.Sk, bias_vec);
-    cp_async_commit();
-  };
-
   wg::load_tile<T, BM, DP, NTHR>(
       sQ, static_cast<const T*>(a.q) + (bh * a.Sq + q0) * a.D,
-      min(BM, a.Sq - q0), a.D, vec);
-  const int nk = tiles_reached(a, q0, BM, BN);
-#pragma unroll
-  for (int t = 0; t < S - 1; ++t) {
-    if (t < nk)
-      load_stage(t);
-    else
-      cp_async_commit();
-  }
+      min(BM, a.Sq - q0), a.D, ring.vec);
+  ring.start();
 
   float o[NB][32];
 #pragma unroll
@@ -181,14 +282,8 @@ __global__ void __launch_bounds__(WgGeom<DP>::NTHR)
     for (int i = 0; i < 32; ++i) o[n][i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
-  for (int ki = 0; ki < nk; ++ki) {
-    cp_async_wait_group<S - 2>();
-    wg::fence_async_smem();
-    __syncthreads();  // tile ki has landed; tile ki - 1's stage is free
-    if (ki + S - 1 < nk)
-      load_stage(ki + S - 1);
-    else
-      cp_async_commit();
+  for (int ki = 0; ki < ring.nk; ++ki) {
+    ring.next(ki);
     const int st = ki % S, k0 = ki * BN;
 
     float s[32];
@@ -198,51 +293,13 @@ __global__ void __launch_bounds__(WgGeom<DP>::NTHR)
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
       wg::mma_ss_n64<T>(s, wg::desc_k(sQ, BM, 0, kk),
-                        wg::desc_k(sK(st), BN, 0, kk), kk > 0);
+                        wg::desc_k(ring.k(st), BN, 0, kk), kk > 0);
     wg::commit();
     wg::wait<0>();
     wg::keep(s);
 
-    // the logits: s·scale, or s·scale + bias rounded apart
-    if (bg != nullptr) {
-      const float* tb = sBias + st * BM * G::F_LDB;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int i = 4 * j + 2 * hh;
-          const float2 bv = *reinterpret_cast<const float2*>(
-              tb + (row0 + 8 * hh) * G::F_LDB + 8 * j + 2 * quad);
-          s[i] = __fadd_rn(__fmul_rn(s[i], a.scale), bv.x);
-          s[i + 1] = __fadd_rn(__fmul_rn(s[i + 1], a.scale), bv.y);
-        }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 32; ++i) s[i] *= a.scale;
-    }
-    // Masked positions become -inf, whose exp is exactly 0 whatever the
-    // row max (a valid logit of NEG_INF, as an additive mask gives, keeps
-    // the reference's exp(s - m)). Only a tile that crosses the diagonal,
-    // the Sk edge or a segment boundary pays for it, in selects without
-    // branches: per row, the last valid column (causal and Sk), then the
-    // segment ids.
-    if (!full_tile(a, k0, BN, q0)) {
-      int last[2];
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-        last[hh] = a.causal ? min(a.Sk - 1 - k0,
-                                  qrow[hh] + a.q_off - a.k_off - k0)
-                            : a.Sk - 1 - k0;
-#pragma unroll
-      for (int i = 0; i < 32; ++i)
-        s[i] = col(i, quad) <= last[(i / 2) % 2] ? s[i] : -INFINITY;
-      if (a.qseg != nullptr) {
-        const int* seg = sSeg + st * BN;
-#pragma unroll
-        for (int i = 0; i < 32; ++i)
-          s[i] = seg[col(i, quad)] == qs[(i / 2) % 2] ? s[i] : -INFINITY;
-      }
-    }
+    row_logits<G::F_LDB>(s, a, ring.bias(st), ring.seg(st), row0, quad, q0,
+                         k0, qrow, qs);
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int i = 0; i < 32; ++i)
@@ -288,7 +345,8 @@ __global__ void __launch_bounds__(WgGeom<DP>::NTHR)
     for (int t = 0; t < 4; ++t)
 #pragma unroll
       for (int n = 0; n < NB; ++n)
-        wg::mma_rs_n64_t<T>(o[n], pa[t], wg::desc_mn(sV(st), BN, n, t), 1);
+        wg::mma_rs_n64_t<T>(o[n], pa[t], wg::desc_mn(ring.v(st), BN, n, t),
+                            1);
     wg::commit();
     wg::wait<0>();
 #pragma unroll
@@ -592,14 +650,144 @@ __global__ void __launch_bounds__(WgGeom<DP>::NTHR)
   }
 }
 
+template <typename T, int DP, bool DROP>
+__global__ void __launch_bounds__(WgGeom<DP>::NTHR)
+    flash_dq_wg_kernel(const FlashArgs a) {
+  using G = WgGeom<DP>;
+  constexpr int BM = G::BM, BN = G::BN, NB = G::NB, NTHR = G::NTHR;
+  constexpr int S = G::STAGES;
+  static_assert(BN == 64, "S and dP are m64n64 products");
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  const uint32_t s0 = wg::smem_u32(wg_smem);
+  unsigned char* sQ = wg_smem + (((s0 + 1023u) & ~1023u) - s0);
+  unsigned char* sDO = sQ + G::F_Q;
+
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int warp = tid / 32, quad = lane % 4;
+  // the longest causal tiles first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = size_t(b) * a.Hq + h;
+  const KeyRing<T, DP> ring(a, sDO + G::F_Q, b, h, q0);
+
+  // this thread's two rows of the tile: query row, lse, δ, dlse, segment
+  // and dropout row key, in registers for the whole loop
+  const int row0 = warp * 16 + lane / 4;
+  int qrow[2], qs[2];
+  float lse[2], dlt[2], dls[2];
+  uint32_t rk[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    qrow[hh] = q0 + row0 + 8 * hh;
+    const bool in = qrow[hh] < a.Sq;
+    const size_t r = bh * a.Sq + qrow[hh];
+    lse[hh] = in ? a.lse_in[r] : 0.f;
+    dlt[hh] = in ? a.delta[r] : 0.f;
+    dls[hh] = (in && a.dlse != nullptr) ? a.dlse[r] : 0.f;
+    qs[hh] = (in && a.qseg != nullptr) ? a.qseg[size_t(b) * a.Sq + qrow[hh]]
+                                       : 0;
+    rk[hh] = DROP ? drop_row_key(a, b, h, qrow[hh]) : 0u;
+  }
+
+  const size_t qoff = (bh * a.Sq + q0) * a.D;
+  const int q_rows = min(BM, a.Sq - q0);
+  wg::load_tile<T, BM, DP, NTHR>(sQ, static_cast<const T*>(a.q) + qoff,
+                                 q_rows, a.D, ring.vec);
+  wg::load_tile<T, BM, DP, NTHR>(sDO, static_cast<const T*>(a.dout) + qoff,
+                                 q_rows, a.D, ring.vec);
+  ring.start();
+
+  float dq[NB][32];
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[n][i] = 0.f;
+
+  for (int ki = 0; ki < ring.nk; ++ki) {
+    ring.next(ki);
+    const int st = ki % S, k0 = ki * BN;
+
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = 0.f;
+      dp[i] = 0.f;
+    }
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      wg::mma_ss_n64<T>(s, wg::desc_k(sQ, BM, 0, kk),
+                        wg::desc_k(ring.k(st), BN, 0, kk), kk > 0);
+      wg::mma_ss_n64<T>(dp, wg::desc_k(sDO, BM, 0, kk),
+                        wg::desc_k(ring.v(st), BN, 0, kk), kk > 0);
+    }
+    wg::commit();
+    wg::wait<0>();
+    wg::keep(s);
+    wg::keep(dp);
+
+    row_logits<G::F_LDB>(s, a, ring.bias(st), ring.seg(st), row0, quad, q0,
+                         k0, qrow, qs);
+    // dS = P ∘ (dP' - δ + dlse)·scale, dP' = keep ? dP·inv : 0 with
+    // dropout; rounded to T as the A fragment of key slice j / 2
+    uint32_t da[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float ds2[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * hh + e;
+          const float pv = expf(s[i] - lse[hh]);
+          float dpv = dp[i];
+          if constexpr (DROP)
+            dpv = drop_keep(a, rk[hh], k0 + 8 * j + 2 * quad + e)
+                      ? __fmul_rn(dpv, a.inv)
+                      : 0.f;
+          ds2[e] = pv * (dpv - dlt[hh] + dls[hh]) * a.scale;
+        }
+        da[j / 2][2 * (j % 2) + hh] = wg::pack2<T>(ds2[0], ds2[1]);
+      }
+
+    wg::fence();
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+        wg::mma_rs_n64_t<T>(dq[n], da[t], wg::desc_mn(ring.k(st), BN, n, t),
+                            1);
+    wg::commit();
+    wg::wait<0>();
+#pragma unroll
+    for (int n = 0; n < NB; ++n) wg::keep(dq[n]);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) wg::keep(da[t]);
+  }
+  cp_async_wait_all();
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (qrow[hh] >= a.Sq) continue;
+    T* out = static_cast<T*>(a.dq) + (bh * a.Sq + qrow[hh]) * a.D;
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        store_pair(out, 64 * n + 8 * j + 2 * quad, a.D,
+                   dq[n][4 * j + 2 * hh], dq[n][4 * j + 2 * hh + 1],
+                   a.D % 2 == 0);
+  }
+}
+
 // launch the forward (which == kFwd; the merge epilogue when prev_lse is
-// set) or dk/dv for T in {bf16, fp16}
+// set), dq or dk/dv for T in {bf16, fp16}
 template <typename T, int DP, bool DROP>
 static int launch_wg(int which, const FlashArgs& a, cudaStream_t st) {
   using G = WgGeom<DP>;
-  static bool attr_set[3] = {false, false, false};
+  static bool attr_set[4] = {false, false, false, false};
   void (*kern)(const FlashArgs);
-  size_t smem;
+  size_t smem, most;
   dim3 grid;
   int slot;
   if (which == kFwd) {
@@ -612,17 +800,24 @@ static int launch_wg(int which, const FlashArgs& a, cudaStream_t st) {
                    : flash_fwd_wg_kernel<T, DP, false, false>;
       slot = merge ? 1 : 0;
     }
-    smem = G::FWD + (a.bias != nullptr ? G::STAGES * G::F_BIAS : 0);
+    smem = G::FWD;
+    most = G::FWD + G::STAGES * G::F_BIAS;
+    grid = dim3((a.Sq + G::BM - 1) / G::BM, a.Hq, a.B);
+  } else if (which == kDq) {
+    kern = flash_dq_wg_kernel<T, DP, DROP>;
+    slot = 3;
+    smem = G::DQ;
+    most = G::DQ + G::STAGES * G::F_BIAS;
     grid = dim3((a.Sq + G::BM - 1) / G::BM, a.Hq, a.B);
   } else {
     kern = flash_dkv_wg_kernel<T, DP, DROP>;
     slot = 2;
-    smem = G::DKV + (a.bias != nullptr ? G::STAGES * G::B_BIAS : 0);
+    smem = G::DKV;
+    most = G::DKV + G::STAGES * G::B_BIAS;
     grid = dim3((a.Sk + G::BK - 1) / G::BK, a.Hkv, a.B);
   }
+  if (a.bias != nullptr) smem = most;
   if (!attr_set[slot]) {
-    const size_t most = which == kFwd ? G::FWD + G::STAGES * G::F_BIAS
-                                      : G::DKV + G::STAGES * G::B_BIAS;
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(most));

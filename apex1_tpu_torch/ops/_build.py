@@ -91,6 +91,7 @@ SIGNATURES = {
     "apex1_int8_mm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "apex1_lora_delta": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "apex1_chunk_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "apex1_chunk_matmul_tile": [_I, _I, _I],
 }
 
 _LOCK = threading.Lock()

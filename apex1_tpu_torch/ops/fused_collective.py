@@ -31,6 +31,7 @@
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Optional
 
 import torch
@@ -78,7 +79,7 @@ def chunk_matmul(rows: torch.Tensor, w: torch.Tensor,
     if rows.dtype not in _DTYPES:
         raise ValueError(f"chunk_matmul: operands must be f32/bf16/f16, "
                          f"got {rows.dtype}")
-    a = rows.reshape(-1, K).contiguous()
+    a = rows.reshape(math.prod(lead), K).contiguous()
     b = w.contiguous()
     acc2 = None if acc is None else acc.reshape(-1, N).contiguous()
     check_cuda("chunk_matmul", a, b, acc2)
@@ -95,6 +96,14 @@ def chunk_matmul(rows: torch.Tensor, w: torch.Tensor,
 
 
 chunk_matmul.launches = 0
+
+
+def chunk_tile(M: int, N: int, dtype: torch.dtype) -> tuple:
+    """The output tile (rows, columns) the kernel launches for an
+    ``M x N`` product with operands of ``dtype`` (it needs the built
+    library, so the card)."""
+    t = _build.library().apex1_chunk_matmul_tile(M, N, DTYPE_CODES[dtype])
+    return t // 1000, t % 1000
 
 
 def _chunk_matmul(rows, w, block_m=None, block_n=None):

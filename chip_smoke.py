@@ -149,13 +149,14 @@ Phases, each printed on its own line; a failure in any exits non-zero:
    and Llama: steps 1-3 finite, skipped, finite; skipped_steps 1). The
    step-1 O0 loss of the fused head
    must equal the materialized head's on the same weights within 1e-5.
-9. dpo — GPT-2 124M at O2 through ``Amp(fused_adam)`` with
+9. dpo — GPT-2 124M at O2 through ``Amp(fused_adam(DPO_LR))`` with
    ``chunked_dpo_loss`` over 8 chosen and 8 rejected rows of 1024
    tokens: the reference logps (``chunked_logprob`` under no_grad
    through the initial compute-dtype params) make step 1's margin 0,
-   so its loss must be ln 2 within 1e-4; 3 steps, each launching the
-   linear-xent forward, dx and dW 7 times (vocab chunks) per sequence
-   batch.
+   so its loss must be ln 2 within 1e-4, and every later loss must lie
+   in (0, ln 2) (each step prints its loss and β·margin); 3 steps, each
+   launching the linear-xent forward, dx and dW 7 times (vocab chunks)
+   per sequence batch.
 10. generate — GPT-2 124M at O2 through ``generate`` on a dense cache of
    1024 slots: 8 ragged prompts of 32-512 tokens (``prompt_lens``),
    64 new tokens, greedy and at temperature 0.7 from ``key(0)``; the
@@ -1060,9 +1061,12 @@ def flash_witness(torch, ops):
     mask `attn_keep_mask` gives (offsets 64/192, GQA 4/2, bf16). dk/dv's
     loop walks the query heads of a kv head's group: with dO one-hot on
     query row 5, dv[key] is zero exactly where every head of the group
-    dropped that key. Returns (forward ok, dk/dv ok, keep rate, 3 sigma
-    of it)."""
-    from apex1_tpu_torch.ops.attention import _keep, flash_dkv, flash_fwd
+    dropped that key. dq: with k and v the identity, dO all ones and δ
+    0, dq[q, j] = dS[q, j] = P·inv·scale, zero exactly where (q, j) was
+    dropped, in the kernel and in the plain version. Returns (forward
+    ok, dk/dv ok, dq ok, keep rate, 3 sigma of it)."""
+    from apex1_tpu_torch.ops.attention import (_keep, flash_dkv, flash_dq,
+                                               flash_fwd)
     B, Hq, Hkv, S, p = 2, 4, 2, 128, DROP_P
     g = torch.Generator(device="cuda").manual_seed(SEED)
     q = (0.1 * torch.randn(B, Hq, S, S, generator=g, device="cuda")).to(
@@ -1082,11 +1086,18 @@ def flash_witness(torch, ops):
     delta = (do.float() * out.float()).sum(-1)
     _, dv = flash_dkv(q, k, v, do, lse, delta, None, *args)
     kept = keep[:, :, 5, :].reshape(B, Hkv, Hq // Hkv, S).any(dim=2)
+    _, lse_e = flash_fwd(q, v, v, *args)
+    dq_args = (q, v, v, torch.ones_like(q), lse_e,
+               torch.zeros(B, Hq, S, device="cuda"), None, *args)
+    dq = flash_dq(*dq_args)
+    with ops.force_impl("torch"):
+        wdq = flash_dq(*dq_args)
+    dq_ok = torch.equal(dq != 0, keep) and torch.equal(wdq != 0, keep)
     rate = keep.float().mean().item()
     sigma = (p * (1 - p) / keep.numel()) ** 0.5
     ok_rate = abs(rate - (1 - p)) < 3 * sigma
-    return (fwd_ok and ok_rate, torch.equal(dv[..., 0] != 0, kept), rate,
-            3 * sigma)
+    return (fwd_ok and ok_rate, torch.equal(dv[..., 0] != 0, kept), dq_ok,
+            rate, 3 * sigma)
 
 
 def sdpa_ms(torch, q, k, v, qseg, kseg, causal, p, do):
@@ -1283,10 +1294,11 @@ def check_flash(torch, ops, gen):
         wit = {}
         if p and witness is None:
             witness = flash_witness(torch, ops)
-            label += (f"; witness keep rate {witness[2]:.5f} vs {1 - p} "
-                      f"(3 sigma {witness[3]:.2g})")
+            label += (f"; witness keep rate {witness[3]:.5f} vs {1 - p} "
+                      f"(3 sigma {witness[4]:.2g})")
             wit = dict(fwd=dict(equal_bits=witness[0]),
-                       dkv=dict(equal_bits=witness[1]))
+                       dkv=dict(equal_bits=witness[1]),
+                       dq=dict(equal_bits=witness[2]))
         mask = _valid(B, Sq, Sk, qseg, kseg, causal, q_off, k_off, "cuda")
         pairs = mask.sum().item() * Hq * (B if mask.shape[0] == 1 else 1)
         eb = q.element_size()
@@ -1330,7 +1342,7 @@ def check_flash(torch, ops, gen):
         dq_rows.append(dict(case=label, abs=eq[0], worst=eq[1], tol=tol,
                             ms=ms_q, plain_ms=pl_q, library_ms=lib_b,
                             bound_ms=b_q[0], bound_by=b_q[1], main=main,
-                            same_bits=same_dq))
+                            same_bits=same_dq, **wit.get("dq", {})))
         ekv = max_errs_all([(dk, wdk), (dv, wdv)], tol)
         dkv_rows.append(dict(case=label, abs=ekv[0], worst=ekv[1], tol=tol,
                              ms=ms_kv, plain_ms=pl_kv, library_ms=lib_b,
@@ -1879,9 +1891,13 @@ def check_chunk_matmul(torch, ops, gen):
     rdma ring's epilogue) equal to ``acc + chunk_matmul(rows, w)`` bit
     for bit, its time printed as ``acc_ms``. Bound: the bytes M·K + K·N
     in the operand type and 4·M·N out, or 2·M·N·K operations at the
-    operand type's peak. Library: ``torch.mm`` on the same operands,
-    which writes the operand type, not fp32."""
-    from apex1_tpu_torch.ops.fused_collective import chunk_matmul
+    operand type's peak. Library: ``torch.mm(..., out_dtype=
+    torch.float32)`` on the same operands, the same function, where the
+    card's PyTorch has it (else None, said on the case's line), and
+    ``torch.mm`` writing the operand type (half the kernel's output
+    bytes) named beside it. The case names the tile the kernel launches
+    (`chunk_tile`)."""
+    from apex1_tpu_torch.ops.fused_collective import chunk_matmul, chunk_tile
     results = []
     for case, lead, K, N, dts, main in CHUNK_CASES:
         dt = getattr(torch, dts)
@@ -1909,14 +1925,26 @@ def check_chunk_matmul(torch, ops, gen):
         with ops.force_impl("torch"):
             plain = event_ms(run, iters=3)
         r2 = rows.reshape(M, K)
-        lib = timer(lambda: torch.mm(r2, w))
+        lowp = timer(lambda: torch.mm(r2, w))
+        if dt == torch.float32:
+            lib, lib_note = lowp, "torch.mm"
+        else:
+            try:
+                torch.mm(r2[:1], w[:, :1], out_dtype=torch.float32)
+                lib = timer(lambda: torch.mm(r2, w, out_dtype=torch.float32))
+                lib_note = "torch.mm out_dtype=float32"
+            except (TypeError, RuntimeError, NotImplementedError):
+                lib, lib_note = None, ("none: this PyTorch's torch.mm has "
+                                       "no out_dtype=float32")
+            lib_note += f"; torch.mm {dts} out ms={lowp:.4f}"
         es = rows.element_size()
         bnd, by = bound_ms((M * K + K * N) * es + 4 * M * N, flops,
                            F32_OPS_PER_S if dt == torch.float32
                            else BF16_OPS_PER_S)
+        bm, bn = chunk_tile(M, N, dt)
         results.append(dict(
-            case=f"{case} M={M} K={K} N={N} {dts} (library: torch.mm, "
-                 f"{dts} out)",
+            case=f"{case} M={M} K={K} N={N} {dts} tile {bm}x{bn} "
+                 f"(library: {lib_note})",
             abs=abs_e, worst=worst, tol=TOLS["float32"],
             rule="fp32 rounding bound (u=2^-24)", ms=ms, acc_ms=acc_ms,
             plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by,
@@ -2132,11 +2160,12 @@ def ab_ms(fn, other):
     return min(times["other"]), min(times["this"])
 
 
-def tree_linear_xent(tree: str):
-    """TREE's own ``ops/linear_xent.py``, loaded under another name and
-    bound to TREE's own ``_build`` (its entry points, signatures and
-    library state): TREE's wrappers may launch entry points this tree's
-    library lacks, or launch them in another sequence."""
+def tree_ops(tree: str, *files):
+    """TREE's own ``apex1_tpu_torch/ops`` modules ``files``, each loaded
+    under another name and bound to one copy of TREE's own ``_build``
+    (its entry points, signatures and library state): TREE's wrappers
+    may launch entry points this tree's library lacks, or launch them in
+    another sequence. Returns the modules in order."""
     import importlib.util
 
     def load(name, rel):
@@ -2146,17 +2175,23 @@ def tree_linear_xent(tree: str):
         spec.loader.exec_module(mod)
         return mod
 
-    lx = load("tree_linear_xent", "linear_xent.py")
-    lx._build = load("tree_build", "_build.py")
-    return lx
+    build = load("tree_build", "_build.py")
+    mods = []
+    for rel in files:
+        mod = load(f"tree_{rel[:-3]}", rel)
+        mod._build = build
+        mods.append(mod)
+    return mods
 
 
-def ab2_ms(other_fn, this_fn):
+def ab2_ms(other_fn, this_fn, timer=None):
     """`ab_ms` for two functions: (other's ms, this tree's ms), timed in
-    turns other, this, this, other, each the smaller of its two."""
+    turns other, this, this, other (by ``timer``, `event_ms` by
+    default), each the smaller of its two."""
+    timer = timer or event_ms
     times = {"other": [], "this": []}
     for who in ("other", "this", "this", "other"):
-        times[who].append(event_ms(other_fn if who == "other" else this_fn))
+        times[who].append(timer(other_fn if who == "other" else this_fn))
     return min(times["other"]), min(times["this"])
 
 
@@ -2219,16 +2254,15 @@ def lxent_products_ms(torch, x, w, t, lse, dloss, K, pad):
     return event_ms(grad), event_ms(dxp), event_ms(dwp)
 
 
-def compare_lxent(torch, card, tree: str):
+def compare_lxent(torch, card, other):
     """``--compare``'s linear-xent rows (TPU rows 10, 11): ``lxent_dx``
     alone, ``lxent_dw`` alone and ``lxent_grads`` at `COMPARE_LXENT`'s
-    heads in bf16, through TREE's own wrappers and library
-    (`tree_linear_xent`) and this tree's, in turns on the same inputs
+    heads in bf16, through ``other``, TREE's own ``linear_xent`` bound to
+    its own library (`tree_ops`), and this tree's, in turns on the same inputs
     (`ab2_ms`); then this tree's three products apart
     (`lxent_products_ms`, with their TFLOP/s) and ``lxent_grads`` at
     each `COMPARE_CHUNKS` chunk and at `wg_chunk`'s. Returns the rows."""
     from apex1_tpu_torch.ops import linear_xent as lx
-    other = tree_linear_xent(tree)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
     for case, T, V, H, K, pad in COMPARE_LXENT:
@@ -2283,12 +2317,18 @@ def compare_flash(torch, ops, card, tree: str) -> int:
     """``--compare TREE``: the flash forward, dq and dk/dv at
     `COMPARE_FLASH`'s cases and the merge forward at `COMPARE_MERGE`'s,
     through TREE's kernels (a checkout of another commit, built here)
-    and this tree's, in turns on the same inputs (`ab_ms`), then the
-    linear-xent backward (`compare_lxent`); prints a
-    line per kernel and case and writes ``chiprun_out/compare.json``."""
+    and this tree's, in turns on the same inputs (`ab_ms`); then the
+    chunk product at `CHUNK_CASES`' bf16 cases (CUDA-graph replays
+    below 0.1 TFLOP, as the kernels phase times them) and the
+    linear-xent backward (`compare_lxent`), each through TREE's own
+    wrappers and library (`tree_ops`) and this tree's (`ab2_ms`); prints
+    a line per kernel and case and writes ``chiprun_out/compare.json``."""
     from apex1_tpu_torch.ops.attention import (flash_dkv, flash_dq,
                                                flash_fwd, flash_fwd_merge)
+    from apex1_tpu_torch.ops.fused_collective import chunk_matmul, chunk_tile
     other, secs = other_library(tree)
+    other_lx, other_fc = tree_ops(tree, "linear_xent.py",
+                                  "fused_collective.py")
     print(f"phase compare: built {tree} in {secs:.1f} s [{card}]")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
@@ -2321,7 +2361,26 @@ def compare_flash(torch, ops, card, tree: str) -> int:
                          other_ms=was, ms=now, speedup=was / now))
         del q, k, v, po, plse
         torch.cuda.empty_cache()
-    rows += compare_lxent(torch, card, tree)
+    for case, lead, K, N, dts, _ in CHUNK_CASES:
+        if dts != "bfloat16":
+            continue
+        a = (torch.randn(*lead, K, generator=gen, device="cuda")
+             * K ** -0.5).to(torch.bfloat16)
+        w = torch.randn(K, N, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        M = a.numel() // K
+        flops = 2 * M * N * K
+        was, now = ab2_ms(lambda: other_fc.chunk_matmul(a, w),
+                          lambda: chunk_matmul(a, w),
+                          event_ms if flops > 1e11 else graph_ms)
+        bm, bn = chunk_tile(M, N, torch.bfloat16)
+        rows.append(dict(kernel="chunk_matmul",
+                         case=f"{case} {M}x{K}x{N}, tile {bm}x{bn}, "
+                              f"{flops / now / 1e9:.1f} TFLOP/s",
+                         other_ms=was, ms=now, speedup=was / now))
+        del a, w
+        torch.cuda.empty_cache()
+    rows += compare_lxent(torch, card, other_lx)
     for r in (r for r in rows if r["kernel"] != "products"):
         print(f"phase compare: {r['kernel']} [{r['case']}] {tree} "
               f"ms={r['other_ms']:.4f} this tree ms={r['ms']:.4f} "
@@ -2814,6 +2873,11 @@ def check_train_parity(par, card, label, use_flash, fuse_head=False,
 
 #: DPO's batch: this many chosen and as many rejected rows of S tokens
 DPO_ROWS = 8
+#: the DPO phase's Adam learning rate and β. At 1e-4 one Adam step over
+#: 1023 random tokens a row moves each sequence logp by so much that
+#: β·margin saturates the sigmoid from step 2 on (loss and gradient 0
+#: in fp32); at this rate steps 2-3 stay inside (0, ln 2)
+DPO_LR, DPO_BETA = 1e-6, 0.1
 
 
 def dpo_launches(num_layers: int, n_chunks: int) -> dict:
@@ -2828,17 +2892,18 @@ def dpo_launches(num_layers: int, n_chunks: int) -> dict:
             "lxent_dx": 2 * n_chunks, "lxent_dw": 2 * n_chunks}
 
 
-def make_dpo(torch, seed: int):
+def make_dpo(torch, seed: int, lr: float):
     """GPT-2 124M at full width, O2, weights from ``seed``, under
-    ``Amp(fused_adam(1e-4, weight_decay=0.01))``, with the chunked-DPO
-    loss (β 0.1, the default vocab chunk) over 8 chosen and 8 rejected
-    rows of S tokens from ``np.random.default_rng(3)``, run as one
-    16-row forward. The reference sequence logps come from
+    ``Amp(fused_adam(lr, weight_decay=0.01))``, with the chunked-DPO
+    loss (β `DPO_BETA`, the default vocab chunk) over 8 chosen and 8
+    rejected rows of S tokens from ``np.random.default_rng(3)``, run as
+    one 16-row forward. The reference sequence logps come from
     ``chunked_logprob`` under ``torch.no_grad`` through the initial
     state's compute-dtype params (``Amp.model_params``): the same
     function the step runs, so the first step's margin is 0 and its
-    loss ln 2. Returns (cfg, state, step, batch, the reference
-    logps' seconds)."""
+    loss ln 2. Returns (cfg, state, step, batch, the reference logps'
+    seconds, margins: a state's per-row β·margin, the loss's argument,
+    under ``torch.no_grad``)."""
     import numpy as np
     from apex1_tpu_torch import (Amp, GPT2Config, fused_adam, get_policy,
                                  gpt2_params_from_jax)
@@ -2847,7 +2912,7 @@ def make_dpo(torch, seed: int):
                                                   chunked_logprob)
     cfg = GPT2Config.gpt2_125m(policy=get_policy("O2"))
     model = gpt2_params_from_jax(init_params(cfg, seed), cfg, "cuda")
-    amp = Amp(fused_adam(1e-4, weight_decay=0.01), opt_level="O2")
+    amp = Amp(fused_adam(lr, weight_decay=0.01), opt_level="O2")
     state = amp.init(dict(model.named_parameters()))
     toks = torch.from_numpy(np.random.default_rng(3).integers(
         0, cfg.vocab_size, (2 * DPO_ROWS, TS))).cuda()
@@ -2861,37 +2926,49 @@ def make_dpo(torch, seed: int):
     def loss_fn(params, toks, ref_c, ref_r):
         hc, hr, w = heads(params, toks)
         return chunked_dpo_loss(hc, hr, w, toks[:DPO_ROWS, 1:],
-                                toks[DPO_ROWS:, 1:], ref_c, ref_r, beta=0.1,
-                                num_classes=cfg.vocab_size)
+                                toks[DPO_ROWS:, 1:], ref_c, ref_r,
+                                beta=DPO_BETA, num_classes=cfg.vocab_size)
+
+    def seq_logps(params):
+        with torch.no_grad():
+            hc, hr, w = heads(params, toks)
+            return tuple(chunked_logprob(
+                h, w, t, num_classes=cfg.vocab_size).sum(dim=-1)
+                for h, t in ((hc, toks[:DPO_ROWS, 1:]),
+                             (hr, toks[DPO_ROWS:, 1:])))
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with torch.no_grad():
-        hc, hr, w = heads(amp.model_params(state), toks)
-        ref_c, ref_r = (chunked_logprob(
-            h, w, t, num_classes=cfg.vocab_size).sum(dim=-1)
-            for h, t in ((hc, toks[:DPO_ROWS, 1:]),
-                         (hr, toks[DPO_ROWS:, 1:])))
-        del hc, hr, w
+    ref_c, ref_r = seq_logps(amp.model_params(state))
     torch.cuda.synchronize()
     ref_s = time.perf_counter() - t0
+
+    def margins(state):
+        pc, pr = seq_logps(amp.model_params(state))
+        return DPO_BETA * ((pc - pr) - (ref_c - ref_r))
+
     return (cfg, state, amp.make_train_step(loss_fn), (toks, ref_c, ref_r),
-            ref_s)
+            ref_s, margins)
 
 
 def run_dpo(torch, ops, card, launches, steps: int = 3):
     """The DPO phase: the reference logps, then ``steps`` steps; print
-    each step and the summary; add the launches to ``launches``.
+    each step and the summary; add the reference pass's and the steps'
+    launches to ``launches``.
     Returns (results, failure or None)."""
     from apex1_tpu_torch.ops.chunked_loss import _auto_chunk
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    cfg, state, step, batch, ref_s = make_dpo(torch, SEED)
+    cfg, state, step, batch, ref_s, margins = make_dpo(torch, SEED, DPO_LR)
     n_chunks = -(-cfg.padded_vocab // _auto_chunk(cfg.padded_vocab, None))
     ref_launches = {k: n for k, n in ops.launch_counts().items() if n}
-    rows, prev = [], ops.launch_counts()
+    rows = []
     for i in range(steps):
+        # β·margin at the params the step's loss sees (no_grad forwards,
+        # launched before the step's count starts)
+        bm = margins(state)
+        prev = ops.launch_counts()
         t0 = time.perf_counter()
         state, m = step(state, *batch)
         torch.cuda.synchronize()
@@ -2899,24 +2976,31 @@ def run_dpo(torch, ops, card, launches, steps: int = 3):
         now = ops.launch_counts()
         rows.append(dict(step=i + 1, wall_ms=wall, loss=m["loss"].item(),
                          grad_norm=m["grad_norm"].item(),
+                         beta_margin=[bm.mean().item(), bm.min().item(),
+                                      bm.max().item()],
                          launches={k: now[k] - prev[k] for k in now
                                    if now[k] != prev[k]}))
-        prev = now
-    for name, n in ops.launch_counts().items():
-        launches[name] = launches.get(name, 0) + n
+    # the main path's run: the reference pass and the steps, not the
+    # β·margin forwards between them
+    for counted in (ref_launches, *(r["launches"] for r in rows)):
+        for name, n in counted.items():
+            launches[name] = launches.get(name, 0) + n
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     for r in rows:
-        print(f"phase dpo: step {r['step']} loss {r['loss']:.6f} grad_norm "
-              f"{r['grad_norm']:.4f} wall {r['wall_ms']:.1f} ms launches "
-              f"{r['launches']} [{card}]")
+        print(f"phase dpo: step {r['step']} loss {r['loss']:.6e} "
+              f"beta*margin mean {r['beta_margin'][0]:.6g} min "
+              f"{r['beta_margin'][1]:.6g} max {r['beta_margin'][2]:.6g} "
+              f"grad_norm {r['grad_norm']:.6e} wall {r['wall_ms']:.1f} ms "
+              f"launches {r['launches']} [{card}]")
     walls = sorted(r["wall_ms"] for r in rows[1:])
     med = walls[len(walls) // 2]
     print(f"phase dpo: GPT-2 124M O2 use_flash=True, {DPO_ROWS} chosen + "
           f"{DPO_ROWS} rejected rows of {TS} tokens, {n_chunks} vocab "
           f"chunks; reference logps {ref_s:.2f} s (launches "
           f"{ref_launches}); step wall {med:.2f} ms (median of steps "
-          f"2-{steps}), peak memory {peak:.2f} GiB; step-1 loss "
-          f"{rows[0]['loss']:.6f} vs ln 2 {math.log(2):.6f} [{card}]")
+          f"2-{steps}), peak memory {peak:.2f} GiB; Adam lr {DPO_LR:g}, "
+          f"beta {DPO_BETA:g}; step-1 loss {rows[0]['loss']:.6f} vs ln 2 "
+          f"{math.log(2):.6f} [{card}]")
     results = dict(steps=rows, ref_s=ref_s, ref_launches=ref_launches,
                    step_wall_ms=med, peak_gib=peak, n_chunks=n_chunks)
     losses = [r["loss"] for r in rows]
@@ -2924,6 +3008,9 @@ def run_dpo(torch, ops, card, launches, steps: int = 3):
         return results, f"dpo: a loss is not finite: {losses}"
     if abs(losses[0] - math.log(2)) > 1e-4:
         return results, f"dpo: step-1 loss {losses[0]} is not ln 2"
+    if not all(0 < v < math.log(2) for v in losses[1:]):
+        return results, (f"dpo: losses after step 1 must lie in (0, ln 2): "
+                         f"{losses}")
     want_ref = {"layer_norm_fwd": 2 * cfg.num_layers + 1,
                 "flash_fwd": cfg.num_layers, "lxent_fwd": 2 * n_chunks}
     if ref_launches != want_ref:
@@ -5251,7 +5338,7 @@ def main() -> int:
                             "apex1_tpu/ops/xentropy.py:114"),
                "flash_fwd": ("apex1_tpu_torch/csrc/flash_wg.cuh",
                              "apex1_tpu/ops/attention.py:584"),
-               "flash_dq": ("apex1_tpu_torch/csrc/flash_attn.cu",
+               "flash_dq": ("apex1_tpu_torch/csrc/flash_wg.cuh",
                             "apex1_tpu/ops/attention.py:689"),
                "flash_dkv": ("apex1_tpu_torch/csrc/flash_wg.cuh",
                              "apex1_tpu/ops/attention.py:717"),

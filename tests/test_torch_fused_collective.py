@@ -25,7 +25,8 @@ device r holding rank r's inputs, through its composite
 - `fused_vocab_parallel_merge` against JAX's, in 2 all-reduces.
 
 Single-process: `chunk_matmul` (rows 24-25) against ``torch.matmul``
-and JAX's ``_chunk_matmul`` in interpret mode, its accumulator and its
+and JAX's ``_chunk_matmul`` in interpret mode, also with explicit blocks
+at the Hopper kernel's tile edges and at K = 0, its accumulator and its
 errors; `flash_fwd_merge` (row 26) against JAX's ``_agf_call`` in
 interpret mode with a carried (out, lse), offsets, segments and GQA;
 ``dropout_p`` rejected.
@@ -227,6 +228,47 @@ def test_chunk_matmul_plain_and_accumulator(lead):
         want = jfc._chunk_matmul(jnp.asarray(rows.numpy()),
                                  jnp.asarray(w.numpy()))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert fc.chunk_matmul.launches == 0
+
+
+#: the Hopper kernel's tile edges (rows 24-25): (leading dims of rows,
+#: K, N, dtype). M 127/129 straddle its 128-row tiles, N 255/257 its
+#: 256-column tiles, K 63/65 its 64-deep steps; a 3-D (S, mb, hid)
+#: operand; bf16 operands; the empty sum K = 0
+_CHUNK_EDGES = {"m127_n255_k63": ((127,), 63, 255, "float32"),
+                "m129_n257_k65": ((129,), 65, 257, "float32"),
+                "rank3_n129": ((8, 16), 64, 129, "float32"),
+                "bf16_m129_n255": ((129,), 65, 255, "bfloat16"),
+                "k0": ((70,), 0, 72, "float32")}
+
+
+@pytest.mark.parametrize("name", list(_CHUNK_EDGES))
+def test_chunk_matmul_tile_edges_match_jax(name):
+    """The plain chunk product, the card tests' oracle, against JAX's
+    ``_chunk_matmul`` in interpret mode with explicit 64 x 128 blocks;
+    with an accumulator ``acc + chunk_matmul(rows, w)`` bit for bit.
+    K = 0 against JAX's XLA chunk product (``_part_dot``, ``jnp.dot``:
+    its Pallas kernel cannot take an empty depth): zeros, and acc + 0."""
+    lead, K, N, dts = _CHUNK_EDGES[name]
+    rng = np.random.default_rng(K * 31 + N)
+    rows = rng.standard_normal(lead + (K,)).astype(np.float32)
+    w = rng.standard_normal((K, N)).astype(np.float32)
+    acc = _t(rng.standard_normal(lead + (N,)))
+    dt = getattr(torch, dts)
+    got = fc.chunk_matmul(_t(rows, dt), _t(w, dt))
+    with_acc = fc.chunk_matmul(_t(rows, dt), _t(w, dt), acc)
+    jdt = jnp.bfloat16 if dts == "bfloat16" else jnp.float32
+    jr, jw = jnp.asarray(rows, jdt), jnp.asarray(w, jdt)
+    if K:
+        with force_impl("pallas"):
+            want = jfc._chunk_matmul(jr, jw, block_m=64, block_n=128)
+    else:
+        with force_impl("xla"):
+            want = jfc._part_dot(jr, jw, None, None)
+        assert not got.any()
+    assert got.dtype == torch.float32 and got.shape == lead + (N,)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_array_equal(with_acc.numpy(), (acc + got).numpy())
     assert fc.chunk_matmul.launches == 0
 
 

@@ -664,8 +664,9 @@ def test_flash_dropout_mask_witness(cuda, dtype):
     so out's zero pattern is the kernel's mask at (q, j). It must equal
     the plain version's exactly (offsets and GQA on, the query head's
     stream in dk/dv's loop too: dv = Pᵀ·dO is zero exactly where a key
-    was dropped for every query row of a one-row dO)."""
-    from apex1_tpu_torch.ops.attention import _keep, flash_dkv, flash_fwd
+    was dropped for every query row of a one-row dO; and in dq's)."""
+    from apex1_tpu_torch.ops.attention import (_keep, flash_dkv, flash_dq,
+                                               flash_fwd)
     dt = getattr(torch, dtype)
     B, Hq, Hkv, S, D, p = 2, 4, 2, 128, 128, 0.1
     gen = torch.Generator(device=cuda).manual_seed(3)
@@ -692,6 +693,14 @@ def test_flash_dropout_mask_witness(cuda, dtype):
     g = Hq // Hkv
     kept_any = keep[:, :, 5, :].reshape(B, Hkv, g, S).any(dim=2)
     assert torch.equal(dv[..., 0] != 0, kept_any)
+    # dq: k and v the identity, dO all ones and δ 0: dq[q, j] = dS[q, j]
+    # = P·inv·scale where (q, j) was kept and exactly 0 where dropped
+    eye = v
+    _, lse_e = flash_fwd(q, eye, eye, *args)
+    ones = torch.ones_like(q)
+    zero = torch.zeros(B, Hq, S, device=cuda)
+    dq = flash_dq(q, eye, eye, ones, lse_e, zero, None, *args)
+    assert torch.equal(dq != 0, keep)
 
 
 # ---- the T5 slice: flash's bias operand and dbias ------------------------
@@ -885,10 +894,20 @@ def test_lora_delta_kernel_matches_plain(cuda, name):
 # ---- the multi-GPU slice's kernels --------------------------------------
 
 #: chunk_matmul cases: (leading dims of rows, K, N): the tensor-parallel
-#: rank's chunk, an (S, mb, hid) operand, ragged M, N and K, one element
+#: rank's chunk, an (S, mb, hid) operand, ragged M, N and K, one element;
+#: the edges of the bf16/fp16 kernel's 128-row tiles (M 127/129), of its
+#: 128- and 256-column tiles (N 127/129/255/257, and 128 x 256 tiles,
+#: which it takes from 132 of them on, at ragged and aligned shapes) and
+#: of its 64-deep K steps (63/65), and the empty sum K = 0
 _CHUNK = {"aligned": ((256,), 96, 128), "tp_chunk": ((1024,), 2048, 1024),
           "rank3": ((64, 3), 64, 72), "ragged": ((37,), 29, 50),
-          "one": ((1,), 1, 1)}
+          "one": ((1,), 1, 1), "m127": ((127,), 64, 136),
+          "m129": ((129,), 64, 136), "n127": ((64,), 64, 127),
+          "n129": ((64,), 64, 129), "n255": ((130,), 72, 255),
+          "n257": ((130,), 72, 257), "k63": ((200,), 63, 136),
+          "k65": ((200,), 65, 136), "k0": ((70,), 0, 72),
+          "wide_ragged": ((1537,), 65, 2561),
+          "wide_aligned": ((1409,), 136, 2824)}
 
 
 @pytest.mark.parametrize("name", list(_CHUNK))
@@ -911,6 +930,20 @@ def test_chunk_matmul_kernel_matches_plain(cuda, dtype, name):
     assert _int8_bound(got, want, absprod) <= 1
     assert torch.equal(chunk_matmul(rows, w), got)
     assert torch.equal(chunk_matmul(rows, w, acc), acc + got)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_chunk_matmul_tile_choice(cuda, dtype):
+    """The tile the kernel takes: bf16/fp16 128 x 256 from 132 tiles of
+    it on (the world-1 products), else 128 x 128 (a tp = 8 chunk); fp32
+    128 x 128, 128 x 64 or 64 x 64 as before."""
+    from apex1_tpu_torch.ops.fused_collective import chunk_tile
+    dt = getattr(torch, dtype)
+    half = dt != torch.float32
+    assert chunk_tile(8192, 8192, dt) == (128, 256 if half else 128)
+    assert chunk_tile(8192, 2048, dt) == (128, 256 if half else 128)
+    assert chunk_tile(1024, 1024, dt) == ((128, 128) if half else (64, 64))
+    assert chunk_tile(1537, 2561, dt) == (128, 256 if half else 128)
 
 
 #: flash_fwd_merge cases: (B, Hq, Hkv, Sq, Sk, D, causal, segments,
@@ -979,10 +1012,11 @@ def test_flash_dkv_fp32_output(cuda, dtype):
 
 #: name -> (B, Hq, Hkv, Sq, Sk, D, causal, segments, q_off, k_off, dlse,
 #: bias (Bb, Hb) or None, dropout p): Sq and Sk one below and above
-#: multiples of 64 and 128 (the forward's 64-row blocks and 64-key
-#: tiles, dk/dv's 64-key blocks and 64-row q tiles), causal diagonals
-#: that cross a tile mid-way, GQA 4/1 at D 128, a -1 segment tail, a
-#: (B, Hq) bias and dropout with offsets
+#: multiples of 64 and 128 (the forward's and dq's 64-row blocks and
+#: 64-key tiles, dk/dv's 64-key blocks and 64-row q tiles) and on them,
+#: causal diagonals that cross a tile mid-way, GQA 4/1 and 32/8 at D 128,
+#: D 40 (padded to 64, plain loads), a -1 segment tail, (B, Hq), (1, Hq)
+#: and (B, 1) biases and dropout with offsets
 _EDGES = {
     "sq63_sk65": (2, 4, 4, 63, 65, 64, False, None, 0, 0, False, None, 0.0),
     "sq65_sk127_causal": (1, 4, 2, 65, 127, 64, True, None, 62, 0, False,
@@ -1007,6 +1041,16 @@ _EDGES = {
                         None, 0.1),
     "dropout_bias_segments": (2, 4, 4, 129, 129, 64, False, "array", 0, 0,
                               False, (1, 1), 0.1),
+    "sq64_sk64": (1, 2, 2, 64, 64, 64, True, None, 0, 0, False, None, 0.0),
+    "sq128_sk192_d128": (1, 2, 1, 128, 192, 128, False, None, 0, 0, True,
+                         None, 0.0),
+    "bias_b_1_causal": (2, 4, 2, 129, 129, 64, True, None, 0, 0, False,
+                        ("B", 1), 0.0),
+    "gqa328_d128": (1, 32, 8, 129, 129, 128, True, None, 0, 0, True, None,
+                    0.0),
+    "d40": (2, 4, 2, 65, 127, 40, True, None, 3, 0, True, None, 0.0),
+    "d40_bias_dropout": (1, 4, 4, 130, 70, 40, False, None, 0, 0, False,
+                         (1, "H"), 0.1),
 }
 
 
@@ -1043,10 +1087,10 @@ def _edge_inputs(name, dt, cuda):
 @pytest.mark.parametrize("name", list(_EDGES))
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
 def test_flash_wgmma_edges_match_plain(cuda, dtype, name):
-    """The wgmma forward and dk/dv (and dq beside them) against their
-    plain versions at the tiles' edges: out and lse, dk, dv at the
-    operand type's tolerance, rows without keys equal; dk/dv the same
-    bits on a second launch, and with fp32 output the plain version's
+    """The wgmma forward, dq and dk/dv against their plain versions at
+    the tiles' edges: out and lse, dq, dk, dv at the operand type's
+    tolerance, rows without keys equal; dq and dk/dv the same bits on a
+    second launch, and with fp32 output the plain version's
     fp32 output, equal to the default output once rounded."""
     from apex1_tpu_torch.ops.attention import flash_dkv, flash_dq, flash_fwd
     dt = getattr(torch, dtype)
@@ -1063,6 +1107,7 @@ def test_flash_wgmma_edges_match_plain(cuda, dtype, name):
     bwd = (q, k, v, do, wlse, delta, dlse, qseg, kseg, *args)
     dq, wdq = _both(lambda: flash_dq(*bwd, **kw))
     _close(dq, wdq, dt)
+    assert torch.equal(flash_dq(*bwd, **kw), dq)
     (dk, dv), (wdk, wdv) = _both(lambda: flash_dkv(*bwd, **kw))
     _close(dk, wdk, dt)
     _close(dv, wdv, dt)
