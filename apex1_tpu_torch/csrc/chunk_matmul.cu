@@ -99,7 +99,7 @@ __global__ void __launch_bounds__(256, 1) chunk_matmul_wg_kernel(
           a.vec != 0, a.vec != 0);
   } else {
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) p.acc[i] = 0.f;
+    for (int i = 0; i < BN / 2; ++i) p.acc[0][i] = 0.f;
   }
   const bool pair = a.N % 2 == 0;
   p.for_each([&](int r, int c, int, float v0, float v1) {

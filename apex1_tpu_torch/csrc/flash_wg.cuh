@@ -292,7 +292,7 @@ __global__ void __launch_bounds__(WgGeom<DP>::NTHR)
     wg::fence();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
-      wg::mma_ss_n64<T>(s, wg::desc_k(sQ, BM, 0, kk),
+      wg::mma_ss<T, 64, 0, 0>(s, wg::desc_k(sQ, BM, 0, kk),
                         wg::desc_k(ring.k(st), BN, 0, kk), kk > 0);
     wg::commit();
     wg::wait<0>();
@@ -345,7 +345,7 @@ __global__ void __launch_bounds__(WgGeom<DP>::NTHR)
     for (int t = 0; t < 4; ++t)
 #pragma unroll
       for (int n = 0; n < NB; ++n)
-        wg::mma_rs_n64_t<T>(o[n], pa[t], wg::desc_mn(ring.v(st), BN, n, t),
+        wg::mma_rs<T, 64, 1>(o[n], pa[t], wg::desc_mn(ring.v(st), BN, n, t),
                             1);
     wg::commit();
     wg::wait<0>();
@@ -527,9 +527,9 @@ __global__ void __launch_bounds__(WgGeom<DP>::NTHR)
     wg::fence();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk) {
-      wg::mma_ss_n64<T>(s, wg::desc_k(sK, BK, 0, kk),
+      wg::mma_ss<T, 64, 0, 0>(s, wg::desc_k(sK, BK, 0, kk),
                         wg::desc_k(sQ(st), BQ, 0, kk), kk > 0);
-      wg::mma_ss_n64<T>(dp, wg::desc_k(sV, BK, 0, kk),
+      wg::mma_ss<T, 64, 0, 0>(dp, wg::desc_k(sV, BK, 0, kk),
                         wg::desc_k(sDO(st), BQ, 0, kk), kk > 0);
     }
     wg::commit();
@@ -605,9 +605,9 @@ __global__ void __launch_bounds__(WgGeom<DP>::NTHR)
     for (int t16 = 0; t16 < BQ / 16; ++t16)
 #pragma unroll
       for (int n = 0; n < NB; ++n) {
-        wg::mma_rs_n64_t<T>(dv[n], pa[t16],
+        wg::mma_rs<T, 64, 1>(dv[n], pa[t16],
                             wg::desc_mn(sDO(st), BQ, n, t16), 1);
-        wg::mma_rs_n64_t<T>(dk[n], da[t16], wg::desc_mn(sQ(st), BQ, n, t16),
+        wg::mma_rs<T, 64, 1>(dk[n], da[t16], wg::desc_mn(sQ(st), BQ, n, t16),
                             1);
       }
     wg::commit();
@@ -716,9 +716,9 @@ __global__ void __launch_bounds__(WgGeom<DP>::NTHR)
     wg::fence();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk) {
-      wg::mma_ss_n64<T>(s, wg::desc_k(sQ, BM, 0, kk),
+      wg::mma_ss<T, 64, 0, 0>(s, wg::desc_k(sQ, BM, 0, kk),
                         wg::desc_k(ring.k(st), BN, 0, kk), kk > 0);
-      wg::mma_ss_n64<T>(dp, wg::desc_k(sDO, BM, 0, kk),
+      wg::mma_ss<T, 64, 0, 0>(dp, wg::desc_k(sDO, BM, 0, kk),
                         wg::desc_k(ring.v(st), BN, 0, kk), kk > 0);
     }
     wg::commit();
@@ -755,7 +755,7 @@ __global__ void __launch_bounds__(WgGeom<DP>::NTHR)
     for (int t = 0; t < 4; ++t)
 #pragma unroll
       for (int n = 0; n < NB; ++n)
-        wg::mma_rs_n64_t<T>(dq[n], da[t], wg::desc_mn(ring.k(st), BN, n, t),
+        wg::mma_rs<T, 64, 1>(dq[n], da[t], wg::desc_mn(ring.k(st), BN, n, t),
                             1);
     wg::commit();
     wg::wait<0>();

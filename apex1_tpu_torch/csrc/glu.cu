@@ -14,24 +14,30 @@
 // the ~295 ridge): 1.95 ms at 989 TFLOP/s.
 //
 // Design. The TPU kernel holds a (bt, Hp) x block and both (Hp, bf) weight
-// blocks in VMEM and forms each dot over all of H at once. A block here
-// owns a 128 x 64 output tile and two fp32 accumulators, gate and up, in
-// registers; H is streamed in 32-deep steps through a three-stage ring of
-// shared tiles (cp.async), each staged x tile serving both products, so x
-// is read once for the pair and g never goes to device memory
-// (`Gemm` in mma.cuh: mma.sync m16n8k16 on ldmatrix fragments, .trans for
-// the (H, F) weights, whose F is contiguous). The epilogue applies the
-// activation in fp32 and writes the tile in x's dtype. Blocks walk the
-// output in groups of 8 row tiles so that the x and W tiles in flight
-// share L2. Ragged T, F and H are zero-filled in shared memory, nothing is
-// padded in device memory. fp32 runs as plain FMA on the CUDA cores (no
-// TF32). Not yet: wgmma, TMA, a persistent grid.
+// blocks in VMEM and forms each dot over all of H at once. Here bf16/fp16
+// run on gemm_wg.cuh's wgmma product with two B operands sharing A: a
+// block of two warpgroups owns a 128 x BN output tile, and each stage of
+// its cp.async ring holds one x tile (128 x 64, K-major) and the Wg and Wu
+// tiles at the same columns (64 x BN, N-major: wgmma's transpose bit), so
+// x is read once for the pair. Each warpgroup keeps two m64nBN fp32
+// accumulator sets in registers, gate and up (BN = 128: 128 registers a
+// thread); g and u never leave them: the epilogue forms act(g)·u on the
+// fragments in fp32 (ACT a template argument: no per-element branch) and
+// stores the tile in x's dtype. BN is 128 (four stages of 48 KB) when the
+// grid has at least four waves of such tiles on the 132 SMs, else 64 (six
+// stages of 32 KB), so a short grid (a serving chunk of 512 rows) leaves
+// a smaller last wave. Blocks walk the output in groups of 8 row tiles
+// so that the x and W tiles in flight share L2. Ragged T, F and H are
+// zero-filled in shared memory, nothing is padded in device memory.
+// fp32 runs on mma.cuh's `Gemm` (plain FMA on the CUDA cores, no TF32,
+// 128 x 64 tiles, H in 16-deep steps). Not yet: TMA, a persistent grid.
 
-#include "mma.cuh"
+#include "gemm_wg.cuh"
 
 namespace {
 
-constexpr int kBM = 128, kBN = 64;
+constexpr int kSMs = 132;  // the H100 SXM's
+constexpr int kBM = 128, kBNF32 = 64;
 enum Act { kSilu = 0, kGelu = 1 };
 
 template <int ACT>
@@ -53,35 +59,87 @@ struct GluArgs {
   int vec;
 };
 
-template <typename T, int ACT>
-__global__ void __launch_bounds__(256, 1) glu_kernel(const GluArgs a) {
-  using G = Gemm<T, kBM, kBN, 2, true, false>;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
+int n_tiles(int T, int F, int bn) {
+  return ((T + kBM - 1) / kBM) * ((F + bn - 1) / bn);
+}
+
+// the output tile's columns for a T x F output in `dtype`
+int tile_n(int T, int F, int dtype) {
+  if (dtype == kF32) return kBNF32;
+  return n_tiles(T, F, 128) >= 4 * kSMs ? 128 : 64;
+}
+
+template <int BN>
+constexpr int kWgStages = BN == 128 ? 4 : 6;
+
+template <typename T, int ACT, int BN>
+__global__ void __launch_bounds__(256, 1) glu_wg_kernel(const GluArgs a) {
+  using P = wg::Gemm<T, BN, kWgStages<BN>, false, true, 2>;
+  extern __shared__ __align__(1024) unsigned char glu_smem[];
   int tm, tn;
-  swizzle(blockIdx.x, (a.T + kBM - 1) / kBM, (a.F + kBN - 1) / kBN, tm, tn);
-  const int m0 = tm * kBM, n0 = tn * kBN;
-  const Operand<T> A{static_cast<const T*>(a.x), a.H};
-  const Operand<T> B[2] = {{static_cast<const T*>(a.wg), a.F},
-                           {static_cast<const T*>(a.wu), a.F}};
+  swizzle(blockIdx.x, (a.T + kBM - 1) / kBM, (a.F + BN - 1) / BN, tm, tn);
+  const int m0 = tm * kBM, n0 = tn * BN;
+  const T* b[2] = {static_cast<const T*>(a.wg), static_cast<const T*>(a.wu)};
+  P p;
+  p.run(glu_smem, static_cast<const T*>(a.x), a.H, b, a.F, a.T, a.F, a.H,
+        m0, n0, a.vec != 0, a.vec != 0);
+  T* out = static_cast<T*>(a.out);
+  const bool pair = a.F % 2 == 0;
+  p.for_each_pair([&](int r, int c, float g0, float g1, float u0, float u1) {
+    const int row = m0 + r;
+    if (row < a.T)
+      store_pair<T>(out + size_t(row) * a.F + n0, c, a.F - n0,
+                    activate<ACT>(g0) * u0, activate<ACT>(g1) * u1, pair);
+  });
+}
+
+template <typename T, int ACT, int BN>
+int launch_wg(const GluArgs& a, cudaStream_t st) {
+  constexpr size_t smem = wg::Gemm<T, BN, kWgStages<BN>, false, true,
+                                   2>::SMEM;
+  static bool attr_set = false;
+  auto kern = glu_wg_kernel<T, ACT, BN>;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr_set = true;
+  }
+  kern<<<n_tiles(a.T, a.F, BN), 256, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int ACT>
+__global__ void __launch_bounds__(256, 1) glu_f32_kernel(const GluArgs a) {
+  using G = Gemm<float, kBM, kBNF32, 2, true, false>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* smem = reinterpret_cast<float*>(smem_raw);
+  int tm, tn;
+  swizzle(blockIdx.x, (a.T + kBM - 1) / kBM, (a.F + kBNF32 - 1) / kBNF32,
+          tm, tn);
+  const int m0 = tm * kBM, n0 = tn * kBNF32;
+  const Operand<float> A{static_cast<const float*>(a.x), a.H};
+  const Operand<float> B[2] = {{static_cast<const float*>(a.wg), a.F},
+                               {static_cast<const float*>(a.wu), a.F}};
   G g;
   g.run(smem, A, B, a.T, a.F, a.H, m0, n0, a.vec);
-  T* out = static_cast<T*>(a.out);
+  float* out = static_cast<float*>(a.out);
   const bool pair = a.F % 2 == 0;
   g.for_each([&](int r, int c, const float (&v)[2][2]) {
     const int row = m0 + r;
     if (row >= a.T) return;
-    store_pair<T>(out + size_t(row) * a.F + n0, c, a.F - n0,
-                  activate<ACT>(v[0][0]) * v[1][0],
-                  activate<ACT>(v[0][1]) * v[1][1], pair);
+    store_pair<float>(out + size_t(row) * a.F + n0, c, a.F - n0,
+                      activate<ACT>(v[0][0]) * v[1][0],
+                      activate<ACT>(v[0][1]) * v[1][1], pair);
   });
 }
 
-template <typename T, int ACT>
-int launch(const GluArgs& a, cudaStream_t st) {
-  using G = Gemm<T, kBM, kBN, 2, true, false>;
+template <int ACT>
+int launch_f32(const GluArgs& a, cudaStream_t st) {
+  using G = Gemm<float, kBM, kBNF32, 2, true, false>;
   static bool attr_set = false;
-  auto kern = glu_kernel<T, ACT>;
+  auto kern = glu_f32_kernel<ACT>;
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -89,16 +147,29 @@ int launch(const GluArgs& a, cudaStream_t st) {
     if (e != cudaSuccess) return static_cast<int>(e);
     attr_set = true;
   }
-  const int tiles = ((a.T + kBM - 1) / kBM) * ((a.F + kBN - 1) / kBN);
-  kern<<<tiles, 256, G::SMEM, st>>>(a);
+  kern<<<n_tiles(a.T, a.F, kBNF32), 256, G::SMEM, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_act(const GluArgs& a, int act, cudaStream_t st) {
-  if (act == kSilu) return launch<T, kSilu>(a, st);
-  if (act == kGelu) return launch<T, kGelu>(a, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+template <typename T, int ACT>
+int launch_half(const GluArgs& a, cudaStream_t st) {
+  const int dtype = std::is_same<T, __half>::value ? kF16 : kBF16;
+  return tile_n(a.T, a.F, dtype) == 128 ? launch_wg<T, ACT, 128>(a, st)
+                                        : launch_wg<T, ACT, 64>(a, st);
+}
+
+template <int ACT>
+int launch(const GluArgs& a, int dtype, cudaStream_t st) {
+  switch (dtype) {
+    case kF32:
+      return launch_f32<ACT>(a, st);
+    case kBF16:
+      return launch_half<__nv_bfloat16, ACT>(a, st);
+    case kF16:
+      return launch_half<__half, ACT>(a, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -113,14 +184,13 @@ extern "C" int apex1_glu_fwd(const void* x, const void* wg, const void* wu,
   if (H <= 0) return static_cast<int>(cudaErrorInvalidValue);
   GluArgs a{x, wg, wu, out, T, H, F, vec};
   cudaStream_t st = as_stream(stream);
-  switch (dtype) {
-    case kF32:
-      return launch_act<float>(a, act, st);
-    case kBF16:
-      return launch_act<__nv_bfloat16>(a, act, st);
-    case kF16:
-      return launch_act<__half>(a, act, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (act == kSilu) return launch<kSilu>(a, dtype, st);
+  if (act == kGelu) return launch<kGelu>(a, dtype, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the output tile apex1_glu_fwd launches for a T x F output in `dtype`, as
+// rows·1000 + columns
+extern "C" int apex1_glu_tile(int T, int F, int dtype) {
+  return kBM * 1000 + tile_n(T, F, dtype);
 }

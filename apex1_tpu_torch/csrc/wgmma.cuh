@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks of the flash kernels' bf16/fp16 forward
-// and dk/dv (flash_wg.cuh) and of the tiled product (gemm_wg.cuh): shared
-// tiles in the 128-byte-swizzled layout that wgmma's matrix descriptors
-// name, filled by cp.async; and wgmma m64nNk16 (N = 64, 128, 256) with
-// fp32 accumulators in registers, B from shared memory and A from shared
-// memory or from registers, either operand K-major or MN-major.
+// and dk/dv (flash_wg.cuh), of the tiled product (gemm_wg.cuh) and of the
+// int8 weight-only product (int8_matmul.cu): shared tiles in the
+// 128-byte-swizzled layout that wgmma's matrix descriptors name, filled by
+// cp.async; and wgmma m64nNk16 (N = 8 to 256) with fp32 accumulators in
+// registers, B from shared memory and A from shared memory or from
+// registers, either operand K-major or MN-major.
 //
 // A tile of R rows of DP 16-bit values (DP a multiple of 64) is stored as
 // DP / 64 blocks of R rows of 128 bytes (64 values); within a block, row r
@@ -167,223 +168,164 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   }
 }
 
-// d (64 x 64, fp32) = (acc ? d : 0) + A·B: A (64 x 16) and B (16 x 64)
-// K-major in shared memory, named by the descriptors da and db
-template <typename T>
-__device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da,
-                                           uint64_t db, int acc) {
-  if constexpr (std::is_same<T, __half>::value) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(acc));
-  } else {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(acc));
-  }
-}
-
-// d (64 x 64, fp32) = (acc ? d : 0) + A·B: A (64 x 16) in registers (the
-// m64k16 fragment `a`), B (16 x 64) MN-major in shared memory (db)
-template <typename T>
-__device__ __forceinline__ void mma_rs_n64_t(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db, int acc) {
-  if constexpr (std::is_same<T, __half>::value) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
-  } else {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
-  }
-}
-
-
 // MN-major operand spanning every 64-wide block of the R-row swizzled tile
-// at `tile` (an N = 128 or 256 product): depth rows [16·t, 16·t + 16)
+// at `tile` (an N = 64, 128 or 256 product): depth rows [16·t, 16·t + 16)
 __device__ __forceinline__ uint64_t desc_mn_wide(const void* tile, int R,
                                                  int t) {
   return desc(smem_u32(tile) + t * 2048, R * 128, 1024);
 }
 
-#define WG_REGS_128 \
-  "%0, %1, %2, %3, %4, %5, %6, %7, " \
-  "%8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, " \
-  "%24, %25, %26, %27, %28, %29, %30, %31, " \
-  "%32, %33, %34, %35, %36, %37, %38, %39, " \
-  "%40, %41, %42, %43, %44, %45, %46, %47, " \
-  "%48, %49, %50, %51, %52, %53, %54, %55, " \
-  "%56, %57, %58, %59, %60, %61, %62, %63"
+// The accumulator lists of an m64nN product (N / 2 registers a thread)
+#define WG_REGS_8 "%0, %1, %2, %3"
+#define WG_REGS_16 WG_REGS_8 ", %4, %5, %6, %7"
+#define WG_REGS_32 WG_REGS_16 \
+  ", %8, %9, %10, %11, %12, %13, %14, %15"
+#define WG_REGS_64 WG_REGS_32 \
+  ", %16, %17, %18, %19, %20, %21, %22, %23" \
+  ", %24, %25, %26, %27, %28, %29, %30, %31"
+#define WG_REGS_128 WG_REGS_64 \
+  ", %32, %33, %34, %35, %36, %37, %38, %39" \
+  ", %40, %41, %42, %43, %44, %45, %46, %47" \
+  ", %48, %49, %50, %51, %52, %53, %54, %55" \
+  ", %56, %57, %58, %59, %60, %61, %62, %63"
+#define WG_REGS_192 WG_REGS_128 \
+  ", %64, %65, %66, %67, %68, %69, %70, %71" \
+  ", %72, %73, %74, %75, %76, %77, %78, %79" \
+  ", %80, %81, %82, %83, %84, %85, %86, %87" \
+  ", %88, %89, %90, %91, %92, %93, %94, %95"
+#define WG_REGS_256 WG_REGS_128 \
+  ", %64, %65, %66, %67, %68, %69, %70, %71" \
+  ", %72, %73, %74, %75, %76, %77, %78, %79" \
+  ", %80, %81, %82, %83, %84, %85, %86, %87" \
+  ", %88, %89, %90, %91, %92, %93, %94, %95" \
+  ", %96, %97, %98, %99, %100, %101, %102, %103" \
+  ", %104, %105, %106, %107, %108, %109, %110, %111" \
+  ", %112, %113, %114, %115, %116, %117, %118, %119" \
+  ", %120, %121, %122, %123, %124, %125, %126, %127"
 
-#define WG_ACC_128(d) \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
-  "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
-  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
-  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
-  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
-  "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
-  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
-  "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
-  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
-  "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
-  "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
-  "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
-  "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
-  "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
-  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
-  "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-
-#define WG_REGS_256 \
-  "%0, %1, %2, %3, %4, %5, %6, %7, " \
-  "%8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, " \
-  "%24, %25, %26, %27, %28, %29, %30, %31, " \
-  "%32, %33, %34, %35, %36, %37, %38, %39, " \
-  "%40, %41, %42, %43, %44, %45, %46, %47, " \
-  "%48, %49, %50, %51, %52, %53, %54, %55, " \
-  "%56, %57, %58, %59, %60, %61, %62, %63, " \
-  "%64, %65, %66, %67, %68, %69, %70, %71, " \
-  "%72, %73, %74, %75, %76, %77, %78, %79, " \
-  "%80, %81, %82, %83, %84, %85, %86, %87, " \
-  "%88, %89, %90, %91, %92, %93, %94, %95, " \
-  "%96, %97, %98, %99, %100, %101, %102, %103, " \
-  "%104, %105, %106, %107, %108, %109, %110, %111, " \
-  "%112, %113, %114, %115, %116, %117, %118, %119, " \
-  "%120, %121, %122, %123, %124, %125, %126, %127"
-
-#define WG_ACC_256(d) \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
-  "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
-  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
-  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
-  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
-  "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
-  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
-  "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
-  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
-  "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
-  "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
-  "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
-  "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
-  "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
-  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
-  "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), \
-  "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), \
-  "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), \
-  "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), \
-  "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), \
-  "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), \
-  "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), \
-  "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), \
-  "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), \
-  "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), \
-  "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), \
-  "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), \
-  "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), \
-  "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), \
-  "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), \
-  "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), \
-  "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+#define WG_ACC4(d, i) \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define WG_ACC_8(d) WG_ACC4(d, 0)
+#define WG_ACC_16(d) WG_ACC_8(d), WG_ACC4(d, 4)
+#define WG_ACC_32(d) WG_ACC_16(d), \
+  WG_ACC4(d, 8), WG_ACC4(d, 12)
+#define WG_ACC_64(d) WG_ACC_32(d), \
+  WG_ACC4(d, 16), WG_ACC4(d, 20), WG_ACC4(d, 24), WG_ACC4(d, 28)
+#define WG_ACC_128(d) WG_ACC_64(d), \
+  WG_ACC4(d, 32), WG_ACC4(d, 36), WG_ACC4(d, 40), WG_ACC4(d, 44), \
+  WG_ACC4(d, 48), WG_ACC4(d, 52), WG_ACC4(d, 56), WG_ACC4(d, 60)
+#define WG_ACC_192(d) WG_ACC_128(d), \
+  WG_ACC4(d, 64), WG_ACC4(d, 68), WG_ACC4(d, 72), WG_ACC4(d, 76), \
+  WG_ACC4(d, 80), WG_ACC4(d, 84), WG_ACC4(d, 88), WG_ACC4(d, 92)
+#define WG_ACC_256(d) WG_ACC_128(d), \
+  WG_ACC4(d, 64), WG_ACC4(d, 68), WG_ACC4(d, 72), WG_ACC4(d, 76), \
+  WG_ACC4(d, 80), WG_ACC4(d, 84), WG_ACC4(d, 88), WG_ACC4(d, 92), \
+  WG_ACC4(d, 96), WG_ACC4(d, 100), WG_ACC4(d, 104), WG_ACC4(d, 108), \
+  WG_ACC4(d, 112), WG_ACC4(d, 116), WG_ACC4(d, 120), WG_ACC4(d, 124)
 
 #define WG_SS_ASM(N, TY, REGS, DA, DB, ACC, TA, TB)                        \
   "{\n.reg .pred p;\nsetp.ne.b32 p, " ACC ", 0;\n"                         \
   "wgmma.mma_async.sync.aligned.m64n" N "k16.f32." TY "." TY " {" REGS    \
   "}, " DA ", " DB ", p, 1, 1, " TA ", " TB ";\n}\n"
 
-// d (64 x N, fp32, N = 128 or 256) = (acc ? d : 0) + A·B: A (64 x 16) and
-// B (16 x N) in shared memory, named by the descriptors da and db; TA, TB
-// 1 where that operand is MN-major (wgmma's transpose bits), else 0
+// one m64nNN case of mma_ss: the accumulators, then the operands from
+// index A0 on (the descriptors, acc, the transpose bits)
+#define WG_SS(NN, REGS, ACCS, A0, A1, A2, A3, A4)                          \
+  if constexpr (N == NN) {                                                 \
+    if constexpr (F16)                                                     \
+      asm volatile(WG_SS_ASM(#NN, "f16", REGS, A0, A1, A2, A3, A4)         \
+                   : ACCS(d)                                               \
+                   : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));        \
+    else                                                                   \
+      asm volatile(WG_SS_ASM(#NN, "bf16", REGS, A0, A1, A2, A3, A4)        \
+                   : ACCS(d)                                               \
+                   : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));        \
+  }
+
+// d (64 x N, fp32, N = 64, 128 or 256) = (acc ? d : 0) + A·B: A (64 x 16)
+// and B (16 x N) in shared memory, named by the descriptors da and db; TA,
+// TB 1 where that operand is MN-major (wgmma's transpose bits), else 0
 template <typename T, int N, int TA, int TB>
 __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da,
                                        uint64_t db, int acc) {
-  static_assert(N == 128 || N == 256, "m64n128 or m64n256");
+  static_assert(N == 64 || N == 128 || N == 256,
+                "m64n64, m64n128 or m64n256 products");
   constexpr bool F16 = std::is_same<T, __half>::value;
-  if constexpr (N == 128 && F16) {
-    asm volatile(WG_SS_ASM("128", "f16", WG_REGS_128, "%64", "%65", "%66",
-                           "%67", "%68")
-                 : WG_ACC_128(d)
-                 : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
-  } else if constexpr (N == 128) {
-    asm volatile(WG_SS_ASM("128", "bf16", WG_REGS_128, "%64", "%65", "%66",
-                           "%67", "%68")
-                 : WG_ACC_128(d)
-                 : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
-  } else if constexpr (F16) {
-    asm volatile(WG_SS_ASM("256", "f16", WG_REGS_256, "%128", "%129",
-                           "%130", "%131", "%132")
-                 : WG_ACC_256(d)
-                 : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
-  } else {
-    asm volatile(WG_SS_ASM("256", "bf16", WG_REGS_256, "%128", "%129",
-                           "%130", "%131", "%132")
-                 : WG_ACC_256(d)
-                 : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
-  }
+  WG_SS(64, WG_REGS_64, WG_ACC_64, "%32", "%33", "%34", "%35", "%36")
+  WG_SS(128, WG_REGS_128, WG_ACC_128, "%64", "%65", "%66", "%67", "%68")
+  WG_SS(256, WG_REGS_256, WG_ACC_256, "%128", "%129", "%130", "%131",
+        "%132")
 }
 
+#define WG_RS_ASM(N, TY, REGS, A0, A1, A2, A3, DB, ACC, TB)                \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, " ACC ", 0;\n"                         \
+  "wgmma.mma_async.sync.aligned.m64n" N "k16.f32." TY "." TY " {" REGS    \
+  "}, {" A0 ", " A1 ", " A2 ", " A3 "}, " DB ", p, 1, 1, " TB ";\n}\n"
+
+// one m64nNN case of mma_rs: the accumulators, then the operands from
+// index A0 on (the A fragment, the B descriptor, acc, B's transpose bit)
+#define WG_RS(NN, REGS, ACCS, A0, A1, A2, A3, A4, A5, A6)                  \
+  if constexpr (N == NN) {                                                 \
+    if constexpr (F16)                                                     \
+      asm volatile(WG_RS_ASM(#NN, "f16", REGS, A0, A1, A2, A3, A4, A5, A6) \
+                   : ACCS(d)                                               \
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),  \
+                     "r"(acc), "n"(TB));                                   \
+    else                                                                   \
+      asm volatile(WG_RS_ASM(#NN, "bf16", REGS, A0, A1, A2, A3, A4, A5,    \
+                             A6)                                           \
+                   : ACCS(d)                                               \
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),  \
+                     "r"(acc), "n"(TB));                                   \
+  }
+
+// d (64 x N, fp32, N = 8 to 256, 192 included) = (acc ? d : 0) + A·B:
+// A (64 x 16) in
+// registers (this thread's m64k16 fragment `a`: rows r and r + 8 of its
+// warp's 16, depth 2q, 2q + 1 and 2q + 8, 2q + 9, q = lane % 4), B
+// (16 x N) in shared memory (db); TB 1 where B is MN-major, else 0. `a`
+// is read asynchronously: keep it until the product's wait.
+template <typename T, int N, int TB>
+__device__ __forceinline__ void mma_rs(float (&d)[N / 2],
+                                       const uint32_t (&a)[4], uint64_t db,
+                                       int acc) {
+  static_assert(N == 8 || N == 16 || N == 32 || N == 64 || N == 128 ||
+                    N == 192 || N == 256,
+                "m64nN products for N in 8, 16, 32, 64, 128, 192, 256");
+  constexpr bool F16 = std::is_same<T, __half>::value;
+  WG_RS(8, WG_REGS_8, WG_ACC_8, "%4", "%5", "%6", "%7", "%8", "%9", "%10")
+  WG_RS(16, WG_REGS_16, WG_ACC_16, "%8", "%9", "%10", "%11", "%12", "%13",
+        "%14")
+  WG_RS(32, WG_REGS_32, WG_ACC_32, "%16", "%17", "%18", "%19", "%20", "%21",
+        "%22")
+  WG_RS(64, WG_REGS_64, WG_ACC_64, "%32", "%33", "%34", "%35", "%36", "%37",
+        "%38")
+  WG_RS(128, WG_REGS_128, WG_ACC_128, "%64", "%65", "%66", "%67", "%68",
+        "%69", "%70")
+  WG_RS(192, WG_REGS_192, WG_ACC_192, "%96", "%97", "%98", "%99", "%100",
+        "%101", "%102")
+  WG_RS(256, WG_REGS_256, WG_ACC_256, "%128", "%129", "%130", "%131",
+        "%132", "%133", "%134")
+}
+
+#undef WG_RS
+#undef WG_RS_ASM
+#undef WG_SS
 #undef WG_SS_ASM
+#undef WG_REGS_8
+#undef WG_REGS_16
+#undef WG_REGS_32
+#undef WG_REGS_64
 #undef WG_REGS_128
+#undef WG_REGS_192
 #undef WG_REGS_256
+#undef WG_ACC4
+#undef WG_ACC_8
+#undef WG_ACC_16
+#undef WG_ACC_32
+#undef WG_ACC_64
 #undef WG_ACC_128
+#undef WG_ACC_192
 #undef WG_ACC_256
 
 }  // namespace wg

@@ -85,10 +85,11 @@ SIGNATURES = {
     "apex1_rope": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _F, _I, _I,
                    _P],
     "apex1_glu_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "apex1_glu_tile": [_I, _I, _I],
     "apex1_bda_fwd": [_P, _P, _P, _P, _L, _I, _U, _U, _F, _I, _I, _I, _P],
     "apex1_bda_bwd": [_P, _P, _P, _P, _L, _I, _I, _I, _U, _U, _F, _I, _I,
                       _P],
-    "apex1_int8_mm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "apex1_int8_mm": [_P] * 6 + [_I] * 8 + [_P],
     "apex1_lora_delta": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "apex1_chunk_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "apex1_chunk_matmul_tile": [_I, _I, _I],

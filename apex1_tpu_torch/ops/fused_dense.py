@@ -3,10 +3,12 @@ in ``apex1_tpu/ops/fused_dense.py``).
 
 ``act(x @ w_gate) * (x @ w_up)``: Llama's SwiGLU (``silu``) or GeGLU
 (tanh ``gelu``), the two products sharing one ``x``. One kernel,
-``csrc/glu.cu`` (TPU row 13), beside its plain PyTorch version: both
-products summed in fp32, the activation and the product in fp32, the
-result rounded to x's dtype once (the TPU kernel's
-``preferred_element_type=f32`` numbers).
+``csrc/glu.cu`` (TPU row 13; bf16/fp16 on wgmma, both products from one
+x tile, 128 x 128 or 128 x 64 output tiles as `glu_tile` says; fp32 on
+the CUDA cores), beside its plain PyTorch version: both products summed
+in fp32, the activation and the product in fp32, the result rounded to
+x's dtype once (the TPU kernel's ``preferred_element_type=f32``
+numbers).
 
 The backward is the JAX package's recompute VJP (``_glu_bwd``): it saves
 (x, Wg, Wu), recomputes g and u in fp32 and forms dx, dWg and dWu from
@@ -50,6 +52,13 @@ def check_glu_geometry(block_t: int, block_f: int) -> tuple[int, int]:
         raise ValueError(
             f"fused_glu: block_f={block_f} must be a multiple of {_LANES}")
     return block_t, block_f
+
+
+def glu_tile(T: int, F: int, dtype: torch.dtype) -> tuple:
+    """The output tile (rows, columns) the kernel launches for a ``T x
+    F`` output in ``dtype`` (it needs the built library, so the card)."""
+    t = _build.library().apex1_glu_tile(T, F, DTYPE_CODES[dtype])
+    return t // 1000, t % 1000
 
 
 def _plain_glu(x2, wg, wu, activation):

@@ -11,10 +11,11 @@ storage with per-output-channel fp32 scales halves them against bf16.
   in fp32, the scale applied once after the whole K sum; fp32 output,
   leading dimensions of ``x`` kept; differentiable in ``x`` only.
 - :func:`int8_mm` — the 2-D product: CUDA tensors launch
-  ``csrc/int8_matmul.cu`` (TPU row 20), which converts the int8 tile to
-  bf16 in registers, so the bf16 weight matrix never exists in device
-  memory; CPU tensors take the plain version, the JAX package's
-  composite ``_dequant_matmul_xla``.
+  ``csrc/int8_matmul.cu`` (TPU row 20), a wgmma product whose threads
+  convert the int8 weight to bf16 in their own registers, so the bf16
+  weight matrix never exists in device memory; one launch a call, a K
+  split summed inside it (`_tile`, `_split_k`); CPU tensors take the
+  plain version, the JAX package's composite ``_dequant_matmul_xla``.
 
 The JAX package sends shapes that are not multiples of 128, or more
 than 1024 rows, to its composite (a TPU tiling rule). The CUDA kernel
@@ -32,9 +33,76 @@ import torch
 from apex1_tpu_torch.ops import _build
 from apex1_tpu_torch.ops._common import check_cuda, use_kernel
 
-#: the kernel's tiles (``csrc/int8_matmul.cu``): weight rows and K depth a
-#: block step, and the blocks wanted in flight on the 132 SMs
-_BN, _KT, _SMS = 64, 64, 132
+#: the kernel's K step and the card's SMs (``csrc/int8_matmul.cu``)
+_KT, _SMS = 64, 132
+#: the most output tiles a K-split grid may have (the counters the
+#: wrapper allocates once per device), the most fp32 partial-sum bytes a
+#: split may write (they stay in the 50 MB L2), the most slices, and the
+#: most partial-sum bytes a tile's last block adds
+_MAX_TILES, _PART_BYTES, _MAX_SPLITS = 1024, 16 << 20, 16
+_TILE_PART_BYTES = 32 << 10
+#: a two-warpgroup tile's step has fixed work (the weight tile's
+#: conversion, the barrier) that takes about as long as the products of
+#: this many token columns (fitted to prefill tiles of 128 and 256
+#: tokens on an H100)
+_STEP_COLUMNS = 183
+_COUNTERS: dict = {}
+
+
+def _tile(T: int, N: int) -> tuple[int, int]:
+    """(weight rows, tokens) of the kernel's output tile. Two warpgroups'
+    128 weight rows where 128 x 128 tiles fill the 132 SMs, by the 128,
+    192 or 256 tokens whose waves of tiles take least (`_wide_cost`);
+    else one warpgroup's 64 rows (several blocks an SM) by the smallest
+    of 8, 16, 32, 64, 128 tokens that holds T (128 past it, or 64 where
+    even 64 x 128 tiles leave SMs idle: a short grid splits K, and
+    smaller tiles leave less to sum)."""
+    def tiles(bm, bt):
+        return math.ceil(N / bm) * math.ceil(T / bt)
+    if T > 128 and tiles(128, 128) >= _SMS:
+        return 128, min((256, 192, 128), key=lambda bt: _wide_cost(
+            tiles(128, bt), bt))
+    bt = next((b for b in (8, 16, 32, 64) if T <= b), 128)
+    if bt == 128 and tiles(64, 128) < _SMS:
+        bt = 64
+    return 64, bt
+
+
+def _wide_cost(tiles: int, bt: int) -> int:
+    """A two-warpgroup grid's time in token columns: its waves on the 132
+    SMs, each as long as a tile's step, a fixed part (the weight tile's
+    conversion and the step's barriers, `_STEP_COLUMNS`) and a part that
+    grows with the tokens."""
+    return math.ceil(tiles / _SMS) * (_STEP_COLUMNS + bt)
+
+
+def _split_k(T: int, N: int, K: int) -> tuple[int, int]:
+    """(splits, K per split, a multiple of the kernel's K step). A grid
+    under 2 blocks an SM splits every tile's K into as many slices as
+    keep it within 2 blocks an SM (a third block on some SMs would hold
+    the rest back), at most `_MAX_SPLITS`, their fp32 partial sums within
+    `_PART_BYTES` and a tile's within `_TILE_PART_BYTES` (the last block
+    of the tile adds them); the slices are summed inside the launch."""
+    bm, bt = _tile(T, N)
+    tiles = math.ceil(N / bm) * math.ceil(T / bt)
+    splits = 1
+    if tiles < 2 * _SMS:
+        splits = min(2 * _SMS // tiles, math.ceil(K / _KT),
+                     max(1, _PART_BYTES // (4 * T * N)), _MAX_SPLITS,
+                     max(1, _TILE_PART_BYTES // (4 * bm * bt)))
+    kc = math.ceil(math.ceil(K / splits) / _KT) * _KT
+    return math.ceil(K / kc), kc
+
+
+def _counters(device: torch.device) -> torch.Tensor:
+    """The K-split grid's ticket counters on ``device``: zeros, allocated
+    once (the kernel leaves them zero). One launch at a time may use
+    them: the port runs the kernel on one stream a device."""
+    c = _COUNTERS.get(device)
+    if c is None:
+        c = _COUNTERS[device] = torch.zeros(_MAX_TILES, dtype=torch.int32,
+                                            device=device)
+    return c
 
 
 def quantize_int8(w: torch.Tensor, *, axis: int = -1):
@@ -68,17 +136,6 @@ def _int8_mm_plain(x2, wq, scale):
     return (x2.to(torch.bfloat16).float() @ wq.float().t()) * scale
 
 
-def _split_k(T: int, N: int, K: int) -> tuple[int, int]:
-    """(splits, K per split, a multiple of the kernel's K step). A grid
-    under 2 blocks an SM splits K until about 4 an SM are in flight."""
-    tiles = math.ceil(N / _BN) * math.ceil(T / (8 if T <= 8 else 64))
-    splits = 1
-    if tiles < 2 * _SMS:
-        splits = min(math.ceil(4 * _SMS / tiles), math.ceil(K / _KT))
-    kc = math.ceil(math.ceil(K / splits) / _KT) * _KT
-    return math.ceil(K / kc), kc
-
-
 def int8_mm(x2: torch.Tensor, wq: torch.Tensor,
             scale: torch.Tensor) -> torch.Tensor:
     """(T, K) ``x2`` against (N, K) int8 ``wq`` and (N,) fp32 ``scale``:
@@ -99,15 +156,18 @@ def int8_mm(x2: torch.Tensor, wq: torch.Tensor,
     check_cuda("int8_mm", xb, wq, scale)
     (T, K), N = xb.shape, wq.shape[0]
     out = torch.empty(T, N, dtype=torch.float32, device=xb.device)
+    bm, bt = _tile(T, N)
     splits, kc = _split_k(T, N, K)
-    part = (torch.empty(splits, T, N, dtype=torch.float32, device=xb.device)
-            if splits > 1 else None)
+    tiles = math.ceil(N / bm) * math.ceil(T / bt)
+    part = (torch.empty(tiles * splits * bm * bt, dtype=torch.float32,
+                        device=xb.device) if splits > 1 else None)
     vec = K % 16 == 0 and xb.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0
     stream = torch.cuda.current_stream(xb.device).cuda_stream
     _build.launch("apex1_int8_mm", xb.data_ptr(), wq.data_ptr(),
                   scale.data_ptr(), out.data_ptr(),
-                  None if part is None else part.data_ptr(), T, N, K, splits,
-                  kc, int(T > 8), int(vec), stream)
+                  None if part is None else part.data_ptr(),
+                  _counters(xb.device).data_ptr(), T, N, K, splits, kc, bm,
+                  bt, int(vec), stream)
     int8_mm.launches += 1
     return out
 

@@ -14,8 +14,9 @@
                                      # profile: llama_block, bert, ...)
     python3 chip_smoke.py --compare TREE
                                      # build, then time the flash
-                                     # kernels and the linear-xent
-                                     # backward against those of TREE (a
+                                     # kernels, the chunk product, the
+                                     # linear-xent backward, int8_mm and
+                                     # glu_fwd against those of TREE (a
                                      # checkout of another commit) in
                                      # turns on the same inputs
     python3 chip_smoke.py --gate-sweep [kernels] [plain]
@@ -1753,6 +1754,39 @@ INT8_CASES = [
 ]
 
 
+#: the bytes a cold timing cycles its operands' copies over: twice the
+#: H100's 50 MB L2, so each call finds its weight in device memory, as a
+#: decode step that reads every layer's weights once does
+COLD_BYTES = 100e6
+
+
+def cycled(fns):
+    """One function calling ``fns`` in turn, one a call: given copies of
+    an operand enough to exceed L2, each call reads it from device
+    memory (a CUDA graph captures the turns as they fall)."""
+    turn = [0]
+
+    def run():
+        fn = fns[turn[0] % len(fns)]
+        turn[0] += 1
+        return fn()
+    return run
+
+
+def int8_cold(torch, mm, x, wq, s, wb, timer):
+    """(kernel ms, library ms) with the weight cold: ``mm`` over copies
+    of ``wq`` and ``torch.mm`` over copies of the dequantized ``wb``,
+    each cycled over `COLD_BYTES` (`cycled`)."""
+    N, K = wq.shape
+    ws = [wq.clone() for _ in range(max(1, math.ceil(COLD_BYTES / (N * K))))]
+    bs = [wb.clone()
+          for _ in range(max(1, math.ceil(COLD_BYTES / (2 * N * K))))]
+    ms = timer(cycled([lambda w=w: mm(x, w, s) for w in ws]))
+    lib = timer(cycled([lambda b=b: torch.mm(x, b.t()) for b in bs]))
+    del ws, bs
+    return ms, lib
+
+
 def check_int8_matmul(torch, ops, gen):
     """Kernel 20 against its plain version (bf16 x against the int8
     values, exact products, fp32 sums, the fp32 scale last): the same
@@ -1761,7 +1795,10 @@ def check_int8_matmul(torch, ops, gen):
     launch. Bound: the bytes N·K + 2·T·K + 4·T·N + 4·N, or 2·T·N·K
     operations at the bf16 tensor-core rate. Library: ``torch.mm`` in
     bf16 over a dequantized bf16 copy of the weight (cuBLAS at twice the
-    weight bytes), the dequantization not timed."""
+    weight bytes), the dequantization not timed. ms and library ms are
+    warm (one weight, L2-resident where it fits; CUDA-graph replays); the
+    decode cases also time both cold (`int8_cold`), as a decode step
+    finds its weights."""
     from apex1_tpu_torch.ops.quantized import int8_mm, quantize_int8
     results = []
     for case, T, N, K, main in INT8_CASES:
@@ -1780,7 +1817,9 @@ def check_int8_matmul(torch, ops, gen):
         torch.cuda.synchronize()
         abs_e, worst = rounding_errs(got, want, absprod, 2.0 ** -24, 0)
         flops = 2 * T * N * K
-        timer = event_ms if flops > 1e10 else graph_ms
+        # CUDA-graph replays at every case: a prefill call (0.05 ms) is
+        # shorter than its wrapper's host time
+        timer = graph_ms
         ms = timer(run)
         with ops.force_impl("torch"):
             plain = event_ms(run, iters=3)
@@ -1788,11 +1827,15 @@ def check_int8_matmul(torch, ops, gen):
         lib = timer(lambda: torch.mm(x, wb.t()))
         bnd, by = bound_ms(N * K + 2 * T * K + 4 * T * N + 4 * N, flops,
                            BF16_OPS_PER_S)
-        results.append(dict(
+        row = dict(
             case=f"{case} T={T} N={N} K={K}", abs=abs_e, worst=worst,
             tol=TOLS["float32"], rule="fp32 rounding bound (u=2^-24)",
             ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
-            bound_by=by, main=main, same_bits=bool(torch.equal(got, again))))
+            bound_by=by, main=main, same_bits=bool(torch.equal(got, again)))
+        if case.startswith("decode"):
+            row["cold_ms"], row["library_cold_ms"] = int8_cold(
+                torch, int8_mm, x, wq, s, wb, timer)
+        results.append(row)
         del x, wq, s, got, again, want, absprod, wb
         torch.cuda.empty_cache()
     return results
@@ -2103,7 +2146,7 @@ def check_flash_merge(torch, ops, gen):
     return results
 
 
-# ---- --compare: the flash and linear-xent kernels against another tree's --
+# ---- --compare: the kernels against another tree's ----------------------
 
 #: the cases `--compare` times (`FLASH_CASES` and `MERGE_CASES` names)
 COMPARE_FLASH = ("GPT-2 causal", "Llama GQA 32/8 causal",
@@ -2313,22 +2356,92 @@ def compare_lxent(torch, card, other):
     return rows
 
 
+def compare_int8(torch, other):
+    """``--compare``'s int8_mm rows (TPU row 20): every `INT8_CASES` case
+    through ``other``, TREE's own ``quantized`` bound to its own library
+    (`tree_ops`: the split plan and launch arguments change with the
+    kernel), and this tree's, in turns on the same inputs (`ab2_ms`,
+    CUDA-graph replays); the decode cases also cold (each call's weight
+    one of copies cycled over `COLD_BYTES`). Returns the rows, each with
+    TFLOP/s and the weight's GB/s."""
+    from apex1_tpu_torch.ops.quantized import int8_mm, quantize_int8
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    for case, T, N, K, _ in INT8_CASES:
+        x = torch.randn(T, K, generator=gen, device="cuda").to(torch.bfloat16)
+        wq, s = quantize_int8(torch.randn(N, K, generator=gen,
+                                          device="cuda") * 0.02)
+        flops = 2 * T * N * K
+        copies = {"warm": [wq]}
+        if case.startswith("decode"):
+            copies["cold"] = [wq.clone() for _ in range(
+                max(1, math.ceil(COLD_BYTES / (N * K))))]
+        for how, ws in copies.items():
+            was, now = ab2_ms(*(cycled([lambda w=w, mm=mm: mm(x, w, s)
+                                        for w in ws])
+                                for mm in (other.int8_mm, int8_mm)),
+                              graph_ms)
+            rows.append(dict(
+                kernel="int8_mm",
+                case=f"{case} {T}x{N}x{K} {how}, "
+                     f"{flops / now / 1e9:.1f} TFLOP/s, "
+                     f"{N * K / now / 1e6:.0f} GB/s of weight",
+                other_ms=was, ms=now, speedup=was / now))
+        del x, wq, s, copies
+        torch.cuda.empty_cache()
+    return rows
+
+
+def compare_glu(torch, other):
+    """``--compare``'s glu_fwd rows (TPU row 13): the bf16/fp16
+    `GLU_CASES` cases through ``other``, TREE's own ``fused_dense``
+    bound to its own library (`tree_ops`), and this tree's, in turns on
+    the same inputs (`ab2_ms`). Returns the rows, each with the tile
+    this tree launches and its TFLOP/s."""
+    from apex1_tpu_torch.ops.fused_dense import glu_fwd, glu_tile
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    for case, T, H, Fo, dts, act, _ in GLU_CASES:
+        if dts == "float32":
+            continue
+        dt = getattr(torch, dts)
+        x = torch.randn(T, H, generator=gen, device="cuda").to(dt)
+        wg = (torch.randn(H, Fo, generator=gen, device="cuda")
+              * H ** -0.5).to(dt)
+        wu = (torch.randn(H, Fo, generator=gen, device="cuda")
+              * H ** -0.5).to(dt)
+        flops = 4 * T * H * Fo
+        was, now = ab2_ms(lambda: other.glu_fwd(x, wg, wu, act),
+                          lambda: glu_fwd(x, wg, wu, act),
+                          event_ms if flops > 1e11 else graph_ms)
+        bm, bn = glu_tile(T, Fo, dt)
+        rows.append(dict(kernel="glu_fwd",
+                         case=f"{case} {T}x{H}x{Fo} {dts} {act}, tile "
+                              f"{bm}x{bn}, {flops / now / 1e9:.1f} TFLOP/s",
+                         other_ms=was, ms=now, speedup=was / now))
+        del x, wg, wu
+        torch.cuda.empty_cache()
+    return rows
+
+
 def compare_flash(torch, ops, card, tree: str) -> int:
     """``--compare TREE``: the flash forward, dq and dk/dv at
     `COMPARE_FLASH`'s cases and the merge forward at `COMPARE_MERGE`'s,
     through TREE's kernels (a checkout of another commit, built here)
     and this tree's, in turns on the same inputs (`ab_ms`); then the
     chunk product at `CHUNK_CASES`' bf16 cases (CUDA-graph replays
-    below 0.1 TFLOP, as the kernels phase times them) and the
-    linear-xent backward (`compare_lxent`), each through TREE's own
-    wrappers and library (`tree_ops`) and this tree's (`ab2_ms`); prints
-    a line per kernel and case and writes ``chiprun_out/compare.json``."""
+    below 0.1 TFLOP, as the kernels phase times them), the linear-xent
+    backward (`compare_lxent`), int8_mm (`compare_int8`) and glu_fwd
+    (`compare_glu`), each through TREE's own wrappers and library
+    (`tree_ops`) and this tree's (`ab2_ms`). Prints a line per kernel
+    and case and writes ``chiprun_out/compare.json``."""
     from apex1_tpu_torch.ops.attention import (flash_dkv, flash_dq,
                                                flash_fwd, flash_fwd_merge)
     from apex1_tpu_torch.ops.fused_collective import chunk_matmul, chunk_tile
     other, secs = other_library(tree)
-    other_lx, other_fc = tree_ops(tree, "linear_xent.py",
-                                  "fused_collective.py")
+    other_lx, other_fc, other_q, other_fd = tree_ops(
+        tree, "linear_xent.py", "fused_collective.py", "quantized.py",
+        "fused_dense.py")
     print(f"phase compare: built {tree} in {secs:.1f} s [{card}]")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
@@ -2381,6 +2494,8 @@ def compare_flash(torch, ops, card, tree: str) -> int:
         del a, w
         torch.cuda.empty_cache()
     rows += compare_lxent(torch, card, other_lx)
+    rows += compare_int8(torch, other_q)
+    rows += compare_glu(torch, other_fd)
     for r in (r for r in rows if r["kernel"] != "products"):
         print(f"phase compare: {r['kernel']} [{r['case']}] {tree} "
               f"ms={r['other_ms']:.4f} this tree ms={r['ms']:.4f} "
@@ -5013,6 +5128,9 @@ def main() -> int:
                 bits += f" dx+dW together ms={r['both_ms']:.4f}"
             if "acc_ms" in r:
                 bits += f" with acc ms={r['acc_ms']:.4f}"
+            if "cold_ms" in r:
+                bits += (f" cold ms={r['cold_ms']:.4f} library cold "
+                         f"ms={r['library_cold_ms']:.4f}")
             if "one_ulp" in r:
                 bits += " worst/one-ulp allowance " + ", ".join(
                     f"{k} {v:.3g}" for k, v in r["one_ulp"].items())

@@ -6,7 +6,9 @@ Pallas kernel in interpret mode, whose dots sum in fp32 and whose
 epilogue is fp32, and its XLA composite) and through the port's plain
 path (the CUDA kernel's plain version, the same fp32 numbers): the
 output and the three grads of the recompute backward, for silu and
-gelu. f32 within 1e-5 of both; bf16 within one ulp of JAX's Pallas
+gelu, also at the CUDA kernel's tile edges (T around 128, H around 64,
+F around 128 and 64). f32 within 1e-5 of both; bf16 within one ulp of
+JAX's Pallas
 kernel (the composite rounds g and u to bf16 before the product, so it
 is held only in f32). Plus the activation and tile errors. The CUDA
 kernel is held against the same plain version on the card
@@ -58,6 +60,31 @@ def _port(x, wg, wu, ct, dtype, activation):
 @pytest.mark.parametrize("impl", ["pallas", "xla"])
 def test_f32_out_and_grads_match_jax(impl, activation):
     x, wg, wu, ct = _inputs(0)
+    want = _jax(x, wg, wu, ct, impl, jnp.float32, activation)
+    got = _port(x, wg, wu, ct, torch.float32, activation)
+    for g, w, name in zip(got, want, ("out", "dx", "dwg", "dwu")):
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5, err_msg=name)
+
+
+#: the CUDA kernel's tile edges, small: T on both sides of its 128-row
+#: tile, H of its 64-deep K step, F of its 128- and 64-column tiles
+_TILE_EDGES = [(127, 63, 127), (128, 64, 128), (129, 65, 129), (1, 64, 64)]
+
+
+@pytest.mark.parametrize("activation", ["silu", "gelu"])
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+@pytest.mark.parametrize("shape", _TILE_EDGES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_f32_tile_edges_match_jax(shape, impl, activation):
+    """Out and the three grads at the CUDA kernel's tile edges against
+    JAX's Pallas kernel (interpret mode) and its XLA composite, f32
+    within 1e-5 (the plain version the kernel is held to on the card)."""
+    T, Hs, Fs = shape
+    rng = np.random.default_rng(T + Hs + Fs)
+    x = rng.standard_normal((T, Hs)).astype(np.float32)
+    wg = (rng.standard_normal((Hs, Fs)) * Hs ** -0.5).astype(np.float32)
+    wu = (rng.standard_normal((Hs, Fs)) * Hs ** -0.5).astype(np.float32)
+    ct = rng.standard_normal((T, Fs)).astype(np.float32)
     want = _jax(x, wg, wu, ct, impl, jnp.float32, activation)
     got = _port(x, wg, wu, ct, torch.float32, activation)
     for g, w, name in zip(got, want, ("out", "dx", "dwg", "dwu")):

@@ -562,6 +562,47 @@ def test_glu_kernel_matches_plain(cuda, dtype, name):
         assert torch.equal(a, b)
 
 
+#: the wgmma GLU's tile edges: name -> (T, H, F). T on both sides of
+#: the 128-row tile, H of the 64-deep K step, F of the 128- and 64-column
+#: tiles; odd H or F take the plain loads. "wide_*" have at least four
+#: waves of 128 x 128 tiles (so they run them); "under_filled" would
+#: leave the 132 SMs under-filled with them and runs 128 x 64
+_GLU_EDGES = {
+    "t127_h63_f127": (127, 63, 127),
+    "t128_h64_f128": (128, 64, 128),
+    "t129_h65_f129": (129, 65, 129),
+    "t129_h64_f136": (129, 64, 136),
+    "t255_h136_f120": (255, 136, 120),
+    "wide_ragged_f": (2048, 128, 4200),
+    "wide_ragged_t": (2047, 72, 4224),
+    "under_filled": (512, 256, 2048),
+}
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+@pytest.mark.parametrize("name", list(_GLU_EDGES))
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_glu_wgmma_tile_edges(cuda, dtype, name, act):
+    """The wgmma ``glu_fwd`` at its tiles' edges against the plain
+    version (fp32 products and epilogue, one rounding), the tile the
+    launch takes pinned; one launch a call."""
+    from apex1_tpu_torch.ops.fused_dense import glu_fwd, glu_tile
+    T, H, F = _GLU_EDGES[name]
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(T + H + F)
+    x = torch.from_numpy(rng.standard_normal((T, H))).to(cuda, dt)
+    wg, wu = (torch.from_numpy(rng.standard_normal((H, F)) / np.sqrt(H))
+              .to(cuda, dt) for _ in range(2))
+    assert glu_tile(T, F, dt) == (128, 128 if name.startswith("wide")
+                                  else 64)
+    before = glu_fwd.launches
+    got, want = _both(lambda: glu_fwd(x, wg, wu, act))
+    assert glu_fwd.launches == before + 1
+    assert got.dtype == dt and got.shape == (T, F)
+    _close(got, want, dt)
+    assert torch.equal(glu_fwd(x, wg, wu, act), got)
+
+
 # ---- the BERT slice's kernels: dropout ------------------------------------
 
 #: name -> (rows, h, residual dtype or None for x's, bias)
@@ -849,6 +890,82 @@ def test_int8_mm_unaligned_and_leading_dims(cuda):
     y.backward(dy)
     torch.testing.assert_close(xf.grad, (dy * s) @ wq.float(), rtol=1e-6,
                                atol=1e-6)
+
+
+#: the wgmma int8_mm's tile edges: name -> (T, N, K). T across the token
+#: tiles (8, 16, 32, 64, 128 rows), N ragged around the 64- and 128-row
+#: weight tiles, K around the 64-deep step (K % 16 != 0: plain loads,
+#: else TMA); "split" shapes cut K inside the launch, "whole" ones do
+#: not, and "wide" ones run the two-warpgroup tiles (128 weight rows x 128,
+#: 192 or 256 tokens, each with and without TMA)
+_INT8_EDGES = {
+    "t1_split": (1, 65, 2048),
+    "t8_split": (8, 127, 640),
+    "t9_split": (9, 129, 136),
+    "t63_split": (63, 200, 1000),
+    "t64_whole": (64, 17000, 192),
+    "t65_split": (65, 300, 272),
+    "t129_split": (129, 1000, 1000),
+    "t257_whole": (257, 1000, 48),
+    "t1024_whole": (1024, 1100, 320),
+    "t1000_whole": (1000, 2000, 64),
+    "wide_t257_whole": (257, 9000, 200),
+    "wide_t1024_whole": (1024, 4500, 256),
+    "wide_t1024_ragged_k_whole": (1024, 4500, 200),
+    "wide_one_wave_whole": (1024, 4224, 128),
+    "wide_ragged_k_whole": (1000, 4200, 200),
+    "wide_t200_whole": (200, 12800, 192),
+    "wide_t200_ragged_k_whole": (200, 12750, 200),
+    "wide_t200_bt128_whole": (200, 8448, 192),
+}
+
+
+@pytest.mark.parametrize("name", list(_INT8_EDGES))
+def test_int8_mm_wgmma_tile_edges(cuda, name):
+    """The wgmma ``int8_mm`` at its tiles' edges: the fp32 rounding
+    bound against the plain version, the same bits on a second launch
+    (a K split is summed in split order inside the launch), the split
+    plan as the name says, one launch counted a call."""
+    from apex1_tpu_torch.ops.quantized import (_split_k, _tile, int8_mm,
+                                               quantize_int8)
+    T, N, K = _INT8_EDGES[name]
+    splits, _ = _split_k(T, N, K)
+    assert (splits > 1) == name.endswith("split")
+    assert (_tile(T, N)[0] == 128) == name.startswith("wide")
+    g = torch.Generator(device=cuda).manual_seed(T * 7 + K)
+    x = torch.randn(T, K, generator=g, device=cuda).to(torch.bfloat16)
+    wq, s = quantize_int8(torch.randn(N, K, generator=g, device=cuda))
+    before = int8_mm.launches
+    got, want = _both(lambda: int8_mm(x, wq, s))
+    assert int8_mm.launches == before + 1
+    with force_impl("torch"):
+        absprod = int8_mm(x.abs(), wq.abs(), s)
+    assert got.shape == (T, N)
+    assert _int8_bound(got, want, absprod) <= 1
+    for _ in range(2):
+        assert torch.equal(int8_mm(x, wq, s), got)
+
+
+@pytest.mark.parametrize("shape", [(8, 5632, 2048), (1024, 5632, 2048)],
+                         ids=["decode_split", "prefill_whole"])
+def test_int8_mm_is_one_kernel_launch(cuda, shape):
+    """One device kernel a call, a K split included (the profiler's
+    CUDA-side events of one warm call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from apex1_tpu_torch.ops.quantized import int8_mm, quantize_int8
+    T, N, K = shape
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn(T, K, generator=g, device=cuda).to(torch.bfloat16)
+    wq, s = quantize_int8(torch.randn(N, K, generator=g, device=cuda))
+    int8_mm(x, wq, s)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        int8_mm(x, wq, s)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "int8_mm" in kernels[0], kernels
 
 
 #: lora_delta cases: (slots, rows a slot, rank, hidden, vocab, h dtype)

@@ -4,11 +4,12 @@ against the JAX package on the CPU.
 - `quantize_int8`: ``q`` and ``s`` bit for bit against JAX's, on random
   weights, with an all-zero channel, with ``axis=0``;
 - `int8_matmul`: against JAX's XLA composite (``_dequant_matmul_xla``)
-  and its Pallas kernel in interpret mode (128-aligned shapes) within
-  1e-5 relative (the sums' order is not pinned), leading dimensions
-  kept, and ``dx`` against ``jax.grad`` within 1e-5; the weights get no
-  gradient; a CUDA-only kernel call on the CPU raises under
-  ``force_impl("kernel")``.
+  and its Pallas kernel in interpret mode (128-aligned shapes, also at
+  T on both sides of the CUDA kernel's token tiles: 1, 8, 9, 63, 64, 65,
+  129, 257) within 1e-5 relative (the sums' order is not pinned),
+  leading dimensions kept, and ``dx`` against ``jax.grad`` within 1e-5;
+  the weights get no gradient; a CUDA-only kernel call on the CPU raises
+  under ``force_impl("kernel")``; the kernel's K-split plan.
 """
 
 import jax
@@ -86,6 +87,32 @@ def test_int8_matmul_matches_jax(impl, shape):
     _close(got.numpy(), np.asarray(want))
 
 
+#: the CUDA kernel's tile edges in T (its 8-, 16-, 32-, 64- and 128-token
+#: tiles) at shapes JAX's Pallas gate takes (N and K multiples of 128,
+#: T <= 1024): (T, N, K)
+_TILE_EDGES = [(1, 128, 128), (8, 256, 256), (9, 128, 384), (63, 256, 128),
+               (64, 128, 256), (65, 384, 128), (129, 256, 256),
+               (257, 128, 128)]
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("shape", _TILE_EDGES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_int8_matmul_tile_edges_match_jax(impl, shape):
+    """The plain version the kernel is held to on the card, against JAX's
+    composite and its Pallas kernel (interpret mode) at the rows on both
+    sides of the kernel's token tiles, within 1e-5."""
+    T, N, K = shape
+    x, wq, s = _operands(T, N, K, seed=3 * T + N)
+    with jax_common.force_impl(impl):
+        want = jax_int8_matmul(jnp.asarray(x, jnp.bfloat16), jnp.asarray(wq),
+                               jnp.asarray(s))
+    got = int8_matmul(torch.from_numpy(x).to(torch.bfloat16),
+                      torch.from_numpy(wq), torch.from_numpy(s))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (T, N)
+    _close(got.numpy(), np.asarray(want))
+
+
 @pytest.mark.parametrize("shape", [(3, 60, 72), (1, 200, 16), (7, 5, 33)])
 def test_int8_matmul_ragged_matches_composite(shape):
     """Shapes JAX's kernel gate sends to its composite: the port's plain
@@ -129,7 +156,7 @@ def test_int8_mm_cpu_refuses_forced_kernel():
 
 
 @pytest.mark.parametrize("shape,want", [
-    ((8, 5632, 2048), (6, 384)), ((8, 256, 2048), (32, 64)),
+    ((8, 5632, 2048), (3, 704)), ((8, 256, 2048), (16, 128)),
     ((8, 32000, 2048), (1, 2048)), ((1024, 5632, 2048), (1, 2048)),
     ((5, 200, 72), (2, 64))])
 def test_split_k_plan(shape, want):
