@@ -1,16 +1,16 @@
-// Fused LM-head cross-entropy for Hopper (sm_90a): the forward statistics,
-// dx and dW of softmax(x·Wᵀ), without the (tokens x vocab) logits in device
-// memory.
+// Fused LM-head cross-entropy in fp32 for Hopper (sm_90a): the forward
+// statistics, dx and dW of softmax(x·Wᵀ), without the (tokens x vocab)
+// logits in device memory.
 //
-// Replaces: apex1_tpu/ops/linear_xent.py::_fwd_kernel (launched by
-// _fused_fwd :384, shard_stats :286 and shard_stats_packed :316, modes 0, 1
-// and 2 here), and in fp32 ::_bwd_dx_kernel (shard_grads :345) and
-// ::_bwd_dw_kernel (shard_grads :357); the bf16/fp16 backward runs on wgmma
-// in linear_xent_bwd.cu.
+// Replaces, in fp32: apex1_tpu/ops/linear_xent.py::_fwd_kernel (launched
+// by _fused_fwd :384, shard_stats :286 and shard_stats_packed :316, modes
+// 0, 1 and 2 here), ::_bwd_dx_kernel (shard_grads :345) and
+// ::_bwd_dw_kernel (shard_grads :357). bf16 and fp16 run on wgmma: the
+// forward in linear_xent_fwd.cu, the backward in linear_xent_bwd.cu.
 //
-//   s = x·Wᵀ (products of the operand type, fp32 sums). W is one shard of
-//   V_l rows; its local column c is the global column g = c + off, and is
-//   valid when c < V_l and g < K (num_classes).
+//   s = x·Wᵀ (fp32 products and sums). W is one shard of V_l rows; its
+//   local column c is the global column g = c + off, and is valid when
+//   c < V_l and g < K (num_classes).
 //   forward:  over vocab tiles, online: m_new = max(m, max valid s),
 //             l = l·exp(m - m_new) + Σ valid exp(s - m_new),
 //             tgt += Σ_{g == label} s, sx += Σ valid s;
@@ -19,52 +19,41 @@
 //             mode 1: m, l, tgt, sx as four (T,) arrays; mode 2: one (T, 4)
 //                     array of the same four values
 //   backward: G = (valid ? exp(s - lse) : 0) - (1-ε)[g == label] - ε/K,
-//             0 where invalid, times dloss (0 at padding_idx), rounded to the
-//             operand type (as the TPU kernels round their grad tile);
-//             dx = G·W, dW = Gᵀ·x, fp32 sums, written in the operand type
+//             0 where invalid, times dloss (0 at padding_idx);
+//             dx = G·W, dW = Gᵀ·x, fp32 sums
 //
-// Bound on the H100: operations. At GPT-2's training shape (T = 16368,
-// V = 50304, H = 768, bf16) the forward is 2·T·V·H = 1.26 TFLOP against
-// about 100 MB of operands (4 000 flop/byte, far above the ~295 ridge); dx
-// and dW each recompute s and do a second product, 2.5 TFLOP each.
+// Bound on the H100: operations, on the CUDA cores (no TF32): a head of
+// T = 1024 tokens, V = 8192, H = 768 is 2·T·V·H = 12.9 GFLOP of forward
+// against about 28 MB of operands, far above the ~20 flop/byte where 67
+// TFLOP/s of fp32 meet 3.35 TB/s; dx and dW each recompute s and do a
+// second product.
 //
 // Design. The TPU kernels walk the vocab (forward, dx) or token (dW) axis as
 // the innermost sequential grid axis with fp32 accumulators in VMEM. Here a
-// block of 256 threads owns a tile of "own" rows (tokens for the forward and
-// dx, W rows for dW) and loops over tiles of 32 "inner" rows itself:
-// - the own rows' operand (all H columns) is read once; in bf16/fp16 each
-//   warp keeps its share of it as A fragments in registers for the whole
-//   loop (warp = 16 own rows x 1/KSPLIT of H), so a score tile costs
-//   only the inner tile's B fragments from shared memory; the KSPLIT
-//   partial score tiles are summed where they are read;
-// - each inner tile (all H columns) is loaded once with cp.async into one
-//   of two buffers while the block computes on the other, and serves both
-//   products: the logit tile is recomputed, never stored;
+// block of 256 threads owns a tile of 32 "own" rows (tokens for the forward
+// and dx, W rows for dW) and loops over tiles of 32 "inner" rows itself:
+// - the own rows' operand (all H columns) is read once into shared memory;
+// - each inner tile (all H columns) is loaded once with cp.async and serves
+//   both products: the logit tile is recomputed, never stored;
 // - dx and dW are one kernel: the score tile of dW is Sᵀ = W·xᵀ, the same
 //   "own · innerᵀ" product with the roles of token and vocab swapped, and
 //   both accumulate own·H += G·inner;
-// - the accumulator (where a bt x 768 fp32 sum lives): 32 own rows x all of
-//   H (H <= 768) spread over the 8 warps' registers, each warp a 32 x 96
-//   strip (24 m16n8 tiles, 96 registers a thread), so no split of H and no
-//   second recompute of the logits;
+// - the accumulator (where a 32 x 768 fp32 sum lives): 32 own rows x all
+//   of H (H <= 768) spread over the 8 warps' registers, each warp a 32 x 96
+//   strip (96 registers a thread), so no split of H and no second
+//   recompute of the logits;
 // - no atomics: each output row is summed by one block in a fixed order,
 //   so two runs give the same bits.
-// The backward kernel (dx and dW) is instantiated for fp32 only. bf16/fp16
-// products run on the tensor cores as mma.sync m16n8k16 (fp32
-// accumulate) on fragments that ldmatrix reads from shared memory (WMMA's
-// loads through these pointers compiled to generic loads, no ldmatrix, at
-// half the speed); fp32 runs as plain FMA on the CUDA cores (no
-// TF32) from shared memory, one buffer. Ragged token and vocab edges and H
-// not a multiple of 16 are masked or zero-filled in shared memory; nothing
-// is padded in device memory. Not yet: wgmma, TMA, more than one block an
-// SM. Heads wider than 768 take the wide path at the end of this file.
+// Products run as plain FMA on the CUDA cores from shared memory. Ragged
+// token and vocab edges and H not a multiple of 16 are masked or
+// zero-filled in shared memory; nothing is padded in device memory. Heads
+// wider than 768 take the wide path at the end of this file.
 
 #include "mma.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kHMax = 768;  // the widest hidden size the tiles hold
 constexpr float kNegInf = -1e30f;  // finite, as the JAX package's NEG_INF
 
@@ -78,187 +67,104 @@ __host__ __device__ constexpr size_t max_sz(size_t a, size_t b) {
   return a > b ? a : b;
 }
 
-// Tile geometry for operand type T; BWD: the dx/dW kernel.
-template <typename T, bool BWD>
+// Tile geometry; BWD: the dx/dW kernel.
+template <bool BWD>
 struct Geo {
-  static constexpr bool F32 = sizeof(T) == 4;
-  static constexpr int BO = (F32 || BWD) ? 32 : 64;  // own rows a block
+  static constexpr int BO = 32;  // own rows a block
   static constexpr int BI = 32;  // inner rows a loop step
-  static constexpr int NBUF = F32 ? 1 : 2;  // inner tile buffers
-  static constexpr int FR = BO / 16;  // half: 16-row blocks of the own tile
-  static constexpr int KSPLIT = F32 ? 1 : kWarps / FR;  // half: H split
-  static constexpr int NK = kHMax / 16 / KSPLIT;  // half: A fragments a warp
-  static constexpr int PAD = 16 / int(sizeof(T));  // operand row padding
-  static constexpr int LDS = BI + 4;  // fp32 score tile stride
-  static constexpr int LDG = BI + PAD;  // G tile stride (operand type)
+  static constexpr int PAD = 4;  // operand row padding (16 bytes)
+  static constexpr int LDS = BI + 4;  // score tile stride
+  static constexpr int LDG = BI + PAD;  // G tile stride
   static constexpr int TPR = kThreads / BO;  // forward: threads a row
   static constexpr int CPT = BI / TPR;  // forward: score columns a thread
 
   static __host__ __device__ int ld(int hp) { return hp + PAD; }
   static __host__ __device__ size_t o_bytes(int hp) {
-    return align128(size_t(BO) * ld(hp) * sizeof(T));
+    return align128(size_t(BO) * ld(hp) * sizeof(float));
   }
   static __host__ __device__ size_t i_bytes(int hp) {
-    return align128(size_t(BI) * ld(hp) * sizeof(T));
+    return align128(size_t(BI) * ld(hp) * sizeof(float));
   }
-  // fp32: the own tile, then the inner tile; half: the inner tiles, which
-  // first stage the own tile on its way to the registers
-  static __host__ __device__ size_t ops_bytes(int hp) {
-    return F32 ? o_bytes(hp) + i_bytes(hp)
-               : max_sz(NBUF * i_bytes(hp), o_bytes(hp));
-  }
-  static constexpr size_t S_BYTES = align128(size_t(KSPLIT) * BO * LDS * 4);
+  static constexpr size_t S_BYTES = align128(size_t(BO) * LDS * 4);
   static constexpr size_t G_BYTES =
-      BWD ? align128(size_t(BO) * LDG * sizeof(T)) : 0;
+      BWD ? align128(size_t(BO) * LDG * sizeof(float)) : 0;
   static constexpr size_t TOK_BYTES = align128(size_t(3) * BI * 4);
   static __host__ __device__ size_t smem(int hp) {
-    return ops_bytes(hp) + S_BYTES + G_BYTES + TOK_BYTES;
+    return o_bytes(hp) + i_bytes(hp) + S_BYTES + G_BYTES + TOK_BYTES;
   }
 };
 
 struct LxArgs {
-  const void* x;       // (T, H)
-  const void* w;       // (V, H): the shard
+  const float* x;      // (T, H)
+  const float* w;      // (V, H): the shard
   const int* labels;   // (T,)
   const float* lse;    // (T,), backward
   const float* dloss;  // (T,), backward
   float* out[4];       // forward outputs, by mode
-  void* grad;          // dx (T, H) or dW (V, H)
+  float* grad;         // dx (T, H) or dW (V, H)
   int T, V, H, K, off;
   float smoothing;
   int has_pad, pad;
   int mode;  // forward: 0 loss+lse, 1 four stats, 2 packed
-  int vec;   // H*sizeof(T) % 16 == 0 and x, w 16-byte aligned
+  int vec;   // H % 4 == 0 and x, w 16-byte aligned
 };
 
 // R rows of H values (row stride H) into an R x hp tile with row stride ld;
 // rows past `rows` and columns past H become zero. vec: 16-byte cp.async
 // copies, in flight until cp_async_wait_all; else plain loads.
-template <typename T, int R>
-__device__ __forceinline__ void load_rows(T* dst, int ld, const T* src,
-                                          int rows, int H, int hp, int vec) {
+template <int R>
+__device__ __forceinline__ void load_rows(float* dst, int ld,
+                                          const float* src, int rows, int H,
+                                          int hp, int vec) {
   if (vec) {
-    // thread t copies 16-byte chunk t % SLOTS of rows t / SLOTS + k·RPP:
-    // no division, and the addresses step by a constant
-    constexpr int EPV = 16 / int(sizeof(T));
-    constexpr int SLOTS = (kHMax / EPV) <= 128 ? 128 : 256;
-    constexpr int RPP = kThreads / SLOTS;  // rows a pass
-    static_assert(kHMax / EPV <= SLOTS && R % RPP == 0, "loader geometry");
-    const int c = threadIdx.x % SLOTS, r0 = threadIdx.x / SLOTS;
+    // thread t copies 16-byte chunk t of every row: no division, and the
+    // addresses step by a constant
+    constexpr int EPV = 4;
+    static_assert(kHMax / EPV <= kThreads, "loader geometry");
+    const int c = threadIdx.x;
     if (c * EPV < hp) {
       const bool col_in = c * EPV < H;
-      T* d = dst + r0 * ld + c * EPV;
-      const T* s = src + size_t(r0) * H + c * EPV;
+      float* d = dst + c * EPV;
+      const float* s = src + c * EPV;
 #pragma unroll 4
-      for (int r = r0; r < R; r += RPP) {
+      for (int r = 0; r < R; ++r) {
         const bool in = col_in && r < rows;
         cp_async16(d, in ? s : src, in ? 16 : 0);
-        d += RPP * ld;
-        s += size_t(RPP) * H;
+        d += ld;
+        s += H;
       }
     }
     asm volatile("cp.async.commit_group;\n" ::);
   } else {
     for (int i = threadIdx.x; i < R * hp; i += kThreads) {
       const int r = i / hp, c = i % hp;
-      dst[r * ld + c] =
-          (r < rows && c < H) ? src[size_t(r) * H + c] : from_f32<T>(0.f);
+      dst[r * ld + c] = (r < rows && c < H) ? src[size_t(r) * H + c] : 0.f;
     }
   }
 }
 
-// The block's own tile and the inner tiles it walks: fp32 keeps the own
-// tile in shared memory; bf16/fp16 keep each warp's A fragments (16 own
-// rows x the warp's 1/KSPLIT share of H) in registers.
-template <typename T, bool BWD>
-struct OwnTile {
-  using G = Geo<T, BWD>;
-  unsigned a[G::F32 ? 1 : G::NK][4];
-
-  // read the own tile (staged at `stage`, row stride ld) into registers
-  __device__ __forceinline__ void load(const T* stage, int ld, int hp) {
-    if constexpr (!G::F32) {
-      const int w = threadIdx.x / 32, fr = w % G::FR, ks = w / G::FR;
-#pragma unroll
-      for (int j = 0; j < G::NK; ++j) {
-        const int k16 = j * G::KSPLIT + ks;
-        if (k16 * 16 < hp)
-          load_a<T>(a[j], stage + fr * 16 * ld + k16 * 16, ld);
-      }
-    }
-  }
-
-  // the KSPLIT partial score tiles sS[ks][BO x BI] = own · sIᵀ (fp32),
-  // by the whole block; fp32 reads the own tile from sO
-  __device__ __forceinline__ void scores(const T* sO, const T* sI, int ld,
-                                         int hp, float* sS) const {
-    if constexpr (G::F32) {
-      // thread t: row t / 8, columns t % 8 + 8j; float4 steps along H
-      static_assert(G::BO == 32 && G::BI == 32, "fp32 score tile");
-      const int r = threadIdx.x / 8, c0 = threadIdx.x % 8;
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int k = 0; k < hp; k += 4) {
-        const float4 av = *reinterpret_cast<const float4*>(sO + r * ld + k);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float4 b =
-              *reinterpret_cast<const float4*>(sI + (c0 + 8 * j) * ld + k);
-          acc[j] = fmaf(av.x, b.x, acc[j]);
-          acc[j] = fmaf(av.y, b.y, acc[j]);
-          acc[j] = fmaf(av.z, b.z, acc[j]);
-          acc[j] = fmaf(av.w, b.w, acc[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sS[r * G::LDS + c0 + 8 * j] = acc[j];
-    } else {
-      // warp: its 16 own rows x all BI inner columns (BI / 8 n8 tiles),
-      // over its share of H; B(k, n) = inner[n][k] is ldmatrix's plain
-      // layout
-      constexpr int NT = G::BI / 8;
-      const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
-      const int fr = w % G::FR, ks = w / G::FR;
-      const int q = lane / 8;
-      const T* b_base = sI + ((lane % 8) + 8 * (q / 2)) * ld + 8 * (q % 2);
-      float acc[NT][4];
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-#pragma unroll
-      for (int j = 0; j < G::NK; ++j) {
-        const int k16 = j * G::KSPLIT + ks;
-        if (k16 * 16 < hp) {
-#pragma unroll
-          for (int p = 0; p < NT / 2; ++p) {
-            unsigned b[4];
-            ldsm_x4(b, b_base + 16 * p * ld + k16 * 16);
-            mma16816<T>(acc[2 * p], a[j], b[0], b[1]);
-            mma16816<T>(acc[2 * p + 1], a[j], b[2], b[3]);
-          }
-        }
-      }
-      float* part = sS + ks * (G::BO * G::LDS) +
-                    (fr * 16 + lane / 4) * G::LDS + 2 * (lane % 4);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        *reinterpret_cast<float2*>(part + 8 * n) =
-            make_float2(acc[n][0], acc[n][1]);
-        *reinterpret_cast<float2*>(part + 8 * G::LDS + 8 * n) =
-            make_float2(acc[n][2], acc[n][3]);
-      }
-    }
-  }
-};
-
-// element (r, c) of the score tile: the sum of the KSPLIT partials
+// the score tile sS[BO x BI] = sO · sIᵀ, by the whole block: thread t row
+// t / 8, columns t % 8 + 8j; float4 steps along H
 template <typename G>
-__device__ __forceinline__ float score_at(const float* sS, int r, int c) {
-  float s = sS[r * G::LDS + c];
+__device__ __forceinline__ void scores(const float* sO, const float* sI,
+                                       int ld, int hp, float* sS) {
+  static_assert(G::BO == 32 && G::BI == 32, "score tile");
+  const int r = threadIdx.x / 8, c0 = threadIdx.x % 8;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int k = 0; k < hp; k += 4) {
+    const float4 av = *reinterpret_cast<const float4*>(sO + r * ld + k);
 #pragma unroll
-  for (int ks = 1; ks < G::KSPLIT; ++ks)
-    s += sS[ks * (G::BO * G::LDS) + r * G::LDS + c];
-  return s;
+    for (int j = 0; j < 4; ++j) {
+      const float4 b =
+          *reinterpret_cast<const float4*>(sI + (c0 + 8 * j) * ld + k);
+      acc[j] = fmaf(av.x, b.x, acc[j]);
+      acc[j] = fmaf(av.y, b.y, acc[j]);
+      acc[j] = fmaf(av.z, b.z, acc[j]);
+      acc[j] = fmaf(av.w, b.w, acc[j]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) sS[r * G::LDS + c0 + 8 * j] = acc[j];
 }
 
 template <int TPR>
@@ -279,118 +185,95 @@ __device__ __forceinline__ float group_sum(float v) {
 
 // Shared-memory carve-up and the loop over inner tiles that both kernels
 // share: `body(sI, i0)` runs once a tile, after the tile has landed and its
-// partial scores are in sS.
-template <typename T, bool BWD>
+// scores are in sS.
+template <bool BWD>
 struct Walk {
-  using G = Geo<T, BWD>;
+  using G = Geo<BWD>;
   int hp, ld;
-  T* sO;    // fp32: the own tile
-  T* sI;    // the inner tile buffers (half: the own tile's staging first)
+  float* sO;  // the own tile
+  float* sI;  // the inner tile
   float* sS;
-  T* sG;
+  float* sG;
   float* sTok;  // three BI-long arrays: lse, dl, labels (as int)
 
   __device__ __forceinline__ Walk(unsigned char* smem, int H) {
     hp = round16(H);
     ld = G::ld(hp);
     unsigned char* p = smem;
-    sO = reinterpret_cast<T*>(p);
-    if (G::F32) p += G::o_bytes(hp);
-    sI = reinterpret_cast<T*>(p);
-    p += G::ops_bytes(hp) - (G::F32 ? G::o_bytes(hp) : 0);
+    sO = reinterpret_cast<float*>(p);
+    p += G::o_bytes(hp);
+    sI = reinterpret_cast<float*>(p);
+    p += G::i_bytes(hp);
     sS = reinterpret_cast<float*>(p);
     p += G::S_BYTES;
-    sG = reinterpret_cast<T*>(p);
+    sG = reinterpret_cast<float*>(p);
     p += G::G_BYTES;
     sTok = reinterpret_cast<float*>(p);
   }
 
-  // the own tile: into sO (fp32) or, staged through sI, into registers
-  __device__ __forceinline__ void load_own(OwnTile<T, BWD>& own,
-                                          const T* src, int rows, int H,
-                                          int vec) {
-    load_rows<T, G::BO>(G::F32 ? sO : sI, ld, src, rows, H, hp, vec);
+  __device__ __forceinline__ void load_own(const float* src, int rows, int H,
+                                           int vec) {
+    load_rows<G::BO>(sO, ld, src, rows, H, hp, vec);
     if (vec) cp_async_wait_all();
     __syncthreads();
-    own.load(sI, ld, hp);
-    __syncthreads();  // the staging area becomes the inner tiles
   }
 
   template <typename Tokens, typename Body>
-  __device__ __forceinline__ void run(const OwnTile<T, BWD>& own,
-                                      const T* src, int n_inner, int H,
+  __device__ __forceinline__ void run(const float* src, int n_inner, int H,
                                       int vec, Tokens tokens, Body body) {
     const int n_tiles = (n_inner + G::BI - 1) / G::BI;
-    const int tile_elems = G::BI * ld;
-    auto issue = [&](int it, int buf) {
-      const int i0 = it * G::BI;
-      load_rows<T, G::BI>(sI + buf * tile_elems, ld, src + size_t(i0) * H,
-                          min(G::BI, n_inner - i0), H, hp, vec);
-    };
-    const bool pipe = vec && G::NBUF == 2;
-    if (pipe) issue(0, 0);
     for (int it = 0; it < n_tiles; ++it) {
-      const int buf = G::NBUF == 2 ? (it & 1) : 0;
-      if (pipe) {
-        cp_async_wait_all();
-      } else {
-        if (G::NBUF == 1) __syncthreads();  // the last tile is read
-        issue(it, buf);
-        if (vec) cp_async_wait_all();
-      }
-      tokens(it * G::BI);
-      __syncthreads();  // the tile has landed; the last step is done
-      if (pipe && it + 1 < n_tiles) issue(it + 1, buf ^ 1);
-      const T* tile = sI + buf * tile_elems;
-      own.scores(sO, tile, ld, hp, sS);
+      const int i0 = it * G::BI;
+      __syncthreads();  // the last tile is read
+      load_rows<G::BI>(sI, ld, src + size_t(i0) * H,
+                       min(G::BI, n_inner - i0), H, hp, vec);
+      if (vec) cp_async_wait_all();
+      tokens(i0);
+      __syncthreads();  // the tile has landed
+      scores<G>(sO, sI, ld, hp, sS);
       __syncthreads();
-      body(tile, it * G::BI);
+      body(sI, i0);
     }
   }
 };
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
     lxent_fwd_kernel(const LxArgs a) {
-  using G = Geo<T, false>;
+  using G = Geo<false>;
   constexpr int BO = G::BO, TPR = G::TPR, CPT = G::CPT;
   extern __shared__ __align__(128) unsigned char smem[];
-  Walk<T, false> walk(smem, a.H);
-  OwnTile<T, false> own;
+  Walk<false> walk(smem, a.H);
 
   const int tid = threadIdx.x, row = tid / TPR, part = tid % TPR;
   const int own0 = blockIdx.x * BO, grow = own0 + row;
-  walk.load_own(own, static_cast<const T*>(a.x) + size_t(own0) * a.H,
-                min(BO, a.T - own0), a.H, a.vec);
+  walk.load_own(a.x + size_t(own0) * a.H, min(BO, a.T - own0), a.H, a.vec);
   const int label = grow < a.T ? a.labels[grow] : -1;
   // each thread folds its own columns online; the TPR threads of a row
   // merge their statistics once, after the loop
   float m = kNegInf, l = 0.f, tgt = 0.f, sx = 0.f;
-  walk.run(own, static_cast<const T*>(a.w), a.V, a.H, a.vec, [](int) {},
-           [&](const T*, int i0) {
-             float sv[CPT];
-             bool ok[CPT];
-             float mx = kNegInf, t_add = 0.f, x_add = 0.f;
+  walk.run(a.w, a.V, a.H, a.vec, [](int) {}, [&](const float*, int i0) {
+    float sv[CPT];
+    bool ok[CPT];
+    float mx = kNegInf, t_add = 0.f, x_add = 0.f;
 #pragma unroll
-             for (int j = 0; j < CPT; ++j) {
-               const int c = part + TPR * j, g = i0 + c + a.off;
-               ok[j] = i0 + c < a.V && g < a.K;
-               sv[j] = score_at<G>(walk.sS, row, c);
-               mx = fmaxf(mx, ok[j] ? sv[j] : kNegInf);
-               t_add += g == label ? sv[j] : 0.f;
-               x_add += ok[j] ? sv[j] : 0.f;
-             }
-             const float m_new = fmaxf(m, mx);
-             const float corr = expf(m - m_new);
-             float sum = 0.f;
+    for (int j = 0; j < CPT; ++j) {
+      const int c = part + TPR * j, g = i0 + c + a.off;
+      ok[j] = i0 + c < a.V && g < a.K;
+      sv[j] = walk.sS[row * G::LDS + c];
+      mx = fmaxf(mx, ok[j] ? sv[j] : kNegInf);
+      t_add += g == label ? sv[j] : 0.f;
+      x_add += ok[j] ? sv[j] : 0.f;
+    }
+    const float m_new = fmaxf(m, mx);
+    const float corr = expf(m - m_new);
+    float sum = 0.f;
 #pragma unroll
-             for (int j = 0; j < CPT; ++j)
-               sum += ok[j] ? expf(sv[j] - m_new) : 0.f;
-             l = l * corr + sum;
-             m = m_new;
-             tgt += t_add;
-             sx += x_add;
-           });
+    for (int j = 0; j < CPT; ++j) sum += ok[j] ? expf(sv[j] - m_new) : 0.f;
+    l = l * corr + sum;
+    m = m_new;
+    tgt += t_add;
+    sx += x_add;
+  });
   {
     const float m_row = group_max<TPR>(m);
     l = group_sum<TPR>(l * expf(m - m_row));
@@ -419,16 +302,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // dx (DW false: own = token rows, inner = W rows) or dW (DW true: own = W
 // rows, inner = token rows): own·H += G·inner, G recomputed a tile at a time.
-// fp32 only: the bf16/fp16 backward is linear_xent_bwd.cu's.
-template <typename T, bool DW>
+template <bool DW>
 __global__ void __launch_bounds__(kThreads, 1)
     lxent_bwd_kernel(const LxArgs a) {
-  using G = Geo<T, true>;
-  static_assert(G::F32, "the half backward runs on linear_xent_bwd.cu");
+  using G = Geo<true>;
   constexpr int BO = G::BO, BI = G::BI;
   extern __shared__ __align__(128) unsigned char smem[];
-  Walk<T, true> walk(smem, a.H);
-  OwnTile<T, true> own;
+  Walk<true> walk(smem, a.H);
   float* sLse = walk.sTok;
   float* sDl = sLse + BI;
   int* sLab = reinterpret_cast<int*>(sDl + BI);
@@ -451,8 +331,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     dl = (in && !(a.has_pad && lab == a.pad)) ? a.dloss[t] : 0.f;
   };
 
-  walk.load_own(own, static_cast<const T*>(DW ? a.w : a.x) +
-                         size_t(own0) * a.H,
+  walk.load_own((DW ? a.w : a.x) + size_t(own0) * a.H,
                 min(BO, n_own - own0), a.H, a.vec);
 
   // the accumulator: fp32, BO x hp, in registers: thread (tx, ty) rows ty
@@ -483,7 +362,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   int nx_lab = -1;
   if (DW && tid < BI) token(tid, nx_lse, nx_dl, nx_lab);
   walk.run(
-      own, static_cast<const T*>(DW ? a.x : a.w), n_inner, a.H, a.vec,
+      DW ? a.x : a.w, n_inner, a.H, a.vec,
       [&](int i0) {
         if constexpr (DW) {
           if (tid < BI) {
@@ -494,7 +373,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           }
         }
       },
-      [&](const T* tile, int i0) {
+      [&](const float* tile, int i0) {
         float t_lse = 0.f, t_dl = 0.f;
         int t_lab = -1;
         if constexpr (DW) {
@@ -513,11 +392,11 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int vloc = DW ? own0 + r : i0 + c;  // shard-local W row
           const int g = vloc + a.off;
           const bool valid = vloc < a.V && g < a.K;
-          const float s = score_at<G>(walk.sS, r, c);
+          const float s = walk.sS[r * G::LDS + c];
           const float p = valid ? expf(s - t_lse) : 0.f;
           float gv = p - on * (g == t_lab ? 1.f : 0.f) - eps_k;
           gv = valid ? gv * t_dl : 0.f;
-          walk.sG[r * G::LDG + c] = from_f32<T>(gv);
+          walk.sG[r * G::LDG + c] = gv;
         }
         __syncthreads();
         const int ld = walk.ld, hp = walk.hp;
@@ -543,7 +422,6 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       });
 
-  T* out = static_cast<T*>(a.grad);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = own0 + ty + 16 * i;
@@ -553,36 +431,30 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int col = 4 * tx + 64 * j + q;
-        if (col < a.H) out[size_t(r) * a.H + col] = acc[i][j][q];
+        if (col < a.H) a.grad[size_t(r) * a.H + col] = acc[i][j][q];
       }
   }
 }
 
 enum Which { kFwd = 0, kDx = 1, kDw = 2 };
 
-template <typename T>
-static int launch(int which, const LxArgs& a, cudaStream_t st) {
+int launch(int which, const LxArgs& a, cudaStream_t st) {
   static bool attr_set[3] = {false, false, false};
   const int hp = round16(a.H);
   void (*kern)(const LxArgs);
   size_t smem, max_smem;
   int rows;
   if (which == kFwd) {
-    kern = lxent_fwd_kernel<T>;
-    smem = Geo<T, false>::smem(hp);
-    max_smem = Geo<T, false>::smem(kHMax);
-    rows = (a.T + Geo<T, false>::BO - 1) / Geo<T, false>::BO;
-  } else if constexpr (sizeof(T) == 4) {
-    if (which == kDx)
-      kern = lxent_bwd_kernel<T, false>;
-    else
-      kern = lxent_bwd_kernel<T, true>;
-    smem = Geo<T, true>::smem(hp);
-    max_smem = Geo<T, true>::smem(kHMax);
-    const int n_own = which == kDx ? a.T : a.V;
-    rows = (n_own + Geo<T, true>::BO - 1) / Geo<T, true>::BO;
+    kern = lxent_fwd_kernel;
+    smem = Geo<false>::smem(hp);
+    max_smem = Geo<false>::smem(kHMax);
+    rows = (a.T + Geo<false>::BO - 1) / Geo<false>::BO;
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);  // linear_xent_bwd.cu
+    kern = which == kDx ? lxent_bwd_kernel<false> : lxent_bwd_kernel<true>;
+    smem = Geo<true>::smem(hp);
+    max_smem = Geo<true>::smem(kHMax);
+    const int n_own = which == kDx ? a.T : a.V;
+    rows = (n_own + Geo<true>::BO - 1) / Geo<true>::BO;
   }
   if (!attr_set[which]) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -595,29 +467,20 @@ static int launch(int which, const LxArgs& a, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-static int dispatch(int which, LxArgs& a, int dtype, void* stream) {
+// fp32 only: bf16/fp16 run linear_xent_fwd.cu and linear_xent_bwd.cu
+int dispatch(int which, LxArgs& a, int dtype, void* stream) {
   if (a.T <= 0 || a.V <= 0) return 0;
-  if (a.H <= 0 || a.H > kHMax || a.K <= 0)
+  if (a.H <= 0 || a.H > kHMax || a.K <= 0 || dtype != kF32)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = as_stream(stream);
-  switch (dtype) {
-    case kF32:
-      return launch<float>(which, a, st);
-    case kBF16:
-      return launch<__nv_bfloat16>(which, a, st);
-    case kF16:
-      return launch<__half>(which, a, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch(which, a, as_stream(stream));
 }
 
 LxArgs make_args(const void* x, const void* w, const void* labels, int T,
                  int V, int H, int K, int off, float smoothing, int has_pad,
                  int pad, int vec) {
   LxArgs a{};
-  a.x = x;
-  a.w = w;
+  a.x = static_cast<const float*>(x);
+  a.w = static_cast<const float*>(w);
   a.labels = static_cast<const int*>(labels);
   a.T = T;
   a.V = V;
@@ -633,7 +496,7 @@ LxArgs make_args(const void* x, const void* w, const void* labels, int T,
 
 }  // namespace
 
-// x (T, H), w (V, H) contiguous in `dtype`, labels (T,) int32. mode 0: out0
+// fp32 only. x (T, H), w (V, H) contiguous, labels (T,) int32. mode 0: out0
 // loss, out1 lse (T,) fp32; mode 1: out0..3 m, l, tgt, sx (T,) fp32; mode 2:
 // out0 (T, 4) fp32. H <= 768.
 extern "C" int apex1_lxent_fwd(const void* x, const void* w,
@@ -652,8 +515,7 @@ extern "C" int apex1_lxent_fwd(const void* x, const void* w,
   return dispatch(kFwd, a, dtype, stream);
 }
 
-// fp32 only (bf16/fp16: linear_xent_bwd.cu). lse, dloss (T,) fp32; dx
-// (T, H) fp32
+// fp32 only. lse, dloss (T,) fp32; dx (T, H) fp32
 extern "C" int apex1_lxent_dx(const void* x, const void* w,
                               const void* labels, const void* lse,
                               const void* dloss, void* dx, int T, int V, int H,
@@ -663,7 +525,7 @@ extern "C" int apex1_lxent_dx(const void* x, const void* w,
                        vec);
   a.lse = static_cast<const float*>(lse);
   a.dloss = static_cast<const float*>(dloss);
-  a.grad = dx;
+  a.grad = static_cast<float*>(dx);
   return dispatch(kDx, a, dtype, stream);
 }
 
@@ -677,36 +539,31 @@ extern "C" int apex1_lxent_dw(const void* x, const void* w,
                        vec);
   a.lse = static_cast<const float*>(lse);
   a.dloss = static_cast<const float*>(dloss);
-  a.grad = dw;
+  a.grad = static_cast<float*>(dw);
   return dispatch(kDw, a, dtype, stream);
 }
 
 // ---- the wide path (H > 768) ----------------------------------------------
 //
-// The resident tiles above hold at most 768 columns of H in registers; a
-// Llama head (H = 4096) cannot keep its own rows there (32 x 4096 fp32 is
-// 512 KB), nor in shared memory (227 KB a block). So a wider head runs as
-// tiled products with H streamed in K-steps (`Gemm`, mma.cuh), 128 x 128
-// output tiles:
+// The resident tiles above hold at most 768 columns of H; a wider fp32 head
+// (H = 4096: 32 x 4096 fp32 is 512 KB) cannot keep its own rows in shared
+// memory (227 KB a block). So it runs as tiled products with H streamed in
+// K-steps (`Gemm`, mma.cuh), 128 x 128 output tiles:
 // - forward: one product kernel forms the score tiles x·Wᵀ over the whole
 //   shard and folds each tile's 128 columns into per-row partial statistics
 //   (m, l, tgt, sx) in its epilogue, written to a (T, V/128) buffer; a
 //   second kernel folds a row's partials in column order and writes mode
 //   0, 1 or 2 (one code path, so mode 2 is mode 1 bit for bit);
-// - backward (fp32; bf16/fp16 take the same three products on wgmma in
-//   linear_xent_bwd.cu), per vocab chunk of rows [c0, c0 + n): a product
-//   kernel forms the chunk's score tiles once and writes G_c to a (T, n)
-//   buffer; then dx += G_c·W_c (an fp32 (T, H) sum in device memory,
-//   chunks added in order, the last chunk writing dx) and dW_c = G_cᵀ·x
-//   are two more products over it. The logits are formed once a chunk, not
-//   once for dx and once for dW as above.
+// - backward, per vocab chunk of rows [c0, c0 + n): a product kernel forms
+//   the chunk's score tiles once and writes G_c to a (T, n) buffer; then
+//   dx += G_c·W_c (an fp32 (T, H) sum in device memory, chunks added in
+//   order, the last chunk writing dx) and dW_c = G_cᵀ·x are two more
+//   products over it. The logits are formed once a chunk, not once for dx
+//   and once for dW as above.
 // Every output element is summed by one block in a fixed order: no atomics,
-// the same bits on every run. Not chosen: H split across blocks that each
-// recompute the full-H logits (H / slice times the score products), or a
-// cluster of CTAs summing partial score tiles through distributed shared
-// memory (fewer passes over x and W; a later step). ptxas (-Xptxas -v, sm_90a
-// on an H100): bf16/fp16 forward scores 133 registers; f32 143, 234 with
-// the G epilogue, dx 168, dW 167; no spills.
+// the same bits on every run. ptxas (-Xptxas -v, sm_90a on an H100): the
+// forward scores 143 registers, 234 with the G epilogue, dx 168, dW 167; no
+// spills.
 
 namespace {
 
@@ -915,13 +772,9 @@ int launch_tiles(void (*kern)(const Args), size_t smem, int M, int N,
 template <typename T>
 int wide_scores(const WideArgs& a, bool grad, cudaStream_t st) {
   using G = Gemm<T, kWBM, kWBN, 1, true, true>;
-  if (grad) {
-    // fp32 only: the half backward is linear_xent_bwd.cu's
-    if constexpr (sizeof(T) == 4)
-      return launch_tiles(lxw_scores_kernel<T, true>, G::SMEM, a.T, a.V, a,
-                          st);
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (grad)
+    return launch_tiles(lxw_scores_kernel<T, true>, G::SMEM, a.T, a.V, a,
+                        st);
   const size_t stage = size_t(kWBM) * (kWBN + 4) * sizeof(float);
   int err = launch_tiles(lxw_scores_kernel<T, false>, max_sz(G::SMEM, stage),
                          a.T, a.V, a, st);
@@ -941,21 +794,13 @@ int wide_prod(const WideProdArgs& a, bool dw, cudaStream_t st) {
                       st);
 }
 
+// fp32 only: bf16/fp16 run linear_xent_fwd.cu and linear_xent_bwd.cu
 int wide_scores_dtype(const WideArgs& a, bool grad, int dtype, void* stream) {
   if (a.T <= 0 || a.V <= 0) return 0;
-  if (a.H <= 0 || a.K <= 0 || (!grad && a.nblk != (a.V + kWBN - 1) / kWBN))
+  if (a.H <= 0 || a.K <= 0 || dtype != kF32 ||
+      (!grad && a.nblk != (a.V + kWBN - 1) / kWBN))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = as_stream(stream);
-  switch (dtype) {
-    case kF32:
-      return wide_scores<float>(a, grad, st);
-    case kBF16:
-      return wide_scores<__nv_bfloat16>(a, grad, st);
-    case kF16:
-      return wide_scores<__half>(a, grad, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return wide_scores<float>(a, grad, as_stream(stream));
 }
 
 // fp32 only: the half backward is linear_xent_bwd.cu's
@@ -986,9 +831,9 @@ WideArgs wide_args(const void* x, const void* w, const void* labels, int T,
 
 }  // namespace
 
-// The wide forward: x (T, H), w (V, H) as apex1_lxent_fwd, any H; part a
-// (T, nblk) float4 scratch, nblk = ceil(V / 128). vec: H is a multiple of
-// 16 bytes of elements and x, w are 16-byte aligned.
+// The wide forward, fp32 only: x (T, H), w (V, H) as apex1_lxent_fwd, any
+// H; part a (T, nblk) float4 scratch, nblk = ceil(V / 128). vec: H is a
+// multiple of 4 and x, w are 16-byte aligned.
 extern "C" int apex1_lxent_wide_fwd(const void* x, const void* w,
                                     const void* labels, void* part,
                                     void* out0, void* out1, void* out2,
@@ -1008,7 +853,7 @@ extern "C" int apex1_lxent_wide_fwd(const void* x, const void* w,
   return wide_scores_dtype(a, false, dtype, stream);
 }
 
-// fp32 only (bf16/fp16: linear_xent_bwd.cu). G of one vocab chunk: w the
+// fp32 only. G of one vocab chunk: w the
 // chunk's n rows (V = n), off the global column of its first row; g (T, n)
 extern "C" int apex1_lxent_wide_grad(const void* x, const void* w,
                                      const void* labels, const void* lse,

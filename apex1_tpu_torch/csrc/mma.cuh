@@ -1,8 +1,9 @@
-// Tensor-core building blocks shared by the port's product kernels
-// (linear_xent.cu, glu.cu): cp.async copies, ldmatrix, mma.sync m16n8k16
-// with fp32 accumulation, and a block-level tiled product (`Gemm`) whose
-// accumulators stay in registers for the caller's epilogue. wgmma.cuh
-// takes its cp.async copies and paired stores from here.
+// Building blocks shared by the port's product kernels: cp.async copies,
+// the L2-aware tile order, paired stores, and the fp32 block-level tiled
+// product (`Gemm`: linear_xent.cu's wide path, glu.cu's and
+// chunk_matmul.cu's fp32 paths) whose accumulators stay in registers for
+// the caller's epilogue. wgmma.cuh takes its cp.async copies and paired
+// stores from here.
 #pragma once
 
 #include "common.cuh"
@@ -31,60 +32,6 @@ __device__ __forceinline__ void cp_async_wait_group() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// bf16/fp16 tensor-core primitives (PTX): ldmatrix of four 8x8 tiles and
-// the m16n8k16 product with fp32 accumulation. A fragment: 4 registers of a
-// 16x16 row-major tile; B: 2 registers of a 16x8 tile; C: 4 floats, rows
-// lane/4 and lane/4 + 8, columns 2·(lane%4) + {0, 1}.
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-template <typename T>
-__device__ __forceinline__ void mma16816(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  if constexpr (std::is_same<T, __half>::value) {
-    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
-        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  } else {
-    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-}
-
-// the A fragment of the 16x16 tile at `tile` (row-major, row stride ld)
-template <typename T>
-__device__ __forceinline__ void load_a(unsigned (&r)[4], const T* tile,
-                                       int ld) {
-  const int lane = threadIdx.x % 32;
-  ldsm_x4(r, tile + ((lane % 8) + 8 * ((lane / 8) % 2)) * ld + 8 * (lane / 16));
-}
-
-// the A fragment of the 16x16 tile A(m, k) = tile[k][m] (stored k-major,
-// row stride ld): ldmatrix .trans
-template <typename T>
-__device__ __forceinline__ void load_a_t(unsigned (&r)[4], const T* tile,
-                                         int ld) {
-  const int lane = threadIdx.x % 32, q = lane / 8;
-  ldsm_x4_t(r, tile + ((lane % 8) + 8 * (q / 2)) * ld + 8 * (q % 2));
-}
-
 // One (M x K) · (K x N) operand as it lies in device memory: element (row,
 // col) of the stored matrix at p[row · ld + col]. For A the stored rows are
 // m (KC: k contiguous) or k; for B they are n (KC) or k.
@@ -107,39 +54,33 @@ __device__ __forceinline__ void swizzle(int pid, int tiles_m, int tiles_n,
 }
 
 // A block of 256 threads computes the BM x BN tile at (m0, n0) of NACC
-// products A · B_j that share their A operand, each summed in fp32 over all
-// of K. K is streamed in BK-deep steps through a STAGES-deep ring of shared
-// tiles filled by cp.async (16-byte copies; `vec`: every stored row length
-// and the operands' strides are multiples of 16 bytes and the pointers
-// 16-byte aligned, else plain loads). Ragged M, N and K edges are zero-
-// filled in shared memory; nothing is padded in device memory.
-// bf16/fp16: 8 warps in a 2 x 4 grid, each a (BM/2) x (BN/4) tile of m16n8
-// mma.sync products on ldmatrix fragments (.trans where the operand lies
-// the other way). fp32: plain FMA on the CUDA cores (no TF32), thread
-// (tm, tn) of a 16 x 16 grid owning rows tm + 16i and column pairs
-// 2·tn + 32j + {0, 1}.
+// fp32 products A · B_j that share their A operand, each summed in fp32 over
+// all of K. K is streamed in BK-deep steps through a STAGES-deep ring of
+// shared tiles filled by cp.async (16-byte copies; `vec`: every stored row
+// length and the operands' strides are multiples of 16 bytes and the
+// pointers 16-byte aligned, else plain loads). Ragged M, N and K edges are
+// zero-filled in shared memory; nothing is padded in device memory. Plain
+// FMA on the CUDA cores (no TF32), thread (tm, tn) of a 16 x 16 grid owning
+// rows tm + 16i and column pairs 2·tn + 32j + {0, 1}. (bf16/fp16 products
+// run on wgmma: gemm_wg.cuh.)
 template <typename T, int BM, int BN, int NACC, bool A_KC, bool B_KC>
 struct Gemm {
+  static_assert(sizeof(T) == 4, "fp32 operands (bf16/fp16: gemm_wg.cuh)");
   static constexpr int kThreads = 256;
-  static constexpr bool F32 = sizeof(T) == 4;
-  static constexpr int BK = F32 ? 16 : 32;
+  static constexpr int BK = 16;
   static constexpr int STAGES = 3;
-  static constexpr int EPV = 16 / int(sizeof(T));  // elements a 16-byte copy
+  static constexpr int EPV = 4;  // elements a 16-byte copy
   static constexpr int A_R = A_KC ? BM : BK, A_C = A_KC ? BK : BM;
   static constexpr int B_R = B_KC ? BN : BK, B_C = B_KC ? BK : BN;
   static constexpr int LDA = A_C + EPV, LDB = B_C + EPV;
   static constexpr int A_ELEMS = A_R * LDA, B_ELEMS = B_R * LDB;
   static constexpr int STAGE = A_ELEMS + NACC * B_ELEMS;
   static constexpr size_t SMEM = size_t(STAGES) * STAGE * sizeof(T);
-  // bf16/fp16 warp tiles
-  static constexpr int WTM = BM / 2, WTN = BN / 4;
-  static constexpr int MT = WTM / 16, NT = WTN / 8;
-  // fp32 thread tiles
+  // thread tiles
   static constexpr int TM = BM / 16, TJ = BN / 32;
   static_assert(BM % 32 == 0 && BN % 32 == 0, "tile geometry");
-  static_assert(F32 || NT % 2 == 0, "B fragments come in pairs of n8 tiles");
 
-  float acc[NACC][F32 ? TM : MT][F32 ? TJ : NT][4];
+  float acc[NACC][TM][TJ][4];
 
   // R x C elements at rows r0.., columns c0.. of the stored matrix (limits
   // rlim, clim) into a shared tile with row stride lds
@@ -189,64 +130,27 @@ struct Gemm {
 
   __device__ __forceinline__ void compute(const T* st) {
     const T* sA = st;
-    if constexpr (F32) {
-      const int tm = threadIdx.x / 16, tn = threadIdx.x % 16;
+    const int tm = threadIdx.x / 16, tn = threadIdx.x % 16;
 #pragma unroll 4
-      for (int k = 0; k < BK; ++k) {
-        float a[TM];
+    for (int k = 0; k < BK; ++k) {
+      float a[TM];
 #pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          const int m = tm + 16 * i;
-          a[i] = A_KC ? sA[m * LDA + k] : sA[k * LDA + m];
-        }
-#pragma unroll
-        for (int j = 0; j < NACC; ++j) {
-          const T* sB = st + A_ELEMS + j * B_ELEMS;
-#pragma unroll
-          for (int jj = 0; jj < TJ; ++jj) {
-            const int n = 2 * tn + 32 * jj;
-            const float b0 = B_KC ? sB[n * LDB + k] : sB[k * LDB + n];
-            const float b1 = B_KC ? sB[(n + 1) * LDB + k] : sB[k * LDB + n + 1];
-#pragma unroll
-            for (int i = 0; i < TM; ++i) {
-              acc[j][i][jj][0] = fmaf(a[i], b0, acc[j][i][jj][0]);
-              acc[j][i][jj][1] = fmaf(a[i], b1, acc[j][i][jj][1]);
-            }
-          }
-        }
+      for (int i = 0; i < TM; ++i) {
+        const int m = tm + 16 * i;
+        a[i] = A_KC ? sA[m * LDA + k] : sA[k * LDA + m];
       }
-    } else {
-      const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, q = lane / 8;
-      const int wm = warp / 4, wn = warp % 4;
 #pragma unroll
-      for (int k16 = 0; k16 < BK; k16 += 16) {
-        unsigned a[MT][4];
+      for (int j = 0; j < NACC; ++j) {
+        const T* sB = st + A_ELEMS + j * B_ELEMS;
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          const int m = wm * WTM + 16 * mt;
-          if constexpr (A_KC)
-            load_a<T>(a[mt], sA + m * LDA + k16, LDA);
-          else
-            load_a_t<T>(a[mt], sA + k16 * LDA + m, LDA);
-        }
+        for (int jj = 0; jj < TJ; ++jj) {
+          const int n = 2 * tn + 32 * jj;
+          const float b0 = B_KC ? sB[n * LDB + k] : sB[k * LDB + n];
+          const float b1 = B_KC ? sB[(n + 1) * LDB + k] : sB[k * LDB + n + 1];
 #pragma unroll
-        for (int j = 0; j < NACC; ++j) {
-          const T* sB = st + A_ELEMS + j * B_ELEMS;
-#pragma unroll
-          for (int p = 0; p < NT / 2; ++p) {
-            const int n = wn * WTN + 16 * p;
-            unsigned b[4];
-            if constexpr (B_KC)
-              ldsm_x4(b, sB + (n + (lane % 8) + 8 * (q / 2)) * LDB + k16 +
-                             8 * (q % 2));
-            else
-              ldsm_x4_t(b, sB + (k16 + (lane % 8) + 8 * (q % 2)) * LDB + n +
-                               8 * (q / 2));
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt) {
-              mma16816<T>(acc[j][mt][2 * p], a[mt], b[0], b[1]);
-              mma16816<T>(acc[j][mt][2 * p + 1], a[mt], b[2], b[3]);
-            }
+          for (int i = 0; i < TM; ++i) {
+            acc[j][i][jj][0] = fmaf(a[i], b0, acc[j][i][jj][0]);
+            acc[j][i][jj][1] = fmaf(a[i], b1, acc[j][i][jj][1]);
           }
         }
       }
@@ -260,9 +164,9 @@ struct Gemm {
 #pragma unroll
     for (int j = 0; j < NACC; ++j)
 #pragma unroll
-      for (int x = 0; x < (F32 ? TM : MT); ++x)
+      for (int x = 0; x < TM; ++x)
 #pragma unroll
-        for (int y = 0; y < (F32 ? TJ : NT); ++y)
+        for (int y = 0; y < TJ; ++y)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[j][x][y][e] = 0.f;
     const int KT = (K + BK - 1) / BK;
@@ -291,37 +195,18 @@ struct Gemm {
   template <typename F>
   __device__ __forceinline__ void for_each(F f) const {
     float v[NACC][2];
-    if constexpr (F32) {
-      const int tm = threadIdx.x / 16, tn = threadIdx.x % 16;
+    const int tm = threadIdx.x / 16, tn = threadIdx.x % 16;
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
+    for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int jj = 0; jj < TJ; ++jj) {
+      for (int jj = 0; jj < TJ; ++jj) {
 #pragma unroll
-          for (int j = 0; j < NACC; ++j) {
-            v[j][0] = acc[j][i][jj][0];
-            v[j][1] = acc[j][i][jj][1];
-          }
-          f(tm + 16 * i, 2 * tn + 32 * jj, v);
+        for (int j = 0; j < NACC; ++j) {
+          v[j][0] = acc[j][i][jj][0];
+          v[j][1] = acc[j][i][jj][1];
         }
-    } else {
-      const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-      const int wm = warp / 4, wn = warp % 4;
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-#pragma unroll
-            for (int j = 0; j < NACC; ++j) {
-              v[j][0] = acc[j][mt][nt][2 * h];
-              v[j][1] = acc[j][mt][nt][2 * h + 1];
-            }
-            f(wm * WTM + 16 * mt + lane / 4 + 8 * h,
-              wn * WTN + 8 * nt + 2 * (lane % 4), v);
-          }
-    }
+        f(tm + 16 * i, 2 * tn + 32 * jj, v);
+      }
   }
 };
 

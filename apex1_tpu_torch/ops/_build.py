@@ -44,7 +44,7 @@ _U = ctypes.c_uint
 #: as c_void_p, so ctypes never truncates them to 32 bits)
 SIGNATURES = {
     "apex1_layer_norm_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I,
-                             _P],
+                             _I, _P],
     "apex1_layer_norm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _I, _I, _I, _I, _P],
     "apex1_softmax_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _L, _L, _L,
@@ -79,6 +79,7 @@ SIGNATURES = {
                               _I, _I, _I, _I, _P],
     "apex1_lxent_wide_dx": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "apex1_lxent_wide_dw": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "apex1_lxent_wg_fwd": [_P] * 8 + [_I] * 5 + [_F] + [_I] * 6 + [_P],
     "apex1_lxent_wg_grad": [_P] * 6 + [_I] * 5 + [_F] + [_I] * 5 + [_P],
     "apex1_lxent_wg_dx": [_P] * 4 + [_I] * 8 + [_P],
     "apex1_lxent_wg_dw": [_P] * 3 + [_I] * 6 + [_P],

@@ -2,8 +2,10 @@
 
 Two kernels, each beside its plain PyTorch version:
 
-- forward, ``csrc/layer_norm.cu``: one block per row, fp32 statistics,
-  variance as E[x^2] - mean^2; saves the row mean and rstd;
+- forward, ``csrc/layer_norm.cu``: a warp a row with the row's 16-byte
+  chunks in registers (read once, written once), fp32 statistics,
+  variance as E[x^2] - mean^2, γ/β read in their own dtype (fp32 or x's
+  half type: one launch, no cast); saves the row mean and rstd;
 - backward, ``csrc/layer_norm_bwd.cu``: dx per row from the saved
   statistics, dγ/dβ as per-block partial sums reduced in a fixed order
   by a second pass (no atomics: the same result on every run).
@@ -89,10 +91,17 @@ def layer_norm_fwd(x2: torch.Tensor, gamma: torch.Tensor,
     if x2.dtype not in _NORM_DTYPES:
         raise ValueError(f"layer_norm_fwd: unsupported dtype {x2.dtype}")
     R, H = x2.shape
-    gamma = gamma.float().contiguous()
-    beta = None if beta is None else beta.float().contiguous()
     if gamma.shape != (H,) or (beta is not None and beta.shape != (H,)):
         raise ValueError("layer_norm_fwd: gamma/beta must be (H,)")
+    # the kernel reads γ/β in fp32 or in x's dtype (amp's half compute
+    # params); any other pairing is widened to fp32 here, which is exact
+    # for half values
+    gdt = gamma.dtype
+    if gdt not in (torch.float32, x2.dtype) or (beta is not None
+                                                and beta.dtype != gdt):
+        gdt = torch.float32
+    gamma = gamma.to(gdt).contiguous()
+    beta = None if beta is None else beta.to(gdt).contiguous()
     x2 = x2.contiguous()
     check_cuda("layer_norm_fwd", x2, gamma, beta)
     y = torch.empty_like(x2)
@@ -102,7 +111,7 @@ def layer_norm_fwd(x2: torch.Tensor, gamma: torch.Tensor,
     _build.launch("apex1_layer_norm_fwd", x2.data_ptr(), gamma.data_ptr(),
                   None if beta is None else beta.data_ptr(), y.data_ptr(),
                   mean.data_ptr(), rstd.data_ptr(), R, H, float(eps),
-                  int(rms), DTYPE_CODES[x2.dtype], stream)
+                  int(rms), DTYPE_CODES[x2.dtype], DTYPE_CODES[gdt], stream)
     layer_norm_fwd.launches += 1
     return y, mean, rstd
 

@@ -24,10 +24,15 @@ its product, as the TPU kernels round it. The plain versions walk the
 vocab in chunks of `PLAIN_CHUNK` columns (never a (T, V) tile) in the
 order of ``_fwd_kernel``'s statistics.
 
-The forward (``csrc/linear_xent.cu``) runs heads up to `MAX_H` = 768
-columns on tiles that keep all of H resident; wider heads (Llama-3 8B:
-4096) take its wide path: tiled products with H streamed, the
-statistics folded from per-tile partials.
+The forward in bf16 and fp16, at every H, is one wgmma product
+(``csrc/linear_xent_fwd.cu`` on ``csrc/gemm_wg.cuh``) whose epilogue
+folds each 128 x 256 score tile into per-row partial statistics in the
+accumulator registers, then a fold of the partials over the vocab tiles
+in order. In fp32 it is
+``csrc/linear_xent.cu``'s: heads up to `MAX_H` = 768 columns on tiles
+that keep all of H resident, wider ones on its wide path (tiled
+products with H streamed, the statistics folded from per-tile
+partials).
 
 The backward walks the vocab a chunk at a time (in bf16 and fp16 as
 many rows as keep G within `WIDE_G_BYTES`, `F32_CHUNK` rows in fp32):
@@ -52,8 +57,9 @@ from apex1_tpu_torch.ops._common import (DTYPE_CODES, NEG_INF, check_cuda,
                                          use_kernel)
 
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
-#: the widest hidden size the kernels' resident tiles hold; wider heads
-#: take the wide path
+#: the widest hidden size fp32's resident-tile kernels hold (the forward,
+#: dx and dW of linear_xent.cu); wider fp32 heads take its wide path.
+#: bf16 and fp16 run the wgmma kernels at every H
 MAX_H = 768
 #: vocab columns a step of the plain versions
 PLAIN_CHUNK = 4096
@@ -66,8 +72,12 @@ WIDE_G_BYTES = 512 << 20
 #: vocab rows an fp32 chunk (the wide path): its dx is summed over the
 #: chunks in order, so the chunk fixes its rounding
 F32_CHUNK = 8192
-#: the wide forward's score tile columns (one partial-statistics slot each)
+#: the fp32 wide forward's score tile columns (one partial-statistics slot
+#: each)
 WIDE_BN = 128
+#: the bf16/fp16 forward's score tile columns (one partial-statistics
+#: slot a row each)
+WG_FWD_BN = 256
 
 
 # ---- plain versions ------------------------------------------------------
@@ -200,8 +210,9 @@ def lxent_fwd(x2: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, *,
     """The forward kernel for (T, H) ``x2``, a (V_l, H) W shard and (T,)
     labels: mode 0 (loss, lse), mode 1 (m, l, tgt, sumx), each (T,)
     fp32; mode 2 one (T, 4) fp32. CUDA tensors launch the kernel
-    (``lxent_fwd.launches``; past `MAX_H`, the wide path's two kernels
-    count once); CPU tensors take the plain version."""
+    (``lxent_fwd.launches``: the product and its fold count once, in
+    bf16/fp16 and on fp32's wide path); CPU tensors take the plain
+    version."""
     if mode not in (0, 1, 2):
         raise ValueError(f"lxent_fwd: mode must be 0, 1 or 2, got {mode}")
     if not use_kernel(x2):
@@ -218,7 +229,13 @@ def lxent_fwd(x2: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, *,
     stream = torch.cuda.current_stream(dev).cuda_stream
     args = _common_args(x2, w, col_offset, num_classes, smoothing,
                         padding_idx)
-    if x2.shape[1] > MAX_H:
+    if x2.dtype != torch.float32:
+        nblk = -(-w.shape[0] // WG_FWD_BN)
+        part = torch.empty(nblk, T, 4, dtype=torch.float32, device=dev)
+        _build.launch("apex1_lxent_wg_fwd", x2.data_ptr(), w.data_ptr(),
+                      labels.data_ptr(), part.data_ptr(), *ptrs, *args, mode,
+                      nblk, vec, DTYPE_CODES[x2.dtype], stream)
+    elif x2.shape[1] > MAX_H:
         nblk = -(-w.shape[0] // WIDE_BN)
         part = torch.empty(T, nblk, 4, dtype=torch.float32, device=dev)
         _build.launch("apex1_lxent_wide_fwd", x2.data_ptr(), w.data_ptr(),

@@ -12,13 +12,16 @@
                                      # (decode-int8, serve-lora), or
                                      # only the NAMEs given (keys of the
                                      # profile: llama_block, bert, ...)
-    python3 chip_smoke.py --compare TREE
+    python3 chip_smoke.py --compare TREE [PART ...]
                                      # build, then time the flash
                                      # kernels, the chunk product, the
-                                     # linear-xent backward, int8_mm and
-                                     # glu_fwd against those of TREE (a
+                                     # linear-xent forward and backward,
+                                     # int8_mm, glu_fwd and the norm
+                                     # forward against those of TREE (a
                                      # checkout of another commit) in
-                                     # turns on the same inputs
+                                     # turns on the same inputs, or only
+                                     # the PARTs given (flash, chunk,
+                                     # lxent, int8, glu, norm)
     python3 chip_smoke.py --gate-sweep [kernels] [plain]
                                      # build, then train bert_large at
                                      # O2 for GATE_STEPS steps at each
@@ -42,18 +45,21 @@ Phases, each printed on its own line; a failure in any exits non-zero:
    (16368 x 768 against 50304 x 768, 50257 classes) in bf16 and fp16,
    a small f32 case, smoothing 0.1 with a padding_idx, a col_offset
    shard with labels outside it, and the DPO path's ragged last vocab
-   chunk (1152 rows); dx and dW (bf16/fp16: three wgmma products a vocab
-   chunk) must give the same bits twice, equal to ``lxent_grads``'s
-   (one G a chunk for both), and the packed statistics (mode 2) equal
-   the four (mode 1) bit for bit. The
-   half-precision backward cases also print how far two plain versions
-   that differ only in the logits' summation precision lie apart. The
+   chunk (1152 rows); the forward (bf16/fp16: one wgmma product with
+   the statistics in its epilogue, then a fold), dx and dW (bf16/fp16:
+   three wgmma products a vocab chunk) must give the same bits twice,
+   dx and dW equal to ``lxent_grads``'s (one G a chunk for both), and
+   the packed statistics (mode 2) equal the four (mode 1) bit for bit.
+   The half-precision backward cases also print how far two plain
+   versions that differ only in the logits' summation precision lie
+   apart. The
    Llama slice's shapes: the RMS norm forward and backward at (8192,
    4096); flash at GQA 32/8, head_dim 128, S = 4096, causal and packed;
-   paged attention at 32/8 heads, head_dim 128; the linear-xent wide
-   path (H > 768) at the Llama head (8190 x 4096 against 32000 x 4096)
-   in bf16 and fp16, a smoothed shard and a ragged f32 case, dx and dW
-   also together (one G a vocab chunk for both) with the same bits;
+   paged attention at 32/8 heads, head_dim 128; the linear-xent kernels
+   at the Llama head (8190 x 4096 against 32000 x 4096) in bf16 and
+   fp16, a smoothed shard and a ragged f32 case (fp32's wide path, H >
+   768), dx and dW also together (one G a vocab chunk for both) with
+   the same bits;
    RoPE (kernel 12) at q (2, 4096, 32, 128) forward and backward, k,
    per-row tables, interleaved, fp16, f32, head_dim 256 and a decode
    step, equal bits required; the fused SwiGLU (kernel 13) at (8192,
@@ -461,26 +467,37 @@ def event_ms(fn, iters: int = 10) -> float:
 # ---- phase 2: kernels against their plain versions ----------------------
 
 
+#: the norm forward's checks: (rows, H, dtype, half γ/β, RMS). Serving
+#: (fp32 γ/β) at decode and prefill rows; training's B*S rows with half
+#: γ/β, the amp compute params; the Llama step's RMS rows (B*S x 4096,
+#: fp32 γ)
+NORM_CASES = [(8, TH, "float32", False, False),
+              (8, TH, "bfloat16", False, False),
+              (16 * 64, TH, "float32", False, False),
+              (16 * 64, TH, "bfloat16", False, False),
+              (TB * TS, TH, "bfloat16", True, False),
+              (TB * TS, TH, "float16", True, False),
+              (LB * LS, LH, "bfloat16", False, True)]
+
+
+def norm_inputs(torch, gen, rows, H, dt, half_g):
+    """x, γ, β of a `NORM_CASES` case on the card (γ/β in x's dtype with
+    ``half_g``, else fp32)."""
+    x = (torch.randn(rows, H, generator=gen) * 2 + 0.5).cuda().to(dt)
+    g = (1 + 0.1 * torch.randn(H, generator=gen)).cuda()
+    b = (0.1 * torch.randn(H, generator=gen)).cuda()
+    if half_g:
+        g, b = g.to(dt), b.to(dt)
+    return x, g, b
+
+
 def check_layer_norm(torch, ops, gen):
     from apex1_tpu_torch.ops.layer_norm import layer_norm, rms_norm
     F = torch.nn.functional
     results = []
-    # serving (fp32 γ/β) at decode and prefill rows; training's B*S rows
-    # with half γ/β, the amp compute params; the Llama step's RMS rows
-    # (B*S x 4096, fp32 γ)
-    cases = [(8, TH, torch.float32, False, False),
-             (8, TH, torch.bfloat16, False, False),
-             (16 * 64, TH, torch.float32, False, False),
-             (16 * 64, TH, torch.bfloat16, False, False),
-             (TB * TS, TH, torch.bfloat16, True, False),
-             (TB * TS, TH, torch.float16, True, False),
-             (LB * LS, LH, torch.bfloat16, False, True)]
-    for rows, H, dt, half_g, rms in cases:
-        x = (torch.randn(rows, H, generator=gen) * 2 + 0.5).cuda().to(dt)
-        g = (1 + 0.1 * torch.randn(H, generator=gen)).cuda()
-        b = (0.1 * torch.randn(H, generator=gen)).cuda()
-        if half_g:
-            g, b = g.to(dt), b.to(dt)
+    for rows, H, dts, half_g, rms in NORM_CASES:
+        dt = getattr(torch, dts)
+        x, g, b = norm_inputs(torch, gen, rows, H, dt, half_g)
         gl, bl = g.to(dt), b.to(dt)
         if rms:
             def run():
@@ -1358,7 +1375,7 @@ def check_flash(torch, ops, gen):
 #: smoothing, padding_idx, forward mode, main[, H, plain and library
 #: timed]). T = 16 x 1023 is the GPT-2 step's head; 8 x 1023 one DPO
 #: sequence batch, whose last vocab chunk holds the table's last 50304 -
-#: 6 x 8192 = 1152 rows; 2 x 4095 the Llama step's head (the wide path)
+#: 6 x 8192 = 1152 rows; 2 x 4095 the Llama step's head
 LXENT_CASES = [
     ("GPT-2 head", TB * (TS - 1), TV_PAD, "bfloat16", TV, 0, 0.0, None, 0,
      True),
@@ -1457,9 +1474,9 @@ def lxent_witness(torch, args, got, plain):
 def check_lxent(torch, ops, gen):
     """Kernels 7-11 (the linear-xent forward in its three modes, dx, dW)
     against their plain versions. The forward of a mode-1/2 case runs
-    both modes and must give the same bits packed; dx and dW each run
-    twice for the same bits; a half-precision case also reports
-    `lxent_witness`. Plain versions are timed at the main case and at
+    both modes and must give the same bits packed; the forward, dx and
+    dW each run twice for the same bits; a half-precision case also
+    reports `lxent_witness`. Plain versions are timed at the main case and at
     the mode-1/2 cases (kernels 8 and 9). The library yardstick (main
     case) is the materialized pair: ``torch.mm(x, W.T,
     out_dtype=float32)`` and ``F.cross_entropy``, and for the backward
@@ -1492,7 +1509,10 @@ def check_lxent(torch, ops, gen):
         def run_f(m=mode):
             return lxent_fwd(x, w, t, mode=m, **(fkw if m == 0 else kw))
 
-        got = run_f()
+        got, again = run_f(), run_f()
+        same_f = (torch.equal(got, again) if mode == 2
+                  else all(map(torch.equal, got, again)))
+        del again
         with ops.force_impl("torch"):
             want = run_f(0 if mode == 0 else 1)
         torch.cuda.synchronize()
@@ -1596,6 +1616,7 @@ def check_lxent(torch, ops, gen):
         fwd.append(dict(case=label, abs=e_f[0], worst=e_f[1], tol=tol32,
                         ms=ms_f, plain_ms=pl_f, library_ms=lib_f,
                         bound_ms=b_f[0], bound_by=b_f[1], main=main,
+                        same_bits=same_f,
                         **({} if mode == 0 else
                            {"packed_equal": packed_equal})))
         for i, (rows, e, ms, pl, b, same) in enumerate((
@@ -2298,13 +2319,15 @@ def lxent_products_ms(torch, x, w, t, lse, dloss, K, pad):
 
 
 def compare_lxent(torch, card, other):
-    """``--compare``'s linear-xent rows (TPU rows 10, 11): ``lxent_dx``
-    alone, ``lxent_dw`` alone and ``lxent_grads`` at `COMPARE_LXENT`'s
-    heads in bf16, through ``other``, TREE's own ``linear_xent`` bound to
-    its own library (`tree_ops`), and this tree's, in turns on the same inputs
-    (`ab2_ms`); then this tree's three products apart
-    (`lxent_products_ms`, with their TFLOP/s) and ``lxent_grads`` at
-    each `COMPARE_CHUNKS` chunk and at `wg_chunk`'s. Returns the rows."""
+    """``--compare``'s linear-xent rows (TPU rows 7-11): ``lxent_fwd`` in
+    mode 0, ``lxent_dx`` alone, ``lxent_dw`` alone and ``lxent_grads`` at
+    `COMPARE_LXENT`'s heads in bf16, and ``lxent_fwd`` in modes 1 and 2
+    at `LXENT_CASES`' bf16 shard and DPO cases, through ``other``, TREE's
+    own ``linear_xent`` bound to its own library (`tree_ops`), and this
+    tree's, in turns on the same inputs (`ab2_ms`); then this tree's
+    three backward products apart (`lxent_products_ms`, with their
+    TFLOP/s) and ``lxent_grads`` at each `COMPARE_CHUNKS` chunk and at
+    `wg_chunk`'s. Returns the rows."""
     from apex1_tpu_torch.ops import linear_xent as lx
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
@@ -2317,6 +2340,13 @@ def compare_lxent(torch, card, other):
         if pad is not None:
             t[::7] = pad
         kw = dict(num_classes=K, padding_idx=pad)
+        flop = 2.0 * T * K * H
+        was, now = ab2_ms(lambda: other.lxent_fwd(x, w, t, **kw),
+                          lambda: lx.lxent_fwd(x, w, t, **kw))
+        rows.append(dict(kernel="lxent_fwd",
+                         case=f"{case} H={H} mode 0, "
+                              f"{flop / now / 1e9:.1f} TFLOP/s",
+                         other_ms=was, ms=now, speedup=was / now))
         _, lse = lx.lxent_fwd(x, w, t, **kw)
         dloss = torch.full((T,), 1.0 / T, device="cuda")
         for name in ("lxent_dx", "lxent_dw", "lxent_grads"):
@@ -2325,7 +2355,6 @@ def compare_lxent(torch, card, other):
                 lambda: getattr(lx, name)(x, w, t, lse, dloss, **kw))
             rows.append(dict(kernel=name, case=f"{case} H={H}",
                              other_ms=was, ms=now, speedup=was / now))
-        flop = 2.0 * T * K * H
         parts = lxent_products_ms(torch, x, w, t, lse, dloss, K, pad)
         chunk_ms = {}
         prev = lx.WIDE_G_BYTES
@@ -2342,6 +2371,26 @@ def compare_lxent(torch, card, other):
                          chunk=lx.wg_chunk(T, V, x.element_size()),
                          grads_ms_by_chunk=chunk_ms))
         del x, w, t, lse, dloss
+        torch.cuda.empty_cache()
+    for case, T, Vl, dts, K, off, _, _, mode, _, *_ in LXENT_CASES:
+        if mode == 0 or dts != "bfloat16":
+            continue
+        x = (torch.randn(T, TH, generator=gen, device="cuda") * 0.5).to(
+            torch.bfloat16)
+        w = (torch.randn(Vl, TH, generator=gen, device="cuda")
+             * 0.5).to(torch.bfloat16)
+        t = torch.randint(0, K, (T,), generator=gen, device="cuda")
+        kw = dict(num_classes=K, col_offset=off)
+        flop = 2.0 * T * max(0, min(Vl, K - off)) * TH
+        for m in (1, 2):
+            was, now = ab2_ms(lambda: other.lxent_fwd(x, w, t, mode=m, **kw),
+                              lambda: lx.lxent_fwd(x, w, t, mode=m, **kw),
+                              graph_ms if flop < 1e11 else event_ms)
+            rows.append(dict(kernel="lxent_fwd",
+                             case=f"{case} T={T} V_l={Vl} mode {m}, "
+                                  f"{flop / now / 1e9:.1f} TFLOP/s",
+                             other_ms=was, ms=now, speedup=was / now))
+        del x, w, t
         torch.cuda.empty_cache()
     for r in rows:
         if r["kernel"] == "products":
@@ -2424,7 +2473,38 @@ def compare_glu(torch, other):
     return rows
 
 
-def compare_flash(torch, ops, card, tree: str) -> int:
+def compare_norm(torch, other):
+    """``--compare``'s norm forward rows (TPU row 1): every `NORM_CASES`
+    case through ``other``, TREE's own ``layer_norm`` bound to its own
+    library (`tree_ops`: TREE's wrapper may cast γ/β first), and this
+    tree's, in turns on the same inputs (`ab2_ms`, CUDA-graph replays).
+    Returns the rows, each with the GB/s it moves."""
+    from apex1_tpu_torch.ops.layer_norm import layer_norm_fwd
+    gen = torch.Generator().manual_seed(SEED)
+    rows = []
+    for R, H, dts, half_g, rms in NORM_CASES:
+        dt = getattr(torch, dts)
+        x, g, b = norm_inputs(torch, gen, R, H, dt, half_g)
+        beta = None if rms else b
+        nbytes = 2 * R * H * x.element_size()
+        was, now = ab2_ms(
+            lambda: other.layer_norm_fwd(x, g, beta, 1e-5, rms),
+            lambda: layer_norm_fwd(x, g, beta, 1e-5, rms), graph_ms)
+        rows.append(dict(kernel="layer_norm_fwd",
+                         case=f"rows={R} H={H} {dts}"
+                              + (" half γ/β" if half_g else "")
+                              + (" RMS" if rms else "")
+                              + f", {nbytes / now / 1e6:.0f} GB/s",
+                         other_ms=was, ms=now, speedup=was / now))
+        del x, g, b
+    return rows
+
+
+#: `--compare`'s parts; the names after TREE pick some of them, none: all
+COMPARE_PARTS = ("flash", "chunk", "lxent", "int8", "glu", "norm")
+
+
+def compare_flash(torch, ops, card, tree: str, parts=COMPARE_PARTS) -> int:
     """``--compare TREE``: the flash forward, dq and dk/dv at
     `COMPARE_FLASH`'s cases and the merge forward at `COMPARE_MERGE`'s,
     through TREE's kernels (a checkout of another commit, built here)
@@ -2432,21 +2512,22 @@ def compare_flash(torch, ops, card, tree: str) -> int:
     chunk product at `CHUNK_CASES`' bf16 cases (CUDA-graph replays
     below 0.1 TFLOP, as the kernels phase times them), the linear-xent
     backward (`compare_lxent`), int8_mm (`compare_int8`) and glu_fwd
-    (`compare_glu`), each through TREE's own wrappers and library
-    (`tree_ops`) and this tree's (`ab2_ms`). Prints a line per kernel
-    and case and writes ``chiprun_out/compare.json``."""
+    (`compare_glu`) and the norm forward (`compare_norm`), each through
+    TREE's own wrappers and library (`tree_ops`) and this tree's
+    (`ab2_ms`); ``parts`` (`COMPARE_PARTS`) picks which. Prints a line
+    per kernel and case and writes ``chiprun_out/compare.json``."""
     from apex1_tpu_torch.ops.attention import (flash_dkv, flash_dq,
                                                flash_fwd, flash_fwd_merge)
     from apex1_tpu_torch.ops.fused_collective import chunk_matmul, chunk_tile
     other, secs = other_library(tree)
-    other_lx, other_fc, other_q, other_fd = tree_ops(
+    other_lx, other_fc, other_q, other_fd, other_ln = tree_ops(
         tree, "linear_xent.py", "fused_collective.py", "quantized.py",
-        "fused_dense.py")
+        "fused_dense.py", "layer_norm.py")
     print(f"phase compare: built {tree} in {secs:.1f} s [{card}]")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
     for entry in FLASH_CASES:
-        if entry[0] not in COMPARE_FLASH:
+        if entry[0] not in COMPARE_FLASH or "flash" not in parts:
             continue
         (D, _, _, _, q, k, v, do, dlse, _, _, args, bias,
          kw) = flash_case(torch, entry, gen)
@@ -2463,7 +2544,7 @@ def compare_flash(torch, ops, card, tree: str) -> int:
         del q, k, v, do, out, lse, delta, bwd, bias, kw
         torch.cuda.empty_cache()
     for entry in MERGE_CASES:
-        if entry[0] not in COMPARE_MERGE:
+        if entry[0] not in COMPARE_MERGE or "flash" not in parts:
             continue
         q, k, v, po, plse, qseg, kseg, scale = merge_case(torch, entry, gen)
         causal, q_off, k_off = entry[6], entry[8], entry[9]
@@ -2475,7 +2556,7 @@ def compare_flash(torch, ops, card, tree: str) -> int:
         del q, k, v, po, plse
         torch.cuda.empty_cache()
     for case, lead, K, N, dts, _ in CHUNK_CASES:
-        if dts != "bfloat16":
+        if dts != "bfloat16" or "chunk" not in parts:
             continue
         a = (torch.randn(*lead, K, generator=gen, device="cuda")
              * K ** -0.5).to(torch.bfloat16)
@@ -2493,10 +2574,13 @@ def compare_flash(torch, ops, card, tree: str) -> int:
                          other_ms=was, ms=now, speedup=was / now))
         del a, w
         torch.cuda.empty_cache()
-    rows += compare_lxent(torch, card, other_lx)
-    rows += compare_int8(torch, other_q)
-    rows += compare_glu(torch, other_fd)
-    for r in (r for r in rows if r["kernel"] != "products"):
+    for part, fn in (("lxent", lambda: compare_lxent(torch, card, other_lx)),
+                     ("int8", lambda: compare_int8(torch, other_q)),
+                     ("glu", lambda: compare_glu(torch, other_fd)),
+                     ("norm", lambda: compare_norm(torch, other_ln))):
+        if part in parts:
+            rows += fn()
+    for r in (r for r in rows if "other_ms" in r):
         print(f"phase compare: {r['kernel']} [{r['case']}] {tree} "
               f"ms={r['other_ms']:.4f} this tree ms={r['ms']:.4f} "
               f"speedup {r['speedup']:.2f}x [{card}]")
@@ -2621,9 +2705,9 @@ def kernel_split(torch, prof, steps: int, wall: float, top: int = 12):
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     device = sum(r[1] for r in rows)
-    # the fused LM head's kernels: the forward (lxent_fwd_kernel, and
-    # lxw_scores_kernel with lxw_merge_kernel past H 768) and the backward
-    # (lxent_wg_* in bf16/fp16; lxent_bwd_kernel, lxw_* in fp32)
+    # the fused LM head's kernels: in bf16/fp16 lxent_wg_* (the forward's
+    # stats and fold, the backward's G, dx and dW); in fp32
+    # lxent_fwd_kernel, lxent_bwd_kernel and, past H 768, lxw_*
     lxent = sum(ms for k, ms, _ in rows if "lxent" in k or "lxw_" in k)
     return {"step_wall_ms": wall, "device_ms_per_step": device,
             "device_busy": device / wall, "lxent_ms_per_step": lxent,
@@ -5040,8 +5124,10 @@ def main() -> int:
             print(f"  ptxas: {line.strip()}")
 
     if "--compare" in sys.argv[1:]:
+        parts = [a for a in sys.argv[1:] if a in COMPARE_PARTS]
         return compare_flash(torch, ops, card,
-                             sys.argv[sys.argv.index("--compare") + 1])
+                             sys.argv[sys.argv.index("--compare") + 1],
+                             parts or COMPARE_PARTS)
 
     if "--gate-sweep" in sys.argv[1:]:
         paths = [p for p in ("kernels", "plain") if p in sys.argv[1:]]
@@ -5462,7 +5548,7 @@ def main() -> int:
                              "apex1_tpu/ops/attention.py:717"),
                "flash_dbias": ("apex1_tpu_torch/csrc/flash_attn.cu",
                                "apex1_tpu/ops/attention.py:780"),
-               "lxent_fwd": ("apex1_tpu_torch/csrc/linear_xent.cu",
+               "lxent_fwd": ("apex1_tpu_torch/csrc/linear_xent_fwd.cu",
                              "apex1_tpu/ops/linear_xent.py:384, :286, "
                              ":316"),
                "lxent_dx": ("apex1_tpu_torch/csrc/linear_xent_bwd.cu",

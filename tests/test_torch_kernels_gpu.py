@@ -5,7 +5,10 @@ file imports no JAX, so it runs where only PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider -m gpu \\
         tests/test_torch_kernels_gpu.py
 
-Tolerances: layer norm f32 1e-5 and bf16 1e-2 (one bf16 rounding).
+Tolerances: layer norm f32 1e-5 and bf16 1e-2 (one bf16 rounding); the
+norm forward at its paths' H edges (1 to 4104, a misaligned x) as the
+training kernels below, half γ/β handed to the kernel as they are (no
+cast launch).
 Paged attention (an online softmax across pages against one softmax
 over the gathered lane), per element, |got - want| <= rtol * |want| +
 atol * rms(want): f32 rtol 1e-5, atol 1e-4; bf16 rtol 2^-7 (one bf16
@@ -23,7 +26,11 @@ same bits on a second run (no atomics). The linear-xent kernels
 (forward modes 0-2, dx, dW) the same way, ragged T, V and H, a
 col_offset shard with smoothing and padding_idx: the plain versions
 round G to the operand type as the kernels do; mode 2 equals mode 1
-bit for bit and dx, dW give the same bits on a second run; the
+bit for bit and dx, dW give the same bits on a second run; the bf16/fp16
+forward (one wgmma product, 128 x 256 tiles) at its tiles' edges (T and
+V off the tile, H of 64k ± 1 and 769, a num_classes cut inside a tile,
+a shard with empty tiles or none valid, labels on tile edges) with the
+same bits twice and one counted launch a call; the
 chunked backward (bf16 and fp16 at every H on the wgmma kernels, fp32
 past H = 768) in vocab chunks of 128 rows, dx and dW formed together
 equal to each alone, also at the wgmma tiles' edges (T and vocab rows
@@ -261,6 +268,101 @@ def test_layer_norm_kernel_takes_half_gamma(cuda, dtype):
     _close(got, want, dt)
 
 
+#: the norm forward's H edges: the register path from one chunk a lane
+#: to 16 (bf16/fp16 H = 4096, fp32 2048), its two-pass path past that
+#: (4104; fp32 4096 too), and value by value where H is not a multiple
+#: of a 16-byte chunk (1, 7, 767, 769)
+_NORM_H = [1, 7, 767, 768, 769, 2048, 4096, 4104]
+
+
+def _norm_inputs(rows, h, dt, cuda, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((rows, h)) * 2 + 0.5).to(
+        cuda, dt)
+    g = torch.from_numpy(1 + 0.1 * rng.standard_normal(h)).float().to(cuda)
+    b = torch.from_numpy(0.1 * rng.standard_normal(h)).float().to(cuda)
+    return x, g, b
+
+
+def _norm_close(got, want, dt):
+    """y at the dtype's tolerance, mean and rstd at fp32's."""
+    _close(got[0], want[0], dt)
+    for g, w in zip(got[1:], want[1:]):
+        _close(g, w, torch.float32)
+
+
+@pytest.mark.parametrize("rms", [False, True], ids=["ln", "rms"])
+@pytest.mark.parametrize("h", _NORM_H)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_layer_norm_fwd_row_edges(cuda, dtype, h, rms):
+    """y, mean and rstd against the plain version at every H edge of
+    the kernel's paths; the same bits on a second launch."""
+    from apex1_tpu_torch.ops.layer_norm import layer_norm_fwd
+    dt = getattr(torch, dtype)
+    x, g, b = _norm_inputs(37, h, dt, cuda, 15)
+    beta = None if rms else b
+    got, want = _both(lambda: layer_norm_fwd(x, g, beta, 1e-5, rms))
+    assert got[0].dtype == dt and got[0].shape == x.shape
+    _norm_close(got, want, dt)
+    again = layer_norm_fwd(x, g, beta, 1e-5, rms)
+    assert all(torch.equal(a, c) for a, c in zip(again, got))
+
+
+@pytest.mark.parametrize("h", [768, 4096])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layer_norm_fwd_misaligned_x(cuda, dtype, h):
+    """x one element past a 16-byte boundary (a contiguous view into a
+    larger buffer): the value-by-value path, the same numbers."""
+    from apex1_tpu_torch.ops.layer_norm import layer_norm_fwd
+    dt = getattr(torch, dtype)
+    x, g, b = _norm_inputs(9, h, dt, cuda, 16)
+    buf = torch.empty(x.numel() + 1, dtype=dt, device=cuda)
+    xs = buf[1:].view(x.shape)
+    xs.copy_(x)
+    assert xs.is_contiguous() and xs.data_ptr() % 16 != 0
+    got = layer_norm_fwd(xs, g, b, 1e-5, False)
+    want = layer_norm_fwd(x, g, b, 1e-5, False)
+    with force_impl("torch"):
+        plain = layer_norm_fwd(x, g, b, 1e-5, False)
+    _norm_close(got, plain, dt)
+    _norm_close(want, plain, dt)
+
+
+@pytest.mark.parametrize("rms", [False, True], ids=["ln", "rms"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_layer_norm_fwd_reads_half_gamma_directly(cuda, dtype, rms,
+                                                  monkeypatch):
+    """Half γ/β (the amp compute params) go to the kernel as they are:
+    the launch gets their own pointers and dtype code, so no cast runs
+    before it; one counted launch; y as the plain version's."""
+    from apex1_tpu_torch.ops import _build
+    from apex1_tpu_torch.ops._common import DTYPE_CODES
+    from apex1_tpu_torch.ops.layer_norm import layer_norm_fwd
+    dt = getattr(torch, dtype)
+    x, g, b = _norm_inputs(64, 768, dt, cuda, 17)
+    g, b = g.to(dt), b.to(dt)
+    beta = None if rms else b
+    calls = []
+    launch = _build.launch
+
+    def spy(name, *args):
+        calls.append((name, args))
+        launch(name, *args)
+
+    monkeypatch.setattr(_build, "launch", spy)
+    before = layer_norm_fwd.launches
+    got = layer_norm_fwd(x, g, beta, 1e-5, rms)
+    assert layer_norm_fwd.launches == before + 1
+    assert [c[0] for c in calls] == ["apex1_layer_norm_fwd"]
+    args = calls[0][1]
+    assert args[1] == g.data_ptr()
+    assert args[2] == (None if rms else b.data_ptr())
+    assert args[-2] == DTYPE_CODES[dt]
+    with force_impl("torch"):
+        want = layer_norm_fwd(x, g, beta, 1e-5, rms)
+    _norm_close(got, want, dt)
+
+
 # ---- the flash slice's kernels --------------------------------------------
 
 #: name -> (B, Hq, Hkv, Sq, Sk, D, causal, segments, q_off, k_off, dlse)
@@ -428,6 +530,76 @@ def test_linear_xent_kernels_match_plain(cuda, dtype, name, monkeypatch):
     assert torch.equal(lxent_dw(x, w, t, wlse, dloss, **kw), dw)
     both = lxent_grads(x, w, t, wlse, dloss, **kw)
     assert torch.equal(both[0], dx) and torch.equal(both[1], dw)
+
+
+#: the bf16/fp16 forward's tiles at their edges: name -> (T, V_l, H, K,
+#: col_offset, smoothing, padding_idx). T and V_l off the 128/256 tiles;
+#: H of 64k ± 1 and BERT's 769 (plain loads); a shard whose num_classes
+#: cut falls inside a tile and whose last tiles hold no valid column; a
+#: shard past num_classes (no valid column at all: stats only)
+_LXENT_FWD = {
+    "t130_v333": (130, 333, 96, 333, 0, 0.0, None),
+    "t257_v513_h63": (257, 513, 63, 513, 0, 0.0, None),
+    "h65_smooth_pad": (129, 300, 65, 300, 0, 0.1, 3),
+    "h127": (200, 640, 127, 640, 0, 0.0, None),
+    "h129_pad": (64, 257, 129, 250, 0, 0.0, 3),
+    "h769_plain_loads": (200, 600, 769, 600, 0, 0.1, None),
+    "h4096": (70, 300, 4096, 300, 0, 0.0, None),
+    "k_cut_in_tile": (131, 700, 128, 450, 0, 0.1, 5),
+    "shard_cut_and_empty_tiles": (131, 700, 128, 700, 300, 0.0, None),
+    "shard_past_k": (64, 200, 96, 400, 500, 0.0, None),
+}
+#: label columns around the tiles' edges (global = col_offset + these)
+_TILE_EDGES = (0, 1, 63, 64, 127, 128, 129, 255, 256, 257, 383, 384, 399,
+               400, 511, 512)
+
+
+@pytest.mark.parametrize("name", list(_LXENT_FWD))
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_linear_xent_fwd_wgmma_tile_edges(cuda, dtype, name):
+    """The bf16/fp16 forward (128 x 256 tiles, K steps of 64) at its
+    tiles' edges: loss and lse (mode 0) and the four statistics (mode 1)
+    against the plain versions at fp32's tolerance, labels on the tiles'
+    edges; mode 2 equal to mode 1 bit for bit; the same bits on a second
+    launch; one counted launch a call. A shard with no valid column
+    gives m = -1e30, l = 0 and sumx = 0 exactly."""
+    from apex1_tpu_torch.ops.linear_xent import lxent_fwd
+    T, V, H, K, off, eps, pad = _LXENT_FWD[name]
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(18)
+    x = torch.from_numpy(rng.standard_normal((T, H)) * 0.5).to(cuda, dt)
+    w = torch.from_numpy(rng.standard_normal((V, H)) * 0.5
+                         * min(1.0, (96 / H) ** 0.5)).to(cuda, dt)
+    labels = rng.integers(0, K, T)
+    labels[::2] = off + np.resize(_TILE_EDGES, labels[::2].shape)
+    if pad is not None:
+        labels[::9] = pad
+    t = torch.from_numpy(labels).to(cuda, torch.int32)
+    skw = dict(num_classes=K, col_offset=off)
+    before = lxent_fwd.launches
+    stats, wstats = _both(lambda: lxent_fwd(x, w, t, mode=1, **skw))
+    assert lxent_fwd.launches == before + 1
+    packed = lxent_fwd(x, w, t, mode=2, **skw)
+    assert torch.equal(packed, torch.stack(stats, dim=1))
+    again = lxent_fwd(x, w, t, mode=1, **skw)
+    assert all(torch.equal(a, b) for a, b in zip(again, stats))
+    if K <= off:
+        assert (stats[0] == -1e30).all() and not stats[1].any()
+        assert not stats[3].any()
+        _close(stats[2], wstats[2], torch.float32)
+        return
+    for g, wv in zip(stats, wstats):
+        _close(g, wv, torch.float32)
+    if off:
+        return
+    fkw = dict(num_classes=K, smoothing=eps, padding_idx=pad)
+    (loss, lse), (wloss, wlse) = _both(lambda: lxent_fwd(x, w, t, **fkw))
+    _close(loss, wloss, torch.float32)
+    _close(lse, wlse, torch.float32)
+    if pad is not None:
+        assert not loss[t == pad].any()
+    again = lxent_fwd(x, w, t, **fkw)
+    assert torch.equal(again[0], loss) and torch.equal(again[1], lse)
 
 
 def test_chunked_logprob_kernels_match_plain(cuda):

@@ -2,8 +2,9 @@
 
 The same numpy inputs go through the JAX function (its XLA composite
 and its Pallas kernel in interpret mode) and the port's plain PyTorch
-version on the CPU. f32 within 1e-5; bf16 x with f32 γ/β within 1e-2
-(one bf16 rounding of the output). The CUDA kernel is held against the
+version on the CPU. f32 within 1e-5; bf16 x with f32 or bf16 γ/β within
+1e-2 (one bf16 rounding of the output). Also at the H edges of the
+Hopper kernel's paths (1, 7, 767, 768, 769, 2048, 4096, 4104). The CUDA kernel is held against the
 plain version on the card (tests/test_torch_kernels_gpu.py and
 chip_smoke.py).
 """
@@ -72,3 +73,37 @@ def test_kernel_impl_refuses_cpu_tensors():
     with force_impl("kernel"), pytest.raises(RuntimeError, match="CUDA"):
         layer_norm(torch.from_numpy(x), torch.from_numpy(g),
                    torch.from_numpy(b))
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("h", [1, 7, 767, 768, 769, 2048, 4096, 4104])
+@pytest.mark.parametrize("rms", [False, True], ids=["ln", "rms"])
+def test_norm_row_edges_match_jax(h, impl, rms):
+    x, g, b = _inputs((5, h), seed=h)
+    with jax_common.force_impl(impl):
+        if rms:
+            want = jax_rms_norm(jnp.asarray(x), jnp.asarray(g))
+        else:
+            want = jax_layer_norm(jnp.asarray(x), jnp.asarray(g),
+                                  jnp.asarray(b))
+    if rms:
+        got = rms_norm(torch.from_numpy(x), torch.from_numpy(g))
+    else:
+        got = layer_norm(torch.from_numpy(x), torch.from_numpy(g),
+                         torch.from_numpy(b))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=_TOL["float32"], atol=_TOL["float32"])
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_half_gamma_beta_match_jax(impl):
+    """bf16 x with bf16 γ/β (the amp compute params)."""
+    x, g, b = _inputs((4, 7, 96), seed=9)
+    jx, jg, jb = (jnp.asarray(a).astype(jnp.bfloat16) for a in (x, g, b))
+    with jax_common.force_impl(impl):
+        want = np.asarray(jax_layer_norm(jx, jg, jb).astype(jnp.float32))
+    tx, tg, tb = (torch.from_numpy(a).bfloat16() for a in (x, g, b))
+    got = layer_norm(tx, tg, tb)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want,
+                               rtol=_TOL["bfloat16"], atol=_TOL["bfloat16"])

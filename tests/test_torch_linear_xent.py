@@ -15,7 +15,12 @@ versions), with V and H not multiples of 128:
   roundings of G, dx and dW);
 - ``shard_stats`` with a ``col_offset`` shard, ``shard_stats_packed``
   bit-equal to it, and ``shard_grads`` with labels outside the shard:
-  f32 within 2e-5.
+  f32 within 2e-5;
+- the loss (against ``_fused`` in interpret mode and the XLA composite)
+  and ``shard_stats`` (interpret mode) at the edges of the Hopper
+  forward's tiles: T and V off 128 and 256, H of 64k ± 1 and 769, a
+  ``num_classes`` cut inside a tile, a shard whose last tiles hold no
+  valid column, labels on the tiles' edges: f32 within 2e-5.
 
 The CUDA kernels are held against the same plain versions on the card
 (tests/test_torch_kernels_gpu.py and chip_smoke.py).
@@ -201,3 +206,67 @@ def test_shape_checks_and_launch_counters():
     # mixed operand types promote, as JAX's dot does
     mixed = lx.linear_cross_entropy(xt.detach(), wt.bfloat16(), lt)
     assert mixed.dtype == torch.float32 and mixed.shape == (T,)
+
+
+#: the Hopper forward's tile edges (tests/test_torch_kernels_gpu.py
+#: ``_LXENT_FWD``) at a CPU size: name -> (T, V, H, K, col_offset,
+#: smoothing, padding_idx)
+_EDGES = {
+    "t130_v333": (130, 333, 96, 333, 0, 0.0, None),
+    "h63": (40, 300, 63, 300, 0, 0.0, None),
+    "h65_smooth_pad": (40, 300, 65, 300, 0, 0.1, 3),
+    "h127": (24, 280, 127, 280, 0, 0.0, None),
+    "h769": (24, 300, 769, 300, 0, 0.1, None),
+    "k_cut_in_tile": (40, 700, 128, 450, 0, 0.1, 5),
+    "shard_cut_and_empty_tiles": (40, 700, 128, 700, 300, 0.0, None),
+}
+#: label columns around the tiles' edges (global = col_offset + these;
+#: the real classes among them)
+_TILE_EDGES = (0, 1, 63, 64, 127, 128, 129, 255, 256, 257, 383, 384, 399,
+               400, 511, 512)
+
+
+def _edge_inputs(name):
+    T_, V_, H_, K, off, eps, pad = _EDGES[name]
+    rng = np.random.default_rng(8)
+    x = (rng.standard_normal((T_, H_)) * 0.3).astype(np.float32)
+    w = (rng.standard_normal((V_, H_)) * 0.3
+         * min(1.0, (96 / H_) ** 0.5)).astype(np.float32)
+    labels = rng.integers(0, K, T_).astype(np.int32)
+    edges = [off + e for e in _TILE_EDGES if off + e < K]
+    labels[::2] = np.resize(edges, labels[::2].shape)
+    if pad is not None:
+        labels[::9] = pad
+    return x, w, labels, K, off, eps, pad
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+@pytest.mark.parametrize("name", [n for n, c in _EDGES.items() if not c[4]])
+def test_loss_at_tile_edges_matches_jax(name, impl):
+    x, w, labels, K, _, eps, pad = _edge_inputs(name)
+    kw = dict(smoothing=eps, padding_idx=pad, num_classes=K)
+    with jax_common.force_impl(impl):
+        want = jax_lx.linear_cross_entropy(
+            jnp.asarray(x), jnp.asarray(w), jnp.asarray(labels), block_t=16,
+            block_v=64, **kw)
+    got = lx.linear_cross_entropy(torch.from_numpy(x), torch.from_numpy(w),
+                                  torch.from_numpy(labels), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FP32_TOL)
+    if pad is not None:
+        assert not got.numpy()[labels == pad].any()
+
+
+@pytest.mark.parametrize("name", list(_EDGES))
+def test_shard_stats_at_tile_edges_match_jax(name):
+    x, w, labels, K, off, _, _ = _edge_inputs(name)
+    kw = dict(col_offset=off, num_classes=K)
+    want = jax_lx.shard_stats(jnp.asarray(x), jnp.asarray(w),
+                              jnp.asarray(labels).reshape(-1, 1),
+                              block_t=16, block_v=64, **kw)
+    xt, wt, lt = map(torch.from_numpy, (x, w, labels))
+    got = lx.shard_stats(xt, wt, lt, **kw)
+    for g, wv, stat in zip(got, want, ("m", "l", "tgt", "sumx")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(wv), err_msg=stat,
+                                   **FP32_TOL)
+    assert torch.equal(lx.shard_stats_packed(xt, wt, lt, **kw),
+                       torch.stack(got, dim=1))
