@@ -30,7 +30,7 @@
 // 16-byte aligned) run a warp a row in two passes over the row, the
 // second from L2: by chunks where they are aligned, else value by value.
 
-#include "common.cuh"
+#include "chunks.cuh"
 
 namespace {
 
@@ -45,44 +45,6 @@ struct NormArgs {
   float* rstd;
   int rows, h, rms;
   float eps;
-};
-
-// N values of G at p (16-byte aligned) as P = N·sizeof(G)/16 16-byte
-// pieces, and those pieces widened to fp32
-template <typename G, int N>
-struct Pieces {
-  static constexpr int P = N * int(sizeof(G)) / 16;
-  static_assert(P * 16 == N * int(sizeof(G)), "16-byte pieces");
-  static __device__ __forceinline__ void load(const G* p, uint4 (&r)[P]) {
-#pragma unroll
-    for (int i = 0; i < P; ++i) r[i] = reinterpret_cast<const uint4*>(p)[i];
-  }
-  static __device__ __forceinline__ void widen(const uint4 (&r)[P],
-                                               float (&v)[N]) {
-    alignas(16) G buf[N];
-#pragma unroll
-    for (int i = 0; i < P; ++i) reinterpret_cast<uint4*>(buf)[i] = r[i];
-#pragma unroll
-    for (int i = 0; i < N; ++i) v[i] = to_f32(buf[i]);
-  }
-};
-
-// one 16-byte chunk of T as fp32 values, and back
-template <typename T>
-struct Chunk {
-  static constexpr int N = 16 / int(sizeof(T));
-  static __device__ __forceinline__ void widen(uint4 raw, float (&v)[N]) {
-    alignas(16) T buf[N];
-    *reinterpret_cast<uint4*>(buf) = raw;
-#pragma unroll
-    for (int i = 0; i < N; ++i) v[i] = to_f32(buf[i]);
-  }
-  static __device__ __forceinline__ uint4 narrow(const float (&v)[N]) {
-    alignas(16) T buf[N];
-#pragma unroll
-    for (int i = 0; i < N; ++i) buf[i] = from_f32<T>(v[i]);
-    return *reinterpret_cast<uint4*>(buf);
-  }
 };
 
 // mean and rstd of a row from its fp32 sums (every lane the same bits)
@@ -247,10 +209,6 @@ __global__ void __launch_bounds__(kRows * 32)
     a.mean[row] = mean;
     a.rstd[row] = rstd;
   }
-}
-
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 template <typename T, typename G>

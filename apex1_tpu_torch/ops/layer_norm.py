@@ -6,9 +6,13 @@ Two kernels, each beside its plain PyTorch version:
   chunks in registers (read once, written once), fp32 statistics,
   variance as E[x^2] - mean^2, γ/β read in their own dtype (fp32 or x's
   half type: one launch, no cast); saves the row mean and rstd;
-- backward, ``csrc/layer_norm_bwd.cu``: dx per row from the saved
-  statistics, dγ/dβ as per-block partial sums reduced in a fixed order
-  by a second pass (no atomics: the same result on every run).
+- backward, ``csrc/layer_norm_bwd.cu``: a warp a row (two past H 2048
+  in bf16/fp16) with x's and dy's 16-byte chunks in registers, dx from
+  the saved statistics, γ read in its own dtype; dγ/dβ as per-block
+  partial sums (in registers or shared memory across a run of rows)
+  reduced in a fixed order by a second pass (no atomics: the same
+  result on every run); wider, ragged or misaligned rows take a
+  two-kernel fallback, so every H runs.
 
 `layer_norm` and `rms_norm` are differentiable through a
 ``torch.autograd.Function`` over the two. bf16/fp16 ``x`` with fp32
@@ -29,16 +33,6 @@ from apex1_tpu_torch.ops import _build
 from apex1_tpu_torch.ops._common import DTYPE_CODES, check_cuda, use_kernel
 
 _NORM_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
-
-#: widest row the backward kernel takes: its dγ/dβ partials (8 bytes a
-#: column) and its reduction scratch fit the 48 KB of shared memory a
-#: block gets without opting in
-MAX_BWD_H = 6016
-
-#: row blocks of the backward's first pass (each writes one fp32 row of
-#: dγ/dβ partials to the workspace the second pass sums)
-_BWD_GROUPS = 512
-
 
 def _plain_norm(x2, gamma, beta, eps, rms):
     """(R, H) rows -> (y, mean (R,), rstd (R,)), op for op the JAX
@@ -138,28 +132,35 @@ def layer_norm_bwd(dy2: torch.Tensor, x2: torch.Tensor, gamma: torch.Tensor,
         raise ValueError(f"layer_norm_bwd: unsupported dtypes {x2.dtype}, "
                          f"{gamma.dtype}")
     R, H = x2.shape
-    if H > MAX_BWD_H:
-        raise ValueError(f"layer_norm_bwd: H={H} is wider than the "
-                         f"kernel's {MAX_BWD_H}")
+    if gamma.shape != (H,):
+        raise ValueError("layer_norm_bwd: gamma must be (H,)")
     x2 = x2.contiguous()
     dy2 = dy2.to(x2.dtype).contiguous()
-    g32 = gamma.float().contiguous()
+    # γ is read in fp32 or in x's dtype (amp's half compute params); any
+    # other pairing is widened to fp32 here, which is exact
+    gk = gamma if gamma.dtype in (torch.float32, x2.dtype) else gamma.float()
+    gk = gk.contiguous()
     mean, rstd = mean.contiguous(), rstd.contiguous()
-    check_cuda("layer_norm_bwd", x2, dy2, g32, mean, rstd)
-    rows_per_block = max(1, -(-R // _BWD_GROUPS))
-    groups = -(-R // rows_per_block)
+    check_cuda("layer_norm_bwd", x2, dy2, gk, mean, rstd)
     dev = x2.device
     dx = torch.empty_like(x2)
-    part = torch.empty(2, groups, H, dtype=torch.float32, device=dev)
+    # the dγ (and dβ) partials of at most `cap` row blocks, the kernel's
+    # ceiling (10 % of x + dy + dx's bytes, or 4 MiB for a few wide
+    # rows), then the fallback's (2, R) row sums
+    n_p = 1 if rms else 2
+    cap = max(1, int(0.075 * R * x2.element_size() / n_p),
+              (4 << 20) // (4 * n_p * H))
+    part = torch.empty(n_p * cap * H + 2 * R, dtype=torch.float32,
+                       device=dev)
     dg = torch.empty(H, dtype=gamma.dtype, device=dev)
     db = torch.empty(H, dtype=gamma.dtype, device=dev) if with_beta else None
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _build.launch("apex1_layer_norm_bwd", x2.data_ptr(), g32.data_ptr(),
+    _build.launch("apex1_layer_norm_bwd", x2.data_ptr(), gk.data_ptr(),
                   mean.data_ptr(), rstd.data_ptr(), dy2.data_ptr(),
                   dx.data_ptr(), part.data_ptr(), dg.data_ptr(),
-                  None if db is None else db.data_ptr(), R, H,
-                  rows_per_block, groups, int(rms), int(with_beta),
-                  DTYPE_CODES[x2.dtype], DTYPE_CODES[gamma.dtype], stream)
+                  None if db is None else db.data_ptr(), R, H, cap,
+                  int(rms), int(with_beta), DTYPE_CODES[x2.dtype],
+                  DTYPE_CODES[gk.dtype], DTYPE_CODES[gamma.dtype], stream)
     layer_norm_bwd.launches += 1
     return dx, dg, db
 

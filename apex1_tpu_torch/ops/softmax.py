@@ -4,8 +4,10 @@
     causal ("upper_triang"): columns past the row's query index -> NEG_INF
     dx = scale * y * (dy - sum(dy * y))  (saved: y only)
 
-Kernels ``csrc/softmax.cu`` (one warp per row, forward and backward),
-each beside its plain PyTorch version. ``scaled_masked_softmax`` and
+Kernels ``csrc/softmax.cu`` (one warp per row, forward and backward;
+the forward holds a row of up to 16 16-byte chunks a lane in registers,
+reading a causal row only up to its end, else streams it), each beside
+its plain PyTorch version. ``scaled_masked_softmax`` and
 ``scaled_upper_triang_masked_softmax`` are differentiable through one
 ``torch.autograd.Function``. The output keeps ``x.dtype``; statistics
 are fp32. ``FusedScaleMaskSoftmax`` is the reference's module-style

@@ -16,12 +16,14 @@
                                      # build, then time the flash
                                      # kernels, the chunk product, the
                                      # linear-xent forward and backward,
-                                     # int8_mm, glu_fwd and the norm
-                                     # forward against those of TREE (a
-                                     # checkout of another commit) in
-                                     # turns on the same inputs, or only
-                                     # the PARTs given (flash, chunk,
-                                     # lxent, int8, glu, norm)
+                                     # int8_mm, glu_fwd, the norm
+                                     # forward, the softmax forward and
+                                     # the norm backward against those of
+                                     # TREE (a checkout of another
+                                     # commit) in turns on the same
+                                     # inputs, or only the PARTs given
+                                     # (flash, chunk, lxent, int8, glu,
+                                     # norm, softmax, normbwd)
     python3 chip_smoke.py --gate-sweep [kernels] [plain]
                                      # build, then train bert_large at
                                      # O2 for GATE_STEPS steps at each
@@ -37,7 +39,10 @@ Phases, each printed on its own line; a failure in any exits non-zero:
 2. kernels — hold each kernel against its plain PyTorch version on the
    card at the shapes its main path gives it (serving's and the
    training step's), with the stated tolerance; print errors, kernel /
-   plain / library-yardstick times and the bound. The flash kernels
+   plain / library-yardstick times and the bound. The norm backward
+   runs at GPT-2's, the Llama step's, T5's, BERT-base's and BERT-large's
+   rows and at H 8192 (LN and RMS), and it and the softmax forward must
+   give the same bits twice. The flash kernels
    (forward, dq, dk/dv) run at GPT-2's training shape and at GQA,
    packed-segment, odd, offset, lse-cotangent, fp16 and f32 cases;
    dq and dk/dv must give the same bits twice. The linear-xent kernels
@@ -637,60 +642,88 @@ def check_fused_sample(torch, ops, gen):
     return results
 
 
+#: the norm backward's checks: (case, rows, H, dtype, RMS), γ (and β)
+#: in x's dtype as the amp policies' compute params, fp32 with fp32 x:
+#: GPT-2's training rows, the Llama step's RMS rows, T5's (RMS), BERT-
+#: base's and BERT-large's, and an H past 6016, the widest row the first
+#: kernel took (its shared memory held 8 bytes a column)
+NORM_BWD_CASES = [("GPT-2", TB * TS, TH, "bfloat16", False),
+                  ("GPT-2", TB * TS, TH, "float16", False),
+                  ("GPT-2", TB * TS, TH, "float32", False),
+                  ("Llama", LB * LS, LH, "bfloat16", True),
+                  ("T5", T5B * T5S, T5E, "bfloat16", True),
+                  ("BERT-base", 8 * 512, 768, "bfloat16", False),
+                  ("BERT-large", 4 * 512, 1024, "bfloat16", False),
+                  ("wide", 64, 8192, "bfloat16", False),
+                  ("wide", 64, 8192, "bfloat16", True)]
+
+
+def norm_bwd_inputs(torch, gen, R, H, dt, rms):
+    """x, dy, γ, β and the saved mean/rstd of a `NORM_BWD_CASES` case
+    on the card."""
+    from apex1_tpu_torch.ops.layer_norm import layer_norm_fwd
+    x = (torch.randn(R, H, generator=gen, device="cuda") * 2 + 0.5).to(dt)
+    dy = torch.randn(R, H, generator=gen, device="cuda").to(dt)
+    g = (1 + 0.1 * torch.randn(H, generator=gen, device="cuda")).to(dt)
+    b = None if rms else (0.1 * torch.randn(H, generator=gen,
+                                            device="cuda")).to(dt)
+    _, mean, rstd = layer_norm_fwd(x, g, b, 1e-5, rms)
+    return x, dy, g, b, mean, rstd
+
+
+def norm_bwd_library_ms(torch, x, dy, g, b, mean, rstd, rms):
+    """ATen's backward alone, by CUDA-graph replays:
+    ``aten.native_layer_norm_backward`` on the saved statistics for LN,
+    ``aten._fused_rms_norm_backward`` on ``aten._fused_rms_norm``'s rstd
+    for RMS."""
+    aten = torch.ops.aten
+    H = x.shape[1]
+    if rms:
+        r2 = aten._fused_rms_norm(x, [H], g, 1e-5)[1]
+        return graph_ms(lambda: aten._fused_rms_norm_backward(
+            dy, x, [H], r2, g, [True, True]))
+    m2, r2 = mean[:, None], rstd[:, None]
+    return graph_ms(lambda: aten.native_layer_norm_backward(
+        dy, x, [H], m2, r2, g, b, [True, True, True]))
+
+
 def check_layer_norm_bwd(torch, ops, gen):
-    """Kernel 2 at the GPT-2 training step's (B*S, 768) rows: half x and
-    dy with half γ (the amp compute params), and f32; and in RMS mode at
-    the Llama step's (B*S, 4096) rows (no β). Library: ATen's layer-norm
-    backward; for RMS, which has no backward of its own to call,
-    ``F.rms_norm``'s forward and backward under autograd (one call of
-    each, the forward's work included)."""
-    F = torch.nn.functional
-    from apex1_tpu_torch.ops.layer_norm import layer_norm_bwd, layer_norm_fwd
+    """Kernel 2 at `NORM_BWD_CASES`, each through its wrapper by
+    CUDA-graph replays; dx, dγ and dβ must repeat their bits. Library:
+    ATen's backward alone (`norm_bwd_library_ms`)."""
+    from apex1_tpu_torch.ops.layer_norm import layer_norm_bwd
     results = []
-    for R, H, dt, rms in ((TB * TS, TH, torch.bfloat16, False),
-                          (TB * TS, TH, torch.float16, False),
-                          (TB * TS, TH, torch.float32, False),
-                          (LB * LS, LH, torch.bfloat16, True)):
-        x = (torch.randn(R, H, generator=gen, device="cuda") * 2
-             + 0.5).to(dt)
-        dy = torch.randn(R, H, generator=gen, device="cuda").to(dt)
-        g = (1 + 0.1 * torch.randn(H, generator=gen, device="cuda")).to(dt)
-        b = None if rms else (0.1 * torch.randn(H, generator=gen,
-                                                device="cuda")).to(dt)
-        _, mean, rstd = layer_norm_fwd(x, g, b, 1e-5, rms)
+    for name, R, H, dts, rms in NORM_BWD_CASES:
+        dt = getattr(torch, dts)
+        x, dy, g, b, mean, rstd = norm_bwd_inputs(torch, gen, R, H, dt, rms)
 
         def run():
             return layer_norm_bwd(dy, x, g, mean, rstd, rms, not rms)
 
         got = [t for t in run() if t is not None]
+        again = [t for t in run() if t is not None]
         with ops.force_impl("torch"):
             want = [t for t in run() if t is not None]
         torch.cuda.synchronize()
-        tol = TOLS[str(dt)[6:]]
+        same = all(torch.equal(a, c) for a, c in zip(got, again))
+        tol = TOLS[dts]
         abs_e, worst = max_errs_all(zip(got, want), tol)
         ms = graph_ms(run)
         with ops.force_impl("torch"):
             plain = graph_ms(run, iters=10)
-        m2, r2 = mean[:, None], rstd[:, None]
-        if rms:
-            xr = x.detach().requires_grad_()
-            gr = g.detach().requires_grad_()
-            lib = graph_ms(lambda: torch.autograd.grad(
-                F.rms_norm(xr, (H,), gr, 1e-5), (xr, gr), dy), iters=10)
-        else:
-            lib = graph_ms(
-                lambda: torch.ops.aten.native_layer_norm_backward(
-                    dy, x, [H], m2, r2, g, b, [True, True, True]))
+        lib = norm_bwd_library_ms(torch, x, dy, g, b, mean, rstd, rms)
         eb, gb = x.element_size(), g.element_size()
         # x, dy read and dx written; γ read, dγ (and dβ) written; mean
         # and rstd read; about 12 flops per element
         bnd, by = bound_ms(3 * R * H * eb + (2 if rms else 3) * H * gb
                            + 2 * R * 4, 12 * R * H)
-        results.append(dict(case=f"rows={R} H={H} {str(dt)[6:]} x, dy, γ"
+        results.append(dict(case=f"{name} rows={R} H={H} {dts} x, dy, γ"
                             + (" RMS" if rms else ""),
                             abs=abs_e, worst=worst, tol=tol, ms=ms,
                             plain_ms=plain, library_ms=lib, bound_ms=bnd,
-                            bound_by=by, main=dt == torch.bfloat16))
+                            bound_by=by, same_bits=same,
+                            main=name == "GPT-2" and dts == "bfloat16"))
+        del x, dy, g, b, got, again, want
     return results
 
 
@@ -714,6 +747,7 @@ def check_softmax(torch, ops, gen):
             return softmax_fwd(x, m4, scale, causal)
 
         got = run()
+        same = torch.equal(run(), got)
         with ops.force_impl("torch"):
             want = run()
         torch.cuda.synchronize()
@@ -737,7 +771,7 @@ def check_softmax(torch, ops, gen):
         fwd.append(dict(case=("causal" if causal else "mask (B,1,1,Sk)")
                         + f" {shape} f32", abs=abs_e, worst=worst, tol=tol,
                         ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
-                        bound_by=by, main=causal))
+                        bound_by=by, same_bits=same, main=causal))
 
         def run_b():
             return softmax_bwd(want, dy, scale)
@@ -2500,8 +2534,138 @@ def compare_norm(torch, other):
     return rows
 
 
+#: `--compare`'s softmax forward cases (TPU row 16): (case, shape,
+#: dtype, mask) with mask "causal", "key" (a (B, 1, 1, Sk) key-padding
+#: mask) or a `tests/test_torch_kernels_gpu.py` broadcast ("b1qk", "k",
+#: "bh"): the kernels phase's two fp32 cases, the same in bf16 and fp16,
+#: and the card tests' half-precision shapes
+COMPARE_SOFTMAX = (
+    [("GPT-2", (TB, THEADS, TS, TS), dts, mask)
+     for dts in ("float32", "bfloat16", "float16")
+     for mask in ("causal", "key")]
+    + [("card test", (2, 3, sq, sk), dts, mask)
+       for sq, sk in ((37, 53), (5, 1100))
+       for dts in ("bfloat16", "float16")
+       for mask in ("causal", "b1qk", "k", "bh")])
+
+
+def softmax_inputs(torch, gen, shape, dts, mask):
+    """x, the 4-D mask (None for causal) and whether causal, of a
+    `COMPARE_SOFTMAX` case on the card."""
+    B, nh, sq, sk = shape
+    x = (torch.randn(shape, generator=gen, device="cuda") * 4).to(
+        getattr(torch, dts))
+    mshape = {"causal": None, "key": (B, 1, 1, sk), "b1qk": (B, 1, sq, sk),
+              "k": (1, 1, 1, sk), "bh": (B, nh, 1, 1)}[mask]
+    m4 = None if mshape is None else torch.where(
+        torch.rand(mshape, generator=gen, device="cuda") < 0.1, -1e30, 0.0)
+    return x, m4, mask == "causal"
+
+
+#: `ab2_ms` pairs a small `COMPARE_SOFTMAX` case takes, and as many
+#: pairs of this tree's wrapper against itself, whose spread is the
+#: timer's own at a call of a few microseconds
+SOFTMAX_PAIRS = 5
+
+
+def compare_softmax(torch, other):
+    """``--compare``'s softmax forward rows (TPU row 16): every
+    `COMPARE_SOFTMAX` case through ``other``, TREE's own ``softmax``
+    bound to its own library (`tree_ops`), and this tree's, in turns on
+    the same inputs (`ab2_ms`: CUDA events for the GPT-2 shape, graph
+    replays for the small ones); the GPT-2 rows also time
+    ``torch.softmax`` on the precomputed masked scores, as the kernels
+    phase does. A small case takes `SOFTMAX_PAIRS` pairs, and as many of
+    this tree against itself: its row keeps the median times and both
+    ranges of speedups, the second the timer's own spread. Returns the
+    rows, each with the GB/s it moves."""
+    import statistics
+    from apex1_tpu_torch.ops.softmax import softmax_fwd
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    for name, shape, dts, mask in COMPARE_SOFTMAX:
+        x, m4, causal = softmax_inputs(torch, gen, shape, dts, mask)
+        big = x.numel() > 1 << 24
+        fns = (lambda: other.softmax_fwd(x, m4, 0.125, causal),
+               lambda: softmax_fwd(x, m4, 0.125, causal))
+        if big:
+            was, now = ab2_ms(*fns)
+        else:
+            pairs = [ab2_ms(*fns, graph_ms) for _ in range(SOFTMAX_PAIRS)]
+            same = [ab2_ms(fns[1], fns[1], graph_ms)
+                    for _ in range(SOFTMAX_PAIRS)]
+            was = statistics.median(p[0] for p in pairs)
+            now = statistics.median(p[1] for p in pairs)
+        row = dict(kernel="softmax_fwd", case=f"{name} {shape} {dts} {mask}",
+                   other_ms=was, ms=now, speedup=was / now)
+        if not big:
+            row["speedups"] = sorted(a / b for a, b in pairs)
+            row["self_speedups"] = sorted(a / b for a, b in same)
+            row["case"] += (
+                f", {SOFTMAX_PAIRS} pairs {row['speedups'][0]:.2f}-"
+                f"{row['speedups'][-1]:.2f}x, this tree against itself "
+                f"{row['self_speedups'][0]:.2f}-"
+                f"{row['self_speedups'][-1]:.2f}x")
+        else:
+            sq, sk = shape[-2:]
+            keep = torch.ones(sq, sk, dtype=torch.bool, device="cuda").tril()
+            pre = (torch.where(keep, x.float() * 0.125, -1e30) if causal
+                   else x.float() * 0.125 + m4).to(x.dtype)
+            row["library_ms"] = event_ms(lambda: torch.softmax(pre, dim=-1))
+            n_read = x.numel() // sk * (sk + 1) // 2 if causal else x.numel()
+            nbytes = (n_read + x.numel()) * x.element_size()
+            row["case"] += f", {nbytes / now / 1e6:.0f} GB/s"
+            del pre
+        rows.append(row)
+        del x, m4
+        torch.cuda.empty_cache()
+    return rows
+
+
+def compare_norm_bwd(torch, other):
+    """``--compare``'s norm backward rows (TPU row 2): every
+    `NORM_BWD_CASES` case through ``other``, TREE's own ``layer_norm``
+    bound to its own library (`tree_ops`: TREE's wrapper may cast γ
+    first), and this tree's, in turns on the same inputs (`ab2_ms`,
+    CUDA-graph replays), with ATen's backward alone
+    (`norm_bwd_library_ms`) in the same call. Returns the rows, each
+    with the GB/s it moves."""
+    from apex1_tpu_torch.ops.layer_norm import layer_norm_bwd
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    for name, R, H, dts, rms in NORM_BWD_CASES:
+        dt = getattr(torch, dts)
+        x, dy, g, b, mean, rstd = norm_bwd_inputs(torch, gen, R, H, dt, rms)
+
+        def run_other():
+            return other.layer_norm_bwd(dy, x, g, mean, rstd, rms, not rms)
+
+        def run():
+            return layer_norm_bwd(dy, x, g, mean, rstd, rms, not rms)
+
+        try:
+            run_other()
+        except ValueError:  # a width TREE's kernel does not take
+            was, now = None, graph_ms(run)
+        else:
+            was, now = ab2_ms(run_other, run, graph_ms)
+        lib = norm_bwd_library_ms(torch, x, dy, g, b, mean, rstd, rms)
+        nbytes = 3 * R * H * x.element_size()
+        rows.append(dict(kernel="layer_norm_bwd",
+                         case=f"{name} rows={R} H={H} {dts}"
+                              + (" RMS" if rms else " half γ/β"
+                                 if dts != "float32" else "")
+                              + f", {nbytes / now / 1e6:.0f} GB/s",
+                         other_ms=was, ms=now,
+                         speedup=None if was is None else was / now,
+                         library_ms=lib))
+        del x, dy, g, b
+    return rows
+
+
 #: `--compare`'s parts; the names after TREE pick some of them, none: all
-COMPARE_PARTS = ("flash", "chunk", "lxent", "int8", "glu", "norm")
+COMPARE_PARTS = ("flash", "chunk", "lxent", "int8", "glu", "norm",
+                 "softmax", "normbwd")
 
 
 def compare_flash(torch, ops, card, tree: str, parts=COMPARE_PARTS) -> int:
@@ -2512,17 +2676,19 @@ def compare_flash(torch, ops, card, tree: str, parts=COMPARE_PARTS) -> int:
     chunk product at `CHUNK_CASES`' bf16 cases (CUDA-graph replays
     below 0.1 TFLOP, as the kernels phase times them), the linear-xent
     backward (`compare_lxent`), int8_mm (`compare_int8`) and glu_fwd
-    (`compare_glu`) and the norm forward (`compare_norm`), each through
-    TREE's own wrappers and library (`tree_ops`) and this tree's
+    (`compare_glu`), the norm forward (`compare_norm`), the softmax
+    forward (`compare_softmax`) and the norm backward
+    (`compare_norm_bwd`), each through TREE's own wrappers and library
+    (`tree_ops`) and this tree's
     (`ab2_ms`); ``parts`` (`COMPARE_PARTS`) picks which. Prints a line
     per kernel and case and writes ``chiprun_out/compare.json``."""
     from apex1_tpu_torch.ops.attention import (flash_dkv, flash_dq,
                                                flash_fwd, flash_fwd_merge)
     from apex1_tpu_torch.ops.fused_collective import chunk_matmul, chunk_tile
     other, secs = other_library(tree)
-    other_lx, other_fc, other_q, other_fd, other_ln = tree_ops(
+    other_lx, other_fc, other_q, other_fd, other_ln, other_sm = tree_ops(
         tree, "linear_xent.py", "fused_collective.py", "quantized.py",
-        "fused_dense.py", "layer_norm.py")
+        "fused_dense.py", "layer_norm.py", "softmax.py")
     print(f"phase compare: built {tree} in {secs:.1f} s [{card}]")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
@@ -2577,13 +2743,20 @@ def compare_flash(torch, ops, card, tree: str, parts=COMPARE_PARTS) -> int:
     for part, fn in (("lxent", lambda: compare_lxent(torch, card, other_lx)),
                      ("int8", lambda: compare_int8(torch, other_q)),
                      ("glu", lambda: compare_glu(torch, other_fd)),
-                     ("norm", lambda: compare_norm(torch, other_ln))):
+                     ("norm", lambda: compare_norm(torch, other_ln)),
+                     ("softmax", lambda: compare_softmax(torch, other_sm)),
+                     ("normbwd", lambda: compare_norm_bwd(torch, other_ln))):
         if part in parts:
             rows += fn()
     for r in (r for r in rows if "other_ms" in r):
-        print(f"phase compare: {r['kernel']} [{r['case']}] {tree} "
-              f"ms={r['other_ms']:.4f} this tree ms={r['ms']:.4f} "
-              f"speedup {r['speedup']:.2f}x [{card}]")
+        lib = ("" if "library_ms" not in r
+               else f" library ms={r['library_ms']:.4f}")
+        was = ("raises" if r["other_ms"] is None else
+               f"ms={r['other_ms']:.4f}")
+        speedup = ("" if r["speedup"] is None
+                   else f" speedup {r['speedup']:.2f}x")
+        print(f"phase compare: {r['kernel']} [{r['case']}] {tree} {was} "
+              f"this tree ms={r['ms']:.4f}{speedup}{lib} [{card}]")
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "compare.json"), "w") as f:
         json.dump({"card": card, "other": tree, "rows": rows}, f, indent=1)
@@ -2692,8 +2865,9 @@ def profile_decode(torch, steps: int = 10) -> dict:
 
 def kernel_split(torch, prof, steps: int, wall: float, top: int = 12):
     """Per step: host wall, the device kernel time (the sum of the
-    kernels' own device time), the device busy share, and the kernels
-    with the most device time. Device-side entries only: the kernels
+    kernels' own device time), the device busy share, the linear-xent,
+    norm backward and softmax forward kernels' device time, and the
+    kernels with the most device time. Device-side entries only: the kernels
     themselves, not the CPU ops that launched them (their device time
     would count twice) nor the user annotations, whose device span is
     the whole step."""
@@ -2709,8 +2883,13 @@ def kernel_split(torch, prof, steps: int, wall: float, top: int = 12):
     # stats and fold, the backward's G, dx and dW); in fp32
     # lxent_fwd_kernel, lxent_bwd_kernel and, past H 768, lxw_*
     lxent = sum(ms for k, ms, _ in rows if "lxent" in k or "lxw_" in k)
+    # the norm backward's kernels (ln_bwd_*) and the softmax forward's
+    norm_bwd = sum(ms for k, ms, _ in rows if "ln_bwd" in k)
+    sm_fwd = sum(ms for k, ms, _ in rows if "softmax_fwd" in k)
     return {"step_wall_ms": wall, "device_ms_per_step": device,
             "device_busy": device / wall, "lxent_ms_per_step": lxent,
+            "norm_bwd_ms_per_step": norm_bwd,
+            "softmax_fwd_ms_per_step": sm_fwd,
             "top": [{"name": k[:80], "ms_per_step": ms, "calls": c}
                     for k, ms, c in rows[:top]]}
 

@@ -363,6 +363,172 @@ def test_layer_norm_fwd_reads_half_gamma_directly(cuda, dtype, rms,
     _norm_close(got, want, dt)
 
 
+#: the norm backward's H edges: its register path from one chunk a lane
+#: to 16 (bf16/fp16 H = 4096, fp32 2048), partials in registers (to H
+#: 768-2048) or shared memory past them, the two-pass path past 16
+#: chunks (4104 to 8192, beyond the 6016 the first kernel took) and
+#: value by value where H is not a multiple of a 16-byte chunk
+_NORM_BWD_H = [1, 7, 767, 768, 769, 2048, 4096, 4104, 6016, 6024, 8192]
+
+
+def _norm_bwd_case(rows, h, dt, gdt, cuda, seed, rms, dy_dt=None):
+    """x, dy, γ and the saved statistics of a norm backward case."""
+    from apex1_tpu_torch.ops.layer_norm import layer_norm_fwd
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((rows, h)) * 2 + 0.5).to(
+        cuda, dt)
+    dy = torch.from_numpy(rng.standard_normal((rows, h))).to(
+        cuda, dy_dt or dt)
+    g = torch.from_numpy(1 + 0.1 * rng.standard_normal(h)).to(cuda, gdt)
+    b = None if rms else torch.from_numpy(
+        0.1 * rng.standard_normal(h)).to(cuda, gdt)
+    _, mean, rstd = layer_norm_fwd(x, g, b, 1e-5, rms)
+    return x, dy, g, mean, rstd
+
+
+def _norm_bwd_check(x, dy, g, mean, rms, rstd, gtol=None):
+    """dx, dγ (and dβ) against the plain version, dx at x's tolerance
+    and dγ/dβ at ``gtol`` (γ's by default), in their dtypes; the same
+    bits on a second launch (no atomics)."""
+    from apex1_tpu_torch.ops.layer_norm import layer_norm_bwd
+
+    def run():
+        return layer_norm_bwd(dy, x, g, mean, rstd, rms, not rms)
+
+    got, want = _both(run)
+    assert got[0].dtype == x.dtype and got[0].shape == x.shape
+    assert got[1].dtype == g.dtype and (rms or got[2].dtype == g.dtype)
+    assert (got[2] is None) == rms
+    _close(got[0], want[0], x.dtype)
+    for a, w in zip(got[1:], want[1:]):
+        if w is not None:
+            _close(a, w, gtol or g.dtype)
+    again = run()
+    assert all(a is None or torch.equal(a, c) for a, c in zip(again, got))
+
+
+@pytest.mark.parametrize("rms", [False, True], ids=["ln", "rms"])
+@pytest.mark.parametrize("h", _NORM_BWD_H)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_layer_norm_bwd_row_edges(cuda, dtype, h, rms):
+    """dx, dγ, dβ at every H edge of the kernel's paths, 37 rows (a
+    ragged run for the rows pass), half γ under half x."""
+    dt = getattr(torch, dtype)
+    x, dy, g, mean, rstd = _norm_bwd_case(37, h, dt, dt, cuda, h, rms)
+    _norm_bwd_check(x, dy, g, mean, rms, rstd)
+
+
+@pytest.mark.parametrize("dy_dtype", ["same", "float32"])
+@pytest.mark.parametrize("rms", [False, True], ids=["ln", "rms"])
+@pytest.mark.parametrize("gdtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_layer_norm_bwd_gamma_and_dy_dtypes(cuda, dtype, gdtype, rms,
+                                            dy_dtype):
+    """γ in fp32, in x's half type (read as it is) or in another one
+    (widened to fp32 first); dy in x's dtype or in fp32 (taken in x's
+    dtype, so dγ/dβ hold to the coarser of x's and γ's tolerance)."""
+    dt, gdt = getattr(torch, dtype), getattr(torch, gdtype)
+    dy_dt = dt if dy_dtype == "same" else torch.float32
+    x, dy, g, mean, rstd = _norm_bwd_case(64, 768, dt, gdt, cuda, 21, rms,
+                                          dy_dt)
+    coarse = max((dt, gdt), key=lambda d: _TOLS[d][1])
+    _norm_bwd_check(x, dy, g, mean, rms, rstd,
+                    gtol=coarse if dy_dt != dt else gdt)
+
+
+@pytest.mark.parametrize("rms", [False, True], ids=["ln", "rms"])
+@pytest.mark.parametrize("h", [768, 4096])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_layer_norm_bwd_misaligned_x(cuda, dtype, h, rms):
+    """x one element past a 16-byte boundary: the value-by-value path,
+    the numbers of the aligned launch."""
+    dt = getattr(torch, dtype)
+    x, dy, g, mean, rstd = _norm_bwd_case(9, h, dt, dt, cuda, 22, rms)
+    buf = torch.empty(x.numel() + 1, dtype=dt, device=cuda)
+    xs = buf[1:].view(x.shape)
+    xs.copy_(x)
+    assert xs.is_contiguous() and xs.data_ptr() % 16 != 0
+    _norm_bwd_check(xs, dy, g, mean, rms, rstd)
+
+
+@pytest.mark.parametrize("rms", [False, True], ids=["ln", "rms"])
+@pytest.mark.parametrize("h", [768, 4096])
+@pytest.mark.parametrize("rows", [1, 37, 4097])
+def test_layer_norm_bwd_ragged_rows(cuda, rows, h, rms):
+    """Row counts that leave a warp's run of rows ragged (one row, a
+    few, one past a power of two), bf16 with half γ."""
+    dt = torch.bfloat16
+    x, dy, g, mean, rstd = _norm_bwd_case(rows, h, dt, dt, cuda, rows,
+                                          rms)
+    _norm_bwd_check(x, dy, g, mean, rms, rstd)
+
+
+#: the softmax forward's Sk edges: fp32 from one chunk a lane to 16
+#: (2048), streamed off a 16-byte chunk (1, 3, 1023, 1025) and past 16
+#: chunks a lane (2052, a chunk multiple); bf16 at 16 chunks a lane
+#: (4096) and past it
+_SOFTMAX_SK = [("float32", 1), ("float32", 3), ("float32", 4),
+               ("float32", 1023), ("float32", 1024), ("float32", 1025),
+               ("float32", 2048), ("float32", 2052), ("bfloat16", 4096),
+               ("bfloat16", 4104)]
+
+
+def _softmax_check(x, m, causal, dt):
+    """y against the plain version; the same bits on a second launch."""
+    from apex1_tpu_torch.ops.softmax import softmax_fwd
+    y, want = _both(lambda: softmax_fwd(x, m, 0.125, causal))
+    assert y.dtype == dt and y.shape == x.shape
+    _close(y, want, dt)
+    assert torch.equal(softmax_fwd(x, m, 0.125, causal), y)
+
+
+@pytest.mark.parametrize("mask_kind", [k for k in _SOFTMAX_MASKS
+                                       if k != "causal"])
+@pytest.mark.parametrize("dtype,sk", _SOFTMAX_SK)
+def test_softmax_fwd_sk_edges(cuda, dtype, sk, mask_kind):
+    """Each mask broadcast at every Sk edge of the forward's paths."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(sk)
+    sq = 5
+    x = torch.from_numpy(rng.standard_normal((2, 3, sq, sk)) * 3).to(cuda,
+                                                                    dt)
+    m = torch.from_numpy(np.where(
+        rng.random(_SOFTMAX_MASKS[mask_kind](sq, sk)) < 0.3, -1e30,
+        0.0)).to(cuda, torch.float32)
+    _softmax_check(x, m, False, dt)
+
+
+@pytest.mark.parametrize("rows", ["sq<sk", "sq>sk"])
+@pytest.mark.parametrize("dtype,sk", _SOFTMAX_SK)
+def test_softmax_fwd_causal_edges(cuda, dtype, sk, rows):
+    """Causal at every Sk edge: Sq < Sk (every row ends early), and Sq >
+    Sk (rows end at every column, inside chunks and on their edges, and
+    the rows past Sk are whole)."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(sk + 1)
+    sq = sk // 3 + 1 if rows == "sq<sk" else sk + 3
+    x = torch.from_numpy(rng.standard_normal((1, 2, sq, sk)) * 3).to(cuda,
+                                                                    dt)
+    _softmax_check(x, None, True, dt)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "mask"])
+def test_softmax_fwd_misaligned_x(cuda, causal):
+    """x one element past a 16-byte boundary: the streamed path, the
+    numbers of the aligned launch."""
+    rng = np.random.default_rng(30)
+    x = torch.from_numpy(rng.standard_normal((2, 3, 40, 1024)) * 3).to(
+        cuda, torch.float32)
+    buf = torch.empty(x.numel() + 1, device=cuda)
+    xs = buf[1:].view(x.shape)
+    xs.copy_(x)
+    assert xs.is_contiguous() and xs.data_ptr() % 16 != 0
+    m = None if causal else torch.from_numpy(np.where(
+        rng.random((1, 1, 1, 1024)) < 0.3, -1e30, 0.0)).to(cuda,
+                                                          torch.float32)
+    _softmax_check(xs, m, causal, torch.float32)
+
+
 # ---- the flash slice's kernels --------------------------------------------
 
 #: name -> (B, Hq, Hkv, Sq, Sk, D, causal, segments, q_off, k_off, dlse)

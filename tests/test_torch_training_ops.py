@@ -5,10 +5,12 @@ XLA composite, and its Pallas kernels in interpret mode) under
 ``jax.grad``, and through the port's plain PyTorch path under
 autograd, on the CPU:
 
-- LayerNorm/RMSNorm dx, dγ, dβ: f32 within 1e-5; bf16 x with bf16 γ/β
-  (the amp compute params) within 1e-2 (bf16 roundings of y and of the
-  grads);
-- causal and masked softmax, forward and dx, odd sq/sk: f32 1e-5;
+- LayerNorm/RMSNorm dx, dγ, dβ: f32 within 1e-5, also at the H edges
+  of the Hopper backward's paths (1 to 8192); bf16 or fp16 x with half
+  or fp32 γ/β (the amp compute params, MixedFused) within 1e-2 (half
+  roundings of y and of the grads);
+- causal and masked softmax, forward and dx, odd sq/sk, the forward's
+  Sk edges (1 to 2052, Sq != Sk, each mask broadcast): f32 1e-5;
 - softmax cross-entropy loss and dlogits with smoothing, padding_idx
   and num_classes < width, on a strided logits[:, :-1] slice: f32 1e-5.
 
@@ -95,6 +97,73 @@ def test_norm_grads_match_jax(shape, impl, dtype, rms):
                                    atol=tol * max(1.0, np.abs(w).max()))
 
 
+def _norm_grads(x, g, b, dy, rms, impl, dtype, gdtype=None):
+    """(JAX's dx, dγ, dβ under ``impl``, the port's) for numpy inputs,
+    x in ``dtype`` and γ/β in ``gdtype`` (x's by default)."""
+    jdt = getattr(jnp, dtype)
+    jgdt = getattr(jnp, gdtype or dtype)
+
+    def jf(x_, g_, b_):
+        y = jax_rms_norm(x_, g_) if rms else jax_layer_norm(x_, g_, b_)
+        return jnp.sum(y.astype(jnp.float32) * dy)
+
+    with jax_common.force_impl(impl):
+        want = jax.jit(jax.grad(jf, argnums=(0, 1, 2)))(
+            jnp.asarray(x, jdt), jnp.asarray(g, jgdt), jnp.asarray(b, jgdt))
+    tdt = getattr(torch, dtype)
+    tgdt = getattr(torch, gdtype or dtype)
+    tx, tg, tb = _t(x, tdt), _t(g, tgdt), _t(b, tgdt)
+    y = rms_norm(tx, tg) if rms else layer_norm(tx, tg, tb)
+    (y.float() * torch.from_numpy(dy)).sum().backward()
+    return want, (tx.grad, tg.grad, tb.grad)
+
+
+def _assert_grads(want, got, rms, tol, dtypes):
+    for i, (gt, w) in enumerate(zip(got, want)):
+        if rms and i == 2:
+            assert gt is None
+            continue
+        assert gt.dtype == dtypes[i]
+        w = np.asarray(w.astype(jnp.float32))
+        np.testing.assert_allclose(_np(gt), w, rtol=tol,
+                                   atol=tol * max(1.0, np.abs(w).max()))
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("h", [1, 7, 767, 768, 769, 2048, 4096, 4104, 6016,
+                               6024, 8192])
+@pytest.mark.parametrize("rms", [False, True], ids=["ln", "rms"])
+def test_norm_grads_at_row_edges_match_jax(h, rms, impl):
+    """dx, dγ, dβ at the H edges of the Hopper backward's paths, up to
+    8192 (past the 6016 its first kernel took), a few rows, f32."""
+    rng = np.random.default_rng(h)
+    x = (rng.standard_normal((3, h)) * 2 + 0.5).astype(np.float32)
+    g = (1 + 0.1 * rng.standard_normal(h)).astype(np.float32)
+    b = (0.1 * rng.standard_normal(h)).astype(np.float32)
+    dy = rng.standard_normal((3, h)).astype(np.float32)
+    want, got = _norm_grads(x, g, b, dy, rms, impl, "float32")
+    _assert_grads(want, got, rms, 1e-5, (torch.float32,) * 3)
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("gdtype", ["float32", "half"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("rms", [False, True], ids=["ln", "rms"])
+def test_half_norm_grads_match_jax(dtype, gdtype, rms, impl):
+    """Half x with fp32 γ/β (MixedFused) or half γ/β (the amp compute
+    params) at GPT-2's width: the grads in x's and γ's dtypes, within
+    1e-2 (half roundings of y and of the grads)."""
+    rng = np.random.default_rng(6)
+    x = (rng.standard_normal((4, 6, 768)) * 2 + 0.5).astype(np.float32)
+    g = (1 + 0.1 * rng.standard_normal(768)).astype(np.float32)
+    b = (0.1 * rng.standard_normal(768)).astype(np.float32)
+    dy = rng.standard_normal((4, 6, 768)).astype(np.float32)
+    gdt = dtype if gdtype == "half" else "float32"
+    want, got = _norm_grads(x, g, b, dy, rms, impl, dtype, gdt)
+    tdt, tgdt = getattr(torch, dtype), getattr(torch, gdt)
+    _assert_grads(want, got, rms, 1e-2, (tdt, tgdt, tgdt))
+
+
 @pytest.mark.parametrize("memory_efficient", [False, True])
 @pytest.mark.parametrize("rms", [False, True], ids=["ln", "rms"])
 def test_fused_norm_modules_match_jax(rms, memory_efficient):
@@ -142,6 +211,46 @@ def test_softmax_and_grad_match_jax(impl, mask_kind, sq, sk):
     mask = None if mask_shape is None else np.where(
         rng.random(mask_shape) < 0.3, -1e30, 0.0).astype(np.float32)
     scale = 0.37
+
+    def jf(x_):
+        if mask is None:
+            return jax_causal_sm(x_, scale=scale)
+        return jax_masked_sm(x_, jnp.asarray(mask), scale=scale)
+
+    with jax_common.force_impl(impl):
+        y_j, dx_j = jax.jit(lambda x_, dy_: _value_and_vjp(jf, x_, dy_))(
+            jnp.asarray(x), jnp.asarray(dy))
+    tx = _t(x)
+    if mask is None:
+        y = scaled_upper_triang_masked_softmax(tx, scale=scale)
+    else:
+        y = scaled_masked_softmax(tx, torch.from_numpy(mask), scale=scale)
+    y.backward(torch.from_numpy(dy))
+    np.testing.assert_allclose(_np(y), np.asarray(y_j), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(_np(tx.grad), np.asarray(dx_j), rtol=1e-5,
+                               atol=1e-6)
+
+
+#: (Sq, Sk) at the Sk edges of the Hopper forward's paths: one column,
+#: one 16-byte fp32 chunk, past 1024 off a chunk, and a chunk multiple
+#: past 16 chunks a lane; Sq past Sk and short of it
+_SOFTMAX_EDGES = [(3, 1), (7, 4), (6, 1025), (5, 2052)]
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("mask_kind", ["causal", "b1qk", "k", "bh"])
+@pytest.mark.parametrize("sq,sk", _SOFTMAX_EDGES)
+def test_softmax_and_grad_at_sk_edges_match_jax(impl, mask_kind, sq, sk):
+    """Causal with Sq != Sk, or a mask broadcast over batch and heads,
+    over queries, or over queries and keys (one value a row)."""
+    shapes = {"b1qk": (2, 1, sq, sk), "k": (1, 1, 1, sk), "bh": (2, 3, 1, 1)}
+    rng = np.random.default_rng(sk)
+    x = (rng.standard_normal((2, 3, sq, sk)) * 3).astype(np.float32)
+    dy = rng.standard_normal((2, 3, sq, sk)).astype(np.float32)
+    mask = None if mask_kind == "causal" else np.where(
+        rng.random(shapes[mask_kind]) < 0.3, -1e30, 0.0).astype(np.float32)
+    scale = 0.125
 
     def jf(x_):
         if mask is None:
