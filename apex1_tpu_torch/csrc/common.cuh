@@ -1,6 +1,6 @@
 // Shared helpers for the port's kernels: dtype codes (kept in step with
-// ops/_common.py::DTYPE_CODES), loads to f32 and stores from f32, and
-// warp reductions.
+// ops/_common.py::DTYPE_CODES), loads to f32 and stores from f32, warp
+// reductions, and the programmatic dependent launch of a second pass.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -40,6 +40,34 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// programmatic dependent launch (Hopper): a kernel launched by
+// `launch_after` may be scheduled while the kernel before it on the
+// stream finishes (once every block of that kernel has called
+// `let_next_start` or ended), and waits in `wait_prior` until its writes
+// are visible: a short second pass does not pay a whole launch
+__device__ __forceinline__ void wait_prior() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+__device__ __forceinline__ void let_next_start() {
+  asm volatile("griddepcontrol.launch_dependents;");
+}
+
+template <typename... Params, typename... Args>
+cudaError_t launch_after(void (*kern)(Params...), dim3 grid, dim3 block,
+                         cudaStream_t st, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.stream = st;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kern, args...);
 }
 
 static inline cudaStream_t as_stream(void* s) {

@@ -24,8 +24,9 @@
 // through broadcast strides (0 along a size-1 dimension) and added to the
 // scaled score of every kernel before the mask: s·scale and + bias are
 // rounded apart. The wgmma kernels stage the bias tile with their K/V or
-// Q/dO tile and add it in registers; dbias (and fp32's kernels) in a pass
-// of the whole block over the fp32 score tile (coalesced rows). A null bias skips it.
+// Q/dO tile (dbias: once, into registers) and add it in registers; fp32's
+// kernels in a pass of the whole block over the fp32 score tile (coalesced
+// rows). A null bias skips it.
 // The causal tile skip stays exact: a bias never makes a masked position
 // valid.
 //
@@ -43,7 +44,8 @@
 // Forward and backward evaluate the mask at the same positions, so no
 // mask is stored. A row's key is formed once (the wgmma forward and dq: a
 // thread's two rows once a kernel; dk/dv: a q tile's 64 staged with it;
-// dbias: once a tile), so an element costs one mix32. p == 0 launches
+// dbias: a thread's two rows once a sweep step; fp32: once a tile), so an
+// element costs one mix32. p == 0 launches
 // the kernels without the dropout code (template DROP), as before. The
 // kernels live in flash_attn.cuh and flash_wg.cuh; this file holds the
 // entry points and
@@ -70,16 +72,15 @@
 //   q heads and over the q tiles from the diagonal on; the group sum
 //   stays in the block's accumulators, as the TPU kernel keeps it in
 //   scratch. No atomics anywhere: two runs give the same bits.
-// bf16/fp16 forward (with the merge epilogue), dq and dk/dv: wgmma on
-// register-resident fp32 accumulators, fed by a cp.async ring of
-// 128B-swizzled shared tiles (flash_wg.cuh, which says how). dbias in
-// bf16/fp16: 128 threads staging every tile in shared memory, WMMA
-// 16x16x16 products with fp32 accumulation (each of the four warps owns a
-// 16-row strip), the fp32 score tile through shared memory for the
-// softmax and masking, done by 128 / rows threads per row. fp32, all four:
-// the same staging with plain FMA on the CUDA cores (no TF32) and 32-row
-// tiles. The head dimension is padded with zeros in shared memory to 64
-// or 128. Not yet: wgmma for dbias, TMA, warp specialisation.
+// bf16/fp16 forward (with the merge epilogue), dq, dk/dv and dbias: wgmma
+// on register-resident fp32 accumulators, fed by a cp.async ring of
+// 128B-swizzled shared tiles (flash_wg.cuh, which says how; dbias's sweep
+// steps are its ring's stages, and the bias tile, the same at every step,
+// stays in registers). fp32, all four: 128 threads staging every tile in
+// shared memory with plain FMA on the CUDA cores (no TF32), 32-row tiles,
+// the fp32 score tile through shared memory for the softmax and masking,
+// done by 128 / rows threads per row. The head dimension is padded with
+// zeros in shared memory to 64 or 128. Not yet: TMA, warp specialisation.
 
 #include "flash_attn.cuh"
 

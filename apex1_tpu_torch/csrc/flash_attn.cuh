@@ -8,8 +8,6 @@
 #include "common.cuh"
 #include "dropout_hash.cuh"
 
-#include <mma.h>
-
 #include <type_traits>
 
 static const int kThreads = 128;
@@ -19,10 +17,11 @@ __host__ __device__ constexpr size_t align128(size_t n) {
   return (n + 127) / 128 * 128;
 }
 
-// Shared-memory geometry for operand type T and padded head dim DP.
+// Shared-memory geometry of the fp32 kernels (T = float; bf16/fp16 are
+// flash_wg.cuh's) for padded head dim DP.
 template <typename T, int DP>
 struct Geom {
-  static constexpr int BT = sizeof(T) == 4 ? 32 : 64;  // tile rows
+  static constexpr int BT = 32;                        // tile rows
   static constexpr int TPR = kThreads / BT;            // threads per row
   static constexpr int CPT = BT / TPR;                 // score cols a thread
   static constexpr int LDT = DP + 16 / sizeof(T);      // operand tile stride
@@ -113,84 +112,48 @@ __device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
   }
 }
 
-// C[M x N] (+)= A[M x K] · B[K x N], all in shared memory, by the whole
-// block. A(m, k) = A_COL ? A[k * lda + m] : A[m * lda + k];
-// B(k, n) = B_COL ? B[n * ldb + k] : B[k * ldb + n]. C is fp32.
+// C[M x N] (+)= A[M x K] · B[K x N], fp32, all in shared memory, by the
+// whole block, on the CUDA cores (no TF32). A(m, k) = A_COL ? A[k * lda + m]
+// : A[m * lda + k]; B(k, n) = B_COL ? B[n * ldb + k] : B[k * ldb + n].
 template <typename T, int M, int N, int K, bool A_COL, bool B_COL>
 __device__ __forceinline__ void tile_mm(const T* A, int lda, const T* B,
                                         int ldb, float* C, int ldc,
                                         bool accumulate) {
-  if constexpr (std::is_same<T, float>::value) {
-    // 16 x 8 threads; thread (tx, ty) owns rows ty + 8i, cols tx + 16j
-    static_assert(M % 8 == 0 && N % 16 == 0, "fp32 tile shape");
-    constexpr int RI = M / 8, CJ = N / 16;
-    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-    float c[RI][CJ];
+  static_assert(std::is_same<T, float>::value,
+                "bf16/fp16 products are flash_wg.cuh's wgmma");
+  // 16 x 8 threads; thread (tx, ty) owns rows ty + 8i, cols tx + 16j
+  static_assert(M % 8 == 0 && N % 16 == 0, "fp32 tile shape");
+  constexpr int RI = M / 8, CJ = N / 16;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float c[RI][CJ];
 #pragma unroll
-    for (int i = 0; i < RI; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < CJ; ++j)
-        c[i][j] = accumulate ? C[(ty + 8 * i) * ldc + tx + 16 * j] : 0.f;
+    for (int j = 0; j < CJ; ++j)
+      c[i][j] = accumulate ? C[(ty + 8 * i) * ldc + tx + 16 * j] : 0.f;
 #pragma unroll 4
-    for (int kk = 0; kk < K; ++kk) {
-      float av[RI], bv[CJ];
+  for (int kk = 0; kk < K; ++kk) {
+    float av[RI], bv[CJ];
 #pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        const int m = ty + 8 * i;
-        av[i] = A_COL ? A[kk * lda + m] : A[m * lda + kk];
-      }
+    for (int i = 0; i < RI; ++i) {
+      const int m = ty + 8 * i;
+      av[i] = A_COL ? A[kk * lda + m] : A[m * lda + kk];
+    }
 #pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        const int n = tx + 16 * j;
-        bv[j] = B_COL ? B[n * ldb + kk] : B[kk * ldb + n];
-      }
-#pragma unroll
-      for (int i = 0; i < RI; ++i)
-#pragma unroll
-        for (int j = 0; j < CJ; ++j) c[i][j] = fmaf(av[i], bv[j], c[i][j]);
+    for (int j = 0; j < CJ; ++j) {
+      const int n = tx + 16 * j;
+      bv[j] = B_COL ? B[n * ldb + kk] : B[kk * ldb + n];
     }
 #pragma unroll
     for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < CJ; ++j)
-        C[(ty + 8 * i) * ldc + tx + 16 * j] = c[i][j];
-  } else {
-    // warp w owns output rows [16w, 16w + 16) and all N columns
-    using namespace nvcuda;
-    static_assert(M == 16 * (kThreads / 32), "one 16-row strip a warp");
-    static_assert(N % 16 == 0 && K % 16 == 0, "16x16x16 fragments");
-    using LA = typename std::conditional<A_COL, wmma::col_major,
-                                         wmma::row_major>::type;
-    using LB = typename std::conditional<B_COL, wmma::col_major,
-                                         wmma::row_major>::type;
-    const int w = threadIdx.x / 32;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[N / 16];
-#pragma unroll
-    for (int j = 0; j < N / 16; ++j) {
-      if (accumulate)
-        wmma::load_matrix_sync(acc[j], C + 16 * w * ldc + 16 * j, ldc,
-                               wmma::mem_row_major);
-      else
-        wmma::fill_fragment(acc[j], 0.f);
-    }
-#pragma unroll
-    for (int kk = 0; kk < K; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, LA> a;
-      wmma::load_matrix_sync(
-          a, A_COL ? A + kk * lda + 16 * w : A + 16 * w * lda + kk, lda);
-#pragma unroll
-      for (int j = 0; j < N / 16; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, LB> bf;
-        wmma::load_matrix_sync(
-            bf, B_COL ? B + 16 * j * ldb + kk : B + kk * ldb + 16 * j, ldb);
-        wmma::mma_sync(acc[j], a, bf, acc[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < N / 16; ++j)
-      wmma::store_matrix_sync(C + 16 * w * ldc + 16 * j, acc[j], ldc,
-                              wmma::mem_row_major);
+      for (int j = 0; j < CJ; ++j) c[i][j] = fmaf(av[i], bv[j], c[i][j]);
   }
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int j = 0; j < CJ; ++j)
+      C[(ty + 8 * i) * ldc + tx + 16 * j] = c[i][j];
 }
 
 template <int TPR>
@@ -605,7 +568,8 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // dbias[bb, hb] = Σ over the (b, h) that broadcast onto (bb, hb) of
-// p·(dp - δ + dlse), fp32. One block per (bb, hb, q tile, key tile): it
+// p·(dp - δ + dlse), fp32 operands (bf16/fp16: flash_dbias_wg_kernel in
+// flash_wg.cuh, the same sweep on wgmma). One block per (bb, hb, q tile, key tile): it
 // sweeps the broadcast (b, h) in a fixed order (b = bb + (r / rh)·Bb,
 // h = hb + (r % rh)·Hb, r = 0, 1, ...), recomputing S and dP each time,
 // sums in registers and writes its output tile once: no atomics, no
@@ -686,49 +650,51 @@ enum Which { kFwd = 0, kDq = 1, kDkv = 2, kDbias = 3 };
 
 #include "flash_wg.cuh"
 
-// bf16/fp16: the forward, dq and dk/dv on wgmma (flash_wg.cuh), dbias
-// here; fp32: all four here
+// bf16/fp16: the forward, dq, dk/dv and dbias on wgmma (flash_wg.cuh);
+// fp32: all four here
 template <typename T, int DP, bool DROP>
 static int launch(int which, const FlashArgs& a, cudaStream_t st) {
-  using G = Geom<T, DP>;
-  static bool attr_set[4] = {false, false, false, false};
-  void (*kern)(const FlashArgs) = nullptr;
-  size_t smem = 0;
-  unsigned tiles = 0;
-  unsigned heads = 0;
-  if (which == kDbias) {
-    kern = flash_dbias_kernel<T, DP, DROP>;
-    smem = G::DB;
-    tiles = ((a.Sq + G::BT - 1) / G::BT) * ((a.Sk + G::BT - 1) / G::BT);
-    heads = a.Hb;
-  } else if constexpr (!std::is_same<T, float>::value) {
+  if constexpr (!std::is_same<T, float>::value) {
     return launch_wg<T, DP, DROP>(which, a, st);
-  } else if (which == kFwd) {
-    kern = flash_fwd_kernel<T, DP, DROP>;
-    smem = G::FWD;
-    tiles = (a.Sq + G::BT - 1) / G::BT;
-    heads = a.Hq;
-  } else if (which == kDq) {
-    kern = flash_dq_kernel<T, DP, DROP>;
-    smem = G::DQ;
-    tiles = (a.Sq + G::BT - 1) / G::BT;
-    heads = a.Hq;
   } else {
-    kern = flash_dkv_kernel<T, DP, DROP>;
-    smem = G::DKV;
-    tiles = (a.Sk + G::BT - 1) / G::BT;
-    heads = a.Hkv;
+    using G = Geom<T, DP>;
+    static bool attr_set[4] = {false, false, false, false};
+    void (*kern)(const FlashArgs) = nullptr;
+    size_t smem = 0;
+    unsigned tiles = 0;
+    unsigned heads = 0;
+    if (which == kDbias) {
+      kern = flash_dbias_kernel<T, DP, DROP>;
+      smem = G::DB;
+      tiles = ((a.Sq + G::BT - 1) / G::BT) * ((a.Sk + G::BT - 1) / G::BT);
+      heads = a.Hb;
+    } else if (which == kFwd) {
+      kern = flash_fwd_kernel<T, DP, DROP>;
+      smem = G::FWD;
+      tiles = (a.Sq + G::BT - 1) / G::BT;
+      heads = a.Hq;
+    } else if (which == kDq) {
+      kern = flash_dq_kernel<T, DP, DROP>;
+      smem = G::DQ;
+      tiles = (a.Sq + G::BT - 1) / G::BT;
+      heads = a.Hq;
+    } else {
+      kern = flash_dkv_kernel<T, DP, DROP>;
+      smem = G::DKV;
+      tiles = (a.Sk + G::BT - 1) / G::BT;
+      heads = a.Hkv;
+    }
+    if (!attr_set[which]) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (e != cudaSuccess) return static_cast<int>(e);
+      attr_set[which] = true;
+    }
+    kern<<<dim3(tiles, heads, which == kDbias ? a.Bb : a.B), kThreads, smem,
+           st>>>(a);
+    return static_cast<int>(cudaGetLastError());
   }
-  if (!attr_set[which]) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    attr_set[which] = true;
-  }
-  kern<<<dim3(tiles, heads, which == kDbias ? a.Bb : a.B), kThreads, smem,
-         st>>>(a);
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, bool DROP>

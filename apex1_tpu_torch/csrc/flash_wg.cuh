@@ -1,7 +1,7 @@
-// The bf16/fp16 flash forward (with its merge epilogue), dq and dk/dv for
-// Hopper: warpgroups of 128 threads running wgmma m64nNk16 on shared tiles
-// filled by a cp.async ring, with every fp32 accumulator (scores, output,
-// dQ, dK, dV) in registers for the whole loop. Included by flash_attn.cuh,
+// The bf16/fp16 flash forward (with its merge epilogue), dq, dk/dv and
+// dbias for Hopper: warpgroups of 128 threads running wgmma m64nNk16 on
+// shared tiles filled by a cp.async ring, with every fp32 accumulator
+// (scores, output, dQ, dK, dV, dbias) in registers for the whole loop. Included by flash_attn.cuh,
 // whose FlashArgs, masks and dropout hash they share; what they compute is
 // described in flash_attn.cu.
 //
@@ -32,6 +32,10 @@
 // accumulates dQ += dS·K with dS as the register A operand and K, read
 // from the tile S used, as the MN-major B operand. Key tiles are summed in
 // order: no atomics, the same bits on every launch.
+//
+// dbias: dq's S and dP on a 64 x 64 output tile of the bias, with the sweep
+// over the (b, h) that broadcast onto it as the loop (flash_dbias_wg_kernel
+// says how).
 //
 // Masks cost only where a tile crosses the diagonal, the Sq/Sk edge or a
 // segment boundary: there a masked logit becomes -inf, in selects without
@@ -77,8 +81,15 @@ struct WgGeom {
   static constexpr size_t B_BIAS = size_t(BQ) * B_LDB * 4;
   static constexpr size_t DKV =
       1024 + 2 * B_KV + STAGES * B_STAGE + STAGES * B_STATS;
+  // dbias: a stage is one sweep step's Q, dO, K and V tiles (BM = BN
+  // rows each) and its rows' lse, δ, dlse and segments and its keys'
+  // segments, three stages in the ring (two blocks an SM at DP 64)
+  static constexpr int DB_STAGES = 3;
+  static constexpr size_t DB_STAGE =
+      (4 * F_Q + size_t(5) * BM * 4 + 1023) / 1024 * 1024;
+  static constexpr size_t DB = 1024 + DB_STAGES * DB_STAGE;
   static_assert(DQ + STAGES * F_BIAS <= 232448 &&
-                    DKV + STAGES * B_BIAS <= 232448,
+                    DKV + STAGES * B_BIAS <= 232448 && DB <= 232448,
                 "shared memory");
 };
 
@@ -111,15 +122,36 @@ __device__ __forceinline__ bool full_tile(const FlashArgs& a, int k0, int BN,
                            static_cast<long long>(r0) + a.q_off);
 }
 
-// The logits of a 64-row score fragment of the forward or dq (rows from
-// q0, this thread's two at qrow with segments qs; keys from k0): s·scale,
-// or s·scale + bias rounded apart (tb: the stage's bias tile, row stride
-// LDB; null without a bias). Masked positions become -inf, whose exp is
-// exactly 0 whatever the row max (a valid logit of NEG_INF, as an
-// additive mask gives, keeps the reference's exp(s - m)). Only a tile
-// that crosses the diagonal, the Sk edge or a segment boundary pays for
-// it, in selects without branches: per row, the last valid column
-// (causal and Sk), then the segment ids (seg: the stage's key segments).
+// Masked positions of a 64-row score fragment (rows from q0, this
+// thread's two at qrow with segments qs; keys from k0) become -inf, whose
+// exp is exactly 0 whatever the row max (a valid logit of NEG_INF, as an
+// additive mask gives, keeps the reference's exp(s - m)). Only a tile that
+// crosses the diagonal, the Sk edge or a segment boundary pays for it, in
+// selects without branches: per row, the last valid column (causal and
+// Sk), then the segment ids (seg: the tile's key segments).
+__device__ __forceinline__ void mask_logits(float (&s)[32], const FlashArgs& a,
+                                            const int* seg, int quad, int q0,
+                                            int k0, const int (&qrow)[2],
+                                            const int (&qs)[2]) {
+  if (full_tile(a, k0, 64, q0)) return;
+  int last[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+    last[hh] = a.causal ? min(a.Sk - 1 - k0, qrow[hh] + a.q_off - a.k_off - k0)
+                        : a.Sk - 1 - k0;
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    s[i] = col(i, quad) <= last[(i / 2) % 2] ? s[i] : -INFINITY;
+  if (a.qseg != nullptr) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      s[i] = seg[col(i, quad)] == qs[(i / 2) % 2] ? s[i] : -INFINITY;
+  }
+}
+
+// The logits of a 64-row score fragment of the forward or dq: s·scale, or
+// s·scale + bias rounded apart (tb: the stage's bias tile, row stride LDB;
+// null without a bias), then `mask_logits`.
 template <int LDB>
 __device__ __forceinline__ void row_logits(float (&s)[32], const FlashArgs& a,
                                            const float* tb, const int* seg,
@@ -141,22 +173,7 @@ __device__ __forceinline__ void row_logits(float (&s)[32], const FlashArgs& a,
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] *= a.scale;
   }
-  if (!full_tile(a, k0, 64, q0)) {
-    int last[2];
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh)
-      last[hh] = a.causal ? min(a.Sk - 1 - k0,
-                                qrow[hh] + a.q_off - a.k_off - k0)
-                          : a.Sk - 1 - k0;
-#pragma unroll
-    for (int i = 0; i < 32; ++i)
-      s[i] = col(i, quad) <= last[(i / 2) % 2] ? s[i] : -INFINITY;
-    if (a.qseg != nullptr) {
-#pragma unroll
-      for (int i = 0; i < 32; ++i)
-        s[i] = seg[col(i, quad)] == qs[(i / 2) % 2] ? s[i] : -INFINITY;
-    }
-  }
+  mask_logits(s, a, seg, quad, q0, k0, qrow, qs);
 }
 
 // The forward's and dq's key ring: per BN-key tile its K and V (swizzled,
@@ -780,12 +797,217 @@ __global__ void __launch_bounds__(WgGeom<DP>::NTHR)
   }
 }
 
+// 4-byte cp.async (src_bytes 0: zeros)
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes));
+}
+
+// dbias: a warpgroup owns the 64 x 64 output tile (bb, hb, q0, k0) and
+// sweeps the (b, h) that broadcast onto it in flash_attn.cuh's fixed order
+// (b = bb + (r / rh)·Bb, h = hb + (r % rh)·Hb, r = 0, 1, ...). Per step it
+// computes S = Q·Kᵀ and dP = dO·Vᵀ (both operands K-major) on the step's
+// tiles, adds the bias (the same tile every step: read once into this
+// thread's fragment registers) and masks as dq does, and adds
+// p·(dP' - δ + dlse) to the fp32 fragment that holds the tile's sum, from
+// the rows' lse, δ, dlse and segments staged with the step and the
+// dropout row keys of (b, h). The ring holds DB_STAGES steps: the next
+// steps' Q, dO, K, V and statistics are in flight while one multiplies,
+// one __syncthreads a step. The tile is written once: no atomics, the same
+// bits on every launch. A causal tile wholly above the diagonal sweeps
+// nothing and writes zeros.
+template <typename T, int DP, bool DROP>
+__global__ void __launch_bounds__(WgGeom<DP>::NTHR)
+    flash_dbias_wg_kernel(const FlashArgs a) {
+  using G = WgGeom<DP>;
+  constexpr int BM = G::BM, BN = G::BN, NTHR = G::NTHR;
+  constexpr int S = G::DB_STAGES;
+  static_assert(BM == BN && BM == 64 && NTHR == 2 * BM,
+                "64 x 64 tiles, a thread a row or key of the statistics");
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  const uint32_t s0 = wg::smem_u32(wg_smem);
+  unsigned char* base = wg_smem + (((s0 + 1023u) & ~1023u) - s0);
+  // stage st: tiles Q, dO, K, V (j = 0..3), then lse, δ, dlse, the rows'
+  // and the keys' segments, BM values each
+  auto tile = [&](int st, int j) {
+    return base + st * G::DB_STAGE + j * G::F_Q;
+  };
+  auto stats = [&](int st) {
+    return reinterpret_cast<float*>(base + st * G::DB_STAGE + 4 * G::F_Q);
+  };
+
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int warp = tid / 32, quad = lane % 4;
+  const int nk = (a.Sk + BN - 1) / BN;
+  const int q0 = (blockIdx.x / nk) * BM, k0 = (blockIdx.x % nk) * BN;
+  const int hb = blockIdx.y, bb = blockIdx.z;
+  const int rh = a.Hq / a.Hb;
+  const bool live = !a.causal || static_cast<long long>(k0) + a.k_off <=
+                                     static_cast<long long>(q0) + BM - 1 +
+                                         a.q_off;
+  const int steps = live ? (a.B / a.Bb) * rh : 0;
+  const int q_rows = min(BM, a.Sq - q0), k_rows = min(BN, a.Sk - k0);
+  const bool vec = a.vec != 0;
+
+  // this thread's two rows of the tile, and its bias fragment
+  const int row0 = warp * 16 + lane / 4;
+  const int qrow[2] = {q0 + row0, q0 + row0 + 8};
+  float bias[32];
+  {
+    const float* bt = a.bias + bb * a.bias_sb + hb * a.bias_sh;
+    const bool pair = a.Sk % 2 == 0 &&
+                      reinterpret_cast<uintptr_t>(a.bias) % 8 == 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int i = 4 * j + 2 * hh, c = 8 * j + 2 * quad;
+        const float* src = bt + static_cast<long long>(qrow[hh]) * a.Sk + k0;
+        if (qrow[hh] >= a.Sq) {
+          bias[i] = bias[i + 1] = 0.f;
+        } else if (pair && c + 1 < k_rows) {
+          const float2 v = *reinterpret_cast<const float2*>(src + c);
+          bias[i] = v.x;
+          bias[i + 1] = v.y;
+        } else {
+          bias[i] = c < k_rows ? src[c] : 0.f;
+          bias[i + 1] = c + 1 < k_rows ? src[c + 1] : 0.f;
+        }
+      }
+  }
+
+  // sweep step r's copies as one group (an empty one past the last)
+  auto load_step = [&](int r) {
+    if (r < steps) {
+      const int st = r % S;
+      const int b = bb + (r / rh) * a.Bb, h = hb + (r % rh) * a.Hb;
+      const int hk = h / (a.Hq / a.Hkv);
+      const size_t bh = size_t(b) * a.Hq + h;
+      const size_t qoff = (bh * a.Sq + q0) * a.D;
+      const size_t kvoff = ((size_t(b) * a.Hkv + hk) * a.Sk + k0) * a.D;
+      wg::load_tile<T, BM, DP, NTHR>(
+          tile(st, 0), static_cast<const T*>(a.q) + qoff, q_rows, a.D, vec);
+      wg::load_tile<T, BM, DP, NTHR>(
+          tile(st, 1), static_cast<const T*>(a.dout) + qoff, q_rows, a.D,
+          vec);
+      wg::load_tile<T, BN, DP, NTHR>(
+          tile(st, 2), static_cast<const T*>(a.k) + kvoff, k_rows, a.D, vec);
+      wg::load_tile<T, BN, DP, NTHR>(
+          tile(st, 3), static_cast<const T*>(a.v) + kvoff, k_rows, a.D, vec);
+      float* sts = stats(st);
+      if (tid < BM) {  // a query row's statistics
+        const bool in = tid < q_rows;
+        const size_t i = bh * a.Sq + q0 + tid;
+        cp_async4(sts + tid, in ? a.lse_in + i : a.lse_in, in ? 4 : 0);
+        cp_async4(sts + BM + tid, in ? a.delta + i : a.delta, in ? 4 : 0);
+        if (a.dlse != nullptr)
+          cp_async4(sts + 2 * BM + tid, in ? a.dlse + i : a.dlse,
+                    in ? 4 : 0);
+        if (a.qseg != nullptr) {
+          const int* src = a.qseg + size_t(b) * a.Sq + q0 + tid;
+          cp_async4(sts + 3 * BM + tid, in ? src : a.qseg, in ? 4 : 0);
+        }
+      } else if (a.kseg != nullptr) {  // a key's segment
+        const int key = tid - BM;
+        const bool in = key < k_rows;
+        const int* src = a.kseg + size_t(b) * a.Sk + k0 + key;
+        cp_async4(sts + 4 * BM + key, in ? src : a.kseg, in ? 4 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int t = 0; t < S - 1; ++t) load_step(t);
+
+  for (int r = 0; r < steps; ++r) {
+    cp_async_wait_group<S - 2>();
+    wg::fence_async_smem();
+    __syncthreads();  // step r has landed; step r - 1's stage is free
+    load_step(r + S - 1);
+    const int st = r % S;
+    const int b = bb + (r / rh) * a.Bb, h = hb + (r % rh) * a.Hb;
+
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = 0.f;
+      dp[i] = 0.f;
+    }
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      wg::mma_ss<T, 64, 0, 0>(s, wg::desc_k(tile(st, 0), BM, 0, kk),
+                              wg::desc_k(tile(st, 2), BN, 0, kk), kk > 0);
+      wg::mma_ss<T, 64, 0, 0>(dp, wg::desc_k(tile(st, 1), BM, 0, kk),
+                              wg::desc_k(tile(st, 3), BN, 0, kk), kk > 0);
+    }
+    wg::commit();
+    wg::wait<0>();
+    wg::keep(s);
+    wg::keep(dp);
+
+    const float* sts = stats(st);
+    const int* isg = reinterpret_cast<const int*>(sts);
+    float lse[2], dlt[2], dls[2];
+    int qs[2];
+    uint32_t rk[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int rr = row0 + 8 * hh;
+      lse[hh] = sts[rr];
+      dlt[hh] = sts[BM + rr];
+      dls[hh] = a.dlse != nullptr ? sts[2 * BM + rr] : 0.f;
+      qs[hh] = a.qseg != nullptr ? isg[3 * BM + rr] : 0;
+      rk[hh] = DROP ? drop_row_key(a, b, h, qrow[hh]) : 0u;
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      s[i] = __fadd_rn(__fmul_rn(s[i], a.scale), bias[i]);
+    mask_logits(s, a, isg + 4 * BM, quad, q0, k0, qrow, qs);
+    // dS of the full logit (no trailing ·scale), dP' = keep ? dP·inv : 0
+    // with dropout
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * hh + e;
+          const float pv = expf(s[i] - lse[hh]);
+          float dpv = dp[i];
+          if constexpr (DROP)
+            dpv = drop_keep(a, rk[hh], k0 + 8 * j + 2 * quad + e)
+                      ? __fmul_rn(dpv, a.inv)
+                      : 0.f;
+          acc[i] += pv * (dpv - dlt[hh] + dls[hh]);
+        }
+  }
+  cp_async_wait_all();
+
+  float* dst = a.dbias + (size_t(bb) * a.Hb + hb) * a.Sq * a.Sk;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (qrow[hh] >= a.Sq) continue;
+    float* out = dst + static_cast<long long>(qrow[hh]) * a.Sk + k0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      store_pair(out, 8 * j + 2 * quad, k_rows, acc[4 * j + 2 * hh],
+                 acc[4 * j + 2 * hh + 1], a.Sk % 2 == 0);
+  }
+}
+
 // launch the forward (which == kFwd; the merge epilogue when prev_lse is
-// set), dq or dk/dv for T in {bf16, fp16}
+// set), dq, dk/dv or dbias for T in {bf16, fp16}
 template <typename T, int DP, bool DROP>
 static int launch_wg(int which, const FlashArgs& a, cudaStream_t st) {
   using G = WgGeom<DP>;
-  static bool attr_set[4] = {false, false, false, false};
+  static bool attr_set[5] = {false, false, false, false, false};
   void (*kern)(const FlashArgs);
   size_t smem, most;
   dim3 grid;
@@ -809,12 +1031,18 @@ static int launch_wg(int which, const FlashArgs& a, cudaStream_t st) {
     smem = G::DQ;
     most = G::DQ + G::STAGES * G::F_BIAS;
     grid = dim3((a.Sq + G::BM - 1) / G::BM, a.Hq, a.B);
-  } else {
+  } else if (which == kDkv) {
     kern = flash_dkv_wg_kernel<T, DP, DROP>;
     slot = 2;
     smem = G::DKV;
     most = G::DKV + G::STAGES * G::B_BIAS;
     grid = dim3((a.Sk + G::BK - 1) / G::BK, a.Hkv, a.B);
+  } else {
+    kern = flash_dbias_wg_kernel<T, DP, DROP>;
+    slot = 4;
+    smem = most = G::DB;
+    grid = dim3(((a.Sq + G::BM - 1) / G::BM) * ((a.Sk + G::BN - 1) / G::BN),
+                a.Hb, a.Bb);
   }
   if (a.bias != nullptr) smem = most;
   if (!attr_set[slot]) {

@@ -94,34 +94,6 @@ __device__ __forceinline__ int slot(int c, int i, int nch) {
   return ((i / 4) * nch + c) * 4 + i % 4;
 }
 
-// programmatic dependent launch (Hopper): a kernel launched by
-// `launch_after` may be scheduled while the kernel before it on the
-// stream finishes (once every block of that kernel has called
-// `let_next_start` or ended), and waits in `wait_prior` until its writes
-// are visible: the short column pass does not pay a whole launch
-__device__ __forceinline__ void wait_prior() {
-  asm volatile("griddepcontrol.wait;" ::: "memory");
-}
-
-__device__ __forceinline__ void let_next_start() {
-  asm volatile("griddepcontrol.launch_dependents;");
-}
-
-template <typename... Params, typename... Args>
-cudaError_t launch_after(void (*kern)(Params...), dim3 grid, dim3 block,
-                         cudaStream_t st, Args... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = block;
-  cfg.stream = st;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr.val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kern, args...);
-}
-
 // xhat, w and dx of one element, op for op as the plain version (no
 // contraction into an fma): at H = 1 an RMS row's dx is a cancellation,
 // w - xhat * c1 with xhat^2 near 1, that any other rounding changes

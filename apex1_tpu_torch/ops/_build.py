@@ -54,8 +54,7 @@ SIGNATURES = {
                        _I, _I, _P],
     "apex1_xent_bwd": [_P, _P, _P, _P, _P, _I, _I, _L, _L, _I, _I, _F, _F,
                        _I, _I, _I, _P],
-    "apex1_paged_attend": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                           _I, _F, _I, _I, _P],
+    "apex1_paged_attend": [_P] * 7 + [_I] * 9 + [_F, _I, _I, _P],
     "apex1_fused_sample": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P],
     "apex1_flash_fwd": [_P] * 8 + [_I] * 8 + [_F, _I, _I, _I, _I, _I, _U,
                                               _U, _F, _I, _P],

@@ -17,7 +17,7 @@
   new tokens are written into the pool IN PLACE (`scatter_pages`), so a
   decode step never copies the pool.
 - :func:`paged_attend` — ragged paged attention; CUDA tensors launch
-  ``csrc/paged_attend.cu``.
+  ``csrc/paged_attend.cu``, split over the pages (`paged_geometry`).
 
 Page 0 is the trash page: rows of freed slots point at it, inactive
 rows scatter garbage into it, and nothing attends it.
@@ -376,15 +376,45 @@ def _paged_attend_plain(q, k_pages, v_pages, block_table, lengths,
     return out.to(q.dtype)
 
 
+#: positions a key block of the kernel, the unit a split covers
+PAGED_KEYS = 64
+#: blocks `paged_geometry` aims the grid at: four waves over the H100's
+#: 132 SMs
+PAGED_BLOCKS = 4 * 132
+
+
+def paged_geometry(N: int, Hq: int, Hkv: int, S: int, D: int, P: int,
+                   T: int):
+    """The page split of the kernel: (splits, key blocks a split,
+    workspace floats). The positions 0 .. T·P - 1 make
+    ceil(T·P / `PAGED_KEYS`) key blocks; split i takes key blocks
+    [i·per, (i + 1)·per), so every position lies in exactly one split
+    and no split starts at or past T·P. The count aims the grid
+    (N · Hkv · ceil(G·S / 64) blocks a split: a block takes up to 64
+    query rows on the tensor cores) at `PAGED_BLOCKS`. It depends on
+    the shapes only, never on the lengths: the wrapper reads nothing
+    back, so a decode step stays capturable in a CUDA graph.
+    With more than one split each writes (m, l, D accumulators) a row to
+    an fp32 workspace of N·Hq·S·splits·(D + 2) floats, which a second
+    kernel merges; with one the output is written directly."""
+    nkb = -(-T * P // PAGED_KEYS)
+    base = N * Hkv * -(-(Hq // Hkv) * S // 64)
+    splits = max(1, min(nkb, -(-PAGED_BLOCKS // base)))
+    per = -(-nkb // splits)
+    splits = -(-nkb // per)
+    return splits, per, (0 if splits == 1 else N * Hq * S * splits * (D + 2))
+
+
 def paged_attend(q, k_pages, v_pages, block_table, lengths, *,
                  sm_scale: Optional[float] = None,
                  total_len: Optional[int] = None):
     """Ragged paged attention: (N, Hq, S, D) queries against
     (num_pages, Hkv, page, D) K/V pools through an (N, T) int32 block
     table, row n's query j masked to positions <= ``lengths[n] + j``.
-    Output (N, Hq, S, D) in q's dtype. CUDA tensors launch the kernel
-    (``paged_attend.launches`` counts the launches); CPU tensors gather
-    dense lanes and run :func:`cache_attend`."""
+    Output (N, Hq, S, D) in q's dtype. CUDA tensors launch the kernel,
+    split over the pages by `paged_geometry` (``paged_attend.launches``
+    counts the calls); CPU tensors gather dense lanes and run
+    :func:`cache_attend`."""
     N, Hq, S, D = q.shape
     num_pages, Hkv, P, _ = k_pages.shape
     T = block_table.shape[1]
@@ -413,10 +443,14 @@ def paged_attend(q, k_pages, v_pages, block_table, lengths, *,
     check_cuda("paged_attend", q, k_pages, v_pages, bt, lengths)
     scale = (D ** -0.5) if sm_scale is None else sm_scale
     out = torch.empty_like(q)
+    splits, per, ws_floats = paged_geometry(N, Hq, Hkv, S, D, P, T)
+    ws = (torch.empty(ws_floats, dtype=torch.float32, device=q.device)
+          if ws_floats else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _build.launch("apex1_paged_attend", q.data_ptr(), k_pages.data_ptr(),
                   v_pages.data_ptr(), bt.data_ptr(), lengths.data_ptr(),
-                  out.data_ptr(), N, Hq, Hkv, S, D, P, T, float(scale),
+                  out.data_ptr(), None if ws is None else ws.data_ptr(), N,
+                  Hq, Hkv, S, D, P, T, splits, per, float(scale),
                   DTYPE_CODES[q.dtype], DTYPE_CODES[k_pages.dtype], stream)
     paged_attend.launches += 1
     return out

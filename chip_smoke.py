@@ -17,13 +17,15 @@
                                      # kernels, the chunk product, the
                                      # linear-xent forward and backward,
                                      # int8_mm, glu_fwd, the norm
-                                     # forward, the softmax forward and
-                                     # the norm backward against those of
+                                     # forward, the softmax forward, the
+                                     # norm backward, flash dbias and
+                                     # paged attention against those of
                                      # TREE (a checkout of another
                                      # commit) in turns on the same
                                      # inputs, or only the PARTs given
                                      # (flash, chunk, lxent, int8, glu,
-                                     # norm, softmax, normbwd)
+                                     # norm, softmax, normbwd, dbias,
+                                     # paged)
     python3 chip_smoke.py --gate-sweep [kernels] [plain]
                                      # build, then train bert_large at
                                      # O2 for GATE_STEPS steps at each
@@ -60,7 +62,9 @@ Phases, each printed on its own line; a failure in any exits non-zero:
    apart. The
    Llama slice's shapes: the RMS norm forward and backward at (8192,
    4096); flash at GQA 32/8, head_dim 128, S = 4096, causal and packed;
-   paged attention at 32/8 heads, head_dim 128; the linear-xent kernels
+   paged attention at 32/8 heads, head_dim 128 (decode steps, chunks of
+   64 and the engine's own prefill chunk of 16, each also for the same
+   bits twice); the linear-xent kernels
    at the Llama head (8190 x 4096 against 32000 x 4096) in bf16 and
    fp16, a smoothed shard and a ragged f32 case (fp32's wide path, H >
    768), dx and dW also together (one G a vocab chunk for both) with
@@ -540,67 +544,104 @@ def check_layer_norm(torch, ops, gen):
     return results
 
 
-def check_paged_attend(torch, ops, gen):
-    from apex1_tpu_torch.ops.paged_decode import paged_attend
-    N, P, T = 8, 64, 17          # the engine's pages: 1087 / 64
-    n_pages = 1 + (8 + 32) * T
-    results = []
-    # GPT-2's heads (D = 64), and the Llama serving path's GQA 32/8 at
-    # D = 128 (decode steps and prefill chunks)
-    cases = [(12, 12, 1, "float32", 64), (12, 12, 1, "bfloat16", 64),
-             (12, 12, 1, "int8", 64), (12, 12, 64, "float32", 64),
-             (12, 12, 64, "bfloat16", 64), (12, 12, 64, "int8", 64),
-             (12, 4, 1, "bfloat16", 64), (LHEADS, LKV, 1, "bfloat16", LD),
-             (LHEADS, LKV, 64, "bfloat16", LD)]
+#: paged attention's cases (TPU row 21): (case, N, Hq, Hkv, S, page
+#: dtype, D, P, T). The engine phase's pages (P 64, T 17: 1087 / 64 slots a
+#: row, 8 rows): GPT-2's heads (D 64) and the Llama serving path's GQA
+#: 32/8 at D 128, decode steps (S 1) and prefill chunks of 64; and the
+#: engine's own prefill chunk (`EngineConfig`'s default prefill_chunk 16,
+#: hence pages of 16; one row, 1024 positions), GPT-2's and 32/8 heads
+PAGED_CASES = [
+    ("decode", 8, THEADS, THEADS, 1, "float32", 64, 64, 17),
+    ("decode", 8, THEADS, THEADS, 1, "bfloat16", 64, 64, 17),
+    ("decode", 8, THEADS, THEADS, 1, "int8", 64, 64, 17),
+    ("chunk", 8, THEADS, THEADS, 64, "float32", 64, 64, 17),
+    ("chunk", 8, THEADS, THEADS, 64, "bfloat16", 64, 64, 17),
+    ("chunk", 8, THEADS, THEADS, 64, "int8", 64, 64, 17),
+    ("decode, GQA 12/4", 8, THEADS, 4, 1, "bfloat16", 64, 64, 17),
+    ("decode", 8, LHEADS, LKV, 1, "bfloat16", LD, 64, 17),
+    ("chunk", 8, LHEADS, LKV, 64, "bfloat16", LD, 64, 17),
+    ("engine prefill chunk", 1, THEADS, THEADS, 16, "bfloat16", 64, 16, 64),
+    ("engine prefill chunk", 1, LHEADS, LKV, 16, "bfloat16", LD, 16, 64),
+]
+
+
+def paged_inputs(torch, gen, N, hq, hkv, S, pdt, D, P, T):
+    """q, the K and V pools, the block table and the lengths of a
+    `PAGED_CASES` case on the card: each row's T pages drawn from a pool
+    of 1 + (N + 32)·T (page 0 the trash page), lengths 32 .. T·P - S - 2.
+    int8 pages hold K at 30x scale and q comes at 1/30 in bf16: the
+    scores keep unit spread, so the softmax folds over many positions
+    across pages."""
+    n_pages = 1 + (N + 32) * T
     perm = torch.randperm(n_pages - 1, generator=gen)[:N * T] + 1
     bt = perm.reshape(N, T).to(torch.int32).cuda()
-    for hq, hkv, S, pdt, D in cases:
-        lens = torch.randint(32, T * P - S - 1, (N,), generator=gen)
-        raw = torch.randn(2, n_pages, hkv, P, D, generator=gen)
-        q = torch.randn(N, hq, S, D, generator=gen)
-        if pdt == "int8":
-            # K at 30x scale, q at 1/30: the scores keep unit spread, so
-            # the softmax folds over many positions across pages
-            kv = (raw * 30).round().clamp(-127, 127).to(torch.int8).cuda()
-            q, q_dt = q / 30, torch.bfloat16
-        else:
-            kv = raw.to(getattr(torch, pdt)).cuda()
-            q_dt = getattr(torch, pdt)
-        q = q.to(q_dt).cuda()
-        k, v = kv[0].contiguous(), kv[1].contiguous()
-        L = lens.to(torch.int32).cuda()
+    lens = torch.randint(32, T * P - S - 1, (N,), generator=gen)
+    raw = torch.randn(2, n_pages, hkv, P, D, generator=gen)
+    q = torch.randn(N, hq, S, D, generator=gen)
+    if pdt == "int8":
+        kv = (raw * 30).round().clamp(-127, 127).to(torch.int8).cuda()
+        q, q_dt = q / 30, torch.bfloat16
+    else:
+        kv = raw.to(getattr(torch, pdt)).cuda()
+        q_dt = getattr(torch, pdt)
+    return (q.to(q_dt).cuda(), kv[0].contiguous(), kv[1].contiguous(), bt,
+            lens.to(torch.int32).cuda())
+
+
+def paged_bound(torch, q, k, bt, L):
+    """The least time for a paged attention call: bytes, q and out once,
+    K and V up to each row's horizon (len + S positions), the block
+    table and lengths; ops, QK and PV, 2 flops each per (query row,
+    visible position, d), where chunk query j sees len + j + 1
+    positions. The products are bf16 x bf16 (int8 pages convert to bf16
+    exactly) on the tensor cores, or fp32 x fp32 off them (TF32 is off).
+    Returns (ms, "bytes" or "operations")."""
+    N, hq, S, D = q.shape
+    hkv = k.shape[1]
+    lens = L.cpu().long()
+    seen = (lens + S).sum().item()
+    nbytes = (2 * q.numel() * q.element_size()
+              + 2 * seen * hkv * D * k.element_size() + bt.numel() * 4
+              + N * 4)
+    visible = (S * lens + S * (S + 1) // 2).sum().item()
+    return bound_ms(nbytes, 4 * hq * visible * D,
+                    F32_OPS_PER_S if q.dtype == torch.float32
+                    else BF16_OPS_PER_S)
+
+
+def check_paged_attend(torch, ops, gen):
+    """Kernel 21 against its plain version at every `PAGED_CASES` case,
+    within the output dtype's tolerance, and the same bits on a second
+    launch (the page split's runs are merged in a fixed order)."""
+    from apex1_tpu_torch.ops.paged_decode import paged_attend, paged_geometry
+    results = []
+    for case, N, hq, hkv, S, pdt, D, P, T in PAGED_CASES:
+        q, k, v, bt, L = paged_inputs(torch, gen, N, hq, hkv, S, pdt, D, P,
+                                      T)
 
         def run():
             return paged_attend(q, k, v, bt, L, total_len=T * P)
 
         got = run()
+        same = torch.equal(run(), got)
         with ops.force_impl("torch"):
             want = run()
         torch.cuda.synchronize()
-        tol = TOLS[str(q_dt)[6:]]
+        tol = TOLS[str(q.dtype)[6:]]
         abs_e, worst = max_errs(got, want, *tol)
         ms = graph_ms(run, iters=20)
         with ops.force_impl("torch"):
             plain = graph_ms(run, iters=5)
-        # bytes: q and out once, K and V up to each row's horizon
-        # (len + S positions), the block table and lengths; ops: QK and
-        # PV, 2 flops each per (query row, visible position, d), where
-        # chunk query j sees len + j + 1 positions. The products are
-        # bf16 x bf16 (int8 pages convert to bf16 exactly) on the tensor
-        # cores, or fp32 x fp32 off them (TF32 is off)
-        seen = (lens + S).sum().item()
-        kv_bytes = 2 * seen * hkv * D * k.element_size()
-        nbytes = (2 * q.numel() * q.element_size() + kv_bytes
-                  + bt.numel() * 4 + N * 4)
-        visible = (S * lens + S * (S + 1) // 2).sum().item()
-        flops = 4 * hq * visible * D
-        bnd, by = bound_ms(nbytes, flops, F32_OPS_PER_S
-                           if q_dt == torch.float32 else BF16_OPS_PER_S)
+        bnd, by = paged_bound(torch, q, k, bt, L)
+        splits = paged_geometry(N, hq, hkv, S, D, P, T)[0]
         results.append(dict(
-            case=f"N={N} Hq={hq} Hkv={hkv} S={S} D={D} P={P} {pdt} pages",
+            case=f"{case} N={N} Hq={hq} Hkv={hkv} S={S} D={D} P={P} T={T} "
+                 f"{pdt} pages, {splits} splits",
             abs=abs_e, worst=worst, tol=tol, ms=ms, plain_ms=plain,
-            library_ms=None, bound_ms=bnd, bound_by=by,
+            library_ms=None, bound_ms=bnd, bound_by=by, same_bits=same,
             main=(S == 1 and pdt == "bfloat16" and hq == hkv == THEADS)))
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
     return results
 
 
@@ -2247,14 +2288,16 @@ def kernels_of(lib):
         _build._STATE["lib"] = prev
 
 
-def ab_ms(fn, other):
+def ab_ms(fn, other, timer=None):
     """Device ms of ``fn`` through ``other``'s kernels and this tree's,
-    timed in turns (other, this, this, other; CUDA events around 10
-    calls each): (other's, this tree's), each the smaller of its two."""
+    timed in turns (other, this, this, other; by ``timer``, CUDA events
+    around 10 calls each by default): (other's, this tree's), each the
+    smaller of its two."""
+    timer = timer or event_ms
     times = {"other": [], "this": []}
     for who in ("other", "this", "this", "other"):
         with kernels_of(other if who == "other" else None):
-            times[who].append(event_ms(fn))
+            times[who].append(timer(fn))
     return min(times["other"]), min(times["this"])
 
 
@@ -2663,9 +2706,91 @@ def compare_norm_bwd(torch, other):
     return rows
 
 
+#: `--compare`'s dbias cases (TPU row 6): every bias case of
+#: `FLASH_CASES` but the fp32 one, in bf16
+COMPARE_DBIAS = ("T5 encoder, rel-pos bias",
+                 "T5 decoder, rel-pos bias, causal",
+                 "key-padding mask, -1e4 and NEG_INF",
+                 "T5 bias, padding segments", "T5 bias, dropout",
+                 "bias (B, Hq), GQA 12/4, ragged, dlse")
+
+
+def compare_dbias(torch, other):
+    """``--compare``'s dbias rows (TPU row 6): `COMPARE_DBIAS`'s cases in
+    bf16 through ``other``'s kernels (the entry point's C signature is
+    unchanged, so this tree's wrapper launches either) and this tree's,
+    in turns on the same inputs (`ab_ms`: CUDA events for T5's shapes,
+    graph replays for the small ragged one), with the library's SDPA
+    backward with the mask taking a gradient (`sdpa_bias_ms`). Returns
+    the rows."""
+    from apex1_tpu_torch.ops.attention import flash_dbias, flash_fwd
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    for entry in FLASH_CASES:
+        if entry[0] not in COMPARE_DBIAS:
+            continue
+        entry = entry[:6] + ("bfloat16",) + entry[7:]
+        (D, _, p, _, q, k, v, do, dlse, qseg, kseg, args, bias,
+         kw) = flash_case(torch, entry, gen)
+        out, lse = flash_fwd(q, k, v, *args, **kw)
+        delta = (do.float() * out.float()).sum(-1)
+        bwd = (q, k, v, do, lse, delta, dlse, *args)
+        big = q.numel() >= 1 << 22
+        was, now = ab_ms(lambda: flash_dbias(*bwd, **kw), other,
+                         None if big else graph_ms)
+        lib = sdpa_bias_ms(torch, q, k, v, bias, qseg, kseg, entry[7], p,
+                           do)[2]
+        rows.append(dict(kernel="flash_dbias",
+                         case=f"{entry[0]} B={entry[1]} Hq={entry[2]} "
+                              f"Sq={entry[4]} Sk={entry[5]} D={D} bf16 "
+                              f"bias {tuple(bias.shape)}",
+                         other_ms=was, ms=now, speedup=was / now,
+                         library_ms=lib))
+        del q, k, v, do, out, lse, delta, bwd, bias, kw
+        torch.cuda.empty_cache()
+    return rows
+
+
+def compare_paged(torch, other):
+    """``--compare``'s paged attention rows (TPU row 21): every
+    `PAGED_CASES` case through ``other``, TREE's own ``paged_decode``
+    bound to its own library (`tree_ops`: the entry point's C signature
+    changed with the page split), and this tree's, in turns on the same
+    inputs (`ab2_ms`, CUDA-graph replays), with the plain version's time.
+    Returns the rows, each with the K/V GB/s it reads and its bound
+    (`paged_bound`)."""
+    from apex1_tpu_torch.ops import force_impl
+    from apex1_tpu_torch.ops.paged_decode import paged_attend, paged_geometry
+    gen = torch.Generator().manual_seed(SEED)
+    rows = []
+    for case, N, hq, hkv, S, pdt, D, P, T in PAGED_CASES:
+        q, k, v, bt, L = paged_inputs(torch, gen, N, hq, hkv, S, pdt, D, P,
+                                      T)
+        was, now = ab2_ms(
+            lambda: other.paged_attend(q, k, v, bt, L, total_len=T * P),
+            lambda: paged_attend(q, k, v, bt, L, total_len=T * P), graph_ms)
+        with force_impl("torch"):
+            plain = graph_ms(
+                lambda: paged_attend(q, k, v, bt, L, total_len=T * P),
+                iters=5)
+        seen = (L.cpu().long() + S).sum().item()
+        kv_bytes = 2 * seen * hkv * D * k.element_size()
+        splits = paged_geometry(N, hq, hkv, S, D, P, T)[0]
+        bnd, by = paged_bound(torch, q, k, bt, L)
+        rows.append(dict(kernel="paged_attend",
+                         case=f"{case} N={N} Hq={hq} Hkv={hkv} S={S} D={D} "
+                              f"P={P} T={T} {pdt} pages, {splits} splits, "
+                              f"{kv_bytes / now / 1e6:.0f} GB/s of K/V",
+                         other_ms=was, ms=now, speedup=was / now,
+                         plain_ms=plain, bound_ms=bnd, bound_by=by))
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
 #: `--compare`'s parts; the names after TREE pick some of them, none: all
 COMPARE_PARTS = ("flash", "chunk", "lxent", "int8", "glu", "norm",
-                 "softmax", "normbwd")
+                 "softmax", "normbwd", "dbias", "paged")
 
 
 def compare_flash(torch, ops, card, tree: str, parts=COMPARE_PARTS) -> int:
@@ -2679,16 +2804,19 @@ def compare_flash(torch, ops, card, tree: str, parts=COMPARE_PARTS) -> int:
     (`compare_glu`), the norm forward (`compare_norm`), the softmax
     forward (`compare_softmax`) and the norm backward
     (`compare_norm_bwd`), each through TREE's own wrappers and library
-    (`tree_ops`) and this tree's
-    (`ab2_ms`); ``parts`` (`COMPARE_PARTS`) picks which. Prints a line
+    (`tree_ops`) and this tree's (`ab2_ms`), dbias (`compare_dbias`, TREE's
+    kernels under this tree's wrapper) and paged attention
+    (`compare_paged`, TREE's own wrapper); ``parts`` (`COMPARE_PARTS`)
+    picks which. Prints a line
     per kernel and case and writes ``chiprun_out/compare.json``."""
     from apex1_tpu_torch.ops.attention import (flash_dkv, flash_dq,
                                                flash_fwd, flash_fwd_merge)
     from apex1_tpu_torch.ops.fused_collective import chunk_matmul, chunk_tile
     other, secs = other_library(tree)
-    other_lx, other_fc, other_q, other_fd, other_ln, other_sm = tree_ops(
-        tree, "linear_xent.py", "fused_collective.py", "quantized.py",
-        "fused_dense.py", "layer_norm.py", "softmax.py")
+    (other_lx, other_fc, other_q, other_fd, other_ln, other_sm,
+     other_pd) = tree_ops(tree, "linear_xent.py", "fused_collective.py",
+                          "quantized.py", "fused_dense.py", "layer_norm.py",
+                          "softmax.py", "paged_decode.py")
     print(f"phase compare: built {tree} in {secs:.1f} s [{card}]")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
@@ -2745,12 +2873,18 @@ def compare_flash(torch, ops, card, tree: str, parts=COMPARE_PARTS) -> int:
                      ("glu", lambda: compare_glu(torch, other_fd)),
                      ("norm", lambda: compare_norm(torch, other_ln)),
                      ("softmax", lambda: compare_softmax(torch, other_sm)),
-                     ("normbwd", lambda: compare_norm_bwd(torch, other_ln))):
+                     ("normbwd", lambda: compare_norm_bwd(torch, other_ln)),
+                     ("dbias", lambda: compare_dbias(torch, other)),
+                     ("paged", lambda: compare_paged(torch, other_pd))):
         if part in parts:
             rows += fn()
     for r in (r for r in rows if "other_ms" in r):
-        lib = ("" if "library_ms" not in r
+        lib = ("" if r.get("library_ms") is None
                else f" library ms={r['library_ms']:.4f}")
+        if "plain_ms" in r:
+            lib += f" plain ms={r['plain_ms']:.4f}"
+        if "bound_ms" in r:
+            lib += f" bound ms={r['bound_ms']:.4f} ({r['bound_by']})"
         was = ("raises" if r["other_ms"] is None else
                f"ms={r['other_ms']:.4f}")
         speedup = ("" if r["speedup"] is None
@@ -5725,7 +5859,7 @@ def main() -> int:
                             "apex1_tpu/ops/attention.py:689"),
                "flash_dkv": ("apex1_tpu_torch/csrc/flash_wg.cuh",
                              "apex1_tpu/ops/attention.py:717"),
-               "flash_dbias": ("apex1_tpu_torch/csrc/flash_attn.cu",
+               "flash_dbias": ("apex1_tpu_torch/csrc/flash_wg.cuh",
                                "apex1_tpu/ops/attention.py:780"),
                "lxent_fwd": ("apex1_tpu_torch/csrc/linear_xent_fwd.cu",
                              "apex1_tpu/ops/linear_xent.py:384, :286, "

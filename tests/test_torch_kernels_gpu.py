@@ -9,10 +9,12 @@ Tolerances: layer norm f32 1e-5 and bf16 1e-2 (one bf16 rounding); the
 norm forward at its paths' H edges (1 to 4104, a misaligned x) as the
 training kernels below, half γ/β handed to the kernel as they are (no
 cast launch).
-Paged attention (an online softmax across pages against one softmax
-over the gathered lane), per element, |got - want| <= rtol * |want| +
-atol * rms(want): f32 rtol 1e-5, atol 1e-4; bf16 rtol 2^-7 (one bf16
-ulp), atol 3e-2 (the plain version rounds the probabilities to bf16).
+Paged attention (an online softmax across pages, split over them and
+merged, against one softmax over the gathered lane), per element,
+|got - want| <= rtol * |want| + atol * rms(want): f32 rtol 1e-5, atol
+1e-4; bf16 rtol 2^-7 (one bf16 ulp), atol 3e-2, fp16 2^-10 and 1e-2 (the
+plain version rounds the probabilities to q's type, the kernel's tensor
+cores its unnormalized ones); the same bits on a second launch.
 Sampled token ids exactly (the kernel's gumbel noise equals torch.log's
 on the card). The training kernels (layer norm backward, softmax
 forward and backward, cross-entropy forward and backward) per element
@@ -45,8 +47,9 @@ mask witness whose zero pattern must equal the plain version's mask
 exactly. The flash kernels with an additive bias (broadcast over batch,
 heads or both, NEG_INF entries, segments, offsets, dropout) as without
 it, and dbias (an fp32 sum over the broadcast (b, h)) at f32 tolerance
-with the same bits on a second launch; flash_attention launches dbias
-only for a bias that takes a gradient. The int8 matmul and the LoRA
+with the same bits on a second launch, also at the bf16/fp16 wgmma
+kernel's edges (ragged tiles, every broadcast form, sweeps of 1 to 16);
+flash_attention launches dbias only for a bias that takes a gradient. The int8 matmul and the LoRA
 delta (exact products, or fp32 ones, summed in fp32 in another order
 than the plain version's) per element within 3u·|want| + 1e-5·Σ|a||b|
 (u = 2^-24, Σ|a||b| the plain function on the absolute operands), the
@@ -96,15 +99,45 @@ def test_layer_norm_kernel_matches_plain(cuda, dtype, rms):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("hkv", [12, 4], ids=["mha", "gqa3"])
-@pytest.mark.parametrize("s", [1, 5])
-@pytest.mark.parametrize("page_dtype", ["float32", "bfloat16", "int8"])
-def test_paged_attend_kernel_matches_plain(cuda, page_dtype, s, hkv):
+#: (rtol, atol) per dtype for |got - want| <= rtol * |want| + atol *
+#: rms(want): f32 sums in another order; half one rounding of the output
+#: (bf16 2^-7, fp16 2^-10 relative) on top of that
+_TOLS = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2.0 ** -7, 3e-2),
+         torch.float16: (2.0 ** -10, 1e-2)}
+
+
+#: paged attention's head layouts: (Hq, Hkv, D); "odd_d" has 40- and
+#: 80-byte rows (no 16-byte copies); "d256" the CUDA cores at D 256, one
+#: key block in the ring for fp32 pages (two do not fit)
+_PAGED_HEADS = {"mha": (12, 12, 64), "gqa3_d128": (12, 4, 128),
+                "gqa4_d128": (32, 8, 128), "odd_d": (4, 2, 20),
+                "d256": (4, 2, 256)}
+#: paged attention's page geometries: (N, P, T). p16: two splits that
+#: end on a page edge; p48: four that end inside pages (and the last on
+#: an edge); n1: one row (its length T·P - S) over p48's pages; n64: 64
+#: rows, one split (the kernel writes the output itself)
+_PAGED_GEOM = {"p16": (4, 16, 6), "p48": (4, 48, 5), "n1": (1, 48, 5),
+               "n64": (64, 16, 8)}
+
+
+@pytest.mark.parametrize("geom", list(_PAGED_GEOM))
+@pytest.mark.parametrize("heads", list(_PAGED_HEADS))
+@pytest.mark.parametrize("s", [1, 5, 16, 64])
+@pytest.mark.parametrize("page_dtype",
+                         ["float32", "bfloat16", "float16", "int8"])
+def test_paged_attend_kernel_matches_plain(cuda, page_dtype, s, heads,
+                                           geom):
+    """Every row length kind: 0 (the horizon inside the first split
+    only), a page's end and start, T·P - S (the last position), the rest
+    drawn; the page split's runs on and off page edges; decode (the CUDA
+    cores) and chunk rows (the tensor cores for half q); the same bits on
+    a second launch."""
+    hq, hkv, D = _PAGED_HEADS[heads]
+    N, P, T = _PAGED_GEOM[geom]
     rng = np.random.default_rng(6)
-    N, P, T, D = 4, 16, 6, 64
     n_pages = 1 + N * T
     raw = rng.standard_normal((2, n_pages, hkv, P, D))
-    q = rng.standard_normal((N, 12, s, D))
+    q = rng.standard_normal((N, hq, s, D))
     if page_dtype == "int8":
         # K at 30x scale, q at 1/30: unit-spread scores, so the softmax
         # folds over many positions across pages
@@ -117,16 +150,19 @@ def test_paged_attend_kernel_matches_plain(cuda, page_dtype, s, hkv):
     q = torch.from_numpy(q).to(cuda, q_dt)
     bt = torch.from_numpy(rng.permutation(np.arange(1, n_pages))
                           .reshape(N, T).astype(np.int32)).to(cuda)
-    lens = torch.tensor([0, 15, 16, T * P - s], dtype=torch.int32,
-                        device=cuda)
+    lens = np.concatenate([[T * P - s, 0, P - 1, P][:N],
+                           rng.integers(0, T * P - s + 1, max(N - 4, 0))])
+    lens = torch.from_numpy(lens.astype(np.int32)).to(cuda)
     k, v = kv[0].contiguous(), kv[1].contiguous()
     got, want = _both(lambda: tpd.paged_attend(q, k, v, bt, lens,
                                                total_len=T * P))
     assert got.dtype == q.dtype and got.shape == q.shape
     rms = want.float().pow(2).mean().sqrt().item()
-    rtol, atol = (1e-5, 1e-4) if q_dt == torch.float32 else (2.0 ** -7, 3e-2)
+    rtol, atol = _TOLS[q_dt]
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=atol * rms)
+    assert torch.equal(tpd.paged_attend(q, k, v, bt, lens,
+                                        total_len=T * P), got)
 
 
 @pytest.mark.parametrize("top_k", [None, 40])
@@ -158,13 +194,6 @@ def test_wrappers_count_launches(cuda):
 
 
 # ---- the training slice's kernels ---------------------------------------
-
-#: (rtol, atol) per dtype for |got - want| <= rtol * |want| + atol *
-#: rms(want): f32 sums in another order; half one rounding of the output
-#: (bf16 2^-7, fp16 2^-10 relative) on top of that
-_TOLS = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2.0 ** -7, 3e-2),
-         torch.float16: (2.0 ** -10, 1e-2)}
-
 
 def _close(got, want, dtype):
     rtol, atol = _TOLS[dtype]
@@ -543,8 +572,9 @@ _FLASH = {
 }
 
 
-def _flash_inputs(name, dt, cuda):
-    B, Hq, Hkv, Sq, Sk, D, causal, seg, q_off, k_off, dl = _FLASH[name]
+def _flash_inputs(name, dt, cuda, cases=None):
+    B, Hq, Hkv, Sq, Sk, D, causal, seg, q_off, k_off, dl = (
+        (cases or _FLASH)[name][:11])
     rng = np.random.default_rng(12)
 
     def t(*shape):
@@ -1143,6 +1173,61 @@ def test_flash_bias_kernels_match_plain(cuda, dtype, name):
     assert torch.equal(flash_dq(*bwd, bias=bias), dq)
     dk2, dv2 = flash_dkv(*bwd, bias=bias)
     assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
+
+
+#: dbias at the wgmma kernel's edges: name -> `_FLASH`'s fields, then
+#: the bias's (Bb, Hb) ("B"/"H" the full dimension) and the dropout p.
+#: Sq, Sk off the 64-row tiles; every broadcast form, so sweeps of
+#: B·Hq (1, 1) down to 1 (B, Hq); causal with offsets; segments; dlse; D
+#: 32 (no 16-byte copies), 64 and 128; a sweep of 16
+_DBIAS = {
+    "ragged_shared": (2, 4, 2, 300, 333, 64, False, None, 0, 0, False,
+                      (1, 1), 0.0),
+    "ragged_heads_offsets": (2, 4, 2, 300, 333, 64, True, None, 16, 48,
+                             True, (1, "H"), 0.0),
+    "ragged_batch_segments": (2, 4, 4, 300, 333, 64, False, "pair", 0, 0,
+                              False, ("B", 1), 0.0),
+    "ragged_full_dropout": (2, 4, 2, 300, 333, 64, True, None, 0, 0, True,
+                            ("B", "H"), 0.1),
+    "d128_heads_causal": (2, 4, 4, 200, 200, 128, True, None, 0, 0, False,
+                          (1, "H"), 0.0),
+    "d128_full_segments_dropout": (1, 2, 2, 130, 190, 128, False, "pair",
+                                   0, 0, True, ("B", "H"), 0.1),
+    "d32_shared": (2, 2, 1, 70, 90, 32, False, None, 0, 0, False, (1, 1),
+                   0.0),
+    "sweep16_dropout_dlse": (4, 4, 4, 128, 128, 64, True, None, 0, 0, True,
+                             (1, 1), 0.1),
+}
+
+
+@pytest.mark.parametrize("name", list(_DBIAS))
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_flash_dbias_wgmma_edges(cuda, dtype, name):
+    """dbias (the bf16/fp16 wgmma kernel) against its plain version at
+    its tiles' and sweep's edges, from the plain forward's lse; the same
+    bits on a second launch."""
+    from apex1_tpu_torch.ops.attention import flash_dbias, flash_fwd
+    dt = getattr(torch, dtype)
+    B, Hq, _, Sq, Sk = _DBIAS[name][:5]
+    bb, hb = _DBIAS[name][11]
+    p = _DBIAS[name][12]
+    q, k, v, do, dlse, qseg, kseg, args = _flash_inputs(name, dt, cuda,
+                                                        _DBIAS)
+    args = args + ((p, 99) if p else ())
+    rng = np.random.default_rng(22)
+    bias = rng.standard_normal((B if bb == "B" else 1, Hq if hb == "H" else 1,
+                                Sq, Sk)).astype(np.float32)
+    bias[..., :, 3] = -1e30
+    bias[..., :, 5] = -10000.0
+    bias = torch.from_numpy(bias).to(cuda)
+    with force_impl("torch"):
+        out, lse = flash_fwd(q, k, v, qseg, kseg, *args, bias=bias)
+    delta = (do.float() * out.float()).sum(-1)
+    bwd = (q, k, v, do, lse, delta, dlse, qseg, kseg, *args)
+    db, wdb = _both(lambda: flash_dbias(*bwd, bias=bias))
+    assert db.shape == bias.shape and db.dtype == torch.float32
+    _close(db, wdb, torch.float32)
+    assert torch.equal(flash_dbias(*bwd, bias=bias), db)
 
 
 def test_flash_attention_launches_dbias_only_for_a_trained_bias(cuda):
