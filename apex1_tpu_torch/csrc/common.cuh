@@ -56,11 +56,13 @@ __device__ __forceinline__ void let_next_start() {
 }
 
 template <typename... Params, typename... Args>
-cudaError_t launch_after(void (*kern)(Params...), dim3 grid, dim3 block,
-                         cudaStream_t st, Args... args) {
+cudaError_t launch_after_smem(void (*kern)(Params...), dim3 grid,
+                              dim3 block, size_t smem, cudaStream_t st,
+                              Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
@@ -68,6 +70,12 @@ cudaError_t launch_after(void (*kern)(Params...), dim3 grid, dim3 block,
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, kern, args...);
+}
+
+template <typename... Params, typename... Args>
+cudaError_t launch_after(void (*kern)(Params...), dim3 grid, dim3 block,
+                         cudaStream_t st, Args... args) {
+  return launch_after_smem(kern, grid, block, 0, st, args...);
 }
 
 static inline cudaStream_t as_stream(void* s) {

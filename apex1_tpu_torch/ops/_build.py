@@ -55,7 +55,7 @@ SIGNATURES = {
     "apex1_xent_bwd": [_P, _P, _P, _P, _P, _I, _I, _L, _L, _I, _I, _F, _F,
                        _I, _I, _I, _P],
     "apex1_paged_attend": [_P] * 7 + [_I] * 9 + [_F, _I, _I, _P],
-    "apex1_fused_sample": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P],
+    "apex1_fused_sample": [_P] * 6 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
     "apex1_flash_fwd": [_P] * 8 + [_I] * 8 + [_F, _I, _I, _I, _I, _I, _U,
                                               _U, _F, _I, _P],
     "apex1_flash_dq": [_P] * 11 + [_I] * 8 + [_F, _I, _I, _I, _I, _I, _U,
@@ -90,7 +90,7 @@ SIGNATURES = {
     "apex1_bda_bwd": [_P, _P, _P, _P, _L, _I, _I, _I, _U, _U, _F, _I, _I,
                       _P],
     "apex1_int8_mm": [_P] * 6 + [_I] * 8 + [_P],
-    "apex1_lora_delta": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "apex1_lora_delta": [_P] * 6 + [_I] * 8 + [_P],
     "apex1_chunk_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "apex1_chunk_matmul_tile": [_I, _I, _I],
 }

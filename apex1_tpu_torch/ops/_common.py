@@ -72,6 +72,18 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+_SMS: dict = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The SM count of a CUDA ``device``, read once: grids that split
+    their work to fill the card size themselves by it."""
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device]
+
+
 def check_cuda(name: str, *tensors: Optional[torch.Tensor]) -> None:
     """Shared wrapper checks: every operand on one CUDA device and
     contiguous (the kernels index raw pointers with dense strides)."""

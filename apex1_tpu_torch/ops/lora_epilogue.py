@@ -12,10 +12,12 @@ row. The delta is
 added to the base head's logits as an epilogue (`serving.engine`).
 Page 0 is the zero page, so a row with no adapter gets exactly 0.0.
 
-CUDA tensors launch ``csrc/lora_delta.cu`` (TPU row 23): a block owns a
-row, so a row's result depends on that row's operands alone and a
-mixed-tenant batch equals each row run alone, bit for bit. CPU tensors
-take the plain version, the JAX package's ``_lora_delta_ref``.
+CUDA tensors launch ``csrc/lora_delta.cu`` (TPU row 23): the (N, R)
+coefficients once, a warp each, then B streamed by blocks of
+`LORA_TILE` columns (`lora_tiles`) of one row or a few (`lora_rows`);
+a row's result depends on that row's operands alone, so a mixed-tenant
+batch equals each row run alone, bit for bit. CPU tensors take the plain version, the JAX
+package's ``_lora_delta_ref``.
 """
 
 from __future__ import annotations
@@ -23,20 +25,47 @@ from __future__ import annotations
 import torch
 
 from apex1_tpu_torch.ops import _build
-from apex1_tpu_torch.ops._common import DTYPE_CODES, check_cuda, use_kernel
+from apex1_tpu_torch.ops._common import (DTYPE_CODES, check_cuda, sm_count,
+                                         use_kernel)
 
 #: shared memory a block of the kernel may use (H100: 227 KB)
 _SMEM_LIMIT = 232448
 _H_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+#: vocab columns a block of the stream kernel takes: a float4 for each of
+#: its 128 threads
+LORA_TILE = 512
+#: rows a block of the stream kernel takes at most, and the blocks an SM
+#: its grid keeps before it groups rows
+LORA_MAX_ROWS, LORA_BLOCKS_PER_SM = 8, 4
+
+
+def lora_tiles(vocab: int) -> int:
+    """The stream kernel's vocab tiles a row: tile i takes the columns
+    [i·`LORA_TILE`, min(vocab, (i + 1)·`LORA_TILE`)), so every column
+    lies in one tile and none is empty."""
+    return -(-vocab // LORA_TILE)
+
+
+def lora_rows(n: int, vocab: int, rank: int, sms: int) -> int:
+    """Rows a block of the stream kernel takes, one after another: as
+    many as keep its (tiles, ceil(n / rows)) grid at `LORA_BLOCKS_PER_SM`
+    blocks on each of the ``sms`` SMs or more, at most `LORA_MAX_ROWS`
+    and within the block's shared memory (8·rank bytes a row). A block
+    reads B once for a run of its rows that name the same pages (a
+    verify step's K + 1 rows of a slot), where each row would otherwise
+    read it again through L2."""
+    rows = n * lora_tiles(vocab) // (LORA_BLOCKS_PER_SM * sms)
+    return max(1, min(rows, LORA_MAX_ROWS, _SMEM_LIMIT // (8 * rank)))
 
 
 def check_lora_geometry(rank: int, hidden: int, vocab: int) -> int:
     """Validate the LoRA epilogue's geometry loudly: ``rank >= 1`` and
-    the block's shared memory (the rank's coefficients and page ids)
-    within the card's limit; returns those bytes. The JAX package prices
-    its VMEM tile through ``vmem_model``; the port has no budget model
-    yet (ROADMAP.md queue A item 11), so this checks the one resource
-    the CUDA block's size depends on."""
+    the shared memory of a row of the stream kernel's block (the rank's
+    coefficients and page ids) within the card's limit; returns those
+    bytes (a block takes `lora_rows` rows). The JAX package prices its
+    VMEM tile through ``vmem_model``; the port has no budget model yet
+    (ROADMAP.md queue A item 11), so this checks the one resource the
+    CUDA block's size depends on."""
     if rank < 1:
         raise ValueError(f"lora_epilogue: rank={rank} must be >= 1")
     if hidden < 1 or vocab < 1:
@@ -85,11 +114,16 @@ def lora_delta(h: torch.Tensor, a_pages: torch.Tensor, b_pages: torch.Tensor,
     a_pages, b_pages = a_pages.contiguous(), b_pages.contiguous()
     check_cuda("lora_delta", h, a_pages, b_pages, bt)
     out = torch.empty(N, V, dtype=torch.float32, device=h.device)
+    coef = torch.empty(N, R, dtype=torch.float32, device=h.device)
+    hvec = (H % 8 == 0 and h.data_ptr() % 16 == 0
+            and a_pages.data_ptr() % 16 == 0)
     vec4 = V % 4 == 0 and b_pages.data_ptr() % 16 == 0
+    rows = lora_rows(N, V, R, sm_count(h.device))
     stream = torch.cuda.current_stream(h.device).cuda_stream
     _build.launch("apex1_lora_delta", h.data_ptr(), a_pages.data_ptr(),
-                  b_pages.data_ptr(), bt.data_ptr(), out.data_ptr(), N, H, V,
-                  R, int(vec4), DTYPE_CODES[h.dtype], stream)
+                  b_pages.data_ptr(), bt.data_ptr(), coef.data_ptr(),
+                  out.data_ptr(), N, H, V, R, rows, int(hvec), int(vec4),
+                  DTYPE_CODES[h.dtype], stream)
     lora_delta.launches += 1
     return out
 

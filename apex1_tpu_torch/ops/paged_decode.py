@@ -10,7 +10,7 @@
   ``jax.random.categorical``. uint32 arithmetic runs in int64 tensors
   masked to 32 bits (torch's uint32 lacks some operators).
 - :func:`fused_sample` — the sampling epilogue; CUDA tensors launch
-  ``csrc/fused_sample.cu``.
+  ``csrc/fused_sample.cu``, split over the vocab (`sample_splits`).
 - :class:`PagedCache` + :func:`paged_update_attend` — the per-layer
   cache entry: K/V live in a page pool ``(num_pages, Hkv, page, D)``
   addressed through a per-row block table. Unlike the JAX package the
@@ -25,6 +25,7 @@ rows scatter garbage into it, and nothing attends it.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -32,7 +33,7 @@ import torch
 
 from apex1_tpu_torch.ops import _build
 from apex1_tpu_torch.ops._common import (DTYPE_CODES, NEG_INF, check_cuda,
-                                         use_kernel)
+                                         sm_count, use_kernel)
 
 _M32 = 0xFFFFFFFF
 _TINY = float(np.finfo(np.float32).tiny)
@@ -254,6 +255,58 @@ def _fused_sample_plain(logits, seeds, positions, *, temperature, top_k,
     return _gumbel_argmax(lg, k1, k2, partitionable)
 
 
+#: blocks `sample_splits` aims the sampler's grid at: two an SM at least
+SAMPLE_BLOCKS_PER_SM = 2
+#: the fewest columns a split takes where the vocab allows more splits:
+#: a 16-byte load for each lane of a warp
+SAMPLE_MIN_COLUMNS = 128
+#: ticket counters a device holds for the sampler: one a grid row, and a
+#: launch takes at most 65535 rows (gridDim.y)
+_SAMPLE_COUNTERS = 65535
+_COUNTERS: dict = {}
+
+
+def _split(vocab: int, want: int) -> tuple[int, int]:
+    """(splits, per) for about ``want`` splits: per rounded up to 4."""
+    per = -(-vocab // want)
+    per = -(-per // 4) * 4
+    return -(-vocab // per), per
+
+
+@functools.lru_cache(maxsize=None)
+def sample_splits(rows: int, vocab: int, sms: int) -> tuple[int, int]:
+    """The sampler's vocab split: (splits, columns a split). Split i of a
+    row takes the columns [i·per, min(vocab, (i + 1)·per)); ``per`` is a
+    multiple of 4 (a split starts on a 16-byte load) and no split is
+    empty. The count is at least what puts `SAMPLE_BLOCKS_PER_SM` blocks
+    on each of the ``sms`` SMs (at most four times that), with at least
+    `SAMPLE_MIN_COLUMNS` columns a split; within that range it is the
+    smallest whose busiest SM takes within 2 % of the fewest columns any
+    count there gives (blocks of a (splits, rows) grid spread evenly over
+    the SMs: 40 rows take 13 splits, 520 blocks, not 7, whose 280 blocks
+    put three on some SMs and two on others). It depends on the shapes
+    only, so a decode step stays capturable in a CUDA graph."""
+    most = max(1, -(-vocab // SAMPLE_MIN_COLUMNS))
+    want = min(most, -(-SAMPLE_BLOCKS_PER_SM * sms // max(rows, 1)))
+    cands = [_split(vocab, s) for s in range(want, min(most, 4 * want) + 1)]
+
+    def busiest(c):  # columns on the busiest SM
+        return -(-c[0] * rows // sms) * c[1]
+
+    least = min(busiest(c) for c in cands)
+    return next(c for c in cands if busiest(c) <= 1.02 * least)
+
+
+def _sample_counters(device: torch.device) -> torch.Tensor:
+    """The sampler's ticket counters on ``device``: zeros, allocated once
+    (the kernel leaves them zero). One launch at a time may use them:
+    the port samples on one stream a device."""
+    if device not in _COUNTERS:
+        _COUNTERS[device] = torch.zeros(_SAMPLE_COUNTERS, dtype=torch.int32,
+                                        device=device)
+    return _COUNTERS[device]
+
+
 def fused_sample(logits, seeds, positions, *, temperature: float = 0.0,
                  top_k: Optional[int] = None,
                  vocab_size: Optional[int] = None,
@@ -262,8 +315,10 @@ def fused_sample(logits, seeds, positions, *, temperature: float = 0.0,
     ``fold_in(key(seeds[r]), positions[r])``. CUDA logits launch the
     fused kernel (``fused_sample.launches`` counts the launches): vocab
     mask, temperature, gumbel draw and first-index argmax in one pass,
-    only the (R,) int32 token ids written. ``top_k`` keeps its sort
-    outside the kernel, which then samples the pre-truncated logits."""
+    each row's vocab split over the grid (`sample_splits`) and the
+    splits folded on the card in the same launch, only the (R,) int32
+    token ids written. ``top_k`` keeps its sort outside the kernel,
+    which then samples the pre-truncated logits."""
     R, V = logits.shape
     dev = logits.device
     seeds = torch.as_tensor(seeds, dtype=torch.int32, device=dev)
@@ -275,6 +330,8 @@ def fused_sample(logits, seeds, positions, *, temperature: float = 0.0,
                                    partitionable=partitionable)
     if seeds.shape != (R,) or positions.shape != (R,):
         raise ValueError("fused_sample: seeds and positions must be (R,)")
+    if V < 1:
+        raise ValueError("fused_sample: the logits have no column")
     lg = logits.float().contiguous()
     v_eff = V if (vocab_size is None or vocab_size >= V) else int(
         vocab_size)
@@ -290,11 +347,18 @@ def fused_sample(logits, seeds, positions, *, temperature: float = 0.0,
     seeds, positions = seeds.contiguous(), positions.contiguous()
     check_cuda("fused_sample", lg, seeds, positions)
     out = torch.empty(R, dtype=torch.int32, device=dev)
+    counters = _sample_counters(dev)
+    splits, per = sample_splits(R, V, sm_count(dev))
+    pairs = (torch.empty(R * splits * 2, dtype=torch.int32, device=dev)
+             if splits > 1 else None)
+    vec = V % 4 == 0 and lg.data_ptr() % 16 == 0
     stream = torch.cuda.current_stream(dev).cuda_stream
     _build.launch("apex1_fused_sample", lg.data_ptr(), seeds.data_ptr(),
-                  positions.data_ptr(), out.data_ptr(), R, V, v_eff,
+                  positions.data_ptr(), out.data_ptr(),
+                  None if pairs is None else pairs.data_ptr(),
+                  counters.data_ptr(), R, V, v_eff, splits, per,
                   float(temperature), int(greedy), int(scale_in_kernel),
-                  int(partitionable), stream)
+                  int(partitionable), int(vec), stream)
     fused_sample.launches += 1
     return out
 

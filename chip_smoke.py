@@ -18,14 +18,15 @@
                                      # linear-xent forward and backward,
                                      # int8_mm, glu_fwd, the norm
                                      # forward, the softmax forward, the
-                                     # norm backward, flash dbias and
-                                     # paged attention against those of
+                                     # norm backward, flash dbias,
+                                     # paged attention, the sampler and
+                                     # the LoRA delta against those of
                                      # TREE (a checkout of another
                                      # commit) in turns on the same
                                      # inputs, or only the PARTs given
                                      # (flash, chunk, lxent, int8, glu,
                                      # norm, softmax, normbwd, dbias,
-                                     # paged)
+                                     # paged, sample, lora)
     python3 chip_smoke.py --gate-sweep [kernels] [plain]
                                      # build, then train bert_large at
                                      # O2 for GATE_STEPS steps at each
@@ -98,7 +99,11 @@ Phases, each printed on its own line; a failure in any exits non-zero:
    each also checks kernel 6 (dbias, fp32, at f32 tolerance, the same
    bits on a second launch); the library's SDPA with the bias as a
    float ``attn_mask`` is timed beside it, its backward also with the
-   mask taking a gradient (dbias's yardstick). The decode slice's: the
+   mask taking a gradient (dbias's yardstick). The sampler (kernel 22)
+   at a GPT-2 decode step (8 rows of 50304), the engine's prefill row
+   and `serve-lora`'s verify step (40 rows of 32000), greedy and at T
+   0.7: the ids exactly, the same ids twice, the vocab splits launched,
+   ``torch.argmax`` timed beside it at T 0. The decode slice's: the
    int8 matmul (kernel 20) at the decode model's projections for 8
    decode rows and 1024 prefill rows, the head and a ragged case, at the
    fp32 rounding bound with the same bits twice (cuBLAS in bf16 over a
@@ -647,39 +652,83 @@ def check_paged_attend(torch, ops, gen):
 
 #: integer and float operations per vocab entry when sampling: a
 #: 20-round threefry-2x32 block (~125), the gumbel transform (~10) and
-#: two logf (~25)
+#: two logf (~25), priced at the fp32 rate (the bound's column)
 SAMPLE_OPS = 160
+#: the integer operations among them (the threefry block's adds,
+#: rotations and xors, its key injections, the bits' shift: about 80)
+#: and the card's INT32 rate, half its fp32 rate (132 SMs x 64 lanes x
+#: 1.98 GHz): the floor the sampler's integer pipes set, printed beside
+#: the bound
+SAMPLE_INT_OPS = 80
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+#: the sampler's checks (row 22): (case, rows, vocab, vocab_size): a
+#: GPT-2 decode step (8 rows of the padded head), the engine's prefill
+#: row (one row a chunk) and `serve-lora`'s verify step (8 slots x 5 over
+#: Llama's 32000 columns), each at every `SAMPLE_TEMPS` temperature (the
+#: engine's default 0, greedy)
+SAMPLE_CASES = [("decode", 8, TV_PAD, TV), ("prefill row", 1, TV_PAD, TV),
+                ("serve-lora verify", 40, LV, LV)]
+SAMPLE_TEMPS = (0.0, 0.7)
 
 
-def check_fused_sample(torch, ops, gen):
-    from apex1_tpu_torch.ops.paged_decode import fused_sample
-    R, V, v_eff = 8, 50304, 50257
+def sample_inputs(torch, gen, R, V):
+    """(R, V) logits at 3x unit spread, seeds and positions on the card."""
     lg = (torch.randn(R, V, generator=gen) * 3).cuda()
     seeds = torch.randint(0, 2**31 - 1, (R,), generator=gen).to(
         torch.int32).cuda()
     pos = torch.randint(0, 1024, (R,), generator=gen).to(torch.int32).cuda()
-    results = []
-    for temp in (0.0, 0.7):
-        def run():
-            return fused_sample(lg, seeds, pos, temperature=temp,
-                                vocab_size=v_eff)
+    return lg, seeds, pos
 
-        got = run()
-        with ops.force_impl("torch"):
-            want = run()
-        torch.cuda.synchronize()
-        mism = int((got != want).sum().item())
-        ms = graph_ms(run)
-        with ops.force_impl("torch"):
-            plain = graph_ms(run, iters=10)
-        lib = (graph_ms(lambda: torch.argmax(lg[:, :v_eff], dim=-1))
-               if temp == 0.0 else None)
-        ops_n = R * V * (1 if temp == 0.0 else SAMPLE_OPS)
-        bnd, by = bound_ms(R * V * 4 + 3 * R * 4, ops_n)
-        results.append(dict(case=f"R={R} V={V} vocab={v_eff} T={temp}",
-                            abs=float(mism), worst=float(mism), tol=None,
-                            ms=ms, plain_ms=plain, library_ms=lib,
-                            bound_ms=bnd, bound_by=by, main=temp == 0.7))
+
+def sample_bound(R, V, greedy):
+    """The least time for a sampler call: the logits read once and the
+    seeds, positions and ids; when sampling, `SAMPLE_OPS` an entry at the
+    fp32 rate. Returns (ms, "bytes" or "operations", the INT32-rate time
+    of `SAMPLE_INT_OPS` an entry)."""
+    bnd, by = bound_ms(R * V * 4 + 3 * R * 4,
+                       R * V * (1 if greedy else SAMPLE_OPS))
+    return bnd, by, R * V * SAMPLE_INT_OPS / INT32_OPS_PER_S * 1e3
+
+
+def check_fused_sample(torch, ops, gen):
+    """Kernel 22 against its plain version at every `SAMPLE_CASES` case
+    and temperature: the ids exactly, and the same ids on a second
+    launch; `torch.argmax` over the vocab as the library call at T 0;
+    the split count launched and, when sampling, the INT32-rate time
+    beside the bound (`sample_bound`)."""
+    from apex1_tpu_torch.ops.paged_decode import fused_sample, sample_splits
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    results = []
+    for case, R, V, v_eff in SAMPLE_CASES:
+        lg, seeds, pos = sample_inputs(torch, gen, R, V)
+        splits = sample_splits(R, V, sms)[0]
+        for temp in SAMPLE_TEMPS:
+            def run():
+                return fused_sample(lg, seeds, pos, temperature=temp,
+                                    vocab_size=v_eff)
+
+            got = run()
+            again = run()
+            with ops.force_impl("torch"):
+                want = run()
+            torch.cuda.synchronize()
+            mism = int((got != want).sum().item())
+            ms = graph_ms(run)
+            with ops.force_impl("torch"):
+                plain = graph_ms(run, iters=10)
+            lib = (graph_ms(lambda: torch.argmax(lg[:, :v_eff], dim=-1))
+                   if temp == 0.0 else None)
+            bnd, by, int_ms = sample_bound(R, V, temp == 0.0)
+            results.append(dict(
+                case=f"{case} R={R} V={V} vocab={v_eff} T={temp}, "
+                     f"{splits} splits"
+                     + ("" if temp == 0.0 else
+                        f", INT32-rate bound {int_ms:.4f} ms"),
+                abs=float(mism), worst=float(mism), tol=None, ms=ms,
+                plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by,
+                same_bits=bool(torch.equal(got, again)),
+                main=(R == 8 and temp == 0.7)))
+        del lg, seeds, pos
     return results
 
 
@@ -1949,28 +1998,49 @@ LORA_CASES = [
 ]
 
 
+def lora_inputs(torch, gen, slots, width, R, H, V, dts):
+    """h, the A and B page pools and the block table of a `LORA_CASES`
+    case on the card: 1 + 4R pages (page 0 zero), slots taking adapters
+    0, 1, 2 in turn and the last slot none, each slot's page row repeated
+    over its ``width`` rows."""
+    P = 1 + 4 * R
+    a = torch.randn(P, H, generator=gen, device="cuda") * H ** -0.5
+    b = torch.randn(P, V, generator=gen, device="cuda") * 0.25
+    a[0], b[0] = 0.0, 0.0
+    rows = torch.zeros(slots, R, dtype=torch.int32)
+    for n in range(max(slots - 1, 1)):
+        rows[n] = 1 + (n % 3) * R + torch.arange(R)
+    bt = rows.repeat_interleave(width, dim=0).cuda()
+    h = torch.randn(slots * width, H, generator=gen, device="cuda").to(
+        getattr(torch, dts))
+    return h, a, b, bt
+
+
+def lora_bound(torch, h, bt, R, H, V):
+    """The least time for a LoRA delta call: the bytes of h, of the
+    distinct pages the rows name (each A and B row read once), of the
+    block table and of the output; ops 2·N·R·(H + V) at the fp32 rate.
+    Returns (ms, "bytes" or "operations", the distinct pages)."""
+    N = h.shape[0]
+    pages = int(torch.unique(bt).numel())
+    bnd, by = bound_ms(h.numel() * h.element_size()
+                       + pages * (H + V) * 4 + N * V * 4 + bt.numel() * 4,
+                       2 * N * R * (H + V))
+    return bnd, by, pages
+
+
 def check_lora_delta(torch, ops, gen):
     """Kernel 23 against its plain version (gather, then two fp32
     einsums): the fp32 rounding bound; rows naming only page 0 exactly
     0.0; the same bits on a second launch; each row equal, bit for bit,
-    to the same row computed in a batch of its own. Bound: the bytes of
-    h, of the distinct pages the rows name (each A and B row read once)
-    and of the output. No single PyTorch call computes it (library:
+    to the same row computed in a batch of its own. Bound
+    (`lora_bound`): bytes. No single PyTorch call computes it (library:
     none)."""
     from apex1_tpu_torch.ops.lora_epilogue import lora_delta
     results = []
     for case, slots, width, R, H, V, dts, main in LORA_CASES:
-        P = 1 + 4 * R
-        a = torch.randn(P, H, generator=gen, device="cuda") * H ** -0.5
-        b = torch.randn(P, V, generator=gen, device="cuda") * 0.25
-        a[0], b[0] = 0.0, 0.0
-        rows = torch.zeros(slots, R, dtype=torch.int32)
-        for n in range(max(slots - 1, 1)):
-            rows[n] = 1 + (n % 3) * R + torch.arange(R)
-        bt = rows.repeat_interleave(width, dim=0).cuda()
-        N = slots * width
-        h = torch.randn(N, H, generator=gen, device="cuda").to(
-            getattr(torch, dts))
+        h, a, b, bt = lora_inputs(torch, gen, slots, width, R, H, V, dts)
+        N = h.shape[0]
 
         def run():
             return lora_delta(h, a, b, bt)
@@ -1988,10 +2058,7 @@ def check_lora_delta(torch, ops, gen):
         ms = graph_ms(run)
         with ops.force_impl("torch"):
             plain = graph_ms(run, iters=5)
-        pages = int(torch.unique(bt).numel())
-        bnd, by = bound_ms(h.numel() * h.element_size()
-                           + pages * (H + V) * 4 + N * V * 4 + bt.numel() * 4,
-                           2 * N * R * (H + V))
+        bnd, by, pages = lora_bound(torch, h, bt, R, H, V)
         results.append(dict(
             case=f"{case} N={N} R={R} H={H} V={V} {dts} h, {pages} pages",
             abs=abs_e, worst=worst, tol=TOLS["float32"],
@@ -2336,6 +2403,18 @@ def ab2_ms(other_fn, this_fn, timer=None):
     return min(times["other"]), min(times["this"])
 
 
+def median_ab2(other_fn, this_fn):
+    """`ab2_ms` by CUDA-graph replays, `SOFTMAX_PAIRS` times: (other's
+    median ms, this tree's median ms, the sorted speedups) — for calls of
+    a few microseconds, where one pair's spread is the timer's own."""
+    import statistics
+    got = [ab2_ms(other_fn, this_fn, graph_ms)
+           for _ in range(SOFTMAX_PAIRS)]
+    return (statistics.median(p[0] for p in got),
+            statistics.median(p[1] for p in got),
+            sorted(a / b for a, b in got))
+
+
 #: `--compare`'s linear-xent heads (bf16): (case, T, V, H, K, padding_idx)
 COMPARE_LXENT = (
     ("GPT-2 head", TB * (TS - 1), TV_PAD, TH, TV, None),
@@ -2605,9 +2684,10 @@ def softmax_inputs(torch, gen, shape, dts, mask):
     return x, m4, mask == "causal"
 
 
-#: `ab2_ms` pairs a small `COMPARE_SOFTMAX` case takes, and as many
-#: pairs of this tree's wrapper against itself, whose spread is the
-#: timer's own at a call of a few microseconds
+#: `ab2_ms` pairs (`median_ab2`) a small `COMPARE_SOFTMAX` case takes,
+#: and as many pairs of this tree's wrapper against itself, whose spread
+#: is the timer's own at a call of a few microseconds; the sampler's and
+#: the LoRA delta's cases take as many
 SOFTMAX_PAIRS = 5
 
 
@@ -2619,10 +2699,9 @@ def compare_softmax(torch, other):
     replays for the small ones); the GPT-2 rows also time
     ``torch.softmax`` on the precomputed masked scores, as the kernels
     phase does. A small case takes `SOFTMAX_PAIRS` pairs, and as many of
-    this tree against itself: its row keeps the median times and both
-    ranges of speedups, the second the timer's own spread. Returns the
-    rows, each with the GB/s it moves."""
-    import statistics
+    this tree against itself (`median_ab2`): its row keeps the median
+    times and both ranges of speedups, the second the timer's own spread.
+    Returns the rows, each with the GB/s it moves."""
     from apex1_tpu_torch.ops.softmax import softmax_fwd
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
@@ -2634,16 +2713,12 @@ def compare_softmax(torch, other):
         if big:
             was, now = ab2_ms(*fns)
         else:
-            pairs = [ab2_ms(*fns, graph_ms) for _ in range(SOFTMAX_PAIRS)]
-            same = [ab2_ms(fns[1], fns[1], graph_ms)
-                    for _ in range(SOFTMAX_PAIRS)]
-            was = statistics.median(p[0] for p in pairs)
-            now = statistics.median(p[1] for p in pairs)
+            was, now, ups = median_ab2(*fns)
+            self_ups = median_ab2(fns[1], fns[1])[2]
         row = dict(kernel="softmax_fwd", case=f"{name} {shape} {dts} {mask}",
                    other_ms=was, ms=now, speedup=was / now)
         if not big:
-            row["speedups"] = sorted(a / b for a, b in pairs)
-            row["self_speedups"] = sorted(a / b for a, b in same)
+            row["speedups"], row["self_speedups"] = ups, self_ups
             row["case"] += (
                 f", {SOFTMAX_PAIRS} pairs {row['speedups'][0]:.2f}-"
                 f"{row['speedups'][-1]:.2f}x, this tree against itself "
@@ -2788,9 +2863,82 @@ def compare_paged(torch, other):
     return rows
 
 
+def compare_sample(torch, other):
+    """``--compare``'s sampler rows (TPU row 22): every `SAMPLE_CASES`
+    case at each `SAMPLE_TEMPS` temperature through ``other``, TREE's own
+    ``paged_decode`` bound to its own library (`tree_ops`: the entry
+    point's C signature changed with the split), and this tree's, in
+    turns on the same inputs (`median_ab2`), with the plain version,
+    `torch.argmax` at T 0 and the bound (`sample_bound`). Returns the
+    rows, each with the split count this tree launches."""
+    from apex1_tpu_torch.ops import force_impl
+    from apex1_tpu_torch.ops.paged_decode import fused_sample, sample_splits
+    gen = torch.Generator().manual_seed(SEED)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for case, R, V, v_eff in SAMPLE_CASES:
+        lg, seeds, pos = sample_inputs(torch, gen, R, V)
+        for temp in SAMPLE_TEMPS:
+            kw = dict(temperature=temp, vocab_size=v_eff)
+            was, now, ups = median_ab2(
+                lambda: other.fused_sample(lg, seeds, pos, **kw),
+                lambda: fused_sample(lg, seeds, pos, **kw))
+            with force_impl("torch"):
+                plain = graph_ms(lambda: fused_sample(lg, seeds, pos, **kw),
+                                 iters=10)
+            lib = (graph_ms(lambda: torch.argmax(lg[:, :v_eff], dim=-1))
+                   if temp == 0.0 else None)
+            bnd, by, int_ms = sample_bound(R, V, temp == 0.0)
+            rows.append(dict(
+                kernel="fused_sample",
+                case=f"{case} R={R} V={V} vocab={v_eff} T={temp}, "
+                     f"{sample_splits(R, V, sms)[0]} splits, "
+                     f"{SOFTMAX_PAIRS} pairs {ups[0]:.2f}-{ups[-1]:.2f}x"
+                     + ("" if temp == 0.0 else
+                        f", INT32-rate bound {int_ms:.4f} ms"),
+                other_ms=was, ms=now, speedup=was / now, plain_ms=plain,
+                library_ms=lib, bound_ms=bnd, bound_by=by))
+        del lg, seeds, pos
+    return rows
+
+
+def compare_lora(torch, other):
+    """``--compare``'s LoRA delta rows (TPU row 23): every `LORA_CASES`
+    case through ``other``, TREE's own ``lora_epilogue`` bound to its own
+    library (`tree_ops`), and this tree's, in turns on the same inputs
+    (`median_ab2`), with the plain version's time and the bound
+    (`lora_bound`). Returns the rows, each with the blocks of this tree's
+    stream kernel and the rows each takes (`lora_rows`)."""
+    from apex1_tpu_torch.ops import force_impl
+    from apex1_tpu_torch.ops.lora_epilogue import (lora_delta, lora_rows,
+                                                   lora_tiles)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for case, slots, width, R, H, V, dts, _ in LORA_CASES:
+        h, a, b, bt = lora_inputs(torch, gen, slots, width, R, H, V, dts)
+        N = h.shape[0]
+        was, now, ups = median_ab2(lambda: other.lora_delta(h, a, b, bt),
+                                   lambda: lora_delta(h, a, b, bt))
+        with force_impl("torch"):
+            plain = graph_ms(lambda: lora_delta(h, a, b, bt), iters=5)
+        bnd, by, pages = lora_bound(torch, h, bt, R, H, V)
+        per = lora_rows(N, V, R, sms)
+        rows.append(dict(
+            kernel="lora_delta",
+            case=f"{case} N={N} R={R} H={H} V={V} {dts} h, {pages} pages, "
+                 f"{lora_tiles(V) * -(-N // per)} blocks of {per} rows, "
+                 f"{SOFTMAX_PAIRS} pairs {ups[0]:.2f}-{ups[-1]:.2f}x",
+            other_ms=was, ms=now, speedup=was / now, plain_ms=plain,
+            library_ms=None, bound_ms=bnd, bound_by=by))
+        del h, a, b, bt
+        torch.cuda.empty_cache()
+    return rows
+
+
 #: `--compare`'s parts; the names after TREE pick some of them, none: all
 COMPARE_PARTS = ("flash", "chunk", "lxent", "int8", "glu", "norm",
-                 "softmax", "normbwd", "dbias", "paged")
+                 "softmax", "normbwd", "dbias", "paged", "sample", "lora")
 
 
 def compare_flash(torch, ops, card, tree: str, parts=COMPARE_PARTS) -> int:
@@ -2806,17 +2954,19 @@ def compare_flash(torch, ops, card, tree: str, parts=COMPARE_PARTS) -> int:
     (`compare_norm_bwd`), each through TREE's own wrappers and library
     (`tree_ops`) and this tree's (`ab2_ms`), dbias (`compare_dbias`, TREE's
     kernels under this tree's wrapper) and paged attention
-    (`compare_paged`, TREE's own wrapper); ``parts`` (`COMPARE_PARTS`)
-    picks which. Prints a line
+    (`compare_paged`, TREE's own wrapper), the sampler (`compare_sample`)
+    and the LoRA delta (`compare_lora`), each through TREE's own
+    wrapper; ``parts`` (`COMPARE_PARTS`) picks which. Prints a line
     per kernel and case and writes ``chiprun_out/compare.json``."""
     from apex1_tpu_torch.ops.attention import (flash_dkv, flash_dq,
                                                flash_fwd, flash_fwd_merge)
     from apex1_tpu_torch.ops.fused_collective import chunk_matmul, chunk_tile
     other, secs = other_library(tree)
-    (other_lx, other_fc, other_q, other_fd, other_ln, other_sm,
-     other_pd) = tree_ops(tree, "linear_xent.py", "fused_collective.py",
+    (other_lx, other_fc, other_q, other_fd, other_ln, other_sm, other_pd,
+     other_lo) = tree_ops(tree, "linear_xent.py", "fused_collective.py",
                           "quantized.py", "fused_dense.py", "layer_norm.py",
-                          "softmax.py", "paged_decode.py")
+                          "softmax.py", "paged_decode.py",
+                          "lora_epilogue.py")
     print(f"phase compare: built {tree} in {secs:.1f} s [{card}]")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
@@ -2875,7 +3025,9 @@ def compare_flash(torch, ops, card, tree: str, parts=COMPARE_PARTS) -> int:
                      ("softmax", lambda: compare_softmax(torch, other_sm)),
                      ("normbwd", lambda: compare_norm_bwd(torch, other_ln)),
                      ("dbias", lambda: compare_dbias(torch, other)),
-                     ("paged", lambda: compare_paged(torch, other_pd))):
+                     ("paged", lambda: compare_paged(torch, other_pd)),
+                     ("sample", lambda: compare_sample(torch, other_pd)),
+                     ("lora", lambda: compare_lora(torch, other_lo))):
         if part in parts:
             rows += fn()
     for r in (r for r in rows if "other_ms" in r):

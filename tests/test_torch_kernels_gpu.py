@@ -16,7 +16,11 @@ merged, against one softmax over the gathered lane), per element,
 plain version rounds the probabilities to q's type, the kernel's tensor
 cores its unnormalized ones); the same bits on a second launch.
 Sampled token ids exactly (the kernel's gumbel noise equals torch.log's
-on the card). The training kernels (layer norm backward, softmax
+on the card), at the vocab split's edges (1, 8 and 40 rows; 1, 3, 4097
+and 50304 columns, a masked tail inside the last split), a maximum at
+two columns in different splits resolved to the lower, and the same ids
+on a second launch and across CUDA-graph replays (the splits' ticket
+counters reset). The training kernels (layer norm backward, softmax
 forward and backward, cross-entropy forward and backward) per element
 as paged attention, with fp16 at rtol 2^-10 (one fp16 ulp), atol 1e-2;
 the layer norm backward also gives the same bits on a second run. The
@@ -55,7 +59,9 @@ than the plain version's) per element within 3u·|want| + 1e-5·Σ|a||b|
 (u = 2^-24, Σ|a||b| the plain function on the absolute operands), the
 same bits on a second launch; every shape the kernels take (ragged
 tiles, K % 16 != 0, an unaligned x); each LoRA row equal to itself
-computed alone and page-0 rows exactly 0.0.
+computed alone (also where a block of the stream kernel takes several
+rows and reuses B across those naming the same pages) and page-0 rows
+exactly 0.0.
 """
 
 import numpy as np
@@ -182,6 +188,95 @@ def test_fused_sample_kernel_bitwise_plain(cuda, temperature, top_k,
         vocab_size=50257, partitionable=partitionable))
     assert got.dtype == torch.int32
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+#: fused_sample's split edges: the engine's prefill row, a decode batch
+#: and `serve-lora`'s verify rows; one column, three, a last split of one
+#: column past 4096, GPT-2's padded head
+_SAMPLE_ROWS = [1, 8, 40]
+_SAMPLE_V = [1, 3, 4097, 50304]
+
+
+def _sample_inputs(R, V, cuda, seed):
+    rng = np.random.default_rng(seed)
+    lg = torch.from_numpy(rng.standard_normal((R, V)).astype(
+        np.float32) * 3).to(cuda)
+    seeds = torch.from_numpy(rng.integers(0, 2**31 - 1, R).astype(
+        np.int32)).to(cuda)
+    pos = torch.from_numpy(rng.integers(0, 1024, R).astype(np.int32)).to(
+        cuda)
+    return lg, seeds, pos
+
+
+def _sample_split(R, V):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return tpd.sample_splits(R, V, sms)
+
+
+@pytest.mark.parametrize("top_k", [None, 40])
+@pytest.mark.parametrize("partitionable", [True, False])
+@pytest.mark.parametrize("temperature", [0.0, 0.7, 1.3])
+@pytest.mark.parametrize("V", _SAMPLE_V)
+@pytest.mark.parametrize("R", _SAMPLE_ROWS)
+def test_fused_sample_split_edges(cuda, R, V, temperature, partitionable,
+                                  top_k):
+    """Ids equal to the plain version's with ``vocab_size`` masking a tail
+    that starts inside the last split (the whole one-column split past
+    4096; none at one column)."""
+    splits, per = _sample_split(R, V)
+    start = (splits - 1) * per
+    vocab = max(1, start + (V - start) // 2)
+    lg, seeds, pos = _sample_inputs(R, V, cuda, 7 * R + V)
+    got, want = _both(lambda: tpd.fused_sample(
+        lg, seeds, pos, temperature=temperature, top_k=top_k,
+        vocab_size=vocab, partitionable=partitionable))
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert (got < vocab).all()
+
+
+@pytest.mark.parametrize("V", [4097, 50304])
+@pytest.mark.parametrize("R", _SAMPLE_ROWS)
+def test_fused_sample_tie_across_splits(cuda, R, V):
+    """A row's maximum at two columns in different splits (the first and
+    the last) gives the lower column, as argmax does."""
+    splits, per = _sample_split(R, V)
+    assert splits >= 2
+    lo, hi = per // 2, (splits - 1) * per
+    lg, seeds, pos = _sample_inputs(R, V, cuda, R + V)
+    lg[:, lo] = lg[:, hi] = 100.0
+    got, want = _both(lambda: tpd.fused_sample(lg, seeds, pos))
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert (got == lo).all()
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.7])
+@pytest.mark.parametrize("R", _SAMPLE_ROWS)
+def test_fused_sample_counters_reset(cuda, R, temperature):
+    """The same ids on a second launch and on two replays of a captured
+    CUDA graph: the last split of each row zeroes its ticket counter."""
+    lg, seeds, pos = _sample_inputs(R, 50304, cuda, 11 + R)
+
+    def run():
+        return tpd.fused_sample(lg, seeds, pos, temperature=temperature,
+                                vocab_size=50257)
+
+    with force_impl("torch"):
+        want = run()
+    assert torch.equal(run(), want) and torch.equal(run(), want)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        run()
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = run()
+    for _ in range(2):
+        out.fill_(-1)
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+    assert (tpd._COUNTERS[lg.device] == 0).all()
 
 
 def test_wrappers_count_launches(cuda):
@@ -1391,13 +1486,25 @@ def test_int8_mm_is_one_kernel_launch(cuda, shape):
     assert len(kernels) == 1 and "int8_mm" in kernels[0], kernels
 
 
-#: lora_delta cases: (slots, rows a slot, rank, hidden, vocab, h dtype)
+#: lora_delta cases: (slots, rows a slot, rank, hidden, vocab, h dtype):
+#: `serve-lora`'s decode, verify and prefill row, every rank the stream
+#: kernel instantiates (8, 16, 32, 64) and one it loops over (17), hidden
+#: widths off 8 (the coefficients' scalar path) and vocabs off 4 (the
+#: stream's), one of them at the prefill row; 80 rows, which the stream
+#: kernel takes two a block (`lora_rows`), at ranks it loads in chunks
 _LORA = {"decode": (8, 1, 16, 2048, 32000, "bfloat16"),
          "verify": (8, 5, 16, 2048, 32000, "bfloat16"),
          "prefill": (1, 1, 16, 2048, 32000, "bfloat16"),
          "f32_ragged": (3, 2, 3, 100, 1001, "float32"),
          "f16_rank1": (4, 1, 1, 64, 130, "float16"),
-         "wide_rank": (2, 3, 64, 256, 4096, "bfloat16")}
+         "wide_rank": (2, 3, 64, 256, 4096, "bfloat16"),
+         "rank8": (8, 1, 8, 2048, 32000, "bfloat16"),
+         "rank32": (8, 5, 32, 2048, 32000, "bfloat16"),
+         "rank17": (4, 2, 17, 512, 4096, "bfloat16"),
+         "rank17_f32_ragged": (3, 1, 17, 100, 1001, "float32"),
+         "prefill_odd_vocab": (1, 1, 16, 2048, 31999, "bfloat16"),
+         "rank17_grouped": (16, 5, 17, 256, 8192, "bfloat16"),
+         "rank64_grouped": (16, 5, 64, 256, 8190, "float16")}
 
 
 @pytest.mark.parametrize("name", list(_LORA))
