@@ -57,6 +57,9 @@ def _where(pred, on_true, on_false):
         return torch.where(pred, on_true, on_false)
     if isinstance(on_true, dict):
         return {k: _where(pred, v, on_false[k]) for k, v in on_true.items()}
+    if isinstance(on_true, (list, tuple)):
+        return type(on_true)(_where(pred, a, b)
+                             for a, b in zip(on_true, on_false))
     if dataclasses.is_dataclass(on_true):
         return dataclasses.replace(on_true, **{
             f.name: _where(pred, getattr(on_true, f.name),
@@ -66,8 +69,9 @@ def _where(pred, on_true, on_false):
 
 
 def select_tree(pred: torch.Tensor, on_true, on_false):
-    """Per-tensor ``torch.where(pred, a, b)`` over matching dicts (or
-    dataclasses of tensors and dicts): keeps the old params and
+    """Per-tensor ``torch.where(pred, a, b)`` over matching dicts, lists
+    and tuples (or dataclasses of tensors and dicts; a chained
+    optimizer's state is a tuple): keeps the old params and
     optimizer state on an overflowed step, with no host sync."""
     return _where(pred, on_true, on_false)
 

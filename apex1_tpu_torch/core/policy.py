@@ -20,10 +20,32 @@ from typing import Any
 import torch
 
 
-def _cast_floats(tree: dict, dtype) -> dict:
-    """Cast every floating tensor of a flat ``{name: tensor}`` dict."""
-    return {k: (v.to(dtype) if torch.is_floating_point(v) else v)
-            for k, v in tree.items()}
+def map_tensors(tree, fn):
+    """``fn`` on every tensor of a tree of dicts, lists and tuples;
+    other leaves unchanged."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_tensors(v, fn) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_tensors(v, fn) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tensors(v, fn) for v in tree)
+    return tree
+
+
+def _tensors_of(tree) -> list:
+    out = []
+    map_tensors(tree, out.append)
+    return out
+
+
+def _cast_floats(tree, dtype):
+    """Cast every floating tensor of a tree (a flat ``{name: tensor}``
+    dict, or dicts, lists and tuples of tensors)."""
+    return map_tensors(tree, lambda v: (v.to(dtype)
+                                         if torch.is_floating_point(v)
+                                         else v))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,8 +74,43 @@ class PrecisionPolicy:
     def cast_to_param(self, tree: dict) -> dict:
         return _cast_floats(tree, self.param_dtype)
 
+    def cast_to_output(self, tree):
+        return _cast_floats(tree, self.output_dtype)
+
     def with_overrides(self, **kw) -> "PrecisionPolicy":
         return dataclasses.replace(self, **kw)
+
+    # the reference's amp.half_function / float_function /
+    # promote_function: ``fn`` wrapped so that its float tensor inputs
+    # (positional and keyword, nested in dicts, lists and tuples) are
+    # cast before it runs
+    def half_function(self, fn):
+        """Float inputs cast to the compute dtype (FP16_FUNCS)."""
+        def wrapped(*args, **kw):
+            args, kw = _cast_floats((args, kw), self.compute_dtype)
+            return fn(*args, **kw)
+        return wrapped
+
+    def float_function(self, fn):
+        """Float inputs cast to fp32 (FP32_FUNCS: the fragile ops)."""
+        def wrapped(*args, **kw):
+            args, kw = _cast_floats((args, kw), torch.float32)
+            return fn(*args, **kw)
+        return wrapped
+
+    def promote_function(self, fn):
+        """Float inputs promoted to the widest float dtype among them
+        (CASTS: bf16 with fp16 gives fp32, as in JAX)."""
+        def wrapped(*args, **kw):
+            dts = [t.dtype for t in _tensors_of((args, kw))
+                   if torch.is_floating_point(t)]
+            if dts:
+                widest = dts[0]
+                for dt in dts[1:]:
+                    widest = torch.promote_types(widest, dt)
+                args, kw = _cast_floats((args, kw), widest)
+            return fn(*args, **kw)
+        return wrapped
 
 
 POLICIES = {

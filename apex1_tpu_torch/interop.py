@@ -30,12 +30,21 @@ numpy arrays: this module imports no JAX.
 - `named_from_flax` / `flax_from_named`: one flax-layout tree (params,
   grads, Adam moments) of any of these models to the port's dict and
   back;
+- `resnet_params_from_jax` / `resnet_params_to_numpy`: a `ResNet` from
+  its flax ``params`` and ``batch_stats`` and back: flax HWIO kernels
+  are OIHW weights, the ``fc`` kernel transposed, the batch norms'
+  ``scale``/``bias`` params and ``mean``/``var`` buffers carried as
+  they are;
 - `amp_state_from_jax` / `amp_state_to_numpy`: the whole amp training
-  state (params, fused-Adam m/v/step, loss-scale state).
+  state (params; the optimizer state of fused Adam, SGD, LAMB,
+  NovoGrad or Adagrad, LARC's step count, a ``chain`` of them as a
+  tuple; the loss-scale state, a tuple of them with ``num_losses >
+  1``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from collections.abc import Mapping
 
 import numpy as np
@@ -48,9 +57,12 @@ from apex1_tpu_torch.core.loss_scale import LossScaleState
 from apex1_tpu_torch.models.bert import Bert, BertConfig, BertPretrain
 from apex1_tpu_torch.models.gpt2 import GPT2, GPT2Config
 from apex1_tpu_torch.models.llama import Llama, LlamaConfig
+from apex1_tpu_torch.models.resnet import ResNet, ResNetConfig
 from apex1_tpu_torch.models.t5 import T5, T5Config
 from apex1_tpu_torch.ops._common import resolve_device
-from apex1_tpu_torch.optim.fused_adam import FusedAdamState
+from apex1_tpu_torch.optim import (FusedAdagradState, FusedAdamState,
+                                   FusedLAMBState, FusedNovoGradState,
+                                   FusedSGDState)
 
 _DENSE = ("qkv", "proj", "fc_in", "fc_out")
 _NORMS = ("ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias")
@@ -89,6 +101,41 @@ def _nested(named: dict, np_) -> dict:
     return out
 
 
+def _is_resnet(tree) -> bool:
+    return any(k == "stem_conv" or k.startswith("stem_conv.")
+               or k == "stem_bn" or k.startswith("stem_bn.") for k in tree)
+
+
+def _resnet_named(tree, prefix="") -> dict:
+    """A flax ResNet tree (params, grads, optimizer moments or
+    ``batch_stats``) as ``{port name: numpy array}``: each ``kernel`` a
+    ``weight``, HWIO -> OIHW, (in, out) -> (out, in); per-tensor 0-d
+    leaves (NovoGrad's second moment) as they are."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_resnet_named(v, f"{prefix}{k}."))
+            continue
+        a = np.asarray(v)
+        if k == "kernel":
+            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+            k = "weight"
+        out[f"{prefix}{k}"] = a
+    return out
+
+
+def _resnet_flax(named: dict, np_) -> dict:
+    """The inverse of `_resnet_named`."""
+    flat = {}
+    for name, t in named.items():
+        a = np_(t)
+        if name.endswith(".weight"):
+            a = (a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T).copy()
+            name = name[:-len("weight")] + "kernel"
+        flat[name] = a
+    return _nested(flat, lambda a: a)
+
+
 def _is_bert(tree) -> bool:
     return any(k == "bert" or k.startswith("bert.") or k == "word_embeddings"
                for k in tree)
@@ -120,10 +167,12 @@ def _bert_flax(named: dict, np_) -> dict:
 
 
 def named_from_flax(tree) -> dict:
-    """Flax-layout GPT-2, Llama, BERT or T5 tree -> ``{port name: numpy
+    """Flax-layout GPT-2, Llama, BERT, T5 or ResNet tree -> ``{port name: numpy
     array}``."""
     if _is_t5(tree) or _is_llama(tree):
         return _dotted(tree)
+    if _is_resnet(tree):
+        return _resnet_named(tree)
     if _is_bert(tree):
         return _bert_named(tree)
     out = {k: np.asarray(tree[k]) for k in _TOP}
@@ -149,6 +198,8 @@ def flax_from_named(named: dict) -> dict:
 
     if _is_t5(named) or _is_llama(named):
         return _nested(named, np_)
+    if _is_resnet(named):
+        return _resnet_flax(named, np_)
     if _is_bert(named):
         return _bert_flax(named, np_)
     out = {k: np_(named[k]) for k in _TOP}
@@ -268,45 +319,108 @@ def mha_params_from_jax(params, module):
     return _load(module, named)
 
 
+def resnet_params_from_jax(params, batch_stats, cfg: ResNetConfig,
+                           device=None) -> ResNet:
+    """A `ResNet` on ``device`` (CUDA unless named) holding the JAX
+    package's flax ``params`` and ``batch_stats`` (numpy or JAX
+    arrays)."""
+    model = _load(ResNet(cfg, device=device), named_from_flax(params))
+    stats = named_from_flax(batch_stats)
+    with torch.no_grad():
+        for name, b in model.named_buffers():
+            if tuple(stats[name].shape) != tuple(b.shape):
+                raise ValueError(f"{name}: shape {stats[name].shape} vs "
+                                 f"{tuple(b.shape)}")
+            b.copy_(torch.from_numpy(np.array(stats[name], np.float32)))
+    return model
+
+
+def resnet_params_to_numpy(model: ResNet):
+    """The inverse of `resnet_params_from_jax`: ``(params,
+    batch_stats)`` as flax-layout numpy trees."""
+    return (flax_from_named(dict(model.named_parameters())),
+            flax_from_named(dict(model.named_buffers())))
+
+
+_OPT_STATES = {cls.__name__: cls for cls in (
+    FusedAdamState, FusedSGDState, FusedLAMBState, FusedNovoGradState,
+    FusedAdagradState)}
+
+
+def _scalar(x, dtype, dev) -> torch.Tensor:
+    return torch.tensor(np.asarray(x).item(), dtype=dtype, device=dev)
+
+
+def _ls_from_jax(ls, dev) -> LossScaleState:
+    return LossScaleState(**{
+        f: _scalar(getattr(ls, f),
+                   torch.float32 if f == "scale" else torch.int32, dev)
+        for f in _LS_FIELDS})
+
+
+def _opt_from_jax(opt, dev):
+    """One JAX optimizer state (a NamedTuple of the JAX package's
+    optimizers, a tuple of them from ``optax.chain``, or LARC's 0-d step
+    count) as the port's."""
+    name = type(opt).__name__
+    if name in _OPT_STATES:
+        return _OPT_STATES[name](**{
+            f: (_scalar(getattr(opt, f), torch.int32, dev) if f == "step"
+                else _tensors(named_from_flax(getattr(opt, f)), dev))
+            for f in opt._fields})
+    if isinstance(opt, (tuple, list)):
+        return tuple(_opt_from_jax(o, dev) for o in opt)
+    if np.ndim(opt) == 0:
+        return _scalar(opt, torch.int32, dev)
+    raise TypeError(f"no port counterpart for optimizer state {name}")
+
+
 def amp_state_from_jax(state, device=None) -> AmpState:
     """The port's `AmpState` from a JAX ``apex1_tpu.amp.AmpState`` whose
     leaves are numpy arrays (``jax.tree_util.tree_map(np.asarray,
-    state)``), of a GPT-2, a Llama, a BERT or a T5, trained with
-    ``fused_adam`` and one loss scaler: params and the Adam moments in
-    fp32, the counters as 0-d device tensors."""
+    state)``), of a GPT-2, a Llama, a BERT, a T5 or a ResNet, trained
+    with any optimizer of `optim` (or a ``chain`` of them) and one loss
+    scaler or several: params and the moments in fp32, the counters as
+    0-d device tensors."""
     dev = resolve_device(device)
-    opt, ls = state.opt_state, state.loss_scale
-
-    def scalar(x, dtype):
-        return torch.tensor(np.asarray(x).item(), dtype=dtype, device=dev)
-
+    ls = state.loss_scale
     return AmpState(
-        step=scalar(state.step, torch.int32),
+        step=_scalar(state.step, torch.int32, dev),
         params=_tensors(named_from_flax(state.params), dev),
-        opt_state=FusedAdamState(
-            step=scalar(opt.step, torch.int32),
-            exp_avg=_tensors(named_from_flax(opt.exp_avg), dev),
-            exp_avg_sq=_tensors(named_from_flax(opt.exp_avg_sq), dev)),
-        loss_scale=LossScaleState(**{
-            f: scalar(getattr(ls, f),
-                      torch.float32 if f == "scale" else torch.int32)
-            for f in _LS_FIELDS}))
+        opt_state=_opt_from_jax(state.opt_state, dev),
+        loss_scale=(tuple(_ls_from_jax(s, dev) for s in ls)
+                    if isinstance(ls, (tuple, list))
+                    else _ls_from_jax(ls, dev)))
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def _opt_to_numpy(opt):
+    if isinstance(opt, tuple):
+        return [_opt_to_numpy(o) for o in opt]
+    if isinstance(opt, torch.Tensor):
+        return _np(opt)
+    return {f.name: (_np(getattr(opt, f.name)) if f.name == "step"
+                     else flax_from_named(getattr(opt, f.name)))
+            for f in dataclasses.fields(opt)}
 
 
 def amp_state_to_numpy(state: AmpState) -> dict:
     """The port's `AmpState` as numpy in the JAX package's layout:
-    ``{"step", "params", "opt_state": {"step", "exp_avg", "exp_avg_sq"},
-    "loss_scale": {scale, growth_count, overflow_count,
-    hysteresis_left}}``."""
-    def np_(t):
-        return t.detach().cpu().numpy()
+    ``{"step", "params", "opt_state", "loss_scale"}``, the optimizer
+    state as ``{field: value}`` (Adam: ``{"step", "exp_avg",
+    "exp_avg_sq"}``; a chain a list of them; LARC's count an array), the
+    loss scale as ``{scale, growth_count, overflow_count,
+    hysteresis_left}`` (a list of them with ``num_losses > 1``)."""
+    def ls_np(ls):
+        return {f: _np(getattr(ls, f)) for f in _LS_FIELDS}
 
-    opt = state.opt_state
+    ls = state.loss_scale
     return {
-        "step": np_(state.step),
+        "step": _np(state.step),
         "params": flax_from_named(state.params),
-        "opt_state": {"step": np_(opt.step),
-                      "exp_avg": flax_from_named(opt.exp_avg),
-                      "exp_avg_sq": flax_from_named(opt.exp_avg_sq)},
-        "loss_scale": {f: np_(getattr(state.loss_scale, f))
-                       for f in _LS_FIELDS}}
+        "opt_state": _opt_to_numpy(state.opt_state),
+        "loss_scale": ([ls_np(s) for s in ls] if isinstance(ls, tuple)
+                       else ls_np(ls))}

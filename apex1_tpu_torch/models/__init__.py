@@ -12,6 +12,8 @@ from apex1_tpu_torch.models.quant_decode import (gpt2_quant_decoder,
                                                  llama_quant_decoder,
                                                  quantize_gpt2_params,
                                                  quantize_llama_params)
+from apex1_tpu_torch.models.resnet import (Bottleneck, ResNet,
+                                           ResNetConfig, resnet_loss_fn)
 from apex1_tpu_torch.models.t5 import (T5, RelPosBias, T5Config,
                                        relative_position_bucket, t5_loss_fn)
 
@@ -22,5 +24,6 @@ __all__ = ["Bert", "BertConfig", "BertLayer", "BertPretrain",
            "LlamaConfig", "init_weights", "is_moe_layer", "llama_loss_fn",
            "gpt2_quant_decoder", "llama_quant_decoder",
            "quantize_gpt2_params", "quantize_llama_params",
+           "Bottleneck", "ResNet", "ResNetConfig", "resnet_loss_fn",
            "T5", "RelPosBias", "T5Config", "relative_position_bucket",
            "t5_loss_fn"]

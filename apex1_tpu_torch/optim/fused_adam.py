@@ -43,6 +43,32 @@ class GradientTransformation:
     update: Callable
 
 
+def zeros_f32(params: dict) -> dict:
+    """fp32 zeros shaped like each param: a moment's initial value."""
+    return {k: torch.zeros_like(p, dtype=torch.float32)
+            for k, p in params.items()}
+
+
+def step0(params: dict) -> torch.Tensor:
+    """The step count's initial value, an int32 0-d tensor on the
+    params' device."""
+    dev = next(iter(params.values())).device if params else None
+    return torch.zeros((), dtype=torch.int32, device=dev)
+
+
+def bias_corrections(b1: float, b2: float, step: torch.Tensor, on: bool):
+    """(1 - b1^t, 1 - b2^t) as fp32 0-d tensors, or (1.0, 1.0)."""
+    if not on:
+        return 1.0, 1.0
+    t = step.to(torch.float32)
+
+    def bc(b):
+        return 1.0 - torch.pow(torch.tensor(b, dtype=torch.float32,
+                                            device=t.device), t)
+
+    return bc(b1), bc(b2)
+
+
 def fused_adam(learning_rate: Union[float, Callable] = 1e-3,
                b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                weight_decay: float = 0.0, adam_w_mode: bool = True,
@@ -52,27 +78,15 @@ def fused_adam(learning_rate: Union[float, Callable] = 1e-3,
     params. ``learning_rate`` may be a schedule ``f(step) -> lr``."""
 
     def init(params: dict) -> FusedAdamState:
-        dev = next(iter(params.values())).device if params else None
-        return FusedAdamState(
-            step=torch.zeros((), dtype=torch.int32, device=dev),
-            exp_avg={k: torch.zeros_like(p, dtype=torch.float32)
-                     for k, p in params.items()},
-            exp_avg_sq={k: torch.zeros_like(p, dtype=torch.float32)
-                        for k, p in params.items()})
+        return FusedAdamState(step=step0(params), exp_avg=zeros_f32(params),
+                              exp_avg_sq=zeros_f32(params))
 
     def update(grads: dict, state: FusedAdamState, params: dict = None):
         if params is None:
             raise ValueError("fused_adam requires params")
         step = state.step + 1
         lr = learning_rate(step) if callable(learning_rate) else learning_rate
-        t = step.to(torch.float32)
-        if bias_correction:
-            bc1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32,
-                                               device=t.device), t)
-            bc2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32,
-                                               device=t.device), t)
-        else:
-            bc1 = bc2 = 1.0
+        bc1, bc2 = bias_corrections(b1, b2, step, bias_correction)
         updates, new_m, new_v = {}, {}, {}
         for k, g in grads.items():
             p = params[k]

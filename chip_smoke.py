@@ -7,7 +7,8 @@
                                      # and training steps (GPT-2: flash
                                      # off, flash on, flash and fused
                                      # head; llama_block: fused_mlp off
-                                     # and on; bert; bert_large; t5) and
+                                     # and on; bert; bert_large; t5;
+                                     # resnet) and
                                      # the decode slice's token steps
                                      # (decode-int8, serve-lora), or
                                      # only the NAMEs given (keys of the
@@ -89,7 +90,8 @@ Phases, each printed on its own line; a failure in any exits non-zero:
    its own dropout); the fused MLM heads (H + 1 = 769 and 1025 on the
    plain-load branch, and zero-padded to 776 and 1032 as the models run
    them; labels -1 outside the masked tokens) and the NSP cross-entropy
-   (K = 2). The
+   (K = 2); the ResNet head, (64, 1000) fp32 logits, K = 1000 unpadded
+   (the JAX package pads it to 1024 lanes), with the same bits twice. The
    T5 slice's: flash with an additive bias at T5's shape (8 x 16 heads
    x 512, D 64, bf16; the (1, 16, 512, 512) fp32 relative-position
    bias), non-causal as in the encoder and causal as in the decoder,
@@ -286,7 +288,36 @@ Phases, each printed on its own line; a failure in any exits non-zero:
    its plain versions on the card, ``num_draft=2`` against 0 with and
    without LoRA: equal streams, or a first difference at a near-tie of
    the reference's sampling scores.
-26. the multi-GPU slice, on a one-rank NCCL process group (a file
+26. train-resnet — the JAX bench's ``resnet`` (``bench.py:261-300``):
+   ResNet-50 (stages 3/4/6/3, width 64, 1000 classes; weights drawn on
+   the card from a seed) on 64 images of 224 x 224 x 3 and their labels
+   (``np.random.default_rng(1234)``) under ``Amp(fused_sgd(0.1,
+   momentum=0.9, weight_decay=1e-4))`` at O2 with ``has_aux=True``,
+   the running statistics carried from step to step as the aux, 6
+   steps: finite losses, exactly one cross-entropy forward and backward
+   launch a step and nothing else (the convolutions are cuDNN's, the
+   batch norm plain PyTorch, as the JAX package leaves both to XLA);
+   images/s from the median wall of steps 2-6 beside the bench's A100
+   proxy 2,900, device ms a step and the busy share over 3 profiled
+   steps with the largest kernels, and peak memory.
+27. train-gpt2-fp16 — the bench's ``gpt2_fp16`` (``bench.py:188-216``):
+   GPT-2 124M at B=16 x S=1024 under O1_fp16 (fp16 compute, fp32
+   fragile ops, a dynamic loss scale from 2^16) with the default
+   ``use_flash=True`` and ``fuse_head=True``, fused Adam, 10 steps:
+   the losses from the first finite step on finite, fewer than half the
+   steps skipped, exact launches (LN 25/25, flash 12/12/12,
+   linear-xent 1/1/1); tokens/s, skipped steps and the loss scale; then
+   one step with the loss multiplied by inf, which must be skipped,
+   leave the params and both Adam moments bit for bit and halve the
+   scale.
+28. resnet-parity — a reduced ResNet (stages 1/1/1/1, width 64, 64
+   images of 64 x 64) at O0, 2 steps through the kernels and through
+   the plain versions on the card: the loss within 1e-5 relative, the
+   grad norm within 1e-4 and the running statistics within 1e-5 of
+   their tensors' largest values (cuDNN's backward may not repeat its
+   bits, so only the cross-entropy kernel is held to the same bits
+   twice, in the kernels phase).
+29. the multi-GPU slice, on a one-rank NCCL process group (a file
    rendezvous, `apex1_tpu_torch.parallel.init_distributed`): tp-sp —
    the SP boundary MLP (x (8192, 2048) bf16, ffn 8192;
    `tools/bench_fused_comm.py`'s A/B shapes) through
@@ -306,11 +337,12 @@ Phases, each printed on its own line; a failure in any exits non-zero:
    with ``Amp(grad_psum_axes=("dp",))`` against the same steps without,
    losses and params bit for bit; rdma — ``matmul_reduce_scatter_rdma``
    raises its ring-size error at world 1.
-27. the ``kernels`` JSON line (each kernel's launches over the main
+30. the ``kernels`` JSON line (each kernel's launches over the main
    paths: the engine, the train phases, dpo, generate, train-llama,
    serve-llama and its generate, the BERT phases, train-gpt2-dropout,
    train-t5, mha, train-llama-longctx, decode, decode-int8,
-   serve-lora, tp-sp, cp, vp-ce and ddp), the card's name and power
+   serve-lora, train-resnet, train-gpt2-fp16, tp-sp, cp, vp-ce and
+   ddp), the card's name and power
    limit, and the last line ``{"ok": true, "device": {...}}``.
 
 Kernel times are device times of CUDA-graph replays (no host launch
@@ -886,55 +918,63 @@ def check_softmax(torch, ops, gen):
     return fwd, bwd
 
 
-def check_xent_nsp(torch, ops, gen):
-    """Kernels 18 and 19 at BERT's NSP head: (8, 2) fp32 logits, K = 2,
-    labels in {0, 1}, the mean's 1/8 as dloss. Returns the (forward,
-    backward) rows."""
+def check_xent_small(torch, ops, gen, B: int, K: int, case: str,
+                     scale: float, bits: bool):
+    """Kernels 18 and 19 on (B, K) fp32 logits (``scale`` times a
+    normal draw), every class real, smoothing 0, the mean's 1/B as
+    dloss; ``F.cross_entropy`` and its backward timed beside them. With
+    ``bits`` each row also holds the kernel's bits equal on a second
+    launch. Returns the (forward, backward) rows."""
     import torch.nn.functional as F
     from apex1_tpu_torch.ops.xentropy import xent_bwd, xent_fwd
-    B = 8
-    x = torch.randn((1, B, 2), generator=gen, device="cuda") * 2
-    t = torch.randint(0, 2, (B,), generator=gen, device="cuda")
+    x = torch.randn((1, B, K), generator=gen, device="cuda") * scale
+    t = torch.randint(0, K, (B,), generator=gen, device="cuda")
     dloss = torch.full((B,), 1.0 / B, device="cuda")
     tol = TOLS["float32"]
-    case = f"BERT NSP rows={B} V=2 K=2"
     rows = []
     for name in ("fwd", "bwd"):
         if name == "fwd":
             def run():
-                return xent_fwd(x, t, 0.0, None, 2)
+                return xent_fwd(x, t, 0.0, None, K)
         else:
-            lse = xent_fwd(x, t, 0.0, None, 2)[1]
+            lse = xent_fwd(x, t, 0.0, None, K)[1]
 
             def run():
-                return xent_bwd(x, t, lse, dloss, 0.0, None, 2)
-        got = run()
+                return (xent_bwd(x, t, lse, dloss, 0.0, None, K),)
+        got, again = run(), run()
         with ops.force_impl("torch"):
             want = run()
             plain = event_ms(run)
         torch.cuda.synchronize()
-        pairs = zip(got, want) if name == "fwd" else ((got, want),)
-        abs_e, worst = max_errs_all(pairs, tol)
+        abs_e, worst = max_errs_all(zip(got, want), tol)
         if name == "fwd":
             lib = graph_ms(lambda: F.cross_entropy(x[0], t,
                                                    reduction="none"))
-            bnd = bound_ms(B * 8 + B * 8 + B * 8, 6 * B * 2)
+            # logits, int64 labels read; loss and lse written
+            bnd = bound_ms(B * K * 4 + B * 8 + B * 8, 6 * B * K)
         else:
             xr = x[0].detach().requires_grad_()
             loss = F.cross_entropy(xr, t, reduction="none")
             lib = event_ms(lambda: torch.autograd.grad(
                 loss, xr, dloss, retain_graph=True))
-            bnd = bound_ms(B * 8 + B * 12 + B * 8, 5 * B * 2)
-        rows.append(dict(case=case, abs=abs_e, worst=worst, tol=tol,
-                         ms=graph_ms(run), plain_ms=plain, library_ms=lib,
-                         bound_ms=bnd[0], bound_by=bnd[1], main=False))
+            # logits, labels, lse and dloss read; dx written
+            bnd = bound_ms(B * K * 4 + B * 12 + B * K * 4, 5 * B * K)
+        row = dict(case=case, abs=abs_e, worst=worst, tol=tol,
+                   ms=graph_ms(run), plain_ms=plain, library_ms=lib,
+                   bound_ms=bnd[0], bound_by=bnd[1], main=False)
+        if bits:
+            row["same_bits"] = all(torch.equal(a, b)
+                                   for a, b in zip(got, again))
+        rows.append(row)
     return rows
 
 
 def check_xent(torch, ops, gen):
     """Kernels 18 and 19 at the training step's logits[:, :-1] slice of
     (16, 1024, 50304) fp32 logits, 50257 real classes: smoothing 0 (the
-    GPT-2 path) and 0.1, and a padding_idx."""
+    GPT-2 path) and 0.1, and a padding_idx; at BERT's NSP head ((8, 2),
+    K = 2) and at the ResNet head ((64, 1000) fp32, K = 1000, unpadded,
+    the same bits twice)."""
     import torch.nn.functional as F
     from apex1_tpu_torch.ops.xentropy import xent_bwd, xent_fwd
     full = torch.randn((TB, TS, TV_PAD), generator=gen, device="cuda") * 2
@@ -947,7 +987,11 @@ def check_xent(torch, ops, gen):
     # the library call gets the real classes as one dense tensor, made
     # outside its timing
     xl = x.reshape(rows, TV_PAD)[:, :TV].contiguous()
-    nsp = check_xent_nsp(torch, ops, gen)
+    nsp = check_xent_small(torch, ops, gen, 8, 2, "BERT NSP rows=8 V=2 K=2",
+                           2.0, False)
+    head = check_xent_small(torch, ops, gen, RESNET_B, 1000,
+                            f"ResNet head rows={RESNET_B} V=1000 K=1000",
+                            4.0, True)
     fwd, bwd = [], []
     for smoothing, pad in ((0.0, None), (0.1, None), (0.0, 0)):
         lab = t if pad is None else t_pad
@@ -1005,8 +1049,8 @@ def check_xent(torch, ops, gen):
                         plain_ms=plain, library_ms=lib, bound_ms=bnd,
                         bound_by=by, main=main))
         del got, want, got_b, want_b
-    fwd.append(nsp[0])
-    bwd.append(nsp[1])
+    fwd += [nsp[0], head[0]]
+    bwd += [nsp[1], head[1]]
     return fwd, bwd
 
 
@@ -5176,6 +5220,235 @@ def profile_t5(torch, steps: int = 3) -> dict:
     return out
 
 
+# ---- ResNet-50 and GPT-2 under O1_fp16: the optimizers and amp slice -----
+
+#: the JAX bench's ``resnet`` (`bench.py:261-300`): ResNet-50 at B
+#: images of HW x HW x 3 under O2 with FusedSGD, the running statistics
+#: carried as the step's aux; RESNET_STEPS steps
+RESNET_B, RESNET_HW, RESNET_STEPS = 64, 224, 6
+#: resnet-parity's reduced ResNet: stages, width, images, steps
+RESNET_PAR = dict(stage_sizes=(1, 1, 1, 1), width=64, hw=64, steps=2)
+#: the JAX bench's ``gpt2_fp16`` (`bench.py:188-216`): GPT-2 124M at
+#: B x S under O1_fp16 (dynamic loss scale), default use_flash and
+#: fuse_head, 10 steps
+GPT2_FP16_STEPS = 10
+
+
+def make_resnet_trainer(torch, level: str, seed: int, B: int, hw: int,
+                        **cfg_kw):
+    """ResNet (ResNet-50 unless ``cfg_kw`` cut it) on the card, weights
+    from ``seed``, under ``Amp(fused_sgd(0.1, momentum=0.9,
+    weight_decay=1e-4), opt_level=level)`` with ``has_aux=True``; its
+    batch: B images of hw x hw x 3 and their labels from
+    ``np.random.default_rng(seed)``. The step carries ``(amp state,
+    running statistics)`` as the bench does."""
+    import numpy as np
+    from apex1_tpu_torch import (Amp, ResNet, ResNetConfig, fused_sgd,
+                                 get_policy, resnet_loss_fn)
+    cfg = ResNetConfig.resnet50(policy=get_policy(level), **cfg_kw)
+    model = ResNet(cfg, device="cuda", seed=seed)
+    rng = np.random.default_rng(seed)
+    images = torch.from_numpy(rng.normal(size=(B, hw, hw, 3)).astype(
+        np.float32)).cuda()
+    labels = torch.from_numpy(rng.integers(0, cfg.num_classes, (B,))).cuda()
+    amp = Amp(fused_sgd(0.1, momentum=0.9, weight_decay=1e-4),
+              opt_level=level)
+    inner = amp.make_train_step(resnet_loss_fn(model), has_aux=True)
+
+    def step(carry, images, labels):
+        state, stats = carry
+        state, m = inner(state, images, labels, stats)
+        return (state, m["aux"]), m
+
+    carry = (amp.init(dict(model.named_parameters())),
+             {k: v.clone() for k, v in model.named_buffers()})
+    return cfg, carry, step, (images, labels)
+
+
+def run_resnet(torch, ops, card, launches):
+    """train-resnet: the bench's ``resnet``, RESNET_STEPS O2 steps, then
+    3 steps under torch.profiler. Finite losses, one cross-entropy
+    forward and backward launch a step and nothing else; images/s from
+    the median wall of steps 2-n, device ms a step and busy share,
+    peak memory."""
+    ops.reset_launches()
+    cfg, carry, step, batch = make_resnet_trainer(
+        torch, "O2", SEED, RESNET_B, RESNET_HW)
+    rows, peak, carry = run_steps(torch, ops, carry, step, batch,
+                                  RESNET_STEPS, return_state=True)
+    for name, n in ops.launch_counts().items():
+        launches[name] = launches.get(name, 0) + n
+    prof = profiled_steps(torch, carry, step, batch)
+    del carry, step, batch
+    torch.cuda.empty_cache()
+    walls = sorted(r["wall_ms"] for r in rows[1:])
+    med = walls[len(walls) // 2]
+    for r in rows:
+        print(f"phase train-resnet: O2 step {r['step']} loss "
+              f"{r['loss']:.6f} grad_norm {r['grad_norm']:.4f} wall "
+              f"{r['wall_ms']:.1f} ms launches {r['launches']} [{card}]")
+    top = ", ".join(f"{t['name'][:48]} {t['ms_per_step']:.3f} ms x"
+                    f"{t['calls']}" for t in prof["top"][:8])
+    out = dict(steps=rows, peak_gib=peak, step_wall_ms=med,
+               images_per_s=RESNET_B / med * 1e3, profile=prof)
+    print(f"phase train-resnet: ResNet-50 O2 fused_sgd(0.1, momentum 0.9, "
+          f"wd 1e-4), running stats as the aux, B={RESNET_B} "
+          f"{RESNET_HW}x{RESNET_HW}x3, {cfg.num_classes} classes; step wall "
+          f"{med:.2f} ms (median of steps 2-{len(rows)}), "
+          f"{out['images_per_s']:.1f} images/s (bench's A100 proxy 2,900), "
+          f"device {prof['device_ms_per_step']:.3f} ms a step in a "
+          f"{prof['step_wall_ms']:.2f} ms profiled step (busy "
+          f"{prof['device_busy']:.3f}), peak memory {peak:.2f} GiB; "
+          f"largest kernels a step: {top} [{card}]")
+    losses = [r["loss"] for r in rows]
+    if not all(math.isfinite(v) for v in losses):
+        return out, f"train-resnet: a loss is not finite: {losses}"
+    for r in rows:
+        if r["launches"] != {"xent_fwd": 1, "xent_bwd": 1}:
+            return out, (f"train-resnet step {r['step']}: launches "
+                         f"{r['launches']}, expected xent_fwd 1, xent_bwd 1")
+    return out, None
+
+
+def run_resnet_parity(torch, ops, card):
+    """resnet-parity: the reduced ResNet (RESNET_PAR) at O0 through the
+    kernels and through the plain versions on the card: per step the
+    loss within 1e-5 relative, the grad norm within 1e-4 and every new
+    running statistic within 1e-5 of its tensor's largest value; the
+    kernel side launches the cross-entropy once a step each way, the
+    plain side nothing."""
+    import contextlib
+    p = dict(RESNET_PAR)
+    hw, steps = p.pop("hw"), p.pop("steps")
+    out = {}
+    for impl in ("kernel", "torch"):
+        ctx = (ops.force_impl("torch") if impl == "torch"
+               else contextlib.nullcontext())
+        ops.reset_launches()
+        with ctx:
+            _, carry, step, batch = make_resnet_trainer(
+                torch, "O0", SEED + 1, RESNET_B, hw, **p)
+            rows, stats = [], []
+            for _ in range(steps):
+                carry, m = step(carry, *batch)
+                rows.append((m["loss"].item(), m["grad_norm"].item()))
+                stats.append(carry[1])
+        out[impl] = dict(rows=rows, stats=stats, launches={
+            k: n for k, n in ops.launch_counts().items() if n})
+        del carry, step, batch
+    k, pl = out["kernel"], out["torch"]
+    stat_err = max(
+        ((a[n] - b[n]).abs().max() / b[n].abs().max().clamp(min=1e-30)).item()
+        for a, b in zip(k["stats"], pl["stats"]) for n in b)
+    print(f"phase resnet-parity: O0 stages {p['stage_sizes']} width "
+          f"{p['width']} B={RESNET_B} {hw}x{hw}, {steps} steps, (loss, "
+          f"grad_norm) kernels {k['rows']} plain {pl['rows']}; running "
+          f"stats worst error over their tensor's largest value "
+          f"{stat_err:.3g}; launches kernels {k['launches']} plain "
+          f"{pl['launches']} [{card}]")
+    res = dict(rows={i: out[i]["rows"] for i in out}, stat_err=stat_err,
+               launches={i: out[i]["launches"] for i in out})
+    if pl["launches"] or k["launches"] != {"xent_fwd": steps,
+                                           "xent_bwd": steps}:
+        return res, f"resnet-parity: launches {res['launches']}"
+    for (kl, kg), (ql, qg) in zip(k["rows"], pl["rows"]):
+        if abs(kl - ql) > 1e-5 * abs(ql) or abs(kg - qg) > 1e-4 * abs(qg):
+            return res, (f"resnet-parity: kernels {k['rows']} vs plain "
+                         f"{pl['rows']}")
+    if not stat_err <= 1e-5:
+        return res, f"resnet-parity: running stats differ by {stat_err:.3g}"
+    return res, None
+
+
+def run_gpt2_fp16(torch, ops, card, launches):
+    """train-gpt2-fp16: the bench's ``gpt2_fp16``, GPT2_FP16_STEPS
+    O1_fp16 steps (flash, fused head) from a loss scale of 2^16, then
+    one step with the loss multiplied by inf: it must be skipped, leave
+    the params and the Adam moments bit for bit and halve the scale.
+    Every loss finite; exact launches a step."""
+    ops.reset_launches()
+    cfg, state, step, batch = make_trainer(torch, "O1_fp16", 12, SEED,
+                                           factor=True, use_flash=True,
+                                           fuse_head=True)
+    one = torch.ones((), device="cuda")
+    rows, peak, state = run_steps(torch, ops, state, step, (one, *batch),
+                                  GPT2_FP16_STEPS, return_state=True)
+    for name, n in ops.launch_counts().items():
+        launches[name] = launches.get(name, 0) + n
+    before = state
+    after, m = step(before, torch.full((), float("inf"), device="cuda"),
+                    *batch)
+    kept = all(torch.equal(after.params[k], before.params[k])
+               and torch.equal(after.opt_state.exp_avg[k],
+                               before.opt_state.exp_avg[k])
+               and torch.equal(after.opt_state.exp_avg_sq[k],
+                               before.opt_state.exp_avg_sq[k])
+               for k in before.params)
+    forced = dict(finite=bool(m["grads_finite"].item()),
+                  skipped=int(m["skipped_steps"].item()),
+                  scale_used=m["loss_scale"].item(),
+                  scale_after=after.loss_scale.scale.item(), kept=kept)
+    del state, before, after, step, batch
+    torch.cuda.empty_cache()
+    walls = sorted(r["wall_ms"] for r in rows[1:])
+    med = walls[len(walls) // 2]
+    per_step = train_launches(12, True, True)
+    for r in rows:
+        print(f"phase train-gpt2-fp16: O1_fp16 step {r['step']} loss "
+              f"{r['loss']:.6f} grad_norm {r['grad_norm']:.4f} loss_scale "
+              f"{r['loss_scale']:g} skipped_steps {r['skipped']} wall "
+              f"{r['wall_ms']:.1f} ms launches {r['launches']} [{card}]")
+    out = dict(steps=rows, peak_gib=peak, step_wall_ms=med,
+               tokens_per_s=TB * TS / med * 1e3,
+               skipped=rows[-1]["skipped"],
+               final_scale=rows[-1]["loss_scale"], forced=forced)
+    print(f"phase train-gpt2-fp16: GPT-2 124M O1_fp16 use_flash=True "
+          f"fuse_head=True B={TB} S={TS}; step wall {med:.2f} ms (median "
+          f"of steps 2-{len(rows)}), {out['tokens_per_s']:.0f} tokens/s "
+          f"(bench's A100 proxy 145,000), skipped steps {out['skipped']} "
+          f"of {len(rows)}, loss scale at step {len(rows)} "
+          f"{out['final_scale']:g}, peak memory {peak:.2f} GiB; forced "
+          f"overflow {forced} [{card}]")
+    # the steps before the first finite one overflowed while the scale
+    # fell from 2^16; from there on every loss must be finite
+    first = next((i for i, r in enumerate(rows)
+                  if r["skipped"] == (rows[i - 1]["skipped"] if i else 0)),
+                 len(rows))
+    losses = [r["loss"] for r in rows[first:]]
+    if not losses or not all(math.isfinite(v) for v in losses):
+        return out, (f"train-gpt2-fp16: a loss after calibration is not "
+                     f"finite: {[r['loss'] for r in rows]}")
+    if rows[-1]["skipped"] >= len(rows) // 2:
+        return out, (f"train-gpt2-fp16: {rows[-1]['skipped']} of "
+                     f"{len(rows)} steps skipped")
+    for r in rows:
+        if r["launches"] != per_step:
+            return out, (f"train-gpt2-fp16 step {r['step']}: launches "
+                         f"{r['launches']}, expected {per_step}")
+    if (forced["finite"] or not kept
+            or forced["skipped"] != rows[-1]["skipped"] + 1
+            or forced["scale_after"] != forced["scale_used"] / 2):
+        return out, (f"train-gpt2-fp16: the forced overflow did not skip "
+                     f"its step cleanly: {forced}")
+    return out, None
+
+
+def profile_resnet(torch, steps: int = 3) -> dict:
+    """``--profile``: where a ``resnet`` O2 training step's time goes,
+    as `profile_train` measures it."""
+    _, carry, step, batch = make_resnet_trainer(torch, "O2", SEED,
+                                                RESNET_B, RESNET_HW)
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        carry, _ = step(carry, *batch)
+    out = {"bench": "resnet", **profiled_steps(torch, carry, step, batch,
+                                               steps),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del carry, step, batch
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---- the multi-GPU slice: tensor, sequence and context parallelism ------
 
 #: the JAX package's A/B shapes (tools/bench_fused_comm.py:104-108): the
@@ -5610,6 +5883,7 @@ def main() -> int:
                 "bert": lambda: profile_bert(torch, "bert"),
                 "bert_large": lambda: profile_bert(torch, "bert_large"),
                 "t5": lambda: profile_t5(torch),
+                "resnet": lambda: profile_resnet(torch),
                 "decode_int8": lambda: profile_decode_int8(torch),
                 "serve_lora": lambda: profile_serve_lora(torch)}
         # the names after --profile pick some of them; none: all
@@ -5963,7 +6237,21 @@ def main() -> int:
             return fail(err)
         stamp(phase)
 
-    # 27-31. the multi-GPU slice on a one-rank NCCL group: tensor and
+    # 26-28. the optimizers and amp slice: the bench's resnet, its
+    # kernel-vs-plain parity, and the bench's gpt2_fp16
+    amp_out = {}
+    for phase, fn in (("train-resnet", run_resnet),
+                      ("train-gpt2-fp16", run_gpt2_fp16)):
+        amp_out[phase], err = fn(torch, ops, card, main_launches)
+        if err:
+            return fail(err)
+        stamp(phase)
+    amp_out["resnet-parity"], err = run_resnet_parity(torch, ops, card)
+    if err:
+        return fail(err)
+    stamp("resnet-parity")
+
+    # 29. the multi-GPU slice on a one-rank NCCL group: tensor and
     # sequence parallelism, context parallelism, the vocab-parallel head,
     # data parallelism, and the rdma form's ring-size check
     par_out = {}
@@ -5984,11 +6272,11 @@ def main() -> int:
     print(f"phase times: { {k: round(v, 1) for k, v in phase_s.items()} } "
           f"s wall [{card}]")
 
-    # 27. the kernels line, the card, the last line. launches: the main
+    # 30. the kernels line, the card, the last line. launches: the main
     # paths' runs (engine, the train phases, dpo, generate, train-llama,
     # serve-llama and its generate, the BERT phases, train-gpt2-dropout,
     # train-t5, mha, train-llama-longctx, decode, decode-int8, serve-lora,
-    # tp-sp, cp, vp-ce, ddp)
+    # train-resnet, train-gpt2-fp16, tp-sp, cp, vp-ce, ddp)
     sources = {"layer_norm_fwd": ("apex1_tpu_torch/csrc/layer_norm.cu",
                                   "apex1_tpu/ops/layer_norm.py:110"),
                "paged_attend": ("apex1_tpu_torch/csrc/paged_attend.cu",
@@ -6057,7 +6345,7 @@ def main() -> int:
                    "train": train_out, "train_parity": par,
                    "dpo": dpo_out, "generate": gen_out, "llama": llama_out,
                    "bert": bert_out, "t5": t5_out, "decode": dec_out,
-                   "parallel": par_out, "phase_s": phase_s},
+                   "amp": amp_out, "parallel": par_out, "phase_s": phase_s},
                   f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -274,14 +274,20 @@ def test_max_grad_norm_clips_like_jax(tiny):
 
 
 def test_amp_refuses_what_is_not_ported():
-    # grad_psum_axes is ported (tests/test_torch_ddp.py holds it
-    # against JAX's shard_map steps): accepted, not refused
+    # every form is ported now, so each is accepted: grad_psum_axes
+    # (tests/test_torch_ddp.py holds it against JAX's shard_map steps),
+    # num_losses, accum_steps, has_aux and the scale clamps
+    # (tests/test_torch_amp_features.py holds them against JAX)
     assert Amp(fused_adam(), grad_psum_axes=("dp",)).grad_psum_axes == \
         ("dp",)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        Amp(fused_adam(), num_losses=2)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        Amp(fused_adam()).make_train_step(lambda p: p, accum_steps=2)
+    amp = Amp(fused_adam(), opt_level="O2_fp16", num_losses=2,
+              min_loss_scale=1.0, max_loss_scale=2.0 ** 20)
+    assert amp.num_losses == 2 and amp.scaler.max_loss_scale == 2.0 ** 20
+    state = amp.init({"w": torch.ones(2)})
+    assert len(state.loss_scale) == 2
+    assert callable(amp.make_train_step(lambda p: p["w"].sum(),
+                                        accum_steps=2, loss_id=1,
+                                        has_aux=True))
 
 
 def test_gpt2_refuses_flash_and_fused_head(tiny):

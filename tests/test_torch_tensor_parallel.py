@@ -93,10 +93,20 @@ def _jax_cases(i, n):
     """The JAX package's side of every case, inside shard_map."""
     ax = "tp"
     out = {}
+    last = []
 
     def vjp(fn, primals, ct):
+        # each case starts once the previous one's outputs exist. Every
+        # collective of the module rendezvouses under one channel id, and
+        # XLA:CPU may run two independent cases' collectives in different
+        # orders on the two devices: they then wait on each other until
+        # the rendezvous' 40 s timeout aborts the process
+        if last:
+            _, primals, ct = jax.lax.optimization_barrier(
+                (last[-1], primals, ct))
         y, back = jax.vjp(fn, *primals)
-        return [y, *back(ct)]
+        last.append([y, *back(ct)])
+        return last[-1]
 
     regions = {
         "copy": (jtp.copy_to_tensor_model_parallel_region, "x_rep"),
@@ -137,9 +147,8 @@ def _jax_cases(i, n):
     out["row_scatter"] = vjp(
         lambda x, w: row(x, w, input_is_parallel=False, axis_name=ax),
         [i["x_wide"], i["w_row"]], i["ct_row"])
-    y, back = jax.vjp(lambda t: jtp.vocab_parallel_embedding(
-        i["tokens"], t, axis_name=ax), i["table"])
-    out["embedding"] = [y, *back(i["ct_emb"])]
+    out["embedding"] = vjp(lambda t: jtp.vocab_parallel_embedding(
+        i["tokens"], t, axis_name=ax), [i["table"]], i["ct_emb"])
     for ls in (0.0, 0.1):
         out[f"vpce_{ls}"] = vjp(
             lambda lg: jtp.vocab_parallel_cross_entropy(lg, i["labels_s"],

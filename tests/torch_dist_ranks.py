@@ -333,3 +333,36 @@ def broken(n: int):
         raise ValueError("rank 1 is broken")
     dist.all_reduce(torch.ones(1))
     return dist.get_rank()
+
+
+# ---- tests/test_torch_sync_batchnorm.py -----------------------------------
+
+
+def sync_bn_cases(inputs: dict, group_sizes: list) -> dict:
+    """On a dp-only mesh: a channel-last `SyncBatchNorm` synced over
+    "dp" with each of ``group_sizes`` (None: the whole group), training
+    mode on this rank's x; per case y, the grads of <y, ct> for x,
+    scale and bias, and the new running statistics; then the module's
+    own forward, which writes them into its buffers."""
+    from apex1_tpu_torch.parallel import SyncBatchNorm
+    from apex1_tpu_torch.transformer import parallel_state as ps
+    _setup()
+    i = _mine(inputs, dist.get_rank())
+    out = {}
+    for gs in group_sizes:
+        bn = SyncBatchNorm(i["x"].shape[-1], axis_name="dp", group_size=gs,
+                           device="cpu")
+        with torch.no_grad():
+            for k in ("scale", "bias", "mean", "var"):
+                getattr(bn, k).copy_(torch.from_numpy(inputs[k]))
+        x = i["x"].clone().requires_grad_()
+        y, stats = bn.stats_forward(x)
+        grads = torch.autograd.grad((y * i["ct"]).sum(),
+                                    [x, bn.scale, bn.bias])
+        bn(i["x"])
+        out[str(gs)] = dict(y=y, dx=grads[0], dscale=grads[1],
+                            dbias=grads[2], mean=stats["mean"],
+                            var=stats["var"],
+                            buffers=[bn.mean.clone(), bn.var.clone()])
+    ps.destroy_model_parallel()
+    return _np(out)
