@@ -13,10 +13,12 @@ from apex1_tpu_torch.core.mesh import MeshConfig, make_mesh
 from apex1_tpu_torch.core.policy import PrecisionPolicy, get_policy
 from apex1_tpu_torch.interop import (bert_params_from_jax,
                                      gpt2_params_from_jax,
+                                     llama3d_state_from_jax,
                                      llama_params_from_jax,
                                      quant_params_from_jax,
                                      resnet_params_from_jax,
                                      t5_params_from_jax)
+from apex1_tpu_torch.models.llama_3d import Llama3DConfig
 from apex1_tpu_torch.models import (GPT2, BertConfig, BertPretrain,
                                     GPT2Config, Llama, LlamaConfig, T5,
                                     T5Config, bert_pretrain_loss_fn,
@@ -38,7 +40,8 @@ __all__ = ["Amp", "AmpState", "MeshConfig", "make_mesh", "PrecisionPolicy",
            "get_policy",
            "bert_params_from_jax", "BertConfig", "BertPretrain",
            "bert_pretrain_loss_fn", "gpt2_params_from_jax",
-           "llama_params_from_jax", "quant_params_from_jax",
+           "llama_params_from_jax", "llama3d_state_from_jax",
+           "quant_params_from_jax", "Llama3DConfig",
            "t5_params_from_jax", "GPT2",
            "GPT2Config", "Llama", "LlamaConfig", "T5", "T5Config",
            "gpt2_decoder", "gpt2_loss_fn", "gpt2_quant_decoder",

@@ -17,8 +17,8 @@ over the axes in `MESH_AXES` order, tp innermost (contiguous ranks),
 dp outermost. So rank r of a port run and device r of a JAX
 ``shard_map`` hold the same shard.
 
-Only dp, cp and tp take a degree above 1 so far; fsdp, pp and ep raise
-(ROADMAP.md queue A item 7).
+Every axis but fsdp takes a degree above 1; fsdp raises until the
+distributed optimizer is ported (ROADMAP.md queue A item 7).
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ AXIS_TP = "tp"
 MESH_AXES = (AXIS_DP, AXIS_FSDP, AXIS_PP, AXIS_CP, AXIS_EP, AXIS_TP)
 
 #: axes whose degree may exceed 1 in the port so far
-_PORTED_AXES = (AXIS_DP, AXIS_CP, AXIS_TP)
+_PORTED_AXES = (AXIS_DP, AXIS_PP, AXIS_CP, AXIS_EP, AXIS_TP)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,6 +108,23 @@ class Mesh:
     def index(self, axis: str) -> int:
         return self._ranks[axis].index(dist.get_rank())
 
+    def local_shard(self, x, spec):
+        """This rank's block of the global tensor ``x`` under ``spec``
+        (JAX's PartitionSpec as a tuple, one entry a leading dimension):
+        a dimension named by an axis, or a tuple of axes (the first the
+        major one), is cut in equal pieces and this rank's coordinate
+        picks one; None leaves it whole."""
+        for dim, ax in enumerate(spec):
+            if ax is None:
+                continue
+            axes = ax if isinstance(ax, tuple) else (ax,)
+            n, idx = 1, 0
+            for a in axes:
+                n *= self.size(a)
+                idx = idx * self.size(a) + self.index(a)
+            x = x.chunk(n, dim)[idx]
+        return x
+
 
 def make_mesh(config: Optional[MeshConfig] = None,
               **axis_sizes: int) -> Mesh:
@@ -130,7 +147,9 @@ def make_mesh(config: Optional[MeshConfig] = None,
         if n > 1 and ax not in _PORTED_AXES:
             raise NotImplementedError(
                 f"a {ax} degree above 1 is not ported yet (the port runs "
-                f"{'/'.join(_PORTED_AXES)}): ROADMAP.md queue A item 7")
+                f"{'/'.join(_PORTED_AXES)}; fsdp waits on "
+                f"parallel/distributed_optimizer.py): ROADMAP.md queue A "
+                f"item 7")
     dm = init_device_mesh("cuda" if dist.get_backend() == "nccl" else "cpu",
                           config.shape, mesh_dim_names=MESH_AXES)
     return Mesh(config, {ax: dm.get_group(ax) for ax in MESH_AXES})

@@ -35,6 +35,9 @@ numpy arrays: this module imports no JAX.
   are OIHW weights, the ``fc`` kernel transposed, the batch norms'
   ``scale``/``bias`` params and ``mean``/``var`` buffers carried as
   they are;
+- `llama3d_state_from_jax`: the JAX package's `llama_3d` global trees
+  ``{"chunk", "shared"}`` (and optionally its fused-Adam state) as this
+  rank's train state of the port's `models.llama_3d`;
 - `amp_state_from_jax` / `amp_state_to_numpy`: the whole amp training
   state (params; the optimizer state of fused Adam, SGD, LAMB,
   NovoGrad or Adagrad, LARC's step count, a ``chain`` of them as a
@@ -424,3 +427,37 @@ def amp_state_to_numpy(state: AmpState) -> dict:
         "opt_state": _opt_to_numpy(state.opt_state),
         "loss_scale": ([ls_np(s) for s in ls] if isinstance(ls, tuple)
                        else ls_np(ls))}
+
+
+def llama3d_state_from_jax(params, cfg, mesh=None, opt_state=None,
+                           device=None) -> dict:
+    """This rank's `models.llama_3d` train state from the JAX package's
+    global ``{"chunk": {...}, "shared": {...}}`` params (numpy or JAX
+    arrays; chunk leaves (num_chunks, pp, layers_per_stage, ...)) on
+    ``device`` (CUDA unless named), sharded over ``mesh``
+    (`parallel_state`'s by default) as `llama_3d.shard_params` shards.
+    ``opt_state``: JAX's `FusedAdamState` (or a dict with ``step``,
+    ``exp_avg``, ``exp_avg_sq`` trees shaped like ``params``), carried
+    into the state's moments and step; else the moments start at zero.
+    """
+    from apex1_tpu_torch.models import llama_3d
+    from apex1_tpu_torch.optim.fused_adam import FusedAdamState
+    dev = resolve_device(device)
+
+    def local(tree):
+        chunk = {k: _leaf_tensor(v, dev) for k, v in tree["chunk"].items()}
+        shared = {k: _leaf_tensor(v, dev)
+                  for k, v in tree["shared"].items()}
+        return llama_3d.shard_params(chunk, shared, cfg, mesh)
+
+    state = llama_3d.state_template(cfg, local(params))
+    if opt_state is not None:
+        get = (opt_state.get if isinstance(opt_state, Mapping)
+               else lambda k: getattr(opt_state, k))
+        state["opt"] = FusedAdamState(
+            step=torch.as_tensor(np.asarray(get("step")),
+                                 dtype=torch.int32, device=dev),
+            exp_avg=local(get("exp_avg")),
+            exp_avg_sq=local(get("exp_avg_sq")))
+        state["step"] = state["opt"].step.clone()
+    return state

@@ -8,6 +8,7 @@ from apex1_tpu_torch.models.gpt2 import (GPT2, GPT2Config, gpt2_loss_fn,
 from apex1_tpu_torch.models.llama import (Llama, LlamaBlock, LlamaConfig,
                                           init_weights, is_moe_layer,
                                           llama_loss_fn)
+from apex1_tpu_torch.models import llama_3d  # noqa: F401
 from apex1_tpu_torch.models.quant_decode import (gpt2_quant_decoder,
                                                  llama_quant_decoder,
                                                  quantize_gpt2_params,

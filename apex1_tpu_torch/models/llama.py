@@ -17,9 +17,17 @@ backward under ``remat_policy``. The forward is uncached (training:
 flash attention, packed batches through ``segment_ids``/``positions``)
 or cached (``cache``/``cache_index``: the paged engine and `generate`).
 
-Not in this slice, each raising with its ROADMAP.md item: MoE blocks
-(``moe_every > 0``), context-parallel attention (``seq_shard_axis``)
-and `param_specs` (queue A item 7, multi-GPU).
+With ``moe_every > 0`` every ``moe_every``-th block's MLP is a
+top-k-routed `transformer.moe.MoEMLP` (``layer{i}.moe.{router, w1,
+w2}``), whose Switch balance term `llama_loss_fn` adds to the loss as
+the JAX model sows it. ``seq_shard_axis`` (a mesh axis name of
+`parallel_state`'s mesh, or a process group) shards the sequence over a
+context-parallel group: attention becomes `ring_attention`
+(``cp_impl="ring"``) or `ulysses_attention` (``"ulysses"``), and the
+rotary tables take the shard's global positions.
+
+`param_specs` (the tensor-parallel sharding rules) raises: ROADMAP.md
+queue A item 7.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ from apex1_tpu_torch.ops.linear_xent import linear_cross_entropy
 from apex1_tpu_torch.ops.rope import apply_rotary_pos_emb, rope_tables
 from apex1_tpu_torch.ops.xentropy import (masked_next_token_mean,
                                           softmax_cross_entropy_loss)
+from apex1_tpu_torch.transformer.moe import MoEConfig, MoEMLP
 from apex1_tpu_torch.transformer.tensor_parallel.random import (
     checkpoint_module, checkpoint_policy)
 
@@ -102,15 +111,41 @@ def is_moe_layer(cfg: LlamaConfig, i: int) -> bool:
     return cfg.moe_every > 0 and i % cfg.moe_every == cfg.moe_every - 1
 
 
+def moe_config(cfg: LlamaConfig) -> MoEConfig:
+    """The `MoEConfig` of ``cfg``'s expert-routed blocks."""
+    return MoEConfig(num_experts=cfg.num_experts, top_k=cfg.moe_top_k,
+                     capacity_factor=cfg.moe_capacity_factor,
+                     aux_loss_weight=cfg.moe_aux_loss_weight,
+                     hidden_size=cfg.hidden_size, ffn_size=cfg.ffn_size)
+
+
+def _seq_group(seq_shard_axis):
+    """The process group behind ``seq_shard_axis`` (None: unsharded)."""
+    if seq_shard_axis is None:
+        return None
+    from apex1_tpu_torch.transformer.parallel_state import resolve_group
+    group = resolve_group(seq_shard_axis)
+    if group is None:
+        raise ValueError(f"seq_shard_axis={seq_shard_axis!r} names no "
+                         f"group: initialize parallel_state first")
+    return group
+
+
 def _param(*shape, device, fill=0.0):
     return nn.Parameter(torch.full(shape, fill, dtype=torch.float32,
                                    device=device))
 
 
 class LlamaBlock(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device=None):
+    """One block; ``use_moe`` swaps the MLP for `MoEMLP` (``moe``),
+    ``seq_group`` (a process group) runs context-parallel attention."""
+
+    def __init__(self, cfg: LlamaConfig, device=None, *,
+                 use_moe: bool = False, seq_group=None):
         super().__init__()
         self.cfg = cfg
+        self.use_moe = use_moe
+        self.seq_group = seq_group
         E, F_ = cfg.hidden_size, cfg.ffn_size
         qd, kd = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
         kw = dict(device=device)
@@ -120,9 +155,13 @@ class LlamaBlock(nn.Module):
         self.wv = _param(E, kd, **kw)
         self.wo = _param(qd, E, **kw)
         self.mlp_norm = _param(E, fill=1.0, **kw)
-        self.w_gate = _param(E, F_, **kw)
-        self.w_up = _param(E, F_, **kw)
-        self.w_down = _param(F_, E, **kw)
+        if use_moe:
+            self.moe = MoEMLP(moe_config(cfg), dtype=cfg.policy.compute_dtype,
+                              act=F.silu, device=device)
+        else:
+            self.w_gate = _param(E, F_, **kw)
+            self.w_up = _param(E, F_, **kw)
+            self.w_down = _param(F_, E, **kw)
 
     def _norm(self, g: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
         if not self.cfg.policy.keep_norms_fp32:
@@ -131,7 +170,8 @@ class LlamaBlock(nn.Module):
 
     def forward(self, x, cos, sin, segment_ids=None, cache=None,
                 cache_index=None, valid_start=None, chunk_decode=False):
-        """(B, S, E) -> ((B, S, E), the new cache entry or None)."""
+        """(B, S, E) -> ((B, S, E), the new cache entry or None, the MoE
+        balance term or None)."""
         from apex1_tpu_torch.models.generate import cached_attention
         cfg = self.cfg
         dtype = cfg.policy.compute_dtype
@@ -149,19 +189,32 @@ class LlamaBlock(nn.Module):
             attn, new_cache = cached_attention(
                 q, k, v, cache, cache_index, segment_ids=segment_ids,
                 valid_start=valid_start, chunk_decode=chunk_decode)
+        elif self.seq_group is not None and cfg.cp_impl == "ulysses":
+            from apex1_tpu_torch.parallel.ulysses import ulysses_attention
+            attn = ulysses_attention(q, k, v, self.seq_group, causal=True,
+                                     segment_ids=segment_ids)
+        elif self.seq_group is not None:
+            from apex1_tpu_torch.parallel.ring_attention import (
+                ring_attention)
+            attn = ring_attention(q, k, v, self.seq_group, causal=True,
+                                  segment_ids=segment_ids)
         else:
             attn = flash_attention(q, k, v, causal=True,
                                    segment_ids=segment_ids)
         attn = attn.transpose(1, 2).reshape(B, S, H * D)
         x = x + (attn @ self.wo.to(dtype)).to(x.dtype)
         h = self._norm(self.mlp_norm, x).to(dtype)
+        if self.use_moe:
+            y, aux = self.moe(h, token_mask=(None if segment_ids is None
+                                             else segment_ids >= 0))
+            return x + y.to(x.dtype), new_cache, aux
         wg, wu = self.w_gate.to(dtype), self.w_up.to(dtype)
         if cfg.fused_mlp:
             y = fused_glu(h, wg, wu, activation="silu")
         else:
             y = F.silu(h @ wg) * (h @ wu)
         y = y @ self.w_down.to(dtype)
-        return x + y.to(x.dtype), new_cache
+        return x + y.to(x.dtype), new_cache, None
 
 
 class Llama(nn.Module):
@@ -174,20 +227,15 @@ class Llama(nn.Module):
     def __init__(self, cfg: LlamaConfig, *,
                  seq_shard_axis: Optional[str] = None, device=None):
         super().__init__()
-        if cfg.moe_every > 0:
-            raise NotImplementedError(
-                f"MoE blocks (moe_every > 0, transformer/moe.py) come with "
-                f"the multi-GPU slice: {_MULTI_GPU}")
-        if seq_shard_axis is not None:
-            raise NotImplementedError(
-                f"context-parallel attention (seq_shard_axis, ring or "
-                f"ulysses) comes with the multi-GPU slice: {_MULTI_GPU}")
         dev = resolve_device(device)
         self.cfg = cfg
+        self.seq_group = _seq_group(seq_shard_axis)
         E, V = cfg.hidden_size, cfg.vocab_size
         self.tok_embeddings = _param(V, E, device=dev)
         for i in range(cfg.num_layers):
-            self.add_module(f"layer{i}", LlamaBlock(cfg, dev))
+            self.add_module(f"layer{i}", LlamaBlock(
+                cfg, dev, use_moe=is_moe_layer(cfg, i),
+                seq_group=self.seq_group))
         self.norm = _param(E, fill=1.0, device=dev)
         self.output = _param(V, E, device=dev)
 
@@ -201,9 +249,11 @@ class Llama(nn.Module):
 
     def forward(self, tokens, *, positions=None, segment_ids=None,
                 return_hidden=False, cache=None, cache_index=None,
-                valid_start=None, chunk_decode=False):
+                valid_start=None, chunk_decode=False, return_aux=False):
         """(B, S) tokens -> fp32 logits (B, S, vocab), or the final
-        hidden states in the compute dtype with ``return_hidden``.
+        hidden states in the compute dtype with ``return_hidden``;
+        ``return_aux`` also returns the MoE blocks' balance terms (a
+        list, empty without MoE) as the last element.
 
         ``segment_ids`` (B, S) run a packed batch (tokens attend within
         their segment); pass per-segment ``positions`` (B, S) so the
@@ -223,6 +273,11 @@ class Llama(nn.Module):
                                     device=dev)
             positions = (start.reshape(-1, 1)
                          + torch.arange(S, device=dev)).expand(B, S)
+        if positions is None and self.seq_group is not None:
+            import torch.distributed as dist
+            # the local shard's global positions along the ring
+            positions = (torch.arange(S, device=dev)
+                         + dist.get_rank(self.seq_group) * S)
         if positions is not None and positions.dim() == 2:
             # (B, S) per-row positions -> per-row (B, S, half) tables
             cos, sin = rope_tables(torch.as_tensor(positions, device=dev)
@@ -233,23 +288,28 @@ class Llama(nn.Module):
             pos = (torch.arange(S, device=dev) if positions is None
                    else torch.as_tensor(positions, device=dev))
             cos, sin = rope_tables(pos, cfg.head_dim, base=cfg.rope_base)
-        new_cache = {}
+        new_cache, auxes = {}, []
         for i, blk in enumerate(self.blocks()):
             if cfg.remat and cache is None:
-                x = checkpoint_module(blk, cfg.remat_policy, x, cos, sin,
-                                      segment_ids)[0]
-                continue
-            x, new_cache[f"layer{i}"] = blk(
-                x, cos, sin, segment_ids,
-                None if cache is None else cache[f"layer{i}"], cache_index,
-                valid_start, chunk_decode)
+                x, _, aux = checkpoint_module(blk, cfg.remat_policy, x, cos,
+                                              sin, segment_ids)
+            else:
+                x, new_cache[f"layer{i}"], aux = blk(
+                    x, cos, sin, segment_ids,
+                    None if cache is None else cache[f"layer{i}"],
+                    cache_index, valid_start, chunk_decode)
+            if aux is not None:
+                auxes.append(aux)
         g = self.norm
         if not cfg.policy.keep_norms_fp32:
             g = g.to(dtype)
         x = rms_norm(x, g, eps=cfg.norm_eps)
         out = (x.to(dtype) if return_hidden
                else head_logits(x.to(dtype), self.output.to(dtype)))
-        return out if cache is None else (out, new_cache)
+        res = (out,) if cache is None else (out, new_cache)
+        if return_aux:
+            res = res + (auxes,)
+        return res[0] if len(res) == 1 else res
 
 
 @torch.no_grad()
@@ -287,23 +347,29 @@ def llama_loss_fn(model: Llama, *, fuse_head: bool = True):
     ``fuse_head=True`` (the default): the final hidden states and the
     head go through `linear_cross_entropy`, no (B, S, V) logits.
     ``fuse_head=False``: the materialized fp32 logits through
-    `softmax_cross_entropy_loss` (the parity gold)."""
+    `softmax_cross_entropy_loss` (the parity gold). With MoE blocks
+    their Switch balance terms are added, as the JAX model sows them."""
 
     def loss_fn(params: dict, tokens: torch.Tensor, segment_ids=None,
                 positions=None) -> torch.Tensor:
-        kw = dict(segment_ids=segment_ids, positions=positions)
+        kw = dict(segment_ids=segment_ids, positions=positions,
+                  return_aux=True)
         if fuse_head:
-            h = torch.func.functional_call(
+            h, auxes = torch.func.functional_call(
                 model, params, (tokens,), dict(return_hidden=True, **kw))
             losses = linear_cross_entropy(
                 h[:, :-1], params["output"].to(h.dtype), tokens[:, 1:])
         else:
-            logits = torch.func.functional_call(model, params, (tokens,),
-                                                kw)
+            logits, auxes = torch.func.functional_call(
+                model, params, (tokens,), kw)
             losses = softmax_cross_entropy_loss(logits[:, :-1].float(),
                                                 tokens[:, 1:])
         if segment_ids is not None:
-            return masked_next_token_mean(losses, segment_ids)
-        return losses.mean()
+            loss = masked_next_token_mean(losses, segment_ids)
+        else:
+            loss = losses.mean()
+        for aux in auxes:
+            loss = loss + aux
+        return loss
 
     return loss_fn

@@ -18,8 +18,11 @@ quantized params, as `generate.llama_decoder` binds its model, so it
 plugs into `generate` and `Engine` unchanged. A tree quantized by the
 JAX package serves as it is through `interop.quant_params_from_jax`.
 
-MoE layers (``moe_every > 0``) raise: the port's MoE comes with the
-multi-GPU slice (ROADMAP.md queue A item 7).
+MoE layers (``moe_every > 0``): the stacked expert FFNs quantize per
+expert per output channel (``{"q": (E, out, in) int8, "s": (E, out)
+fp32}``), the router gate stays fp32; the decode runs the dense-dispatch
+`transformer.moe.router` (the same capacity and drop rules) and each
+expert's two products through `int8_matmul`.
 """
 
 from __future__ import annotations
@@ -34,14 +37,19 @@ from apex1_tpu_torch.ops.layer_norm import layer_norm, rms_norm
 from apex1_tpu_torch.ops.quantized import int8_matmul, quantize_int8
 from apex1_tpu_torch.ops.rope import apply_rotary_pos_emb, rope_tables
 
-_MOE = ("MoE layers (moe_every > 0) come with the multi-GPU slice: "
-        "ROADMAP.md queue A item 7 (multi-GPU)")
-
 
 def _qt(w: torch.Tensor) -> dict:
     """An (out, in) weight -> its int8 leaf."""
     q, s = quantize_int8(w)
     return {"q": q, "s": s}
+
+
+def _qt_experts(w: torch.Tensor) -> dict:
+    """Stacked (E, in, out) expert weights -> per-expert int8 leaves
+    (E, out, in) and scales (E, out)."""
+    qs = [quantize_int8(w[e].t()) for e in range(w.shape[0])]
+    return {"q": torch.stack([q for q, _ in qs]),
+            "s": torch.stack([s for _, s in qs])}
 
 
 def _positions(cache_index, B: int, S: int, device):
@@ -58,20 +66,27 @@ def quantize_llama_params(params: dict, cfg) -> dict:
     port's ``named_parameters()``) for decode: the embedding in the
     compute dtype, the norms fp32, every projection (stored (in, out))
     transposed once into the kernel's (N, K) layout and quantized, the
-    (vocab, hidden) head quantized as it lies."""
-    if cfg.moe_every > 0:
-        raise NotImplementedError(_MOE)
+    (vocab, hidden) head quantized as it lies; an MoE block's experts
+    per expert (`_qt_experts`) beside its fp32 router."""
+    from apex1_tpu_torch.models.llama import is_moe_layer
     dt = cfg.policy.compute_dtype
     out = {"tok_embeddings": params["tok_embeddings"].detach().to(dt),
            "norm": params["norm"].detach().clone()}
     for i in range(cfg.num_layers):
         p = f"layer{i}."
-        out[f"layer{i}"] = {
-            "attn_norm": params[p + "attn_norm"].detach().clone(),
-            "mlp_norm": params[p + "mlp_norm"].detach().clone(),
-            **{n: _qt(params[p + n].t())
-               for n in ("wq", "wk", "wv", "wo", "w_gate", "w_up",
-                         "w_down")}}
+        dense = ("w_gate", "w_up", "w_down")
+        moe = is_moe_layer(cfg, i)
+        qlp = {"attn_norm": params[p + "attn_norm"].detach().clone(),
+               "mlp_norm": params[p + "mlp_norm"].detach().clone(),
+               **{n: _qt(params[p + n].t())
+                  for n in ("wq", "wk", "wv", "wo") + (() if moe
+                                                       else dense)}}
+        if moe:
+            qlp["moe"] = {
+                "router": params[p + "moe.router"].detach().float().clone(),
+                "w1": _qt_experts(params[p + "moe.w1"].detach()),
+                "w2": _qt_experts(params[p + "moe.w2"].detach())}
+        out[f"layer{i}"] = qlp
     out["output"] = _qt(params["output"])
     return out
 
@@ -81,9 +96,9 @@ def llama_quant_decoder(model, qparams=None):
     ``qparams`` from `quantize_llama_params` of the model (or the tree
     given, e.g. `interop.quant_params_from_jax`), bound into
     ``apply_fn``, which has the `generate.llama_decoder` contract."""
+    from apex1_tpu_torch.models.llama import is_moe_layer, moe_config
+    from apex1_tpu_torch.transformer.moe import router
     cfg = model.cfg
-    if cfg.moe_every > 0:
-        raise NotImplementedError(_MOE)
     dt = cfg.policy.compute_dtype
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     qp = (quantize_llama_params(dict(model.named_parameters()), cfg)
@@ -97,6 +112,26 @@ def llama_quant_decoder(model, qparams=None):
         if not cfg.policy.keep_norms_fp32:
             g = g.to(dt)
         return rms_norm(x, g, eps=cfg.norm_eps).to(dt)
+
+    def moe_ffn(h, qm, segment_ids):
+        """`MoEMLP`'s decode math (the same router, capacity and drops)
+        with each expert's products through `int8_matmul`; the balance
+        term is dropped (decode feeds no optimizer)."""
+        lead, Hd = h.shape[:-1], h.shape[-1]
+        x2 = h.reshape(-1, Hd)
+        mask = (None if segment_ids is None
+                else (segment_ids >= 0).reshape(-1))
+        dispatch, combine, _ = router(x2, qm["router"], moe_config(cfg),
+                                      mask)
+        xe = torch.einsum("tec,th->ech", dispatch.to(dt), x2.to(dt))
+        w1, w2 = qm["w1"], qm["w2"]
+        ye = torch.stack([
+            int8_matmul(F.silu(int8_matmul(xe[e], w1["q"][e],
+                                           w1["s"][e]).to(dt)),
+                        w2["q"][e], w2["s"][e])
+            for e in range(xe.shape[0])])
+        y = torch.einsum("tec,ech->th", combine.to(dt), ye.to(dt))
+        return y.reshape(*lead, Hd)
 
     @torch.no_grad()
     def apply_fn(tokens, cache, cache_index, *, positions=None,
@@ -124,8 +159,11 @@ def llama_quant_decoder(model, qparams=None):
             attn = attn.transpose(1, 2).reshape(B, S, H * D)
             x = x + mm(attn, lp["wo"]).to(x.dtype)
             h = norm(x, lp["mlp_norm"])
-            y = mm(F.silu(mm(h, lp["w_gate"])) * mm(h, lp["w_up"]),
-                   lp["w_down"])
+            if is_moe_layer(cfg, i):
+                y = moe_ffn(h, lp["moe"], segment_ids)
+            else:
+                y = mm(F.silu(mm(h, lp["w_gate"])) * mm(h, lp["w_up"]),
+                       lp["w_down"])
             x = x + y.to(x.dtype)
         x = norm(x, qp["norm"])
         logits = int8_matmul(x, qp["output"]["q"], qp["output"]["s"])

@@ -44,7 +44,8 @@ from apex1_tpu_torch.ops._common import NEG_INF
 from apex1_tpu_torch.ops.attention import (_norm_segments, flash_dkv,
                                            flash_dq, flash_fwd,
                                            merge_partials)
-from apex1_tpu_torch.transformer.tensor_parallel.mappings import Hop
+from apex1_tpu_torch.transformer.tensor_parallel.mappings import (Hop,
+                                                                  PERMUTES)
 
 
 def _ring_fwd(q, k, v, qseg, group, attend, serialize: bool = False):
@@ -195,6 +196,7 @@ def _ring_apply(q, k, v, group, *, causal=False, sm_scale=None,
     scale = (1.0 / math.sqrt(q.shape[-1]) if sm_scale is None
              else float(sm_scale))
     qseg, _ = _norm_segments(segment_ids, q.shape[2], q.shape[2], q.device)
+    PERMUTES["count"] += 1
     return _Ring.apply(q, k, v, qseg, group, bool(causal), scale, dropout_p,
                        dropout_seed if dropout_p > 0.0 else None,
                        bool(skip_masked), fused, serialize)

@@ -9,8 +9,10 @@ dp outermost, dp inferred from the world size. Group getters return
 ``ProcessGroup``s where the JAX package returns axis names, and rank
 getters plain integers where it returns traced axis indices.
 
-Pipeline stages (``pp > 1``), virtual pipelines and fsdp above 1 raise
-(ROADMAP.md queue A item 7).
+The virtual pipeline's size and rank are module state, as in the JAX
+module: the interleaved schedule's bookkeeping, read by the
+virtual-aware `is_pipeline_first_stage` / `is_pipeline_last_stage`.
+fsdp above 1 raises (ROADMAP.md queue A item 7).
 """
 
 from __future__ import annotations
@@ -18,10 +20,14 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import torch.distributed as dist
+
 from apex1_tpu_torch.core.mesh import (AXIS_CP, AXIS_DP, AXIS_PP, AXIS_TP,
                                        Mesh, MeshConfig, make_mesh)
 
 _MESH: Optional[Mesh] = None
+_VIRTUAL_PP_SIZE: Optional[int] = None
+_VIRTUAL_PP_RANK: Optional[int] = None
 
 
 def initialize_model_parallel(
@@ -31,19 +37,22 @@ def initialize_model_parallel(
         context_parallel_size: int = 1,
         fsdp_size: int = 1) -> Mesh:
     """Build and install the mesh over the default process group; the
-    data-parallel degree is world // (tp·pp·cp·fsdp)."""
-    global _MESH
+    data-parallel degree is world // (tp·pp·cp·fsdp). A virtual pipeline
+    size (the interleaved schedule's chunks per stage) needs pp > 1."""
+    global _MESH, _VIRTUAL_PP_SIZE, _VIRTUAL_PP_RANK
     if _MESH is not None:
         raise RuntimeError("model parallel already initialized; call "
                            "destroy_model_parallel first")
+    mesh = make_mesh(MeshConfig(dp=-1, fsdp=fsdp_size,
+                                pp=pipeline_model_parallel_size,
+                                cp=context_parallel_size,
+                                tp=tensor_model_parallel_size))
     if virtual_pipeline_model_parallel_size is not None:
-        raise NotImplementedError(
-            "virtual pipelines are not ported yet: ROADMAP.md queue A "
-            "item 7")
-    _MESH = make_mesh(MeshConfig(dp=-1, fsdp=fsdp_size,
-                                 pp=pipeline_model_parallel_size,
-                                 cp=context_parallel_size,
-                                 tp=tensor_model_parallel_size))
+        if pipeline_model_parallel_size <= 1:
+            raise ValueError("virtual pipeline requires pp > 1")
+    _MESH = mesh
+    _VIRTUAL_PP_SIZE = virtual_pipeline_model_parallel_size
+    _VIRTUAL_PP_RANK = 0 if virtual_pipeline_model_parallel_size else None
     return _MESH
 
 
@@ -52,8 +61,10 @@ def model_parallel_is_initialized() -> bool:
 
 
 def destroy_model_parallel() -> None:
-    global _MESH
+    global _MESH, _VIRTUAL_PP_SIZE, _VIRTUAL_PP_RANK
     _MESH = None
+    _VIRTUAL_PP_SIZE = None
+    _VIRTUAL_PP_RANK = None
 
 
 def get_mesh() -> Mesh:
@@ -66,6 +77,24 @@ def set_mesh(mesh: Mesh) -> None:
     """Install a mesh built elsewhere."""
     global _MESH
     _MESH = mesh
+
+
+def resolve_group(axis_name=AXIS_PP):
+    """The process group behind ``axis_name``: a mesh axis name (through
+    the installed mesh; None while no mesh is installed, which is one
+    rank on the axis) or a ``ProcessGroup`` given as it is."""
+    if not isinstance(axis_name, str):
+        return axis_name
+    if _MESH is None:
+        return None
+    return _MESH.group(axis_name)
+
+
+def group_size_rank(group) -> tuple:
+    """(size, this rank's index) of ``group``; (1, 0) for None."""
+    if group is None:
+        return 1, 0
+    return dist.get_world_size(group), dist.get_rank(group)
 
 
 # -- groups -----------------------------------------------------------------
@@ -89,9 +118,19 @@ def get_context_parallel_group():
 
 
 def get_embedding_group():
-    """The reference's {first, last} pipeline stage group: the pp group,
-    of one stage while pp is 1."""
+    """The reference's embedding group ({first, last} pipeline stage)
+    as the JAX package has it: the whole pp group, whose embedding-grad
+    all-reduce (`pipeline_parallel.schedules.allreduce_embedding_grads`)
+    gets zeros from the middle stages, the same sum as the reference's
+    two-rank all-reduce."""
     return get_mesh().group(AXIS_PP)
+
+
+def is_rank_in_embedding_group() -> bool:
+    """Does this pp rank hold a tied-embedding copy that receives a
+    nonzero gradient (the first or the last stage)?"""
+    s = get_pipeline_model_parallel_rank()
+    return s == 0 or s == get_pipeline_model_parallel_world_size() - 1
 
 
 # -- sizes ------------------------------------------------------------------
@@ -135,9 +174,30 @@ def get_context_parallel_rank() -> int:
 
 
 def is_pipeline_first_stage(ignore_virtual: bool = False) -> bool:
+    if not ignore_virtual and _VIRTUAL_PP_SIZE is not None:
+        if _VIRTUAL_PP_RANK != 0:
+            return False
     return get_pipeline_model_parallel_rank() == 0
 
 
 def is_pipeline_last_stage(ignore_virtual: bool = False) -> bool:
+    if not ignore_virtual and _VIRTUAL_PP_SIZE is not None:
+        if _VIRTUAL_PP_RANK != _VIRTUAL_PP_SIZE - 1:
+            return False
     return (get_pipeline_model_parallel_rank()
             == get_pipeline_model_parallel_world_size() - 1)
+
+
+# -- virtual pipeline (interleaved schedule bookkeeping) --------------------
+
+def get_virtual_pipeline_model_parallel_world_size() -> Optional[int]:
+    return _VIRTUAL_PP_SIZE
+
+
+def get_virtual_pipeline_model_parallel_rank() -> Optional[int]:
+    return _VIRTUAL_PP_RANK
+
+
+def set_virtual_pipeline_model_parallel_rank(rank: int) -> None:
+    global _VIRTUAL_PP_RANK
+    _VIRTUAL_PP_RANK = rank

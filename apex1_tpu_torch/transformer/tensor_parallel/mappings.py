@@ -46,7 +46,14 @@ import torch.distributed as dist
 
 #: calls of each collective kind since the last `reset_collectives`
 COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0,
-               "send_recv": 0}
+               "send_recv": 0, "all_to_all": 0}
+
+
+#: ring steps posted (each `Hop`) or entered (each ring attention call,
+#: a ring of one rank too): the count the pipeline schedules watch to
+#: keep the JAX package's bubble-skip contract (no ``ppermute`` in a
+#: skipped stage)
+PERMUTES = {"count": 0}
 
 
 def reset_collectives() -> None:
@@ -103,6 +110,30 @@ def reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     return out.movedim(0, dim).contiguous()
 
 
+def all_to_all(x: torch.Tensor, group, split_dim: int,
+               concat_dim: int) -> torch.Tensor:
+    """JAX's tiled ``all_to_all``: ``x`` split along ``split_dim`` into
+    one chunk a rank (chunk j to group index j), the chunks received
+    concatenated along ``concat_dim`` in group order (one
+    ``all_to_all_single``)."""
+    n = dist.get_world_size(group)
+    if x.shape[split_dim] % n:
+        raise ValueError(f"dim {split_dim} size {x.shape[split_dim]} not "
+                         f"divisible by group size {n}")
+    xt = x.movedim(split_dim, 0).contiguous()
+    out = torch.empty_like(xt)
+    dist.all_to_all_single(out, xt, group=group)
+    COLLECTIVES["all_to_all"] += 1
+    rest = list(xt.shape[1:])
+    z = out.reshape([n, xt.shape[0] // n] + rest)
+    # the concat axis among z's dims: 2 + its index without split_dim
+    pos = 2 + (concat_dim if concat_dim < split_dim else concat_dim - 1)
+    z = z.movedim(0, pos - 1)
+    shape = list(z.shape)
+    shape[pos - 1:pos + 1] = [shape[pos - 1] * shape[pos]]
+    return z.reshape(shape).movedim(0, split_dim).contiguous()
+
+
 def split(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """This rank's chunk of ``x`` along ``dim``."""
     n = dist.get_world_size(group)
@@ -131,6 +162,7 @@ class Hop:
             p2p.append(dist.P2POp(dist.irecv, r, src, group, tag=i))
         self._works = dist.batch_isend_irecv(p2p)
         COLLECTIVES["send_recv"] += len(self._sent)
+        PERMUTES["count"] += 1
 
     def wait(self) -> list:
         for w in self._works:
@@ -197,6 +229,24 @@ class _ReduceScatterToRegion(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return all_gather(g, *ctx.args), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_dim, concat_dim):
+        ctx.args = (group, split_dim, concat_dim)
+        return all_to_all(x, group, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, split_dim, concat_dim = ctx.args
+        return all_to_all(g, group, concat_dim, split_dim), None, None, None
+
+
+def all_to_all_region(x, group, split_dim: int, concat_dim: int):
+    """Differentiable `all_to_all`; its backward is the all-to-all with
+    the two dimensions swapped (JAX's transpose)."""
+    return _AllToAll.apply(x, group, split_dim, concat_dim)
 
 
 def copy_to_tensor_model_parallel_region(x, group=None):

@@ -337,12 +337,34 @@ Phases, each printed on its own line; a failure in any exits non-zero:
    with ``Amp(grad_psum_axes=("dp",))`` against the same steps without,
    losses and params bit for bit; rdma — ``matmul_reduce_scatter_rdma``
    raises its ring-size error at world 1.
-30. the ``kernels`` JSON line (each kernel's launches over the main
+30. train-llama-3d — in the same one-rank group, the bench's
+   ``llama_3d`` (``bench.py:466-547``) at its one-card layout (dp = pp
+   = cp = ep = tp = 1, the scan schedule, 4 microbatches of 1 x 2048,
+   ``num_chunks`` 1): `models.llama_3d` at the llama_longctx widths
+   (hidden 2048, GQA 32/4 of 64, ffn 5632), 8 layers, remat, O2, fused
+   Adam at lr 1e-4, weights and tokens from seed 1234 (labels the
+   tokens rolled by one), 6 steps: finite losses, exact launches a step
+   (`llama_3d_launches`: RMS norm 129/65, rope 192, flash 64/32/32,
+   the vocab-parallel head's shard_stats, dx and dW once), tokens/s
+   beside the bench's A100 proxy 11,100, device ms a step and busy
+   share over 3 profiled steps, peak memory.
+31. train-llama-3d-1f1b — the same model, params and batch on
+   ``schedule="1f1b"``: step 1's loss and grad norm against the scan's
+   (1e-2 and 2e-2 relative), 3 steps with exact launches (the head
+   once a microbatch), wall and peak memory beside the scan's.
+32. llama-3d-parity — depth 2, O0 fp32: kernels against plain (loss
+   1e-5, the grad norm and every leaf's 1e-4 relative); the llama_3d
+   step against the flat `models.llama.Llama` on the same params;
+   ``num_chunks=2`` against 1; ``moe=True`` (8 experts, top-2) kernels
+   against plain with every router call's dispatch equal bit for bit;
+   O2_fp16 with a forced overflow (the embedding master times 1e8):
+   skipped, params and both Adam moments bit for bit, the scale halved.
+33. the ``kernels`` JSON line (each kernel's launches over the main
    paths: the engine, the train phases, dpo, generate, train-llama,
    serve-llama and its generate, the BERT phases, train-gpt2-dropout,
    train-t5, mha, train-llama-longctx, decode, decode-int8,
-   serve-lora, train-resnet, train-gpt2-fp16, tp-sp, cp, vp-ce and
-   ddp), the card's name and power
+   serve-lora, train-resnet, train-gpt2-fp16, tp-sp, cp, vp-ce, ddp,
+   train-llama-3d and train-llama-3d-1f1b), the card's name and power
    limit, and the last line ``{"ok": true, "device": {...}}``.
 
 Kernel times are device times of CUDA-graph replays (no host launch
@@ -1183,6 +1205,9 @@ FLASH_CASES = [
      False, 0, 0, False, False, LD, dict(lib=True)),
     ("Llama GQA 32/8 packed segments", LB, LHEADS, LKV, LS, LS, "bfloat16",
      True, True, 0, 0, False, False, LD),
+    # llama_3d's attention (one sequence a microbatch)
+    ("llama_3d GQA 32/4 causal", 1, 32, 4, 2048, 2048, "bfloat16", True,
+     False, 0, 0, False, False, 64),
     ("BERT padding, p=0", 8, THEADS, THEADS, 512, 512, "bfloat16", False,
      "padding", 0, 0, False, False, dict(lib=True)),
     ("BERT padding, dropout", 8, THEADS, THEADS, 512, 512, "bfloat16",
@@ -1560,6 +1585,10 @@ LXENT_CASES = [
      False, LH, True),
     ("Llama head", LB * (LS - 1), LV, "float16", LV, 0, 0.0, None, 0,
      False, LH, False),
+    # llama_3d's vocab-parallel head: shard statistics (mode 1) over
+    # the step's 4 x 2048 tokens at H 2048
+    ("llama_3d head, shard statistics", 4 * 2048, LV, "bfloat16", LV, 0,
+     0.0, None, 1, False, 2048, False),
     ("wide, eps 0.1, padding_idx 0, shard", 2000, 20000, "bfloat16", 31000,
      10000, 0.1, 0, 0, False, 1024, False),
     ("wide, ragged", 999, 9001, "float32", 9000, 0, 0.0, None, 1, False,
@@ -5821,6 +5850,413 @@ def run_rdma(torch, ops, card):
     return {"message": msg}, None if ok else f"rdma: {msg}"
 
 
+# ---- the pipeline and expert parallelism slice: the bench's llama_3d ------
+
+#: the bench's ``llama_3d`` (`bench.py:466-547`) at its one-card layout
+#: (dp = pp = cp = ep = tp = 1, ``schedule`` "scan", 4 microbatches of 1
+#: sequence, ``num_chunks`` 1: `planner.make_plan` at one device): the
+#: llama_longctx-class model (`LLAMA_08B`) at S 2048, 8 layers, remat,
+#: O2, fused Adam at lr 1e-4, 6 steps; the A100 proxy the bench prints
+L3D_S, L3D_LAYERS, L3D_M, L3D_STEPS, L3D_PROXY = 2048, 8, 4, 6, 11_100.0
+#: train-llama-3d-1f1b's steps; llama-3d-parity's depth and its MoE
+#: variant (every FFN routed: 8 experts, top-2, the LlamaConfig defaults
+#: for capacity and the balance weight)
+L3D_1F1B_STEPS, L3D_PAR_DEPTH = 3, 2
+#: train-llama-3d-1f1b's step-1 limit on every grad leaf's relative
+#: error against the scan's: one bf16 unit roundoff (2^-8), since the
+#: head's dW is rounded to bf16 once over the step's tokens under scan
+#: and once a microbatch under 1F1B; every other leaf sums the same
+#: bf16 partials in fp32
+L3D_1F1B_LEAF = 2.0 ** -8
+L3D_MOE = dict(moe_every=1, num_experts=8, moe_top_k=2)
+
+
+def make_llama_3d(torch, level: str, depth: int, *, schedule="scan",
+                  num_chunks: int = 1, moe: bool = False, params=None,
+                  seed: int = SEED):
+    """The bench's llama_3d config at ``depth`` layers and ``level``
+    (`Llama3DConfig` at the one-card layout) on `parallel_state`'s
+    one-rank mesh, its train step and state from the global ``params``
+    (or `init_params(cfg, seed)`: the JAX package's numpy draws), and
+    the bench's batch: tokens (M, S, 1) of
+    ``np.random.default_rng(seed)``, labels the tokens rolled by one
+    along the sequence. Returns (cfg, step, state, (tokens, labels))."""
+    import numpy as np
+    from apex1_tpu_torch import LlamaConfig, get_policy
+    from apex1_tpu_torch.models import llama_3d as L3
+    mcfg = LlamaConfig(**LLAMA_08B, max_seq_len=L3D_S, num_layers=depth,
+                       remat=True, policy=get_policy(level),
+                       **(L3D_MOE if moe else {}))
+    cfg = L3.Llama3DConfig(model=mcfg, num_microbatches=L3D_M,
+                           microbatch_size=1, schedule=schedule,
+                           num_chunks=num_chunks, moe=moe,
+                           learning_rate=1e-4)
+    step, state, _ = L3.make_train_step(cfg, params=params, device="cuda",
+                                        seed=seed)
+    tokens = np.random.default_rng(seed).integers(
+        0, mcfg.vocab_size, (L3D_M, L3D_S, 1))
+    labels = np.roll(tokens, -1, axis=1)
+    return cfg, step, state, tuple(torch.from_numpy(a).to("cuda")
+                                   for a in (tokens, labels))
+
+
+def llama_3d_launches(layers: int, schedule: str) -> dict:
+    """Kernel launches a llama_3d step (remat): each layer of each of
+    the M microbatches runs its forward twice (the step's and the
+    recompute: two RMS norms, q and k rotated, the flash forward) and
+    its backward once (two norms, q and k rotated by -θ, flash dq and
+    dk/dv). The final norm and the vocab-parallel head (shard_stats,
+    then dx and dW) run once over all 4 x 2048 tokens under "scan", once
+    a microbatch under "1f1b"."""
+    M, L = L3D_M, layers
+    head = 1 if schedule == "scan" else M
+    return {"layer_norm_fwd": 4 * M * L + head,
+            "layer_norm_bwd": 2 * M * L + head, "rope": 6 * M * L,
+            "flash_fwd": 2 * M * L, "flash_dq": M * L, "flash_dkv": M * L,
+            "lxent_fwd": head, "lxent_dx": head, "lxent_dw": head}
+
+
+def l3d_step_rows(torch, ops, state, step, batch, steps: int):
+    """``steps`` llama_3d steps: per step the loss, host wall (ending in
+    a synchronize) and launches; the peak memory (GiB) and the state
+    left."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows, prev = [], ops.launch_counts()
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, loss = step(state, *batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        now = ops.launch_counts()
+        rows.append(dict(step=i + 1, wall_ms=wall, loss=loss.item(),
+                         launches={k: now[k] - prev[k] for k in now
+                                   if now[k] != prev[k]}))
+        prev = now
+    return rows, torch.cuda.max_memory_allocated() / 2 ** 30, state
+
+
+def l3d_loss_grads(torch, cfg, state, batch):
+    """One forward and backward of `llama_3d.loss_and_grads` on the
+    state's params: (loss, grads, total grad norm)."""
+    from apex1_tpu_torch.models import llama_3d as L3
+    loss, grads = L3.loss_and_grads(cfg, state["params"], *batch)
+    norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads.values()))
+    return loss.item(), grads, norm.item()
+
+
+def run_llama_3d(torch, ops, card, launches):
+    """train-llama-3d and train-llama-3d-1f1b: the bench's llama_3d at
+    full width and depth on one card. The scan schedule: L3D_STEPS
+    steps (finite losses, exact launches), tokens/s from the median
+    wall of steps 2-n beside the A100 proxy, device ms a step and busy
+    share over 3 profiled steps, peak memory. Then the same params and
+    batch on ``schedule="1f1b"``: step 1 (one forward and backward
+    each, on the initial params): the loss within 1e-5 relative, the
+    grad norm within 1e-4 and every grad leaf within `L3D_1F1B_LEAF`
+    (`l3d_leaf_errs`; the scan's grads held on the host), then
+    L3D_1F1B_STEPS steps with their launches, wall and peak memory beside
+    the scan's. Adds both schedules' launches to ``launches``."""
+    out = {}
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    cfg, step, state, batch = make_llama_3d(torch, "O2", L3D_LAYERS)
+    init_s = time.perf_counter() - t0
+    m = cfg.model
+    n_tok = L3D_M * L3D_S
+    n_w = sum(v.numel() for k, v in state["params"].items()
+              if k not in ("shared.emb", "shared.head"))
+    start = {k: v.clone() for k, v in state["params"].items()}
+    loss1, g1, norm1 = l3d_loss_grads(torch, cfg, state, batch)
+    # held on the host so the scan steps' peak memory leaves them out
+    scan1 = (loss1, {k: v.cpu() for k, v in g1.items()}, norm1)
+    del g1
+    ops.reset_launches()
+    rows, peak, state = l3d_step_rows(torch, ops, state, step, batch,
+                                      L3D_STEPS)
+    for name, n in ops.launch_counts().items():
+        launches[name] = launches.get(name, 0) + n
+    prof = profiled_steps(torch, state, step, batch)
+    del state, step
+    torch.cuda.empty_cache()
+    walls = sorted(r["wall_ms"] for r in rows[1:])
+    med = walls[len(walls) // 2]
+    for r in rows:
+        print(f"phase train-llama-3d: O2 step {r['step']} loss "
+              f"{r['loss']:.6f} wall {r['wall_ms']:.1f} ms launches "
+              f"{r['launches']} [{card}]")
+    top = ", ".join(f"{t['name'][:48]} {t['ms_per_step']:.3f} ms x"
+                    f"{t['calls']}" for t in prof["top"][:8])
+    out["scan"] = dict(steps=rows, peak_gib=peak, step_wall_ms=med,
+                       tokens_per_s=n_tok / med * 1e3, profile=prof,
+                       weights=n_w, init_s=init_s)
+    print(f"phase train-llama-3d: llama_3d at the one-card layout (dp pp "
+          f"cp ep tp 1, schedule scan, M {L3D_M} x 1 sequence, V 1) O2 "
+          f"remat, fused Adam lr 1e-4; hidden {m.hidden_size} heads "
+          f"{m.num_heads}/{m.num_kv_heads} head_dim {m.head_dim} ffn "
+          f"{m.ffn_size} layers {m.num_layers} vocab {m.vocab_size} S "
+          f"{L3D_S}; {n_w} weights outside the embedding and head; init "
+          f"{init_s:.1f} s; step wall {med:.2f} ms (median of steps "
+          f"2-{len(rows)}), {n_tok / med * 1e3:.0f} tokens/s (bench's A100 "
+          f"proxy {L3D_PROXY:.0f}), device {prof['device_ms_per_step']:.3f}"
+          f" ms a step in a {prof['step_wall_ms']:.2f} ms profiled step "
+          f"(busy {prof['device_busy']:.3f}), peak memory {peak:.2f} GiB; "
+          f"largest kernels a step: {top} [{card}]")
+    losses = [r["loss"] for r in rows]
+    if not all(math.isfinite(v) for v in losses):
+        return out, f"train-llama-3d: a loss is not finite: {losses}"
+    want = llama_3d_launches(L3D_LAYERS, "scan")
+    for r in rows:
+        if r["launches"] != want:
+            return out, (f"train-llama-3d step {r['step']}: launches "
+                         f"{r['launches']}, expected {want}")
+
+    # the same model, params and batch on the 1F1B schedule
+    params = {"chunk": {}, "shared": {}}
+    for k, v in start.items():
+        kind, name = k.split(".", 1)
+        params[kind][name] = v[:, None] if kind == "chunk" else v
+    del start
+    cfg, step, state, batch = make_llama_3d(torch, "O2", L3D_LAYERS,
+                                            schedule="1f1b", params=params)
+    del params
+    f1 = l3d_loss_grads(torch, cfg, state, batch)
+    errs = l3d_leaf_errs(torch, f1[1], scan1[1])
+    worst = max(errs, key=errs.get)
+    f1, scan1 = (f1[0], None, f1[2]), (scan1[0], None, scan1[2])
+    ops.reset_launches()
+    rows, peak1, state = l3d_step_rows(torch, ops, state, step, batch,
+                                       L3D_1F1B_STEPS)
+    for name, n in ops.launch_counts().items():
+        launches[name] = launches.get(name, 0) + n
+    del state, step
+    torch.cuda.empty_cache()
+    walls = sorted(r["wall_ms"] for r in rows[1:])
+    med1 = walls[len(walls) // 2]
+    for r in rows:
+        print(f"phase train-llama-3d-1f1b: O2 step {r['step']} loss "
+              f"{r['loss']:.6f} wall {r['wall_ms']:.1f} ms launches "
+              f"{r['launches']} [{card}]")
+    out["1f1b"] = dict(steps=rows, peak_gib=peak1, step_wall_ms=med1,
+                       step1=[f1[0], f1[2]], scan_step1=[scan1[0],
+                                                          scan1[2]])
+    dl = abs(f1[0] - scan1[0]) / abs(scan1[0])
+    dg = abs(f1[2] - scan1[2]) / abs(scan1[2])
+    print(f"phase train-llama-3d-1f1b: step-1 loss {f1[0]:.6f} vs scan "
+          f"{scan1[0]:.6f} (relative {dl:.2e}), grad norm {f1[2]:.6f} vs "
+          f"scan {scan1[2]:.6f} (relative {dg:.2e}), worst leaf {worst} "
+          f"{errs[worst]:.2e} (limit {L3D_1F1B_LEAF:.2e}); step wall "
+          f"{med1:.2f} vs scan {med:.2f} ms, peak memory {peak1:.2f} vs "
+          f"scan {peak:.2f} GiB [{card}]")
+    out["1f1b"]["leaf_errs"] = errs
+    if not all(math.isfinite(r["loss"]) for r in rows):
+        return out, f"train-llama-3d-1f1b: a loss is not finite: {rows}"
+    if dl > 1e-5 or dg > 1e-4 or errs[worst] > L3D_1F1B_LEAF:
+        return out, (f"train-llama-3d-1f1b: step 1 is not the scan's: "
+                     f"loss {f1[0]} vs {scan1[0]}, grad norm {f1[2]} vs "
+                     f"{scan1[2]}, leaf {worst} {errs[worst]}")
+    want = llama_3d_launches(L3D_LAYERS, "1f1b")
+    for r in rows:
+        if r["launches"] != want:
+            return out, (f"train-llama-3d-1f1b step {r['step']}: launches "
+                         f"{r['launches']}, expected {want}")
+    return out, None
+
+
+def l3d_leaf_errs(torch, got: dict, want: dict):
+    """Per leaf ||got - want|| / ||want|| (0 where want is all zeros
+    and got too)."""
+    errs = {}
+    for k, w in want.items():
+        d = (got[k].float() - w.to(got[k].device).float()).norm().item()
+        n = w.float().norm().item()
+        errs[k] = d / n if n else d
+    return errs
+
+
+def run_llama_3d_parity(torch, ops, card):
+    """llama-3d-parity at depth L3D_PAR_DEPTH, full width, O0 fp32, one
+    forward and backward on the bench's batch: (1) kernels against the
+    plain versions: loss 1e-5 relative, the grad norm and every leaf's
+    1e-4; (2) the step against the flat `models.llama.Llama` on the same
+    params (the mean CE of the 4 sequences, the fused head) through the
+    kernels: loss and leaves the same; (3) ``num_chunks=2`` against 1;
+    (4) ``moe=True`` (8 experts, top-2, ep 1), kernels against plain,
+    the dispatch tensors of every router call equal bit for bit; (5)
+    O2_fp16: steps until one is finite, then one with the embedding's
+    master times 1e8 (its fp16 copy overflows): skipped, params and both
+    Adam moments bit-identical, the scale halved."""
+    from apex1_tpu_torch import Llama, LlamaConfig, get_policy
+    from apex1_tpu_torch.ops.linear_xent import linear_cross_entropy
+    from apex1_tpu_torch.transformer import moe as moe_mod
+    out = {}
+
+    def one(fn, plain=False):
+        ops.reset_launches()
+        with ops.force_impl("torch") if plain else contextlib.nullcontext():
+            res = fn()
+        torch.cuda.synchronize()
+        return res, {k: v for k, v in ops.launch_counts().items() if v}
+
+    def grads_of(moe=False, num_chunks=1, params=None):
+        cfg, _, state, batch = make_llama_3d(
+            torch, "O0", L3D_PAR_DEPTH, moe=moe, num_chunks=num_chunks,
+            params=params, seed=SEED + 3)
+        return cfg, state, batch, l3d_loss_grads(torch, cfg, state, batch)
+
+    def report(label, a, b, la, lb):
+        errs = l3d_leaf_errs(torch, a[1], b[1])
+        dl = abs(a[0] - b[0]) / abs(b[0])
+        dn = abs(a[2] - b[2]) / abs(b[2])
+        worst = max(errs.values())
+        print(f"phase llama-3d-parity: {label}: loss {a[0]:.7f} vs "
+              f"{b[0]:.7f} (relative {dl:.2e}), grad norm {a[2]:.6f} vs "
+              f"{b[2]:.6f} (relative {dn:.2e}), worst leaf "
+              f"{max(errs, key=errs.get)} {worst:.2e}; launches {la} vs "
+              f"{lb} [{card}]")
+        out[label] = dict(loss=[a[0], b[0]], norm=[a[2], b[2]],
+                          leaf_errs=errs, launches=[la, lb])
+        if dl > 1e-5 or dn > 1e-4 or worst > 1e-4:
+            return f"llama-3d-parity {label}: {out[label]}"
+        return None
+
+    # (1) kernels against the plain versions
+    (cfg, state, batch, k), kl = one(grads_of)
+    (_, _, _, p), pl = one(grads_of, plain=True)
+    err = report("O0 kernels vs plain", k, p, kl, pl)
+    if err or pl or not all(kl.get(n) for n in llama_3d_launches(1, "scan")):
+        return out, err or f"llama-3d-parity: launches {kl} / {pl}"
+
+    # (2) the flat Llama on the same params, through the kernels
+    flat_cfg = LlamaConfig(**LLAMA_08B, max_seq_len=L3D_S,
+                           num_layers=L3D_PAR_DEPTH, remat=True,
+                           policy=get_policy("O0"))
+    flat = Llama(flat_cfg, device="cuda")
+    names = {"wg": "moe.router"}
+    named = {"tok_embeddings": state["params"]["shared.emb"],
+             "output": state["params"]["shared.head"],
+             "norm": state["params"]["shared.final_norm"]}
+    for key, v in state["params"].items():
+        if key.startswith("chunk."):
+            for j in range(L3D_PAR_DEPTH):
+                leaf = key[6:]
+                named[f"layer{j}.{names.get(leaf, leaf)}"] = v[0, j]
+    tokens, labels = batch
+    toks = tokens[..., 0].long()            # (M, S): one sequence each
+    lbls = labels[..., 0].long()
+    params = {k: named[k].detach().clone().requires_grad_()
+              for k, _ in flat.named_parameters()}
+    ops.reset_launches()
+    h = torch.func.functional_call(flat, params, (toks,),
+                                   dict(return_hidden=True))
+    loss = linear_cross_entropy(h, params["output"].to(h.dtype),
+                                lbls).mean()
+    g = torch.autograd.grad(loss, list(params.values()))
+    torch.cuda.synchronize()
+    fl = {k: n for k, n in ops.launch_counts().items() if n}
+    gflat = dict(zip(params, g))
+    mapped = {"shared.emb": gflat["tok_embeddings"],
+              "shared.head": gflat["output"],
+              "shared.final_norm": gflat["norm"]}
+    for key in k[1]:
+        if key.startswith("chunk."):
+            leaf = key[6:]
+            mapped[key] = torch.stack([gflat[f"layer{j}.{leaf}"] for j in
+                                       range(L3D_PAR_DEPTH)])[None]
+    fnorm = torch.sqrt(sum((v.float() ** 2).sum()
+                           for v in mapped.values())).item()
+    err = report("O0 llama_3d vs the flat Llama", k,
+                 (loss.item(), mapped, fnorm), kl, fl)
+    del flat, params, h, g, gflat
+    if err:
+        return out, err
+
+    # (3) num_chunks=2 against num_chunks=1 on the same params
+    glob = {"chunk": {}, "shared": {}}
+    for key, v in state["params"].items():
+        kind, name = key.split(".", 1)
+        glob[kind][name] = (v.reshape((2, 1, L3D_PAR_DEPTH // 2)
+                                      + tuple(v.shape[2:]))
+                            if kind == "chunk" else v)
+    (cfg2, _, _, v2), v2l = one(lambda: grads_of(num_chunks=2, params=glob))
+    v2g = {key: (v.reshape((1, L3D_PAR_DEPTH) + tuple(v.shape[2:]))
+                 if key.startswith("chunk.") else v)
+           for key, v in v2[1].items()}
+    err = report("O0 num_chunks=2 vs 1", (v2[0], v2g, v2[2]), k, v2l, kl)
+    del state, glob, v2, v2g, k, p
+    torch.cuda.empty_cache()
+    if err:
+        return out, err
+
+    # (4) MoE, kernels against plain, the routing bit for bit
+    base = moe_mod.router
+    for side in ("kernel", "plain"):
+        seen = []
+
+        def rec(*a, **kw):
+            res = base(*a, **kw)
+            seen.append(res[0].detach().clone())
+            return res
+
+        moe_mod.router = rec
+        try:
+            (_, _, _, res), lc = one(lambda: grads_of(moe=True),
+                                     plain=side == "plain")
+        finally:
+            moe_mod.router = base
+        out[f"moe_{side}"] = (res, lc, seen)
+    (mk, mkl, mks), (mp_, mpl, mps) = out.pop("moe_kernel"), \
+        out.pop("moe_plain")
+    same = len(mks) == len(mps) and all(torch.equal(a, b)
+                                        for a, b in zip(mks, mps))
+    print(f"phase llama-3d-parity: MoE (8 experts, top-2, ep 1) router "
+          f"calls {len(mks)}, dispatch equal bit for bit {same} [{card}]")
+    err = report("O0 MoE kernels vs plain", mk, mp_, mkl, mpl)
+    out["moe_routing_equal"] = same
+    del mk, mp_, mks, mps
+    torch.cuda.empty_cache()
+    if err or not same:
+        return out, err or "llama-3d-parity: the MoE routing differs"
+
+    # (5) O2_fp16: a forced overflow skips its step
+    cfg, step, state, batch = make_llama_3d(torch, "O2_fp16", L3D_PAR_DEPTH,
+                                            seed=SEED + 3)
+    rows = []
+    for _ in range(FP16_MAX_STEPS):
+        before = state
+        state, loss = step(state, *batch)
+        rows.append(dict(loss=loss.item(),
+                         skipped=int(state["scale"].overflow_count),
+                         scale=state["scale"].scale.item()))
+        if int(state["scale"].overflow_count) == int(
+                before["scale"].overflow_count):
+            break
+    poisoned = dict(state["params"])
+    poisoned["shared.emb"] = poisoned["shared.emb"] * 1e8
+    before = dict(state, params=poisoned)
+    after, loss = step(before, *batch)
+    kept = {name: all(torch.equal(x[n], y[n]) for n in poisoned)
+            for name, x, y in (
+                ("params", after["params"], before["params"]),
+                ("exp_avg", after["opt"].exp_avg, before["opt"].exp_avg),
+                ("exp_avg_sq", after["opt"].exp_avg_sq,
+                 before["opt"].exp_avg_sq))}
+    s0, s1 = before["scale"].scale.item(), after["scale"].scale.item()
+    o0, o1 = (int(x["scale"].overflow_count) for x in (before, after))
+    out["fp16"] = dict(rows=rows, kept=kept, scale=[s0, s1],
+                       overflow=[o0, o1], forced_loss=loss.item())
+    print(f"phase llama-3d-parity: O2_fp16 steps before the forced one "
+          f"{rows}; forced step (embedding x 1e8): loss {loss.item()}, "
+          f"bit-identical {kept}, scale {s0} -> {s1}, skipped {o0} -> "
+          f"{o1} [{card}]")
+    del state, before, after, step
+    torch.cuda.empty_cache()
+    if (not all(kept.values()) or s1 != s0 / 2 or o1 != o0 + 1
+            or not math.isfinite(rows[-1]["loss"])):
+        return out, f"llama-3d-parity O2_fp16: {out['fp16']}"
+    return out, None
+
+
 def main() -> int:
     try:
         import torch
@@ -6267,16 +6703,30 @@ def main() -> int:
         if err:
             return fail(err)
         stamp("rdma")
+        # 30-32. the pipeline and expert parallelism slice: the bench's
+        # llama_3d at its one-card layout (scan, then 1F1B) and its
+        # parity
+        par_out["llama_3d"], err = run_llama_3d(torch, ops, card,
+                                                main_launches)
+        if err:
+            return fail(err)
+        stamp("train-llama-3d")
+        par_out["llama_3d_parity"], err = run_llama_3d_parity(torch, ops,
+                                                              card)
+        if err:
+            return fail(err)
+        stamp("llama-3d-parity")
     finally:
         stop_nccl(nccl_dir)
     print(f"phase times: { {k: round(v, 1) for k, v in phase_s.items()} } "
           f"s wall [{card}]")
 
-    # 30. the kernels line, the card, the last line. launches: the main
+    # 33. the kernels line, the card, the last line. launches: the main
     # paths' runs (engine, the train phases, dpo, generate, train-llama,
     # serve-llama and its generate, the BERT phases, train-gpt2-dropout,
     # train-t5, mha, train-llama-longctx, decode, decode-int8, serve-lora,
-    # train-resnet, train-gpt2-fp16, tp-sp, cp, vp-ce, ddp)
+    # train-resnet, train-gpt2-fp16, tp-sp, cp, vp-ce, ddp,
+    # train-llama-3d, train-llama-3d-1f1b)
     sources = {"layer_norm_fwd": ("apex1_tpu_torch/csrc/layer_norm.cu",
                                   "apex1_tpu/ops/layer_norm.py:110"),
                "paged_attend": ("apex1_tpu_torch/csrc/paged_attend.cu",

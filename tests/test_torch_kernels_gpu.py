@@ -1872,3 +1872,62 @@ def test_one_rank_nccl_fused_paths(nccl_world):
     assert coll["all_gather"] == 1
     for a, b in zip(got, want):
         _close(a, b, torch.bfloat16)
+
+
+# ---- the bench's llama_3d shapes ------------------------------------------
+
+#: llama_3d's attention (`chip_smoke.py`'s train-llama-3d: hidden 2048,
+#: 32 query and 4 KV heads of 64, S 2048, one sequence a microbatch)
+_FLASH_L3D = {"llama_3d": (1, 32, 4, 2048, 2048, 64, True, None, 0, 0,
+                           False)}
+
+
+def test_flash_kernels_at_llama_3d_shape(cuda):
+    """Causal GQA 32/4, D 64, S 2048, bf16: the forward, dq and dk/dv
+    against their plain versions (the tolerances above), dq and dk/dv
+    the same bits on a second run."""
+    from apex1_tpu_torch.ops.attention import flash_dkv, flash_dq, flash_fwd
+    dt = torch.bfloat16
+    q, k, v, do, dlse, qseg, kseg, args = _flash_inputs(
+        "llama_3d", dt, cuda, cases=_FLASH_L3D)
+    (out, lse), (wout, wlse) = _both(
+        lambda: flash_fwd(q, k, v, qseg, kseg, *args))
+    _close(out, wout, dt)
+    _close(lse, wlse, torch.float32)
+    delta = (do.float() * wout.float()).sum(-1)
+    bwd = (q, k, v, do, wlse, delta, dlse, qseg, kseg, *args)
+    dq, wdq = _both(lambda: flash_dq(*bwd))
+    _close(dq, wdq, dt)
+    (dk, dv), (wdk, wdv) = _both(lambda: flash_dkv(*bwd))
+    _close(dk, wdk, dt)
+    _close(dv, wdv, dt)
+    assert torch.equal(flash_dq(*bwd), dq)
+    dk2, dv2 = flash_dkv(*bwd)
+    assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
+
+
+def test_linear_xent_shard_kernels_at_llama_3d_head(cuda):
+    """`shard_stats` (row 8) and `shard_grads` (rows 10-11) at llama_3d's
+    head: 8192 tokens x 2048 against the whole 32000-row vocab (tp 1),
+    bf16, the labels the tokens rolled by one, against their plain
+    versions (fp32 tolerance for the statistics, bf16's for dx and dW);
+    dx and dW the same bits on a second run."""
+    from apex1_tpu_torch.ops.linear_xent import shard_grads, shard_stats
+    T, H, V = 8192, 2048, 32000
+    dt = torch.bfloat16
+    gen = torch.Generator(device=cuda).manual_seed(20)
+    x = torch.randn(T, H, generator=gen, device=cuda).to(dt)
+    w = (torch.randn(V, H, generator=gen, device=cuda) * 0.02).to(dt)
+    t = torch.roll(torch.randint(0, V, (T,), generator=gen, device=cuda),
+                   -1).to(torch.int32)
+    stats, wstats = _both(lambda: shard_stats(x, w, t, num_classes=V))
+    for g, wv in zip(stats, wstats):
+        _close(g, wv, torch.float32)
+    lse = wstats[0] + torch.log(wstats[1])
+    dloss = torch.full((T,), 1.0 / T, device=cuda)
+    (dx, dw), (wdx, wdw) = _both(lambda: shard_grads(x, w, t, lse, dloss,
+                                                     num_classes=V))
+    _close(dx, wdx, dt)
+    _close(dw, wdw, dt)
+    dx2, dw2 = shard_grads(x, w, t, lse, dloss, num_classes=V)
+    assert torch.equal(dx2, dx) and torch.equal(dw2, dw)

@@ -12,7 +12,8 @@ params (`interop.llama_params_from_jax` / `gpt2_params_from_jax`):
   reaching |q| = 127), `generate` streams equal JAX's int8 streams and
   the full-precision model's, greedy; the paged engine over the int8
   decoder equals JAX's paged engine over JAX's;
-- MoE raises, naming its ROADMAP item.
+- an MoE config asks for the MoE weights (its decode is held against
+  JAX in tests/test_torch_moe.py).
 """
 
 import jax
@@ -40,6 +41,7 @@ from apex1_tpu_torch import (Engine, EngineConfig, GPT2Config, LlamaConfig,
                              llama_decoder, llama_params_from_jax,
                              quant_params_from_jax)
 from apex1_tpu_torch.models.generate import generate
+from apex1_tpu_torch.models.llama import Llama
 from apex1_tpu_torch.models.quant_decode import (gpt2_quant_decoder,
                                                  llama_quant_decoder,
                                                  quantize_llama_params)
@@ -259,9 +261,14 @@ def test_gpt2_out_of_range_positions_read_nan(gpt2):
 
 
 def test_moe_raises():
+    """A dense tree under an MoE config raises: its MoE layers need the
+    router and expert weights."""
     cfg = LlamaConfig.tiny(vocab_size=VOCAB, moe_every=2)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        quantize_llama_params({}, cfg)
+    dense = LlamaConfig.tiny(vocab_size=VOCAB)
+    params = {k: torch.zeros(v.shape) for k, v in Llama(
+        dense, device="cpu").named_parameters()}
+    with pytest.raises(KeyError, match="moe"):
+        quantize_llama_params(params, cfg)
 
 
 def test_quant_params_from_jax_defaults_to_cuda():

@@ -178,8 +178,7 @@ def tp_cases(inputs: dict, n: int) -> dict:
         tp_ranks=mesh.ranks("tp"),
         errors=[_raises(lambda: ps.initialize_model_parallel(n),
                         RuntimeError),
-                _raises(lambda: _remesh(pp=n), NotImplementedError),
-                _raises(lambda: _remesh(ep=n), NotImplementedError)])
+                _raises(lambda: _remesh(fsdp=n), NotImplementedError)])
     ps.destroy_model_parallel()
     return _np(out)
 
@@ -366,3 +365,366 @@ def sync_bn_cases(inputs: dict, group_sizes: list) -> dict:
                             buffers=[bn.mean.clone(), bn.var.clone()])
     ps.destroy_model_parallel()
     return _np(out)
+
+
+# ---- tests/test_torch_pipeline.py ---------------------------------------
+
+
+def _stage(p, x):
+    """One pipeline chunk: linear + tanh (tests/test_pipeline.py's)."""
+    return torch.tanh(x @ p["w"] + p["b"])
+
+
+def _stage_aux(p, x):
+    y = _stage(p, x)
+    return y, 0.01 * (y * y).sum()
+
+
+def _mse(outs, targets):
+    return ((outs - targets) ** 2).mean()
+
+
+def _ring_stage(group):
+    """A stage with a ring inside (ring attention over ``group``)."""
+    from apex1_tpu_torch.parallel.ring_attention import ring_attention
+
+    def stage(p, x):
+        a = ring_attention(x[None, None], x[None, None], x[None, None],
+                           group)[0, 0]
+        return _stage(p, a)
+
+    return stage
+
+
+def pipeline_cases(inputs: dict, n: int, grid: list) -> dict:
+    """Every case of tests/test_torch_pipeline.py on this rank of a pp = n
+    mesh: the scan schedule's forward and grads (both conventions, remat,
+    a padded boundary, the aux channel) for each (V, M) of ``grid``, the
+    1F1B schedule (plain, with loss params and aux, interleaved), the
+    tied embedding, the p2p shifts, the parallel state and the errors."""
+    from apex1_tpu_torch.transformer import parallel_state as ps
+    from apex1_tpu_torch.transformer.pipeline_parallel import (
+        p2p_communication as p2p)
+    from apex1_tpu_torch.transformer.pipeline_parallel import schedules as S
+    _setup(pipeline_model_parallel_size=n)
+    s = dist.get_rank()
+    i = {k: torch.from_numpy(np.ascontiguousarray(v))
+         for k, v in inputs.items()}
+    out = {}
+
+    def local(V):
+        return {"w": i[f"w{V}"][:, s].clone(), "b": i[f"b{V}"][:, s].clone()}
+
+    for V, M in grid:
+        key = f"V{V}_M{M}"
+        mbs, tg = i[f"mbs{M}"], i[f"tg{M}"]
+        fwd = (S.forward_backward_pipelining_with_interleaving if V > 1
+               else S.forward_backward_pipelining_without_interleaving)
+        kw = {"num_chunks": V} if V > 1 else {}
+        loss, g = fwd(_stage, _mse, None, local(V), mbs, tg, **kw)
+        outs = S.pipeline_apply(_stage, local(V), mbs, num_chunks=V)
+        # the partial convention: per-rank partial loss, grads inside
+        p = {k: v.requires_grad_() for k, v in local(V).items()}
+        part = S.pipeline_apply(_stage, p, mbs, num_chunks=V,
+                                broadcast_outputs=False)
+        lp = float(s == n - 1) * _mse(part, tg)
+        gp = torch.autograd.grad(lp, [p["w"], p["b"]])
+        p = {k: v.requires_grad_() for k, v in local(V).items()}
+        lr = _mse(S.pipeline_apply(_stage, p, mbs, num_chunks=V,
+                                   remat_stage=True), tg)
+        gr = torch.autograd.grad(lr, [p["w"], p["b"]])
+        out[key] = dict(loss=loss, w=g["w"], b=g["b"], outs=outs,
+                        part=part.detach(), part_w=gp[0], part_b=gp[1],
+                        remat_w=gr[0], remat_b=gr[1])
+    # a padded boundary and the aux channel (V 2, M 4)
+    bounded = S.pipeline_apply(_stage, local(2), i["mbs_narrow"],
+                               num_chunks=2, boundary_shape=(2, 16),
+                               boundary_dtype=torch.float32)
+    p = {k: v.requires_grad_() for k, v in local(2).items()}
+    y, aux = S.pipeline_apply(_stage_aux, p, i["mbs4"], num_chunks=2,
+                              with_aux=True, broadcast_outputs=False)
+    ga = torch.autograd.grad(_mse(y, i["tg4"]) + aux, [p["w"], p["b"]])
+    out["boundary"] = bounded
+    out["aux"] = dict(y=y.detach(), aux=aux.detach(), w=ga[0], b=ga[1])
+
+    # 1F1B: plain V 1; loss params + aux at V 1 and V 2; V 2 plain with
+    # skip_idle False
+    lpar = {"u": i["u"]}
+
+    def loss_plain(y, m):
+        return _mse(y, i["tg4"][m])
+
+    def loss_lp(lp_, y, m):
+        return _mse(y * lp_["u"], i["tg4"][m])
+
+    for name, V, kw in (
+            ("plain", 1, dict(loss_mb=loss_plain)),
+            ("lp_aux", 1, dict(loss_mb=loss_lp, loss_params=lpar,
+                               with_aux=True, aux_cotangent=0.5)),
+            ("v2_lp_aux", 2, dict(loss_mb=loss_lp, loss_params=lpar,
+                                  with_aux=True, aux_cotangent=0.5)),
+            ("v2_noskip", 2, dict(loss_mb=loss_plain, skip_idle=False))):
+        stage = _stage_aux if kw.get("with_aux") else _stage
+        sp = local(V) if V > 1 else {k: v[0] for k, v in local(1).items()}
+        got = S.one_f_one_b(stage, sp, i["mbs4"], kw.pop("loss_mb"),
+                            num_chunks=V, **kw)
+        out[f"1f1b_{name}"] = list(got)
+
+    # the tied embedding, both conventions
+    def embed(tied, tok):
+        return tied["emb"][tok.long()]
+
+    def head(tied, outs):
+        logits = torch.einsum("mbd,vd->mbv", outs, tied["emb"])
+        return -torch.log_softmax(logits.float(), -1)[..., 0].mean(1)
+
+    for conv, bcast in (("outer", True), ("inside", False)):
+        p = {k: v.requires_grad_() for k, v in local(1).items()}
+        tied = {"emb": i["emb"].clone().requires_grad_()}
+        z = S.pipeline_tied_apply(_stage, p, embed, head, tied, i["tok"],
+                                  broadcast_outputs=bcast)
+        loss = z.mean()
+        gw, gb, ge = torch.autograd.grad(loss, [p["w"], p["b"],
+                                                tied["emb"]])
+        ge = S.allreduce_embedding_grads({"emb": ge})["emb"]
+        if not bcast:
+            loss = _psum_pp(loss.detach())     # the partials' sum
+        out[f"tied_{conv}"] = dict(loss=loss.detach(), w=gw, b=gb, emb=ge)
+
+    # the p2p shifts and their transposes
+    for name, fn in (("fwd", p2p.send_forward_recv_forward),
+                     ("bwd", p2p.send_backward_recv_backward)):
+        out[f"p2p_{name}"] = _vjp(lambda x: fn(x), [i["x"][s]], i["ct"][s])
+    out["p2p_chained"] = p2p.recv_forward(p2p.send_forward(i["x"][s]))
+
+    # the parallel state, with and without a virtual pipeline
+    st = dict(sizes=[ps.get_pipeline_model_parallel_world_size(),
+                     ps.get_pipeline_model_parallel_rank()],
+              embed=ps.is_rank_in_embedding_group(),
+              func=S.get_forward_backward_func().__name__)
+    ps.destroy_model_parallel()
+    ps.initialize_model_parallel(1, n, virtual_pipeline_model_parallel_size=2)
+    flags = []
+    for v in (0, 1):
+        ps.set_virtual_pipeline_model_parallel_rank(v)
+        flags.append([ps.is_pipeline_first_stage(),
+                      ps.is_pipeline_last_stage(),
+                      ps.is_pipeline_first_stage(ignore_virtual=True),
+                      ps.is_pipeline_last_stage(ignore_virtual=True)])
+    st.update(virtual=[ps.get_virtual_pipeline_model_parallel_world_size(),
+                       ps.get_virtual_pipeline_model_parallel_rank()],
+              flags=flags, vfunc=S.get_forward_backward_func().__name__)
+    out["state"] = st
+
+    # the errors
+    cp = ps.get_context_parallel_group()          # one rank
+    ring = _ring_stage(cp)
+    sp1 = {k: v[0] for k, v in local(1).items()}
+    errs = {
+        "v2_few_mb": _raises(lambda: S.pipeline_apply(
+            _stage, local(2), i["mbs4"][:n - 1], num_chunks=2), ValueError),
+        "boundary": _raises(lambda: S.pipeline_apply(
+            _stage, local(1), i["mbs4"], boundary_shape=(2, 8)),
+            ValueError),
+        "1f1b_mod": _raises(lambda: S.one_f_one_b(
+            _stage, local(2), i["mbs8"][:n + 1], loss_plain,
+            num_chunks=2), ValueError),
+        "1f1b_aux": _raises(lambda: S.one_f_one_b(
+            _stage_aux, sp1, i["mbs4"], loss_plain, with_aux=True),
+            ValueError),
+        "skip_ring": _raises(lambda: S.pipeline_apply(
+            ring, local(1), i["mbs4"]), ValueError),
+        "skip_idle_ring": _raises(lambda: S.one_f_one_b(
+            ring, sp1, i["mbs4"], loss_plain), ValueError),
+        "no_skip_ring": _raises(lambda: S.pipeline_apply(
+            ring, local(1), i["mbs4"], skip_bubbles=False), ValueError)}
+    ps.destroy_model_parallel()
+    errs["virtual_pp1"] = _raises(lambda: ps.initialize_model_parallel(
+        1, 1, virtual_pipeline_model_parallel_size=2), ValueError)
+    ps.destroy_model_parallel()
+    out["errors"] = errs
+    return _np(out)
+
+
+def _psum_pp(x):
+    from apex1_tpu_torch.transformer import parallel_state as ps
+    from apex1_tpu_torch.transformer.tensor_parallel import mappings as mp
+    return mp.all_reduce(x, ps.get_pipeline_model_parallel_group())
+
+
+# ---- tests/test_torch_moe.py ----------------------------------------------
+
+
+def moe_cases(inputs: dict, n: int, cfg_kw: dict) -> dict:
+    """`moe_shard_map_apply` on an ep = n mesh (this rank's tokens and
+    experts), with and without ``stats_axes``, forward and vjp; the
+    `param_specs` slice of the stacked experts."""
+    from apex1_tpu_torch.core.mesh import make_mesh
+    from apex1_tpu_torch.transformer import moe
+    torch.set_num_threads(1)
+    mesh = make_mesh(dp=1, ep=n)
+    from apex1_tpu_torch.transformer import parallel_state as ps
+    ps.destroy_model_parallel()
+    ps.set_mesh(mesh)
+    r = dist.get_rank()
+    i = {k: torch.from_numpy(np.ascontiguousarray(v))
+         for k, v in inputs.items()}
+    cfg = moe.MoEConfig(**cfg_kw)
+    full = {"router": i["wg"], "w1": i["w1"], "w2": i["w2"]}
+    mine = moe.shard_params(full, moe.param_specs(full), mesh)
+    out = {"shard": mine}
+    for name, kw in (("plain", {}), ("stats", dict(stats_axes=("ep",)))):
+        x = i["x"][r].clone().requires_grad_()
+        prm = [t.clone().requires_grad_() for t in
+               (mine["router"], mine["w1"], mine["w2"])]
+        y, aux = moe.moe_shard_map_apply(x, *prm, cfg, axis_name="ep",
+                                         **kw)
+        grads = torch.autograd.grad([y, aux], [x] + prm,
+                                    [i["ct"][r], torch.tensor(1.0)])
+        out[name] = [y.detach(), aux.detach()] + list(grads)
+    return _np(out)
+
+
+# ---- tests/test_torch_llama_cp.py ------------------------------------------
+
+
+def llama_cp_cases(inputs: dict, n: int, cfg_kw: dict) -> dict:
+    """A tiny Llama with ``seq_shard_axis="cp"`` on a cp = n mesh, ring
+    and Ulysses: this rank's logits and the grads of the sum of its
+    next-token CE over its shard; `ulysses_attention` forward and vjp
+    (GQA, and GQA with fewer KV heads than ranks) and its errors."""
+    from apex1_tpu_torch import LlamaConfig, get_policy
+    from apex1_tpu_torch.interop import llama_params_from_jax
+    from apex1_tpu_torch.ops.xentropy import softmax_cross_entropy_loss
+    from apex1_tpu_torch.parallel.ulysses import ulysses_attention
+    from apex1_tpu_torch.transformer import parallel_state as ps
+    _setup(context_parallel_size=n)
+    r = dist.get_rank()
+    g = ps.get_context_parallel_group()
+    out = {}
+    tok = torch.from_numpy(inputs["tokens"][r])
+    lbl = torch.from_numpy(inputs["labels"][r])
+    for impl in ("ring", "ulysses"):
+        cfg = LlamaConfig.tiny(policy=get_policy("O0"), cp_impl=impl,
+                               **cfg_kw)
+        from apex1_tpu_torch.models.llama import Llama
+        model = llama_params_from_jax(inputs["params"], cfg, "cpu")
+        cp_model = Llama(cfg, seq_shard_axis="cp", device="cpu")
+        cp_model.load_state_dict(model.state_dict())
+        params = {k: v.detach().requires_grad_()
+                  for k, v in cp_model.named_parameters()}
+        logits = torch.func.functional_call(cp_model, params, (tok,))
+        loss = softmax_cross_entropy_loss(logits.float(), lbl).sum()
+        grads = torch.autograd.grad(loss, list(params.values()))
+        out[impl] = dict(logits=logits.detach(),
+                         grads=dict(zip(params, grads)))
+    i = {k: torch.from_numpy(np.ascontiguousarray(inputs[k][r]))
+         for k in ("q", "k", "v", "k1", "v1", "do")}
+    for name, (kk, vv) in (("gqa", ("k", "v")), ("gqa_rep", ("k1", "v1"))):
+        out[f"ulysses_{name}"] = _vjp(
+            lambda q, k, v: ulysses_attention(q, k, v, g, causal=True),
+            [i["q"], i[kk], i[vv]], i["do"])
+    out["errors"] = [
+        _raises(lambda: ulysses_attention(i["q"][:, :3], i["k"][:, :1],
+                                          i["v"][:, :1], g), ValueError),
+        _raises(lambda: ulysses_attention(i["q"], i["k"], i["v"], g,
+                                          fallback="tree"), ValueError)]
+    out["fallback"] = ulysses_attention(i["q"][:, :3], i["k1"], i["v1"], g,
+                                        causal=True, fallback="ring")
+    ps.destroy_model_parallel()
+    return _np(out)
+
+
+# ---- tests/test_torch_llama_3d.py ------------------------------------------
+
+
+def llama_3d_cases(inputs: dict, layouts: dict, model_kw: dict) -> dict:
+    """For each layout of ``layouts`` (Llama3DConfig keywords, ``moe``
+    among them), on its own mesh: this rank's coordinates, the global
+    loss and this rank's combined grads of one forward and backward
+    (`llama_3d.loss_and_grads`) from the flat model's params
+    ``inputs["flat"][moe]``; with ``steps`` also that many train steps
+    (`make_train_step`) from ``inputs["start"]``, the losses and the
+    final params; with ``overflow`` an fp16 step whose loss is forced to
+    inf."""
+    from apex1_tpu_torch import LlamaConfig, get_policy
+    from apex1_tpu_torch.core.mesh import MESH_AXES, make_mesh
+    from apex1_tpu_torch.interop import llama3d_state_from_jax
+    from apex1_tpu_torch.models import llama_3d as L3
+    torch.set_num_threads(1)
+    out = {}
+    for name, lay in layouts.items():
+        lay = dict(lay)
+        moe = lay.pop("moe", False)
+        steps = lay.pop("steps", 0)
+        level = lay.pop("level", "O0")
+        mk = dict(model_kw[moe])
+        m = LlamaConfig.tiny(policy=get_policy(level), **mk)
+        cfg = L3.Llama3DConfig(model=m, moe=moe, **lay)
+        mesh = make_mesh(dp=cfg.dp, pp=cfg.pp, cp=cfg.cp, ep=cfg.ep,
+                         tp=cfg.tp)
+        tok = torch.from_numpy(inputs["tokens"][moe])
+        lbl = torch.from_numpy(inputs["labels"][moe])
+        res = dict(coords=[mesh.index(a) for a in MESH_AXES],
+                   sizes=[mesh.size(a) for a in MESH_AXES])
+        if not steps:
+            named = {k: torch.from_numpy(v.copy())
+                     for k, v in inputs["flat"][moe].items()}
+            params = L3.shard_params(*L3.from_llama_params(named, cfg), cfg,
+                                     mesh)
+            loss, grads = L3.loss_and_grads(cfg, params, tok, lbl,
+                                            mesh=mesh)
+            res.update(loss=loss, grads=grads)
+        else:
+            step, _ = L3.build_step(cfg, mesh)
+            state = llama3d_state_from_jax(inputs["start"], cfg, mesh,
+                                           device="cpu")
+            losses = []
+            for _ in range(steps):
+                state, loss = step(state, tok, lbl)
+                losses.append(loss)
+            res.update(losses=losses, params=state["params"],
+                       step=state["step"])
+        out[name] = res
+    st, data = L3.abstract_state(cfg, mesh)
+    out["abstract"] = dict(
+        meta=all(v.is_meta for v in st["params"].values()),
+        shapes={k: list(v.shape) for k, v in st["params"].items()},
+        data=list(data.shape))
+    return _np(out)
+
+
+def llama_3d_overflow(inputs: dict, lay: dict, model_kw: dict) -> dict:
+    """Two O2_fp16 steps of `llama_3d.build_step`; before the second the
+    embedding master is multiplied by 1e8, so its fp16 copy overflows
+    and every gradient is non-finite: the params and both Adam moments
+    after that step against those before it, and the scale state."""
+    from apex1_tpu_torch import LlamaConfig, get_policy
+    from apex1_tpu_torch.core.mesh import make_mesh
+    from apex1_tpu_torch.interop import llama3d_state_from_jax
+    from apex1_tpu_torch.models import llama_3d as L3
+    torch.set_num_threads(1)
+    m = LlamaConfig.tiny(policy=get_policy("O2_fp16"), **model_kw)
+    cfg = L3.Llama3DConfig(model=m, **lay)
+    mesh = make_mesh(dp=cfg.dp, pp=cfg.pp, cp=cfg.cp, ep=cfg.ep, tp=cfg.tp)
+    step, _ = L3.build_step(cfg, mesh)
+    state = llama3d_state_from_jax(inputs["start"], cfg, mesh, device="cpu")
+    tok = torch.from_numpy(inputs["tokens"][False])
+    lbl = torch.from_numpy(inputs["labels"][False])
+    state, l1 = step(state, tok, lbl)
+    params = dict(state["params"])
+    params["shared.emb"] = params["shared.emb"] * 1e8
+    before = dict(state, params=params)
+    after, l2 = step(before, tok, lbl)
+    same = {k: all(torch.equal(a[n], b[n]) for n in params)
+            for k, a, b in (("params", after["params"], before["params"]),
+                            ("exp_avg", after["opt"].exp_avg,
+                             before["opt"].exp_avg),
+                            ("exp_avg_sq", after["opt"].exp_avg_sq,
+                             before["opt"].exp_avg_sq))}
+    return _np(dict(
+        losses=[l1, l2], same=same,
+        step=[int(before["opt"].step), int(after["opt"].step)],
+        scale=[float(before["scale"].scale), float(after["scale"].scale)],
+        overflow=[int(before["scale"].overflow_count),
+                  int(after["scale"].overflow_count)]))
