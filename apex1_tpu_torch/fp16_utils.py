@@ -23,6 +23,7 @@ import torch
 from apex1_tpu_torch.core.loss_scale import (DynamicLossScale,
                                              LossScaleState, all_finite,
                                              make_loss_scale, select_tree)
+from apex1_tpu_torch.ops._common import resolve_device
 from apex1_tpu_torch.optim import GradientTransformation, apply_updates
 
 __all__ = [
@@ -87,7 +88,9 @@ def model_grads_to_master_grads(model_grads: dict) -> dict:
 class DynamicLossScaler:
     """``fp16_utils.loss_scaler.DynamicLossScaler``: a stateful facade
     over `LossScaleState` (2^16 at first, x scale_factor every
-    ``scale_window`` clean steps, halved on an overflow)."""
+    ``scale_window`` clean steps, halved on an overflow). The state
+    lives on ``device``: CUDA unless the caller names another (asking
+    for CUDA without a card raises)."""
 
     def __init__(self, init_scale: float = 2.0 ** 16,
                  scale_factor: float = 2.0, scale_window: int = 2000,
@@ -95,7 +98,8 @@ class DynamicLossScaler:
         self._impl = make_loss_scale(DynamicLossScale(
             init_scale=init_scale, growth_factor=scale_factor,
             growth_interval=scale_window))
-        self.state: LossScaleState = self._impl.init(device)
+        self.state: LossScaleState = self._impl.init(
+            resolve_device(device))
 
     @property
     def loss_scale(self) -> float:
@@ -120,7 +124,7 @@ class LossScaler(DynamicLossScaler):
 
     def __init__(self, scale: float = 1.0, device=None):
         self._impl = make_loss_scale(scale)
-        self.state = self._impl.init(device)
+        self.state = self._impl.init(resolve_device(device))
 
     def update_scale(self, overflow: bool) -> None:
         pass  # static

@@ -27,6 +27,11 @@ numpy arrays: this module imports no JAX.
   (``{"q", "s"}`` leaves) as the port's, for `models.quant_decode`;
 - `mha_params_from_jax`: a `SelfMultiheadAttn` or `EncdecMultiheadAttn`
   from its flax params (the same names, the same (in, out) layout);
+- `module_params_from_jax`: the same for the thin modules, whose port
+  keeps the flax names and layouts: `ops.fused_dense`'s `FusedDense`,
+  `FusedDenseGeluDense` and `MLP` (weights (out, in) in both),
+  `contrib.group_norm.GroupNorm`, `reparameterization.WeightNormDense`
+  and `rnn`'s `LSTM`, `GRU`, `RNNReLU` and `RNNTanh`;
 - `named_from_flax` / `flax_from_named`: one flax-layout tree (params,
   grads, Adam moments) of any of these models to the port's dict and
   back;
@@ -54,6 +59,7 @@ import numpy as np
 import torch
 
 from apex1_tpu_torch.amp import AmpState
+from apex1_tpu_torch.contrib.group_norm import GroupNorm
 from apex1_tpu_torch.contrib.multihead_attn import (EncdecMultiheadAttn,
                                                     SelfMultiheadAttn)
 from apex1_tpu_torch.core.loss_scale import LossScaleState
@@ -63,9 +69,13 @@ from apex1_tpu_torch.models.llama import Llama, LlamaConfig
 from apex1_tpu_torch.models.resnet import ResNet, ResNetConfig
 from apex1_tpu_torch.models.t5 import T5, T5Config
 from apex1_tpu_torch.ops._common import resolve_device
+from apex1_tpu_torch.ops.fused_dense import (MLP, FusedDense,
+                                             FusedDenseGeluDense)
 from apex1_tpu_torch.optim import (FusedAdagradState, FusedAdamState,
                                    FusedLAMBState, FusedNovoGradState,
                                    FusedSGDState)
+from apex1_tpu_torch.reparameterization import WeightNormDense
+from apex1_tpu_torch.rnn import GRU, LSTM, RNNReLU
 
 _DENSE = ("qkv", "proj", "fc_in", "fc_out")
 _NORMS = ("ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias")
@@ -308,6 +318,14 @@ def t5_params_to_numpy(model: T5) -> dict:
     return flax_from_named(dict(model.named_parameters()))
 
 
+def _same_names(params, module):
+    named = _dotted(params)
+    if set(named) != {n for n, _ in module.named_parameters()}:
+        raise ValueError(f"params {sorted(named)} do not fit the module's "
+                         f"{sorted(n for n, _ in module.named_parameters())}")
+    return _load(module, named)
+
+
 def mha_params_from_jax(params, module):
     """``module`` (a `SelfMultiheadAttn` or `EncdecMultiheadAttn` built
     with the flax module's options) holding the flax ``params``: the
@@ -315,11 +333,24 @@ def mha_params_from_jax(params, module):
     if not isinstance(module, (SelfMultiheadAttn, EncdecMultiheadAttn)):
         raise TypeError(f"expected a multihead attention module, got "
                         f"{type(module).__name__}")
-    named = _dotted(params)
-    if set(named) != {n for n, _ in module.named_parameters()}:
-        raise ValueError(f"params {sorted(named)} do not fit the module's "
-                         f"{sorted(n for n, _ in module.named_parameters())}")
-    return _load(module, named)
+    return _same_names(params, module)
+
+
+#: the thin modules whose parameters keep the flax names and layouts
+_THIN = (FusedDense, FusedDenseGeluDense, MLP, GroupNorm, WeightNormDense,
+         LSTM, GRU, RNNReLU)
+
+
+def module_params_from_jax(params, module):
+    """``module`` (one of the thin modules, built with the flax module's
+    options: `FusedDense`, `FusedDenseGeluDense`, `MLP`, `GroupNorm`,
+    `WeightNormDense`, `LSTM`, `GRU`, `RNNReLU`, `RNNTanh`) holding the
+    flax ``params`` as numpy: the same names and layouts. Returns
+    ``module``."""
+    if not isinstance(module, _THIN):
+        raise TypeError(f"expected one of {[t.__name__ for t in _THIN]}, "
+                        f"got {type(module).__name__}")
+    return _same_names(params, module)
 
 
 def resnet_params_from_jax(params, batch_stats, cfg: ResNetConfig,

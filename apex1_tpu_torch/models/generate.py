@@ -1,9 +1,11 @@
 """KV-cached decoding (the port of ``apex1_tpu/models/generate.py``):
 the cache layout, the cache-aware attention the models call, the
-``(apply_fn, make_cache)`` decoder pair the serving engine drives, and
-`generate`, the prefill + decode loop over a dense cache. ``beam_search``
-and the speculative loop come with the decode slice (ROADMAP.md queue A
-item 4).
+``(apply_fn, make_cache)`` decoder pair the serving engine drives,
+`generate` (the prefill + decode loop over a dense cache),
+`beam_search` over the same decode step, and `t5_generate` (encode
+once, then the cached T5 decoder, greedy, sampled or beam).
+`counter_sample` and `speculative_generate` are not ported yet
+(ROADMAP.md queue A item 4).
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from apex1_tpu_torch.ops._common import resolve_device
+from apex1_tpu_torch.ops._common import NEG_INF, resolve_device
 from apex1_tpu_torch.ops.attention import flash_attention
 from apex1_tpu_torch.ops.paged_decode import (PagedCache, cache_attend,
                                               paged_update_attend,
@@ -33,8 +35,9 @@ def init_cache(num_layers: int, batch: int, num_kv_heads: int,
 
 
 def cached_attention(q, k_new, v_new, cache, cache_index, *,
-                     sm_scale: Optional[float] = None, segment_ids=None,
-                     valid_start=None, chunk_decode: bool = False):
+                     sm_scale: Optional[float] = None, bias=None,
+                     segment_ids=None, valid_start=None,
+                     chunk_decode: bool = False):
     """Attention through the KV cache. ``q``/``k_new``/``v_new``:
     (B, H, S, D)/(B, Hkv, S, D) for the current tokens.
 
@@ -51,13 +54,17 @@ def cached_attention(q, k_new, v_new, cache, cache_index, *,
       cache, from each row's ``valid_start`` on when given. The new
       entry is a fresh copy, as the JAX package's functional update is.
 
-    The additive ``bias`` of the JAX function comes with T5's cached
-    decode (ROADMAP.md queue A item 9).
+    ``bias``: an additive logit bias, in prefill over the current tokens
+    (1, H, S, S), riding flash's bias operand (causality stays the
+    kernels' causal flag); in decode the query row against every cache
+    slot (1, H, 1, S_max), added in fp32 before the horizon mask (T5's
+    relative-position bias). A `PagedCache` takes none.
     Returns (attn (B, H, S, D), new_cache_entry)."""
     if isinstance(cache, PagedCache):
-        if segment_ids is not None or valid_start is not None:
+        if (bias is not None or segment_ids is not None
+                or valid_start is not None):
             raise ValueError("PagedCache attention does not support "
-                             "segment_ids/valid_start")
+                             "bias/segment_ids/valid_start")
         return paged_update_attend(q, k_new, v_new, cache, cache_index,
                                    sm_scale=sm_scale,
                                    chunk_decode=chunk_decode)
@@ -78,9 +85,10 @@ def cached_attention(q, k_new, v_new, cache, cache_index, *,
                 f"the new tokens, so a non-empty cache would be silently "
                 f"ignored")
         attn = flash_attention(q, k_new, v_new, causal=True,
-                               sm_scale=sm_scale, segment_ids=segment_ids)
+                               sm_scale=sm_scale, bias=bias,
+                               segment_ids=segment_ids)
         return attn, new_entry
-    attn = cache_attend(q, k_all, v_all, idx, sm_scale=sm_scale,
+    attn = cache_attend(q, k_all, v_all, idx, sm_scale=sm_scale, bias=bias,
                         valid_start=valid_start)
     return attn, new_entry
 
@@ -204,6 +212,164 @@ def _ragged_align(prompt_tokens, prompt_lens):
                   torch.int32),
               valid_start=pad)
     return aligned, kw, pad
+
+
+def _map_cache(fn, cache: dict) -> dict:
+    """``fn`` applied to every tensor of a dense {"layer{i}": {"k","v"}}
+    cache."""
+    return {name: {kv: fn(t) for kv, t in entry.items()}
+            for name, entry in cache.items()}
+
+
+def _top_k(x: torch.Tensor, k: int):
+    """``jax.lax.top_k`` over the last axis: the k largest values, ties
+    to the lower index (a stable descending sort)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def beam_search(apply_fn: Callable, prompt_tokens, *, max_new_tokens: int,
+                cache, num_beams: int = 4, length_penalty: float = 0.0,
+                eos_id: Optional[int] = None, pad_id: int = 0,
+                vocab_size: Optional[int] = None):
+    """Beam search over the same cached decode step as `generate`
+    (``apply_fn(tokens, cache, cache_index) -> (logits, cache)``, the
+    model closed over as in `generate`).
+
+    Beams ride the batch axis: ``cache`` is built for batch ``B *
+    num_beams``, lanes b-major (b·K + k), and each step's reorder is
+    one gather over that axis. Prefill runs once at batch B on the
+    cache's first B lanes, and the filled cache is tiled K-fold; the
+    first expansion takes each row's top-K tokens from that one
+    distribution.
+
+    Scores sum token log-probs over the valid vocab (``vocab_size``
+    masks the padded logits before the softmax). With ``length_penalty``
+    > 0, candidates compete at every step on GNMT-normalised scores
+    ``sum / length**penalty`` (a beam's length counts its tokens up to
+    and including its ``eos_id``); the carried scores stay raw sums.
+    Finished beams stop accumulating and pad with ``pad_id``. Ties go
+    to the lower index, as ``jax.lax.top_k`` and ``argmax`` break them.
+    Returns (tokens (B, max_new_tokens) int32, scores (B,)) of the best
+    beam under the same normalisation."""
+    B, S0 = prompt_tokens.shape
+    K = num_beams
+
+    def masked_logp(logits_row):
+        lg = logits_row.float()
+        if vocab_size is not None and vocab_size < lg.shape[-1]:
+            col = torch.arange(lg.shape[-1], device=lg.device)
+            lg = torch.where(col < vocab_size, lg, NEG_INF)
+        return torch.log_softmax(lg, dim=-1)
+
+    def norm_rank(sums, lens):
+        if not length_penalty:
+            return sums
+        return sums / torch.clamp(lens, min=1.0) ** length_penalty
+
+    # prefill once at batch B on the cache's first B lanes, tile K-fold
+    logits, pre = apply_fn(prompt_tokens, _map_cache(lambda c: c[:B], cache),
+                           0)
+    cache = _map_cache(lambda c: c.repeat_interleave(K, dim=0), pre)
+    logp = masked_logp(logits[:, -1])                     # (B, V)
+    V = logp.shape[-1]
+    dev = logp.device
+    scores, nxt = _top_k(logp, K)                         # (B, K)
+    nxt = nxt.to(torch.int32)
+    done = (torch.zeros(B, K, dtype=torch.bool, device=dev)
+            if eos_id is None else nxt == eos_id)
+    lens = torch.ones(B, K, dtype=torch.float32, device=dev)
+    buf = torch.full((B * K, max_new_tokens), pad_id, dtype=torch.int32,
+                     device=dev)
+    buf[:, 0] = nxt.reshape(-1)
+    # a finished beam proposes one zero-score continuation (pad), so its
+    # total never moves
+    pad_row = torch.where(torch.arange(V, device=dev) == pad_id, 0.0,
+                          NEG_INF)
+    lane0 = torch.arange(B, device=dev)[:, None] * K
+    idx = S0
+    for t in range(1, max_new_tokens):
+        logits, cache = apply_fn(nxt.reshape(B * K, 1), cache, idx)
+        logp = masked_logp(logits[:, -1]).reshape(B, K, V)
+        logp = torch.where(done[..., None], pad_row, logp)
+        cand = scores[..., None] + logp
+        cand_len = (lens + torch.where(done, 0.0, 1.0))[..., None]
+        _, flat = _top_k(norm_rank(cand, cand_len).reshape(B, K * V), K)
+        scores = torch.gather(cand.reshape(B, K * V), 1, flat)
+        src = flat // V
+        token = (flat % V).to(torch.int32)
+        gidx = (lane0 + src).reshape(-1)
+        cache = _map_cache(lambda c: c[gidx], cache)
+        done = torch.gather(done, 1, src)
+        lens = torch.gather(lens, 1, src)
+        buf = buf[gidx]
+        # the emitted token counts toward the length unless the beam had
+        # finished before this step (the eos itself counts)
+        lens = lens + torch.where(done, 0.0, 1.0)
+        if eos_id is not None:
+            done = done | (token == eos_id)
+        buf[:, t] = token.reshape(-1)
+        nxt = token
+        idx += 1
+    norm = norm_rank(scores, lens)
+    best = torch.argmax(norm, dim=1)                      # (B,)
+    rows = torch.arange(B, device=dev)
+    return buf.reshape(B, K, -1)[rows, best], norm[rows, best]
+
+
+def t5_generate(model, enc_tokens, *, max_new_tokens: int,
+                dec_start_id: int = 0, enc_pad_mask=None,
+                temperature: float = 0.0, top_k: Optional[int] = None,
+                rng=None, eos_id: Optional[int] = None, pad_id: int = 0,
+                num_beams: int = 1, length_penalty: float = 0.0):
+    """Seq2seq generation for `models.t5.T5`: encode once, then the
+    KV-cached decoder from ``dec_start_id`` (T5's decoder start, the
+    pad token 0). Returns (B, max_new_tokens) int32 ids. The decoder's
+    self-attention is cached (``1 + max_new_tokens`` slots); the
+    cross-attention recomputes its K/V from the memory each step. The
+    JAX function's ``params`` live in ``model``.
+
+    ``num_beams > 1`` runs `beam_search` (the sampling arguments must
+    keep their defaults; a wrong call raises before the encoder runs):
+    the encoder still runs once at batch B, prefill at B against the
+    untiled memory, and the memory and ``enc_pad_mask`` are tiled
+    K-fold (b-major lanes) for the decode steps. Otherwise `generate`
+    decodes, greedy or sampled from the threefry key data ``rng``."""
+    cfg = model.cfg
+    K = num_beams
+    if K > 1 and (temperature != 0.0 or top_k is not None):
+        raise ValueError("beam search is deterministic: temperature/top_k "
+                         "require num_beams=1")
+    with torch.no_grad():
+        memory = model.encode(enc_tokens, enc_pad_mask)
+    B = enc_tokens.shape[0]
+    # lanes are b-major (b·K + k): memory[:B] of the tile would be row 0
+    # repeated, so the prefill at batch B takes the untiled memory
+    memory_tiled = memory.repeat_interleave(K, dim=0) if K > 1 else memory
+    mask_tiled = (enc_pad_mask.repeat_interleave(K, dim=0)
+                  if K > 1 and enc_pad_mask is not None else enc_pad_mask)
+
+    @torch.no_grad()
+    def apply_fn(tokens, cache, cache_index):
+        pre = tokens.shape[0] == B
+        return model.decode(tokens, memory if pre else memory_tiled,
+                            enc_pad_mask=enc_pad_mask if pre else mask_tiled,
+                            cache=cache, cache_index=cache_index)
+
+    cache = init_cache(cfg.num_decoder_layers, B * K, cfg.num_heads,
+                       1 + max_new_tokens, cfg.head_dim,
+                       cfg.policy.compute_dtype, device=model.device)
+    prompt = torch.full((B, 1), dec_start_id, dtype=torch.int32,
+                        device=model.device)
+    if K > 1:
+        toks, _ = beam_search(apply_fn, prompt,
+                              max_new_tokens=max_new_tokens, cache=cache,
+                              num_beams=K, length_penalty=length_penalty,
+                              eos_id=eos_id, pad_id=pad_id)
+        return toks
+    return generate(apply_fn, prompt, max_new_tokens=max_new_tokens,
+                    cache=cache, temperature=temperature, top_k=top_k,
+                    rng=rng, eos_id=eos_id, pad_id=pad_id)
 
 
 def _decoder(model, num_kv_heads: int, head_dim: int):

@@ -31,8 +31,15 @@ on the CPU (where it equals the JAX package's bit for bit), and the
 one-hot matrix kept per shape and device (32 MiB at 512 x 512 with 32
 buckets).
 
-Not here, each raising with its ROADMAP.md item: the cached decode
-(``cache``/``cache_index``, item 9) and `param_specs` (item 7).
+The cached decode (``T5.decode(cache=, cache_index=)``, driven by
+`models.generate.t5_generate`) runs the decoder's self-attention
+through `cached_attention`: one (1, H, 1, S_max) bias row at the cache
+index over every cache slot (the slots past the index masked by the
+horizon, not by the bias), remat off under a cache. Cross-attention
+recomputes its K/V from the memory at each step through flash, as in
+the JAX package.
+
+Not here, raising with its ROADMAP.md item: `param_specs` (item 7).
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ import torch.nn.functional as F
 
 from apex1_tpu_torch.core.policy import PrecisionPolicy, get_policy
 from apex1_tpu_torch.models.gpt2 import head_logits
+from apex1_tpu_torch.models.generate import cached_attention
 from apex1_tpu_torch.ops._common import resolve_device
 from apex1_tpu_torch.ops.attention import flash_attention
 from apex1_tpu_torch.ops.layer_norm import rms_norm
@@ -54,7 +62,6 @@ from apex1_tpu_torch.ops.xentropy import softmax_cross_entropy_loss
 from apex1_tpu_torch.transformer.tensor_parallel.random import (
     checkpoint_module, checkpoint_policy)
 
-_CACHED = "ROADMAP.md queue A item 9 (T5's cached decode)"
 _MULTI_GPU = "ROADMAP.md queue A item 7 (multi-GPU)"
 
 
@@ -148,7 +155,10 @@ def _param(*shape, device, fill=0.0):
 class RelPosBias(nn.Module):
     """The learned per-head relative-position bias of a stack: a
     (buckets, heads) table ``rel_bias``; ``forward(q_len, k_len)`` gives
-    the (1, H, q_len, k_len) bias, fp32 and contiguous."""
+    the (1, H, q_len, k_len) bias, fp32 and contiguous.
+    ``q_positions`` (q_len,) ints: the queries' global positions (the
+    cached decode asks for one row at the cache index), gathered from
+    the table (no gradient flows in decoding)."""
 
     def __init__(self, cfg: T5Config, bidirectional: bool, device=None):
         super().__init__()
@@ -158,9 +168,12 @@ class RelPosBias(nn.Module):
                                device=device)
         self._one_hot: dict = {}
 
-    def buckets(self, q_len: int, k_len: int) -> torch.Tensor:
+    def buckets(self, q_len: int, k_len: int,
+                q_positions=None) -> torch.Tensor:
         """The (q_len, k_len) int32 bucket map, on the CPU."""
-        rel = torch.arange(k_len)[None, :] - torch.arange(q_len)[:, None]
+        qpos = (torch.arange(q_len) if q_positions is None else
+                torch.as_tensor(q_positions, dtype=torch.int64).cpu())
+        rel = torch.arange(k_len)[None, :] - qpos[:, None]
         return relative_position_bucket(
             rel, bidirectional=self.bidirectional,
             num_buckets=self.cfg.rel_pos_buckets,
@@ -176,8 +189,14 @@ class RelPosBias(nn.Module):
             self._one_hot[key] = hot.to(key[2], torch.float32)
         return self._one_hot[key]
 
-    def forward(self, q_len: int, k_len: int) -> torch.Tensor:
-        bias = self.one_hot(q_len, k_len) @ self.rel_bias.float()
+    def forward(self, q_len: int, k_len: int,
+                q_positions=None) -> torch.Tensor:
+        if q_positions is None:
+            bias = self.one_hot(q_len, k_len) @ self.rel_bias.float()
+        else:
+            idx = self.buckets(q_len, k_len, q_positions).long().to(
+                self.rel_bias.device)
+            bias = self.rel_bias.float()[idx.reshape(-1)]
         return bias.reshape(q_len, k_len, -1).permute(2, 0, 1).unsqueeze(
             0).contiguous()
 
@@ -195,12 +214,20 @@ class T5Attention(nn.Module):
         self.wv = _param(cfg.d_model, inner, device=device)
         self.wo = _param(inner, cfg.d_model, device=device)
 
-    def forward(self, x, kv=None, bias=None, kv_keep=None, causal=False):
+    def forward(self, x, kv=None, bias=None, kv_keep=None, causal=False,
+                cache=None, cache_index=None):
         """``x`` (B, Sq, E); ``kv`` (B, Sk, E) or None for
         self-attention; ``bias`` (1, H, Sq, Sk) through flash's bias
         operand; ``kv_keep`` (B, Sk) bool key padding, as the segment
         pair (zeros, where(keep, 0, 1)); ``causal`` through the kernels'
-        causal flag (their diagonal tile skip kept)."""
+        causal flag (their diagonal tile skip kept). With ``cache`` (a
+        layer's {"k", "v"} entry) the self-attention goes through
+        `cached_attention` and the return is ``(out, new_entry)``."""
+        if cache is not None and kv_keep is not None:
+            raise NotImplementedError(
+                "cached_attention has no key-padding channel (as in the "
+                "JAX package): a silent drop would attend padded keys; "
+                "mask upstream or extend the cache path")
         cfg = self.cfg
         dtype = cfg.policy.compute_dtype
         H, D = cfg.num_heads, cfg.head_dim
@@ -213,10 +240,16 @@ class T5Attention(nn.Module):
         if kv_keep is not None:
             segs = (torch.zeros(B, Sq, dtype=torch.int32, device=x.device),
                     torch.where(kv_keep, 0, 1).to(torch.int32))
-        attn = flash_attention(q, k, v, causal=causal, sm_scale=1.0,
-                               bias=bias, segment_ids=segs)
+        new_cache = None
+        if cache is not None:
+            attn, new_cache = cached_attention(q, k, v, cache, cache_index,
+                                               sm_scale=1.0, bias=bias)
+        else:
+            attn = flash_attention(q, k, v, causal=causal, sm_scale=1.0,
+                                   bias=bias, segment_ids=segs)
         attn = attn.transpose(1, 2).reshape(B, Sq, H * D)
-        return attn @ self.wo.to(dtype)
+        out = attn @ self.wo.to(dtype)
+        return out if cache is None else (out, new_cache)
 
 
 class T5FFN(nn.Module):
@@ -260,12 +293,18 @@ class T5Block(nn.Module):
             g = g.to(cfg.policy.compute_dtype)
         return rms_norm(z, g, eps=cfg.norm_eps).to(cfg.policy.compute_dtype)
 
-    def forward(self, x, bias, memory=None, kv_keep=None):
+    def forward(self, x, bias, memory=None, kv_keep=None, cache=None,
+                cache_index=None):
         """``kv_keep`` (B, S_enc) bool: the encoder's key padding, on the
-        encoder's self-attention and the decoder's cross-attention."""
+        encoder's self-attention and the decoder's cross-attention.
+        With ``cache`` the return is ``(out, new_entry)``."""
         h = self.self_attn(self._norm(self.self_norm, x), None, bias=bias,
                            kv_keep=None if self.is_decoder else kv_keep,
-                           causal=self.is_decoder)
+                           causal=self.is_decoder, cache=cache,
+                           cache_index=cache_index)
+        new_cache = None
+        if cache is not None:
+            h, new_cache = h
         x = x + h.to(x.dtype)
         if self.is_decoder:
             h = self.cross_attn(self._norm(self.cross_norm, x),
@@ -273,7 +312,8 @@ class T5Block(nn.Module):
                                 kv_keep=kv_keep)
             x = x + h.to(x.dtype)
         h = self.ffn(self._norm(self.ffn_norm, x))
-        return x + h.to(x.dtype)
+        out = x + h.to(x.dtype)
+        return out if cache is None else (out, new_cache)
 
 
 class T5Stack(nn.Module):
@@ -289,15 +329,29 @@ class T5Stack(nn.Module):
             self.add_module(f"layer{i}", T5Block(cfg, is_decoder, device))
         self.final_norm = _param(cfg.d_model, device=device, fill=1.0)
 
-    def forward(self, x, memory=None, enc_pad_mask=None):
+    def forward(self, x, memory=None, enc_pad_mask=None, cache=None,
+                cache_index=None):
+        """With ``cache`` ({"layer{i}": entry}) the return is ``(out,
+        new_cache)``."""
         cfg = self.cfg
         S = x.shape[1]
-        # the pure rel-pos bias, once for every layer; the decoder's
-        # causality rides the kernels' causal flag
-        bias = self.rel_pos(S, S)
+        if cache is not None and S == 1:
+            # decode: one bias row at the cache index against every slot
+            # (cached_attention masks the slots past the index)
+            s_max = cache["layer0"]["k"].shape[2]
+            bias = self.rel_pos(1, s_max, q_positions=[int(cache_index)])
+        else:
+            # the pure rel-pos bias, once for every layer; the decoder's
+            # causality rides the kernels' causal flag
+            bias = self.rel_pos(S, S)
+        new_cache = {}
         for i in range(self.num_layers):
             blk = getattr(self, f"layer{i}")
-            if cfg.remat:
+            if cache is not None:
+                x, new_cache[f"layer{i}"] = blk(
+                    x, bias, memory, enc_pad_mask, cache=cache[f"layer{i}"],
+                    cache_index=cache_index)
+            elif cfg.remat:
                 x = checkpoint_module(blk, cfg.remat_policy, x, bias,
                                       memory, enc_pad_mask)
             else:
@@ -305,7 +359,8 @@ class T5Stack(nn.Module):
         g = self.final_norm
         if not cfg.policy.keep_norms_fp32:
             g = g.to(cfg.policy.compute_dtype)
-        return rms_norm(x, g, eps=cfg.norm_eps)
+        out = rms_norm(x, g, eps=cfg.norm_eps)
+        return out if cache is None else (out, new_cache)
 
 
 class T5(nn.Module):
@@ -339,17 +394,20 @@ class T5(nn.Module):
 
     def decode(self, dec_tokens, memory, enc_pad_mask=None,
                return_hidden=False, cache=None, cache_index=None):
-        if cache is not None or cache_index is not None:
-            raise NotImplementedError(
-                f"T5's cached decode (cache/cache_index, cached_attention "
-                f"with a bias) is not ported: {_CACHED}")
+        """``cache``/``cache_index`` run the KV-cached decode of the
+        self-attention (see `models.generate.t5_generate`; the
+        cross-attention recomputes its K/V from the memory each step);
+        the return becomes ``(logits, new_cache)``."""
         dtype = self.cfg.policy.compute_dtype
         y = self.shared_embedding[dec_tokens.long()].to(dtype)
-        h = self.decoder(y, memory=memory,
-                         enc_pad_mask=enc_pad_mask).to(dtype)
-        if return_hidden:
-            return h
-        return head_logits(h, self.head_weight())
+        h = self.decoder(y, memory=memory, enc_pad_mask=enc_pad_mask,
+                         cache=cache, cache_index=cache_index)
+        new_cache = None
+        if cache is not None:
+            h, new_cache = h
+        h = h.to(dtype)
+        out = h if return_hidden else head_logits(h, self.head_weight())
+        return out if cache is None else (out, new_cache)
 
     def head_weight(self) -> torch.Tensor:
         """(vocab, d_model) head weight in the compute dtype; the tied

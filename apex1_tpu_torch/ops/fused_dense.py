@@ -1,5 +1,15 @@
-"""Fused gated MLP (the port of ``fused_glu`` and ``check_glu_geometry``
-in ``apex1_tpu/ops/fused_dense.py``).
+"""Fused dense layers and the fused gated MLP (the port of
+``apex1_tpu/ops/fused_dense.py``).
+
+The thin modules, with no kernel of their own in the JAX package:
+`fused_dense` (``y = x @ Wᵀ + b``, W (out, in) as ``apex.fused_dense``
+stores it), `fused_dense_gelu_dense`, `FusedDense`,
+`FusedDenseGeluDense` and `MLP` (``apex.mlp.MLP``). As in JAX
+(``preferred_element_type=f32``) the product is summed in fp32, the
+bias added in fp32 and the result rounded to x's dtype once: a half
+``torch.matmul`` would round before the bias. The products are plain
+fp32 ``torch.matmul`` (TF32 off, PyTorch's default); their backward is
+autograd's.
 
 ``act(x @ w_gate) * (x @ w_up)``: Llama's SwiGLU (``silu``) or GeGLU
 (tanh ``gelu``), the two products sharing one ``x``. One kernel,
@@ -14,21 +24,20 @@ The backward is the JAX package's recompute VJP (``_glu_bwd``): it saves
 (x, Wg, Wu), recomputes g and u in fp32 and forms dx, dWg and dWu from
 fp32 operands. Those products lie outside any TPU kernel, so they are
 plain ``torch.matmul`` in fp32 (TF32 off, PyTorch's default).
-
-The thin ``fused_dense``, ``FusedDense``, ``FusedDenseGeluDense`` and
-``MLP`` modules (no kernel of their own) are not ported yet
-(ROADMAP.md queue A item 9).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Sequence
 
 import torch
+import torch.nn as nn
 import torch.nn.functional as F
 
 from apex1_tpu_torch.ops import _build
-from apex1_tpu_torch.ops._common import DTYPE_CODES, check_cuda, use_kernel
+from apex1_tpu_torch.ops._common import (DTYPE_CODES, check_cuda,
+                                         resolve_device, use_kernel)
 
 _LANES = 128
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
@@ -156,3 +165,113 @@ def fused_glu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     lead, H = x.shape[:-1], x.shape[-1]
     out = _GluFused.apply(x.reshape(-1, H), w_gate, w_up, activation)
     return out.reshape(*lead, w_gate.shape[1])
+
+
+# ---- the thin modules (no kernel) ---------------------------------------
+
+
+def fused_dense(x: torch.Tensor, weight: torch.Tensor,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``y = x @ weightᵀ + bias`` for a (out, in) ``weight``: summed in
+    fp32, the bias added in fp32, rounded to x's dtype once."""
+    y = torch.matmul(x.float(), weight.float().t())
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
+
+
+def fused_dense_gelu_dense(x, w1, b1, w2, b2) -> torch.Tensor:
+    """Linear + bias + GELU (tanh) + Linear + bias (``apex.fused_dense``'s
+    ``FusedDenseGeluDenseFunc``); each dense rounds to x's dtype once."""
+    h = F.gelu(fused_dense(x, w1, b1), approximate="tanh")
+    return fused_dense(h, w2, b2)
+
+
+def lecun_normal_(p: torch.Tensor, fan_in: int) -> torch.Tensor:
+    """flax's ``lecun_normal`` in place: a normal truncated at two
+    standard deviations, of variance 1 / fan_in (the draws are not
+    JAX's: carry its params with `interop.module_params_from_jax`)."""
+    with torch.no_grad():
+        nn.init.trunc_normal_(p, 0.0, 1.0, -2.0, 2.0)
+        return p.mul_(math.sqrt(1.0 / fan_in) / .87962566103423978)
+
+
+def _dense_params(mod: nn.Module, wname: str, bname: str, bias: bool,
+                  fan_in: int, fan_out: int, device):
+    """A (fan_out, fan_in) lecun-normal weight and a zero bias (None
+    without ``bias``), fp32 on ``device``."""
+    mod.register_parameter(wname, nn.Parameter(lecun_normal_(
+        torch.empty(fan_out, fan_in, device=device), fan_in)))
+    mod.register_parameter(bname, nn.Parameter(
+        torch.zeros(fan_out, device=device)) if bias else None)
+
+
+def _cast(t: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
+    return None if t is None else t.to(dtype)
+
+
+class FusedDense(nn.Module):
+    """``apex.fused_dense.FusedDense(in_features, out_features, bias)``:
+    fp32 ``weight`` (out, in) and ``bias`` (out,) on ``device`` (CUDA
+    unless the caller names another), cast to x's dtype at the call."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True, device=None):
+        super().__init__()
+        _dense_params(self, "weight", "bias", bias, in_features,
+                      out_features, resolve_device(device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return fused_dense(x, self.weight.to(x.dtype),
+                           _cast(self.bias, x.dtype))
+
+
+class FusedDenseGeluDense(nn.Module):
+    """``apex.fused_dense.FusedDenseGeluDense(in_features,
+    intermediate_features, out_features, bias)``: ``weight1``,
+    ``bias1``, ``weight2``, ``bias2``."""
+
+    def __init__(self, in_features: int, intermediate_features: int,
+                 out_features: int, bias: bool = True, device=None):
+        super().__init__()
+        dev = resolve_device(device)
+        _dense_params(self, "weight1", "bias1", bias, in_features,
+                      intermediate_features, dev)
+        _dense_params(self, "weight2", "bias2", bias, intermediate_features,
+                      out_features, dev)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return fused_dense_gelu_dense(
+            x, self.weight1.to(x.dtype), _cast(self.bias1, x.dtype),
+            self.weight2.to(x.dtype), _cast(self.bias2, x.dtype))
+
+
+_ACTIVATIONS = {"none": None, "relu": F.relu, "sigmoid": torch.sigmoid}
+
+
+class MLP(nn.Module):
+    """``apex.mlp.MLP(mlp_sizes, bias, activation)``: Linear(+bias) layers
+    ``weight_{i}`` (out, in) and ``bias_{i}``, ``activation`` ("none",
+    "relu" or "sigmoid") between them and none after the last."""
+
+    def __init__(self, mlp_sizes: Sequence[int], bias: bool = True,
+                 activation: str = "relu", device=None):
+        super().__init__()
+        if len(mlp_sizes) < 2:
+            raise ValueError("mlp_sizes needs >= 2 entries")
+        self.act = _ACTIVATIONS[activation]
+        self.num_layers = len(mlp_sizes) - 1
+        dev = resolve_device(device)
+        for i, (fan_in, fan_out) in enumerate(zip(mlp_sizes[:-1],
+                                                  mlp_sizes[1:])):
+            _dense_params(self, f"weight_{i}", f"bias_{i}", bias, fan_in,
+                          fan_out, dev)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x
+        for i in range(self.num_layers):
+            h = fused_dense(h, getattr(self, f"weight_{i}").to(h.dtype),
+                            _cast(getattr(self, f"bias_{i}"), h.dtype))
+            if self.act is not None and i < self.num_layers - 1:
+                h = self.act(h)
+        return h

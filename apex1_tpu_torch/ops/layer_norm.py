@@ -30,7 +30,8 @@ import torch.nn as nn
 import torch.utils.checkpoint
 
 from apex1_tpu_torch.ops import _build
-from apex1_tpu_torch.ops._common import DTYPE_CODES, check_cuda, use_kernel
+from apex1_tpu_torch.ops._common import (DTYPE_CODES, check_cuda,
+                                         resolve_device, use_kernel)
 
 _NORM_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
@@ -224,7 +225,9 @@ class _FusedNormModule(nn.Module):
     """Shared body: the trailing ``normalized_shape`` dims are flattened
     into the kernel's row axis, as the reference wrapper does; γ (and
     β) are fp32 parameters ``scale`` (and ``bias``);
-    ``memory_efficient`` recomputes the forward in the backward."""
+    ``memory_efficient`` recomputes the forward in the backward. They
+    live on ``device``: CUDA unless the caller names another (asking
+    for CUDA without a card raises)."""
 
     _rms = False
 
@@ -236,7 +239,7 @@ class _FusedNormModule(nn.Module):
         self.eps = eps
         self.memory_efficient = memory_efficient
         h = _flat_h(normalized_shape)
-        kw = dict(device=device, dtype=torch.float32)
+        kw = dict(device=resolve_device(device), dtype=torch.float32)
         if elementwise_affine:
             self.scale = nn.Parameter(torch.ones(h, **kw))
             self.bias = (None if self._rms

@@ -55,15 +55,16 @@ def _jnp_result_type(a: torch.dtype, b: torch.dtype) -> torch.dtype:
 
 
 def cache_attend(q, k_all, v_all, cache_index, *,
-                 sm_scale: Optional[float] = None, valid_start=None):
+                 sm_scale: Optional[float] = None, bias=None,
+                 valid_start=None):
     """Masked composite attention of (B, Hq, S, D) queries against a
     FULL cache (B, Hkv, S_max, D). ``cache_index`` is a scalar or a
     per-row (B,) vector; query j sees cache slots <= index + j, and
     with ``valid_start`` (B,) only slots >= each row's first real
     position (the left-pad slots of a ragged batch). GQA groups the q
-    heads onto the kv-head axis (no repeated cache). The additive
-    ``bias`` of the JAX function comes with T5's cached decode (ROADMAP.md
-    queue A item 9)."""
+    heads onto the kv-head axis (no repeated cache). ``bias`` (Bb, Hq,
+    S, S_max), Bb 1 or B, is added in fp32 after the scale and before
+    the horizon mask (T5's relative-position row at the cache index)."""
     B, Hq, S, D = q.shape
     Hkv = k_all.shape[1]
     dev = q.device
@@ -75,6 +76,9 @@ def cache_attend(q, k_all, v_all, cache_index, *,
     # preferred_element_type=f32
     scores = torch.einsum("bhgsd,bhkd->bhgsk", qg.float(),
                           k_all.float()) * scale
+    if bias is not None:
+        scores = scores + bias.float().reshape(bias.shape[0], Hkv, group,
+                                               S, -1)
     pos = torch.arange(k_all.shape[2], device=dev)
     s_ar = torch.arange(S, device=dev)[None, None, None, :, None]
     if idx.dim() == 0:

@@ -39,6 +39,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from apex1_tpu_torch.ops._common import resolve_device
 from apex1_tpu_torch.transformer.tensor_parallel import mappings as mp
 
 
@@ -164,7 +165,9 @@ class SyncBatchNorm(nn.Module):
     ``scale`` and ``bias`` (fp32, (C,)), buffers ``mean`` and ``var``.
     ``forward`` updates the buffers in place in training (torch's
     idiom); `stats_forward` returns the new statistics instead, for a
-    functional step that carries them (`models.resnet`)."""
+    functional step that carries them (`models.resnet`). The tensors
+    live on ``device``: CUDA unless the caller names another (asking
+    for CUDA without a card raises)."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.1, affine: bool = True,
@@ -180,7 +183,7 @@ class SyncBatchNorm(nn.Module):
         self.use_running_average = use_running_average
         self.feature_axis, self.axis_name = feature_axis, axis_name
         self.group_size = group_size
-        kw = dict(dtype=torch.float32, device=device)
+        kw = dict(dtype=torch.float32, device=resolve_device(device))
         self.scale = (nn.Parameter(torch.ones(num_features, **kw))
                       if affine else None)
         self.bias = (nn.Parameter(torch.zeros(num_features, **kw))
@@ -223,19 +226,22 @@ def convert_syncbn_model(module: nn.Module, *, axis_name="dp",
     ``nn.BatchNorm1d/2d/3d`` (and torch's own ``SyncBatchNorm``) of
     ``module`` replaced, in place, by a `SyncBatchNorm` on the channel
     axis 1 with its eps, momentum, affine flags, training mode, weights
-    and running statistics; returns ``module`` (the converted module if
-    ``module`` itself is a batch norm)."""
+    and running statistics, on the device of the batch norm's first
+    parameter or buffer (the CPU where it holds none, as a torch batch
+    norm made without a device is); returns ``module`` (the converted
+    module if ``module`` itself is a batch norm)."""
     if isinstance(module, nn.modules.batchnorm._BatchNorm):
         if module.momentum is None:
             raise ValueError("momentum=None (a cumulative average) has no "
                              "SyncBatchNorm counterpart")
-        ref = module.weight if module.affine else module.running_mean
+        ref = next(iter(module.parameters()),
+                   next(iter(module.buffers()), None))
         sbn = SyncBatchNorm(
             module.num_features, eps=module.eps, momentum=module.momentum,
             affine=module.affine,
             track_running_stats=module.track_running_stats,
             feature_axis=1, axis_name=axis_name, group_size=group_size,
-            device=None if ref is None else ref.device)
+            device="cpu" if ref is None else ref.device)
         with torch.no_grad():
             if module.affine:
                 sbn.scale.copy_(module.weight)

@@ -221,9 +221,9 @@ class Engine:
             raise NotImplementedError(
                 "the port serves the paged pool only; the dense pool "
                 "(paged=False) is ROADMAP.md queue A item 4 (what is left "
-                "of it: the dense pool, beam_search, speculative_generate, "
-                "counter_sample, and the engine's cancel, deadlines, "
-                "pop_result, prefix= and prefix_cache=False)")
+                "of it: counter_sample, speculative_generate, the dense "
+                "KVPool, and the engine's cancel, deadlines, pop_result, "
+                "prefix= and prefix_cache=False)")
         self._apply_fn = apply_fn
         self._spec = cfg.num_draft > 0
         self._lora = self._lora_head = None

@@ -28,6 +28,10 @@
                                      # (flash, chunk, lxent, int8, glu,
                                      # norm, softmax, normbwd, dbias,
                                      # paged, sample, lora)
+    python3 chip_smoke.py --only [generate-t5] [contrib]
+                                     # build, then run only those
+                                     # phases (both by default); no
+                                     # kernels line
     python3 chip_smoke.py --gate-sweep [kernels] [plain]
                                      # build, then train bert_large at
                                      # O2 for GATE_STEPS steps at each
@@ -126,6 +130,13 @@ Phases, each printed on its own line; a failure in any exits non-zero:
    the world-1 step (16384) and a ragged f32 case, with a carried (out,
    lse): the flash rounding bound, the same bits twice, the port's
    two-step form (flash_fwd, then the merge in PyTorch) timed beside it.
+   The T5 generation and contrib slice's: flash at one query row
+   against T5's 512 keys with key padding (a decode step's
+   cross-attention, 8 x 16 heads), the RMS norm at a decode step's 8 x
+   1024 rows, the norm at OpenFold's 32768 x 256 and 65536 x 128 rows,
+   the softmax at OpenFold's (128, 8, 256, 256) scores with the folded
+   pair-bias mask, and the cross-entropy on the bf16 GPT-2 head (every
+   column a class, smoothing 0.1, padding_idx 0).
 3. engine — serve GPT-2 124M at full width (12 layers, hidden 768,
    vocab 50257 padded to 50304) at policy O2, weights made from a seed,
    through the paged continuous-batching engine: 16 requests (prompts
@@ -359,13 +370,41 @@ Phases, each printed on its own line; a failure in any exits non-zero:
    against plain with every router call's dispatch equal bit for bit;
    O2_fp16 with a forced overflow (the embedding master times 1e8):
    skipped, params and both Adam moments bit for bit, the scale halved.
-33. the ``kernels`` JSON line (each kernel's launches over the main
+33. generate-t5 — the bench's ``t5`` (12 + 12 layers at T5-large
+   widths, O2, weights from the seed) through ``t5_generate`` for the
+   bench's 8 x 512 encoder tokens (rows 0-1 key-padded over their last
+   100 positions), 32 new tokens: greedy (after a warm-up call), 4
+   beams at length penalty 0.6, and sampling at T 0.7, top-k 50 twice
+   from one key; each call launching exactly the RMS norm 25 + 32 x 37
+   and flash 12 + 32 x 12 times (the decoder's self-attention is the
+   ``cache_attend`` composite, its cross-attention flash at one query
+   row). Greedy against the plain versions and the port's uncached
+   decoder loop: equal, or apart first where the reference's top-2 gap
+   is below the two runs' logit difference there, itself at most twice
+   the O2 path's own rounding (its plain first-step logits against the
+   O0 plain path's); the same model at O0 through the kernels and the
+   plain versions (a flip only at a gap below 1e-4); ``beam_search`` at
+   1 beam equal to greedy; the two sampled streams equal. Prints
+   tokens/s and the wall of each call, the encode's wall, and the device
+   ms of a decoder step (a profiled call less a profiled encode).
+34. contrib — OpenFold's ``attention_core`` at AlphaFold2's MSA row
+   attention with pair bias ((1, 128, 8, 256, 32) bf16, the folded
+   (1, 128, 1, 1, 256) + (1, 1, 8, 256, 256) mask; forward and
+   backward), its ``layer_norm`` at c_m 256 and c_z 128, and
+   ``SoftmaxCrossEntropyLoss.apply`` at the bf16 GPT-2 head (smoothing
+   0.1, padding_idx 0, half_to_float), each through the kernels against
+   the plain versions with exact launches; then every kernel-free
+   module (focal loss, group norm, index_mul_2d, the transducer, ASP,
+   the RNNs, weight norm, the fused dense modules) once on the card
+   against the same call on the CPU.
+35. the ``kernels`` JSON line (each kernel's launches over the main
    paths: the engine, the train phases, dpo, generate, train-llama,
    serve-llama and its generate, the BERT phases, train-gpt2-dropout,
    train-t5, mha, train-llama-longctx, decode, decode-int8,
    serve-lora, train-resnet, train-gpt2-fp16, tp-sp, cp, vp-ce, ddp,
-   train-llama-3d and train-llama-3d-1f1b), the card's name and power
-   limit, and the last line ``{"ok": true, "device": {...}}``.
+   train-llama-3d, train-llama-3d-1f1b, generate-t5's kernel calls and
+   contrib's kernel cases), the card's name and power limit, and the
+   last line ``{"ok": true, "device": {...}}``.
 
 Kernel times are device times of CUDA-graph replays (no host launch
 overhead), or between CUDA events for kernels of a millisecond or more;
@@ -405,6 +444,10 @@ LH, LFFN, LHEADS, LKV, LD, LV, LLAYERS = 4096, 14336, 32, 8, 128, 32000, 3
 #: d_model, heads, head_dim, d_ff, vocab, layers a stack
 T5B, T5S = 8, 512
 T5E, T5HEADS, T5D, T5FF, T5V, T5LAYERS = 1024, 16, 64, 4096, 32128, 12
+#: the contrib phase's OpenFold shapes (AlphaFold2's Evoformer MSA row
+#: attention with pair bias at a crop of 256 residues): clusters, crop,
+#: heads, head_dim, the MSA and pair channels
+OF_N, OF_S, OF_H, OF_D, OF_CM, OF_CZ = 128, 256, 8, 32, 256, 128
 
 
 def fail(msg: str) -> int:
@@ -538,14 +581,21 @@ def event_ms(fn, iters: int = 10) -> float:
 #: the norm forward's checks: (rows, H, dtype, half γ/β, RMS). Serving
 #: (fp32 γ/β) at decode and prefill rows; training's B*S rows with half
 #: γ/β, the amp compute params; the Llama step's RMS rows (B*S x 4096,
-#: fp32 γ)
+#: fp32 γ); a T5 decode step's RMS rows (8 x 1024); OpenFold's layer
+#: norms (fp32 γ/β) over its MSA (128 x 256 rows of c_m 256) and pair
+#: (256 x 256 rows of c_z 128) activations
 NORM_CASES = [(8, TH, "float32", False, False),
               (8, TH, "bfloat16", False, False),
               (16 * 64, TH, "float32", False, False),
               (16 * 64, TH, "bfloat16", False, False),
               (TB * TS, TH, "bfloat16", True, False),
               (TB * TS, TH, "float16", True, False),
-              (LB * LS, LH, "bfloat16", False, True)]
+              (LB * LS, LH, "bfloat16", False, True),
+              # generate-t5: a decode step's rows (RMS, fp32 γ)
+              (T5B, T5E, "bfloat16", False, True),
+              # contrib: OpenFold's MSA rows (c_m) and pair rows (c_z)
+              (OF_N * OF_S, OF_CM, "bfloat16", False, False),
+              (OF_S * OF_S, OF_CZ, "bfloat16", False, False)]
 
 
 def norm_inputs(torch, gen, rows, H, dt, half_g):
@@ -874,18 +924,31 @@ def check_layer_norm_bwd(torch, ops, gen):
 def check_softmax(torch, ops, gen):
     """Kernels 16 and 17 at the training step's (16, 12, 1024, 1024)
     fp32 scores: causal (the GPT-2 path) and with a broadcast
-    (B, 1, 1, Sk) key-padding mask."""
+    (B, 1, 1, Sk) key-padding mask; and at OpenFold's MSA row attention
+    with the pair bias (`openfold.attention_core`: 128 clusters x 8
+    heads x 256 x 256 fp32 scores, scale 1/sqrt(32), the folded bias1
+    (1, 128, 1, 1, 256) + bias2 (1, 1, 8, 256, 256) a full-size mask)."""
     from apex1_tpu_torch.ops.softmax import softmax_bwd, softmax_fwd
-    shape = (TB, THEADS, TS, TS)
-    n = TB * THEADS * TS * TS
-    scale = 1.0 / 8.0
-    x = torch.randn(shape, generator=gen, device="cuda") * 4
-    dy = torch.randn(shape, generator=gen, device="cuda")
+    x = torch.randn((TB, THEADS, TS, TS), generator=gen, device="cuda") * 4
+    dy = torch.randn((TB, THEADS, TS, TS), generator=gen, device="cuda")
     pad = torch.rand((TB, 1, 1, TS), generator=gen, device="cuda") < 0.1
     mask = torch.where(pad, -1e30, 0.0)
+    xo = torch.randn((OF_N, OF_H, OF_S, OF_S), generator=gen,
+                     device="cuda") * 4
+    dyo = torch.randn((OF_N, OF_H, OF_S, OF_S), generator=gen,
+                      device="cuda")
+    bias1 = torch.randn((1, OF_N, 1, 1, OF_S), generator=gen, device="cuda")
+    bias2 = torch.randn((1, 1, OF_H, OF_S, OF_S), generator=gen,
+                        device="cuda")
+    mo = (bias1 + bias2).reshape(OF_N, OF_H, OF_S, OF_S)
+    # (case, scores, dy, 4-D mask, scale, causal, main)
+    cases = [("causal", x, dy, None, 1.0 / 8.0, True, True),
+             ("mask (B,1,1,Sk)", x, dy, mask, 1.0 / 8.0, False, False),
+             ("OpenFold pair bias, mask (N,H,S,S)", xo, dyo, mo,
+              OF_D ** -0.5, False, False)]
     fwd, bwd = [], []
-    for causal in (True, False):
-        m4 = None if causal else mask
+    for case, x, dy, m4, scale, causal, main in cases:
+        n, sk = x.numel(), x.shape[-1]
 
         def run():
             return softmax_fwd(x, m4, scale, causal)
@@ -901,21 +964,20 @@ def check_softmax(torch, ops, gen):
         with ops.force_impl("torch"):
             plain = event_ms(run, iters=3)
         if causal:
-            keep = torch.ones(TS, TS, dtype=torch.bool,
-                              device="cuda").tril()
+            keep = torch.ones(sk, sk, dtype=torch.bool, device="cuda").tril()
             pre = torch.where(keep, x * scale, -1e30)
         else:
-            pre = x * scale + mask
+            pre = x * scale + m4
         lib = event_ms(lambda: torch.softmax(pre, dim=-1))
         # causal: only the lower triangle of x is needed; a mask is read
         # at its own (broadcast) size
-        n_read = TB * THEADS * TS * (TS + 1) // 2 if causal else n
-        mbytes = 0 if causal else mask.numel() * 4
+        n_read = n // sk * (sk + 1) // 2 if causal else n
+        mbytes = 0 if m4 is None else m4.numel() * 4
         bnd, by = bound_ms((n_read + n) * 4 + mbytes, 5 * n)
-        fwd.append(dict(case=("causal" if causal else "mask (B,1,1,Sk)")
-                        + f" {shape} f32", abs=abs_e, worst=worst, tol=tol,
-                        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
-                        bound_by=by, same_bits=same, main=causal))
+        label = f"{case} {tuple(x.shape)} f32"
+        fwd.append(dict(case=label, abs=abs_e, worst=worst, tol=tol, ms=ms,
+                        plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                        bound_by=by, same_bits=same, main=main))
 
         def run_b():
             return softmax_bwd(want, dy, scale)
@@ -932,11 +994,10 @@ def check_softmax(torch, ops, gen):
         lib = event_ms(lambda: torch._softmax_backward_data(
             dy, want, -1, torch.float32))
         bnd, by = bound_ms(3 * n * 4, 4 * n)
-        bwd.append(dict(case=("causal" if causal else "mask (B,1,1,Sk)")
-                        + f" {shape} f32", abs=abs_e, worst=worst, tol=tol,
-                        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
-                        bound_by=by, main=causal))
-        del got, want, want_b
+        bwd.append(dict(case=label, abs=abs_e, worst=worst, tol=tol, ms=ms,
+                        plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                        bound_by=by, main=main))
+        del got, want, want_b, pre
     return fwd, bwd
 
 
@@ -995,8 +1056,9 @@ def check_xent(torch, ops, gen):
     """Kernels 18 and 19 at the training step's logits[:, :-1] slice of
     (16, 1024, 50304) fp32 logits, 50257 real classes: smoothing 0 (the
     GPT-2 path) and 0.1, and a padding_idx; at BERT's NSP head ((8, 2),
-    K = 2) and at the ResNet head ((64, 1000) fp32, K = 1000, unpadded,
-    the same bits twice)."""
+    K = 2), at the ResNet head ((64, 1000) fp32, K = 1000, unpadded,
+    the same bits twice) and at `SoftmaxCrossEntropyLoss`'s bf16 head
+    (`check_xent_half_head`)."""
     import torch.nn.functional as F
     from apex1_tpu_torch.ops.xentropy import xent_bwd, xent_fwd
     full = torch.randn((TB, TS, TV_PAD), generator=gen, device="cuda") * 2
@@ -1073,7 +1135,61 @@ def check_xent(torch, ops, gen):
         del got, want, got_b, want_b
     fwd += [nsp[0], head[0]]
     bwd += [nsp[1], head[1]]
-    return fwd, bwd
+    hf, hb = check_xent_half_head(torch, ops, x, t_pad, dloss)
+    return fwd + [hf], bwd + [hb]
+
+
+def check_xent_half_head(torch, ops, x, labels, dloss):
+    """Kernels 18 and 19 on the contrib phase's `SoftmaxCrossEntropyLoss`
+    inputs at the GPT-2 head: the logits in bf16, every one of the
+    50304 columns a class (the module takes no ``num_classes``),
+    smoothing 0.1, ``padding_idx`` 0; the loss at f32 tolerance, dx
+    (bf16) at bf16's; ``F.cross_entropy`` with ``label_smoothing`` and
+    ``ignore_index`` (the same function) timed beside them."""
+    import torch.nn.functional as F
+    from apex1_tpu_torch.ops.xentropy import xent_bwd, xent_fwd
+    xb = x.to(torch.bfloat16)
+    rows, V = xb.shape[0] * xb.shape[1], xb.shape[2]
+    case = (f"SoftmaxCrossEntropyLoss rows={rows} V={V} K={V} bf16 "
+            f"eps=0.1 pad=0")
+    out = []
+    for name in ("fwd", "bwd"):
+        if name == "fwd":
+            def run():
+                return xent_fwd(xb, labels, 0.1, 0, V)
+
+            tol = TOLS["float32"]
+            xl = xb.reshape(rows, V)
+            lib = event_ms(lambda: F.cross_entropy(
+                xl, labels, label_smoothing=0.1, ignore_index=0,
+                reduction="none"))
+            bnd = bound_ms(rows * V * 2 + rows * 8 + rows * 8, 6 * rows * V)
+        else:
+            lse = xent_fwd(xb, labels, 0.1, 0, V)[1]
+
+            def run():
+                return (xent_bwd(xb, labels, lse, dloss, 0.1, 0, V),)
+
+            tol = TOLS["bfloat16"]
+            xr = xb.reshape(rows, V).detach().requires_grad_()
+            loss = F.cross_entropy(xr, labels, label_smoothing=0.1,
+                                   ignore_index=0, reduction="none")
+            lib = event_ms(lambda: torch.autograd.grad(
+                loss, xr, dloss, retain_graph=True))
+            del xr, loss
+            bnd = bound_ms(rows * V * 2 + rows * 12 + rows * V * 2,
+                           5 * rows * V)
+        got = run()
+        with ops.force_impl("torch"):
+            want = run()
+            plain = event_ms(run, iters=3)
+        torch.cuda.synchronize()
+        abs_e, worst = max_errs_all(zip(got, want), tol)
+        out.append(dict(case=case, abs=abs_e, worst=worst, tol=tol,
+                        ms=event_ms(run), plain_ms=plain, library_ms=lib,
+                        bound_ms=bnd[0], bound_by=bnd[1], main=False))
+        del got, want
+    return out
 
 
 #: the bias-dropout-add kernels' checks: (case, rows, h, dtype, residual
@@ -1235,6 +1351,10 @@ FLASH_CASES = [
      "float16", True, False, 0, 0, True, False, dict(bias="full")),
     ("bias (1, 1), f32, offsets", 2, 4, 4, 200, 260, "float32", True, False,
      16, 48, False, False, dict(bias="shared")),
+    # generate-t5's cross-attention at a decode step: one query row
+    # against the encoder's 512 keys, key padding as segments
+    ("T5 cross-attention decode step, key padding", T5B, T5HEADS, T5HEADS,
+     1, T5S, "bfloat16", False, "keys", 0, 0, False, False, dict(lib=True)),
 ]
 
 
@@ -1414,7 +1534,11 @@ def flash_case(torch, entry, gen):
     dlse = (torch.randn((B, Hq, Sq), generator=gen, device="cuda")
             if with_dlse else None)
     qseg = kseg = None
-    if segs:
+    if segs == "keys":
+        # T5's key padding: every query in segment 0, a padded key in 1
+        qseg = torch.zeros(B, Sq, dtype=torch.int32, device="cuda")
+        kseg = torch.from_numpy(1 - padding_segments(B, Sk, SEED)).cuda()
+    elif segs:
         ids = (padding_segments if segs == "padding" else doc_segments)(
             B, Sq, SEED)
         qseg = kseg = torch.from_numpy(ids).cuda()
@@ -1463,8 +1587,14 @@ def check_flash(torch, ops, gen):
         else:
             with ops.force_impl("torch"):
                 absprod = run_f(v.abs())[0]
-            e1 = rounding_errs(out, wout, absprod, UNIT[dts], 1)
-            del absprod
+            # a probability or an output below the normal range rounds
+            # by up to ETA absolute (fp16 below 6.1e-5): P's other
+            # operand is Σ_k |v_k| of the row's kv head
+            abs_sum = v.float().abs().sum(2, keepdim=True)
+            abs_sum = abs_sum.repeat_interleave(Hq // Hkv, dim=1)
+            e1 = rounding_errs(out, wout, absprod, UNIT[dts], 1, ETA[dts],
+                               abs_sum)
+            del absprod, abs_sum
         e2 = max_errs(torch.where(empty, 0.0, lse),
                       torch.where(empty, 0.0, wlse), *TOLS["float32"])
         delta = (do.float() * wout.float()).sum(-1)
@@ -6257,6 +6387,499 @@ def run_llama_3d_parity(torch, ops, card):
     return out, None
 
 
+# ---- the T5 generation and contrib slice -----------------------------------
+
+#: generate-t5: the bench's ``t5`` model (`make_t5`, 12 + 12 layers, O2)
+#: decoding T5GEN_NEW tokens for the bench's B x S_enc encoder batch,
+#: the last T5GEN_PAD encoder positions of the first T5GEN_PAD_ROWS rows
+#: key-padded; beam search at T5GEN_BEAMS beams with length penalty 0.6;
+#: sampling at T 0.7, top-k 50 from the key data (0, SEED)
+T5GEN_NEW, T5GEN_PAD, T5GEN_PAD_ROWS, T5GEN_BEAMS = 32, 100, 2, 4
+#: at O2 a greedy stream may leave its reference only at a near-tie:
+#: the reference's top-2 gap (relative) below the two runs' largest
+#: logit difference at that step (relative to the top logit), and that
+#: difference at most T5GEN_ROUNDING times the O2 path's own rounding,
+#: measured in the same call as the O2 plain path's first-step logits
+#: against the O0 plain path's on the same weights (two O2 paths, each
+#: that far from the fp32 logits, lie at most twice that far apart).
+#: T5 has no 1/sqrt(d)
+#: attention scale, so its softmax rows are peaked and one bf16 rounding
+#: of a score moves a row's weights by several per cent: a depth-24
+#: stack turns the two paths' different roundings into logits several
+#: per cent apart. At O0 the kernels compute the plain functions: a
+#: flip only where the plain run's top-2 gap is below T5GEN_O0_GAP (the
+#: generate-parity rule)
+T5GEN_ROUNDING, T5GEN_O0_GAP = 2.0, 1e-4
+
+
+def t5gen_launches(n_enc: int, n_dec: int, steps: int) -> dict:
+    """Kernel launches of one `t5_generate` call: the encoder's 2 RMS
+    norms and 1 flash forward a layer and its final norm; each of the
+    ``steps`` decoder forwards 3 norms a layer (self, cross, FFN) and
+    the final norm, and the cross-attention's flash forward a layer at
+    Sq = 1. The self-attention is `cache_attend`, a composite, as in the
+    JAX package."""
+    return {"layer_norm_fwd": 2 * n_enc + 1 + steps * (3 * n_dec + 1),
+            "flash_fwd": n_enc + steps * n_dec}
+
+
+@contextlib.contextmanager
+def recording(model, record: list):
+    """``model.decode`` appends each call's last-position logits (fp32)
+    to ``record`` while the context is open."""
+    decode = model.decode
+
+    def rec(*a, **kw):
+        out = decode(*a, **kw)
+        record.append((out[0] if isinstance(out, tuple) else out)[:, -1]
+                      .float())
+        return out
+
+    model.decode = rec
+    try:
+        yield
+    finally:
+        del model.decode
+
+
+def logits_moved(got, want) -> float:
+    """The largest difference of two (B, V) logit rows over the largest
+    |want|, the worst row."""
+    return ((got - want).abs().amax(-1) / want.abs().amax(-1)).max().item()
+
+
+def near_tie_flips(torch, got, want, rec_got, rec_want, vocab: int,
+                   limit: float):
+    """(flips, moved, bad): `first_flips` of ``got`` against ``want``,
+    the two runs' largest logit difference at each flip relative to the
+    top logit, and the flips that are not near-ties: the reference's
+    top-2 gap not below that difference, or the difference above
+    ``limit``."""
+    flips = first_flips(got, want, lambda r, t: top2_gap(
+        torch, rec_want[t], r, t, 0.0, vocab))
+    moved = [logits_moved(rec_got[t][r:r + 1], rec_want[t][r:r + 1])
+             for r, t, _ in flips]
+    bad = [f for f, m in zip(flips, moved) if f[2] >= m or m > limit]
+    return flips, moved, bad
+
+
+def run_generate_t5(torch, ops, card, launches):
+    """generate-t5: `t5_generate` over the bench's ``t5`` at full width
+    and depth (O2, weights from `SEED`) for the bench's 8 x 512 encoder
+    tokens with key padding on two rows, 32 new tokens: greedy through
+    the kernels (timed after a warm-up call) and through the plain
+    versions, the port's uncached greedy loop (the decoder over the
+    whole growing context, through the kernels), beam search (4 beams,
+    length penalty 0.6) and `beam_search` at one beam, sampling at T 0.7
+    and top-k 50 twice from one key; then the same model at O0, greedy
+    through the kernels and the plain versions. Checks: exact launches
+    of every kernel call (`t5gen_launches`), the greedy streams equal or
+    apart first at a near-tie (`near_tie_flips`: at O2 within
+    `T5GEN_ROUNDING` times the O2 path's own rounding, at O0 the
+    generate-parity rule), beam 1 equal to greedy, the two sampled
+    streams equal, every id inside the vocabulary. Prints
+    tokens/s and the wall of each call, the encode's wall, and the
+    device ms of a decoder step (one profiled call less one profiled
+    encode, over its 32 steps). Adds the kernel calls' launches to
+    ``launches``. Returns (results, failure or None)."""
+    from torch.profiler import ProfilerActivity, profile
+    from apex1_tpu_torch.models.generate import (beam_search, init_cache,
+                                                 t5_generate)
+    cfg, model = make_t5("O2", T5LAYERS, SEED)
+    enc = t5_batch(torch, cfg.vocab_size)[0]
+    keep = torch.ones(T5B, T5S, dtype=torch.bool, device="cuda")
+    keep[:T5GEN_PAD_ROWS, -T5GEN_PAD:] = False
+    N, V = T5GEN_NEW, cfg.vocab_size
+    per_call = t5gen_launches(T5LAYERS, T5LAYERS, N)
+
+    def call(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = t5_generate(model, enc, max_new_tokens=N, enc_pad_mask=keep,
+                           **kw)
+        torch.cuda.synchronize()
+        return toks, time.perf_counter() - t0
+
+    def encode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            model.encode(enc, keep)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    call()                                     # warm-up
+    enc_s = encode()
+    out, err, runs = {}, None, {}
+    for label, kw in (
+            ("greedy", {}),
+            ("beam", dict(num_beams=T5GEN_BEAMS, length_penalty=0.6)),
+            ("sampled", dict(temperature=0.7, top_k=50, rng=(0, SEED))),
+            ("sampled again", dict(temperature=0.7, top_k=50,
+                                   rng=(0, SEED)))):
+        ops.reset_launches()
+        rec = []
+        with recording(model, rec):
+            toks, wall = call(**kw)
+        counts = {n: c for n, c in ops.launch_counts().items() if c}
+        for n, c in counts.items():
+            launches[n] = launches.get(n, 0) + c
+        runs[label] = (toks, rec)
+        out[label] = dict(wall_s=wall, tokens_per_s=T5B * N / wall,
+                          launches=counts)
+        print(f"phase generate-t5: {label} t5 O2 d_model {cfg.d_model} "
+              f"layers {cfg.num_encoder_layers}+{cfg.num_decoder_layers} "
+              f"vocab {V}; B={T5B} x S_enc={T5S} (rows 0-"
+              f"{T5GEN_PAD_ROWS - 1} key-padded over their last "
+              f"{T5GEN_PAD}), {N} new tokens, {kw or 'greedy'}: wall "
+              f"{wall:.3f} s, {T5B * N / wall:.1f} tokens/s, launches "
+              f"{counts} expected {per_call} [{card}]")
+        if counts != per_call and err is None:
+            err = (f"generate-t5 {label}: launches {counts}, expected "
+                   f"{per_call}")
+        bad_ids = (tuple(toks.shape) != (T5B, N) or toks.dtype != torch.int32
+                   or toks.min() < 0 or toks.max() >= V)
+        if bad_ids and err is None:
+            err = (f"generate-t5 {label}: tokens {tuple(toks.shape)} "
+                   f"{toks.dtype} or an id outside the vocabulary")
+    greedy, rec_k = runs["greedy"]
+    # the references: the plain versions, the uncached loop, beam 1
+    rec_p, rec_u = [], []
+    with ops.force_impl("torch"), recording(model, rec_p):
+        plain, _ = call()
+    with torch.no_grad():
+        memory = model.encode(enc, keep)
+        dec = torch.zeros((T5B, 1), dtype=torch.int64, device="cuda")
+        for _ in range(N):
+            logits = model.decode(dec, memory, keep)[:, -1].float()
+            rec_u.append(logits)
+            dec = torch.cat([dec, logits.argmax(-1)[:, None]], 1)
+    uncached = dec[:, 1:]
+
+    @torch.no_grad()
+    def apply_fn(tokens, cache, idx):
+        return model.decode(tokens, memory, enc_pad_mask=keep, cache=cache,
+                            cache_index=idx)
+
+    beam1, _ = beam_search(apply_fn, torch.zeros((T5B, 1), dtype=torch.int32,
+                                                 device="cuda"),
+                           max_new_tokens=N, cache=init_cache(
+                               cfg.num_decoder_layers, T5B, cfg.num_heads,
+                               1 + N, cfg.head_dim, torch.bfloat16,
+                               device="cuda"), num_beams=1)
+    # the O2 path's own rounding: its plain first-step logits against
+    # the O0 plain path's on the same weights; and the O0 parity run
+    _, model0 = make_t5("O0", T5LAYERS, SEED)
+    rec_k0, rec_p0 = [], []
+    with recording(model0, rec_k0):
+        greedy0 = t5_generate(model0, enc, max_new_tokens=N,
+                              enc_pad_mask=keep)
+    with ops.force_impl("torch"), recording(model0, rec_p0):
+        plain0 = t5_generate(model0, enc, max_new_tokens=N,
+                             enc_pad_mask=keep)
+    del model0
+    rounding = logits_moved(rec_p[0], rec_p0[0])
+    limit = T5GEN_ROUNDING * rounding
+    out["o2_rounding"] = rounding
+    print(f"phase generate-t5: the O2 path's rounding: its plain "
+          f"first-step logits against the O0 plain path's, largest "
+          f"difference over the top logit {rounding:.4g}; the kernels' "
+          f"against the plain versions' at O2 "
+          f"{logits_moved(rec_k[0], rec_p[0]):.4g}, at O0 "
+          f"{logits_moved(rec_k0[0], rec_p0[0]):.3g} [{card}]")
+    g = greedy.cpu().numpy()
+    for label, got, ref, rec_g, rec_r, lim in (
+            ("O2, against the plain versions", g, plain, rec_k, rec_p,
+             limit),
+            ("O2, against the uncached loop", g, uncached, rec_k, rec_u,
+             limit),
+            ("O0, against the plain versions", greedy0.cpu().numpy(),
+             plain0, rec_k0, rec_p0, None)):
+        flips, moved, bad = near_tie_flips(torch, got, ref.cpu().numpy(),
+                                           rec_g, rec_r, V,
+                                           float("inf") if lim is None
+                                           else lim)
+        if lim is None:     # O0: the generate-parity rule
+            bad = [f for f in flips if f[2] >= T5GEN_O0_GAP]
+        out[f"greedy vs {label}"] = dict(flips=flips, logit_moved=moved)
+        rule = (f"gap below {T5GEN_O0_GAP:g}" if lim is None else
+                f"gap below it, it at most {lim:.4g}")
+        print(f"phase generate-t5: greedy through the kernels, {label}: "
+              f"streams differing {len(flips)} of {T5B}; (row, step, "
+              f"top-2 gap relative) at the first differing token {flips}, "
+              f"the logits' largest difference there relative to the top "
+              f"logit {moved} (a near-tie: {rule}) [{card}]")
+        if bad and err is None:
+            err = (f"generate-t5: greedy ({label}) differs where the "
+                   f"top-2 gap is not a near-tie: {bad}")
+    same_beam1 = torch.equal(beam1, greedy)
+    same_sampled = torch.equal(runs["sampled"][0], runs["sampled again"][0])
+    beam_rows_differ = int((runs["beam"][0] != greedy).any(1).sum())
+    print(f"phase generate-t5: beam_search at 1 beam equals greedy "
+          f"{same_beam1}; {T5GEN_BEAMS} beams differ from greedy in "
+          f"{beam_rows_differ} of {T5B} rows; the sampled streams equal "
+          f"twice {same_sampled} [{card}]")
+    if err is None and not (same_beam1 and same_sampled):
+        err = (f"generate-t5: beam 1 equal to greedy {same_beam1}, sampled "
+               f"twice equal {same_sampled}")
+    # device time: one profiled greedy call less one profiled encode
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = call()
+    pc = kernel_split(torch, prof, 1, wall * 1e3, top=10)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ewall = encode()
+    pe = kernel_split(torch, prof, 1, ewall * 1e3)
+    step_ms = (pc["device_ms_per_step"] - pe["device_ms_per_step"]) / N
+    out.update(encode_wall_s=enc_s, profile_call=pc, profile_encode=pe,
+               device_ms_per_decoder_step=step_ms,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    top = [(t["name"][:60], round(t["ms_per_step"], 3), t["calls"])
+           for t in pc["top"][:10]]
+    print(f"phase generate-t5: encode wall {enc_s * 1e3:.2f} ms; a greedy "
+          f"call (profiled) {wall * 1e3:.2f} ms wall, "
+          f"{pc['device_ms_per_step']:.3f} ms device "
+          f"({pc['device_busy']:.0%} busy), the encode "
+          f"{pe['device_ms_per_step']:.3f} ms device; device ms a decoder "
+          f"step {step_ms:.4f}; largest kernels of the call (name, ms, "
+          f"calls) {top} [{card}]")
+    del model, memory, apply_fn
+    torch.cuda.empty_cache()
+    return out, err
+
+
+#: the contrib phase's kernel-free modules, each once on the card
+#: against the same call on the CPU at one realistic shape: (name, the
+#: shape it is named by)
+CONTRIB_PLAIN = (
+    "focal_loss RetinaNet (2, 182403 anchors, 80 classes)",
+    "group_norm SD UNet block (2, 64, 64, 320) 32 groups SiLU bf16",
+    "index_mul_2d OpenFold (65536 x 128 gathered by 131072)",
+    "transducer joint (hidden 320, ReLU) + loss B 8 T 256 U 65 V 1024 "
+    "fp32, grad of the joint's output projection",
+    "ASP m4n2 mask (4096, 4096) + permutation_search (256, 64)",
+    "LSTM / GRU / RNNReLU / RNNTanh T 32 B 64 1024 -> 1024, 2 layers",
+    "WeightNormDense 1024 -> 4096 on 4096 rows bf16",
+    "FusedDense / FusedDenseGeluDense / MLP on 8192 x 1024 bf16")
+
+
+def contrib_plain_cases(torch):
+    """Each kernel-free contrib module at its `CONTRIB_PLAIN` shape:
+    (name, fn(device) -> tuple of output tensors, dtype of the
+    comparison). ``fn`` builds its inputs and modules from one seed on
+    the CPU and moves them to ``device``, so the card and the CPU run
+    the same call on the same numbers."""
+    import copy
+    from apex1_tpu_torch import contrib, reparameterization, rnn
+    from apex1_tpu_torch.contrib import sparsity, transducer
+    from apex1_tpu_torch.ops import fused_dense as fd
+    gen = torch.Generator().manual_seed(SEED)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen) * scale
+
+    fl_x = rnd(2, 182403, 80, scale=2.0)
+    fl_t = torch.randint(-1, 80, (2, 182403), generator=gen)
+    gn_x = rnd(2, 64, 64, 320, scale=2.0).bfloat16()
+    gn_g, gn_b = 1 + 0.1 * rnd(320), 0.1 * rnd(320)
+    im1, im2 = rnd(65536, 128), rnd(131072, 128)
+    im_i = torch.randint(0, 65536, (131072,), generator=gen)
+    tr_f, tr_g = rnd(8, 256, 320), rnd(8, 65, 320)
+    tr_w = rnd(320, 1024, scale=0.05)
+    tr_t = torch.randint(1, 1024, (8, 64), generator=gen)
+    tr_fl = torch.tensor([256, 250, 240, 230, 220, 210, 200, 128])
+    tr_yl = torch.tensor([64, 60, 50, 40, 30, 20, 10, 5])
+    sp_w = rnd(4096, 4096).bfloat16()
+    sp_small = rnd(256, 64)
+    rnn_x = rnd(32, 64, 1024)
+    rnns = [cls(1024, 1024, num_layers=2, device="cpu")
+            for cls in (rnn.LSTM, rnn.GRU, rnn.RNNReLU, rnn.RNNTanh)]
+    wn = reparameterization.WeightNormDense(1024, 4096, device="cpu")
+    wn_x = rnd(4096, 1024).bfloat16()
+    dense = [fd.FusedDense(1024, 4096, device="cpu"),
+             fd.FusedDenseGeluDense(1024, 4096, 1024, device="cpu"),
+             fd.MLP((1024, 4096, 4096, 1024), device="cpu")]
+    fd_x = rnd(8192, 1024).bfloat16()
+
+    def on(dev, *ts):
+        return [t.to(dev) for t in ts]
+
+    def mods(dev, ms):
+        return [copy.deepcopy(m).to(dev) for m in ms]
+
+    def focal(dev):
+        x, t = on(dev, fl_x, fl_t)
+        return (contrib.focal_loss(x, t, reduction="none"),)
+
+    def gnorm(dev):
+        x, g, b = on(dev, gn_x, gn_g, gn_b)
+        return (contrib.group_norm(x, 32, g, b, act="silu"),)
+
+    def imul(dev):
+        a, b, i = on(dev, im1, im2, im_i)
+        return (contrib.index_mul_2d(a, b, i),)
+
+    def trans(dev):
+        f, g, w, t, fl, yl = on(dev, tr_f, tr_g, tr_w, tr_t, tr_fl, tr_yl)
+        w.requires_grad_()
+        h = transducer.transducer_joint(f, g, relu=True)
+        logits = h @ w
+        loss = transducer.transducer_loss(logits, t, fl, yl,
+                                          reduction="none")
+        gw, = torch.autograd.grad(loss.sum(), w)
+        return loss.detach(), gw
+
+    def asp(dev):
+        w, ws = on(dev, sp_w, sp_small)
+        perm, mask, eff = sparsity.permutation_search(ws, max_swaps=16)
+        return (sparsity.compute_m4n2_mask(w).float(), eff.reshape(1),
+                sparsity.mask_efficacy(ws, mask).reshape(1))
+
+    def rnns_run(dev):
+        x, = on(dev, rnn_x)
+        outs = []
+        with torch.no_grad():
+            for m in mods(dev, rnns):
+                y, fin = m(x)
+                outs += [y, fin[0] if isinstance(fin, tuple) else fin]
+        return tuple(outs)
+
+    def wnorm(dev):
+        x, = on(dev, wn_x)
+        with torch.no_grad():
+            return (mods(dev, [wn])[0](x),)
+
+    def dense_run(dev):
+        x, = on(dev, fd_x)
+        with torch.no_grad():
+            return tuple(m(x) for m in mods(dev, dense))
+
+    fns = (focal, gnorm, imul, trans, asp, rnns_run, wnorm, dense_run)
+    dts = ("float32", "bfloat16", "float32", "float32", "float32",
+           "float32", "bfloat16", "bfloat16")
+    return list(zip(CONTRIB_PLAIN, fns, dts))
+
+
+def run_contrib(torch, ops, card, launches):
+    """contrib: the kernel-bearing contrib modules on the card at their
+    users' shapes, each through the kernels and through the plain
+    versions in the same call, within their rows' check bounds:
+    `openfold.attention_core` at AlphaFold2's MSA row attention with
+    pair bias (q/k/v (1, 128, 8, 256, 32) bf16, bias1 (1, 128, 1, 1,
+    256), bias2 (1, 1, 8, 256, 256)), forward and backward (rows 16-17:
+    softmax fwd and bwd once each); `openfold.layer_norm` at c_m 256
+    (128 x 256 rows) and c_z 128 (256 x 256 rows) (row 1 once each);
+    `SoftmaxCrossEntropyLoss.apply` at the GPT-2 head (16 x 1023 x 50304
+    bf16, smoothing 0.1, padding_idx 0, half_to_float), forward and
+    backward (rows 18-19 once each). Then every kernel-free module
+    (`CONTRIB_PLAIN`) once on the card against the same call on the
+    CPU: outputs on the card, no kernel launched, within the f32 or
+    bf16 tolerance. Adds the kernel calls' launches to ``launches``.
+    Returns (results, failure or None)."""
+    from apex1_tpu_torch.contrib import SoftmaxCrossEntropyLoss, openfold
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out, err = {}, None
+
+    def rnd(*shape, dt=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dt)
+
+    q, k, v, do = (rnd(1, OF_N, OF_H, OF_S, OF_D) for _ in range(4))
+    b1 = rnd(1, OF_N, 1, 1, OF_S, dt=torch.float32)
+    b2 = rnd(1, 1, OF_H, OF_S, OF_S, dt=torch.float32)
+
+    def attn():
+        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+        o = openfold.attention_core(qq, kk, vv, bias1=b1, bias2=b2)
+        return (o, *torch.autograd.grad(o, (qq, kk, vv), do))
+
+    x_m = rnd(1, OF_N, OF_S, OF_CM, scale=2.0)
+    x_z = rnd(1, OF_S, OF_S, OF_CZ, scale=2.0)
+    g_m, g_z = (1 + 0.1 * rnd(c, dt=torch.float32) for c in (OF_CM, OF_CZ))
+    be_m, be_z = (0.1 * rnd(c, dt=torch.float32) for c in (OF_CM, OF_CZ))
+    logits = rnd(TB, TS - 1, TV_PAD, scale=2.0)
+    labels = torch.randint(0, TV_PAD, (TB, TS - 1), generator=gen,
+                           device="cuda")
+    labels[:, ::7] = 0
+
+    def xent():
+        x = logits.detach().requires_grad_()
+        loss = SoftmaxCrossEntropyLoss.apply(x, labels, 0.1, 0, True)
+        dx, = torch.autograd.grad(loss.sum() / loss.numel(), x)
+        return loss, dx
+
+    kernel_cases = (
+        ("attention_core MSA row + pair bias (1, 128, 8, 256, 32) bf16",
+         attn, {"softmax_fwd": 1, "softmax_bwd": 1}),
+        ("layer_norm c_m 256 (128 x 256 rows) bf16",
+         lambda: (openfold.layer_norm(x_m, g_m, be_m),),
+         {"layer_norm_fwd": 1}),
+        ("layer_norm c_z 128 (256 x 256 rows) bf16",
+         lambda: (openfold.layer_norm(x_z, g_z, be_z),),
+         {"layer_norm_fwd": 1}),
+        ("SoftmaxCrossEntropyLoss.apply (16, 1023, 50304) bf16 eps 0.1 "
+         "pad 0 half_to_float", xent, {"xent_fwd": 1, "xent_bwd": 1}))
+    for case, fn, want_launches in kernel_cases:
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {n: c for n, c in ops.launch_counts().items() if c}
+        for n, c in counts.items():
+            launches[n] = launches.get(n, 0) + c
+        with ops.force_impl("torch"):
+            want = fn()
+        torch.cuda.synchronize()
+        # bf16 outputs at bf16's rule; the loss (fp32) at f32's, its dx
+        # (bf16, autograd's cast of the kernel's fp32 dx) at bf16's
+        errs = [max_errs(a, b, *TOLS[str(a.dtype)[6:]])
+                for a, b in zip(got, want)]
+        abs_e, worst = max(e[0] for e in errs), max(e[1] for e in errs)
+        out[case] = dict(abs=abs_e, worst=worst, wall_s=wall,
+                         launches=counts)
+        ok = worst <= 1 and counts == want_launches and all(
+            t.is_cuda for t in got)
+        print(f"phase contrib: {case}: kernels vs plain max_abs={abs_e:.3g} "
+              f"worst/allowed={worst:.3g} wall {wall * 1e3:.2f} ms "
+              f"launches {counts} expected {want_launches} "
+              f"{'ok' if ok else 'MISMATCH'} [{card}]")
+        if not ok and err is None:
+            err = (f"contrib {case}: worst/allowed {worst}, launches "
+                   f"{counts} (expected {want_launches})")
+        del got, want
+    del q, k, v, do, b1, b2, x_m, x_z, logits
+    torch.cuda.empty_cache()
+    for case, fn, dts in contrib_plain_cases(torch):
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn("cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {n: c for n, c in ops.launch_counts().items() if c}
+        want = fn("cpu")
+        errs = [max_errs(a.cpu(), b, *TOLS[dts]) for a, b in zip(got, want)]
+        abs_e, worst = max(e[0] for e in errs), max(e[1] for e in errs)
+        on_card = all(t.is_cuda for t in got)
+        ok = worst <= 1 and on_card and not counts
+        out[case] = dict(abs=abs_e, worst=worst, wall_s=wall,
+                         on_card=on_card)
+        print(f"phase contrib: {case}: card vs CPU max_abs={abs_e:.3g} "
+              f"worst/allowed={worst:.3g} (rtol={TOLS[dts][0]:g} "
+              f"atol={TOLS[dts][1]:g}*rms) on the card {on_card}, wall "
+              f"{wall * 1e3:.2f} ms, launches {counts} "
+              f"{'ok' if ok else 'MISMATCH'} [{card}]")
+        if not ok and err is None:
+            err = (f"contrib {case}: worst/allowed {worst}, on the card "
+                   f"{on_card}, launches {counts}")
+        del got, want
+    torch.cuda.empty_cache()
+    return out, err
+
+
 def main() -> int:
     try:
         import torch
@@ -6306,6 +6929,15 @@ def main() -> int:
     if "--gate-sweep" in sys.argv[1:]:
         paths = [p for p in ("kernels", "plain") if p in sys.argv[1:]]
         return gate_sweep(torch, ops, card, paths or ["kernels", "plain"])
+
+    if "--only" in sys.argv[1:]:
+        # a probe of this slice's phases alone (no kernels line)
+        only = {"generate-t5": run_generate_t5, "contrib": run_contrib}
+        errs = [only[phase](torch, ops, card, {})[1]
+                for phase in [a for a in sys.argv[1:] if a in only]
+                or list(only)]
+        errs = [e for e in errs if e]
+        return fail("; ".join(errs)) if errs else 0
 
     if "--profile" in sys.argv[1:]:
         runs = {"decode": lambda: profile_decode(torch),
@@ -6718,15 +7350,26 @@ def main() -> int:
         stamp("llama-3d-parity")
     finally:
         stop_nccl(nccl_dir)
+
+    # 33-34. the T5 generation and contrib slice: the bench's t5 through
+    # t5_generate (greedy, beam, sampled), the contrib modules
+    slice_out = {}
+    for phase, fn in (("generate-t5", run_generate_t5),
+                      ("contrib", run_contrib)):
+        slice_out[phase], err = fn(torch, ops, card, main_launches)
+        if err:
+            return fail(err)
+        stamp(phase)
     print(f"phase times: { {k: round(v, 1) for k, v in phase_s.items()} } "
           f"s wall [{card}]")
 
-    # 33. the kernels line, the card, the last line. launches: the main
+    # 35. the kernels line, the card, the last line. launches: the main
     # paths' runs (engine, the train phases, dpo, generate, train-llama,
     # serve-llama and its generate, the BERT phases, train-gpt2-dropout,
     # train-t5, mha, train-llama-longctx, decode, decode-int8, serve-lora,
     # train-resnet, train-gpt2-fp16, tp-sp, cp, vp-ce, ddp,
-    # train-llama-3d, train-llama-3d-1f1b)
+    # train-llama-3d, train-llama-3d-1f1b, generate-t5's kernel calls,
+    # contrib's kernel cases)
     sources = {"layer_norm_fwd": ("apex1_tpu_torch/csrc/layer_norm.cu",
                                   "apex1_tpu/ops/layer_norm.py:110"),
                "paged_attend": ("apex1_tpu_torch/csrc/paged_attend.cu",
@@ -6795,7 +7438,8 @@ def main() -> int:
                    "train": train_out, "train_parity": par,
                    "dpo": dpo_out, "generate": gen_out, "llama": llama_out,
                    "bert": bert_out, "t5": t5_out, "decode": dec_out,
-                   "amp": amp_out, "parallel": par_out, "phase_s": phase_s},
+                   "amp": amp_out, "parallel": par_out,
+                   "t5_contrib": slice_out, "phase_s": phase_s},
                   f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -94,7 +94,8 @@ def test_prep_param_lists_matches_jax():
 
 def test_dynamic_loss_scaler_matches_jax():
     j = jfu.DynamicLossScaler(init_scale=2.0 ** 10, scale_window=2)
-    t = tfu.DynamicLossScaler(init_scale=2.0 ** 10, scale_window=2)
+    t = tfu.DynamicLossScaler(init_scale=2.0 ** 10, scale_window=2,
+                              device="cpu")
     grads = {"a": np.array([1.0, 2.0], np.float32)}
     bad = {"a": np.array([1.0, np.inf], np.float32)}
     assert t.has_overflow({"a": torch.from_numpy(bad["a"])})
@@ -112,7 +113,7 @@ def test_dynamic_loss_scaler_matches_jax():
         t.update_scale(overflow)
         scales.append(t.loss_scale)
     assert scales == [512.0, 512.0, 1024.0, 1024.0, 512.0, 512.0, 1024.0]
-    static = tfu.LossScaler(128.0)
+    static = tfu.LossScaler(128.0, device="cpu")
     static.update_scale(True)
     assert static.loss_scale == 128.0 == jfu.LossScaler(128.0).loss_scale
 

@@ -1931,3 +1931,140 @@ def test_linear_xent_shard_kernels_at_llama_3d_head(cuda):
     _close(dw, wdw, dt)
     dx2, dw2 = shard_grads(x, w, t, lse, dloss, num_classes=V)
     assert torch.equal(dx2, dx) and torch.equal(dw2, dw)
+
+
+# ---- the T5 generation and contrib slice ----------------------------------
+
+
+@pytest.mark.parametrize("sk", [512, 77])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_flash_one_query_row_with_key_padding(cuda, dtype, sk):
+    """T5's cross-attention at a decode step: one query row (Sq = 1, one
+    row of the kernel's 64-row tile) against Sk keys, key padding as the
+    segment pair (zeros, where(keep, 0, 1)), a row with every key kept
+    and one with its last keys padded; forward, dq and dk/dv against the
+    plain versions, the same bits twice."""
+    from apex1_tpu_torch.ops.attention import flash_dkv, flash_dq, flash_fwd
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(21)
+    B, H, D = 3, 4, 64
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape)).to(cuda, dt)
+
+    q, k, v, do = t(B, H, 1, D), t(B, H, sk, D), t(B, H, sk, D), \
+        t(B, H, 1, D)
+    keep = np.ones((B, sk), bool)
+    keep[1, -sk // 4:] = False
+    keep[2, ::3] = False
+    qseg = torch.zeros(B, 1, dtype=torch.int32, device=cuda)
+    kseg = torch.from_numpy(np.where(keep, 0, 1)).to(cuda, torch.int32)
+    args = (qseg, kseg, 1.0, False, 0, 0)
+    (out, lse), (wout, wlse) = _both(lambda: flash_fwd(q, k, v, *args))
+    _close(out, wout, dt)
+    _close(lse, wlse, torch.float32)
+    again, _ = flash_fwd(q, k, v, *args)
+    assert torch.equal(again, out)
+    delta = (do.float() * wout.float()).sum(-1)
+    bwd = (q, k, v, do, wlse, delta, None, *args)
+    dq, wdq = _both(lambda: flash_dq(*bwd))
+    _close(dq, wdq, dt)
+    (dk, dv), (wdk, wdv) = _both(lambda: flash_dkv(*bwd))
+    _close(dk, wdk, dt)
+    _close(dv, wdv, dt)
+    # the padded keys get no gradient
+    pad = torch.from_numpy(~keep).to(cuda)[:, None, :, None]
+    assert not torch.where(pad, dv.float(), 0.0).any()
+
+
+@pytest.mark.parametrize("h", [128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layer_norm_openfold_widths(cuda, dtype, h):
+    """OpenFold's c_z 128 and c_m 256 rows (fp32 γ/β), forward and
+    backward against the plain versions."""
+    from apex1_tpu_torch.contrib import openfold
+    dt = getattr(torch, dtype)
+    x, g, b = _norm_inputs(4099, h, dt, cuda, 22)
+    dy = torch.randn(x.shape, device=cuda).to(dt)
+
+    def run():
+        xx, gg, bb = (a.detach().requires_grad_() for a in (x, g, b))
+        y = openfold.layer_norm(xx, gg, bb)
+        return (y, *torch.autograd.grad(y, (xx, gg, bb), dy))
+
+    got, want = _both(run)
+    for a, w, d in zip(got, want, (dt, dt, torch.float32, torch.float32)):
+        _close(a, w, d)
+
+
+#: the Evoformer attention's folded masks over (N, H, S, S) scores:
+#: bias1 (N, 1, 1, S), the pair bias (1, H, S, S), both, and the mask
+_OPENFOLD_MASKS = ("bias1", "bias2", "both", "mask")
+
+
+@pytest.mark.parametrize("kind", _OPENFOLD_MASKS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_softmax_openfold_mask_shapes(cuda, dtype, kind):
+    """`openfold.attention_core` on (1, N, H, S, D) inputs: the softmax
+    kernels at the folded mask's broadcast shapes, the output and the
+    grads of q, k and v against the plain versions."""
+    from apex1_tpu_torch.contrib import openfold
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(23)
+    N, H, S, D = 6, 4, 160, 32
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape)).to(cuda, dt)
+
+    q, k, v, do = (t(1, N, H, S, D) for _ in range(4))
+    kw = {}
+    if kind in ("bias1", "both"):
+        kw["bias1"] = t(1, N, 1, 1, S).float()
+    if kind in ("bias2", "both"):
+        kw["bias2"] = t(1, 1, H, S, S).float()
+    if kind == "mask":
+        kw["mask"] = torch.from_numpy(rng.random((1, N, 1, 1, S)) > 0.2).to(
+            cuda)
+
+    def run():
+        qq, kk, vv = (a.detach().requires_grad_() for a in (q, k, v))
+        out = openfold.attention_core(qq, kk, vv, **kw)
+        return (out, *torch.autograd.grad(out, (qq, kk, vv), do))
+
+    got, want = _both(run)
+    for a, w in zip(got, want):
+        _close(a, w, dt)
+
+
+def test_t5_generate_kernels_match_plain(cuda):
+    """`t5_generate` on T5-large widths at depth 2, O0, 2 x 64 encoder
+    tokens (one row with 16 padded keys), 8 new tokens: greedy and
+    ``num_beams=2`` equal through the kernels and the plain versions
+    (an fp32 path: a near-tie below 1e-4 would be the only excuse, and
+    none is expected at these seeds), the exact launches of a call."""
+    from apex1_tpu_torch import T5, T5Config, get_policy
+    from apex1_tpu_torch.models.generate import t5_generate
+    from apex1_tpu_torch.models.t5 import init_weights
+    from apex1_tpu_torch.ops import launch_counts, reset_launches
+    cfg = T5Config.t5_large(policy=get_policy("O0"), num_encoder_layers=2,
+                            num_decoder_layers=2)
+    model = init_weights(T5(cfg, device=cuda), 3)
+    rng = np.random.default_rng(24)
+    enc = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64))).to(
+        cuda)
+    keep = torch.ones(2, 64, dtype=torch.bool, device=cuda)
+    keep[1, -16:] = False
+    N = 8
+    for beams in (1, 2):
+        reset_launches()
+        got, want = _both(lambda: t5_generate(
+            model, enc, max_new_tokens=N, enc_pad_mask=keep,
+            num_beams=beams))
+        assert torch.equal(got, want), (got, want)
+        counts = {n: c for n, c in launch_counts().items() if c}
+        # encoder: 2 norms a layer + the final one, 1 flash a layer;
+        # each decoder step: 3 norms a layer + the final one, the
+        # cross-attention's flash a layer (self-attention is the
+        # cache_attend composite)
+        assert counts == {"layer_norm_fwd": 5 + N * 7,
+                          "flash_fwd": 2 + N * 2}

@@ -19,9 +19,10 @@
   norm lies 2.5 % from its Pallas path's at step 2 on this model (no
   1/sqrt(d) scale, so the logits are large). O2_fp16 with an overflow
   forced at step 2 skipped like JAX's;
-- the params cross between the packages; the unported options (the
-  cached decode, `param_specs`) raise naming their ROADMAP.md items;
-  the entry points default to CUDA and the CPU runs no kernel.
+- the params cross between the packages; the unported option
+  (`param_specs`) raises naming its ROADMAP.md item; the entry points
+  default to CUDA and the CPU runs no kernel, the cached decode
+  included.
 """
 
 import jax
@@ -42,6 +43,7 @@ from apex1_tpu.optim.fused_adam import fused_adam as jax_fused_adam
 from apex1_tpu_torch import (T5, Amp, T5Config, fused_adam, get_policy,
                              t5_loss_fn, t5_params_from_jax)
 from apex1_tpu_torch.interop import flax_from_named, t5_params_to_numpy
+from apex1_tpu_torch.models.generate import init_cache
 from apex1_tpu_torch.models.t5 import (init_weights, param_specs,
                                        relative_position_bucket)
 from apex1_tpu_torch.ops import KERNEL_WRAPPERS
@@ -249,8 +251,15 @@ def test_unported_options_raise_and_the_cpu_runs_no_kernel(data):
     assert torch.isfinite(loss)
     assert {n: f.launches for n, f in KERNEL_WRAPPERS.items()} == before
     memory = model.encode(enc)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        model.decode(dec[:, :1], memory, cache={}, cache_index=0)
+    # the cached decode (ported since the T5 generation slice) runs too
+    cache = init_cache(cfg.num_decoder_layers, B, cfg.num_heads, 4,
+                       cfg.head_dim, torch.float32, device="cpu")
+    with torch.no_grad():
+        logits, cache = model.decode(dec[:, :1], memory, cache=cache,
+                                     cache_index=0)
+    assert logits.shape == (B, 1, cfg.vocab_size)
+    assert torch.isfinite(logits).all()
+    assert {n: f.launches for n, f in KERNEL_WRAPPERS.items()} == before
     with pytest.raises(NotImplementedError, match="item 7"):
         param_specs({})
     with pytest.raises(ValueError, match="rel_pos_max_dist"):

@@ -179,7 +179,7 @@ def test_fused_norm_modules_match_jax(rms, memory_efficient):
         lambda z: jmod.apply(params, z), x_, dy_))(jnp.asarray(x),
                                                    jnp.asarray(dy))
     mod = (FusedRMSNorm if rms else FusedLayerNorm)(
-        (4, 8), memory_efficient=memory_efficient)
+        (4, 8), memory_efficient=memory_efficient, device="cpu")
     tx = _t(x)
     y = mod(tx)
     (y * torch.from_numpy(dy)).sum().backward()
