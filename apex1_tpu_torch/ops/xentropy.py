@@ -6,10 +6,11 @@ Loss (label smoothing ε, K real classes):
     dx_i   = softmax(x_i) - (1-ε) onehot(t_i) - ε/K     (0 for k >= K)
 ``padding_idx`` rows give loss 0 and a zero gradient.
 
-Kernels ``csrc/xentropy.cu`` (one block per row, streamed), each beside
-its plain PyTorch version. The forward keeps only the per-row lse for
-the backward, which recomputes ``exp(x - lse)`` from the logits, as
-the reference does: no (tokens x vocab) probabilities are stored.
+Kernels ``csrc/xentropy.cu`` (a block a row, the row streamed in
+16-byte vectors), each beside its plain PyTorch version. The forward
+keeps only the per-row lse for the backward, which recomputes
+``exp(x - lse)`` from the logits, as the reference does: no (tokens x
+vocab) probabilities are stored.
 """
 
 from __future__ import annotations

@@ -20,14 +20,15 @@
                                      # int8_mm, glu_fwd, the norm
                                      # forward, the softmax forward, the
                                      # norm backward, flash dbias,
-                                     # paged attention, the sampler and
-                                     # the LoRA delta against those of
-                                     # TREE (a checkout of another
+                                     # paged attention, the sampler, the
+                                     # LoRA delta and the cross-entropy
+                                     # forward and backward against
+                                     # those of TREE (a checkout of another
                                      # commit) in turns on the same
                                      # inputs, or only the PARTs given
                                      # (flash, chunk, lxent, int8, glu,
                                      # norm, softmax, normbwd, dbias,
-                                     # paged, sample, lora)
+                                     # paged, sample, lora, xent)
     python3 chip_smoke.py --only [generate-t5] [contrib]
                                      # build, then run only those
                                      # phases (both by default); no
@@ -136,7 +137,10 @@ Phases, each printed on its own line; a failure in any exits non-zero:
    1024 rows, the norm at OpenFold's 32768 x 256 and 65536 x 128 rows,
    the softmax at OpenFold's (128, 8, 256, 256) scores with the folded
    pair-bias mask, and the cross-entropy on the bf16 GPT-2 head (every
-   column a class, smoothing 0.1, padding_idx 0).
+   column a class, smoothing 0.1, padding_idx 0). Rows 18-19 also run
+   that head in fp16 and the fp32 GPT-2 slice at the unpadded width
+   50257 (rows off 16 bytes), and every cross-entropy case must give
+   the same bits twice (`XENT_CASES`).
 3. engine — serve GPT-2 124M at full width (12 layers, hidden 768,
    vocab 50257 padded to 50304) at policy O2, weights made from a seed,
    through the paged continuous-batching engine: 16 requests (prompts
@@ -542,18 +546,19 @@ def rounding_errs(got, want, absprod, u: float, sides: int, eta=0.0,
     return diff.max().item(), (diff / allow).max().item()
 
 
-def max_errs(got, want, rtol: float, atol: float):
-    """(max |got - want|, the worst element's error over its allowance):
-    within tolerance when the second is at most 1."""
+def max_errs(got, want, rtol: float, atol: float, eta: float = 0.0):
+    """(max |got - want|, the worst element's error over its allowance
+    rtol·|want| + atol·rms(want) + ``eta``): within tolerance when the
+    second is at most 1."""
     got, want = got.double(), want.double()
     diff = (got - want).abs()
-    allow = rtol * want.abs() + atol * want.pow(2).mean().sqrt()
+    allow = rtol * want.abs() + atol * want.pow(2).mean().sqrt() + eta
     return diff.max().item(), (diff / allow).max().item()
 
 
-def max_errs_all(pairs, tol):
+def max_errs_all(pairs, tol, eta: float = 0.0):
     """`max_errs` over several (got, want) outputs: the largest of each."""
-    errs = [max_errs(g, w, *tol) for g, w in pairs]
+    errs = [max_errs(g, w, *tol, eta) for g, w in pairs]
     return max(e[0] for e in errs), max(e[1] for e in errs)
 
 
@@ -1001,195 +1006,137 @@ def check_softmax(torch, ops, gen):
     return fwd, bwd
 
 
-def check_xent_small(torch, ops, gen, B: int, K: int, case: str,
-                     scale: float, bits: bool):
-    """Kernels 18 and 19 on (B, K) fp32 logits (``scale`` times a
-    normal draw), every class real, smoothing 0, the mean's 1/B as
-    dloss; ``F.cross_entropy`` and its backward timed beside them. With
-    ``bits`` each row also holds the kernel's bits equal on a second
-    launch. Returns the (forward, backward) rows."""
-    import torch.nn.functional as F
-    from apex1_tpu_torch.ops.xentropy import xent_bwd, xent_fwd
-    x = torch.randn((1, B, K), generator=gen, device="cuda") * scale
-    t = torch.randint(0, K, (B,), generator=gen, device="cuda")
-    dloss = torch.full((B,), 1.0 / B, device="cuda")
-    tol = TOLS["float32"]
-    rows = []
-    for name in ("fwd", "bwd"):
-        if name == "fwd":
-            def run():
-                return xent_fwd(x, t, 0.0, None, K)
-        else:
-            lse = xent_fwd(x, t, 0.0, None, K)[1]
+#: TPU rows 18-19's cases (`check_xent`, `--compare xent`): (case,
+#: logits, smoothing, padding_idx). Logits "gpt2": the fp32 training
+#: step's logits[:, :-1] slice of (TB, TS, TV_PAD), TV real classes (the
+#: first case is the kernels line's main one); "unaligned": the same
+#: slice of unpadded (TB, TS, TV) logits, an odd width, so rows start
+#: off 16 bytes and K = TV is off the vector width; "nsp": BERT's NSP
+#: head, (8, 2) fp32; "resnet": the ResNet head, (RESNET_B, 1000) fp32,
+#: unpadded; "bfloat16", "float16": the contrib phase's
+#: `SoftmaxCrossEntropyLoss` head, the gpt2 slice in half, every one of
+#: its TV_PAD columns a class. A padding_idx case sets every fifth label
+#: to it.
+XENT_CASES = (
+    ("GPT-2 head", "gpt2", 0.0, None),
+    ("GPT-2 head", "gpt2", 0.1, None),
+    ("GPT-2 head", "gpt2", 0.0, 0),
+    ("GPT-2 head, unpadded width (rows off 16 bytes)", "unaligned", 0.0,
+     None),
+    ("BERT NSP", "nsp", 0.0, None),
+    ("ResNet head", "resnet", 0.0, None),
+    ("SoftmaxCrossEntropyLoss", "bfloat16", 0.1, 0),
+    ("SoftmaxCrossEntropyLoss", "float16", 0.1, 0),
+)
 
-            def run():
-                return (xent_bwd(x, t, lse, dloss, 0.0, None, K),)
-        got, again = run(), run()
-        with ops.force_impl("torch"):
-            want = run()
-            plain = event_ms(run)
-        torch.cuda.synchronize()
-        abs_e, worst = max_errs_all(zip(got, want), tol)
-        if name == "fwd":
-            lib = graph_ms(lambda: F.cross_entropy(x[0], t,
-                                                   reduction="none"))
-            # logits, int64 labels read; loss and lse written
-            bnd = bound_ms(B * K * 4 + B * 8 + B * 8, 6 * B * K)
-        else:
-            xr = x[0].detach().requires_grad_()
-            loss = F.cross_entropy(xr, t, reduction="none")
-            lib = event_ms(lambda: torch.autograd.grad(
-                loss, xr, dloss, retain_graph=True))
-            # logits, labels, lse and dloss read; dx written
-            bnd = bound_ms(B * K * 4 + B * 12 + B * K * 4, 5 * B * K)
-        row = dict(case=case, abs=abs_e, worst=worst, tol=tol,
-                   ms=graph_ms(run), plain_ms=plain, library_ms=lib,
-                   bound_ms=bnd[0], bound_by=bnd[1], main=False)
-        if bits:
-            row["same_bits"] = all(torch.equal(a, b)
-                                   for a, b in zip(got, again))
-        rows.append(row)
-    return rows
+
+def xent_cases(torch, gen):
+    """`XENT_CASES`' inputs on the card, in order, each made when its
+    case comes (normal draws: the GPT-2 logits times 2, NSP's times 2,
+    the ResNet head's times 4): yields (case label, x (A, T, V), labels,
+    smoothing, padding_idx, K, dloss = the mean's 1/rows)."""
+    full = torch.randn((TB, TS, TV_PAD), generator=gen, device="cuda") * 2
+    t = torch.randint(0, TV, (TB * (TS - 1),), generator=gen, device="cuda")
+
+    def small(B, K, scale):
+        x = torch.randn((1, B, K), generator=gen, device="cuda") * scale
+        return x, torch.randint(0, K, (B,), generator=gen, device="cuda"), K
+
+    def unaligned():
+        u = torch.randn((TB, TS, TV), generator=gen, device="cuda") * 2
+        return u[:, :-1], t, TV
+
+    inputs = {"gpt2": lambda: (full[:, :-1], t, TV), "unaligned": unaligned,
+              "nsp": lambda: small(8, 2, 2.0),
+              "resnet": lambda: small(RESNET_B, 1000, 4.0),
+              "bfloat16": lambda: (full[:, :-1].to(torch.bfloat16), t,
+                                   TV_PAD),
+              "float16": lambda: (full[:, :-1].to(torch.float16), t,
+                                  TV_PAD)}
+    for case, kind, eps, pad in XENT_CASES:
+        x, lab, K = inputs[kind]()
+        if pad is not None:
+            lab = lab.clone()
+            lab[::5] = pad
+        n = x.shape[0] * x.shape[1]
+        dt = str(x.dtype).replace("torch.", "")
+        yield (f"{case} rows={n} V={x.shape[2]} K={K} {dt} eps={eps} "
+               f"pad={pad}", x, lab, eps, pad, K,
+               torch.full((n,), 1.0 / n, device="cuda"))
+        del x, lab
+        torch.cuda.empty_cache()
+
+
+def xent_bounds(x, K: int):
+    """Rows 18 and 19's bounds, (ms, by) each: the forward reads the K
+    real columns of each row once and the label, and writes loss and lse
+    (about 6 flops an element); the backward reads the K columns, the
+    label, lse and dloss and writes every dx column (about 5)."""
+    n, width, es = x.shape[0] * x.shape[1], x.shape[2], x.element_size()
+    return (bound_ms(n * K * es + n * 8 + n * 8, 6 * n * K),
+            bound_ms(n * K * es + n * 12 + n * width * es, 5 * n * K))
+
+
+def xent_library_ms(torch, x, lab, eps, pad, K, dloss, timer):
+    """``F.cross_entropy`` with ``label_smoothing`` and ``ignore_index``
+    (the same function) on a dense copy of x's K real classes, made
+    outside the timing: (its ms by ``timer``, its backward's through
+    autograd by CUDA events, host included)."""
+    import torch.nn.functional as F
+    xl = x.reshape(-1, x.shape[-1])[:, :K].contiguous()
+    kw = dict(label_smoothing=eps, reduction="none",
+              ignore_index=-100 if pad is None else pad)
+    fwd = timer(lambda: F.cross_entropy(xl, lab, **kw))
+    xr = xl.detach().requires_grad_()
+    loss = F.cross_entropy(xr, lab, **kw)
+    bwd = event_ms(lambda: torch.autograd.grad(loss, xr, dloss,
+                                               retain_graph=True))
+    return fwd, bwd
 
 
 def check_xent(torch, ops, gen):
-    """Kernels 18 and 19 at the training step's logits[:, :-1] slice of
-    (16, 1024, 50304) fp32 logits, 50257 real classes: smoothing 0 (the
-    GPT-2 path) and 0.1, and a padding_idx; at BERT's NSP head ((8, 2),
-    K = 2), at the ResNet head ((64, 1000) fp32, K = 1000, unpadded,
-    the same bits twice) and at `SoftmaxCrossEntropyLoss`'s bf16 head
-    (`check_xent_half_head`)."""
-    import torch.nn.functional as F
+    """Kernels 18 and 19 at every `XENT_CASES` case: loss and lse at f32
+    tolerance, dx at its dtype's, each the same bits on a second launch;
+    the backward takes the plain version's lse. A half dx also gets
+    2·`ETA` absolute: with dloss the mean's 1/rows, fp16 dx lies below
+    the normal range (6.1e-5), where each side's one rounding is off by
+    up to ETA, not by a share of |want|. CUDA events time the
+    cases of the GPT-2 head, graph replays NSP's and the ResNet head's
+    (a launch's latency), beside the plain versions and
+    `xent_library_ms`."""
     from apex1_tpu_torch.ops.xentropy import xent_bwd, xent_fwd
-    full = torch.randn((TB, TS, TV_PAD), generator=gen, device="cuda") * 2
-    x = full[:, :-1]
-    rows = TB * (TS - 1)
-    t = torch.randint(0, TV, (rows,), generator=gen, device="cuda")
-    t_pad = t.clone()
-    t_pad[::5] = 0
-    dloss = torch.full((rows,), 1.0 / rows, device="cuda")
-    # the library call gets the real classes as one dense tensor, made
-    # outside its timing
-    xl = x.reshape(rows, TV_PAD)[:, :TV].contiguous()
-    nsp = check_xent_small(torch, ops, gen, 8, 2, "BERT NSP rows=8 V=2 K=2",
-                           2.0, False)
-    head = check_xent_small(torch, ops, gen, RESNET_B, 1000,
-                            f"ResNet head rows={RESNET_B} V=1000 K=1000",
-                            4.0, True)
     fwd, bwd = [], []
-    for smoothing, pad in ((0.0, None), (0.1, None), (0.0, 0)):
-        lab = t if pad is None else t_pad
-        tol = TOLS["float32"]
-        case = f"rows={rows} V={TV_PAD} K={TV} eps={smoothing} pad={pad}"
-        main = smoothing == 0.0 and pad is None
-
-        def run():
-            return xent_fwd(x, lab, smoothing, pad, TV)
-
-        got = run()
+    for i, (label, x, lab, eps, pad, K, dloss) in enumerate(
+            xent_cases(torch, gen)):
+        big = x.numel() > 1 << 24
+        timer = event_ms if big else graph_ms
         with ops.force_impl("torch"):
-            want = run()
-        torch.cuda.synchronize()
-        abs_e, worst = max_errs_all(zip(got, want), tol)
-        ms = event_ms(run)
-        with ops.force_impl("torch"):
-            plain = event_ms(run, iters=3)
-        lib = None
-        if main:
-            lib = event_ms(lambda: F.cross_entropy(xl, lab,
-                                                   reduction="none"))
-        # the first K columns of each row read once, the label read, loss
-        # and lse written; about 6 flops per element
-        bnd, by = bound_ms(rows * TV * 4 + rows * 8 + rows * 8,
-                           6 * rows * TV)
-        fwd.append(dict(case=case, abs=abs_e, worst=worst, tol=tol, ms=ms,
-                        plain_ms=plain, library_ms=lib, bound_ms=bnd,
-                        bound_by=by, main=main))
-        lse = want[1]
-
-        def run_b():
-            return xent_bwd(x, lab, lse, dloss, smoothing, pad, TV)
-
-        got_b = run_b()
-        with ops.force_impl("torch"):
-            want_b = run_b()
-        torch.cuda.synchronize()
-        abs_e, worst = max_errs(got_b, want_b, *tol)
-        ms = event_ms(run_b)
-        with ops.force_impl("torch"):
-            plain = event_ms(run_b, iters=3)
-        lib = None
-        if main:
-            xr = xl.detach().requires_grad_()
-            loss = F.cross_entropy(xr, lab, reduction="none")
-            lib = event_ms(lambda: torch.autograd.grad(
-                loss, xr, dloss, retain_graph=True))
-            del xr, loss
-        # K columns and the label, lse, dloss read; every dx column
-        # written
-        bnd, by = bound_ms(rows * TV * 4 + rows * 12 + rows * TV_PAD * 4,
-                           5 * rows * TV)
-        bwd.append(dict(case=case, abs=abs_e, worst=worst, tol=tol, ms=ms,
-                        plain_ms=plain, library_ms=lib, bound_ms=bnd,
-                        bound_by=by, main=main))
-        del got, want, got_b, want_b
-    fwd += [nsp[0], head[0]]
-    bwd += [nsp[1], head[1]]
-    hf, hb = check_xent_half_head(torch, ops, x, t_pad, dloss)
-    return fwd + [hf], bwd + [hb]
-
-
-def check_xent_half_head(torch, ops, x, labels, dloss):
-    """Kernels 18 and 19 on the contrib phase's `SoftmaxCrossEntropyLoss`
-    inputs at the GPT-2 head: the logits in bf16, every one of the
-    50304 columns a class (the module takes no ``num_classes``),
-    smoothing 0.1, ``padding_idx`` 0; the loss at f32 tolerance, dx
-    (bf16) at bf16's; ``F.cross_entropy`` with ``label_smoothing`` and
-    ``ignore_index`` (the same function) timed beside them."""
-    import torch.nn.functional as F
-    from apex1_tpu_torch.ops.xentropy import xent_bwd, xent_fwd
-    xb = x.to(torch.bfloat16)
-    rows, V = xb.shape[0] * xb.shape[1], xb.shape[2]
-    case = (f"SoftmaxCrossEntropyLoss rows={rows} V={V} K={V} bf16 "
-            f"eps=0.1 pad=0")
-    out = []
-    for name in ("fwd", "bwd"):
-        if name == "fwd":
-            def run():
-                return xent_fwd(xb, labels, 0.1, 0, V)
-
-            tol = TOLS["float32"]
-            xl = xb.reshape(rows, V)
-            lib = event_ms(lambda: F.cross_entropy(
-                xl, labels, label_smoothing=0.1, ignore_index=0,
-                reduction="none"))
-            bnd = bound_ms(rows * V * 2 + rows * 8 + rows * 8, 6 * rows * V)
-        else:
-            lse = xent_fwd(xb, labels, 0.1, 0, V)[1]
-
-            def run():
-                return (xent_bwd(xb, labels, lse, dloss, 0.1, 0, V),)
-
-            tol = TOLS["bfloat16"]
-            xr = xb.reshape(rows, V).detach().requires_grad_()
-            loss = F.cross_entropy(xr, labels, label_smoothing=0.1,
-                                   ignore_index=0, reduction="none")
-            lib = event_ms(lambda: torch.autograd.grad(
-                loss, xr, dloss, retain_graph=True))
-            del xr, loss
-            bnd = bound_ms(rows * V * 2 + rows * 12 + rows * V * 2,
-                           5 * rows * V)
-        got = run()
-        with ops.force_impl("torch"):
-            want = run()
-            plain = event_ms(run, iters=3)
-        torch.cuda.synchronize()
-        abs_e, worst = max_errs_all(zip(got, want), tol)
-        out.append(dict(case=case, abs=abs_e, worst=worst, tol=tol,
-                        ms=event_ms(run), plain_ms=plain, library_ms=lib,
-                        bound_ms=bnd[0], bound_by=bnd[1], main=False))
-        del got, want
-    return out
+            lse = xent_fwd(x, lab, eps, pad, K)[1]
+        lib = xent_library_ms(torch, x, lab, eps, pad, K, dloss, timer)
+        dt = str(x.dtype).replace("torch.", "")
+        for out, run, tol, eta, lib_ms, (bnd, by) in zip(
+                (fwd, bwd),
+                (lambda: xent_fwd(x, lab, eps, pad, K),
+                 lambda: (xent_bwd(x, lab, lse, dloss, eps, pad, K),)),
+                (TOLS["float32"], TOLS[dt]), (0.0, 2 * ETA.get(dt, 0.0)), lib,
+                xent_bounds(x, K)):
+            got, again = run(), run()
+            with ops.force_impl("torch"):
+                want = run()
+                plain = event_ms(run, iters=3 if big else 10)
+            torch.cuda.synchronize()
+            abs_e, worst = max_errs_all(zip(got, want), tol, eta)
+            out.append(dict(
+                case=label, abs=abs_e, worst=worst, tol=tol, ms=timer(run),
+                plain_ms=plain, library_ms=lib_ms, bound_ms=bnd,
+                bound_by=by, main=i == 0,
+                same_bits=all(torch.equal(a, b) for a, b in zip(got, again))))
+            if eta:
+                out[-1]["rule"] = (f"rtol={tol[0]:g} atol={tol[1]:g}*rms "
+                                   f"+ {eta:.3g} (two roundings below the "
+                                   f"normal range)")
+            del got, again, want
+    return fwd, bwd
 
 
 #: the bias-dropout-add kernels' checks: (case, rows, h, dtype, residual
@@ -2606,12 +2553,13 @@ def ab2_ms(other_fn, this_fn, timer=None):
     return min(times["other"]), min(times["this"])
 
 
-def median_ab2(other_fn, this_fn):
-    """`ab2_ms` by CUDA-graph replays, `SOFTMAX_PAIRS` times: (other's
-    median ms, this tree's median ms, the sorted speedups) — for calls of
-    a few microseconds, where one pair's spread is the timer's own."""
+def median_ab2(other_fn, this_fn, timer=graph_ms):
+    """`ab2_ms` by ``timer`` (CUDA-graph replays by default),
+    `SOFTMAX_PAIRS` times: (other's median ms, this tree's median ms, the
+    sorted speedups) — for calls of a few microseconds, where one pair's
+    spread is the timer's own, or where the spread itself is read."""
     import statistics
-    got = [ab2_ms(other_fn, this_fn, graph_ms)
+    got = [ab2_ms(other_fn, this_fn, timer)
            for _ in range(SOFTMAX_PAIRS)]
     return (statistics.median(p[0] for p in got),
             statistics.median(p[1] for p in got),
@@ -3139,9 +3087,50 @@ def compare_lora(torch, other):
     return rows
 
 
+def compare_xent(torch, other):
+    """``--compare``'s cross-entropy rows (TPU rows 18-19): every
+    `XENT_CASES` case through ``other``, TREE's own ``xentropy`` bound
+    to its own library (`tree_ops`: the entry points' C signature may
+    differ), and this tree's, in turns on the same inputs:
+    `SOFTMAX_PAIRS` pairs (`median_ab2`; CUDA events at the GPT-2 head's
+    cases, graph replays at NSP's and the ResNet head's), and as many of
+    this tree against itself, whose spread is the timer's own; with the
+    check's bounds (`xent_bounds`) and `xent_library_ms`. Returns the
+    rows."""
+    from apex1_tpu_torch.ops import force_impl
+    from apex1_tpu_torch.ops.xentropy import xent_bwd, xent_fwd
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    for label, x, lab, eps, pad, K, dloss in xent_cases(torch, gen):
+        timer = event_ms if x.numel() > 1 << 24 else graph_ms
+        with force_impl("torch"):
+            lse = xent_fwd(x, lab, eps, pad, K)[1]
+        lib = xent_library_ms(torch, x, lab, eps, pad, K, dloss, timer)
+        fns = (("xent_fwd", lambda: other.xent_fwd(x, lab, eps, pad, K),
+                lambda: xent_fwd(x, lab, eps, pad, K)),
+               ("xent_bwd",
+                lambda: other.xent_bwd(x, lab, lse, dloss, eps, pad, K),
+                lambda: xent_bwd(x, lab, lse, dloss, eps, pad, K)))
+        for (kernel, was_fn, now_fn), lib_ms, (bnd, by) in zip(
+                fns, lib, xent_bounds(x, K)):
+            was, now, ups = median_ab2(was_fn, now_fn, timer)
+            self_ups = median_ab2(now_fn, now_fn, timer)[2]
+            rows.append(dict(
+                kernel=kernel,
+                case=f"{label}, {SOFTMAX_PAIRS} pairs {ups[0]:.2f}-"
+                     f"{ups[-1]:.2f}x, this tree against itself "
+                     f"{self_ups[0]:.2f}-{self_ups[-1]:.2f}x, "
+                     f"{bnd / was:.0%} / {bnd / now:.0%} of the bound",
+                other_ms=was, ms=now, speedup=was / now, library_ms=lib_ms,
+                bound_ms=bnd, bound_by=by, speedups=ups,
+                self_speedups=self_ups))
+    return rows
+
+
 #: `--compare`'s parts; the names after TREE pick some of them, none: all
 COMPARE_PARTS = ("flash", "chunk", "lxent", "int8", "glu", "norm",
-                 "softmax", "normbwd", "dbias", "paged", "sample", "lora")
+                 "softmax", "normbwd", "dbias", "paged", "sample", "lora",
+                 "xent")
 
 
 def compare_flash(torch, ops, card, tree: str, parts=COMPARE_PARTS) -> int:
@@ -3157,19 +3146,20 @@ def compare_flash(torch, ops, card, tree: str, parts=COMPARE_PARTS) -> int:
     (`compare_norm_bwd`), each through TREE's own wrappers and library
     (`tree_ops`) and this tree's (`ab2_ms`), dbias (`compare_dbias`, TREE's
     kernels under this tree's wrapper) and paged attention
-    (`compare_paged`, TREE's own wrapper), the sampler (`compare_sample`)
-    and the LoRA delta (`compare_lora`), each through TREE's own
-    wrapper; ``parts`` (`COMPARE_PARTS`) picks which. Prints a line
+    (`compare_paged`, TREE's own wrapper), the sampler (`compare_sample`),
+    the LoRA delta (`compare_lora`) and the cross-entropy
+    (`compare_xent`), each through TREE's own wrapper; ``parts``
+    (`COMPARE_PARTS`) picks which. Prints a line
     per kernel and case and writes ``chiprun_out/compare.json``."""
     from apex1_tpu_torch.ops.attention import (flash_dkv, flash_dq,
                                                flash_fwd, flash_fwd_merge)
     from apex1_tpu_torch.ops.fused_collective import chunk_matmul, chunk_tile
     other, secs = other_library(tree)
     (other_lx, other_fc, other_q, other_fd, other_ln, other_sm, other_pd,
-     other_lo) = tree_ops(tree, "linear_xent.py", "fused_collective.py",
-                          "quantized.py", "fused_dense.py", "layer_norm.py",
-                          "softmax.py", "paged_decode.py",
-                          "lora_epilogue.py")
+     other_lo, other_xe) = tree_ops(
+        tree, "linear_xent.py", "fused_collective.py", "quantized.py",
+        "fused_dense.py", "layer_norm.py", "softmax.py", "paged_decode.py",
+        "lora_epilogue.py", "xentropy.py")
     print(f"phase compare: built {tree} in {secs:.1f} s [{card}]")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
@@ -3230,7 +3220,8 @@ def compare_flash(torch, ops, card, tree: str, parts=COMPARE_PARTS) -> int:
                      ("dbias", lambda: compare_dbias(torch, other)),
                      ("paged", lambda: compare_paged(torch, other_pd)),
                      ("sample", lambda: compare_sample(torch, other_pd)),
-                     ("lora", lambda: compare_lora(torch, other_lo))):
+                     ("lora", lambda: compare_lora(torch, other_lo)),
+                     ("xent", lambda: compare_xent(torch, other_xe))):
         if part in parts:
             rows += fn()
     for r in (r for r in rows if "other_ms" in r):

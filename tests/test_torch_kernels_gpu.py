@@ -23,7 +23,10 @@ on a second launch and across CUDA-graph replays (the splits' ticket
 counters reset). The training kernels (layer norm backward, softmax
 forward and backward, cross-entropy forward and backward) per element
 as paged attention, with fp16 at rtol 2^-10 (one fp16 ulp), atol 1e-2;
-the layer norm backward also gives the same bits on a second run. The
+the layer norm backward also gives the same bits on a second run, and
+the cross-entropy kernels too, in every dtype, with rows off 16 bytes
+(an odd width, a logits[:, :-1] slice), K off the vector width and
+K = 2, and dx's padding columns zero. The
 flash kernels (forward, dq, dk/dv) the same way: the plain backward
 rounds p and dS to the operand type where the kernels do; the forward
 kernel rounds exp(s - m) against a running max where the plain forward
@@ -356,27 +359,57 @@ def test_softmax_kernels_match_plain(cuda, dtype, sq, sk, mask_kind):
     _close(dx, wdx, dt)
 
 
+#: the cross-entropy kernels' shapes: (A, T, V, K, sliced): logits (A,
+#: T, V), the first K columns real classes, read as logits[:, :-1] (in
+#: place, two strides) where sliced. 122: rows of 244 or 488 bytes, so
+#: most start off 16 bytes, fewer vectors than threads; 300: rows of 600
+#: or 1200 bytes, half of them off 16 bytes; 4099: an odd width; 4104:
+#: whole vectors, K on and off the vector width; NSP's K = 2 (8-byte
+#: rows); the ResNet head's 1000; the GPT-2 head's width, K = 50257
+_XENT_SHAPES = {"w122_k113": (3, 18, 122, 113, True),
+                "w300_k290": (3, 18, 300, 290, True),
+                "w4099_k4093": (2, 9, 4099, 4093, True),
+                "w4104": (2, 7, 4104, 4104, True),
+                "w4104_k4097": (2, 7, 4104, 4097, False),
+                "nsp_k2": (1, 8, 2, 2, False),
+                "resnet_1000": (1, 64, 1000, 1000, False),
+                "gpt2_k50257": (1, 6, 50304, 50257, True)}
+
+
 @pytest.mark.parametrize("smoothing,padding_idx", [(0.0, None), (0.1, 3)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_xent_kernels_match_plain(cuda, dtype, smoothing, padding_idx):
+@pytest.mark.parametrize("shape", list(_XENT_SHAPES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_xent_kernels_match_plain(cuda, dtype, shape, smoothing,
+                                  padding_idx):
+    """Loss and lse at f32 tolerance, dx at its dtype's, each the same
+    bits on a second launch; the padding columns [K, V) of dx exactly
+    zero. The logits rise along each row (a ramp of 16 under draws of
+    scale 4), so a thread's running max moves often."""
     from apex1_tpu_torch.ops.xentropy import xent_bwd, xent_fwd
+    A, T, V, K, sliced = _XENT_SHAPES[shape]
     dt = getattr(torch, dtype)
     rng = np.random.default_rng(9)
-    full = torch.from_numpy(rng.standard_normal((3, 18, 300)) * 4).to(cuda,
-                                                                     dt)
-    x = full[:, :-1]            # the strided slice the GPT-2 loss reads
-    t = torch.from_numpy(rng.integers(0, 290, (3 * 17,))).to(cuda)
-    t[::7] = 3
-    (loss, lse), (wloss, wlse) = _both(
-        lambda: xent_fwd(x, t, smoothing, padding_idx, 290))
+    full = (rng.standard_normal((A, T, V)) * 4
+            + np.linspace(-8.0, 8.0, V))
+    full = torch.from_numpy(full).to(cuda, dt)
+    x = full[:, :-1] if sliced else full
+    n = x.shape[0] * x.shape[1]
+    t = torch.from_numpy(rng.integers(0, K, (n,))).to(cuda)
+    t[::7] = 3 % K
+    fwd = lambda: xent_fwd(x, t, smoothing, padding_idx, K)  # noqa: E731
+    (loss, lse), (wloss, wlse) = _both(fwd)
     _close(loss, wloss, torch.float32)
     _close(lse, wlse, torch.float32)
-    dloss = torch.from_numpy(rng.standard_normal(3 * 17)).float().to(cuda)
-    dx, wdx = _both(lambda: xent_bwd(x, t, wlse, dloss, smoothing,
-                                     padding_idx, 290))
-    assert dx.dtype == dt and dx.shape == (51, 300)
+    again = fwd()
+    assert torch.equal(loss, again[0]) and torch.equal(lse, again[1])
+    dloss = torch.from_numpy(rng.standard_normal(n)).float().to(cuda)
+    bwd = lambda: xent_bwd(x, t, wlse, dloss, smoothing,  # noqa: E731
+                           padding_idx, K)
+    dx, wdx = _both(bwd)
+    assert dx.dtype == dt and dx.shape == (n, V)
     _close(dx, wdx, dt)
-    assert not dx[:, 290:].any()
+    assert torch.equal(dx, bwd())
+    assert not dx[:, K:].any()
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])

@@ -12,7 +12,8 @@ autograd, on the CPU:
 - causal and masked softmax, forward and dx, odd sq/sk, the forward's
   Sk edges (1 to 2052, Sq != Sk, each mask broadcast): f32 1e-5;
 - softmax cross-entropy loss and dlogits with smoothing, padding_idx
-  and num_classes < width, on a strided logits[:, :-1] slice: f32 1e-5.
+  and num_classes < width, on a strided logits[:, :-1] slice: f32 1e-5;
+  bf16 and fp16 logits: the loss at 1e-5, dlogits one half ulp apart.
 
 The CUDA kernels are held against the same plain versions on the card
 (tests/test_torch_kernels_gpu.py and chip_smoke.py).
@@ -283,14 +284,42 @@ def test_softmax_keeps_half_dtype():
 # ---- cross-entropy -------------------------------------------------------
 
 
+#: dlogits tolerance per logits dtype, |port - JAX| <= atol + rtol·|JAX|:
+#: fp32 sums in another order; half dx is one rounding of an fp32 value
+#: on each side, so the two may lie one ulp apart (bf16 2^-7 relative,
+#: fp16 2^-10, and fp16's subnormal step 2^-24 below its normal range)
+_XENT_DX_TOLS = {"float32": (1e-5, 1e-6), "bfloat16": (2.0 ** -7, 1e-6),
+                 "float16": (2.0 ** -10, 2.0 ** -24)}
+
+
+_XENT_CASES = [(0.0, None, None), (0.1, None, 290), (0.0, 3, 290),
+               (0.2, 3, None)]
+
+
 @pytest.mark.parametrize("impl", IMPLS)
-@pytest.mark.parametrize("smoothing,padding_idx,num_classes",
-                         [(0.0, None, None), (0.1, None, 290),
-                          (0.0, 3, 290), (0.2, 3, None)])
+@pytest.mark.parametrize("smoothing,padding_idx,num_classes", _XENT_CASES)
 def test_xent_loss_and_grad_match_jax(impl, smoothing, padding_idx,
                                       num_classes):
+    _xent_matches_jax(impl, smoothing, padding_idx, num_classes, "float32")
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("smoothing,padding_idx,num_classes", _XENT_CASES)
+def test_xent_half_loss_and_grad_match_jax(impl, smoothing, padding_idx,
+                                           num_classes, dtype):
+    _xent_matches_jax(impl, smoothing, padding_idx, num_classes, dtype)
+
+
+def _xent_matches_jax(impl, smoothing, padding_idx, num_classes, dtype):
+    """The loss (fp32 from the logits widened exactly, so at fp32's
+    tolerance in every dtype) and dlogits in the logits' dtype
+    (`_XENT_DX_TOLS`), on a strided logits[:, :-1] slice."""
     rng = np.random.default_rng(5)
     full = (rng.standard_normal((3, 8, 300)) * 4).astype(np.float32)
+    tf = _t(full, getattr(torch, dtype))
+    # the logits as the half type holds them, for both sides
+    full = _np(tf)
     hi = num_classes or 300
     tokens = rng.integers(0, hi, (3, 8))
     tokens[:, ::3] = 3
@@ -303,16 +332,18 @@ def test_xent_loss_and_grad_match_jax(impl, smoothing, padding_idx,
 
     with jax_common.force_impl(impl):
         loss_j, dx_j = jax.jit(lambda x_, d_: _value_and_vjp(jf, x_, d_))(
-            jnp.asarray(full), jnp.asarray(dl))
-    tf = _t(full)
+            jnp.asarray(full).astype(dtype), jnp.asarray(dl))
+    assert dx_j.dtype == jnp.dtype(dtype)
     loss = softmax_cross_entropy_loss(tf[:, :-1],
                                       torch.from_numpy(tokens[:, 1:]), **kw)
     loss.backward(torch.from_numpy(dl))
     assert loss.dtype == torch.float32 and loss.shape == (3, 7)
-    np.testing.assert_allclose(_np(loss), np.asarray(loss_j), rtol=1e-5,
-                               atol=1e-5)
-    np.testing.assert_allclose(_np(tf.grad), np.asarray(dx_j), rtol=1e-5,
-                               atol=1e-6)
+    assert tf.grad.dtype == tf.dtype
+    np.testing.assert_allclose(_np(loss), np.asarray(loss_j, np.float32),
+                               rtol=1e-5, atol=1e-5)
+    rtol, atol = _XENT_DX_TOLS[dtype]
+    np.testing.assert_allclose(_np(tf.grad), np.asarray(dx_j, np.float32),
+                               rtol=rtol, atol=atol)
     if num_classes:
         assert not tf.grad[..., num_classes:].any()
 
