@@ -34,7 +34,8 @@ from apex1_tpu_torch.optim import (FusedAdagrad, FusedAdam, FusedLAMB,
                                    fused_novograd, fused_sgd, larc)
 from apex1_tpu_torch.parallel.sync_batchnorm import (SyncBatchNorm,
                                                      convert_syncbn_model)
-from apex1_tpu_torch.serving import Engine, EngineConfig
+from apex1_tpu_torch.serving import (DisaggFrontend, Engine, EngineConfig,
+                                     FrontendConfig, ServingFrontend)
 
 __all__ = ["Amp", "AmpState", "MeshConfig", "make_mesh", "PrecisionPolicy",
            "get_policy",
@@ -52,4 +53,5 @@ __all__ = ["Amp", "AmpState", "MeshConfig", "make_mesh", "PrecisionPolicy",
            "ResNetConfig", "resnet_loss_fn", "FusedAdagrad", "FusedAdam",
            "FusedLAMB", "FusedNovoGrad", "FusedSGD", "Optimizer",
            "fused_adagrad", "fused_lamb", "fused_novograd", "fused_sgd",
-           "larc", "SyncBatchNorm", "convert_syncbn_model"]
+           "larc", "SyncBatchNorm", "convert_syncbn_model",
+           "DisaggFrontend", "FrontendConfig", "ServingFrontend"]

@@ -2,10 +2,11 @@
 the cache layout, the cache-aware attention the models call, the
 ``(apply_fn, make_cache)`` decoder pair the serving engine drives,
 `generate` (the prefill + decode loop over a dense cache),
-`beam_search` over the same decode step, and `t5_generate` (encode
-once, then the cached T5 decoder, greedy, sampled or beam).
-`counter_sample` and `speculative_generate` are not ported yet
-(ROADMAP.md queue A item 4).
+`beam_search` over the same decode step, `t5_generate` (encode once,
+then the cached T5 decoder, greedy, sampled or beam), `counter_sample`
+(the serving engine's per-request counter-keyed draw) and
+`speculative_generate` (a draft model proposes, the target verifies a
+chunk per round).
 """
 
 from __future__ import annotations
@@ -17,7 +18,12 @@ import torch
 
 from apex1_tpu_torch.ops._common import NEG_INF, resolve_device
 from apex1_tpu_torch.ops.attention import flash_attention
-from apex1_tpu_torch.ops.paged_decode import (PagedCache, cache_attend,
+from apex1_tpu_torch.ops.paged_decode import (PagedCache, _gumbel_argmax,
+                                              _mask_vocab,
+                                              _temperature_top_k,
+                                              _threefry2x32, _u32,
+                                              _uniform_bits, cache_attend,
+                                              fused_sample,
                                               paged_update_attend,
                                               sample_token, split)
 
@@ -34,6 +40,18 @@ def init_cache(num_layers: int, batch: int, num_kv_heads: int,
             for i in range(num_layers)}
 
 
+class DenseCache:
+    """One layer's dense KV cache entry that its caller owns: K/V (B,
+    Hkv, S_max, D) written IN PLACE by `cached_attention` (the serving
+    engine's slot pool, `speculative_generate`'s caches). A plain
+    {"k","v"} dict is updated functionally instead (a fresh copy, as
+    the JAX package's ``dynamic_update_slice`` returns one)."""
+
+    def __init__(self, k, v):
+        self.k = k
+        self.v = v
+
+
 def cached_attention(q, k_new, v_new, cache, cache_index, *,
                      sm_scale: Optional[float] = None, bias=None,
                      segment_ids=None, valid_start=None,
@@ -44,15 +62,19 @@ def cached_attention(q, k_new, v_new, cache, cache_index, *,
     - A `PagedCache` entry writes the new K/V into its pages in place
       and attends them (`paged_update_attend`; ``cache_index`` scalar or
       per-row).
-    - A dense entry {"k","v": (B, Hkv, S_max, D)} takes a scalar
-      ``cache_index``. Prefill (S > 1 without ``chunk_decode``) must
-      start from an empty cache at index 0: it runs causal flash
-      attention over the current tokens (``segment_ids`` keep the
-      left-pad of a ragged batch apart) and writes them into the cache.
-      Decode (S == 1) or ``chunk_decode`` (query j sees positions <=
-      index + j; an empty cache at 0 is chunked prefill) attend the
-      cache, from each row's ``valid_start`` on when given. The new
-      entry is a fresh copy, as the JAX package's functional update is.
+    - A dense entry ({"k","v": (B, Hkv, S_max, D)}, or a `DenseCache`
+      written in place) takes a scalar ``cache_index`` or a per-row (B,)
+      tensor: row b writes its S new positions at its own index
+      (clamped so the window fits, as ``dynamic_update_slice`` clamps
+      it) and its query j sees slots <= index_b + j; a per-row index
+      reads nothing back to the host. Prefill (S > 1 without
+      ``chunk_decode``) must start from an empty cache at a scalar index
+      0: it runs causal flash attention over the current tokens
+      (``segment_ids`` keep the left-pad of a ragged batch apart) and
+      writes them into the cache. Decode (S == 1) or ``chunk_decode``
+      (query j sees positions <= index + j; an empty cache at 0 is
+      chunked prefill) attend the cache, from each row's
+      ``valid_start`` on when given.
 
     ``bias``: an additive logit bias, in prefill over the current tokens
     (1, H, S, S), riding flash's bias operand (causality stays the
@@ -68,15 +90,31 @@ def cached_attention(q, k_new, v_new, cache, cache_index, *,
         return paged_update_attend(q, k_new, v_new, cache, cache_index,
                                    sm_scale=sm_scale,
                                    chunk_decode=chunk_decode)
-    S = q.shape[2]
+    B, _, S, _ = q.shape
+    inplace = isinstance(cache, DenseCache)
+    k_c, v_c = (cache.k, cache.v) if inplace else (cache["k"], cache["v"])
+    s_max = k_c.shape[2]
+    k_all, v_all = (k_c, v_c) if inplace else (k_c.clone(), v_c.clone())
+    new_entry = cache if inplace else {"k": k_all, "v": v_all}
+    if torch.is_tensor(cache_index) and cache_index.dim() == 1:
+        if S > 1 and not chunk_decode:
+            raise ValueError("cached_attention prefill (S > 1) takes a "
+                             "scalar cache_index 0; a per-row index needs "
+                             "chunk_decode=True")
+        idx = cache_index.to(device=q.device, dtype=torch.int64)
+        start = idx.clamp(0, s_max - S)
+        pos = start[:, None] + torch.arange(S, device=q.device)
+        rows = torch.arange(B, device=q.device)[:, None]
+        k_all[rows, :, pos] = k_new.transpose(1, 2).to(k_all.dtype)
+        v_all[rows, :, pos] = v_new.transpose(1, 2).to(v_all.dtype)
+        attn = cache_attend(q, k_all, v_all, idx, sm_scale=sm_scale,
+                            bias=bias, valid_start=valid_start)
+        return attn, new_entry
     idx = int(cache_index)
-    s_max = cache["k"].shape[2]
     # dynamic_update_slice clamps the start so the window fits
     start = min(max(idx, 0), s_max - S)
-    k_all, v_all = cache["k"].clone(), cache["v"].clone()
     k_all[:, :, start:start + S] = k_new.to(k_all.dtype)
     v_all[:, :, start:start + S] = v_new.to(v_all.dtype)
-    new_entry = {"k": k_all, "v": v_all}
     if S > 1 and not chunk_decode:
         if idx != 0:
             raise ValueError(
@@ -212,6 +250,242 @@ def _ragged_align(prompt_tokens, prompt_lens):
                   torch.int32),
               valid_start=pad)
     return aligned, kw, pad
+
+
+def counter_sample(logits, seed, positions, *, temperature: float = 0.0,
+                   top_k: Optional[int] = None,
+                   vocab_size: Optional[int] = None):
+    """Counter-keyed sampling over an (S, V) logits chunk: the token at
+    output position ``positions[j]`` is drawn with ``fold_in(key(seed),
+    positions[j])``, the serving engine's per-request stream. This is
+    `fused_sample` with one seed for every row (the kernel on CUDA
+    logits, its plain version on the CPU)."""
+    S = logits.shape[0]
+    dev = logits.device
+    seeds = torch.as_tensor(seed, dtype=torch.int32, device=dev)
+    return fused_sample(logits, seeds.reshape(-1).expand(S).contiguous(),
+                        torch.as_tensor(positions, dtype=torch.int32,
+                                        device=dev),
+                        temperature=temperature, top_k=top_k,
+                        vocab_size=vocab_size)
+
+
+def _masked_probs(logits, *, temperature: float, top_k: Optional[int],
+                  vocab_size: Optional[int]):
+    """The distribution `sample_token` samples from over (..., V) logits:
+    fp32, the padded-vocab tail masked, then the shared temperature and
+    top-k pipeline and a softmax."""
+    lg = _mask_vocab(logits.float(), vocab_size)
+    return torch.softmax(_temperature_top_k(lg, temperature, top_k,
+                                            vocab_size), dim=-1)
+
+
+def _split_rows(k1, k2, num: int) -> list:
+    """`split` of per-row key data (k1, k2: (B,) int64 tensors of uint32
+    values): ``num`` new (k1, k2) pairs, jax's partitionable stream."""
+    zero = torch.zeros_like(k1)
+    return [_threefry2x32(k1, k2, zero, torch.full_like(k1, i))
+            for i in range(num)]
+
+
+def _uniform_rows(k1, k2, n: int):
+    """``jax.random.uniform(key, (n,))`` for each row's key: the uint32
+    draw's high 23 bits as the mantissa of a float in [1, 2), minus 1."""
+    col = torch.arange(n, device=k1.device)[None]
+    bits = _uniform_bits(k1[:, None], k2[:, None], col, n)
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    return torch.clamp_min(f - 1.0, 0.0)
+
+
+def _log_or_neg_inf(p):
+    return torch.where(p > 0, torch.log(torch.clamp_min(p, 1e-30)),
+                       torch.full_like(p, NEG_INF))
+
+
+def _speculative_accept(p, q, drafts, key):
+    """One round of the speculative-sampling accept/resample rule
+    (Leviathan et al. 2023; Chen et al. 2023): accept draft ``x_j`` with
+    probability ``min(1, p_j(x_j) / q_j(x_j))``; at the first rejection
+    emit a sample of the residual ``norm(max(p_j - q_j, 0))``; if all K
+    are accepted emit a bonus sample of ``p_K``.
+
+    ``p``: ([B,] K+1, V) target probs, ``q``: ([B,] K, V) draft probs,
+    ``drafts``: ([B,] K) proposed tokens, ``key``: threefry key data
+    (k1, k2), ints or (B,) tensors. The uniform and categorical draws are
+    jax's (``split(key)`` -> ``uniform(key_u, (K,))``,
+    ``categorical(key_c, ...)``). Returns ``(a, correction)``: the
+    accepted count and the token to emit at position ``a``."""
+    single = drafts.dim() == 1
+    if single:
+        p, q, drafts = p[None], q[None], drafts[None]
+    B, K = drafts.shape
+    dev = p.device
+    k1, k2 = (_u32(k, dev).reshape(-1).expand(B) for k in key)
+    (ku1, ku2), (kc1, kc2) = _split_rows(k1, k2, 2)
+    d = drafts.long()[..., None]
+    p_at = torch.gather(p[:, :K], 2, d)[..., 0]
+    q_at = torch.clamp_min(torch.gather(q, 2, d)[..., 0], 1e-30)
+    accept = _uniform_rows(ku1, ku2, K) < torch.clamp_max(p_at / q_at, 1.0)
+    a = torch.cumprod(accept.to(torch.int32), dim=1).sum(1)
+    rows = torch.arange(B, device=dev)
+    p_row = p[rows, a]
+    q_row = torch.where((a == K)[:, None], 0.0,
+                        q[rows, torch.clamp_max(a, K - 1)])
+    r = torch.clamp_min(p_row - q_row, 0.0)
+    s = r.sum(-1, keepdim=True)
+    r = torch.where(s > 0, r / torch.clamp_min(s, 1e-30), p_row)
+    # jax.random.categorical, each row with its own key
+    corr = _gumbel_argmax(_log_or_neg_inf(r), kc1, kc2, True)
+    a = a.to(torch.int32)
+    return (a[0], corr[0]) if single else (a, corr)
+
+
+def speculative_generate(target_fn, draft_fn, prompt_tokens, *,
+                         max_new_tokens: int, target_cache, draft_cache,
+                         num_draft: int = 4, temperature: float = 0.0,
+                         top_k: Optional[int] = None, rng=None,
+                         eos_id: Optional[int] = None, pad_id: int = 0,
+                         vocab_size: Optional[int] = None,
+                         prompt_lens=None):
+    """Speculative decoding: a cheap DRAFT model proposes ``num_draft``
+    tokens autoregressively; the TARGET scores all of them in one
+    chunk-verify forward (``chunk_decode=True``); the longest accepted
+    prefix plus one correction token are emitted per round. The draft
+    changes how many target forwards run, not the tokens:
+
+    - ``temperature == 0``: greedy; accept while the draft matches the
+      target's argmax. The output equals greedy `generate` of the target
+      alone up to chunk-verify against step-decode numerics (the same
+      logits computed as one chunk or a row at a time).
+    - ``temperature > 0``: speculative sampling (`_speculative_accept`);
+      the emitted sequence is distributed as ancestral sampling from the
+      target's temperature/top-k distribution.
+
+    ``target_fn``/``draft_fn`` take the `gpt2_decoder`/`llama_decoder`
+    apply contract (``chunk_decode`` included; the models are closed
+    over, as in `generate`), the int8 `models.quant_decode` decoders
+    too. Caches must hold prompt + max_new_tokens + num_draft + 1
+    positions. ``rng`` is threefry key data ``(k1, k2)`` (default
+    ``key(0)``); the keys are split as the JAX function splits them, so
+    the same inputs draw the same tokens. ``prompt_lens`` (B,): ragged
+    right-padded prompts, left-aligned once as in `generate`, positions
+    and ``valid_start`` threaded through both models.
+
+    The JAX function runs one ``lax.while_loop`` per row under ``vmap``;
+    here every round runs for all rows at once, each row at its own
+    cache index (`DenseCache`, written in place after the prefill's
+    copy), and a finished row keeps its state. Returns (tokens (B,
+    max_new_tokens) int32, target_forwards (B,) int32): the verify
+    rounds each row ran (the prefill is implied)."""
+    B, S0 = prompt_tokens.shape
+    K = int(num_draft)
+    N = int(max_new_tokens)
+    if K < 1:
+        raise ValueError(f"num_draft must be >= 1, got {K}")
+    for nm, c in (("target_cache", target_cache),
+                  ("draft_cache", draft_cache)):
+        s_max = next(iter(c.values()))["k"].shape[2]
+        if s_max < S0 + N + K + 1:
+            raise ValueError(
+                f"{nm} holds {s_max} positions but speculative decoding "
+                f"needs >= prompt + max_new_tokens + num_draft + 1 = "
+                f"{S0 + N + K + 1} (rejected speculative entries briefly "
+                f"occupy the tail)")
+    sampled = temperature != 0.0
+    key = (0, 0) if rng is None else rng
+    dev = prompt_tokens.device
+    i32 = torch.int32
+    pre_kw = {}
+    pad = torch.zeros(B, dtype=torch.int64, device=dev)
+    vs = {}
+    if prompt_lens is not None:
+        prompt_tokens, pre_kw, pad = _ragged_align(prompt_tokens,
+                                                   prompt_lens)
+        vs = dict(valid_start=pad)
+    logits_t, target_cache = target_fn(prompt_tokens, target_cache, 0,
+                                       **pre_kw)
+    _, draft_cache = draft_fn(prompt_tokens, draft_cache, 0, **pre_kw)
+    key, sub = split(key)
+    t0 = sample_token(logits_t[:, -1], sub, temperature=temperature,
+                      top_k=top_k, vocab_size=vocab_size)
+    rk = torch.tensor(split(key, B), dtype=torch.int64, device=dev)
+    k1, k2 = rk[:, 0], rk[:, 1]
+    # the prefill returned fresh copies: from here the rounds write them
+    # in place, each row at its own index
+    tc = {n: DenseCache(e["k"], e["v"]) for n, e in target_cache.items()}
+    dc = {n: DenseCache(e["k"], e["v"]) for n, e in draft_cache.items()}
+
+    def greedy(lg):
+        return torch.argmax(_mask_vocab(lg.float(), vocab_size),
+                            dim=-1).to(i32)
+
+    def probs(lg):
+        return _masked_probs(lg, temperature=temperature, top_k=top_k,
+                             vocab_size=vocab_size)
+
+    buf = torch.full((B, N + 1), pad_id, dtype=i32, device=dev)
+    buf[:, 0] = t0
+    count = torch.ones(B, dtype=torch.int64, device=dev)
+    last = t0
+    idx = torch.full((B,), S0, dtype=torch.int64, device=dev)
+    done = (torch.zeros(B, dtype=torch.bool, device=dev) if eos_id is None
+            else t0 == eos_id)
+    rounds = torch.zeros(B, dtype=i32, device=dev)
+    j = torch.arange(K + 1, device=dev)
+    while True:
+        active = (count < N) & ~done
+        if not bool(active.any()):
+            break
+        (nk1, nk2), (kd1, kd2), (ka1, ka2) = _split_rows(k1, k2, 3)
+        step_keys = _split_rows(kd1, kd2, K + 1) if sampled else None
+        tok, di = last, idx
+        drafts_ext, q_ext = [], []
+        for s in range(K + 1):
+            lg, dc = draft_fn(tok[:, None], dc, di,
+                              positions=(di - pad)[:, None], **vs)
+            lg = lg[:, -1]
+            if sampled:
+                q_row = probs(lg)
+                tok = _gumbel_argmax(_log_or_neg_inf(q_row),
+                                     *step_keys[s], True)
+                q_ext.append(q_row)
+            else:
+                tok = greedy(lg)
+            drafts_ext.append(tok)
+            di = di + 1
+        drafts = torch.stack(drafts_ext[:K], dim=1)          # (B, K)
+        verify = torch.cat([last[:, None], drafts], dim=1)   # (B, K+1)
+        lg_t, tc = target_fn(verify, tc, idx, chunk_decode=True,
+                             positions=(idx - pad)[:, None] + j, **vs)
+        ext = torch.cat([drafts, drafts[:, -1:]], dim=1)
+        if sampled:
+            a, corr = _speculative_accept(
+                probs(lg_t), torch.stack(q_ext[:K], dim=1), drafts,
+                (ka1, ka2))
+            toks = torch.where(j < a[:, None].long(), ext, corr[:, None])
+        else:
+            tgt_next = greedy(lg_t)                           # (B, K+1)
+            match = (tgt_next[:, :K] == drafts).to(i32)
+            a = torch.cumprod(match, dim=1).sum(1)
+            toks = torch.where(j < a[:, None], ext, tgt_next)
+        a = a.long()
+        keep = (j <= a[:, None]) & (count[:, None] + j < N)
+        if eos_id is not None:
+            hit = (toks == eos_id).to(i32)
+            keep = keep & (torch.cumsum(hit, dim=1) - hit == 0)
+        keep = keep & active[:, None]
+        # kept lanes land at count + j; the rest go to the spare column
+        col = torch.where(keep, count[:, None] + j, N)
+        buf.scatter_(1, col, toks)
+        count = count + keep.sum(1)
+        if eos_id is not None:
+            done = done | ((toks == eos_id) & keep).any(1)
+        last = torch.where(active, toks.gather(1, a[:, None])[:, 0], last)
+        idx = torch.where(active, idx + a + 1, idx)
+        rounds = rounds + active.to(i32)
+        k1 = torch.where(active, nk1, k1)
+        k2 = torch.where(active, nk2, k2)
+    return buf[:, :N], rounds
 
 
 def _map_cache(fn, cache: dict) -> dict:

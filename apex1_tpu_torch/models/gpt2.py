@@ -267,8 +267,8 @@ class GPT2(nn.Module):
             if positions is None:
                 start = torch.as_tensor(cache_index, dtype=torch.int64,
                                         device=dev)
-                positions = (start + torch.arange(S, device=dev)).expand(
-                    B, S)
+                positions = (start.reshape(-1, 1)
+                             + torch.arange(S, device=dev)).expand(B, S)
             positions = torch.as_tensor(positions, device=dev).long()
             inside = (positions >= 0) & (positions < cfg.max_seq_len)
             pos_emb = self.wpe[positions.clamp(0, cfg.max_seq_len - 1)]

@@ -96,7 +96,7 @@ SIGNATURES = {
 }
 
 _LOCK = threading.Lock()
-_STATE: dict = {"lib": None, "log": ""}
+_STATE: dict = {"lib": None, "log": "", "loads": 0}
 
 
 def nvcc() -> str:
@@ -177,7 +177,14 @@ def library() -> ctypes.CDLL:
                     fn.argtypes = argtypes
                     fn.restype = ctypes.c_int
                 _STATE["lib"] = lib
+                _STATE["loads"] += 1
     return _STATE["lib"]
+
+
+def load_count() -> int:
+    """Times this process loaded the kernel library: 1 once any kernel
+    ran, however many engines or models were built after it."""
+    return _STATE["loads"]
 
 
 def build_log() -> str:

@@ -1,24 +1,31 @@
-"""Continuous-batching inference engine over the paged KV pool (the port
-of ``apex1_tpu/serving/engine.py``, ``EngineConfig(paged=True)``).
+"""Continuous-batching inference engine (the port of
+``apex1_tpu/serving/engine.py``).
 
 Requests join a fixed set of ``max_slots`` KV slots the moment one
-frees and leave on EOS or length; the decode step never stops for
-them. The KV cache is one pool of pages per layer
-(`kv_pool.PagedKVPool`), addressed through per-slot block tables, and
-the model runs the JAX package's KERNEL-PATH structure
-(``engine.py:636-742`` there) on every device:
+frees and leave on EOS, length, deadline or cancellation; the decode
+step never stops for them. Two pools, one admission logic:
+
+- ``paged=True`` (the port's default, where its paged-attention kernel
+  runs): one pool of pages per layer (`kv_pool.PagedKVPool`), addressed
+  through per-slot block tables; the model runs the JAX package's
+  kernel-path structure through `ops.paged_decode.PagedCache` entries.
+- ``paged=False`` (the JAX package's default): the dense pool
+  (`kv_pool.KVPool`), slot s is lane s of a (max_slots, Hkv, L, D) cache
+  per layer, written in place through `models.generate.DenseCache`
+  entries at each row's own device index; attention is the
+  `ops.paged_decode.cache_attend` composite.
+
+Either way:
 
 - **prefill** — one ``(1, prefill_chunk)`` chunk-decode forward of the
-  model through `ops.paged_decode.PagedCache` entries over the slot's
-  block-table row. Every prompt is fed as right-padded fixed-width
-  chunks at its cache index; the first token is sampled from the last
-  real position with `ops.paged_decode.fused_sample`.
+  slot (its block-table row, or its lane). Every prompt is fed as
+  right-padded fixed-width chunks at its cache index; the first token
+  is sampled from the last real position with
+  `ops.paged_decode.fused_sample`.
 - **decode** — ONE batch-N forward over every slot: each row carries
-  its own cache index (rows are at different depths), attention runs
-  `ops.paged_decode.paged_attend` over the pages and sampling runs
+  its own cache index (rows are at different depths) and sampling runs
   `fused_sample` over the (N, V) logits rows. Inactive rows compute
-  masked garbage into the trash page (page 0).
-
+  masked garbage (into the trash page, or their own free lane).
 - **verify** (``num_draft = K > 0``) replaces decode: the host proposes
   K draft tokens per slot (`spec.ngram_propose`, or ``draft_propose=``)
   and ONE ``(N, K + 1)`` chunk-decode forward scores each slot's last
@@ -27,33 +34,44 @@ the model runs the JAX package's KERNEL-PATH structure
   emits its longest accepted prefix plus the correction token. Drafts
   are hints: draft j is accepted only if it equals the token the engine
   would have sampled there, so a spec engine emits the non-spec
-  engine's tokens. Rejected drafts' K/V land past the accepted point,
-  masked and later overwritten.
+  engine's tokens.
 
 MULTI-TENANT LORA (``lora_rank > 0``): adapter pages live in a
 `lora.LoraAdapterStore` beside the KV pool; each slot carries a
 rank-length page row and an on-flag. The forward returns the hidden
 states (``return_hidden=True``), the logits are the model's own head
-(`models.gpt2.head_logits` on ``lora_head``, the function the model
-calls, so an adapterless slot's logits are the model's bit for bit),
-and `ops.lora_epilogue.lora_delta` adds each row's delta where its flag
-is on — over the decode step's rows, the prefill's last real row and
-the verify step's N·(K+1) rows.
+(`models.gpt2.head_logits` on ``lora_head``), and
+`ops.lora_epilogue.lora_delta` adds each row's delta where its flag is
+on; an off row keeps the model's logits bit for bit.
 
 On CUDA tensors those are the port's kernels; on the CPU their plain
 PyTorch versions. PyTorch runs eagerly, so the JAX engine's
 ``trace_counts`` (its compile-count hook) has no meaning here and is
-not kept. The K/V writes update the page pool in place.
+not kept.
 
 SAMPLING is counter-based and per request: token i of a request is
 drawn with ``fold_in(key(seed), i)`` in jax's threefry stream, so the
 stream is a pure function of (params, prompt, seed) and equals the JAX
-engine's token for token on the same params.
+engine's token for token on the same params — the property replica
+restarts, failover and hedging resubmit on.
 
-RADIX PREFIX CACHE (always on): admission matches the request's prompt
-against registered prefixes, shares the longest match's pages by
-reference and prefills only the rest. Prompts auto-register at the
-chunk-aligned share point.
+RADIX PREFIX CACHE (``prefix_cache=True``, the default): admission
+matches the request's full prompt (an explicit ``prefix=`` concatenated
+in front) against registered prefixes, installs the longest match (a
+page copy in the dense pool, shared page ids in the paged one) and
+prefills only the rest. Prompts without an explicit prefix
+auto-register at the chunk-aligned share point; an explicit prefix
+registers at its own length. ``prefix_cache=False`` keeps only the
+explicit prefix's exact-tuple sharing.
+
+CANCEL AND DEADLINES: `cancel` retires a queued request at once, a
+running one at once (its slot, prefix references and adapter pages
+released before it returns), and one whose admission is being built by
+the engine loop right now (a cancel from another thread) the moment its
+prefill chain completes (``_admit_lock`` / ``_mid_admit`` /
+``_cancel_mid``). `step` evicts queued and running requests whose
+deadline (on ``clock``, ``time.monotonic`` unless given) has passed.
+`pop_result` removes a finished result.
 
 DEVICE-RESIDENT CONTROL: the per-slot token / index / active / seed /
 output-position vectors and the block tables live on the device and
@@ -64,27 +82,25 @@ read once at retirement. With an ``eos_id`` each step's tokens are read
 back (one small blocking copy per step) to retire rows; speculative mode
 always reads back (drafting needs the history, accept counts gate
 retirement).
-
-Not ported yet: the dense pool (``paged=False`` raises
-`NotImplementedError` naming ROADMAP.md queue A item 4), nor the JAX
-engine's cancellation, deadlines, ``pop_result``, explicit ``prefix=``
-share points or ``prefix_cache=False`` (the same item).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import threading
+import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from apex1_tpu_torch.models.generate import DenseCache
 from apex1_tpu_torch.models.gpt2 import head_logits
 from apex1_tpu_torch.ops._common import resolve_device
 from apex1_tpu_torch.ops.lora_epilogue import lora_delta
 from apex1_tpu_torch.ops.paged_decode import PagedCache, fused_sample
-from apex1_tpu_torch.serving.kv_pool import PagedKVPool
+from apex1_tpu_torch.serving.kv_pool import KVPool, PagedKVPool
 from apex1_tpu_torch.serving.lora import LoraAdapterStore
 from apex1_tpu_torch.serving.metrics import ServingMetrics
 from apex1_tpu_torch.serving.scheduler import (Backpressure, Request,
@@ -117,8 +133,9 @@ def derive_request_seed(engine_seed: int, req_id: int) -> int:
 class EngineConfig:
     """Engine shape/sampling/admission knobs, static for the life of
     the engine; per-request variation rides device operands. The fields
-    and their meaning are the JAX package's (less ``prefix_cache``: the
-    radix cache is always on); ``cache_dtype`` takes a torch dtype."""
+    and their meaning are the JAX package's; ``cache_dtype`` takes a
+    torch dtype, and ``paged`` defaults to True (the JAX package's
+    default is False): the paged pool is where the port's kernels run."""
 
     max_slots: int = 8           # concurrent requests (pool batch)
     max_len: int = 256           # cache positions per slot
@@ -131,12 +148,13 @@ class EngineConfig:
     seed: int = 0                # base for derived per-request seeds
     max_queue: int = 64          # admission backpressure bound
     policy: str = "fifo"         # or "sjf" (see serving.scheduler)
+    prefix_cache: bool = True    # radix cross-request prefix matching
     max_prefix_pages: int = 32   # LRU-by-last-hit prefix bound
     num_draft: int = 0           # >0: speculative verify, K drafts
     max_ngram: int = 3           # self-draft prompt-lookup n-gram cap
     cache_dtype: Optional[object] = None  # e.g. torch.int8; None = the
     #                                       decoder's compute dtype
-    paged: bool = True           # the port serves the paged pool only
+    paged: bool = True           # False: the dense slot pool (KVPool)
     page_size: Optional[int] = None  # None = max(8, ceil8(chunk))
     lora_rank: int = 0           # >0: multi-tenant LoRA adapter pages
     lora_max_adapters: int = 4   # adapter pages = 1 + max_adapters * rank
@@ -171,7 +189,7 @@ class RequestResult:
     the terminal event."""
 
     req_id: int
-    status: str                  # done | evicted (shed from the queue)
+    status: str                  # done | evicted | cancelled
     tokens: np.ndarray
     reason: str = ""
 
@@ -201,30 +219,29 @@ class Engine:
     raises). The model's parameters and cache must live there.
 
     Drive it with `submit` + `step`/`run`; finished requests appear in
-    `results`. One `step()` = admit queued requests into free slots
-    (chunked prefill) -> one pooled decode (or speculative verify) step.
+    `results` (`pop_result` removes one). One `step()` = retire
+    (deadline) -> admit queued requests into free slots (chunked
+    prefill) -> one pooled decode (or speculative verify) step.
     ``draft_propose(history, k) -> k ints`` plugs a draft source into
     speculative mode (default: n-gram prompt lookup). ``lora_head``,
     required with ``lora_rank > 0``, is the model's own (vocab, hidden)
     LM-head weight (``model.output`` for `Llama`); the decoder's
-    ``apply_fn`` must then take ``return_hidden=True``.
+    ``apply_fn`` must then take ``return_hidden=True``. ``cache_dtype``
+    overrides the config's (degraded-mode restarts pass it); ``clock``
+    is the deadline clock.
     """
 
     def __init__(self, apply_fn: Callable, make_cache: Callable,
                  config: Optional[EngineConfig] = None, *, device=None,
                  metrics_logger: Optional[MetricsLogger] = None,
+                 cache_dtype=None,
                  draft_propose: Optional[Callable] = None,
-                 lora_head: Optional[torch.Tensor] = None):
+                 lora_head: Optional[torch.Tensor] = None,
+                 clock: Optional[Callable[[], float]] = None):
         self.device = resolve_device(device)
         self.cfg = cfg = config or EngineConfig()
-        if not cfg.paged:
-            raise NotImplementedError(
-                "the port serves the paged pool only; the dense pool "
-                "(paged=False) is ROADMAP.md queue A item 4 (what is left "
-                "of it: counter_sample, speculative_generate, the dense "
-                "KVPool, and the engine's cancel, deadlines, pop_result, "
-                "prefix= and prefix_cache=False)")
         self._apply_fn = apply_fn
+        self._clock = clock or time.monotonic
         self._spec = cfg.num_draft > 0
         self._lora = self._lora_head = None
         if cfg.lora_rank > 0:
@@ -244,14 +261,25 @@ class Engine:
         # a verify writes num_draft + 1 entries at a row's index: the
         # pool carries the wider write's overhang past max_len
         slack = max(cfg.prefill_chunk, cfg.num_draft + 1) - 1
-        page_size = cfg.page_size or max(8, -(-cfg.prefill_chunk // 8) * 8)
-        self.kv = PagedKVPool(make_cache, cfg.max_slots,
-                              cfg.max_len + slack, page_size=page_size,
-                              dtype=cfg.cache_dtype,
-                              max_pages=cfg.max_prefix_pages)
-        pool_dev = next(iter(self.kv.pages.values()))["k"].device
-        if pool_dev.type != self.device.type:
-            raise ValueError(f"the decoder's cache lives on {pool_dev}, "
+        if cache_dtype is None:
+            cache_dtype = cfg.cache_dtype
+        self._paged = bool(cfg.paged)
+        if self._paged:
+            page_size = cfg.page_size or max(
+                8, -(-cfg.prefill_chunk // 8) * 8)
+            self.kv = PagedKVPool(make_cache, cfg.max_slots,
+                                  cfg.max_len + slack, page_size=page_size,
+                                  dtype=cache_dtype,
+                                  max_pages=cfg.max_prefix_pages)
+            leaf = next(iter(self.kv.pages.values()))["k"]
+        else:
+            self.kv = KVPool(make_cache, cfg.max_slots,
+                             cfg.max_len + slack, dtype=cache_dtype,
+                             max_pages=cfg.max_prefix_pages)
+            leaf = next(iter(self.kv.cache.values()))
+            leaf = next(iter(leaf.values()))
+        if leaf.device.type != self.device.type:
+            raise ValueError(f"the decoder's cache lives on {leaf.device}, "
                              f"the engine on {self.device}")
         self.scheduler = Scheduler(max_queue=cfg.max_queue,
                                    policy=cfg.policy)
@@ -260,14 +288,15 @@ class Engine:
         self._slots: List[Optional[_Slot]] = [None] * cfg.max_slots
         self._sample_kw = dict(temperature=cfg.temperature,
                                top_k=cfg.top_k, vocab_size=cfg.vocab_size)
-        # device-resident control vectors and block tables, patched in
+        # device-resident control vectors (and block tables), patched in
         # place at join/leave boundaries only; freed rows name the trash
         # page so an inactive row's garbage write never lands on a page
         # a new request owns
         dev, i32 = self.device, torch.int32
         n = cfg.max_slots
-        self._d_bt = torch.zeros((n, self.kv.pages_per_lane), dtype=i32,
-                                 device=dev)
+        if self._paged:
+            self._d_bt = torch.zeros((n, self.kv.pages_per_lane),
+                                     dtype=i32, device=dev)
         self._d_toks = torch.zeros((n,), dtype=i32, device=dev)
         self._d_idxs = torch.zeros((n,), dtype=i32, device=dev)
         self._d_active = torch.zeros((n,), dtype=torch.bool, device=dev)
@@ -288,19 +317,41 @@ class Engine:
         self._defer = cfg.eos_id is None and not self._spec
         self._tok_log: Dict[int, object] = {}
         self._step_no = 0
+        # the mid-admission cancel window: a cancel from another thread
+        # while `_admit` runs this request's prefill chain. The lock
+        # serializes the handshake (check + add against clear + read),
+        # so a cancel that saw _mid_admit cannot land after _admit
+        # drained the set
+        self._mid_admit: Optional[int] = None
+        self._cancel_mid: set = set()
+        self._admit_lock = threading.Lock()
         self._probe_cache: Dict[int, bool] = {}
         self._probe_cache_ver = -1
 
     def _sync_bt(self, slot: int) -> None:
         """Push one slot's host block-table row to the device mirror —
-        called wherever the host row changes, never on the step path."""
-        self._d_bt[slot] = torch.as_tensor(
-            self.kv.block_tables[slot], dtype=torch.int32).to(self.device)
+        called wherever the host row changes, never on the step path
+        (paged pool only)."""
+        if self._paged:
+            self._d_bt[slot] = torch.as_tensor(
+                self.kv.block_tables[slot], dtype=torch.int32).to(
+                    self.device)
 
-    def _paged_cache(self, bt) -> dict:
-        L = self.kv.lane_len
-        return {layer: PagedCache(entry["k"], entry["v"], bt, L)
-                for layer, entry in self.kv.pages.items()}
+    def _cache(self, slot: Optional[int] = None) -> dict:
+        """The per-layer cache entries of every slot (``slot`` None) or
+        of one slot: `PagedCache` over the block tables, or
+        `DenseCache` views of the pool's lanes (written in place)."""
+        if self._paged:
+            bt = self._d_bt if slot is None else self._d_bt[slot:slot + 1]
+            L = self.kv.lane_len
+            return {layer: PagedCache(e["k"], e["v"], bt, L)
+                    for layer, e in self.kv.pages.items()}
+        tree = self.kv.cache if slot is None else self.kv.lane(slot)
+        # an entry that is not K/V (a toy decoder's) goes to the model
+        # as its dict of pool views, which the model writes in place
+        return {layer: (DenseCache(e["k"], e["v"]) if set(e) == {"k", "v"}
+                        else e)
+                for layer, e in tree.items()}
 
     # ---- the forwards ---------------------------------------------------
 
@@ -320,6 +371,13 @@ class Engine:
         delta = lora_delta(h, self._lora.a_pages, self._lora.b_pages, lbt)
         return torch.where(on[:, None], logits + delta, logits)
 
+    def _install(self, slot: int, lane: dict) -> None:
+        """Copy a batch-1 lane (zeros or a prefix page) over the slot's
+        lane (dense pool only)."""
+        for layer, entry in self.kv.lane(slot).items():
+            for kv, t in entry.items():
+                t.copy_(lane[layer][kv])
+
     def _prefill(self, slot: int, tokens: np.ndarray, idx: int,
                  n_real: int, seed: int) -> torch.Tensor:
         """One (1, C) chunk of slot ``slot`` at cache index ``idx``;
@@ -328,8 +386,7 @@ class Engine:
         C, dev = self.cfg.prefill_chunk, self.device
         positions = (idx + torch.arange(C, device=dev))[None]
         logits, h = self._forward(
-            torch.from_numpy(tokens).to(dev),
-            self._paged_cache(self._d_bt[slot:slot + 1]), idx,
+            torch.from_numpy(tokens).to(dev), self._cache(slot), idx,
             positions=positions, chunk_decode=True)
         lg = logits[:, n_real - 1]
         if self._lora is not None:
@@ -343,8 +400,8 @@ class Engine:
     def _decode(self):
         """One batch-N decode step over every slot."""
         logits, h = self._forward(
-            self._d_toks[:, None], self._paged_cache(self._d_bt),
-            self._d_idxs, positions=self._d_idxs[:, None])
+            self._d_toks[:, None], self._cache(), self._d_idxs,
+            positions=self._d_idxs[:, None])
         lg = logits[:, -1]
         if self._lora is not None:
             lg = self._add_lora(lg, h[:, -1], self._d_lora_bt,
@@ -365,7 +422,7 @@ class Engine:
         ar = torch.arange(K + 1, dtype=i32, device=self.device)
         chunks = torch.cat([self._d_toks[:, None], drafts], 1)
         logits, h = self._forward(
-            chunks, self._paged_cache(self._d_bt), self._d_idxs,
+            chunks, self._cache(), self._d_idxs,
             positions=self._d_idxs[:, None] + ar, chunk_decode=True)
         N, V = logits.shape[0], logits.shape[-1]
         flat = logits.reshape(-1, V)
@@ -418,19 +475,22 @@ class Engine:
 
     # ---- submission -----------------------------------------------------
 
-    def submit(self, tokens, max_new_tokens: int, *,
+    def submit(self, tokens, max_new_tokens: int, *, prefix=None,
+               deadline: Optional[float] = None,
                req_id: Optional[int] = None,
                qos: str = "best_effort", tenant: Optional[str] = None,
                seed: Optional[int] = None) -> int:
         """Enqueue a request. Raises `Backpressure` when the queue is
-        full and holds no weaker-class victim to shed, and `ValueError`
-        when the request can never fit (prompt +
-        max_new_tokens - 1 > max_len). ``tenant`` names a registered
-        LoRA adapter (unknown or None: adapterless). ``seed`` pins the
-        request's sampling stream; None derives one from the request
-        id."""
+        full and holds no weaker-class victim to shed (or the deadline
+        already passed), and `ValueError` when the request can never fit
+        (prefix + prompt + max_new_tokens - 1 > max_len). ``prefix``:
+        shared-prefix ids in front of ``tokens``; ``deadline``: on the
+        engine's clock; ``tenant`` names a registered LoRA adapter
+        (unknown or None: adapterless); ``seed`` pins the request's
+        sampling stream (None derives one from the request id)."""
         req = Request(tokens=tokens, max_new_tokens=max_new_tokens,
-                      req_id=req_id, qos=qos, tenant=tenant, seed=seed)
+                      prefix=prefix, deadline=deadline, req_id=req_id,
+                      qos=qos, tenant=tenant, seed=seed)
         if req.seed is None:
             req.seed = derive_request_seed(self.cfg.seed, req.req_id)
         if req.total_len > self.cfg.max_len:
@@ -438,7 +498,7 @@ class Engine:
                 f"request needs {req.total_len} cache positions but "
                 f"slots hold max_len={self.cfg.max_len}")
         try:
-            rid = self.scheduler.submit(req)
+            rid = self.scheduler.submit(req, now=self._clock())
         except Backpressure as e:
             self.metrics.event(req.req_id, "queued",
                                n_prompt=req.tokens.size)
@@ -451,14 +511,40 @@ class Engine:
         self.metrics.event(rid, "queued", n_prompt=req.tokens.size)
         return rid
 
+    def cancel(self, req_id: int) -> bool:
+        """Cancel a queued or running request. A running request is
+        retired at once: its slot, prefix references and adapter pages
+        are released before this returns. A request whose admission the
+        engine loop is building right now (a cancel from another thread)
+        is flagged and retired the moment its prefill chain completes."""
+        if self.scheduler.cancel(req_id):
+            self._finish(req_id, "cancelled", "cancelled queued", [])
+            return True
+        with self._admit_lock:
+            if req_id == self._mid_admit:
+                self._cancel_mid.add(req_id)
+                return True
+        for i, slot in enumerate(self._slots):
+            if slot is not None and slot.req.req_id == req_id:
+                self._retire(i, "cancelled", "cancelled running")
+                return True
+        return False
+
     # ---- the engine loop ------------------------------------------------
 
     @torch.inference_mode()
     def step(self) -> int:
-        """One engine iteration: admit -> one decode step over every
-        occupied slot. Returns the number of active slots that decoded
-        (0 = idle). Runs under inference mode: serving records no
-        autograd graph."""
+        """One engine iteration: retire expired deadlines -> admit -> one
+        decode step over every occupied slot. Returns the number of
+        active slots that decoded (0 = idle). Runs under inference mode:
+        serving records no autograd graph."""
+        now = self._clock()
+        for req in self.scheduler.expire(now):
+            self._finish(req.req_id, "evicted", "deadline (queued)", [])
+        for i, slot in enumerate(self._slots):
+            if (slot is not None and slot.req.deadline is not None
+                    and slot.req.deadline <= now):
+                self._retire(i, "evicted", "deadline")
         self._admit_all()
         n_active = self._n_active
         if n_active and self._spec:
@@ -567,7 +653,8 @@ class Engine:
     def _admit_all(self):
         while self.kv.n_free > 0:
             prefer = None
-            if self.scheduler.depth > self.kv.n_free:
+            if (self.cfg.prefix_cache
+                    and self.scheduler.depth > self.kv.n_free):
                 # near capacity: a radix hit turns a slot over sooner,
                 # so prefer hits WITHIN a QoS class
                 prefer = self._would_hit
@@ -575,6 +662,13 @@ class Engine:
             if not batch:
                 return
             self._admit(batch[0])
+
+    @staticmethod
+    def _full_prompt(req: Request) -> np.ndarray:
+        if req.prefix:
+            return np.concatenate([np.asarray(req.prefix, np.int32),
+                                   req.tokens])
+        return req.tokens
 
     def _would_hit(self, req: Request) -> bool:
         """Prefix-aware admission probe (a host-side radix walk),
@@ -585,7 +679,7 @@ class Engine:
             self._probe_cache.clear()
         hit = self._probe_cache.get(req.req_id)
         if hit is None:
-            full = req.tokens
+            full = self._full_prompt(req)
             hit = self.kv.match(full, int(full.size) - 1)[1] is not None
             if len(self._probe_cache) >= 2 * self.cfg.max_queue:
                 self._probe_cache.clear()
@@ -593,6 +687,13 @@ class Engine:
         return hit
 
     def _admit(self, req: Request):
+        cfg = self.cfg
+        if req.deadline is not None and req.deadline <= self._clock():
+            # expired between the step's sweep and this admission (an
+            # earlier admission's prefill ran meanwhile): evict before
+            # touching the pool
+            self._finish(req.req_id, "evicted", "deadline (queued)", [])
+            return
         slot = self.kv.alloc()
         if slot is None:
             raise RuntimeError("admission without a free slot")
@@ -606,33 +707,73 @@ class Engine:
             self._d_lora_bt[slot] = torch.as_tensor(
                 lrow, dtype=torch.int32).to(self.device)
             self._d_lora_on[slot] = bool(on)
-        full = req.tokens
-        # cap at len-1: a full-prompt hit must still leave >= 1 real
-        # token to prefill (the logit the first token samples from)
-        key, page = self.kv.match(full, int(full.size) - 1)
-        self.metrics.incr("prefix_lookups")
-        idx0 = 0 if page is None else page.length
-        if page is not None:
-            self.metrics.incr("prefix_hits")
-            self.metrics.incr("prefix_saved_tokens", idx0)
-        self.metrics.event(req.req_id, "prefill",
-                           prefix_hit=page is not None, prefix_saved=idx0)
+        prefix = tuple(req.prefix) if req.prefix else ()
+        full = self._full_prompt(req)
+        key = page = None
+        if cfg.prefix_cache:
+            # cap at len-1: a full-prompt hit must still leave >= 1 real
+            # token to prefill (the logit the first token samples from)
+            key, page = self.kv.match(full, int(full.size) - 1)
+            self.metrics.incr("prefix_lookups")
+            if page is not None:
+                self.metrics.incr("prefix_hits")
+                self.metrics.incr("prefix_saved_tokens", page.length)
+        elif prefix:
+            # radix matching off: a second sharer of the same explicit
+            # prefix reuses (not re-registers) its page
+            page = self.kv.get_prefix(prefix)
+            key = prefix if page is not None else None
+        hit = page is not None
+        self.metrics.event(
+            req.req_id, "prefill",
+            prefix_hit=(hit if cfg.prefix_cache else None),
+            prefix_saved=(page.length if hit else 0))
+        with self._admit_lock:
+            self._mid_admit = req.req_id
         try:
             with annotate("serving/prefill"):
-                if page is not None:
-                    # the acquire rewires the slot's block table onto
-                    # the shared pages: the pages themselves are the hit
+                if hit:
                     self.kv.acquire_prefix(key, slot)
-                    self._sync_bt(slot)
-                tok0 = self._run_chunks(slot, full[idx0:], idx0, req.seed)
-            # auto-registration at the chunk-aligned share point; the
-            # last token stays uncached
-            C = self.cfg.prefill_chunk
-            lstar = ((int(full.size) - 1) // C) * C
-            if lstar >= C and lstar > idx0:
-                akey = tuple(int(t) for t in full[:lstar])
-                if not self.kv.has_prefix(akey):
-                    self._register_page(slot, akey, lstar)
+                    if self._paged:
+                        # the acquire rewired the slot's block table
+                        # onto the shared pages: they are the hit
+                        self._sync_bt(slot)
+                        install_lane, idx0 = None, page.length
+                    else:
+                        install_lane, idx0 = page.lane, page.length
+                    if (prefix and idx0 < len(prefix)
+                            and not self.kv.has_prefix(prefix)):
+                        # a partial hit below the stated share point:
+                        # pay the prefix's remainder, then pin the
+                        # explicit page at its stated length
+                        self._run_chunks(slot, full[idx0:len(prefix)],
+                                         idx0, install_lane, req.seed)
+                        self._register_page(slot, prefix, len(prefix))
+                        install_lane, idx0 = None, len(prefix)
+                    tok0 = self._run_chunks(slot, full[idx0:], idx0,
+                                            install_lane, req.seed)
+                elif prefix:
+                    # the first sharer pays: the prefix's own chunks,
+                    # then its page, then the rest
+                    self._run_chunks(slot, full[:len(prefix)], 0,
+                                     self.kv.zeros_lane, req.seed)
+                    self._register_page(slot, prefix, len(prefix))
+                    tok0 = self._run_chunks(slot, full[len(prefix):],
+                                            len(prefix), None, req.seed)
+                else:
+                    tok0 = self._run_chunks(slot, full, 0,
+                                            self.kv.zeros_lane, req.seed)
+            if cfg.prefix_cache and not prefix:
+                # auto-registration at the chunk-aligned share point:
+                # canonical lengths, so requests that split the same
+                # prompt differently converge on one key; the last
+                # token stays uncached
+                C = cfg.prefill_chunk
+                lstar = ((int(full.size) - 1) // C) * C
+                if lstar >= C and lstar > (page.length if hit else 0):
+                    akey = tuple(int(t) for t in full[:lstar])
+                    if not self.kv.has_prefix(akey):
+                        self._register_page(slot, akey, lstar)
         except BaseException:
             # a prefill chain that dies mid-flight must not leak the
             # slot or any acquired page refs; the verdict belongs to
@@ -640,20 +781,38 @@ class Engine:
             self.kv.free(slot)
             self._sync_bt(slot)
             self._lora_release(slot)
+            with self._admit_lock:
+                self._mid_admit = None
+                self._cancel_mid.discard(req.req_id)
             raise
         self.metrics.event(req.req_id, "first_token")
         idx = int(full.size)
         st = _Slot(req=req, first_tok=tok0, start_step=self._step_no,
                    history=[int(t) for t in full])
         self._slots[slot] = st
+        # close the mid-admission window only AFTER the slot is
+        # published (a later cancel finds it in _slots), then drain a
+        # cancel that landed during the chain
+        with self._admit_lock:
+            self._mid_admit = None
+            cancelled = req.req_id in self._cancel_mid
+            self._cancel_mid.discard(req.req_id)
+        first = None
         if not self._defer:             # eos_id or spec: read it now
-            st.first_tok = int(tok0)
-            st.produced.append(st.first_tok)
-            st.history.append(st.first_tok)
-            if st.first_tok == self.cfg.eos_id:
-                st.eos_seen = True
-                self._retire(slot, "done", "eos")
-                return
+            first = int(tok0)
+            st.first_tok = first
+            st.produced.append(first)
+            st.history.append(first)
+        if cancelled:
+            # the cancel preceded any published result: it wins over an
+            # eos or length finish in this same admission
+            self._retire(slot, "cancelled", "cancelled running")
+            return
+        if first is not None and cfg.eos_id is not None \
+                and first == cfg.eos_id:
+            st.eos_seen = True
+            self._retire(slot, "done", "eos")
+            return
         if req.max_new_tokens == 1:
             self._retire(slot, "done", "length")
             return
@@ -671,17 +830,29 @@ class Engine:
         self._n_active += 1
 
     def _register_page(self, slot: int, pkey: tuple, length: int):
-        """Pin ``slot``'s first pages as a shared prefix (by reference,
-        no copy) and take the owner's ref; the length floors to a page
-        multiple."""
-        if self.kv.register_prefix(slot, pkey, length) is not None:
-            self.kv.acquire_prefix(pkey, slot)
+        """Make ``slot``'s first ``length`` positions a shared prefix and
+        take the owner's ref. The paged pool pins the slot's own pages
+        (no copy; the length floors to a page multiple); the dense pool
+        snapshots the slot's lane."""
+        if self._paged:
+            if self.kv.register_prefix(slot, pkey, length) is not None:
+                self.kv.acquire_prefix(pkey, slot)
+            return
+        lane = {layer: {kv: t.clone() for kv, t in e.items()}
+                for layer, e in self.kv.lane(slot).items()}
+        self.kv.put_prefix(pkey, lane, length)
+        self.kv.acquire_prefix(pkey, slot)
 
     def _run_chunks(self, slot: int, tokens: np.ndarray, idx0: int,
-                    seed: int):
+                    install_lane, seed: int):
         """Feed ``tokens`` through prefill in fixed-width right-padded
-        chunks starting at cache position ``idx0``; returns the device
-        token sampled after the final chunk."""
+        chunks starting at cache position ``idx0``. ``install_lane``: a
+        batch-1 lane written over the slot's lane before the first chunk
+        (zeros, or a shared-prefix page; dense pool only), None to
+        continue on the lane as it is. Returns the device token sampled
+        after the final chunk."""
+        if install_lane is not None and not self._paged:
+            self._install(slot, install_lane)
         C = self.cfg.prefill_chunk
         tok = None
         for c in range(math.ceil(int(tokens.size) / C)):
@@ -749,6 +920,12 @@ class Engine:
             tokens=np.asarray(produced, np.int32), reason=reason)
 
     # ---- introspection --------------------------------------------------
+
+    def pop_result(self, req_id: int) -> Optional[RequestResult]:
+        """Remove and return a finished request's result (a long-running
+        server's valve: `results` otherwise grows with every request
+        served; pair with `metrics.drain()`)."""
+        return self.results.pop(req_id, None)
 
     @property
     def n_active(self) -> int:

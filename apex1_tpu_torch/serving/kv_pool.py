@@ -1,11 +1,18 @@
-"""Paged KV pool + radix-matched shared-prefix store for the serving
-engine (the paged half of ``apex1_tpu/serving/kv_pool.py``).
+"""KV pools + radix-matched shared-prefix stores for the serving engine
+(the port of ``apex1_tpu/serving/kv_pool.py``).
 
-The device side is ``{"layer{i}": {"k","v": (num_pages, Hkv, page_size,
-D)}}`` torch tensors on the engine's device — one POOL of pages shared
-by every slot, wired through per-slot block tables. This module is the
-HOST-side bookkeeping around it: which slots are free, which pages each
-slot's block-table row names, and which shared prefixes exist.
+- `KVPool` (dense): the pool IS the cache layout,
+  ``{"layer{i}": {"k","v": (max_slots, Hkv, max_len, D)}}`` torch
+  tensors on the engine's device; slot s is lane s of every leaf. A
+  shared prefix is a batch-1 lane snapshot ("page") COPIED into each
+  slot that reuses it.
+- `PagedKVPool`: ``{"layer{i}": {"k","v": (num_pages, Hkv, page_size,
+  D)}}`` — one POOL of pages shared by every slot, wired through
+  per-slot block tables; a prefix is shared by page id.
+
+This module is the HOST-side bookkeeping around them: which slots are
+free, which pages each slot's block-table row names, and which shared
+prefixes exist.
 
 CROSS-REQUEST MATCHING (`RadixIndex` + `match`): prefixes are keyed by
 their token tuple and indexed in a token-granular radix trie, so an
@@ -16,15 +23,14 @@ tables name the donor's pages, so a hit costs a table row, not a copy.
 EVICTION is LRU-by-last-hit under pressure (``max_pages``): refcount-0
 entries go first; live entries are never touched, so a store full of
 live entries runs over its soft bound — correctness before memory.
-
-The dense ``KVPool`` (slot lanes, copy-on-admit) comes with the dense
-pool's port (ROADMAP.md queue A item 4).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
+
+import torch
 
 
 @dataclasses.dataclass
@@ -109,6 +115,185 @@ class RadixIndex:
         if best == 0:
             return None
         return tuple(int(t) for t in tokens[:best])
+
+
+def _lane_nbytes(tree: dict) -> int:
+    return sum(t.numel() * t.element_size()
+               for entry in tree.values() for t in entry.values())
+
+
+class KVPool:
+    """Slot allocator + radix-matched prefix-page store over one pooled
+    dense cache (``make_cache(max_slots, max_len, dtype=)``).
+
+    The engine writes the pool in place; the pool tracks lane ownership.
+    ``alloc``/``free`` are O(1) against a free list. A prefix page is a
+    batch-1 lane pytree (`PrefixPage`) that admission copies into the
+    slot before its remainder's prefill (``zeros_lane`` for a fresh
+    request). Pages are refcounted: a page acquired by a live slot is
+    never evicted, and LRU-by-last-hit eviction past ``max_pages`` takes
+    refcount-0 pages only (a soft bound under all-live pressure)."""
+
+    def __init__(self, make_cache, max_slots: int, max_len: int,
+                 dtype=None, max_pages: Optional[int] = None):
+        if max_slots < 1:
+            raise ValueError(f"max_slots must be >= 1, got {max_slots}")
+        self.max_slots = int(max_slots)
+        self.max_len = int(max_len)
+        self.max_pages = None if max_pages is None else int(max_pages)
+        kw = {} if dtype is None else {"dtype": dtype}
+        self.cache = make_cache(self.max_slots, self.max_len, **kw)
+        # a zeroed batch-1 lane, installed on admission so a fresh
+        # request never attends a retired request's stale K/V through a
+        # masking bug (the horizon mask already excludes them)
+        self.zeros_lane = {name: {kv: t.new_zeros((1,) + t.shape[1:])
+                                  for kv, t in entry.items()}
+                           for name, entry in self.cache.items()}
+        self._free: List[int] = list(range(self.max_slots))
+        # slot -> prefix keys it holds refs on (a slot that MATCHED one
+        # page and REGISTERED a longer one holds two)
+        self._slot_prefix: Dict[int, List[tuple]] = {}
+        self._prefixes: Dict[tuple, PrefixPage] = {}
+        self._radix = RadixIndex()
+        self._tick = 0               # LRU clock (acquires only)
+        self._version = 0            # bumps on register/evict
+
+    # ---- slots ----------------------------------------------------------
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def occupancy(self) -> float:
+        return 1.0 - len(self._free) / self.max_slots
+
+    def alloc(self) -> Optional[int]:
+        """Lowest free slot, or None when the pool is full."""
+        return self._free.pop(0) if self._free else None
+
+    def free(self, slot: int) -> None:
+        if slot in self._free:
+            raise ValueError(f"slot {slot} double-freed")
+        if not 0 <= slot < self.max_slots:
+            raise ValueError(f"slot {slot} out of range")
+        for key in self._slot_prefix.pop(slot, []):
+            self.release_prefix(key)
+        self._free.append(slot)
+        self._free.sort()
+
+    @property
+    def store_version(self) -> int:
+        """Monotonic page-store version (bumped by register/evict): the
+        invalidation token for consumers caching `match` probes."""
+        return self._version
+
+    def lane(self, slot: int) -> dict:
+        """Views of slot ``slot``'s lane in every leaf (writes land in
+        the pool)."""
+        return {name: {kv: t[slot:slot + 1] for kv, t in entry.items()}
+                for name, entry in self.cache.items()}
+
+    def lane_bytes(self) -> int:
+        """Device bytes of ONE slot's lane."""
+        return _lane_nbytes(self.zeros_lane)
+
+    def pool_bytes(self) -> int:
+        """Device bytes of the whole pooled cache."""
+        return _lane_nbytes(self.cache)
+
+    # ---- prefix pages ---------------------------------------------------
+
+    def has_prefix(self, key: tuple) -> bool:
+        return tuple(key) in self._prefixes
+
+    def get_prefix(self, key: tuple) -> Optional[PrefixPage]:
+        """Exact-tuple page lookup (no radix walk)."""
+        return self._prefixes.get(tuple(key))
+
+    def match(self, tokens, max_len: int
+              ) -> Tuple[Optional[tuple], Optional[PrefixPage]]:
+        """Longest registered prefix of ``tokens`` not exceeding
+        ``max_len`` positions. Returns ``(key, page)`` or ``(None,
+        None)``."""
+        key = self._radix.match(tokens, int(max_len))
+        if key is None:
+            return None, None
+        return key, self._prefixes[key]
+
+    def put_prefix(self, key: tuple, lane, length: int) -> PrefixPage:
+        """Register a computed prefix snapshot (a batch-1 cache pytree).
+        Registration may evict least-recently-hit refcount-0 pages past
+        ``max_pages``."""
+        key = tuple(key)
+        if key in self._prefixes:
+            raise ValueError(f"prefix {key!r} already registered")
+        page = PrefixPage(lane=lane, length=int(length),
+                          last_hit=self._tick)
+        self._prefixes[key] = page
+        self._radix.insert(key)
+        self._version += 1
+        # the new page is refcount-0 until its owner acquires it: never
+        # evict it here
+        self.evict_lru(exclude=key)
+        return page
+
+    def acquire_prefix(self, key: tuple, slot: int) -> PrefixPage:
+        """Refcount++ on behalf of ``slot`` (released by `free`)."""
+        key = tuple(key)
+        page = self._prefixes[key]
+        page.refcount += 1
+        page.hits += 1
+        self._tick += 1
+        page.last_hit = self._tick
+        self._slot_prefix.setdefault(slot, []).append(key)
+        return page
+
+    def release_prefix(self, key: tuple) -> None:
+        page = self._prefixes[tuple(key)]
+        if page.refcount <= 0:
+            raise ValueError(f"prefix {key!r} released below zero")
+        page.refcount -= 1
+
+    def evict_prefix(self, key: tuple, force: bool = False) -> bool:
+        """Drop a prefix page. A page with live references is never
+        freed: returns False (``force=True`` raises instead)."""
+        key = tuple(key)
+        page = self._prefixes.get(key)
+        if page is None:
+            return False
+        if page.refcount > 0:
+            if force:
+                raise RuntimeError(
+                    f"prefix {key!r} has {page.refcount} live slot(s) — "
+                    f"refusing to free a live page")
+            return False
+        del self._prefixes[key]
+        self._radix.remove(key)
+        self._version += 1
+        return True
+
+    def evict_lru(self, exclude: Optional[tuple] = None) -> int:
+        """Walk the store back under ``max_pages``, refcount-0 pages
+        least-recently-hit first (``exclude`` and live pages skipped).
+        Returns pages evicted."""
+        if self.max_pages is None:
+            return 0
+        evicted = 0
+        while len(self._prefixes) > self.max_pages:
+            dead = [(p.last_hit, k) for k, p in self._prefixes.items()
+                    if p.refcount == 0 and k != exclude]
+            if not dead:
+                break                      # all live: soft bound
+            _, dead_key = min(dead)
+            self.evict_prefix(dead_key)
+            evicted += 1
+        return evicted
+
+    def prefix_stats(self) -> dict:
+        return {repr(k): {"length": p.length, "refcount": p.refcount,
+                          "hits": p.hits, "last_hit": p.last_hit}
+                for k, p in self._prefixes.items()}
 
 
 @dataclasses.dataclass
@@ -196,6 +381,11 @@ class PagedKVPool:
     logic is pool-agnostic.
     """
 
+    #: no install step (sharing is by page id, recycled garbage sits
+    #: past the horizon mask): the engine's pool-agnostic admission
+    #: passes this through and the paged prefill ignores it
+    zeros_lane = None
+
     def __init__(self, make_cache, max_slots: int, lane_len: int,
                  page_size: int, dtype=None,
                  max_pages: Optional[int] = None):
@@ -279,13 +469,15 @@ class PagedKVPool:
         return self.pool_bytes() // self.num_pages * self.pages_per_lane
 
     def pool_bytes(self) -> int:
-        return sum(t.numel() * t.element_size()
-                   for entry in self.pages.values() for t in entry.values())
+        return _lane_nbytes(self.pages)
 
     # ---- prefix pages ---------------------------------------------------
 
     def has_prefix(self, key: tuple) -> bool:
         return tuple(key) in self._prefixes
+
+    def get_prefix(self, key: tuple) -> Optional[PagedPrefix]:
+        return self._prefixes.get(tuple(key))
 
     def match(self, tokens, max_len: int
               ) -> Tuple[Optional[tuple], Optional[PagedPrefix]]:
@@ -312,6 +504,34 @@ class PagedKVPool:
         for pid in ids:
             self._alloc.ref(pid)
         page = PagedPrefix(page_ids=ids, length=n * self.page_size,
+                           last_hit=self._tick)
+        self._prefixes[key] = page
+        self._radix.insert(key)
+        self._version += 1
+        self.evict_lru(exclude=key)
+        return page
+
+    def put_prefix(self, key: tuple, pages: dict,
+                   length: int) -> PagedPrefix:
+        """Register a prefix that arrives from elsewhere (a
+        disaggregated handoff): ``pages`` holds its K/V as ``{name:
+        {kv: (n, Hkv, page_size, D)}}``, written into ``n`` freshly
+        taken pages that the registry entry holds. ``length`` must be
+        the ``n`` pages' positions."""
+        key = tuple(key)
+        if key in self._prefixes:
+            raise ValueError(f"prefix {key!r} already registered")
+        n = next(iter(next(iter(pages.values())).values())).shape[0]
+        if int(length) != n * self.page_size:
+            raise ValueError(f"a paged prefix of {n} pages holds "
+                             f"{n * self.page_size} positions, not "
+                             f"{length}")
+        ids = tuple(self._alloc.take() for _ in range(n))
+        dst = torch.as_tensor(ids, dtype=torch.long)
+        for name, entry in self.pages.items():
+            for kv, t in entry.items():
+                t[dst.to(t.device)] = pages[name][kv].to(t.dtype)
+        page = PagedPrefix(page_ids=ids, length=int(length),
                            last_hit=self._tick)
         self._prefixes[key] = page
         self._radix.insert(key)

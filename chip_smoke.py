@@ -29,9 +29,10 @@
                                      # (flash, chunk, lxent, int8, glu,
                                      # norm, softmax, normbwd, dbias,
                                      # paged, sample, lora, xent)
-    python3 chip_smoke.py --only [generate-t5] [contrib]
+    python3 chip_smoke.py --only [generate-t5] [contrib] [serve-dense]
+                         [serve-fleet] [disagg] [speculative]
                                      # build, then run only those
-                                     # phases (both by default); no
+                                     # phases (all six by default); no
                                      # kernels line
     python3 chip_smoke.py --gate-sweep [kernels] [plain]
                                      # build, then train bert_large at
@@ -401,14 +402,52 @@ Phases, each printed on its own line; a failure in any exits non-zero:
    module (focal loss, group norm, index_mul_2d, the transducer, ASP,
    the RNNs, weight norm, the fused dense modules) once on the card
    against the same call on the CPU.
-35. the ``kernels`` JSON line (each kernel's launches over the main
+35. serve-dense — the engine phase's GPT-2 124M (O2, 12 layers, seed
+   1234) and 16 requests through ``EngineConfig(paged=False)``, the
+   dense pool (each row at its own device index, the ``cache_attend``
+   composite, ``fused_sample``): its streams against the paged
+   engine's, recorded again as the reference, a flip only where the
+   reference's top-2 score gap is below twice the two runs' logit
+   difference there (over T), itself at most 2^-6 of the top logit;
+   exact launches (the norm 25 and the sampler once a forward, paged
+   attention never); prefix hits counted; ``prefix_cache=False`` gives
+   the same streams.
+36. serve-fleet — ``ServingFrontend`` over 2 ``ReplicaSupervisor`` objects,
+   each an engine (paged, 256 positions) of that GPT-2, pump mode, 32
+   requests (prompts of 16-200 tokens, 32 new, guaranteed and
+   sheddable): one cancelled mid-stream, one whose deadline passes
+   mid-stream (the engines' clock moved past it), one hedged, one
+   infeasible deadline rejected at the door, replica 0 killed at its
+   step 10 and restarted; then the plain requests with
+   ``max_restarts=0`` (failover) and in threaded mode. Every completed
+   stream equals an undisturbed single engine's bit for bit; statuses
+   and reasons as set; free pages back; one kernel-library load; exact
+   launches in the pump runs. Prints tokens/s, TTFT p50, restarts,
+   hedges and the mode transitions.
+37. disagg — ``DisaggFrontend`` with a prefill and a decode engine
+   (paged) of that GPT-2, the engine phase's 16 requests: 16
+   digest-verified handoffs, streams against the colocated engine's
+   (the near-tie rule of 35), exact launches; a ``HandoffCorruption``
+   and a ``HandoffWindowKill`` typed, re-routed, no stream lost.
+38. speculative — ``speculative_generate`` with the bench's ``decode``
+   model (16 layers, O2) as the target and its ``llama_quant_decoder``
+   int8 copy as the draft, 8 x 128 prompt tokens, 128 new, 4 drafts a
+   round: greedy against greedy ``generate`` (a flip only where the
+   target's top-2 gap is below the verify/step logit difference there,
+   itself at most twice the largest the two paths show where the
+   streams agree), exact launches (RMS norm, RoPE, flash at both
+   prefills, int8_mm each draft forward); at T 0.7 tokens in the
+   vocabulary, two calls the same bits. Prints target forwards per
+   row, the accept rate, tokens/s beside plain ``generate``.
+39. the ``kernels`` JSON line (each kernel's launches over the main
    paths: the engine, the train phases, dpo, generate, train-llama,
    serve-llama and its generate, the BERT phases, train-gpt2-dropout,
    train-t5, mha, train-llama-longctx, decode, decode-int8,
    serve-lora, train-resnet, train-gpt2-fp16, tp-sp, cp, vp-ce, ddp,
-   train-llama-3d, train-llama-3d-1f1b, generate-t5's kernel calls and
-   contrib's kernel cases), the card's name and power limit, and the
-   last line ``{"ok": true, "device": {...}}``.
+   train-llama-3d, train-llama-3d-1f1b, generate-t5's kernel calls,
+   contrib's kernel cases, serve-dense, serve-fleet, disagg and
+   speculative), the card's name and power limit, and the last line
+   ``{"ok": true, "device": {...}}``.
 
 Kernel times are device times of CUDA-graph replays (no host launch
 overhead), or between CUDA events for kernels of a millisecond or more;
@@ -1928,6 +1967,12 @@ ROPE_CASES = [
      False),
     ("decode step, per-row", (8, 1, LHEADS, LD), "bfloat16", "per_row",
      False, 1.0, False),
+    # the speculative phase's target and draft (the bench's decode model,
+    # 32 heads of 64): the prefill and a verify chunk of K + 1 = 5
+    ("head_dim 64 prefill, per-row", (8, 128, 32, 64), "bfloat16",
+     "per_row", False, 1.0, True),
+    ("head_dim 64 verify chunk, per-row", (8, 5, 32, 64), "bfloat16",
+     "per_row", False, 1.0, False),
 ]
 
 
@@ -5100,11 +5145,11 @@ class sampling_record:
         self.em.fused_sample = self.real
 
 
-def sample_gap(torch, row, seed: int, pos: int, temperature: float,
-               vocab: int) -> float:
-    """(top1 - top2) / |top1| of the scores the counter-keyed sampler
-    took its argmax over: the logits / temperature plus the gumbel noise
-    of ``fold_in(key(seed), pos)``."""
+def sample_top2(torch, row, seed: int, pos: int, temperature: float,
+                vocab: int):
+    """The two largest scores the counter-keyed sampler took its argmax
+    over: the logits / temperature plus the gumbel noise of
+    ``fold_in(key(seed), pos)`` (the logits when greedy)."""
     from apex1_tpu_torch.ops.paged_decode import (_bits_to_gumbel, _row_keys,
                                                   _uniform_bits)
     sc = row.double().cpu().clone()
@@ -5116,7 +5161,14 @@ def sample_gap(torch, row, seed: int, pos: int, temperature: float,
                                           sc.numel()))[0]
         sc = sc / temperature + g.double()
     top = torch.topk(sc, 2).values
-    return ((top[0] - top[1]) / top[0].abs()).item()
+    return top[0].item(), top[1].item()
+
+
+def sample_gap(torch, row, seed: int, pos: int, temperature: float,
+               vocab: int) -> float:
+    """(top1 - top2) / |top1| of the sampling scores (`sample_top2`)."""
+    t1, t2 = sample_top2(torch, row, seed, pos, temperature, vocab)
+    return (t1 - t2) / abs(t1)
 
 
 def serve_lora(torch, model, cfg, *, lora=True, num_draft=0, only=None,
@@ -6871,6 +6923,642 @@ def run_contrib(torch, ops, card, launches):
     return out, err
 
 
+# ---- the serving-tier slice: the dense pool, the fleet, disagg, speculative
+
+#: the fleet's engines: the engine phase's model and sampling over a pool
+#: sized to the fleet's requests (prompts of 16-200 tokens, 32 new)
+FLEET_ENGINE_KW = dict(ENGINE_KW, max_len=256)
+FLEET_N, FLEET_NEW, FLEET_KILL_STEP = 32, 32, 10
+#: the fleet's special requests: cancelled mid-stream, expiring
+#: mid-stream, hedged, infeasible at the door
+FLEET_CANCEL, FLEET_EXPIRE, FLEET_HEDGE, FLEET_INFEASIBLE = 9, 5, 20, 31
+#: a flip between two runs of one sampled stream is a near-tie when the
+#: reference's top-2 score gap is below twice the two runs' largest logit
+#: difference there (over T), and that difference is at most
+#: `SERVE_MOVE` of the top logit (about one bf16 rounding, as DEC8_MOVE)
+SERVE_MOVE = 2.0 ** -6
+
+
+def gpt2_serving_model(torch, depth: int = 12, policy: str = "O2",
+                       seed: int = SEED):
+    """GPT-2 124M (``depth`` layers) with the engine phase's weights on
+    the card and its decoder pair: (cfg, apply_fn, make_cache)."""
+    from apex1_tpu_torch import (GPT2Config, get_policy, gpt2_decoder,
+                                 gpt2_params_from_jax)
+    from apex1_tpu_torch.models.gpt2 import init_params
+    cfg = GPT2Config.gpt2_125m(num_layers=depth, policy=get_policy(policy))
+    model = gpt2_params_from_jax(init_params(cfg, seed), cfg, "cuda")
+    return (cfg, *gpt2_decoder(model))
+
+
+def drive(torch, eng, reqs, new: int, record=None):
+    """Submit ``reqs`` ({tokens, seed}) to ``eng`` and step it dry (with
+    ``record``, every sampling row kept, `sampling_record`); returns
+    (streams, wall s, decode-only step walls ms)."""
+    ids = [eng.submit(r["tokens"], max_new_tokens=new, seed=r["seed"])
+           for r in reqs]
+    step_ms = []
+    with (contextlib.nullcontext() if record is None
+          else sampling_record(record)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while eng.scheduler.depth > 0 or any(s is not None
+                                             for s in eng.slot_view()):
+            chunks = eng.metrics.get_counter("prefill_chunks")
+            ts = time.perf_counter()
+            eng.step()
+            if eng.metrics.get_counter("prefill_chunks") == chunks:
+                step_ms.append((time.perf_counter() - ts) * 1e3)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return [[int(t) for t in eng.results[i].tokens] for i in ids], wall, \
+        step_ms
+
+
+def engine_forwards(engines) -> int:
+    return sum(e.metrics.get_counter("prefill_chunks")
+               + e.metrics.get_counter("decode_steps") for e in engines)
+
+
+def gpt2_launches(n_fwd: int, layers: int, paged: bool) -> dict:
+    """Exact launches of ``n_fwd`` GPT-2 engine forwards: the norm twice
+    a layer and once at the end, paged attention a layer (none on the
+    dense pool: the `cache_attend` composite), one sampler."""
+    return {"layer_norm_fwd": n_fwd * (2 * layers + 1),
+            "paged_attend": n_fwd * layers if paged else 0,
+            "fused_sample": n_fwd}
+
+
+def launches_ok(got: dict, want: dict) -> bool:
+    return all(got.get(k, 0) == want.get(k, 0) for k in set(got) | set(want))
+
+
+def sampled_flips(torch, got, want, seeds, rec_got, rec_want,
+                  temperature: float, vocab: int):
+    """(flips, bad): at each stream's first differing token (request,
+    token, reference's top-2 score gap, twice the runs' largest logit
+    difference over T, that difference over the top |logit|); ``bad``
+    the flips that are not near-ties (gap not below the move, the move
+    above `SERVE_MOVE`, or a row not recorded)."""
+    flips, bad = [], []
+    for r, t, _ in first_flips(got, want, lambda r, t: 0.0):
+        a, b = rec_got.get((seeds[r], t)), rec_want.get((seeds[r], t))
+        if a is None or b is None:
+            bad.append((r, t, None, None, None))
+            continue
+        diff = (a - b).abs().max().item()
+        rel = diff / b.abs().max().item()
+        t1, t2 = sample_top2(torch, b, seeds[r], t, temperature, vocab)
+        f = (r, t, t1 - t2, 2 * diff / (temperature or 1.0), rel)
+        flips.append(f)
+        if not (f[2] < f[3] and rel <= SERVE_MOVE):
+            bad.append(f)
+    return flips, bad
+
+
+def run_serve_dense(torch, ops, card, launches):
+    """serve-dense: the engine phase's GPT-2 124M (O2, 12 layers, seed
+    1234) and 16 requests through ``EngineConfig(paged=False)``, the
+    dense pool (per-row device indices, the `cache_attend` composite,
+    `fused_sample`): its streams against the paged engine's (recorded
+    again here as the reference), a flip only at a near-tie
+    (`sampled_flips`); exact launches (the norm and the sampler each
+    forward, paged attention never); prefix hits counted; the same run
+    with ``prefix_cache=False`` gives the same streams. Adds the dense
+    run's launches to ``launches``. Returns (results, failure or None)."""
+    from apex1_tpu_torch import Engine, EngineConfig
+    cfg, apply_fn, make_cache = gpt2_serving_model(torch)
+    reqs = workload(cfg.vocab_size, SEED)
+    seeds = [r["seed"] for r in reqs]
+    L, temp = cfg.num_layers, ENGINE_KW["temperature"]
+    out, runs, recs = {}, {}, {}
+    for label, kw, rec in (("paged", {}, True), ("dense", dict(paged=False),
+                                                True),
+                           ("dense, prefix_cache=False",
+                            dict(paged=False, prefix_cache=False), False)):
+        eng = Engine(apply_fn, make_cache, EngineConfig(**{**ENGINE_KW,
+                                                           **kw}),
+                     device="cuda")
+        recs[label] = {} if rec else None
+        ops.reset_launches()
+        streams, wall, step_ms = drive(torch, eng, reqs, 64, recs[label])
+        got = {k: v for k, v in ops.launch_counts().items() if v}
+        n_fwd = engine_forwards([eng])
+        want = gpt2_launches(n_fwd, L, paged=kw.get("paged", True))
+        m = eng.metrics
+        n_tok = sum(len(s) for s in streams)
+        runs[label] = streams
+        out[label] = dict(wall_s=wall, tokens=n_tok, launches=got,
+                          forwards=n_fwd, summary=m.summary(),
+                          step_ms=sum(step_ms) / max(len(step_ms), 1))
+        print(f"phase serve-dense: {label}: GPT-2 124M O2 layers {L}; "
+              f"{len(streams)} requests, {n_tok} tokens, wall {wall:.2f} s, "
+              f"{n_tok / wall:.1f} tok/s, mean decode-step wall "
+              f"{out[label]['step_ms']:.2f} ms over {len(step_ms)} steps, "
+              f"prefill chunks {m.get_counter('prefill_chunks')}, decode "
+              f"steps {m.get_counter('decode_steps')}, prefix hits "
+              f"{m.get_counter('prefix_hits')} of "
+              f"{m.get_counter('prefix_lookups')} lookups, ttft p50 "
+              f"{m.summary().get('ttft_p50_ms', 0):.1f} ms, launches {got} "
+              f"expected {want} [{card}]")
+        if {r.status for r in eng.results.values()} != {"done"} or any(
+                len(s) != 64 or min(s) < 0 or max(s) >= cfg.vocab_size
+                for s in streams):
+            return out, f"serve-dense {label}: a request did not finish right"
+        if not launches_ok(got, want):
+            return out, (f"serve-dense {label}: launches {got}, expected "
+                         f"{want}")
+        if label == "dense":
+            for name, n in got.items():
+                launches[name] = launches.get(name, 0) + n
+            if m.get_counter("prefix_hits") < 3:
+                return out, (f"serve-dense: {m.get_counter('prefix_hits')} "
+                             f"prefix hits, the 4 sharers give at least 3")
+        del eng
+        torch.cuda.empty_cache()
+    flips, bad = sampled_flips(torch, runs["dense"], runs["paged"], seeds,
+                               recs["dense"], recs["paged"], temp,
+                               cfg.vocab_size)
+    same_off = runs["dense, prefix_cache=False"] == runs["dense"]
+    out["flips"], out["prefix_cache_off_equal"] = flips, same_off
+    print(f"phase serve-dense: dense vs paged streams differing "
+          f"{len(flips)} of {len(reqs)}; (request, token, top-2 score gap, "
+          f"2 x logit difference / T, difference / top logit) at the first "
+          f"differing token {flips}; prefix_cache=False streams equal "
+          f"{same_off} [{card}]")
+    if bad:
+        return out, f"serve-dense: streams differ off a near-tie: {bad}"
+    if not same_off:
+        return out, "serve-dense: prefix_cache=False changed a stream"
+    return out, None
+
+
+def fleet_traffic(vocab: int):
+    """The fleet's 32 requests: prompts of 16-200 tokens from the seed,
+    32 new tokens each, guaranteed and sheddable alternating, seeds
+    2000 + i; `FLEET_HEDGE` is the hedged tenant's."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 5)
+    return [dict(tokens=rng.integers(1, vocab, int(rng.integers(16, 201)))
+                 .astype(np.int32), seed=2000 + i,
+                 qos="guaranteed" if i % 2 == 0 else "sheddable",
+                 tenant="hedged" if i == FLEET_HEDGE else None)
+            for i in range(FLEET_N)]
+
+
+def run_serve_fleet(torch, ops, card, launches):
+    """serve-fleet: `ServingFrontend` over 2 `ReplicaSupervisor`s, each an
+    `Engine` (paged, `FLEET_ENGINE_KW`) of the engine phase's GPT-2 124M
+    (one model, the same weights), pump mode: 32 requests
+    (`fleet_traffic`) with one cancelled mid-stream, one whose deadline
+    passes mid-stream (the engines' clock moved past it), one hedged
+    (its tenant's TTFT budget 0), one infeasible deadline rejected at
+    the door, and replica 0 killed at its step 10, restarted, its
+    requests resubmitted; then the same traffic (the plain requests)
+    with ``max_restarts=0`` (failover to replica 1) and in threaded
+    mode. Every completed stream equals an undisturbed single engine's
+    run of the same (prompt, seed) bit for bit; statuses and reasons as
+    the drill sets them; free pages back to their start; one kernel
+    library load; exact launches in the pump runs. Adds the first run's
+    launches to ``launches``. Returns (results, failure or None)."""
+    from apex1_tpu_torch import Engine, EngineConfig
+    from apex1_tpu_torch.ops import _build
+    from apex1_tpu_torch.serving import (Backpressure, FrontendConfig,
+                                         ReplicaConfig, ServingFrontend)
+    from apex1_tpu_torch.testing.chaos import ReplicaKill
+    cfg, apply_fn, make_cache = gpt2_serving_model(torch)
+    L = cfg.num_layers
+    traffic = fleet_traffic(cfg.vocab_size)
+    bump = [0.0]
+    built = []
+
+    def clock():
+        return time.monotonic() + bump[0]
+
+    def make_engine():
+        e = Engine(apply_fn, make_cache, EngineConfig(**FLEET_ENGINE_KW),
+                   device="cuda", clock=clock)
+        built.append(e)
+        return e
+
+    special = (FLEET_CANCEL, FLEET_EXPIRE, FLEET_INFEASIBLE)
+    ref_eng = Engine(apply_fn, make_cache, EngineConfig(**FLEET_ENGINE_KW),
+                     device="cuda")
+    ref, ref_wall, _ = drive(torch, ref_eng, [r for i, r in
+                                              enumerate(traffic)
+                                              if i != FLEET_INFEASIBLE],
+                             FLEET_NEW)
+    ref = dict(zip([i for i in range(FLEET_N) if i != FLEET_INFEASIBLE],
+                   ref))
+    del ref_eng
+    out = {"reference_wall_s": ref_wall}
+
+    def front_for(max_restarts, fault=None):
+        return ServingFrontend(make_engine, FrontendConfig(
+            n_replicas=2, capacity_per_replica=24, hedge_after_s=None,
+            enter_shed=2.0, enter_degraded=3.0, seed=0,
+            replica=ReplicaConfig(watchdog_s=120.0,
+                                  max_restarts=max_restarts)),
+            fault=fault)
+
+    def check_run(label, front, rids, t_run, n_built, exact):
+        res = {i: front.poll(rid) for i, rid in rids.items()}
+        done = {i: r for i, r in res.items()
+                if r is not None and r.status == "done"}
+        differ = [i for i, r in done.items()
+                  if [int(t) for t in r.tokens] != ref[i]]
+        s = front.summary()
+        engines = built[-n_built:] if n_built else []
+        got = {k: v for k, v in ops.launch_counts().items() if v}
+        want = gpt2_launches(engine_forwards(engines), L, paged=True)
+        pages_back = []
+        for rep in front.replicas:
+            eng = rep.engine
+            if rep.state == "failed" or eng is None:
+                continue
+            for key in list(eng.kv._prefixes):
+                eng.kv.evict_prefix(key)
+            pages_back.append(eng.kv.n_free_pages == eng.kv.num_pages - 1
+                              and eng.kv.n_free == eng.cfg.max_slots)
+        n_tok = sum(r.tokens.size for r in done.values())
+        modes = [(t["frm"], t["to"]) for t in front.metrics.transitions
+                 if t["event"] == "mode"]
+        out[label] = dict(
+            wall_s=t_run, tokens=n_tok, statuses={
+                i: (r.status, r.reason) if r else None
+                for i, r in res.items()},
+            restarts=[r.restarts for r in front.replicas],
+            engines_built=[r.engines_built for r in front.replicas],
+            hedges=s["counters"].get("hedges_fired", 0),
+            hedges_won=s["counters"].get("hedges_won", 0),
+            modes=modes, launches=got, launches_expected=want,
+            ttft_p50_ms=s.get("ttft_p50_ms"), differing=differ,
+            pages_back=pages_back, library_loads=_build.load_count())
+        print(f"phase serve-fleet: {label}: 2 replicas of GPT-2 124M O2 "
+              f"(paged, 8 slots each) on one card; {len(rids)} requests, "
+              f"{len(done)} done, {n_tok} tokens in {t_run:.2f} s, "
+              f"{n_tok / t_run:.1f} tok/s (the undisturbed single engine "
+              f"{ref_wall:.2f} s), ttft p50 "
+              f"{(s.get('ttft_p50_ms') or 0):.1f} ms, replica states "
+              f"{front.replica_states()}, restarts "
+              f"{out[label]['restarts']}, engines built "
+              f"{out[label]['engines_built']}, kernel library loads "
+              f"{_build.load_count()}, hedges fired {out[label]['hedges']} "
+              f"won {out[label]['hedges_won']}, mode transitions {modes}, "
+              f"failovers {[t['rerouted'] for t in front.metrics.transitions if t['event'] == 'failover']}, "
+              f"streams differing from the undisturbed run {differ}, free "
+              f"pages back {pages_back}, launches {got} expected "
+              f"{want if exact else '(threads: not checked)'} [{card}]")
+        if differ:
+            return f"serve-fleet {label}: streams {differ} differ"
+        if not all(pages_back):
+            return f"serve-fleet {label}: free pages not back: {pages_back}"
+        if _build.load_count() != 1:
+            return (f"serve-fleet {label}: the kernel library loaded "
+                    f"{_build.load_count()} times")
+        if exact and not launches_ok(got, want):
+            return f"serve-fleet {label}: launches {got}, expected {want}"
+        return None
+
+    # run 1: the drill
+    ops.reset_launches()
+    kill = ReplicaKill(replica=0, at_step=FLEET_KILL_STEP)
+    front = front_for(3, kill)
+    front.set_hedge_budget(0.0, "hedged")
+    n0 = len(built)
+    t0 = time.perf_counter()
+    rids = {}
+    for i, r in enumerate(traffic):
+        if i == FLEET_INFEASIBLE:
+            continue
+        rids[i] = front.submit(
+            r["tokens"], max_new_tokens=FLEET_NEW, qos=r["qos"],
+            tenant=r["tenant"], seed=r["seed"],
+            deadline=(clock() + 3600.0 if i == FLEET_EXPIRE else None))
+    rejected = None
+    while front.total_inflight:
+        front.pump()
+        if rejected is None and all(rep.step_ewma > 0
+                                    for rep in front.replicas):
+            try:
+                front.submit(traffic[FLEET_INFEASIBLE]["tokens"],
+                             max_new_tokens=FLEET_NEW,
+                             seed=traffic[FLEET_INFEASIBLE]["seed"],
+                             deadline=time.monotonic() + 1e-3)
+                rejected = "admitted"
+            except Backpressure as e:
+                rejected = e.reason
+        seen = {i: any(front.replicas[k].first_token_seen(rids[i])
+                       for k in front._route.get(rids[i], []))
+                for i in (FLEET_CANCEL, FLEET_EXPIRE)}
+        if seen[FLEET_CANCEL] and front.poll(rids[FLEET_CANCEL]) is None \
+                and rids[FLEET_CANCEL] not in front._shed_rids \
+                and "cancel" not in out:
+            out["cancel"] = front.cancel(rids[FLEET_CANCEL])
+        if seen[FLEET_EXPIRE] and not bump[0]:
+            bump[0] = 7200.0            # the engines' clock passes it
+    t_run = time.perf_counter() - t0
+    err = check_run("kill and restart", front, rids, t_run,
+                    len(built) - n0, True)
+    if err:
+        return out, err
+    for name, n in ops.launch_counts().items():
+        launches[name] = launches.get(name, 0) + n
+    st = {i: (front.poll(rids[i]).status, front.poll(rids[i]).reason)
+          for i in (FLEET_CANCEL, FLEET_EXPIRE)}
+    print(f"phase serve-fleet: cancelled mid-stream {st[FLEET_CANCEL]}, "
+          f"deadline passed mid-stream {st[FLEET_EXPIRE]}, infeasible "
+          f"deadline at the door: {rejected!r}, kill fired {kill.fired} "
+          f"[{card}]")
+    if st[FLEET_CANCEL] != ("cancelled", "cancelled running"):
+        return out, f"serve-fleet: the cancel gave {st[FLEET_CANCEL]}"
+    if st[FLEET_EXPIRE][0] != "evicted" or \
+            "deadline" not in st[FLEET_EXPIRE][1]:
+        return out, f"serve-fleet: the expiry gave {st[FLEET_EXPIRE]}"
+    if rejected is None or "feasibly" not in rejected:
+        return out, f"serve-fleet: the infeasible deadline gave {rejected}"
+    r1 = out["kill and restart"]
+    if kill.fired != 1 or r1["restarts"] != [1, 0] or \
+            r1["engines_built"] != [2, 1] or r1["hedges"] != 1:
+        return out, (f"serve-fleet: kill {kill.fired}, restarts "
+                     f"{r1['restarts']}, engines {r1['engines_built']}, "
+                     f"hedges {r1['hedges']}")
+    others = {i: s for i, s in r1["statuses"].items()
+              if i not in special}
+    if any(s != ("done", "length") for s in others.values()):
+        return out, f"serve-fleet: statuses {others}"
+    bump[0] = 0.0
+    plain = [i for i in range(FLEET_N) if i not in special]
+
+    # runs 2 and 3: failover, then threads
+    for label, mode in (("failover", "pump"), ("threaded", "threads")):
+        ops.reset_launches()
+        front = (front_for(0, ReplicaKill(replica=0, at_step=FLEET_KILL_STEP))
+                 if mode == "pump" else front_for(3))
+        n0 = len(built)
+        if mode == "threads":
+            front.start()
+        t0 = time.perf_counter()
+        try:
+            rids = {i: front.submit(traffic[i]["tokens"],
+                                    max_new_tokens=FLEET_NEW,
+                                    qos=traffic[i]["qos"],
+                                    seed=traffic[i]["seed"])
+                    for i in plain}
+            front.run_until_drained(timeout_s=300.0)
+        finally:
+            front.stop()
+        t_run = time.perf_counter() - t0
+        err = check_run(label, front, rids, t_run, len(built) - n0,
+                        mode == "pump")
+        if err:
+            return out, err
+        sts = out[label]["statuses"]
+        if any(s != ("done", "length") for s in sts.values()):
+            return out, f"serve-fleet {label}: statuses {sts}"
+        if mode == "pump" and (front.replicas[0].state != "failed" or [
+                t["source"] for t in front.metrics.transitions
+                if t["event"] == "failover"] != [0]):
+            return out, (f"serve-fleet failover: states "
+                         f"{front.replica_states()}")
+    del built[:]
+    torch.cuda.empty_cache()
+    return out, None
+
+
+def run_disagg(torch, ops, card, launches):
+    """disagg: `DisaggFrontend` with one prefill and one decode engine
+    (paged, `ENGINE_KW`) of the engine phase's GPT-2 124M on one card,
+    the engine phase's 16 requests: every handoff digest-verified (no
+    failure, no token-0 mismatch), streams against the colocated paged
+    engine's (recorded here), a flip only at a near-tie; then 2 requests under a `HandoffCorruption` (the first
+    handoff) and a `HandoffWindowKill` (the second): both typed, both
+    re-routed, no stream lost. Exact launches over every engine built.
+    Adds the first run's launches to ``launches``. Returns (results,
+    failure or None)."""
+    from apex1_tpu_torch import Engine, EngineConfig
+    from apex1_tpu_torch.serving import FrontendConfig, ReplicaConfig
+    from apex1_tpu_torch.serving.disagg import DisaggConfig, DisaggFrontend
+    from apex1_tpu_torch.testing.chaos import (ChaosSchedule,
+                                               HandoffCorruption,
+                                               HandoffWindowKill)
+    cfg, apply_fn, make_cache = gpt2_serving_model(torch)
+    L, temp = cfg.num_layers, ENGINE_KW["temperature"]
+    reqs = workload(cfg.vocab_size, SEED)
+    seeds = [r["seed"] for r in reqs]
+    ref_rec = {}
+    ref, _, _ = drive(torch, Engine(apply_fn, make_cache,
+                                    EngineConfig(**ENGINE_KW),
+                                    device="cuda"), reqs, 64, ref_rec)
+    built = []
+
+    def make_engine():
+        e = Engine(apply_fn, make_cache, EngineConfig(**ENGINE_KW),
+                   device="cuda")
+        built.append(e)
+        return e
+
+    def front_for(fault=None):
+        pool = dict(n_replicas=1, capacity_per_replica=16,
+                    hedge_after_s=None, enter_shed=2.0, enter_degraded=3.0,
+                    replica=ReplicaConfig(watchdog_s=120.0))
+        return DisaggFrontend(make_engine, DisaggConfig(
+            prefill=FrontendConfig(**pool), decode=FrontendConfig(**pool),
+            prefill_chunk=ENGINE_KW["prefill_chunk"]), fault=fault)
+
+    out = {}
+    for label, idx, fault in (
+            ("clean", list(range(len(reqs))), None),
+            ("corrupt + window kill", [4, 6],
+             ChaosSchedule([HandoffCorruption(at_handoff=0),
+                            HandoffWindowKill(at_handoff=1)]))):
+        ops.reset_launches()
+        n0 = len(built)
+        front = front_for(fault)
+        rec = {}
+        with sampling_record(rec):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rids = [front.submit(reqs[i]["tokens"], max_new_tokens=64,
+                                 seed=reqs[i]["seed"]) for i in idx]
+            front.run_until_drained(timeout_s=300.0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        res = [front.poll(r) for r in rids]
+        got = [[int(t) for t in r.tokens] for r in res]
+        flips, bad = sampled_flips(torch, got, [ref[i] for i in idx],
+                                   [seeds[i] for i in idx], rec,
+                                   ref_rec, temp, cfg.vocab_size)
+        c = front.summary()["counters"]
+        handoffs = [t for t in front.metrics.transitions
+                    if t["event"] == "handoff"]
+        fails = [t["failure"] for t in front.metrics.transitions
+                 if t["event"] == "handoff_failure"]
+        glaunch = {k: v for k, v in ops.launch_counts().items() if v}
+        want = gpt2_launches(engine_forwards(built[n0:]), L, paged=True)
+        n_tok = sum(len(s) for s in got)
+        out[label] = dict(wall_s=wall, tokens=n_tok, handoffs=len(handoffs),
+                          failures=fails, counters=c, flips=flips,
+                          launches=glaunch, launches_expected=want)
+        print(f"phase disagg: {label}: 1 prefill + 1 decode engine of "
+              f"GPT-2 124M O2 (paged) on one card; {len(rids)} requests, "
+              f"{n_tok} tokens in {wall:.2f} s, {n_tok / wall:.1f} tok/s; "
+              f"digest-verified handoffs {len(handoffs)}, handoff failures "
+              f"{fails}, re-routes {c.get('handoff_reroutes', 0)}, token-0 "
+              f"mismatches {c.get('handoff_parity_mismatches', 0)}, "
+              f"replica states {front.replica_states()}; streams differing "
+              f"from the colocated engine {len(flips)} "
+              f"(request, token, gap, move, difference / top) {flips}; "
+              f"launches {glaunch} expected {want} [{card}]")
+        front.stop()
+        if any(r.status != "done" or len(s) != 64 for r, s in zip(res, got)):
+            return out, (f"disagg {label}: statuses "
+                         f"{[(r.status, r.reason) for r in res]}")
+        if bad:
+            return out, f"disagg {label}: streams differ off a near-tie: {bad}"
+        if not launches_ok(glaunch, want):
+            return out, f"disagg {label}: launches {glaunch}, expected {want}"
+        if c.get("handoff_parity_mismatches", 0):
+            return out, f"disagg {label}: a token 0 differed across a handoff"
+        if fault is None:
+            long_ = sum(1 for r in reqs if (len(r["tokens"]) - 1) // 64 >= 1)
+            if fails or len(handoffs) != long_:
+                return out, (f"disagg: {len(handoffs)} handoffs for {long_} "
+                             f"long prompts, failures {fails}")
+            for name, n in glaunch.items():
+                launches[name] = launches.get(name, 0) + n
+        elif fails != ["integrity", "window_kill"] or \
+                c.get("handoff_reroutes") != 2:
+            return out, f"disagg {label}: failures {fails}, counters {c}"
+        del front
+    del built[:]
+    torch.cuda.empty_cache()
+    return out, None
+
+
+#: speculative's workload: `run_decode`'s (8 x 128 prompt, 128 new), 4
+#: drafts a round
+SPEC_K = 4
+
+
+def run_speculative(torch, ops, card, launches):
+    """speculative: `speculative_generate` with the bench's ``decode``
+    model (`LLAMA_08B`, 16 layers, O2; `decode_model`) as the target and
+    its own `llama_quant_decoder` int8 copy as the draft, B 8, S0 128, N
+    128, `SPEC_K` drafts a round. Greedy: the tokens against greedy
+    `generate` of the target (the same call), a flip only where the
+    target's top-2 gap (relative) is below the chunk-verify against
+    step-decode logit difference there (relative to the top logit), and
+    that difference at most twice the largest the two paths show where
+    the streams still agree (every token before each row's first flip:
+    at O2 the verify chunk's bf16 products round otherwise than the
+    step's, 1-2 % of the top logit at this depth); exact launches (RMS
+    norm and
+    RoPE each forward of either model, flash at both prefills, int8_mm
+    each draft forward). T 0.7: tokens in the vocabulary, two calls the
+    same bits. Prints target forwards per row, the accept rate, tokens/s
+    beside plain `generate`. Adds the greedy call's launches to
+    ``launches``. Returns (results, failure or None)."""
+    from apex1_tpu_torch import llama_decoder, llama_quant_decoder
+    from apex1_tpu_torch.models.generate import speculative_generate
+    cfg, model, prompt = decode_model(torch, LCTX_LAYERS)
+    t_fn, mk_t = llama_decoder(model)
+    d_fn, mk_d, _ = llama_quant_decoder(model)
+    L, V, K, N = cfg.num_layers, cfg.vocab_size, SPEC_K, DEC_N
+    S = DEC_S0 + N + K + 1
+    verify = []
+
+    def t_rec(tokens, cache, idx, **kw):
+        logits, cache = t_fn(tokens, cache, idx, **kw)
+        if kw.get("chunk_decode"):
+            verify.append((idx.cpu(), logits.float()))
+        return logits, cache
+
+    def spec(fn, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, rounds = speculative_generate(
+            fn, d_fn, prompt, max_new_tokens=N, target_cache=mk_t(DEC_B, S),
+            draft_cache=mk_d(DEC_B, S), num_draft=K, vocab_size=V, **kw)
+        torch.cuda.synchronize()
+        return toks.cpu().numpy(), rounds.cpu().numpy(), \
+            time.perf_counter() - t0
+
+    spec(t_fn)                                   # warm-up
+    rec = []
+    want, gwall = decode_call(torch, t_fn, mk_t, prompt, V, rec)
+    ops.reset_launches()
+    toks, rounds, swall = spec(t_rec)
+    got = {k: v for k, v in ops.launch_counts().items() if v}
+    for name, n in got.items():
+        launches[name] = launches.get(name, 0) + n
+    loops = int(rounds.max())
+    tf, df = 1 + loops, 1 + loops * (K + 1)
+    expect = {"layer_norm_fwd": (tf + df) * (2 * L + 1),
+              "rope": (tf + df) * 2 * L, "flash_fwd": 2 * L,
+              "int8_mm": df * (INT8_PER_LAYER * L + 1)}
+
+    def verify_row(r, t):
+        pos = DEC_S0 + t - 1
+        for idx, lg in reversed(verify):
+            j = pos - int(idx[r])
+            if 0 <= j <= K:
+                return lg[r, j:j + 1]
+        return None
+
+    flips = first_flips(toks, want, lambda r, t: top2_gap(
+        torch, rec[t], r, t, 0.0, V))
+    moved = [(logits_moved(verify_row(r, t), rec[t][r:r + 1])
+              if t > 0 and verify_row(r, t) is not None else None)
+             for r, t, _ in flips]
+    # the two paths' own difference where the streams still agree: every
+    # token before each row's first flip
+    first = {r: t for r, t, _ in flips}
+    floor = max(logits_moved(verify_row(r, t), rec[t][r:r + 1])
+                for r in range(DEC_B) for t in range(1, first.get(r, N))
+                if verify_row(r, t) is not None)
+    bad = [f for f, m in zip(flips, moved)
+           if m is None or f[2] >= m or m > 2 * floor]
+    accept = (N - 1 - rounds) / (K * rounds)
+    out = dict(greedy_wall_s=swall, generate_wall_s=gwall,
+               rounds=rounds.tolist(), accept_rate=accept.tolist(),
+               launches=got, launches_expected=expect, flips=flips,
+               moved=moved, agreeing_difference=floor)
+    print(f"phase speculative: target the bench's decode model (llama_longctx "
+          f"widths, {L} layers, O2, head_dim {cfg.head_dim}), draft its "
+          f"int8 copy; B {DEC_B}, S0 {DEC_S0}, N {N}, K {K}, greedy: wall "
+          f"{swall:.2f} s, {DEC_B * N / swall:.0f} tokens/s against plain "
+          f"generate {gwall:.2f} s, {DEC_B * N / gwall:.0f} tokens/s; "
+          f"target forwards per row {rounds.tolist()} (+1 prefill), accept "
+          f"rate per row {[round(a, 3) for a in accept.tolist()]}, rounds "
+          f"run {loops}; launches {got} expected {expect}; streams "
+          f"differing from generate {len(flips)} (row, token, top-2 gap, "
+          f"verify vs step logit difference) "
+          f"{[(r, t, g, m) for (r, t, g), m in zip(flips, moved)]}; the "
+          f"largest verify vs step difference where the streams agree "
+          f"{floor:.5f} (a flip's may be twice it) [{card}]")
+    if not launches_ok(got, expect):
+        return out, f"speculative: launches {got}, expected {expect}"
+    if bad:
+        return out, f"speculative: greedy differs off a near-tie: {bad}"
+    del verify[:], rec[:]
+    samp = [spec(t_fn, temperature=0.7, rng=(0, 7)) for _ in range(2)]
+    (s1, r1, w1), (s2, _, _) = samp
+    out["sampled"] = dict(wall_s=w1, rounds=r1.tolist(),
+                          same_bits=bool((s1 == s2).all()))
+    print(f"phase speculative: T 0.7: wall {w1:.2f} s, "
+          f"{DEC_B * N / w1:.0f} tokens/s, target forwards per row "
+          f"{r1.tolist()}, accept rate per row "
+          f"{[round(a, 3) for a in ((N - 1 - r1) / (K * r1)).tolist()]}, "
+          f"tokens in the vocabulary {bool(s1.min() >= 0 and s1.max() < V)},"
+          f" two calls the same bits {out['sampled']['same_bits']} [{card}]")
+    del model, t_fn, d_fn
+    torch.cuda.empty_cache()
+    if not out["sampled"]["same_bits"] or s1.min() < 0 or s1.max() >= V:
+        return out, "speculative: T 0.7 tokens out of range or not repeatable"
+    return out, None
+
+
 def main() -> int:
     try:
         import torch
@@ -6923,7 +7611,10 @@ def main() -> int:
 
     if "--only" in sys.argv[1:]:
         # a probe of this slice's phases alone (no kernels line)
-        only = {"generate-t5": run_generate_t5, "contrib": run_contrib}
+        only = {"generate-t5": run_generate_t5, "contrib": run_contrib,
+                "serve-dense": run_serve_dense,
+                "serve-fleet": run_serve_fleet, "disagg": run_disagg,
+                "speculative": run_speculative}
         errs = [only[phase](torch, ops, card, {})[1]
                 for phase in [a for a in sys.argv[1:] if a in only]
                 or list(only)]
@@ -7351,16 +8042,28 @@ def main() -> int:
         if err:
             return fail(err)
         stamp(phase)
+    # 35-38. the serving-tier slice: the dense pool, the fleet, the
+    # disaggregated pools, speculative decoding
+    serve_out = {}
+    for phase, fn in (("serve-dense", run_serve_dense),
+                      ("serve-fleet", run_serve_fleet),
+                      ("disagg", run_disagg),
+                      ("speculative", run_speculative)):
+        serve_out[phase], err = fn(torch, ops, card, main_launches)
+        if err:
+            return fail(err)
+        stamp(phase)
     print(f"phase times: { {k: round(v, 1) for k, v in phase_s.items()} } "
           f"s wall [{card}]")
 
-    # 35. the kernels line, the card, the last line. launches: the main
+    # 39. the kernels line, the card, the last line. launches: the main
     # paths' runs (engine, the train phases, dpo, generate, train-llama,
     # serve-llama and its generate, the BERT phases, train-gpt2-dropout,
     # train-t5, mha, train-llama-longctx, decode, decode-int8, serve-lora,
     # train-resnet, train-gpt2-fp16, tp-sp, cp, vp-ce, ddp,
     # train-llama-3d, train-llama-3d-1f1b, generate-t5's kernel calls,
-    # contrib's kernel cases)
+    # contrib's kernel cases, serve-dense's dense run, serve-fleet's
+    # drill, disagg's clean run, speculative's greedy call)
     sources = {"layer_norm_fwd": ("apex1_tpu_torch/csrc/layer_norm.cu",
                                   "apex1_tpu/ops/layer_norm.py:110"),
                "paged_attend": ("apex1_tpu_torch/csrc/paged_attend.cu",
@@ -7430,7 +8133,8 @@ def main() -> int:
                    "dpo": dpo_out, "generate": gen_out, "llama": llama_out,
                    "bert": bert_out, "t5": t5_out, "decode": dec_out,
                    "amp": amp_out, "parallel": par_out,
-                   "t5_contrib": slice_out, "phase_s": phase_s},
+                   "t5_contrib": slice_out, "serving": serve_out,
+                   "phase_s": phase_s},
                   f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -5,7 +5,11 @@ their tensors on CUDA, or raise a RuntimeError naming CUDA where there
 is none (the form of ``test_torch_moe.py::test_moe_mlp_defaults_to_
 cuda``); with ``device="cpu"`` they stay on the CPU.
 `convert_syncbn_model` keeps each batch norm's own device: a CPU model
-stays on the CPU, also where a batch norm holds no tensor at all.
+stays on the CPU, also where a batch norm holds no tensor at all. The
+serving tier likewise: the dense `KVPool` (through the decoder's
+``make_cache``), the dense `Engine` and the engines a `ServingFrontend`'s
+replicas build (without CUDA the build raises naming it, the replica
+dies and its request is evicted at failover).
 """
 
 import pytest
@@ -63,3 +67,69 @@ def test_convert_syncbn_model_keeps_a_cpu_model_on_the_cpu(affine, track):
     assert not list(bare.parameters()) and not list(bare.buffers())
     assert {t.device.type for t in _tensors(
         convert_syncbn_model(bare, axis_name=None))} == {"cpu"}
+
+
+# ---- the serving tier: the dense pool, its engine, the frontend ---------
+
+
+def _toy_engine(**kw):
+    from apex1_tpu_torch.serving import Engine, EngineConfig
+    from apex1_tpu_torch.testing.chaos import toy_decoder
+    apply_fn, make_cache = toy_decoder(device=kw.get("device"))
+    return Engine(apply_fn, make_cache,
+                  EngineConfig(max_slots=2, max_len=16, prefill_chunk=4,
+                               paged=False, vocab_size=61), **kw)
+
+
+def _pool_leaves(eng):
+    return [t for e in eng.kv.cache.values() for t in e.values()]
+
+
+@pytest.mark.parametrize("make", ["KVPool", "Engine"])
+def test_dense_pool_and_engine_default_to_cuda(make):
+    from apex1_tpu_torch.serving import KVPool
+    from apex1_tpu_torch.testing.chaos import toy_decoder
+
+    def build(**kw):
+        if make == "KVPool":
+            return KVPool(toy_decoder(**kw)[1], max_slots=2, max_len=8)
+        return _toy_engine(**kw)
+
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+    else:
+        obj = build()
+        pool = obj if make == "KVPool" else obj.kv
+        assert {t.device.type for e in pool.cache.values()
+                for t in e.values()} == {"cuda"}
+    obj = build(device="cpu")
+    pool = obj if make == "KVPool" else obj.kv
+    assert {t.device.type for e in pool.cache.values()
+            for t in e.values()} == {"cpu"}
+    if make == "Engine":
+        assert obj._d_idxs.device.type == "cpu"
+
+
+@pytest.mark.parametrize("device", [None, "cpu"])
+def test_frontend_replicas_build_their_engines_on_the_named_device(device):
+    from apex1_tpu_torch.serving import (FrontendConfig, ReplicaConfig,
+                                         ServingFrontend)
+    front = ServingFrontend(lambda: _toy_engine(device=device),
+                            FrontendConfig(n_replicas=1, hedge_after_s=None,
+                                           replica=ReplicaConfig(
+                                               max_restarts=0)))
+    rid = front.submit([1, 2, 3], max_new_tokens=3)
+    front.pump(2)
+    rep = front.replicas[0]
+    if device is None and not torch.cuda.is_available():
+        # the build raised naming CUDA: the replica died, no restart
+        # budget, the request is evicted at failover
+        assert rep.state == "failed"
+        assert "CUDA" in repr(front.metrics.transitions[0]["error"])
+        assert front.poll(rid).status == "evicted"
+        return
+    front.run_until_drained(timeout_s=30.0)
+    assert front.poll(rid).status == "done"
+    want = "cpu" if device == "cpu" else "cuda"
+    assert {t.device.type for t in _pool_leaves(rep.engine)} == {want}

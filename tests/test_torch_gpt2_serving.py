@@ -249,17 +249,13 @@ def test_eos_readback_path_matches_deferred(tiny):
                                 dict(lora_rank=4)],
                          ids=["dense", "spec", "lora"])
 def test_unported_options_raise(tiny, kw):
-    """The dense pool is still unported and raises naming ROADMAP.md.
-    Speculative verify and LoRA came with the decode slice: a GPT-2 spec
-    engine emits the plain engine's streams, and a LoRA engine raises
-    without the model's head and, given it with no adapter registered,
-    serves the plain streams."""
-    if "paged" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _port_engine(tiny, **kw)
-        return
+    """Options ported after the paged engine serve its streams: the
+    dense pool (``paged=False``, since the serving-tier slice) and a
+    GPT-2 spec engine emit the paged engine's streams, and a LoRA
+    engine raises without the model's head and, given it with no
+    adapter registered, serves the plain streams."""
     plain = _run_workload(_port_engine(tiny, temperature=0.7), tiny["base"])
-    if "num_draft" in kw:
+    if "num_draft" in kw or "paged" in kw:
         eng = _port_engine(tiny, temperature=0.7, **kw)
     else:
         with pytest.raises(ValueError, match="lora_head"):

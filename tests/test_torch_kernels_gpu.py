@@ -2101,3 +2101,71 @@ def test_t5_generate_kernels_match_plain(cuda):
         # cache_attend composite)
         assert counts == {"layer_norm_fwd": 5 + N * 7,
                           "flash_fwd": 2 + N * 2}
+
+
+@pytest.mark.parametrize("s", [1, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dense_per_row_cache_index_equals_scalar_rows(cuda, dtype, s):
+    """The dense `cached_attention` with a (B,) device index (the dense
+    engine's decode and verify, `speculative_generate`'s rounds) equals
+    the scalar form row by row, bit for bit: the same composite on each
+    row, the writes in place into a `DenseCache`, the last row's window
+    clamped as ``dynamic_update_slice`` clamps it."""
+    from apex1_tpu_torch.models.generate import DenseCache, cached_attention
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    B, Hq, Hkv, L, D = 4, 12, 4, 64, 64
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda).to(dt)
+
+    q, kn, vn = rnd(B, Hq, s, D), rnd(B, Hkv, s, D), rnd(B, Hkv, s, D)
+    k0, v0 = rnd(B, Hkv, L, D), rnd(B, Hkv, L, D)
+    idx = torch.tensor([0, 17, 40, L - 1], device=cuda)
+    cache = DenseCache(k0.clone(), v0.clone())
+    out, entry = cached_attention(q, kn, vn, cache, idx, chunk_decode=True)
+    assert entry is cache
+    for b in range(B):
+        o, e = cached_attention(q[b:b + 1], kn[b:b + 1], vn[b:b + 1],
+                                {"k": k0[b:b + 1], "v": v0[b:b + 1]},
+                                int(idx[b]), chunk_decode=True)
+        assert torch.equal(out[b:b + 1], o), b
+        assert torch.equal(cache.k[b:b + 1], e["k"]), b
+        assert torch.equal(cache.v[b:b + 1], e["v"]), b
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.7])
+def test_dense_engine_equals_paged_engine(cuda, temperature):
+    """A tiny GPT-2 at O0 through the dense pool (the `cache_attend`
+    composite, `fused_sample`) and the paged pool (`paged_attend`,
+    `fused_sample`): the same streams, the dense run launching no paged
+    attention and one sampler a forward."""
+    from apex1_tpu_torch import (Engine, EngineConfig, GPT2Config,
+                                 get_policy, gpt2_decoder,
+                                 gpt2_params_from_jax)
+    from apex1_tpu_torch.models.gpt2 import init_params
+    from apex1_tpu_torch.ops import launch_counts, reset_launches
+    cfg = GPT2Config.tiny(policy=get_policy("O0"), max_seq_len=128)
+    model = gpt2_params_from_jax(init_params(cfg, 0), cfg, cuda)
+    apply_fn, make_cache = gpt2_decoder(model)
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(1, cfg.vocab_size, n) for n in
+               (3, 17, 9, 33, 5, 12)]
+    streams = {}
+    for paged in (False, True):
+        eng = Engine(apply_fn, make_cache, EngineConfig(
+            max_slots=4, max_len=96, prefill_chunk=8, paged=paged,
+            temperature=temperature, vocab_size=cfg.vocab_size),
+            device=cuda)
+        reset_launches()
+        ids = [eng.submit(p, max_new_tokens=12, seed=i)
+               for i, p in enumerate(prompts)]
+        eng.run(max_steps=200)
+        counts = launch_counts()
+        n_fwd = (eng.metrics.get_counter("prefill_chunks")
+                 + eng.metrics.get_counter("decode_steps"))
+        assert counts["fused_sample"] == n_fwd
+        assert counts["paged_attend"] == (n_fwd * cfg.num_layers
+                                          if paged else 0)
+        streams[paged] = [eng.results[r].tokens.tolist() for r in ids]
+    assert streams[False] == streams[True]

@@ -16,8 +16,8 @@ adapterless control sharing tenant-a's prompt, at T = 0.7:
 - ``draft_propose=`` with oracle drafts (the stream's own next tokens):
   every draft accepted, the stream unchanged;
 - adapter pages release at retirement (refcounts back to the registry's);
-- ``lora_rank > 0`` without ``lora_head`` raises; ``paged=False`` still
-  raises; `ngram_propose` equals JAX's.
+- ``lora_rank > 0`` without ``lora_head`` raises; ``paged=False``
+  serves the paged engine's streams; `ngram_propose` equals JAX's.
 """
 
 import jax
@@ -167,9 +167,9 @@ def test_engine_lora_validation(tiny):
                  device="cpu")
     with pytest.raises(RuntimeError, match="lora"):
         eng.register_adapter("acme", np.zeros((32, 2)), np.zeros((2, 97)))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        Engine(apply_fn, make_cache, EngineConfig(paged=False),
-               device="cpu")
+    dense, _, _ = _port(tiny, set(PROMPTS), paged=False)
+    paged, _, _ = _port(tiny, set(PROMPTS))
+    assert dense == paged
 
 
 def test_unregistered_tenant_serves_adapterless(tiny):
