@@ -9,7 +9,7 @@ CUDA tensor and runs its plain PyTorch version on a CPU tensor.
 from apex1_tpu_torch import fp16_utils, ops
 from apex1_tpu_torch.amp import Amp, AmpState
 from apex1_tpu_torch.contrib import EncdecMultiheadAttn, SelfMultiheadAttn
-from apex1_tpu_torch.core.mesh import MeshConfig, make_mesh
+from apex1_tpu_torch.core.mesh import MeshConfig, make_hybrid_mesh, make_mesh
 from apex1_tpu_torch.core.policy import PrecisionPolicy, get_policy
 from apex1_tpu_torch.interop import (bert_params_from_jax,
                                      gpt2_params_from_jax,
@@ -37,7 +37,8 @@ from apex1_tpu_torch.parallel.sync_batchnorm import (SyncBatchNorm,
 from apex1_tpu_torch.serving import (DisaggFrontend, Engine, EngineConfig,
                                      FrontendConfig, ServingFrontend)
 
-__all__ = ["Amp", "AmpState", "MeshConfig", "make_mesh", "PrecisionPolicy",
+__all__ = ["Amp", "AmpState", "MeshConfig", "make_hybrid_mesh", "make_mesh",
+           "PrecisionPolicy",
            "get_policy",
            "bert_params_from_jax", "BertConfig", "BertPretrain",
            "bert_pretrain_loss_fn", "gpt2_params_from_jax",

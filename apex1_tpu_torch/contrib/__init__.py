@@ -5,9 +5,9 @@ modules, `SoftmaxCrossEntropyLoss` (the cross-entropy kernels),
 `focal_loss`, `group_norm`/`GroupNorm`, `index_mul_2d`, the transducer
 joint and loss and ASP's sparsity masks; ``fmha``, ``clip_grad_norm_``
 and ``GroupBatchNorm2d`` (`SyncBatchNorm`) bound to their port
-modules. The JAX package's ``distributed_fused_adam`` /
-``distributed_fused_lamb`` wait for
-``parallel/distributed_optimizer.py`` (ROADMAP.md queue A item 7)."""
+modules; ``distributed_fused_adam`` / ``distributed_fused_lamb`` (the
+reference's ``DistributedFusedAdam`` / ``DistributedFusedLAMB``) bound
+to `parallel.distributed_optimizer`."""
 
 from apex1_tpu_torch.contrib import openfold  # noqa: F401
 from apex1_tpu_torch.contrib.focal_loss import focal_loss
@@ -24,6 +24,8 @@ from apex1_tpu_torch.contrib.transducer import (TransducerJoint,
 from apex1_tpu_torch.contrib.xentropy import SoftmaxCrossEntropyLoss
 from apex1_tpu_torch.ops.attention import fmha
 from apex1_tpu_torch.optim.clip_grad import clip_grad_norm as clip_grad_norm_
+from apex1_tpu_torch.parallel.distributed_optimizer import (
+    distributed_fused_adam, distributed_fused_lamb)
 from apex1_tpu_torch.parallel.sync_batchnorm import \
     SyncBatchNorm as GroupBatchNorm2d
 
@@ -32,4 +34,5 @@ __all__ = ["openfold", "focal_loss", "GroupNorm", "group_norm",
            "ASP", "compute_m4n2_mask", "permutation_search",
            "TransducerJoint", "TransducerLoss", "transducer_joint",
            "transducer_loss", "SoftmaxCrossEntropyLoss", "fmha",
-           "clip_grad_norm_", "GroupBatchNorm2d"]
+           "clip_grad_norm_", "GroupBatchNorm2d", "distributed_fused_adam",
+           "distributed_fused_lamb"]

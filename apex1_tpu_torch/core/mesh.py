@@ -17,16 +17,27 @@ over the axes in `MESH_AXES` order, tp innermost (contiguous ranks),
 dp outermost. So rank r of a port run and device r of a JAX
 ``shard_map`` hold the same shard.
 
-Every axis but fsdp takes a degree above 1; fsdp raises until the
-distributed optimizer is ported (ROADMAP.md queue A item 7).
+The JAX package's ``jax.device_put(x, NamedSharding(mesh, spec))`` is
+`place`: a full tensor becomes a ``torch.distributed.tensor.DTensor``
+over the mesh's ``DeviceMesh``, split (``Shard(d)``) on each dimension
+``spec`` names and ``Replicate()`` on every other mesh axis. Its
+inverse `gather` is autograd-aware: the gradient of a gathered tensor
+is averaged over the data-parallel axes and scattered back to the
+placement (ZeRO-3's reduce-scatter), so a loss that gathers its placed
+parameters runs the model on plain tensors, through the kernels, and
+leaves sharded gradients. `MeshResource` binds a model's logical axes
+(batch, heads, ...) to mesh axes; `shard_batch` and `replicate` place a
+batch by it. `make_hybrid_mesh` folds its ``dcn_dp`` slices into dp in
+the JAX package's slice-major order: one host has one fabric.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Union
 
+import torch
 import torch.distributed as dist
 
 AXIS_DP = "dp"
@@ -36,9 +47,6 @@ AXIS_CP = "cp"
 AXIS_EP = "ep"
 AXIS_TP = "tp"
 MESH_AXES = (AXIS_DP, AXIS_FSDP, AXIS_PP, AXIS_CP, AXIS_EP, AXIS_TP)
-
-#: axes whose degree may exceed 1 in the port so far
-_PORTED_AXES = (AXIS_DP, AXIS_PP, AXIS_CP, AXIS_EP, AXIS_TP)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,13 +92,18 @@ class Mesh:
     ``group(axis)`` is the ``ProcessGroup`` of the ranks that differ
     from this one only along ``axis``; ``ranks(axis)`` their global
     ranks in axis order; ``index(axis)`` this rank's coordinate;
-    ``size(axis)`` the degree."""
+    ``size(axis)`` the degree; ``device_mesh`` the
+    ``torch.distributed.device_mesh.DeviceMesh`` the groups come from
+    (`place` puts DTensors on it); ``data_group`` the ranks that differ
+    only along dp and fsdp, which replicate the gradients."""
 
-    def __init__(self, config: MeshConfig, groups: dict):
+    def __init__(self, config: MeshConfig, device_mesh, data_group):
         self.config = config
-        self._groups = groups
+        self.device_mesh = device_mesh
+        self.data_group = data_group
+        self._groups = {ax: device_mesh.get_group(ax) for ax in MESH_AXES}
         self._ranks = {ax: dist.get_process_group_ranks(g)
-                       for ax, g in groups.items()}
+                       for ax, g in self._groups.items()}
 
     @property
     def shape(self) -> dict:
@@ -143,13 +156,196 @@ def make_mesh(config: Optional[MeshConfig] = None,
     elif axis_sizes:
         raise ValueError("pass either a MeshConfig or axis sizes, not both")
     config = config.resolve(dist.get_world_size())
-    for ax, n in zip(MESH_AXES, config.shape):
-        if n > 1 and ax not in _PORTED_AXES:
-            raise NotImplementedError(
-                f"a {ax} degree above 1 is not ported yet (the port runs "
-                f"{'/'.join(_PORTED_AXES)}; fsdp waits on "
-                f"parallel/distributed_optimizer.py): ROADMAP.md queue A "
-                f"item 7")
     dm = init_device_mesh("cuda" if dist.get_backend() == "nccl" else "cpu",
                           config.shape, mesh_dim_names=MESH_AXES)
-    return Mesh(config, {ax: dm.get_group(ax) for ax in MESH_AXES})
+    if config.fsdp == 1 or config.dp == 1:
+        data = dm.get_group(AXIS_DP if config.fsdp == 1 else AXIS_FSDP)
+    else:
+        # one group for each coordinate of the other axes, created on
+        # every rank in the same order, dp major and fsdp minor
+        ranks = torch.arange(math.prod(config.shape)).reshape(config.shape)
+        data, _ = dist.new_subgroups_by_enumeration(
+            ranks.permute(2, 3, 4, 5, 0, 1).reshape(
+                -1, config.dp * config.fsdp).tolist())
+    return Mesh(config, dm, data)
+
+
+def make_hybrid_mesh(config: Optional[MeshConfig] = None, *,
+                     dcn_dp: int = 1, **axis_sizes: int) -> Mesh:
+    """The JAX package's multi-slice mesh: ``dcn_dp`` slices of
+    contiguous ranks, each resolving ``config`` on its own ranks, with
+    the slices stacked along dp, slice-major (dp index // ici_dp is the
+    slice), so ``dp = dcn_dp * ici_dp``. Ranks in `make_mesh`'s order
+    already are slice-major along dp, so this is `make_mesh` with dp
+    multiplied; the gradient all-reduce over dp has no separate
+    inter-slice stage here (one host, one fabric)."""
+    if dcn_dp < 1:
+        raise ValueError(f"dcn_dp must be >= 1, got {dcn_dp}")
+    if config is None:
+        config = MeshConfig(**axis_sizes) if axis_sizes else MeshConfig()
+    elif axis_sizes:
+        raise ValueError("pass either a MeshConfig or axis sizes, not both")
+    if dcn_dp == 1:
+        return make_mesh(config)
+    world = dist.get_world_size()
+    if world % dcn_dp:
+        raise ValueError(f"{world} ranks do not split into dcn_dp={dcn_dp} "
+                         "slices")
+    ici = config.resolve(world // dcn_dp)
+    return make_mesh(dataclasses.replace(ici, dp=dcn_dp * ici.dp))
+
+
+def local_mesh(**axis_sizes: int) -> Mesh:
+    """The mesh over every rank of the default group."""
+    return make_mesh(MeshConfig(**axis_sizes) if axis_sizes else None)
+
+
+def axis_size(mesh: Mesh, axis: str) -> int:
+    return mesh.shape.get(axis, 1)
+
+
+def data_parallel_size(mesh: Mesh) -> int:
+    """Gradient replicas: dp x fsdp (fsdp shards, then reduces)."""
+    return mesh.size(AXIS_DP) * mesh.size(AXIS_FSDP)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshResource:
+    """Logical axis -> mesh axis binding: models name logical axes
+    ("batch", "embed", "heads", "mlp", "vocab", "seq", "kv", "stages"),
+    a config binds them, so one model runs under any layout."""
+
+    batch: Union[str, tuple, None] = (AXIS_DP, AXIS_FSDP)
+    seq: Optional[str] = AXIS_CP
+    embed: Optional[str] = None
+    heads: Optional[str] = AXIS_TP
+    mlp: Optional[str] = AXIS_TP
+    vocab: Optional[str] = AXIS_TP
+    kv: Optional[str] = None
+    stages: Optional[str] = AXIS_PP
+
+    def spec(self, *logical: Optional[str]):
+        """The `parallel.specs.PartitionSpec` of the logical names (None:
+        a whole dimension)."""
+        from apex1_tpu_torch.parallel.specs import PartitionSpec
+        out = []
+        for name in logical:
+            if name is not None and not hasattr(self, name):
+                raise ValueError(f"unknown logical axis {name!r}")
+            out.append(None if name is None else getattr(self, name))
+        return PartitionSpec(*out)
+
+
+DEFAULT_RESOURCE = MeshResource()
+
+
+def placements(spec, ndim: int, names=MESH_AXES) -> list:
+    """DTensor placements, one per mesh axis of ``names``, for a tensor
+    of ``ndim`` dimensions split by ``spec``: ``Shard(d)`` on each mesh
+    axis that dimension d names, ``Replicate()`` on the others. A
+    dimension split over a tuple of axes takes them major to minor,
+    which must be their order in the mesh."""
+    from torch.distributed.tensor import Replicate, Shard
+    if len(spec) > ndim:
+        raise ValueError(f"spec {spec} names {len(spec)} dimensions of a "
+                         f"{ndim}-d tensor")
+    out = [Replicate()] * len(names)
+    for d, ax in enumerate(spec):
+        if ax is None:
+            continue
+        axes = ax if isinstance(ax, tuple) else (ax,)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx) or len(set(idx)) != len(idx):
+            raise ValueError(f"axes {axes} of spec {spec} must follow the "
+                             f"mesh order {names}")
+        for i in idx:
+            if not isinstance(out[i], Replicate):
+                raise ValueError(f"mesh axis {names[i]} splits two "
+                                 f"dimensions in spec {spec}")
+            out[i] = Shard(d)
+    return out
+
+
+def _spec_axes(spec) -> set:
+    return {a for ax in spec if ax is not None
+            for a in (ax if isinstance(ax, tuple) else (ax,))}
+
+
+def place(params: dict, specs: dict, mesh: Mesh) -> dict:
+    """Each full tensor of ``params`` as a DTensor split by its spec in
+    ``specs`` (`placements`): this rank keeps its block. The tensors
+    must be the same on every rank (no data moves).
+
+    The DTensors live on the part of ``mesh.device_mesh`` spanned by
+    the axes above one rank and the axes the specs name (DTensor's
+    sharding propagation grows with the mesh's rank, and an axis of one
+    rank holding no split changes nothing), so tensors that meet in one
+    operation must come from calls that span the same axes."""
+    from torch.distributed.tensor import distribute_tensor
+    named = set().union(*(_spec_axes(s) for s in specs.values()))
+    axes = tuple(ax for ax in MESH_AXES
+                 if mesh.size(ax) > 1 or ax in named) or (AXIS_DP,)
+    dm = mesh.device_mesh[axes if len(axes) > 1 else axes[0]]
+    return {k: distribute_tensor(v.detach(), dm,
+                                 placements(specs[k], v.ndim, axes),
+                                 src_data_rank=None)
+            for k, v in params.items()}
+
+
+class _MeanGrad(torch.autograd.Function):
+    """The identity, its gradient divided by ``n``."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+def _full(v, data_axes):
+    """A DTensor's full tensor, its gradient as `gather` says; any
+    other value as it is."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    if not isinstance(v, DTensor):
+        return v
+    dm = v.device_mesh
+    data = [i for i, name in enumerate(dm.mesh_dim_names)
+            if name in data_axes]
+    full = v.full_tensor(grad_placements=[
+        Partial() if i in data else Replicate() for i in range(dm.ndim)])
+    n = math.prod(dm.size(i) for i in data)
+    return _MeanGrad.apply(full, n) if n > 1 else full
+
+
+def gather(tree: dict, data_axes=(AXIS_DP, AXIS_FSDP)) -> dict:
+    """The full tensors of ``tree``'s DTensors (other values as they
+    are): `place`'s inverse. Under autograd each gathered tensor's
+    gradient is the mean over the ``data_axes`` ranks (each ran the
+    loss on its own batch) and lands on the DTensor split as the
+    tensor was: a reduce-scatter on the axes that split it, an
+    all-reduce on the data axes that replicate it, nothing on the
+    others (their ranks computed the same gradient)."""
+    return {k: _full(v, data_axes) for k, v in tree.items()}
+
+
+def gathered(*xs) -> tuple:
+    """``xs`` with each DTensor gathered as `gather` does: the operands
+    of a kernel wrapper (a wrapper takes plain tensors only)."""
+    return tuple(_full(x, (AXIS_DP, AXIS_FSDP)) for x in xs)
+
+
+def shard_batch(mesh: Mesh, batch: dict,
+                resource: MeshResource = DEFAULT_RESOURCE) -> dict:
+    """``batch`` placed split along the batch logical axis (dp x fsdp)
+    on dimension 0: each data-parallel rank keeps its rows."""
+    spec = resource.spec("batch")
+    return place(batch, {k: spec for k in batch}, mesh)
+
+
+def replicate(mesh: Mesh, tree: dict) -> dict:
+    """``tree`` placed whole on every rank."""
+    from apex1_tpu_torch.parallel.specs import PartitionSpec
+    return place(tree, {k: PartitionSpec() for k in tree}, mesh)

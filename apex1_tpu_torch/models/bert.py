@@ -24,8 +24,9 @@ and folds site salts 0, 1, 2 off its seed. The port's forward takes
 seeds or one int base seed whose layer i seed is ``fold_seed(base, i)``
 (`ops.stochastic.layer_seeds`); each layer folds the same site salts.
 
-Not here: `param_specs` (tensor-parallel rules) raises, naming ROADMAP.md
-queue A item 7.
+`param_specs` gives the JAX package's tensor-parallel rules for the
+port's names: each ``nn.Linear`` weight is the flax kernel transposed,
+so a kernel's P(None, "tp") is P("tp", None) here.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from apex1_tpu_torch.core.mesh import gathered
 from apex1_tpu_torch.core.policy import PrecisionPolicy, get_policy
 from apex1_tpu_torch.models.gpt2 import _dense, _linear, head_logits
 from apex1_tpu_torch.ops._common import resolve_device
@@ -47,6 +49,7 @@ from apex1_tpu_torch.ops.stochastic import (fold_seed,
                                             fused_dropout_add_layer_norm,
                                             layer_seeds)
 from apex1_tpu_torch.ops.xentropy import softmax_cross_entropy_loss
+from apex1_tpu_torch.parallel.specs import P, specs_from_rules
 
 
 @dataclasses.dataclass(frozen=True)
@@ -258,12 +261,22 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
     return model
 
 
-def param_specs(params, *, rules=None, default=None):
-    """The tensor-parallel sharding rules of the JAX package: the
-    multi-GPU slice."""
-    raise NotImplementedError(
-        "param_specs (tensor-parallel sharding rules) comes with the "
-        "multi-GPU slice: ROADMAP.md queue A item 7 (multi-GPU)")
+_TP_RULES = (
+    (r"word_embeddings$", P("tp", None)),
+    (r"(position|token_type)_embeddings$", P()),
+    (r"(qkv|ffn_in)\.weight$", P("tp", None)),
+    (r"(qkv|ffn_in)\.bias$", P("tp")),
+    (r"(attn_out|ffn_out)\.weight$", P(None, "tp")),
+    (r"(attn_out|ffn_out)\.bias$", P()),
+    (r"mlm_bias$", P("tp")),
+)
+
+
+def param_specs(params: dict, *, rules=_TP_RULES, default=P()) -> dict:
+    """``{name: PartitionSpec}`` for a `Bert` or `BertPretrain`'s
+    parameters (tensor parallel over ``tp``; the first matching rule
+    wins)."""
+    return specs_from_rules(params, rules, default=default)
 
 
 def bert_pretrain_loss_fn(model: BertPretrain, *, ignore_index: int = -1,
@@ -301,9 +314,12 @@ def bert_pretrain_loss_fn(model: BertPretrain, *, ignore_index: int = -1,
             h, nsp_logits = torch.func.functional_call(
                 model, params, (batch["tokens"],),
                 dict(return_mlm_hidden=True, **kw))
-            emb = params["bert.word_embeddings"].to(h.dtype)
+            h, nsp_logits, emb, mlm_bias = gathered(
+                h, nsp_logits, params["bert.word_embeddings"],
+                params["mlm_bias"])
+            emb = emb.to(h.dtype)
             pad = -(h.shape[-1] + 1) % 8
-            w = torch.cat([emb, params["mlm_bias"].to(h.dtype)[:, None],
+            w = torch.cat([emb, mlm_bias.to(h.dtype)[:, None],
                            emb.new_zeros(emb.shape[0], pad)], dim=1)
             ones = h.new_zeros(h.shape[:-1] + (1 + pad,))
             ones[..., 0] = 1.0

@@ -16,16 +16,16 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from apex1_tpu_torch.core.random import split, threefry2x32, u32
 from apex1_tpu_torch.ops._common import NEG_INF, resolve_device
 from apex1_tpu_torch.ops.attention import flash_attention
 from apex1_tpu_torch.ops.paged_decode import (PagedCache, _gumbel_argmax,
                                               _mask_vocab,
                                               _temperature_top_k,
-                                              _threefry2x32, _u32,
                                               _uniform_bits, cache_attend,
                                               fused_sample,
                                               paged_update_attend,
-                                              sample_token, split)
+                                              sample_token)
 
 
 def init_cache(num_layers: int, batch: int, num_kv_heads: int,
@@ -284,7 +284,7 @@ def _split_rows(k1, k2, num: int) -> list:
     """`split` of per-row key data (k1, k2: (B,) int64 tensors of uint32
     values): ``num`` new (k1, k2) pairs, jax's partitionable stream."""
     zero = torch.zeros_like(k1)
-    return [_threefry2x32(k1, k2, zero, torch.full_like(k1, i))
+    return [threefry2x32(k1, k2, zero, torch.full_like(k1, i))
             for i in range(num)]
 
 
@@ -320,7 +320,7 @@ def _speculative_accept(p, q, drafts, key):
         p, q, drafts = p[None], q[None], drafts[None]
     B, K = drafts.shape
     dev = p.device
-    k1, k2 = (_u32(k, dev).reshape(-1).expand(B) for k in key)
+    k1, k2 = (u32(k, dev).reshape(-1).expand(B) for k in key)
     (ku1, ku2), (kc1, kc2) = _split_rows(k1, k2, 2)
     d = drafts.long()[..., None]
     p_at = torch.gather(p[:, :K], 2, d)[..., 0]

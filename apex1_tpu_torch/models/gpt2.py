@@ -32,6 +32,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from apex1_tpu_torch.core.mesh import gathered
 from apex1_tpu_torch.core.policy import PrecisionPolicy, get_policy
 from apex1_tpu_torch.ops._common import resolve_device
 from apex1_tpu_torch.ops.attention import flash_attention
@@ -42,6 +43,7 @@ from apex1_tpu_torch.ops.stochastic import (fold_seed, fused_bias_dropout_add,
                                             layer_seeds)
 from apex1_tpu_torch.ops.xentropy import (masked_next_token_mean,
                                           softmax_cross_entropy_loss)
+from apex1_tpu_torch.parallel.specs import P, specs_from_rules
 
 
 @dataclasses.dataclass(frozen=True)
@@ -317,6 +319,30 @@ def init_params(cfg: GPT2Config, seed: int) -> dict:
     return params
 
 
+# Megatron's tensor-parallel split as name rules (`parallel.specs`): the
+# JAX package's table for the port's names. qkv and fc_in are column
+# parallel (output features split, their bias with them), proj and
+# fc_out row parallel (input features split, bias whole), the token
+# embedding split on the vocabulary. The port's ``nn.Linear`` weight is
+# the flax kernel transposed, so a kernel's P(None, "tp") is P("tp",
+# None) here.
+_TP_RULES = (
+    (r"wte$", P("tp", None)),
+    (r"wpe$", P()),
+    (r"(qkv|fc_in)\.weight$", P("tp", None)),
+    (r"(qkv|fc_in)\.bias$", P("tp")),
+    (r"(proj|fc_out)\.weight$", P(None, "tp")),
+    (r"(proj|fc_out)\.bias$", P()),
+)
+
+
+def param_specs(params: dict, *, rules=_TP_RULES, default=P()) -> dict:
+    """``{name: PartitionSpec}`` for a GPT-2's parameters (tensor
+    parallel over ``tp``; the first matching rule wins): the reference's
+    ``set_tensor_model_parallel_attributes`` as data."""
+    return specs_from_rules(params, rules, default=default)
+
+
 def gpt2_loss_fn(model: GPT2, *, fuse_head: bool = True):
     """``loss_fn(params, tokens, segment_ids=None, positions=None,
     dropout_rng=None) -> scalar`` for `Amp.make_train_step`: the mean
@@ -348,8 +374,9 @@ def gpt2_loss_fn(model: GPT2, *, fuse_head: bool = True):
         if fuse_head:
             h = torch.func.functional_call(
                 model, params, (tokens,), dict(return_hidden=True, **kw))
+            h, wte = gathered(h, params["wte"])
             losses = linear_cross_entropy(
-                h[:, :-1], params["wte"].to(h.dtype), tokens[:, 1:],
+                h[:, :-1], wte.to(h.dtype), tokens[:, 1:],
                 num_classes=model.cfg.vocab_size)
         else:
             logits = torch.func.functional_call(model, params, (tokens,),

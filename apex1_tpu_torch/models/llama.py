@@ -26,8 +26,9 @@ context-parallel group: attention becomes `ring_attention`
 (``cp_impl="ring"``) or `ulysses_attention` (``"ulysses"``), and the
 rotary tables take the shard's global positions.
 
-`param_specs` (the tensor-parallel sharding rules) raises: ROADMAP.md
-queue A item 7.
+`param_specs` gives the JAX package's tensor-parallel rules; the
+projections keep the flax (in, out) layout, so its specs carry over as
+they are.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from apex1_tpu_torch.core.mesh import gathered
 from apex1_tpu_torch.core.policy import PrecisionPolicy, get_policy
 from apex1_tpu_torch.models.gpt2 import head_logits
 from apex1_tpu_torch.ops._common import resolve_device
@@ -49,11 +51,10 @@ from apex1_tpu_torch.ops.linear_xent import linear_cross_entropy
 from apex1_tpu_torch.ops.rope import apply_rotary_pos_emb, rope_tables
 from apex1_tpu_torch.ops.xentropy import (masked_next_token_mean,
                                           softmax_cross_entropy_loss)
+from apex1_tpu_torch.parallel.specs import P, specs_from_rules
 from apex1_tpu_torch.transformer.moe import MoEConfig, MoEMLP
 from apex1_tpu_torch.transformer.tensor_parallel.random import (
     checkpoint_module, checkpoint_policy)
-
-_MULTI_GPU = "ROADMAP.md queue A item 7 (multi-GPU)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -328,12 +329,25 @@ def init_weights(model: Llama, seed: int) -> Llama:
     return model
 
 
-def param_specs(params, *, rules=None, default=None):
-    """The tensor-parallel sharding rules of the JAX package: the
-    multi-GPU slice."""
-    raise NotImplementedError(
-        f"param_specs (tensor-parallel sharding rules) comes with the "
-        f"multi-GPU slice: {_MULTI_GPU}")
+_TP_RULES = (
+    (r"tok_embeddings$", P("tp", None)),          # vocab-split embedding
+    (r"output$", P("tp", None)),                  # vocab-split head
+    (r"w[qkv]$", P(None, "tp")),                  # column-parallel qkv
+    (r"wo$", P("tp", None)),                      # row-parallel out proj
+    (r"w_(gate|up)$", P(None, "tp")),             # column-parallel ffn in
+    (r"w_down$", P("tp", None)),                  # row-parallel ffn out
+    (r"moe\.w[12]$", P("ep", None, None)),        # expert-parallel FFNs
+    (r"moe\.router$", P()),
+    (r".*norm$", P()),                            # replicated norms
+)
+
+
+def param_specs(params: dict, *, rules=_TP_RULES, default=P()) -> dict:
+    """``{name: PartitionSpec}`` for a Llama's parameters, the first
+    matching rule winning: the reference's
+    ``set_tensor_model_parallel_attributes`` on its column and row
+    parallel weights, as data."""
+    return specs_from_rules(params, rules, default=default)
 
 
 def llama_loss_fn(model: Llama, *, fuse_head: bool = True):
@@ -357,8 +371,9 @@ def llama_loss_fn(model: Llama, *, fuse_head: bool = True):
         if fuse_head:
             h, auxes = torch.func.functional_call(
                 model, params, (tokens,), dict(return_hidden=True, **kw))
+            h, out = gathered(h, params["output"])
             losses = linear_cross_entropy(
-                h[:, :-1], params["output"].to(h.dtype), tokens[:, 1:])
+                h[:, :-1], out.to(h.dtype), tokens[:, 1:])
         else:
             logits, auxes = torch.func.functional_call(
                 model, params, (tokens,), kw)

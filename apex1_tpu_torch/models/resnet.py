@@ -25,9 +25,14 @@ params: a training forward returns their new values, and
 `resnet_loss_fn` carries them in and out of the amp step as its aux,
 as the JAX bench carries ``batch_stats``.
 
-Not here: spatial parallelism (``SpatialBottleneck``,
-``spatial_axis_name``) needs the halo exchange, ROADMAP.md queue A
-item 7.
+Spatial parallelism (the reference's ``SpatialBottleneck``): a
+`Bottleneck` with ``spatial_axis_name`` takes its activation split
+along H over that group (a mesh axis of `parallel_state` or a process
+group), its 3x3 convolution exchanges one halo row with each neighbour
+(`parallel.halo.halo_exchange`) and runs VALID on H, the 1x1
+convolutions stay local, and the batch statistics reduce over the batch
+norm's group and the spatial group together, so they cover the whole
+activation. Stride 1 only.
 """
 
 from __future__ import annotations
@@ -43,9 +48,9 @@ from torch import nn
 from apex1_tpu_torch.core.policy import PrecisionPolicy, get_policy
 from apex1_tpu_torch.ops._common import resolve_device
 from apex1_tpu_torch.ops.xentropy import softmax_cross_entropy_loss
+from apex1_tpu_torch.parallel.halo import halo_exchange
+from apex1_tpu_torch.parallel.specs import P
 from apex1_tpu_torch.parallel.sync_batchnorm import SyncBatchNorm
-
-_HALO = "ROADMAP.md queue A item 7 (halo exchange)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,8 +112,11 @@ def max_pool_same(x: torch.Tensor, k: int = 3, s: int = 2) -> torch.Tensor:
     return F.max_pool2d(F.pad(x, (l, r, t, b), value=float("-inf")), k, s)
 
 
-def _bn(cfg: ResNetConfig, c: int, device) -> SyncBatchNorm:
-    return SyncBatchNorm(c, feature_axis=1, axis_name=cfg.bn_axis_name,
+def _bn(cfg: ResNetConfig, c: int, device, spatial=None) -> SyncBatchNorm:
+    axes = tuple(a for a in (cfg.bn_axis_name, spatial) if a is not None)
+    return SyncBatchNorm(c, feature_axis=1,
+                         axis_name=axes if len(axes) > 1 else (
+                             axes[0] if axes else None),
                          group_size=cfg.bn_group_size, device=device)
 
 
@@ -121,43 +129,64 @@ def _norm(bn: SyncBatchNorm, name: str, x, train: bool, stats: dict):
 
 class Bottleneck(nn.Module):
     """1x1 -> 3x3 (stride) -> 1x1 with an identity or projection
-    shortcut (the reference's fused NHWC bottleneck)."""
+    shortcut (the reference's fused NHWC bottleneck); with
+    ``spatial_axis_name`` the H-split block (see the module's
+    docstring)."""
 
     def __init__(self, cfg: ResNetConfig, cin: int, features: int,
                  strides: int = 1, spatial_axis_name=None, device=None):
         super().__init__()
-        if spatial_axis_name is not None:
-            raise NotImplementedError(
-                f"spatial_axis_name (spatial parallelism) is not ported "
-                f"yet: {_HALO}")
+        if spatial_axis_name is not None and strides != 1:
+            raise ValueError("spatial parallelism supports stride 1 only")
         self.cfg = cfg
+        self.spatial = spatial_axis_name
         f = features
         self.conv1 = Conv(cin, f, 1, device=device)
-        self.bn1 = _bn(cfg, f, device)
+        self.bn1 = _bn(cfg, f, device, self.spatial)
         self.conv2 = Conv(f, f, 3, strides, device=device)
-        self.bn2 = _bn(cfg, f, device)
+        self.bn2 = _bn(cfg, f, device, self.spatial)
         self.conv3 = Conv(f, 4 * f, 1, device=device)
-        self.bn3 = _bn(cfg, 4 * f, device)
+        self.bn3 = _bn(cfg, 4 * f, device, self.spatial)
         # the JAX block projects the shortcut where its shape differs
         # from the output's: more channels, or a stride
         self.project = cin != 4 * f or strides != 1
         if self.project:
             self.downsample_conv = Conv(cin, 4 * f, 1, strides,
                                         device=device)
-            self.downsample_bn = _bn(cfg, 4 * f, device)
+            self.downsample_bn = _bn(cfg, 4 * f, device, self.spatial)
 
     def forward(self, x, *, train: bool, stats: dict, prefix: str):
         dt = self.cfg.policy.compute_dtype
         y = F.relu(_norm(self.bn1, f"{prefix}.bn1", self.conv1(x, dt),
                          train, stats))
-        y = F.relu(_norm(self.bn2, f"{prefix}.bn2", self.conv2(y, dt),
-                         train, stats))
+        if self.spatial is None:
+            y = self.conv2(y, dt)
+        else:
+            # one halo row from each neighbour: VALID on H, SAME on W
+            y = halo_exchange(y, self.spatial, halo=1, dim=2)
+            y = F.conv2d(y, self.conv2.weight.to(dt), padding=(0, 1))
+        y = F.relu(_norm(self.bn2, f"{prefix}.bn2", y, train, stats))
         y = _norm(self.bn3, f"{prefix}.bn3", self.conv3(y, dt), train, stats)
         residual = x
         if self.project:
             residual = _norm(self.downsample_bn, f"{prefix}.downsample_bn",
                              self.downsample_conv(x, dt), train, stats)
         return F.relu(y + residual)
+
+
+def _draw_weights(module: nn.Module, seed: int) -> None:
+    """Every ``weight`` normal with variance 1 / fan_in (the JAX
+    package's LeCun scale), from ``seed``; ``fc.bias`` 0."""
+    dev = next(module.parameters()).device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if name.endswith("weight"):
+                fan_in = p[0].numel()
+                p.copy_(torch.randn(p.shape, generator=gen, device=dev)
+                        / math.sqrt(fan_in))
+            elif name == "fc.bias":
+                p.zero_()
 
 
 class ResNet(nn.Module):
@@ -186,15 +215,7 @@ class ResNet(nn.Module):
                 cin = 4 * f
         self.fc = nn.Linear(cin, cfg.num_classes, device=dev,
                             dtype=torch.float32)
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        with torch.no_grad():
-            for name, p in self.named_parameters():
-                if name.endswith("weight"):
-                    fan_in = p[0].numel()
-                    p.copy_(torch.randn(p.shape, generator=gen, device=dev)
-                            / math.sqrt(fan_in))
-                elif name == "fc.bias":
-                    p.zero_()
+        _draw_weights(self, seed)
 
     def forward(self, x: torch.Tensor, *, train: bool = True):
         cfg, dt = self.cfg, self.cfg.policy.compute_dtype
@@ -232,15 +253,22 @@ def resnet_loss_fn(model: ResNet):
 
 
 def SpatialBottleneck(cfg: ResNetConfig, features: int,
-                      spatial_axis_name: str = "cp", **kw):
-    """The reference's H-sharded bottleneck: not ported yet."""
-    raise NotImplementedError(
-        f"SpatialBottleneck (spatial parallelism) is not ported yet: "
-        f"{_HALO}")
+                      spatial_axis_name="cp", *, cin: Optional[int] = None,
+                      device=None, seed: int = 0) -> Bottleneck:
+    """The reference's H-split bottleneck: a stride-1 `Bottleneck` with
+    ``spatial_axis_name`` set (one implementation), its weights drawn
+    from ``seed`` as `ResNet` draws them, on ``device`` (CUDA unless
+    named). ``cin`` defaults to ``4 * features``, the identity
+    shortcut."""
+    block = Bottleneck(cfg, 4 * features if cin is None else cin, features,
+                       1, spatial_axis_name=spatial_axis_name,
+                       device=resolve_device(device))
+    _draw_weights(block, seed)
+    return block
 
 
 def param_specs(params: dict, *, default=None) -> dict:
-    """Every parameter replicated (``default``, None: no sharded axis):
-    a conv net scales by data parallelism and synced statistics, not by
-    sharding its weights, as in the JAX package."""
-    return {k: default for k in params}
+    """Every parameter replicated (``default``, else ``P()``): a conv
+    net scales by data parallelism, synced statistics and spatial
+    parallelism, not by sharding its weights, as in the JAX package."""
+    return {k: default or P() for k in params}

@@ -39,7 +39,9 @@ horizon, not by the bias), remat off under a cache. Cross-attention
 recomputes its K/V from the memory at each step through flash, as in
 the JAX package.
 
-Not here, raising with its ROADMAP.md item: `param_specs` (item 7).
+`param_specs` gives the JAX package's tensor-parallel rules; the
+projections keep the flax (in, out) layout, so its specs carry over as
+they are.
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from apex1_tpu_torch.core.mesh import gathered
 from apex1_tpu_torch.core.policy import PrecisionPolicy, get_policy
 from apex1_tpu_torch.models.gpt2 import head_logits
 from apex1_tpu_torch.models.generate import cached_attention
@@ -59,10 +62,9 @@ from apex1_tpu_torch.ops.attention import flash_attention
 from apex1_tpu_torch.ops.layer_norm import rms_norm
 from apex1_tpu_torch.ops.linear_xent import linear_cross_entropy
 from apex1_tpu_torch.ops.xentropy import softmax_cross_entropy_loss
+from apex1_tpu_torch.parallel.specs import P, specs_from_rules
 from apex1_tpu_torch.transformer.tensor_parallel.random import (
     checkpoint_module, checkpoint_policy)
-
-_MULTI_GPU = "ROADMAP.md queue A item 7 (multi-GPU)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -451,12 +453,21 @@ def init_weights(model: T5, seed: int) -> T5:
     return model
 
 
-def param_specs(params, *, rules=None, default=None):
-    """The tensor-parallel sharding rules of the JAX package: the
-    multi-GPU slice."""
-    raise NotImplementedError(
-        f"param_specs (tensor-parallel sharding rules) comes with the "
-        f"multi-GPU slice: {_MULTI_GPU}")
+_TP_RULES = (
+    (r"shared_embedding$", P("tp", None)),
+    (r"lm_head$", P("tp", None)),
+    (r"w[qkv]$", P(None, "tp")),
+    (r"wo$", P("tp", None)),
+    (r"wi(_[01])?$", P(None, "tp")),
+    (r"rel_bias$", P()),
+    (r".*norm$", P()),
+)
+
+
+def param_specs(params: dict, *, rules=_TP_RULES, default=P()) -> dict:
+    """``{name: PartitionSpec}`` for a T5's parameters (tensor parallel
+    over ``tp``; the first matching rule wins)."""
+    return specs_from_rules(params, rules, default=default)
 
 
 def t5_loss_fn(model: T5, *, fuse_head: bool = True,
@@ -484,10 +495,10 @@ def t5_loss_fn(model: T5, *, fuse_head: bool = True,
             h = torch.func.functional_call(
                 model, params, args,
                 dict(enc_pad_mask=enc_pad_mask, return_hidden=True))
-            w = _head_weight(cfg, params["shared_embedding"],
-                             params.get("lm_head"))
-            losses = linear_cross_entropy(h, w, labels,
-                                          padding_idx=label_pad_id)
+            h, emb, head = gathered(h, params["shared_embedding"],
+                                    params.get("lm_head"))
+            losses = linear_cross_entropy(h, _head_weight(cfg, emb, head),
+                                          labels, padding_idx=label_pad_id)
         else:
             logits = torch.func.functional_call(
                 model, params, args, dict(enc_pad_mask=enc_pad_mask))

@@ -22,6 +22,7 @@ import contextlib
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 _IMPL = "auto"  # "auto" | "kernel" | "torch"
 
@@ -85,12 +86,17 @@ def sm_count(device: torch.device) -> int:
 
 
 def check_cuda(name: str, *tensors: Optional[torch.Tensor]) -> None:
-    """Shared wrapper checks: every operand on one CUDA device and
-    contiguous (the kernels index raw pointers with dense strides)."""
+    """Shared wrapper checks: every operand a plain tensor (a DTensor's
+    ``data_ptr`` is not its data: gather it first, `core.mesh.gathered`),
+    on one CUDA device and contiguous (the kernels index raw pointers
+    with dense strides)."""
     dev = None
     for t in tensors:
         if t is None:
             continue
+        if isinstance(t, DTensor):
+            raise TypeError(f"{name}: got a DTensor; the kernel takes plain "
+                            f"tensors (gather it with core.mesh.gathered)")
         if not t.is_cuda:
             raise ValueError(f"{name}: every operand must be on CUDA, "
                              f"got {t.device}")

@@ -4,11 +4,9 @@
 - :func:`cache_attend` — the dense decode/chunk attention composite
   (query j of a chunk sees cache slots <= index + j).
 - :func:`sample_token` / :func:`_temperature_top_k` — the sampling
-  pipeline, with jax's threefry-2x32 stream re-derived in integer ops
-  (`_threefry2x32`, `_uniform_bits`, `_bits_to_gumbel`, `_row_keys`),
-  so the port draws the same token ids as ``fold_in(key(seed), pos)`` +
-  ``jax.random.categorical``. uint32 arithmetic runs in int64 tensors
-  masked to 32 bits (torch's uint32 lacks some operators).
+  pipeline, on `core.random`'s threefry-2x32 block (`_uniform_bits`,
+  `_bits_to_gumbel`, `_row_keys`), so the port draws the same token ids
+  as ``fold_in(key(seed), pos)`` + ``jax.random.categorical``.
 - :func:`fused_sample` — the sampling epilogue; CUDA tensors launch
   ``csrc/fused_sample.cu``, split over the vocab (`sample_splits`).
 - :class:`PagedCache` + :func:`paged_update_attend` — the per-layer
@@ -31,14 +29,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from apex1_tpu_torch.core.random import threefry2x32, u32
 from apex1_tpu_torch.ops import _build
 from apex1_tpu_torch.ops._common import (DTYPE_CODES, NEG_INF, check_cuda,
                                          sm_count, use_kernel)
 
-_M32 = 0xFFFFFFFF
 _TINY = float(np.finfo(np.float32).tiny)
 _ONE_MINUS_TINY = float(np.float32(np.float32(1.0) - np.float32(_TINY)))
-_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
 # ---- shared attention composite ---------------------------------------
@@ -100,27 +97,6 @@ def cache_attend(q, k_all, v_all, cache_index, *,
 # ---- the threefry-2x32 stream -----------------------------------------
 
 
-def _u32(x, device=None) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.int64, device=device) & _M32
-
-
-def _threefry2x32(k1, k2, x0, x1):
-    """The 20-round threefry-2x32 block over int64 tensors holding
-    uint32 values — jax's ``threefry2x32`` op for op (key schedule,
-    rotation constants, round-group injections)."""
-    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
-    x0 = (x0 + ks[0]) & _M32
-    x1 = (x1 + ks[1]) & _M32
-    for i in range(5):
-        for r in _ROTATIONS[i % 2]:
-            x0 = (x0 + x1) & _M32
-            x1 = ((x1 << r) | (x1 >> (32 - r))) & _M32
-            x1 = x1 ^ x0
-        x0 = (x0 + ks[(i + 1) % 3]) & _M32
-        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
-    return x0, x1
-
-
 def _uniform_bits(k1, k2, col, n: int, partitionable: bool = True):
     """The uint32 draw at flat position ``col`` of an n-element
     ``jax.random`` draw over key (k1, k2), in either threefry stream:
@@ -130,9 +106,9 @@ def _uniform_bits(k1, k2, col, n: int, partitionable: bool = True):
       ``y0 ^ y1``.
     - original: counts = iota(n), zero-padded to even and split in
       halves; each position recomputes its half-pair partner."""
-    col = _u32(col)
+    col = u32(col)
     if partitionable:
-        y0, y1 = _threefry2x32(k1, k2, torch.zeros_like(col), col)
+        y0, y1 = threefry2x32(k1, k2, torch.zeros_like(col), col)
         return y0 ^ y1
     odd = n % 2
     h = (n + odd) // 2
@@ -142,7 +118,7 @@ def _uniform_bits(k1, k2, col, n: int, partitionable: bool = True):
     if odd:
         # the last second-half lane's counter is the pad zero
         b_idx = torch.where(b_idx == n, torch.zeros_like(b_idx), b_idx)
-    y0, y1 = _threefry2x32(k1, k2, a_idx, b_idx)
+    y0, y1 = threefry2x32(k1, k2, a_idx, b_idx)
     return torch.where(lo, y0, y1)
 
 
@@ -162,29 +138,10 @@ def _row_keys(seeds, positions):
     ``fold_in(key(seed), pos)`` per row, each an (R,) int64 tensor of
     uint32 values. ``key(seed)`` is (0, seed); ``fold_in`` is one
     threefry block of the counter (0, pos) under that key."""
-    seeds = _u32(seeds)
-    positions = _u32(positions, seeds.device)
-    return _threefry2x32(torch.zeros_like(seeds), seeds,
+    seeds = u32(seeds)
+    positions = u32(positions, seeds.device)
+    return threefry2x32(torch.zeros_like(seeds), seeds,
                          torch.zeros_like(positions), positions)
-
-
-def split(key, num: int = 2, *, partitionable: bool = True) -> list:
-    """``jax.random.split`` of the threefry key data ``key = (k1, k2)``:
-    ``num`` new keys, each a pair of Python ints (uint32 values).
-
-    - partitionable: key i is the threefry block of the counter (0, i);
-    - original: the counters iota(2·num) split in halves, x0 = [0, num)
-      and x1 = [num, 2·num); the block's two outputs concatenated and
-      read as (num, 2) rows."""
-    k1, k2 = (_u32(k) for k in key)
-    idx = torch.arange(num, dtype=torch.int64)
-    if partitionable:
-        y0, y1 = _threefry2x32(k1, k2, torch.zeros_like(idx), idx)
-        pairs = torch.stack([y0, y1], dim=1)
-    else:
-        y0, y1 = _threefry2x32(k1, k2, idx, idx + num)
-        pairs = torch.cat([y0, y1]).reshape(num, 2)
-    return [(int(a), int(b)) for a, b in pairs.tolist()]
 
 
 # ---- sampling -----------------------------------------------------------
@@ -241,7 +198,7 @@ def sample_token(logits, key, *, temperature: float = 0.0,
         return torch.argmax(logits, dim=-1).to(torch.int32)
     logits = _temperature_top_k(logits, temperature, top_k, vocab_size)
     B, V = logits.shape
-    k1, k2 = (_u32(k, logits.device) for k in key)
+    k1, k2 = (u32(k, logits.device) for k in key)
     flat = torch.arange(B * V, device=logits.device).reshape(B, V)
     g = _bits_to_gumbel(_uniform_bits(k1, k2, flat, B * V, partitionable))
     return torch.argmax(g + logits, dim=-1).to(torch.int32)

@@ -18,6 +18,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from apex1_tpu_torch.ops import _build
 from apex1_tpu_torch.ops._common import (DTYPE_CODES, NEG_INF, check_cuda,
@@ -76,6 +77,9 @@ def _check(x3, labels, name):
     """The logits may be strided over their leading axes (the kernels
     take those strides), so they are checked here, not by
     `check_cuda`."""
+    if isinstance(x3, DTensor) or isinstance(labels, DTensor):
+        raise TypeError(f"{name}: got a DTensor; the kernel takes plain "
+                        f"tensors (gather it with core.mesh.gathered)")
     if x3.dtype not in _DTYPES or x3.stride(2) != 1:
         raise ValueError(f"{name}: logits must be f32/bf16/f16 with a "
                          f"dense last axis, got {x3.dtype} strides "

@@ -5,14 +5,17 @@
 As in the reference, the world's ranks are carved into groups once and
 the getters answer from module-level state. The groups come from
 `core.mesh.make_mesh`: tp innermost (contiguous ranks), then cp, then
-dp outermost, dp inferred from the world size. Group getters return
-``ProcessGroup``s where the JAX package returns axis names, and rank
-getters plain integers where it returns traced axis indices.
+pp, then fsdp and dp outermost, dp inferred from the world size. Group
+getters return ``ProcessGroup``s where the JAX package returns axis
+names, and rank getters plain integers where it returns traced axis
+indices.
 
-The virtual pipeline's size and rank are module state, as in the JAX
-module: the interleaved schedule's bookkeeping, read by the
-virtual-aware `is_pipeline_first_stage` / `is_pipeline_last_stage`.
-fsdp above 1 raises (ROADMAP.md queue A item 7).
+The data-parallel group is dp x fsdp together, as in the JAX module:
+both replicate the gradients (fsdp also shards the parameters and the
+optimizer state). The virtual pipeline's size and rank are module
+state, as in the JAX module: the interleaved schedule's bookkeeping,
+read by the virtual-aware `is_pipeline_first_stage` /
+`is_pipeline_last_stage`.
 """
 
 from __future__ import annotations
@@ -22,8 +25,8 @@ from typing import Optional
 
 import torch.distributed as dist
 
-from apex1_tpu_torch.core.mesh import (AXIS_CP, AXIS_DP, AXIS_PP, AXIS_TP,
-                                       Mesh, MeshConfig, make_mesh)
+from apex1_tpu_torch.core.mesh import (AXIS_CP, AXIS_DP, AXIS_FSDP, AXIS_PP,
+                                       AXIS_TP, Mesh, MeshConfig, make_mesh)
 
 _MESH: Optional[Mesh] = None
 _VIRTUAL_PP_SIZE: Optional[int] = None
@@ -108,9 +111,9 @@ def get_pipeline_model_parallel_group():
 
 
 def get_data_parallel_group():
-    """The dp group (fsdp is 1 in the port, so dp alone replicates the
-    gradients)."""
-    return get_mesh().group(AXIS_DP)
+    """The dp x fsdp group: both axes replicate the gradients (fsdp
+    shards them)."""
+    return get_mesh().data_group
 
 
 def get_context_parallel_group():
@@ -144,7 +147,7 @@ def get_pipeline_model_parallel_world_size() -> int:
 
 
 def get_data_parallel_world_size() -> int:
-    return get_mesh().size(AXIS_DP)
+    return get_mesh().size(AXIS_DP) * get_mesh().size(AXIS_FSDP)
 
 
 def get_context_parallel_world_size() -> int:
@@ -166,7 +169,9 @@ def get_pipeline_model_parallel_rank() -> int:
 
 
 def get_data_parallel_rank() -> int:
-    return get_mesh().index(AXIS_DP)
+    """The index in the dp x fsdp group, dp major."""
+    mesh = get_mesh()
+    return mesh.index(AXIS_DP) * mesh.size(AXIS_FSDP) + mesh.index(AXIS_FSDP)
 
 
 def get_context_parallel_rank() -> int:

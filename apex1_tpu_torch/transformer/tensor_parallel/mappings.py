@@ -46,7 +46,7 @@ import torch.distributed as dist
 
 #: calls of each collective kind since the last `reset_collectives`
 COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0,
-               "send_recv": 0, "all_to_all": 0}
+               "send_recv": 0, "all_to_all": 0, "broadcast": 0}
 
 
 #: ring steps posted (each `Hop`) or entered (each ring attention call,

@@ -1,6 +1,17 @@
-"""Activation checkpointing (the port of `checkpoint_policy` and
-`checkpoint_with_policy` in ``apex1_tpu/transformer/tensor_parallel/
-random.py``; reference ``tensor_parallel/random.py :: checkpoint``).
+"""The RNG tracker and activation checkpointing (the port of
+``apex1_tpu/transformer/tensor_parallel/random.py``; reference
+``tensor_parallel/random.py :: CudaRNGStatesTracker,
+model_parallel_cuda_manual_seed, checkpoint``).
+
+`RNGStatesTracker` keeps named RNG domains as `core.random` keys (jax's
+threefry key data, no mutable generator state): ``add(name, seed)``
+registers one, ``fork(name)`` hands out its key with this rank's
+tensor-parallel index folded in (any domain, as the JAX tracker's
+``fork``), so dropout differs across the tp ranks. Outside a
+tensor-parallel group
+(no `parallel_state` mesh) ``fork`` returns the key as it is, one
+rank's semantics. `model_parallel_seed` seeds ``default`` with the seed
+and ``model-parallel-rng`` with the seed + 2718, as the reference.
 
 A policy is named as in ``jax.checkpoint_policies``:
 
@@ -21,8 +32,7 @@ parameters as the checkpoint's inputs (Llama's and T5's remat).
 
 The other names JAX knows (the name-based and offloading policies)
 raise NotImplementedError; an unknown name raises ValueError at once,
-so a typo fails where a config is made. The RNG tracker of the JAX
-module comes with the multi-GPU slice (ROADMAP.md queue A item 7).
+so a typo fails where a config is made.
 """
 
 from __future__ import annotations
@@ -32,6 +42,63 @@ from typing import Callable
 
 import torch
 import torch.utils.checkpoint as ckpt
+
+from apex1_tpu_torch.core.mesh import AXIS_TP
+from apex1_tpu_torch.core.random import fold_in, prng_key
+
+_MODEL_PARALLEL_RNG = "model-parallel-rng"
+
+
+class RNGStatesTracker:
+    """``CudaRNGStatesTracker``'s named domains as threefry keys."""
+
+    def __init__(self):
+        self._keys: dict = {}
+
+    def reset(self) -> None:
+        self._keys.clear()
+
+    def get_states(self) -> dict:
+        return dict(self._keys)
+
+    def set_states(self, states: dict) -> None:
+        self._keys = dict(states)
+
+    def add(self, name: str, seed: int) -> None:
+        if name in self._keys:
+            raise RuntimeError(f"rng domain {name} already present")
+        self._keys[name] = prng_key(seed)
+
+    def fork(self, name: str = _MODEL_PARALLEL_RNG, *, tp_axis=AXIS_TP):
+        """The domain's key, with this rank's index in ``tp_axis`` (a
+        mesh axis of `parallel_state` or a process group) folded in;
+        the key as it is when there is no such group or ``tp_axis`` is
+        None."""
+        from apex1_tpu_torch.transformer import parallel_state
+        key = self._keys[name]
+        group = (None if tp_axis is None
+                 else parallel_state.resolve_group(tp_axis))
+        if group is not None:
+            key = fold_in(key, parallel_state.group_size_rank(group)[1])
+        return key
+
+
+_TRACKER = RNGStatesTracker()
+
+
+def get_rng_tracker() -> RNGStatesTracker:
+    """``get_cuda_rng_tracker``."""
+    return _TRACKER
+
+
+def model_parallel_seed(seed: int) -> None:
+    """``model_parallel_cuda_manual_seed(seed)``: the ``default`` domain
+    seeded ``seed`` (the same on every tp rank), the model-parallel one
+    ``seed + 2718``, its per-rank fold applied at ``fork``."""
+    _TRACKER.reset()
+    _TRACKER.add("default", seed)
+    _TRACKER.add(_MODEL_PARALLEL_RNG, seed + 2718)
+
 
 #: every name of ``jax.checkpoint_policies``
 JAX_POLICIES = (
@@ -91,6 +158,12 @@ def checkpoint_with_policy(fn: Callable, policy_name: str) -> Callable:
         return ckpt.checkpoint(fn, *args, **kw, **kwargs)
 
     return wrapped
+
+
+def checkpoint(fn: Callable) -> Callable:
+    """``fn`` recomputed in full in the backward (the reference's
+    ``checkpoint``, JAX's ``jax.checkpoint``)."""
+    return checkpoint_with_policy(fn, "nothing_saveable")
 
 
 def checkpoint_module(module: torch.nn.Module, policy_name: str, *args):

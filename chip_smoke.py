@@ -1973,6 +1973,16 @@ ROPE_CASES = [
      "per_row", False, 1.0, True),
     ("head_dim 64 verify chunk, per-row", (8, 5, 32, 64), "bfloat16",
      "per_row", False, 1.0, False),
+    # the bench's llama_3d (LLAMA_08B widths, 1 x L3D_S a microbatch):
+    # q and k, forward and backward
+    ("llama_3d q", (1, 2048, 32, 64), "bfloat16", "shared", False, 1.0,
+     False),
+    ("llama_3d q backward (-sin)", (1, 2048, 32, 64), "bfloat16", "shared",
+     False, -1.0, False),
+    ("llama_3d k, 4 KV heads", (1, 2048, 4, 64), "bfloat16", "shared",
+     False, 1.0, False),
+    ("llama_3d k backward (-sin)", (1, 2048, 4, 64), "bfloat16", "shared",
+     False, -1.0, False),
 ]
 
 
@@ -3419,19 +3429,31 @@ def kernel_split(torch, prof, steps: int, wall: float, top: int = 12):
                     for k, ms, c in rows[:top]]}
 
 
-def profiled_steps(torch, state, step, batch, steps: int = 3) -> dict:
-    """``steps`` more steps under torch.profiler: the step's host wall,
-    device kernel ms and busy share, and the largest kernels."""
+def profiled_calls(torch, fn, calls: int = 3, top: int = 12) -> dict:
+    """`kernel_split` of ``calls`` calls of ``fn()`` under
+    torch.profiler (a call's host wall, device ms and busy share, the
+    ``top`` largest kernels)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            state, _ = step(state, *batch)
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / steps * 1e3
-    return kernel_split(torch, prof, steps, wall, top=25)
+        wall = (time.perf_counter() - t0) / calls * 1e3
+    return kernel_split(torch, prof, calls, wall, top=top)
+
+
+def profiled_steps(torch, state, step, batch, steps: int = 3) -> dict:
+    """``steps`` more steps under torch.profiler: the step's host wall,
+    device kernel ms and busy share, and the largest kernels."""
+    box = [state]
+
+    def one():
+        box[0], _ = step(box[0], *batch)
+
+    return profiled_calls(torch, one, steps, top=25)
 
 
 def profile_train(torch, use_flash: bool, fuse_head: bool = False,
@@ -3514,17 +3536,21 @@ def packed_batch(torch, vocab: int):
 
 def make_trainer(torch, level: str, depth: int, seed: int, factor=False,
                  use_flash=False, packed=False, fuse_head=False,
-                 dropout=0.0, grad_psum_axes=()):
+                 dropout=0.0, grad_psum_axes=(), tx=None, fsdp=False):
     """GPT-2 124M at full width (``depth`` layers), weights from
     ``seed``, under ``Amp(fused_adam(1e-4, weight_decay=0.01),
-    opt_level=level)``, its loss ``gpt2_loss_fn(fuse_head=...)``, and
-    its batch: the B x S tokens of ``np.random.default_rng(0)``, or
-    with ``packed`` a `packed_batch`; with ``dropout`` the model's
-    dropout rate, the batch ending in an int base seed (``dropout_rng``,
-    the tokens not packed).
+    opt_level=level)`` (or the optimizer ``tx``), its loss
+    ``gpt2_loss_fn(fuse_head=...)``, and its batch: the B x S tokens of
+    ``np.random.default_rng(0)``, or with ``packed`` a `packed_batch`;
+    with ``dropout`` the model's dropout rate, the batch ending in an
+    int base seed (``dropout_rng``, the tokens not packed).
     With ``factor`` the step takes a factor before the batch that
     multiplies the loss (inf forces an overflow); ``grad_psum_axes``
-    averages the gradients over those mesh axes (the ddp phase)."""
+    averages the gradients over those mesh axes (the ddp phase). With
+    ``fsdp`` the master params and the Adam moments are placed on
+    `parallel_state`'s mesh by `fsdp_param_specs` and
+    `shard_opt_state_specs`, and the loss gathers the params first
+    (`core.mesh.gather`: ZeRO-3, the train-fsdp phase)."""
     import numpy as np
     from apex1_tpu_torch import (Amp, GPT2Config, fused_adam, get_policy,
                                  gpt2_loss_fn, gpt2_params_from_jax)
@@ -3532,10 +3558,19 @@ def make_trainer(torch, level: str, depth: int, seed: int, factor=False,
     cfg = GPT2Config.gpt2_125m(num_layers=depth, use_flash=use_flash,
                                policy=get_policy(level), dropout=dropout)
     model = gpt2_params_from_jax(init_params(cfg, seed), cfg, "cuda")
-    amp = Amp(fused_adam(1e-4, weight_decay=0.01), opt_level=level,
+    amp = Amp(tx or fused_adam(1e-4, weight_decay=0.01), opt_level=level,
               grad_psum_axes=grad_psum_axes)
-    state = amp.init(dict(model.named_parameters()))
-    base = gpt2_loss_fn(model, fuse_head=fuse_head)
+    params = dict(model.named_parameters())
+    if fsdp:
+        state = fsdp_state(amp, params)
+        base0 = gpt2_loss_fn(model, fuse_head=fuse_head)
+
+        def base(p, *b):
+            from apex1_tpu_torch.core.mesh import gather
+            return base0(gather(p), *b)
+    else:
+        state = amp.init(params)
+        base = gpt2_loss_fn(model, fuse_head=fuse_head)
     loss_fn = (lambda p, f, *b: base(p, *b) * f) if factor else base
     if packed:
         batch = packed_batch(torch, cfg.vocab_size)
@@ -3545,6 +3580,26 @@ def make_trainer(torch, level: str, depth: int, seed: int, factor=False,
     if dropout > 0.0:
         batch = batch + (None, None, SEED)
     return cfg, state, amp.make_train_step(loss_fn), batch
+
+
+def fsdp_state(amp, params: dict):
+    """``amp.init`` of ``params`` placed on `parallel_state`'s mesh by
+    `fsdp_param_specs` (divisor: the fsdp degree), its moments placed
+    by `shard_opt_state_specs` (each split as its parameter)."""
+    import dataclasses
+    from apex1_tpu_torch.core.mesh import place
+    from apex1_tpu_torch.parallel.distributed_optimizer import (
+        fsdp_param_specs, shard_opt_state_specs)
+    from apex1_tpu_torch.transformer import parallel_state as ps
+    mesh = ps.get_mesh()
+    specs = fsdp_param_specs(params, divisor=mesh.size("fsdp"))
+    state = amp.init(place(params, specs, mesh))
+    opt = state.opt_state
+    sspecs = shard_opt_state_specs(opt, param_specs=specs)
+    opt = dataclasses.replace(opt, **{
+        f: place(getattr(opt, f), getattr(sspecs, f), mesh)
+        for f in ("exp_avg", "exp_avg_sq")})
+    return dataclasses.replace(state, opt_state=opt)
 
 
 def train(torch, ops, level: str, use_flash=False, packed=False,
@@ -3559,6 +3614,12 @@ def train(torch, ops, level: str, use_flash=False, packed=False,
                                            fuse_head=fuse_head,
                                            dropout=dropout)
     return (cfg, *run_steps(torch, ops, state, step, batch, steps))
+
+
+def scalar(x) -> float:
+    """A 0-d tensor's value; a DTensor's (a placed step's grad norm)
+    after its reduction."""
+    return (x.full_tensor() if hasattr(x, "full_tensor") else x).item()
 
 
 def run_steps(torch, ops, state, step, batch, steps: int,
@@ -3576,10 +3637,10 @@ def run_steps(torch, ops, state, step, batch, steps: int,
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
         now = ops.launch_counts()
-        rows.append(dict(step=i + 1, wall_ms=wall, loss=m["loss"].item(),
-                         grad_norm=m["grad_norm"].item(),
-                         loss_scale=m["loss_scale"].item(),
-                         skipped=int(m["skipped_steps"].item()),
+        rows.append(dict(step=i + 1, wall_ms=wall, loss=scalar(m["loss"]),
+                         grad_norm=scalar(m["grad_norm"]),
+                         loss_scale=scalar(m["loss_scale"]),
+                         skipped=int(scalar(m["skipped_steps"])),
                          launches={k: now[k] - prev[k] for k in now
                                    if now[k] != prev[k]}))
         prev = now
@@ -4210,8 +4271,9 @@ def top2_gap(torch, logits, row: int, step: int, temperature: float,
     over at ``step`` for ``row``: the logits (greedy), or logits /
     temperature plus the step's gumbel noise (the key(0) chain split
     once a step, as `generate` does)."""
+    from apex1_tpu_torch.core.random import split
     from apex1_tpu_torch.ops.paged_decode import (_bits_to_gumbel,
-                                                  _uniform_bits, split)
+                                                  _uniform_bits)
     B, V = logits.shape
     sc = logits[row].double().clone()
     sc[vocab:] = -1e30
@@ -4292,15 +4354,16 @@ def bert_batch(torch, vocab: int, B: int, dropout: float, padded: bool):
 
 def make_bert_trainer(torch, level: str, large: bool, seed: int, *, B: int,
                       dropout: float, depth=None, fuse_head=True,
-                      factor=False, padded=False, lr: float = 1e-4):
+                      factor=False, padded=False, lr: float = 1e-4,
+                      tx=None):
     """`make_bert` under ``Amp(fused_adam(lr, weight_decay=0.01),
-    opt_level=level)`` (the bench's optimizer at lr 1e-4), its loss
-    ``bert_pretrain_loss_fn(fuse_head=...)`` and its `bert_batch`. With
-    ``factor`` the step takes a factor before the batch that multiplies
-    the loss (inf forces an overflow)."""
+    opt_level=level)`` (the bench's optimizer at lr 1e-4; or the
+    optimizer ``tx``), its loss ``bert_pretrain_loss_fn(fuse_head=...)``
+    and its `bert_batch`. With ``factor`` the step takes a factor before
+    the batch that multiplies the loss (inf forces an overflow)."""
     from apex1_tpu_torch import Amp, bert_pretrain_loss_fn, fused_adam
     cfg, model = make_bert(level, large, seed, dropout, depth)
-    amp = Amp(fused_adam(lr, weight_decay=0.01), opt_level=level)
+    amp = Amp(tx or fused_adam(lr, weight_decay=0.01), opt_level=level)
     state = amp.init(dict(model.named_parameters()))
     base = bert_pretrain_loss_fn(model, fuse_head=fuse_head)
     loss_fn = (lambda p, f, b: base(p, b) * f) if factor else base
@@ -6430,6 +6493,308 @@ def run_llama_3d_parity(torch, ops, card):
     return out, None
 
 
+# ---- the sharded data-parallel slice: fsdp, ZeRO, LAMB, halo ------------
+
+#: train-fsdp, train-zero and train-bert-lamb: steps of each run
+ZERO_STEPS = 3
+#: spatial-bottleneck: ResNet-50's stage-1 stride-1 bottleneck, the
+#: train-resnet batch: 64 x 56 x 56 x 256 in, features 64
+SPATIAL_B, SPATIAL_HW, SPATIAL_F = 64, 56, 64
+
+
+def full_params(params: dict) -> dict:
+    """The state's params as plain full tensors (placed ones gathered)."""
+    from apex1_tpu_torch.core.mesh import gather
+    return {k: v.detach() for k, v in gather(params).items()}
+
+
+def zero_pair(torch, ops, names, make, steps: int = ZERO_STEPS):
+    """Two trainers (``make(name) -> (cfg, state, step, batch)``) run
+    ``steps`` steps each: per run the rows, the full params, the
+    kernel launches and the collective calls (all counted from 0), then
+    3 more steps under torch.profiler (`profiled_steps`)."""
+    from apex1_tpu_torch.transformer.tensor_parallel import mappings
+    runs = {}
+    for name in names:
+        ops.reset_launches()
+        mappings.reset_collectives()
+        cfg, state, step, batch = make(name)
+        rows, peak, state = run_steps(torch, ops, state, step, batch, steps,
+                                      return_state=True)
+        runs[name] = dict(rows=rows, peak=peak, cfg=cfg,
+                          params=full_params(state.params),
+                          launches={k: v for k, v in
+                                    ops.launch_counts().items() if v},
+                          collectives={k: v for k, v in
+                                       mappings.collective_counts().items()
+                                       if v})
+        runs[name]["profile"] = profiled_steps(torch, state, step, batch)
+        del state, step, batch
+        torch.cuda.empty_cache()
+    return runs
+
+
+def step_walls(runs: dict) -> str:
+    """Each run's step walls, then its device ms a step and busy share
+    over the profiled steps."""
+    return "; ".join(
+        f"{k}: step walls ms {[round(r['wall_ms'], 2) for r in v['rows']]}, "
+        f"device {v['profile']['device_ms_per_step']:.3f} ms a step in a "
+        f"{v['profile']['step_wall_ms']:.2f} ms profiled step (busy "
+        f"{v['profile']['device_busy']:.3f})" for k, v in runs.items())
+
+
+def run_fsdp(torch, ops, card, launches):
+    """train-fsdp: GPT-2 124M (flash, fused head) at O2 on the training
+    batch, ZERO_STEPS steps with the fp32 masters and the Adam moments
+    placed on the one-rank NCCL fsdp mesh (`fsdp_param_specs`,
+    `shard_opt_state_specs`) and gathered in the loss (ZeRO-3), against
+    the same steps unplaced: losses and params bit for bit (the mean
+    over one rank is exact), the same kernel launches a step. Then a
+    placed (DTensor) operand handed to a kernel wrapper must raise,
+    naming the kernel, and launch nothing. Adds the placed run's
+    launches to ``launches``."""
+    runs = zero_pair(torch, ops, ("plain", "fsdp"), lambda name: (
+        make_trainer(torch, "O2", 12, SEED, use_flash=True, fuse_head=True,
+                     fsdp=name == "fsdp")))
+    for k, v in runs["fsdp"]["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    same_loss = [a["loss"] == b["loss"] for a, b in
+                 zip(runs["fsdp"]["rows"], runs["plain"]["rows"])]
+    same_params = all(torch.equal(runs["fsdp"]["params"][k], p)
+                      for k, p in runs["plain"]["params"].items())
+    same_launches = ([r["launches"] for r in runs["fsdp"]["rows"]]
+                     == [r["launches"] for r in runs["plain"]["rows"]])
+    # a DTensor at a kernel wrapper: the fsdp-placed token embedding
+    from apex1_tpu_torch.core.mesh import place
+    from apex1_tpu_torch.ops.layer_norm import layer_norm_fwd
+    from apex1_tpu_torch.parallel.specs import P
+    from apex1_tpu_torch.transformer import parallel_state as ps
+    x = place({"x": torch.randn(4096, 768, device="cuda")},
+              {"x": P("fsdp", None)}, ps.get_mesh())["x"]
+    g = torch.ones(768, device="cuda")
+    ops.reset_launches()
+    try:
+        layer_norm_fwd(x, g, g, 1e-5, False)
+        refused = "no error"
+    except (TypeError, RuntimeError) as e:
+        refused = f"{type(e).__name__}: {e}"
+    dtensor_ok = ("layer_norm_fwd" in refused
+                  and not any(ops.launch_counts().values()))
+    print(f"phase train-fsdp: GPT-2 124M O2 flash fused head B={TB} S={TS}, "
+          f"{ZERO_STEPS} steps, masters and moments placed by "
+          f"fsdp_param_specs on a one-rank NCCL fsdp mesh and gathered in "
+          f"the loss vs unplaced: losses "
+          f"{[r['loss'] for r in runs['fsdp']['rows']]} equal {same_loss}, "
+          f"params bit-identical {same_params}, launches a step equal "
+          f"{same_launches} ({runs['fsdp']['rows'][0]['launches']}); "
+          f"collectives {runs['fsdp']['collectives']}; {step_walls(runs)}; "
+          f"peak GiB "
+          f"{runs['fsdp']['peak']:.2f} vs {runs['plain']['peak']:.2f}; a "
+          f"DTensor at layer_norm_fwd: {refused!r} [{card}]")
+    out = dict(rows={k: v["rows"] for k, v in runs.items()},
+               same_loss=same_loss, same_params=same_params,
+               same_launches=same_launches, dtensor_refused=refused)
+    del runs, x
+    torch.cuda.empty_cache()
+    if not (all(same_loss) and same_params and same_launches):
+        return out, "train-fsdp: the placed steps differ from the plain ones"
+    if not dtensor_ok:
+        return out, f"train-fsdp: a DTensor at a kernel wrapper: {refused}"
+    return out, None
+
+
+def run_zero(torch, ops, card, launches):
+    """train-zero: the train-fsdp trainer unplaced, its optimizer
+    ``distributed_fused_adam(1e-4, weight_decay=0.01)`` on the one-rank
+    fsdp group against ``fused_adam`` with the same arguments: the same
+    element-wise fp32 update on the flat slice, so losses and params
+    bit for bit; one reduce-scatter and one all-gather a step; the same
+    kernel launches. Adds the ZeRO run's launches to ``launches``."""
+    from apex1_tpu_torch import fused_adam
+    from apex1_tpu_torch.contrib import distributed_fused_adam
+    txs = {"fused_adam": fused_adam(1e-4, weight_decay=0.01),
+           "zero": distributed_fused_adam(1e-4, weight_decay=0.01)}
+    runs = zero_pair(torch, ops, tuple(txs), lambda name: make_trainer(
+        torch, "O2", 12, SEED, use_flash=True, fuse_head=True,
+        tx=txs[name]))
+    for k, v in runs["zero"]["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    same_loss = [a["loss"] == b["loss"] for a, b in
+                 zip(runs["zero"]["rows"], runs["fused_adam"]["rows"])]
+    same_params = all(torch.equal(runs["zero"]["params"][k], p)
+                      for k, p in runs["fused_adam"]["params"].items())
+    same_launches = runs["zero"]["launches"] == runs["fused_adam"]["launches"]
+    coll = runs["zero"]["collectives"]
+    want_coll = {"reduce_scatter": ZERO_STEPS, "all_gather": ZERO_STEPS}
+    print(f"phase train-zero: GPT-2 124M O2 flash fused head B={TB} "
+          f"S={TS}, {ZERO_STEPS} steps, distributed_fused_adam(1e-4, "
+          f"weight_decay=0.01) on a one-rank NCCL fsdp group vs fused_adam: "
+          f"losses {[r['loss'] for r in runs['zero']['rows']]} equal "
+          f"{same_loss}, params bit-identical {same_params}, launches equal "
+          f"{same_launches}; collectives {coll} (want {want_coll}); "
+          f"{step_walls(runs)} [{card}]")
+    out = dict(rows={k: v["rows"] for k, v in runs.items()},
+               same_loss=same_loss, same_params=same_params,
+               collectives=coll)
+    del runs
+    if not (all(same_loss) and same_params and same_launches):
+        return out, "train-zero: the ZeRO steps differ from fused_adam's"
+    if coll != want_coll:
+        return out, f"train-zero: collectives {coll}, expected {want_coll}"
+    return out, None
+
+
+def run_bert_lamb(torch, ops, card, launches):
+    """train-bert-lamb: the bench's ``bert`` (BERT-base, B x 512, O2),
+    ZERO_STEPS steps with ``distributed_fused_lamb(1e-4,
+    weight_decay=0.01)`` on the one-rank fsdp group against
+    ``fused_lamb`` with the same arguments: losses within 1e-6
+    relative, every param within 1e-6 of its tensor's largest value
+    (the trust ratios' sums round in another order), each step's
+    launches those of train-bert, and a step's collectives one
+    reduce-scatter, one all-gather and three all-reduces (the gradient
+    norm, the two per-tensor sums). Adds the LAMB run's launches to
+    ``launches``."""
+    from apex1_tpu_torch import fused_lamb
+    from apex1_tpu_torch.contrib import distributed_fused_lamb
+    run = BERT_RUNS["bert"]
+    txs = {"fused_lamb": fused_lamb(1e-4, weight_decay=0.01),
+           "zero": distributed_fused_lamb(1e-4, weight_decay=0.01)}
+    runs = zero_pair(torch, ops, tuple(txs), lambda name: make_bert_trainer(
+        torch, "O2", False, SEED, B=run["B"], dropout=0.0, tx=txs[name]))
+    for k, v in runs["zero"]["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    per_step = bert_launches(runs["zero"]["cfg"].num_layers, False)
+    loss_err = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in
+                   zip(runs["zero"]["rows"], runs["fused_lamb"]["rows"]))
+    param_err = max(
+        ((runs["zero"]["params"][k] - p).abs().max()
+         / p.abs().max().clamp(min=1e-30)).item()
+        for k, p in runs["fused_lamb"]["params"].items())
+    launches_ok = all(r["launches"] == per_step
+                      for v in runs.values() for r in v["rows"])
+    coll = runs["zero"]["collectives"]
+    want_coll = {"reduce_scatter": ZERO_STEPS, "all_gather": ZERO_STEPS,
+                 "all_reduce": 3 * ZERO_STEPS}
+    print(f"phase train-bert-lamb: bert O2 B={run['B']} S={BERT_S}, "
+          f"{ZERO_STEPS} steps, distributed_fused_lamb(1e-4, "
+          f"weight_decay=0.01) on a one-rank NCCL fsdp group vs fused_lamb: "
+          f"losses {[r['loss'] for r in runs['zero']['rows']]} vs "
+          f"{[r['loss'] for r in runs['fused_lamb']['rows']]}, worst "
+          f"relative {loss_err:.3g}; worst param error over its tensor's "
+          f"largest value {param_err:.3g}; launches a step {per_step} "
+          f"{launches_ok}; collectives {coll} (want {want_coll}); "
+          f"{step_walls(runs)} [{card}]")
+    out = dict(rows={k: v["rows"] for k, v in runs.items()},
+               loss_err=loss_err, param_err=param_err, collectives=coll)
+    del runs
+    if not (loss_err <= 1e-6 and param_err <= 1e-6):
+        return out, (f"train-bert-lamb: losses {loss_err:.3g} or params "
+                     f"{param_err:.3g} beyond 1e-6")
+    if not launches_ok:
+        return out, "train-bert-lamb: launches differ from train-bert's"
+    if coll != want_coll:
+        return out, (f"train-bert-lamb: collectives {coll}, expected "
+                     f"{want_coll}")
+    return out, None
+
+
+def run_spatial(torch, ops, card, launches):
+    """spatial-bottleneck: ResNet-50's stage-1 stride-1 bottleneck at
+    the train-resnet batch (SPATIAL_B x 56 x 56 x 256, features 64,
+    channels-last) as `SpatialBottleneck` on the one-rank cp group
+    (the halo exchange and the batch statistics synced over it) against
+    the plain `Bottleneck` with the same weights, at O2 (the resnet
+    phase's dtype) and O0, train and eval: the output and the gradient
+    of x and of every param each no farther from the plain block's
+    (the norm of the difference over the plain one's) than twice the
+    plain block's own distance from its float64 run, plus the dtype's
+    unit roundoff (a rounding witness: train-mode batch norm and ReLU
+    make single gradient elements ill-conditioned, so no elementwise
+    bound holds); the new running statistics within 1e-5 of their
+    largest value. Both walls (forward and backward). No kernel
+    launches (cuDNN)."""
+    import dataclasses
+    from apex1_tpu_torch import get_policy
+    from apex1_tpu_torch.models.resnet import (Bottleneck, ResNetConfig,
+                                               SpatialBottleneck)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    F_, C = SPATIAL_F, 4 * SPATIAL_F
+    x = torch.randn(SPATIAL_B, SPATIAL_HW, SPATIAL_HW, C, generator=gen,
+                    device="cuda")
+    ct = torch.randn(SPATIAL_B, SPATIAL_HW, SPATIAL_HW, C, generator=gen,
+                     device="cuda").permute(0, 3, 1, 2)
+    p64 = dataclasses.replace(get_policy("O0"), param_dtype=torch.float64,
+                              compute_dtype=torch.float64)
+    out, bad = {}, []
+    ops.reset_launches()
+    for level in ("O2", "O0"):
+        cfg = ResNetConfig.resnet50(policy=get_policy(level))
+        dt = cfg.policy.compute_dtype
+        unit = {torch.bfloat16: 2.0 ** -8, torch.float32: 2.0 ** -24}[dt]
+        spatial = SpatialBottleneck(cfg, F_, "cp", device="cuda", seed=SEED)
+        plain = Bottleneck(cfg, C, F_, device="cuda")
+        plain.load_state_dict(spatial.state_dict())
+        plain64 = Bottleneck(ResNetConfig.resnet50(policy=p64), C, F_,
+                             device="cuda").double()
+        plain64.load_state_dict({k: v.double() for k, v in
+                                 spatial.state_dict().items()})
+        for train in (True, False):
+            def run(block, dtype=dt):
+                xs = x.detach().double().requires_grad_() \
+                    if dtype == torch.float64 else x.detach().requires_grad_()
+                names, params = zip(*block.named_parameters())
+                stats = {}
+                y = block(xs.permute(0, 3, 1, 2).to(dtype), train=train,
+                          stats=stats, prefix="b")
+                grads = torch.autograd.grad((y.double() * ct).sum(),
+                                            [xs, *params])
+                return dict(zip(("y", "dx") + names, (y,) + grads)), stats
+
+            got, gstats = run(spatial)
+            want, wstats = run(plain)
+            ref, _ = run(plain64, torch.float64)
+            ratios = {}
+            for k, w in want.items():
+                w, r = w.double(), ref[k]
+                gap = ((got[k].double() - w).norm() / w.norm()).item()
+                own = ((w - r).norm() / r.norm()).item()
+                ratios[k] = gap / (2 * own + unit)
+            worst = max(ratios, key=ratios.get)
+            stat_err = max([((gstats[k] - w).abs().max()
+                             / w.abs().max().clamp(min=1e-30)).item()
+                            for k, w in wstats.items()] or [0.0])
+            walls = {name: wall_ms(torch, lambda b=b: run(b))
+                     for name, b in (("spatial", spatial),
+                                     ("plain", plain))}
+            dev = {name: profiled_calls(torch, lambda b=b: run(b))[
+                "device_ms_per_step"] for name, b in (("spatial", spatial),
+                                                      ("plain", plain))}
+            key = f"{level} train={train}"
+            out[key] = dict(ratios=ratios, stat_err=stat_err, walls=walls,
+                            device_ms=dev)
+            print(f"phase spatial-bottleneck: {key} {SPATIAL_B}x"
+                  f"{SPATIAL_HW}x{SPATIAL_HW}x{C} features {F_} "
+                  f"{str(dt).split('.')[-1]} channels-last, one-rank cp "
+                  f"group: output and {len(ratios) - 1} gradients, "
+                  f"distance from plain over twice plain's from float64 "
+                  f"+ {unit:g}: worst {ratios[worst]:.3g} ({worst}); "
+                  f"running stats {stat_err:.3g}; wall ms (forward + "
+                  f"backward) spatial {walls['spatial']:.2f} plain "
+                  f"{walls['plain']:.2f}, device ms spatial "
+                  f"{dev['spatial']:.3f} plain {dev['plain']:.3f} [{card}]")
+            if ratios[worst] > 1 or stat_err > 1e-5:
+                bad.append(key)
+            del got, want, ref
+        del spatial, plain, plain64
+        torch.cuda.empty_cache()
+    n = {k: v for k, v in ops.launch_counts().items() if v}
+    if n:
+        bad.append(f"launches {n}")
+    return out, (f"spatial-bottleneck: {bad}" if bad else None)
+
+
 # ---- the T5 generation and contrib slice -----------------------------------
 
 #: generate-t5: the bench's ``t5`` model (`make_t5`, 12 + 12 layers, O2)
@@ -7610,14 +7975,26 @@ def main() -> int:
         return gate_sweep(torch, ops, card, paths or ["kernels", "plain"])
 
     if "--only" in sys.argv[1:]:
-        # a probe of this slice's phases alone (no kernels line)
+        # a probe of some phases alone (no kernels line); the sharded
+        # data-parallel ones inside a one-rank NCCL group
         only = {"generate-t5": run_generate_t5, "contrib": run_contrib,
                 "serve-dense": run_serve_dense,
                 "serve-fleet": run_serve_fleet, "disagg": run_disagg,
                 "speculative": run_speculative}
-        errs = [only[phase](torch, ops, card, {})[1]
-                for phase in [a for a in sys.argv[1:] if a in only]
-                or list(only)]
+        grouped = {"train-fsdp": run_fsdp, "train-zero": run_zero,
+                   "train-bert-lamb": run_bert_lamb,
+                   "spatial-bottleneck": run_spatial}
+        errs = []
+        for phase in ([a for a in sys.argv[1:] if a in {**only, **grouped}]
+                      or list(only) + list(grouped)):
+            if phase in only:
+                errs.append(only[phase](torch, ops, card, {})[1])
+                continue
+            nccl_dir = start_nccl(torch)
+            try:
+                errs.append(grouped[phase](torch, ops, card, {})[1])
+            finally:
+                stop_nccl(nccl_dir)
         errs = [e for e in errs if e]
         return fail("; ".join(errs)) if errs else 0
 
@@ -8030,10 +8407,19 @@ def main() -> int:
         if err:
             return fail(err)
         stamp("llama-3d-parity")
+        # 33-36. the sharded data-parallel slice: ZeRO-3 by placement,
+        # the distributed Adam and LAMB, the halo-exchanged bottleneck
+        for phase, fn in (("train-fsdp", run_fsdp), ("train-zero", run_zero),
+                          ("train-bert-lamb", run_bert_lamb),
+                          ("spatial-bottleneck", run_spatial)):
+            par_out[phase], err = fn(torch, ops, card, main_launches)
+            if err:
+                return fail(err)
+            stamp(phase)
     finally:
         stop_nccl(nccl_dir)
 
-    # 33-34. the T5 generation and contrib slice: the bench's t5 through
+    # 37-38. the T5 generation and contrib slice: the bench's t5 through
     # t5_generate (greedy, beam, sampled), the contrib modules
     slice_out = {}
     for phase, fn in (("generate-t5", run_generate_t5),
@@ -8042,7 +8428,7 @@ def main() -> int:
         if err:
             return fail(err)
         stamp(phase)
-    # 35-38. the serving-tier slice: the dense pool, the fleet, the
+    # 39-42. the serving-tier slice: the dense pool, the fleet, the
     # disaggregated pools, speculative decoding
     serve_out = {}
     for phase, fn in (("serve-dense", run_serve_dense),
@@ -8056,12 +8442,13 @@ def main() -> int:
     print(f"phase times: { {k: round(v, 1) for k, v in phase_s.items()} } "
           f"s wall [{card}]")
 
-    # 39. the kernels line, the card, the last line. launches: the main
+    # 43. the kernels line, the card, the last line. launches: the main
     # paths' runs (engine, the train phases, dpo, generate, train-llama,
     # serve-llama and its generate, the BERT phases, train-gpt2-dropout,
     # train-t5, mha, train-llama-longctx, decode, decode-int8, serve-lora,
     # train-resnet, train-gpt2-fp16, tp-sp, cp, vp-ce, ddp,
-    # train-llama-3d, train-llama-3d-1f1b, generate-t5's kernel calls,
+    # train-llama-3d, train-llama-3d-1f1b, train-fsdp's placed run,
+    # train-zero's and train-bert-lamb's ZeRO runs, generate-t5's calls,
     # contrib's kernel cases, serve-dense's dense run, serve-fleet's
     # drill, disagg's clean run, speculative's greedy call)
     sources = {"layer_norm_fwd": ("apex1_tpu_torch/csrc/layer_norm.cu",

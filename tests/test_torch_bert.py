@@ -18,7 +18,8 @@ of -1 outside a 15 % draw:
   JAX's;
 - `FusedScaleMaskSoftmax` (padding and causal) against JAX's class;
 - the params cross between the packages; the int base seed rule; the
-  entry points default to CUDA; `param_specs` raises.
+  entry points default to CUDA; `param_specs` gives the tensor-parallel
+  spec of each parameter.
 """
 
 import jax
@@ -279,5 +280,8 @@ def test_cpu_runs_plain_versions_and_entry_points_default_to_cuda(tiny):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             BertPretrain(_tcfg())
-    with pytest.raises(NotImplementedError, match="item 7"):
-        param_specs(tiny["np_params"])
+    specs = param_specs(params)
+    assert specs["bert.word_embeddings"] == ("tp", None)
+    assert specs["bert.layer0.qkv.weight"] == ("tp", None)
+    assert specs["bert.layer0.attn_out.weight"] == (None, "tp")
+    assert specs["mlm_bias"] == ("tp",) and specs["nsp.weight"] == ()

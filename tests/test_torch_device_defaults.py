@@ -1,6 +1,8 @@
 """Public modules run on the card unless the caller names another
 device: `SyncBatchNorm`, `FusedLayerNorm`, `FusedRMSNorm`,
-`DynamicLossScaler` and `LossScaler`, built without ``device=``, put
+`DynamicLossScaler`, `LossScaler`, the tensor-parallel layer modules
+`ColumnParallelLinear`, `RowParallelLinear` and `VocabParallelEmbedding`
+and `SpatialBottleneck`, built without ``device=``, put
 their tensors on CUDA, or raise a RuntimeError naming CUDA where there
 is none (the form of ``test_torch_moe.py::test_moe_mlp_defaults_to_
 cuda``); with ``device="cpu"`` they stay on the CPU.
@@ -16,8 +18,11 @@ import pytest
 import torch
 
 from apex1_tpu_torch.fp16_utils import DynamicLossScaler, LossScaler
+from apex1_tpu_torch.models.resnet import ResNetConfig, SpatialBottleneck
 from apex1_tpu_torch.ops.layer_norm import FusedLayerNorm, FusedRMSNorm
 from apex1_tpu_torch.parallel import SyncBatchNorm, convert_syncbn_model
+from apex1_tpu_torch.transformer.tensor_parallel import (
+    ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
 
 
 def _tensors(obj):
@@ -38,6 +43,12 @@ MAKERS = {
     "FusedRMSNorm": lambda **kw: FusedRMSNorm(8, **kw),
     "DynamicLossScaler": lambda **kw: DynamicLossScaler(**kw),
     "LossScaler": lambda **kw: LossScaler(128.0, **kw),
+    "ColumnParallelLinear": lambda **kw: ColumnParallelLinear(4, 8, **kw),
+    "RowParallelLinear": lambda **kw: RowParallelLinear(8, 4, **kw),
+    "VocabParallelEmbedding": lambda **kw: VocabParallelEmbedding(10, 4,
+                                                                  **kw),
+    "SpatialBottleneck": lambda **kw: SpatialBottleneck(
+        ResNetConfig.tiny(), 4, **kw),
 }
 
 

@@ -40,7 +40,8 @@ from apex1_tpu_torch import (Amp, GPT2Config, fused_adam, get_policy,
                              gpt2_decoder, gpt2_loss_fn, gpt2_params_from_jax)
 from apex1_tpu_torch.interop import flax_from_named
 from apex1_tpu_torch.models.generate import cached_attention, generate
-from apex1_tpu_torch.ops.paged_decode import cache_attend, split
+from apex1_tpu_torch.core.random import split
+from apex1_tpu_torch.ops.paged_decode import cache_attend
 from apex1_tpu_torch.runtime import pack_documents
 
 B, S = 2, 32

@@ -278,8 +278,13 @@ def test_unported_options_raise():
         Llama(_tcfg(moe_every=2), device="cpu").named_parameters())
     with pytest.raises(ValueError, match="initialize parallel_state"):
         Llama(_tcfg(), seq_shard_axis="sp", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        param_specs({})
+    specs = param_specs(dict(Llama(_tcfg(moe_every=2),
+                                   device="cpu").named_parameters()))
+    assert specs["tok_embeddings"] == ("tp", None)
+    assert specs["layer0.wq"] == (None, "tp") and specs["layer0.wo"] == (
+        "tp", None)
+    assert specs["layer1.moe.w1"] == ("ep", None, None)
+    assert specs["norm"] == ()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _tcfg(remat_policy="save_only_these_names")
     with pytest.raises(ValueError, match="unknown checkpoint policy"):

@@ -17,6 +17,7 @@ import torch
 from apex1_tpu.ops import _common as jax_common
 from apex1_tpu.ops import paged_decode as jpd
 from apex1_tpu_torch.ops import force_impl
+from apex1_tpu_torch.core.random import threefry2x32
 from apex1_tpu_torch.ops import paged_decode as tpd
 
 
@@ -36,7 +37,7 @@ def test_threefry_block_bitwise():
     k1, k2, x0, x1 = (rng.integers(0, 2**32, 64, dtype=np.uint64)
                       .astype(np.uint32) for _ in range(4))
     want = jpd._threefry2x32(*(jnp.asarray(a) for a in (k1, k2, x0, x1)))
-    got = tpd._threefry2x32(*(torch.from_numpy(a.astype(np.int64))
+    got = threefry2x32(*(torch.from_numpy(a.astype(np.int64))
                               for a in (k1, k2, x0, x1)))
     for w, g in zip(want, got):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w, np.int64))

@@ -22,8 +22,8 @@ as its Pallas kernels in interpret mode.
   bf16 values may route its gradient to another element) grow from
   about 1 % of each grad leaf at step 1 to 6 % of the grad norm at
   step 2;
-- interop round trip, `param_specs`, and the unported spatial
-  parallelism raising.
+- interop round trip, `param_specs`, and the spatial block: with no
+  group bound equal to the plain one, a stride other than 1 raising.
 """
 
 import flax.linen as fnn
@@ -211,12 +211,22 @@ def test_interop_round_trip_and_specs():
                    for n, _ in model.named_parameters())
     specs = param_specs(dict(model.named_parameters()))
     assert set(specs) == {n for n, _ in model.named_parameters()}
-    assert set(specs.values()) == {None}
+    assert set(specs.values()) == {()}
 
 
 def test_spatial_parallelism_raises():
+    """Spatial parallelism is ported (tests/test_torch_halo.py holds it
+    against JAX's at worlds 2 and 4); with no group bound it is the
+    plain block, and a stride other than 1 raises as in JAX."""
     cfg = ResNetConfig.tiny()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        SpatialBottleneck(cfg, 8)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        Bottleneck(cfg, 8, 8, spatial_axis_name="cp", device="cpu")
+    with pytest.raises(ValueError, match="stride 1 only"):
+        Bottleneck(cfg, 8, 8, strides=2, spatial_axis_name="cp",
+                   device="cpu")
+    spatial = SpatialBottleneck(cfg, 8, device="cpu")
+    plain = Bottleneck(cfg, 32, 8, device="cpu")
+    plain.load_state_dict(spatial.state_dict())
+    x = torch.randn(2, 32, 8, 8, generator=torch.Generator().manual_seed(0))
+    for train in (True, False):
+        ys = [b(x, train=train, stats={}, prefix="b")
+              for b in (spatial, plain)]
+        torch.testing.assert_close(ys[0], ys[1], rtol=0, atol=0)

@@ -19,10 +19,9 @@
   norm lies 2.5 % from its Pallas path's at step 2 on this model (no
   1/sqrt(d) scale, so the logits are large). O2_fp16 with an overflow
   forced at step 2 skipped like JAX's;
-- the params cross between the packages; the unported option
-  (`param_specs`) raises naming its ROADMAP.md item; the entry points
-  default to CUDA and the CPU runs no kernel, the cached decode
-  included.
+- the params cross between the packages; `param_specs` gives each
+  parameter's tensor-parallel spec; the entry points default to CUDA
+  and the CPU runs no kernel, the cached decode included.
 """
 
 import jax
@@ -260,8 +259,11 @@ def test_unported_options_raise_and_the_cpu_runs_no_kernel(data):
     assert logits.shape == (B, 1, cfg.vocab_size)
     assert torch.isfinite(logits).all()
     assert {n: f.launches for n, f in KERNEL_WRAPPERS.items()} == before
-    with pytest.raises(NotImplementedError, match="item 7"):
-        param_specs({})
+    specs = param_specs(dict(model.named_parameters()))
+    assert specs["shared_embedding"] == ("tp", None)
+    assert specs["encoder.layer0.self_attn.wq"] == (None, "tp")
+    assert specs["encoder.layer0.self_attn.wo"] == ("tp", None)
+    assert specs["encoder.rel_pos.rel_bias"] == ()
     with pytest.raises(ValueError, match="rel_pos_max_dist"):
         T5Config.tiny(rel_pos_buckets=8, rel_pos_max_dist=4)
     if not torch.cuda.is_available():

@@ -27,7 +27,8 @@ mode (``"pallas"``). At worlds 2 and 4, fp32, forward and vjp (1e-5):
   within 1e-6 relative at world 4 (gloo's ring may add a packed lane
   and a lone tensor in other rank orders);
 - the mesh: rank r at device r's coordinate of JAX's ``make_mesh``, the
-  `parallel_state` sizes and ranks, and the unported degrees raising.
+  `parallel_state` sizes and ranks, and an fsdp mesh of every rank (its
+  coordinates JAX's, the world one dp x fsdp group).
 """
 
 from concurrent.futures import ThreadPoolExecutor
@@ -281,5 +282,12 @@ def test_mesh_and_parallel_state(world):
         assert st["tp_ranks"] == list(range(n))
         assert st["errors"][0].startswith("RuntimeError: model parallel "
                                           "already initialized")
-        for e in st["errors"][1:]:
-            assert e.startswith("NotImplementedError") and "item 7" in e
+        # an fsdp mesh of every rank: rank r at device r's coordinate,
+        # the whole world one data-parallel (dp x fsdp) group
+        fdevs = np.asarray(make_mesh(fsdp=n, dp=1,
+                                     devices=jax.devices()[:n]).devices)
+        assert st["fsdp"]["shape"] == [1, n, 1, 1, 1, 1]
+        assert st["fsdp"]["coords"] == [
+            int(c[0]) for c in np.nonzero(fdevs == jax.devices()[r])]
+        assert st["fsdp"]["data_ranks"] == list(range(n))
+        assert st["fsdp"]["data_size"] == n

@@ -177,15 +177,22 @@ def tp_cases(inputs: dict, n: int) -> dict:
                ps.get_data_parallel_rank()],
         tp_ranks=mesh.ranks("tp"),
         errors=[_raises(lambda: ps.initialize_model_parallel(n),
-                        RuntimeError),
-                _raises(lambda: _remesh(fsdp=n), NotImplementedError)])
+                        RuntimeError)],
+        fsdp=_remesh(fsdp=n))
     ps.destroy_model_parallel()
     return _np(out)
 
 
-def _remesh(**degrees):
-    from apex1_tpu_torch.core.mesh import make_mesh
-    return make_mesh(dp=-1, **degrees)
+def _remesh(**degrees) -> dict:
+    """A second mesh of these degrees: its shape, this rank's
+    coordinates and the ranks of its data-parallel (dp x fsdp) group."""
+    from apex1_tpu_torch.core.mesh import (MESH_AXES, data_parallel_size,
+                                           make_mesh)
+    mesh = make_mesh(dp=-1, **degrees)
+    return dict(shape=[mesh.size(ax) for ax in MESH_AXES],
+                coords=[mesh.index(ax) for ax in MESH_AXES],
+                data_ranks=dist.get_process_group_ranks(mesh.data_group),
+                data_size=data_parallel_size(mesh))
 
 
 # ---- tests/test_torch_fused_collective.py -------------------------------
@@ -728,3 +735,321 @@ def llama_3d_overflow(inputs: dict, lay: dict, model_kw: dict) -> dict:
         scale=[float(before["scale"].scale), float(after["scale"].scale)],
         overflow=[int(before["scale"].overflow_count),
                   int(after["scale"].overflow_count)]))
+
+
+# ---- tests/test_torch_rng.py --------------------------------------------
+
+
+def rng_cases(inputs: dict, n: int) -> dict:
+    """The tracker's forks inside a tp group of ``n`` ranks,
+    `model_parallel_key` at this rank, and `broadcast_data` of rank
+    0's tensors (each rank holds its own) with and without a dtype."""
+    from apex1_tpu_torch.core.random import model_parallel_key
+    from apex1_tpu_torch.transformer import tensor_parallel as tp
+    from apex1_tpu_torch.transformer.tensor_parallel import mappings
+    _setup(tensor_model_parallel_size=n)
+    rank = dist.get_rank()
+    tp.model_parallel_seed(int(inputs["seed"]))
+    tracker = tp.get_rng_tracker()
+    out = dict(fork_mp=tracker.fork(), fork_default=tracker.fork("default"),
+               fork_untied=tracker.fork(tp_axis=None),
+               mp_key=model_parallel_key(tuple(int(k) for k in
+                                               inputs["key"])))
+    mine = _mine({k: inputs[k] for k in ("a", "b")}, rank)
+    mappings.reset_collectives()
+    got = tp.broadcast_data(["a", "b"], mine)
+    got_f = tp.broadcast_data(["a"], mine, torch.float64)
+    out.update(a=got["a"], b=got["b"], a_f64=got_f["a"],
+               counts=mappings.collective_counts()["broadcast"])
+    return _np(out)
+
+
+# ---- tests/test_torch_distributed_optimizer.py --------------------------
+
+
+def _flat_moments(state, names_shapes, group):
+    """The ranks' moment slices gathered, cut to the flat length and
+    unflattened in the params' order."""
+    from apex1_tpu_torch.transformer.tensor_parallel import mappings
+    out = {}
+    for f in ("exp_avg_shard", "exp_avg_sq_shard"):
+        flat = mappings.all_gather(getattr(state, f), group, 0)
+        off, leaves = 0, {}
+        for k, shape in names_shapes:
+            size = int(np.prod(shape))
+            leaves[k] = flat[off:off + size].reshape(shape)
+            off += size
+        out[f] = leaves
+    return out
+
+
+def zero_cases(inputs: dict, n: int) -> dict:
+    """`distributed_fused_adam` (3 steps, weight decay) and
+    `distributed_fused_lamb` (2 steps: weight decay; ``use_nvlamb``
+    without it) at fsdp = ``n``, every rank with the same grads; the
+    collectives of a step; and the placed training of
+    `fsdp_param_specs` / `shard_opt_state_specs` (3 Adam steps with the
+    params gathered in the loss)."""
+    from apex1_tpu_torch.core.mesh import gather, place
+    from apex1_tpu_torch.optim import fused_adam
+    from apex1_tpu_torch.parallel import distributed_optimizer as do
+    from apex1_tpu_torch.transformer.tensor_parallel import mappings
+    mesh = _setup(fsdp_size=n)
+    group = mesh.group("fsdp")
+    t = {k: torch.from_numpy(np.ascontiguousarray(v))
+         for k, v in inputs.items()}
+    out = {}
+    params = {"w": t["w"], "b": t["b"]}
+    opt = do.distributed_fused_adam(1e-2, weight_decay=0.01)
+    state = opt.init(params)
+    counts = []
+    for i in range(3):
+        mappings.reset_collectives()
+        params, state = opt.step({"w": t["gw"][i], "b": t["gb"][i]}, state,
+                                 params)
+        counts.append(mappings.collective_counts())
+    out["adam"] = dict(params=params, counts=counts,
+                       moments=_flat_moments(state, [("w", t["w"].shape),
+                                                     ("b", t["b"].shape)],
+                                             group))
+    for name, kw in (("lamb_wd", dict(weight_decay=0.01)),
+                     ("lamb_nv", dict(weight_decay=0.0, use_nvlamb=True)),
+                     ("lamb_plain", dict(weight_decay=0.0))):
+        lp = {"w": t["lw"], "b": t["lb"]}
+        lg = {"w": t["lgw"], "b": t["lgb"]}
+        lamb = do.distributed_fused_lamb(1e-2, axis_name="fsdp", **kw)
+        st = lamb.init(lp)
+        mappings.reset_collectives()
+        lp, st = lamb.step(lg, st, lp)
+        c = mappings.collective_counts()
+        lp, st = lamb.step(lg, st, lp)
+        out[name] = dict(params=lp, counts=c)
+    out["placed"] = _placed_training(t, mesh, fused_adam, do, place, gather)
+    out["mesh"] = _mesh_helpers(t, mesh, n)
+    out["amp"] = _amp_over_data_axes(t, n)
+    return _np(out)
+
+
+def _amp_over_data_axes(t, n: int) -> dict:
+    """2 O0 steps of ``Amp(fused_adam(1e-2), grad_psum_axes=("dp",
+    "fsdp"))``, each rank on its rows of the batch."""
+    from apex1_tpu_torch.amp import Amp
+    from apex1_tpu_torch.optim import fused_adam
+    rank = dist.get_rank()
+    x, y = t["x"].chunk(n)[rank], t["y"].chunk(n)[rank]
+    amp = Amp(fused_adam(1e-2), opt_level="O0",
+              grad_psum_axes=("dp", "fsdp"))
+    step = amp.make_train_step(
+        lambda p, x, y: ((torch.tanh(x @ p["w"]) - y) ** 2).mean())
+    state = amp.init({"w": t["aw"]})
+    losses = []
+    for _ in range(2):
+        state, m = step(state, x, y)
+        losses.append(m["loss"])
+    return dict(params=state.params, losses=losses)
+
+
+def _mesh_helpers(t, mesh, n: int) -> dict:
+    """`shard_batch` and `replicate` on the fsdp mesh, `MeshResource`,
+    the size helpers, `local_mesh`, and `make_hybrid_mesh` with two
+    slices of tp = n / 2."""
+    from apex1_tpu_torch.core import mesh as cm
+    hybrid = cm.make_hybrid_mesh(cm.MeshConfig(tp=n // 2), dcn_dp=2)
+    return dict(
+        batch=cm.shard_batch(mesh, {"x": t["x"]})["x"].to_local(),
+        rep=cm.replicate(mesh, {"y": t["y"]})["y"].to_local(),
+        spec=list(cm.MeshResource().spec("batch", None, "heads")),
+        sizes=[cm.axis_size(mesh, ax) for ax in cm.MESH_AXES],
+        data_size=cm.data_parallel_size(mesh),
+        local=[cm.local_mesh(fsdp=n).size(ax) for ax in cm.MESH_AXES],
+        hybrid_shape=[hybrid.size(ax) for ax in cm.MESH_AXES],
+        hybrid_coords=[hybrid.index(ax) for ax in cm.MESH_AXES])
+
+
+def _placed_training(t, mesh, fused_adam, do, place, gather):
+    tx = fused_adam(1e-2)
+    params = {"w1": t["w1"], "w2": t["w2"]}
+    x, y = t["x"], t["y"]
+
+    def loss_fn(p):
+        p = gather(p)
+        return ((torch.tanh(x @ p["w1"]) @ p["w2"] - y) ** 2).mean()
+
+    pspecs = do.fsdp_param_specs(params, min_size=64)
+    sspecs = do.shard_opt_state_specs(tx.init(params), axis="fsdp",
+                                      param_specs=pspecs)
+    p = {k: v.requires_grad_() for k, v in
+         place(params, pspecs, mesh).items()}
+    st0 = tx.init(params)
+    st = type(st0)(step=st0.step,
+                   exp_avg=place(st0.exp_avg, sspecs.exp_avg, mesh),
+                   exp_avg_sq=place(st0.exp_avg_sq, sspecs.exp_avg_sq, mesh))
+    for _ in range(3):
+        g = dict(zip(p, torch.autograd.grad(loss_fn(p), list(p.values()))))
+        up, st = tx.update(g, st, {k: v.detach() for k, v in p.items()})
+        p = {k: (v.detach() + up[k]).requires_grad_() for k, v in p.items()}
+    placements = {k: [(type(pl).__name__, getattr(pl, "dim", None))
+                      for pl in v.placements] for k, v in p.items()}
+    local = {k: v.to_local().detach() for k, v in p.items()}
+    with torch.no_grad():
+        loss = loss_fn(p)
+    return dict(params={k: v.detach() for k, v in gather(p).items()},
+                loss=loss, local=local, placements=placements,
+                pspecs={k: list(v) for k, v in pspecs.items()},
+                sspecs={k: list(v) for k, v in sspecs.exp_avg.items()})
+
+
+# ---- tests/test_torch_halo.py -------------------------------------------
+
+
+def halo_cases(inputs: dict, n: int) -> dict:
+    """`halo_exchange` (halo 1 and 2, dims 1 and 2, periodic or not)
+    with the gradient of <out, ct>; `exchange_overlap` (halo 2 and 0);
+    `spatial_conv2d` on H and W; `SpatialBottleneck` at train and eval
+    (output, the grads of x and of every param, new statistics); the
+    halo-larger-than-shard error. ``inputs`` hold the global tensors;
+    each rank takes its block of the split axis."""
+    from apex1_tpu_torch.models.resnet import ResNetConfig, SpatialBottleneck
+    from apex1_tpu_torch.parallel import halo
+    _setup(context_parallel_size=n)
+    rank = dist.get_rank()
+
+    def block(a, dim):
+        return torch.from_numpy(np.ascontiguousarray(a)).chunk(
+            n, dim)[rank].contiguous()
+
+    out = {}
+    for dim in (1, 2):
+        x = block(inputs["x"], dim)
+        for h in (1, 2):
+            for periodic in (False, True):
+                xs = x.clone().requires_grad_()
+                y = halo.halo_exchange(xs, "cp", halo=h, dim=dim,
+                                       periodic=periodic)
+                ct = torch.from_numpy(np.ascontiguousarray(
+                    inputs[f"ct{dim}{h}"][rank]))
+                (g,) = torch.autograd.grad((y * ct).sum(), [xs])
+                out[f"ex_{dim}_{h}_{periodic}"] = [y.detach(), g]
+        ext, inner = halo.exchange_overlap(x, lambda v: torch.tanh(v) * 2.0,
+                                           "cp", halo=2, dim=dim)
+        out[f"ov_{dim}"] = [ext, inner,
+                            halo.halo_exchange(x, "cp", halo=2, dim=dim)]
+        out[f"ov0_{dim}"] = list(halo.exchange_overlap(
+            x, lambda v: v + 1.0, "cp", halo=0, dim=dim))
+        w = torch.from_numpy(inputs["conv_w"])
+        out[f"conv_{dim}"] = halo.spatial_conv2d(x, w, "cp", dim=dim)
+    out["too_big"] = _raises(lambda: halo.halo_exchange(
+        block(inputs["x"], 1), "cp", halo=inputs["x"].shape[1] // n + 1,
+        dim=1), ValueError)
+    blk = SpatialBottleneck(ResNetConfig.tiny(), 4, "cp", device="cpu")
+    sd = {k: torch.from_numpy(np.ascontiguousarray(v))
+          for k, v in inputs.items() if k.startswith("bb.")}
+    blk.load_state_dict({k[3:]: v for k, v in sd.items()})
+    xb = block(inputs["xb"], 1)
+    ctb = block(inputs["ctb"], 1)
+    for train in (True, False):
+        xs = xb.clone().requires_grad_()
+        stats = {}
+        y = blk(xs.permute(0, 3, 1, 2), train=train, stats=stats,
+                prefix="b").permute(0, 2, 3, 1)
+        names, params = zip(*blk.named_parameters())
+        grads = torch.autograd.grad((y * ctb).sum(), [xs, *params])
+        out[f"bottleneck_{train}"] = dict(
+            y=y.detach(), dx=grads[0], grads=dict(zip(names, grads[1:])),
+            stats={k: v.detach() for k, v in stats.items()})
+    return _np(out)
+
+
+# ---- tests/test_torch_param_specs.py ------------------------------------
+
+
+def _model_of(kind: str, np_params: dict, kw: dict):
+    from apex1_tpu_torch import interop
+    from apex1_tpu_torch.models import bert, gpt2, llama, t5
+    mk = {"gpt2": (gpt2.GPT2Config, interop.gpt2_params_from_jax),
+          "llama": (llama.LlamaConfig, interop.llama_params_from_jax),
+          "bert": (bert.BertConfig, interop.bert_params_from_jax),
+          "t5": (t5.T5Config, interop.t5_params_from_jax)}[kind]
+    from apex1_tpu_torch import get_policy
+    return mk[1](np_params, mk[0].tiny(policy=get_policy("O0"), **kw), "cpu")
+
+
+def _loss_of(kind: str, model, fuse_head: bool):
+    from apex1_tpu_torch.models import bert, gpt2, llama, t5
+    return {"gpt2": lambda: gpt2.gpt2_loss_fn(model, fuse_head=fuse_head),
+            "llama": lambda: llama.llama_loss_fn(model, fuse_head=fuse_head),
+            "bert": lambda: bert.bert_pretrain_loss_fn(model,
+                                                       fuse_head=fuse_head),
+            "t5": lambda: t5.t5_loss_fn(model, fuse_head=fuse_head)}[kind]()
+
+
+def spec_cases(inputs: dict, n: int) -> dict:
+    """Each tiny model's loss and every grad with its parameters placed
+    by its `param_specs` at tp = ``n`` (either head), the DTensor
+    propagation running the plain path; the column -> gelu -> row MLP
+    and the vocab-parallel embedding (out-of-shard tokens) placed by
+    their ``partition_specs()``."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from apex1_tpu_torch.core.mesh import gather, place
+    from apex1_tpu_torch.models import bert, gpt2, llama, t5
+    from apex1_tpu_torch.transformer import tensor_parallel as tp
+    mesh = _setup(tensor_model_parallel_size=n)
+    specs_of = {"gpt2": gpt2.param_specs, "llama": llama.param_specs,
+                "bert": bert.param_specs, "t5": t5.param_specs}
+    out = {}
+    for kind, case in inputs["models"].items():
+        model = _model_of(kind, case["params"], case["kw"])
+        params = {k: v.detach() for k, v in model.named_parameters()}
+        batch = [({k: torch.from_numpy(v) for k, v in b.items()}
+                  if isinstance(b, dict) else torch.from_numpy(b))
+                 for b in case["batch"]]
+        for fuse in (True, False):
+            placed = {k: v.requires_grad_() for k, v in place(
+                params, specs_of[kind](params), mesh).items()}
+            with implicit_replication():
+                loss = _loss_of(kind, model, fuse)(placed, *batch)
+                grads = torch.autograd.grad(loss, list(placed.values()))
+            full = gather(dict(zip(placed, grads)))
+            loss = loss.full_tensor() if hasattr(loss, "full_tensor") \
+                else loss
+            out[f"{kind}_{fuse}"] = dict(loss=loss.detach(), grads=full)
+    m = inputs["mlp"]
+    col = tp.ColumnParallelLinear(16, 64, device="cpu")
+    row = tp.RowParallelLinear(64, 16, device="cpu")
+    with torch.no_grad():
+        for mod, name in ((col, "fc1"), (row, "fc2")):
+            mod.kernel.copy_(torch.from_numpy(m[f"{name}_kernel"]))
+            mod.bias.copy_(torch.from_numpy(m[f"{name}_bias"]))
+    for mod in (col, row):
+        for k, v in place(dict(mod.named_parameters()),
+                          mod.partition_specs(), mesh).items():
+            setattr(mod, k, torch.nn.Parameter(v))
+    x = torch.from_numpy(m["x"])
+    with implicit_replication():
+        y = row(torch.nn.functional.gelu(col(x), approximate="tanh"))
+    out["mlp"] = dict(y=y.full_tensor(),
+                      local=col.kernel.to_local().detach(),
+                      specs=[list(col.partition_specs()["kernel"]),
+                             list(row.partition_specs()["kernel"])])
+    emb = tp.VocabParallelEmbedding(10, 4, device="cpu")
+    with torch.no_grad():
+        emb.embedding.copy_(torch.from_numpy(inputs["table"]))
+    table = place({"embedding": emb.embedding.detach()},
+                  emb.partition_specs(), mesh)["embedding"]
+    emb.embedding = torch.nn.Parameter(table)
+    tokens = torch.from_numpy(inputs["tokens"])
+    with implicit_replication():
+        ye = emb(tokens)
+        (ge,) = torch.autograd.grad(
+            (ye * torch.from_numpy(inputs["ct_emb"])).sum(), [emb.embedding])
+    out["emb"] = dict(y=ye.full_tensor(), grad=ge.full_tensor(),
+                      local=table.to_local())
+    from apex1_tpu_torch.ops import _common, xentropy
+    labels = torch.zeros(10, dtype=torch.int32)
+    out["refused"] = [
+        _raises(lambda: _common.check_cuda("layer_norm_fwd", table),
+                TypeError),
+        _raises(lambda: xentropy._check(table[None], labels, "xent_fwd"),
+                TypeError)]
+    return _np(out)
