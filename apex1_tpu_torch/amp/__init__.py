@@ -61,6 +61,10 @@ class AmpState:
     opt_state: Any
     loss_scale: Any
 
+    #: key paths visit the fields sorted, as the JAX package's chex
+    #: dataclass flattens (`core.pytree.tree_flatten_with_path`)
+    _tree_sorted_fields = True
+
 
 class Amp:
     """Precision policy + optimizer. ``opt_level`` and overrides mirror

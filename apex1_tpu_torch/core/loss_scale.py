@@ -32,6 +32,10 @@ class LossScaleState:
     overflow_count: torch.Tensor
     hysteresis_left: torch.Tensor
 
+    #: key paths visit the fields sorted, as the JAX package's chex
+    #: dataclass flattens (`core.pytree.tree_flatten_with_path`)
+    _tree_sorted_fields = True
+
 
 def _state(scale: float, hysteresis: int, device) -> LossScaleState:
     i32 = dict(dtype=torch.int32, device=device)

@@ -271,6 +271,15 @@ def _spec_axes(spec) -> set:
             for a in (ax if isinstance(ax, tuple) else (ax,))}
 
 
+def spanned_mesh(mesh: Mesh, specs) -> tuple:
+    """``(device mesh, axes)``: the part of ``mesh.device_mesh`` spanned
+    by the axes above one rank and the axes ``specs`` name (`place`)."""
+    named = set().union(set(), *(_spec_axes(s) for s in specs))
+    axes = tuple(ax for ax in MESH_AXES
+                 if mesh.size(ax) > 1 or ax in named) or (AXIS_DP,)
+    return mesh.device_mesh[axes if len(axes) > 1 else axes[0]], axes
+
+
 def place(params: dict, specs: dict, mesh: Mesh) -> dict:
     """Each full tensor of ``params`` as a DTensor split by its spec in
     ``specs`` (`placements`): this rank keeps its block. The tensors
@@ -282,10 +291,7 @@ def place(params: dict, specs: dict, mesh: Mesh) -> dict:
     rank holding no split changes nothing), so tensors that meet in one
     operation must come from calls that span the same axes."""
     from torch.distributed.tensor import distribute_tensor
-    named = set().union(*(_spec_axes(s) for s in specs.values()))
-    axes = tuple(ax for ax in MESH_AXES
-                 if mesh.size(ax) > 1 or ax in named) or (AXIS_DP,)
-    dm = mesh.device_mesh[axes if len(axes) > 1 else axes[0]]
+    dm, axes = spanned_mesh(mesh, specs.values())
     return {k: distribute_tensor(v.detach(), dm,
                                  placements(specs[k], v.ndim, axes),
                                  src_data_rank=None)

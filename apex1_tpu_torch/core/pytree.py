@@ -1,6 +1,7 @@
 """Whole-model reductions and the flat buffer over ``{name: tensor}``
 dicts (the port of the parts of ``apex1_tpu/core/pytree.py`` the amp
-step and the distributed optimizers use).
+step and the distributed optimizers use), and key paths over the
+port's nested containers (``jax.tree_util``'s, for checkpoints).
 
 The JAX package's pytrees of parameters are the port's flat dicts
 keyed by ``named_parameters()`` names, so a tree map is a dict
@@ -8,6 +9,8 @@ comprehension and ``tree_map_unzip`` a loop that fills several dicts.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -61,3 +64,101 @@ def flatten_tree(tree: dict, dtype=None):
         return out
 
     return flat, unflatten
+
+
+# ---- key paths ---------------------------------------------------------------
+#
+# The JAX package names each leaf of a pytree by its key path
+# (``jax.tree_util.keystr``): ``['key']`` for a dict entry (dict keys
+# visited sorted), ``[i]`` for a list or tuple item, ``.name`` for a
+# namedtuple field or a registered dataclass field. Manifests, their
+# leaf digests and the reshard's ``"['chunk']" in key`` test read
+# those strings, so the port names the leaves of its own containers the
+# same way: dicts, lists, tuples, namedtuples and dataclasses (in field
+# order, or sorted where the class sets ``_tree_sorted_fields``: chex
+# dataclasses, the JAX package's `AmpState`, `LossScaleState` and
+# `SentinelState`, flatten their fields sorted). None is an empty
+# subtree; a threefry key (a tuple of two Python ints, `core.random`)
+# is one leaf, as JAX's key array is; anything else is a leaf.
+
+
+def is_key_data(x) -> bool:
+    """A threefry key as `core.random` holds it: a plain tuple of two
+    Python ints."""
+    return (type(x) is tuple and len(x) == 2
+            and all(type(v) is int for v in x))
+
+
+def _children(node):
+    """``(entries, rebuild)`` of a container, None for a leaf; an entry
+    is ``(kind, key, child)`` with kind "dict", "seq" or "attr"."""
+    if node is None:
+        return [], lambda _: None
+    if isinstance(node, dict):
+        keys = sorted(node)
+        return ([("dict", k, node[k]) for k in keys],
+                lambda new: type(node)((k, new[k]) for k in node))
+    if is_key_data(node):
+        return None
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return ([("attr", f, getattr(node, f)) for f in node._fields],
+                lambda new: type(node)(**new))
+    if isinstance(node, (list, tuple)):
+        return ([("seq", i, v) for i, v in enumerate(node)],
+                lambda new: type(node)(new[i] for i in range(len(node))))
+    if dataclasses.is_dataclass(node) and not isinstance(node, type):
+        names = [f.name for f in dataclasses.fields(node)]
+        if getattr(node, "_tree_sorted_fields", False):
+            names = sorted(names)
+        return ([("attr", f, getattr(node, f)) for f in names],
+                lambda new: dataclasses.replace(node, **new))
+    return None
+
+
+def keystr(path) -> str:
+    """``jax.tree_util.keystr`` of a port key path."""
+    out = []
+    for kind, key in path:
+        out.append(f".{key}" if kind == "attr" else
+                   f"[{key}]" if kind == "seq" else f"[{key!r}]")
+    return "".join(out)
+
+
+def tree_flatten_with_path(tree, is_leaf=None) -> list:
+    """``[(path, leaf)]`` in JAX's leaf order; ``path`` a tuple of
+    ``(kind, key)`` entries (`keystr` renders it). ``is_leaf(x)`` true
+    stops the descent at ``x``."""
+    out = []
+
+    def walk(node, path):
+        ch = None if is_leaf is not None and is_leaf(node) else \
+            _children(node)
+        if ch is None:
+            out.append((path, node))
+            return
+        for kind, key, child in ch[0]:
+            walk(child, path + ((kind, key),))
+
+    walk(tree, ())
+    return out
+
+
+def tree_map_with_path(fn, tree, *rest, is_leaf=None):
+    """``fn(path, leaf, *leaves of rest)`` over every leaf, the result
+    in ``tree``'s containers (dicts keep their own key order). The
+    trees of ``rest`` have ``tree``'s structure."""
+
+    def walk(node, others, path):
+        ch = None if is_leaf is not None and is_leaf(node) else \
+            _children(node)
+        if ch is None:
+            return fn(path, node, *others)
+        entries, rebuild = ch
+        new = {}
+        for kind, key, child in entries:
+            sub = [o[key] if kind != "attr" else getattr(o, key)
+                   for o in others]
+            new[key] = walk(child, sub, path + ((kind, key),))
+        return rebuild(new)
+
+    return walk(tree, list(rest), ())

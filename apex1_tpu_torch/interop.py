@@ -266,8 +266,11 @@ def llama_params_to_numpy(model: Llama) -> dict:
 
 
 def _leaf_tensor(a, device) -> torch.Tensor:
-    """One array as a tensor on ``device``; numpy's bfloat16 (ml_dtypes,
-    which torch does not read) crosses as its bits."""
+    """One array as a tensor on ``device`` (a tensor moves, copied only
+    when it changes device); numpy's bfloat16 (ml_dtypes, which torch
+    does not read) crosses as its bits."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16).copy()).view(
@@ -470,6 +473,7 @@ def llama3d_state_from_jax(params, cfg, mesh=None, opt_state=None,
     ``opt_state``: JAX's `FusedAdamState` (or a dict with ``step``,
     ``exp_avg``, ``exp_avg_sq`` trees shaped like ``params``), carried
     into the state's moments and step; else the moments start at zero.
+    The leaves may be the port's tensors too (`llama_3d.local_state`).
     """
     from apex1_tpu_torch.models import llama_3d
     from apex1_tpu_torch.optim.fused_adam import FusedAdamState
@@ -486,8 +490,7 @@ def llama3d_state_from_jax(params, cfg, mesh=None, opt_state=None,
         get = (opt_state.get if isinstance(opt_state, Mapping)
                else lambda k: getattr(opt_state, k))
         state["opt"] = FusedAdamState(
-            step=torch.as_tensor(np.asarray(get("step")),
-                                 dtype=torch.int32, device=dev),
+            step=_leaf_tensor(get("step"), dev).to(torch.int32),
             exp_avg=local(get("exp_avg")),
             exp_avg_sq=local(get("exp_avg_sq")))
         state["step"] = state["opt"].step.clone()

@@ -272,6 +272,66 @@ def shard_params(chunk: dict, shared: dict, cfg: Llama3DConfig,
     return out
 
 
+def _unshard(mesh, x: torch.Tensor, spec) -> torch.Tensor:
+    """`Mesh.local_shard`'s inverse: the global tensor from every rank's
+    block, an all-gather along each dimension ``spec`` names (a tuple
+    of axes the minor one first)."""
+    for dim, ax in enumerate(spec):
+        if ax is None:
+            continue
+        for a in reversed(ax if isinstance(ax, tuple) else (ax,)):
+            if mesh.size(a) > 1:
+                x = mp.all_gather(x, mesh.group(a), dim)
+    return x
+
+
+def gather_state(cfg: Llama3DConfig, state: dict, mesh=None) -> dict:
+    """This rank's train state (`state_template`'s layout) as the global
+    state every rank holds, in the JAX package's nesting: ``{"step",
+    "params": {"chunk": {name: (V, PP, lps, ...)}, "shared": {...}},
+    "opt": FusedAdamState(step, exp_avg, exp_avg_sq)[, "scale"]}``, the
+    moments nested as the params. The stage axis `shard_params` drops is
+    restored and every tp, pp and ep shard all-gathered (a collective
+    call on every rank). The layout-canonical tree a checkpoint holds
+    (`resilience.reshard_state` and `reshape_chunks` read it): the
+    port's counterpart of ``jax.device_get`` of the global arrays."""
+    from apex1_tpu_torch.optim.fused_adam import FusedAdamState
+    mesh = _mesh(cfg, mesh)
+    cs, ss = chunk_param_specs(cfg), shared_param_specs()
+
+    def tree(flat: dict) -> dict:
+        chunk, shared = _split(flat)
+        return {"chunk": {k: _unshard(mesh, v.unsqueeze(1), cs[k])
+                          for k, v in chunk.items()},
+                "shared": {k: _unshard(mesh, v, ss[k])
+                           for k, v in shared.items()}}
+
+    opt = state["opt"]
+    out = {"step": state["step"], "params": tree(state["params"]),
+           "opt": FusedAdamState(step=opt.step, exp_avg=tree(opt.exp_avg),
+                                 exp_avg_sq=tree(opt.exp_avg_sq))}
+    if "scale" in state:
+        out["scale"] = state["scale"]
+    return out
+
+
+def local_state(cfg: Llama3DConfig, global_state: dict, mesh=None) -> dict:
+    """`gather_state`'s inverse: this rank's train state from the global
+    one, sliced as `interop.llama3d_state_from_jax` slices, on the global
+    leaves' device."""
+    from apex1_tpu_torch.core.pytree import tree_map_with_path
+    from apex1_tpu_torch.interop import llama3d_state_from_jax
+    device = global_state["step"].device
+    state = llama3d_state_from_jax(global_state["params"], cfg, mesh,
+                                   opt_state=global_state["opt"],
+                                   device=device)
+    state["step"] = global_state["step"].to(device)
+    if "scale" in global_state:
+        state["scale"] = tree_map_with_path(lambda p, x: x.to(device),
+                                            global_state["scale"])
+    return state
+
+
 def shard_batch(x: torch.Tensor, cfg: Llama3DConfig, mesh=None):
     """This rank's (M, S/cp, mb) shard of global (M, S, mb·dp·ep) tokens
     or labels."""

@@ -6,16 +6,18 @@
   carried over, and both give the same arrays.
 - :class:`RequestFeeder`: the serving engine's background ingest thread
   (tokenize off the engine's critical path, submit under bounded
-  backoff), with its own copy of ``resilience.retry.backoff_delays``.
+  backoff), on `resilience.retry.backoff_delays` (re-exported here).
 """
 
 from __future__ import annotations
 
 import threading
 import time as _time
-from typing import Callable, Iterable, Iterator, Optional, Sequence
+from typing import Callable, Iterable, Optional, Sequence
 
 import numpy as np
+
+from apex1_tpu_torch.resilience.retry import backoff_delays
 
 
 def pack_documents(docs: Sequence[np.ndarray], seq_len: int,
@@ -82,28 +84,6 @@ def pack_documents(docs: Sequence[np.ndarray], seq_len: int,
 
 
 __all__ = ["pack_documents", "backoff_delays", "RequestFeeder"]
-
-
-def backoff_delays(retries: int, *, base_s: float = 0.01,
-                   cap_s: float = 2.0, factor: float = 2.0,
-                   jitter: float = 0.5, seed: int = 0
-                   ) -> Iterator[float]:
-    """Yield ``retries`` sleep durations: ``base * factor**i`` capped at
-    ``cap_s``, each scaled by a deterministic jitter in
-    ``[1 - jitter, 1]`` keyed on ``(seed, attempt)``. ``jitter=0`` gives
-    the exact exponential schedule (a copy of the JAX package's
-    ``resilience.retry.backoff_delays``)."""
-    from apex1_tpu_torch.serving.engine import _mix32
-    if retries < 0:
-        raise ValueError("retries must be >= 0")
-    if not 0.0 <= jitter <= 1.0:
-        raise ValueError("jitter must be in [0, 1]")
-    for i in range(retries):
-        d = min(float(cap_s), float(base_s) * float(factor) ** i)
-        if jitter:
-            u = _mix32(seed ^ _mix32(i + 1)) / 0xFFFFFFFF
-            d *= 1.0 - jitter * u
-        yield d
 
 
 class RequestFeeder:

@@ -100,6 +100,7 @@ from apex1_tpu_torch.models.gpt2 import head_logits
 from apex1_tpu_torch.ops._common import resolve_device
 from apex1_tpu_torch.ops.lora_epilogue import lora_delta
 from apex1_tpu_torch.ops.paged_decode import PagedCache, fused_sample
+from apex1_tpu_torch.resilience.retry import _mix32
 from apex1_tpu_torch.serving.kv_pool import KVPool, PagedKVPool
 from apex1_tpu_torch.serving.lora import LoraAdapterStore
 from apex1_tpu_torch.serving.metrics import ServingMetrics
@@ -107,18 +108,6 @@ from apex1_tpu_torch.serving.scheduler import (Backpressure, Request,
                                                Scheduler)
 from apex1_tpu_torch.serving.spec import ngram_propose
 from apex1_tpu_torch.utils.observability import MetricsLogger, annotate
-
-
-def _mix32(x: int) -> int:
-    """Deterministic 32-bit avalanche (xorshift-multiply), a copy of
-    ``apex1_tpu/resilience/retry.py::_mix32``."""
-    x &= 0xFFFFFFFF
-    x ^= x >> 16
-    x = (x * 0x7FEB352D) & 0xFFFFFFFF
-    x ^= x >> 15
-    x = (x * 0x846CA68B) & 0xFFFFFFFF
-    x ^= x >> 16
-    return x
 
 
 def derive_request_seed(engine_seed: int, req_id: int) -> int:

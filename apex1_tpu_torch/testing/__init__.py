@@ -1,2 +1,3 @@
-"""Serving drill fixtures of the port: `chaos` (serving faults and the
-toy decoder) and `fleetsim` (the virtual-clock fleet simulator)."""
+"""Drill fixtures of the port: `chaos` (training, checkpoint and serving
+faults, the toy decoder) and `fleetsim` (the virtual-clock fleet
+simulator)."""

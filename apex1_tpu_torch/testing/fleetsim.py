@@ -612,7 +612,7 @@ def kill_k_of_n(seed: int, *, n_replicas: int, k: int, lo: int,
     drill): same seed ⇒ same victims and steps, so "k of n replicas
     die and every request still completes" is an assertable property.
     """
-    from apex1_tpu_torch.serving.engine import _mix32
+    from apex1_tpu_torch.resilience.retry import _mix32
     from apex1_tpu_torch.testing.chaos import ChaosSchedule, ReplicaKill
 
     if not 0 < k < n_replicas:

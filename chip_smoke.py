@@ -31,9 +31,19 @@
                                      # paged, sample, lora, xent)
     python3 chip_smoke.py --only [generate-t5] [contrib] [serve-dense]
                          [serve-fleet] [disagg] [speculative]
+                         [train-resume] [train-sentinel] [train-fsdp]
+                         [train-zero] [train-bert-lamb]
+                         [spatial-bottleneck] [llama-3d-resume]
                                      # build, then run only those
-                                     # phases (all six by default); no
-                                     # kernels line
+                                     # phases (all of them by default;
+                                     # the last five each in a one-rank
+                                     # NCCL group); no kernels line
+    python3 chip_smoke.py --save-inflight
+                                     # build, then time GPT-2 124M's
+                                     # training steps with an async
+                                     # checkpoint save in flight, for
+                                     # several variants of the save's
+                                     # worker, and profile one
     python3 chip_smoke.py --gate-sweep [kernels] [plain]
                                      # build, then train bert_large at
                                      # O2 for GATE_STEPS steps at each
@@ -439,14 +449,40 @@ Phases, each printed on its own line; a failure in any exits non-zero:
    prefills, int8_mm each draft forward); at T 0.7 tokens in the
    vocabulary, two calls the same bits. Prints target forwards per
    row, the accept rate, tokens/s beside plain ``generate``.
-39. the ``kernels`` JSON line (each kernel's launches over the main
+39. train-resume — the ddp phase's trainer (GPT-2 124M, flash, fused
+   head, O2): run A 4 steps; run B step 1, an async
+   ``ResilientCheckpointer.save``, step 2 with it in flight, a SIGTERM
+   to itself inside a ``PreemptionHandler``: ``save_sync`` and the
+   resumable exit (code 75, caught); run C from another seed restores
+   step 2 and takes steps 3-4: losses, final params and launches equal
+   A's bit for bit. Then the newest checkpoint bit-flipped and the next
+   truncated: ``find_restorable`` falls back to the oldest, restoring a
+   damaged one raises ``IntegrityError``. Prints the bytes, the save's
+   host copy, write and digest seconds, the restore's, and step 2's wall
+   with the save in flight beside run A's.
+40. train-sentinel — the same trainer under ``Sentinel.guard``, NaN
+   losses with finite gradients at steps 3 and 4
+   (``chaos.poison_at_steps`` added to the loss): step 3 skipped by the
+   sentinel alone (params, moments and loss-scale state kept bit for
+   bit where the bare step moves them; the counters), ``poll`` says rollback after
+   step 4, the rollback restores step 2 with a banked record; two steps
+   on ``refold_seed`` batches equal a control restored from the same
+   checkpoint. The guarded step makes no more synchronizing calls than
+   the bare one (``set_sync_debug_mode("warn")``, both printed).
+41. llama-3d-resume — the bench's llama_3d at its one-card layout:
+   step 1, ``gather_state`` saved with its plan; two plain step-2s
+   agree bit for bit, and so does the restore's step 2; the checkpoint
+   resharded onto ``num_chunks=2`` and restored there: the step-2 loss
+   within 2e-5 relative. Prints the walls and bytes.
+42. the ``kernels`` JSON line (each kernel's launches over the main
    paths: the engine, the train phases, dpo, generate, train-llama,
    serve-llama and its generate, the BERT phases, train-gpt2-dropout,
    train-t5, mha, train-llama-longctx, decode, decode-int8,
    serve-lora, train-resnet, train-gpt2-fp16, tp-sp, cp, vp-ce, ddp,
    train-llama-3d, train-llama-3d-1f1b, generate-t5's kernel calls,
-   contrib's kernel cases, serve-dense, serve-fleet, disagg and
-   speculative), the card's name and power limit, and the last line
+   contrib's kernel cases, serve-dense, serve-fleet, disagg,
+   speculative, train-resume's run A and llama-3d-resume's two resumed
+   steps), the card's name and power limit, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Kernel times are device times of CUDA-graph replays (no host launch
@@ -3536,7 +3572,8 @@ def packed_batch(torch, vocab: int):
 
 def make_trainer(torch, level: str, depth: int, seed: int, factor=False,
                  use_flash=False, packed=False, fuse_head=False,
-                 dropout=0.0, grad_psum_axes=(), tx=None, fsdp=False):
+                 dropout=0.0, grad_psum_axes=(), tx=None, fsdp=False,
+                 offset=False):
     """GPT-2 124M at full width (``depth`` layers), weights from
     ``seed``, under ``Amp(fused_adam(1e-4, weight_decay=0.01),
     opt_level=level)`` (or the optimizer ``tx``), its loss
@@ -3545,7 +3582,9 @@ def make_trainer(torch, level: str, depth: int, seed: int, factor=False,
     with ``dropout`` the model's dropout rate, the batch ending in an
     int base seed (``dropout_rng``, the tokens not packed).
     With ``factor`` the step takes a factor before the batch that
-    multiplies the loss (inf forces an overflow); ``grad_psum_axes``
+    multiplies the loss (inf forces an overflow), with ``offset`` one
+    added to it (NaN poisons the loss and leaves the gradients finite:
+    a step only the sentinel refuses); ``grad_psum_axes``
     averages the gradients over those mesh axes (the ddp phase). With
     ``fsdp`` the master params and the Adam moments are placed on
     `parallel_state`'s mesh by `fsdp_param_specs` and
@@ -3571,7 +3610,8 @@ def make_trainer(torch, level: str, depth: int, seed: int, factor=False,
     else:
         state = amp.init(params)
         base = gpt2_loss_fn(model, fuse_head=fuse_head)
-    loss_fn = (lambda p, f, *b: base(p, *b) * f) if factor else base
+    loss_fn = ((lambda p, f, *b: base(p, *b) * f) if factor else
+               (lambda p, o, *b: base(p, *b) + o) if offset else base)
     if packed:
         batch = packed_batch(torch, cfg.vocab_size)
     else:
@@ -7924,6 +7964,644 @@ def run_speculative(torch, ops, card, launches):
     return out, None
 
 
+# ---- the checkpointing and resilience slice ----------------------------------
+
+
+def scratch_dir(card, phase: str) -> str:
+    """A fresh temporary directory for a phase's checkpoints, its free
+    disk printed first."""
+    import shutil
+    import tempfile
+    d = tempfile.mkdtemp(prefix=f"chip_smoke_{phase}_")
+    du = shutil.disk_usage(d)
+    print(f"phase {phase}: checkpoint dir {d}, disk total "
+          f"{du.total / 2 ** 30:.1f} GiB free {du.free / 2 ** 30:.1f} GiB "
+          f"[{card}]")
+    return d
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(path) for f in fs)
+
+
+def save_split(timing: dict) -> str:
+    return (f"host copy {timing['copy_s']:.2f} s, write "
+            f"{timing['write_s']:.2f} s, digests {timing['digest_s']:.2f} s")
+
+
+def same_params(torch, a: dict, b: dict) -> bool:
+    return all(torch.equal(a[k], b[k]) for k in a)
+
+
+def same_tree(torch, a, b) -> bool:
+    """Two trees of tensors with the same key paths and equal leaves,
+    bit for bit."""
+    from apex1_tpu_torch.core.pytree import keystr, tree_flatten_with_path
+    la, lb = tree_flatten_with_path(a), tree_flatten_with_path(b)
+    return ([keystr(p) for p, _ in la] == [keystr(p) for p, _ in lb]
+            and all(torch.equal(x, y) for (_, x), (_, y) in zip(la, lb)))
+
+
+def run_train_resume(torch, ops, card, launches, steps: int = 4):
+    """train-resume: the ddp phase's trainer (GPT-2 124M, flash, fused
+    head, O2, B x S tokens). Run A takes ``steps`` steps. Run B takes
+    step 1, queues an async `ResilientCheckpointer.save(1)`, takes step 2
+    with that save in flight, and inside a `PreemptionHandler` a SIGTERM
+    to itself (`chaos.sigterm_self_at`) makes it `save_sync(2)` and exit
+    resumable (the `SystemExit` caught, its code checked). Run C builds
+    the trainer from another seed, restores the newest valid checkpoint
+    (step 2, data step 2) and takes steps 3-4, step 4 with an async save
+    of step 3 in flight: its losses, final params and launches must
+    equal A's steps 3-4 bit for bit. Then step 4 is saved too, the newest checkpoint bit-flipped and the next truncated:
+    `find_restorable` must fall back to the oldest and restoring either
+    damaged one must raise `IntegrityError`. Adds run A's launches to
+    ``launches``."""
+    import shutil
+    from apex1_tpu_torch.resilience import (EXIT_RESUMABLE, IntegrityError,
+                                            PreemptionHandler,
+                                            ResilientCheckpointer,
+                                            find_restorable)
+    from apex1_tpu_torch.testing import chaos
+    out = {}
+    ops.reset_launches()
+    _, state, step, batch = make_trainer(torch, "O2", 12, SEED,
+                                         use_flash=True, fuse_head=True)
+    rows_a, _, state = run_steps(torch, ops, state, step, batch, steps,
+                                 return_state=True)
+    for k, v in ops.launch_counts().items():
+        launches[k] = launches.get(k, 0) + v
+    params_a = state.params
+    del state, step
+    d = scratch_dir(card, "train-resume")
+    try:
+        # run B: step 1, an async save, step 2 with the save in flight,
+        # then the preemption
+        _, state, step, batch = make_trainer(torch, "O2", 12, SEED,
+                                             use_flash=True, fuse_head=True)
+        ck = ResilientCheckpointer(d, keep=3)
+        state, _ = step(state, *batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(1, state, meta={"data_step": 1})
+        enqueue_s = time.perf_counter() - t0
+        code = None
+        try:
+            with PreemptionHandler() as pre:
+                for i in (2,):
+                    t0 = time.perf_counter()
+                    state, _ = step(state, *batch)
+                    torch.cuda.synchronize()
+                    inflight_ms = (time.perf_counter() - t0) * 1e3
+                    inflight = not ck.timings
+                    chaos.sigterm_self_at(i, 2)
+                    if pre.triggered:
+                        t0 = time.perf_counter()
+                        ck.save_sync(i, state, meta={"data_step": i})
+                        sync_s = time.perf_counter() - t0
+                        pre.exit_resumable(f"preempted at step {i}")
+        except SystemExit as e:
+            code = e.code
+        ck.close()
+        del state, step
+        torch.cuda.empty_cache()
+        t_b = list(ck.timings)
+        n_bytes = dir_bytes(os.path.join(d, "step_00000002"))
+        # run C: another seed's trainer, the newest valid checkpoint
+        _, state, step, batch = make_trainer(torch, "O2", 12, SEED + 7,
+                                             use_flash=True, fuse_head=True)
+        ck = ResilientCheckpointer(d, keep=3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, man = ck.restore(state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        ops.reset_launches()
+        # step 3, an async save of it, step 4 with that save in flight
+        # (the host's pinned buffers now warm from run B's saves)
+        rows_c, _, state = run_steps(torch, ops, state, step, batch, 1,
+                                     return_state=True)
+        ck.save(steps - 1, state, meta={"data_step": steps - 1})
+        rows_c4, _, state = run_steps(torch, ops, state, step, batch, 1,
+                                      return_state=True)
+        warm_inflight = not ck.timings
+        rows_c += rows_c4
+        launch_c = ops.launch_counts()
+        launch_a = {}
+        for r in rows_a[2:]:
+            for k, v in r["launches"].items():
+                launch_a[k] = launch_a.get(k, 0) + v
+        launch_c = {k: v for k, v in launch_c.items() if v}
+        losses_a = [r["loss"] for r in rows_a[2:]]
+        losses_c = [r["loss"] for r in rows_c]
+        same = same_params(torch, params_a, state.params)
+        # damage: step 4 saved (keep=3 collects step 1), the newest
+        # bit-flipped, the next truncated; the scan falls back to the
+        # oldest
+        ck.save_sync(steps, state, meta={"data_step": steps})
+        del state, step
+        torch.cuda.empty_cache()
+        names = sorted(n for n in os.listdir(d) if n.startswith("step_"))
+        chaos.bitflip_checkpoint(os.path.join(d, names[-1]))
+        chaos.truncate_checkpoint(os.path.join(d, names[-2]))
+        t0 = time.perf_counter()
+        best = find_restorable(d)
+        scan_s = time.perf_counter() - t0
+        refused = []
+        for n in names[-2:]:
+            try:
+                ck.restore(None, path=os.path.join(d, n))
+                refused.append(False)
+            except IntegrityError:
+                refused.append(True)
+        ck.close()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    wall_a2 = rows_a[1]["wall_ms"]
+    out.update(step4_inflight_ms=rows_c[-1]["wall_ms"],
+               step4_a_ms=rows_a[-1]["wall_ms"], warm_in_flight=warm_inflight,
+               save3=ck.timings[0])
+    out.update(code=code, manifest_step=man.step, meta=man.meta,
+               losses_a=losses_a, losses_c=losses_c, same_params=same,
+               launches_a=launch_a, launches_c=launch_c, bytes=n_bytes,
+               saves=t_b, sync_s=sync_s, enqueue_s=enqueue_s,
+               restore_s=restore_s, step2_inflight_ms=inflight_ms,
+               step2_a_ms=wall_a2, save_in_flight=inflight,
+               scan=os.path.basename(best or ""), scan_s=scan_s,
+               dirs=names, refused=refused)
+    print(f"phase train-resume: GPT-2 124M O2 flash fused head B={TB} "
+          f"S={TS}; run B exit code {code} (EXIT_RESUMABLE "
+          f"{EXIT_RESUMABLE}); run C restored step {man.step} data_step "
+          f"{man.meta.get('data_step')}; steps 3-4 losses C {losses_c} A "
+          f"{losses_a} equal {losses_c == losses_a}; final params "
+          f"bit-identical {same}; launches C {launch_c} A {launch_a} "
+          f"[{card}]")
+    print(f"phase train-resume: {n_bytes} bytes a checkpoint; async save "
+          f"queued in {enqueue_s * 1e3:.1f} ms (the packed snapshot copy), save 1 "
+          f"{save_split(t_b[0])}; step 2 wall {inflight_ms:.2f} ms with "
+          f"that save in flight ({inflight}) vs {wall_a2:.2f} ms in run "
+          f"A; run C's step 4 {out['step4_inflight_ms']:.2f} ms with step "
+          f"3's save in flight ({warm_inflight}; that save "
+          f"{save_split(out['save3'])}) vs "
+          f"{out['step4_a_ms']:.2f} ms in run A; preemption save_sync "
+          f"{sync_s:.2f} s ({save_split(t_b[1])});"
+          f" restore {restore_s:.2f} s (verify, read, copy to the card, "
+          f"leaf digests) [{card}]")
+    print(f"phase train-resume: dirs {names}; {names[-1]} bit-flipped, "
+          f"{names[-2]} truncated: find_restorable -> {out['scan']} in "
+          f"{scan_s:.2f} s; restore of each damaged one raised "
+          f"IntegrityError {refused} [{card}]")
+    if code != EXIT_RESUMABLE:
+        return out, f"train-resume: run B exited {code}, not resumable"
+    if man.step != 2 or man.meta.get("data_step") != 2:
+        return out, (f"train-resume: restored step {man.step} meta "
+                     f"{man.meta}, expected step 2 data_step 2")
+    if losses_c != losses_a or not same:
+        return out, (f"train-resume: the resumed steps differ from the "
+                     f"uninterrupted run: {losses_c} vs {losses_a}, "
+                     f"params equal {same}")
+    if launch_c != launch_a:
+        return out, (f"train-resume: resumed launches {launch_c}, "
+                     f"uninterrupted {launch_a}")
+    if out["scan"] != names[0] or refused != [True, True]:
+        return out, (f"train-resume: the scan picked {out['scan']} (want "
+                     f"{names[0]}), damaged restores refused {refused}")
+    return out, None
+
+
+def save_inflight(torch, ops, card, reps: int = 3) -> int:
+    """``--save-inflight``: what a step pays while an async
+    `ResilientCheckpointer.save` of GPT-2 124M's O2 state runs (the
+    ddp phase's trainer). For each variant of the save's worker, after
+    one save that warms the pinned host buffer, ``reps`` times: queue a
+    save, then take steps until it has committed, each step's wall
+    ending in a synchronize; beside them plain steps. Variants: as
+    shipped (``ASYNC_THREADS`` threads), pools of 2 and 8 threads, and
+    the host copy alone (no digests or writes). Then `torch.profiler`
+    of a plain step and of the first step with a save in flight (as
+    shipped): the host ops' summed times, the device's kernel and copy
+    time and the ops whose host time grew most."""
+    import shutil
+
+    import numpy as np
+    import apex1_tpu_torch.resilience.checkpointer as ckmod
+    from apex1_tpu_torch.resilience import ResilientCheckpointer
+    _, state, step, batch = make_trainer(torch, "O2", 12, SEED,
+                                         use_flash=True, fuse_head=True)
+    for _ in range(3):
+        state, _m = step(state, *batch)
+    torch.cuda.synchronize()
+    shipped, write_dir = ResilientCheckpointer.ASYNC_THREADS, \
+        ckmod.write_step_dir
+
+    def timed_step():
+        nonlocal state
+        t0 = time.perf_counter()
+        state, _m = step(state, *batch)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    variants = [(f"shipped (pool {shipped})", shipped, write_dir),
+                ("pool2", 2, write_dir), ("pool8", 8, write_dir),
+                ("copy-only", shipped,
+                 lambda *a, **k: {"digest_s": 0.0, "write_s": 0.0})]
+    d = scratch_dir(card, "save-inflight")
+    try:
+        for name, threads, wd in variants:
+            ResilientCheckpointer.ASYNC_THREADS = threads
+            ckmod.write_step_dir = wd
+            try:
+                ck = ResilientCheckpointer(d, keep=2)
+                plain = [timed_step() for _ in range(5)]
+                first, per, counts, save_s = [], [], [], []
+                # save 0 warms the pinned host buffer (the process's
+                # first save: cold)
+                for r in range(-1, reps):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    ck.save(r + 1, state)
+                    walls = []
+                    while ck._q.unfinished_tasks:
+                        walls.append(timed_step())
+                    ck.wait()
+                    save_s.append(time.perf_counter() - t0)
+                    first.append(walls[0] if walls else 0.0)
+                    per.append(float(np.mean(walls)) if walls else 0.0)
+                    counts.append(len(walls))
+                ck.close()
+            finally:
+                ResilientCheckpointer.ASYNC_THREADS = shipped
+                ckmod.write_step_dir = write_dir
+            p = float(np.median(plain))
+            print(f"save-inflight {name}: plain step {p:.2f} ms (median "
+                  f"of 5); with a save in flight (the first one's pinned "
+                  f"buffer cold in the first variant): first step "
+                  f"{[round(v, 2) for v in first]} ms, mean "
+                  f"{[round(v, 2) for v in per]} ms over {counts} steps "
+                  f"(extra host time a save "
+                  f"{[round((v - p) * n / 1e3, 3) for v, n in zip(per, counts)]}"
+                  f" s); save to commit {[round(v, 3) for v in save_s]} s; "
+                  f"splits {[save_split(t) for t in ck.timings]} "
+                  f"[{card}]")
+        # the trace: a plain step and the first step with a save in
+        # flight, the shipped pool
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        ck = ResilientCheckpointer(d, keep=2)
+        ck.save_sync(10, state)
+        traces = {}
+        for name in ("plain", "in-flight"):
+            torch.cuda.synchronize()
+            if name == "in-flight":
+                ck.save(11, state)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                wall = timed_step()
+            ck.wait()
+            ev = prof.key_averages()
+            host = {e.key: e.self_cpu_time_total for e in ev}
+            dev = sum(getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0))
+                      for e in ev if e.device_type == DeviceType.CUDA)
+            traces[name] = dict(wall_ms=wall, host=host, dev_ms=dev / 1e3,
+                                host_ms=sum(host.values()) / 1e3,
+                                calls=sum(e.count for e in ev))
+        ck.close()
+        grew = sorted(((traces["in-flight"]["host"].get(k, 0) - v, k)
+                       for k, v in traces["plain"]["host"].items()),
+                      reverse=True)[:8]
+        for name, t in traces.items():
+            print(f"save-inflight trace {name}: wall {t['wall_ms']:.2f} ms "
+                  f"(profiled), host ops' self time {t['host_ms']:.2f} ms "
+                  f"over {t['calls']} calls, device kernels and copies "
+                  f"{t['dev_ms']:.2f} ms [{card}]")
+        print(f"save-inflight trace: the host ops whose self time grew "
+              f"most (us): {[(k, round(g, 1)) for g, k in grew]} [{card}]")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return 0
+
+
+def sync_count(torch, fn) -> int:
+    """The synchronizing CUDA calls ``fn()`` makes: the warnings of
+    ``torch.cuda.set_sync_debug_mode("warn")``."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as got:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in got)
+
+
+def run_train_sentinel(torch, ops, card, launches):
+    """train-sentinel: the same trainer wrapped by ``Sentinel(ckpt,
+    check_every=1, rollback_after=2).guard(...)``, `chaos.poison_at_steps`
+    added to its loss (NaN at steps 3 and 4 of the first attempt, a
+    device-side pick from the state's step): the loss is NaN and the
+    gradients finite, so the Amp step would apply them and only the
+    sentinel refuses the step. Steps 1-2 clean, a sync save at step 2;
+    step 3 is skipped (the kept params, Adam moments and loss-scale
+    state are step 2's bit for bit, where the bare step alone moves the
+    params and moments; the counters as tests/test_resilience.py:388
+    expects);
+    after step 4 ``poll`` says "rollback", and `Sentinel.rollback`
+    restores step 2 with a banked record. Two more steps on batches
+    drawn from `refold_seed(SEED, 1)` stay finite and equal a control run
+    restored from the same checkpoint bit for bit. Under
+    ``torch.cuda.set_sync_debug_mode("warn")`` the guarded step makes no
+    more synchronizing calls than the bare step (both printed)."""
+    import json as _json
+    import shutil
+
+    import numpy as np
+    from apex1_tpu_torch.resilience import (ResilientCheckpointer,
+                                            Sentinel, refold_seed,
+                                            sentinel_init)
+    from apex1_tpu_torch.testing import chaos
+    cfg, state, bare, batch = make_trainer(torch, "O2", 12, SEED,
+                                           use_flash=True, fuse_head=True,
+                                           offset=True)
+    d = scratch_dir(card, "train-sentinel")
+    out = {}
+    try:
+        ck = ResilientCheckpointer(d, keep=3)
+        sent = Sentinel(ck, check_every=1, rollback_after=2)
+        guarded = sent.guard(bare)
+        zero = torch.zeros((), device="cuda")
+        carry = (state, sentinel_init())
+        del state
+
+        def factor(st):
+            # the 1-based number of the step about to run is step + 1
+            if sent.rollbacks_done:
+                return zero
+            return chaos.poison_at_steps(zero, st.step + 1, (3, 4))
+
+        # the sync count: bare and guarded clean steps from the same
+        # state (results dropped), twice each; the second is held
+        n_bare = [sync_count(torch, lambda: bare(carry[0], zero, *batch))
+                  for _ in range(2)]
+        n_guard = [sync_count(torch, lambda: guarded(carry, zero, *batch))
+                   for _ in range(2)]
+        rows, kept_ok, action = [], None, None
+        for i in (1, 2, 3, 4):
+            prev = carry[0] if i == 3 else None
+            f = factor(carry[0])
+            carry, m = guarded(carry, f, *batch)
+            s = carry[1]
+            action = sent.poll(s)
+            rows.append(dict(step=i, healthy=bool(m["sentinel_healthy"]),
+                             loss=scalar(m["loss"]),
+                             counters=[int(s.steps_seen),
+                                       int(s.consecutive_bad),
+                                       int(s.total_bad),
+                                       int(s.last_bad_step)],
+                             action=action))
+            if i == 2:
+                ck.save_sync(2, carry[0], meta={"data_step": 2})
+            if i == 3:
+                # params, Adam moments and loss-scale state all step 2's;
+                # the bare step alone applies the finite gradients, so
+                # the keep is the sentinel's, not the Amp skip's
+                kept_ok = {k: same_tree(torch, getattr(prev, k),
+                                        getattr(carry[0], k))
+                           for k in ("params", "opt_state", "loss_scale")}
+                moved = bare(prev, f, *batch)[0]
+                kept_ok["bare_step_moved"] = not (
+                    same_tree(torch, prev.params, moved.params)
+                    or same_tree(torch, prev.opt_state, moved.opt_state))
+                del moved
+        good, man, s0 = (sent.rollback(template=carry[0])
+                         if action == "rollback" else (None, None, None))
+        recs = sorted(os.listdir(os.path.join(d, "diagnostics")))
+        with open(os.path.join(d, "diagnostics", recs[-1])) as f:
+            banked = _json.load(f)
+        # the retry: two steps on batches from the refolded seed
+        seed2 = refold_seed(SEED, sent.rollbacks_done)
+        rng = np.random.default_rng(seed2)
+        retry = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (TB, TS)))
+                 .cuda() for _ in range(2)]
+        carry = (good, s0)
+        retry_losses = []
+        for tok in retry:
+            carry, m = guarded(carry, factor(carry[0]), tok)
+            retry_losses.append(scalar(m["loss"]))
+        params_r = carry[0].params
+        del carry, good
+        torch.cuda.empty_cache()
+        # the control: another seed's trainer restored from step 2
+        _, ctrl, step_c, _ = make_trainer(torch, "O2", 12, SEED + 7,
+                                          use_flash=True, fuse_head=True,
+                                          offset=True)
+        ctrl, man_c = ck.restore(ctrl, path=os.path.join(d,
+                                                         "step_00000002"))
+        ctrl_losses = []
+        for tok in retry:
+            ctrl, m = step_c(ctrl, zero, tok)
+            ctrl_losses.append(scalar(m["loss"]))
+        same = same_params(torch, params_r, ctrl.params)
+        ck.close()
+        del ctrl, params_r
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    out.update(rows=rows, kept=kept_ok, restored_step=getattr(man, "step",
+                                                              None),
+               records=[r["action"] for r in sent.records], banked=banked,
+               retry=retry_losses, control=ctrl_losses, same=same,
+               syncs={"bare": n_bare, "guarded": n_guard})
+    for r in rows:
+        print(f"phase train-sentinel: step {r['step']} loss {r['loss']} "
+              f"healthy {r['healthy']} counters (steps_seen, "
+              f"consecutive_bad, total_bad, last_bad_step) "
+              f"{r['counters']} poll {r['action']} [{card}]")
+    print(f"phase train-sentinel: step 3's kept params, opt_state and "
+          f"loss_scale are step 2's bit for bit, and the bare step alone "
+          f"moves them: {kept_ok}; rollback restored step {out['restored_step']}"
+          f" (records {out['records']}, banked {banked['action']} with "
+          f"consecutive_bad {banked['consecutive_bad']}); two steps on "
+          f"refold_seed({SEED}, 1) = {seed2} batches: losses "
+          f"{retry_losses}, control from the same checkpoint "
+          f"{ctrl_losses}, params equal {same}; synchronizing calls a "
+          f"step (set_sync_debug_mode warn; a first and a second call): "
+          f"bare {n_bare}, guarded {n_guard} [{card}]")
+    want = [[1, 0, 0, -1], [2, 0, 0, -1], [3, 1, 1, 2], [4, 2, 2, 3]]
+    if [r["counters"] for r in rows] != want or \
+            [r["action"] for r in rows] != [None, None, "skip", "rollback"]:
+        return out, (f"train-sentinel: counters "
+                     f"{[r['counters'] for r in rows]} actions "
+                     f"{[r['action'] for r in rows]}, expected {want}")
+    if not all(kept_ok.values()) or out["restored_step"] != 2 or \
+            out["records"] != ["skip", "rollback"]:
+        return out, "train-sentinel: the skip or the rollback is wrong"
+    if not (all(math.isfinite(v) for v in retry_losses)
+            and retry_losses == ctrl_losses and same):
+        return out, (f"train-sentinel: the retry {retry_losses} is not the "
+                     f"control's {ctrl_losses} (params equal {same})")
+    if n_guard[-1] > n_bare[-1]:
+        return out, (f"train-sentinel: the guarded step synchronizes "
+                     f"{n_guard} times, the bare step {n_bare}")
+    return out, None
+
+
+def l3d_plan(cfg, num_chunks: int) -> dict:
+    """The ``apex1-plan-v1`` document of the one-card llama_3d layout at
+    ``num_chunks``: the keys `resilience.reshard` and the checkpointer's
+    layout check read, written out (the port has no planner)."""
+    m = cfg.model
+    return {"schema": "apex1-plan-v1", "n_devices": 1,
+            "mesh": {"dp": 1, "pp": 1, "cp": 1, "ep": 1, "tp": 1},
+            "schedule": {"kind": "scan",
+                         "num_microbatches": cfg.num_microbatches,
+                         "microbatch_size": cfg.microbatch_size,
+                         "num_chunks": num_chunks},
+            "zero": {"enabled": False, "axis": "dp"},
+            "model": {"name": "llama_3d", "num_layers": m.num_layers,
+                      "hidden_size": m.hidden_size, "ffn_size": m.ffn_size,
+                      "num_heads": m.num_heads,
+                      "num_kv_heads": m.num_kv_heads,
+                      "head_dim": m.head_dim, "vocab_size": m.vocab_size,
+                      "seq_len": m.max_seq_len,
+                      "global_batch": cfg.num_microbatches
+                      * cfg.microbatch_size, "num_experts": 0,
+                      "moe_top_k": 2}}
+
+
+def run_llama_3d_resume(torch, ops, card, launches):
+    """llama-3d-resume: the bench's llama_3d at its one-card layout (8
+    layers, O2, remat). Step 1, then `gather_state` (the global tree)
+    committed by ``ResilientCheckpointer(plan=(1, 1, 8)).save_sync``.
+    Two plain step-2s from that state must agree bit for bit (printed).
+    The checkpoint restored (a meta template: `abstract_state` gathered)
+    into `local_state` and one step must equal them bit for bit. Then
+    `reshard_checkpoint` onto ``num_chunks=2`` (stack (2, 1, 4)), restored
+    into a ``Llama3DConfig(num_chunks=2)`` trainer: its step-2 loss within
+    2e-5 relative of the original stack's, every chunk leaf of the three
+    trees restacked, conserved. Adds the two resumed steps' launches to
+    ``launches``."""
+    import dataclasses
+    import shutil
+    from apex1_tpu_torch.models import llama_3d as L3
+    from apex1_tpu_torch.resilience import (ResilientCheckpointer,
+                                            reshard_checkpoint)
+    out = {}
+    cfg, step, state, batch = make_llama_3d(torch, "O2", L3D_LAYERS)
+    state, loss1 = step(state, *batch)
+    d = scratch_dir(card, "llama-3d-resume")
+    try:
+        plan_a, plan_b = l3d_plan(cfg, 1), l3d_plan(cfg, 2)
+        src_dir = os.path.join(d, "a")
+        ck = ResilientCheckpointer(src_dir, plan=plan_a)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        src = ck.save_sync(1, L3.gather_state(cfg, state),
+                           meta={"data_step": 1})
+        save_s = time.perf_counter() - t0
+        timing = ck.timings[-1]
+        n_bytes = dir_bytes(src)
+        # two plain step-2s from the same state
+        s2a, l2a = step(state, *batch)
+        p2a = s2a["params"]
+        del s2a
+        s2b, l2b = step(state, *batch)
+        plain_same = (torch.equal(l2a, l2b)
+                      and same_params(torch, p2a, s2b["params"]))
+        del s2b, state
+        torch.cuda.empty_cache()
+        # the same stack, restored
+        template = L3.gather_state(cfg, L3.abstract_state(cfg)[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g, man = ck.restore(template)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        state = L3.local_state(cfg, g)
+        del g
+        ops.reset_launches()
+        state, l2r = step(state, *batch)
+        torch.cuda.synchronize()
+        got = ops.launch_counts()
+        same_resume = (torch.equal(l2r, l2a)
+                       and same_params(torch, p2a, state["params"]))
+        rel_same = abs(l2r.item() - l2a.item()) / abs(l2a.item())
+        del state, p2a
+        ck.close()
+        torch.cuda.empty_cache()
+        # another stack: num_chunks 2
+        cfg_b = dataclasses.replace(cfg, num_chunks=2)
+        t0 = time.perf_counter()
+        dst, man_b, report = reshard_checkpoint(
+            src, template, plan_b, os.path.join(d, "b", "step_00000001"))
+        reshard_s = time.perf_counter() - t0
+        ck_b = ResilientCheckpointer(os.path.join(d, "b"), plan=plan_b)
+        t0 = time.perf_counter()
+        g_b, _ = ck_b.restore(L3.gather_state(
+            cfg_b, L3.abstract_state(cfg_b)[0]), path=dst)
+        torch.cuda.synchronize()
+        restore_b_s = time.perf_counter() - t0
+        step_b, _ = L3.build_step(cfg_b)
+        state_b = L3.local_state(cfg_b, g_b)
+        del g_b
+        state_b, l2x = step_b(state_b, *batch)
+        torch.cuda.synchronize()
+        now = ops.launch_counts()
+        for k, v in now.items():
+            launches[k] = launches.get(k, 0) + v
+        ck_b.close()
+        del state_b, step_b
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    n_chunk = len(L3._layer_leaf_shapes(cfg))
+    rel_x = abs(l2x.item() - l2a.item()) / abs(l2a.item())
+    out.update(loss1=loss1.item(), loss2=[l2a.item(), l2b.item()],
+               plain_same=plain_same, resumed=l2r.item(),
+               same_resume=same_resume, rel_same=rel_same,
+               restacked=l2x.item(), rel_restacked=rel_x, report=report,
+               bytes=n_bytes, save_s=save_s, save=timing,
+               restore_s=restore_s, reshard_s=reshard_s,
+               restore_b_s=restore_b_s, launches=got,
+               manifest_step=man.step, meta_b=man_b.meta.get("data_step"))
+    print(f"phase llama-3d-resume: llama_3d one card, {L3D_LAYERS} layers, "
+          f"O2 remat; step 1 loss {loss1.item():.6f}; two plain step-2s "
+          f"agree bit for bit {plain_same} ({l2a.item()!r}, "
+          f"{l2b.item()!r}); the same stack restored (step {man.step}) and "
+          f"stepped: loss {l2r.item()!r}, loss and params bit for bit "
+          f"{same_resume}; num_chunks 2 restored: loss {l2x.item()!r}, "
+          f"relative {rel_x:.2e} (limit 2e-5) [{card}]")
+    print(f"phase llama-3d-resume: reshard stack {report['stack_from']} -> "
+          f"{report['stack_to']}: {report['n_restacked']} chunk leaves "
+          f"restacked ({n_chunk} a tree, params and both moments), "
+          f"{report['n_copied']} copied, conserved {report['conserved']} "
+          f"({report['n_checks']} checks) [{card}]")
+    print(f"phase llama-3d-resume: {n_bytes} bytes a checkpoint; save_sync "
+          f"{save_s:.2f} s ({save_split(timing)}); restore {restore_s:.2f} "
+          f"s; reshard_checkpoint {reshard_s:.2f} s (verify, read, remap, "
+          f"write, digests); restore onto num_chunks 2 {restore_b_s:.2f} s "
+          f"[{card}]")
+    want = llama_3d_launches(L3D_LAYERS, "scan")
+    if got != {k: want.get(k, 0) for k in got}:
+        return out, (f"llama-3d-resume: the resumed step launched {got}, "
+                     f"expected {want}")
+    if not (report["conserved"] and report["n_restacked"] == 3 * n_chunk):
+        return out, f"llama-3d-resume: reshard report {report}"
+    if plain_same and not same_resume:
+        return out, ("llama-3d-resume: the restored step differs from "
+                     "continuing while two plain steps agree")
+    if not plain_same and rel_same > 2e-5:
+        return out, (f"llama-3d-resume: the restored step's loss is "
+                     f"{rel_same:.2e} relative from continuing")
+    if not math.isfinite(l2x.item()) or rel_x > 2e-5:
+        return out, (f"llama-3d-resume: num_chunks 2 after the reshard "
+                     f"gives {l2x.item()} vs {l2a.item()} ({rel_x:.2e})")
+    return out, None
+
+
 def main() -> int:
     try:
         import torch
@@ -7970,6 +8648,9 @@ def main() -> int:
                              sys.argv[sys.argv.index("--compare") + 1],
                              parts or COMPARE_PARTS)
 
+    if "--save-inflight" in sys.argv[1:]:
+        return save_inflight(torch, ops, card)
+
     if "--gate-sweep" in sys.argv[1:]:
         paths = [p for p in ("kernels", "plain") if p in sys.argv[1:]]
         return gate_sweep(torch, ops, card, paths or ["kernels", "plain"])
@@ -7980,21 +8661,27 @@ def main() -> int:
         only = {"generate-t5": run_generate_t5, "contrib": run_contrib,
                 "serve-dense": run_serve_dense,
                 "serve-fleet": run_serve_fleet, "disagg": run_disagg,
-                "speculative": run_speculative}
+                "speculative": run_speculative,
+                "train-resume": run_train_resume,
+                "train-sentinel": run_train_sentinel}
         grouped = {"train-fsdp": run_fsdp, "train-zero": run_zero,
                    "train-bert-lamb": run_bert_lamb,
-                   "spatial-bottleneck": run_spatial}
+                   "spatial-bottleneck": run_spatial,
+                   "llama-3d-resume": run_llama_3d_resume}
         errs = []
         for phase in ([a for a in sys.argv[1:] if a in {**only, **grouped}]
                       or list(only) + list(grouped)):
+            t0 = time.perf_counter()
             if phase in only:
                 errs.append(only[phase](torch, ops, card, {})[1])
-                continue
-            nccl_dir = start_nccl(torch)
-            try:
-                errs.append(grouped[phase](torch, ops, card, {})[1])
-            finally:
-                stop_nccl(nccl_dir)
+            else:
+                nccl_dir = start_nccl(torch)
+                try:
+                    errs.append(grouped[phase](torch, ops, card, {})[1])
+                finally:
+                    stop_nccl(nccl_dir)
+            print(f"phase {phase}: {time.perf_counter() - t0:.1f} s wall "
+                  f"[{card}]")
         errs = [e for e in errs if e]
         return fail("; ".join(errs)) if errs else 0
 
@@ -8439,10 +9126,29 @@ def main() -> int:
         if err:
             return fail(err)
         stamp(phase)
+    # 43-45. the checkpointing and resilience slice: a preempted run
+    # resumed bit for bit, the divergence sentinel's skip and rollback,
+    # llama_3d resumed on its own stack and resharded onto another
+    res_out = {}
+    for phase, fn in (("train-resume", run_train_resume),
+                      ("train-sentinel", run_train_sentinel)):
+        res_out[phase], err = fn(torch, ops, card, main_launches)
+        if err:
+            return fail(err)
+        stamp(phase)
+    nccl_dir = start_nccl(torch)
+    try:
+        res_out["llama-3d-resume"], err = run_llama_3d_resume(
+            torch, ops, card, main_launches)
+        if err:
+            return fail(err)
+        stamp("llama-3d-resume")
+    finally:
+        stop_nccl(nccl_dir)
     print(f"phase times: { {k: round(v, 1) for k, v in phase_s.items()} } "
           f"s wall [{card}]")
 
-    # 43. the kernels line, the card, the last line. launches: the main
+    # 46. the kernels line, the card, the last line. launches: the main
     # paths' runs (engine, the train phases, dpo, generate, train-llama,
     # serve-llama and its generate, the BERT phases, train-gpt2-dropout,
     # train-t5, mha, train-llama-longctx, decode, decode-int8, serve-lora,
@@ -8450,7 +9156,8 @@ def main() -> int:
     # train-llama-3d, train-llama-3d-1f1b, train-fsdp's placed run,
     # train-zero's and train-bert-lamb's ZeRO runs, generate-t5's calls,
     # contrib's kernel cases, serve-dense's dense run, serve-fleet's
-    # drill, disagg's clean run, speculative's greedy call)
+    # drill, disagg's clean run, speculative's greedy call, train-resume's
+    # uninterrupted run, llama-3d-resume's two resumed steps)
     sources = {"layer_norm_fwd": ("apex1_tpu_torch/csrc/layer_norm.cu",
                                   "apex1_tpu/ops/layer_norm.py:110"),
                "paged_attend": ("apex1_tpu_torch/csrc/paged_attend.cu",
@@ -8521,6 +9228,7 @@ def main() -> int:
                    "bert": bert_out, "t5": t5_out, "decode": dec_out,
                    "amp": amp_out, "parallel": par_out,
                    "t5_contrib": slice_out, "serving": serve_out,
+                   "resilience": res_out,
                    "phase_s": phase_s},
                   f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))

@@ -11,7 +11,10 @@ stays on the CPU, also where a batch norm holds no tensor at all. The
 serving tier likewise: the dense `KVPool` (through the decoder's
 ``make_cache``), the dense `Engine` and the engines a `ServingFrontend`'s
 replicas build (without CUDA the build raises naming it, the replica
-dies and its request is evicted at failover).
+dies and its request is evicted at failover). The resilience layer too:
+`sentinel_init` and a template-free `restore_checkpoint` put their
+tensors on the card when no device is named (the restore checked with
+CUDA stubbed in: each leaf is moved to a CUDA device).
 """
 
 import pytest
@@ -144,3 +147,41 @@ def test_frontend_replicas_build_their_engines_on_the_named_device(device):
     assert front.poll(rid).status == "done"
     want = "cpu" if device == "cpu" else "cuda"
     assert {t.device.type for t in _pool_leaves(rep.engine)} == {want}
+
+
+def test_sentinel_init_defaults_to_cuda():
+    from apex1_tpu_torch.resilience import sentinel_init
+    s = sentinel_init("cpu")
+    assert {s.steps_seen.device.type, s.last_loss.device.type} == {"cpu"}
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            sentinel_init()
+    else:
+        assert sentinel_init().steps_seen.device.type == "cuda"
+
+
+def test_template_free_restore_defaults_to_cuda(tmp_path, monkeypatch):
+    from apex1_tpu_torch.checkpoint import (restore_checkpoint,
+                                            save_checkpoint)
+    state = {"w": torch.ones(3), "n": {"s": torch.tensor(1)},
+             "h": torch.zeros(2, dtype=torch.bfloat16)}
+    save_checkpoint(tmp_path / "ck", state)
+    got = restore_checkpoint(tmp_path / "ck", device="cpu")
+    assert {got["w"].device.type, got["n"]["s"].device.type,
+            got["h"].device.type} == {"cpu"}
+    if torch.cuda.is_available():
+        got = restore_checkpoint(tmp_path / "ck")
+        assert got["w"].device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        restore_checkpoint(tmp_path / "ck")
+    moved = []
+
+    def to(self, *args, **kw):
+        moved.append(torch.device(args[0] if args else kw["device"]).type)
+        return self
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.Tensor, "to", to)
+    restore_checkpoint(tmp_path / "ck")
+    assert moved == ["cuda"] * 3

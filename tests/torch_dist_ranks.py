@@ -1053,3 +1053,223 @@ def spec_cases(inputs: dict, n: int) -> dict:
         _raises(lambda: xentropy._check(table[None], labels, "xent_fwd"),
                 TypeError)]
     return _np(out)
+
+
+# ---- tests/test_torch_checkpoint.py ---------------------------------------
+
+
+def _zero_specs():
+    """The spec tree of a {"params", "opt": DistributedAdamState} state:
+    params replicated, the moment slices split over fsdp."""
+    from apex1_tpu_torch.parallel.distributed_optimizer import (
+        DistributedAdamState)
+    from apex1_tpu_torch.parallel.specs import PartitionSpec as P
+    return lambda params: {
+        "params": {k: P() for k in params},
+        "opt": DistributedAdamState(step=P(), exp_avg_shard=P("fsdp"),
+                                    exp_avg_sq_shard=P("fsdp"))}
+
+
+def checkpoint_cases(inputs: dict, path: str) -> dict:
+    """At fsdp = 2: (1) the unsharded checkpoint ``path/full`` restored
+    onto the mesh with ``{"w": P("fsdp", None), "step": P()}``, against
+    `place` of the same full state (this rank's blocks and placements);
+    (2) `distributed_fused_adam` on ``inputs``' params, 2 steps, its
+    state made global by `to_global` and saved by `save_checkpoint`
+    (a collective call) to ``path/zero``: this rank's moment slices."""
+    import os
+    from apex1_tpu_torch.checkpoint import (restore_checkpoint,
+                                            save_checkpoint, to_global,
+                                            to_host_local)
+    from apex1_tpu_torch.core.mesh import place
+    from apex1_tpu_torch.parallel import distributed_optimizer as do
+    from apex1_tpu_torch.parallel.specs import PartitionSpec as P
+    mesh = _setup(fsdp_size=2)
+    t = {k: torch.from_numpy(np.array(v)) for k, v in inputs.items()}
+    full = {"w": t["full_w"], "step": t["full_step"]}
+    specs = {"w": P("fsdp", None), "step": P()}
+    got = restore_checkpoint(os.path.join(path, "full"), template=full,
+                             mesh=mesh, spec_tree=specs)
+    want = place(full, specs, mesh)
+    out = {"mesh": dict(
+        local=got["w"].to_local(), want_local=want["w"].to_local(),
+        same_placements=all(got[k].placements == want[k].placements
+                            for k in full),
+        host_local=to_host_local(got)["w"])}
+    params = {"w": t["w"], "b": t["b"]}
+    opt = do.distributed_fused_adam(1e-2, axis_name="fsdp")
+    state = opt.init(params)
+    for i in range(2):
+        params, state = opt.step({"w": t["gw"][i], "b": t["gb"][i]}, state,
+                                 params)
+    tree = to_global({"params": params, "opt": state}, mesh,
+                     _zero_specs()(params))
+    save_checkpoint(os.path.join(path, "zero"), tree)
+    out["zero"] = dict(exp_avg=state.exp_avg_shard,
+                       exp_avg_sq=state.exp_avg_sq_shard,
+                       params=params,
+                       global_len=tree["opt"].exp_avg_shard.shape[0])
+    # the sentinel's flag agreed over the fsdp group (JAX's pmin): rank
+    # 1's loss is NaN, so both ranks see an unhealthy step
+    from apex1_tpu_torch.resilience import health_flag
+    from apex1_tpu_torch.transformer.tensor_parallel import mappings
+    loss = torch.tensor(float("nan") if dist.get_rank() == 1 else 1.0)
+    mappings.reset_collectives()
+    out["flag"] = dict(
+        local=bool(health_flag({"loss": loss})),
+        agreed=bool(health_flag({"loss": loss}, axis_names=("fsdp",))),
+        all_reduces=mappings.collective_counts()["all_reduce"])
+    return _np(out)
+
+
+# ---- tests/test_torch_elastic.py ------------------------------------------
+
+
+def zero_reshard_save(inputs: dict, path: str, plan: dict) -> dict:
+    """At fsdp = 4: `distributed_fused_adam` 2 steps, the state made
+    global (`to_global`, every rank) and committed by rank 0 through
+    ``ResilientCheckpointer(plan=plan)`` at ``path``; then a third step
+    on the same ranks (the continuation the resharded resume must
+    meet)."""
+    from apex1_tpu_torch.checkpoint import to_global
+    from apex1_tpu_torch.core.pytree import tree_map_with_path
+    from apex1_tpu_torch.parallel import distributed_optimizer as do
+    from apex1_tpu_torch.resilience import ResilientCheckpointer
+    mesh = _setup(fsdp_size=4)
+    t = {k: torch.from_numpy(np.ascontiguousarray(v))
+         for k, v in inputs.items()}
+    params = {"w": t["w"], "b": t["b"]}
+    opt = do.distributed_fused_adam(1e-2, axis_name="fsdp")
+    state = opt.init(params)
+    for i in range(2):
+        params, state = opt.step({"w": t["gw"][i], "b": t["gb"][i]}, state,
+                                 params)
+    tree = to_global({"params": params, "opt": state}, mesh,
+                     _zero_specs()(params))
+    full = tree_map_with_path(
+        lambda p, x: x.full_tensor() if hasattr(x, "full_tensor") else x,
+        tree)
+    if dist.get_rank() == 0:
+        with ResilientCheckpointer(path, plan=plan) as ck:
+            ck.save_sync(2, full, meta={"data_step": 2})
+    dist.barrier()
+    params, state = opt.step({"w": t["gw"][2], "b": t["gb"][2]}, state,
+                             params)
+    return _np(dict(params=params))
+
+
+def zero_reshard_resume(inputs: dict, path: str, plan: dict) -> dict:
+    """At fsdp = 2: the resharded checkpoint ``path`` verified, restored
+    onto the mesh by spec (`restore_checkpoint(mesh=, spec_tree=)`),
+    back to this rank's slices (`to_host_local`), and the third step."""
+    import os
+    from apex1_tpu_torch.checkpoint import restore_checkpoint, to_host_local
+    from apex1_tpu_torch.parallel import distributed_optimizer as do
+    from apex1_tpu_torch.resilience import read_plan, verify_files
+    mesh = _setup(fsdp_size=2)
+    t = {k: torch.from_numpy(np.ascontiguousarray(v))
+         for k, v in inputs.items()}
+    man = verify_files(path)
+    params = {"w": t["w"], "b": t["b"]}
+    n = do.shard_padded_len(do.flat_param_len(params), 2)
+    template = {"params": params, "opt": do.DistributedAdamState(
+        step=torch.zeros((), dtype=torch.int32),
+        exp_avg_shard=torch.zeros(n), exp_avg_sq_shard=torch.zeros(n))}
+    placed = restore_checkpoint(os.path.join(path, "state"), template,
+                                mesh=mesh,
+                                spec_tree=_zero_specs()(params))
+    local = to_host_local(placed)
+    opt = do.distributed_fused_adam(1e-2, axis_name="fsdp")
+    params, state = opt.step({"w": t["gw"][2], "b": t["gb"][2]},
+                             local["opt"], local["params"])
+    return _np(dict(params=params, step=int(state.step),
+                    data_step=man.meta["data_step"],
+                    plan_dp=read_plan(path)["mesh"]["dp"],
+                    shard_len=int(local["opt"].exp_avg_shard.shape[0])))
+
+
+def llama_3d_resume(inputs: dict, path: str, lay_a: dict, lay_b: dict,
+                    model_kw: dict, plans: dict) -> dict:
+    """At world 4: `llama_3d` on layout ``lay_a`` from the JAX package's
+    global params ``inputs["start_a"]``, one step; the global state
+    (`gather_state`) committed by rank 0 with ``plans["a"]``; a second
+    step on ``lay_a`` (the continuation). Rank 0 reshards the checkpoint
+    onto ``plans["b"]``; every rank restores it (verified against its
+    manifest) into ``lay_b``'s state (`local_state`) and takes the
+    second step there."""
+    import os
+    from apex1_tpu_torch import LlamaConfig, get_policy
+    from apex1_tpu_torch.core.mesh import make_mesh
+    from apex1_tpu_torch.interop import llama3d_state_from_jax
+    from apex1_tpu_torch.models import llama_3d as L3
+    from apex1_tpu_torch.resilience import (ResilientCheckpointer,
+                                            reshard_checkpoint)
+    torch.set_num_threads(1)
+    m = LlamaConfig.tiny(policy=get_policy("O0"), **model_kw)
+    tok = torch.from_numpy(inputs["tokens"])
+    lbl = torch.from_numpy(inputs["labels"])
+    cfg_a = L3.Llama3DConfig(model=m, **lay_a)
+    mesh_a = make_mesh(dp=cfg_a.dp, pp=cfg_a.pp, tp=cfg_a.tp)
+    step_a, _ = L3.build_step(cfg_a, mesh_a)
+    state = llama3d_state_from_jax(inputs["start_a"], cfg_a, mesh_a,
+                                   device="cpu")
+    state, loss1 = step_a(state, tok, lbl)
+    g = L3.gather_state(cfg_a, state, mesh_a)
+    src = os.path.join(path, "a", "step_00000001")
+    if dist.get_rank() == 0:
+        with ResilientCheckpointer(os.path.join(path, "a"),
+                                   plan=plans["a"]) as ck:
+            ck.save_sync(1, g, meta={"data_step": 1})
+    dist.barrier()
+    _, loss_cont = step_a(state, tok, lbl)
+
+    cfg_b = L3.Llama3DConfig(model=m, **lay_b)
+    mesh_b = make_mesh(dp=cfg_b.dp, pp=cfg_b.pp, tp=cfg_b.tp)
+    out_dir = os.path.join(path, "b", "step_00000001")
+    report = None
+    if dist.get_rank() == 0:
+        _, _, report = reshard_checkpoint(src, g, plans["b"], out_dir)
+    dist.barrier()
+    fresh = L3.state_template(cfg_b, L3.shard_params(
+        *L3.init_params(cfg_b, device="cpu"), cfg_b, mesh_b))
+    template = L3.gather_state(cfg_b, fresh, mesh_b)
+    with ResilientCheckpointer(os.path.join(path, "b"),
+                               plan=plans["b"]) as ck:
+        g_b, man = ck.restore(template, path=out_dir)
+    step_b, _ = L3.build_step(cfg_b, mesh_b)
+    state_b = L3.local_state(cfg_b, g_b, mesh_b)
+    state_b, loss_res = step_b(state_b, tok, lbl)
+    # the gathered state of layout b re-sliced for layout a's stack is
+    # layout a's (reshape_chunks' contract), so local_state round-trips
+    back = L3.gather_state(cfg_b, L3.local_state(cfg_b, g_b, mesh_b),
+                           mesh_b)
+    same_back = all(torch.equal(back["params"]["chunk"][k],
+                                g_b["params"]["chunk"][k])
+                    for k in g_b["params"]["chunk"])
+    return _np(dict(loss1=loss1, loss_cont=loss_cont, loss_res=loss_res,
+                    step=int(state_b["step"]), data_step=man.meta[
+                        "data_step"], report=report, same_back=same_back,
+                    global_shapes={k: list(v.shape) for k, v in
+                                   g["params"]["chunk"].items()}))
+
+
+# ---- tests/test_torch_debug.py --------------------------------------------
+
+
+def debug_cases(inputs: dict) -> dict:
+    """`assert_same_program_across_processes` at world 2: the same
+    program on every rank (the fingerprint), then rank 1 running another
+    shape (the assertion's message)."""
+    from apex1_tpu_torch.utils.debug import (
+        assert_same_program_across_processes)
+    x = torch.from_numpy(inputs["x"])
+    w = torch.from_numpy(inputs["w"])
+
+    def f(x, w):
+        return torch.tanh(x @ w).sum()
+
+    fp = assert_same_program_across_processes(f, x, w)
+    mine = x if dist.get_rank() == 0 else x[:-1]
+    err = _raises(lambda: assert_same_program_across_processes(f, mine, w),
+                  AssertionError)
+    return dict(fp=fp, err=err)
