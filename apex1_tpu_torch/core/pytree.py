@@ -1,7 +1,9 @@
 """Whole-model reductions and the flat buffer over ``{name: tensor}``
-dicts (the port of the parts of ``apex1_tpu/core/pytree.py`` the amp
-step and the distributed optimizers use), and key paths over the
-port's nested containers (``jax.tree_util``'s, for checkpoints).
+dicts (the port of ``apex1_tpu/core/pytree.py``: what the amp step and
+the distributed optimizers use), key paths over the port's nested
+containers (``jax.tree_util``'s, for checkpoints), and the tree helpers
+over those containers: `tree_float_leaves`, `tree_axpby`,
+`tree_cast_like` and `named_tree_map`.
 
 The JAX package's pytrees of parameters are the port's flat dicts
 keyed by ``named_parameters()`` names, so a tree map is a dict
@@ -162,3 +164,49 @@ def tree_map_with_path(fn, tree, *rest, is_leaf=None):
         return rebuild(new)
 
     return walk(tree, list(rest), ())
+
+
+# ---- tree helpers over nested containers ---------------------------------
+
+
+def _float_tensor(x) -> bool:
+    return isinstance(x, torch.Tensor) and torch.is_floating_point(x)
+
+
+def tree_float_leaves(tree) -> list:
+    """The floating leaves of ``tree`` as tensors, in JAX's leaf order
+    (numpy arrays and Python scalars taken as tensors first, as the JAX
+    package takes them as arrays)."""
+    leaves = [torch.as_tensor(x) for _, x in tree_flatten_with_path(tree)]
+    return [x for x in leaves if torch.is_floating_point(x)]
+
+
+def tree_axpby(a, x_tree, b, y_tree, out_dtype=None):
+    """``amp_C.multi_tensor_axpby``: ``a * x + b * y`` leaf by leaf,
+    accumulated in fp32, in x's dtype (or ``out_dtype``); where x is not
+    floating, y's leaf passes through unchanged."""
+
+    def axpby(_, x, y):
+        x, y = torch.as_tensor(x), torch.as_tensor(y)
+        if not torch.is_floating_point(x):
+            return y
+        acc = a * x.float() + b * y.float()
+        return acc.to(out_dtype or x.dtype)
+
+    return tree_map_with_path(axpby, x_tree, y_tree)
+
+
+def tree_cast_like(tree, like):
+    """Each leaf of ``tree`` cast to the dtype of ``like``'s leaf."""
+    return tree_map_with_path(
+        lambda _, x, l: torch.as_tensor(x).to(torch.as_tensor(l).dtype),
+        tree, like)
+
+
+def named_tree_map(f, tree, sep: str = "/"):
+    """``tree_map`` with a ``"path/to/leaf"`` first argument: each key
+    path's keys (dict key, sequence index or field name) joined by
+    ``sep``, as the JAX package names them for its regex sharding
+    rules."""
+    return tree_map_with_path(
+        lambda path, x: f(sep.join(str(key) for _, key in path), x), tree)

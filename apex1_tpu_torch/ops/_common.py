@@ -13,7 +13,12 @@ launches the kernel or raises, a CPU tensor takes the plain version.
 There is no fallback from a failed kernel. ``force_impl("torch")``
 routes CUDA tensors to the plain version for comparisons only;
 ``force_impl("kernel")`` makes a CPU tensor an error instead of a
-silent plain run.
+silent plain run. ``force_impl("autodiff")`` is the plain version too,
+except that the ops whose plain backward forms products again (flash
+attention, the fused linear cross-entropy) differentiate their plain
+forward with autograd instead: each product is then formed once forward
+and differentiated once, the count a model FLOP figure assumes
+(`utils.observability.cost_analysis`).
 """
 
 from __future__ import annotations
@@ -24,15 +29,16 @@ from typing import Optional
 import torch
 from torch.distributed.tensor import DTensor
 
-_IMPL = "auto"  # "auto" | "kernel" | "torch"
+_IMPL = "auto"  # "auto" | "kernel" | "torch" | "autodiff"
 
 NEG_INF = -1e30  # finite mask value, as in the JAX package
 
 
 def set_impl(mode: str) -> None:
     global _IMPL
-    if mode not in ("auto", "kernel", "torch"):
-        raise ValueError(f"impl must be auto|kernel|torch, got {mode!r}")
+    if mode not in ("auto", "kernel", "torch", "autodiff"):
+        raise ValueError(f"impl must be auto|kernel|torch|autodiff, got "
+                         f"{mode!r}")
     _IMPL = mode
 
 
@@ -52,7 +58,7 @@ def force_impl(mode: str):
 
 def use_kernel(x: torch.Tensor) -> bool:
     """True when ``x`` must go through the CUDA kernel."""
-    if _IMPL == "torch":
+    if _IMPL in ("torch", "autodiff"):
         return False
     if x.is_cuda:
         return True
@@ -60,6 +66,11 @@ def use_kernel(x: torch.Tensor) -> bool:
         raise RuntimeError(
             f"force_impl('kernel') needs CUDA tensors, got {x.device}")
     return False
+
+
+def plain_autodiff() -> bool:
+    """True under ``force_impl("autodiff")``."""
+    return _IMPL == "autodiff"
 
 
 def resolve_device(device=None) -> torch.device:

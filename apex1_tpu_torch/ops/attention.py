@@ -29,7 +29,8 @@ agrees to about one rounding of the output.
 ``torch.autograd.Function`` (the JAX package's ``_flash`` and
 ``_flash_with_bias`` custom VJPs) that saves ``(q, k, v, out, lse)``
 and the bias; the CPU and ``force_impl("torch")`` go through the same
-Function with the plain versions.
+Function with the plain versions (``force_impl("autodiff")``: autograd
+through the plain forward instead, for FLOP counts).
 
 Attention-probability dropout (``dropout_p > 0`` with an int32
 ``dropout_seed``) rides all three kernels: keep = `attn_keep_mask`'s
@@ -57,7 +58,7 @@ import torch
 
 from apex1_tpu_torch.ops import _build
 from apex1_tpu_torch.ops._common import (DTYPE_CODES, NEG_INF, check_cuda,
-                                         use_kernel)
+                                         plain_autodiff, use_kernel)
 from apex1_tpu_torch.ops.stochastic import (_seed_word, attn_keep_mask,
                                             inv_keep, threshold_u32)
 
@@ -559,9 +560,12 @@ def flash_attention(q, k, v, *, causal: bool = False, segment_ids=None,
     bias = _bias_operand(bias, q, k)
     qseg, kseg = _norm_segments(segment_ids, q.shape[2], k.shape[2],
                                 q.device)
-    out, lse = _Flash.apply(q, k, v, bias, qseg, kseg, scale, bool(causal),
-                            int(q_offset), int(k_offset), dropout_p,
-                            dropout_seed if dropout_p > 0.0 else None)
+    args = (scale, bool(causal), int(q_offset), int(k_offset), dropout_p,
+            dropout_seed if dropout_p > 0.0 else None)
+    if plain_autodiff():
+        out, lse = _plain_fwd(q, k, v, qseg, kseg, *args, bias=bias)
+    else:
+        out, lse = _Flash.apply(q, k, v, bias, qseg, kseg, *args)
     return (out, lse) if return_lse else out
 
 

@@ -54,7 +54,7 @@ import torch
 
 from apex1_tpu_torch.ops import _build
 from apex1_tpu_torch.ops._common import (DTYPE_CODES, NEG_INF, check_cuda,
-                                         use_kernel)
+                                         plain_autodiff, use_kernel)
 
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 #: the widest hidden size fp32's resident-tile kernels hold (the forward,
@@ -482,6 +482,10 @@ def linear_cross_entropy(x: torch.Tensor, weight: torch.Tensor,
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     k = weight.shape[0] if num_classes is None else int(num_classes)
-    loss = _LinearXent.apply(x2, weight, labels.reshape(-1),
-                             float(smoothing), padding_idx, k)
+    if plain_autodiff():
+        loss = _plain_fwd(x2, weight, labels.reshape(-1), 0, k,
+                          float(smoothing), padding_idx, 0)[0]
+    else:
+        loss = _LinearXent.apply(x2, weight, labels.reshape(-1),
+                                 float(smoothing), padding_idx, k)
     return loss.reshape(lead)

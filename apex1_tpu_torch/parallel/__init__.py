@@ -11,7 +11,9 @@ from apex1_tpu_torch.parallel.distributed_optimizer import (
     shard_opt_state_specs)
 from apex1_tpu_torch.parallel.halo import (exchange_overlap, halo_exchange,
                                            spatial_conv2d)
-from apex1_tpu_torch.parallel.multiproc import init_distributed, launch
+from apex1_tpu_torch.parallel.multiproc import (init_distributed,
+                                                init_from_env, launch,
+                                                launch_script)
 from apex1_tpu_torch.parallel.ring_attention import (ring_attention,
                                                      ring_attention_serial)
 from apex1_tpu_torch.parallel.specs import PartitionSpec, specs_from_rules
@@ -24,6 +26,7 @@ __all__ = ["DistributedDataParallel", "allreduce_grads", "broadcast_params",
            "distributed_fused_adam", "distributed_fused_lamb",
            "fsdp_param_specs", "shard_opt_state_specs", "exchange_overlap",
            "halo_exchange", "spatial_conv2d", "PartitionSpec",
-           "specs_from_rules", "init_distributed", "launch", "ring_attention",
+           "specs_from_rules", "init_distributed", "init_from_env", "launch",
+           "launch_script", "ring_attention",
            "ring_attention_serial", "SyncBatchNorm", "convert_syncbn_model",
            "sync_batch_stats", "ulysses_attention"]

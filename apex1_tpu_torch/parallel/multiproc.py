@@ -11,6 +11,12 @@ reference ``apex/parallel/multiproc.py``).
   ranks that meet through a ``FileStore`` in a temporary directory (no
   TCP port, so concurrent launches never collide), runs ``fn(*args)``
   in each and returns the ranks' results to the parent, in rank order.
+- `launch_script(script, args, num_processes=N)` runs N copies of a
+  script, each with the ``torchrun`` environment (``RANK``,
+  ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and a free
+  ``MASTER_PORT``); the script calls `init_from_env`. ``python -m
+  apex1_tpu_torch.parallel.multiproc --nproc N script.py [args]`` is
+  its command line (the reference's ``apex.parallel.multiproc``).
 
 Every wait is bounded: the process group's ``timeout`` bounds each
 collective, and the parent stops waiting ``timeout`` seconds after the
@@ -30,10 +36,13 @@ import os
 import pickle
 import queue
 import shutil
+import socket
+import subprocess
+import sys
 import tempfile
 import time
 import traceback
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -154,3 +163,90 @@ def launch(fn: Callable, nprocs: int, *args, backend: str = "nccl",
         raise RuntimeError(f"launch: ranks {missing} of {nprocs} failed:\n"
                            f"{detail}")
     return [pickle.loads(results[r]) for r in range(nprocs)]
+
+
+def init_from_env(backend: Optional[str] = None, *,
+                  timeout: float = DEFAULT_TIMEOUT) -> None:
+    """A script's side of `launch_script` (or of ``torchrun``):
+    `init_distributed` on the ``RANK``/``WORLD_SIZE``/``MASTER_ADDR``/
+    ``MASTER_PORT`` environment; ``backend`` as there (NCCL by
+    default)."""
+    init_distributed(backend, timeout=timeout)
+
+
+def _free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+#: seconds `launch_script` leaves the other ranks once one has failed
+FAILURE_GRACE_S = 10.0
+
+
+def launch_script(script: str, args: Sequence[str] = (), *,
+                  num_processes: int = 2) -> int:
+    """Run ``num_processes`` copies of ``python script *args``, rank r
+    with ``RANK=r``, ``LOCAL_RANK=r``, ``WORLD_SIZE``, ``MASTER_ADDR``
+    (127.0.0.1) and a free ``MASTER_PORT``. Returns the first non-zero
+    exit code, or 0: once a rank fails, the others get
+    `FAILURE_GRACE_S` seconds (they may be failing with it) and are then
+    terminated, since a survivor may wait on the dead rank in a
+    collective forever."""
+    if num_processes < 1:
+        raise ValueError(f"num_processes must be >= 1, got {num_processes}")
+    port = str(_free_port())
+    procs = []
+    for rank in range(num_processes):
+        child = dict(os.environ)
+        child.update(RANK=str(rank), LOCAL_RANK=str(rank),
+                     WORLD_SIZE=str(num_processes), MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT=port)
+        procs.append(subprocess.Popen([sys.executable, script, *args],
+                                      env=child))
+    first_bad = 0
+    try:
+        while procs:
+            alive = []
+            for p in procs:
+                code = p.poll()
+                if code is None:
+                    alive.append(p)
+                elif code and not first_bad:
+                    first_bad = code
+            procs = alive
+            if first_bad and procs:
+                deadline = time.monotonic() + FAILURE_GRACE_S
+                while procs and time.monotonic() < deadline:
+                    procs = [p for p in procs if p.poll() is None]
+                    time.sleep(0.1)
+                break
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            p.terminate()
+        for p in procs:
+            try:
+                p.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+    return first_bad
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    """``python -m apex1_tpu_torch.parallel.multiproc [--nproc N]
+    script.py [args...]``: `launch_script` (2 processes by default)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    nproc = 2
+    if argv[:1] == ["--nproc"]:
+        nproc, argv = int(argv[1]), argv[2:]
+    if not argv:
+        print("usage: python -m apex1_tpu_torch.parallel.multiproc "
+              "[--nproc N] script.py [args...]", file=sys.stderr)
+        return 2
+    return launch_script(argv[0], argv[1:], num_processes=nproc)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

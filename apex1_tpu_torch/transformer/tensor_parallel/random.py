@@ -123,15 +123,29 @@ _PORTED = {"nothing_saveable": None, "everything_saveable": "all",
 def checkpoint_policy(name: str = "nothing_saveable"):
     """The ops a policy keeps: None (``nothing_saveable``), "all"
     (``everything_saveable``) or a tuple of aten ops. Raises at once on
-    an unknown name (ValueError) or one not ported (NotImplementedError).
-    """
+    an unknown name (ValueError) and on the six names of
+    ``jax.checkpoint_policies`` that are policy factories (TypeError):
+    ``save_only_these_names``, ``save_any_names_but_these``,
+    ``save_anything_except_these_names``, ``save_from_both_policies``,
+    ``offload_dot_with_no_batch_dims`` and
+    ``save_and_offload_only_these_names`` each take names (or policies,
+    or memory kinds) and return a policy. The JAX package passes the
+    factory itself to ``jax.checkpoint``, which calls it as the policy
+    when the step is traced and raises a TypeError (on the arguments,
+    e.g. "unexpected keyword argument 'dimension_numbers'", or on the
+    function it returns), and none of its models tags a tensor with
+    ``checkpoint_name``, so there is no policy there to port."""
     if name not in JAX_POLICIES:
         raise ValueError(f"unknown checkpoint policy {name!r}; valid "
                          f"names: {list(JAX_POLICIES)}")
     if name not in _PORTED:
-        raise NotImplementedError(
-            f"checkpoint policy {name!r} (name-based or offloading "
-            f"selection) is not ported: ROADMAP.md queue A item 12")
+        raise TypeError(
+            f"checkpoint policy {name!r} is a policy factory that takes "
+            f"names (of tensors tagged with checkpoint_name), not a "
+            f"policy: the JAX reference calls it as the policy and fails "
+            f"with a TypeError when the step is traced, and no "
+            f"model of the reference tags a tensor with checkpoint_name; "
+            f"use one of {sorted(_PORTED)}")
     return _PORTED[name]
 
 

@@ -34,6 +34,7 @@
                          [train-resume] [train-sentinel] [train-fsdp]
                          [train-zero] [train-bert-lamb]
                          [spatial-bottleneck] [llama-3d-resume]
+                         [examples]
                                      # build, then run only those
                                      # phases (all of them by default;
                                      # the last five each in a one-rank
@@ -474,15 +475,42 @@ Phases, each printed on its own line; a failure in any exits non-zero:
    agree bit for bit, and so does the restore's step 2; the checkpoint
    resharded onto ``num_chunks=2`` and restored there: the step-2 loss
    within 2e-5 relative. Prints the walls and bytes.
-42. the ``kernels`` JSON line (each kernel's launches over the main
+42. examples — the host runtime and the port's examples, each
+   example's ``main(argv)`` called in-process. The runtime: the native
+   library must have built; ``TokenDataset.batch_at`` native against
+   NumPy bit for bit across an epoch boundary; ``normalize_images``
+   native against NumPy within 1e-6; 50 ``PrefetchLoader`` batches
+   (``prefetch=2``) equal to ``torch.from_numpy(b).cuda()`` (made
+   before the loop) bit for bit, compared as soon as each is yielded
+   (the ``wait_event`` witness) and again after the consumer's stream
+   sleeps, the batch freed and a kernel writing a fresh tensor there
+   (the pinned buffer and ``record_stream`` witness); host timings of ``batch_at`` (16 x
+   1025 tokens), ``normalize_images`` (64 x 224 x 224 x 3) and
+   ``flatten`` (GB/s), native and NumPy. ``gpt2_amp``: GPT-2 124M, O2,
+   16 x 1024, 12 steps through the prefetcher, then the same loop
+   copying inline: finite losses, launches exactly 12 times
+   ``train_launches``'s flash and fused-head step, median step wall and
+   tokens/s of each, ``flops_per_step`` (the plain path on meta
+   tensors, without the backward's recomputation) within 5 % of the
+   model count 6 x weights + 12 x L x S x H a token. Its resilient loop: SIGTERM at
+   step 6 (``APEX1_CHAOS_SIGTERM_STEP``) exits 75, ``--resume auto``
+   takes steps 6-11 with the uninterrupted run's losses bit for bit;
+   the ``--obs-dir`` spine holds the run header, the metrics lines and
+   the checkpoint events. ``imagenet_amp``: ResNet-50, O2, 64 x 224^2,
+   12 steps: finite losses, the cross-entropy forward and backward once
+   a step, images/s with and without the prefetcher, the busy share of
+   3 profiled steps. ``distributed_data_parallel``: 10 steps in a
+   one-rank NCCL group.
+43. the ``kernels`` JSON line (each kernel's launches over the main
    paths: the engine, the train phases, dpo, generate, train-llama,
    serve-llama and its generate, the BERT phases, train-gpt2-dropout,
    train-t5, mha, train-llama-longctx, decode, decode-int8,
    serve-lora, train-resnet, train-gpt2-fp16, tp-sp, cp, vp-ce, ddp,
    train-llama-3d, train-llama-3d-1f1b, generate-t5's kernel calls,
    contrib's kernel cases, serve-dense, serve-fleet, disagg,
-   speculative, train-resume's run A and llama-3d-resume's two resumed
-   steps), the card's name and power limit, and the last line
+   speculative, train-resume's run A, llama-3d-resume's two resumed
+   steps and the examples' gpt2_amp and imagenet_amp runs through the
+   prefetcher), the card's name and power limit, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Kernel times are device times of CUDA-graph replays (no host launch
@@ -8602,6 +8630,324 @@ def run_llama_3d_resume(torch, ops, card, launches):
     return out, None
 
 
+# ---- the host runtime and the examples --------------------------------------
+
+#: the examples phase: GPT-2 124M's and ResNet-50's arguments (the train
+#: phases' batch, `bench.py`'s ``resnet``), the steps of each run and the
+#: step the resilient run is preempted after
+EX_GPT2 = ["--opt-level", "O2", "--batch", str(TB), "--seq", str(TS),
+           "--steps", "12"]
+EX_RESNET = ["--opt-level", "O2", "--batch", "64", "--image", "224",
+             "--steps", "12"]
+EX_STEPS, EX_KILL = 12, 6
+#: PrefetchLoader witness: batches, their shape (uint8 images
+#: normalized on the worker) and the consumer stream's sleep before each
+#: second comparison (cycles of the SM clock, about a millisecond)
+PF_BATCHES, PF_SHAPE, PF_SLEEP = 50, (16, 224, 224, 3), 2_000_000
+
+
+@contextlib.contextmanager
+def numpy_runtime():
+    """The runtime's NumPy fallback: its library handle replaced by None
+    while the block runs."""
+    from apex1_tpu_torch import runtime
+    lib = runtime._lib
+    runtime._lib = lambda: None
+    try:
+        yield
+    finally:
+        runtime._lib = lib
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Median host wall ms of ``fn()`` over ``reps`` calls after one."""
+    fn()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return sorted(walls)[len(walls) // 2]
+
+
+def median_wall(rows) -> float:
+    walls = sorted(rows[1:])
+    return walls[len(walls) // 2]
+
+
+def runtime_checks(torch, card, tmp: str):
+    """The host runtime on the card's machine: native present, native
+    against NumPy, the prefetcher's witness, host timings. Returns (out,
+    error or None)."""
+    import numpy as np
+    from apex1_tpu_torch import runtime as rt
+    out = {}
+    if not rt.native_available():
+        return out, ("examples: the native runtime did not build:\n"
+                     + rt.build_log())
+    path = os.path.join(tmp, "tokens.bin")
+    n_seq = 4096
+    rt.write_token_file(path, np.random.default_rng(SEED).integers(
+        0, TV, n_seq * (TS + 1)).astype(np.uint16))
+    kw = dict(seq_len=TS + 1, batch_size=TB, seed=SEED)
+    ds = rt.TokenDataset(path, **kw)
+    with numpy_runtime():
+        ds_np = rt.TokenDataset(path, **kw)
+    edge = ds.steps_per_epoch()
+    steps = (0, 1, edge - 1, edge, edge + 1, 2 * edge + 3)
+    same_tok = ds.native and not ds_np.native and all(
+        np.array_equal(ds.batch_at(i), ds_np.batch_at(i)) for i in steps)
+    out["batch_at_ms"] = host_ms(lambda: ds.batch_at(edge))
+    out["batch_at_numpy_ms"] = host_ms(lambda: ds_np.batch_at(edge))
+    imgs = np.random.default_rng(SEED).integers(0, 256, (64, 224, 224, 3),
+                                                dtype=np.uint8)
+    mean, std = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+    got = rt.normalize_images(imgs, mean, std)
+    with numpy_runtime():
+        want = rt.normalize_images(imgs, mean, std)
+        out["normalize_numpy_ms"] = host_ms(
+            lambda: rt.normalize_images(imgs, mean, std), 3)
+    out["normalize_ms"] = host_ms(lambda: rt.normalize_images(imgs, mean,
+                                                              std), 3)
+    norm_err = float(np.max(np.abs(got - want) / (np.abs(want) + 1.0)))
+    arrays = [np.random.default_rng(i).standard_normal(
+        2 ** 22, dtype=np.float32) for i in range(16)]   # 256 MiB
+    nbytes = sum(a.nbytes for a in arrays)
+    out["flatten_gbs"] = nbytes / host_ms(lambda: rt.flatten(arrays),
+                                          3) / 1e6
+    with numpy_runtime():
+        out["flatten_numpy_gbs"] = nbytes / host_ms(
+            lambda: rt.flatten(arrays), 3) / 1e6
+    ds.close()
+    ds_np.close()
+    del arrays, imgs, got, want
+
+    # the prefetcher's witness: each batch against a copy made inline
+    # before the loop, compared as soon as it is yielded (a batch read
+    # before its copy landed shows as a diff), then again after a sleep
+    # on the consumer's stream, the batch freed and a fresh tensor
+    # written there (a block recycled too early by the allocator, or a
+    # pinned buffer reused while its copy ran, shows as a diff)
+    rng = np.random.default_rng(SEED + 1)
+    host = [rng.integers(0, 256, PF_SHAPE, dtype=np.uint8)
+            for _ in range(PF_BATCHES)]
+    wants = [torch.from_numpy(rt.normalize_images(h, mean, std)).cuda()
+             for h in host]
+    torch.cuda.synchronize()
+    diffs = []
+    loader = rt.PrefetchLoader(
+        iter(host), prefetch=2,
+        transform=lambda b: rt.normalize_images(b, mean, std))
+    for i, batch in enumerate(loader):
+        diffs.append((batch != wants[i]).sum())
+        torch.cuda._sleep(PF_SLEEP)
+        diffs.append((batch != wants[i]).sum())
+        del batch
+        torch.empty(PF_SHAPE, dtype=torch.float32,
+                    device="cuda").fill_(float(i))
+    torch.cuda.synchronize()
+    n_diff = int(sum(d.item() for d in diffs))
+    n_read = len(diffs) // 2
+    del wants, host
+    out.update(tokens_equal=same_tok, normalize_rel_err=norm_err,
+               prefetch_batches=n_read, prefetch_diff=n_diff)
+    print(f"phase examples: runtime native {rt.native_available()} "
+          f"(g++ {' '.join(rt.GXX_FLAGS)}); TokenDataset.batch_at native "
+          f"== NumPy at steps {steps} (epoch {edge} steps): {same_tok}; "
+          f"normalize_images native vs NumPy max rel err {norm_err:.3g} "
+          f"(1e-6 allowed); PrefetchLoader {n_read} batches of "
+          f"{PF_SHAPE} uint8 normalized on the worker, prefetch 2, "
+          f"against torch.from_numpy(b).cuda(): {n_diff} elements differ "
+          f"[{card}]")
+    print(f"phase examples: host ms (median): batch_at {TB} x {TS + 1} "
+          f"native {out['batch_at_ms']:.3f} / NumPy "
+          f"{out['batch_at_numpy_ms']:.3f}; normalize_images 64 x 224 x "
+          f"224 x 3 native {out['normalize_ms']:.2f} / NumPy "
+          f"{out['normalize_numpy_ms']:.2f}; flatten 16 x 16 MiB native "
+          f"{out['flatten_gbs']:.2f} / NumPy {out['flatten_numpy_gbs']:.2f}"
+          f" GB/s; host {os.cpu_count()} cores [{card}]")
+    if not same_tok:
+        return out, "examples: TokenDataset native and NumPy batches differ"
+    if norm_err > 1e-6:
+        return out, f"examples: normalize_images native vs NumPy {norm_err}"
+    if n_diff or n_read != PF_BATCHES:
+        return out, (f"examples: PrefetchLoader batches differ from the "
+                     f"inline copies ({n_diff} elements, {n_read} "
+                     f"batches)")
+    return out, None
+
+
+def gpt2_flops(cfg, B: int, S: int) -> int:
+    """The model FLOPs of a GPT-2 training step on B x S tokens: 6 x
+    (matmul weights, head included) x tokens + 12 x L x S x H x
+    tokens."""
+    H, L, V = cfg.hidden_size, cfg.num_layers, cfg.padded_vocab
+    weights = L * (4 * H * H + 2 * cfg.mlp_ratio * H * H) + V * H
+    return 6 * weights * B * S + 12 * L * S * H * B * S
+
+
+def run_examples(torch, ops, card, launches):
+    """examples: the host runtime, then gpt2_amp (prefetched and inline,
+    FLOPs, the preempted and resumed run with its spine file),
+    imagenet_amp (prefetched and inline, profiled) and
+    distributed_data_parallel in a one-rank NCCL group. Adds the
+    prefetched gpt2_amp and imagenet_amp runs' launches to
+    ``launches``."""
+    import shutil
+    import tempfile
+    from apex1_tpu_torch.examples import (distributed_data_parallel,
+                                          gpt2_amp, imagenet_amp)
+    from apex1_tpu_torch.obs import read_events
+    from apex1_tpu_torch.utils.observability import flops_per_step
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    try:
+        out, err = runtime_checks(torch, card, tmp)
+        if err:
+            return out, err
+        torch.cuda.empty_cache()
+
+        # gpt2_amp through the prefetcher, then inline
+        ops.reset_launches()
+        pre = gpt2_amp.main(EX_GPT2)
+        counts = ops.launch_counts()
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        got = {k: v for k, v in counts.items() if v}
+        want = {k: EX_STEPS * v for k, v in
+                train_launches(12, True, True).items()}
+        cfg, tokens = pre["cfg"], pre["tokens_per_step"]
+        batch = torch.zeros((TB, TS), dtype=torch.int32, device="cuda")
+        flops = flops_per_step(pre["step"], pre["state"], batch)
+        model_f = gpt2_flops(cfg, TB, TS)
+        del pre["state"], pre["step"]
+        torch.cuda.empty_cache()
+        inline = gpt2_amp.main(EX_GPT2 + ["--prefetch", "0"])
+        del inline["state"], inline["step"]
+        torch.cuda.empty_cache()
+        walls = {k: median_wall(r["step_ms"]) for k, r in
+                 (("prefetch", pre), ("inline", inline))}
+        out["gpt2"] = dict(losses=pre["losses"], launches=got,
+                           step_ms={"prefetch": pre["step_ms"],
+                                    "inline": inline["step_ms"]},
+                           flops=flops, flops_model=model_f)
+        print(f"phase examples: gpt2_amp GPT-2 124M {' '.join(EX_GPT2)}: "
+              f"losses {pre['losses']}; launches {got} expected {want}; "
+              f"step wall (median of steps 2-{EX_STEPS}) through "
+              f"PrefetchLoader {walls['prefetch']:.2f} ms "
+              f"({tokens / walls['prefetch'] * 1e3:.0f} tokens/s), copied "
+              f"inline {walls['inline']:.2f} ms "
+              f"({tokens / walls['inline'] * 1e3:.0f} tokens/s) [{card}]")
+        print(f"phase examples: gpt2_amp flops_per_step {flops!r} (plain "
+              f"path on meta tensors, no recomputation); the model count "
+              f"6 x weights + 12 x L x S x H a token {model_f!r} (ratio "
+              f"{flops / model_f!r}, 5 % allowed) [{card}]")
+        if not all(math.isfinite(v) for v in pre["losses"] +
+                   inline["losses"]):
+            return out, "examples: a gpt2_amp loss is not finite"
+        if got != want:
+            return out, (f"examples: gpt2_amp launches {got}, expected "
+                         f"{want}")
+        if abs(flops - model_f) > 0.05 * model_f:
+            return out, (f"examples: flops_per_step {flops} vs the model "
+                         f"count {model_f}")
+
+        # the resilient loop: preempted after step EX_KILL, resumed
+        ck, obs = os.path.join(tmp, "ck"), os.path.join(tmp, "obs")
+        drill = EX_GPT2 + ["--ckpt-dir", ck, "--ckpt-every", str(EX_STEPS),
+                           "--obs-dir", obs]
+        os.environ["APEX1_CHAOS_SIGTERM_STEP"] = str(EX_KILL)
+        t0 = time.perf_counter()
+        try:
+            gpt2_amp.main(drill)
+            code = 0
+        except SystemExit as e:
+            code = e.code
+        finally:
+            del os.environ["APEX1_CHAOS_SIGTERM_STEP"]
+        kill_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        resumed = gpt2_amp.main(drill)
+        resume_s = time.perf_counter() - t0
+        del resumed["state"], resumed["step"]
+        torch.cuda.empty_cache()
+        events = [r for f in sorted(os.listdir(obs))
+                  for r in read_events(os.path.join(obs, f))]
+        kinds = {}
+        for r in events:
+            key = r.get("name") or r["kind"]
+            kinds[key] = kinds.get(key, 0) + 1
+        same = resumed["losses"] == pre["losses"][EX_KILL:]
+        out["resume"] = dict(code=code, losses=resumed["losses"],
+                             same=same, events=kinds, kill_s=kill_s,
+                             resume_s=resume_s)
+        print(f"phase examples: gpt2_amp --ckpt-dir, SIGTERM after step "
+              f"{EX_KILL}: exit {code} in {kill_s:.1f} s; --resume auto "
+              f"steps {EX_KILL}-{EX_STEPS - 1} in {resume_s:.1f} s, losses "
+              f"{resumed['losses']} equal the uninterrupted run's {same}; "
+              f"spine events {kinds} [{card}]")
+        if code != 75:
+            return out, f"examples: the preempted gpt2_amp exited {code}"
+        if not same:
+            return out, "examples: the resumed gpt2_amp losses differ"
+        if not (kinds.get("run") and kinds.get("metrics")
+                and kinds.get("checkpoint.save") == 2
+                and kinds.get("checkpoint.restore") == 1):
+            return out, f"examples: the spine file holds {kinds}"
+
+        # imagenet_amp through the prefetcher (then 3 profiled steps),
+        # then inline
+        ops.reset_launches()
+        im = imagenet_amp.main(EX_RESNET)
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        prof = profiled_steps(torch, im["state"], im["step"], im["batch"])
+        del im["state"], im["step"], im["batch"]
+        torch.cuda.empty_cache()
+        im_inline = imagenet_amp.main(EX_RESNET + ["--prefetch", "0"])
+        del im_inline["state"], im_inline["step"], im_inline["batch"]
+        torch.cuda.empty_cache()
+        iw = {k: median_wall(r["step_ms"]) for k, r in
+              (("prefetch", im), ("inline", im_inline))}
+        n_img = im["images_per_step"]
+        out["imagenet"] = dict(losses=im["losses"], launches=counts,
+                               step_ms={"prefetch": im["step_ms"],
+                                        "inline": im_inline["step_ms"]},
+                               profile=prof)
+        print(f"phase examples: imagenet_amp ResNet-50 "
+              f"{' '.join(EX_RESNET)}: losses {im['losses']}; launches "
+              f"{counts}; step wall (median of steps 2-{EX_STEPS}) through "
+              f"PrefetchLoader {iw['prefetch']:.2f} ms "
+              f"({n_img / iw['prefetch'] * 1e3:.1f} images/s), normalized "
+              f"and copied inline {iw['inline']:.2f} ms "
+              f"({n_img / iw['inline'] * 1e3:.1f} images/s); 3 profiled "
+              f"steps: device {prof['device_ms_per_step']:.3f} ms a step in "
+              f"{prof['step_wall_ms']:.2f} ms (busy "
+              f"{prof['device_busy']:.3f}) [{card}]")
+        if not all(math.isfinite(v) for v in im["losses"] +
+                   im_inline["losses"]):
+            return out, "examples: an imagenet_amp loss is not finite"
+        if counts != {"xent_fwd": EX_STEPS, "xent_bwd": EX_STEPS}:
+            return out, (f"examples: imagenet_amp launches {counts}, "
+                         f"expected xent_fwd and xent_bwd {EX_STEPS}")
+
+        # distributed_data_parallel in a one-rank NCCL group
+        nccl_dir = start_nccl(torch)
+        try:
+            ddp = distributed_data_parallel.main([])
+        finally:
+            stop_nccl(nccl_dir)
+        out["ddp"] = ddp["losses"]
+        print(f"phase examples: distributed_data_parallel, one-rank NCCL "
+              f"group, 10 steps: losses {ddp['losses']} [{card}]")
+        if not (all(math.isfinite(v) for v in ddp["losses"])
+                and ddp["losses"][-1] < ddp["losses"][0]):
+            return out, f"examples: the DDP losses {ddp['losses']}"
+        return out, None
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -8663,7 +9009,8 @@ def main() -> int:
                 "serve-fleet": run_serve_fleet, "disagg": run_disagg,
                 "speculative": run_speculative,
                 "train-resume": run_train_resume,
-                "train-sentinel": run_train_sentinel}
+                "train-sentinel": run_train_sentinel,
+                "examples": run_examples}
         grouped = {"train-fsdp": run_fsdp, "train-zero": run_zero,
                    "train-bert-lamb": run_bert_lamb,
                    "spatial-bottleneck": run_spatial,
@@ -9145,10 +9492,15 @@ def main() -> int:
         stamp("llama-3d-resume")
     finally:
         stop_nccl(nccl_dir)
+    # 42. the host runtime and the examples
+    res_out["examples"], err = run_examples(torch, ops, card, main_launches)
+    if err:
+        return fail(err)
+    stamp("examples")
     print(f"phase times: { {k: round(v, 1) for k, v in phase_s.items()} } "
           f"s wall [{card}]")
 
-    # 46. the kernels line, the card, the last line. launches: the main
+    # 47. the kernels line, the card, the last line. launches: the main
     # paths' runs (engine, the train phases, dpo, generate, train-llama,
     # serve-llama and its generate, the BERT phases, train-gpt2-dropout,
     # train-t5, mha, train-llama-longctx, decode, decode-int8, serve-lora,
@@ -9157,7 +9509,8 @@ def main() -> int:
     # train-zero's and train-bert-lamb's ZeRO runs, generate-t5's calls,
     # contrib's kernel cases, serve-dense's dense run, serve-fleet's
     # drill, disagg's clean run, speculative's greedy call, train-resume's
-    # uninterrupted run, llama-3d-resume's two resumed steps)
+    # uninterrupted run, llama-3d-resume's two resumed steps, the
+    # examples' gpt2_amp and imagenet_amp runs through the prefetcher)
     sources = {"layer_norm_fwd": ("apex1_tpu_torch/csrc/layer_norm.cu",
                                   "apex1_tpu/ops/layer_norm.py:110"),
                "paged_attend": ("apex1_tpu_torch/csrc/paged_attend.cu",

@@ -14,7 +14,12 @@ replicas build (without CUDA the build raises naming it, the replica
 dies and its request is evicted at failover). The resilience layer too:
 `sentinel_init` and a template-free `restore_checkpoint` put their
 tensors on the card when no device is named (the restore checked with
-CUDA stubbed in: each leaf is moved to a CUDA device).
+CUDA stubbed in: each leaf is moved to a CUDA device). The runtime's
+`PrefetchLoader` puts its batches on the card unless told otherwise;
+with CUDA stubbed in, each array is pinned and copied without blocking
+on the loader's side stream, the consumer's stream waits on the event
+recorded after the copies, and each yielded tensor is marked used on
+the consumer's stream.
 """
 
 import pytest
@@ -185,3 +190,65 @@ def test_template_free_restore_defaults_to_cuda(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.Tensor, "to", to)
     restore_checkpoint(tmp_path / "ck")
     assert moved == ["cuda"] * 3
+
+
+def test_prefetch_loader_defaults_to_cuda_side_stream_copies(monkeypatch):
+    import contextlib
+
+    import numpy as np
+
+    from apex1_tpu_torch.runtime import PrefetchLoader
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            PrefetchLoader(iter([]))
+    calls, active = [], []
+
+    class Stream:
+        def __init__(self, device=None):
+            self.device = device
+
+        def wait_event(self, ev):
+            calls.append(("wait", self, ev))
+
+    class Event:
+        def record(self, stream):
+            calls.append(("record", stream, self))
+
+    @contextlib.contextmanager
+    def on(stream):
+        active.append(stream)
+        yield
+        active.pop()
+
+    def to(self, device, non_blocking=False):
+        calls.append(("to", str(device), non_blocking, active[-1]))
+        return self
+
+    consumer = Stream("consumer")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "set_device",
+                        lambda d: calls.append(("set_device", str(d))))
+    monkeypatch.setattr(torch.cuda, "Stream", Stream)
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "stream", on)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None: consumer)
+    monkeypatch.setattr(torch.Tensor, "pin_memory",
+                        lambda self: (calls.append(("pin",)), self)[1])
+    monkeypatch.setattr(torch.Tensor, "to", to)
+    monkeypatch.setattr(torch.Tensor, "record_stream",
+                        lambda self, s: calls.append(("record_stream", s)))
+    loader = PrefetchLoader(iter([{"x": np.ones(3), "y": np.zeros(2),
+                                   "n": 5}]))
+    assert loader.device.type == "cuda"
+    (batch,) = list(loader)
+    assert batch["n"] == 5 and isinstance(batch["x"], torch.Tensor)
+    side = calls[2][3]
+    assert isinstance(side, Stream) and side is not consumer
+    ev = calls[5][2]
+    assert calls == [("set_device", "cuda:0"),
+                     ("pin",), ("to", "cuda:0", True, side),
+                     ("pin",), ("to", "cuda:0", True, side),
+                     ("record", side, ev), ("wait", consumer, ev),
+                     ("record_stream", consumer),
+                     ("record_stream", consumer)]

@@ -285,7 +285,7 @@ def test_unported_options_raise():
         "tp", None)
     assert specs["layer1.moe.w1"] == ("ep", None, None)
     assert specs["norm"] == ()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="factory"):
         _tcfg(remat_policy="save_only_these_names")
     with pytest.raises(ValueError, match="unknown checkpoint policy"):
         _tcfg(remat_policy="nothing_savable")
@@ -293,6 +293,28 @@ def test_unported_options_raise():
         _jcfg(remat_policy="nothing_savable")
     with pytest.raises(ValueError, match="cp_impl"):
         _tcfg(cp_impl="tree")
+
+
+FACTORY_POLICIES = ("save_only_these_names", "save_any_names_but_these",
+                    "save_anything_except_these_names",
+                    "save_from_both_policies",
+                    "offload_dot_with_no_batch_dims",
+                    "save_and_offload_only_these_names")
+
+
+@pytest.mark.parametrize("name", FACTORY_POLICIES)
+def test_factory_policies_fail_in_the_reference_and_are_refused(tiny, name):
+    """The six factories of jax.checkpoint_policies build a reference
+    config and then fail when its step is traced (jax.checkpoint calls
+    the factory as the policy: a TypeError on its arguments or on what
+    it returns); the port refuses them when the config is made."""
+    with pytest.raises(TypeError, match="factory"):
+        _tcfg(remat=True, remat_policy=name)
+    model = JaxLlama(_jcfg(remat=True, remat_policy=name))
+    with pytest.raises(TypeError, match=rf"{name}\(\)|dimension_numbers|"
+                                        r"remat policy"):
+        jax.jit(jax.value_and_grad(jax_llama_loss_fn(model)))(
+            tiny["jparams"], jnp.asarray(tiny["tokens"]))
 
 
 @pytest.mark.parametrize("make", ["model", "converter", "engine"])
