@@ -19,6 +19,8 @@ import dataclasses
 
 import torch
 
+from apex1_tpu_torch.core.pytree import whole
+
 
 @dataclasses.dataclass(frozen=True)
 class LossScaleState:
@@ -48,8 +50,9 @@ def _state(scale: float, hysteresis: int, device) -> LossScaleState:
 
 def all_finite(tree: dict) -> torch.Tensor:
     """One bool 0-d tensor: every float tensor of ``tree`` is free of
-    inf and nan (the reference's in-kernel overflow check)."""
-    flags = [torch.isfinite(v).all() for v in tree.values()
+    inf and nan (the reference's in-kernel overflow check). A DTensor's
+    flag covers its every shard (`core.pytree.whole`)."""
+    flags = [whole(torch.isfinite(v).all()) for v in tree.values()
              if torch.is_floating_point(v)]
     if not flags:
         return torch.ones((), dtype=torch.bool)

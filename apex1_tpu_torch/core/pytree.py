@@ -17,11 +17,19 @@ import dataclasses
 import torch
 
 
+def whole(x: torch.Tensor) -> torch.Tensor:
+    """A reduction of a DTensor as the plain tensor of its full value
+    (the collective its placement needs); any other tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
 def global_norm(tree: dict) -> torch.Tensor:
     """L2 norm over every float tensor, fp32, as the JAX package sums
     it: the square root of the sum of per-leaf sums of squares (the
-    role of ``amp_C.multi_tensor_l2norm``). Stays on the device."""
-    sq = [v.float().square().sum() for v in tree.values()
+    role of ``amp_C.multi_tensor_l2norm``). Stays on the device. A
+    DTensor leaf (a placed parameter's gradient) counts every shard."""
+    sq = [whole(v.float().square().sum()) for v in tree.values()
           if torch.is_floating_point(v)]
     if not sq:
         return torch.zeros((), dtype=torch.float32)

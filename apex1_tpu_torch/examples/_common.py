@@ -4,6 +4,8 @@ the per-step record of a training loop."""
 from __future__ import annotations
 
 import os
+import shutil
+import tempfile
 import time
 
 import torch
@@ -13,18 +15,29 @@ from apex1_tpu_torch.parallel.multiproc import init_from_env
 from apex1_tpu_torch.transformer import parallel_state
 
 
-def join_ranks(device: torch.device):
+def join_ranks(device: torch.device, *, alone: bool = False, **degrees):
     """``(rank, world, opened)``: join the ranks `multiproc` launched
     (``WORLD_SIZE`` set) unless a group exists, and install
-    `parallel_state`'s mesh over it; one process alone is rank 0 of 1."""
+    `parallel_state`'s mesh over it (``degrees``: the keywords of
+    `parallel_state.initialize_model_parallel`, data parallel over the
+    rest) unless one is installed. One process alone is rank 0 of 1, in
+    no group, or with ``alone`` in a one-rank group of its own (a file
+    rendezvous in a temporary directory) for code that needs a mesh."""
+    backend = "nccl" if device.type == "cuda" else "gloo"
     opened = []
     if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
-        init_from_env("nccl" if device.type == "cuda" else "gloo")
+        init_from_env(backend)
         opened.append("group")
+    elif not dist.is_initialized() and alone:
+        from apex1_tpu_torch.parallel import init_distributed
+        tmp = tempfile.mkdtemp(prefix="apex1_rank_")
+        init_distributed(backend, init_method=f"file://{tmp}/store", rank=0,
+                         world_size=1)
+        opened += ["group", ("store", tmp)]
     if not dist.is_initialized():
         return 0, 1, opened
     if not parallel_state.model_parallel_is_initialized():
-        parallel_state.initialize_model_parallel(1)
+        parallel_state.initialize_model_parallel(**degrees)
         opened.append("mesh")
     return dist.get_rank(), dist.get_world_size(), opened
 
@@ -34,6 +47,9 @@ def leave_ranks(opened: list) -> None:
         parallel_state.destroy_model_parallel()
     if "group" in opened:
         dist.destroy_process_group()
+    for entry in opened:
+        if isinstance(entry, tuple):        # ("store", its directory)
+            shutil.rmtree(entry[1], ignore_errors=True)
 
 
 class StepRecord:

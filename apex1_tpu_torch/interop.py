@@ -43,6 +43,14 @@ numpy arrays: this module imports no JAX.
 - `llama3d_state_from_jax`: the JAX package's `llama_3d` global trees
   ``{"chunk", "shared"}`` (and optionally its fused-Adam state) as this
   rank's train state of the port's `models.llama_3d`;
+- `rnnt_params_from_jax`: the `rnnt_speech` example's `RNNT` from the
+  JAX script's flax params (the two LSTMs through
+  `module_params_from_jax`, the embedding and head as they are);
+- `dcgan_params_from_jax`: the `dcgan_amp` example's `Generator` and
+  `Discriminator` and their running statistics from the JAX script's
+  flax variables (HWIO kernels, ``scale``/``bias`` params and
+  ``mean``/``var`` statistics, as they are: the port's modules keep
+  flax's names and layouts);
 - `amp_state_from_jax` / `amp_state_to_numpy`: the whole amp training
   state (params; the optimizer state of fused Adam, SGD, LAMB,
   NovoGrad or Adagrad, LARC's step count, a ``chain`` of them as a
@@ -377,6 +385,46 @@ def resnet_params_to_numpy(model: ResNet):
     batch_stats)`` as flax-layout numpy trees."""
     return (flax_from_named(dict(model.named_parameters())),
             flax_from_named(dict(model.named_buffers())))
+
+
+def rnnt_params_from_jax(params, vocab: int, feat: int, hidden: int = 64,
+                         device=None):
+    """The `examples.rnnt_speech.RNNT` (``vocab``, ``feat``, ``hidden``)
+    on ``device`` (CUDA unless named) holding the JAX script's flax
+    ``params``: ``encoder`` and ``predictor`` (rnn.LSTM's own names),
+    ``embed`` and ``head``."""
+    from apex1_tpu_torch.examples.rnnt_speech import RNNT
+    model = RNNT(vocab, feat, hidden, device=device)
+    module_params_from_jax(params["encoder"], model.encoder)
+    module_params_from_jax(params["predictor"], model.predictor)
+    with torch.no_grad():
+        for name in ("embed", "head"):
+            getattr(model, name).copy_(torch.from_numpy(
+                np.array(params[name], np.float32)))
+    return model
+
+
+def dcgan_params_from_jax(gvars, dvars, *, zdim: int = 100,
+                          dtype=torch.bfloat16, device=None):
+    """``(generator, discriminator, (g_stats, d_stats))``: the
+    `examples.dcgan_amp` modules (compute ``dtype``) on ``device`` (CUDA
+    unless named) holding the JAX script's flax variables ``gvars`` and
+    ``dvars`` (``{"params", "batch_stats"}``), and their running
+    statistics as the port's ``{"BatchNorm_i.mean" | ".var": tensor}``
+    dicts. The names and layouts are flax's: a copy each."""
+    from apex1_tpu_torch.examples.dcgan_amp import Discriminator, Generator
+    dev = resolve_device(device)
+
+    def stats(tree):
+        return {k: torch.from_numpy(np.array(v, np.float32)).to(dev)
+                for k, v in _dotted(tree).items()}
+
+    gen = _load(Generator(zdim, dtype=dtype, device=dev),
+                _dotted(gvars["params"]))
+    disc = _load(Discriminator(dtype=dtype, device=dev),
+                 _dotted(dvars["params"]))
+    return gen, disc, (stats(gvars["batch_stats"]),
+                       stats(dvars["batch_stats"]))
 
 
 _OPT_STATES = {cls.__name__: cls for cls in (

@@ -14,7 +14,8 @@
   `runtime.RequestFeeder`.
 - `reshard_state` / `reshard_checkpoint` / `LayoutMismatch`
   (`.reshard`) and `elastic_resume` / `ElasticDecision` (`.elastic`):
-  plan-carrying checkpoints remapped onto another layout,
+  plan-carrying checkpoints remapped onto another layout
+  (`reshard.plan_for_layout`: a stated layout's plan document),
   manifest-verified end to end (the re-plan onto another device count
   waits for the planner, ROADMAP.md queue A item 11).
 

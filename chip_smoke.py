@@ -34,11 +34,17 @@
                          [train-resume] [train-sentinel] [train-fsdp]
                          [train-zero] [train-bert-lamb]
                          [spatial-bottleneck] [llama-3d-resume]
-                         [examples]
+                         [examples] [examples-parallel]
+                         [examples-encdec] [serve-example]
                                      # build, then run only those
                                      # phases (all of them by default;
-                                     # the last five each in a one-rank
-                                     # NCCL group); no kernels line
+                                     # train-fsdp, train-zero,
+                                     # train-bert-lamb,
+                                     # spatial-bottleneck,
+                                     # llama-3d-resume and
+                                     # examples-parallel each in a
+                                     # one-rank NCCL group); no kernels
+                                     # line
     python3 chip_smoke.py --save-inflight
                                      # build, then time GPT-2 124M's
                                      # training steps with an async
@@ -501,7 +507,24 @@ Phases, each printed on its own line; a failure in any exits non-zero:
    a step, images/s with and without the prefetcher, the busy share of
    3 profiled steps. ``distributed_data_parallel``: 10 steps in a
    one-rank NCCL group.
-43. the ``kernels`` JSON line (each kernel's launches over the main
+43. examples-parallel — in a one-rank NCCL group: ``llama_distributed``
+   (10 O2 steps, params placed by their TP specs), ``gpt2_pp_tied`` at
+   GPT-2 124M widths (12 layers, hidden 768, vocab 50304, 4
+   microbatches of 2 x 1024, fp32, 20 steps: step wall, tokens/s, peak
+   memory), ``llama_3d`` on its one-card layout (scan with 2 chunks,
+   1F1B), its SIGTERM drill resumed bit for bit, ``--tp 3`` exiting 2
+   naming tp-heads; every run's launches exact.
+44. examples-encdec — ``t5_seq2seq`` (1500 steps), ``rnnt_speech`` (800)
+   and ``dcgan_amp`` (20) at the JAX scripts' defaults, O2: the sort
+   accuracy at least half the JAX script's CPU run's (0.625), the RNN-T
+   exact decodes at most one under its 4 of 4, finite losses, both
+   DCGAN loss scales printed, launches exact.
+45. serve-example — ``serving_llama`` at its 1B config (B 2, prompt 8,
+   16 new, 4 beams): each section's wall, greedy tokens/s, the ragged
+   rows against each row alone and speculative against greedy by the
+   near-tie rule (``models.near_tie``), the int8 and prefix
+   agreements, launches exact.
+46. the ``kernels`` JSON line (each kernel's launches over the main
    paths: the engine, the train phases, dpo, generate, train-llama,
    serve-llama and its generate, the BERT phases, train-gpt2-dropout,
    train-t5, mha, train-llama-longctx, decode, decode-int8,
@@ -509,8 +532,9 @@ Phases, each printed on its own line; a failure in any exits non-zero:
    train-llama-3d, train-llama-3d-1f1b, generate-t5's kernel calls,
    contrib's kernel cases, serve-dense, serve-fleet, disagg,
    speculative, train-resume's run A, llama-3d-resume's two resumed
-   steps and the examples' gpt2_amp and imagenet_amp runs through the
-   prefetcher), the card's name and power limit, and the last line
+   steps, the examples' gpt2_amp and imagenet_amp runs through the
+   prefetcher and the three phases above), the card's name and power
+   limit, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Kernel times are device times of CUDA-graph replays (no host launch
@@ -4333,29 +4357,6 @@ def make_generator(torch, depth: int, policy: str, seed: int,
     return run, cfg
 
 
-def top2_gap(torch, logits, row: int, step: int, temperature: float,
-             vocab: int) -> float:
-    """(top1 - top2) / |top1| of the scores the sampler took its argmax
-    over at ``step`` for ``row``: the logits (greedy), or logits /
-    temperature plus the step's gumbel noise (the key(0) chain split
-    once a step, as `generate` does)."""
-    from apex1_tpu_torch.core.random import split
-    from apex1_tpu_torch.ops.paged_decode import (_bits_to_gumbel,
-                                                  _uniform_bits)
-    B, V = logits.shape
-    sc = logits[row].double().clone()
-    sc[vocab:] = -1e30
-    if temperature:
-        key = (0, 0)
-        for _ in range(step + 1):
-            key, sub = split(key)
-        col = torch.arange(V, device=logits.device) + row * V
-        g = _bits_to_gumbel(_uniform_bits(sub[0], sub[1], col.cpu(), B * V))
-        sc = sc / temperature + g.to(sc.device).double()
-    top = torch.topk(sc, 2).values
-    return ((top[0] - top[1]) / top[0].abs()).item()
-
-
 # ---- the BERT slice: the JAX bench's bert, bert_dropout, bert_large ---------
 
 #: the bench's BERT configurations (`bench.py:220-258`): BERT-base or
@@ -5158,21 +5159,6 @@ def run_decode_int8(torch, ops, card, launches):
     return out, None
 
 
-def first_flips(got, want, gap_at):
-    """(row, step, top-2 gap) at the first differing token of each
-    differing stream; ``gap_at(row, step)`` reads the reference's
-    sampling scores there."""
-    out = []
-    for r in range(len(want)):
-        g, w = list(got[r]), list(want[r])
-        if g == w:
-            continue
-        t = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b),
-                 min(len(g), len(w)))
-        out.append((r, t, gap_at(r, t)))
-    return out
-
-
 #: decode-int8-parity's pairs: (policy, run, reference). A first
 #: differing token is a near-tie when the reference's top-2 gap
 #: (relative) is below the largest difference of the two runs' logits at
@@ -5195,6 +5181,7 @@ def run_decode_int8_parity(torch, ops, card):
     versions on the card. Equal streams, or a first differing token at
     a near-tie (`DEC8_PAR`). Returns (results, failure or None)."""
     from apex1_tpu_torch import llama_decoder, llama_quant_decoder
+    from apex1_tpu_torch.models.near_tie import first_flips, top2_gap
     out, fail_msg = {}, None
     for policy, a, b in DEC8_PAR:
         cfg, model, prompt = decode_model(torch, 2, exact=True,
@@ -5213,7 +5200,7 @@ def run_decode_int8_parity(torch, ops, card):
                 runs[label] = decode_call(torch, fn, make, prompt,
                                           cfg.vocab_size, recs[label])[0]
         flips = first_flips(runs[a], runs[b], lambda r, t: top2_gap(
-            torch, recs[b][t], r, t, 0.0, cfg.vocab_size))
+            recs[b][t], r, t, 0.0, cfg.vocab_size))
         moved = [((recs[a][t][r] - recs[b][t][r]).abs().max()
                   / recs[b][t][r].abs().max()).item() for r, t, _ in flips]
         out[f"{a} vs {b}"] = dict(policy=policy, flips=flips,
@@ -5434,6 +5421,7 @@ def run_serve_lora_parity(torch, ops, card):
     streams, or a first differing token where the reference run's
     sampling scores have a top-2 gap below 1e-4 relative. Returns
     (results, failure or None)."""
+    from apex1_tpu_torch.models.near_tie import first_flips
     cfg, model = make_llama("O0", LPAR_DEPTH, SEED + 1, widths=LLAMA_08B,
                             remat=False)
     seeds = [r["seed"] for r in workload(cfg.vocab_size, SEED)]
@@ -6918,12 +6906,6 @@ def recording(model, record: list):
         del model.decode
 
 
-def logits_moved(got, want) -> float:
-    """The largest difference of two (B, V) logit rows over the largest
-    |want|, the worst row."""
-    return ((got - want).abs().amax(-1) / want.abs().amax(-1)).max().item()
-
-
 def near_tie_flips(torch, got, want, rec_got, rec_want, vocab: int,
                    limit: float):
     """(flips, moved, bad): `first_flips` of ``got`` against ``want``,
@@ -6931,8 +6913,10 @@ def near_tie_flips(torch, got, want, rec_got, rec_want, vocab: int,
     top logit, and the flips that are not near-ties: the reference's
     top-2 gap not below that difference, or the difference above
     ``limit``."""
+    from apex1_tpu_torch.models.near_tie import (first_flips, logits_moved,
+                                                 top2_gap)
     flips = first_flips(got, want, lambda r, t: top2_gap(
-        torch, rec_want[t], r, t, 0.0, vocab))
+        rec_want[t], r, t, 0.0, vocab))
     moved = [logits_moved(rec_got[t][r:r + 1], rec_want[t][r:r + 1])
              for r, t, _ in flips]
     bad = [f for f, m in zip(flips, moved) if f[2] >= m or m > limit]
@@ -6961,6 +6945,7 @@ def run_generate_t5(torch, ops, card, launches):
     from torch.profiler import ProfilerActivity, profile
     from apex1_tpu_torch.models.generate import (beam_search, init_cache,
                                                  t5_generate)
+    from apex1_tpu_torch.models.near_tie import logits_moved
     cfg, model = make_t5("O2", T5LAYERS, SEED)
     enc = t5_batch(torch, cfg.vocab_size)[0]
     keep = torch.ones(T5B, T5S, dtype=torch.bool, device="cuda")
@@ -7433,6 +7418,7 @@ def sampled_flips(torch, got, want, seeds, rec_got, rec_want,
     difference over T, that difference over the top |logit|); ``bad``
     the flips that are not near-ties (gap not below the move, the move
     above `SERVE_MOVE`, or a row not recorded)."""
+    from apex1_tpu_torch.models.near_tie import first_flips
     flips, bad = [], []
     for r, t, _ in first_flips(got, want, lambda r, t: 0.0):
         a, b = rec_got.get((seeds[r], t)), rec_want.get((seeds[r], t))
@@ -7893,6 +7879,7 @@ def run_speculative(torch, ops, card, launches):
     beside plain `generate`. Adds the greedy call's launches to
     ``launches``. Returns (results, failure or None)."""
     from apex1_tpu_torch import llama_decoder, llama_quant_decoder
+    from apex1_tpu_torch.models import near_tie
     from apex1_tpu_torch.models.generate import speculative_generate
     cfg, model, prompt = decode_model(torch, LCTX_LAYERS)
     t_fn, mk_t = llama_decoder(model)
@@ -7900,12 +7887,7 @@ def run_speculative(torch, ops, card, launches):
     L, V, K, N = cfg.num_layers, cfg.vocab_size, SPEC_K, DEC_N
     S = DEC_S0 + N + K + 1
     verify = []
-
-    def t_rec(tokens, cache, idx, **kw):
-        logits, cache = t_fn(tokens, cache, idx, **kw)
-        if kw.get("chunk_decode"):
-            verify.append((idx.cpu(), logits.float()))
-        return logits, cache
+    t_rec = near_tie.recorder(t_fn, verify, chunks=True)
 
     def spec(fn, **kw):
         torch.cuda.synchronize()
@@ -7931,27 +7913,15 @@ def run_speculative(torch, ops, card, launches):
               "rope": (tf + df) * 2 * L, "flash_fwd": 2 * L,
               "int8_mm": df * (INT8_PER_LAYER * L + 1)}
 
-    def verify_row(r, t):
-        pos = DEC_S0 + t - 1
-        for idx, lg in reversed(verify):
-            j = pos - int(idx[r])
-            if 0 <= j <= K:
-                return lg[r, j:j + 1]
-        return None
-
-    flips = first_flips(toks, want, lambda r, t: top2_gap(
-        torch, rec[t], r, t, 0.0, V))
-    moved = [(logits_moved(verify_row(r, t), rec[t][r:r + 1])
-              if t > 0 and verify_row(r, t) is not None else None)
-             for r, t, _ in flips]
-    # the two paths' own difference where the streams still agree: every
-    # token before each row's first flip
-    first = {r: t for r, t, _ in flips}
-    floor = max(logits_moved(verify_row(r, t), rec[t][r:r + 1])
-                for r in range(DEC_B) for t in range(1, first.get(r, N))
-                if verify_row(r, t) is not None)
-    bad = [f for f, m in zip(flips, moved)
-           if m is None or f[2] >= m or m > 2 * floor]
+    # the near-tie rule (`models.near_tie.judge`): a first flip only
+    # where the target's top-2 gap is below the verify-vs-step logit
+    # difference there, itself at most twice the largest difference
+    # where the streams still agree
+    verdict = near_tie.judge(toks, want,
+                             near_tie.verify_logits(verify, DEC_S0, K),
+                             near_tie.step_logits(rec), V)
+    flips, moved, floor, bad = (verdict[k] for k in
+                                ("flips", "moved", "floor", "bad"))
     accept = (N - 1 - rounds) / (K * rounds)
     out = dict(greedy_wall_s=swall, generate_wall_s=gwall,
                rounds=rounds.tolist(), accept_rate=accept.tolist(),
@@ -8479,25 +8449,16 @@ def run_train_sentinel(torch, ops, card, launches):
 
 def l3d_plan(cfg, num_chunks: int) -> dict:
     """The ``apex1-plan-v1`` document of the one-card llama_3d layout at
-    ``num_chunks``: the keys `resilience.reshard` and the checkpointer's
-    layout check read, written out (the port has no planner)."""
-    m = cfg.model
-    return {"schema": "apex1-plan-v1", "n_devices": 1,
-            "mesh": {"dp": 1, "pp": 1, "cp": 1, "ep": 1, "tp": 1},
-            "schedule": {"kind": "scan",
-                         "num_microbatches": cfg.num_microbatches,
-                         "microbatch_size": cfg.microbatch_size,
-                         "num_chunks": num_chunks},
-            "zero": {"enabled": False, "axis": "dp"},
-            "model": {"name": "llama_3d", "num_layers": m.num_layers,
-                      "hidden_size": m.hidden_size, "ffn_size": m.ffn_size,
-                      "num_heads": m.num_heads,
-                      "num_kv_heads": m.num_kv_heads,
-                      "head_dim": m.head_dim, "vocab_size": m.vocab_size,
-                      "seq_len": m.max_seq_len,
-                      "global_batch": cfg.num_microbatches
-                      * cfg.microbatch_size, "num_experts": 0,
-                      "moe_top_k": 2}}
+    ``num_chunks``: `resilience.reshard.plan_for_layout` of its stated
+    layout, the document the llama_3d example banks."""
+    from apex1_tpu_torch.planner import Layout, ModelShape
+    from apex1_tpu_torch.resilience.reshard import plan_for_layout
+    shape = ModelShape.from_llama(
+        cfg.model, global_batch=cfg.num_microbatches * cfg.microbatch_size,
+        name="llama_3d")
+    return plan_for_layout(shape, Layout(
+        num_microbatches=cfg.num_microbatches,
+        microbatch_size=cfg.microbatch_size, num_chunks=num_chunks))
 
 
 def run_llama_3d_resume(torch, ops, card, launches):
@@ -8948,6 +8909,399 @@ def run_examples(torch, ops, card, launches):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---- the JAX package's other seven examples -----------------------------------
+
+#: examples-parallel: gpt2_pp_tied at GPT-2 124M widths through its own
+#: flags (fp32, logits 4 x 2 x 1024 x 50304), llama_3d's one-card layout
+#: and the step its SIGTERM drill is preempted after
+EX_PP_TIED = ["--pp", "1", "--layers", "12", "--hidden", "768", "--heads",
+              "12", "--vocab", "50304", "--seq", "1024", "--mb", "2",
+              "--microbatches", "4", "--steps", "20"]
+EX_L3D = ["--dp", "1", "--pp", "1", "--tp", "1"]
+EX_L3D_KILL = 10
+#: examples-encdec's gates, from the JAX scripts' runs on the CPU
+#: (JAX_PLATFORMS=cpu, their defaults): T5's greedy sort accuracy 0.625,
+#: the RNN-T's exact greedy decodes 4 of 4. The port fails under half
+#: the accuracy, or more than one exact decode fewer.
+JAX_T5_ACCURACY, JAX_RNNT_EXACT = 0.625, 4
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def add_launches(launches: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+
+
+def llama_step_launches(L: int, M: int = 1, head: int = 1) -> dict:
+    """Kernel launches of a Llama training step without remat, ``M``
+    microbatches of ``L`` layers: each layer's forward once (two RMS
+    norms, q and k rotated, the flash forward) and its backward once
+    (two norms, q and k rotated by -θ, flash dq and dk/dv); the final
+    norm and the fused head ``head`` times (llama_3d's 1F1B runs it a
+    microbatch)."""
+    n = M * L
+    return {"layer_norm_fwd": 2 * n + head, "layer_norm_bwd": 2 * n + head,
+            "rope": 4 * n, "flash_fwd": n, "flash_dq": n, "flash_dkv": n,
+            "lxent_fwd": head, "lxent_dx": head, "lxent_dw": head}
+
+
+def pp_tied_launches(L: int, M: int) -> dict:
+    """Kernel launches of a gpt2_pp_tied step at pp 1: each block of
+    each microbatch two layer norms and the causal softmax, forward and
+    backward; one cross-entropy over the stacked head."""
+    return {"layer_norm_fwd": 2 * L * M, "layer_norm_bwd": 2 * L * M,
+            "softmax_fwd": L * M, "softmax_bwd": L * M, "xent_fwd": 1,
+            "xent_bwd": 1}
+
+
+def scaled(counts: dict, n: int) -> dict:
+    return {k: n * v for k, v in counts.items()}
+
+
+def run_examples_parallel(torch, ops, card, launches):
+    """examples-parallel (a one-rank NCCL group): llama_distributed (10
+    O2 steps, its params placed by their TP specs on the one-rank mesh),
+    gpt2_pp_tied at GPT-2 124M widths (`EX_PP_TIED`: step walls, tokens/s,
+    peak memory), llama_3d on its one-card layout with ``--schedule scan
+    --chunks 2`` and ``--schedule 1f1b``; its SIGTERM drill (exit 75
+    after step `EX_L3D_KILL`, then ``--resume auto`` bit for bit); ``--tp
+    3`` exits 2 naming tp-heads. Every run's launches exact. Adds them
+    to ``launches``. Returns (results, failure or None)."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    from apex1_tpu_torch.examples import (gpt2_pp_tied, llama_3d,
+                                          llama_distributed)
+    out = {}
+
+    def counted_run(fn):
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = nonzero(ops.launch_counts())
+        add_launches(launches, got)
+        return res, got, wall, torch.cuda.max_memory_allocated() / 2 ** 30
+
+    ld, got, wall, _ = counted_run(lambda: llama_distributed.main(
+        ["--tp", "1"]))
+    want = scaled(llama_step_launches(ld["cfg"].num_layers), 10)
+    out["llama_distributed"] = dict(losses=ld["losses"], launches=got,
+                                    wall_s=wall, step_ms=ld["step_ms"])
+    del ld["state"], ld["params"]
+    print(f"phase examples-parallel: llama_distributed (tiny Llama, O2, "
+          f"params placed by TP specs on the one-rank mesh) 10 steps in "
+          f"{wall:.2f} s: losses {ld['losses']}; median step "
+          f"{median_wall(ld['step_ms']):.2f} ms; launches {got} expected "
+          f"{want} [{card}]")
+    if not all(math.isfinite(v) for v in ld["losses"]):
+        return out, "examples-parallel: a llama_distributed loss is not finite"
+    if not launches_ok(got, want):
+        return out, (f"examples-parallel: llama_distributed launched {got}, "
+                     f"expected {want}")
+
+    pp, got, wall, peak = counted_run(lambda: gpt2_pp_tied.main(EX_PP_TIED))
+    want = scaled(pp_tied_launches(12, 4), 20)
+    med = median_wall(pp["step_ms"])
+    tokens = 4 * 2 * 1024
+    out["gpt2_pp_tied"] = dict(losses=pp["losses"], launches=got,
+                               step_ms=pp["step_ms"], peak_gib=peak,
+                               wall_s=wall)
+    del pp["params"]
+    torch.cuda.empty_cache()
+    print(f"phase examples-parallel: gpt2_pp_tied GPT-2 124M widths "
+          f"{' '.join(EX_PP_TIED)} (fp32) in {wall:.2f} s: losses "
+          f"{pp['losses'][0]:.4f} -> {pp['losses'][-1]:.4f}; step wall "
+          f"(median of steps 2-20) {med:.2f} ms, {tokens / med * 1e3:.0f} "
+          f"tokens/s; peak memory {peak:.2f} GiB; launches {got} expected "
+          f"{want} [{card}]")
+    if not (all(math.isfinite(v) for v in pp["losses"])
+            and pp["losses"][-1] < pp["losses"][0]):
+        return out, f"examples-parallel: gpt2_pp_tied losses {pp['losses']}"
+    if not launches_ok(got, want):
+        return out, (f"examples-parallel: gpt2_pp_tied launched {got}, "
+                     f"expected {want}")
+
+    runs = {}
+    for name, extra in (("scan_chunks2", ["--schedule", "scan", "--chunks",
+                                          "2"]),
+                        ("1f1b", ["--schedule", "1f1b"])):
+        r, got, wall, peak = counted_run(lambda: llama_3d.main(
+            EX_L3D + extra))
+        L = r["cfg"].model.num_layers
+        head = 4 if name == "1f1b" else 1
+        want = scaled(llama_step_launches(L, 4, head), 20)
+        runs[name] = r
+        out[f"llama_3d_{name}"] = dict(losses=r["losses"], launches=got,
+                                       step_ms=r["step_ms"], wall_s=wall)
+        print(f"phase examples-parallel: llama_3d {' '.join(EX_L3D + extra)}"
+              f" (4 layers, hidden 64, M 4, O2) 20 steps in {wall:.2f} s: "
+              f"losses {r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}, "
+              f"median step {median_wall(r['step_ms']):.2f} ms; launches "
+              f"{got} expected {want} [{card}]")
+        if not all(math.isfinite(v) for v in r["losses"]):
+            return out, f"examples-parallel: llama_3d {name} loss not finite"
+        if not launches_ok(got, want):
+            return out, (f"examples-parallel: llama_3d {name} launched "
+                         f"{got}, expected {want}")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_l3d_")
+    try:
+        drill = EX_L3D + ["--schedule", "scan", "--chunks", "2",
+                          "--ckpt-dir", tmp]
+        os.environ["APEX1_CHAOS_SIGTERM_STEP"] = str(EX_L3D_KILL)
+        try:
+            llama_3d.main(drill)
+            code = 0
+        except SystemExit as e:
+            code = e.code
+        finally:
+            del os.environ["APEX1_CHAOS_SIGTERM_STEP"]
+        resumed = llama_3d.main(drill)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    full = runs["scan_chunks2"]["losses"]
+    same = (resumed["start"] == EX_L3D_KILL
+            and resumed["losses"] == full[EX_L3D_KILL:])
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        try:
+            llama_3d.main(["--tp", "3"])
+            illegal = 0
+        except SystemExit as e:
+            illegal = e.code
+    named = "[tp-heads]" in err.getvalue()
+    out["llama_3d_drill"] = dict(code=code, resumed=resumed["losses"],
+                                 same=same, illegal_exit=illegal,
+                                 tp_heads=named)
+    print(f"phase examples-parallel: llama_3d SIGTERM after step "
+          f"{EX_L3D_KILL}: exit {code}; --resume auto from data step "
+          f"{resumed['start']}: losses equal the uninterrupted run's bit "
+          f"for bit {same}; --tp 3 exits {illegal}, naming tp-heads {named}"
+          f" [{card}]")
+    if code != 75 or not same:
+        return out, (f"examples-parallel: the llama_3d drill exited {code}, "
+                     f"resumed equal {same}")
+    if illegal != 2 or not named:
+        return out, (f"examples-parallel: --tp 3 exited {illegal}, "
+                     f"tp-heads named {named}")
+    return out, None
+
+
+def t5_example_launches(steps: int, seq: int) -> dict:
+    """t5_seq2seq's launches: ``steps`` training steps of the 2 + 2
+    layer T5 without remat (each block's norms and attentions once
+    forward and once backward, dbias for each self-attention's
+    relative-position bias, each stack's final norm and the fused head
+    once), then one `t5_generate` call of ``seq`` decoder steps."""
+    n_enc = n_dec = 2
+    norms, attn = 2 * n_enc + 3 * n_dec, n_enc + 2 * n_dec
+    step = {"layer_norm_fwd": norms + 2, "layer_norm_bwd": norms + 2,
+            "flash_fwd": attn, "flash_dq": attn, "flash_dkv": attn,
+            "flash_dbias": n_enc + n_dec, "lxent_fwd": 1, "lxent_dx": 1,
+            "lxent_dw": 1}
+    out = scaled(step, steps)
+    for k, v in t5gen_launches(n_enc, n_dec, seq).items():
+        out[k] += v
+    return out
+
+
+#: the RNN-T learner in a process of its own (it and T5 are host-bound:
+#: one Python thread each, beside each other on the card); its result is
+#: the last line it prints
+RNNT_CHILD = (
+    "import json, sys, torch\n"
+    "sys.path.insert(0, sys.argv[1])\n"
+    "torch.backends.cuda.matmul.allow_tf32 = False\n"
+    "torch.backends.cudnn.allow_tf32 = False\n"
+    "from apex1_tpu_torch import ops\n"
+    "from apex1_tpu_torch.examples import rnnt_speech\n"
+    "r = rnnt_speech.main([])\n"
+    "print(json.dumps({**{k: r[k] for k in ('losses', 'step_ms', 'hyps',"
+    " 'labels', 'exact', 'train_s', 'decode_s')},"
+    " 'launches': {k: v for k, v in ops.launch_counts().items() if v}}))\n")
+
+
+def run_examples_encdec(torch, ops, card, launches):
+    """examples-encdec: t5_seq2seq (1500 O2 steps, then the greedy sort
+    of 8 held-out rows), rnnt_speech (800 steps, greedy decode of 4; in
+    a child process at the same time, `RNNT_CHILD`) and dcgan_amp (20
+    steps), the JAX scripts' defaults. Gates against the JAX scripts'
+    CPU runs (`JAX_T5_ACCURACY`, `JAX_RNNT_EXACT`); finite losses; exact
+    launches (the RNN-T and the DCGAN launch none: LSTMs, the
+    transducer, cuDNN convolutions and the flax batch norm are plain
+    PyTorch). Adds the launches to ``launches``."""
+    from apex1_tpu_torch.examples import dcgan_amp, t5_seq2seq
+    out = {}
+    child = subprocess.Popen([sys.executable, "-c", RNNT_CHILD, HERE],
+                             stdout=subprocess.PIPE, text=True)
+    try:
+        err = _t5_and_dcgan(torch, ops, card, launches, out, t5_seq2seq,
+                            dcgan_amp)
+        t0 = time.perf_counter()
+        text, _ = child.communicate(timeout=600)
+        waited = time.perf_counter() - t0
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    if err:
+        return out, err
+    print(text, end="")
+    if child.returncode != 0:
+        return out, f"examples-encdec: rnnt_speech exited {child.returncode}"
+    rn = json.loads(text.strip().splitlines()[-1])
+    got = rn["launches"]
+    out["rnnt_speech"] = dict(loss=rn["losses"][-1], exact=rn["exact"],
+                              hyps=rn["hyps"], launches=got,
+                              step_ms=median_wall(rn["step_ms"]),
+                              train_s=rn["train_s"], decode_s=rn["decode_s"],
+                              waited_s=waited)
+    print(f"phase examples-encdec: rnnt_speech (its own process, beside "
+          f"the rest) 800 O2 steps in {rn['train_s']:.1f} s (median step "
+          f"{median_wall(rn['step_ms']):.2f} ms), final nll "
+          f"{rn['losses'][-1]:.4f}; greedy exact {rn['exact']}/4 (JAX on "
+          f"the CPU {JAX_RNNT_EXACT}/4), decode {rn['decode_s']:.2f} s; "
+          f"launches {got} (none expected); waited {waited:.1f} s for it "
+          f"after T5 and the DCGAN [{card}]")
+    if not all(math.isfinite(v) for v in rn["losses"]):
+        return out, "examples-encdec: an rnnt_speech loss is not finite"
+    if rn["exact"] < JAX_RNNT_EXACT - 1:
+        return out, (f"examples-encdec: rnnt_speech decodes {rn['exact']}/4 "
+                     f"exactly, JAX {JAX_RNNT_EXACT}/4")
+    if got:
+        return out, f"examples-encdec: rnnt_speech launched {got}"
+    return out, None
+
+
+def _t5_and_dcgan(torch, ops, card, launches, out, t5_seq2seq, dcgan_amp):
+    """examples-encdec's T5 and DCGAN runs; the failure or None."""
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    t5 = t5_seq2seq.main([])
+    wall = time.perf_counter() - t0
+    got = nonzero(ops.launch_counts())
+    add_launches(launches, got)
+    want = t5_example_launches(1500, 8)
+    out["t5_seq2seq"] = dict(losses=t5["losses"][-1], accuracy=t5["accuracy"],
+                             launches=got, wall_s=wall,
+                             step_ms=median_wall(t5["step_ms"]),
+                             generate_s=t5["generate_s"],
+                             loss_scale=t5["loss_scale"])
+    print(f"phase examples-encdec: t5_seq2seq 1500 O2 steps in "
+          f"{t5['train_s']:.1f} s (median step "
+          f"{median_wall(t5['step_ms']):.2f} ms), final loss "
+          f"{t5['losses'][-1]:.4f}, loss scale {t5['loss_scale']}; greedy "
+          f"sort accuracy {t5['accuracy']:.4f} (JAX on the CPU "
+          f"{JAX_T5_ACCURACY}; gate half of it), generate "
+          f"{t5['generate_s']:.2f} s; launches {got} expected {want} "
+          f"[{card}]")
+    if not all(math.isfinite(v) for v in t5["losses"]):
+        return "examples-encdec: a t5_seq2seq loss is not finite"
+    if t5["accuracy"] < 0.5 * JAX_T5_ACCURACY:
+        return (f"examples-encdec: t5_seq2seq sort accuracy "
+                f"{t5['accuracy']} under half of JAX's {JAX_T5_ACCURACY}")
+    if not launches_ok(got, want):
+        return (f"examples-encdec: t5_seq2seq launched {got}, expected "
+                f"{want}")
+    del t5
+    torch.cuda.empty_cache()
+
+    ops.reset_launches()
+    dc = dcgan_amp.main([])
+    got = nonzero(ops.launch_counts())
+    out["dcgan_amp"] = dict(losses_d=dc["losses_d"], losses_g=dc["losses_g"],
+                            scale_d=dc["scale_d"], scale_g=dc["scale_g"],
+                            step_ms=median_wall(dc["step_ms"]), launches=got)
+    print(f"phase examples-encdec: dcgan_amp 20 O2 iterations: errD "
+          f"{dc['losses_d'][0]:.4f} -> {dc['losses_d'][-1]:.4f}, errG "
+          f"{dc['losses_g'][0]:.4f} -> {dc['losses_g'][-1]:.4f}; loss "
+          f"scales D {dc['scale_d']} G {dc['scale_g']}; median iteration "
+          f"{median_wall(dc['step_ms']):.2f} ms; launches {got} (none "
+          f"expected) [{card}]")
+    if not all(math.isfinite(v) for v in dc["losses_d"] + dc["losses_g"]):
+        return "examples-encdec: a dcgan_amp loss is not finite"
+    if got:
+        return f"examples-encdec: dcgan_amp launched {got}"
+    return None
+
+
+def serve_example_launches(L: int, Ld: int, N: int, B: int, K: int,
+                           loops: int) -> dict:
+    """serving_llama's launches. A forward of the target: 2L + 1 RMS
+    norms and 2L RoPE (q and k); of the int8 copy the same and 7 int8
+    GEMMs a layer and the head's; of the ``Ld``-layer draft 2Ld + 1 and
+    2Ld. Forwards: greedy, ragged, each ragged row alone (B - 1), beam,
+    int8 N each; speculative 1 + ``loops`` of the target and 1 + loops
+    (K + 1) of the draft; the prefix prefill, and a turn N continued
+    plus N flat, twice. The flash forward at every prefill from an
+    empty cache (L a target call, Ld the draft's): 9 + (B - 1) target
+    prefills (a continued turn's prefill is a chunk decode)."""
+    tf = (3 + (B - 1)) * N + 1 + loops + 1 + 4 * N
+    df = 1 + loops * (K + 1)
+    return {"layer_norm_fwd": (tf + N) * (2 * L + 1) + df * (2 * Ld + 1),
+            "rope": (tf + N) * 2 * L + df * 2 * Ld,
+            "int8_mm": N * (INT8_PER_LAYER * L + 1),
+            "flash_fwd": (8 + (B - 1)) * L + Ld}
+
+
+def run_serve_example(torch, ops, card, launches):
+    """serve-example: serving_llama at its 1B config on the card (16
+    layers, hidden 2048, 32 / 4 heads, ffn 5632, vocab 32000, O2; B 2,
+    prompt 8, 16 new, 4 beams): each section's wall (ending in a
+    synchronize), greedy tokens/s; the ragged rows against each row
+    alone and speculative against greedy by the near-tie rule
+    (`models.near_tie`); the int8 and prefix agreements; exact launches.
+    Adds them to ``launches``."""
+    from apex1_tpu_torch.examples import serving_llama
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    r = serving_llama.main([])
+    wall = time.perf_counter() - t0
+    got = nonzero(ops.launch_counts())
+    add_launches(launches, got)
+    cfg = r["cfg"]
+    L, N, B = cfg.num_layers, 16, 2
+    want = serve_example_launches(L, max(1, L // 4), N, B,
+                                  serving_llama.DRAFT_K,
+                                  int(r["rounds"].max()))
+    rv, sv = r["ragged_verdict"], r["speculative_verdict"]
+    out = dict(walls=r["walls"], tokens_per_s=r["greedy_tokens_per_s"],
+               rounds=r["rounds"].tolist(), int8=r["int8_agreement"],
+               prefix=r["prefix_agreement"], scores=r["scores"].tolist(),
+               ragged_flips=rv["flips"], ragged_moved=rv["moved"],
+               spec_flips=sv["flips"], spec_moved=sv["moved"],
+               spec_floor=sv["floor"], launches=got, wall_s=wall)
+    print(f"phase serve-example: serving_llama 1B (layers {L}, hidden "
+          f"{cfg.hidden_size}, heads {cfg.num_heads}/{cfg.num_kv_heads}, "
+          f"vocab {cfg.vocab_size}, O2) B {B} prompt 8 new {N} in "
+          f"{wall:.2f} s; section walls "
+          f"{ {k: round(v, 3) for k, v in r['walls'].items()} } s; greedy "
+          f"{r['greedy_tokens_per_s']:.1f} tokens/s [{card}]")
+    print(f"phase serve-example: ragged rows against alone: first flips "
+          f"(row, token, top-2 gap) {rv['flips']} moved {rv['moved']}; "
+          f"speculative verify rounds {r['rounds'].tolist()}, first flips "
+          f"against greedy {sv['flips']} moved {sv['moved']} (agreeing "
+          f"difference {sv['floor']:.5f}); int8 agreement "
+          f"{r['int8_agreement']:.3f}; prefix turns agreement "
+          f"{r['prefix_agreement']}; best beam scores "
+          f"{r['scores'].tolist()}; launches {got} expected {want} [{card}]")
+    if rv["bad"]:
+        return out, (f"serve-example: ragged rows differ from alone off a "
+                     f"near-tie: {rv['bad']}")
+    if not launches_ok(got, want):
+        return out, f"serve-example: launches {got}, expected {want}"
+    if not r["greedy"].min() >= 0 or r["greedy"].max() >= cfg.vocab_size:
+        return out, "serve-example: a token outside the vocabulary"
+    return out, None
+
+
 def main() -> int:
     try:
         import torch
@@ -9010,11 +9364,14 @@ def main() -> int:
                 "speculative": run_speculative,
                 "train-resume": run_train_resume,
                 "train-sentinel": run_train_sentinel,
-                "examples": run_examples}
+                "examples": run_examples,
+                "examples-encdec": run_examples_encdec,
+                "serve-example": run_serve_example}
         grouped = {"train-fsdp": run_fsdp, "train-zero": run_zero,
                    "train-bert-lamb": run_bert_lamb,
                    "spatial-bottleneck": run_spatial,
-                   "llama-3d-resume": run_llama_3d_resume}
+                   "llama-3d-resume": run_llama_3d_resume,
+                   "examples-parallel": run_examples_parallel}
         errs = []
         for phase in ([a for a in sys.argv[1:] if a in {**only, **grouped}]
                       or list(only) + list(grouped)):
@@ -9271,6 +9628,7 @@ def main() -> int:
     stamp("generate")
 
     # 11. generate-parity: kernels against the plain versions, O0, depth 2
+    from apex1_tpu_torch.models.near_tie import top2_gap
     run, gcfg = make_generator(torch, 2, "O0", SEED + 1)
     for temp in (0.0, 0.7):
         rec_k, rec_p = [], []
@@ -9281,8 +9639,8 @@ def main() -> int:
         gaps = []
         for r in rows:
             t = int((kt[r] != pt[r]).nonzero()[0][0])
-            gaps.append((r, t, top2_gap(torch, rec_p[t], r, t, temp,
-                                        gcfg.vocab_size)))
+            gaps.append((r, t, top2_gap(rec_p[t], r, t, temp,
+                                 gcfg.vocab_size)))
         print(f"phase generate-parity: O0 depth 2 T={temp}, streams "
               f"differing {len(rows)} of {GEN_ROWS}; (row, step, top-2 "
               f"gap relative) at the first differing token {gaps} [{card}]")
@@ -9497,6 +9855,25 @@ def main() -> int:
     if err:
         return fail(err)
     stamp("examples")
+    # 43-45. the JAX package's other seven examples: the parallel ones in
+    # a one-rank NCCL group, the encoder-decoder learners, the serving
+    # walkthrough at its 1B config
+    ex_out = {}
+    nccl_dir = start_nccl(torch)
+    try:
+        ex_out["examples-parallel"], err = run_examples_parallel(
+            torch, ops, card, main_launches)
+        if err:
+            return fail(err)
+        stamp("examples-parallel")
+    finally:
+        stop_nccl(nccl_dir)
+    for phase, fn in (("examples-encdec", run_examples_encdec),
+                      ("serve-example", run_serve_example)):
+        ex_out[phase], err = fn(torch, ops, card, main_launches)
+        if err:
+            return fail(err)
+        stamp(phase)
     print(f"phase times: { {k: round(v, 1) for k, v in phase_s.items()} } "
           f"s wall [{card}]")
 
@@ -9510,7 +9887,10 @@ def main() -> int:
     # contrib's kernel cases, serve-dense's dense run, serve-fleet's
     # drill, disagg's clean run, speculative's greedy call, train-resume's
     # uninterrupted run, llama-3d-resume's two resumed steps, the
-    # examples' gpt2_amp and imagenet_amp runs through the prefetcher)
+    # examples' gpt2_amp and imagenet_amp runs through the prefetcher,
+    # examples-parallel's llama_distributed, gpt2_pp_tied and two
+    # llama_3d runs, examples-encdec's t5_seq2seq, serve-example's
+    # serving_llama)
     sources = {"layer_norm_fwd": ("apex1_tpu_torch/csrc/layer_norm.cu",
                                   "apex1_tpu/ops/layer_norm.py:110"),
                "paged_attend": ("apex1_tpu_torch/csrc/paged_attend.cu",
@@ -9581,7 +9961,7 @@ def main() -> int:
                    "bert": bert_out, "t5": t5_out, "decode": dec_out,
                    "amp": amp_out, "parallel": par_out,
                    "t5_contrib": slice_out, "serving": serve_out,
-                   "resilience": res_out,
+                   "resilience": res_out, "examples": ex_out,
                    "phase_s": phase_s},
                   f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))

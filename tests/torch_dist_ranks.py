@@ -1273,3 +1273,33 @@ def debug_cases(inputs: dict) -> dict:
     err = _raises(lambda: assert_same_program_across_processes(f, mine, w),
                   AssertionError)
     return dict(fp=fp, err=err)
+
+
+# ---- tests/test_torch_examples_parallel.py ----------------------------------
+
+
+def examples_cases(inputs: dict, n: int) -> dict:
+    """The examples at world ``n``, each through its ``main``:
+    `gpt2_pp_tied` at pp ``n`` (each rank's losses, stage and final
+    params), then `llama_distributed` at O0 with tp 2 and fsdp ``n`` /
+    2 from the JAX package's params (the losses and the full final
+    params)."""
+    from apex1_tpu_torch import LlamaConfig, get_policy
+    from apex1_tpu_torch.examples import gpt2_pp_tied, llama_distributed
+    from apex1_tpu_torch.interop import llama_params_from_jax
+    from apex1_tpu_torch.transformer import parallel_state
+    torch.set_num_threads(1)
+    parallel_state.destroy_model_parallel()
+    steps = str(inputs["steps"])
+    pp = gpt2_pp_tied.main(["--pp", str(n), "--device", "cpu", "--steps",
+                            steps])
+    model = llama_params_from_jax(
+        inputs["llama"], LlamaConfig.tiny(policy=get_policy("O0"),
+                                          max_seq_len=inputs["seq"]), "cpu")
+    ld = llama_distributed.main(
+        ["--device", "cpu", "--opt-level", "O0", "--tp", "2", "--fsdp",
+         str(n // 2), "--steps", steps, "--seq", str(inputs["seq"])],
+        model=model)
+    return _np(dict(pp=dict(losses=pp["losses"], stage=pp["stage"],
+                            params=pp["params"]),
+                    ld=dict(losses=ld["losses"], params=ld["params"])))
