@@ -15,14 +15,17 @@ from apex1_tpu_torch.parallel.multiproc import init_from_env
 from apex1_tpu_torch.transformer import parallel_state
 
 
-def join_ranks(device: torch.device, *, alone: bool = False, **degrees):
+def join_ranks(device: torch.device, *, alone: bool = False,
+               mesh: bool = True, **degrees):
     """``(rank, world, opened)``: join the ranks `multiproc` launched
     (``WORLD_SIZE`` set) unless a group exists, and install
     `parallel_state`'s mesh over it (``degrees``: the keywords of
     `parallel_state.initialize_model_parallel`, data parallel over the
-    rest) unless one is installed. One process alone is rank 0 of 1, in
-    no group, or with ``alone`` in a one-rank group of its own (a file
-    rendezvous in a temporary directory) for code that needs a mesh."""
+    rest) unless one is installed or ``mesh`` is False (`install_mesh`
+    later, once the degrees are known). One process alone is rank 0 of
+    1, in no group, or with ``alone`` in a one-rank group of its own (a
+    file rendezvous in a temporary directory) for code that needs a
+    mesh."""
     backend = "nccl" if device.type == "cuda" else "gloo"
     opened = []
     if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
@@ -36,10 +39,17 @@ def join_ranks(device: torch.device, *, alone: bool = False, **degrees):
         opened += ["group", ("store", tmp)]
     if not dist.is_initialized():
         return 0, 1, opened
+    if mesh:
+        install_mesh(opened, **degrees)
+    return dist.get_rank(), dist.get_world_size(), opened
+
+
+def install_mesh(opened: list, **degrees) -> None:
+    """`parallel_state`'s mesh at ``degrees`` unless one is installed;
+    noted in ``opened`` for `leave_ranks`."""
     if not parallel_state.model_parallel_is_initialized():
         parallel_state.initialize_model_parallel(**degrees)
         opened.append("mesh")
-    return dist.get_rank(), dist.get_world_size(), opened
 
 
 def leave_ranks(opened: list) -> None:

@@ -8,13 +8,20 @@ One train step a rank: Megatron TP + SP blocks inside the pipeline
 cross-entropy with the embedding-group grad combination, fused Adam on
 fp32 masters, O2.
 
-The layout is written out by hand (``--dp --pp --tp --cp --ep
---chunks --microbatches --schedule``). Every axis flag is checked by
-`planner.check_layout` before anything is built: an illegal combination
-exits 2, printing ``ILLEGAL LAYOUT`` and one line a broken rule (tp not
-dividing the heads, pp above the layers, ...). ``--plan auto|PATH``
-(the planner's search and a banked plan) raises NotImplementedError:
-the planner's pricing waits for ROADMAP.md queue A item 11.
+Two ways to pick the layout:
+
+- by hand (``--dp --pp --tp --cp --ep --chunks --microbatches
+  --schedule``): every axis flag is checked by `planner.check_layout`
+  before anything is built; an illegal combination exits 2, printing
+  ``ILLEGAL LAYOUT`` and one line a broken rule (tp not dividing the
+  heads, pp above the layers, ...);
+- by search: ``--plan auto`` hands the model to the planner
+  (`planner.make_plan` for ``--devices``, default the world size), which
+  prices the legal layouts at the card's capability row and drives this
+  loop from the winner, whose partition rules are checked against the
+  model's own specs before training (``plan verified``). ``--plan PATH``
+  replays a banked plan (the JAX planner's too): a plan priced for other
+  model dims or another device count exits 2 naming each mismatch.
 
 With ``--ckpt-dir`` the loop runs under the resilient runtime: every
 checkpoint (the global state, `models.llama_3d.gather_state`) banks
@@ -25,23 +32,25 @@ reshardable; ``--resume auto`` continues from the newest valid one
 one int in the manifest's meta); a SIGTERM banks a final sync
 checkpoint and exits 75 (``APEX1_CHAOS_SIGTERM_STEP=<n>`` sends it
 after step n). ``--elastic`` resumes through
-`resilience.elastic_resume`: on an unchanged device count plainly, the
-checkpoint's banked plan the authority for the model and the layout; a
-changed count raises its NotImplementedError (ROADMAP.md queue A item
-11).
+`resilience.elastic_resume`, the checkpoint's banked plan the authority
+for the model and the layout: on an unchanged device count plainly, on
+a changed one (``--devices``, default the world size) re-planned by the
+planner and resharded, manifest-verified.
 
 ``python -m apex1_tpu_torch.examples.llama_3d --dp 1 --pp 1 --tp 1
 --device cpu`` alone (a one-rank group of its own), or ``python -m
 apex1_tpu_torch.parallel.multiproc --nproc 8
 apex1_tpu_torch/examples/llama_3d.py --device cpu`` for the default dp
 2 x pp 2 x tp 2 (the repo root on ``PYTHONPATH``); the device product
-must be the world size. `main` returns each step's loss, the step
-walls, the first step run and the final state.
+must be the world size. ``--plan auto --device cpu`` plans and runs at
+one rank. `main` returns each step's loss, the step walls, the first
+step run, the final state and the plan it banks.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import time
@@ -52,16 +61,11 @@ import torch.distributed as dist
 
 from apex1_tpu_torch import planner
 from apex1_tpu_torch.core.policy import get_policy
-from apex1_tpu_torch.examples._common import (StepRecord, join_ranks,
-                                              leave_ranks)
+from apex1_tpu_torch.examples._common import (StepRecord, install_mesh,
+                                              join_ranks, leave_ranks)
 from apex1_tpu_torch.models import llama_3d as L3
 from apex1_tpu_torch.models.llama import LlamaConfig
 from apex1_tpu_torch.ops._common import resolve_device
-
-_PLANNER = ("--plan searches or replays a plan with the planner's "
-            "pricing, which the port has not yet: ROADMAP.md queue A "
-            "item 11")
-
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -86,12 +90,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "staggered-fwd/bwd 1F1B (interleaved with "
                          "--chunks > 1)")
     ap.add_argument("--plan", default=None, metavar="auto|PATH",
-                    help="the planner's search or a banked plan "
-                         "(not yet in the port: ROADMAP.md queue A "
-                         "item 11)")
+                    help="'auto': search dp x pp x cp x ep x tp with "
+                         "the planner instead of the axis flags; PATH: "
+                         "replay a banked plan.json")
     ap.add_argument("--devices", type=int, default=None,
-                    help="device count for --elastic (default: the "
-                         "product of the axis flags)")
+                    help="device count for --plan auto / --elastic "
+                         "(default: the world size)")
     ap.add_argument("--seed", type=int, default=0,
                     help="data seed: batch i is a pure function of "
                          "(seed, i), so resume is exact")
@@ -146,26 +150,14 @@ def validate_hand_layout(args) -> None:
 def model_config(dims: dict, moe: bool) -> LlamaConfig:
     """The example's `LlamaConfig` at ``dims`` (a plan's ``model``
     block's keys), O2."""
-    kw = (dict(moe_every=1, num_experts=4, moe_top_k=2,
+    kw = (dict(moe_every=1, num_experts=dims.get("num_experts") or 4,
+               moe_top_k=dims.get("moe_top_k", 2),
                moe_capacity_factor=2.0) if moe else {})
     return LlamaConfig.tiny(
         num_layers=dims["num_layers"], max_seq_len=dims["seq_len"],
         vocab_size=dims["vocab_size"], num_heads=dims["num_heads"],
         num_kv_heads=dims["num_kv_heads"], hidden_size=dims["hidden_size"],
         ffn_size=dims["ffn_size"], policy=get_policy("O2"), **kw)
-
-
-def config_from_plan(plan: dict) -> L3.Llama3DConfig:
-    """The `Llama3DConfig` a banked plan describes (its model, mesh and
-    schedule), learning rate 3e-3."""
-    m, sch, pm = plan["mesh"], plan["schedule"], plan["model"]
-    moe = bool(pm.get("num_experts"))
-    return L3.Llama3DConfig(
-        model=model_config(pm, moe), dp=m["dp"], pp=m["pp"], tp=m["tp"],
-        cp=m["cp"], ep=m["ep"], moe=moe, num_chunks=sch["num_chunks"],
-        num_microbatches=sch["num_microbatches"],
-        microbatch_size=sch["microbatch_size"], learning_rate=3e-3,
-        schedule=sch["kind"])
 
 
 def batch_at(cfg: L3.Llama3DConfig, seed: int, i: int, dev) -> tuple:
@@ -185,6 +177,73 @@ def batch_at(cfg: L3.Llama3DConfig, seed: int, i: int, dev) -> tuple:
     return tokens, torch.roll(tokens, -1, dims=1)
 
 
+def _world_hint() -> int:
+    """The world size before this process joins a group: the group's,
+    else the launcher's ``WORLD_SIZE``, else 1."""
+    if dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def apply_plan(args, plan: dict, *, dims: bool = False) -> None:
+    """The plan's layout (and with ``dims`` its model dims) onto the
+    axis and model flags, so every later line reads one source."""
+    m, sch, pm = plan["mesh"], plan["schedule"], plan["model"]
+    args.dp, args.pp, args.tp = m["dp"], m["pp"], m["tp"]
+    args.cp, args.ep = m["cp"], m["ep"]
+    args.microbatches = sch["num_microbatches"]
+    args.chunks, args.schedule = sch["num_chunks"], sch["kind"]
+    args.moe = args.moe or bool(pm.get("num_experts"))
+    if dims:
+        args.layers, args.hidden = pm["num_layers"], pm["hidden_size"]
+        args.seq, args.vocab = pm["seq_len"], pm["vocab_size"]
+        args.moe = bool(pm.get("num_experts"))
+
+
+def _fail(lines: list) -> None:
+    for line in lines:
+        print(line, file=sys.stderr, flush=True)
+    sys.exit(2)
+
+
+def searched_or_replayed_plan(args) -> dict:
+    """``--plan auto``: `planner.make_plan` of the example model for
+    ``--devices`` (default the world size), ZeRO off (this loop runs
+    the unsharded optimizer). ``--plan PATH``: the banked plan, refused
+    (exit 2, each mismatch a line) unless it priced this model's dims on
+    this device count."""
+    n = args.devices or _world_hint()
+    if args.plan == "auto":
+        plan = planner.make_plan(model_shape(args), n, allow_zero=False)
+    else:
+        try:
+            plan = planner.load_plan(args.plan)
+        except ValueError as e:
+            _fail([str(e)])
+        bad = planner.check_plan_model(plan, model_shape(args))
+        if plan.get("n_devices") != n:
+            bad.append(f"n_devices: plan={plan.get('n_devices')} "
+                       f"devices={n}")
+        if bad:
+            _fail(["plan/model mismatch — this plan was searched for a "
+                   "different model or device count than the flags "
+                   "describe:"] + [f"  {b}" for b in bad])
+    apply_plan(args, plan)
+    pr, m, sch = plan["predicted"], plan["mesh"], plan["schedule"]
+    print(f"plan: mesh dp={m['dp']} pp={m['pp']} cp={m['cp']} "
+          f"ep={m['ep']} tp={m['tp']} M={sch['num_microbatches']} "
+          f"sp={plan['kernel_flags']['sp_boundary']} — "
+          f"{pr['calibrated_step_ms']:.3f} ms/step calibrated "
+          f"[{pr['calibration']['source']}], "
+          f"{plan['search']['n_enumerated']} layouts searched, "
+          f"{plan['search']['n_hbm_rejected']} over HBM "
+          f"({plan['generation']})", flush=True)
+    if plan["zero"]["enabled"]:
+        print("note: plan prices ZeRO optimizer sharding; this example "
+              "runs the unsharded optimizer", flush=True)
+    return plan
+
+
 def main(argv=None) -> dict:
     args = parse_args(argv)
     if args.ep > 1:
@@ -192,40 +251,113 @@ def main(argv=None) -> dict:
     if args.elastic and not args.ckpt_dir:
         print("--elastic requires --ckpt-dir", file=sys.stderr, flush=True)
         sys.exit(2)
-    if args.plan:
-        raise NotImplementedError(f"llama_3d --plan {args.plan}: {_PLANNER}")
     from apex1_tpu_torch.resilience import find_restorable
     elastic = args.elastic and find_restorable(args.ckpt_dir) is not None
-    if not elastic:
+    plan = None         # under --elastic the checkpoint's plan decides
+    if args.plan and not elastic:
+        plan = searched_or_replayed_plan(args)
+    elif not elastic:
         validate_hand_layout(args)
     dev = resolve_device(args.device)
-    rank, world, opened = join_ranks(
-        dev, alone=True, tensor_model_parallel_size=args.tp,
-        pipeline_model_parallel_size=args.pp,
-        context_parallel_size=args.cp)
+    rank, world, opened = join_ranks(dev, alone=True, mesh=False)
     try:
-        return _run(args, dev, rank, world, elastic)
+        decision = None
+        if elastic:
+            decision = _elastic(args, world)
+            plan = decision["plan"]
+            apply_plan(args, plan, dims=True)
+        n = args.dp * args.pp * args.tp * args.ep * args.cp
+        if n != world:
+            raise SystemExit(f"llama_3d: the layout spans {n} devices, "
+                             f"but {world} ranks run")
+        install_mesh(opened, tensor_model_parallel_size=args.tp,
+                     pipeline_model_parallel_size=args.pp,
+                     context_parallel_size=args.cp)
+        return _run(args, dev, rank, world, plan, decision)
     finally:
         leave_ranks(opened)
 
 
-def _run(args, dev, rank, world, elastic) -> dict:
-    from apex1_tpu_torch.resilience import (PreemptionHandler,
-                                            ResilientCheckpointer,
-                                            elastic_resume)
-    from apex1_tpu_torch.resilience.reshard import plan_for_layout
-    from apex1_tpu_torch.testing.chaos import sigterm_self_at
-    n = args.devices or args.dp * args.pp * args.tp * args.ep * args.cp
-    decision = None
-    if elastic:
-        # the checkpoint's banked plan is the authority for the model
-        # and the layout; a changed device count raises (the re-plan
-        # needs the planner)
-        decision = elastic_resume(args.ckpt_dir, n_devices=n,
-                                  make_template=None)
+def _config(plan: dict) -> L3.Llama3DConfig:
+    """A plan's `Llama3DConfig` (`planner.llama3d_config_from_plan` over
+    `model_config` of its dims), learning rate 3e-3, the unsharded
+    optimizer."""
+    return planner.llama3d_config_from_plan(
+        plan, model_config(plan["model"],
+                           bool(plan["model"].get("num_experts"))),
+        learning_rate=3e-3, ignore_zero=True)
+
+
+def _elastic(args, world: int) -> dict:
+    """`resilience.elastic_resume` on rank 0 (re-plan and reshard when
+    the device count changed), its decision handed to every rank. A
+    plan-less checkpoint or no legal layout exits 2 with the typed
+    message."""
+    from apex1_tpu_torch.resilience import LayoutMismatch, elastic_resume
+    n = args.devices or world
+    box = [None]
+    if dist.get_rank() == 0:
+        try:
+            d = elastic_resume(
+                args.ckpt_dir, n_devices=n, planner_kw={"allow_zero": False},
+                make_template=lambda p: L3.global_state_template(
+                    _config(p), device="meta"))
+            box = [dict(path=d.path, plan=d.plan, old_plan=d.old_plan,
+                        resharded=d.resharded, report=d.report)]
+        except (LayoutMismatch, planner.PlanError) as e:
+            box = [dict(error=str(e))]
+    if world > 1:
+        dist.broadcast_object_list(box, src=0)
+    decision = box[0]
+    if "error" in decision:
+        _fail([decision["error"]])
+    if decision["resharded"]:
+        rep = decision["report"]
+        print(f"elastic: fleet {decision['old_plan']['n_devices']} -> {n} "
+              f"devices; re-planned and resharded ({rep['n_restacked']} "
+              f"restacked / {rep['n_repacked']} repacked / "
+              f"{rep['n_copied']} copied leaves, digest-verified) -> "
+              f"{decision['path']}", flush=True)
+    else:
         print(f"elastic: fleet unchanged ({n} devices); plain resume from "
-              f"{decision.path}", flush=True)
-        cfg, bank_plan = config_from_plan(decision.plan), decision.plan
+              f"{decision['path']}", flush=True)
+    return decision
+
+
+def _bank_plan(args, plan) -> dict:
+    """The plan a checkpoint banks: the run's plan as it ran (a priced
+    zero plan banked with zero off: this loop runs the unsharded
+    optimizer), or the stated layout's (`planner.plan_for_layout`)."""
+    if plan is None:
+        return planner.plan_for_layout(model_shape(args),
+                                       stated_layout(args))
+    if not plan["zero"]["enabled"]:
+        return plan
+    bank = json.loads(json.dumps(plan))
+    bank["zero"]["enabled"] = False
+    bank["zero"]["note"] = ("disabled at banking: the llama_3d loop ran "
+                            "the unsharded optimizer (ignore_zero=True)")
+    return bank
+
+
+def _verify_plan_specs(plan: dict, cfg, params: dict) -> None:
+    """The plan's partition rules must reproduce the model's own specs
+    leaf for leaf (a plan that drifted from the model is caught here)."""
+    got = planner.plan_param_specs(plan, params)
+    cs, ss = L3.chunk_param_specs(cfg), L3.shared_param_specs()
+    want = {k: cs[k[6:]] if k.startswith("chunk.") else ss[k[7:]]
+            for k in params}
+    if got != want:
+        raise SystemExit(f"plan partition rules drifted from "
+                         f"models.llama_3d specs:\n got {got}\nwant {want}")
+
+
+def _run(args, dev, rank, world, plan, decision) -> dict:
+    from apex1_tpu_torch.resilience import (PreemptionHandler,
+                                            ResilientCheckpointer)
+    from apex1_tpu_torch.testing.chaos import sigterm_self_at
+    if plan is not None:
+        cfg = _config(plan)
     else:
         cfg = L3.Llama3DConfig(
             model=model_config(
@@ -237,11 +369,15 @@ def _run(args, dev, rank, world, elastic) -> dict:
             moe=args.moe, num_chunks=args.chunks,
             num_microbatches=args.microbatches, microbatch_size=1,
             learning_rate=3e-3, schedule=args.schedule)
-        bank_plan = plan_for_layout(model_shape(args), stated_layout(args))
-    if n != world:
-        raise SystemExit(f"llama_3d: the layout spans {n} devices, but "
-                         f"{world} ranks run")
+    bank_plan = _bank_plan(args, plan)
     step, state, _ = L3.make_train_step(cfg, device=dev)
+    verified = False
+    if plan is not None:
+        _verify_plan_specs(plan, cfg, state["params"])
+        verified = True
+        if rank == 0:
+            print("plan verified: partition rules reproduce "
+                  "models.llama_3d specs", flush=True)
     ck = pre = None
     start = 0
     if args.ckpt_dir:
@@ -251,11 +387,17 @@ def _run(args, dev, rank, world, elastic) -> dict:
                                     and ck.latest_valid() is not None):
             g, man = ck.restore(L3.gather_state(cfg, state),
                                 path=None if decision is None
-                                else decision.path)
+                                else decision["path"])
             state = L3.local_state(cfg, g)
-            start = int(man.meta.get("data_step", man.step))
-            print(f"resumed from step {man.step} (data step {start})",
-                  flush=True)
+            if decision is not None:
+                start = int(man.meta.get("data_step", 0))
+                print(f"elastic resume at data step {start} (checkpoint "
+                      f"step {man.step}, every leaf digest-verified)",
+                      flush=True)
+            else:
+                start = int(man.meta.get("data_step", man.step))
+                print(f"resumed from step {man.step} (data step {start})",
+                      flush=True)
     chaos_at = os.environ.get("APEX1_CHAOS_SIGTERM_STEP")
     chaos_at = int(chaos_at) if chaos_at else None
 
@@ -268,7 +410,7 @@ def _run(args, dev, rank, world, elastic) -> dict:
     m = cfg.model
     if rank == 0:
         print(f"mesh dp={cfg.dp} pp={cfg.pp} tp={cfg.tp} ep={cfg.ep} "
-              f"cp={cfg.cp} chunks={cfg.num_chunks} moe={cfg.moe} ({n} "
+              f"cp={cfg.cp} chunks={cfg.num_chunks} moe={cfg.moe} ({world} "
               f"devices), {m.num_layers}L x {m.hidden_size}h", flush=True)
     rec = StepRecord(dev)
     t0 = time.time()
@@ -302,7 +444,7 @@ def _run(args, dev, rank, world, elastic) -> dict:
         print(f"done in {time.time() - t0:.1f}s (step counter = "
               f"{int(state['step'])})")
     return {**rec.result(), "start": start, "state": state, "cfg": cfg,
-            "plan": bank_plan}
+            "plan": bank_plan, "plan_verified": verified}
 
 
 if __name__ == "__main__":

@@ -632,6 +632,39 @@ def state_template(cfg: Llama3DConfig, params: dict, device=None) -> dict:
     return state
 
 
+def global_state_template(cfg: Llama3DConfig, device=None) -> dict:
+    """`gather_state`'s global tree with no mesh and no collective: empty
+    fp32 params and moments of the global (num_chunks, pp,
+    layers_per_stage, ...) and shared shapes on ``device`` (CUDA unless
+    named; ``"meta"`` for shapes only), the step counts int32, the loss
+    scale's initial state under an fp16 policy. The template a restore
+    or a reshard of a global checkpoint reads on any fleet (the JAX
+    package's mesh-free ``state_template``)."""
+    from apex1_tpu_torch.optim.fused_adam import FusedAdamState
+    dev = torch.device("meta") if device == "meta" else resolve_device(device)
+    m = cfg.model
+    lead = (cfg.num_chunks, cfg.pp, cfg.layers_per_stage)
+    V, E = m.vocab_size, m.hidden_size
+
+    def tree() -> dict:
+        return {"chunk": {k: torch.empty(lead + s, device=dev)
+                          for k, s in _layer_leaf_shapes(cfg).items()},
+                "shared": {"emb": torch.empty((V, E), device=dev),
+                           "head": torch.empty((V, E), device=dev),
+                           "final_norm": torch.empty((E,), device=dev)}}
+
+    def count():
+        return torch.zeros((), dtype=torch.int32, device=dev)
+
+    state = {"step": count(), "params": tree(),
+             "opt": FusedAdamState(step=count(), exp_avg=tree(),
+                                   exp_avg_sq=tree())}
+    scaler = _make_scaler(cfg)
+    if scaler is not None:
+        state["scale"] = scaler.init(dev)
+    return state
+
+
 def abstract_state(cfg: Llama3DConfig, mesh=None):
     """The state and the (M, S, mb·dp·ep) data as tensors on
     ``torch.device("meta")``: this rank's shapes and dtypes without

@@ -2,9 +2,10 @@
 run-scoped telemetry schema (spans, counters, gauges, events) banked as
 JSONL. The training loops (through `utils.observability.MetricsLogger`),
 the serving metrics, the sentinel and the elastic resume emit through
-it; activated by ``APEX1_OBS_DIR``, inert otherwise. The JAX package's
-``xspace`` trace parser and ``calibrate`` wait on a torch.profiler
-reader (ROADMAP.md queue A item 11)."""
+it; activated by ``APEX1_OBS_DIR``, inert otherwise. `calibrate` fits
+the planner's correction factors from banked measurements. The JAX
+package's ``xspace`` trace parser waits on a torch.profiler reader
+(ROADMAP.md queue A item 11)."""
 
 from apex1_tpu_torch.obs import spine  # noqa: F401
 from apex1_tpu_torch.obs.spine import (ObsRun, StopWatch,  # noqa: F401

@@ -19,9 +19,8 @@ The five mesh axes mirror ``core.mesh.MESH_AXES`` (dp, pp, cp, ep, tp;
 fsdp is the ``zero`` flag: optimizer-state sharding over the dp axis,
 ``parallel.distributed_optimizer.shard_opt_state_specs``). ``sp_mode``
 names which schedule runs each sequence-parallel boundary product.
-Pricing, memory and search (the JAX package's ``cost``, ``memory``,
-``search`` and ``emit``) are not ported yet: ROADMAP.md queue A item
-11.
+Pricing, memory, search and emission are the sibling modules ``cost``,
+``memory``, ``search`` and ``emit``.
 """
 
 from __future__ import annotations

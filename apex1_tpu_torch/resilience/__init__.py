@@ -14,10 +14,10 @@
   `runtime.RequestFeeder`.
 - `reshard_state` / `reshard_checkpoint` / `LayoutMismatch`
   (`.reshard`) and `elastic_resume` / `ElasticDecision` (`.elastic`):
-  plan-carrying checkpoints remapped onto another layout
-  (`reshard.plan_for_layout`: a stated layout's plan document),
-  manifest-verified end to end (the re-plan onto another device count
-  waits for the planner, ROADMAP.md queue A item 11).
+  plan-carrying checkpoints remapped onto another layout,
+  manifest-verified end to end; on a changed device count
+  `elastic_resume` re-plans with `planner.make_plan` and reshards
+  (`elastic.drill` is the acceptance drill).
 
 The chaos harness (`apex1_tpu_torch.testing.chaos`) exercises every
 recovery path on the CPU: injected NaNs, truncated and bit-flipped

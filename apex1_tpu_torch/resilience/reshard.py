@@ -37,15 +37,14 @@ optimizer state's structure and is refused (`LayoutMismatch`).
 
 A plan here is a plain dict with the keys this module reads
 (``schema``, ``n_devices``, ``mesh``, ``schedule``, ``zero``,
-``model``). `plan_for_layout` writes one out for a stated (hand)
-layout, checked by `planner.check_layout`; a searched plan waits for
-the planner's pricing (ROADMAP.md queue A item 11), or is read from the
-JAX planner's JSON.
+``model``): `planner.make_plan`'s for a searched layout,
+`planner.plan_for_layout`'s for a stated one, or the JAX planner's JSON.
+The schema name, the layout-identity keys and `plan_spec` are spelled
+here so that this module reads plans without importing the planner.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import os
 from typing import Any, Optional, Tuple
 
@@ -84,30 +83,6 @@ def plan_spec(plan: dict) -> dict:
         out["zero"] = {"enabled": bool(z.get("enabled")),
                        "axis": z.get("axis")}
     return out
-
-
-def plan_for_layout(shape, layout) -> dict:
-    """The ``apex1-plan-v1`` document of a stated layout: ``shape`` a
-    `planner.ModelShape`, ``layout`` a `planner.Layout`. It carries
-    what `plan_spec` and the checkpointer's layout check read (the JAX
-    planner's ``plan_for_layout`` without what its pricing and search
-    add), so a hand-picked run banks a reshardable spec. An illegal layout raises ``ValueError`` naming
-    each broken rule."""
-    from apex1_tpu_torch.planner import check_layout
-    bad = check_layout(shape, layout)
-    if bad:
-        raise ValueError(f"stated layout {layout.mesh_str()} is illegal "
-                         f"for {shape.name}: "
-                         + "; ".join(str(v) for v in bad))
-    return {"schema": PLAN_SCHEMA, "n_devices": layout.n_devices,
-            "model": dataclasses.asdict(shape),
-            "mesh": {"dp": layout.dp, "pp": layout.pp, "cp": layout.cp,
-                     "ep": layout.ep, "tp": layout.tp},
-            "schedule": {"kind": layout.schedule,
-                         "num_microbatches": layout.num_microbatches,
-                         "microbatch_size": layout.microbatch_size,
-                         "num_chunks": layout.num_chunks},
-            "zero": {"enabled": layout.zero, "axis": "dp"}}
 
 
 class LayoutMismatch(CheckpointError):

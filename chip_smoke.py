@@ -557,10 +557,16 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-#: published peaks of one H100 SXM (NVIDIA's data sheet, dense rates)
-HBM_BYTES_PER_S = 3.35e12        # HBM3
-F32_OPS_PER_S = 67e12            # fp32, outside the tensor cores
-BF16_OPS_PER_S = 989e12          # bf16 / fp16 on the tensor cores
+#: published peaks of one H100 SXM (NVIDIA's data sheet, dense rates):
+#: the port's h100 capability row (`apex1_tpu_torch/core/capability.py`),
+#: read where the package sits beside this script (main refuses to run
+#: where it does not)
+if os.path.isdir(os.path.join(HERE, "apex1_tpu_torch")):
+    sys.path.insert(0, HERE)
+    from apex1_tpu_torch.core.capability import get_capability as _row
+    HBM_BYTES_PER_S = _row("h100").hbm_gbps * 1e9          # HBM3
+    F32_OPS_PER_S = _row("h100").fp32_tflops * 1e12        # CUDA cores
+    BF16_OPS_PER_S = _row("h100").bf16_tflops * 1e12       # tensor cores
 SEED = 1234
 #: GPT-2 124M training shapes: B x S tokens, hidden, heads, vocab and
 #: padded vocab
@@ -6163,26 +6169,50 @@ L3D_1F1B_LEAF = 2.0 ** -8
 L3D_MOE = dict(moe_every=1, num_experts=8, moe_top_k=2)
 
 
+def l3d_model(level: str, depth: int, moe: bool = False):
+    """The bench's llama_3d `LlamaConfig` at ``depth`` layers and
+    ``level``."""
+    from apex1_tpu_torch import LlamaConfig, get_policy
+    return LlamaConfig(**LLAMA_08B, max_seq_len=L3D_S, num_layers=depth,
+                       remat=True, policy=get_policy(level),
+                       **(L3D_MOE if moe else {}))
+
+
+def l3d_planned(level: str, depth: int):
+    """The bench's llama_3d layout as the JAX bench chooses it
+    (`bench.py:496-526`): ``ModelShape.from_llama`` of the model at
+    global batch `L3D_M`, `planner.make_plan` at one device for the
+    detected card without ZeRO, `planner.llama3d_config_from_plan`.
+    Returns (plan, cfg)."""
+    from apex1_tpu_torch import planner
+    from apex1_tpu_torch.core.capability import detect_generation
+    mcfg = l3d_model(level, depth)
+    shape = planner.ModelShape.from_llama(mcfg, global_batch=L3D_M,
+                                          name="llama_3d")
+    plan = planner.make_plan(shape, 1, generation=detect_generation(),
+                             allow_zero=False)
+    return plan, planner.llama3d_config_from_plan(plan, mcfg,
+                                                  learning_rate=1e-4)
+
+
 def make_llama_3d(torch, level: str, depth: int, *, schedule="scan",
                   num_chunks: int = 1, moe: bool = False, params=None,
-                  seed: int = SEED):
+                  seed: int = SEED, cfg=None):
     """The bench's llama_3d config at ``depth`` layers and ``level``
-    (`Llama3DConfig` at the one-card layout) on `parallel_state`'s
-    one-rank mesh, its train step and state from the global ``params``
-    (or `init_params(cfg, seed)`: the JAX package's numpy draws), and
-    the bench's batch: tokens (M, S, 1) of
+    (`Llama3DConfig` at the one-card layout, or ``cfg``) on
+    `parallel_state`'s one-rank mesh, its train step and state from the
+    global ``params`` (or `init_params(cfg, seed)`: the JAX package's
+    numpy draws), and the bench's batch: tokens (M, S, 1) of
     ``np.random.default_rng(seed)``, labels the tokens rolled by one
     along the sequence. Returns (cfg, step, state, (tokens, labels))."""
     import numpy as np
-    from apex1_tpu_torch import LlamaConfig, get_policy
     from apex1_tpu_torch.models import llama_3d as L3
-    mcfg = LlamaConfig(**LLAMA_08B, max_seq_len=L3D_S, num_layers=depth,
-                       remat=True, policy=get_policy(level),
-                       **(L3D_MOE if moe else {}))
-    cfg = L3.Llama3DConfig(model=mcfg, num_microbatches=L3D_M,
-                           microbatch_size=1, schedule=schedule,
-                           num_chunks=num_chunks, moe=moe,
-                           learning_rate=1e-4)
+    if cfg is None:
+        cfg = L3.Llama3DConfig(model=l3d_model(level, depth, moe),
+                               num_microbatches=L3D_M, microbatch_size=1,
+                               schedule=schedule, num_chunks=num_chunks,
+                               moe=moe, learning_rate=1e-4)
+    mcfg = cfg.model
     step, state, _ = L3.make_train_step(cfg, params=params, device="cuda",
                                         seed=seed)
     tokens = np.random.default_rng(seed).integers(
@@ -6249,10 +6279,20 @@ def run_llama_3d(torch, ops, card, launches):
     (`l3d_leaf_errs`; the scan's grads held on the host), then
     L3D_1F1B_STEPS steps with their launches, wall and peak memory beside
     the scan's. Adds both schedules' launches to ``launches``."""
+    import dataclasses
+    from apex1_tpu_torch.models import llama_3d as L3
     out = {}
+    plan, cfg = l3d_planned("O2", L3D_LAYERS)
+    hand = L3.Llama3DConfig(model=cfg.model, num_microbatches=L3D_M,
+                            microbatch_size=1, learning_rate=1e-4)
+    if cfg != hand:
+        return out, (f"train-llama-3d: the planner picked "
+                     f"{dataclasses.asdict(cfg)}, not the one-card hand "
+                     f"layout {dataclasses.asdict(hand)}")
     ops.reset_launches()
     t0 = time.perf_counter()
-    cfg, step, state, batch = make_llama_3d(torch, "O2", L3D_LAYERS)
+    cfg, step, state, batch = make_llama_3d(torch, "O2", L3D_LAYERS,
+                                            cfg=cfg)
     init_s = time.perf_counter() - t0
     m = cfg.model
     n_tok = L3D_M * L3D_S
@@ -6294,6 +6334,27 @@ def run_llama_3d(torch, ops, card, launches):
           f" ms a step in a {prof['step_wall_ms']:.2f} ms profiled step "
           f"(busy {prof['device_busy']:.3f}), peak memory {peak:.2f} GiB; "
           f"largest kernels a step: {top} [{card}]")
+    pr, mem = plan["predicted"], plan["memory"]
+    dev_ms = prof["device_ms_per_step"]
+    out["scan"]["planned"] = dict(
+        generation=plan["generation"], mesh=plan["mesh"],
+        schedule=plan["schedule"], step_ms=pr["step_ms"],
+        calibrated_step_ms=pr["calibrated_step_ms"], bound=pr["bound"],
+        mfu=pr["mfu"], calibration=pr["calibration"]["source"],
+        hbm_gib=mem["total"], n_enumerated=plan["search"]["n_enumerated"],
+        wall_ratio=pr["calibrated_step_ms"] / med,
+        device_ratio=pr["calibrated_step_ms"] / dev_ms,
+        memory_ratio=mem["total"] / peak)
+    print(f"phase train-llama-3d: planned by make_plan ({plan['generation']}"
+          f", {plan['search']['n_enumerated']} layout enumerated, the hand "
+          f"layout): predicted {pr['calibrated_step_ms']:.3f} ms a step "
+          f"(analytic {pr['step_ms']:.3f}, bound {pr['bound']}, mfu "
+          f"{pr['mfu']:.3f}, {pr['calibration']['source']}), {mem['total']:.2f}"
+          f" GiB (weights {mem['weights']:.2f}, grads {mem['grads']:.2f}, opt"
+          f" {mem['opt']:.2f}, acts {mem['acts']:.2f}); measured wall "
+          f"{med:.2f} ms (predicted/measured {pr['calibrated_step_ms'] / med:.4f})"
+          f", device {dev_ms:.3f} ms ({pr['calibrated_step_ms'] / dev_ms:.4f}),"
+          f" peak {peak:.2f} GiB ({mem['total'] / peak:.4f}) [{card}]")
     losses = [r["loss"] for r in rows]
     if not all(math.isfinite(v) for v in losses):
         return out, f"train-llama-3d: a loss is not finite: {losses}"
@@ -8449,10 +8510,9 @@ def run_train_sentinel(torch, ops, card, launches):
 
 def l3d_plan(cfg, num_chunks: int) -> dict:
     """The ``apex1-plan-v1`` document of the one-card llama_3d layout at
-    ``num_chunks``: `resilience.reshard.plan_for_layout` of its stated
-    layout, the document the llama_3d example banks."""
-    from apex1_tpu_torch.planner import Layout, ModelShape
-    from apex1_tpu_torch.resilience.reshard import plan_for_layout
+    ``num_chunks``: `planner.plan_for_layout` of its stated layout, the
+    document the llama_3d example banks."""
+    from apex1_tpu_torch.planner import Layout, ModelShape, plan_for_layout
     shape = ModelShape.from_llama(
         cfg.model, global_batch=cfg.num_microbatches * cfg.microbatch_size,
         name="llama_3d")
@@ -9251,6 +9311,167 @@ def serve_example_launches(L: int, Ld: int, N: int, B: int, K: int,
             "flash_fwd": (8 + (B - 1)) * L + Ld}
 
 
+# ---- the planner's pricing and search, elastic re-planning ---------------
+
+#: the example's tiny model under ``--plan auto`` at one device: 2
+#: layers, 8 microbatches (its default 4 x the flags' dp 2), 2 steps
+PLAN_EX = ["--plan", "auto", "--layers", "2", "--steps", "2",
+           "--microbatches", "4"]
+
+
+def run_planner(torch, ops, card, launches):
+    """planner: the planner CLI's ``--smoke`` on the card (the generation
+    detected from the device name; the tiny plan re-planned byte for
+    byte, the banked gpt2 and llama_longctx prices, ``examples/llama_3d
+    --plan auto`` 2 steps through the kernels, launches exact); plans
+    for `BANKED_SHAPES` llama8b at 8 and 16 devices and gpt2 at 1
+    (arithmetic only), each re-planned byte for byte; the example's
+    ``--plan PATH`` replay of the plan its ``--plan auto`` run banked:
+    the same plan and the same losses bit for bit; the one-step peak of
+    the bench llama_3d plan at `L3D_PAR_DEPTH` layers
+    (`planner.memory.step_memory_analysis`, in a one-rank NCCL group)
+    beside its predicted total (train-llama-3d holds the full depth's). Adds the example
+    runs' launches to ``launches``."""
+    import shutil
+    import tempfile
+    from apex1_tpu_torch import planner
+    from apex1_tpu_torch.core.capability import default_generation
+    from apex1_tpu_torch.examples import llama_3d
+    from apex1_tpu_torch.planner.__main__ import main as planner_main
+    from apex1_tpu_torch.planner.memory import step_memory_analysis
+    out = {}
+    gen = default_generation()
+    want = scaled(llama_step_launches(2, 8), 2)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    code = planner_main(["--smoke"])
+    torch.cuda.synchronize()
+    got = nonzero(ops.launch_counts())
+    add_launches(launches, got)
+    out["smoke"] = dict(code=code, wall_s=time.perf_counter() - t0,
+                        launches=got)
+    print(f"phase planner: `python -m apex1_tpu_torch.planner --smoke` on "
+          f"the card ({gen}) exit {code} in {out['smoke']['wall_s']:.2f} s;"
+          f" launches {got} expected {want} [{card}]")
+    if code != 0 or not launches_ok(got, want):
+        return out, (f"planner: the CLI smoke exited {code}, launched "
+                     f"{got}, expected {want}")
+    for name, n in (("llama8b", 8), ("llama8b", 16), ("gpt2", 1)):
+        t0 = time.perf_counter()
+        a = planner.plan_json(planner.make_plan(planner.BANKED_SHAPES[name],
+                                                n))
+        plan_s = time.perf_counter() - t0
+        b = planner.plan_json(planner.make_plan(planner.BANKED_SHAPES[name],
+                                                n))
+        p = json.loads(a)
+        pr = p["predicted"]
+        out[f"{name}_{n}"] = dict(
+            mesh=p["mesh"], schedule=p["schedule"], zero=p["zero"]["enabled"],
+            sp=p["kernel_flags"]["sp_boundary"],
+            step_ms=pr["calibrated_step_ms"], bound=pr["bound"],
+            mfu=pr["mfu"], hbm_gib=p["memory"]["total"],
+            n_enumerated=p["search"]["n_enumerated"],
+            n_hbm_rejected=p["search"]["n_hbm_rejected"], same=a == b,
+            plan_s=plan_s)
+        print(f"phase planner: {name} on {n} device(s) ({p['generation']}): "
+              f"{p['search']['n_enumerated']} legal, "
+              f"{p['search']['n_hbm_rejected']} over memory; pick "
+              f"{p['search']['ranked_top'][0]['mesh']}, "
+              f"{pr['calibrated_step_ms']:.3f} ms a step "
+              f"({pr['calibration']['source']}), bound {pr['bound']}, mfu "
+              f"{pr['mfu']:.3f}, {p['memory']['total']:.2f} of "
+              f"{p['memory']['budget']:.2f} GiB; searched in {plan_s:.3f} s;"
+              f" re-plan byte for byte {a == b} [{card}]")
+        if a != b or p["generation"] != gen:
+            return out, (f"planner: {name} on {n} devices re-planned "
+                         f"differently or priced at {p['generation']}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_plan_")
+    try:
+        ops.reset_launches()
+        auto = llama_3d.main(PLAN_EX)
+        path = planner.save_plan(auto["plan"], os.path.join(tmp, "plan.json"))
+        replay = llama_3d.main(PLAN_EX[:1] + [path] + PLAN_EX[2:])
+        torch.cuda.synchronize()
+        got = nonzero(ops.launch_counts())
+        add_launches(launches, got)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    same = (replay["losses"] == auto["losses"] and planner.plan_json(
+        replay["plan"]) == planner.plan_json(auto["plan"]))
+    out["replay"] = dict(auto=auto["losses"], replay=replay["losses"],
+                         same=same, launches=got)
+    print(f"phase planner: llama_3d {' '.join(PLAN_EX)} losses "
+          f"{auto['losses']}; --plan PATH of its banked plan: losses "
+          f"{replay['losses']}, plan and losses bit for bit {same}; "
+          f"launches {got} expected {scaled(want, 2)} [{card}]")
+    if not (same and launches_ok(got, scaled(want, 2))):
+        return out, "planner: the --plan PATH replay is not --plan auto's"
+    plan, cfg = l3d_planned("O2", L3D_PAR_DEPTH)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    nccl_dir = start_nccl(torch)
+    try:
+        mem = step_memory_analysis(cfg, device="cuda", seed=SEED)
+    finally:
+        stop_nccl(nccl_dir)
+    torch.cuda.empty_cache()
+    out["llama_3d_memory"] = dict(
+        predicted_gib=plan["memory"]["total"],
+        peak_gib=mem["peak_bytes"] / 2 ** 30,
+        state_gib=mem["state_bytes"] / 2 ** 30, loss=mem["loss"],
+        wall_s=time.perf_counter() - t0)
+    m = out["llama_3d_memory"]
+    print(f"phase planner: the bench's llama_3d plan at {L3D_PAR_DEPTH} "
+          f"layers, one step (step_memory_analysis): peak {m['peak_gib']:.2f} GiB, the train "
+          f"state {m['state_gib']:.2f} GiB, predicted {m['predicted_gib']:.2f}"
+          f" GiB (predicted/measured {m['predicted_gib'] / m['peak_gib']:.4f}"
+          f"), loss {m['loss']:.6f}, {m['wall_s']:.1f} s [{card}]")
+    if not math.isfinite(m["loss"]):
+        return out, f"planner: the llama_3d step's loss is {m['loss']}"
+    return out, None
+
+
+def run_elastic_drill(torch, ops, card, launches):
+    """elastic-drill: `resilience.elastic.drill(2, 1)`: the drill's tiny
+    llama_3d (4 layers, hidden 64, O2) trained on 2 gloo ranks of the CPU
+    and killed after a seed-keyed step, then re-planned onto one device
+    and resumed in a fresh process on the card, beside its control: the
+    resumed losses and final params equal the control's bit for bit,
+    leaves restacked, the episode rebuilt from the five spine events.
+    Adds the resumed and control steps' launches to ``launches``."""
+    from apex1_tpu_torch.resilience import elastic
+    t0 = time.perf_counter()
+    res = elastic.drill(2, 1, device="cuda")
+    wall = time.perf_counter() - t0
+    steps = 2 * (6 - res["kill_step"])
+    want = scaled(llama_step_launches(4, 8), steps)
+    got = res["launches"]
+    add_launches(launches, got)
+    out = dict(wall_s=wall, kill_step=res["kill_step"],
+               old_mesh=res["old_mesh"], new_mesh=res["new_mesh"],
+               losses=res["losses"], control=res["losses_control"],
+               n_restacked=res["n_restacked"], n_leaves=res["n_leaves"],
+               events=res["events"], replan=res["replan_event"],
+               device=res["device"], launches=got,
+               seconds=res["seconds"])
+    print(f"phase elastic-drill: {res['old_mesh']} (2 gloo ranks) killed "
+          f"after step {res['kill_step']} -> {res['new_mesh']} on "
+          f"{res['device']} (priced at {res['replan_event']['generation']},"
+          f" {res['replan_event']['generation_source']}): "
+          f"{res['n_restacked']} of {res['n_leaves']} leaves restacked, "
+          f"resumed losses {res['losses']} equal the control's bit for bit"
+          f" {res['losses'] == res['losses_control']}; events "
+          f"{res['events']}; launches {got} expected {want}; {wall:.1f} s "
+          f"(the gloo leg {res['seconds']['train_leg']:.1f}, the card's "
+          f"{res['seconds']['resume_leg']:.1f}) [{card}]")
+    if not (res["device"] == "cuda" and res["n_restacked"] > 0
+            and res["losses"] == res["losses_control"]
+            and res["events"] == sorted(elastic.EPISODE_EVENTS)
+            and launches_ok(got, want)):
+        return out, f"elastic-drill: {out}"
+    return out, None
+
+
 def run_serve_example(torch, ops, card, launches):
     """serve-example: serving_llama at its 1B config on the card (16
     layers, hidden 2048, 32 / 4 heads, ffn 5632, vocab 32000, O2; B 2,
@@ -9366,11 +9587,13 @@ def main() -> int:
                 "train-sentinel": run_train_sentinel,
                 "examples": run_examples,
                 "examples-encdec": run_examples_encdec,
-                "serve-example": run_serve_example}
+                "serve-example": run_serve_example,
+                "planner": run_planner, "elastic-drill": run_elastic_drill}
         grouped = {"train-fsdp": run_fsdp, "train-zero": run_zero,
                    "train-bert-lamb": run_bert_lamb,
                    "spatial-bottleneck": run_spatial,
                    "llama-3d-resume": run_llama_3d_resume,
+                   "train-llama-3d": run_llama_3d,
                    "examples-parallel": run_examples_parallel}
         errs = []
         for phase in ([a for a in sys.argv[1:] if a in {**only, **grouped}]
@@ -9874,10 +10097,18 @@ def main() -> int:
         if err:
             return fail(err)
         stamp(phase)
+    # 46-47. the planner's pricing and search on the card, and the elastic
+    # drill re-planning 2 gloo ranks onto the card
+    for phase, fn in (("planner", run_planner),
+                      ("elastic-drill", run_elastic_drill)):
+        ex_out[phase], err = fn(torch, ops, card, main_launches)
+        if err:
+            return fail(err)
+        stamp(phase)
     print(f"phase times: { {k: round(v, 1) for k, v in phase_s.items()} } "
           f"s wall [{card}]")
 
-    # 47. the kernels line, the card, the last line. launches: the main
+    # 48. the kernels line, the card, the last line. launches: the main
     # paths' runs (engine, the train phases, dpo, generate, train-llama,
     # serve-llama and its generate, the BERT phases, train-gpt2-dropout,
     # train-t5, mha, train-llama-longctx, decode, decode-int8, serve-lora,
@@ -9890,7 +10121,8 @@ def main() -> int:
     # examples' gpt2_amp and imagenet_amp runs through the prefetcher,
     # examples-parallel's llama_distributed, gpt2_pp_tied and two
     # llama_3d runs, examples-encdec's t5_seq2seq, serve-example's
-    # serving_llama)
+    # serving_llama, planner's three llama_3d runs, elastic-drill's
+    # resumed and control steps)
     sources = {"layer_norm_fwd": ("apex1_tpu_torch/csrc/layer_norm.cu",
                                   "apex1_tpu/ops/layer_norm.py:110"),
                "paged_attend": ("apex1_tpu_torch/csrc/paged_attend.cu",

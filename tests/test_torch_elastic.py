@@ -14,8 +14,10 @@ JAX package, on the CPU.
   and layout-change refusals;
 - `elastic_resume` at the banked device count: a plain resume with the
   JAX package's ``elastic.detect`` / ``elastic.resume`` events; at
-  another count `NotImplementedError` naming ROADMAP.md queue A item 11
-  (the planner), as `drill`;
+  another count a re-plan by the port's planner (the JAX plan's "v5e"
+  is no row of the port's table: priced at the detected card, h100
+  here) and a reshard; `drill` runs (its acceptance run:
+  tests/test_torch_elastic_replan.py);
 - `shrink_schedule` equal to JAX's;
 - the ZeRO repack at gloo (`parallel.launch`, bodies in
   tests/torch_dist_ranks.py): `distributed_fused_adam` saved at world 4
@@ -272,13 +274,26 @@ class TestElasticResume:
                                             "elastic.resume"]
         assert got == want
 
-    def test_other_device_count_names_the_planner_item(self, tmp_path):
-        _j, pstate, _js, _ps = TestReshardCheckpoint()._both(tmp_path)
-        with pytest.raises(NotImplementedError, match="item 11"):
-            elastic_resume(tmp_path / "p", n_devices=2,
-                           make_template=lambda p: pstate)
-        with pytest.raises(NotImplementedError, match="item 11"):
-            elastic.drill(8, 4)
+    def test_other_device_count_names_the_planner_item(self, tmp_path,
+                                                        monkeypatch):
+        """Another device count re-plans with the planner (the item this
+        test once named) and reshards; the drill runs."""
+        _j, pstate, _js, psrc = TestReshardCheckpoint()._both(tmp_path)
+        monkeypatch.setenv("APEX1_OBS_DIR", str(tmp_path / "obs"))
+        dec = elastic_resume(tmp_path / "p", n_devices=2,
+                             make_template=lambda p: pstate)
+        monkeypatch.delenv("APEX1_OBS_DIR")
+        assert dec.resharded and dec.source == psrc
+        assert dec.plan["n_devices"] == 2 and dec.plan["generation"] == \
+            "h100"
+        assert dec.report["conserved"] and dec.report["n_restacked"] > 0
+        assert read_plan(dec.path) == dec.plan
+        events = _events(tmp_path / "obs")
+        assert [e["name"] for e in events] == list(elastic.EPISODE_EVENTS)
+        assert "'v5e'" in events[1]["generation_source"]
+        # the drill runs (refusing only a multi-rank leg on a card)
+        with pytest.raises(ValueError, match="gloo ranks of the CPU"):
+            elastic.drill(8, 4, device="cuda")
 
 
 def test_shrink_schedule_equals_jax():

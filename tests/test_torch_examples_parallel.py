@@ -17,9 +17,9 @@ the JAX package on the CPU.
   2e-2 of JAX's `models.llama_3d` step on the script's batches; its
   SIGTERM drill (exit 75, then ``--resume auto`` giving the
   uninterrupted run's losses bit for bit); ``--tp 3`` exits 2 with
-  ``ILLEGAL LAYOUT`` naming tp-heads; ``--plan auto`` and a changed
-  device count under ``--elastic`` raise naming ROADMAP.md queue A
-  item 11;
+  ``ILLEGAL LAYOUT`` naming tp-heads; ``--plan auto`` plans one rank's
+  layout and trains on it (its rules checked against the model's); a
+  changed device count under ``--elastic`` re-plans and reshards;
 - `planner.check_layout` returns JAX's violations rule for rule (and
   message for message) over `enumerate_layouts`' cases of every banked
   shape and a list of illegal layouts; `enumerate_layouts` yields JAX's
@@ -271,11 +271,18 @@ def test_llama_distributed_ranks_match_jax_gspmd(world):
 
 
 L3D = ["--dp", "1", "--pp", "1", "--tp", "1", "--device", "cpu"]
+#: the uninterrupted 6-step run both llama_3d tests below read
+L3D_FULL = L3D + ["--steps", "6", "--ckpt-every", "2"]
 
 
-def test_llama_3d_o2_trajectory_matches_jax():
+@pytest.fixture(scope="module")
+def l3d_full():
+    return llama_3d.main(L3D_FULL)
+
+
+def test_llama_3d_o2_trajectory_matches_jax(l3d_full):
     steps = 5
-    got = llama_3d.main(L3D + ["--steps", str(steps)])
+    got = dict(l3d_full, losses=l3d_full["losses"][:steps])
     mcfg = JaxLlamaConfig.tiny(num_layers=4, max_seq_len=64, vocab_size=256,
                                num_heads=4, num_kv_heads=2, hidden_size=64,
                                ffn_size=128, policy=jax_get_policy("O2"))
@@ -299,10 +306,10 @@ def test_llama_3d_o2_trajectory_matches_jax():
                                    "tp": 1}
 
 
-def test_llama_3d_sigterm_drill_resumes_bit_for_bit(tmp_path, monkeypatch):
-    argv = L3D + ["--steps", "6", "--ckpt-every", "2"]
-    full = llama_3d.main(argv)
-    drill = argv + ["--ckpt-dir", str(tmp_path / "ck")]
+def test_llama_3d_sigterm_drill_resumes_bit_for_bit(tmp_path, monkeypatch,
+                                                     capsys, l3d_full):
+    full = l3d_full
+    drill = L3D_FULL + ["--ckpt-dir", str(tmp_path / "ck")]
     monkeypatch.setenv("APEX1_CHAOS_SIGTERM_STEP", "3")
     with pytest.raises(SystemExit) as exit_:
         llama_3d.main(drill)
@@ -312,13 +319,19 @@ def test_llama_3d_sigterm_drill_resumes_bit_for_bit(tmp_path, monkeypatch):
     assert resumed["start"] == 3
     assert resumed["losses"] == full["losses"][3:]
     # --elastic on the same device count resumes plainly from the
-    # banked plan; another count needs the planner
+    # banked plan; another count re-plans and reshards (then this one
+    # rank cannot run the two-device layout)
     more = llama_3d.main(drill[:-4] + ["--steps", "8", "--ckpt-every", "2",
                                        "--ckpt-dir", str(tmp_path / "ck"),
                                        "--elastic"])
     assert more["start"] == 6 and len(more["losses"]) == 2
-    with pytest.raises(NotImplementedError, match="queue A item 11"):
+    capsys.readouterr()
+    with pytest.raises(SystemExit, match="spans 2 devices, but 1 ranks"):
         llama_3d.main(drill + ["--elastic", "--devices", "2"])
+    assert "re-planned and resharded" in capsys.readouterr().out
+    from apex1_tpu_torch.resilience import read_plan
+    (moved,) = os.listdir(tmp_path / "ck" / "elastic")
+    assert read_plan(tmp_path / "ck" / "elastic" / moved)["n_devices"] == 2
 
 
 def test_llama_3d_illegal_layout_exits_2_naming_the_rule(capsys):
@@ -329,9 +342,16 @@ def test_llama_3d_illegal_layout_exits_2_naming_the_rule(capsys):
     assert "ILLEGAL LAYOUT" in err and "[tp-heads]" in err
 
 
-def test_llama_3d_plan_needs_the_planner():
-    with pytest.raises(NotImplementedError, match="queue A item 11"):
-        llama_3d.main(L3D + ["--plan", "auto"])
+def test_llama_3d_plan_needs_the_planner(capsys):
+    """--plan auto: the planner searches the world size's layouts, and
+    the pick's partition rules are checked against the model's."""
+    got = llama_3d.main(L3D + ["--plan", "auto", "--steps", "2"])
+    assert got["plan_verified"] and len(got["losses"]) == 2
+    assert np.isfinite(got["losses"]).all()
+    assert got["plan"]["n_devices"] == 1 and got["plan"]["mesh"] == {
+        "dp": 1, "pp": 1, "cp": 1, "ep": 1, "tp": 1}
+    out = capsys.readouterr().out
+    assert "plan: mesh dp=1 pp=1" in out and "plan verified" in out
 
 
 ILLEGAL = [
@@ -397,6 +417,11 @@ def test_check_layout_matches_jax_on_moe_and_example_shapes():
 NEW_MODULES = ["apex1_tpu_torch.planner", "apex1_tpu_torch.planner.layouts",
                "apex1_tpu_torch.models.near_tie",
                "apex1_tpu_torch.examples._common"] + [
+    f"apex1_tpu_torch.{m}" for m in (
+        "core.capability", "perf_model", "obs.calibrate", "planner.memory",
+        "planner.cost", "planner.search", "planner.emit",
+        "planner.__main__", "resilience.reshard",
+        "resilience.elastic")] + [
     f"apex1_tpu_torch.examples.{m}" for m in (
         "llama_distributed", "gpt2_pp_tied", "llama_3d", "t5_seq2seq",
         "serving_llama", "dcgan_amp", "rnnt_speech")]
