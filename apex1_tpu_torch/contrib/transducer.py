@@ -6,8 +6,8 @@
   (B, T, U, H), with an optional ReLU and dropout. The dropout mask is
   drawn from a ``torch.Generator`` (an int seed or a generator), not
   from ``jax.random.bernoulli``: the port cannot draw JAX's mask, so its
-  keep rate and 1 / (1 - p) scale are what it shares with JAX
-  (ROADMAP.md, differences by design). Packed varlen output is not
+  keep rate and 1 / (1 - p) scale are what it shares with JAX (a
+  difference by design). Packed varlen output is not
   supported, as in the JAX package: lengths are honoured in the loss.
 - `transducer_loss`: the forward α recursion
   α[t, u] = logaddexp(α[t-1, u] + blank[t-1, u], α[t, u-1] + emit[t, u-1])

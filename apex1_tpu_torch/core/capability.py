@@ -45,6 +45,11 @@ class GpuCapability:
     hbm_reserve_bytes: int     # held back from hbm_bytes (see module doc)
     features: tuple = ()       # the `FEATURES` the card has
     platform: str = "gpu"      # the tag of its banked measurements
+    regs_sm: int = 65536       # 32-bit registers an SM
+    regs_thread: int = 255     # the most registers one thread may use
+    threads_block: int = 1024  # the most threads a block
+    threads_sm: int = 2048     # resident threads an SM
+    blocks_sm: int = 32        # resident blocks an SM
 
 
 #: bytes of ``hbm_bytes`` the planner may not plan into on an H100: 80
@@ -59,11 +64,17 @@ _TABLE = {
     # NVIDIA H100 SXM5 data sheet: 132 SMs, 228 KiB shared memory an SM
     # (227 KiB to one block), 80 GiB HBM3 at 3.35 TB/s, 989 TFLOP/s dense
     # bf16/fp16, 67 TFLOP/s fp32, fp8 on the tensor cores, NVLink 4 at
-    # 900 GB/s both directions together: 450 GB/s a direction to a peer
+    # 900 GB/s both directions together: 450 GB/s a direction to a peer;
+    # the register file and thread limits of compute capability 9.0 (the
+    # data sheet and the CUDA programming guide's table for sm_90): 65,536
+    # 32-bit registers an SM, 255 a thread, 1,024 threads a block, 2,048
+    # resident threads and 32 resident blocks an SM
     "h100": GpuCapability(
         "h100", "NVIDIA H100 80GB HBM3", (9, 0), 132, 228 * 1024,
         227 * 1024, 80 * 2**30, 3350.0, 989.0, 67.0, 450.0,
-        H100_HBM_RESERVE, features=("fp8",)),
+        H100_HBM_RESERVE, features=("fp8",), regs_sm=65536,
+        regs_thread=255, threads_block=1024, threads_sm=2048,
+        blocks_sm=32),
 }
 
 
@@ -134,6 +145,15 @@ def smem_budget(generation: str | None = None) -> int:
     planner sizes against (the role of the JAX package's
     ``vmem_budget``)."""
     return get_capability(generation).smem_block_bytes
+
+
+def regs_budget(generation: str | None = None) -> int:
+    """32-bit registers one block may hold: the SM's register file (a
+    block of ``threads`` threads at ``r`` registers each needs ``threads
+    * r`` of them to launch). `vmem_model`'s register checks price
+    against it, as its shared-memory checks price against
+    `smem_budget`."""
+    return get_capability(generation).regs_sm
 
 
 def link_gbps(generation: str | None = None) -> float:

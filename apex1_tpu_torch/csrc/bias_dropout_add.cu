@@ -173,11 +173,14 @@ static unsigned grid_for(long long items) {
 template <typename T, typename R>
 static int fwd_typed(const BdaArgs& a, int vec, cudaStream_t st) {
   constexpr int N = 16 / sizeof(T);
-  if (vec)
+  if (vec) {
+    note_launch(bda_fwd_kernel<T, R, N>, 0, kThreads);
     bda_fwd_kernel<T, R, N><<<grid_for(a.rows * (a.h / N)), kThreads, 0,
                               st>>>(a);
-  else
+  } else {
+    note_launch(bda_fwd_kernel<T, R, 1>, 0, kThreads);
     bda_fwd_kernel<T, R, 1><<<grid_for(a.rows * a.h), kThreads, 0, st>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -200,21 +203,28 @@ template <typename T>
 static int bwd_typed(const BdaArgs& a, int vec, int groups, cudaStream_t st) {
   constexpr int N = 16 / sizeof(T);
   if (a.dbias == nullptr) {
-    if (vec)
+    if (vec) {
+      note_launch(bda_bwd_kernel<T, N>, 0, kThreads);
       bda_bwd_kernel<T, N><<<grid_for(a.rows * (a.h / N)), kThreads, 0,
                              st>>>(a);
-    else
+    } else {
+      note_launch(bda_bwd_kernel<T, 1>, 0, kThreads);
       bda_bwd_kernel<T, 1><<<grid_for(a.rows * a.h), kThreads, 0, st>>>(a);
+    }
     return static_cast<int>(cudaGetLastError());
   }
   const size_t smem = static_cast<size_t>(a.h) * sizeof(float);
   if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  if (vec)
+  if (vec) {
+    note_launch(bda_bwd_rows_kernel<T, N>, smem, kThreads);
     bda_bwd_rows_kernel<T, N><<<groups, kThreads, smem, st>>>(a);
-  else
+  } else {
+    note_launch(bda_bwd_rows_kernel<T, 1>, smem, kThreads);
     bda_bwd_rows_kernel<T, 1><<<groups, kThreads, smem, st>>>(a);
+  }
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
+  note_launch(bda_dbias_kernel, 0, 256);
   bda_dbias_kernel<<<(a.h + 255) / 256, 256, 0, st>>>(a.part, a.dbias, groups,
                                                       a.h);
   return static_cast<int>(cudaGetLastError());

@@ -119,6 +119,7 @@ int launch_wg(const ChunkArgs& a, cudaStream_t st) {
     if (e != cudaSuccess) return static_cast<int>(e);
     attr_set = true;
   }
+  note_launch(kern, smem, 256);
   kern<<<n_tiles(a.M, a.N, 128, BN), 256, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -154,13 +155,29 @@ int launch_f32_tile(const ChunkArgs& a, cudaStream_t st) {
     if (e != cudaSuccess) return static_cast<int>(e);
     attr_set = true;
   }
+  note_launch(kern, G::SMEM, 256);
   kern<<<n_tiles(a.M, a.N, BM, BN), 256, G::SMEM, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch(const ChunkArgs& a, int dtype, cudaStream_t st) {
+// the tile as rows·1000 + columns: 0 takes tile_of's; else one of those
+// the library builds (bf16/fp16 128 x 128 or 128 x 256; fp32 128 x 128,
+// 128 x 64 or 64 x 64), or false
+bool pick_tile(int M, int N, int dtype, int tile, int& bm, int& bn) {
+  if (tile == 0) {
+    tile_of(M, N, dtype, bm, bn);
+    return true;
+  }
+  bm = tile / 1000;
+  bn = tile % 1000;
+  if (dtype != kF32) return bm == 128 && (bn == 128 || bn == 256);
+  return (bm == 128 && (bn == 128 || bn == 64)) || (bm == 64 && bn == 64);
+}
+
+int launch(const ChunkArgs& a, int dtype, int tile, cudaStream_t st) {
   int bm, bn;
-  tile_of(a.M, a.N, dtype, bm, bn);
+  if (!pick_tile(a.M, a.N, dtype, tile, bm, bn))
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (dtype) {
     case kF32:
       return bn == 128  ? launch_f32_tile<128, 128>(a, st)
@@ -181,15 +198,17 @@ int launch(const ChunkArgs& a, int dtype, cudaStream_t st) {
 
 // a (M, K), b (K, N) contiguous in `dtype`; acc (M, N) fp32 or null; c
 // (M, N) fp32, not aliasing acc. vec: K and N are multiples of 16 bytes of
-// elements and a, b 16-byte aligned.
+// elements and a, b 16-byte aligned. tile: bm·1000 + bn of a tile the
+// library builds, or 0 for tile_of's.
 extern "C" int apex1_chunk_matmul(const void* a, const void* b,
                                   const void* acc, void* c, int M, int N,
-                                  int K, int vec, int dtype, void* stream) {
+                                  int K, int vec, int dtype, int tile,
+                                  void* stream) {
   if (M <= 0 || N <= 0) return 0;
   if (K < 0) return static_cast<int>(cudaErrorInvalidValue);
   ChunkArgs args{a, b, static_cast<const float*>(acc),
                  static_cast<float*>(c), M, N, K, vec};
-  return launch(args, dtype, as_stream(stream));
+  return launch(args, dtype, tile, as_stream(stream));
 }
 
 // the output tile apex1_chunk_matmul launches for an M x N product in

@@ -55,6 +55,34 @@ __device__ __forceinline__ void let_next_start() {
   asm volatile("griddepcontrol.launch_dependents;");
 }
 
+// launch records: while recording is on (apex1_launch_record(1), in
+// launch_records.cu), every launch site notes its kernel's attributes as
+// cudaFuncGetAttributes reads them (static shared memory, registers a
+// thread, the most threads a block) beside the dynamic shared memory and
+// the threads a block it passes, so that the budget model
+// (apex1_tpu_torch/vmem_model.py) is held against what really launched.
+// Off (the default), a launch site tests one flag.
+struct LaunchRecord {
+  int static_smem, regs, max_threads, dyn_smem, threads, local_bytes;
+};
+constexpr int kMaxLaunchRecords = 64;
+inline bool g_launch_recording = false;
+inline int g_launch_count = 0;
+inline LaunchRecord g_launch_records[kMaxLaunchRecords];
+
+template <typename K>
+inline void note_launch(K* kern, size_t smem, int threads) {
+  if (!g_launch_recording || g_launch_count >= kMaxLaunchRecords) return;
+  cudaFuncAttributes fa{};
+  if (cudaFuncGetAttributes(&fa, reinterpret_cast<const void*>(kern)) !=
+      cudaSuccess)
+    return;
+  g_launch_records[g_launch_count++] = {
+      static_cast<int>(fa.sharedSizeBytes), fa.numRegs,
+      fa.maxThreadsPerBlock, static_cast<int>(smem), threads,
+      static_cast<int>(fa.localSizeBytes)};
+}
+
 template <typename... Params, typename... Args>
 cudaError_t launch_after_smem(void (*kern)(Params...), dim3 grid,
                               dim3 block, size_t smem, cudaStream_t st,
@@ -69,6 +97,7 @@ cudaError_t launch_after_smem(void (*kern)(Params...), dim3 grid,
   attr.val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
+  note_launch(kern, smem, static_cast<int>(block.x * block.y * block.z));
   return cudaLaunchKernelEx(&cfg, kern, args...);
 }
 

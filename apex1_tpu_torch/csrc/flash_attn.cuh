@@ -691,6 +691,7 @@ static int launch(int which, const FlashArgs& a, cudaStream_t st) {
       if (e != cudaSuccess) return static_cast<int>(e);
       attr_set[which] = true;
     }
+    note_launch(kern, smem, kThreads);
     kern<<<dim3(tiles, heads, which == kDbias ? a.Bb : a.B), kThreads, smem,
            st>>>(a);
     return static_cast<int>(cudaGetLastError());

@@ -1052,6 +1052,7 @@ static int launch_wg(int which, const FlashArgs& a, cudaStream_t st) {
     if (e != cudaSuccess) return static_cast<int>(e);
     attr_set[slot] = true;
   }
+  note_launch(kern, smem, G::NTHR);
   kern<<<grid, G::NTHR, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

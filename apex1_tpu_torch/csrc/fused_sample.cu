@@ -227,10 +227,13 @@ cudaError_t launch_rows(Args a, int rows, bool vec, cudaStream_t st) {
   for (int r0 = 0; r0 < rows; r0 += kMaxRows) {
     a.row0 = r0;
     const dim3 grid(a.splits, min(kMaxRows, rows - r0));
-    if (vec)
+    if (vec) {
+      note_launch(fused_sample_kernel<GREEDY, true>, 0, kThreads);
       fused_sample_kernel<GREEDY, true><<<grid, kThreads, 0, st>>>(a);
-    else
+    } else {
+      note_launch(fused_sample_kernel<GREEDY, false>, 0, kThreads);
       fused_sample_kernel<GREEDY, false><<<grid, kThreads, 0, st>>>(a);
+    }
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }

@@ -106,6 +106,7 @@ int launch_wg(const GluArgs& a, cudaStream_t st) {
     if (e != cudaSuccess) return static_cast<int>(e);
     attr_set = true;
   }
+  note_launch(kern, smem, 256);
   kern<<<n_tiles(a.T, a.F, BN), 256, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -147,26 +148,26 @@ int launch_f32(const GluArgs& a, cudaStream_t st) {
     if (e != cudaSuccess) return static_cast<int>(e);
     attr_set = true;
   }
+  note_launch(kern, G::SMEM, 256);
   kern<<<n_tiles(a.T, a.F, kBNF32), 256, G::SMEM, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int ACT>
-int launch_half(const GluArgs& a, cudaStream_t st) {
-  const int dtype = std::is_same<T, __half>::value ? kF16 : kBF16;
-  return tile_n(a.T, a.F, dtype) == 128 ? launch_wg<T, ACT, 128>(a, st)
-                                        : launch_wg<T, ACT, 64>(a, st);
+int launch_half(const GluArgs& a, int bn, cudaStream_t st) {
+  return bn == 128 ? launch_wg<T, ACT, 128>(a, st)
+                   : launch_wg<T, ACT, 64>(a, st);
 }
 
 template <int ACT>
-int launch(const GluArgs& a, int dtype, cudaStream_t st) {
+int launch(const GluArgs& a, int dtype, int bn, cudaStream_t st) {
   switch (dtype) {
     case kF32:
       return launch_f32<ACT>(a, st);
     case kBF16:
-      return launch_half<__nv_bfloat16, ACT>(a, st);
+      return launch_half<__nv_bfloat16, ACT>(a, bn, st);
     case kF16:
-      return launch_half<__half, ACT>(a, st);
+      return launch_half<__half, ACT>(a, bn, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -176,16 +177,19 @@ int launch(const GluArgs& a, int dtype, cudaStream_t st) {
 
 // x (T, H), wg and wu (H, F), out (T, F), contiguous in `dtype`; act 0 silu,
 // 1 tanh-gelu. vec: H and F are multiples of 16 bytes of elements and the
-// pointers 16-byte aligned.
+// pointers 16-byte aligned. tile: the output tile's columns, 64 or 128
+// (bf16/fp16; fp32 has 64 only), or 0 for tile_n's choice.
 extern "C" int apex1_glu_fwd(const void* x, const void* wg, const void* wu,
                              void* out, int T, int H, int F, int act, int vec,
-                             int dtype, void* stream) {
+                             int dtype, int tile, void* stream) {
   if (T <= 0 || F <= 0) return 0;
-  if (H <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int bn = tile != 0 ? tile : tile_n(T, F, dtype);
+  if (H <= 0 || (dtype == kF32 ? bn != kBNF32 : bn != 64 && bn != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
   GluArgs a{x, wg, wu, out, T, H, F, vec};
   cudaStream_t st = as_stream(stream);
-  if (act == kSilu) return launch<kSilu>(a, dtype, st);
-  if (act == kGelu) return launch<kGelu>(a, dtype, st);
+  if (act == kSilu) return launch<kSilu>(a, dtype, bn, st);
+  if (act == kGelu) return launch<kGelu>(a, dtype, bn, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -452,6 +452,7 @@ int launch_tile(I8Args& a, cudaStream_t st) {
     const int e = encode_maps(a, L::BM, BT);
     if (e != 0) return e;
   }
+  note_launch(kern, L::SMEM, L::NTHR);
   kern<<<tiles * a.splits, L::NTHR, L::SMEM, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -230,6 +230,7 @@ int launch_ln(const NormArgs& a, cudaStream_t st) {
       : vpl <= 12 ? layer_norm_fwd_kernel<T, G, 12>
       : vpl <= 16 ? layer_norm_fwd_kernel<T, G, 16>
                   : layer_norm_fwd_rows_kernel<T, G, true>;
+  note_launch(kern, 0, kRows * 32);
   kern<<<blocks, kRows * 32, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

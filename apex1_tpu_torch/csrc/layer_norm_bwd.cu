@@ -539,6 +539,7 @@ int launch_rows(BwdArgs& a, bool rms, int cap, cudaStream_t st) {
   const Plan pl = plan<T, G>(a.h, rms, aligned);
   a.groups = groups_for<T>(pl, a.rows, a.h, rms, cap);
   if (pl.kern != nullptr) {
+    note_launch(pl.kern, pl.smem, kWarps * 32);
     pl.kern<<<a.groups, kWarps * 32, pl.smem, st>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
@@ -555,6 +556,7 @@ int launch_rows(BwdArgs& a, bool rms, int cap, cudaStream_t st) {
     tile = vec ? ln_bwd_tile_kernel<T, G, false, true>
                : ln_bwd_tile_kernel<T, G, false, false>;
   }
+  note_launch(stats, 0, kStatThreads);
   stats<<<a.rows, kStatThreads, 0, st>>>(a);
   const int units = vec ? a.h / N : a.h;
   const dim3 grid((units + kTileThreads - 1) / kTileThreads, a.groups);

@@ -463,6 +463,7 @@ int launch(int which, const LxArgs& a, cudaStream_t st) {
     if (e != cudaSuccess) return static_cast<int>(e);
     attr_set[which] = true;
   }
+  note_launch(kern, smem, kThreads);
   kern<<<rows, kThreads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -765,6 +766,7 @@ int launch_tiles(void (*kern)(const Args), size_t smem, int M, int N,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const int tiles = ((M + kWBM - 1) / kWBM) * ((N + kWBN - 1) / kWBN);
+  note_launch(kern, smem, 256);
   kern<<<tiles, 256, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -779,6 +781,7 @@ int wide_scores(const WideArgs& a, bool grad, cudaStream_t st) {
   int err = launch_tiles(lxw_scores_kernel<T, false>, max_sz(G::SMEM, stage),
                          a.T, a.V, a, st);
   if (err) return err;
+  note_launch(lxw_merge_kernel, 0, 128);
   lxw_merge_kernel<<<(a.T + 127) / 128, 128, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

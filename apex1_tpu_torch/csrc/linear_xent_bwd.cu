@@ -197,6 +197,7 @@ int launch_wg(void (*bf16)(const Args), void (*f16)(const Args), int dtype,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const int tiles = ((M + 127) / 128) * ((N + kBN - 1) / kBN);
+  note_launch(kern, smem, 256);
   kern<<<tiles, 256, smem, as_stream(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -218,6 +218,7 @@ int launch_stats(const FwdArgs& a, cudaStream_t st) {
       lxent_wg_stats_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(P::SMEM));
   if (e != cudaSuccess) return static_cast<int>(e);
+  note_launch(lxent_wg_stats_kernel<T>, P::SMEM, 256);
   lxent_wg_stats_kernel<T>
       <<<((a.T + P::BM - 1) / P::BM) * a.nblk, 256, P::SMEM, st>>>(a);
   return static_cast<int>(cudaGetLastError());
@@ -265,6 +266,7 @@ extern "C" int apex1_lxent_wg_fwd(const void* x, const void* w,
   const int err = dtype == kBF16 ? launch_stats<__nv_bfloat16>(a, st)
                                  : launch_stats<__half>(a, st);
   if (err) return err;
+  note_launch(lxent_wg_fold_kernel, 0, 128);
   lxent_wg_fold_kernel<<<(T + 127) / 128, 128, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

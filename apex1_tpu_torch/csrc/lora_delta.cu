@@ -207,6 +207,7 @@ int launch(const void* h, const void* a, const void* b, const void* bt,
            void* coef, void* out, int N, int H, int V, int R, int rows,
            int hvec, int vec4, cudaStream_t st) {
   const int nr = N * R;
+  note_launch(lora_coef_kernel<T>, 0, 32 * kCoefWarps);
   lora_coef_kernel<T><<<(nr + kCoefWarps - 1) / kCoefWarps,
                         32 * kCoefWarps, 0, st>>>(
       static_cast<const T*>(h), static_cast<const float*>(a),

@@ -687,6 +687,7 @@ cudaError_t launch_core(PagedArgs a, int n, cudaStream_t st) {
   const cudaError_t e = set_smem(reinterpret_cast<const void*>(kern), smem);
   if (e != cudaSuccess) return e;
   const int tiles = (a.rows + RT - 1) / RT;
+  note_launch(kern, smem, kThreads);
   kern<<<dim3(n, a.hkv, a.splits * tiles), kThreads, smem, st>>>(a);
   return cudaGetLastError();
 }
@@ -701,6 +702,7 @@ cudaError_t launch_mma(PagedArgs a, int n, cudaStream_t st) {
                         : paged_mma_kernel<TQ, TKV, 128>;
   const cudaError_t e = set_smem(reinterpret_cast<const void*>(kern), smem);
   if (e != cudaSuccess) return e;
+  note_launch(kern, smem, 32 * warps);
   kern<<<dim3(n, a.hkv, a.splits * tiles), 32 * warps, smem, st>>>(a);
   return cudaGetLastError();
 }

@@ -128,10 +128,13 @@ int launch(const RopeArgs& a, int vec, cudaStream_t st) {
   // enough blocks to fill every SM several times; the loop covers the rest
   const long long want = (items + kThreads - 1) / kThreads;
   const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
-  if (vec)
+  if (vec) {
+    note_launch(rope_kernel<T, 4>, 0, kThreads);
     rope_kernel<T, 4><<<blocks, kThreads, 0, st>>>(a);
-  else
+  } else {
+    note_launch(rope_kernel<T, 1>, 0, kThreads);
     rope_kernel<T, 1><<<blocks, kThreads, 0, st>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

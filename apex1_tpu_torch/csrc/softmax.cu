@@ -279,6 +279,7 @@ static void launch_fwd(const void* x, const float* mask, void* y,
   if (sk % N == 0 && aligned16(x) && aligned16(y) && mask_ok)
     k = mvec ? reg_fwd<T, true>(vpl) : reg_fwd<T, false>(vpl);
   if (k == nullptr) k = softmax_fwd_streamed_kernel<T>;
+  note_launch(k, 0, 32 * kFwdRows);
   k<<<blocks, 32 * kFwdRows, 0, st>>>(
       static_cast<const T*>(x), mask, static_cast<T*>(y), rows, nh, sq, sk,
       scale, causal, ms[0], ms[1], ms[2], ms[3]);
@@ -289,14 +290,17 @@ static void launch_bwd(const void* y, const void* dy, void* dx,
                        long long rows, int sk, float scale, cudaStream_t st) {
   const unsigned blocks =
       static_cast<unsigned>((rows + kRowsPerBlock - 1) / kRowsPerBlock);
-  if (sk <= 32 * kItems)
+  if (sk <= 32 * kItems) {
+    note_launch(softmax_bwd_kernel<T, kItems>, 0, 32 * kRowsPerBlock);
     softmax_bwd_kernel<T, kItems><<<blocks, 32 * kRowsPerBlock, 0, st>>>(
         static_cast<const T*>(y), static_cast<const T*>(dy),
         static_cast<T*>(dx), rows, sk, scale);
-  else
+  } else {
+    note_launch(softmax_bwd_kernel<T, 0>, 0, 32 * kRowsPerBlock);
     softmax_bwd_kernel<T, 0><<<blocks, 32 * kRowsPerBlock, 0, st>>>(
         static_cast<const T*>(y), static_cast<const T*>(dy),
         static_cast<T*>(dx), rows, sk, scale);
+  }
 }
 
 // x, y: (b, nh, sq, sk) contiguous in `dtype`; mask: fp32 or null, read

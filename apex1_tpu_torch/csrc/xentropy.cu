@@ -325,10 +325,13 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T>
 static void launch(bool fwd, const XentArgs& a, cudaStream_t st) {
-  if (fwd)
+  if (fwd) {
+    note_launch(xent_fwd_kernel<T>, 0, kThreads);
     xent_fwd_kernel<T><<<a.rows, kThreads, 0, st>>>(a);
-  else
+  } else {
+    note_launch(xent_bwd_kernel<T>, 0, kThreads);
     xent_bwd_kernel<T><<<a.rows, kThreads, 0, st>>>(a);
+  }
 }
 
 static int dispatch(bool fwd, const XentArgs& a, int dtype, void* stream) {

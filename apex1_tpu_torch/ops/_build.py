@@ -16,6 +16,7 @@ of the package on a machine with no ``nvcc``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -84,15 +85,17 @@ SIGNATURES = {
     "apex1_lxent_wg_dw": [_P] * 3 + [_I] * 6 + [_P],
     "apex1_rope": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _F, _I, _I,
                    _P],
-    "apex1_glu_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "apex1_glu_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "apex1_glu_tile": [_I, _I, _I],
     "apex1_bda_fwd": [_P, _P, _P, _P, _L, _I, _U, _U, _F, _I, _I, _I, _P],
     "apex1_bda_bwd": [_P, _P, _P, _P, _L, _I, _I, _I, _U, _U, _F, _I, _I,
                       _P],
     "apex1_int8_mm": [_P] * 6 + [_I] * 8 + [_P],
     "apex1_lora_delta": [_P] * 6 + [_I] * 8 + [_P],
-    "apex1_chunk_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "apex1_chunk_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "apex1_chunk_matmul_tile": [_I, _I, _I],
+    "apex1_launch_record": [_I],
+    "apex1_launch_records": [_P, _I],
 }
 
 _LOCK = threading.Lock()
@@ -191,6 +194,33 @@ def build_log() -> str:
     """nvcc's output (with ptxas's register and spill report) from a
     build in this process; empty when the library was already built."""
     return _STATE["log"]
+
+
+#: the fields of a launch record (``csrc/common.cuh``'s LaunchRecord)
+RECORD_FIELDS = ("static_smem", "regs", "max_threads", "dyn_smem",
+                 "threads", "local_bytes")
+
+
+@contextlib.contextmanager
+def launch_records():
+    """Record every kernel launch inside the block: yields a list that
+    fills, on exit, with one dict a launch (`RECORD_FIELDS`: the
+    kernel's static shared memory, registers a thread and most threads
+    a block as ``cudaFuncGetAttributes`` reads them, and the dynamic
+    shared memory and threads a block its launch site passed), in
+    launch order. Needs the card."""
+    lib = library()
+    got: list = []
+    lib.apex1_launch_record(1)
+    try:
+        yield got
+    finally:
+        most = 64
+        buf = (ctypes.c_int * (6 * most))()
+        n = min(lib.apex1_launch_records(buf, most), most)
+        lib.apex1_launch_record(0)
+        got.extend(dict(zip(RECORD_FIELDS, buf[6 * i:6 * i + 6]))
+                   for i in range(n))
 
 
 def launch(name: str, *args) -> None:

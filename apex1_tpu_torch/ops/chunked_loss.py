@@ -16,10 +16,11 @@ logits (the port of ``apex1_tpu/ops/chunked_loss.py``).
   backward recomputes each chunk.
 
 Chunk geometry: ``chunk_v`` a multiple of 128 (``check_chunk_geometry``
-raises otherwise, as the JAX package does); the default is
-``min(ceil128(V), 8192)``. The JAX package also prices a chunk against
-the TPU's VMEM budget (``vmem_model``) and consults its tuning table;
-the port's budget model waits for ROADMAP.md queue A item 11.
+raises otherwise, as the JAX package does) and within the card's budget
+under `vmem_model.chunked_loss_check` (the chunk rides the linear-xent
+kernels, whose shared-memory and register frames it prices); an
+explicit ``chunk_v`` > the tuning table's ``chunked_loss`` entry for
+the padded hidden size > ``min(ceil128(V), 8192)``.
 """
 
 from __future__ import annotations
@@ -27,8 +28,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from apex1_tpu_torch import tuning
+from apex1_tpu_torch.core.capability import smem_budget
 from apex1_tpu_torch.ops._common import NEG_INF
 from apex1_tpu_torch.ops.linear_xent import shard_grads, shard_stats_packed
+from apex1_tpu_torch.vmem_model import chunked_loss_check
 
 _LANES = 128
 
@@ -37,23 +41,36 @@ def _ceil_to(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
 
 
-def check_chunk_geometry(chunk_v: int) -> int:
-    """Validate a vocab chunk loudly: a multiple of 128. (The JAX
-    package also prices it against the TPU's VMEM, from the hidden size
-    and element size; the port's shared-memory budget model is
-    ROADMAP.md queue A item 11.)"""
+def check_chunk_geometry(chunk_v: int, hidden: int = _LANES,
+                         esize: int = 2) -> int:
+    """Validate a vocab chunk loudly: a multiple of 128, and the
+    linear-xent kernels it rides within the card's budget at ``hidden``
+    and ``esize`` (`vmem_model.chunked_loss_check`)."""
     if chunk_v < _LANES or chunk_v % _LANES:
         raise ValueError(
             f"chunked_loss: chunk_v={chunk_v} must be a multiple of "
             f"{_LANES} (vocab tiles are lane-aligned)")
+    fits, est = chunked_loss_check({"chunk_v": chunk_v},
+                                   {"Hp": _ceil_to(hidden, _LANES)}, esize,
+                                   smem_budget())
+    if not fits:
+        raise ValueError(f"chunked_loss: chunk_v={chunk_v} at H={hidden} "
+                         f"prices {est.smem} B of shared memory a block, "
+                         f"past the budget {smem_budget()} B")
     return chunk_v
 
 
-def _auto_chunk(V: int, chunk_v) -> int:
-    """Resolve chunk_v: explicit (checked) > the heuristic."""
+def _auto_chunk(V: int, chunk_v, hidden: int = _LANES,
+                dtype=torch.float32) -> int:
+    """Resolve chunk_v: explicit (checked) > the tuning table's entry for
+    the padded hidden size > the heuristic."""
     if chunk_v is not None:
-        return check_chunk_geometry(int(chunk_v))
-    return min(_ceil_to(V, _LANES), 8192)
+        return check_chunk_geometry(int(chunk_v), hidden,
+                                    tuning.itemsize(dtype))
+    return tuning.resolve(
+        "chunked_loss", None, lambda: {"Hp": tuning.padded_lanes(hidden)},
+        dtype, lambda: {"chunk_v": min(_ceil_to(V, _LANES), 8192)}
+    )[0]["chunk_v"]
 
 
 def _chunks(V: int, cv: int) -> int:
@@ -119,7 +136,7 @@ def chunked_logprob(x, weight, targets, *, chunk_v=None, num_classes=None,
     H = x.shape[-1]
     x2 = x.reshape(-1, H)
     t2 = targets.reshape(-1).to(torch.int32)
-    cv = _auto_chunk(weight.shape[0], chunk_v)
+    cv = _auto_chunk(weight.shape[0], chunk_v, H, x.dtype)
     k = weight.shape[0] if num_classes is None else int(num_classes)
     return _LogProb.apply(x2, weight, t2, cv, k).reshape(lead)
 
@@ -271,7 +288,8 @@ def chunked_kl_loss(student_hidden, student_weight, teacher_hidden,
             f"teacher V={teacher_weight.shape[0]} (distill over one vocab)")
     xs2 = student_hidden.reshape(-1, H)
     xt2 = teacher_hidden.reshape(-1, teacher_hidden.shape[-1])
-    cv = _auto_chunk(student_weight.shape[0], chunk_v)
+    cv = _auto_chunk(student_weight.shape[0], chunk_v, H,
+                     student_hidden.dtype)
     k = student_weight.shape[0] if num_classes is None else int(num_classes)
     kl = _KL.apply(xs2, student_weight, xt2, teacher_weight, cv, k,
                    float(temperature))

@@ -37,6 +37,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from apex1_tpu_torch import tuning
 from apex1_tpu_torch.ops import _build
 from apex1_tpu_torch.ops._common import (DTYPE_CODES, NEG_INF, check_cuda,
                                          use_kernel)
@@ -54,14 +55,28 @@ def _plain_chunk_matmul(rows, w, acc):
     return out if acc is None else acc + out
 
 
+def chunk_plan(K: int, dtype: torch.dtype, tile=None) -> int:
+    """The tile `chunk_matmul` asks of the library, as rows·1000 +
+    columns: ``tile`` ((block_m, block_n), what the sweep passes) > the
+    tuning table's ``fused_collective_matmul`` entry for the padded K >
+    0, which leaves the library's ``tile_of`` choice (`chunk_tile`)."""
+    got, _src = tuning.resolve(
+        "fused_collective_matmul", None if tile is None else
+        {"block_m": tile[0], "block_n": tile[1]},
+        lambda: {"Kp": tuning.padded_lanes(K)}, dtype,
+        lambda: {"block_m": 0, "block_n": 0})
+    return got["block_m"] * 1000 + got["block_n"]
+
+
 def chunk_matmul(rows: torch.Tensor, w: torch.Tensor,
-                 acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 acc: Optional[torch.Tensor] = None, *,
+                 tile=None) -> torch.Tensor:
     """``[acc +] rows @ w`` in fp32: ``rows`` (..., K) with its leading
     dimensions kept, ``w`` (K, N), ``acc`` fp32 like the result or None.
     Operands of two types are promoted to one. CUDA tensors launch the
     kernel (``chunk_matmul.launches``; a fixed summation order, the same
-    bits on every launch); CPU tensors take the plain version,
-    ``torch.matmul`` of the operands widened to fp32."""
+    bits on every launch; `chunk_plan`'s tile); CPU tensors take the
+    plain version, ``torch.matmul`` of the operands widened to fp32."""
     if rows.dtype != w.dtype:
         dt = torch.promote_types(rows.dtype, w.dtype)
         rows, w = rows.to(dt), w.to(dt)
@@ -90,6 +105,7 @@ def chunk_matmul(rows: torch.Tensor, w: torch.Tensor,
     _build.launch("apex1_chunk_matmul", a.data_ptr(), b.data_ptr(),
                   None if acc2 is None else acc2.data_ptr(), out.data_ptr(),
                   a.shape[0], N, K, int(vec), DTYPE_CODES[a.dtype],
+                  chunk_plan(K, a.dtype, tile),
                   torch.cuda.current_stream(a.device).cuda_stream)
     chunk_matmul.launches += 1
     return out.reshape(lead + (N,))

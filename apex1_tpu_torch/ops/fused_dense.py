@@ -14,8 +14,10 @@ autograd's.
 ``act(x @ w_gate) * (x @ w_up)``: Llama's SwiGLU (``silu``) or GeGLU
 (tanh ``gelu``), the two products sharing one ``x``. One kernel,
 ``csrc/glu.cu`` (TPU row 13; bf16/fp16 on wgmma, both products from one
-x tile, 128 x 128 or 128 x 64 output tiles as `glu_tile` says; fp32 on
-the CUDA cores), beside its plain PyTorch version: both products summed
+x tile, 128 x 128 or 128 x 64 output tiles: an explicit ``tile_n``,
+else the tuning table's ``fused_swiglu`` entry, else the library's
+``tile_n`` as `glu_tile` reports it; fp32 on the CUDA cores, 64 columns
+only), beside its plain PyTorch version: both products summed
 in fp32, the activation and the product in fp32, the result rounded to
 x's dtype once (the TPU kernel's ``preferred_element_type=f32``
 numbers).
@@ -35,6 +37,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from apex1_tpu_torch import tuning
 from apex1_tpu_torch.ops import _build
 from apex1_tpu_torch.ops._common import (DTYPE_CODES, check_cuda,
                                          resolve_device, use_kernel)
@@ -48,11 +51,11 @@ _GLU_ACTS = {"silu": (lambda g: g * torch.sigmoid(g), 0),
 
 def check_glu_geometry(block_t: int, block_f: int) -> tuple[int, int]:
     """Validate a fused-glu tile as the JAX package does: ``block_t`` a
-    multiple of 8 and ``block_f`` of 128, else ValueError. The TPU's
-    VMEM pricing of the tile (its budget check, which also takes the
-    hidden size and element size) waits for the port's shared-memory
-    budget model (ROADMAP.md queue A item 11); the CUDA kernel's tiles
-    are its own."""
+    multiple of 8 and ``block_f`` of 128, else ValueError. These are the
+    TPU's tile names and size no CUDA launch: the kernel's own tile, its
+    ``tile_n``, is priced by `vmem_model.fused_swiglu_check` (shared
+    memory and registers a block, from the hidden size and element size)
+    when the tuning table serves one (`glu_tile_n`)."""
     if block_t < 8 or block_t % 8:
         raise ValueError(
             f"fused_glu: block_t={block_t} must be a multiple of 8 "
@@ -70,6 +73,18 @@ def glu_tile(T: int, F: int, dtype: torch.dtype) -> tuple:
     return t // 1000, t % 1000
 
 
+def glu_tile_n(T: int, H: int, dtype: torch.dtype, tile_n=None) -> int:
+    """The output tile's columns `glu_fwd` asks of the library:
+    ``tile_n`` (what the sweep passes) > the tuning table's
+    ``fused_swiglu`` entry for the padded hidden and the token bucket >
+    0, which leaves the library's ``tile_n`` choice (`glu_tile`)."""
+    got, _src = tuning.resolve(
+        "fused_swiglu", None if tile_n is None else {"tile_n": tile_n},
+        lambda: {"Hp": tuning.padded_lanes(H), "Tb": tuning.token_bucket(T)},
+        dtype, lambda: {"tile_n": 0})
+    return int(got["tile_n"])
+
+
 def _plain_glu(x2, wg, wu, activation):
     act = _GLU_ACTS[activation][0]
     xf = x2.float()
@@ -77,10 +92,11 @@ def _plain_glu(x2, wg, wu, activation):
 
 
 def glu_fwd(x2: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
-            activation: str = "silu") -> torch.Tensor:
+            activation: str = "silu", *, tile_n=None) -> torch.Tensor:
     """``act(x2 @ wg) * (x2 @ wu)`` for (T, H) ``x2`` and (H, F) weights,
     (T, F) in x's dtype. CUDA tensors launch the kernel
-    (``glu_fwd.launches``); CPU tensors take the plain version."""
+    (``glu_fwd.launches``) at `glu_tile_n`'s tile; CPU tensors take the
+    plain version."""
     if not use_kernel(x2):
         return _plain_glu(x2, wg, wu, activation)
     if x2.dtype not in _DTYPES or wg.dtype != x2.dtype or \
@@ -103,7 +119,7 @@ def glu_fwd(x2: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     _build.launch("apex1_glu_fwd", x2.data_ptr(), wg.data_ptr(),
                   wu.data_ptr(), out.data_ptr(), T, H, Fo,
                   _GLU_ACTS[activation][1], int(vec), DTYPE_CODES[x2.dtype],
-                  stream)
+                  glu_tile_n(T, H, x2.dtype, tile_n), stream)
     glu_fwd.launches += 1
     return out
 

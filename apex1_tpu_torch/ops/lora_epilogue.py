@@ -14,7 +14,8 @@ Page 0 is the zero page, so a row with no adapter gets exactly 0.0.
 
 CUDA tensors launch ``csrc/lora_delta.cu`` (TPU row 23): the (N, R)
 coefficients once, a warp each, then B streamed by blocks of
-`LORA_TILE` columns (`lora_tiles`) of one row or a few (`lora_rows`);
+`LORA_TILE` columns (`lora_tiles`) of one row or a few (`lora_plan`:
+an explicit ``rows``, else the tuning table's, else `lora_rows`);
 a row's result depends on that row's operands alone, so a mixed-tenant
 batch equals each row run alone, bit for bit. CPU tensors take the plain version, the JAX
 package's ``_lora_delta_ref``.
@@ -24,12 +25,15 @@ from __future__ import annotations
 
 import torch
 
+from apex1_tpu_torch import tuning
+from apex1_tpu_torch.core.capability import smem_budget
 from apex1_tpu_torch.ops import _build
 from apex1_tpu_torch.ops._common import (DTYPE_CODES, check_cuda, sm_count,
                                          use_kernel)
+from apex1_tpu_torch.vmem_model import lora_epilogue_check
 
-#: shared memory a block of the kernel may use (H100: 227 KB)
-_SMEM_LIMIT = 232448
+#: shared memory a block of the kernel may use: the h100 row's 227 KB
+_SMEM_LIMIT = smem_budget("h100")
 _H_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 #: vocab columns a block of the stream kernel takes: a float4 for each of
 #: its 128 threads
@@ -58,21 +62,38 @@ def lora_rows(n: int, vocab: int, rank: int, sms: int) -> int:
     return max(1, min(rows, LORA_MAX_ROWS, _SMEM_LIMIT // (8 * rank)))
 
 
+def lora_plan(n: int, hidden: int, vocab: int, rank: int, dtype, sms: int,
+              rows=None) -> int:
+    """Rows a block of the stream kernel: ``rows`` (what the sweep
+    passes) > the tuning table's ``lora_epilogue`` entry for the padded
+    hidden and vocab > `lora_rows`; a table's rows are cut to what the
+    block's shared memory holds at this rank."""
+    got, src = tuning.resolve(
+        "lora_epilogue", None if rows is None else {"rows": rows},
+        lambda: {"Hp": tuning.padded_lanes(hidden),
+                 "Vp": tuning.padded_lanes(vocab)}, dtype, lambda: None)
+    if src == "heuristic":
+        return lora_rows(n, vocab, rank, sms)
+    if src == "table":
+        return max(1, min(got["rows"], _SMEM_LIMIT // (8 * rank)))
+    return got["rows"]
+
+
 def check_lora_geometry(rank: int, hidden: int, vocab: int) -> int:
     """Validate the LoRA epilogue's geometry loudly: ``rank >= 1`` and
-    the shared memory of a row of the stream kernel's block (the rank's
-    coefficients and page ids) within the card's limit; returns those
-    bytes (a block takes `lora_rows` rows). The JAX package prices its
-    VMEM tile through ``vmem_model``; the port has no budget model yet
-    (ROADMAP.md queue A item 11), so this checks the one resource the
-    CUDA block's size depends on."""
+    the stream kernel's block at one row within the card's budget under
+    `vmem_model.lora_epilogue_check` (the rank's coefficients and page
+    ids, 8 bytes each, and the kernels' threads and registers); returns
+    the row's shared-memory bytes (a block takes `lora_plan` rows)."""
     if rank < 1:
         raise ValueError(f"lora_epilogue: rank={rank} must be >= 1")
     if hidden < 1 or vocab < 1:
         raise ValueError(f"lora_epilogue: hidden={hidden} and vocab={vocab} "
                          f"must be >= 1")
     smem = 8 * rank
-    if smem > _SMEM_LIMIT:
+    fits, _est = lora_epilogue_check(
+        {"rows": 1}, {"Hp": hidden, "Vp": vocab, "R": rank}, 4, _SMEM_LIMIT)
+    if not fits:
         raise ValueError(f"lora_epilogue: rank={rank} needs {smem} B of "
                          f"shared memory > the block limit {_SMEM_LIMIT} B")
     return smem
@@ -86,12 +107,13 @@ def _lora_delta_ref(h, a_pages, b_pages, block_table):
 
 
 def lora_delta(h: torch.Tensor, a_pages: torch.Tensor, b_pages: torch.Tensor,
-               block_table: torch.Tensor) -> torch.Tensor:
+               block_table: torch.Tensor, *, rows=None) -> torch.Tensor:
     """Per-row paged LoRA logit delta: ``h`` (N, H) hidden rows,
     ``a_pages`` (P, H) / ``b_pages`` (P, V) fp32 page pools,
     ``block_table`` (N, R) int32 page ids. Returns (N, V) fp32. CUDA
     tensors launch the kernel (``lora_delta.launches`` counts the
-    launches), CPU tensors take the plain version."""
+    launches; ``rows``: rows a block, else `lora_plan`'s), CPU tensors
+    take the plain version."""
     N, H = h.shape
     R = block_table.shape[1]
     V = b_pages.shape[1]
@@ -118,7 +140,7 @@ def lora_delta(h: torch.Tensor, a_pages: torch.Tensor, b_pages: torch.Tensor,
     hvec = (H % 8 == 0 and h.data_ptr() % 16 == 0
             and a_pages.data_ptr() % 16 == 0)
     vec4 = V % 4 == 0 and b_pages.data_ptr() % 16 == 0
-    rows = lora_rows(N, V, R, sm_count(h.device))
+    rows = lora_plan(N, H, V, R, h.dtype, sm_count(h.device), rows)
     stream = torch.cuda.current_stream(h.device).cuda_stream
     _build.launch("apex1_lora_delta", h.data_ptr(), a_pages.data_ptr(),
                   b_pages.data_ptr(), bt.data_ptr(), coef.data_ptr(),

@@ -29,6 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from apex1_tpu_torch import tuning
 from apex1_tpu_torch.core.random import threefry2x32, u32
 from apex1_tpu_torch.ops import _build
 from apex1_tpu_torch.ops._common import (DTYPE_CODES, NEG_INF, check_cuda,
@@ -258,6 +259,22 @@ def sample_splits(rows: int, vocab: int, sms: int) -> tuple[int, int]:
     return next(c for c in cands if busiest(c) <= 1.02 * least)
 
 
+def sample_plan(rows: int, vocab: int, sms: int,
+                splits: Optional[int] = None) -> tuple[int, int]:
+    """The sampler's (splits, columns a split): ``splits`` (what the
+    sweep passes) > the tuning table's ``fused_sample`` entry for the
+    padded vocab and ``rows`` > `sample_splits`. An asked-for count is
+    met as `_split` meets it (``per`` a multiple of 4, no split empty)."""
+    got, src = tuning.resolve(
+        "fused_sample", None if splits is None else {"splits": splits},
+        lambda: {"Vp": tuning.padded_lanes(vocab), "R": rows}, "float32",
+        lambda: None)
+    if src == "heuristic":
+        return sample_splits(rows, vocab, sms)
+    return _split(vocab, max(1, min(int(got["splits"]),
+                                    -(-vocab // 4))))
+
+
 def _sample_counters(device: torch.device) -> torch.Tensor:
     """The sampler's ticket counters on ``device``: zeros, allocated once
     (the kernel leaves them zero). One launch at a time may use them:
@@ -271,15 +288,17 @@ def _sample_counters(device: torch.device) -> torch.Tensor:
 def fused_sample(logits, seeds, positions, *, temperature: float = 0.0,
                  top_k: Optional[int] = None,
                  vocab_size: Optional[int] = None,
-                 partitionable: bool = True):
+                 partitionable: bool = True,
+                 splits: Optional[int] = None):
     """Counter-keyed sampling over (R, V) logits rows: row r draws with
     ``fold_in(key(seeds[r]), positions[r])``. CUDA logits launch the
     fused kernel (``fused_sample.launches`` counts the launches): vocab
     mask, temperature, gumbel draw and first-index argmax in one pass,
-    each row's vocab split over the grid (`sample_splits`) and the
-    splits folded on the card in the same launch, only the (R,) int32
-    token ids written. ``top_k`` keeps its sort outside the kernel,
-    which then samples the pre-truncated logits."""
+    each row's vocab split over the grid (`sample_plan`: ``splits``,
+    else the tuning table, else `sample_splits`) and the splits folded
+    on the card in the same launch, only the (R,) int32 token ids
+    written; every split gives the same ids. ``top_k`` keeps its sort
+    outside the kernel, which then samples the pre-truncated logits."""
     R, V = logits.shape
     dev = logits.device
     seeds = torch.as_tensor(seeds, dtype=torch.int32, device=dev)
@@ -309,7 +328,7 @@ def fused_sample(logits, seeds, positions, *, temperature: float = 0.0,
     check_cuda("fused_sample", lg, seeds, positions)
     out = torch.empty(R, dtype=torch.int32, device=dev)
     counters = _sample_counters(dev)
-    splits, per = sample_splits(R, V, sm_count(dev))
+    splits, per = sample_plan(R, V, sm_count(dev), splits)
     pairs = (torch.empty(R * splits * 2, dtype=torch.int32, device=dev)
              if splits > 1 else None)
     vec = V % 4 == 0 and lg.data_ptr() % 16 == 0
@@ -430,16 +449,67 @@ def paged_geometry(N: int, Hq: int, Hkv: int, S: int, D: int, P: int,
     return splits, per, (0 if splits == 1 else N * Hq * S * splits * (D + 2))
 
 
+@functools.lru_cache(maxsize=None)
+def check_paged_geometry(page: int, head_dim: int, group: int, s: int,
+                         kv_dtype=torch.float32):
+    """Validate a paged-kernel geometry loudly (the JAX package's check,
+    on the CUDA kernel's frame): a page of at least one position, a head
+    dim the kernel's 128 threads cover (at most 512) and the blocks of
+    ``csrc/paged_attend.cu`` within the card's shared-memory and
+    register budget (`vmem_model.paged_decode_check` at ``kv_dtype``'s
+    element size). Returns the check's (Dp, Rq) dims; a geometry is
+    checked once a process (the shapes only: decode steps repeat it)."""
+    from apex1_tpu_torch.core.capability import smem_budget
+    from apex1_tpu_torch.vmem_model import paged_decode_check
+    if page < 1 or head_dim < 1 or group * s < 1:
+        raise ValueError(f"paged_decode: page={page}, head_dim={head_dim} "
+                         f"and group*s={group * s} must be >= 1")
+    if head_dim > 512:
+        raise ValueError(f"paged_decode: head_dim={head_dim} past 512 (a "
+                         f"row's 4-element groups exceed the block's 128 "
+                         f"threads)")
+    dp, rq = -(-head_dim // 8) * 8, group * s
+    fits, est = paged_decode_check({"per": 1}, {"Dp": dp, "Rq": rq},
+                                   tuning.itemsize(kv_dtype), smem_budget())
+    if not fits:
+        raise ValueError(f"paged_decode geometry Dp={dp} Rq={rq} prices "
+                         f"{est.smem} B of shared memory a block, past "
+                         f"the budget {smem_budget()} B")
+    return dp, rq
+
+
+def paged_plan(N: int, Hq: int, Hkv: int, S: int, D: int, P: int, T: int,
+               kv_dtype, per: Optional[int] = None):
+    """The kernel's (splits, key blocks a split, workspace floats):
+    ``per`` (what the sweep passes) > the tuning table's
+    ``paged_decode`` entry for the head dim and the query rows a kv head
+    (G·S) > `paged_geometry`. A ``per`` past the key blocks is one
+    split."""
+    got, src = tuning.resolve(
+        "paged_decode", None if per is None else {"per": per},
+        lambda: {"Dp": -(-D // 8) * 8, "Rq": (Hq // Hkv) * S}, kv_dtype,
+        lambda: None)
+    if src == "heuristic":
+        return paged_geometry(N, Hq, Hkv, S, D, P, T)
+    nkb = -(-T * P // PAGED_KEYS)
+    splits = -(-nkb // max(1, min(int(got["per"]), nkb)))
+    per = -(-nkb // splits)
+    splits = -(-nkb // per)
+    return splits, per, (0 if splits == 1 else N * Hq * S * splits * (D + 2))
+
+
 def paged_attend(q, k_pages, v_pages, block_table, lengths, *,
                  sm_scale: Optional[float] = None,
-                 total_len: Optional[int] = None):
+                 total_len: Optional[int] = None,
+                 per: Optional[int] = None):
     """Ragged paged attention: (N, Hq, S, D) queries against
     (num_pages, Hkv, page, D) K/V pools through an (N, T) int32 block
     table, row n's query j masked to positions <= ``lengths[n] + j``.
     Output (N, Hq, S, D) in q's dtype. CUDA tensors launch the kernel,
-    split over the pages by `paged_geometry` (``paged_attend.launches``
-    counts the calls); CPU tensors gather dense lanes and run
-    :func:`cache_attend`."""
+    split over the pages by `paged_plan` (``per``: the key blocks a
+    split, else the tuning table's, else `paged_geometry`'s;
+    ``paged_attend.launches`` counts the calls); CPU tensors gather
+    dense lanes and run :func:`cache_attend`."""
     N, Hq, S, D = q.shape
     num_pages, Hkv, P, _ = k_pages.shape
     T = block_table.shape[1]
@@ -463,12 +533,14 @@ def paged_attend(q, k_pages, v_pages, block_table, lengths, *,
         raise ValueError("paged_attend: block_table must be (N, T) int32")
     if lengths.shape != (N,):
         raise ValueError("paged_attend: lengths must be (N,)")
+    check_paged_geometry(P, D, Hq // Hkv, S, k_pages.dtype)
     q, lengths = q.contiguous(), lengths.contiguous()
     bt = block_table.contiguous()
     check_cuda("paged_attend", q, k_pages, v_pages, bt, lengths)
     scale = (D ** -0.5) if sm_scale is None else sm_scale
     out = torch.empty_like(q)
-    splits, per, ws_floats = paged_geometry(N, Hq, Hkv, S, D, P, T)
+    splits, per, ws_floats = paged_plan(N, Hq, Hkv, S, D, P, T,
+                                        k_pages.dtype, per)
     ws = (torch.empty(ws_floats, dtype=torch.float32, device=q.device)
           if ws_floats else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream

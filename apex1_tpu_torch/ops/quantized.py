@@ -14,8 +14,10 @@ storage with per-output-channel fp32 scales halves them against bf16.
   ``csrc/int8_matmul.cu`` (TPU row 20), a wgmma product whose threads
   convert the int8 weight to bf16 in their own registers, so the bf16
   weight matrix never exists in device memory; one launch a call, a K
-  split summed inside it (`_tile`, `_split_k`); CPU tensors take the
-  plain version, the JAX package's composite ``_dequant_matmul_xla``.
+  split summed inside it (`int8_plan`: an explicit ``tile``, else the
+  tuning table's ``int8_matmul`` entry, else `_tile` and `_split_k`);
+  CPU tensors take the plain version, the JAX package's composite
+  ``_dequant_matmul_xla``.
 
 The JAX package sends shapes that are not multiples of 128, or more
 than 1024 rows, to its composite (a TPU tiling rule). The CUDA kernel
@@ -30,6 +32,7 @@ import math
 
 import torch
 
+from apex1_tpu_torch import tuning
 from apex1_tpu_torch.ops import _build
 from apex1_tpu_torch.ops._common import check_cuda, use_kernel
 
@@ -94,6 +97,26 @@ def _split_k(T: int, N: int, K: int) -> tuple[int, int]:
     return math.ceil(K / kc), kc
 
 
+def int8_plan(T: int, N: int, K: int, tile=None) -> tuple:
+    """The launch's (bm, bt, splits, kc): ``tile`` (a dict of the four,
+    what the sweep passes) > the tuning table's ``int8_matmul`` entry
+    for (N, K, the token bucket) > `_tile` and `_split_k`. A table entry
+    whose K split needs more ticket counters than the device holds at
+    this T is a miss."""
+    def heuristic():
+        bm, bt = _tile(T, N)
+        splits, kc = _split_k(T, N, K)
+        return dict(bm=bm, bt=bt, splits=splits, kc=kc)
+    got, src = tuning.resolve(
+        "int8_matmul", tile,
+        lambda: {"N": N, "K": K, "Tb": tuning.token_bucket(T)}, "int8",
+        heuristic)
+    tiles = math.ceil(N / got["bm"]) * math.ceil(T / got["bt"])
+    if src == "table" and got["splits"] > 1 and tiles > _MAX_TILES:
+        got = heuristic()
+    return got["bm"], got["bt"], got["splits"], got["kc"]
+
+
 def _counters(device: torch.device) -> torch.Tensor:
     """The K-split grid's ticket counters on ``device``: zeros, allocated
     once (the kernel leaves them zero). One launch at a time may use
@@ -136,11 +159,12 @@ def _int8_mm_plain(x2, wq, scale):
     return (x2.to(torch.bfloat16).float() @ wq.float().t()) * scale
 
 
-def int8_mm(x2: torch.Tensor, wq: torch.Tensor,
-            scale: torch.Tensor) -> torch.Tensor:
+def int8_mm(x2: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, *,
+            tile=None) -> torch.Tensor:
     """(T, K) ``x2`` against (N, K) int8 ``wq`` and (N,) fp32 ``scale``:
     (T, N) fp32. CUDA tensors launch the kernel (``int8_mm.launches``
-    counts the calls), CPU tensors take the plain version."""
+    counts the calls) with `int8_plan`'s parameters (``tile``: the
+    sweep's explicit ones), CPU tensors take the plain version."""
     if not use_kernel(x2):
         return _int8_mm_plain(x2, wq, scale)
     if wq.dtype != torch.int8 or scale.dtype != torch.float32:
@@ -156,8 +180,7 @@ def int8_mm(x2: torch.Tensor, wq: torch.Tensor,
     check_cuda("int8_mm", xb, wq, scale)
     (T, K), N = xb.shape, wq.shape[0]
     out = torch.empty(T, N, dtype=torch.float32, device=xb.device)
-    bm, bt = _tile(T, N)
-    splits, kc = _split_k(T, N, K)
+    bm, bt, splits, kc = int8_plan(T, N, K, tile)
     tiles = math.ceil(N / bm) * math.ceil(T / bt)
     part = (torch.empty(tiles * splits * bm * bt, dtype=torch.float32,
                         device=xb.device) if splits > 1 else None)

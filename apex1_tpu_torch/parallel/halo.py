@@ -27,9 +27,11 @@ from typing import Callable
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from apex1_tpu_torch.transformer import parallel_state
-from apex1_tpu_torch.transformer.tensor_parallel.mappings import Hop
+from apex1_tpu_torch.transformer.tensor_parallel.mappings import (
+    OVERLAP_SPANS, Hop)
 
 
 def _edges(x: torch.Tensor, halo: int, dim: int):
@@ -109,12 +111,16 @@ def halo_exchange(x: torch.Tensor, axis_name, *, halo: int, dim: int = 1,
 def exchange_overlap(x: torch.Tensor, interior_fn: Callable, axis_name, *,
                      halo: int, dim: int = 1, periodic: bool = False):
     """``(halo_exchange(x, ...), interior_fn(x))``, with both transfers
-    posted before ``interior_fn`` runs and waited on after it."""
+    posted before ``interior_fn`` runs and waited on after it: the span
+    ``overlap.body:halo`` of a profiler trace, ``interior_fn`` its
+    ``overlap.compute`` (what the overlap probe reads)."""
     if halo <= 0:
         return x, interior_fn(x)
-    group, last, first, posted = _post(x, axis_name, halo, dim)
-    interior = interior_fn(x)
-    from_prev, from_next = _finish(group, last, first, posted, periodic)
+    with record_function(f"{OVERLAP_SPANS['body']}:halo"):
+        group, last, first, posted = _post(x, axis_name, halo, dim)
+        with record_function(OVERLAP_SPANS["compute"]):
+            interior = interior_fn(x)
+        from_prev, from_next = _finish(group, last, first, posted, periodic)
     return torch.cat([from_prev, x, from_next], dim=dim), interior
 
 

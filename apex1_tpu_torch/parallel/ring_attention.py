@@ -39,19 +39,27 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 from apex1_tpu_torch.ops._common import NEG_INF
 from apex1_tpu_torch.ops.attention import (_norm_segments, flash_dkv,
                                            flash_dq, flash_fwd,
                                            merge_partials)
-from apex1_tpu_torch.transformer.tensor_parallel.mappings import (Hop,
-                                                                  PERMUTES)
+from apex1_tpu_torch.transformer.tensor_parallel.mappings import (
+    OVERLAP_SPANS, PERMUTES, Hop)
 
 
 def _ring_fwd(q, k, v, qseg, group, attend, serialize: bool = False):
     """The forward ring: ``attend(k, v, kseg, q_off, k_off, out, lse) ->
     (out, lse)`` once per visiting shard, in ring order; returns the
-    fp32 ``(out, lse)``."""
+    fp32 ``(out, lse)``. The ring is the span ``overlap.body:ring.fwd``
+    of a profiler trace and each attend an ``overlap.compute`` span in
+    it (`mappings.OVERLAP_SPANS`: what the overlap probe reads)."""
+    with record_function(f"{OVERLAP_SPANS['body']}:ring.fwd"):
+        return _ring_fwd_steps(q, k, v, qseg, group, attend, serialize)
+
+
+def _ring_fwd_steps(q, k, v, qseg, group, attend, serialize):
     n, idx = dist.get_world_size(group), dist.get_rank(group)
     B, Hq, Sq, _ = q.shape
     Sk = k.shape[2]
@@ -62,8 +70,9 @@ def _ring_fwd(q, k, v, qseg, group, attend, serialize: bool = False):
 
     def step(kv, t, out, lse):
         kseg = kv[2] if len(kv) == 3 else None
-        return attend(kv[0], kv[1], kseg, idx * Sq, ((idx - t) % n) * Sk,
-                      out, lse)
+        with record_function(OVERLAP_SPANS["compute"]):
+            return attend(kv[0], kv[1], kseg, idx * Sq,
+                          ((idx - t) % n) * Sk, out, lse)
 
     if n == 1:
         return step(kv, 0, out, lse)
@@ -104,7 +113,15 @@ def ring_attend(q, qseg, scale, causal, dropout_p, seed, skip_masked):
 def _ring_bwd(q, k, v, qseg, out, lse, do, group, causal, scale, dropout_p,
               seed, skip_masked):
     """The backward ring over the inverted permutation; fp32 (dq, dk,
-    dv)."""
+    dv). The span ``overlap.body:ring.bwd``, each shard's gradients an
+    ``overlap.compute`` span in it."""
+    with record_function(f"{OVERLAP_SPANS['body']}:ring.bwd"):
+        return _ring_bwd_steps(q, k, v, qseg, out, lse, do, group, causal,
+                               scale, dropout_p, seed, skip_masked)
+
+
+def _ring_bwd_steps(q, k, v, qseg, out, lse, do, group, causal, scale,
+                    dropout_p, seed, skip_masked):
     n, idx = dist.get_world_size(group), dist.get_rank(group)
     B, Hq, Sq, D = q.shape
     q_off = idx * Sq
@@ -125,8 +142,9 @@ def _ring_bwd(q, k, v, qseg, out, lse, do, group, causal, scale, dropout_p,
         kseg = kv[2] if len(kv) == 3 else None
         args = (q, kv[0], kv[1], do, lse, delta, None, qseg, kseg, scale,
                 causal, q_off, k_off, dropout_p, seed)
-        dq_t = flash_dq(*args)
-        dk_t, dv_t = flash_dkv(*args, out_dtype=torch.float32)
+        with record_function(OVERLAP_SPANS["compute"]):
+            dq_t = flash_dq(*args)
+            dk_t, dv_t = flash_dkv(*args, out_dtype=torch.float32)
         return dq_t.float(), dk_t, dv_t
 
     kv = [k, v] if qseg is None else [k, v, qseg]

@@ -39,10 +39,12 @@ collectives in the compiled program: `reset_collectives` and
 
 from __future__ import annotations
 
+import itertools
 from typing import Callable
 
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 #: calls of each collective kind since the last `reset_collectives`
 COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0,
@@ -54,6 +56,13 @@ COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0,
 #: keep the JAX package's bubble-skip contract (no ``ppermute`` in a
 #: skipped stage)
 PERMUTES = {"count": 0}
+
+#: the span names of a ``torch.profiler`` trace that the overlap probe
+#: (`testing.hlo_probe`) reads: a ring's or an exchange's ``body``
+#: (``overlap.body:<name>``), each `Hop`'s ``post`` and ``wait``
+#: (``#<id>``), and the ``compute`` a hop in flight should hide
+OVERLAP_SPANS = {"body": "overlap.body", "post": "overlap.hop.post",
+                 "wait": "overlap.hop.wait", "compute": "overlap.compute"}
 
 
 def reset_collectives() -> None:
@@ -148,25 +157,33 @@ class Hop:
     """One ring hop in flight: each tensor sent to group index
     ``(i + shift) % n`` and received from ``(i - shift) % n``, posted at
     construction (``dist.batch_isend_irecv``); `wait` returns the
-    received tensors."""
+    received tensors. The posting and the wait are named spans of a
+    ``torch.profiler`` trace, ``overlap.hop.post#<id>`` and
+    ``overlap.hop.wait#<id>`` (`OVERLAP_SPANS`), which the overlap probe
+    (`testing.hlo_probe`) pairs by id."""
+
+    _ids = itertools.count()
 
     def __init__(self, tensors, group, shift: int = 1):
         n, me = dist.get_world_size(group), dist.get_rank(group)
         ranks = dist.get_process_group_ranks(group)
         dst, src = ranks[(me + shift) % n], ranks[(me - shift) % n]
+        self.id = next(Hop._ids)
         self._sent = [t.contiguous() for t in tensors]
         self._recv = [torch.empty_like(t) for t in self._sent]
         p2p = []
         for i, (s, r) in enumerate(zip(self._sent, self._recv)):
             p2p.append(dist.P2POp(dist.isend, s, dst, group, tag=i))
             p2p.append(dist.P2POp(dist.irecv, r, src, group, tag=i))
-        self._works = dist.batch_isend_irecv(p2p)
+        with record_function(f"{OVERLAP_SPANS['post']}#{self.id}"):
+            self._works = dist.batch_isend_irecv(p2p)
         COLLECTIVES["send_recv"] += len(self._sent)
         PERMUTES["count"] += 1
 
     def wait(self) -> list:
-        for w in self._works:
-            w.wait()
+        with record_function(f"{OVERLAP_SPANS['wait']}#{self.id}"):
+            for w in self._works:
+                w.wait()
         self._sent = None
         return self._recv
 

@@ -35,7 +35,8 @@
                          [train-zero] [train-bert-lamb]
                          [spatial-bottleneck] [llama-3d-resume]
                          [examples] [examples-parallel]
-                         [examples-encdec] [serve-example]
+                         [examples-encdec] [serve-example] [planner]
+                         [elastic-drill] [tune] [obs]
                                      # build, then run only those
                                      # phases (all of them by default;
                                      # train-fsdp, train-zero,
@@ -9472,6 +9473,337 @@ def run_elastic_drill(torch, ops, card, launches):
     return out, None
 
 
+def attr_cases(torch, ops):
+    """The kernels of PERF.md §6 at their main shapes, for `run_tune`'s
+    budget check: (rows, `vmem_model` check, launch params, dims,
+    element size, a call that launches them once)."""
+    from apex1_tpu_torch.ops import fused_collective as fc
+    from apex1_tpu_torch.ops import lora_epilogue as le
+    from apex1_tpu_torch.ops import paged_decode as pd
+    from apex1_tpu_torch.ops import quantized as q
+    from apex1_tpu_torch.ops.attention import flash_fwd_merge
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    bf = torch.bfloat16
+
+    def rn(*shape, dtype=bf, grad=False, scale=1.0):
+        t = (torch.randn(*shape, generator=g, device="cuda") * scale).to(
+            dtype)
+        return t.requires_grad_(grad)
+
+    def norm():
+        x, w, b = rn(TB * TS, TH, grad=True), rn(TH, grad=True), rn(
+            TH, grad=True)
+        ops.layer_norm(x, w, b).float().sum().backward()
+
+    def softmax():
+        x = rn(TB, THEADS, TS, TS, dtype=torch.float32, grad=True)
+        ops.scaled_upper_triang_masked_softmax(
+            x, scale=0.125).sum().backward()
+
+    def xent():
+        x = rn(TB * TS, TV_PAD, grad=True)
+        t = torch.randint(0, TV, (TB * TS,), device="cuda")
+        ops.softmax_cross_entropy_loss(x, t, smoothing=0.1,
+                                       num_classes=TV).sum().backward()
+
+    def flash():
+        q_, k_, v_ = (rn(TB, THEADS, TS, 64, grad=True) for _ in range(3))
+        ops.flash_attention(q_, k_, v_, causal=True).float().sum().backward()
+
+    def flash_bias():
+        q_, k_, v_ = (rn(8, 16, 512, 64, grad=True) for _ in range(3))
+        b_ = rn(1, 16, 512, 512, dtype=torch.float32, grad=True)
+        ops.flash_attention(q_, k_, v_, bias=b_).float().sum().backward()
+
+    def lxent():
+        x = rn(TB * TS, TH, grad=True)
+        w = rn(TV_PAD, TH, grad=True, scale=0.02)
+        t = torch.randint(0, TV, (TB * TS,), device="cuda")
+        ops.linear_cross_entropy(x, w, t, num_classes=TV).sum().backward()
+
+    def rope():
+        x = rn(LB, LS, LHEADS, LD, grad=True)
+        cos, sin = ops.rope_tables(torch.arange(LS, device="cuda"), LD)
+        ops.apply_rotary_pos_emb(x, cos, sin).float().sum().backward()
+
+    def glu():
+        ops.glu_fwd(rn(LB * LS, LH), rn(LH, LFFN, scale=LH ** -0.5),
+                    rn(LH, LFFN, scale=LH ** -0.5))
+
+    def bda():
+        x, r_ = rn(TB * TS, TH, grad=True), rn(TB * TS, TH, grad=True)
+        b_ = rn(TH, grad=True)
+        ops.fused_bias_dropout_add(x, r_, p=0.1, seed=SEED,
+                                   bias=b_).float().sum().backward()
+
+    def int8():
+        wq, s_ = q.quantize_int8(rn(5632, 2048, dtype=torch.float32,
+                                    scale=0.02))
+        q.int8_mm(rn(8, 2048), wq, s_)
+
+    def paged():
+        pages = 1 + 8 * 17
+        pd.paged_attend(rn(8, THEADS, 1, 64), rn(pages, THEADS, 64, 64),
+                        rn(pages, THEADS, 64, 64),
+                        torch.arange(1, pages, dtype=torch.int32,
+                                     device="cuda").reshape(8, 17),
+                        torch.full((8,), 17 * 64 - 5, dtype=torch.int32,
+                                   device="cuda"))
+
+    def sample():
+        pd.fused_sample(rn(8, TV_PAD, dtype=torch.float32),
+                        torch.arange(8, dtype=torch.int32, device="cuda"),
+                        torch.arange(8, dtype=torch.int32, device="cuda"),
+                        temperature=0.7, vocab_size=TV)
+
+    def lora():
+        pages = 1 + 3 * 16
+        le.lora_delta(rn(8, 2048), rn(pages, 2048, dtype=torch.float32),
+                      rn(pages, LV, dtype=torch.float32),
+                      torch.arange(8 * 16, dtype=torch.int32,
+                                   device="cuda").reshape(8, 16) % 48 + 1)
+
+    def chunk():
+        fc.chunk_matmul(rn(8192, 2048), rn(2048, 8192, scale=0.02))
+
+    def merge():
+        q_, k_, v_ = (rn(1, 32 if i == 0 else 4, 4096, 64)
+                      for i in range(3))
+        flash_fwd_merge(q_, k_, v_, None, None, 0.125, True, 4096, 0,
+                        torch.zeros(1, 32, 4096, 64, device="cuda"),
+                        torch.full((1, 32, 4096), -1e30, device="cuda"))
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    i8 = q.int8_plan(8, 5632, 2048)
+    return [
+        ("1-2", "layer_norm", {}, {"lanes": TH}, 2, norm),
+        ("3-5", "flash_attention", {}, {"Dp": 64, "Sb": TS}, 2, flash),
+        ("6", "flash_attention", {}, {"Dp": 64, "Sb": 512}, 2, flash_bias),
+        ("7-11", "linear_xent", {}, {"Hp": TH}, 2, lxent),
+        ("12", "rope", {}, {"lanes": LD // 2}, 2, rope),
+        ("13", "fused_swiglu",
+         {"tile_n": ops.fused_dense.glu_tile(LB * LS, LFFN, bf)[1]},
+         {"Hp": LH, "Tb": LB * LS}, 2, glu),
+        ("14-15", "bias_dropout_add", {}, {"lanes": TH}, 2, bda),
+        ("16-17", "fused_softmax", {}, {"lanes": TS}, 4, softmax),
+        ("18-19", "xentropy", {}, {"lanes": TV_PAD}, 2, xent),
+        ("20", "int8_matmul", dict(zip(("bm", "bt", "splits", "kc"), i8)),
+         {"N": 5632, "K": 2048, "Tb": 8}, 1, int8),
+        ("21", "paged_decode",
+         {"per": pd.paged_geometry(8, THEADS, THEADS, 1, 64, 64, 17)[1]},
+         {"Dp": 64, "Rq": 1}, 2, paged),
+        ("22", "fused_sample",
+         {"splits": pd.sample_splits(8, TV_PAD, sms)[0]},
+         {"Vp": TV_PAD, "R": 8}, 4, sample),
+        ("23", "lora_epilogue", {"rows": le.lora_rows(8, LV, 16, sms)},
+         {"Hp": 2048, "Vp": LV, "R": 16}, 2, lora),
+        ("24-25, 27", "fused_collective_matmul",
+         dict(zip(("block_m", "block_n"), fc.chunk_tile(8192, 8192, bf))),
+         {"Kp": 2048}, 2, chunk),
+        ("26", "fused_ag_flash", {}, {"Dp": 64, "Sb": 4096}, 2, merge),
+    ]
+
+
+def run_tune(torch, ops, card, launches):
+    """tune: the tuning table and the budget model on the card. With an
+    empty table (a temporary ``APEX1_TUNING_DIR``) every launcher
+    resolves today's heuristic (the GLU's and the chunk product's tiles
+    read from the launch records: the library's ``tile_n`` and
+    ``tile_of``); the sweep (`tuning.sweep`) times the seven tunable
+    specs at their main shapes, a few calls a candidate, and banks the
+    winners there; a fresh `lookup` serves each winner, and each op
+    launched through the table takes it and equals its plain version.
+    Then every kernel of PERF.md §6 launches once at its main shape with
+    the launch records on: each record's static + dynamic shared memory,
+    registers a thread and threads a block must lie within a frame of its
+    `vmem_model` check, which must fit the h100 row. Prints a line a
+    kernel."""
+    import shutil
+    import tempfile
+
+    from apex1_tpu_torch import tuning, vmem_model
+    from apex1_tpu_torch.core.capability import smem_budget
+    from apex1_tpu_torch.ops import _build
+    from apex1_tpu_torch.tuning import sweep
+    from apex1_tpu_torch.tuning.registry import SPECS
+    t0 = time.perf_counter()
+    errs, out = [], {"sweep": {}, "attrs": []}
+    tmp = tempfile.mkdtemp(prefix="apex1_tune_")
+    prev = os.environ.get("APEX1_TUNING_DIR")
+    os.environ["APEX1_TUNING_DIR"] = tmp
+    tuning.clear_cache()
+    try:
+        cases = {n: f(torch, "cuda", False) for n, f in sweep.CASES.items()}
+        # 1. no table: today's parameters, and the two tiles the library
+        # picks itself read back from what launched
+        for name, case in cases.items():
+            got, want = case.plan(), case.heuristic()
+            if got != want:
+                errs.append(f"tune: {name} without a table resolved {got}, "
+                            f"today's heuristic {want}")
+        print(f"  no table: {len(cases)} launchers resolve today's "
+              f"heuristic: {not errs} [{card}]")
+        for name, bn, smem in (
+                ("fused_swiglu", cases["fused_swiglu"].heuristic()["tile_n"],
+                 lambda bn: vmem_model.wg_gemm_smem(
+                     bn, 4 if bn == 128 else 6, nb=2)),
+                ("fused_collective_matmul",
+                 cases["fused_collective_matmul"].heuristic()["block_n"],
+                 lambda bn: vmem_model.wg_gemm_smem(bn, 4))):
+            with _build.launch_records() as rec:
+                cases[name].make(None)()
+            torch.cuda.synchronize()
+            launched = [r["dyn_smem"] for r in rec] == [smem(bn)]
+            print(f"  no table: {name} launched the library's {bn}-column "
+                  f"tile ({smem(bn)} B of dynamic shared memory): "
+                  f"{launched} [{card}]")
+            if not launched:
+                errs.append(f"tune: {name} without a table launched {rec}, "
+                            f"not the library's {bn}-column tile")
+        # 2. the sweep into the empty directory, each winner served
+        for name, case in cases.items():
+            best, problems, _ = sweep.sweep_one(
+                name, 5, lambda *a: print(" ", *a), device="cuda", card=card)
+            errs += [f"tune: {p}" for p in problems]
+            if best is None:
+                continue
+            tuning.clear_cache()
+            served = tuning.lookup(case.kernel, case.dims, case.dtype)
+            plan = case.plan()
+            ok, worst = sweep.compare(torch, case.make(None)(), case.plain(),
+                                      case.tol)
+            torch.cuda.synchronize()
+            out["sweep"][name] = dict(winner=best, heuristic=case.heuristic(),
+                                      served=served, plan=plan, worst=worst)
+            print(f"  {name}: winner {best} (today's {case.heuristic()}); "
+                  f"lookup {served}; launched through the table {plan}, "
+                  f"against the plain version worst {worst:.3g} "
+                  f"{'ok' if ok else 'FAIL'} [{card}]")
+            if served != best or plan != best or not ok:
+                errs.append(f"tune: {name} through the table: served "
+                            f"{served}, plan {plan}, worst {worst}")
+        problems = tuning.validate_tables(tmp)
+        if problems:
+            errs.append(f"tune: the swept tables are invalid: {problems}")
+    finally:
+        if prev is None:
+            os.environ.pop("APEX1_TUNING_DIR", None)
+        else:
+            os.environ["APEX1_TUNING_DIR"] = prev
+        tuning.clear_cache()
+        shutil.rmtree(tmp, ignore_errors=True)
+    # 3. every kernel's attributes against its budget check
+    budget = smem_budget("h100")
+    for rows, check, blocks, dims, es, fn in attr_cases(torch, ops):
+        fits, est = SPECS[check].check(blocks, dims, es, budget)
+        with _build.launch_records() as rec:
+            fn()
+        torch.cuda.synchronize()
+        for r in rec:
+            frame = next((f for f in est if f.bounds(r)), None)
+            line = dict(rows=rows, check=check, **r,
+                        frame=None if frame is None else frame.kernel,
+                        est_smem=None if frame is None else frame.smem,
+                        est_regs=None if frame is None else frame.regs)
+            out["attrs"].append(line)
+            print(f"  row {rows:9s} {check:23s} static smem "
+                  f"{r['static_smem']:6d} B + dynamic {r['dyn_smem']:6d} B, "
+                  f"{r['regs']:3d} regs x {r['threads']:4d} threads (most "
+                  f"{r['max_threads']}), local {r['local_bytes']} B: "
+                  f"{'within ' + frame.kernel + ' ' + str(frame.smem) + ' B, '
+                     + str(frame.regs) + ' regs' if frame else 'NOT BOUNDED'}"
+                  f" [{card}]")
+            if frame is None:
+                errs.append(f"tune: row {rows} {check} launched {r}, past "
+                            f"every frame of its check {list(est)}")
+        if not rec or not fits:
+            errs.append(f"tune: row {rows} {check}: {len(rec)} launches "
+                        f"recorded, the check fits the h100 row {fits}")
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"phase tune: {len(out['sweep'])} specs swept and served, "
+          f"{len(out['attrs'])} launches within their budget frames: "
+          f"{out['wall_s']:.1f} s [{card}]")
+    return out, ("; ".join(errs) if errs else None)
+
+
+def obs_report(torch, ops, state, step, batch, label: str, card) -> dict:
+    """One profiled step of a trainer: `utils.observability.trace`'s
+    Chrome trace read by `obs.xspace`, beside `kernel_split` of the same
+    profiler session."""
+    import tempfile
+
+    from apex1_tpu_torch.obs import xspace
+    from apex1_tpu_torch.utils.observability import trace
+    for _ in range(2):
+        state, _ = step(state, *batch)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="apex1_obs_") as tmp:
+        with trace(tmp) as prof:
+            t1 = time.perf_counter()
+            state, _ = step(state, *batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t1) * 1e3
+        split = kernel_split(torch, prof, 1, wall)
+        rep = xspace.build_report(tmp, steps=1)
+    ours = [o["name"][:60] for o in rep["ops"] if o["bucket"] == "kernel"]
+    print(f"  {label}: {rep['plane_class']}, {rep['n_ops']} ops, "
+          f"{rep['per_step_ms']:.3f} ms a step (kernel_split "
+          f"{split['device_ms_per_step']:.3f}); buckets "
+          f"{ {b: (v['ms'], v['share']) for b, v in rep['buckets'].items()} };"
+          f" the port's kernels {ours[:6]} [{card}]")
+    return dict(plane_class=rep["plane_class"], n_ops=rep["n_ops"],
+                per_step_ms=rep["per_step_ms"],
+                kernel_split_ms=split["device_ms_per_step"],
+                buckets=rep["buckets"], kernels=ours, top=rep["ops"][:12])
+
+
+def run_obs(torch, ops, card, launches):
+    """obs: ``python -m apex1_tpu_torch.obs --smoke`` on the card (the
+    spine, a traced tiny step's report, the port's own calibration
+    corpus priced ``uncalibrated``), then `obs.xspace`'s reports of one
+    GPT-2 124M O2 step (flash, the fused head: ``train``'s configuration
+    at full width) and one ``llama_block`` O2 step: device rows, the
+    port's kernels in the ``kernel`` bucket, ``per_step_ms`` within 5 %
+    of `kernel_split`'s device ms of the same profiled step."""
+    t0 = time.perf_counter()
+    errs, out = [], {}
+    smoke = subprocess.run([sys.executable, "-m", "apex1_tpu_torch.obs",
+                            "--smoke"], cwd=HERE, capture_output=True,
+                           text=True, timeout=600)
+    lines = [ln for ln in smoke.stdout.splitlines()
+             if ln.split(" ")[0] in ("spine", "trace", "calibrate", "OBS",
+                                     "FAIL")]
+    for ln in lines:
+        print(f"  obs --smoke: {ln}")
+    out["smoke"] = {"rc": smoke.returncode, "lines": lines}
+    if smoke.returncode != 0 or "OBS SMOKE OK" not in smoke.stdout \
+            or "uncalibrated" not in smoke.stdout:
+        errs.append(f"obs: --smoke rc {smoke.returncode}: "
+                    f"{(smoke.stdout + smoke.stderr)[-800:]}")
+    for label, make in (
+            ("GPT-2 124M O2 flash, fused head",
+             lambda: make_trainer(torch, "O2", 12, SEED, use_flash=True,
+                                  fuse_head=True)),
+            ("llama_block O2", lambda: make_llama_trainer(
+                torch, "O2", LLAYERS, SEED))):
+        _, state, step, batch = make()
+        rep = obs_report(torch, ops, state, step, batch, label, card)
+        del state, step, batch
+        torch.cuda.empty_cache()
+        out[label] = rep
+        off = abs(rep["per_step_ms"] / rep["kernel_split_ms"] - 1.0)
+        if rep["plane_class"] != "device" or not rep["kernels"] \
+                or rep["buckets"]["kernel"]["ms"] <= 0 or off > 0.05:
+            errs.append(f"obs: {label}: {rep['plane_class']}, kernels "
+                        f"{rep['kernels'][:3]}, per_step_ms "
+                        f"{rep['per_step_ms']} against kernel_split "
+                        f"{rep['kernel_split_ms']} ({off:.1%})")
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"phase obs: {out['wall_s']:.1f} s [{card}]")
+    return out, ("; ".join(errs) if errs else None)
+
+
 def run_serve_example(torch, ops, card, launches):
     """serve-example: serving_llama at its 1B config on the card (16
     layers, hidden 2048, 32 / 4 heads, ffn 5632, vocab 32000, O2; B 2,
@@ -9588,7 +9920,8 @@ def main() -> int:
                 "examples": run_examples,
                 "examples-encdec": run_examples_encdec,
                 "serve-example": run_serve_example,
-                "planner": run_planner, "elastic-drill": run_elastic_drill}
+                "planner": run_planner, "elastic-drill": run_elastic_drill,
+                "tune": run_tune, "obs": run_obs}
         grouped = {"train-fsdp": run_fsdp, "train-zero": run_zero,
                    "train-bert-lamb": run_bert_lamb,
                    "spatial-bottleneck": run_spatial,
@@ -10099,8 +10432,11 @@ def main() -> int:
         stamp(phase)
     # 46-47. the planner's pricing and search on the card, and the elastic
     # drill re-planning 2 gloo ranks onto the card
+    # 48-49. the tuning table, the sweep and the budget model's frames
+    # against the card's attributes; the trace reader's reports
     for phase, fn in (("planner", run_planner),
-                      ("elastic-drill", run_elastic_drill)):
+                      ("elastic-drill", run_elastic_drill),
+                      ("tune", run_tune), ("obs", run_obs)):
         ex_out[phase], err = fn(torch, ops, card, main_launches)
         if err:
             return fail(err)

@@ -252,3 +252,25 @@ def test_prefetch_loader_defaults_to_cuda_side_stream_copies(monkeypatch):
                      ("record", side, ev), ("wait", consumer, ev),
                      ("record_stream", consumer),
                      ("record_stream", consumer)]
+
+
+def test_obs_smoke_and_the_sweep_default_to_cuda(capsys, tmp_path,
+                                                 monkeypatch):
+    """``python -m apex1_tpu_torch.obs --smoke`` traces its step on the
+    card unless ``--device cpu`` (without one its trace stage fails
+    naming CUDA); the tuning sweep times on the card unless ``--device
+    cpu`` (without one it exits 1 naming the missing device)."""
+    from apex1_tpu_torch import tuning
+    from apex1_tpu_torch.obs import __main__ as obs_main
+    from apex1_tpu_torch.tuning import sweep
+    monkeypatch.setenv("APEX1_TUNING_DIR", str(tmp_path))
+    if not torch.cuda.is_available():
+        assert obs_main.main(["--smoke"]) == 1
+        assert "FAIL stage trace" in capsys.readouterr().out
+        assert sweep.main(["--kernel", "lora_epilogue"]) == 1
+        assert "no CUDA device" in capsys.readouterr().err
+    assert obs_main.main(["--smoke", "--device", "cpu"]) == 0
+    assert "host-proxy" in capsys.readouterr().out
+    assert sweep.main(["--kernel", "lora_epilogue", "--device", "cpu",
+                       "--iters", "1"]) == 0
+    tuning.clear_cache()

@@ -2169,3 +2169,88 @@ def test_dense_engine_equals_paged_engine(cuda, temperature):
                                           if paged else 0)
         streams[paged] = [eng.results[r].tokens.tolist() for r in ids]
     assert streams[False] == streams[True]
+
+
+# ---- the tuning table and the budget model (card) -----------------------
+
+TUNABLE = ("int8_matmul", "fused_sample", "paged_decode", "lora_epilogue",
+           "fused_swiglu", "fused_collective_matmul", "chunked_loss")
+
+
+@pytest.mark.parametrize("name", TUNABLE)
+def test_table_driven_launches_equal_plain(cuda, name, tmp_path,
+                                           monkeypatch):
+    """Each swept candidate banked as a measured table entry is what the
+    op then launches (its plan), and the launch equals the plain version
+    within the sweep's tolerance (ids exactly)."""
+    from apex1_tpu_torch import tuning
+    from apex1_tpu_torch.tuning import sweep
+    monkeypatch.setenv("APEX1_TUNING_DIR", str(tmp_path))
+    tuning.clear_cache()
+    case = sweep.CASES[name](torch, "cuda", False)
+    assert case.plan() == case.heuristic()
+    want = case.plain()
+    try:
+        for p in case.candidates:
+            tuning.clear_cache()
+            tuning.record(case.kernel, case.dims, case.dtype, p,
+                          time_ms=1.0)
+            assert tuning.lookup(case.kernel, case.dims, case.dtype) == p
+            assert case.plan() == p
+            ok, worst = sweep.compare(torch, case.make(None)(), want,
+                                      case.tol)
+            torch.cuda.synchronize()
+            assert ok, (p, worst)
+    finally:
+        tuning.clear_cache()
+
+
+def test_launch_records_within_budget_frames(cuda):
+    """``cudaFuncGetAttributes`` and the launchers' dynamic shared memory
+    at small shapes, each launch within a frame of its `vmem_model`
+    check, which fits the h100 row."""
+    from apex1_tpu_torch.core.capability import smem_budget
+    from apex1_tpu_torch.ops import _build
+    from apex1_tpu_torch.ops import fused_collective as fc
+    from apex1_tpu_torch.ops import fused_dense as fd
+    from apex1_tpu_torch.ops import lora_epilogue as le
+    from apex1_tpu_torch.ops import quantized as q
+    from apex1_tpu_torch.tuning.registry import SPECS
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def rn(*s, dtype=torch.bfloat16):
+        return torch.randn(*s, generator=g, device="cuda").to(dtype)
+
+    wq, s = q.quantize_int8(rn(256, 512, dtype=torch.float32))
+    pages = 1 + 3 * 4
+    cases = [
+        ("int8_matmul", dict(zip(("bm", "bt", "splits", "kc"),
+                                 q.int8_plan(8, 256, 512))),
+         {"N": 256, "K": 512, "Tb": 8}, 1,
+         lambda: q.int8_mm(rn(8, 512), wq, s)),
+        ("fused_swiglu", {"tile_n": fd.glu_tile(300, 1000,
+                                                torch.bfloat16)[1]},
+         {"Hp": 256, "Tb": 512}, 2,
+         lambda: fd.glu_fwd(rn(300, 256), rn(256, 1000), rn(256, 1000))),
+        ("fused_collective_matmul",
+         dict(zip(("block_m", "block_n"),
+                  fc.chunk_tile(512, 1024, torch.bfloat16))),
+         {"Kp": 256}, 2, lambda: fc.chunk_matmul(rn(512, 256),
+                                                 rn(256, 1024))),
+        ("lora_epilogue", {"rows": le.lora_rows(8, 1000, 4, 132)},
+         {"Hp": 128, "Vp": 1000, "R": 4}, 2,
+         lambda: le.lora_delta(rn(8, 128), rn(pages, 128,
+                                                dtype=torch.float32),
+                               rn(pages, 1000, dtype=torch.float32),
+                               torch.ones(8, 4, dtype=torch.int32,
+                                          device="cuda"))),
+    ]
+    for check, blocks, dims, es, fn in cases:
+        fits, est = SPECS[check].check(blocks, dims, es,
+                                       smem_budget("h100"))
+        with _build.launch_records() as rec:
+            fn()
+        torch.cuda.synchronize()
+        assert fits and rec, check
+        for r in rec:
+            assert any(f.bounds(r) for f in est), (check, r, list(est))

@@ -1303,3 +1303,50 @@ def examples_cases(inputs: dict, n: int) -> dict:
     return _np(dict(pp=dict(losses=pp["losses"], stage=pp["stage"],
                             params=pp["params"]),
                     ld=dict(losses=ld["losses"], params=ld["params"])))
+
+
+# ---- tests/test_torch_hlo_probe.py --------------------------------------
+
+
+def hlo_probe_cases(n: int) -> dict:
+    """The overlap probe's traces on this rank: `hlo_probe.ring_case` for
+    the overlapped ring forward, forward + backward and the serialized
+    ring; `halo.exchange_overlap` and its plain `halo_exchange` under
+    the profiler; and one traced step of every collective kind of
+    `mappings.COLLECTIVES`, with the counter's values."""
+    import tempfile
+
+    from apex1_tpu_torch.parallel import halo
+    from apex1_tpu_torch.testing import hlo_probe
+    from apex1_tpu_torch.transformer.tensor_parallel import mappings
+    from apex1_tpu_torch.utils.observability import trace
+    _setup(context_parallel_size=n)
+    out = {w: hlo_probe.ring_case(w) for w in ("fwd", "bwd", "serial")}
+    x = torch.arange(4 * 8 * 3, dtype=torch.float32).reshape(1, 8, 4, 3)
+
+    def traced(fn):
+        mappings.reset_collectives()
+        with tempfile.TemporaryDirectory() as tmp:
+            with trace(tmp) as prof:
+                fn()
+            events = [e for e in hlo_probe.trace_events(prof.trace_path)
+                      if e.get("ph") == "X"
+                      and (e["name"].startswith("overlap.")
+                           or e["name"].startswith("c10d::"))]
+        return {"events": events, "counts": dict(mappings.COLLECTIVES)}
+
+    out["halo"] = traced(lambda: halo.exchange_overlap(
+        x, torch.tanh, "cp", halo=1, dim=1))
+    out["halo_plain"] = traced(lambda: halo.halo_exchange(
+        x, "cp", halo=1, dim=1))
+    g = dist.group.WORLD
+
+    def step():
+        for _ in range(3):
+            mappings.all_reduce(x, g)
+        mappings.all_gather(x, g, 1)
+        mappings.all_gather(x, g, 2)
+        mappings.reduce_scatter(x, g, 1)
+        mappings.all_to_all(x, g, 1, 2)
+    out["counts"] = traced(step)
+    return out
